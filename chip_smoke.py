@@ -5,17 +5,24 @@
 
 1. prints the card's name and power limit (nvidia-smi) and builds the
    CUDA kernels from timetabling_ga_tpu_torch/csrc (build time printed);
-2. holds every kernel of the main path against its plain PyTorch version
-   on the card, at the main path's shapes on fixtures/comp01s.tim
-   (P = 16 and P = 256 individuals): exact equality of every output,
-   then times both with CUDA events after a warm-up;
+2. holds every kernel against its plain PyTorch version on the card, at
+   the main path's shapes on fixtures/comp01s.tim: K1-K4 at P = 16 and
+   P = 256 individuals, K5 (the whole sweep pass) at the repair pass's
+   P = 16 and P = 256 and the post pass's P = 4, from random starts and
+   from feasible ones (the planted witness, a few events moved) — exact
+   equality of every output (K5: the seven state fields, strict_rows
+   and the pivots), then times both with CUDA events after a warm-up,
+   and K5 alone on one individual (its step chain's floor);
 3. drives the main path — `timetabling_ga_tpu_torch.cli` on comp01s,
-   seed 42, size-tuned defaults, bounded by -t and --generations — with
-   the launch counters zeroed just before, and checks a protocol-valid
-   stream (per-island best non-increasing, solution and runEntry
-   records), that every kernel launched, and that a feasible reported
-   timetable re-scores to its reported best;
-4. prints one line per kernel, the {"kernels": [...]} summary and, last,
+   seed 42, size-tuned defaults, bounded by -t — with the launch
+   counters zeroed just before, and checks a protocol-valid stream
+   (per-island best non-increasing, solution and runEntry records),
+   that K1, K2 and K5 launched and the per-step K3/K4 did not, and that
+   a feasible reported timetable re-scores to its reported best;
+4. profiles one repair generation and one post-phase sweep pass
+   (launches and wall per sweep pass, device idle share, device time
+   per launch of each kernel);
+5. prints one line per kernel, the {"kernels": [...]} summary and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -34,12 +41,38 @@ TIM = os.path.join(HERE, "fixtures", "comp01s.tim")
 WITNESS = os.path.join(HERE, "fixtures", "comp01s.witness.json")
 OUT_DIR = os.path.join(HERE, "build", "chip_smoke")
 # the main path's budget: short enough that the whole script stays well
-# inside its time limit, long enough to reach the post-feasibility phase
-MAIN_ARGS = ["-s", "42", "-t", "90", "--generations", "400", "--trace"]
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and the
-# non-tensor-core rate the integer/float32 ALU work of these kernels uses
+# inside its time limit, long enough to reach the post-feasibility phase;
+# the time limit, not the generation cap, ends the run
+MAIN_ARGS = ["-s", "42", "-t", "90", "--generations", "100000", "--trace"]
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and float32
+# outside the tensor cores, 67e12/s, which counts an FMA as two operations
+# on 128 lanes an SM. These kernels' work is integer: Hopper issues INT32
+# on 64 lanes an SM, one operation each, a quarter of that rate; a plain
+# float32 operation (a compare, an add) issues at half of it.
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+PEAK_INT_OPS_S = 67e12 / 4
+PEAK_FP32_OPS_S = 67e12 / 2
+# Operations per element K5 visits, counted by hand as the loads and ALU
+# instructions on that element's path in csrc/sweep_dev.cuh and
+# csrc/sweep_pass.cu (the loop bookkeeping around them not counted)
+OPS_WORD = 2          # a conflict word: load, mask off the event itself
+OPS_BIT = 6           # a set conflict bit: ffs, clear, index, slot load,
+                      # compare, add
+OPS_ROOM_KEY = 12     # a (slot, room) key of a room argmin: occupancy
+                      # load, own-cell test, suitability load, the key's
+                      # mul/adds, compare and select
+OPS_MASK_SLOT = 5     # a (student, slot) of tt_move1_prepare's masks
+OPS_MOVE1_STUDENT = 25  # a (target, student) of tt_move1_target: day bits,
+                        # free test, 4 neighbour bits, popcount, 5 adds
+OPS_STUDENT = 6       # a student of the K4 re-score: 3 attendance loads,
+                      # the earlier-event test
+OPS_DAY_SLOT = 9      # a (student, day, slot) of the K4 re-score: att
+                      # load, 3 patch compares and adds, 2 bit sets
+OPS_DAY_SCORE = 12    # tt_day_scv of one day's bits: runs and singles
+OPS_CAND = 16         # a candidate's fixed work: 4 stores, the lexicographic
+                      # compare, the tie test and noise compare
+OPS_HEAT = 10         # an event's fixed heat work: cell, suitability, mask
+OPS_RANK = 3          # a float pair of the rank count: >, ==, index <
 KERNELS = {
     "assign_rooms": ("timetabling_ga_tpu_torch/csrc/assign_rooms.cu",
                      "timetabling_ga_tpu/ops/rooms.py:108"),
@@ -49,7 +82,12 @@ KERNELS = {
                     "timetabling_ga_tpu/ops/sweep.py:78"),
     "delta_one": ("timetabling_ga_tpu_torch/csrc/delta_one.cu",
                   "timetabling_ga_tpu/ops/delta.py:90"),
+    "sweep_pass": ("timetabling_ga_tpu_torch/csrc/sweep_pass.cu",
+                   "timetabling_ga_tpu/ops/sweep.py:230"),
 }
+# the kernels the main path must launch; K3 and K4 run there only inside
+# K5 and keep their own launches as unit checks of the shared bodies
+MAIN_PATH_KERNELS = ("assign_rooms", "batch_penalty", "sweep_pass")
 
 
 class SmokeFailure(Exception):
@@ -80,8 +118,10 @@ def nbytes(*tensors):
 
 
 def kernel_cases(pa, P, dev):
-    """For each kernel: (kernel call, plain call, bytes moved, ops) at
-    the main path's shapes with P individuals."""
+    """For each kernel: (kernel call, plain call, bytes moved, integer
+    operations) at the main path's shapes with P individuals; the
+    operations are each inner loop's trip count times its loads and ALU
+    instructions, counted by hand from the kernel's source."""
     import torch
     from timetabling_ga_tpu_torch.ops import delta, fitness, rooms, sweep
     g = torch.Generator(device=dev).manual_seed(1000 + P)
@@ -165,7 +205,7 @@ def compare(pa, dev):
             ms = time_ms(kern, reps)
             plain_ms = time_ms(plain, 5)
             bytes_ms = nb / PEAK_BYTES_S * 1e3
-            ops_ms = ops / PEAK_OPS_S * 1e3
+            ops_ms = ops / PEAK_INT_OPS_S * 1e3
             out[(name, P)] = dict(
                 ms=ms, plain_ms=plain_ms, max_abs_err=err,
                 bound_ms=max(bytes_ms, ops_ms),
@@ -173,12 +213,201 @@ def compare(pa, dev):
     return out
 
 
+def sweep_pass_work(pa, sh, st, draws, piv):
+    """(bytes, integer operations, float operations) of one K5 pass on
+    this state, these draws and these pivots (P, K). Bytes: the state
+    read and written once, the draws and problem arrays read once,
+    strict_rows and the pivots written. Operations: the elements K5 must
+    visit on this data, times the OPS_* constants above — per step, each
+    block pivot's Move1 (its conflict row, its students' slot masks, T
+    targets of R room keys and one update per student), and each Move2 /
+    Move3 candidate's K4 body (3 room argmins, then for each of its events
+    that changes slot the conflict row and its students' days, counted
+    once per (event, student, day) and the days counted as the distinct
+    days the moving events leave and enter) plus its share of the choice;
+    in hot mode the prologue's heat per event (its conflict row while the
+    row is infeasible, its students' days once feasible) and the E^2 rank
+    compares (float). Slots are those the pass starts from; the apply,
+    which runs only on an accepted step, is left out, so the count stays
+    below what the kernel does."""
+    import torch
+    import torch.nn.functional as F
+    from timetabling_ga_tpu_torch.ops import sweep
+    E, R, T = pa.n_events, pa.n_rooms, pa.n_slots
+    W, spd, n_days = (pa.conflict_bits.shape[1], pa.slots_per_day,
+                      pa.n_days)
+    P, dev, i64 = st.slots.shape[0], st.slots.device, torch.int64
+    nb = (2 * nbytes(*st) + nbytes(*(x for x in draws if x is not None))
+          + nbytes(pa.possible_u8, pa.live, pa.student_count,
+                   pa.conflict_bits, pa.cap_rank, pa.dead, pa.attends_u8,
+                   pa.ev_ptr, pa.ev_stu, pa.event_mask, pa.anchor_slots,
+                   pa.anchor_w) + P + P * sh.K * 4)
+    n_st = (pa.ev_ptr[1:] - pa.ev_ptr[:-1]).to(i64)
+    deg = ((pa.conflict > 0.5).sum(1)
+           - (pa.conflict.diagonal() > 0.5).to(i64))
+    slots = st.slots.to(i64)
+    day_work = OPS_STUDENT, spd * OPS_DAY_SLOT + 2 * OPS_DAY_SCORE
+
+    def k4_ops(ev, ns):
+        # ev, ns (P, X, 3): a candidate's events and new slots
+        os = slots.gather(1, ev.flatten(1)).view_as(ev)
+        shift = (ns != os).to(i64)
+        days = torch.cat([os, ns], -1) // spd
+        on = torch.cat([shift, shift], -1)
+        n_d = ((F.one_hot(days, n_days) * on[..., None]).sum(-2) > 0
+               ).sum(-1, keepdim=True)
+        per = shift * (W * OPS_WORD + deg[ev] * OPS_BIT
+                       + n_st[ev] * (day_work[0] + n_d * day_work[1]))
+        return int(per.sum()) + ev.shape[0] * ev.shape[1] * (
+            3 * R * OPS_ROOM_KEY + OPS_CAND)
+
+    pos = torch.arange(sh.n_steps, device=dev)[:, None]
+    blk = torch.arange(sh.B, device=dev)[None, :]
+    e = piv.to(i64)[:, ((pos * sh.B + blk) % sh.K).flatten()]   # (P, n*B)
+    ops = int((W * OPS_WORD + deg[e] * OPS_BIT
+               + n_st[e] * (T * OPS_MASK_SLOT + 2 * OPS_DAY_SCORE)
+               + T * (R * OPS_ROOM_KEY + OPS_CAND
+                      + n_st[e] * OPS_MOVE1_STUDENT)).sum())
+    perm = sweep._perms(draws, E, dev).to(i64)
+    if sh.SB:
+        k = torch.arange(sh.SB, device=dev)
+        j = (pos[..., None] * sh.B + 1 + blk[..., None] + k).flatten()
+        e2 = e.view(P, sh.n_steps, sh.B, 1).expand(
+            P, sh.n_steps, sh.B, sh.SB).reshape(P, -1)
+        q = perm[:, j % E]
+        pad = torch.where((e2 + 1) % E == q, (e2 + 2) % E, (e2 + 1) % E)
+        ev = torch.stack([e2, q, pad], -1)
+        sl = slots.gather(1, ev.flatten(1)).view_as(ev)
+        ops += k4_ops(ev, sl[..., [1, 0, 2]])
+    if sh.with_move3 and sh.SB >= 2:
+        k = torch.arange(sh.SB - 1, device=dev)
+        j = (pos[..., None] * sh.B + 1 + blk[..., None] + k).flatten()
+        e3 = e.view(P, sh.n_steps, sh.B, 1).expand(
+            P, sh.n_steps, sh.B, sh.SB - 1).reshape(P, -1)
+        ev = torch.stack([e3, perm[:, j % E], perm[:, (j + 1) % E]], -1)
+        sl = slots.gather(1, ev.flatten(1)).view_as(ev)
+        ops += k4_ops(ev, sl[..., [1, 2, 0]]) + k4_ops(ev, sl[..., [2, 0, 1]])
+    fops = 0
+    if sh.use_hot:
+        infeasible = (st.hcv > 0).to(i64)[:, None]
+        heat = (infeasible * (W * OPS_WORD + deg * OPS_BIT)
+                + (1 - infeasible) * n_st * spd * 2 + OPS_HEAT)
+        ops += int(heat.sum())
+        fops = P * (2 * E + OPS_RANK * E * E)
+    return nb, ops, fops
+
+
+def witness_state(pa, P, g):
+    """P copies of the planted zero-penalty witness, row i with i % 4 of
+    three spread events moved to random slots (rooms kept): the unmoved
+    rows and the moved ones that stay clash-free are feasible, so the
+    pass takes the hot heat's feasible branch and a choice decided by
+    scv on them."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import delta
+    dev = pa.conflict.device
+    E, T = pa.n_events, pa.n_slots
+    with open(WITNESS) as f:
+        w = json.load(f)
+    slots = torch.tensor(w["slots"], dtype=torch.int32,
+                         device=dev).repeat(P, 1)
+    rms = torch.tensor(w["rooms"], dtype=torch.int32,
+                       device=dev).repeat(P, 1)
+    base = torch.randint(0, E, (P, 1), generator=g, device=dev)
+    ev = (base + torch.tensor([0, E // 3, 2 * E // 3], device=dev)) % E
+    to = torch.randint(0, T, (P, 3), generator=g, device=dev,
+                       dtype=torch.int32)
+    moved = (torch.arange(3, device=dev)[None, :]
+             < (torch.arange(P, device=dev) % 4)[:, None])
+    slots.scatter_(1, ev, torch.where(moved, to, slots.gather(1, ev)))
+    return delta.init_state(pa, slots, rms)
+
+
+def compare_sweep_pass(pa, dev):
+    """K5 against sweep_pass_plain at the main path's three sweep shapes
+    (the engine's repair config at P = 16 and 256, its post config at
+    P = 4), exactly, from random starts and from feasible ones (the
+    witness, a few events moved); then both timed from the random
+    start, and K5 on one individual."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import delta, rooms, sweep
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    cfg = config.parse_args(["-i", TIM]).apply_tuned_defaults(pa.n_events)
+    repair = engine.build_ga_config(cfg)
+    post = engine.build_post_config(cfg, repair)
+    E, T = pa.n_events, pa.n_slots
+    out = {}
+    for phase, P, gc in (("repair", 16, repair), ("repair", 256, repair),
+                         ("post", post.pop_size, post)):
+        args = (gc.ls_swap_block, gc.ls_block_events, gc.ls_sideways,
+                gc.ls_hot_k, gc.p3)
+        sh = sweep.sweep_shape(E, T, gc.ls_swap_block, gc.ls_block_events,
+                               gc.ls_hot_k, gc.p3)
+        g = torch.Generator(device=dev).manual_seed(2000 + P)
+        slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        st = delta.init_state(pa, slots, rooms.assign_rooms_plain(pa, slots))
+        draws = sweep.make_sweep_draws([g], P, sh, E, gc.ls_sideways, dev)
+        feasible = witness_state(pa, P, g)
+        check(int((feasible.hcv == 0).sum()) >= P // 4,
+              f"sweep_pass {phase} P={P}: too few feasible witness rows")
+        err = 0
+        for start, s0 in (("random", st), ("feasible", feasible)):
+            got, rows, piv = sweep.sweep_pass_kernel(pa, draws, s0, *args)
+            want, want_rows = sweep.sweep_pass_plain(pa, draws, s0, *args)
+            want_piv = (sweep.hot_pivots(pa, s0, draws.hot_noise, sh.K)
+                        if sh.use_hot else sweep._perms(draws, E, dev))
+            torch.cuda.synchronize()
+            for gt, wt in zip((*got, rows, piv),
+                              (*want, want_rows, want_piv)):
+                check(gt.shape == wt.shape and gt.dtype == wt.dtype,
+                      f"sweep_pass {phase} P={P} {start}: kernel output "
+                      f"{tuple(gt.shape)} {gt.dtype} vs plain "
+                      f"{tuple(wt.shape)} {wt.dtype}")
+                err = max(err, int((gt.long() - wt.long()).abs().max()))
+            check(err == 0, f"sweep_pass {phase} P={P} {start}: kernel "
+                            f"differs from its plain version (max abs err "
+                            f"{err})")
+            check(not torch.equal(got.slots, s0.slots),
+                  f"sweep_pass {phase} P={P} {start}: the pass moved "
+                  f"nothing")
+            if start == "random":
+                work = sweep_pass_work(pa, sh, s0, draws, piv)
+        reps = 20 if phase == "repair" else 5
+        ms = time_ms(lambda: sweep.sweep_pass_kernel(pa, draws, st, *args),
+                     reps)
+        plain_ms = time_ms(lambda: sweep.sweep_pass_plain(pa, draws, st,
+                                                          *args), 1)
+        # the step chain alone: one individual, one block on one SM
+        one = delta.LSState(*(x[:1] for x in st))
+        d1 = sweep.SweepDraws(
+            draws.a[:1], draws.b[:1],
+            None if draws.hot_noise is None else draws.hot_noise[:1],
+            None if draws.tie_noise is None else draws.tie_noise[:, :1],
+            None if draws.allow is None else draws.allow[:, :1])
+        ms1 = time_ms(lambda: sweep.sweep_pass_kernel(pa, d1, one, *args),
+                      reps)
+        nb, ops, fops = work
+        bytes_ms = nb / PEAK_BYTES_S * 1e3
+        ops_ms = (ops / PEAK_INT_OPS_S + fops / PEAK_FP32_OPS_S) * 1e3
+        out[(phase, P)] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=err, steps=sh.n_steps,
+            chain_floor_ms=ms1, us_per_step=ms1 * 1e3 / sh.n_steps,
+            smem_bytes=sweep.sweep_pass_smem_bytes(pa, sh),
+            feasible_rows=int((feasible.hcv == 0).sum()),
+            int_ops=ops, fp32_ops=fops,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
 def profile_phases(pa, dev):
     """A short torch.profiler window per phase config: one warm repair
     generation (pop 16) and one warm post-phase sweep pass (pop 4). For
     each: wall time, device time summed over CUDA events, the device's
-    idle share, device launches per sweep step and the kernels taking
-    the most device time. Full tables go to build/chip_smoke/."""
+    idle share, device launches and wall per sweep pass, device time per
+    launch of each hand kernel and the kernels taking the most device
+    time. Full tables go to build/chip_smoke/."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -207,16 +436,17 @@ def profile_phases(pa, dev):
                     gacfg.ls_hot_k, gacfg.p3)
         work()                                              # warm-up
         torch.cuda.synchronize()
-        steps0 = kernels.LAUNCHES["move1_sweep"]
+        passes0 = kernels.LAUNCHES["sweep_pass"]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
             work()
             torch.cuda.synchronize()
             wall_ms = (time.monotonic() - t0) * 1e3
-        steps = kernels.LAUNCHES["move1_sweep"] - steps0
+        passes = kernels.LAUNCHES["sweep_pass"] - passes0
         averages = prof.key_averages()
         rows = []
+        per_launch = {}
         for ev in averages:
             if getattr(ev, "device_type", None) != DeviceType.CUDA:
                 continue
@@ -224,6 +454,9 @@ def profile_phases(pa, dev):
             if dev_us is None:
                 dev_us = ev.self_cuda_time_total
             rows.append((dev_us, ev.count, ev.key[:60]))
+            for k in KERNELS:
+                if ev.key.startswith(f"{k}_kernel") and ev.count:
+                    per_launch[k] = dev_us / ev.count
         rows.sort(reverse=True)
         device_ms = sum(r[0] for r in rows) / 1e3
         launches = sum(r[1] for r in rows)
@@ -233,12 +466,13 @@ def profile_phases(pa, dev):
         out.append({"config": name, "pop": gacfg.pop_size,
                     "window": ("one generation" if name == "repair"
                                else "one sweep pass"),
-                    "sweep_steps": steps, "wall_ms": wall_ms,
+                    "sweep_passes": passes, "wall_ms": wall_ms,
                     "device_ms": device_ms,
                     "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
                     "device_launches": launches,
-                    "launches_per_step": launches / max(steps, 1),
-                    "wall_ms_per_step": wall_ms / max(steps, 1),
+                    "launches_per_pass": launches / max(passes, 1),
+                    "wall_ms_per_pass": wall_ms / max(passes, 1),
+                    "kernel_us_per_launch": per_launch,
                     "top": [[k, c, us / 1e3] for us, c, k in rows[:8]]})
     return out
 
@@ -345,6 +579,7 @@ def main() -> int:
           "witness does not score (0, 0)")
 
     timings = compare(pa, dev)
+    timings.update(compare_sweep_pass(pa, dev))
     records, seconds, launches = main_path()
     summary = check_stream(records, problem.device_arrays("cpu"))
     summary["wall_s"] = round(seconds, 3)
@@ -352,21 +587,28 @@ def main() -> int:
     for prof in profile_phases(pa, dev):
         print(json.dumps({"profile": prof}))
     for name in KERNELS:
-        check(launches[name] > 0,
-              f"kernel {name} never launched on the main path")
-        for P in (16, 256):
-            t = timings[(name, P)]
-            print(json.dumps({"kernel": name, "P": P, "ms": t["ms"],
-                              "plain_ms": t["plain_ms"],
-                              "launches": launches[name]}))
+        if name in MAIN_PATH_KERNELS:
+            check(launches[name] > 0,
+                  f"kernel {name} never launched on the main path")
+        else:
+            check(launches[name] == 0,
+                  f"per-step kernel {name} launched {launches[name]} "
+                  f"times on the main path; K5 runs its body")
+    for key, t in timings.items():
+        name = key[0] if key[0] in KERNELS else "sweep_pass"
+        print(json.dumps({"kernel": name, "shape": list(key), **t,
+                          "launches": launches[name]}))
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        t = timings[(name, 16)]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": None})
+        t = timings[("repair", 16) if name == "sweep_pass" else (name, 16)]
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": None}
+        if name == "sweep_pass":
+            row.update(steps=t["steps"], chain_floor_ms=t["chain_floor_ms"])
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,234 @@
+"""The CUDA sources of K3, K4 and K5, run on the CPU, against their plain
+PyTorch versions.
+
+The kernels run only on the card (tests/test_torch_kernels.py, marked
+`cuda`), but their sources are plain CUDA C++. Here they compile with
+g++ against a small stand-in for `cuda_runtime.h` that runs every CUDA
+thread of a block as a std::thread: `__syncthreads` and the warp
+shuffles become std::barrier waits, shared-memory atomics become atomic
+builtins, and a launch runs its blocks one after another. The C entry
+points are then called through ctypes on CPU tensors. This checks the
+kernels' indexing, tie order, reductions and shared-memory layout on
+every machine with a C++20 compiler; what nvcc alone refuses, and
+timing, show only on the card. The file imports no JAX.
+"""
+
+import re
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from tests.test_torch_kernels import (
+    K5_CASES, _half_feasible, _instances, _k5_equals_plain, _state)
+from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch.ops import delta, moves, sweep
+from timetabling_ga_tpu_torch.problem import random_instance
+
+torch.set_num_threads(1)
+
+CUDA_STUB = r'''
+#pragma once
+#include <barrier>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorLaunchOutOfResources = 2 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+typedef void* cudaStream_t;
+struct emu_dim { unsigned x, y, z; };
+inline thread_local emu_dim threadIdx, blockIdx;
+inline emu_dim blockDim;
+inline unsigned char* emu_smem;
+inline std::barrier<>* emu_block_bar;
+inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_bar;
+inline uint64_t emu_lanes[1024];
+inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+template <class T> T emu_shfl_xor(T v, int off) {
+    int t = threadIdx.x, w = t >> 5, lane = t & 31;
+    std::memcpy(&emu_lanes[t], &v, sizeof(T));
+    emu_warp_bar[w]->arrive_and_wait();
+    T r;
+    std::memcpy(&r, &emu_lanes[(w << 5) | (lane ^ off)], sizeof(T));
+    emu_warp_bar[w]->arrive_and_wait();
+    return r;
+}
+#define __shfl_xor_sync(mask, v, off) emu_shfl_xor(v, off)
+inline int __ffs(unsigned x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int atomicAdd(int* p, int v) {
+    return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+inline cudaError_t cudaGetLastError() { return 0; }
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
+inline void emu_launch(int grid, int block, size_t smem,
+                       std::function<void()> body) {
+    std::vector<uint64_t> buf(smem / 8 + 2);
+    blockDim = {(unsigned)block, 1, 1};
+    for (int b = 0; b < grid; ++b) {
+        std::memset(buf.data(), 0xAB, buf.size() * 8);  // poison
+        emu_smem = (unsigned char*)buf.data();
+        std::barrier<> bar(block);
+        emu_block_bar = &bar;
+        emu_warp_bar.clear();
+        for (int w = 0; w < (block + 31) / 32; ++w)
+            emu_warp_bar.emplace_back(new std::barrier<>(32));
+        std::vector<std::thread> th;
+        for (int t = 0; t < block; ++t)
+            th.emplace_back([&, t, b] {
+                threadIdx = {(unsigned)t, 0, 0};
+                blockIdx = {(unsigned)b, 0, 0};
+                body();
+                emu_block_bar->arrive_and_drop();
+            });
+        for (auto& x : th) x.join();
+    }
+}
+'''
+
+EMULATED = ("move1_sweep", "delta_one", "sweep_pass")
+
+
+def _for_the_cpu(src: str) -> str:
+    """A kernel source with its shared-memory declaration pointed at the
+    stand-in's block buffer and its launch made a call of emu_launch."""
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];",
+                 r"\1* \2 = (\1*)emu_smem;", src)
+    return re.sub(
+        r"(\w+)<<<(.*?)>>>\((.*?)\);",
+        lambda m: (f"emu_launch({m.group(2).rsplit(',', 1)[0]}, "
+                   f"[&] {{ {m.group(1)}({m.group(3)}); }});"),
+        src, flags=re.S)
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The three libraries built for the CPU, swapped into `kernels` (and
+    `kernels.ptr` taught to take CPU tensors) for the module's tests."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the CUDA sources for the CPU")
+    d = tmp_path_factory.mktemp("cuda_emu")
+    (d / "cuda_runtime.h").write_text(CUDA_STUB)
+    for path in kernels.CSRC.iterdir():
+        (d / path.name).write_text(_for_the_cpu(path.read_text()))
+    procs = {n: subprocess.Popen(
+        [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
+         f"-I{d}", "-o", str(d / f"{n}.so"), str(d / f"{n}.cu"),
+         "-lpthread"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for n in EMULATED}
+    for n, proc in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, f"{n} does not build for the CPU:\n{out}"
+    saved = dict(kernels._LIBS), kernels.ptr, kernels.launch
+    for n in EMULATED:
+        kernels._LIBS[n] = kernels.load(n, d / f"{n}.so")
+
+    def launch(name, *args):
+        kernels.LAUNCHES[name] += 1
+        assert kernels._LIBS[name][1](*args, None) == 0
+
+    kernels.ptr = lambda t: t.data_ptr()
+    kernels.launch = launch
+    yield
+    kernels._LIBS.clear()
+    kernels._LIBS.update(saved[0])
+    kernels.ptr, kernels.launch = saved[1], saved[2]
+
+
+def _k3(pa, st, piv):
+    """move1_sweep's kernel path, on CPU tensors."""
+    P, B = piv.shape
+    out = torch.empty((3, P, B, pa.n_slots), dtype=torch.int32)
+    p = kernels.ptr
+    kernels.launch(
+        "move1_sweep", p(st.slots), p(st.rooms), p(st.att), p(st.occ),
+        p(piv), p(pa.possible_u8), p(pa.live), p(pa.student_count),
+        p(pa.conflict_bits), p(pa.cap_rank), p(pa.dead), p(pa.ev_ptr),
+        p(pa.ev_stu), p(out[0]), p(out[1]), p(out[2]), P, B, pa.n_events,
+        pa.n_rooms, pa.n_students, pa.n_slots, pa.slots_per_day,
+        pa.conflict_bits.shape[1], pa.max_ev_students)
+    return out[0], out[1], out[2]
+
+
+def _k4(pa, st, evs, ns, act):
+    """delta_one's kernel path, on CPU tensors."""
+    P, C, _ = evs.shape
+    d = torch.empty((2, P, C), dtype=torch.int32)
+    nr = torch.empty((P, C, 3), dtype=torch.int32)
+    args = [x.contiguous() for x in (evs, ns, act.to(torch.uint8))]
+    p = kernels.ptr
+    kernels.launch(
+        "delta_one", p(st.slots), p(st.rooms), p(st.att), p(st.occ),
+        *(p(a) for a in args), p(pa.possible_u8), p(pa.live),
+        p(pa.student_count), p(pa.conflict_bits), p(pa.cap_rank),
+        p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr), p(pa.ev_stu), p(d[0]),
+        p(d[1]), p(nr), P, C, pa.n_events, pa.n_rooms, pa.n_students,
+        pa.n_slots, pa.slots_per_day, pa.conflict_bits.shape[1])
+    return d[0], d[1], nr
+
+
+@pytest.mark.parametrize("inst", range(4))
+def test_k3_k4_sources_equal_plain(emulated, inst):
+    pa = _instances("cpu")[inst]
+    st = _state(pa, 4, 3)
+    piv = torch.randint(0, pa.n_events, (4, 2), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(1))
+    got = _k3(pa, st, piv)
+    want = sweep.move1_sweep_plain(pa, st.slots, st.rooms, st.att, st.occ,
+                                   piv)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    P, C = 3, 5
+    d = moves.make_move_draws([torch.Generator().manual_seed(5)], P * C,
+                              pa.n_events, pa.n_slots, 1.0, 1.0, 1.0, "cpu")
+    st3 = delta.LSState(*(x[:P] for x in st))
+    evs, ns, act = moves.sample_move(pa, d,
+                                     st3.slots.repeat_interleave(C, 0))
+    evs, ns, act = (x.reshape(P, C, 3) for x in (evs, ns, act))
+    evs[0, 0, 1] = evs[0, 0, 0]          # a duplicate-event candidate
+    got = _k4(pa, st3, evs, ns, act)
+    want = delta.delta_one_plain(pa, st3.slots, st3.rooms, st3.att,
+                                 st3.occ, evs, ns, act)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+def _tiny():
+    """A 24-event instance, small enough for a full-permutation pass."""
+    return random_instance(7, n_events=24, n_rooms=4, n_features=3,
+                           n_students=30, attend_prob=0.15).device_arrays()
+
+
+# short passes (hot pivots, or the tiny instance's 24-event permutation
+# in blocks of 2): the stand-in takes ~0.1 s per block and step
+@pytest.mark.parametrize("case,inst", [
+    (K5_CASES[0], 1), (K5_CASES[2], 3), (K5_CASES[3], 2), (K5_CASES[4], 0),
+    (K5_CASES[1], "tiny"), (K5_CASES[5], "tiny")])
+def test_k5_source_equals_plain(emulated, case, inst):
+    pa = _tiny() if inst == "tiny" else _instances("cpu")[inst]
+    inst = 4 if inst == "tiny" else inst
+    P = 2
+    st = _state(pa, P, 8 + inst)
+    sb, be, side, hot, p3 = case
+    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
+    draws = sweep.make_sweep_draws([torch.Generator().manual_seed(9)], P,
+                                   sh, pa.n_events, side, "cpu")
+    kernels.reset_launches()
+    _k5_equals_plain(pa, st, draws, case)
+    _k5_equals_plain(pa, _half_feasible(st), draws, case)
+    assert kernels.LAUNCHES["sweep_pass"] == 2

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions.
+"""The CUDA kernels K1-K5 against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package and needs no conftest
 fixture, so it also runs on a machine with the card but without JAX:
@@ -11,6 +11,9 @@ no CPU mode); the rest check, on any machine, the kernel build's
 bookkeeping and that a CPU tensor takes the plain version.
 """
 
+import ctypes
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +21,11 @@ import torch
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import delta, fitness, moves, rooms, sweep
 from timetabling_ga_tpu_torch.problem import (
-    derive, itc_like_instance, make_problem_arrays, random_instance)
+    derive, itc_like_instance, load_tim_file, make_problem_arrays,
+    random_instance)
+
+COMP01S = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "fixtures", "comp01s.tim")
 
 torch.set_num_threads(1)
 
@@ -135,6 +142,111 @@ def test_k4_delta_one_equals_plain(cuda):
             assert torch.equal(w, g2)
 
 
+# (swap_block, block_events, sideways, hot_k, p3) of the sweep passes K5
+# is held against: the CPU sweep tests' PASS_CASES; hot pivots whose K is
+# no multiple of B, with 3-cycles; no partners at all; hot_k >= E (the
+# full permutation); the comp-scale repair and post passes
+K5_CASES = [(4, 1, 0.5, 12, 0.3), (3, 2, 0.0, 0, 0.0),
+            (3, 1, 0.25, 10, 0.0), (2, 3, 0.25, 10, 0.5),
+            (0, 1, 0.0, 7, 0.0), (5, 1, 0.3, 500, 0.2),
+            (8, 1, 0.25, 48, 0.0), (64, 1, 0.25, 0, 0.0)]
+
+
+def _k5_equals_plain(pa, st, draws, case):
+    """K5 and sweep_pass_plain on the same state and draws: every state
+    field, strict_rows and the pivots, exactly."""
+    got, rows, piv = sweep.sweep_pass_kernel(pa, draws, st, *case)
+    want, want_rows = sweep.sweep_pass_plain(pa, draws, st, *case)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    assert torch.equal(want_rows, rows)
+    sb, be, _, hot, p3 = case
+    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
+    want_piv = (sweep.hot_pivots(pa, st, draws.hot_noise, sh.K)
+                if sh.use_hot else sweep._perms(draws, pa.n_events,
+                                                st.slots.device))
+    assert torch.equal(want_piv, piv)
+
+
+def _half_feasible(st):
+    """The state with every other row's hcv set to 0 (and pen to its
+    scv), so hot mode takes the feasible (scv) heat on those rows."""
+    zero = torch.arange(st.hcv.shape[0], device=st.hcv.device) % 2 == 1
+    hcv = torch.where(zero, 0, st.hcv)
+    pen = torch.where(zero, st.scv, st.pen)
+    return st._replace(pen=pen.to(torch.int32), hcv=hcv.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K5_CASES)
+def test_k5_sweep_pass_equals_plain(cuda, case):
+    sb, be, side, hot, p3 = case
+    for i, pa in enumerate(_instances(cuda)):
+        P = 6
+        st = _state(pa, P, 8 + i)
+        sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
+        g = torch.Generator(device=cuda).manual_seed(9 + i)
+        draws = sweep.make_sweep_draws([g], P, sh, pa.n_events, side, cuda)
+        _k5_equals_plain(pa, st, draws, case)
+        _k5_equals_plain(pa, _half_feasible(st), draws, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(8, 1, 0.25, 48, 0.0),
+                                  (64, 1, 0.25, 0, 0.0)])
+def test_k5_equals_plain_at_comp01s(cuda, case):
+    """The main path's repair (P=16) and post (P=4) passes on comp01s."""
+    pa = load_tim_file(COMP01S).device_arrays(cuda)
+    sb, be, side, hot, p3 = case
+    P = 16 if hot else 4
+    st = _state(pa, P, 12)
+    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    draws = sweep.make_sweep_draws([g], P, sh, pa.n_events, side, cuda)
+    _k5_equals_plain(pa, st, draws, case)
+    _k5_equals_plain(pa, _half_feasible(st), draws, case)
+
+
+@pytest.mark.cuda
+def test_k5_converge_local_search_equals_plain(cuda, monkeypatch):
+    pa = _instances(cuda)[0]
+    st = _state(pa, 8, 10)
+    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, 3, 1, 10, 0.0)
+
+    def draws_fn(i):
+        g = torch.Generator(device=cuda).manual_seed(100 + i)
+        return sweep.make_sweep_draws([g], 8, sh, pa.n_events, 0.25, cuda)
+
+    def run():
+        return sweep.sweep_local_search(
+            pa, draws_fn, st.slots, st.rooms, n_sweeps=6, swap_block=3,
+            converge=True, sideways=0.25, hot_k=10, groups=2,
+            return_passes=True)
+
+    kernels.reset_launches()
+    got = run()
+    assert kernels.LAUNCHES["sweep_pass"] == got[2]
+    monkeypatch.setattr(sweep, "sweep_pass", sweep.sweep_pass_plain)
+    want = run()
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+    assert want[2] == got[2]
+
+
+@pytest.mark.cuda
+def test_k5_shared_memory_count_matches_the_kernel(cuda):
+    kernels.build()
+    fn = kernels._LIBS["sweep_pass"][0].tt_sweep_pass_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 9
+    fn.restype = ctypes.c_int
+    for pa in _instances(cuda):
+        for sb, be, _, hot, p3 in K5_CASES:
+            sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
+            assert fn(pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots,
+                      sh.K, sh.n_cand, int(sh.use_hot), pa.max_ev_students,
+                      pa.conflict_bits.shape[1]) == \
+                sweep.sweep_pass_smem_bytes(pa, sh)
+
+
 @pytest.mark.cuda
 def test_launch_counters_count_launches(cuda):
     pa = _instances(cuda)[1]
@@ -160,6 +272,38 @@ def test_cpu_tensors_take_the_plain_version():
     assert sum(kernels.LAUNCHES.values()) == 0
 
 
+def test_sweep_pass_smem_bytes_at_comp01s():
+    """K5's shared memory per individual on comp01s (E=400, R=10, S=200,
+    T=45): att 18,000 B, conflict bits 20,800, slots and rooms 3,200,
+    occ 912, the rest pivots, heat and scratch."""
+    pa = load_tim_file(COMP01S).device_arrays()
+    repair = sweep.sweep_shape(400, 45, 8, 1, 48, 0.0)
+    post = sweep.sweep_shape(400, 45, 64, 1, 0, 0.0)
+    assert sweep.sweep_pass_smem_bytes(pa, repair) == 46_384
+    assert sweep.sweep_pass_smem_bytes(pa, post) == 47_088
+
+
+def test_sweep_pass_kernel_raises_above_the_shared_memory_limit():
+    # 2,700 students x 45 slots of int16 attendance is 243,000 bytes
+    big = random_instance(5, n_events=12, n_rooms=3, n_features=2,
+                          n_students=2700, attend_prob=0.05).device_arrays()
+    small = random_instance(5, n_events=12, n_rooms=3, n_features=2,
+                            n_students=20, attend_prob=0.2).device_arrays()
+    for pa, match in ((big, "shared memory"), (small, "CUDA device")):
+        st = _state(pa, 2, 1)
+        sh = sweep.sweep_shape(pa.n_events, pa.n_slots, 2, 1, 0, 0.0)
+        draws = sweep.make_sweep_draws([torch.Generator().manual_seed(0)],
+                                       2, sh, pa.n_events, 0.0, "cpu")
+        assert (sweep.sweep_pass_smem_bytes(pa, sh) > sweep.SMEM_LIMIT) == \
+            (pa is big)
+        kernels.reset_launches()
+        # past the limit it refuses before anything else; within it, it
+        # gets as far as the CPU tensor the kernel cannot take
+        with pytest.raises(ValueError, match=match):
+            sweep.sweep_pass_kernel(pa, draws, st, 2)
+        assert sum(kernels.LAUNCHES.values()) == 0
+
+
 def test_library_paths_are_keyed_by_source_hash():
     paths = {n: kernels._lib_path(n) for n in kernels.SIGNATURES}
     assert len(set(paths.values())) == len(paths)
@@ -168,6 +312,9 @@ def test_library_paths_are_keyed_by_source_hash():
         assert path.name.startswith(name + "-")
         assert (kernels.CSRC / f"{name}.cu").exists()
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+    # every local header a source includes is part of its key
+    assert [p.name for p in kernels._sources("sweep_pass")] == [
+        "sweep_pass.cu", "sweep_dev.cuh", "common.cuh"]
 
 
 def test_conflict_bits_and_csr_encode_the_problem():

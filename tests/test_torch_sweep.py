@@ -1,6 +1,6 @@
-"""The port's sweep local search (timetabling_ga_tpu_torch/ops/sweep.py,
-kernel K3 and its plain version) against the JAX sweep, exactly, under
-draws mirrored from the JAX key tree."""
+"""The port's sweep local search (timetabling_ga_tpu_torch/ops/sweep.py:
+the plain versions of kernels K3 and K5 and the hot pivot pick) against
+the JAX sweep, exactly, under draws mirrored from the JAX key tree."""
 
 import dataclasses
 
@@ -17,6 +17,7 @@ from timetabling_ga_tpu.ops import delta as jdelta
 from timetabling_ga_tpu.ops import sweep as jsweep
 from timetabling_ga_tpu.ops.ga import GAConfig as JGAConfig
 from timetabling_ga_tpu.ops.rooms import capacity_rank
+from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.convert import ls_state_from_numpy
 from timetabling_ga_tpu_torch.ops import delta as tdelta
 from timetabling_ga_tpu_torch.ops import ga as tga
@@ -64,6 +65,27 @@ def test_move1_sweep_and_heat_match_jax(which, medium_problem,
             tpa, st.slots, st.rooms, st.att, st.occ, st.hcv).numpy())
 
 
+@pytest.mark.parametrize("which", ["noise", "zero_noise", "padded"])
+def test_hot_pivots_match_jax_top_k(which, medium_problem, padded_problem):
+    """hot_pivots against lax.top_k(event_heat + noise, K): with all-zero
+    noise the integer heat ties everywhere and the index order decides
+    (lower first); the padded instance's masked events are all cold."""
+    problem = padded_problem if which == "padded" else medium_problem
+    jpa, tpa, jst, st = _state(problem, 3)
+    E, K = problem.n_events, 17
+    noise = np.random.default_rng(4).uniform(0.0, 0.9, (P, E)).astype(
+        np.float32)
+    if which == "zero_noise":
+        noise[:] = 0.0
+    for hcv in (jst.hcv, jnp.zeros_like(jst.hcv)):      # hcv / scv heat
+        heat = jax.vmap(lambda s, r, a, o, h: jsweep.event_heat(
+            jpa, s, r, a, o, h))(jst.slots, jst.rooms, jst.att, jst.occ, hcv)
+        want = jax.lax.top_k(heat + jnp.asarray(noise), K)[1]
+        got = tsweep.hot_pivots(tpa, st._replace(hcv=t32(hcv)),
+                                torch.from_numpy(noise), K)
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
 # (swap_block, block_events, sideways, hot_k, p3): hot-K with sideways
 # and 3-cycles; full-permutation blocked descent with a padded instance;
 # an anchored objective
@@ -95,6 +117,22 @@ def test_sweep_pass_matches_jax(case, medium_problem, padded_problem):
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
     assert bool(improved) == bool(rows.any())
+
+
+def test_sweep_pass_on_cpu_is_the_plain_version(medium_problem):
+    _, tpa, _, st = _state(medium_problem, 6)
+    cfg = tga.GAConfig(ls_swap_block=3, ls_sideways=0.25, ls_hot_k=10)
+    draws = tga.sweep_draws_fn([torch.Generator().manual_seed(2)], P, tpa,
+                               cfg)(0)
+    kernels.reset_launches()
+    got, rows = tsweep.sweep_pass(tpa, draws, st, 3, 1, 0.25, 10)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    want, want_rows = tsweep.sweep_pass_plain(tpa, draws, st, 3, 1, 0.25,
+                                              10)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    assert torch.equal(want_rows, rows)
+    assert not torch.equal(got.slots, st.slots)
 
 
 def test_converge_sweep_local_search_matches_jax(medium_problem):

@@ -1,0 +1,538 @@
+// K5: one whole sweep pass for every individual, in one launch.
+//
+// Replaces timetabling_ga_tpu/ops/sweep.py:230-591 `sweep_pass` — the
+// lax.scan of n_steps = ceil(K/B) steps, each delta-evaluating B pivots'
+// Move1 (all T slots), Move2 (SB partners) and Move3 (2(SB-1) 3-cycles)
+// candidates, taking the lexicographic (penalty, scv) best with the
+// sideways drift/descent mix and applying it — together with its hot
+// pivot pick, sweep.py:173-226 `event_heat` plus the `lax.top_k` at
+// :322. Before this kernel the port ran each step as ~130 launches: K3
+// (move1_sweep.cu) and K4 (delta_one.cu) plus the plain-torch step body.
+//
+// Bound on this card: the serial chain of n_steps CTA-wide steps, each a
+// handful of __syncthreads()-separated phases (evaluate, two block
+// reductions, apply), not bytes: one individual's state is ~50 KB at
+// comp scale and is read and written once per pass.
+//
+// Design: one CTA of 512 threads per individual, so that 16 warps share
+// the Move2/Move3 candidates of a step. The prologue loads the
+// individual's slots, rooms, att (S x T int16) and occ (T x R int16),
+// and the conflict bitset when it fits, into dynamic shared memory, and
+// builds the pivots: the affine permutation (a*j + b) mod E, or in hot
+// mode the event heat in integers, made float32 as
+// fadd_rn(fmul_rn(heat, mask), noise) (no FMA contraction, as torch
+// computes it) and ranked by counting (value descending, lower index
+// first on ties: the stable sort's and lax.top_k's order). Each step
+// then runs K3's body (sweep_dev.cuh) per block pivot with one thread
+// per target slot, K4's body with one warp per Move2/Move3 candidate,
+// a block-wide lexicographic (pen, scv, index) min and, with sideways,
+// a block-wide argmax of the tie noise (lowest index on ties), and
+// applies the chosen move to the shared-memory state. Nothing goes back
+// to global memory until the epilogue. All arithmetic is integer-exact
+// and equals sweep_pass_plain (ops/sweep.py) bit for bit.
+#include "sweep_dev.cuh"
+
+#define K5_THREADS 512
+#define K5_WARPS (K5_THREADS / 32)
+#define K5_BIG (1 << 20)
+#define K5_INT_MAX 0x7fffffff
+// the most dynamic shared memory one block may opt into on sm_90
+#define K5_SMEM_LIMIT 232448
+// block-wide scalars: the Move1 accumulator and the row's (pen, hcv, scv,
+// strict), 3 + 2 reduction ints per warp, the 16-int chosen move; the
+// Python side mirrors the 128 in ops/sweep.py _K5_MISC_INTS
+#define K5_MISC_INTS 128
+static_assert(8 + 5 * K5_WARPS + 16 <= K5_MISC_INTS,
+              "K5's misc region is too small for its warps");
+
+// Byte offsets of the shared-memory regions; the Python side mirrors it
+// in ops/sweep.py sweep_pass_smem_bytes.
+struct K5Smem {
+    unsigned slots, rooms, piv, heat, cand, per_slot, misc, masks, occ, att,
+        bits, total;
+    int bits_in_smem;
+};
+
+__host__ __device__ inline unsigned k5_align(size_t x) {
+    return (unsigned)((x + 15) & ~(size_t)15);
+}
+
+__host__ __device__ inline K5Smem k5_smem_layout(
+    int E, int R, int S, int T, int K, int n_cand, int use_hot,
+    int max_students, int W) {
+    K5Smem m;
+    unsigned o = 0;
+    m.slots = o; o += k5_align(4 * (size_t)E);
+    m.rooms = o; o += k5_align(4 * (size_t)E);
+    m.piv = o; o += k5_align(4 * (size_t)K);
+    m.heat = o; o += use_hot ? k5_align(4 * (size_t)E) : 0;
+    m.cand = o; o += k5_align(16 * (size_t)n_cand);
+    m.per_slot = o; o += k5_align(4 * (size_t)T);
+    m.misc = o; o += k5_align(4 * (size_t)K5_MISC_INTS);
+    m.masks = o; o += k5_align(8 * (size_t)(max_students > 0 ? max_students : 1));
+    m.occ = o; o += k5_align(2 * (size_t)T * R);
+    m.att = o; o += k5_align(2 * (size_t)S * T);
+    m.bits = o;
+    unsigned with_bits = o + k5_align(4 * (size_t)E * W);
+    m.bits_in_smem = with_bits <= K5_SMEM_LIMIT ? 1 : 0;
+    m.total = m.bits_in_smem ? with_bits : o;
+    return m;
+}
+
+struct K5Args {
+    TTSweepProblem pb;             // conflict_bits: the global copy
+    const float* event_mask;       // (E,)
+    const int* anchor_slots;       // (E,)
+    const int* anchor_w;           // (E,)
+    // state in, (P, ...)
+    const int* slots; const int* rooms; const int16_t* att;
+    const int16_t* occ; const int* pen; const int* hcv; const int* scv;
+    // draws
+    const int* a; const int* b;    // (P,)
+    const float* hot_noise;        // (P, E), hot mode
+    const float* tie_noise;        // (n_steps, P, n_cand), sideways
+    const uint8_t* allow;          // (n_steps, P), sideways
+    // state out, strict_rows (P,) and pivots (P, K)
+    int* slots_out; int* rooms_out; int16_t* att_out; int16_t* occ_out;
+    int* pen_out; int* hcv_out; int* scv_out; uint8_t* strict_out;
+    int* pivots_out;
+    int P, K, B, SB, n_steps, n_cand, use_hot, sideways, anchored;
+    K5Smem lay;
+};
+
+__device__ __forceinline__ int k5_base_penalty(int hcv, int scv) {
+    return hcv == 0 ? scv : TT_INFEASIBLE_OFFSET + hcv;
+}
+
+__device__ __forceinline__ int k5_perm(int a, int b, int j, int E) {
+    return (a * j + b) % E;
+}
+
+// Events, new slots and active flags of candidate `c` of step `pos`, in
+// the plain version's concatenation order: Move1 (b, t) | Move2 (b, k) |
+// Move3 (orientation, b, k). `invalid` marks a Move2/Move3 candidate
+// whose events collide (masked to BIG, sweep.py:408-417, :454).
+__device__ __forceinline__ void k5_candidate(
+    const K5Args& A, int perm_a, int perm_b, const int* piv,
+    const int* slots, int pos, int c, int ev[3], int ns[3], int on[3],
+    int* invalid) {
+    const int E = A.pb.E, T = A.pb.T, B = A.B, SB = A.SB;
+    const int n1 = B * T, n2 = B * SB;
+    *invalid = 0;
+    if (c < n1) {
+        int b = c / T, t = c % T;
+        int e = piv[(pos * B + b) % A.K];
+        ev[0] = e; ev[1] = (e + 1) % E; ev[2] = (e + 2) % E;
+        ns[0] = t; ns[1] = slots[ev[1]]; ns[2] = slots[ev[2]];
+        on[0] = 1; on[1] = 0; on[2] = 0;
+        return;
+    }
+    if (c < n1 + n2) {
+        int b = (c - n1) / SB, k = (c - n1) % SB;
+        int e = piv[(pos * B + b) % A.K];
+        int q = k5_perm(perm_a, perm_b, (pos * B + 1 + b + k) % E, E);
+        int pad = (e + 1) % E;
+        if (pad == q) pad = (e + 2) % E;
+        ev[0] = e; ev[1] = q; ev[2] = pad;
+        ns[0] = slots[q]; ns[1] = slots[e]; ns[2] = slots[pad];
+        on[0] = 1; on[1] = 1; on[2] = 0;
+        *invalid = q == e;
+        return;
+    }
+    int c3 = c - n1 - n2, nb = B * (SB - 1);
+    int o = c3 / nb, rem = c3 % nb;
+    int b = rem / (SB - 1), k = rem % (SB - 1);
+    int e = piv[(pos * B + b) % A.K];
+    int j = pos * B + 1 + b + k;
+    int q1 = k5_perm(perm_a, perm_b, j % E, E);
+    int q2 = k5_perm(perm_a, perm_b, (j + 1) % E, E);
+    ev[0] = e; ev[1] = q1; ev[2] = q2;
+    if (o == 0) {
+        ns[0] = slots[q1]; ns[1] = slots[q2]; ns[2] = slots[e];
+    } else {
+        ns[0] = slots[q2]; ns[1] = slots[e]; ns[2] = slots[q1];
+    }
+    on[0] = 1; on[1] = 1; on[2] = 1;
+    *invalid = q1 == e || q2 == e || q1 == q2;
+}
+
+// New (pen, scv, hcv) and packed rooms of candidate `c`; `st` holds the
+// individual's (pen, hcv, scv). The anchor residual and the candidate's
+// anchor delta enter only on anchored instances, as in the plain version.
+__device__ __forceinline__ void k5_store(
+    const K5Args& A, const int* st, const int* slots, int c, int dh, int ds,
+    const int ev[3], const int ns[3], int nr0, int nr1, int nr2,
+    int* c_pen, int* c_scv, int* c_hcv, int* c_nr) {
+    int hcv = st[1] + dh, scv = st[2] + ds;
+    int pen = k5_base_penalty(hcv, scv);
+    if (A.anchored) {
+        int da = 0;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+            int anc = A.anchor_slots[ev[m]];
+            da += A.anchor_w[ev[m]] * ((ns[m] != anc ? 1 : 0)
+                                       - (slots[ev[m]] != anc ? 1 : 0));
+        }
+        pen += st[0] - k5_base_penalty(st[1], st[2]) + da;
+    }
+    c_pen[c] = pen;
+    c_scv[c] = scv;
+    c_hcv[c] = hcv;
+    c_nr[c] = nr0 | (nr1 << 10) | (nr2 << 20);
+}
+
+// Event heat (sweep.py:173): while infeasible the clash count of e's
+// cell + its unsuitable flag + correlated events sharing its slot; once
+// feasible its last-slot cost + run-of-3 and single-day membership over
+// its students. Integers; the caller makes it float32.
+__device__ __forceinline__ int k5_heat(
+    const TTSweepProblem& pb, const int* slots, const int* rooms,
+    const int16_t* att, const int16_t* occ, int e, bool infeasible) {
+    const int R = pb.R, T = pb.T, spd = pb.spd, W = pb.W;
+    const int s_e = slots[e];
+    if (infeasible) {
+        int r_e = rooms[e];
+        int h = occ[s_e * R + r_e] - 1 + (pb.possible[e * R + r_e] ? 0 : 1);
+        const uint32_t* row = pb.conflict_bits + (size_t)e * W;
+        for (int w = 0; w < W; ++w) {
+            uint32_t bits = row[w];
+            if (w == (e >> 5)) bits &= ~(1u << (e & 31));
+            while (bits) {
+                int f = w * 32 + __ffs(bits) - 1;
+                bits &= bits - 1;
+                h += slots[f] == s_e ? 1 : 0;
+            }
+        }
+        return h;
+    }
+    int d = s_e / spd, j = s_e % spd;
+    int h = j == spd - 1 ? pb.student_count[e] : 0;
+    for (int k = pb.ev_ptr[e]; k < pb.ev_ptr[e + 1]; ++k) {
+        const int16_t* a = att + (size_t)pb.ev_stu[k] * T + d * spd;
+        uint32_t b = 0u;
+        for (int i = 0; i < spd; ++i)
+            if (a[i] > 0) b |= 1u << i;
+        if (!((b >> j) & 1u)) continue;
+        int l1 = j >= 1 ? (b >> (j - 1)) & 1u : 0;
+        int l2 = j >= 2 ? (b >> (j - 2)) & 1u : 0;
+        int r1 = j + 1 < spd ? (b >> (j + 1)) & 1u : 0;
+        int r2 = j + 2 < spd ? (b >> (j + 2)) & 1u : 0;
+        h += ((l2 & l1) | (l1 & r1) | (r1 & r2)) + (__popc(b) == 1 ? 1 : 0);
+    }
+    return h;
+}
+
+__device__ __forceinline__ bool k5_lex_less(int p1, int s1, int i1, int p2,
+                                            int s2, int i2) {
+    return p1 < p2 || (p1 == p2 && (s1 < s2 || (s1 == s2 && i1 < i2)));
+}
+
+// Block-wide lexicographic min of (pen, scv, idx); `red` holds 3 ints
+// per warp. Every thread returns the winner.
+__device__ __forceinline__ void k5_block_lexmin(int* kp, int* ks, int* ki,
+                                                int* red) {
+    int p = *kp, s = *ks, i = *ki;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        int p2 = __shfl_xor_sync(TT_FULL_MASK, p, off);
+        int s2 = __shfl_xor_sync(TT_FULL_MASK, s, off);
+        int i2 = __shfl_xor_sync(TT_FULL_MASK, i, off);
+        if (k5_lex_less(p2, s2, i2, p, s, i)) { p = p2; s = s2; i = i2; }
+    }
+    int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+        red[3 * warp] = p; red[3 * warp + 1] = s; red[3 * warp + 2] = i;
+    }
+    __syncthreads();
+    p = red[0]; s = red[1]; i = red[2];
+    for (int w = 1; w < K5_WARPS; ++w)
+        if (k5_lex_less(red[3 * w], red[3 * w + 1], red[3 * w + 2], p, s, i)) {
+            p = red[3 * w]; s = red[3 * w + 1]; i = red[3 * w + 2];
+        }
+    *kp = p; *ks = s; *ki = i;
+}
+
+// Block-wide argmax of (value, -idx): the highest value, the lowest
+// index among equal ones (torch.argmax / jnp.argmax take the first).
+__device__ __forceinline__ int k5_block_argmax(float v, int i, float* redv,
+                                               int* redi) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        float v2 = __shfl_xor_sync(TT_FULL_MASK, v, off);
+        int i2 = __shfl_xor_sync(TT_FULL_MASK, i, off);
+        if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
+    }
+    int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) { redv[warp] = v; redi[warp] = i; }
+    __syncthreads();
+    v = redv[0]; i = redi[0];
+    for (int w = 1; w < K5_WARPS; ++w)
+        if (redv[w] > v || (redv[w] == v && redi[w] < i)) {
+            v = redv[w]; i = redi[w];
+        }
+    return i;
+}
+
+__global__ void __launch_bounds__(K5_THREADS) sweep_pass_kernel(K5Args A) {
+    extern __shared__ __align__(16) unsigned char k5_smem[];
+    const int E = A.pb.E, R = A.pb.R, S = A.pb.S, T = A.pb.T, W = A.pb.W;
+    const int p = blockIdx.x, tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    int* slots = (int*)(k5_smem + A.lay.slots);
+    int* rooms = (int*)(k5_smem + A.lay.rooms);
+    int* piv = (int*)(k5_smem + A.lay.piv);
+    float* heat = (float*)(k5_smem + A.lay.heat);
+    int* c_pen = (int*)(k5_smem + A.lay.cand);
+    int* c_scv = c_pen + A.n_cand;
+    int* c_hcv = c_scv + A.n_cand;
+    int* c_nr = c_hcv + A.n_cand;
+    int* per_slot = (int*)(k5_smem + A.lay.per_slot);
+    int* misc = (int*)(k5_smem + A.lay.misc);
+    uint64_t* masks = (uint64_t*)(k5_smem + A.lay.masks);
+    int16_t* occ = (int16_t*)(k5_smem + A.lay.occ);
+    int16_t* att = (int16_t*)(k5_smem + A.lay.att);
+    uint32_t* bits = (uint32_t*)(k5_smem + A.lay.bits);
+    int* rm_acc = misc;              // (1,)
+    int* st = misc + 4;              // pen, hcv, scv, strict
+    int* red = misc + 8;             // 3 per warp
+    float* redv = (float*)(misc + 8 + 3 * K5_WARPS);
+    int* redi = misc + 8 + 4 * K5_WARPS;
+    int* mv = misc + 8 + 5 * K5_WARPS;  // accept, ev, old slot/room, ns, nr
+
+    TT_PROF_START();
+    // ---- prologue: the individual's state into shared memory
+    const int* g_slots = A.slots + (size_t)p * E;
+    const int* g_rooms = A.rooms + (size_t)p * E;
+    for (int i = tid; i < E; i += K5_THREADS) {
+        slots[i] = g_slots[i];
+        rooms[i] = g_rooms[i];
+    }
+    const int16_t* g_att = A.att + (size_t)p * S * T;
+    for (int i = tid; i < S * T; i += K5_THREADS) att[i] = g_att[i];
+    const int16_t* g_occ = A.occ + (size_t)p * T * R;
+    for (int i = tid; i < T * R; i += K5_THREADS) occ[i] = g_occ[i];
+    TTSweepProblem pb = A.pb;
+    if (A.lay.bits_in_smem) {
+        for (int i = tid; i < E * W; i += K5_THREADS)
+            bits[i] = A.pb.conflict_bits[i];
+        pb.conflict_bits = bits;
+    }
+    if (tid == 0) {
+        st[0] = A.pen[p]; st[1] = A.hcv[p]; st[2] = A.scv[p]; st[3] = 0;
+    }
+    const int perm_a = A.a[p], perm_b = A.b[p];
+    __syncthreads();
+
+    // ---- pivots: the permutation, or the top-K events by heat
+    if (A.use_hot) {
+        const bool infeasible = st[1] > 0;
+        for (int e = tid; e < E; e += K5_THREADS) {
+            int h = k5_heat(pb, slots, rooms, att, occ, e, infeasible);
+            heat[e] = __fadd_rn(__fmul_rn((float)h, A.event_mask[e]),
+                                A.hot_noise[(size_t)p * E + e]);
+        }
+        __syncthreads();
+        for (int e = tid; e < E; e += K5_THREADS) {
+            float v = heat[e];
+            int rank = 0;
+            for (int f = 0; f < E; ++f) {
+                float u = heat[f];
+                rank += (u > v || (u == v && f < e)) ? 1 : 0;
+            }
+            if (rank < A.K) piv[rank] = e;
+        }
+    } else {
+        for (int j = tid; j < E; j += K5_THREADS)
+            piv[j] = k5_perm(perm_a, perm_b, j, E);
+    }
+    __syncthreads();
+    for (int j = tid; j < A.K; j += K5_THREADS)
+        A.pivots_out[(size_t)p * A.K + j] = piv[j];
+
+    TT_PROF(9);
+    const int n1 = A.B * T;
+    for (int pos = 0; pos < A.n_steps; ++pos) {
+        // ---- Move1: every block pivot to every slot (K3's body)
+        for (int b = 0; b < A.B; ++b) {
+            const int e = piv[(pos * A.B + b) % A.K];
+            __syncthreads();
+            tt_move1_prepare(pb, slots, att, e, per_slot, rm_acc, masks);
+            if (tid < T) {
+                int dh, ds, nr;
+                tt_move1_target(pb, slots, rooms, occ, e, tid, per_slot,
+                                masks, rm_acc[0], &dh, &ds, &nr);
+                int ev[3] = {e, (e + 1) % E, (e + 2) % E};
+                int ns[3] = {tid, slots[ev[1]], slots[ev[2]]};
+                k5_store(A, st, slots, b * T + tid, dh, ds, ev, ns, nr,
+                         rooms[ev[1]], rooms[ev[2]], c_pen, c_scv, c_hcv,
+                         c_nr);
+            }
+        }
+        TT_PROF(0);
+        // ---- Move2 / Move3: one warp per candidate (K4's body)
+        for (int c = n1 + warp; c < A.n_cand; c += K5_WARPS) {
+            int ev[3], ns[3], on[3], nr[3], invalid, dh, ds;
+            k5_candidate(A, perm_a, perm_b, piv, slots, pos, c, ev, ns, on,
+                         &invalid);
+            tt_delta_one_warp(pb, slots, rooms, att, occ, ev, ns, on, lane,
+                              &dh, &ds, nr);
+            if (lane == 0)
+                k5_store(A, st, slots, c, invalid ? K5_BIG : dh, ds, ev, ns,
+                         nr[0], nr[1], nr[2], c_pen, c_scv, c_hcv, c_nr);
+            TT_PROF(4);
+        }
+        TT_PROF(4);
+        __syncthreads();
+        TT_PROF(5);
+
+        // ---- the choice (sweep.py:507-550)
+        int row_min = K5_INT_MAX, scv_min = K5_INT_MAX, best = K5_INT_MAX;
+        for (int c = tid; c < A.n_cand; c += K5_THREADS)
+            if (k5_lex_less(c_pen[c], c_scv[c], c, row_min, scv_min, best)) {
+                row_min = c_pen[c]; scv_min = c_scv[c]; best = c;
+            }
+        k5_block_lexmin(&row_min, &scv_min, &best, red);
+        TT_PROF(6);
+        int allow = 0;
+        if (A.sideways) {
+            // drift: any penalty tie; descent: the lexicographic ties;
+            // the highest tie noise wins
+            const size_t row = (size_t)pos * A.P + p;
+            allow = A.allow[row] ? 1 : 0;
+            const float* noise = A.tie_noise + row * A.n_cand;
+            float bv = -1.0f;
+            int bi = K5_INT_MAX;
+            for (int c = tid; c < A.n_cand; c += K5_THREADS) {
+                bool tie = c_pen[c] == row_min
+                           && (allow || c_scv[c] == scv_min);
+                if (tie) {
+                    float v = noise[c];
+                    if (v > bv || (v == bv && c < bi)) { bv = v; bi = c; }
+                }
+            }
+            best = k5_block_argmax(bv, bi, redv, redi);
+        }
+        if (tid == 0) {
+            int bp = c_pen[best], bs = c_scv[best];
+            bool strict = bp < st[0] || (bp == st[0] && bs < st[2]);
+            bool better = strict || (allow && bp == st[0]);
+            st[3] |= strict ? 1 : 0;
+            mv[0] = better ? 1 : 0;
+            if (better) {
+                int ev[3], ns[3], on[3], invalid;
+                k5_candidate(A, perm_a, perm_b, piv, slots, pos, best, ev, ns, on,
+                             &invalid);
+                int nr = c_nr[best];
+#pragma unroll
+                for (int m = 0; m < 3; ++m) {
+                    mv[1 + m] = ev[m];
+                    mv[4 + m] = slots[ev[m]];
+                    mv[7 + m] = rooms[ev[m]];
+                    mv[10 + m] = ns[m];
+                    mv[13 + m] = (nr >> (10 * m)) & 1023;
+                }
+                st[0] = bp; st[1] = c_hcv[best]; st[2] = bs;
+            }
+        }
+        __syncthreads();
+
+        TT_PROF(7);
+        // ---- the apply (delta.py:188 _apply_move), in shared memory
+        if (mv[0]) {
+            for (int s = tid; s < S; s += K5_THREADS) {
+                const uint8_t* a_s = pb.attends + (size_t)s * E;
+                int16_t* row = att + (size_t)s * T;
+#pragma unroll
+                for (int m = 0; m < 3; ++m)
+                    if (a_s[mv[1 + m]]) {
+                        row[mv[4 + m]] -= 1;
+                        row[mv[10 + m]] += 1;
+                    }
+            }
+            if (tid == 0) {
+#pragma unroll
+                for (int m = 0; m < 3; ++m) {
+                    int lv = pb.live[mv[1 + m]];
+                    occ[mv[4 + m] * R + mv[7 + m]] -= lv;
+                    occ[mv[10 + m] * R + mv[13 + m]] += lv;
+                }
+#pragma unroll
+                for (int m = 0; m < 3; ++m) {
+                    slots[mv[1 + m]] = mv[10 + m];
+                    rooms[mv[1 + m]] = mv[13 + m];
+                }
+            }
+        }
+        TT_PROF(8);
+    }
+    __syncthreads();
+
+    // ---- epilogue: the state back to global memory
+    for (int i = tid; i < E; i += K5_THREADS) {
+        A.slots_out[(size_t)p * E + i] = slots[i];
+        A.rooms_out[(size_t)p * E + i] = rooms[i];
+    }
+    for (int i = tid; i < S * T; i += K5_THREADS)
+        A.att_out[(size_t)p * S * T + i] = att[i];
+    for (int i = tid; i < T * R; i += K5_THREADS)
+        A.occ_out[(size_t)p * T * R + i] = occ[i];
+    if (tid == 0) {
+        A.pen_out[p] = st[0];
+        A.hcv_out[p] = st[1];
+        A.scv_out[p] = st[2];
+        A.strict_out[p] = (uint8_t)st[3];
+    }
+    TT_PROF(10);
+}
+
+extern "C" int tt_sweep_pass_smem_bytes(int E, int R, int S, int T, int K,
+                                        int n_cand, int use_hot,
+                                        int max_students, int W) {
+    return (int)k5_smem_layout(E, R, S, T, K, n_cand, use_hot, max_students,
+                               W).total;
+}
+
+extern "C" int tt_sweep_pass(
+    const int* slots, const int* rooms, const int16_t* att,
+    const int16_t* occ, const int* pen, const int* hcv, const int* scv,
+    const int* a, const int* b, const float* hot_noise,
+    const float* tie_noise, const uint8_t* allow, const uint8_t* possible,
+    const int* live, const int* student_count, const uint32_t* conflict_bits,
+    const int* cap_rank, const int* dead, const uint8_t* attends,
+    const int* ev_ptr, const int* ev_stu, const float* event_mask,
+    const int* anchor_slots, const int* anchor_w, int* slots_out,
+    int* rooms_out, int16_t* att_out, int16_t* occ_out, int* pen_out,
+    int* hcv_out, int* scv_out, uint8_t* strict_out, int* pivots_out,
+    int P, int E, int R, int S, int T, int spd, int W, int max_students,
+    int K, int B, int SB, int n_steps, int n_cand, int use_hot,
+    int sideways, int anchored, void* stream) {
+    if (P <= 0 || E < 3 || T > 64 || T > K5_THREADS || R > 32 || spd > 32
+        || K <= 0 || B <= 0 || SB < 0 || n_steps <= 0 || n_cand < B * T
+        || (use_hot && !hot_noise) || (sideways && (!tie_noise || !allow)))
+        return (int)cudaErrorInvalidValue;
+    K5Smem lay = k5_smem_layout(E, R, S, T, K, n_cand, use_hot,
+                                max_students, W);
+    if (lay.total > K5_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
+    cudaError_t err = cudaFuncSetAttribute(
+        sweep_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)lay.total);
+    if (err != cudaSuccess) return (int)err;
+    K5Args A;
+    A.pb = {possible, live, student_count, conflict_bits, cap_rank, dead,
+            attends, ev_ptr, ev_stu, E, R, S, T, spd, W};
+    A.event_mask = event_mask; A.anchor_slots = anchor_slots;
+    A.anchor_w = anchor_w;
+    A.slots = slots; A.rooms = rooms; A.att = att; A.occ = occ;
+    A.pen = pen; A.hcv = hcv; A.scv = scv;
+    A.a = a; A.b = b; A.hot_noise = hot_noise; A.tie_noise = tie_noise;
+    A.allow = allow;
+    A.slots_out = slots_out; A.rooms_out = rooms_out; A.att_out = att_out;
+    A.occ_out = occ_out; A.pen_out = pen_out; A.hcv_out = hcv_out;
+    A.scv_out = scv_out; A.strict_out = strict_out;
+    A.pivots_out = pivots_out;
+    A.P = P; A.K = K; A.B = B; A.SB = SB; A.n_steps = n_steps;
+    A.n_cand = n_cand; A.use_hot = use_hot; A.sideways = sideways;
+    A.anchored = anchored; A.lay = lay;
+    sweep_pass_kernel<<<P, K5_THREADS, lay.total, (cudaStream_t)stream>>>(A);
+    return (int)cudaGetLastError();
+}

@@ -3,10 +3,11 @@
 Each `csrc/<name>.cu` compiles with `nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC` into its own
 shared library under `build/torch_kernels/` at the repository root,
-named by a hash of the sources and flags, so a checkout builds exactly
-what it holds. All sources compile in parallel, once, at the first CUDA
-launch (or an explicit `build()`); nothing here runs at import time, so
-`import timetabling_ga_tpu_torch` needs no CUDA toolchain.
+named by a hash of the source, the local headers it includes and the
+flags, so a checkout builds exactly what it holds. All sources compile
+in parallel, once, at the first CUDA launch (or an explicit `build()`);
+nothing here runs at import time, so `import timetabling_ga_tpu_torch`
+needs no CUDA toolchain.
 
 Every C entry point launches on PyTorch's current stream and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code. `LAUNCHES`
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,6 +43,7 @@ SIGNATURES = {
     "batch_penalty": ("tt_batch_penalty", [_P] * 13 + [_I] * 8 + [_P]),
     "move1_sweep": ("tt_move1_sweep", [_P] * 16 + [_I] * 9 + [_P]),
     "delta_one": ("tt_delta_one", [_P] * 19 + [_I] * 8 + [_P]),
+    "sweep_pass": ("tt_sweep_pass", [_P] * 33 + [_I] * 16 + [_P]),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -66,9 +69,26 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """`csrc/<name>.cu` and every local header it includes, recursively,
+    in first-include order."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return out
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in _sources(name):
+        h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -104,16 +124,22 @@ def build() -> float:
                 raise RuntimeError("CUDA kernel build failed:\n"
                                    + "\n".join(failed))
         for name, path in todo.items():
-            lib = ctypes.CDLL(str(path))
-            sym, argtypes = SIGNATURES[name]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            lib.tt_error_string.argtypes = [ctypes.c_int]
-            lib.tt_error_string.restype = ctypes.c_char_p
-            _LIBS[name] = (lib, fn)
+            _LIBS[name] = load(name, path)
         BUILD_INFO["seconds"] = time.monotonic() - t0
         return BUILD_INFO["seconds"]
+
+
+def load(name: str, path) -> tuple:
+    """(library, entry point) of kernel `name` from the shared library
+    at `path`, with the C signature bound."""
+    lib = ctypes.CDLL(str(path))
+    sym, argtypes = SIGNATURES[name]
+    fn = getattr(lib, sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.tt_error_string.argtypes = [ctypes.c_int]
+    lib.tt_error_string.restype = ctypes.c_char_p
+    return lib, fn
 
 
 def ptr(t: torch.Tensor) -> int:

@@ -1,15 +1,20 @@
 """Systematic sweep local search (port of timetabling_ga_tpu/ops/sweep.py).
 
 One pass walks pivot events — an affine coprime permutation of all
-events, or the top-K by violation heat (`event_heat`) — in steps of
+events, or the top-K by violation heat (`hot_pivots`) — in steps of
 `block_events`. Each step delta-evaluates, for every individual at once:
-Move1 of each block pivot to every slot (kernel K3, `move1_sweep`), and
-Move2 swaps with `swap_block` permutation partners plus, when p3 > 0,
-Move3 3-cycles over adjacent partner pairs (kernel K4, ops/delta.py
-`delta_one`); it then takes the lexicographic (penalty, scv) best with
-the sideways drift/descent mix and applies it. The step loop is a Python
-loop where JAX has a lax.scan; the converge loop reads one flag per
-pass. Randomness comes in as tensors (`SweepDraws`, one per pass).
+Move1 of each block pivot to every slot (`move1_sweep`), and Move2 swaps
+with `swap_block` permutation partners plus, when p3 > 0, Move3 3-cycles
+over adjacent partner pairs (ops/delta.py `delta_one`); it then takes the
+lexicographic (penalty, scv) best with the sideways drift/descent mix and
+applies it. On CUDA tensors a whole pass is one launch of kernel K5
+(csrc/sweep_pass.cu), which keeps each individual's state in shared
+memory across every step and runs K3's and K4's bodies inside;
+`sweep_pass_plain` is its plain version, a Python loop over the steps
+where JAX has a lax.scan. K3 (`move1_sweep`) and K4 (`delta_one`) keep
+their own launches as the unit checks of the device code K5 shares. The
+converge loop reads one flag per pass. Randomness comes in as tensors
+(`SweepDraws`, one per pass).
 """
 
 from __future__ import annotations
@@ -22,11 +27,16 @@ import torch
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.delta import (
-    LSState, _day_scv, apply_moves, delta_one, init_state)
+    LSState, _day_scv, apply_moves, delta_one_plain, init_state)
 from timetabling_ga_tpu_torch.ops.fitness import day_view, gather_rows
 from timetabling_ga_tpu_torch.ops.rooms import W_COST, W_UNSUIT
 
 BIG = 1 << 20
+# the most dynamic shared memory one block may opt into on sm_90
+SMEM_LIMIT = 232_448
+# K5's block-wide scalars and reduction scratch (K5_MISC_INTS in
+# csrc/sweep_pass.cu, which asserts that its 16 warps fit)
+_K5_MISC_INTS = 128
 
 
 class SweepShape(NamedTuple):
@@ -245,29 +255,38 @@ def _tile(x, n_cols: int):
     return x.repeat(1, reps)[:, :n_cols]
 
 
-def sweep_pass(pa, draws: SweepDraws, state: LSState, swap_block: int = 8,
-               block_events: int = 1, sideways: float = 0.0,
-               hot_k: int = 0, p3: float = 0.0):
-    """One sweep pass over a (P, E) population. Returns (state,
-    improved_rows): improved_rows (P,) bool marks the individuals that
-    accepted at least one STRICT improvement (sideways accepts do not
-    count), the per-row form of JAX's `improved` scalar."""
+def hot_pivots(pa, state: LSState, hot_noise, K: int) -> torch.Tensor:
+    """The K hottest events of each individual (P, K) int32: event_heat
+    plus the noise, in descending order with the lower index first on
+    ties (a stable sort) — JAX sweep.py:322 `lax.top_k(heat + noise, K)`."""
+    heat = event_heat(pa, state.slots, state.rooms, state.att, state.occ,
+                      state.hcv)
+    return torch.sort(heat + hot_noise, dim=1, descending=True,
+                      stable=True).indices[:, :K].to(torch.int32)
+
+
+def _perms(draws: SweepDraws, E: int, dev) -> torch.Tensor:
+    """The pass's affine permutations (a*j + b) mod E, (P, E) int32."""
+    i32 = torch.int32
+    return ((draws.a.to(i32)[:, None]
+             * torch.arange(E, dtype=i32, device=dev)[None, :]
+             + draws.b.to(i32)[:, None]) % E).to(i32)
+
+
+def sweep_pass_plain(pa, draws: SweepDraws, state: LSState,
+                     swap_block: int = 8, block_events: int = 1,
+                     sideways: float = 0.0, hot_k: int = 0, p3: float = 0.0):
+    """Plain version of K5: one sweep pass as a loop over its steps, in
+    PyTorch on any device. Returns (state, strict_rows), as sweep_pass."""
     P, E = state.slots.shape
     T = pa.n_slots
     sh = sweep_shape(E, T, swap_block, block_events, hot_k, p3)
     K, B, SB, n_steps = sh.K, sh.B, sh.SB, sh.n_steps
     dev = state.slots.device
     i32 = torch.int32
-    perms = ((draws.a.to(i32)[:, None]
-              * torch.arange(E, dtype=i32, device=dev)[None, :]
-              + draws.b.to(i32)[:, None]) % E).to(i32)
-    if sh.use_hot:
-        heat = event_heat(pa, state.slots, state.rooms, state.att,
-                          state.occ, state.hcv)
-        pivots = torch.sort(heat + draws.hot_noise, dim=1, descending=True,
-                            stable=True).indices[:, :K].to(i32)
-    else:
-        pivots = perms
+    perms = _perms(draws, E, dev)
+    pivots = (hot_pivots(pa, state, draws.hot_noise, K) if sh.use_hot
+              else perms)
     pivots_pad = _tile(pivots, n_steps * B)
     ar = torch.arange(P, device=dev)
     t_ar = torch.arange(T, dtype=i32, device=dev)
@@ -284,8 +303,9 @@ def sweep_pass(pa, draws: SweepDraws, state: LSState, swap_block: int = 8,
     for pos in range(n_steps):
         s, r = st.slots, st.rooms
         e_blk = pivots_pad[:, pos * B:(pos + 1) * B]      # (P, B)
-        # ---- Move1: every pivot to every slot (K3)
-        dh1, ds1, rooms1 = move1_sweep(pa, s, r, st.att, st.occ, e_blk)
+        # ---- Move1: every pivot to every slot
+        dh1, ds1, rooms1 = move1_sweep_plain(pa, s, r, st.att, st.occ,
+                                             e_blk)
         if pa.anchored:
             el = e_blk.long()
             anc_e = pa.anchor_slots[el]
@@ -311,7 +331,7 @@ def sweep_pass(pa, draws: SweepDraws, state: LSState, swap_block: int = 8,
         cand_nr = [nr1.reshape(P, -1, 3)]
 
         if SB > 0:
-            # ---- Move2 (and Move3) candidates: one K4 launch
+            # ---- Move2 (and Move3) candidates
             window = perms_tiled[:, pos * B + 1:pos * B + 1 + w_len]
             partners = torch.stack([window[:, j:j + SB] for j in range(B)],
                                    1)                     # (P, B, SB)
@@ -340,8 +360,8 @@ def sweep_pass(pa, draws: SweepDraws, state: LSState, swap_block: int = 8,
                                .reshape(P, -1))
             evs_c = torch.cat(evs_k, 1)
             ns_c = torch.cat(ns_k, 1)
-            dh2, ds2, nr2 = delta_one(pa, s, r, st.att, st.occ, evs_c, ns_c,
-                                      act_c)
+            dh2, ds2, nr2 = delta_one_plain(pa, s, r, st.att, st.occ, evs_c,
+                                            ns_c, act_c)
             dh2 = torch.where(torch.cat(invalid, 1), BIG, dh2)
             cand_dh.append(dh2)
             cand_ds.append(ds2)
@@ -398,6 +418,91 @@ def sweep_pass(pa, draws: SweepDraws, state: LSState, swap_block: int = 8,
             scv=torch.where(better, new_scv[ar, best], st.scv).to(i32))
         strict_rows |= strict
     return st, strict_rows
+
+
+def sweep_pass_smem_bytes(pa, shape: SweepShape) -> int:
+    """Dynamic shared memory K5 takes per individual, the layout of
+    csrc/sweep_pass.cu `k5_smem_layout`: slots, rooms, pivots, the heat
+    (hot mode), four ints per candidate, the Move1 scratch, occ and att,
+    each region rounded up to 16 bytes, plus the conflict bitset when the
+    total still fits in SMEM_LIMIT (else K5 reads it from global memory)."""
+    E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
+    W = pa.conflict_bits.shape[1]
+    parts = (4 * E, 4 * E, 4 * shape.K, 4 * E if shape.use_hot else 0,
+             16 * shape.n_cand, 4 * T, 4 * _K5_MISC_INTS,
+             8 * max(pa.max_ev_students, 1), 2 * T * R, 2 * S * T)
+    total = sum(-(-x // 16) * 16 for x in parts)
+    with_bits = total + -(-4 * E * W // 16) * 16
+    return with_bits if with_bits <= SMEM_LIMIT else total
+
+
+def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
+                      swap_block: int = 8, block_events: int = 1,
+                      sideways: float = 0.0, hot_k: int = 0,
+                      p3: float = 0.0):
+    """Kernel K5 on CUDA tensors: the whole pass in one launch, one block
+    per individual. Returns (state, strict_rows, pivots): pivots (P, K)
+    int32 are the pass's pivot order (hot_pivots in hot mode, else the
+    permutation). Raises ValueError when one individual's state does not
+    fit in shared memory; there is no fallback."""
+    P, E = state.slots.shape
+    T = pa.n_slots
+    sh = sweep_shape(E, T, swap_block, block_events, hot_k, p3)
+    smem = sweep_pass_smem_bytes(pa, sh)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"sweep_pass: one individual's state needs {smem} bytes of "
+            f"shared memory, more than the {SMEM_LIMIT} a block can have")
+    if (state.att.dtype != torch.int16 or state.occ.dtype != torch.int16
+            or any(x.dtype != torch.int32 for x in (
+                state.slots, state.rooms, state.pen, state.hcv, state.scv))):
+        raise TypeError("sweep_pass takes int16 att/occ and int32 "
+                        "slots, rooms, pen, hcv and scv")
+    side = sideways > 0.0
+    if (sh.use_hot and draws.hot_noise is None) or (
+            side and (draws.tie_noise is None or draws.allow is None)):
+        raise ValueError("sweep_pass: the draws lack the hot or tie noise "
+                         "this pass needs")
+    i32 = torch.int32
+    ins = [x.contiguous() for x in state]
+    dr = [draws.a.to(i32).contiguous(), draws.b.to(i32).contiguous(),
+          draws.hot_noise.contiguous() if sh.use_hot else None,
+          draws.tie_noise.contiguous() if side else None,
+          draws.allow.contiguous().view(torch.uint8) if side else None]
+    out = LSState(*(torch.empty_like(x) for x in ins))
+    strict = torch.empty(P, dtype=torch.uint8, device=state.slots.device)
+    pivots = torch.empty((P, sh.K), dtype=i32, device=state.slots.device)
+    if P == 0:
+        return out, strict.view(torch.bool), pivots
+    p = kernels.ptr
+    kernels.launch(
+        "sweep_pass", *(p(x) for x in ins),
+        *(None if x is None else p(x) for x in dr), p(pa.possible_u8),
+        p(pa.live), p(pa.student_count), p(pa.conflict_bits),
+        p(pa.cap_rank), p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr),
+        p(pa.ev_stu), p(pa.event_mask), p(pa.anchor_slots),
+        p(pa.anchor_w), *(p(x) for x in out), p(strict), p(pivots), P, E,
+        pa.n_rooms, pa.n_students, T, pa.slots_per_day,
+        pa.conflict_bits.shape[1], pa.max_ev_students, sh.K, sh.B, sh.SB,
+        sh.n_steps, sh.n_cand, int(sh.use_hot), int(side),
+        int(pa.anchored))
+    return out, strict.view(torch.bool), pivots
+
+
+def sweep_pass(pa, draws: SweepDraws, state: LSState, swap_block: int = 8,
+               block_events: int = 1, sideways: float = 0.0,
+               hot_k: int = 0, p3: float = 0.0):
+    """One sweep pass over a (P, E) population. Returns (state,
+    improved_rows): improved_rows (P,) bool marks the individuals that
+    accepted at least one STRICT improvement (sideways accepts do not
+    count), the per-row form of JAX's `improved` scalar. Kernel K5 on
+    CUDA tensors, the plain version on CPU ones."""
+    if not state.slots.is_cuda:
+        return sweep_pass_plain(pa, draws, state, swap_block, block_events,
+                                sideways, hot_k, p3)
+    st, rows, _ = sweep_pass_kernel(pa, draws, state, swap_block,
+                                    block_events, sideways, hot_k, p3)
+    return st, rows
 
 
 def sweep_local_search(pa, draws_fn: Callable[[int], SweepDraws], slots,
