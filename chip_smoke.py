@@ -6,21 +6,31 @@
 1. prints the card's name and power limit (nvidia-smi) and builds the
    CUDA kernels from timetabling_ga_tpu_torch/csrc (build time printed);
 2. holds every kernel against its plain PyTorch version on the card, at
-   the main path's shapes on fixtures/comp01s.tim: K1-K4 at P = 16 and
-   P = 256 individuals, K5 (the whole sweep pass) at the repair pass's
-   P = 16 and P = 256 and the post pass's P = 4, from random starts and
-   from feasible ones (the planted witness, a few events moved) — exact
-   equality of every output (K5: the seven state fields, strict_rows
-   and the pivots), then times both with CUDA events after a warm-up,
-   and K5 alone on one individual (its step chain's floor);
-3. drives the main path — `timetabling_ga_tpu_torch.cli` on comp01s,
-   seed 42, size-tuned defaults, bounded by -t — with the launch
-   counters zeroed just before, and checks a protocol-valid stream
-   (per-island best non-increasing, solution and runEntry records),
-   that K1, K2 and K5 launched and the per-step K3/K4 did not, and that
-   a feasible reported timetable re-scores to its reported best;
-4. profiles one repair generation and one post-phase sweep pass
-   (launches and wall per sweep pass, device idle share, device time
+   the paths' shapes on fixtures/comp01s.tim — exact equality of every
+   output — then times both with CUDA events after a warm-up:
+   K1-K4 and K6 (breed, relocate) and K7 (survivors, migrate) at P = 16
+   and P = 256 individuals (P = 256 as 16 islands of 16), K7 also at
+   L = 1, 2, 4 islands of 2, 3 and 16 rows, K6's relocation entry also
+   on the kick's chains (2 and 8 rows, 3 to 16 moves); K5 (the whole
+   sweep pass) at the repair pass's P = 16 and 256 and the post pass's
+   P = 4; K8 (the random-candidate local search, -p 2: 125 rounds of 8)
+   at P = 10 and 256; K5 and K8 from random starts and from feasible ones (the
+   planted witness, a few events moved), and on one individual (their
+   chains' floor);
+3. drives three paths through `timetabling_ga_tpu_torch.cli` on comp01s,
+   seed 42, each with the launch counters zeroed just before and read
+   just after: the main path (size-tuned defaults, -t 60), the
+   reference-faithful path (`--no-auto-tune -p 2`, the random-candidate
+   delta LS, -t 30) and its full-evaluation twin (`--ls-full-eval -p 1`,
+   -t 10). Each stream is checked (per-island best non-increasing,
+   solution and runEntry records, a feasible reported timetable
+   re-scores to its reported best), and so is which kernels each path
+   launched: breed and survivors every generation on all three; K1, K2,
+   K5 and migrate on the main path; K8 on the reference path; relocate
+   on the full-evaluation one; K5 on neither of those; the per-step
+   K3/K4 nowhere;
+4. profiles one repair generation, one post-phase sweep pass and one
+   reference-path generation (launches, device idle share, device time
    per launch of each kernel);
 5. prints one line per kernel, the {"kernels": [...]} summary and, last,
    {"ok": true, "device": {...}}.
@@ -40,10 +50,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TIM = os.path.join(HERE, "fixtures", "comp01s.tim")
 WITNESS = os.path.join(HERE, "fixtures", "comp01s.witness.json")
 OUT_DIR = os.path.join(HERE, "build", "chip_smoke")
-# the main path's budget: short enough that the whole script stays well
-# inside its time limit, long enough to reach the post-feasibility phase;
-# the time limit, not the generation cap, ends the run
-MAIN_ARGS = ["-s", "42", "-t", "90", "--generations", "100000", "--trace"]
+# the paths' budgets: short enough that the whole script stays well
+# inside its time limit, the main path long enough to reach the
+# post-feasibility phase; the time limit, not the generation cap, ends
+# each run
+PATHS = {
+    "main": ["-s", "42", "-t", "60", "--generations", "100000", "--trace"],
+    "reference": ["--no-auto-tune", "-p", "2", "-s", "42", "-t", "30",
+                  "--generations", "100000", "--trace"],
+    "full-eval": ["--no-auto-tune", "-p", "1", "--ls-full-eval", "-s", "42",
+                  "-t", "10", "--generations", "100000", "--trace"],
+}
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and float32
 # outside the tensor cores, 67e12/s, which counts an FMA as two operations
 # on 128 lanes an SM. These kernels' work is integer: Hopper issues INT32
@@ -73,21 +90,49 @@ OPS_CAND = 16         # a candidate's fixed work: 4 stores, the lexicographic
                       # compare, the tie test and noise compare
 OPS_HEAT = 10         # an event's fixed heat work: cell, suitability, mask
 OPS_RANK = 3          # a float pair of the rank count: >, ==, index <
+OPS_TOP3 = 3          # a uniform of the top 3 of E uniforms (lax.top_k):
+                      # one pass, a load, the compare with the third
+                      # largest so far and its select (K6/K8's three-pass
+                      # warp argmax does more, which the bound does not
+                      # charge)
+OPS_LEX = 3           # a pair of K7's rank count: two compares and add
+OPS_COPY = 2          # a word of a copied row: load and store
+# entry point -> (source, the JAX function it replaces, the path whose
+# run its "launches" are read from: K3 and K4 run on no path but inside
+# K5 and keep their own launches as unit checks of the shared bodies)
 KERNELS = {
     "assign_rooms": ("timetabling_ga_tpu_torch/csrc/assign_rooms.cu",
-                     "timetabling_ga_tpu/ops/rooms.py:108"),
+                     "timetabling_ga_tpu/ops/rooms.py:108", "main"),
     "batch_penalty": ("timetabling_ga_tpu_torch/csrc/batch_penalty.cu",
-                      "timetabling_ga_tpu/ops/fitness.py:235"),
+                      "timetabling_ga_tpu/ops/fitness.py:235", "main"),
     "move1_sweep": ("timetabling_ga_tpu_torch/csrc/move1_sweep.cu",
-                    "timetabling_ga_tpu/ops/sweep.py:78"),
+                    "timetabling_ga_tpu/ops/sweep.py:78", "main"),
     "delta_one": ("timetabling_ga_tpu_torch/csrc/delta_one.cu",
-                  "timetabling_ga_tpu/ops/delta.py:90"),
+                  "timetabling_ga_tpu/ops/delta.py:90", "main"),
     "sweep_pass": ("timetabling_ga_tpu_torch/csrc/sweep_pass.cu",
-                   "timetabling_ga_tpu/ops/sweep.py:230"),
+                   "timetabling_ga_tpu/ops/sweep.py:230", "main"),
+    "breed": ("timetabling_ga_tpu_torch/csrc/breed.cu",
+              "timetabling_ga_tpu/ops/ga.py:168", "main"),
+    "relocate": ("timetabling_ga_tpu_torch/csrc/breed.cu",
+                 "timetabling_ga_tpu/ops/moves.py:174", "full-eval"),
+    "survivors": ("timetabling_ga_tpu_torch/csrc/survivors.cu",
+                  "timetabling_ga_tpu/ops/ga.py:290", "main"),
+    "migrate": ("timetabling_ga_tpu_torch/csrc/survivors.cu",
+                "timetabling_ga_tpu/parallel/islands.py:213", "main"),
+    "random_ls": ("timetabling_ga_tpu_torch/csrc/random_ls.cu",
+                  "timetabling_ga_tpu/ops/delta.py:212", "reference"),
 }
-# the kernels the main path must launch; K3 and K4 run there only inside
-# K5 and keep their own launches as unit checks of the shared bodies
-MAIN_PATH_KERNELS = ("assign_rooms", "batch_penalty", "sweep_pass")
+# per path: the kernels it must launch at least once a generation, at
+# least once, and never
+PER_GEN = ("breed", "survivors", "batch_penalty")
+PATH_KERNELS = {
+    "main": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
+             ("move1_sweep", "delta_one", "random_ls")),
+    "reference": (PER_GEN + ("random_ls",), ("assign_rooms",),
+                  ("move1_sweep", "delta_one", "sweep_pass")),
+    "full-eval": (PER_GEN + ("relocate",), ("assign_rooms",),
+                  ("move1_sweep", "delta_one", "sweep_pass", "random_ls")),
+}
 
 
 class SmokeFailure(Exception):
@@ -148,7 +193,48 @@ def kernel_cases(pa, P, dev):
     C = 8
     prob = nbytes(pa.possible_u8, pa.live, pa.cap_rank, pa.dead)
     rows = nbytes(slots, rms)
-    return {
+    # breeding, truncation and migration: islands of the main path's 16
+    # rows; parents with random rooms (not their slots' matching)
+    from timetabling_ga_tpu_torch.ops import ga, moves
+    from timetabling_ga_tpu_torch.parallel import islands
+    L, pop = P // 16, 16
+    cfg = ga.GAConfig(pop_size=pop, p3=0.2)
+    par = ga.evaluate(pa, slots, torch.randint(
+        0, R, (P, E), generator=g, device=dev, dtype=torch.int32), L)
+    bd = ga.make_breed_draws([g] * L, pop, E, T, cfg, dev)
+    n_x, n_m = int(bd.do_x.sum()), int(bd.do_m.sum())
+    chain = moves.MoveDraws(*(x[None] for x in bd.move))
+    c_slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                            dtype=torch.int32)
+    ch = ga.evaluate(pa, c_slots, rooms.assign_rooms_plain(pa, c_slots), L)
+    surv = ga.survivors_plain(par, ch, L, pop)
+    row_b = 4 * (2 * E + 3)                  # a row's five fields
+    top3_ops = E * OPS_TOP3 + 3 * R * OPS_ROOM_KEY
+    cases = {
+        "breed": (
+            lambda: ga.make_children(pa, bd, par, cfg, L),
+            lambda: ga.make_children_plain(pa, bd, par, cfg, L),
+            nbytes(par.slots, par.rooms, par.penalty, par.scv, *bd[:5],
+                   *bd.move, pa.room_order) + prob + 2 * P * E * 4,
+            n_x * E * (R * OPS_ROOM_KEY + 2) + (P - n_x) * E * 3
+            + n_m * top3_ops + P * 2 * cfg.tournament_k * OPS_LEX),
+        "relocate": (
+            lambda: moves.relocation_chain(pa, chain, slots, rms, 1),
+            lambda: moves.relocation_chain_plain(pa, chain, slots, rms, 1),
+            rows + nbytes(*bd.move) + prob + 2 * P * E * 4,
+            P * (E * 3 + top3_ops)),
+        "survivors": (
+            lambda: ga.survivors(par, ch, L, pop),
+            lambda: ga.survivors_plain(par, ch, L, pop),
+            2 * 2 * P * 4 + 2 * P * row_b,
+            L * (2 * pop) ** 2 * OPS_LEX + P * (2 * E + 3) * OPS_COPY),
+        "migrate": (
+            lambda: islands.migrate(surv, L),
+            lambda: islands.migrate_plain(surv, L),
+            2 * P * 4 + 2 * P * row_b,
+            L * pop ** 2 * OPS_LEX + P * (2 * E + 3) * OPS_COPY),
+    }
+    return {**cases, **{
         "assign_rooms": (
             lambda: rooms.assign_rooms(pa, slots),
             lambda: rooms.assign_rooms_plain(pa, slots),
@@ -180,7 +266,7 @@ def kernel_cases(pa, P, dev):
                      pa.ev_ptr, pa.ev_stu) + P * C * 5 * 4,
             P * C * (3 * R * 10 + 3 * W * 32 + 18 * pa.max_ev_students
                      * pa.slots_per_day * 6)),
-    }
+    }}
 
 
 def compare(pa, dev):
@@ -213,6 +299,41 @@ def compare(pa, dev):
     return out
 
 
+def event_degrees(pa):
+    """(students, conflict degree) of each event, int64."""
+    import torch
+    n_st = (pa.ev_ptr[1:] - pa.ev_ptr[:-1]).to(torch.int64)
+    deg = ((pa.conflict > 0.5).sum(1)
+           - (pa.conflict.diagonal() > 0.5).to(torch.int64))
+    return n_st, deg
+
+
+def k4_body_ops(pa, slots, ev, ns):
+    """Integer operations of the K4 body (sweep_dev.cuh
+    tt_delta_one_warp) on candidates ev, ns (P, X, 3) over slots (P, E):
+    3 room argmins, then for each event that changes slot its conflict
+    row and its students' days, counted once per (event, student, day),
+    the days being the distinct days the moving events leave and enter."""
+    import torch
+    import torch.nn.functional as F
+    i64 = torch.int64
+    W, spd = pa.conflict_bits.shape[1], pa.slots_per_day
+    n_st, deg = event_degrees(pa)
+    slots = slots.to(i64)
+    ev, ns = ev.to(i64), ns.to(i64)
+    day_work = OPS_STUDENT, spd * OPS_DAY_SLOT + 2 * OPS_DAY_SCORE
+    os = slots.gather(1, ev.flatten(1)).view_as(ev)
+    shift = (ns != os).to(i64)
+    days = torch.cat([os, ns], -1) // spd
+    on = torch.cat([shift, shift], -1)
+    n_d = ((F.one_hot(days, pa.n_days) * on[..., None]).sum(-2) > 0
+           ).sum(-1, keepdim=True)
+    per = shift * (W * OPS_WORD + deg[ev] * OPS_BIT
+                   + n_st[ev] * (day_work[0] + n_d * day_work[1]))
+    return int(per.sum()) + ev.shape[0] * ev.shape[1] * (
+        3 * pa.n_rooms * OPS_ROOM_KEY + OPS_CAND)
+
+
 def sweep_pass_work(pa, sh, st, draws, piv):
     """(bytes, integer operations, float operations) of one K5 pass on
     this state, these draws and these pivots (P, K). Bytes: the state
@@ -231,36 +352,17 @@ def sweep_pass_work(pa, sh, st, draws, piv):
     which runs only on an accepted step, is left out, so the count stays
     below what the kernel does."""
     import torch
-    import torch.nn.functional as F
     from timetabling_ga_tpu_torch.ops import sweep
     E, R, T = pa.n_events, pa.n_rooms, pa.n_slots
-    W, spd, n_days = (pa.conflict_bits.shape[1], pa.slots_per_day,
-                      pa.n_days)
+    W, spd = pa.conflict_bits.shape[1], pa.slots_per_day
     P, dev, i64 = st.slots.shape[0], st.slots.device, torch.int64
     nb = (2 * nbytes(*st) + nbytes(*(x for x in draws if x is not None))
           + nbytes(pa.possible_u8, pa.live, pa.student_count,
                    pa.conflict_bits, pa.cap_rank, pa.dead, pa.attends_u8,
                    pa.ev_ptr, pa.ev_stu, pa.event_mask, pa.anchor_slots,
                    pa.anchor_w) + P + P * sh.K * 4)
-    n_st = (pa.ev_ptr[1:] - pa.ev_ptr[:-1]).to(i64)
-    deg = ((pa.conflict > 0.5).sum(1)
-           - (pa.conflict.diagonal() > 0.5).to(i64))
+    n_st, deg = event_degrees(pa)
     slots = st.slots.to(i64)
-    day_work = OPS_STUDENT, spd * OPS_DAY_SLOT + 2 * OPS_DAY_SCORE
-
-    def k4_ops(ev, ns):
-        # ev, ns (P, X, 3): a candidate's events and new slots
-        os = slots.gather(1, ev.flatten(1)).view_as(ev)
-        shift = (ns != os).to(i64)
-        days = torch.cat([os, ns], -1) // spd
-        on = torch.cat([shift, shift], -1)
-        n_d = ((F.one_hot(days, n_days) * on[..., None]).sum(-2) > 0
-               ).sum(-1, keepdim=True)
-        per = shift * (W * OPS_WORD + deg[ev] * OPS_BIT
-                       + n_st[ev] * (day_work[0] + n_d * day_work[1]))
-        return int(per.sum()) + ev.shape[0] * ev.shape[1] * (
-            3 * R * OPS_ROOM_KEY + OPS_CAND)
-
     pos = torch.arange(sh.n_steps, device=dev)[:, None]
     blk = torch.arange(sh.B, device=dev)[None, :]
     e = piv.to(i64)[:, ((pos * sh.B + blk) % sh.K).flatten()]   # (P, n*B)
@@ -278,7 +380,7 @@ def sweep_pass_work(pa, sh, st, draws, piv):
         pad = torch.where((e2 + 1) % E == q, (e2 + 2) % E, (e2 + 1) % E)
         ev = torch.stack([e2, q, pad], -1)
         sl = slots.gather(1, ev.flatten(1)).view_as(ev)
-        ops += k4_ops(ev, sl[..., [1, 0, 2]])
+        ops += k4_body_ops(pa, slots, ev, sl[..., [1, 0, 2]])
     if sh.with_move3 and sh.SB >= 2:
         k = torch.arange(sh.SB - 1, device=dev)
         j = (pos[..., None] * sh.B + 1 + blk[..., None] + k).flatten()
@@ -286,7 +388,8 @@ def sweep_pass_work(pa, sh, st, draws, piv):
             P, sh.n_steps, sh.B, sh.SB - 1).reshape(P, -1)
         ev = torch.stack([e3, perm[:, j % E], perm[:, (j + 1) % E]], -1)
         sl = slots.gather(1, ev.flatten(1)).view_as(ev)
-        ops += k4_ops(ev, sl[..., [1, 2, 0]]) + k4_ops(ev, sl[..., [2, 0, 1]])
+        ops += (k4_body_ops(pa, slots, ev, sl[..., [1, 2, 0]])
+                + k4_body_ops(pa, slots, ev, sl[..., [2, 0, 1]]))
     fops = 0
     if sh.use_hot:
         infeasible = (st.hcv > 0).to(i64)[:, None]
@@ -401,9 +504,174 @@ def compare_sweep_pass(pa, dev):
     return out
 
 
+def compare_kick_chains(pa, dev):
+    """K6's relocation entry against its plain version on the kick's
+    chains, exactly: draws shaped (KICK_MAX_MOVES, N, E) as the kick makes
+    them, N = 2 clone rows (the post phase's pop 4) and 8 (pop 16), every
+    chain length the engine's kick streak runs (3, 6, 12, 16), the clones
+    of one random row and of the planted witness."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import moves, rooms
+    from timetabling_ga_tpu_torch.parallel import islands
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    gc = engine.build_ga_config(config.parse_args(
+        ["-i", TIM]).apply_tuned_defaults(pa.n_events))
+    E, T = pa.n_events, pa.n_slots
+    g = torch.Generator(device=dev).manual_seed(6000)
+    cases = 0
+    for N in (2, 8):
+        slots = torch.randint(0, T, (1, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        starts = (("random", slots, rooms.assign_rooms_plain(pa, slots)),
+                  ("witness",) + tuple(witness_state(pa, 1, g)[:2]))
+        draws = [moves.make_move_draws([g], N, E, T, gc.p1, gc.p2, gc.p3,
+                                       dev)
+                 for _ in range(islands.KICK_MAX_MOVES)]
+        draws = moves.MoveDraws(*map(torch.stack, zip(*draws)))
+        for start, s0, r0 in starts:
+            s0 = s0.expand(N, E).contiguous()
+            r0 = r0.expand(N, E).contiguous()
+            for n in (3, 6, 12, islands.KICK_MAX_MOVES):
+                got = moves.relocation_chain(pa, draws, s0, r0, n)
+                want = moves.relocation_chain_plain(pa, draws, s0, r0, n)
+                torch.cuda.synchronize()
+                check(all(torch.equal(w, x) for w, x in zip(want, got)),
+                      f"relocate N={N} n_moves={n} {start}: kernel differs "
+                      f"from its plain version")
+                check(not torch.equal(got[0], s0),
+                      f"relocate N={N} n_moves={n} {start}: nothing moved")
+                cases += 1
+    return cases
+
+
+def compare_islands(pa, dev):
+    """K7 (survivors, migrate) against the plain versions at L = 1, 2, 4
+    islands of 2, 3 and 16 rows of comp01s, (penalty, scv) drawn from
+    {0, 1, 2}^2 so that ties are common, exactly."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import ga
+    from timetabling_ga_tpu_torch.parallel import islands
+    E, T = pa.n_events, pa.n_slots
+    g = torch.Generator(device=dev).manual_seed(4000)
+
+    def state(n):
+        slots = torch.randint(0, T, (n, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        ps = torch.randint(0, 3, (2, n), generator=g, device=dev,
+                           dtype=torch.int32)
+        return ga.PopState(slots, slots.flip(1), ps[0], ps[0] * 2, ps[1])
+
+    cases = 0
+    for L in (1, 2, 4):
+        for pop in (2, 3, 16):
+            par, ch = state(L * pop), state(L * pop)
+            for b, keep in ((ch, pop), (None, None)):
+                got = ga.survivors(par, b, L, keep)
+                want = ga.survivors_plain(par, b, L, keep)
+                check(all(torch.equal(w, x) for w, x in zip(want, got)),
+                      f"survivors L={L} pop={pop}: kernel differs from its "
+                      f"plain version")
+            got = islands.migrate(want, L)
+            check(all(torch.equal(w, x) for w, x in zip(
+                islands.migrate_plain(want, L), got)),
+                f"migrate L={L} pop={pop}: kernel differs from its plain "
+                f"version")
+            cases += 1
+    return cases
+
+
+def random_ls_work(pa, st, draws):
+    """(bytes, integer operations) of one K8 call: the state read and
+    written once, the draws and problem arrays read once; per round and
+    candidate the top-3 scan of E uniforms, the K4 body on the candidate
+    (its events and new slots taken on the slots the call starts from)
+    and the choice; the prologue's att/occ build and the apply, which
+    runs only on an accepted round, are left out, so the count stays
+    below what the kernel does."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import moves
+    n_rounds, K, P = draws.mtype.shape
+    E = pa.n_events
+    nb = (2 * nbytes(*st) + nbytes(*draws)
+          + nbytes(pa.possible_u8, pa.live, pa.student_count,
+                   pa.conflict_bits, pa.cap_rank, pa.dead, pa.attends_u8,
+                   pa.ev_ptr, pa.ev_stu, pa.stu_ptr, pa.stu_ev,
+                   pa.anchor_slots, pa.anchor_w))
+    md = moves.MoveDraws(draws.mtype.permute(2, 0, 1).reshape(-1),
+                         draws.u.permute(2, 0, 1, 3).reshape(-1, E),
+                         draws.t.permute(2, 0, 1).reshape(-1))
+    reps = n_rounds * K
+    evs, ns, _ = moves.sample_move(
+        pa, md, st.slots.repeat_interleave(reps, 0))
+    ops = (k4_body_ops(pa, st.slots, evs.view(P, reps, 3),
+                       ns.view(P, reps, 3))
+           + P * reps * E * OPS_TOP3)
+    return nb, ops
+
+
+def compare_random_ls(pa, dev):
+    """K8 against random_local_search_plain at the reference path's
+    shape (-p 2: 125 rounds of 8 candidates) with P = 10 (its population)
+    and 256, from random starts and from feasible ones, exactly; then
+    both timed from the random start, and K8 on one individual."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import delta, rooms
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    gc = engine.build_ga_config(config.parse_args(
+        ["-i", TIM] + PATHS["reference"]))
+    E, T = pa.n_events, pa.n_slots
+    out = {}
+    for P in (10, 256):
+        g = torch.Generator(device=dev).manual_seed(5000 + P)
+        slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        st = delta.init_rows(pa, slots, rooms.assign_rooms_plain(pa, slots))
+        draws = delta.make_ls_draws([g], P, gc.ls_steps, gc.ls_candidates,
+                                    E, T, gc.p1, gc.p2, gc.p3, dev)
+        w = witness_state(pa, P, g)
+        feasible = delta.LSRows(w.slots, w.rooms, w.pen, w.hcv, w.scv)
+        err = 0
+        for start, s0 in (("random", st), ("feasible", feasible)):
+            got = delta.random_local_search_kernel(pa, draws, s0)
+            want = delta.random_local_search_plain(pa, draws, s0)
+            torch.cuda.synchronize()
+            for gt, wt in zip(got, want):
+                check(gt.shape == wt.shape and gt.dtype == wt.dtype,
+                      f"random_ls P={P} {start}: kernel output "
+                      f"{tuple(gt.shape)} {gt.dtype} vs plain "
+                      f"{tuple(wt.shape)} {wt.dtype}")
+                err = max(err, int((gt.long() - wt.long()).abs().max()))
+            check(err == 0, f"random_ls P={P} {start}: kernel differs from "
+                            f"its plain version (max abs err {err})")
+            if start == "random":
+                check(bool((got.pen < s0.pen).all()),
+                      f"random_ls P={P}: a row did not improve")
+        ms = time_ms(lambda: delta.random_local_search_kernel(pa, draws, st),
+                     10)
+        plain_ms = time_ms(
+            lambda: delta.random_local_search_plain(pa, draws, st), 1)
+        one = delta.LSRows(*(x[:1] for x in st))
+        d1 = delta.LSDraws(*(x[:, :, :1] for x in draws))
+        ms1 = time_ms(lambda: delta.random_local_search_kernel(pa, d1, one),
+                      10)
+        nb, ops = random_ls_work(pa, st, draws)
+        bytes_ms = nb / PEAK_BYTES_S * 1e3
+        ops_ms = ops / PEAK_INT_OPS_S * 1e3
+        out[("random_ls", P)] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=err,
+            rounds=gc.ls_steps, candidates=gc.ls_candidates,
+            chain_floor_ms=ms1, us_per_round=ms1 * 1e3 / gc.ls_steps,
+            smem_bytes=delta.random_ls_smem_bytes(pa, gc.ls_candidates),
+            feasible_rows=int((feasible.hcv == 0).sum()), int_ops=ops,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
 def profile_phases(pa, dev):
     """A short torch.profiler window per phase config: one warm repair
-    generation (pop 16) and one warm post-phase sweep pass (pop 4). For
+    generation (pop 16), one warm post-phase sweep pass (pop 4) and one
+    warm reference-path generation (pop 10, -p 2). For
     each: wall time, device time summed over CUDA events, the device's
     idle share, device launches and wall per sweep pass, device time per
     launch of each hand kernel and the kernels taking the most device
@@ -418,11 +686,14 @@ def profile_phases(pa, dev):
     cfg = config.parse_args(["-i", TIM]).apply_tuned_defaults(pa.n_events)
     repair = engine.build_ga_config(cfg)
     post = engine.build_post_config(cfg, repair)
+    ref = engine.build_ga_config(config.parse_args(
+        ["-i", TIM] + PATHS["reference"]))
     out = []
-    for name, gacfg in (("repair", repair), ("post", post)):
+    for name, gacfg in (("repair", repair), ("post", post),
+                        ("reference", ref)):
         gens = engine.island_generators(dev, 7, 0, 1)
         st = islands.init_island_population(pa, gens, gacfg.pop_size)
-        if name == "repair":
+        if name != "post":
             def work(st=st, gens=gens, gacfg=gacfg):
                 return islands.run_epochs(pa, gens, st, gacfg, 1, 1)
         else:
@@ -464,8 +735,8 @@ def profile_phases(pa, dev):
             f.write(averages.table(sort_by="self_cpu_time_total",
                                    row_limit=40))
         out.append({"config": name, "pop": gacfg.pop_size,
-                    "window": ("one generation" if name == "repair"
-                               else "one sweep pass"),
+                    "window": ("one sweep pass" if name == "post"
+                               else "one generation"),
                     "sweep_passes": passes, "wall_ms": wall_ms,
                     "device_ms": device_ms,
                     "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
@@ -477,20 +748,35 @@ def profile_phases(pa, dev):
     return out
 
 
-def main_path():
-    """Run the CLI on comp01s; return (records, seconds)."""
+def run_path(name):
+    """Run the CLI on comp01s with the path's flags, the launch counters
+    zeroed just before and read just after; returns (records, seconds,
+    launches)."""
     from timetabling_ga_tpu_torch import cli, kernels
     os.makedirs(OUT_DIR, exist_ok=True)
-    path = os.path.join(OUT_DIR, "comp01s_s42.jsonl")
+    path = os.path.join(OUT_DIR, f"comp01s_s42_{name}.jsonl")
     kernels.reset_launches()
     t0 = time.monotonic()
-    rc = cli.main(["-i", TIM, "-o", path] + MAIN_ARGS)
+    rc = cli.main(["-i", TIM, "-o", path] + PATHS[name])
     seconds = time.monotonic() - t0
     launches = dict(kernels.LAUNCHES)
-    check(rc == 0, f"cli exited {rc}")
+    check(rc == 0, f"{name} path: cli exited {rc}")
     with open(path) as f:
         records = [json.loads(line) for line in f]
     return records, seconds, launches
+
+
+def check_path_kernels(name, launches, generations):
+    per_gen, some, none = PATH_KERNELS[name]
+    for k in per_gen:
+        check(launches[k] >= generations,
+              f"{name} path: {k} launched {launches[k]} times in "
+              f"{generations} generations")
+    for k in some:
+        check(launches[k] > 0, f"{name} path: {k} never launched")
+    for k in none:
+        check(launches[k] == 0,
+              f"{name} path: {k} launched {launches[k]} times")
 
 
 def check_stream(records, pa_cpu):
@@ -580,34 +866,35 @@ def main() -> int:
 
     timings = compare(pa, dev)
     timings.update(compare_sweep_pass(pa, dev))
-    records, seconds, launches = main_path()
-    summary = check_stream(records, problem.device_arrays("cpu"))
-    summary["wall_s"] = round(seconds, 3)
-    print(json.dumps({"main_path": summary}))
+    timings.update(compare_random_ls(pa, dev))
+    print(json.dumps({"islands_compared": compare_islands(pa, dev)}))
+    print(json.dumps({"kick_chains_compared": compare_kick_chains(pa, dev)}))
+    pa_cpu = problem.device_arrays("cpu")
+    launches = {}
+    for name in PATHS:
+        records, seconds, launches[name] = run_path(name)
+        summary = check_stream(records, pa_cpu)
+        summary["wall_s"] = round(seconds, 3)
+        check_path_kernels(name, launches[name], summary["generations"])
+        print(json.dumps({"path": name, **summary,
+                          "launches": launches[name]}))
     for prof in profile_phases(pa, dev):
         print(json.dumps({"profile": prof}))
-    for name in KERNELS:
-        if name in MAIN_PATH_KERNELS:
-            check(launches[name] > 0,
-                  f"kernel {name} never launched on the main path")
-        else:
-            check(launches[name] == 0,
-                  f"per-step kernel {name} launched {launches[name]} "
-                  f"times on the main path; K5 runs its body")
     for key, t in timings.items():
         name = key[0] if key[0] in KERNELS else "sweep_pass"
         print(json.dumps({"kernel": name, "shape": list(key), **t,
-                          "launches": launches[name]}))
+                          "launches": launches[KERNELS[name][2]][name]}))
     rows = []
-    for name, (src, replaces) in KERNELS.items():
-        t = timings[("repair", 16) if name == "sweep_pass" else (name, 16)]
+    for name, (src, replaces, path) in KERNELS.items():
+        t = timings[{"sweep_pass": ("repair", 16),
+                     "random_ls": ("random_ls", 10)}.get(name, (name, 16))]
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": launches[name],
-               "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+               "replaces": replaces, "launches": launches[path][name],
+               "path": path, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": None}
-        if name == "sweep_pass":
-            row.update(steps=t["steps"], chain_floor_ms=t["chain_floor_ms"])
+        if "chain_floor_ms" in t:
+            row["chain_floor_ms"] = t["chain_floor_ms"]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

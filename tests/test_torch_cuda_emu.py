@@ -1,4 +1,4 @@
-"""The CUDA sources of K3, K4 and K5, run on the CPU, against their plain
+"""The CUDA sources of K1 and K3-K8, run on the CPU, against their plain
 PyTorch versions.
 
 The kernels run only on the card (tests/test_torch_kernels.py, marked
@@ -21,9 +21,11 @@ import pytest
 import torch
 
 from tests.test_torch_kernels import (
-    K5_CASES, _half_feasible, _instances, _k5_equals_plain, _state)
+    K5_CASES, _breed_case, _half_feasible, _instances, _island_state,
+    _k5_equals_plain, _ls_draws, _state)
 from timetabling_ga_tpu_torch import kernels
-from timetabling_ga_tpu_torch.ops import delta, moves, sweep
+from timetabling_ga_tpu_torch.ops import delta, ga, moves, rooms, sweep
+from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import random_instance
 
 torch.set_num_threads(1)
@@ -56,6 +58,9 @@ inline std::barrier<>* emu_block_bar;
 inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_bar;
 inline uint64_t emu_lanes[1024];
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+    emu_warp_bar[threadIdx.x >> 5]->arrive_and_wait();
+}
 template <class T> T emu_shfl_xor(T v, int off) {
     int t = threadIdx.x, w = t >> 5, lane = t & 31;
     std::memcpy(&emu_lanes[t], &v, sizeof(T));
@@ -102,7 +107,8 @@ inline void emu_launch(int grid, int block, size_t smem,
 }
 '''
 
-EMULATED = ("move1_sweep", "delta_one", "sweep_pass")
+EMULATED = ("assign_rooms", "move1_sweep", "delta_one", "sweep_pass",
+            "breed", "survivors", "random_ls")
 
 
 def _for_the_cpu(src: str) -> str:
@@ -119,7 +125,7 @@ def _for_the_cpu(src: str) -> str:
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """The three libraries built for the CPU, swapped into `kernels` (and
+    """The libraries built for the CPU, swapped into `kernels` (and
     `kernels.ptr` taught to take CPU tensors) for the module's tests."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -137,8 +143,9 @@ def emulated(tmp_path_factory):
         out, _ = proc.communicate()
         assert proc.returncode == 0, f"{n} does not build for the CPU:\n{out}"
     saved = dict(kernels._LIBS), kernels.ptr, kernels.launch
-    for n in EMULATED:
-        kernels._LIBS[n] = kernels.load(n, d / f"{n}.so")
+    for src in EMULATED:
+        for n in kernels.SOURCES[src]:
+            kernels._LIBS[n] = kernels.load(n, d / f"{src}.so")
 
     def launch(name, *args):
         kernels.LAUNCHES[name] += 1
@@ -232,3 +239,52 @@ def test_k5_source_equals_plain(emulated, case, inst):
     _k5_equals_plain(pa, st, draws, case)
     _k5_equals_plain(pa, _half_feasible(st), draws, case)
     assert kernels.LAUNCHES["sweep_pass"] == 2
+
+
+@pytest.mark.parametrize("inst", range(4))
+def test_k1_k6_sources_equal_plain(emulated, inst):
+    """K1 and K6 (both entries) on the four instances: random, padded
+    (dead events and rooms) and anchored; crossover and mutation each on
+    for some children and off for others, with tournament ties."""
+    pa = _instances("cpu")[inst]
+    st = _state(pa, 6, 20 + inst)
+    assert torch.equal(rooms.assign_rooms_kernel(pa, st.slots),
+                       rooms.assign_rooms_plain(pa, st.slots))
+    pop, cfg, par, draws = _breed_case(pa, "cpu", 2, 3, 30 + inst)
+    got = ga.make_children_kernel(pa, draws, par, groups=2)
+    want = ga.make_children_plain(pa, draws, par, cfg, groups=2)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    d = moves.make_move_draws([torch.Generator().manual_seed(inst)] * 3, 6,
+                              pa.n_events, pa.n_slots, 1.0, 1.0, 1.0,
+                              "cpu")
+    chain = moves.MoveDraws(*(x.reshape((3, 6) + x.shape[1:]) for x in d))
+    got = moves.relocation_chain_kernel(pa, chain, st.slots, st.rooms, 2)
+    want = moves.relocation_chain_plain(pa, chain, st.slots, st.rooms, 2)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+@pytest.mark.parametrize("L,pop", [(1, 3), (2, 2), (4, 3), (2, 16)])
+def test_k7_sources_equal_plain(emulated, L, pop):
+    par, ch = _island_state(L, pop, 1), _island_state(L, pop, 2)
+    got = ga.survivors_kernel(par, ch, groups=L, keep=pop)
+    want = ga.survivors_plain(par, ch, groups=L, keep=pop)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    got = ga.survivors_kernel(par, groups=L)
+    want = ga.survivors_plain(par, groups=L)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    got = islands.migrate_kernel(want, L)
+    assert all(torch.equal(w, g)
+               for w, g in zip(islands.migrate_plain(want, L), got))
+
+
+@pytest.mark.parametrize("inst", range(4))
+def test_k8_source_equals_plain(emulated, inst):
+    pa = _instances("cpu")[inst]
+    st = delta.init_rows(pa, *_state(pa, 3, 40 + inst)[:2])
+    draws = _ls_draws(pa, "cpu", 3, 3, 4, 50 + inst)
+    kernels.reset_launches()
+    got = delta.random_local_search_kernel(pa, draws, st)
+    want = delta.random_local_search_plain(pa, draws, st)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    assert kernels.LAUNCHES["random_ls"] == 1
+    assert not torch.equal(got.slots, st.slots)

@@ -99,15 +99,54 @@ def test_tuned_defaults_match_jax():
 
 @pytest.mark.parametrize("argv,word", [
     (["--obs"], "--obs"), (["--checkpoint", "c.npz"], "--checkpoint"),
-    (["--ls-mode", "random"], "--ls-mode random"),
+    (["--faults", "dispatch:1:die"], "--faults"),
     (["--rooms-mode", "parallel"], "--rooms-mode parallel"),
     (["--trace-mode", "deltas"], "--trace-mode deltas"),
     (["--post-lahc", "8"], "--post-lahc"), (["--nsga2"], "--nsga2"),
-    (["--distributed"], "--distributed"), (["-m", "8"], "-m")])
+    (["--distributed"], "--distributed"),
+    (["--post-lahc-k", "8"], "--post-lahc-k")])
 def test_unported_flags_are_refused_by_name(argv, word):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         tconfig.parse_args(["-i", "x.tim"] + argv)
     assert word in str(e.value)
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["-p", "2"], ["-p", "3"], ["-p", "2", "-m", "50"],
+    ["--ls-candidates", "5", "-p", "2"], ["-m", "3"], ["--ls-full-eval"],
+    ["--ls-mode", "random", "-p", "3", "--ls-candidates", "16"],
+    ["--ls-mode", "sweep", "--ls-sweeps", "2"]])
+def test_ls_flags_and_ga_config_match_jax(argv):
+    """The random-LS flags parse as the JAX CLI parses them, and
+    build_ga_config sizes the search as the JAX engine does (rounds =
+    maxSteps // candidates, maxSteps by -p unless -m)."""
+    from timetabling_ga_tpu.runtime import engine as jengine
+    argv = ["-i", "x.tim", "--no-auto-tune"] + argv
+    j, t = jconfig.parse_args(argv), tconfig.parse_args(argv)
+    for f in ("problem_type", "max_steps", "ls_candidates", "ls_mode",
+              "ls_full_eval", "ls_time_limit"):
+        assert getattr(j, f) == getattr(t, f), f
+    assert j.resolved_max_steps() == t.resolved_max_steps()
+    jg, tg = jengine.build_ga_config(j), tengine.build_ga_config(t)
+    for f in ("pop_size", "ls_steps", "ls_candidates", "ls_delta",
+              "ls_mode", "ls_sweeps", "p1", "p2", "p3"):
+        assert getattr(jg, f) == getattr(tg, f), f
+
+
+def test_reference_path_cli_on_cpu(tim_path, capsys):
+    """`--no-auto-tune -p 1` (the random-candidate LS, delta-scored) on
+    the CPU emits a protocol-valid stream; -l is accepted with the JAX
+    path's warning."""
+    assert tcli.main(["-i", tim_path, "-s", "5", "--backend", "cpu",
+                      "--no-auto-tune", "-p", "1", "--pop-size", "4",
+                      "--generations", "3", "-l", "10", "--trace"]) == 0
+    out = capsys.readouterr()
+    records = _records(out.out)
+    _check_protocol(records)
+    assert "-l (LS time limit) is retired" in out.err
+    disp = [r["phase"] for r in records if "phase" in r
+            and r["phase"]["name"] == "dispatch"]
+    assert sum(p["gens"] for p in disp) == 3
 
 
 def test_gpu_backend_without_a_card_raises(monkeypatch):

@@ -1,6 +1,11 @@
 """The port's GA (timetabling_ga_tpu_torch/ops/ga.py) and single-GPU
-island layer against the JAX package: one generation reproduces the JAX
-population bit for bit under draws mirrored from the JAX key tree."""
+island layer against the JAX package: one generation — with the sweep
+or the random-candidate local search — reproduces the JAX population bit
+for bit under draws mirrored from the JAX key tree, as do the breeding
+(K6's plain version), the truncation and the migration (K7's)."""
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -9,9 +14,12 @@ import pytest
 import torch
 
 from tests.test_torch_moves import (  # noqa: F401  (fixtures)
-    _population, arrays, jax_breed_draws, jax_sweep_draws_fn,
+    _population, arrays, jax_breed_draws, jax_ls_draws, jax_sweep_draws_fn,
     padded_problem, t32)
+from timetabling_ga_tpu.ops import fitness as jfit
 from timetabling_ga_tpu.ops import ga as jga
+from timetabling_ga_tpu.parallel import islands as jisl
+from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.convert import pop_state_from_numpy
 from timetabling_ga_tpu_torch.ops import ga as tga
 from timetabling_ga_tpu_torch.parallel import islands as tisl
@@ -22,10 +30,20 @@ POP = 6
 
 
 def _cfgs(**kw):
-    base = dict(pop_size=POP, ls_sweeps=2, ls_converge=True,
-                ls_swap_block=3, ls_hot_k=8, ls_sideways=0.25, p3=0.2)
+    base = dict(pop_size=POP, ls_mode="sweep", ls_sweeps=2,
+                ls_converge=True, ls_swap_block=3, ls_hot_k=8,
+                ls_sideways=0.25, p3=0.2)
     base.update(kw)
-    return jga.GAConfig(ls_mode="sweep", **base), tga.GAConfig(**base)
+    return jga.GAConfig(**base), tga.GAConfig(**base)
+
+
+def _anchored(problem, seed):
+    rng = np.random.default_rng(seed)
+    return dataclasses.replace(
+        problem,
+        anchor_slots=rng.integers(0, problem.n_slots,
+                                  problem.n_events).astype(np.int32),
+        anchor_w=rng.integers(0, 4, problem.n_events).astype(np.int32))
 
 
 def test_init_population_matches_jax(small_problem):
@@ -59,6 +77,128 @@ def test_generation_matches_jax_bit_for_bit(which, small_problem,
                          tcfg)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("which", ["small", "padded", "anchored"])
+def test_make_children_matches_jax(which, small_problem, padded_problem):
+    """K6's plain version against a vmapped `_make_child`: crossover and
+    mutation each on some children and off on others, parents with
+    random rooms (a child without crossover keeps parent A's, which a
+    rematch would not give), and penalties in {0, 1} x scv in {0, 1}, so
+    most tournaments end in full ties."""
+    problem = {"small": small_problem, "padded": padded_problem,
+               "anchored": _anchored(small_problem, 5)}[which]
+    jpa, tpa = arrays(problem)
+    n = 12
+    jcfg = jga.GAConfig(pop_size=n, p_crossover=0.5, p_mutation=0.5,
+                        p3=0.4)
+    tcfg = tga.GAConfig(pop_size=n, p_crossover=0.5, p_mutation=0.5,
+                        p3=0.4)
+    slots, _ = _population(problem, n, 3)
+    rng = np.random.default_rng(4)
+    rooms = rng.integers(0, problem.n_rooms, slots.shape).astype(np.int32)
+    tie = rng.integers(0, 2, (2, n)).astype(np.int32)
+    jstate = jga.PopState(jnp.asarray(slots), jnp.asarray(rooms),
+                          jnp.asarray(tie[0]), jnp.asarray(tie[0]),
+                          jnp.asarray(tie[1]))
+    key = jax.random.key(31)
+    keys = jax.random.split(key, n)
+    want = jax.jit(jax.vmap(lambda k: jga._make_child(jpa, k, jstate,
+                                                      jcfg)))(keys)
+    draws = jax_breed_draws(key, n, problem.n_events, problem.n_slots,
+                            jcfg)
+    for flag in (draws.do_x, draws.do_m):
+        assert 0 < int(flag.sum()) < n
+    got = tga.make_children(tpa, draws, pop_state_from_numpy(jstate), tcfg)
+    for w, g in zip(want[:2], got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    np.testing.assert_array_equal(np.asarray(want[2]), draws.do_x.numpy())
+
+
+@pytest.mark.parametrize("delta", [True, False])
+def test_generation_random_ls_matches_jax(delta, small_problem):
+    jpa, tpa = arrays(small_problem)
+    jcfg, tcfg = _cfgs(ls_mode="random", ls_steps=4, ls_candidates=3,
+                       ls_delta=delta, p3=0.3)
+    slots, rooms = _population(small_problem, POP, 8)
+    jstate = jga.evaluate(jpa, jnp.asarray(slots), jnp.asarray(rooms))
+    key = jax.random.key(23)
+    want = jax.jit(jga.generation, static_argnums=(3,))(jpa, key, jstate,
+                                                        jcfg)
+    draws = jax_breed_draws(key, POP, small_problem.n_events,
+                            small_problem.n_slots, jcfg)
+    ls = jax_ls_draws(jax.random.fold_in(key, 0x15), 4, 3, POP,
+                      small_problem.n_events, small_problem.n_slots, 1.0,
+                      1.0, 0.3)
+    got = tga.generation(tpa, draws, lambda _i: ls,
+                         pop_state_from_numpy(jstate), tcfg)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+def _island_state(L, pop, seed, E=7):
+    """L islands of `pop` rows: (penalty, scv) in a small range so ties
+    are common, each island sorted as truncation leaves it."""
+    rng = np.random.default_rng(seed)
+    pen = rng.integers(0, 3, (L, pop)).astype(np.int32)
+    scv = rng.integers(0, 3, (L, pop)).astype(np.int32)
+    order = np.lexsort((scv, pen), axis=-1)
+    pen = np.take_along_axis(pen, order, 1).reshape(-1)
+    scv = np.take_along_axis(scv, order, 1).reshape(-1)
+    rows = np.arange(L * pop, dtype=np.int32)
+    slots = (rows[:, None] * 10 + np.arange(E)[None, :]).astype(np.int32)
+    return jga.PopState(jnp.asarray(slots), jnp.asarray(slots + 1),
+                        jnp.asarray(pen), jnp.asarray(pen * 2 + seed),
+                        jnp.asarray(scv))
+
+
+@pytest.mark.parametrize("L", [1, 2, 4])
+@pytest.mark.parametrize("pop", [2, 3, 16])
+def test_truncation_and_migration_match_jax(L, pop):
+    """K7's plain versions: the (mu+lambda) truncation against the
+    generation's lexsort per island, and migration against `_migrate`
+    under shard_map with L local islands on one device."""
+    par = _island_state(L, pop, 1)
+    ch = _island_state(L, pop, 2)
+
+    def trunc(a, b):
+        both = [jnp.concatenate([x, y]) for x, y in zip(a, b)]
+        order = jfit.lex_order(both[2], both[4])[:pop]
+        return [x[order] for x in both]
+
+    blocks = [jax.tree.map(lambda x: x.reshape((L, pop) + x.shape[1:]), s)
+              for s in (par, ch)]
+    want = jax.vmap(trunc)(*blocks)
+    got = tga.survivors(pop_state_from_numpy(par), pop_state_from_numpy(ch),
+                        groups=L, keep=pop)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(
+            np.asarray(w).reshape((L * pop,) + w.shape[2:]), g.numpy())
+
+    from jax.sharding import PartitionSpec as Pspec
+    from timetabling_ga_tpu.compat import shard_map
+    spec = jga.PopState(*(Pspec(jisl.AXIS),) * 5)
+    mig = jax.jit(functools.partial(
+        shard_map, mesh=jisl.make_mesh(1), in_specs=(spec,),
+        out_specs=spec)(lambda st: jisl._migrate(st, L, L=L)))
+    state = jga.PopState(*(jnp.asarray(np.asarray(w).reshape(
+        (L * pop,) + w.shape[2:])) for w in want))
+    want_m = mig(state)
+    got_m = tisl.migrate(got, L)
+    for w, g in zip(want_m, got_m):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+def test_survivors_and_migrate_on_cpu_take_the_plain_versions():
+    st = pop_state_from_numpy(_island_state(2, 5, 3))
+    kernels.reset_launches()
+    a = tga.survivors(st, st, groups=2, keep=4)
+    b = tisl.migrate(st, 2)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    for x, y in zip(a, tga.survivors_plain(st, st, groups=2, keep=4)):
+        assert torch.equal(x, y)
+    for x, y in zip(b, tisl.migrate_plain(st, 2)):
+        assert torch.equal(x, y)
 
 
 def test_tournament_matches_jax():

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K5 against their plain PyTorch versions.
+"""The CUDA kernels K1-K8 against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package and needs no conftest
 fixture, so it also runs on a machine with the card but without JAX:
@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from timetabling_ga_tpu_torch import kernels
-from timetabling_ga_tpu_torch.ops import delta, fitness, moves, rooms, sweep
+from timetabling_ga_tpu_torch.ops import (
+    delta, fitness, ga, local_search, moves, rooms, sweep)
+from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import (
     derive, itc_like_instance, load_tim_file, make_problem_arrays,
     random_instance)
@@ -77,6 +79,49 @@ def _state(pa, P, seed):
     slots = torch.randint(0, pa.n_slots, (P, pa.n_events), generator=g,
                           device=pa.device, dtype=torch.int32)
     return delta.init_state(pa, slots, rooms.assign_rooms_plain(pa, slots))
+
+
+def _breed_case(pa, device, groups, pop, seed):
+    """(pop, cfg, parents, draws) of one breeding: parents with random
+    rooms (not their slots' matching, so a child without crossover shows
+    whether it kept parent A's rooms) and (penalty, scv) in {0, 1, 2}^2,
+    so tournaments tie; crossover on for even children, mutation off for
+    every third."""
+    P = groups * pop
+    st = _state(pa, P, seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    rms = torch.randint(0, pa.n_rooms, st.rooms.shape, generator=g,
+                        device=device, dtype=torch.int32)
+    tie = torch.randint(0, 3, (2, P), generator=g, device=device,
+                        dtype=torch.int32)
+    par = ga.PopState(st.slots, rms, tie[0], tie[0] + 5, tie[1])
+    cfg = ga.GAConfig(pop_size=pop, p3=0.4)
+    draws = ga.make_breed_draws([g] * groups, pop, pa.n_events, pa.n_slots,
+                                cfg, device)
+    i = torch.arange(P, device=device)
+    draws = draws._replace(do_x=i % 2 == 0, do_m=i % 3 != 0)
+    return pop, cfg, par, draws
+
+
+def _island_state(L, pop, seed, device="cpu", E=7):
+    """L islands of `pop` sorted rows with (penalty, scv) in {0, 1, 2}^2."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ps = torch.randint(0, 3, (2, L, pop), generator=g, device=device,
+                       dtype=torch.int32)
+    st = ga.survivors_plain(ga.PopState(
+        *(torch.zeros((L * pop, E), dtype=torch.int32, device=device),) * 2,
+        ps[0].reshape(-1), ps[0].reshape(-1) * 2,
+        ps[1].reshape(-1)), groups=L)
+    rows = torch.arange(L * pop, dtype=torch.int32, device=device)
+    slots = rows[:, None] * 10 + torch.arange(E, dtype=torch.int32,
+                                              device=device)
+    return st._replace(slots=slots, rooms=slots + seed)
+
+
+def _ls_draws(pa, device, P, n_rounds, K, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return delta.make_ls_draws([g], P, n_rounds, K, pa.n_events, pa.n_slots,
+                               1.0, 1.0, 0.5, device)
 
 
 @pytest.fixture
@@ -248,6 +293,70 @@ def test_k5_shared_memory_count_matches_the_kernel(cuda):
 
 
 @pytest.mark.cuda
+def test_k6_breed_and_relocate_equal_plain(cuda):
+    for i, pa in enumerate(_instances(cuda)):
+        for groups, pop in ((1, 16), (3, 5)):
+            _, cfg, par, draws = _breed_case(pa, cuda, groups, pop, 60 + i)
+            got = ga.make_children(pa, draws, par, cfg, groups)
+            want = ga.make_children_plain(pa, draws, par, cfg, groups)
+            assert all(torch.equal(w, g) for w, g in zip(want, got))
+        st = _state(pa, 9, 70 + i)
+        d = moves.make_move_draws([torch.Generator(device=cuda)
+                                   .manual_seed(i)] * 4, 9, pa.n_events,
+                                  pa.n_slots, 1.0, 1.0, 1.0, cuda)
+        chain = moves.MoveDraws(*(x.reshape((4, 9) + x.shape[1:])
+                                  for x in d))
+        for n in (1, 3):
+            got = moves.relocation_chain(pa, chain, st.slots, st.rooms, n)
+            want = moves.relocation_chain_plain(pa, chain, st.slots,
+                                                st.rooms, n)
+            assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 2, 4])
+@pytest.mark.parametrize("pop", [2, 3, 16])
+def test_k7_survivors_and_migrate_equal_plain(cuda, L, pop):
+    par, ch = _island_state(L, pop, 1, cuda), _island_state(L, pop, 2, cuda)
+    for b, keep in ((ch, pop), (None, None)):
+        got = ga.survivors(par, b, groups=L, keep=keep)
+        want = ga.survivors_plain(par, b, groups=L, keep=keep)
+        assert all(torch.equal(w, g) for w, g in zip(want, got))
+    got = islands.migrate(want, L)
+    assert all(torch.equal(w, g)
+               for w, g in zip(islands.migrate_plain(want, L), got))
+
+
+@pytest.mark.cuda
+def test_k8_random_ls_equals_plain(cuda):
+    for i, pa in enumerate(_instances(cuda)):
+        st = delta.init_rows(pa, *_state(pa, 6, 80 + i)[:2])
+        for K in (8, 3, 20):
+            draws = _ls_draws(pa, cuda, 6, 5, K, 90 + i)
+            got = delta.random_local_search(pa, draws, st)
+            want = delta.random_local_search_plain(pa, draws, st)
+            assert all(torch.equal(w, g) for w, g in zip(want, got))
+            # the full re-evaluation form (K6 relocate + K2) agrees
+            full = local_search.batch_local_search(pa, draws, st.slots,
+                                                   st.rooms)
+            assert torch.equal(full[0], got.slots)
+            assert torch.equal(full[1], got.rooms)
+
+
+@pytest.mark.cuda
+def test_k8_shared_memory_count_matches_the_kernel(cuda):
+    kernels.build()
+    fn = kernels._LIBS["random_ls"][0].tt_random_ls_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    for pa in _instances(cuda):
+        for K in (1, 8, 40):
+            assert fn(pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots, K,
+                      pa.conflict_bits.shape[1]) == \
+                delta.random_ls_smem_bytes(pa, K)
+
+
+@pytest.mark.cuda
 def test_launch_counters_count_launches(cuda):
     pa = _instances(cuda)[1]
     st = _state(pa, 4, 6)
@@ -283,6 +392,14 @@ def test_sweep_pass_smem_bytes_at_comp01s():
     assert sweep.sweep_pass_smem_bytes(pa, post) == 47_088
 
 
+def test_random_ls_smem_bytes_at_comp01s():
+    """K8's shared memory per individual on comp01s at K = 8: slots and
+    rooms 3,200, candidates 384, scalars 128, occ 912, att 18,000 and
+    the conflict bits 20,800."""
+    pa = load_tim_file(COMP01S).device_arrays()
+    assert delta.random_ls_smem_bytes(pa, 8) == 43_424
+
+
 def test_sweep_pass_kernel_raises_above_the_shared_memory_limit():
     # 2,700 students x 45 slots of int16 attendance is 243,000 bytes
     big = random_instance(5, n_events=12, n_rooms=3, n_features=2,
@@ -305,16 +422,22 @@ def test_sweep_pass_kernel_raises_above_the_shared_memory_limit():
 
 
 def test_library_paths_are_keyed_by_source_hash():
-    paths = {n: kernels._lib_path(n) for n in kernels.SIGNATURES}
+    paths = {s: kernels._lib_path(s) for s in kernels.SOURCES}
     assert len(set(paths.values())) == len(paths)
-    for name, path in paths.items():
+    for src, path in paths.items():
         assert path.parent == kernels.BUILD_DIR
-        assert path.name.startswith(name + "-")
-        assert (kernels.CSRC / f"{name}.cu").exists()
+        assert path.name.startswith(src + "-")
+        assert (kernels.CSRC / f"{src}.cu").exists()
+    assert sorted(n for ns in kernels.SOURCES.values() for n in ns) == \
+        sorted(kernels.SIGNATURES)
+    assert kernels.SOURCES["breed"] == ["breed", "relocate"]
+    assert kernels.SOURCES["survivors"] == ["survivors", "migrate"]
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     # every local header a source includes is part of its key
     assert [p.name for p in kernels._sources("sweep_pass")] == [
         "sweep_pass.cu", "sweep_dev.cuh", "common.cuh"]
+    assert [p.name for p in kernels._sources("random_ls")] == [
+        "random_ls.cu", "sweep_dev.cuh", "rooms_dev.cuh", "common.cuh"]
 
 
 def test_conflict_bits_and_csr_encode_the_problem():

@@ -3,8 +3,8 @@ JAX package's, on the CPU, exactly.
 
 This module also holds the shared JAX-draw mirroring: functions that
 walk the JAX package's key tree with live `jax.random` calls and return
-the draws the port takes as tensors (sample_move, the sweep pass and
-the generation). The other tests/test_torch_*.py files import them, and
+the draws the port takes as tensors (sample_move, the sweep pass, the
+random-candidate local search and the generation). The other tests/test_torch_*.py files import them, and
 `test_mirrored_draws_reproduce_sample_move` below checks the mirror
 against the JAX op it mirrors.
 """
@@ -16,9 +16,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax import lax
 
 from timetabling_ga_tpu.ops import moves as jmoves
 from timetabling_ga_tpu_torch.convert import problem_arrays_from_numpy
+from timetabling_ga_tpu_torch.ops import delta as tdelta
 from timetabling_ga_tpu_torch.ops import ga as tga
 from timetabling_ga_tpu_torch.ops import moves as tmoves
 from timetabling_ga_tpu_torch.ops.sweep import SweepDraws, sweep_shape
@@ -47,6 +49,20 @@ def jax_move_draws(keys, n_events, n_slots, p1=1.0, p2=1.0, p3=0.0):
     return tmoves.MoveDraws(_t((mtype)),
                             _t((u)),
                             _t((t)))
+
+
+def jax_ls_draws(key, n_rounds, K, P, n_events, n_slots, p1=1.0, p2=1.0,
+                 p3=0.0):
+    """LSDraws of the random-candidate local search (delta.py:240-280,
+    local_search.py:59-80): split(key, n_rounds) -> split(K) -> split(P)
+    -> sample_move's split(3)."""
+    keys = jax.vmap(lambda k: jax.vmap(lambda kk: jax.random.split(kk, P))(
+        jax.random.split(k, K)))(jax.random.split(key, n_rounds))
+    d = jax_move_draws(keys.reshape(-1), n_events, n_slots, p1, p2, p3)
+    shape = (n_rounds, K, P)
+    return tdelta.LSDraws(d.mtype.reshape(shape),
+                          d.u.reshape(shape + (n_events,)),
+                          d.t.reshape(shape))
 
 
 def jax_sweep_draws(key, P, n_events, n_slots, swap_block, block_events,
@@ -199,6 +215,42 @@ def test_move1_move2_move3_match_jax(medium_problem):
     for (ws, wr), (gs, gr) in cases:
         np.testing.assert_array_equal(np.asarray(ws), gs.numpy())
         np.testing.assert_array_equal(np.asarray(wr), gr.numpy())
+
+
+@pytest.mark.parametrize("which", ["small", "padded"])
+def test_relocation_chain_matches_jax_kick_scan(which, small_problem,
+                                                padded_problem):
+    """The JAX kick's per-clone scan (islands.py:823-849): max_moves
+    random moves, those at i >= n_moves masked off."""
+    problem = small_problem if which == "small" else padded_problem
+    jpa, tpa = arrays(problem)
+    N, max_moves, n_moves = 5, 4, 3
+    slots, rooms = _population(problem, N, 6)
+    keys = jax.random.split(jax.random.key(8), N * max_moves).reshape(
+        N, max_moves)
+
+    def clone(ks, s, r):
+        def body(carry, xs):
+            i, k = xs
+            s2, r2 = jmoves.random_move(jpa, k, carry[0], carry[1], 1.0,
+                                        1.0, 0.5)
+            keep = i < n_moves
+            return (jnp.where(keep, s2, carry[0]),
+                    jnp.where(keep, r2, carry[1])), None
+        (s, r), _ = lax.scan(body, (s, r), (jnp.arange(max_moves), ks))
+        return s, r
+
+    ws, wr = jax.jit(jax.vmap(clone))(keys, jnp.asarray(slots),
+                                      jnp.asarray(rooms))
+    d = jax_move_draws(keys.T.reshape(-1), problem.n_events,
+                       problem.n_slots, 1.0, 1.0, 0.5)
+    draws = tmoves.MoveDraws(d.mtype.reshape(max_moves, N),
+                             d.u.reshape(max_moves, N, -1),
+                             d.t.reshape(max_moves, N))
+    gs, gr = tmoves.relocation_chain(tpa, draws, t32(slots), t32(rooms),
+                                     n_moves)
+    np.testing.assert_array_equal(np.asarray(ws), gs.numpy())
+    np.testing.assert_array_equal(np.asarray(wr), gr.numpy())
 
 
 def test_make_move_draws_shapes_and_ranges():

@@ -16,8 +16,10 @@
 // breaks ties toward the lower room (jnp.argmin's first-index rule). The
 // event order (a stable sort of suitable-room counts) and the capacity
 // rank are computed once per problem on the host, as the JAX version
-// computes them once per trace.
-#include "common.cuh"
+// computes them once per trace. The matching itself is
+// rooms_dev.cuh `tt_match_rooms_warp`, which K6 runs on every crossover
+// child.
+#include "rooms_dev.cuh"
 
 #define K1_WARPS 4
 
@@ -41,26 +43,8 @@ __global__ void assign_rooms_kernel(
     }
     __syncthreads();
     if (!active) return;
-    int cr = lane < R ? cap_rank[lane] : 0;
-    int dd = lane < R ? dead[lane] : 0;
-    int* out = rooms + (size_t)p * E;
-    for (int i = 0; i < E; ++i) {
-        int e = ord[i];
-        int t = sl[e];
-        int key = 0x7fffffff;
-        if (lane < R) {
-            int unsuit = possible[e * R + lane] ? 0 : 1;
-            key = (occ[t * R + lane] + unsuit) * TT_W_COST
-                  + unsuit * TT_W_UNSUIT + cr + dd;
-        }
-        int r = tt_warp_argmin(key, lane);
-        if (lane == 0) {
-            out[e] = r;
-            // padded events choose a room but occupy nothing
-            occ[t * R + r] += live[e];
-        }
-        __syncwarp();
-    }
+    TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
+    tt_match_rooms_warp(rp, ord, sl, occ, rooms + (size_t)p * E, lane);
 }
 
 extern "C" int tt_assign_rooms(const int* slots, int* rooms,

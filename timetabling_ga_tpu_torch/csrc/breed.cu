@@ -1,0 +1,184 @@
+// K6: breeding of a whole population in one launch, and chains of random
+// moves (its relocation entry).
+//
+// Replaces timetabling_ga_tpu/ops/ga.py:154 `tournament` and :168
+// `_make_child` (vmapped over the children by `generation` :221), with
+// B7 fused: ops/moves.py:106/149/174 `sample_move` / `apply_relocation`
+// / `random_move`, and the kick's chain of them (parallel/islands.py:823
+// `_kick`). XLA runs a child as two k-draw lexsorts, a gather of two
+// parents, the crossover's E-step room-matching scan and the mutation's
+// occupancy rebuild; the port ran it as ~40 batched torch launches.
+//
+// Bound on this card: neither bytes nor operations. A child reads two
+// parent rows and writes one (~10 KB at E=400) and does E*R room keys;
+// its time is the matching's chain of E dependent warp argmins (K1's
+// ~0.1 ms), then a few more for the move.
+//
+// Design: one warp per child, one lane per room (R <= 32), as K1. Each
+// warp keeps its child's slots, rooms and (T, R) occupancy in shared
+// memory from the crossover through the mutation:
+//   - two k-draw tournaments by (penalty, scv), the earliest draw kept on
+//     a full tie (jnp.lexsort(...)[0]); draws index the child's island;
+//   - do_x: the masked crossover of the parents' slots and K1's matching
+//     body (rooms_dev.cuh); else parent A's slots and rooms, unmatched,
+//     and the occupancy counted from them;
+//   - do_m: the top 3 of the row's E uniforms by warp argmax (ties to the
+//     lower index), sample_move's padded 3-relocation and
+//     apply_relocation on the child's occupancy.
+// The relocation entry runs only the last step, n_moves times in order
+// per row, on an occupancy counted once at the start.
+#include "rooms_dev.cuh"
+
+#define K6_WARPS 4
+
+// the winner of one tournament: `draws` (k) index the island's rows
+// from `base`; strict improvement only, so the earliest draw wins ties
+__device__ __forceinline__ int k6_tournament(const int* draws, int k,
+                                             int base, const int* pen,
+                                             const int* scv) {
+    int best = base + draws[0];
+    for (int i = 1; i < k; ++i) {
+        int j = base + draws[i];
+        if (pen[j] < pen[best] || (pen[j] == pen[best] && scv[j] < scv[best]))
+            best = j;
+    }
+    return best;
+}
+
+// one random move of row (sl, rm, occ) from its draws
+__device__ __forceinline__ void k6_random_move(const TTRoomProblem& rp,
+                                               int* sl, int* rm, int* occ,
+                                               const float* u, int mtype,
+                                               int t, int lane, int rank) {
+    int ev[3], ns[3], on[3];
+    tt_top3_warp(u, rp.E, lane, ev);
+    tt_sample_move(sl, mtype, t, ev, ns, on);
+    __syncwarp();
+    tt_relocate_warp(rp, sl, rm, occ, ev, ns, on, lane, rank);
+}
+
+__global__ void breed_kernel(
+    const int* __restrict__ slots, const int* __restrict__ rooms,
+    const int* __restrict__ pen, const int* __restrict__ scv,
+    const int* __restrict__ ta, const int* __restrict__ tb,
+    const uint8_t* __restrict__ mask, const uint8_t* __restrict__ do_x,
+    const uint8_t* __restrict__ do_m, const int* __restrict__ mtype,
+    const float* __restrict__ u, const int* __restrict__ tgt,
+    const uint8_t* __restrict__ possible, const int* __restrict__ cap_rank,
+    const int* __restrict__ dead, const int* __restrict__ live,
+    const int* __restrict__ order, int* __restrict__ out_slots,
+    int* __restrict__ out_rooms, int P, int pop, int k, int E, int R,
+    int T) {
+    extern __shared__ int k6_smem[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    int* ord = k6_smem;                                  // (E,)
+    int* sl = k6_smem + E + warp * (2 * E + T * R);      // (E,)
+    int* rm = sl + E;                                    // (E,)
+    int* occ = rm + E;                                   // (T, R)
+    for (int i = threadIdx.x; i < E; i += blockDim.x) ord[i] = order[i];
+    __syncthreads();
+    const int c = blockIdx.x * K6_WARPS + warp;
+    if (c >= P) return;
+    const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
+    const int rank = tt_room_rank(rp, lane);
+    const int base = c / pop * pop;
+    const int ia = k6_tournament(ta + (size_t)c * k, k, base, pen, scv);
+    const int ib = k6_tournament(tb + (size_t)c * k, k, base, pen, scv);
+    const int* sa = slots + (size_t)ia * E;
+    const int* ra = rooms + (size_t)ia * E;
+    const int* sb = slots + (size_t)ib * E;
+    if (do_x[c]) {
+        const uint8_t* mk = mask + (size_t)c * E;
+        for (int i = lane; i < T * R; i += 32) occ[i] = 0;
+        for (int e = lane; e < E; e += 32) sl[e] = mk[e] ? sa[e] : sb[e];
+        __syncwarp();
+        tt_match_rooms_warp(rp, ord, sl, occ, rm, lane);
+    } else {
+        for (int e = lane; e < E; e += 32) {
+            sl[e] = sa[e];
+            rm[e] = ra[e];
+        }
+        __syncwarp();
+        tt_occupancy_warp(rp, sl, rm, occ, lane);
+    }
+    if (do_m[c])
+        k6_random_move(rp, sl, rm, occ, u + (size_t)c * E, mtype[c], tgt[c],
+                       lane, rank);
+    __syncwarp();
+    for (int e = lane; e < E; e += 32) {
+        out_slots[(size_t)c * E + e] = sl[e];
+        out_rooms[(size_t)c * E + e] = rm[e];
+    }
+}
+
+__global__ void relocate_kernel(
+    const int* __restrict__ slots, const int* __restrict__ rooms,
+    const int* __restrict__ mtype, const float* __restrict__ u,
+    const int* __restrict__ tgt, const uint8_t* __restrict__ possible,
+    const int* __restrict__ cap_rank, const int* __restrict__ dead,
+    const int* __restrict__ live, int* __restrict__ out_slots,
+    int* __restrict__ out_rooms, int N, int n_moves, int E, int R, int T) {
+    extern __shared__ int k6_smem[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int c = blockIdx.x * K6_WARPS + warp;
+    if (c >= N) return;
+    int* sl = k6_smem + warp * (2 * E + T * R);
+    int* rm = sl + E;
+    int* occ = rm + E;
+    const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
+    const int rank = tt_room_rank(rp, lane);
+    for (int e = lane; e < E; e += 32) {
+        sl[e] = slots[(size_t)c * E + e];
+        rm[e] = rooms[(size_t)c * E + e];
+    }
+    __syncwarp();
+    tt_occupancy_warp(rp, sl, rm, occ, lane);
+    for (int i = 0; i < n_moves; ++i) {
+        size_t row = (size_t)i * N + c;
+        k6_random_move(rp, sl, rm, occ, u + row * E, mtype[row], tgt[row],
+                       lane, rank);
+    }
+    __syncwarp();
+    for (int e = lane; e < E; e += 32) {
+        out_slots[(size_t)c * E + e] = sl[e];
+        out_rooms[(size_t)c * E + e] = rm[e];
+    }
+}
+
+extern "C" int tt_breed(
+    const int* slots, const int* rooms, const int* pen, const int* scv,
+    const int* ta, const int* tb, const uint8_t* mask, const uint8_t* do_x,
+    const uint8_t* do_m, const int* mtype, const float* u, const int* tgt,
+    const uint8_t* possible, const int* cap_rank, const int* dead,
+    const int* live, const int* order, int* out_slots, int* out_rooms, int P,
+    int pop, int k, int E, int R, int T, void* stream) {
+    if (R > 32 || E < 3 || P <= 0 || pop <= 0 || P % pop != 0 || k <= 0)
+        return (int)cudaErrorInvalidValue;
+    size_t smem = sizeof(int) * ((size_t)E + K6_WARPS * (2 * (size_t)E
+                                                          + (size_t)T * R));
+    cudaError_t err = tt_set_smem(breed_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    int grid = (P + K6_WARPS - 1) / K6_WARPS;
+    breed_kernel<<<grid, 32 * K6_WARPS, smem, (cudaStream_t)stream>>>(
+        slots, rooms, pen, scv, ta, tb, mask, do_x, do_m, mtype, u, tgt,
+        possible, cap_rank, dead, live, order, out_slots, out_rooms, P, pop,
+        k, E, R, T);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int tt_relocate(
+    const int* slots, const int* rooms, const int* mtype, const float* u,
+    const int* tgt, const uint8_t* possible, const int* cap_rank,
+    const int* dead, const int* live, int* out_slots, int* out_rooms, int N,
+    int n_moves, int E, int R, int T, void* stream) {
+    if (R > 32 || E < 3 || N <= 0 || n_moves < 0)
+        return (int)cudaErrorInvalidValue;
+    size_t smem = sizeof(int) * K6_WARPS * (2 * (size_t)E + (size_t)T * R);
+    cudaError_t err = tt_set_smem(relocate_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    int grid = (N + K6_WARPS - 1) / K6_WARPS;
+    relocate_kernel<<<grid, 32 * K6_WARPS, smem, (cudaStream_t)stream>>>(
+        slots, rooms, mtype, u, tgt, possible, cap_rank, dead, live,
+        out_slots, out_rooms, N, n_moves, E, R, T);
+    return (int)cudaGetLastError();
+}

@@ -17,6 +17,9 @@
 #define TT_W_UNSUIT (1 << 12)
 #define TT_INFEASIBLE_OFFSET 1000000
 #define TT_FULL_MASK 0xffffffffu
+// the most dynamic shared memory one block may opt into on sm_90
+// (kernels.SMEM_LIMIT in Python)
+#define TT_SMEM_LIMIT 232448
 
 extern "C" const char* tt_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);

@@ -1,0 +1,163 @@
+// Device bodies of the greedy room choice and of moves that re-room,
+// shared by K1 (assign_rooms.cu), K6 (breed.cu) and K8 (random_ls.cu).
+//
+// Each body runs on the 32 lanes of one warp, one lane per room
+// (R <= 32), with the individual's slots, rooms and (T, R) occupancy in
+// shared memory; lane 0 writes, and a __syncwarp() after each write
+// makes it visible to the warp's next step. The room key stays in
+// lockstep with ops/rooms.py `_room_key` (timetabling_ga_tpu/ops/
+// rooms.py:68): (occ + unsuit) * 2^13 + unsuit * 2^12 + cap_rank + dead,
+// the argmin taking the first room on ties.
+#pragma once
+
+#include "common.cuh"
+
+struct TTRoomProblem {
+    const uint8_t* possible;  // (E, R)
+    const int* cap_rank;      // (R,)
+    const int* dead;          // (R,) dead-room key penalty
+    const int* live;          // (E,) occupancy weight: 1 live, 0 padded
+    int E, R, T;
+};
+
+// The part of a lane's room key that depends on its room alone.
+__device__ __forceinline__ int tt_room_rank(const TTRoomProblem& rp,
+                                            int lane) {
+    return lane < rp.R ? rp.cap_rank[lane] + rp.dead[lane] : 0;
+}
+
+// choose_room: the room of event `e` on occupancy row `occ_row` (R
+// counts); every lane returns it. `rank` is tt_room_rank of the lane.
+__device__ __forceinline__ int tt_choose_room_warp(const TTRoomProblem& rp,
+                                                   const int* occ_row,
+                                                   int e, int lane,
+                                                   int rank) {
+    int key = 0x7fffffff;
+    if (lane < rp.R) {
+        int unsuit = rp.possible[e * rp.R + lane] ? 0 : 1;
+        key = (occ_row[lane] + unsuit) * TT_W_COST + unsuit * TT_W_UNSUIT
+              + rank;
+    }
+    return tt_warp_argmin(key, lane);
+}
+
+// K1's body (rooms.py:108 assign_rooms): events in the matching order
+// `ord`, each taking its room on its slot's occupancy row. `occ` (T x R)
+// comes in zeroed and leaves as the occupancy of (sl, rooms_out); padded
+// events choose a room but occupy nothing.
+__device__ __forceinline__ void tt_match_rooms_warp(const TTRoomProblem& rp,
+                                                    const int* ord,
+                                                    const int* sl, int* occ,
+                                                    int* rooms_out,
+                                                    int lane) {
+    const int R = rp.R;
+    const int rank = tt_room_rank(rp, lane);
+    for (int i = 0; i < rp.E; ++i) {
+        int e = ord[i];
+        int t = sl[e];
+        int r = tt_choose_room_warp(rp, occ + t * R, e, lane, rank);
+        if (lane == 0) {
+            rooms_out[e] = r;
+            occ[t * R + r] += rp.live[e];
+        }
+        __syncwarp();
+    }
+}
+
+// The occupancy (T x R) of (sl, rm), counted by the warp into `occ`.
+__device__ __forceinline__ void tt_occupancy_warp(const TTRoomProblem& rp,
+                                                  const int* sl,
+                                                  const int* rm, int* occ,
+                                                  int lane) {
+    for (int i = lane; i < rp.T * rp.R; i += 32) occ[i] = 0;
+    __syncwarp();
+    for (int e = lane; e < rp.E; e += 32)
+        if (rp.live[e]) atomicAdd(&occ[sl[e] * rp.R + rm[e]], 1);
+    __syncwarp();
+}
+
+// sample_move's events (moves.py:128): the indices of the 3 largest of
+// the E uniforms `u`, largest first, ties to the lower index (lax.top_k's
+// order, and the plain version's stable descending sort). Every lane
+// returns them.
+__device__ __forceinline__ void tt_top3_warp(const float* u, int E, int lane,
+                                             int ev[3]) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        float bv = -3.402823466e38f;
+        int bi = 0x7fffffff;
+        for (int e = lane; e < E; e += 32) {
+            bool taken = false;
+            for (int q = 0; q < k; ++q) taken |= ev[q] == e;
+            float v = u[e];
+            if (!taken && (v > bv || (v == bv && e < bi))) {
+                bv = v;
+                bi = e;
+            }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            float v2 = __shfl_xor_sync(TT_FULL_MASK, bv, off);
+            int i2 = __shfl_xor_sync(TT_FULL_MASK, bi, off);
+            if (v2 > bv || (v2 == bv && i2 < bi)) {
+                bv = v2;
+                bi = i2;
+            }
+        }
+        ev[k] = bi;
+    }
+}
+
+// sample_move's padded 3-relocation (moves.py:131-144) of events `ev`:
+// Move1 sends ev[0] to slot t, Move2 swaps ev[0] and ev[1], Move3 is the
+// 3-cycle ev[0] -> slot of ev[1] -> slot of ev[2] -> slot of ev[0];
+// inactive entries keep their slot.
+__device__ __forceinline__ void tt_sample_move(const int* sl, int mtype,
+                                               int t, const int ev[3],
+                                               int ns[3], int on[3]) {
+    int c0 = sl[ev[0]], c1 = sl[ev[1]], c2 = sl[ev[2]];
+    if (mtype == 0) {
+        ns[0] = t; ns[1] = c1; ns[2] = c2;
+        on[0] = 1; on[1] = 0; on[2] = 0;
+    } else if (mtype == 1) {
+        ns[0] = c1; ns[1] = c0; ns[2] = c2;
+        on[0] = 1; on[1] = 1; on[2] = 0;
+    } else {
+        ns[0] = c1; ns[1] = c2; ns[2] = c0;
+        on[0] = 1; on[1] = 1; on[2] = 1;
+    }
+}
+
+// B7's apply_relocation (moves.py:149): the active live events leave
+// their occupancy cells, then each entry in order takes its new slot and
+// a room chosen on the row as updated so far (an inactive entry keeps its
+// room). sl, rm and occ are updated in place.
+__device__ __forceinline__ void tt_relocate_warp(const TTRoomProblem& rp,
+                                                 int* sl, int* rm, int* occ,
+                                                 const int ev[3],
+                                                 const int ns[3],
+                                                 const int on[3], int lane,
+                                                 int rank) {
+    const int R = rp.R;
+    int os[3], orr[3], act[3];
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+        os[m] = sl[ev[m]];
+        orr[m] = rm[ev[m]];
+        act[m] = on[m] * rp.live[ev[m]];
+    }
+    __syncwarp();
+    if (lane == 0)
+        for (int m = 0; m < 3; ++m) occ[os[m] * R + orr[m]] -= act[m];
+    __syncwarp();
+    for (int m = 0; m < 3; ++m) {
+        int rc = tt_choose_room_warp(rp, occ + ns[m] * R, ev[m], lane, rank);
+        int rn = on[m] ? rc : orr[m];
+        if (lane == 0) {
+            occ[ns[m] * R + rn] += act[m];
+            sl[ev[m]] = ns[m];
+            rm[ev[m]] = rn;
+        }
+        __syncwarp();
+    }
+}

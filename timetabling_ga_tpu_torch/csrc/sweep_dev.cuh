@@ -325,3 +325,37 @@ __device__ __forceinline__ void tt_delta_one_warp(
     *d_scv = last_d + tt_warp_sum(scv_l);
     TT_PROF(3);
 }
+
+// delta.py:188 _apply_move on one individual's state in shared memory,
+// run by the whole block: `mv` holds the accepted move's events (3), old
+// slots (3), old rooms (3), new slots (3) and new rooms (3). Inactive
+// pad entries (new == old) cancel; padded events weigh 0 in occupancy.
+// K5 (sweep_pass.cu) and K8 (random_ls.cu) apply their moves with it.
+__device__ __forceinline__ void tt_apply_move_block(
+    const TTSweepProblem& pb, const int* mv, int* slots, int* rooms,
+    int16_t* att, int16_t* occ) {
+    const int E = pb.E, R = pb.R, T = pb.T;
+    for (int s = threadIdx.x; s < pb.S; s += blockDim.x) {
+        const uint8_t* a_s = pb.attends + (size_t)s * E;
+        int16_t* row = att + (size_t)s * T;
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+            if (a_s[mv[m]]) {
+                row[mv[3 + m]] -= 1;
+                row[mv[9 + m]] += 1;
+            }
+    }
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+            int lv = pb.live[mv[m]];
+            occ[mv[3 + m] * R + mv[6 + m]] -= lv;
+            occ[mv[9 + m] * R + mv[12 + m]] += lv;
+        }
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+            slots[mv[m]] = mv[9 + m];
+            rooms[mv[m]] = mv[12 + m];
+        }
+    }
+}

@@ -36,8 +36,6 @@
 #define K5_WARPS (K5_THREADS / 32)
 #define K5_BIG (1 << 20)
 #define K5_INT_MAX 0x7fffffff
-// the most dynamic shared memory one block may opt into on sm_90
-#define K5_SMEM_LIMIT 232448
 // block-wide scalars: the Move1 accumulator and the row's (pen, hcv, scv,
 // strict), 3 + 2 reduction ints per warp, the 16-int chosen move; the
 // Python side mirrors the 128 in ops/sweep.py _K5_MISC_INTS
@@ -74,7 +72,7 @@ __host__ __device__ inline K5Smem k5_smem_layout(
     m.att = o; o += k5_align(2 * (size_t)S * T);
     m.bits = o;
     unsigned with_bits = o + k5_align(4 * (size_t)E * W);
-    m.bits_in_smem = with_bits <= K5_SMEM_LIMIT ? 1 : 0;
+    m.bits_in_smem = with_bits <= TT_SMEM_LIMIT ? 1 : 0;
     m.total = m.bits_in_smem ? with_bits : o;
     return m;
 }
@@ -438,31 +436,7 @@ __global__ void __launch_bounds__(K5_THREADS) sweep_pass_kernel(K5Args A) {
 
         TT_PROF(7);
         // ---- the apply (delta.py:188 _apply_move), in shared memory
-        if (mv[0]) {
-            for (int s = tid; s < S; s += K5_THREADS) {
-                const uint8_t* a_s = pb.attends + (size_t)s * E;
-                int16_t* row = att + (size_t)s * T;
-#pragma unroll
-                for (int m = 0; m < 3; ++m)
-                    if (a_s[mv[1 + m]]) {
-                        row[mv[4 + m]] -= 1;
-                        row[mv[10 + m]] += 1;
-                    }
-            }
-            if (tid == 0) {
-#pragma unroll
-                for (int m = 0; m < 3; ++m) {
-                    int lv = pb.live[mv[1 + m]];
-                    occ[mv[4 + m] * R + mv[7 + m]] -= lv;
-                    occ[mv[10 + m] * R + mv[13 + m]] += lv;
-                }
-#pragma unroll
-                for (int m = 0; m < 3; ++m) {
-                    slots[mv[1 + m]] = mv[10 + m];
-                    rooms[mv[1 + m]] = mv[13 + m];
-                }
-            }
-        }
+        if (mv[0]) tt_apply_move_block(pb, mv + 1, slots, rooms, att, occ);
         TT_PROF(8);
     }
     __syncthreads();
@@ -512,7 +486,7 @@ extern "C" int tt_sweep_pass(
         return (int)cudaErrorInvalidValue;
     K5Smem lay = k5_smem_layout(E, R, S, T, K, n_cand, use_hot,
                                 max_students, W);
-    if (lay.total > K5_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
+    if (lay.total > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     cudaError_t err = cudaFuncSetAttribute(
         sweep_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)lay.total);

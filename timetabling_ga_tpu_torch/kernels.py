@@ -1,6 +1,6 @@
 """Build and bind the hand-written CUDA kernels (plain C interface).
 
-Each `csrc/<name>.cu` compiles with `nvcc -gencode
+Each `csrc/<source>.cu` compiles with `nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC` into its own
 shared library under `build/torch_kernels/` at the repository root,
 named by a hash of the source, the local headers it includes and the
@@ -9,10 +9,13 @@ in parallel, once, at the first CUDA launch (or an explicit `build()`);
 nothing here runs at import time, so `import timetabling_ga_tpu_torch`
 needs no CUDA toolchain.
 
-Every C entry point launches on PyTorch's current stream and returns
-`cudaGetLastError()`; `launch` raises on a non-zero code. `LAUNCHES`
-counts the launches of each kernel: a wrapper adds one exactly where it
-launches its kernel, so a run can show its path went through them.
+A source may hold several entry points (K6 `breed.cu`: breed and
+relocate; K7 `survivors.cu`: survivors and migrate); each has its own
+name here. Every C entry point launches on PyTorch's current stream and
+returns `cudaGetLastError()`; `launch` raises on a non-zero code.
+`LAUNCHES` counts the launches of each entry point: a wrapper adds one
+exactly where it launches its kernel, so a run can show its path went
+through them.
 """
 
 from __future__ import annotations
@@ -34,17 +37,38 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# the most dynamic shared memory one block may opt into on sm_90
+SMEM_LIMIT = 232_448
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# C signature of each entry point: pointers, then ints, then the stream
+# C signature of each entry point: pointers, then ints, then the stream;
+# and the csrc/<source>.cu that holds it
 SIGNATURES = {
-    "assign_rooms": ("tt_assign_rooms", [_P] * 7 + [_I] * 4 + [_P]),
-    "batch_penalty": ("tt_batch_penalty", [_P] * 13 + [_I] * 8 + [_P]),
-    "move1_sweep": ("tt_move1_sweep", [_P] * 16 + [_I] * 9 + [_P]),
-    "delta_one": ("tt_delta_one", [_P] * 19 + [_I] * 8 + [_P]),
-    "sweep_pass": ("tt_sweep_pass", [_P] * 33 + [_I] * 16 + [_P]),
+    "assign_rooms": ("tt_assign_rooms", [_P] * 7 + [_I] * 4 + [_P],
+                     "assign_rooms"),
+    "batch_penalty": ("tt_batch_penalty", [_P] * 13 + [_I] * 8 + [_P],
+                      "batch_penalty"),
+    "move1_sweep": ("tt_move1_sweep", [_P] * 16 + [_I] * 9 + [_P],
+                    "move1_sweep"),
+    "delta_one": ("tt_delta_one", [_P] * 19 + [_I] * 8 + [_P],
+                  "delta_one"),
+    "sweep_pass": ("tt_sweep_pass", [_P] * 33 + [_I] * 16 + [_P],
+                   "sweep_pass"),
+    "breed": ("tt_breed", [_P] * 19 + [_I] * 6 + [_P], "breed"),
+    "relocate": ("tt_relocate", [_P] * 11 + [_I] * 5 + [_P], "breed"),
+    "survivors": ("tt_survivors", [_P] * 15 + [_I] * 5 + [_P],
+                  "survivors"),
+    "migrate": ("tt_migrate", [_P] * 10 + [_I] * 3 + [_P], "survivors"),
+    "random_ls": ("tt_random_ls", [_P] * 26 + [_I] * 10 + [_P],
+                  "random_ls"),
 }
+
+# the entry points of each source
+SOURCES: dict = {}
+for _name, (_, _, _src) in SIGNATURES.items():
+    SOURCES.setdefault(_src, []).append(_name)
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
@@ -72,10 +96,10 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
-def _sources(name: str) -> list:
-    """`csrc/<name>.cu` and every local header it includes, recursively,
-    in first-include order."""
-    out, todo = [], [CSRC / f"{name}.cu"]
+def _sources(source: str) -> list:
+    """`csrc/<source>.cu` and every local header it includes,
+    recursively, in first-include order."""
+    out, todo = [], [CSRC / f"{source}.cu"]
     while todo:
         path = todo.pop(0)
         if path in out:
@@ -85,13 +109,13 @@ def _sources(name: str) -> list:
     return out
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(source: str) -> Path:
     h = hashlib.sha256()
-    for part in _sources(name):
+    for part in _sources(source):
         h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{source}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> float:
@@ -99,32 +123,34 @@ def build() -> float:
     parallel, and load them. Returns the seconds it took."""
     with _LOCK:
         t0 = time.monotonic()
-        todo = {n: _lib_path(n) for n in SIGNATURES if n not in _LIBS}
-        missing = {n: p for n, p in todo.items() if not p.exists()}
+        todo = {src: _lib_path(src) for src, names in SOURCES.items()
+                if any(n not in _LIBS for n in names)}
+        missing = {src: p for src, p in todo.items() if not p.exists()}
         if missing:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
             procs = {}
-            for name, path in missing.items():
+            for src, path in missing.items():
                 tmp = path.with_suffix(f".{os.getpid()}.tmp")
                 cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                       str(CSRC / f"{name}.cu")]
-                procs[name] = (subprocess.Popen(
+                       str(CSRC / f"{src}.cu")]
+                procs[src] = (subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True), tmp, path)
             failed = []
-            for name, (proc, tmp, path) in procs.items():
+            for src, (proc, tmp, path) in procs.items():
                 out, _ = proc.communicate()
-                BUILD_INFO["ptxas"][name] = out
+                BUILD_INFO["ptxas"][src] = out
                 if proc.returncode != 0:
-                    failed.append(f"{name}:\n{out}")
+                    failed.append(f"{src}:\n{out}")
                     continue
                 os.replace(tmp, path)
             if failed:
                 raise RuntimeError("CUDA kernel build failed:\n"
                                    + "\n".join(failed))
-        for name, path in todo.items():
-            _LIBS[name] = load(name, path)
+        for src, path in todo.items():
+            for name in SOURCES[src]:
+                _LIBS[name] = load(name, path)
         BUILD_INFO["seconds"] = time.monotonic() - t0
         return BUILD_INFO["seconds"]
 
@@ -133,7 +159,7 @@ def load(name: str, path) -> tuple:
     """(library, entry point) of kernel `name` from the shared library
     at `path`, with the C signature bound."""
     lib = ctypes.CDLL(str(path))
-    sym, argtypes = SIGNATURES[name]
+    sym, argtypes, _ = SIGNATURES[name]
     fn = getattr(lib, sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

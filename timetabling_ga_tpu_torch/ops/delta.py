@@ -10,6 +10,15 @@ A candidate is a padded 3-relocation (events, new slots, active flags).
 over `(P, C)` candidates; `delta_one_plain` is its plain version, the
 JAX `_delta_one` written out over the same batch. `apply_moves`
 commits one accepted candidate per individual.
+
+`batch_local_search_delta` is the random-candidate local search (JAX
+delta.py:212): rounds of K random candidates per individual, scored by
+delta, the first least penalty accepted on a strict improvement.
+`random_local_search` is the wrapper of kernel K8 (csrc/random_ls.cu),
+all rounds in one launch; `random_local_search_plain` is its plain
+version, a Python loop over the rounds. Both take and return `LSRows`
+(assignments and penalty terms; K8 builds att and occ itself) and take
+their draws as `LSDraws`.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import torch
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.fitness import gather_rows
+from timetabling_ga_tpu_torch.ops.moves import MoveDraws, sample_move
 from timetabling_ga_tpu_torch.ops.rooms import choose_room, occupancy
 
 
@@ -31,6 +41,17 @@ class LSState(NamedTuple):
     rooms: torch.Tensor   # (P, E) int32
     att: torch.Tensor     # (P, S, T) int16
     occ: torch.Tensor     # (P, T, R) int16
+    pen: torch.Tensor     # (P,) int32
+    hcv: torch.Tensor     # (P,) int32
+    scv: torch.Tensor     # (P,) int32
+
+
+class LSRows(NamedTuple):
+    """A population's rows as the random-candidate search takes and
+    returns them: the assignments and their penalty terms."""
+
+    slots: torch.Tensor   # (P, E) int32
+    rooms: torch.Tensor   # (P, E) int32
     pen: torch.Tensor     # (P,) int32
     hcv: torch.Tensor     # (P,) int32
     scv: torch.Tensor     # (P,) int32
@@ -47,13 +68,22 @@ def attendance_counts(pa, slots) -> torch.Tensor:
     return att
 
 
+def init_rows(pa, slots, rooms) -> LSRows:
+    """A population's rows with their penalty terms (K2)."""
+    return LSRows(slots, rooms, *fitness.batch_penalty(pa, slots, rooms))
+
+
+def state_of(pa, rows: LSRows) -> LSState:
+    """The maintained tensors of scored rows."""
+    att = attendance_counts(pa, rows.slots).to(torch.int16)
+    occ = occupancy(pa, rows.slots, rows.rooms).to(torch.int16)
+    return LSState(slots=rows.slots, rooms=rows.rooms, att=att, occ=occ,
+                   pen=rows.pen, hcv=rows.hcv, scv=rows.scv)
+
+
 def init_state(pa, slots, rooms) -> LSState:
     """Maintained tensors + baseline fitness for a population."""
-    pen, hcv, scv = fitness.batch_penalty(pa, slots, rooms)
-    att = attendance_counts(pa, slots).to(torch.int16)
-    occ = occupancy(pa, slots, rooms).to(torch.int16)
-    return LSState(slots=slots, rooms=rooms, att=att, occ=occ,
-                   pen=pen, hcv=hcv, scv=scv)
+    return state_of(pa, init_rows(pa, slots, rooms))
 
 
 def _day_scv(b: torch.Tensor) -> torch.Tensor:
@@ -217,3 +247,141 @@ def apply_moves(pa, slots, rooms, att, occ, evs, new_slots, new_rooms,
     rooms = torch.where(keep, rooms.scatter(1, evl, new_rooms.to(
         rooms.dtype)), rooms)
     return slots, rooms, att, occ
+
+
+class LSDraws(NamedTuple):
+    """The draws of one random-candidate local search call: candidate c
+    of individual p in round r is row (r, c, p) of every field."""
+
+    mtype: torch.Tensor   # (n_rounds, K, P) int  0 Move1 / 1 Move2 / 2 Move3
+    u: torch.Tensor       # (n_rounds, K, P, E) f32 uniforms (top 3 = events)
+    t: torch.Tensor       # (n_rounds, K, P) int  Move1 target slot
+
+
+def make_ls_draws(gens, rows_per_gen: int, n_rounds: int,
+                  n_candidates: int, n_events: int, n_slots: int,
+                  p1: float, p2: float, p3: float, device) -> LSDraws:
+    """LSDraws for len(gens) * rows_per_gen individuals, each generator
+    drawing its own block of individuals in one call per field."""
+    probs = torch.tensor([p1, p2, p3], dtype=torch.float32, device=device)
+    shape = (n_rounds, n_candidates, rows_per_gen)
+    parts = []
+    for g in gens:
+        parts.append((
+            torch.multinomial(probs, n_rounds * n_candidates * rows_per_gen,
+                              replacement=True, generator=g).reshape(shape),
+            torch.rand(shape + (n_events,), generator=g, device=device),
+            torch.randint(0, n_slots, shape, generator=g, device=device,
+                          dtype=torch.int32)))
+    if len(parts) == 1:
+        return LSDraws(*parts[0])
+    return LSDraws(*(torch.cat([p[i] for p in parts], 2) for i in range(3)))
+
+
+def round_candidates(pa, draws: LSDraws, r: int, slots):
+    """Round r's candidates of every individual: evs, new_slots (P, K, 3)
+    int32 and active (P, K, 3) bool, each sample_move's padded form."""
+    K, P = draws.mtype.shape[1:]
+    md = MoveDraws(draws.mtype[r].t().reshape(-1),
+                   draws.u[r].transpose(0, 1).reshape(P * K, -1),
+                   draws.t[r].t().reshape(-1))
+    out = sample_move(pa, md, slots.repeat_interleave(K, 0))
+    return tuple(x.reshape(P, K, 3) for x in out)
+
+
+def random_local_search_plain(pa, draws: LSDraws, rows: LSRows) -> LSRows:
+    """Plain version of K8: every round's K candidates scored by
+    delta_one_plain, the first of least anchored penalty (jnp.argmin)
+    accepted where strictly below the individual's (delta.py:240-272)."""
+    st = state_of(pa, rows)
+    P = st.slots.shape[0]
+    ar = torch.arange(P, device=st.slots.device)
+    for r in range(draws.mtype.shape[0]):
+        evs, ns, act = round_candidates(pa, draws, r, st.slots)
+        d_hcv, d_scv, nr = delta_one_plain(pa, st.slots, st.rooms, st.att,
+                                           st.occ, evs, ns, act)
+        anc = st.pen - fitness.base_penalty(st.hcv, st.scv)
+        new_hcv = st.hcv[:, None] + d_hcv
+        new_scv = st.scv[:, None] + d_scv
+        new_pen = (fitness.base_penalty(new_hcv, new_scv) + anc[:, None]
+                   + fitness.anchor_delta(pa, st.slots, evs, ns)
+                   ).to(torch.int32)
+        best = torch.argmin(new_pen, 1)
+        best_pen = new_pen[ar, best]
+        better = best_pen < st.pen
+        slots, rooms, att, occ = apply_moves(
+            pa, st.slots, st.rooms, st.att, st.occ, evs[ar, best],
+            ns[ar, best], nr[ar, best], better)
+        st = LSState(slots, rooms, att, occ,
+                     torch.where(better, best_pen, st.pen),
+                     torch.where(better, new_hcv[ar, best], st.hcv),
+                     torch.where(better, new_scv[ar, best], st.scv))
+    return LSRows(st.slots, st.rooms, st.pen, st.hcv, st.scv)
+
+
+def random_ls_smem_bytes(pa, n_candidates: int) -> int:
+    """Dynamic shared memory K8 takes per individual, the layout of
+    csrc/random_ls.cu `k8_smem_layout`: slots, rooms, 12 ints per
+    candidate, 32 block scalars, occ and att, each rounded up to 16
+    bytes, plus the conflict bitset when the total still fits in
+    SMEM_LIMIT (else K8 reads it from global memory)."""
+    E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
+    W = pa.conflict_bits.shape[1]
+    parts = (4 * E, 4 * E, 4 * 12 * n_candidates, 4 * 32, 2 * T * R,
+             2 * S * T)
+    total = sum(-(-x // 16) * 16 for x in parts)
+    with_bits = total + -(-4 * E * W // 16) * 16
+    return with_bits if with_bits <= kernels.SMEM_LIMIT else total
+
+
+def random_local_search_kernel(pa, draws: LSDraws, rows: LSRows) -> LSRows:
+    """Kernel K8 on CUDA tensors: every round for every individual in one
+    launch, one block per individual. Raises ValueError when one
+    individual's state does not fit in shared memory; no fallback."""
+    n_rounds, K, P = draws.mtype.shape
+    E = rows.slots.shape[1]
+    smem = random_ls_smem_bytes(pa, K)
+    if smem > kernels.SMEM_LIMIT:
+        raise ValueError(
+            f"random_ls: one individual's state needs {smem} bytes of "
+            f"shared memory, more than the {kernels.SMEM_LIMIT} a block "
+            f"can have")
+    if any(x.dtype != torch.int32 for x in rows):
+        raise TypeError("random_ls takes int32 slots, rooms, pen, hcv and "
+                        "scv")
+    if draws.u.dtype != torch.float32 or tuple(draws.u.shape) != (
+            n_rounds, K, P, E) or rows.slots.shape[0] != P:
+        raise ValueError("random_ls: the draws do not fit the population")
+    i32 = torch.int32
+    ins = [x.contiguous() for x in rows]
+    dr = [draws.mtype.to(i32).contiguous(), draws.u.contiguous(),
+          draws.t.to(i32).contiguous()]
+    out = LSRows(*(torch.empty_like(x) for x in ins))
+    if P == 0:
+        return out
+    p = kernels.ptr
+    kernels.launch(
+        "random_ls", *(p(x) for x in ins + dr), p(pa.possible_u8),
+        p(pa.live), p(pa.student_count), p(pa.conflict_bits),
+        p(pa.cap_rank), p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr),
+        p(pa.ev_stu), p(pa.stu_ptr), p(pa.stu_ev), p(pa.anchor_slots),
+        p(pa.anchor_w),
+        *(p(x) for x in out), P, E, pa.n_rooms, pa.n_students, pa.n_slots,
+        pa.slots_per_day, pa.conflict_bits.shape[1], K, n_rounds,
+        int(pa.anchored))
+    return out
+
+
+def random_local_search(pa, draws: LSDraws, rows: LSRows) -> LSRows:
+    """The random-candidate delta local search of a population's scored
+    rows. Kernel K8 on CUDA tensors, the plain version on CPU ones."""
+    if not rows.slots.is_cuda:
+        return random_local_search_plain(pa, draws, rows)
+    return random_local_search_kernel(pa, draws, rows)
+
+
+def batch_local_search_delta(pa, draws: LSDraws, slots, rooms):
+    """Hill-climb a (P, E) population for draws' n_rounds rounds of K
+    candidates each (JAX delta.py:212); returns (slots, rooms)."""
+    out = random_local_search(pa, draws, init_rows(pa, slots, rooms))
+    return out.slots, out.rooms

@@ -1,27 +1,36 @@
 """Population-level GA operators (port of timetabling_ga_tpu/ops/ga.py).
 
 Tournament-5 selection by (penalty, scv), uniform crossover with a full
-greedy room rematch (kernel K1), one random move with p_mutation, the
-sweep local search on every child, full evaluation (kernel K2) and
-(mu+lambda) truncation in (penalty, scv) order.
+greedy room rematch, one random move with p_mutation — all of a
+generation's breeding in one launch of kernel K6 (csrc/breed.cu,
+`make_children`) — the local search on every child (the sweep, K5, or
+the random-candidate search, K8 or its full-evaluation twin), full
+evaluation (K2) and (mu+lambda) truncation in (penalty, scv) order
+(kernel K7, csrc/survivors.cu, `survivors`). `make_children_plain` and
+`survivors_plain` are the plain versions.
 
 Populations may hold several islands as consecutive equal row blocks
 (`groups`): selection, truncation and the converge rule act within each
 block, as the JAX package's vmap over local islands does. Randomness
-comes in as tensors (`BreedDraws` and a per-pass sweep draw function).
+comes in as tensors (`BreedDraws` and a per-call LS draw function).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import fitness
+from timetabling_ga_tpu_torch.ops.delta import (
+    batch_local_search_delta, make_ls_draws)
+from timetabling_ga_tpu_torch.ops.local_search import batch_local_search
 from timetabling_ga_tpu_torch.ops.moves import (
-    MoveDraws, make_move_draws, random_move)
-from timetabling_ga_tpu_torch.ops.rooms import assign_rooms
+    MoveDraws, make_move_draws, random_move_plain)
+from timetabling_ga_tpu_torch.ops.rooms import (
+    assign_rooms, assign_rooms_plain, check_packing)
 from timetabling_ga_tpu_torch.ops.sweep import (
     make_sweep_draws, sweep_local_search, sweep_shape)
 
@@ -29,7 +38,8 @@ from timetabling_ga_tpu_torch.ops.sweep import (
 @dataclasses.dataclass(frozen=True)
 class GAConfig:
     """Breeding hyper-parameters: the JAX GAConfig's fields for the scan
-    room matcher and the sweep local search, the only ones ported."""
+    room matcher, the sweep and the random-candidate local searches,
+    with its defaults (no NSGA-II, no parallel matcher)."""
 
     pop_size: int = 10
     tournament_k: int = 5
@@ -38,6 +48,10 @@ class GAConfig:
     p1: float = 1.0
     p2: float = 1.0
     p3: float = 0.0
+    ls_steps: int = 0             # random LS rounds per child; 0 = off
+    ls_candidates: int = 8        # candidates per random LS round
+    ls_delta: bool = True         # delta-scored (K8) vs full re-evaluation
+    ls_mode: str = "random"       # "random" K-candidate | "sweep"
     ls_sweeps: int = 1
     ls_swap_block: int = 8
     ls_block_events: int = 1
@@ -68,6 +82,10 @@ class BreedDraws(NamedTuple):
     move: MoveDraws        # the mutation move
 
 
+def _cat(parts, dim=0):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
 def make_breed_draws(gens, pop: int, n_events: int, n_slots: int,
                      cfg: GAConfig, device) -> BreedDraws:
     """BreedDraws for len(gens) islands of `pop` children each."""
@@ -75,9 +93,9 @@ def make_breed_draws(gens, pop: int, n_events: int, n_slots: int,
     for g in gens:
         parts.append((
             torch.randint(0, pop, (pop, cfg.tournament_k), generator=g,
-                          device=device),
+                          device=device, dtype=torch.int32),
             torch.randint(0, pop, (pop, cfg.tournament_k), generator=g,
-                          device=device),
+                          device=device, dtype=torch.int32),
             torch.rand((pop, n_events), generator=g, device=device) < 0.5,
             torch.rand((pop,), generator=g, device=device)
             < cfg.p_crossover,
@@ -85,7 +103,7 @@ def make_breed_draws(gens, pop: int, n_events: int, n_slots: int,
             < cfg.p_mutation))
     move = make_move_draws(gens, pop, n_events, n_slots, cfg.p1, cfg.p2,
                            cfg.p3, device)
-    return BreedDraws(*(torch.cat([p[i] for p in parts]) for i in range(5)),
+    return BreedDraws(*(_cat([p[i] for p in parts]) for i in range(5)),
                       move=move)
 
 
@@ -100,6 +118,20 @@ def sweep_draws_fn(gens, rows_per_gen: int, pa, cfg: GAConfig):
     return draws
 
 
+def ls_draws_fn(gens, rows_per_gen: int, pa, cfg: GAConfig):
+    """The draw function of a generation's local search: the sweep's
+    per-pass draws, or, in random mode, `draws(0)` gives the LSDraws of
+    the whole search."""
+    if cfg.ls_mode == "sweep":
+        return sweep_draws_fn(gens, rows_per_gen, pa, cfg)
+
+    def draws(_i):
+        return make_ls_draws(gens, rows_per_gen, cfg.ls_steps,
+                             cfg.ls_candidates, pa.n_events, pa.n_slots,
+                             cfg.p1, cfg.p2, cfg.p3, pa.device)
+    return draws
+
+
 def _group_view(x, groups):
     return x.reshape((groups, -1) + tuple(x.shape[1:]))
 
@@ -108,21 +140,64 @@ def evaluate(pa, slots, rooms, groups: int = 1) -> PopState:
     """Evaluate (P, E) genotypes (K2) and sort each island best-first
     by (penalty, scv)."""
     penalty, hcv, scv = fitness.batch_penalty(pa, slots, rooms)
-    return sort_islands(PopState(slots, rooms, penalty, hcv, scv), groups)
+    return survivors(PopState(slots, rooms, penalty, hcv, scv),
+                     groups=groups)
 
 
-def sort_islands(state: PopState, groups: int = 1,
-                 keep: int = None) -> PopState:
-    """Sort each island's rows by (penalty, scv) and keep the first
-    `keep` (default all) — lex_order per island."""
-    order = fitness.lex_order(_group_view(state.penalty, groups),
-                              _group_view(state.scv, groups))
+def survivors_plain(a: PopState, b: Optional[PopState] = None,
+                    groups: int = 1, keep: int = None) -> PopState:
+    """Plain version of K7: each island's rows of `a` then its rows of
+    `b` (when given) sorted by (penalty, scv) — lex_order, ties to the
+    earlier row — and the first `keep` (default all) kept."""
+    if b is not None:
+        a = PopState(*(
+            torch.cat([_group_view(x, groups), _group_view(y, groups)], 1)
+            .reshape((-1,) + tuple(x.shape[1:])) for x, y in zip(a, b)))
+    order = fitness.lex_order(_group_view(a.penalty, groups),
+                              _group_view(a.scv, groups))
     if keep is not None:
         order = order[:, :keep]
     base = (torch.arange(groups, device=order.device)[:, None]
-            * _group_view(state.penalty, groups).shape[1])
+            * _group_view(a.penalty, groups).shape[1])
     flat = (order + base).reshape(-1)
-    return PopState(*(x[flat] for x in state))
+    return PopState(*(x[flat] for x in a))
+
+
+def survivors_kernel(a: PopState, b: Optional[PopState] = None,
+                     groups: int = 1, keep: int = None) -> PopState:
+    """Kernel K7: every island's survivors in one launch."""
+    na = a.slots.shape[0] // groups
+    nb = 0 if b is None else b.slots.shape[0] // groups
+    keep = na + nb if keep is None else keep
+    E = a.slots.shape[1]
+    ins = [x.contiguous() for x in a]
+    if any(x.dtype != torch.int32 for x in ins):
+        raise TypeError("survivors takes int32 populations")
+    ins_b = [None] * 5 if b is None else [x.contiguous() for x in b]
+    out = PopState(
+        torch.empty((groups * keep, E), dtype=torch.int32,
+                    device=a.slots.device),
+        torch.empty((groups * keep, E), dtype=torch.int32,
+                    device=a.slots.device),
+        *(torch.empty(groups * keep, dtype=torch.int32,
+                      device=a.slots.device) for _ in range(3)))
+    p = kernels.ptr
+    kernels.launch("survivors", *(p(x) for x in ins),
+                   *(None if x is None else p(x) for x in ins_b),
+                   *(p(x) for x in out), groups, na, nb, keep, E)
+    return out
+
+
+def survivors(a: PopState, b: Optional[PopState] = None, groups: int = 1,
+              keep: int = None) -> PopState:
+    """Each island's best `keep` (default all) of its rows of `a` and
+    then of `b` in (penalty, scv) order, ties to the earlier row — the
+    (mu+lambda) truncation of JAX ga.py:276-293 with a = parents and b =
+    children, or with b = None the sort of `evaluate`. Kernel K7 on CUDA
+    tensors, the plain version on CPU ones."""
+    if not a.slots.is_cuda:
+        return survivors_plain(a, b, groups, keep)
+    return survivors_kernel(a, b, groups, keep)
 
 
 def init_population(pa, slots0, cfg: GAConfig = None, draws_fn=None,
@@ -150,45 +225,98 @@ def tournament(draws, penalty, scv) -> torch.Tensor:
     return torch.gather(draws, 1, order[:, :1])[:, 0]
 
 
-def make_children(pa, draws: BreedDraws, state: PopState, cfg: GAConfig,
-                  groups: int = 1):
-    """Breed one child per parent row: 2x tournament -> crossover(p) ->
-    mutation(p). Returns the children's (slots, rooms)."""
+def make_children_plain(pa, draws: BreedDraws, state: PopState,
+                        cfg: GAConfig, groups: int = 1):
+    """Plain version of K6: breed one child per parent row, 2x tournament
+    -> crossover(p) -> mutation(p). Returns the children's (slots,
+    rooms)."""
     P = state.slots.shape[0]
     pop = P // groups
     base = (torch.arange(P, device=state.slots.device) // pop * pop)[:, None]
-    ia = tournament(draws.ta + base, state.penalty, state.scv)
-    ib = tournament(draws.tb + base, state.penalty, state.scv)
+    ia = tournament(draws.ta.long() + base, state.penalty, state.scv)
+    ib = tournament(draws.tb.long() + base, state.penalty, state.scv)
     s_a, r_a = state.slots[ia], state.rooms[ia]
     s_b = state.slots[ib]
     x_slots = torch.where(draws.mask, s_a, s_b)
-    x_rooms = assign_rooms(pa, x_slots)
+    x_rooms = assign_rooms_plain(pa, x_slots)
     do_x = draws.do_x[:, None]
     slots = torch.where(do_x, x_slots, s_a)
     rooms = torch.where(do_x, x_rooms, r_a)
-    m_slots, m_rooms = random_move(pa, draws.move, slots, rooms)
+    m_slots, m_rooms = random_move_plain(pa, draws.move, slots, rooms)
     do_m = draws.do_m[:, None]
     slots = torch.where(do_m, m_slots, slots)
     rooms = torch.where(do_m, m_rooms, rooms)
     return slots, rooms
 
 
-def generation(pa, draws: BreedDraws, sweep_draws, state: PopState,
+def make_children_kernel(pa, draws: BreedDraws, state: PopState,
+                         groups: int = 1):
+    """Kernel K6: every child in one launch, one warp per child."""
+    check_packing(pa)
+    P, E = state.slots.shape
+    ins = [x.contiguous() for x in (state.slots, state.rooms,
+                                    state.penalty, state.scv)]
+    if any(x.dtype != torch.int32 for x in ins):
+        raise TypeError("make_children takes an int32 population")
+    if draws.move.u.dtype != torch.float32:
+        raise TypeError("make_children takes float32 move uniforms")
+    i32 = torch.int32
+    dr = [draws.ta.to(i32).contiguous(), draws.tb.to(i32).contiguous(),
+          draws.mask.contiguous().view(torch.uint8),
+          draws.do_x.contiguous().view(torch.uint8),
+          draws.do_m.contiguous().view(torch.uint8),
+          draws.move.mtype.to(i32).contiguous(),
+          draws.move.u.contiguous(), draws.move.t.to(i32).contiguous()]
+    out = [torch.empty_like(ins[0]), torch.empty_like(ins[1])]
+    if P == 0:
+        return out[0], out[1]
+    p = kernels.ptr
+    kernels.launch("breed", *(p(x) for x in ins + dr), p(pa.possible_u8),
+                   p(pa.cap_rank), p(pa.dead), p(pa.live),
+                   p(pa.room_order), p(out[0]), p(out[1]), P, P // groups,
+                   draws.ta.shape[1], E, pa.n_rooms, pa.n_slots)
+    return out[0], out[1]
+
+
+def make_children(pa, draws: BreedDraws, state: PopState, cfg: GAConfig,
+                  groups: int = 1):
+    """Breed one child per parent row (each island's children from its
+    own parents); returns the children's (slots, rooms). Kernel K6 on
+    CUDA tensors, the plain version on CPU ones."""
+    if not state.slots.is_cuda:
+        return make_children_plain(pa, draws, state, cfg, groups)
+    return make_children_kernel(pa, draws, state, groups)
+
+
+def local_search(pa, ls_draws, slots, rooms, cfg: GAConfig,
+                 groups: int = 1):
+    """The children's local search as JAX ga.py:249-274 selects it: the
+    sweep when ls_mode is "sweep", else ls_steps rounds of the random-
+    candidate search (delta-scored, or by full re-evaluation when
+    ls_delta is False), else none."""
+    if cfg.ls_mode == "sweep":
+        if cfg.ls_sweeps > 0:
+            slots, rooms = sweep_local_search(
+                pa, ls_draws, slots, rooms, n_sweeps=cfg.ls_sweeps,
+                swap_block=cfg.ls_swap_block, converge=cfg.ls_converge,
+                block_events=cfg.ls_block_events, sideways=cfg.ls_sideways,
+                hot_k=cfg.ls_hot_k, p3=cfg.p3, groups=groups)
+    elif cfg.ls_steps > 0:
+        ls_fn = (batch_local_search_delta if cfg.ls_delta
+                 else batch_local_search)
+        slots, rooms = ls_fn(pa, ls_draws(0), slots, rooms)
+    return slots, rooms
+
+
+def generation(pa, draws: BreedDraws, ls_draws, state: PopState,
                cfg: GAConfig, groups: int = 1) -> PopState:
     """One generation over `groups` islands of cfg.pop_size rows: breed
-    every child, sweep-LS them, evaluate, and keep each island's best
-    pop_size of parents + children in (penalty, scv) order."""
+    every child, local-search them, evaluate, and keep each island's
+    best pop_size of parents + children in (penalty, scv) order.
+    `ls_draws` is the local search's draw function (`ls_draws_fn`)."""
     ch_slots, ch_rooms = make_children(pa, draws, state, cfg, groups)
-    if cfg.ls_sweeps > 0:
-        ch_slots, ch_rooms = sweep_local_search(
-            pa, sweep_draws, ch_slots, ch_rooms, n_sweeps=cfg.ls_sweeps,
-            swap_block=cfg.ls_swap_block, converge=cfg.ls_converge,
-            block_events=cfg.ls_block_events, sideways=cfg.ls_sideways,
-            hot_k=cfg.ls_hot_k, p3=cfg.p3, groups=groups)
+    ch_slots, ch_rooms = local_search(pa, ls_draws, ch_slots, ch_rooms, cfg,
+                                      groups)
     c_pen, c_hcv, c_scv = fitness.batch_penalty(pa, ch_slots, ch_rooms)
     children = PopState(ch_slots, ch_rooms, c_pen, c_hcv, c_scv)
-    both = PopState(*(
-        torch.cat([_group_view(a, groups), _group_view(b, groups)], 1)
-        .reshape((-1,) + tuple(a.shape[1:]))
-        for a, b in zip(state, children)))
-    return sort_islands(both, groups, keep=cfg.pop_size)
+    return survivors(state, children, groups, keep=cfg.pop_size)

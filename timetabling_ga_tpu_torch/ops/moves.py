@@ -5,6 +5,11 @@ relocates events and greedily re-rooms only the moved ones on the
 occupancy grid minus the moved events (rooms.choose_room). Randomness
 comes in as tensors (`MoveDraws`), made by `make_move_draws` from a
 torch.Generator — or, in the tests, from the JAX key tree.
+
+`relocation_chain` (and `random_move`, a chain of one) is the wrapper of
+kernel K6's relocation entry (csrc/breed.cu `tt_relocate`), which
+applies a row's moves in order in one launch; `relocation_chain_plain`
+is its plain version, `sample_move` + `apply_relocation` per move.
 """
 
 from __future__ import annotations
@@ -13,12 +18,15 @@ from typing import NamedTuple
 
 import torch
 
+from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops.fitness import gather_rows
-from timetabling_ga_tpu_torch.ops.rooms import choose_room, occupancy
+from timetabling_ga_tpu_torch.ops.rooms import (
+    check_packing, choose_room, occupancy)
 
 
 class MoveDraws(NamedTuple):
-    """The draws of one random move per individual (moves.py:118-130)."""
+    """The draws of one random move per individual (moves.py:118-130);
+    a chain of moves carries a leading move axis on every field."""
 
     mtype: torch.Tensor   # (P,) int   0 Move1 / 1 Move2 / 2 Move3
     u: torch.Tensor       # (P, E) f32 uniforms; their top 3 pick events
@@ -160,7 +168,60 @@ def apply_relocation(pa, slots, rooms, evs, new_slots, active):
     return slots, rooms
 
 
-def random_move(pa, draws: MoveDraws, slots, rooms):
+def random_move_plain(pa, draws: MoveDraws, slots, rooms):
     """One random move per individual: sample_move + apply_relocation."""
     evs, new_slots, active = sample_move(pa, draws, slots)
     return apply_relocation(pa, slots, rooms, evs, new_slots, active)
+
+
+def relocation_chain_plain(pa, draws: MoveDraws, slots, rooms,
+                           n_moves: int):
+    """Plain version of K6's relocation entry: the first `n_moves` moves
+    of `draws` (fields with a leading move axis) on every row, in order."""
+    for i in range(n_moves):
+        slots, rooms = random_move_plain(
+            pa, MoveDraws(*(x[i] for x in draws)), slots, rooms)
+    return slots, rooms
+
+
+def relocation_chain_kernel(pa, draws: MoveDraws, slots, rooms,
+                            n_moves: int):
+    """Kernel K6's relocation entry: every row's chain in one launch."""
+    check_packing(pa)
+    if slots.dtype != torch.int32 or rooms.dtype != torch.int32:
+        raise TypeError("relocation_chain takes int32 slots and rooms")
+    if draws.u.dtype != torch.float32 or draws.u.shape[0] < n_moves:
+        raise ValueError("relocation_chain: the draws need n_moves rows "
+                         "of float32 uniforms")
+    N, E = slots.shape
+    ins = [x.contiguous() for x in (slots, rooms)]
+    if N == 0 or n_moves == 0:
+        return ins[0].clone(), ins[1].clone()
+    dr = [draws.mtype[:n_moves].to(torch.int32).contiguous(),
+          draws.u[:n_moves].contiguous(),
+          draws.t[:n_moves].to(torch.int32).contiguous()]
+    out = [torch.empty_like(x) for x in ins]
+    p = kernels.ptr
+    kernels.launch("relocate", *(p(x) for x in ins + dr),
+                   p(pa.possible_u8), p(pa.cap_rank), p(pa.dead),
+                   p(pa.live), *(p(x) for x in out), N, n_moves, E,
+                   pa.n_rooms, pa.n_slots)
+    return out[0], out[1]
+
+
+def relocation_chain(pa, draws: MoveDraws, slots, rooms, n_moves: int):
+    """Apply the first `n_moves` random moves of `draws` (mtype/t
+    (n, N), u (n, N, E)) to every row of (N, E) int32 slots/rooms, in
+    order — the JAX kick's scan of random_move (islands.py:823-849).
+    Kernel K6's relocation entry (one launch) on CUDA tensors, the plain
+    version on CPU ones."""
+    if not slots.is_cuda:
+        return relocation_chain_plain(pa, draws, slots, rooms, n_moves)
+    return relocation_chain_kernel(pa, draws, slots, rooms, n_moves)
+
+
+def random_move(pa, draws: MoveDraws, slots, rooms):
+    """One random move per individual: sample_move + apply_relocation
+    (a relocation chain of one move)."""
+    return relocation_chain(pa, MoveDraws(*(x[None] for x in draws)),
+                            slots, rooms, 1)

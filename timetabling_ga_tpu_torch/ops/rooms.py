@@ -48,9 +48,9 @@ def choose_room(pa, occ_row, event, cap_rank=None) -> torch.Tensor:
                         dim=-1).to(torch.int32)
 
 
-def _check_packing(pa) -> None:
-    # key-packing bounds: cap_rank (< R) must stay under the unsuit flag
-    # field and the whole key inside int32 (JAX rooms.py:122)
+def check_packing(pa) -> None:
+    """Key-packing bounds: cap_rank (< R) must stay under the unsuit
+    flag field and the whole key inside int32 (JAX rooms.py:122)."""
     E, R = pa.possible.shape
     if not (E < 4096 and R < W_UNSUIT):
         raise ValueError(f"room key packing needs E < 4096 and R < 4096, "
@@ -59,7 +59,7 @@ def _check_packing(pa) -> None:
 
 def assign_rooms_plain(pa, slots) -> torch.Tensor:
     """Plain version of K1: (P, E) slots -> (P, E) rooms."""
-    _check_packing(pa)
+    check_packing(pa)
     P, E = slots.shape
     dev = slots.device
     occ = torch.zeros((P, pa.n_slots, pa.n_rooms), dtype=torch.int32,
@@ -77,13 +77,9 @@ def assign_rooms_plain(pa, slots) -> torch.Tensor:
     return rooms
 
 
-def assign_rooms(pa, slots) -> torch.Tensor:
-    """Full room matching of a population: (P, E) int32 slots -> (P, E)
-    int32 rooms. Kernel K1 on a CUDA tensor, the plain version on a CPU
-    one."""
-    if not slots.is_cuda:
-        return assign_rooms_plain(pa, slots)
-    _check_packing(pa)
+def assign_rooms_kernel(pa, slots) -> torch.Tensor:
+    """Kernel K1: the whole population in one launch, a warp each."""
+    check_packing(pa)
     if slots.dtype != torch.int32:
         raise TypeError("assign_rooms takes int32 slots")
     slots = slots.contiguous()
@@ -96,6 +92,15 @@ def assign_rooms(pa, slots) -> torch.Tensor:
                    p(pa.cap_rank), p(pa.dead), p(pa.live),
                    p(pa.room_order), P, E, pa.n_rooms, pa.n_slots)
     return rooms
+
+
+def assign_rooms(pa, slots) -> torch.Tensor:
+    """Full room matching of a population: (P, E) int32 slots -> (P, E)
+    int32 rooms. Kernel K1 on a CUDA tensor, the plain version on a CPU
+    one."""
+    if not slots.is_cuda:
+        return assign_rooms_plain(pa, slots)
+    return assign_rooms_kernel(pa, slots)
 
 
 def occupancy(pa, slots, rooms) -> torch.Tensor:

@@ -32,8 +32,7 @@ from timetabling_ga_tpu_torch.ops.fitness import day_view, gather_rows
 from timetabling_ga_tpu_torch.ops.rooms import W_COST, W_UNSUIT
 
 BIG = 1 << 20
-# the most dynamic shared memory one block may opt into on sm_90
-SMEM_LIMIT = 232_448
+SMEM_LIMIT = kernels.SMEM_LIMIT
 # K5's block-wide scalars and reduction scratch (K5_MISC_INTS in
 # csrc/sweep_pass.cu, which asserts that its 16 warps fit)
 _K5_MISC_INTS = 128

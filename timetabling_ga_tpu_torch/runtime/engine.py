@@ -9,8 +9,8 @@ timetabling_ga_tpu/runtime/engine.py:885-1066 and `_run_tries` :1272-).
 
 Every dispatch ends in one host read of its (hcv, scv) best trace, which
 feeds the logEntry stream, the seconds-per-generation estimate and the
-control decisions. Not in this slice: pipelining, buffer donation, fault
-recovery, multi-process agreement, observability, trace modes and
+control decisions. Not in the port yet: pipelining, buffer donation,
+fault recovery, multi-process agreement, observability, trace modes and
 checkpoints (runtime/config.py refuses their flags).
 """
 
@@ -46,10 +46,15 @@ def resolve_device(backend: str) -> torch.device:
 
 
 def build_ga_config(cfg: RunConfig) -> ga.GAConfig:
-    """Run flags -> breeding hyper-parameters (JAX engine.py:453)."""
+    """Run flags -> breeding hyper-parameters (JAX engine.py:453). The
+    reference's LS budget counts candidate evaluations (maxSteps); a
+    random-LS round evaluates ls_candidates of them, so rounds =
+    maxSteps // ls_candidates keeps the budget comparable."""
     return ga.GAConfig(
         pop_size=cfg.pop_size, p1=cfg.p1, p2=cfg.p2, p3=cfg.p3,
-        ls_sweeps=cfg.ls_sweeps,
+        ls_steps=max(1, cfg.resolved_max_steps() // cfg.ls_candidates),
+        ls_candidates=cfg.ls_candidates, ls_delta=not cfg.ls_full_eval,
+        ls_mode=cfg.ls_mode, ls_sweeps=cfg.ls_sweeps,
         ls_swap_block=cfg.ls_swap_block,
         ls_block_events=cfg.ls_block_events, ls_sideways=cfg.ls_sideways,
         ls_hot_k=cfg.ls_hot_k, ls_converge=cfg.ls_converge,
@@ -311,6 +316,12 @@ def run(cfg: RunConfig, out=None) -> int:
     """Execute the configured run; emit the JSONL protocol on `out` (or
     -o, or stdout). Returns the best reported evaluation."""
     device = resolve_device(cfg.backend)
+    if cfg.ls_time_limit != 99999.0:
+        # -l is retired, as on the JAX path (engine.py:894-901): the
+        # local search is bounded by candidate count, not wall clock
+        print("warning: -l (LS time limit) is retired on the GPU path; "
+              "the local search is bounded by -m (maxSteps) candidate "
+              "evaluations instead", file=sys.stderr)
     if device.type == "cuda":
         # the plain float32 contractions (event heat) must stay exact
         torch.backends.cuda.matmul.allow_tf32 = False
