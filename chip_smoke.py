@@ -8,30 +8,39 @@
 2. holds every kernel against its plain PyTorch version on the card, at
    the paths' shapes on fixtures/comp01s.tim — exact equality of every
    output — then times both with CUDA events after a warm-up:
-   K1-K4 and K6 (breed, relocate) and K7 (survivors, migrate) at P = 16
-   and P = 256 individuals (P = 256 as 16 islands of 16), K7 also at
-   L = 1, 2, 4 islands of 2, 3 and 16 rows, K6's relocation entry also
-   on the kick's chains (2 and 8 rows, 3 to 16 moves); K5 (the whole
-   sweep pass) at the repair pass's P = 16 and 256 and the post pass's
-   P = 4; K8 (the random-candidate local search, -p 2: 125 rounds of 8)
-   at P = 10 and 256; K5 and K8 from random starts and from feasible ones (the
-   planted witness, a few events moved), and on one individual (their
-   chains' floor);
-3. drives three paths through `timetabling_ga_tpu_torch.cli` on comp01s,
-   seed 42, each with the launch counters zeroed just before and read
-   just after: the main path (size-tuned defaults, -t 60), the
+   K1-K4, K6 (breed, relocate), K7 (survivors, migrate) and K9 (the
+   parallel room matcher) at P = 16 and P = 256 individuals (P = 256 as
+   16 islands of 16), K9 also on a padded copy of comp01s, K6 also in
+   its crowded-tournament and parallel-matcher modes, K7 also at L = 1,
+   2, 4 islands of 2, 3 and 16 rows, K6's relocation entry also on the
+   kick's chains (2 and 8 rows, 3 to 16 moves); K5 (the whole sweep
+   pass) at the repair pass's P = 16 and 256 and the post pass's P = 4;
+   K8 (the random-candidate local search, -p 2: 125 rounds of 8) at P =
+   10 and 256; K10 (LAHC) at 4 and 64 walkers, K = 1 and 16 candidates,
+   history 5 and 5000; K11 (NSGA-II ranks and survivors) at island sizes
+   8, 20, 32 and 512 with duplicate objectives; on fixtures/comp05s.tim
+   at the nsga path's own shapes (its repair config, one island of 16,
+   and its post config, 4 rows; random and feasible parents): K11 rank
+   and survivors, K6 crowded + parallel with crossover on, off and
+   mixed, and K9 on the children, K6 and K11 timed at both pops; K5, K8
+   and K10 from random starts and from feasible ones (the planted
+   witness, a few events moved), and on one individual (their chains'
+   floor);
+3. drives five paths through `timetabling_ga_tpu_torch.cli`, seed 42,
+   each with the launch counters zeroed just before and read just after:
+   on comp01s the main path (size-tuned defaults, -t 60), the
    reference-faithful path (`--no-auto-tune -p 2`, the random-candidate
-   delta LS, -t 30) and its full-evaluation twin (`--ls-full-eval -p 1`,
-   -t 10). Each stream is checked (per-island best non-increasing,
-   solution and runEntry records, a feasible reported timetable
-   re-scores to its reported best), and so is which kernels each path
-   launched: breed and survivors every generation on all three; K1, K2,
-   K5 and migrate on the main path; K8 on the reference path; relocate
-   on the full-evaluation one; K5 on neither of those; the per-step
-   K3/K4 nowhere;
-4. profiles one repair generation, one post-phase sweep pass and one
-   reference-path generation (launches, device idle share, device time
-   per launch of each kernel);
+   delta LS, -t 30), its full-evaluation twin (`--ls-full-eval -p 1`,
+   -t 10) and the LAHC endgame (`--post-lahc 5000`, -t 30); on
+   fixtures/comp05s.tim NSGA-II with the parallel matcher (`--nsga2
+   --rooms-mode parallel`, -t 20). Each stream is checked (per-island
+   best non-increasing, solution and runEntry records, a feasible
+   reported timetable re-scores to its reported best), and so is which
+   kernels each path launched (PATH_KERNELS);
+4. profiles one repair generation, one post-phase sweep pass, one
+   reference-path generation, one kick, one LAHC launch and two NSGA-II
+   generations, repair and post phase (launches, device idle share, device time per launch of
+   each kernel);
 5. prints one line per kernel, the {"kernels": [...]} summary and, last,
    {"ok": true, "device": {...}}.
 
@@ -49,6 +58,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 TIM = os.path.join(HERE, "fixtures", "comp01s.tim")
 WITNESS = os.path.join(HERE, "fixtures", "comp01s.witness.json")
+TIM05 = os.path.join(HERE, "fixtures", "comp05s.tim")
+WITNESS05 = os.path.join(HERE, "fixtures", "comp05s.witness.json")
 OUT_DIR = os.path.join(HERE, "build", "chip_smoke")
 # the paths' budgets: short enough that the whole script stays well
 # inside its time limit, the main path long enough to reach the
@@ -60,7 +71,13 @@ PATHS = {
                   "--generations", "100000", "--trace"],
     "full-eval": ["--no-auto-tune", "-p", "1", "--ls-full-eval", "-s", "42",
                   "-t", "10", "--generations", "100000", "--trace"],
+    "lahc": ["-s", "42", "-t", "30", "--post-lahc", "5000", "--generations",
+             "100000", "--trace"],
+    "nsga": ["-s", "42", "-t", "20", "--nsga2", "--rooms-mode", "parallel",
+             "--generations", "100000", "--trace"],
 }
+# the paths' instance where it is not comp01s
+PATH_TIM = {"nsga": TIM05}
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and float32
 # outside the tensor cores, 67e12/s, which counts an FMA as two operations
 # on 128 lanes an SM. These kernels' work is integer: Hopper issues INT32
@@ -97,6 +114,11 @@ OPS_TOP3 = 3          # a uniform of the top 3 of E uniforms (lax.top_k):
                       # charge)
 OPS_LEX = 3           # a pair of K7's rank count: two compares and add
 OPS_COPY = 2          # a word of a copied row: load and store
+OPS_ROOM_SCAN = 4     # a (event, room) visit of the parallel matcher's
+                      # scans: suitability and owner loads, compare, select
+OPS_BID = 3           # a bid: cell index, atomic min, the win test
+OPS_DOM = 6           # a pair of K11's peel: 4 compares, and/or, the
+                      # unassigned test
 # entry point -> (source, the JAX function it replaces, the path whose
 # run its "launches" are read from: K3 and K4 run on no path but inside
 # K5 and keep their own launches as unit checks of the shared bodies)
@@ -121,17 +143,42 @@ KERNELS = {
                 "timetabling_ga_tpu/parallel/islands.py:213", "main"),
     "random_ls": ("timetabling_ga_tpu_torch/csrc/random_ls.cu",
                   "timetabling_ga_tpu/ops/delta.py:212", "reference"),
+    "parallel_rooms": ("timetabling_ga_tpu_torch/csrc/parallel_rooms.cu",
+                       "timetabling_ga_tpu/ops/rooms.py:304", "nsga"),
+    "lahc": ("timetabling_ga_tpu_torch/csrc/lahc.cu",
+             "timetabling_ga_tpu/ops/lahc.py:106", "lahc"),
+    "nsga_rank": ("timetabling_ga_tpu_torch/csrc/nsga.cu",
+                  "timetabling_ga_tpu/ops/nsga.py:40", "nsga"),
+    "nsga_survivors": ("timetabling_ga_tpu_torch/csrc/nsga.cu",
+                       "timetabling_ga_tpu/ops/nsga.py:97", "nsga"),
 }
+# entry points whose body runs inside another kernel on the paths and
+# whose own launch is the unit check of that body (0 launches on a path)
+BODY_RUNS_IN = {"move1_sweep": "sweep_pass",
+                "delta_one": "sweep_pass, random_ls, lahc",
+                "parallel_rooms": "breed"}
 # per path: the kernels it must launch at least once a generation, at
 # least once, and never
 PER_GEN = ("breed", "survivors", "batch_penalty")
+SEARCH_MODES = ("lahc", "nsga_rank", "nsga_survivors", "parallel_rooms")
 PATH_KERNELS = {
     "main": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
-             ("move1_sweep", "delta_one", "random_ls")),
+             ("move1_sweep", "delta_one", "random_ls") + SEARCH_MODES),
     "reference": (PER_GEN + ("random_ls",), ("assign_rooms",),
-                  ("move1_sweep", "delta_one", "sweep_pass")),
+                  ("move1_sweep", "delta_one", "sweep_pass")
+                  + SEARCH_MODES),
     "full-eval": (PER_GEN + ("relocate",), ("assign_rooms",),
-                  ("move1_sweep", "delta_one", "sweep_pass", "random_ls")),
+                  ("move1_sweep", "delta_one", "sweep_pass", "random_ls")
+                  + SEARCH_MODES),
+    # comp01s is feasible inside the initial polish, so the LAHC walkers
+    # take the whole budget after it
+    "lahc": ((), ("assign_rooms", "sweep_pass", "batch_penalty", "lahc"),
+             ("move1_sweep", "delta_one", "random_ls", "nsga_rank",
+              "nsga_survivors", "parallel_rooms")),
+    "nsga": (("breed", "nsga_rank", "nsga_survivors", "batch_penalty"),
+             ("assign_rooms", "sweep_pass"),
+             ("move1_sweep", "delta_one", "random_ls", "lahc",
+              "parallel_rooms")),
 }
 
 
@@ -234,6 +281,12 @@ def kernel_cases(pa, P, dev):
             2 * P * 4 + 2 * P * row_b,
             L * pop ** 2 * OPS_LEX + P * (2 * E + 3) * OPS_COPY),
     }
+    cases["parallel_rooms"] = (
+        lambda: rooms.parallel_assign_rooms(pa, slots),
+        lambda: rooms.augment_rooms_plain(pa, slots,
+                                          rooms.best_fit_rooms(pa, P)),
+        nbytes(slots) + prob + nbytes(slots),
+        P * parallel_rooms_ops(E, R, ga.PARALLEL_ROUNDS))
     return {**cases, **{
         "assign_rooms": (
             lambda: rooms.assign_rooms(pa, slots),
@@ -267,6 +320,370 @@ def kernel_cases(pa, P, dev):
             P * C * (3 * R * 10 + 3 * W * 32 + 18 * pa.max_ev_students
                      * pa.slots_per_day * 6)),
     }}
+
+
+def parallel_rooms_ops(E, R, n_rounds):
+    """Integer operations of one individual's parallel matching that
+    every event does whatever the data: its best-fit start and one scan
+    over the rooms a round (stage 1 when unmatched, the relocation room
+    when matched: stage 2 scans once either way) and its bids into the
+    owner grids (the start's and two a round). The rest — a second scan
+    for the unmatched, the bids that win, the park rounds — depends on
+    the data and is left out, so the count stays below what the kernel
+    does."""
+    return (E * R * OPS_ROOM_SCAN * (1 + n_rounds)
+            + E * OPS_BID * (1 + 2 * n_rounds))
+
+
+def padded_arrays(problem, dev, n_pad_events=5, n_pad_rooms=2):
+    """`problem` padded with masked-out events and rooms (zero attendance
+    and capacity, suitable nowhere), as a serving bucket pads it."""
+    import numpy as np
+    from timetabling_ga_tpu_torch.problem import derive, make_problem_arrays
+    E, R = problem.n_events, problem.n_rooms
+    Ep, Rp = E + n_pad_events, R + n_pad_rooms
+    attends = np.zeros((problem.n_students, Ep), np.int8)
+    attends[:, :E] = problem.attends
+    feats = np.zeros((Ep, problem.n_features), np.int8)
+    feats[:E] = problem.event_features
+    room_feats = np.zeros((Rp, problem.n_features), np.int8)
+    room_feats[:R] = problem.room_features
+    size = np.zeros(Rp, np.int32)
+    size[:R] = problem.room_size
+    p = derive(Ep, Rp, problem.n_features, problem.n_students, size,
+               attends, room_feats, feats)
+    possible = np.array(p.possible)
+    possible[E:, :] = False
+    possible[:, R:] = False
+    return make_problem_arrays(
+        attends=p.attends, conflict=p.conflict, possible=possible,
+        student_count=p.student_count, room_size=p.room_size,
+        event_mask=(np.arange(Ep) < E).astype(np.float32),
+        room_mask=np.arange(Rp) < R, anchor_slots=np.zeros(Ep, np.int32),
+        anchor_w=np.zeros(Ep, np.int32), n_days=problem.n_days,
+        slots_per_day=problem.slots_per_day, device=dev)
+
+
+def compare_parallel_rooms_padded(problem, dev):
+    """K9 against its plain version on a padded copy of comp01s at P = 16
+    and 256, from best-fit rooms and from random incoming rooms at 1 and
+    4 rounds, exactly."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import rooms
+    pa = padded_arrays(problem, dev)
+    cases = 0
+    for P in (16, 256):
+        g = torch.Generator(device=dev).manual_seed(7500 + P)
+        slots = torch.randint(0, pa.n_slots, (P, pa.n_events), generator=g,
+                              device=dev, dtype=torch.int32)
+        rms = torch.randint(0, pa.n_rooms - 2, (P, pa.n_events),
+                            generator=g, device=dev, dtype=torch.int32)
+        got = rooms.parallel_assign_rooms(pa, slots)
+        want = rooms.augment_rooms_plain(pa, slots,
+                                         rooms.best_fit_rooms(pa, P))
+        check(torch.equal(got, want), f"parallel_rooms padded P={P}: kernel "
+                                      f"differs from its plain version")
+        for n in (1, 4):
+            check(torch.equal(rooms.augment_rooms(pa, slots, rms, n),
+                              rooms.augment_rooms_plain(pa, slots, rms, n)),
+                  f"augment_rooms padded P={P} n_rounds={n}: kernel differs "
+                  f"from its plain version")
+        cases += 3
+    return cases
+
+
+def compare_breed_modes(pa, dev):
+    """K6 in its two new modes against make_children_plain at P = 16 and
+    256 (islands of 16): the crowded tournament (ranks and crowding from
+    nsga_rank), the parallel matcher, and both, parents with random
+    rooms; exactly, then both timed."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import ga, nsga
+    E, R, T = pa.n_events, pa.n_rooms, pa.n_slots
+    out = []
+    for P in (16, 256):
+        L = P // 16
+        g = torch.Generator(device=dev).manual_seed(7000 + P)
+        slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        par = ga.evaluate(pa, slots, torch.randint(
+            0, R, (P, E), generator=g, device=dev, dtype=torch.int32), L)
+        for mo, mode in ((True, "scan"), (False, "parallel"),
+                         (True, "parallel")):
+            cfg = ga.GAConfig(pop_size=16, p3=0.2, rooms_mode=mode,
+                              multi_objective=mo)
+            bd = ga.make_breed_draws([g] * L, 16, E, T, cfg, dev)
+            stats = nsga.rank_crowd(par.hcv, par.scv, L) if mo else None
+
+            def kern(bd=bd, cfg=cfg, stats=stats):
+                return ga.make_children(pa, bd, par, cfg, L, stats)
+
+            def plain(bd=bd, cfg=cfg, stats=stats):
+                return ga.make_children_plain(pa, bd, par, cfg, L, stats)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            name = ("nsga2+" if mo else "") + mode
+            check(all(torch.equal(w, x) for w, x in zip(want, got)),
+                  f"breed {name} P={P}: kernel differs from its plain "
+                  f"version")
+            out.append({"breed_mode": name, "P": P, "ms": time_ms(kern, 20),
+                        "plain_ms": time_ms(plain, 2), "max_abs_err": 0})
+    return out
+
+
+def nsga_state(g, L, pop, E, T, dev):
+    """L islands of `pop` rows, (hcv, scv) from {0..3} x {0..11} so that
+    duplicate pairs and shared fronts are common."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import ga
+    n = L * pop
+    hcv = torch.randint(0, 4, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    scv = torch.randint(0, 12, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pen = torch.where(hcv == 0, scv, 1_000_000 + hcv).to(torch.int32)
+    slots = torch.randint(0, T, (n, E), generator=g, device=dev,
+                          dtype=torch.int32)
+    return ga.PopState(slots, slots.flip(1).contiguous(), pen, hcv, scv)
+
+
+def compare_nsga(pa, dev):
+    """K11 against its plain versions at island sizes 8, 20, 32 (two
+    islands each) and 512 (one), duplicate objectives common, exactly."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import nsga
+    E, T = pa.n_events, pa.n_slots
+    g = torch.Generator(device=dev).manual_seed(8000)
+    for pop, L in ((8, 2), (20, 2), (32, 2), (512, 1)):
+        par, ch = nsga_state(g, L, pop, E, T, dev), nsga_state(g, L, pop, E,
+                                                                T, dev)
+        got = nsga.rank_crowd(par.hcv, par.scv, L)
+        want = nsga.rank_crowd_plain(par.hcv, par.scv, L)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(
+            got[1].view(torch.int32), want[1].view(torch.int32)),
+            f"nsga_rank pop={pop} L={L}: kernel differs from its plain "
+            f"version")
+        got = nsga.survivors(par, ch, L, pop)
+        want = nsga.survivors_plain(par, ch, L, pop)
+        check(all(torch.equal(w, x) for w, x in zip(want, got)),
+              f"nsga_survivors pop={pop} L={L}: kernel differs from its "
+              f"plain version")
+
+
+def nsga_timings(par, ch, pop):
+    """K11's two entry points and their plain versions timed on one
+    island of `pop` parents (ranks) and `pop` + `pop` rows (survivors),
+    with their bounds counted from these rows' fronts."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import nsga
+    E = par.slots.shape[1]
+    both_h = torch.cat([par.hcv, ch.hcv])
+    both_s = torch.cat([par.scv, ch.scv])
+    row_b = 4 * (2 * E + 3)
+    n2 = 2 * pop
+    out = {}
+    for name, kern, plain, n, fronts, extra_b, extra_ops in (
+            ("nsga_rank",
+             lambda: nsga.rank_crowd(par.hcv, par.scv),
+             lambda: nsga.rank_crowd_plain(par.hcv, par.scv), pop,
+             int(nsga.rank_crowd_plain(par.hcv, par.scv)[0].max()) + 1,
+             2 * pop * 4, 0),
+            ("nsga_survivors",
+             lambda: nsga.survivors(par, ch, 1, pop),
+             lambda: nsga.survivors_plain(par, ch, 1, pop), n2,
+             int(nsga.rank_crowd_plain(both_h, both_s)[0].max()) + 1,
+             n2 * 4 + 2 * pop * row_b,
+             n2 * n2 * OPS_LEX + pop * n2 * OPS_LEX
+             + pop * (2 * E + 3) * OPS_COPY)):
+        nb = n * 2 * 4 + extra_b
+        ops = fronts * n * n * OPS_DOM + 2 * n * n * OPS_LEX + extra_ops
+        bytes_ms = nb / PEAK_BYTES_S * 1e3
+        ops_ms = ops / PEAK_INT_OPS_S * 1e3
+        out[(name, pop)] = dict(
+            ms=time_ms(kern, 50), plain_ms=time_ms(plain, 5), max_abs_err=0,
+            rows=n, fronts=fronts, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
+def compare_nsga_path(pa05, dev):
+    """The nsga path's own shapes on comp05s, for its repair config (one
+    island of 16) and its post config (the elite rows; every generation
+    of the path when it is feasible inside the polish), parents from
+    random starts and from feasible ones (the comp05s witness, a few
+    events moved): K11 nsga_rank on the parents, K6 in its crowded and
+    parallel modes with crossover on for every child and off for every
+    child, K9 on the children's slots and K11 nsga_survivors on parents +
+    children, each exactly against its plain version. Then, from the
+    feasible start at both pops, K11 timed (`nsga_timings`) and K6 timed.
+    Returns (timings, the timing key of each K11 entry at the path's
+    generations, K6 rows, cases checked)."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import fitness, ga, nsga, rooms
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    cfg = config.parse_args(["-i", TIM05] + PATHS["nsga"]
+                            ).apply_tuned_defaults(pa05.n_events)
+    repair = engine.build_ga_config(cfg)
+    post = engine.build_post_config(cfg, repair)
+    E, T = pa05.n_events, pa05.n_slots
+    timings, breed_rows, cases = {}, [], 0
+    for phase, gacfg in (("repair", repair), ("post", post)):
+        check(gacfg.multi_objective and gacfg.rooms_mode == "parallel",
+              f"nsga path {phase} config: not NSGA-II with the parallel "
+              f"matcher")
+        pop = gacfg.pop_size
+        g = torch.Generator(device=dev).manual_seed(9500 + pop)
+        slots = torch.randint(0, T, (pop, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        w = witness_state(pa05, pop, g, WITNESS05)
+        starts = (("random", ga.evaluate(
+                      pa05, slots, rooms.assign_rooms_plain(pa05, slots))),
+                  ("feasible", ga.evaluate(pa05, w.slots, w.rooms)))
+        for start, par in starts:
+            tag = f"nsga path {phase} pop={pop} {start}"
+            got = nsga.rank_crowd(par.hcv, par.scv)
+            mo = nsga.rank_crowd_plain(par.hcv, par.scv)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], mo[0]) and torch.equal(
+                got[1].view(torch.int32), mo[1].view(torch.int32)),
+                f"{tag}: nsga_rank differs from its plain version")
+            bd = ga.make_breed_draws([g], pop, E, T, gacfg, dev)
+            for do_x in (None, True, False):
+                d = bd if do_x is None else bd._replace(
+                    do_x=torch.full_like(bd.do_x, do_x))
+                kid = ga.make_children(pa05, d, par, gacfg, 1, mo)
+                want = ga.make_children_plain(pa05, d, par, gacfg, 1, mo)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(want, kid)),
+                      f"{tag} do_x={do_x}: breed differs from its plain "
+                      f"version")
+                cases += 1
+            c_slots, c_rooms = ga.make_children(pa05, bd, par, gacfg, 1, mo)
+            check(torch.equal(
+                rooms.parallel_assign_rooms(pa05, c_slots),
+                rooms.augment_rooms_plain(pa05, c_slots,
+                                          rooms.best_fit_rooms(pa05, pop))),
+                f"{tag}: parallel_rooms differs from its plain version")
+            ch = ga.PopState(c_slots, c_rooms,
+                             *fitness.batch_penalty(pa05, c_slots, c_rooms))
+            got = nsga.survivors(par, ch, 1, pop)
+            want = nsga.survivors_plain(par, ch, 1, pop)
+            check(all(torch.equal(a, b) for a, b in zip(want, got)),
+                  f"{tag}: nsga_survivors differs from its plain version")
+            cases += 3
+        timings.update(nsga_timings(par, ch, pop))
+
+        def kern(bd=bd, par=par, mo=mo, gacfg=gacfg):
+            return ga.make_children(pa05, bd, par, gacfg, 1, mo)
+
+        def plain(bd=bd, par=par, mo=mo, gacfg=gacfg):
+            return ga.make_children_plain(pa05, bd, par, gacfg, 1, mo)
+        breed_rows.append({"breed_mode": "nsga2+parallel (nsga path, "
+                                         f"comp05s {phase})", "P": pop,
+                           "ms": time_ms(kern, 20),
+                           "plain_ms": time_ms(plain, 2), "max_abs_err": 0})
+    path_keys = {k: (k, post.pop_size) for k in ("nsga_rank",
+                                                 "nsga_survivors")}
+    return timings, path_keys, breed_rows, cases
+
+
+def lahc_work(pa, l0, draws):
+    """(bytes, integer operations) of one K10 call: the walkers' state
+    read and written once (of each history ring the entries the steps
+    touch), the draws and problem arrays read once; per step and
+    candidate the top-3 scan of E uniforms and the K4 body on the
+    candidate (its events and new slots taken on the slots the call
+    starts from); the choice, the acceptance and the apply are left out,
+    so the count stays below what the kernel does."""
+    from timetabling_ga_tpu_torch.ops import moves
+    n, W, K = draws.mtype.shape
+    E = pa.n_events
+    touched = min(n, l0.hist_pen.shape[1])
+    nb = (2 * nbytes(*l0.ls, *l0[3:]) + 2 * 2 * W * touched * 4
+          + nbytes(*draws)
+          + nbytes(pa.possible_u8, pa.live, pa.student_count,
+                   pa.conflict_bits, pa.cap_rank, pa.dead, pa.attends_u8,
+                   pa.ev_ptr, pa.ev_stu, pa.anchor_slots, pa.anchor_w))
+    md = moves.MoveDraws(draws.mtype.permute(1, 0, 2).reshape(-1),
+                         draws.u.permute(1, 0, 2, 3).reshape(-1, E),
+                         draws.t.permute(1, 0, 2).reshape(-1))
+    evs, ns, _ = moves.sample_move(
+        pa, md, l0.ls.slots.repeat_interleave(n * K, 0))
+    ops = (k4_body_ops(pa, l0.ls.slots, evs.view(W, n * K, 3),
+                       ns.view(W, n * K, 3))
+           + W * n * K * E * OPS_TOP3)
+    return nb, ops
+
+
+def lahc_copy(state):
+    """A copy of a LahcState, for K10 to update in place."""
+    from timetabling_ga_tpu_torch.ops import lahc
+    return lahc.LahcState(lahc.LSState(*(x.clone() for x in state.ls)),
+                          *(x.clone() for x in state[1:]))
+
+
+def compare_lahc(pa, dev):
+    """K10 against lahc_steps_plain over 200 steps at 4 and 64 walkers,
+    K = 1 and 16 candidates, histories of 5 and 5000 (the lahc path's
+    shape is 4 walkers, K 16, Lh 5000), from random starts and from
+    feasible ones (the witness, a few events moved), every state field
+    exactly; then both timed from the feasible start at the path's shape,
+    and K10 on one walker (the chain's floor)."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import lahc, rooms
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    cfg = config.parse_args(["-i", TIM] + PATHS["lahc"])
+    cfg.apply_tuned_defaults(pa.n_events)
+    post = engine.build_post_config(cfg, engine.build_ga_config(cfg))
+    E, T, n = pa.n_events, pa.n_slots, 200
+    out = {}
+    for W, K, Lh in ((post.pop_size, cfg.post_lahc_k, cfg.post_lahc),
+                     (4, 1, 5), (64, 16, 5), (64, 1, 5000)):
+        g = torch.Generator(device=dev).manual_seed(9000 + W * K + Lh)
+        slots = torch.randint(0, T, (W, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        w = witness_state(pa, W, g)
+        draws = lahc.make_lahc_draws([g], W, n, K, E, T, post.p1, post.p2,
+                                     post.p3, dev)
+        starts = (("random", slots, rooms.assign_rooms_plain(pa, slots)),
+                  ("feasible", w.slots, w.rooms))
+        for start, s0, r0 in starts:
+            l0 = lahc.init_lahc(pa, s0, r0, Lh)
+            got = lahc.lahc_steps_kernel(pa, draws, lahc_copy(l0))
+            want = lahc.lahc_steps_plain(pa, draws, l0)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(want.ls, got.ls))
+                  and all(torch.equal(a, b)
+                          for a, b in zip(want[1:], got[1:])),
+                  f"lahc W={W} K={K} Lh={Lh} {start}: kernel differs from "
+                  f"its plain version")
+            # from the witness a single candidate a step is mostly uphill
+            # and refused; from a random start walkers must move
+            check(start == "feasible"
+                  or not torch.equal(got.ls.slots, l0.ls.slots),
+                  f"lahc W={W} K={K} Lh={Lh} {start}: no walker moved")
+        if (W, K, Lh) != (post.pop_size, cfg.post_lahc_k, cfg.post_lahc):
+            continue
+        lk = lahc_copy(l0)
+        ms = time_ms(lambda: lahc.lahc_steps_kernel(pa, draws, lk), 5)
+        plain_ms = time_ms(lambda: lahc.lahc_steps_plain(pa, draws, l0), 1)
+        one = lahc.LahcState(lahc.LSState(*(x[:1] for x in lk.ls)),
+                             *(x[:1] for x in lk[1:]))
+        d1 = lahc.LahcDraws(*(x[:, :1] for x in draws))
+        ms1 = time_ms(lambda: lahc.lahc_steps_kernel(pa, d1, one), 5)
+        nb, ops = lahc_work(pa, l0, draws)
+        bytes_ms = nb / PEAK_BYTES_S * 1e3
+        ops_ms = ops / PEAK_INT_OPS_S * 1e3
+        out[("lahc", W, K, Lh)] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=0, steps=n,
+            us_per_step=ms * 1e3 / n, chain_floor_ms=ms1,
+            us_per_step_one_walker=ms1 * 1e3 / n,
+            smem_bytes=lahc.lahc_smem_bytes(pa, K),
+            feasible_rows=int((w.hcv == 0).sum()), int_ops=ops,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return out
 
 
 def compare(pa, dev):
@@ -400,7 +817,7 @@ def sweep_pass_work(pa, sh, st, draws, piv):
     return nb, ops, fops
 
 
-def witness_state(pa, P, g):
+def witness_state(pa, P, g, witness=WITNESS):
     """P copies of the planted zero-penalty witness, row i with i % 4 of
     three spread events moved to random slots (rooms kept): the unmoved
     rows and the moved ones that stay clash-free are feasible, so the
@@ -410,7 +827,7 @@ def witness_state(pa, P, g):
     from timetabling_ga_tpu_torch.ops import delta
     dev = pa.conflict.device
     E, T = pa.n_events, pa.n_slots
-    with open(WITNESS) as f:
+    with open(witness) as f:
         w = json.load(f)
     slots = torch.tensor(w["slots"], dtype=torch.int32,
                          device=dev).repeat(P, 1)
@@ -668,19 +1085,22 @@ def compare_random_ls(pa, dev):
     return out
 
 
-def profile_phases(pa, dev):
-    """A short torch.profiler window per phase config: one warm repair
-    generation (pop 16), one warm post-phase sweep pass (pop 4) and one
-    warm reference-path generation (pop 10, -p 2). For
-    each: wall time, device time summed over CUDA events, the device's
-    idle share, device launches and wall per sweep pass, device time per
-    launch of each hand kernel and the kernels taking the most device
-    time. Full tables go to build/chip_smoke/."""
+def profile_phases(pa, pa05, dev):
+    """A short torch.profiler window per phase: one warm repair
+    generation (pop 16), one warm post-phase sweep pass (pop 4), one warm
+    reference-path generation (pop 10, -p 2), one kick of the post
+    population (3 moves: K6 relocate), one LAHC launch of the lahc path's
+    walkers (256 steps) and two NSGA-II generations of the nsga path on
+    comp05s (repair, pop 16; post phase, pop 4, from feasible rows). For
+    each: wall time, device time summed over CUDA
+    events, the device's idle share, device launches and wall per sweep
+    pass, device time per launch of each hand kernel and the kernels
+    taking the most device time. Full tables go to build/chip_smoke/."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from timetabling_ga_tpu_torch import kernels
-    from timetabling_ga_tpu_torch.ops import delta, ga, sweep
+    from timetabling_ga_tpu_torch.ops import delta, ga, lahc, sweep
     from timetabling_ga_tpu_torch.parallel import islands
     from timetabling_ga_tpu_torch.runtime import config, engine
     cfg = config.parse_args(["-i", TIM]).apply_tuned_defaults(pa.n_events)
@@ -688,23 +1108,53 @@ def profile_phases(pa, dev):
     post = engine.build_post_config(cfg, repair)
     ref = engine.build_ga_config(config.parse_args(
         ["-i", TIM] + PATHS["reference"]))
-    out = []
-    for name, gacfg in (("repair", repair), ("post", post),
-                        ("reference", ref)):
+    cfg05 = config.parse_args(["-i", TIM05] + PATHS["nsga"]
+                              ).apply_tuned_defaults(pa05.n_events)
+    nsga_cfg = engine.build_ga_config(cfg05)
+    cfgl = config.parse_args(["-i", TIM] + PATHS["lahc"]
+                             ).apply_tuned_defaults(pa.n_events)
+    windows = []
+    for name, gacfg in (("repair", repair), ("reference", ref)):
         gens = engine.island_generators(dev, 7, 0, 1)
         st = islands.init_island_population(pa, gens, gacfg.pop_size)
-        if name != "post":
-            def work(st=st, gens=gens, gacfg=gacfg):
-                return islands.run_epochs(pa, gens, st, gacfg, 1, 1)
-        else:
-            ls = delta.init_state(pa, st.slots, st.rooms)
-            draws_fn = ga.sweep_draws_fn(gens, gacfg.pop_size, pa, gacfg)
-
-            def work(ls=ls, draws_fn=draws_fn, gacfg=gacfg):
-                return sweep.sweep_pass(
-                    pa, draws_fn(0), ls, gacfg.ls_swap_block,
-                    gacfg.ls_block_events, gacfg.ls_sideways,
-                    gacfg.ls_hot_k, gacfg.p3)
+        windows.append((name, gacfg.pop_size, "one generation",
+                        lambda st=st, gens=gens, gacfg=gacfg:
+                        islands.run_epochs(pa, gens, st, gacfg, 1, 1)))
+    gens = engine.island_generators(dev, 7, 0, 1)
+    st = islands.init_island_population(pa, gens, post.pop_size)
+    ls = delta.init_state(pa, st.slots, st.rooms)
+    draws_fn = ga.sweep_draws_fn(gens, post.pop_size, pa, post)
+    windows.insert(1, ("post", post.pop_size, "one sweep pass",
+                       lambda: sweep.sweep_pass(
+                           pa, draws_fn(0), ls, post.ls_swap_block,
+                           post.ls_block_events, post.ls_sideways,
+                           post.ls_hot_k, post.p3)))
+    windows.append(("kick", post.pop_size, "one kick (3 moves)",
+                    lambda: islands.kick(pa, gens, st, post, 3)))
+    w = witness_state(pa, post.pop_size, torch.Generator(
+        device=dev).manual_seed(11))
+    lstate = lahc.init_lahc(pa, w.slots, w.rooms, cfgl.post_lahc)
+    windows.append(("lahc", post.pop_size, "one LAHC launch (256 steps)",
+                    lambda: islands.lahc_run(pa, gens, lstate, post, 256,
+                                             cfgl.post_lahc_k)))
+    gens05 = engine.island_generators(dev, 7, 0, 1)
+    st05 = islands.init_island_population(pa05, gens05, nsga_cfg.pop_size)
+    windows.append(("nsga", nsga_cfg.pop_size,
+                    "one generation (comp05s, --nsga2 --rooms-mode "
+                    "parallel)",
+                    lambda: islands.run_epochs(pa05, gens05, st05, nsga_cfg,
+                                               1, 1)))
+    post05 = engine.build_post_config(cfg05, nsga_cfg)
+    w05 = witness_state(pa05, post05.pop_size, torch.Generator(
+        device=dev).manual_seed(12), WITNESS05)
+    st05p = ga.evaluate(pa05, w05.slots, w05.rooms)
+    windows.append(("nsga-post", post05.pop_size,
+                    "one post-phase generation (comp05s, --nsga2 "
+                    "--rooms-mode parallel)",
+                    lambda: islands.run_epochs(pa05, gens05, st05p, post05,
+                                               1, 1)))
+    out = []
+    for name, pop, window, work in windows:
         work()                                              # warm-up
         torch.cuda.synchronize()
         passes0 = kernels.LAUNCHES["sweep_pass"]
@@ -734,9 +1184,7 @@ def profile_phases(pa, dev):
         with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
             f.write(averages.table(sort_by="self_cpu_time_total",
                                    row_limit=40))
-        out.append({"config": name, "pop": gacfg.pop_size,
-                    "window": ("one sweep pass" if name == "post"
-                               else "one generation"),
+        out.append({"config": name, "pop": pop, "window": window,
                     "sweep_passes": passes, "wall_ms": wall_ms,
                     "device_ms": device_ms,
                     "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
@@ -749,15 +1197,15 @@ def profile_phases(pa, dev):
 
 
 def run_path(name):
-    """Run the CLI on comp01s with the path's flags, the launch counters
-    zeroed just before and read just after; returns (records, seconds,
-    launches)."""
+    """Run the CLI on the path's instance with its flags, the launch
+    counters zeroed just before and read just after; returns (records,
+    seconds, launches)."""
     from timetabling_ga_tpu_torch import cli, kernels
     os.makedirs(OUT_DIR, exist_ok=True)
     path = os.path.join(OUT_DIR, f"comp01s_s42_{name}.jsonl")
     kernels.reset_launches()
     t0 = time.monotonic()
-    rc = cli.main(["-i", TIM, "-o", path] + PATHS[name])
+    rc = cli.main(["-i", PATH_TIM.get(name, TIM), "-o", path] + PATHS[name])
     seconds = time.monotonic() - t0
     launches = dict(kernels.LAUNCHES)
     check(rc == 0, f"{name} path: cli exited {rc}")
@@ -768,6 +1216,8 @@ def run_path(name):
 
 def check_path_kernels(name, launches, generations):
     per_gen, some, none = PATH_KERNELS[name]
+    check(generations > 0 or not per_gen,
+          f"{name} path: no generation ran")
     for k in per_gen:
         check(launches[k] >= generations,
               f"{name} path: {k} launched {launches[k]} times in "
@@ -811,7 +1261,10 @@ def check_stream(records, pa_cpu):
     gens = sum(p["gens"] for p in disp)
     secs = sum(p["seconds"] for p in disp)
     feas = [x["time"] for x in logs if x["best"] < 1_000_000]
+    lahc = [p for p in phases if p["name"] == "lahc"]
     return dict(
+        lahc_steps=sum(p["steps"] for p in lahc),
+        lahc_seconds=sum(p["seconds"] for p in lahc),
         generations=gens,
         gens_per_s=(gens / secs) if secs > 0 else None,
         time_to_feasible_s=min(feas) if feas else None,
@@ -833,6 +1286,7 @@ def main() -> int:
         from timetabling_ga_tpu_torch import kernels
         from timetabling_ga_tpu_torch.ops import fitness
         from timetabling_ga_tpu_torch.problem import load_tim_file
+        from timetabling_ga_tpu_torch.runtime import config
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -863,22 +1317,48 @@ def main() -> int:
         torch.tensor([w["rooms"]], dtype=torch.int32, device=dev))
     check((int(pen[0]), int(hcv[0]), int(scv[0])) == (0, 0, 0),
           "witness does not score (0, 0)")
+    problem05 = load_tim_file(TIM05)
+    pa05 = problem05.device_arrays(dev)
+    with open(WITNESS05) as f:
+        w = json.load(f)
+    pen, hcv, scv = fitness.batch_penalty(
+        pa05, torch.tensor([w["slots"]], dtype=torch.int32, device=dev),
+        torch.tensor([w["rooms"]], dtype=torch.int32, device=dev))
+    check((int(pen[0]), int(hcv[0]), int(scv[0])) == (0, 0, 0),
+          "comp05s witness does not score (0, 0)")
 
     timings = compare(pa, dev)
     timings.update(compare_sweep_pass(pa, dev))
     timings.update(compare_random_ls(pa, dev))
+    timings.update(compare_lahc(pa, dev))
+    compare_nsga(pa, dev)
+    nsga_t, nsga_keys, nsga_breed, nsga_cases = compare_nsga_path(pa05, dev)
+    timings.update(nsga_t)
     print(json.dumps({"islands_compared": compare_islands(pa, dev)}))
     print(json.dumps({"kick_chains_compared": compare_kick_chains(pa, dev)}))
-    pa_cpu = problem.device_arrays("cpu")
+    print(json.dumps({"padded_parallel_rooms_compared":
+                      compare_parallel_rooms_padded(problem, dev)}))
+    print(json.dumps({"nsga_path_shapes_compared": nsga_cases}))
+    for row in compare_breed_modes(pa, dev) + nsga_breed:
+        print(json.dumps(row))
+    pa_cpu = {TIM: problem.device_arrays("cpu"),
+              TIM05: problem05.device_arrays("cpu")}
     launches = {}
     for name in PATHS:
         records, seconds, launches[name] = run_path(name)
-        summary = check_stream(records, pa_cpu)
+        summary = check_stream(records, pa_cpu[PATH_TIM.get(name, TIM)])
         summary["wall_s"] = round(seconds, 3)
         check_path_kernels(name, launches[name], summary["generations"])
+        if summary["lahc_steps"]:
+            lcfg = config.parse_args(["-i", TIM] + PATHS[name]
+                                     ).apply_tuned_defaults(pa.n_events)
+            rate = summary["lahc_steps"] / summary["lahc_seconds"]
+            summary["lahc_steps_per_s"] = rate
+            summary["lahc_candidates_per_s"] = (
+                rate * lcfg.post_pop_size * lcfg.post_lahc_k)
         print(json.dumps({"path": name, **summary,
                           "launches": launches[name]}))
-    for prof in profile_phases(pa, dev):
+    for prof in profile_phases(pa, pa05, dev):
         print(json.dumps({"profile": prof}))
     for key, t in timings.items():
         name = key[0] if key[0] in KERNELS else "sweep_pass"
@@ -887,7 +1367,9 @@ def main() -> int:
     rows = []
     for name, (src, replaces, path) in KERNELS.items():
         t = timings[{"sweep_pass": ("repair", 16),
-                     "random_ls": ("random_ls", 10)}.get(name, (name, 16))]
+                     "random_ls": ("random_ls", 10),
+                     "lahc": ("lahc", 4, 16, 5000), **nsga_keys
+                     }.get(name, (name, 16))]
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[path][name],
                "path": path, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -895,6 +1377,8 @@ def main() -> int:
                "bound_by": t["bound_by"], "library_ms": None}
         if "chain_floor_ms" in t:
             row["chain_floor_ms"] = t["chain_floor_ms"]
+        if name in BODY_RUNS_IN:
+            row["body_runs_in"] = BODY_RUNS_IN[name]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

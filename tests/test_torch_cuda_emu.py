@@ -1,4 +1,4 @@
-"""The CUDA sources of K1 and K3-K8, run on the CPU, against their plain
+"""The CUDA sources of K1 and K3-K11, run on the CPU, against their plain
 PyTorch versions.
 
 The kernels run only on the card (tests/test_torch_kernels.py, marked
@@ -24,7 +24,8 @@ from tests.test_torch_kernels import (
     K5_CASES, _breed_case, _half_feasible, _instances, _island_state,
     _k5_equals_plain, _ls_draws, _state)
 from timetabling_ga_tpu_torch import kernels
-from timetabling_ga_tpu_torch.ops import delta, ga, moves, rooms, sweep
+from timetabling_ga_tpu_torch.ops import (
+    delta, ga, lahc, moves, nsga, rooms, sweep)
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import random_instance
 
@@ -32,7 +33,9 @@ torch.set_num_threads(1)
 
 CUDA_STUB = r'''
 #pragma once
+#include <algorithm>
 #include <barrier>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -76,6 +79,22 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) {
     return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline int atomicMin(int* p, int v) {
+    int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+    while (v < old && !__atomic_compare_exchange_n(
+               p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {
+    }
+    return old;
+}
+using std::max;
+using std::min;
+inline float __int_as_float(int x) {
+    float f;
+    std::memcpy(&f, &x, 4);
+    return f;
+}
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r;}
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r;}
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
@@ -108,7 +127,8 @@ inline void emu_launch(int grid, int block, size_t smem,
 '''
 
 EMULATED = ("assign_rooms", "move1_sweep", "delta_one", "sweep_pass",
-            "breed", "survivors", "random_ls")
+            "breed", "survivors", "random_ls", "parallel_rooms", "lahc",
+            "nsga")
 
 
 def _for_the_cpu(src: str) -> str:
@@ -288,3 +308,70 @@ def test_k8_source_equals_plain(emulated, inst):
     assert all(torch.equal(w, g) for w, g in zip(want, got))
     assert kernels.LAUNCHES["random_ls"] == 1
     assert not torch.equal(got.slots, st.slots)
+
+
+@pytest.mark.parametrize("inst", range(4))
+def test_k9_and_k6_new_modes_equal_plain(emulated, inst):
+    """K9 (augment_rooms from random rooms at 1 and 4 rounds, and
+    parallel_assign_rooms) and K6's parallel matcher and crowded
+    tournament on the four instances, slots crowded into few slots so
+    the augments and the park rounds run."""
+    pa = _instances("cpu")[inst]
+    st = _state(pa, 5, 100 + inst)
+    slots = st.slots.clone()
+    slots[:, ::2] %= 3
+    g = torch.Generator().manual_seed(inst)
+    rms = torch.randint(0, pa.n_rooms, slots.shape, generator=g,
+                        dtype=torch.int32)
+    kernels.reset_launches()
+    for n in (1, 4):
+        assert torch.equal(rooms.augment_rooms_kernel(pa, slots, rms, n),
+                           rooms.augment_rooms_plain(pa, slots, rms, n))
+    assert torch.equal(rooms.augment_rooms_kernel(pa, slots, None),
+                       rooms.parallel_assign_rooms(pa, slots))
+    assert kernels.LAUNCHES["parallel_rooms"] == 3
+    _, cfg, par, draws = _breed_case(pa, "cpu", 2, 3, 110 + inst)
+    cfg = ga.GAConfig(pop_size=3, p3=0.4, rooms_mode="parallel",
+                      multi_objective=True)
+    mo = nsga.rank_crowd_plain(par.hcv, par.scv, 2)
+    got = ga.make_children_kernel(pa, draws, par, 2, mo, "parallel")
+    want = ga.make_children_plain(pa, draws, par, cfg, 2, mo)
+    assert all(torch.equal(w, x) for w, x in zip(want, got))
+
+
+@pytest.mark.parametrize("inst,k_cands", [(0, 4), (1, 1), (2, 3), (3, 4)])
+def test_k10_source_equals_plain(emulated, inst, k_cands):
+    pa = _instances("cpu")[inst]
+    st = _state(pa, 3, 120 + inst)
+    ls0 = lahc.init_lahc(pa, st.slots, st.rooms, 3)
+    g = torch.Generator().manual_seed(130 + inst)
+    draws = lahc.make_lahc_draws([g], 3, 5, k_cands, pa.n_events,
+                                 pa.n_slots, 1.0, 1.0, 0.5, "cpu")
+    kernels.reset_launches()
+    ls1 = lahc.LahcState(lahc.LSState(*(x.clone() for x in ls0.ls)),
+                         *(x.clone() for x in ls0[1:]))
+    got = lahc.lahc_steps_kernel(pa, draws, ls1)
+    want = lahc.lahc_steps_plain(pa, draws, ls0)
+    assert kernels.LAUNCHES["lahc"] == 1
+    assert all(torch.equal(w, x) for w, x in zip(want.ls, got.ls))
+    assert all(torch.equal(w, x) for w, x in zip(want[1:], got[1:]))
+    assert not torch.equal(got.ls.slots, ls0.ls.slots)
+
+
+@pytest.mark.parametrize("L,pop,spread", [(1, 8, 3), (2, 5, 2), (3, 11, 40)])
+def test_k11_sources_equal_plain(emulated, L, pop, spread):
+    g = torch.Generator().manual_seed(pop)
+    par, ch = (_island_state(L, pop, s) for s in (1, 2))
+    par, ch = (x._replace(
+        hcv=torch.randint(0, spread, (L * pop,), generator=g,
+                          dtype=torch.int32),
+        scv=torch.randint(0, 2 * spread, (L * pop,), generator=g,
+                          dtype=torch.int32)) for x in (par, ch))
+    got = nsga.rank_crowd_kernel(par.hcv, par.scv, L)
+    want = nsga.rank_crowd_plain(par.hcv, par.scv, L)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    for keep in (pop, 2 * pop):
+        got = nsga.survivors_kernel(par, ch, L, keep)
+        want = nsga.survivors_plain(par, ch, L, keep)
+        assert all(torch.equal(w, x) for w, x in zip(want, got))

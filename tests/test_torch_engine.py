@@ -100,11 +100,12 @@ def test_tuned_defaults_match_jax():
 @pytest.mark.parametrize("argv,word", [
     (["--obs"], "--obs"), (["--checkpoint", "c.npz"], "--checkpoint"),
     (["--faults", "dispatch:1:die"], "--faults"),
-    (["--rooms-mode", "parallel"], "--rooms-mode parallel"),
+    (["--resume"], "--resume"),
     (["--trace-mode", "deltas"], "--trace-mode deltas"),
-    (["--post-lahc", "8"], "--post-lahc"), (["--nsga2"], "--nsga2"),
+    (["--quality"], "--quality"), (["--trace-mode", "stats"],
+                                   "--trace-mode stats"),
     (["--distributed"], "--distributed"),
-    (["--post-lahc-k", "8"], "--post-lahc-k")])
+    (["--no-pipeline"], "--no-pipeline")])
 def test_unported_flags_are_refused_by_name(argv, word):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         tconfig.parse_args(["-i", "x.tim"] + argv)
@@ -133,6 +134,52 @@ def test_ls_flags_and_ga_config_match_jax(argv):
         assert getattr(jg, f) == getattr(tg, f), f
 
 
+@pytest.mark.parametrize("argv", [
+    [], ["--rooms-mode", "parallel"], ["--nsga2"], ["--post-lahc", "5000"],
+    ["--post-lahc", "64", "--post-lahc-k", "1"],
+    ["--nsga2", "--rooms-mode", "parallel", "--post-lahc", "7",
+     "--post-lahc-k", "4096", "--pop-size", "8", "--post-pop-size", "2"],
+    ["--post-lahc", "10", "--no-auto-tune"]])
+def test_search_mode_flags_ga_and_post_configs_match_jax(argv):
+    """--rooms-mode, --nsga2, --post-lahc and --post-lahc-k parse as the
+    JAX CLI parses them; build_ga_config passes rooms_mode and
+    multi_objective through, and build_post_config returns the post
+    config whenever post_lahc > 0, even when it equals the repair config
+    (JAX engine.py:453-507)."""
+    from timetabling_ga_tpu.runtime import engine as jengine
+    argv = ["-i", "x.tim"] + argv
+    j, t = jconfig.parse_args(argv), tconfig.parse_args(argv)
+    if "--no-auto-tune" not in argv:
+        j.apply_tuned_defaults(400)
+        t.apply_tuned_defaults(400)
+    for f in ("rooms_mode", "nsga2", "post_lahc", "post_lahc_k",
+              "post_pop_size"):
+        assert getattr(j, f) == getattr(t, f), f
+    jg, tg = jengine.build_ga_config(j), tengine.build_ga_config(t)
+    for f in ("rooms_mode", "multi_objective", "pop_size"):
+        assert getattr(jg, f) == getattr(tg, f), f
+    jp, tp = jengine.build_post_config(j, jg), tengine.build_post_config(t, tg)
+    assert (jp is None) == (tp is None)
+    if jp is not None:
+        for f in ("pop_size", "ls_sweeps", "ls_swap_block", "ls_hot_k",
+                  "ls_sideways", "rooms_mode", "multi_objective", "p1",
+                  "p2", "p3"):
+            assert getattr(jp, f) == getattr(tp, f), f
+
+
+@pytest.mark.parametrize("argv", [
+    ["--post-lahc", "-1"], ["--post-lahc", "1000001"],
+    ["--post-lahc-k", "0"], ["--post-lahc-k", "4097"],
+    ["--rooms-mode", "greedy"]])
+def test_search_mode_flag_validation_matches_jax(argv):
+    argv = ["-i", "x.tim"] + argv
+    with pytest.raises(SystemExit) as je:
+        jconfig.parse_args(argv)
+    with pytest.raises(SystemExit) as te:
+        tconfig.parse_args(argv)
+    assert str(je.value) == str(te.value)
+
+
 def test_reference_path_cli_on_cpu(tim_path, capsys):
     """`--no-auto-tune -p 1` (the random-candidate LS, delta-scored) on
     the CPU emits a protocol-valid stream; -l is accepted with the JAX
@@ -147,6 +194,23 @@ def test_reference_path_cli_on_cpu(tim_path, capsys):
     disp = [r["phase"] for r in records if "phase" in r
             and r["phase"]["name"] == "dispatch"]
     assert sum(p["gens"] for p in disp) == 3
+
+
+def test_nsga2_parallel_rooms_cli_on_cpu(tim_path, capsys):
+    """`--nsga2 --rooms-mode parallel` on the CPU: every generation runs
+    NSGA-II selection and the parallel matcher (their plain versions),
+    and the stream is protocol-valid."""
+    assert tcli.main(["-i", tim_path, "-s", "4", "--backend", "cpu",
+                      "--no-auto-tune", "--ls-mode", "sweep",
+                      "--ls-sweeps", "1", "--init-sweeps", "1",
+                      "--pop-size", "6", "--islands", "2", "--generations",
+                      "4", "--migration-period", "2", "--nsga2",
+                      "--rooms-mode", "parallel", "--trace"]) == 0
+    records = _records(capsys.readouterr().out)
+    _check_protocol(records)
+    disp = [r["phase"] for r in records if "phase" in r
+            and r["phase"]["name"] == "dispatch"]
+    assert sum(p["gens"] for p in disp) == 4
 
 
 def test_gpu_backend_without_a_card_raises(monkeypatch):

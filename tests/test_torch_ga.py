@@ -269,3 +269,63 @@ def test_run_epochs_traces_each_generation(small_problem):
     rep = np.where(tr[..., 0] == 0, tr[..., 1],
                    tr[..., 0] * 1_000_000 + tr[..., 1])
     assert (np.diff(rep, axis=1) <= 0).all()
+
+
+@pytest.mark.parametrize("mode", ["nsga2", "parallel"])
+def test_generation_nsga2_and_parallel_rooms_match_jax(mode, small_problem,
+                                                       padded_problem):
+    """One generation under multi_objective (crowded tournaments on the
+    parents' ranks and crowding, NSGA-II replacement) and under
+    rooms_mode="parallel" (the crossover rematch), against JAX's."""
+    problem = padded_problem if mode == "parallel" else small_problem
+    jpa, tpa = arrays(problem)
+    kw = dict(multi_objective=mode == "nsga2",
+              rooms_mode="parallel" if mode == "parallel" else "scan")
+    jcfg, tcfg = _cfgs(ls_sweeps=1, **kw)
+    slots, rooms = _population(problem, POP, 9)
+    jstate = jga.evaluate(jpa, jnp.asarray(slots), jnp.asarray(rooms))
+    key = jax.random.key(25)
+    want = jax.jit(jga.generation, static_argnums=(3,))(jpa, key, jstate,
+                                                        jcfg)
+    draws = jax_breed_draws(key, POP, problem.n_events, problem.n_slots,
+                            jcfg)
+    sweep_fn = jax_sweep_draws_fn(jax.random.fold_in(key, 0x15), POP,
+                                  problem.n_events, problem.n_slots, jcfg)
+    got = tga.generation(tpa, draws, sweep_fn, pop_state_from_numpy(jstate),
+                         tcfg)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("which", ["small", "padded"])
+def test_make_children_crowded_and_parallel_match_jax(which, small_problem,
+                                                      padded_problem):
+    """K6's plain version in both new modes against a vmapped
+    `_make_child` with mo_stats, parents with tied (hcv, scv) so ranks
+    and crowding tie too."""
+    from timetabling_ga_tpu.ops import nsga as jnsga
+    problem = small_problem if which == "small" else padded_problem
+    jpa, tpa = arrays(problem)
+    n = 12
+    kw = dict(pop_size=n, p_crossover=0.6, p_mutation=0.5, p3=0.4,
+              rooms_mode="parallel", multi_objective=True)
+    jcfg, tcfg = jga.GAConfig(**kw), tga.GAConfig(**kw)
+    slots, _ = _population(problem, n, 4)
+    rng = np.random.default_rng(6)
+    rooms = rng.integers(0, problem.n_rooms, slots.shape).astype(np.int32)
+    obj = rng.integers(0, 3, (2, n)).astype(np.int32)
+    jstate = jga.PopState(jnp.asarray(slots), jnp.asarray(rooms),
+                          jnp.asarray(obj[0] * 7), jnp.asarray(obj[0]),
+                          jnp.asarray(obj[1]))
+    ranks = jnsga.nondominated_ranks(jstate.hcv, jstate.scv)
+    crowd = jnsga.crowding_distance(jstate.hcv, jstate.scv, ranks)
+    key = jax.random.key(33)
+    keys = jax.random.split(key, n)
+    want = jax.jit(jax.vmap(lambda k: jga._make_child(
+        jpa, k, jstate, jcfg, (ranks, crowd))))(keys)
+    draws = jax_breed_draws(key, n, problem.n_events, problem.n_slots, jcfg)
+    mo = (torch.tensor(np.asarray(ranks)), torch.tensor(np.asarray(crowd)))
+    got = tga.make_children(tpa, draws, pop_state_from_numpy(jstate), tcfg,
+                            mo_stats=mo)
+    for w, g in zip(want[:2], got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())

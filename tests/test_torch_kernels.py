@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K8 against their plain PyTorch versions.
+"""The CUDA kernels K1-K11 against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package and needs no conftest
 fixture, so it also runs on a machine with the card but without JAX:
@@ -20,7 +20,7 @@ import torch
 
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import (
-    delta, fitness, ga, local_search, moves, rooms, sweep)
+    delta, fitness, ga, lahc, local_search, moves, nsga, rooms, sweep)
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import (
     derive, itc_like_instance, load_tim_file, make_problem_arrays,
@@ -357,6 +357,101 @@ def test_k8_shared_memory_count_matches_the_kernel(cuda):
 
 
 @pytest.mark.cuda
+def test_k9_parallel_rooms_equals_plain(cuda):
+    for i, pa in enumerate(_instances(cuda)):
+        st = _state(pa, 9, 140 + i)
+        slots = st.slots.clone()
+        slots[:, ::2] %= 3
+        rms = torch.randint(0, pa.n_rooms, slots.shape, device=cuda,
+                            dtype=torch.int32,
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(i))
+        for n in (1, 2, 4):
+            assert torch.equal(rooms.augment_rooms(pa, slots, rms, n),
+                               rooms.augment_rooms_plain(pa, slots, rms, n))
+        assert torch.equal(
+            rooms.parallel_assign_rooms(pa, slots),
+            rooms.augment_rooms_plain(pa, slots, rooms.best_fit_rooms(pa, 9)))
+
+
+@pytest.mark.cuda
+def test_k6_crowded_tournament_and_parallel_rooms_equal_plain(cuda):
+    for i, pa in enumerate(_instances(cuda)):
+        for groups, pop in ((1, 16), (3, 5)):
+            _, _, par, draws = _breed_case(pa, cuda, groups, pop, 150 + i)
+            for mo, mode in ((True, "scan"), (False, "parallel"),
+                             (True, "parallel")):
+                cfg = ga.GAConfig(pop_size=pop, p3=0.4, rooms_mode=mode,
+                                  multi_objective=mo)
+                stats = (nsga.rank_crowd(par.hcv, par.scv, groups) if mo
+                         else None)
+                got = ga.make_children(pa, draws, par, cfg, groups, stats)
+                want = ga.make_children_plain(pa, draws, par, cfg, groups,
+                                              stats)
+                assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,pop", [(1, 8), (2, 20), (4, 16), (1, 512)])
+def test_k11_nsga_equals_plain(cuda, L, pop):
+    g = torch.Generator(device=cuda).manual_seed(pop)
+
+    def state(seed):
+        st = _island_state(L, pop, seed, cuda)
+        hcv = torch.randint(0, 4, (L * pop,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        return st._replace(hcv=hcv, scv=torch.randint(
+            0, 6, (L * pop,), generator=g, device=cuda, dtype=torch.int32))
+    par, ch = state(1), state(2)
+    got = nsga.rank_crowd(par.hcv, par.scv, L)
+    want = nsga.rank_crowd_plain(par.hcv, par.scv, L)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    got = nsga.survivors(par, ch, L, pop)
+    want = nsga.survivors_plain(par, ch, L, pop)
+    assert all(torch.equal(w, x) for w, x in zip(want, got))
+
+
+def _lahc_copy(state):
+    """A copy of a LahcState, for K10 to update in place."""
+    return lahc.LahcState(lahc.LSState(*(x.clone() for x in state.ls)),
+                          *(x.clone() for x in state[1:]))
+
+
+@pytest.mark.cuda
+def test_k10_lahc_equals_plain(cuda):
+    for i, pa in enumerate(_instances(cuda)):
+        st = _state(pa, 4, 160 + i)
+        for K, Lh in ((1, 3), (16, 5), (5, 1000)):
+            l0 = lahc.init_lahc(pa, st.slots, st.rooms, Lh)
+            g = torch.Generator(device=cuda).manual_seed(170 + i)
+            draws = lahc.make_lahc_draws([g], 4, 12, K, pa.n_events,
+                                         pa.n_slots, 1.0, 1.0, 0.5, cuda)
+            l1 = _lahc_copy(l0)
+            got = lahc.lahc_steps(pa, draws, l1)
+            want = lahc.lahc_steps_plain(pa, draws, l0)
+            assert all(torch.equal(w, x) for w, x in zip(want.ls, got.ls))
+            assert all(torch.equal(w, x) for w, x in zip(want[1:], got[1:]))
+            # the kernel writes the walkers' state in place
+            assert got.step.data_ptr() == l1.step.data_ptr()
+            assert got.ls.slots.data_ptr() == l1.ls.slots.data_ptr()
+
+
+@pytest.mark.cuda
+def test_k10_shared_memory_count_matches_the_kernel(cuda):
+    kernels.build()
+    fn = kernels._LIBS["lahc"][0].tt_lahc_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    for pa in _instances(cuda) + [load_tim_file(COMP01S)
+                                  .device_arrays(cuda)]:
+        for K in (1, 16, 40):
+            assert fn(pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots, K,
+                      pa.conflict_bits.shape[1]) == \
+                lahc.lahc_smem_bytes(pa, K)
+
+
+@pytest.mark.cuda
 def test_launch_counters_count_launches(cuda):
     pa = _instances(cuda)[1]
     st = _state(pa, 4, 6)
@@ -400,6 +495,14 @@ def test_random_ls_smem_bytes_at_comp01s():
     assert delta.random_ls_smem_bytes(pa, 8) == 43_424
 
 
+def test_lahc_smem_bytes_at_comp01s():
+    """K10's shared memory per walker on comp01s at K = 16: slots, rooms
+    and the best snapshot's 6,400, candidates 768, scalars 128, occ 912,
+    att 18,000 and the conflict bits 20,800."""
+    pa = load_tim_file(COMP01S).device_arrays()
+    assert lahc.lahc_smem_bytes(pa, 16) == 47_008
+
+
 def test_sweep_pass_kernel_raises_above_the_shared_memory_limit():
     # 2,700 students x 45 slots of int16 attendance is 243,000 bytes
     big = random_instance(5, n_events=12, n_rooms=3, n_features=2,
@@ -432,12 +535,14 @@ def test_library_paths_are_keyed_by_source_hash():
         sorted(kernels.SIGNATURES)
     assert kernels.SOURCES["breed"] == ["breed", "relocate"]
     assert kernels.SOURCES["survivors"] == ["survivors", "migrate"]
+    assert kernels.SOURCES["nsga"] == ["nsga_rank", "nsga_survivors"]
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     # every local header a source includes is part of its key
     assert [p.name for p in kernels._sources("sweep_pass")] == [
         "sweep_pass.cu", "sweep_dev.cuh", "common.cuh"]
-    assert [p.name for p in kernels._sources("random_ls")] == [
-        "random_ls.cu", "sweep_dev.cuh", "rooms_dev.cuh", "common.cuh"]
+    for src in ("random_ls", "lahc"):
+        assert [p.name for p in kernels._sources(src)] == [
+            f"{src}.cu", "sweep_dev.cuh", "rooms_dev.cuh", "common.cuh"]
 
 
 def test_conflict_bits_and_csr_encode_the_problem():

@@ -62,3 +62,37 @@ def test_key_packing_bound_is_kept(small_problem):
         (4096, 2), dtype=torch.bool)})
     with pytest.raises(ValueError, match="4096"):
         trooms.assign_rooms(big, torch.zeros((1, 4096), dtype=torch.int32))
+
+
+@pytest.fixture(scope="module")
+def tight_problem():
+    from timetabling_ga_tpu.problem import room_tight_instance
+    return room_tight_instance(11, n_events=60, n_rooms=6, n_features=4,
+                               n_students=50, attend_prob=0.08)
+
+
+@pytest.mark.parametrize("which", ["small", "tight", "padded"])
+@pytest.mark.parametrize("n_rounds", [1, 2, 3, 4])
+def test_parallel_matcher_matches_jax(which, n_rounds, small_problem,
+                                      tight_problem, padded_problem):
+    """augment_rooms from random incoming rooms and parallel_assign_rooms
+    (best-fit start), both against the JAX matcher vmapped over rows, on
+    random, room-tight and padded instances (padded rows carry random
+    slots on their dead events, which keep their incoming room)."""
+    problem = {"small": small_problem, "tight": tight_problem,
+               "padded": padded_problem}[which]
+    jpa, tpa = arrays(problem)
+    slots = _slots(problem, 5, 20 + n_rounds)
+    # crowded slots make the augments and the park rounds do work
+    slots[:, ::2] = slots[:, ::2] % 3
+    rng = np.random.default_rng(n_rounds)
+    rooms = rng.integers(0, problem.n_rooms, slots.shape).astype(np.int32)
+    want = jax.jit(jax.vmap(lambda s, r: jrooms.augment_rooms(
+        jpa, s, r, n_rounds)))(
+        jnp.asarray(slots), jnp.asarray(rooms))
+    got = trooms.augment_rooms(tpa, t32(slots), t32(rooms), n_rounds)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    want = jax.jit(jax.vmap(lambda s: jrooms.parallel_assign_rooms(
+        jpa, s, n_rounds)))(jnp.asarray(slots))
+    got = trooms.parallel_assign_rooms(tpa, t32(slots), n_rounds)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())

@@ -2,8 +2,10 @@
 // moves (its relocation entry).
 //
 // Replaces timetabling_ga_tpu/ops/ga.py:154 `tournament` and :168
-// `_make_child` (vmapped over the children by `generation` :221), with
-// B7 fused: ops/moves.py:106/149/174 `sample_move` / `apply_relocation`
+// `_make_child` (vmapped over the children by `generation` :221) — with
+// NSGA-II's crowded tournament (ops/nsga.py:109) under --nsga2 and the
+// parallel room matcher (ops/rooms.py:304) under --rooms-mode parallel —
+// and B7 fused: ops/moves.py:106/149/174 `sample_move` / `apply_relocation`
 // / `random_move`, and the kick's chain of them (parallel/islands.py:823
 // `_kick`). XLA runs a child as two k-draw lexsorts, a gather of two
 // parents, the crossover's E-step room-matching scan and the mutation's
@@ -17,11 +19,15 @@
 // Design: one warp per child, one lane per room (R <= 32), as K1. Each
 // warp keeps its child's slots, rooms and (T, R) occupancy in shared
 // memory from the crossover through the mutation:
-//   - two k-draw tournaments by (penalty, scv), the earliest draw kept on
-//     a full tie (jnp.lexsort(...)[0]); draws index the child's island;
+//   - two k-draw tournaments by (penalty, scv) — or, with `mo`, by
+//     (rank asc, crowding desc) from K11's nsga_rank — the earliest draw
+//     kept on a full tie (jnp.lexsort(...)[0]); draws index the child's
+//     island;
 //   - do_x: the masked crossover of the parents' slots and K1's matching
-//     body (rooms_dev.cuh); else parent A's slots and rooms, unmatched,
-//     and the occupancy counted from them;
+//     body (rooms_dev.cuh) — or, with `parallel`, the parallel matcher's
+//     body from best-fit rooms and the occupancy counted after; else
+//     parent A's slots and rooms, unmatched, and the occupancy counted
+//     from them;
 //   - do_m: the top 3 of the row's E uniforms by warp argmax (ties to the
 //     lower index), sample_move's padded 3-relocation and
 //     apply_relocation on the child's occupancy.
@@ -32,15 +38,24 @@
 #define K6_WARPS 4
 
 // the winner of one tournament: `draws` (k) index the island's rows
-// from `base`; strict improvement only, so the earliest draw wins ties
+// from `base`; strict improvement only, so the earliest draw wins ties.
+// By (penalty, scv) ascending, or, when `ranks` is given, by the crowded
+// comparison: rank ascending, crowding descending (an infinite crowding
+// ties with another and falls back to the draw order).
 __device__ __forceinline__ int k6_tournament(const int* draws, int k,
                                              int base, const int* pen,
-                                             const int* scv) {
+                                             const int* scv,
+                                             const int* ranks,
+                                             const float* crowd) {
     int best = base + draws[0];
     for (int i = 1; i < k; ++i) {
         int j = base + draws[i];
-        if (pen[j] < pen[best] || (pen[j] == pen[best] && scv[j] < scv[best]))
-            best = j;
+        bool better =
+            ranks ? (ranks[j] < ranks[best]
+                     || (ranks[j] == ranks[best] && crowd[j] > crowd[best]))
+                  : (pen[j] < pen[best]
+                     || (pen[j] == pen[best] && scv[j] < scv[best]));
+        if (better) best = j;
     }
     return best;
 }
@@ -66,13 +81,18 @@ __global__ void breed_kernel(
     const float* __restrict__ u, const int* __restrict__ tgt,
     const uint8_t* __restrict__ possible, const int* __restrict__ cap_rank,
     const int* __restrict__ dead, const int* __restrict__ live,
-    const int* __restrict__ order, int* __restrict__ out_slots,
+    const int* __restrict__ order, const int* __restrict__ ranks,
+    const float* __restrict__ crowd, int* __restrict__ out_slots,
     int* __restrict__ out_rooms, int P, int pop, int k, int E, int R,
-    int T) {
+    int T, int n_rounds) {
     extern __shared__ int k6_smem[];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // n_rounds >= 0: the parallel matcher, with its scratch after occ
+    const int per_warp = 2 * E + T * R
+                         + (n_rounds >= 0 ? tt_parallel_rooms_ints(E, R, T)
+                                          : 0);
     int* ord = k6_smem;                                  // (E,)
-    int* sl = k6_smem + E + warp * (2 * E + T * R);      // (E,)
+    int* sl = k6_smem + E + warp * per_warp;             // (E,)
     int* rm = sl + E;                                    // (E,)
     int* occ = rm + E;                                   // (T, R)
     for (int i = threadIdx.x; i < E; i += blockDim.x) ord[i] = order[i];
@@ -82,17 +102,26 @@ __global__ void breed_kernel(
     const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
     const int rank = tt_room_rank(rp, lane);
     const int base = c / pop * pop;
-    const int ia = k6_tournament(ta + (size_t)c * k, k, base, pen, scv);
-    const int ib = k6_tournament(tb + (size_t)c * k, k, base, pen, scv);
+    const int ia = k6_tournament(ta + (size_t)c * k, k, base, pen, scv,
+                                 ranks, crowd);
+    const int ib = k6_tournament(tb + (size_t)c * k, k, base, pen, scv,
+                                 ranks, crowd);
     const int* sa = slots + (size_t)ia * E;
     const int* ra = rooms + (size_t)ia * E;
     const int* sb = slots + (size_t)ib * E;
     if (do_x[c]) {
         const uint8_t* mk = mask + (size_t)c * E;
-        for (int i = lane; i < T * R; i += 32) occ[i] = 0;
         for (int e = lane; e < E; e += 32) sl[e] = mk[e] ? sa[e] : sb[e];
-        __syncwarp();
-        tt_match_rooms_warp(rp, ord, sl, occ, rm, lane);
+        if (n_rounds >= 0) {
+            for (int e = lane; e < E; e += 32) rm[e] = tt_best_fit_room(rp, e);
+            __syncwarp();
+            tt_parallel_rooms_warp(rp, sl, rm, occ + T * R, n_rounds, lane);
+            tt_occupancy_warp(rp, sl, rm, occ, lane);
+        } else {
+            for (int i = lane; i < T * R; i += 32) occ[i] = 0;
+            __syncwarp();
+            tt_match_rooms_warp(rp, ord, sl, occ, rm, lane);
+        }
     } else {
         for (int e = lane; e < E; e += 32) {
             sl[e] = sa[e];
@@ -150,19 +179,23 @@ extern "C" int tt_breed(
     const int* ta, const int* tb, const uint8_t* mask, const uint8_t* do_x,
     const uint8_t* do_m, const int* mtype, const float* u, const int* tgt,
     const uint8_t* possible, const int* cap_rank, const int* dead,
-    const int* live, const int* order, int* out_slots, int* out_rooms, int P,
-    int pop, int k, int E, int R, int T, void* stream) {
-    if (R > 32 || E < 3 || P <= 0 || pop <= 0 || P % pop != 0 || k <= 0)
+    const int* live, const int* order, const int* ranks, const float* crowd,
+    int* out_slots, int* out_rooms, int P, int pop, int k, int E, int R,
+    int T, int n_rounds, void* stream) {
+    if (R > 32 || E < 3 || P <= 0 || pop <= 0 || P % pop != 0 || k <= 0
+        || (ranks != nullptr) != (crowd != nullptr))
         return (int)cudaErrorInvalidValue;
-    size_t smem = sizeof(int) * ((size_t)E + K6_WARPS * (2 * (size_t)E
-                                                          + (size_t)T * R));
+    size_t per_warp = 2 * (size_t)E + (size_t)T * R
+                      + (n_rounds >= 0 ? tt_parallel_rooms_ints(E, R, T) : 0);
+    size_t smem = sizeof(int) * ((size_t)E + K6_WARPS * per_warp);
+    if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     cudaError_t err = tt_set_smem(breed_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     int grid = (P + K6_WARPS - 1) / K6_WARPS;
     breed_kernel<<<grid, 32 * K6_WARPS, smem, (cudaStream_t)stream>>>(
         slots, rooms, pen, scv, ta, tb, mask, do_x, do_m, mtype, u, tgt,
-        possible, cap_rank, dead, live, order, out_slots, out_rooms, P, pop,
-        k, E, R, T);
+        possible, cap_rank, dead, live, order, ranks, crowd, out_slots,
+        out_rooms, P, pop, k, E, R, T, n_rounds);
     return (int)cudaGetLastError();
 }
 

@@ -23,8 +23,9 @@
 // computes on the way in; the penalty terms arrive from K2. A round:
 // each warp takes its candidate's events as the top 3 of its uniforms
 // (warp argmax, ties to the lower index; rooms_dev.cuh), builds
-// sample_move's relocation and scores it with K4's body (sweep_dev.cuh
-// `tt_delta_one_warp`); thread 0 takes the first candidate of least
+// sample_move's relocation and scores it with K4's body and the anchor
+// terms (sweep_dev.cuh `tt_score_candidate_warp`, which K10 shares);
+// thread 0 takes the first candidate of least
 // penalty (jnp.argmin) and accepts it when strictly below the current
 // one; the block applies it with K5's apply. Nothing goes back to global
 // memory until the epilogue, which writes slots, rooms and the penalty
@@ -82,10 +83,6 @@ struct K8Args {
     K8Smem lay;
 };
 
-__device__ __forceinline__ int k8_base_penalty(int hcv, int scv) {
-    return hcv == 0 ? scv : TT_INFEASIBLE_OFFSET + hcv;
-}
-
 __global__ void __launch_bounds__(32 * K8_MAX_WARPS)
 random_ls_kernel(K8Args A) {
     extern __shared__ __align__(16) unsigned char k8_smem[];
@@ -141,34 +138,13 @@ random_ls_kernel(K8Args A) {
     for (int r = 0; r < A.n_rounds; ++r) {
         for (int c = warp; c < A.K; c += n_warps) {
             const size_t row = ((size_t)r * A.K + c) * A.P + p;
-            int ev[3], ns[3], on[3], nr[3], dh, ds;
+            int ev[3], ns[3], on[3];
             tt_top3_warp(A.u + row * E, E, lane, ev);
             tt_sample_move(slots, A.mtype[row], A.tgt[row], ev, ns, on);
-            tt_delta_one_warp(pb, slots, rooms, att, occ, ev, ns, on, lane,
-                              &dh, &ds, nr);
-            if (lane == 0) {
-                int hcv = st[1] + dh, scv = st[2] + ds;
-                int pen = k8_base_penalty(hcv, scv);
-                if (A.anchored) {
-                    // the state's anchor residual plus the move's
-                    // anchor delta (delta.py:249-257)
-                    int da = 0;
-#pragma unroll
-                    for (int m = 0; m < 3; ++m) {
-                        int anc = A.anchor_slots[ev[m]];
-                        da += A.anchor_w[ev[m]]
-                              * ((ns[m] != anc ? 1 : 0)
-                                 - (slots[ev[m]] != anc ? 1 : 0));
-                    }
-                    pen += st[0] - k8_base_penalty(st[1], st[2]) + da;
-                }
-                int* o = cand + c * K8_CAND_INTS;
-                o[0] = pen; o[1] = hcv; o[2] = scv;
-#pragma unroll
-                for (int m = 0; m < 3; ++m) {
-                    o[3 + m] = ev[m]; o[6 + m] = ns[m]; o[9 + m] = nr[m];
-                }
-            }
+            tt_score_candidate_warp(pb, slots, rooms, att, occ, ev, ns, on,
+                                    st, A.anchor_slots, A.anchor_w,
+                                    A.anchored, lane,
+                                    cand + c * K8_CAND_INTS);
         }
         __syncthreads();
         if (tid == 0) {
@@ -179,14 +155,7 @@ random_ls_kernel(K8Args A) {
             const int* o = cand + best * K8_CAND_INTS;
             mv[0] = o[0] < st[0] ? 1 : 0;
             if (mv[0]) {
-#pragma unroll
-                for (int m = 0; m < 3; ++m) {
-                    mv[1 + m] = o[3 + m];
-                    mv[4 + m] = slots[o[3 + m]];
-                    mv[7 + m] = rooms[o[3 + m]];
-                    mv[10 + m] = o[6 + m];
-                    mv[13 + m] = o[9 + m];
-                }
+                tt_move_of_candidate(o, slots, rooms, mv + 1);
                 st[0] = o[0]; st[1] = o[1]; st[2] = o[2];
             }
         }

@@ -161,3 +161,218 @@ __device__ __forceinline__ void tt_relocate_warp(const TTRoomProblem& rp,
         __syncwarp();
     }
 }
+
+// ---- B10c: the parallel room matcher (rooms.py:154 augment_rooms, :304
+// parallel_assign_rooms), run by K6 on each crossover child under
+// --rooms-mode parallel and by K9 (parallel_rooms.cu) on whole rows.
+//
+// The warp's 32 lanes stride over the events; every phase reads what the
+// previous one wrote after a __syncwarp(). (slot, room) cells live in
+// (T, R+1) grids, column R the "unmatched" dump. Every bid is a
+// scatter-min of event indices and every park count a scatter-add, both
+// independent of order, so shared-memory atomicMin / atomicAdd give
+// exactly the JAX scatters' result.
+
+#define TT_BIG (1 << 20)
+
+// parallel_assign_rooms's start (rooms.py:320-322): the suitable room of
+// least capacity rank, ignoring occupancy; room 0 when none is suitable.
+__device__ __forceinline__ int tt_best_fit_room(const TTRoomProblem& rp,
+                                                int e) {
+    int best = TT_BIG, br = 0;
+    for (int r = 0; r < rp.R; ++r) {
+        int k = rp.possible[e * rp.R + r] ? rp.cap_rank[r] : TT_BIG;
+        if (k < best) {
+            best = k;
+            br = r;
+        }
+    }
+    return br;
+}
+
+// event e's best-fit suitable room among the free cells of its slot's
+// owner row `own` (R+1 entries, E = free), or -1 when there is none
+__device__ __forceinline__ int tt_free_room(const TTRoomProblem& rp,
+                                            const int* own, int e) {
+    int best = TT_BIG, br = -1;
+    for (int r = 0; r < rp.R; ++r)
+        if (rp.possible[e * rp.R + r] && own[r] == rp.E
+            && rp.cap_rank[r] < best) {
+            best = rp.cap_rank[r];
+            br = r;
+        }
+    return br;
+}
+
+// park choice (rooms.py:282-286): K1's room key on the matched occupancy
+// row `occ` (R+1 entries, column R excluded)
+__device__ __forceinline__ int tt_park_room(const TTRoomProblem& rp,
+                                            const int* occ, int e) {
+    int best = 0x7fffffff, br = 0;
+    for (int r = 0; r < rp.R; ++r) {
+        int unsuit = rp.possible[e * rp.R + r] ? 0 : 1;
+        int key = (occ[r] + unsuit) * TT_W_COST + unsuit * TT_W_UNSUIT
+                  + rp.cap_rank[r] + rp.dead[r];
+        if (key < best) {
+            best = key;
+            br = r;
+        }
+    }
+    return br;
+}
+
+// ints of scratch tt_parallel_rooms_warp takes: mrooms, two per-event
+// arrays and three (T, R+1) grids
+__host__ __device__ __forceinline__ int tt_parallel_rooms_ints(int E, int R,
+                                                              int T) {
+    return 3 * E + 3 * T * (R + 1);
+}
+
+__device__ __forceinline__ void tt_fill_warp(int* x, int n, int v,
+                                             int lane) {
+    for (int i = lane; i < n; i += 32) x[i] = v;
+}
+
+// the matched owner grid (rooms.py:211 matched_grid): the least event
+// index per (slot, mrooms) cell, E where none
+__device__ __forceinline__ void tt_matched_grid_warp(const TTRoomProblem& rp,
+                                                     const int* sl,
+                                                     const int* mr, int* grid,
+                                                     int lane) {
+    const int C = rp.R + 1;
+    tt_fill_warp(grid, rp.T * C, rp.E, lane);
+    __syncwarp();
+    for (int e = lane; e < rp.E; e += 32)
+        atomicMin(&grid[sl[e] * C + mr[e]], e);
+    __syncwarp();
+}
+
+// augment_rooms (rooms.py:154) of one individual: `rm` holds the
+// incoming rooms (all < R) and leaves as the result. n_rounds rounds of
+// length-1 then length-3 augments, two park bid rounds, then the
+// stragglers' fallback; padded events bid in the augment rounds as every
+// event does, enter the park phase parked, and keep their incoming room.
+__device__ void tt_parallel_rooms_warp(const TTRoomProblem& rp,
+                                       const int* sl, int* rm, int* scratch,
+                                       int n_rounds, int lane) {
+    const int E = rp.E, R = rp.R, C = R + 1, G = rp.T * C;
+    int* mr = scratch;          // matched room, R when unmatched
+    int* cand = mr + E;         // this phase's room choice, -1 none
+    int* fc = cand + E;         // relocation room / parked flag
+    int* grid = fc + E;         // owners, then the park occupancy
+    int* bid = grid + G;
+    int* bid2 = bid + G;
+    // owner0: the least event index in each incoming (slot, room) cell;
+    // an event is matched when it owns its cell and the room suits it
+    tt_fill_warp(grid, G, E, lane);
+    __syncwarp();
+    for (int e = lane; e < E; e += 32) atomicMin(&grid[sl[e] * C + rm[e]], e);
+    __syncwarp();
+    for (int e = lane; e < E; e += 32) {
+        const int r = rm[e];
+        mr[e] = (grid[sl[e] * C + r] == e && rp.possible[e * R + r]) ? r : R;
+    }
+    __syncwarp();
+    for (int round = 0; round < n_rounds; ++round) {
+        // ---- stage 1: an unmatched event grabs its best free room
+        tt_fill_warp(bid, G, E, lane);
+        tt_matched_grid_warp(rp, sl, mr, grid, lane);
+        for (int e = lane; e < E; e += 32) {
+            int c = -1;
+            if (mr[e] == R) {
+                c = tt_free_room(rp, grid + sl[e] * C, e);
+                if (c >= 0) atomicMin(&bid[sl[e] * C + c], e);
+            }
+            cand[e] = c;
+        }
+        __syncwarp();
+        for (int e = lane; e < E; e += 32) {
+            const int c = cand[e];
+            if (c >= 0 && bid[sl[e] * C + c] == e) mr[e] = c;
+        }
+        __syncwarp();
+        // ---- stage 2: e takes an owned room r whose owner f moves on to
+        // its own best free room r' of the slot; both claims bid
+        tt_fill_warp(bid, G, E, lane);
+        tt_fill_warp(bid2, G, E, lane);
+        tt_matched_grid_warp(rp, sl, mr, grid, lane);
+        for (int e = lane; e < E; e += 32)
+            fc[e] = mr[e] < R ? tt_free_room(rp, grid + sl[e] * C, e) : -1;
+        __syncwarp();
+        for (int e = lane; e < E; e += 32) {
+            int c = -1;
+            if (mr[e] == R) {
+                const int* own = grid + sl[e] * C;
+                int best = TT_BIG;
+                for (int r = 0; r < R; ++r) {
+                    const int f = own[r];
+                    if (rp.possible[e * R + r] && f != E && fc[f] >= 0
+                        && rp.cap_rank[r] < best) {
+                        best = rp.cap_rank[r];
+                        c = r;
+                    }
+                }
+                if (c >= 0) atomicMin(&bid[sl[e] * C + c], e);
+            }
+            cand[e] = c;
+        }
+        __syncwarp();
+        // winners' evicted owners bid for their relocation rooms
+        for (int e = lane; e < E; e += 32) {
+            const int c = cand[e];
+            if (c < 0) continue;
+            const int cell = sl[e] * C + c;
+            if (bid[cell] == e) {
+                const int f = grid[cell];
+                atomicMin(&bid2[sl[e] * C + fc[f]], f);
+            } else {
+                cand[e] = -1;
+            }
+        }
+        __syncwarp();
+        // the non-colliding augments: f -> r', e -> r (e is unmatched and
+        // f matched, so the two writes never touch one event)
+        for (int e = lane; e < E; e += 32) {
+            const int c = cand[e];
+            if (c < 0) continue;
+            const int f = grid[sl[e] * C + c];
+            const int fr = fc[f];
+            if (bid2[sl[e] * C + fr] == f) {
+                mr[f] = fr;
+                mr[e] = c;
+            }
+        }
+        __syncwarp();
+    }
+    // ---- park the unmatched at least marginal cost, two bid rounds
+    tt_fill_warp(grid, G, 0, lane);
+    __syncwarp();
+    for (int e = lane; e < E; e += 32) {
+        if (mr[e] < R) atomicAdd(&grid[sl[e] * C + mr[e]], 1);
+        fc[e] = (mr[e] < R || !rp.live[e]) ? 1 : 0;
+    }
+    __syncwarp();
+    for (int pr = 0; pr < 2; ++pr) {
+        tt_fill_warp(bid, G, E, lane);
+        __syncwarp();
+        for (int e = lane; e < E; e += 32) {
+            if (fc[e]) continue;
+            const int p = tt_park_room(rp, grid + sl[e] * C, e);
+            cand[e] = p;
+            atomicMin(&bid[sl[e] * C + p], e);
+        }
+        __syncwarp();
+        for (int e = lane; e < E; e += 32) {
+            if (fc[e] || bid[sl[e] * C + cand[e]] != e) continue;
+            atomicAdd(&grid[sl[e] * C + cand[e]], 1);
+            mr[e] = cand[e];
+            fc[e] = 1;
+        }
+        __syncwarp();
+    }
+    // stragglers take the current argmin; padded events keep their room
+    for (int e = lane; e < E; e += 32)
+        if (rp.live[e])
+            rm[e] = fc[e] ? mr[e] : tt_park_room(rp, grid + sl[e] * C, e);
+    __syncwarp();
+}

@@ -1,5 +1,7 @@
 // Device bodies of the sweep's delta evaluators, shared by K3
-// (move1_sweep.cu), K4 (delta_one.cu) and K5 (sweep_pass.cu).
+// (move1_sweep.cu), K4 (delta_one.cu) and K5 (sweep_pass.cu), and the
+// random-candidate scoring and apply that K8 (random_ls.cu) and K10
+// (lahc.cu) share.
 //
 // Every function takes the individual's state through generic pointers
 // (slots, rooms, att, occ), so the same arithmetic reads it from global
@@ -357,5 +359,66 @@ __device__ __forceinline__ void tt_apply_move_block(
             slots[mv[m]] = mv[9 + m];
             rooms[mv[m]] = mv[12 + m];
         }
+    }
+}
+
+// fitness.base_penalty: scv once feasible, else 1e6 + hcv
+__device__ __forceinline__ int tt_base_penalty(int hcv, int scv) {
+    return hcv == 0 ? scv : TT_INFEASIBLE_OFFSET + hcv;
+}
+
+// One random candidate of K8 and K10 (ops/delta.py:240-257, ops/lahc.py
+// :255-281), run by the 32 lanes of one warp: the padded 3-relocation
+// (ev, ns, on) of the individual whose (pen, hcv, scv) are st[0..2]
+// scored by K4's body, then, on lane 0, 12 ints stored at `o`: the
+// candidate's penalty — its base penalty plus, when anchored, the
+// state's anchor residual pen - base_penalty(hcv, scv) and the move's
+// anchor delta — its hcv and scv, ev[3], ns[3] and the new rooms nr[3].
+__device__ __forceinline__ void tt_score_candidate_warp(
+    const TTSweepProblem& pb, const int* slots, const int* rooms,
+    const int16_t* att, const int16_t* occ, const int ev[3],
+    const int ns[3], const int on[3], const int* st,
+    const int* anchor_slots, const int* anchor_w, int anchored, int lane,
+    int* o) {
+    int nr[3], dh, ds;
+    tt_delta_one_warp(pb, slots, rooms, att, occ, ev, ns, on, lane, &dh,
+                      &ds, nr);
+    if (lane != 0) return;
+    const int hcv = st[1] + dh, scv = st[2] + ds;
+    int pen = tt_base_penalty(hcv, scv);
+    if (anchored) {
+        int da = 0;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+            const int anc = anchor_slots[ev[m]];
+            da += anchor_w[ev[m]]
+                  * ((ns[m] != anc ? 1 : 0) - (slots[ev[m]] != anc ? 1 : 0));
+        }
+        pen += st[0] - tt_base_penalty(st[1], st[2]) + da;
+    }
+    o[0] = pen;
+    o[1] = hcv;
+    o[2] = scv;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+        o[3 + m] = ev[m];
+        o[6 + m] = ns[m];
+        o[9 + m] = nr[m];
+    }
+}
+
+// The chosen candidate `o` (12 ints, as tt_score_candidate_warp stores
+// them) as the 15-int move tt_apply_move_block takes.
+__device__ __forceinline__ void tt_move_of_candidate(const int* o,
+                                                     const int* slots,
+                                                     const int* rooms,
+                                                     int* mv) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+        mv[m] = o[3 + m];
+        mv[3 + m] = slots[o[3 + m]];
+        mv[6 + m] = rooms[o[3 + m]];
+        mv[9 + m] = o[6 + m];
+        mv[12 + m] = o[9 + m];
     }
 }

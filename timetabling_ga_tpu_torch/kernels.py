@@ -10,9 +10,10 @@ nothing here runs at import time, so `import timetabling_ga_tpu_torch`
 needs no CUDA toolchain.
 
 A source may hold several entry points (K6 `breed.cu`: breed and
-relocate; K7 `survivors.cu`: survivors and migrate); each has its own
-name here. Every C entry point launches on PyTorch's current stream and
-returns `cudaGetLastError()`; `launch` raises on a non-zero code.
+relocate; K7 `survivors.cu`: survivors and migrate; K11 `nsga.cu`:
+nsga_rank and nsga_survivors); each has its own name here. Every C entry
+point launches on PyTorch's current stream and returns
+`cudaGetLastError()`; `launch` raises on a non-zero code.
 `LAUNCHES` counts the launches of each entry point: a wrapper adds one
 exactly where it launches its kernel, so a run can show its path went
 through them.
@@ -56,13 +57,19 @@ SIGNATURES = {
                   "delta_one"),
     "sweep_pass": ("tt_sweep_pass", [_P] * 33 + [_I] * 16 + [_P],
                    "sweep_pass"),
-    "breed": ("tt_breed", [_P] * 19 + [_I] * 6 + [_P], "breed"),
+    "breed": ("tt_breed", [_P] * 21 + [_I] * 7 + [_P], "breed"),
     "relocate": ("tt_relocate", [_P] * 11 + [_I] * 5 + [_P], "breed"),
     "survivors": ("tt_survivors", [_P] * 15 + [_I] * 5 + [_P],
                   "survivors"),
     "migrate": ("tt_migrate", [_P] * 10 + [_I] * 3 + [_P], "survivors"),
     "random_ls": ("tt_random_ls", [_P] * 26 + [_I] * 10 + [_P],
                   "random_ls"),
+    "parallel_rooms": ("tt_parallel_rooms", [_P] * 7 + [_I] * 5 + [_P],
+                       "parallel_rooms"),
+    "lahc": ("tt_lahc", [_P] * 29 + [_I] * 11 + [_P], "lahc"),
+    "nsga_rank": ("tt_nsga_rank", [_P] * 4 + [_I] * 2 + [_P], "nsga"),
+    "nsga_survivors": ("tt_nsga_survivors", [_P] * 15 + [_I] * 5 + [_P],
+                       "nsga"),
 }
 
 # the entry points of each source

@@ -9,6 +9,12 @@ evaluation (K2) and (mu+lambda) truncation in (penalty, scv) order
 (kernel K7, csrc/survivors.cu, `survivors`). `make_children_plain` and
 `survivors_plain` are the plain versions.
 
+Under `multi_objective` (--nsga2) the parents are drawn by NSGA-II's
+crowded tournament on ranks and crowding computed once a generation
+(kernel K11's nsga_rank) and the replacement is K11's nsga_survivors;
+under `rooms_mode="parallel"` the crossover rematch is the parallel
+matcher (ops/rooms.py parallel_assign_rooms), inside K6 on the card.
+
 Populations may hold several islands as consecutive equal row blocks
 (`groups`): selection, truncation and the converge rule act within each
 block, as the JAX package's vmap over local islands does. Randomness
@@ -23,23 +29,23 @@ from typing import NamedTuple, Optional
 import torch
 
 from timetabling_ga_tpu_torch import kernels
-from timetabling_ga_tpu_torch.ops import fitness
+from timetabling_ga_tpu_torch.ops import fitness, nsga
 from timetabling_ga_tpu_torch.ops.delta import (
     batch_local_search_delta, make_ls_draws)
 from timetabling_ga_tpu_torch.ops.local_search import batch_local_search
 from timetabling_ga_tpu_torch.ops.moves import (
     MoveDraws, make_move_draws, random_move_plain)
 from timetabling_ga_tpu_torch.ops.rooms import (
-    assign_rooms, assign_rooms_plain, check_packing)
+    assign_rooms, assign_rooms_plain, augment_rooms_plain, best_fit_rooms,
+    check_packing)
 from timetabling_ga_tpu_torch.ops.sweep import (
     make_sweep_draws, sweep_local_search, sweep_shape)
 
 
 @dataclasses.dataclass(frozen=True)
 class GAConfig:
-    """Breeding hyper-parameters: the JAX GAConfig's fields for the scan
-    room matcher, the sweep and the random-candidate local searches,
-    with its defaults (no NSGA-II, no parallel matcher)."""
+    """Breeding hyper-parameters: the JAX GAConfig's fields, with its
+    defaults."""
 
     pop_size: int = 10
     tournament_k: int = 5
@@ -59,6 +65,8 @@ class GAConfig:
     ls_converge: bool = False
     ls_hot_k: int = 0
     init_sweeps: int = 0
+    rooms_mode: str = "scan"      # crossover rematch: "scan" | "parallel"
+    multi_objective: bool = False  # NSGA-II (hcv, scv) selection
 
 
 class PopState(NamedTuple):
@@ -225,20 +233,34 @@ def tournament(draws, penalty, scv) -> torch.Tensor:
     return torch.gather(draws, 1, order[:, :1])[:, 0]
 
 
+# rounds of the parallel matcher on the breeding path (JAX
+# parallel_assign_rooms's default, ga.py:204)
+PARALLEL_ROUNDS = 4
+
+
 def make_children_plain(pa, draws: BreedDraws, state: PopState,
-                        cfg: GAConfig, groups: int = 1):
+                        cfg: GAConfig, groups: int = 1, mo_stats=None):
     """Plain version of K6: breed one child per parent row, 2x tournament
-    -> crossover(p) -> mutation(p). Returns the children's (slots,
-    rooms)."""
+    -> crossover(p) -> mutation(p). `mo_stats` is None (tournaments by
+    (penalty, scv)) or the parents' (ranks, crowding) for the crowded
+    tournament. Returns the children's (slots, rooms)."""
     P = state.slots.shape[0]
     pop = P // groups
     base = (torch.arange(P, device=state.slots.device) // pop * pop)[:, None]
-    ia = tournament(draws.ta.long() + base, state.penalty, state.scv)
-    ib = tournament(draws.tb.long() + base, state.penalty, state.scv)
+    if mo_stats is None:
+        ia = tournament(draws.ta.long() + base, state.penalty, state.scv)
+        ib = tournament(draws.tb.long() + base, state.penalty, state.scv)
+    else:
+        ia = nsga.crowded_tournament(draws.ta.long() + base, *mo_stats)
+        ib = nsga.crowded_tournament(draws.tb.long() + base, *mo_stats)
     s_a, r_a = state.slots[ia], state.rooms[ia]
     s_b = state.slots[ib]
     x_slots = torch.where(draws.mask, s_a, s_b)
-    x_rooms = assign_rooms_plain(pa, x_slots)
+    if cfg.rooms_mode == "parallel":
+        x_rooms = augment_rooms_plain(pa, x_slots, best_fit_rooms(pa, P),
+                                      PARALLEL_ROUNDS)
+    else:
+        x_rooms = assign_rooms_plain(pa, x_slots)
     do_x = draws.do_x[:, None]
     slots = torch.where(do_x, x_slots, s_a)
     rooms = torch.where(do_x, x_rooms, r_a)
@@ -250,7 +272,8 @@ def make_children_plain(pa, draws: BreedDraws, state: PopState,
 
 
 def make_children_kernel(pa, draws: BreedDraws, state: PopState,
-                         groups: int = 1):
+                         groups: int = 1, mo_stats=None,
+                         rooms_mode: str = "scan"):
     """Kernel K6: every child in one launch, one warp per child."""
     check_packing(pa)
     P, E = state.slots.shape
@@ -267,25 +290,35 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
           draws.do_m.contiguous().view(torch.uint8),
           draws.move.mtype.to(i32).contiguous(),
           draws.move.u.contiguous(), draws.move.t.to(i32).contiguous()]
+    mo = [None, None]
+    if mo_stats is not None:
+        mo = [mo_stats[0].contiguous(), mo_stats[1].contiguous()]
+        if mo[0].dtype != torch.int32 or mo[1].dtype != torch.float32:
+            raise TypeError("make_children takes int32 ranks and float32 "
+                            "crowding")
     out = [torch.empty_like(ins[0]), torch.empty_like(ins[1])]
     if P == 0:
         return out[0], out[1]
     p = kernels.ptr
     kernels.launch("breed", *(p(x) for x in ins + dr), p(pa.possible_u8),
                    p(pa.cap_rank), p(pa.dead), p(pa.live),
-                   p(pa.room_order), p(out[0]), p(out[1]), P, P // groups,
-                   draws.ta.shape[1], E, pa.n_rooms, pa.n_slots)
+                   p(pa.room_order), *(None if x is None else p(x)
+                                       for x in mo),
+                   p(out[0]), p(out[1]), P, P // groups,
+                   draws.ta.shape[1], E, pa.n_rooms, pa.n_slots,
+                   PARALLEL_ROUNDS if rooms_mode == "parallel" else -1)
     return out[0], out[1]
 
 
 def make_children(pa, draws: BreedDraws, state: PopState, cfg: GAConfig,
-                  groups: int = 1):
+                  groups: int = 1, mo_stats=None):
     """Breed one child per parent row (each island's children from its
     own parents); returns the children's (slots, rooms). Kernel K6 on
     CUDA tensors, the plain version on CPU ones."""
     if not state.slots.is_cuda:
-        return make_children_plain(pa, draws, state, cfg, groups)
-    return make_children_kernel(pa, draws, state, groups)
+        return make_children_plain(pa, draws, state, cfg, groups, mo_stats)
+    return make_children_kernel(pa, draws, state, groups, mo_stats,
+                                cfg.rooms_mode)
 
 
 def local_search(pa, ls_draws, slots, rooms, cfg: GAConfig,
@@ -312,11 +345,19 @@ def generation(pa, draws: BreedDraws, ls_draws, state: PopState,
                cfg: GAConfig, groups: int = 1) -> PopState:
     """One generation over `groups` islands of cfg.pop_size rows: breed
     every child, local-search them, evaluate, and keep each island's
-    best pop_size of parents + children in (penalty, scv) order.
-    `ls_draws` is the local search's draw function (`ls_draws_fn`)."""
-    ch_slots, ch_rooms = make_children(pa, draws, state, cfg, groups)
+    best pop_size of parents + children in (penalty, scv) order — or,
+    under multi_objective, NSGA-II's survivors, penalty-sorted (JAX
+    ga.py:221-293). `ls_draws` is the local search's draw function
+    (`ls_draws_fn`)."""
+    mo_stats = None
+    if cfg.multi_objective:
+        mo_stats = nsga.rank_crowd(state.hcv, state.scv, groups)
+    ch_slots, ch_rooms = make_children(pa, draws, state, cfg, groups,
+                                       mo_stats)
     ch_slots, ch_rooms = local_search(pa, ls_draws, ch_slots, ch_rooms, cfg,
                                       groups)
     c_pen, c_hcv, c_scv = fitness.batch_penalty(pa, ch_slots, ch_rooms)
     children = PopState(ch_slots, ch_rooms, c_pen, c_hcv, c_scv)
+    if cfg.multi_objective:
+        return nsga.survivors(state, children, groups, keep=cfg.pop_size)
     return survivors(state, children, groups, keep=cfg.pop_size)

@@ -1,4 +1,4 @@
-"""Room assignment (port of timetabling_ga_tpu/ops/rooms.py:54-143, 332).
+"""Room assignment (port of timetabling_ga_tpu/ops/rooms.py:54-341).
 
 Greedy most-constrained-first matching: events in stable ascending
 order of their suitable-room count, each taking the argmin over rooms of
@@ -6,6 +6,15 @@ the marginal-hcv-cost key `(occ + unsuit) * 2^13 + unsuit * 2^12 +
 cap_rank + dead` on its slot's occupancy row. `assign_rooms` is the
 wrapper of kernel K1 (csrc/assign_rooms.cu); `assign_rooms_plain` is
 its plain version, a Python loop over events batched over individuals.
+
+The parallel matcher (`--rooms-mode parallel`): `augment_rooms` runs
+bounded rounds of length-1 and length-3 augmenting paths on a matching
+decoupled from the rooms, every claim resolved by min-event-index
+bidding on (slot, room) cells, then parks the unmatched at least
+marginal cost in two bid rounds; `parallel_assign_rooms` starts it from
+each event's best-fit suitable room. Both wrap kernel K9
+(csrc/parallel_rooms.cu); `augment_rooms_plain` is the plain version,
+batched over individuals.
 """
 
 from __future__ import annotations
@@ -112,3 +121,157 @@ def occupancy(pa, slots, rooms) -> torch.Tensor:
                       device=slots.device)
     occ.scatter_add_(1, idx, pa.live[None, :].expand(P, -1).contiguous())
     return occ.reshape(P, pa.n_slots, R)
+
+
+# key of a room no event may take in the parallel matcher's argmins
+BIG = 1 << 20
+
+
+def _scatter_min(cells, vals, P: int, n_cells: int, fill: int):
+    grid = torch.full((P, n_cells), fill, dtype=torch.int64,
+                      device=cells.device)
+    return grid.scatter_reduce_(1, cells, vals, reduce="amin",
+                                include_self=True)
+
+
+def best_fit_rooms(pa, P: int) -> torch.Tensor:
+    """parallel_assign_rooms's start (JAX rooms.py:320-322): each event's
+    suitable room of least capacity rank, ignoring occupancy; room 0 when
+    none suits. (P, E) int32."""
+    k = torch.where(pa.possible, pa.cap_rank[None, :], BIG)
+    return torch.argmin(k, 1).to(torch.int32)[None].expand(P, -1)
+
+
+def augment_rooms_plain(pa, slots, rooms, n_rounds: int = 4):
+    """Plain version of K9: augment_rooms (JAX rooms.py:154) of (P, E)
+    slots from incoming rooms (P, E), all < R; returns (P, E) int32."""
+    check_packing(pa)
+    P, E = slots.shape
+    R, T = pa.n_rooms, pa.n_slots
+    C = R + 1
+    dev = slots.device
+    sl = slots.long()
+    ev = torch.arange(E, device=dev)[None].expand(P, E)
+    cap = pa.cap_rank.long()
+    possible = pa.possible[None]                         # (1, E, R)
+    ar = torch.arange(P, device=dev)[:, None]
+
+    def cell(r):
+        return sl * C + r
+
+    def grid_of(r, vals):
+        return _scatter_min(cell(r), vals, P, T * C, E)
+
+    def rows(grid):
+        """(P, E, R): each event's slot row of a (P, T*C) grid."""
+        return grid.view(P, T, C)[ar, sl][..., :R]
+
+    def argmin_has(key):
+        c = torch.argmin(key, -1)
+        return c, key.gather(-1, c[..., None])[..., 0] < BIG
+
+    def resolve(choice, active):
+        grid = grid_of(torch.where(active, choice, R),
+                       torch.where(active, ev, E))
+        return active & (grid.gather(1, cell(choice)) == ev)
+
+    rooms = rooms.long()
+    owner0 = grid_of(rooms, ev)
+    matched0 = ((owner0.gather(1, cell(rooms)) == ev)
+                & pa.possible[ev, rooms])
+    mr = torch.where(matched0, rooms, R)
+    for _ in range(n_rounds):
+        # stage 1: length-1 augment, an unmatched event grabs a free room
+        grid = grid_of(mr, ev)
+        matched = mr < R
+        k1 = torch.where(possible & (rows(grid) == E), cap, BIG)
+        cand1, has1 = argmin_has(k1)
+        win1 = resolve(cand1, ~matched & has1)
+        mr = torch.where(win1, cand1, mr)
+        # stage 2: length-3 augment, e -> r and its owner f -> free r'
+        grid = grid_of(mr, ev)
+        matched = mr < R
+        own = rows(grid)
+        fcand, can_move = argmin_has(torch.where(possible & (own == E), cap,
+                                                 BIG))
+        movable = torch.cat([can_move & matched,
+                             torch.zeros((P, 1), dtype=torch.bool,
+                                         device=dev)], 1)
+        viable = (possible & (own != E)
+                  & movable.gather(1, own.clamp(max=E).reshape(P, -1))
+                  .view(P, E, R))
+        cand2, has2 = argmin_has(torch.where(viable, cap, BIG))
+        win_e = resolve(cand2, ~matched & has2)
+        f = own.gather(-1, cand2[..., None])[..., 0].clamp(max=E - 1)
+        fr = fcand.gather(1, f)
+        grid3 = grid_of(torch.where(win_e, fr, R), torch.where(win_e, f, E))
+        win_f = win_e & (grid3.gather(1, cell(fr)) == f)
+        mr_ext = torch.cat([mr, torch.zeros((P, 1), dtype=mr.dtype,
+                                            device=dev)], 1)
+        tgt = torch.where(win_f, f, E)
+        mr_ext.scatter_(1, tgt, torch.where(win_f, fr, mr_ext[:, E:]))
+        mr = torch.where(win_f, cand2, mr_ext[:, :E])
+    # park the unmatched at least marginal cost: two bid rounds, then the
+    # stragglers take the current argmin; padded events enter parked and
+    # keep their incoming room
+    live = (pa.event_mask > 0.5)[None].expand(P, E)
+    matched = mr < R
+    occ = torch.zeros((P, T * C), dtype=torch.int64, device=dev)
+    occ.scatter_add_(1, cell(mr), matched.long())
+    unsuit = (~pa.possible).long()[None]
+
+    def park_pick(occ):
+        key = ((rows(occ) + unsuit) * W_COST + unsuit * W_UNSUIT + cap
+               + _dead_rooms(pa).long())
+        return torch.argmin(key, -1)
+
+    parked = matched | ~live
+    for _ in range(2):
+        pick = park_pick(occ)
+        win = resolve(pick, ~parked)
+        occ.scatter_add_(1, cell(torch.where(win, pick, R)), win.long())
+        mr = torch.where(win, pick, mr)
+        parked = parked | win
+    out = torch.where(live, torch.where(parked, mr, park_pick(occ)), rooms)
+    return out.to(torch.int32)
+
+
+def augment_rooms_kernel(pa, slots, rooms, n_rounds: int = 4):
+    """Kernel K9: every individual in one launch, a warp each; `rooms`
+    None starts from best_fit_rooms (parallel_assign_rooms)."""
+    check_packing(pa)
+    ins = [slots.contiguous()] + ([] if rooms is None
+                                  else [rooms.contiguous()])
+    if any(x.dtype != torch.int32 for x in ins):
+        raise TypeError("parallel_rooms takes int32 slots and rooms")
+    P, E = slots.shape
+    out = torch.empty_like(ins[0])
+    if P == 0:
+        return out
+    p = kernels.ptr
+    kernels.launch("parallel_rooms", p(ins[0]),
+                   None if rooms is None else p(ins[1]), p(pa.possible_u8),
+                   p(pa.cap_rank), p(pa.dead), p(pa.live), p(out), P, E,
+                   pa.n_rooms, pa.n_slots, n_rounds)
+    return out
+
+
+def augment_rooms(pa, slots, rooms, n_rounds: int = 4) -> torch.Tensor:
+    """Round-limited augmenting-path improvement of the rooms (P, E) of
+    slots (P, E) (JAX rooms.py:154). Kernel K9 on CUDA tensors, the
+    plain version on CPU ones."""
+    if not slots.is_cuda:
+        return augment_rooms_plain(pa, slots, rooms, n_rounds)
+    return augment_rooms_kernel(pa, slots, rooms, n_rounds)
+
+
+def parallel_assign_rooms(pa, slots, n_rounds: int = 4) -> torch.Tensor:
+    """O(1)-depth room assignment of a population (JAX rooms.py:304;
+    populations (P, E), as JAX batch_parallel_assign_rooms takes them):
+    best-fit rooms, then augment_rooms. Kernel K9 on CUDA tensors, the
+    plain version on CPU ones."""
+    if not slots.is_cuda:
+        return augment_rooms_plain(
+            pa, slots, best_fit_rooms(pa, slots.shape[0]), n_rounds)
+    return augment_rooms_kernel(pa, slots, None, n_rounds)
+

@@ -6,7 +6,10 @@ population `(L * pop, E)`; the JAX package's local-island vmap becomes
 that block structure (ops/ga.py `groups`). Migration is the ring of the
 JAX `_migrate` over the island axis, kernel K7's migrate entry
 (csrc/survivors.cu) on the card: no collective is needed on one card.
-The kick's move chains are one launch of K6's relocation entry. Each
+The kick's move chains are one launch of K6's relocation entry. The
+LAHC endgame (`lahc_run`, `lahc_finalize` around ops/lahc.py's
+init_lahc; JAX islands.py:899 make_lahc_runners) runs each island's rows
+as independent walkers through kernel K10, with no migration. Each
 island draws from its own torch.Generator.
 """
 
@@ -15,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from timetabling_ga_tpu_torch import kernels
-from timetabling_ga_tpu_torch.ops import ga
+from timetabling_ga_tpu_torch.ops import fitness, ga, lahc
 from timetabling_ga_tpu_torch.ops.moves import (
     MoveDraws, make_move_draws, relocation_chain)
 from timetabling_ga_tpu_torch.ops.sweep import sweep_local_search
@@ -157,3 +160,40 @@ def shrink(state: ga.PopState, L: int, pop_out: int) -> ga.PopState:
         _blocks(x, L)[:, :pop_out].reshape((-1,) + tuple(x.shape[1:]))
         for x in state))
 
+
+# the most bytes of draws one K10 launch takes: a chunk of LAHC steps is
+# cut into launches of at most this much (102,912 bytes a step at
+# comp01s with 4 walkers of 16 candidates: 2,608 steps a launch)
+LAHC_DRAW_BYTES = 256 << 20
+
+
+def lahc_run(pa, gens, lstate: lahc.LahcState, cfg: ga.GAConfig,
+             n_steps: int, k_cands: int):
+    """`n_steps` LAHC steps of every walker, in launches of at most
+    LAHC_DRAW_BYTES of draws, each island drawing its walkers' block from
+    its own generator. Returns (lstate, stats) with stats (3, L) int32 on
+    the device: each island's lex-best walker's best-so-far (penalty,
+    hcv, scv)."""
+    L = len(gens)
+    W, E = lstate.ls.slots.shape
+    per = max(1, LAHC_DRAW_BYTES // lahc.draw_bytes_per_step(W, k_cands, E))
+    done = 0
+    while done < n_steps:
+        n = min(per, n_steps - done)
+        draws = lahc.make_lahc_draws(gens, W // L, n, k_cands, E,
+                                     pa.n_slots, cfg.p1, cfg.p2, cfg.p3,
+                                     pa.device)
+        lstate = lahc.lahc_steps(pa, draws, lstate)
+        done += n
+    bp, bh, bs = (_blocks(x, L) for x in (lstate.best_pen, lstate.best_hcv,
+                                          lstate.best_scv))
+    idx = fitness.lex_order(bp, bs)[:, :1]
+    stats = torch.stack([x.gather(1, idx)[:, 0] for x in (bp, bh, bs)])
+    return lstate, stats
+
+
+def lahc_finalize(lstate: lahc.LahcState, L: int) -> ga.PopState:
+    """Each island's best snapshots sorted by (penalty, scv) (K7)."""
+    return ga.survivors(ga.PopState(lstate.best_slots, lstate.best_rooms,
+                                    lstate.best_pen, lstate.best_hcv,
+                                    lstate.best_scv), groups=L)

@@ -4,12 +4,14 @@ timetabling_ga_tpu/runtime/config.py:95-434, 601-).
 The flag surface is the JAX CLI's, in the reference's `-key value` model
 (Control.cpp:3-176). The port implements the single-GPU CLI solve, with
 the sweep or the random-candidate local search (`--ls-mode random`, the
-untuned default, sized by `-p` / `-m` as the reference's maxSteps); a
+untuned default, sized by `-p` / `-m` as the reference's maxSteps), the
+parallel room matcher (`--rooms-mode parallel`), NSGA-II selection
+(`--nsga2`) and the LAHC endgame (`--post-lahc`, `--post-lahc-k`); a
 flag it does not implement yet — or an implemented flag given a value
-it does not implement (`--rooms-mode parallel`, `--trace-mode deltas`)
-— stops the parse with a message naming it as not yet ported, never
-silently ignored. `-l` is accepted and retired, as on the JAX path: the
-engine warns that the local search is bounded by -m instead.
+it does not implement (`--trace-mode deltas`) — stops the parse with a
+message naming it as not yet ported, never silently ignored. `-l` is
+accepted and retired, as on the JAX path: the engine warns that the
+local search is bounded by -m instead.
 
 `--backend` is `gpu` (the default) or `cpu`; a GPU run that finds no
 CUDA device raises instead of falling back to the CPU.
@@ -53,9 +55,12 @@ class RunConfig:
     post_hot_k: Optional[int] = None
     post_sideways: Optional[float] = None
     post_pop_size: Optional[int] = None
+    post_lahc: int = 0            # > 0: the LAHC endgame's history length
+    post_lahc_k: int = 16         # candidates per walker per LAHC step
     ls_converge: bool = False
     init_sweeps: int = 0
     rooms_mode: str = "scan"
+    nsga2: bool = False
     kick_stall: int = 2
     ls_full_eval: bool = False
     epochs_per_dispatch: int = 1
@@ -136,6 +141,8 @@ _FLAG_MAP = {
     "--post-hot-k": ("post_hot_k", int),
     "--post-sideways": ("post_sideways", float),
     "--post-pop-size": ("post_pop_size", int),
+    "--post-lahc": ("post_lahc", int),
+    "--post-lahc-k": ("post_lahc_k", int),
     "--init-sweeps": ("init_sweeps", int),
     "--rooms-mode": ("rooms_mode", str),
     "--epochs-per-dispatch": ("epochs_per_dispatch", int),
@@ -144,13 +151,12 @@ _FLAG_MAP = {
 }
 
 _BOOL_FLAGS = {"--trace": "trace", "--ls-converge": "ls_converge",
-               "--ls-full-eval": "ls_full_eval"}
+               "--ls-full-eval": "ls_full_eval", "--nsga2": "nsga2"}
 _NEG_BOOL_FLAGS = {"--no-auto-tune": "auto_tune"}
 
 # Flags of the JAX CLI this slice does not implement yet: True = takes
 # a value, False = a switch. Parsing any of them stops the run.
 NOT_PORTED = {
-    "--post-lahc": True, "--post-lahc-k": True,
     "--checkpoint": True, "--checkpoint-every": True,
     "--trace-profile": True, "--profile-dir": True, "--profile-for": True,
     "--mem-poll-every": True, "--metrics-every": True,
@@ -159,14 +165,15 @@ NOT_PORTED = {
     "--stall-hamming": True, "--max-recoveries": True,
     "--fetch-timeout": True, "--peer-timeout": True, "--faults": True,
     "--coordinator": True, "--num-processes": True, "--process-id": True,
-    "--resume": False, "--nsga2": False,
+    "--resume": False,
     "--obs": False, "--quality": False, "--auto-kick-on-stall": False,
     "--distributed": False, "--no-precompile": False,
     "--no-pipeline": False, "--no-donate": False, "--no-accord": False,
 }
 
 # implemented flags whose other values are not ported yet
-_PORTED_VALUES = {"ls_mode": ("random", "sweep"), "rooms_mode": ("scan",),
+_PORTED_VALUES = {"ls_mode": ("random", "sweep"),
+                  "rooms_mode": ("scan", "parallel"),
                   "trace_mode": ("full",)}
 _KNOWN_VALUES = {"ls_mode": ("random", "sweep"),
                  "rooms_mode": ("scan", "parallel"),
@@ -235,6 +242,15 @@ def parse_args(argv) -> RunConfig:
         raise SystemExit("--ls-candidates must be >= 1")
     if cfg.post_pop_size is not None and cfg.post_pop_size < 1:
         raise SystemExit("--post-pop-size must be >= 1")
+    if cfg.post_lahc < 0:
+        raise SystemExit("--post-lahc must be >= 0 (history length; "
+                         "0 disables the LAHC endgame)")
+    if cfg.post_lahc > 1_000_000:
+        raise SystemExit("--post-lahc history length is implausibly "
+                         "large (max 1000000)")
+    if not 1 <= cfg.post_lahc_k <= 4096:
+        raise SystemExit("--post-lahc-k must be in [1, 4096] "
+                         "(candidates per walker per step)")
     if (cfg.post_pop_size is not None and "pop_size" in seen
             and cfg.post_pop_size > cfg.pop_size):
         raise SystemExit("--post-pop-size must not exceed --pop-size "

@@ -5,7 +5,9 @@ timetabling_ga_tpu/runtime/engine.py:885-1066 and `_run_tries` :1272-).
     -> dispatches of epochs x migration_period generations (ring
     migration per epoch) under the -t budget -> post-feasibility switch
     (post_* config, elite shrink to post_pop_size) -> stall kicks with an
-    escalating depth -> budget-tail polish -> solution / runEntry records
+    escalating depth -> budget-tail polish -> solution / runEntry records;
+    with --post-lahc the phase switch hands the rest of the budget to the
+    LAHC walkers instead (no kick, no tail polish after them)
 
 Every dispatch ends in one host read of its (hcv, scv) best trace, which
 feeds the logEntry stream, the seconds-per-generation estimate and the
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from timetabling_ga_tpu_torch import kernels
-from timetabling_ga_tpu_torch.ops import ga
+from timetabling_ga_tpu_torch.ops import ga, lahc
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import load_tim_file
 from timetabling_ga_tpu_torch.runtime import jsonl
@@ -58,15 +60,18 @@ def build_ga_config(cfg: RunConfig) -> ga.GAConfig:
         ls_swap_block=cfg.ls_swap_block,
         ls_block_events=cfg.ls_block_events, ls_sideways=cfg.ls_sideways,
         ls_hot_k=cfg.ls_hot_k, ls_converge=cfg.ls_converge,
-        init_sweeps=cfg.init_sweeps)
+        init_sweeps=cfg.init_sweeps, rooms_mode=cfg.rooms_mode,
+        multi_objective=cfg.nsga2)
 
 
 def build_post_config(cfg: RunConfig, gacfg: ga.GAConfig):
     """Post-feasibility breeding config, or None when no post_* flag is
-    set or it equals the repair config (JAX engine.py:478)."""
+    set or it equals the repair config (JAX engine.py:478). With
+    --post-lahc it is returned even when equal: the LAHC endgame needs
+    the phase switch, and takes its pop size and move probabilities."""
     if (cfg.post_ls_sweeps is None and cfg.post_swap_block is None
             and cfg.post_hot_k is None and cfg.post_sideways is None
-            and cfg.post_pop_size is None):
+            and cfg.post_pop_size is None and cfg.post_lahc <= 0):
         return None
 
     def pick(v, default):
@@ -78,6 +83,8 @@ def build_post_config(cfg: RunConfig, gacfg: ga.GAConfig):
         ls_swap_block=pick(cfg.post_swap_block, gacfg.ls_swap_block),
         ls_hot_k=pick(cfg.post_hot_k, gacfg.ls_hot_k),
         ls_sideways=pick(cfg.post_sideways, gacfg.ls_sideways))
+    if cfg.post_lahc > 0:
+        return post
     return None if post == gacfg else post
 
 
@@ -172,6 +179,44 @@ def _polish_chunks(tr: _Try, pa, gens, state, gacfg, name: str,
     return state, sec_per_sweep
 
 
+# the longest chunk of LAHC steps (JAX engine.py DISPATCH_CAP_S)
+LAHC_CHUNK_CAP_S = 30.0
+
+
+def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
+    """The LAHC endgame (JAX engine.py:1185 _lahc_loop): the try's
+    remaining budget in chunks of steps sized from the measured sec/step
+    (a 256-step probe until there is one; the first chunk's timing, which
+    carries the first launch's set-up, is not kept), one (3, L) stats
+    read a chunk feeding the logEntry stream and a `lahc` phase record.
+    Returns each island's best snapshots, sorted, as the population."""
+    lstate = lahc.init_lahc(pa, state.slots, state.rooms, cfg.post_lahc)
+    sec_per_step = None
+    warm = False
+    while True:
+        remaining = tr.remaining()
+        if sec_per_step is not None and sec_per_step > 0:
+            n = int(min(remaining / 1.1, LAHC_CHUNK_CAP_S) / sec_per_step)
+        else:
+            n = 256 if remaining > 0 else 0
+        if n < 1:
+            break
+        t0 = time.monotonic()
+        lstate, stats = islands.lahc_run(pa, gens, lstate, post, n,
+                                         cfg.post_lahc_k)
+        stats = stats.cpu().numpy()
+        t1 = time.monotonic()
+        tr.phase("lahc", t1 - t0, steps=n)
+        if warm:
+            sps = (t1 - t0) / n
+            sec_per_step = (sps if sec_per_step is None
+                            else 0.7 * sps + 0.3 * sec_per_step)
+        warm = True
+        for i in range(tr.n):
+            tr.observe(i, stats[1][i], stats[2][i], t1 - tr.t0)
+    return islands.lahc_finalize(lstate, tr.n)
+
+
 def _dispatch_size(cfg, remaining_gens: int, sec_per_gen, remaining_t):
     """(n_epochs, gens_per_epoch) of the next dispatch, or None when not
     one more generation is predicted to fit the budget."""
@@ -215,9 +260,10 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
     cur = gacfg
     sec_per_gen = None
     gens_done = 0
+    lahc_done = False
 
     def maybe_switch():
-        nonlocal cur, state, sec_per_gen
+        nonlocal cur, state, sec_per_gen, lahc_done
         if cur is gacfg and post is not None and min(tr.best) < \
                 FEASIBLE_LIMIT:
             cur = post
@@ -231,13 +277,18 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                     ratio *= 2.0
                 sec_per_gen *= ratio * post.pop_size / gacfg.pop_size
             tr.phase("phase-switch", 0.0, at_gen=gens_done)
+            if cfg.post_lahc > 0:
+                # the endgame leaves the GA: the rest of the budget
+                # belongs to the LAHC walkers
+                state = _lahc_loop(tr, pa, gens, state, post, cfg)
+                lahc_done = True
 
     maybe_switch()
     kick_stall, kick_best, kick_streak = 0, min(tr.best), 0
     time_stopped = False
     n_dispatch = 0
     t_loop = time.monotonic()
-    while gens_done < cfg.generations:
+    while not lahc_done and gens_done < cfg.generations:
         size = _dispatch_size(cfg, cfg.generations - gens_done, sec_per_gen,
                               tr.remaining())
         if size is None:
@@ -261,6 +312,8 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                 tr.observe(i, trace[i, gi, 0], trace[i, gi, 1],
                            (td0 - tr.t0) + (gi + 1) / gens_run * dt)
         maybe_switch()
+        if lahc_done:
+            break
         if cur is post and cfg.kick_stall > 0 and cur.pop_size >= 2:
             nb = min(tr.best)
             if nb < kick_best:
