@@ -14,7 +14,11 @@
    its crowded-tournament and parallel-matcher modes, K7 also at L = 1,
    2, 4 islands of 2, 3 and 16 rows, K6's relocation entry also on the
    kick's chains (2 and 8 rows, 3 to 16 moves); K5 (the whole sweep
-   pass) at the repair pass's P = 16 and 256 and the post pass's P = 4;
+   pass) at the repair pass's P = 16 and 256 and the post pass's P = 4,
+   and at the nsga path's repair (P = 16) and post (P = 4) passes on
+   comp05s, each at every cluster size (1, 2, 4, 8 CTAs an individual and
+   the wrapper's own choice; the cluster size, CTAs, ms a pass and us a
+   step printed per shape);
    K8 (the random-candidate local search, -p 2: 125 rounds of 8) at P =
    10 and 256; K10 (LAHC) at 4 and 64 walkers, K = 1 and 16 candidates,
    history 5 and 5000; K11 (NSGA-II ranks and survivors) at island sizes
@@ -95,7 +99,6 @@ OPS_BIT = 6           # a set conflict bit: ffs, clear, index, slot load,
 OPS_ROOM_KEY = 12     # a (slot, room) key of a room argmin: occupancy
                       # load, own-cell test, suitability load, the key's
                       # mul/adds, compare and select
-OPS_MASK_SLOT = 5     # a (student, slot) of tt_move1_prepare's masks
 OPS_MOVE1_STUDENT = 25  # a (target, student) of tt_move1_target: day bits,
                         # free test, 4 neighbour bits, popcount, 5 adds
 OPS_STUDENT = 6       # a student of the K4 re-score: 3 attendance loads,
@@ -103,6 +106,19 @@ OPS_STUDENT = 6       # a student of the K4 re-score: 3 attendance loads,
 OPS_DAY_SLOT = 9      # a (student, day, slot) of the K4 re-score: att
                       # load, 3 patch compares and adds, 2 bit sets
 OPS_DAY_SCORE = 12    # tt_day_scv of one day's bits: runs and singles
+# the bitset forms of the K4 body, Move1's prepare and the heat (K5 and
+# K10 run them; K8 and K4's own launch keep the forms above)
+OPS_DOT_WORD = 9      # a conflict word of the popcount dots: load, mask the
+                      # moved events, two slot_ev loads, two and+popc, sub
+OPS_SLOT_WORD = 5     # a (slot, word) of Move1's per-slot count or the
+                      # heat: two loads, and, popcount, add
+OPS_AMASK = 4         # a student's amask word: load, the old slot's
+                      # attendance load, compare, select
+OPS_FIX_SLOT = 9      # a touched slot of a student: att load, 3 patch
+                      # compares and adds, the bit set or clear
+OPS_DAY_BITS = 2      # a day's bits out of a mask: shift, and
+OPS_HEAT_STUDENT = 14  # a student of the feasible heat: amask load, day
+                       # bits, 4 neighbour bits, popcount, 3 adds
 OPS_CAND = 16         # a candidate's fixed work: 4 stores, the lexicographic
                       # compare, the tie test and noise compare
 OPS_HEAT = 10         # an event's fixed heat work: cell, suitability, mask
@@ -119,6 +135,9 @@ OPS_ROOM_SCAN = 4     # a (event, room) visit of the parallel matcher's
 OPS_BID = 3           # a bid: cell index, atomic min, the win test
 OPS_DOM = 6           # a pair of K11's peel: 4 compares, and/or, the
                       # unassigned test
+# K5's cluster sizes held against the plain pass (None: the wrapper's
+# own choice)
+K5_CLUSTERS = (None, 1, 2, 4, 8)
 # entry point -> (source, the JAX function it replaces, the path whose
 # run its "launches" are read from: K3 and K4 run on no path but inside
 # K5 and keep their own launches as unit checks of the shared bodies)
@@ -307,8 +326,9 @@ def kernel_cases(pa, P, dev):
                                             st.occ, piv),
             rows + nbytes(st.att, st.occ, piv) + prob
             + nbytes(pa.student_count, pa.conflict_bits, pa.ev_ptr,
-                     pa.ev_stu) + 3 * P * T * 4,
-            P * (T * R * 8 + W * 32 + pa.max_ev_students * T * 14)),
+                     pa.ev_stu) + P * (S * 8 + T * W * 4) + 3 * P * T * 4,
+            P * (T * R * 8 + T * W * OPS_SLOT_WORD
+                 + pa.max_ev_students * T * 14)),
         "delta_one": (
             lambda: delta.delta_one(pa, st.slots, st.rooms, st.att, st.occ,
                                     evs, ns, act),
@@ -593,9 +613,10 @@ def lahc_work(pa, l0, draws):
     read and written once (of each history ring the entries the steps
     touch), the draws and problem arrays read once; per step and
     candidate the top-3 scan of E uniforms and the K4 body on the
-    candidate (its events and new slots taken on the slots the call
-    starts from); the choice, the acceptance and the apply are left out,
-    so the count stays below what the kernel does."""
+    bitsets (k4_body_ops, bits=True) on the candidate (its events and new
+    slots taken on the slots the call starts from); the bitsets' build,
+    the choice, the acceptance and the apply are left out, so the count
+    stays below what the kernel does."""
     from timetabling_ga_tpu_torch.ops import moves
     n, W, K = draws.mtype.shape
     E = pa.n_events
@@ -611,7 +632,7 @@ def lahc_work(pa, l0, draws):
     evs, ns, _ = moves.sample_move(
         pa, md, l0.ls.slots.repeat_interleave(n * K, 0))
     ops = (k4_body_ops(pa, l0.ls.slots, evs.view(W, n * K, 3),
-                       ns.view(W, n * K, 3))
+                       ns.view(W, n * K, 3), bits=True)
            + W * n * K * E * OPS_TOP3)
     return nb, ops
 
@@ -725,12 +746,16 @@ def event_degrees(pa):
     return n_st, deg
 
 
-def k4_body_ops(pa, slots, ev, ns):
-    """Integer operations of the K4 body (sweep_dev.cuh
-    tt_delta_one_warp) on candidates ev, ns (P, X, 3) over slots (P, E):
-    3 room argmins, then for each event that changes slot its conflict
-    row and its students' days, counted once per (event, student, day),
-    the days being the distinct days the moving events leave and enter."""
+def k4_body_ops(pa, slots, ev, ns, bits=False):
+    """Integer operations of the K4 body on candidates ev, ns (P, X, 3)
+    over slots (P, E): 3 room argmins, then for each event that changes
+    slot its conflict row and its students' days, counted once per
+    (event, student, day), the days being the distinct days the moving
+    events leave and enter. bits=False counts sweep_dev.cuh
+    tt_delta_one_warp (a walk over the row's set bits, each day rebuilt
+    slot by slot from att), bits=True tt_delta_one_bits_warp (popcounts
+    of the row against slot_ev, a student's days from its amask word with
+    the two slots each of its moving events touches recomputed)."""
     import torch
     import torch.nn.functional as F
     i64 = torch.int64
@@ -738,15 +763,19 @@ def k4_body_ops(pa, slots, ev, ns):
     n_st, deg = event_degrees(pa)
     slots = slots.to(i64)
     ev, ns = ev.to(i64), ns.to(i64)
-    day_work = OPS_STUDENT, spd * OPS_DAY_SLOT + 2 * OPS_DAY_SCORE
     os = slots.gather(1, ev.flatten(1)).view_as(ev)
     shift = (ns != os).to(i64)
     days = torch.cat([os, ns], -1) // spd
     on = torch.cat([shift, shift], -1)
     n_d = ((F.one_hot(days, pa.n_days) * on[..., None]).sum(-2) > 0
            ).sum(-1, keepdim=True)
-    per = shift * (W * OPS_WORD + deg[ev] * OPS_BIT
-                   + n_st[ev] * (day_work[0] + n_d * day_work[1]))
+    if bits:
+        per = shift * (W * OPS_DOT_WORD + n_st[ev] * (
+            OPS_STUDENT + OPS_AMASK + 2 * OPS_FIX_SLOT
+            + n_d * 2 * (OPS_DAY_BITS + OPS_DAY_SCORE)))
+    else:
+        per = shift * (W * OPS_WORD + deg[ev] * OPS_BIT + n_st[ev] * (
+            OPS_STUDENT + n_d * (spd * OPS_DAY_SLOT + 2 * OPS_DAY_SCORE)))
     return int(per.sum()) + ev.shape[0] * ev.shape[1] * (
         3 * pa.n_rooms * OPS_ROOM_KEY + OPS_CAND)
 
@@ -756,17 +785,17 @@ def sweep_pass_work(pa, sh, st, draws, piv):
     this state, these draws and these pivots (P, K). Bytes: the state
     read and written once, the draws and problem arrays read once,
     strict_rows and the pivots written. Operations: the elements K5 must
-    visit on this data, times the OPS_* constants above — per step, each
-    block pivot's Move1 (its conflict row, its students' slot masks, T
-    targets of R room keys and one update per student), and each Move2 /
-    Move3 candidate's K4 body (3 room argmins, then for each of its events
-    that changes slot the conflict row and its students' days, counted
-    once per (event, student, day) and the days counted as the distinct
-    days the moving events leave and enter) plus its share of the choice;
-    in hot mode the prologue's heat per event (its conflict row while the
-    row is infeasible, its students' days once feasible) and the E^2 rank
-    compares (float). Slots are those the pass starts from; the apply,
-    which runs only on an accepted step, is left out, so the count stays
+    visit on this data, times the OPS_* constants above, in the bitset
+    forms K5 runs — per step, each block pivot's Move1 (its conflict row
+    against every slot's event words, its students' amask words and old
+    day, T targets of R room keys and one update per student), and each
+    Move2 / Move3 candidate's K4 body (k4_body_ops, bits=True) plus its
+    share of the choice; in hot mode the prologue's heat per event (its
+    conflict row against its slot's words while the row is infeasible,
+    its students' days once feasible) and the E^2 rank compares (float).
+    Slots are those the pass starts from; the bitsets' build, the apply,
+    which runs only on an accepted step, and the cluster's extra copies
+    of the work that every CTA repeats are left out, so the count stays
     below what the kernel does."""
     import torch
     from timetabling_ga_tpu_torch.ops import sweep
@@ -783,8 +812,8 @@ def sweep_pass_work(pa, sh, st, draws, piv):
     pos = torch.arange(sh.n_steps, device=dev)[:, None]
     blk = torch.arange(sh.B, device=dev)[None, :]
     e = piv.to(i64)[:, ((pos * sh.B + blk) % sh.K).flatten()]   # (P, n*B)
-    ops = int((W * OPS_WORD + deg[e] * OPS_BIT
-               + n_st[e] * (T * OPS_MASK_SLOT + 2 * OPS_DAY_SCORE)
+    ops = int((T * W * OPS_SLOT_WORD
+               + n_st[e] * (OPS_AMASK + 2 * (OPS_DAY_BITS + OPS_DAY_SCORE))
                + T * (R * OPS_ROOM_KEY + OPS_CAND
                       + n_st[e] * OPS_MOVE1_STUDENT)).sum())
     perm = sweep._perms(draws, E, dev).to(i64)
@@ -797,7 +826,7 @@ def sweep_pass_work(pa, sh, st, draws, piv):
         pad = torch.where((e2 + 1) % E == q, (e2 + 2) % E, (e2 + 1) % E)
         ev = torch.stack([e2, q, pad], -1)
         sl = slots.gather(1, ev.flatten(1)).view_as(ev)
-        ops += k4_body_ops(pa, slots, ev, sl[..., [1, 0, 2]])
+        ops += k4_body_ops(pa, slots, ev, sl[..., [1, 0, 2]], bits=True)
     if sh.with_move3 and sh.SB >= 2:
         k = torch.arange(sh.SB - 1, device=dev)
         j = (pos[..., None] * sh.B + 1 + blk[..., None] + k).flatten()
@@ -805,13 +834,13 @@ def sweep_pass_work(pa, sh, st, draws, piv):
             P, sh.n_steps, sh.B, sh.SB - 1).reshape(P, -1)
         ev = torch.stack([e3, perm[:, j % E], perm[:, (j + 1) % E]], -1)
         sl = slots.gather(1, ev.flatten(1)).view_as(ev)
-        ops += (k4_body_ops(pa, slots, ev, sl[..., [1, 2, 0]])
-                + k4_body_ops(pa, slots, ev, sl[..., [2, 0, 1]]))
+        ops += (k4_body_ops(pa, slots, ev, sl[..., [1, 2, 0]], bits=True)
+                + k4_body_ops(pa, slots, ev, sl[..., [2, 0, 1]], bits=True))
     fops = 0
     if sh.use_hot:
         infeasible = (st.hcv > 0).to(i64)[:, None]
-        heat = (infeasible * (W * OPS_WORD + deg * OPS_BIT)
-                + (1 - infeasible) * n_st * spd * 2 + OPS_HEAT)
+        heat = (infeasible * W * OPS_SLOT_WORD
+                + (1 - infeasible) * n_st * OPS_HEAT_STUDENT + OPS_HEAT)
         ops += int(heat.sum())
         fops = P * (2 * E + OPS_RANK * E * E)
     return nb, ops, fops
@@ -843,77 +872,100 @@ def witness_state(pa, P, g, witness=WITNESS):
     return delta.init_state(pa, slots, rms)
 
 
-def compare_sweep_pass(pa, dev):
+def compare_sweep_pass(pa, pa05, dev):
     """K5 against sweep_pass_plain at the main path's three sweep shapes
-    (the engine's repair config at P = 16 and 256, its post config at
-    P = 4), exactly, from random starts and from feasible ones (the
-    witness, a few events moved); then both timed from the random
-    start, and K5 on one individual."""
+    on comp01s (the engine's repair config at P = 16 and 256, its post
+    config at P = 4) and the nsga path's two on comp05s (repair P = 16,
+    post P = 4), exactly, from random starts and from feasible ones (the
+    witness, a few events moved), at every cluster size K5 takes (1, 2,
+    4, 8) and at the wrapper's own choice; then each cluster size timed
+    from the random start, the plain pass once, and K5 on one individual
+    at its own choice (the step chain's floor)."""
     import torch
     from timetabling_ga_tpu_torch.ops import delta, rooms, sweep
     from timetabling_ga_tpu_torch.runtime import config, engine
     cfg = config.parse_args(["-i", TIM]).apply_tuned_defaults(pa.n_events)
     repair = engine.build_ga_config(cfg)
     post = engine.build_post_config(cfg, repair)
-    E, T = pa.n_events, pa.n_slots
+    cfg05 = config.parse_args(["-i", TIM05] + PATHS["nsga"]
+                              ).apply_tuned_defaults(pa05.n_events)
+    repair05 = engine.build_ga_config(cfg05)
+    post05 = engine.build_post_config(cfg05, repair05)
     out = {}
-    for phase, P, gc in (("repair", 16, repair), ("repair", 256, repair),
-                         ("post", post.pop_size, post)):
+    for phase, P, gc, pa_, wit in (
+            ("repair", 16, repair, pa, WITNESS),
+            ("repair", 256, repair, pa, WITNESS),
+            ("post", post.pop_size, post, pa, WITNESS),
+            ("nsga-repair", 16, repair05, pa05, WITNESS05),
+            ("nsga-post", post05.pop_size, post05, pa05, WITNESS05)):
+        E, T = pa_.n_events, pa_.n_slots
         args = (gc.ls_swap_block, gc.ls_block_events, gc.ls_sideways,
                 gc.ls_hot_k, gc.p3)
         sh = sweep.sweep_shape(E, T, gc.ls_swap_block, gc.ls_block_events,
                                gc.ls_hot_k, gc.p3)
+        auto = sweep.auto_cluster(pa_, sh, P, dev)
         g = torch.Generator(device=dev).manual_seed(2000 + P)
         slots = torch.randint(0, T, (P, E), generator=g, device=dev,
                               dtype=torch.int32)
-        st = delta.init_state(pa, slots, rooms.assign_rooms_plain(pa, slots))
+        st = delta.init_state(pa_, slots,
+                              rooms.assign_rooms_plain(pa_, slots))
         draws = sweep.make_sweep_draws([g], P, sh, E, gc.ls_sideways, dev)
-        feasible = witness_state(pa, P, g)
+        feasible = witness_state(pa_, P, g, wit)
         check(int((feasible.hcv == 0).sum()) >= P // 4,
               f"sweep_pass {phase} P={P}: too few feasible witness rows")
         err = 0
         for start, s0 in (("random", st), ("feasible", feasible)):
-            got, rows, piv = sweep.sweep_pass_kernel(pa, draws, s0, *args)
-            want, want_rows = sweep.sweep_pass_plain(pa, draws, s0, *args)
-            want_piv = (sweep.hot_pivots(pa, s0, draws.hot_noise, sh.K)
+            want, want_rows = sweep.sweep_pass_plain(pa_, draws, s0, *args)
+            want_piv = (sweep.hot_pivots(pa_, s0, draws.hot_noise, sh.K)
                         if sh.use_hot else sweep._perms(draws, E, dev))
-            torch.cuda.synchronize()
-            for gt, wt in zip((*got, rows, piv),
-                              (*want, want_rows, want_piv)):
-                check(gt.shape == wt.shape and gt.dtype == wt.dtype,
-                      f"sweep_pass {phase} P={P} {start}: kernel output "
-                      f"{tuple(gt.shape)} {gt.dtype} vs plain "
-                      f"{tuple(wt.shape)} {wt.dtype}")
-                err = max(err, int((gt.long() - wt.long()).abs().max()))
-            check(err == 0, f"sweep_pass {phase} P={P} {start}: kernel "
-                            f"differs from its plain version (max abs err "
-                            f"{err})")
-            check(not torch.equal(got.slots, s0.slots),
+            for cs in K5_CLUSTERS:
+                got, rows, piv = sweep.sweep_pass_kernel(pa_, draws, s0,
+                                                         *args, cluster=cs)
+                torch.cuda.synchronize()
+                for gt, wt in zip((*got, rows, piv),
+                                  (*want, want_rows, want_piv)):
+                    check(gt.shape == wt.shape and gt.dtype == wt.dtype,
+                          f"sweep_pass {phase} P={P} {start} cluster {cs}: "
+                          f"kernel output {tuple(gt.shape)} {gt.dtype} vs "
+                          f"plain {tuple(wt.shape)} {wt.dtype}")
+                    err = max(err, int((gt.long() - wt.long()).abs().max()))
+                check(err == 0, f"sweep_pass {phase} P={P} {start} cluster "
+                                f"{cs}: kernel differs from its plain "
+                                f"version (max abs err {err})")
+            check(not torch.equal(want.slots, s0.slots),
                   f"sweep_pass {phase} P={P} {start}: the pass moved "
                   f"nothing")
             if start == "random":
-                work = sweep_pass_work(pa, sh, s0, draws, piv)
-        reps = 20 if phase == "repair" else 5
-        ms = time_ms(lambda: sweep.sweep_pass_kernel(pa, draws, st, *args),
-                     reps)
-        plain_ms = time_ms(lambda: sweep.sweep_pass_plain(pa, draws, st,
+                work = sweep_pass_work(pa_, sh, s0, draws, want_piv)
+        reps = 20 if phase.endswith("repair") else 5
+        ms_by_cluster = {
+            str(cs): time_ms(lambda cs=cs: sweep.sweep_pass_kernel(
+                pa_, draws, st, *args, cluster=cs), reps)
+            for cs in sorted({1, 2, 4, 8, auto})}
+        ms = ms_by_cluster[str(auto)]
+        plain_ms = time_ms(lambda: sweep.sweep_pass_plain(pa_, draws, st,
                                                           *args), 1)
-        # the step chain alone: one individual, one block on one SM
+        # the step chain alone: one individual, one cluster
         one = delta.LSState(*(x[:1] for x in st))
         d1 = sweep.SweepDraws(
             draws.a[:1], draws.b[:1],
             None if draws.hot_noise is None else draws.hot_noise[:1],
             None if draws.tie_noise is None else draws.tie_noise[:, :1],
             None if draws.allow is None else draws.allow[:, :1])
-        ms1 = time_ms(lambda: sweep.sweep_pass_kernel(pa, d1, one, *args),
+        auto1 = sweep.auto_cluster(pa_, sh, 1, dev)
+        ms1 = time_ms(lambda: sweep.sweep_pass_kernel(pa_, d1, one, *args),
                       reps)
         nb, ops, fops = work
         bytes_ms = nb / PEAK_BYTES_S * 1e3
         ops_ms = (ops / PEAK_INT_OPS_S + fops / PEAK_FP32_OPS_S) * 1e3
         out[(phase, P)] = dict(
             ms=ms, plain_ms=plain_ms, max_abs_err=err, steps=sh.n_steps,
-            chain_floor_ms=ms1, us_per_step=ms1 * 1e3 / sh.n_steps,
-            smem_bytes=sweep.sweep_pass_smem_bytes(pa, sh),
+            cluster=auto, ctas=P * auto, ms_by_cluster=ms_by_cluster,
+            us_per_step=ms * 1e3 / sh.n_steps, chain_floor_ms=ms1,
+            chain_floor_cluster=auto1,
+            us_per_step_one_individual=ms1 * 1e3 / sh.n_steps,
+            clusters_compared=[str(c) for c in K5_CLUSTERS],
+            smem_bytes=sweep.sweep_pass_smem_bytes(pa_, sh),
             feasible_rows=int((feasible.hcv == 0).sum()),
             int_ops=ops, fp32_ops=fops,
             bound_ms=max(bytes_ms, ops_ms),
@@ -1328,7 +1380,7 @@ def main() -> int:
           "comp05s witness does not score (0, 0)")
 
     timings = compare(pa, dev)
-    timings.update(compare_sweep_pass(pa, dev))
+    timings.update(compare_sweep_pass(pa, pa05, dev))
     timings.update(compare_random_ls(pa, dev))
     timings.update(compare_lahc(pa, dev))
     compare_nsga(pa, dev)

@@ -6,13 +6,18 @@ The kernels run only on the card (tests/test_torch_kernels.py, marked
 g++ against a small stand-in for `cuda_runtime.h` that runs every CUDA
 thread of a block as a std::thread: `__syncthreads` and the warp
 shuffles become std::barrier waits, shared-memory atomics become atomic
-builtins, and a launch runs its blocks one after another. The C entry
+builtins, and a launch runs its blocks one after another — or, for K5's
+thread-block clusters (`cudaLaunchKernelEx`), one cluster after another
+with all of a cluster's blocks at once, each on its own shared memory,
+`cooperative_groups`' cluster barrier a std::barrier over their threads
+and `map_shared_rank` a pointer into the other block's buffer. The C entry
 points are then called through ctypes on CPU tensors. This checks the
 kernels' indexing, tie order, reductions and shared-memory layout on
 every machine with a C++20 compiler; what nvcc alone refuses, and
 timing, show only on the card. The file imports no JAX.
 """
 
+import ctypes
 import re
 import shutil
 import subprocess
@@ -47,30 +52,48 @@ CUDA_STUB = r'''
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorLaunchOutOfResources = 2 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 typedef void* cudaStream_t;
 struct emu_dim { unsigned x, y, z; };
+struct dim3 {
+    unsigned x, y, z;
+    dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+// one block's shared memory, barriers and shuffle scratch
+struct emu_block {
+    std::vector<uint64_t> smem;
+    std::unique_ptr<std::barrier<>> bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+    uint64_t lanes[1024];
+};
 inline thread_local emu_dim threadIdx, blockIdx;
 inline emu_dim blockDim;
-inline unsigned char* emu_smem;
-inline std::barrier<>* emu_block_bar;
-inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_bar;
-inline uint64_t emu_lanes[1024];
-inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+inline thread_local unsigned char* emu_smem;
+inline thread_local emu_block* emu_blk;
+// the thread's cluster: its rank, size, barrier and every block's
+// shared memory
+inline thread_local unsigned emu_cluster_rank, emu_cluster_n;
+inline thread_local std::barrier<>* emu_cluster_bar;
+inline thread_local unsigned char* const* emu_cluster_smem;
+// what cudaOccupancyMaxActiveClusters answers (a test sets 0)
+extern "C" {
+int emu_max_active_clusters = 1;
+}
+inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
-    emu_warp_bar[threadIdx.x >> 5]->arrive_and_wait();
+    emu_blk->warp_bar[threadIdx.x >> 5]->arrive_and_wait();
 }
 template <class T> T emu_shfl_xor(T v, int off) {
     int t = threadIdx.x, w = t >> 5, lane = t & 31;
-    std::memcpy(&emu_lanes[t], &v, sizeof(T));
-    emu_warp_bar[w]->arrive_and_wait();
+    std::memcpy(&emu_blk->lanes[t], &v, sizeof(T));
+    emu_blk->warp_bar[w]->arrive_and_wait();
     T r;
-    std::memcpy(&r, &emu_lanes[(w << 5) | (lane ^ off)], sizeof(T));
-    emu_warp_bar[w]->arrive_and_wait();
+    std::memcpy(&r, &emu_blk->lanes[(w << 5) | (lane ^ off)], sizeof(T));
+    emu_blk->warp_bar[w]->arrive_and_wait();
     return r;
 }
 #define __shfl_xor_sync(mask, v, off) emu_shfl_xor(v, off)
@@ -93,6 +116,11 @@ inline float __int_as_float(int x) {
     std::memcpy(&f, &x, 4);
     return f;
 }
+inline int __float_as_int(float x) {
+    int i;
+    std::memcpy(&i, &x, 4);
+    return i;
+}
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r;}
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r;}
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
@@ -101,31 +129,101 @@ inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 inline cudaError_t cudaGetLastError() { return 0; }
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
-inline void emu_launch(int grid, int block, size_t smem,
-                       std::function<void()> body) {
-    std::vector<uint64_t> buf(smem / 8 + 2);
+// Runs a grid cluster by cluster: every thread of a cluster's blocks at
+// once, each block with its own poisoned shared memory.
+inline void emu_run(int grid, int block, size_t smem, int cluster,
+                    std::function<void()> body) {
     blockDim = {(unsigned)block, 1, 1};
-    for (int b = 0; b < grid; ++b) {
-        std::memset(buf.data(), 0xAB, buf.size() * 8);  // poison
-        emu_smem = (unsigned char*)buf.data();
-        std::barrier<> bar(block);
-        emu_block_bar = &bar;
-        emu_warp_bar.clear();
-        for (int w = 0; w < (block + 31) / 32; ++w)
-            emu_warp_bar.emplace_back(new std::barrier<>(32));
+    for (int c = 0; c < grid / cluster; ++c) {
+        std::vector<emu_block> blocks(cluster);
+        std::vector<unsigned char*> bases(cluster);
+        for (int r = 0; r < cluster; ++r) {
+            blocks[r].smem.assign(smem / 8 + 2, 0xABABABABABABABABull);
+            blocks[r].bar.reset(new std::barrier<>(block));
+            for (int w = 0; w < (block + 31) / 32; ++w)
+                blocks[r].warp_bar.emplace_back(new std::barrier<>(32));
+            bases[r] = (unsigned char*)blocks[r].smem.data();
+        }
+        std::barrier<> cbar(cluster * block);
         std::vector<std::thread> th;
-        for (int t = 0; t < block; ++t)
-            th.emplace_back([&, t, b] {
-                threadIdx = {(unsigned)t, 0, 0};
-                blockIdx = {(unsigned)b, 0, 0};
-                body();
-                emu_block_bar->arrive_and_drop();
-            });
+        for (int r = 0; r < cluster; ++r)
+            for (int t = 0; t < block; ++t)
+                th.emplace_back([&, r, t] {
+                    threadIdx = {(unsigned)t, 0, 0};
+                    blockIdx = {(unsigned)(c * cluster + r), 0, 0};
+                    emu_blk = &blocks[r];
+                    emu_smem = bases[r];
+                    emu_cluster_rank = r;
+                    emu_cluster_n = cluster;
+                    emu_cluster_bar = &cbar;
+                    emu_cluster_smem = bases.data();
+                    body();
+                    emu_blk->bar->arrive_and_drop();
+                    cbar.arrive_and_drop();
+                });
         for (auto& x : th) x.join();
     }
 }
+inline void emu_launch(int grid, int block, size_t smem,
+                       std::function<void()> body) {
+    emu_run(grid, block, smem, 1, body);
+}
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+union cudaLaunchAttributeValue {
+    struct { unsigned x, y, z; } clusterDim;
+    char pad[64];
+};
+struct cudaLaunchAttribute {
+    cudaLaunchAttributeID id;
+    cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+    dim3 gridDim, blockDim;
+    size_t dynamicSmemBytes;
+    cudaStream_t stream;
+    cudaLaunchAttribute* attrs;
+    unsigned numAttrs;
+};
+template <class K>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, K,
+                                           const cudaLaunchConfig_t*) {
+    *n = emu_max_active_clusters;
+    return 0;
+}
+template <class... A, class... B>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(A...), B&&... args) {
+    unsigned cluster = 1;
+    for (unsigned i = 0; i < cfg->numAttrs; ++i)
+        if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+            cluster = cfg->attrs[i].val.clusterDim.x;
+    if (cluster < 1 || cfg->gridDim.x % cluster) return cudaErrorInvalidValue;
+    emu_run(cfg->gridDim.x, cfg->blockDim.x, cfg->dynamicSmemBytes, cluster,
+            [&] { kernel(args...); });
+    return cudaSuccess;
+}
 '''
 
+CG_STUB = r'''
+#pragma once
+#include <cuda_runtime.h>
+namespace cooperative_groups {
+struct cluster_group {
+    unsigned block_rank() const { return emu_cluster_rank; }
+    unsigned num_blocks() const { return emu_cluster_n; }
+    template <class T> T* map_shared_rank(T* p, unsigned rank) const {
+        return (T*)(emu_cluster_smem[rank]
+                    + ((unsigned char*)p - emu_smem));
+    }
+    void sync() const { emu_cluster_bar->arrive_and_wait(); }
+};
+inline cluster_group this_cluster() { return cluster_group{}; }
+}  // namespace cooperative_groups
+'''
+
+# K5 built with 128-thread CTAs (4 warps), which keeps a cluster's
+# std::threads few
+K5_SMALL = "sweep_pass_small"
 EMULATED = ("assign_rooms", "move1_sweep", "delta_one", "sweep_pass",
             "breed", "survivors", "random_ls", "parallel_rooms", "lahc",
             "nsga")
@@ -152,13 +250,17 @@ def emulated(tmp_path_factory):
         pytest.skip("needs g++ to build the CUDA sources for the CPU")
     d = tmp_path_factory.mktemp("cuda_emu")
     (d / "cuda_runtime.h").write_text(CUDA_STUB)
+    (d / "cooperative_groups.h").write_text(CG_STUB)
     for path in kernels.CSRC.iterdir():
         (d / path.name).write_text(_for_the_cpu(path.read_text()))
+    # each source as the card builds it, and K5 with 128-thread CTAs
+    builds = {n: (n, []) for n in EMULATED}
+    builds[K5_SMALL] = ("sweep_pass", ["-DK5_THREADS=128"])
     procs = {n: subprocess.Popen(
         [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
-         f"-I{d}", "-o", str(d / f"{n}.so"), str(d / f"{n}.cu"),
+         f"-I{d}", *flags, "-o", str(d / f"{n}.so"), str(d / f"{src}.cu"),
          "-lpthread"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for n in EMULATED}
+        text=True) for n, (src, flags) in builds.items()}
     for n, proc in procs.items():
         out, _ = proc.communicate()
         assert proc.returncode == 0, f"{n} does not build for the CPU:\n{out}"
@@ -166,6 +268,7 @@ def emulated(tmp_path_factory):
     for src in EMULATED:
         for n in kernels.SOURCES[src]:
             kernels._LIBS[n] = kernels.load(n, d / f"{src}.so")
+    kernels._LIBS[K5_SMALL] = kernels.load("sweep_pass", d / f"{K5_SMALL}.so")
 
     def launch(name, *args):
         kernels.LAUNCHES[name] += 1
@@ -183,10 +286,11 @@ def _k3(pa, st, piv):
     """move1_sweep's kernel path, on CPU tensors."""
     P, B = piv.shape
     out = torch.empty((3, P, B, pa.n_slots), dtype=torch.int32)
+    amask, slot_ev = delta.slot_bitsets(pa, st.slots, st.att)
     p = kernels.ptr
     kernels.launch(
         "move1_sweep", p(st.slots), p(st.rooms), p(st.att), p(st.occ),
-        p(piv), p(pa.possible_u8), p(pa.live), p(pa.student_count),
+        p(amask), p(slot_ev), p(piv), p(pa.possible_u8), p(pa.live), p(pa.student_count),
         p(pa.conflict_bits), p(pa.cap_rank), p(pa.dead), p(pa.ev_ptr),
         p(pa.ev_stu), p(out[0]), p(out[1]), p(out[2]), P, B, pa.n_events,
         pa.n_rooms, pa.n_students, pa.n_slots, pa.slots_per_day,
@@ -256,9 +360,63 @@ def test_k5_source_equals_plain(emulated, case, inst):
     draws = sweep.make_sweep_draws([torch.Generator().manual_seed(9)], P,
                                    sh, pa.n_events, side, "cpu")
     kernels.reset_launches()
-    _k5_equals_plain(pa, st, draws, case)
-    _k5_equals_plain(pa, _half_feasible(st), draws, case)
+    _k5_equals_plain(pa, st, draws, case, clusters=(1,))
+    _k5_equals_plain(pa, _half_feasible(st), draws, case, clusters=(1,))
     assert kernels.LAUNCHES["sweep_pass"] == 2
+
+
+# passes whose candidates spread over a cluster: 11 partners and their
+# 3-cycles (31 Move2/Move3 candidates a step, more than the 8 or 16 warps
+# of two or four 128-thread CTAs) on 8 hot pivots, with sideways; the
+# tiny instance's full permutation in blocks of two pivots, whose Move1
+# goes to two ranks; hot pivots with sideways and 3-cycles
+CLUSTER_CASES = [(11, 1, 0.3, 8, 0.2), (3, 2, 0.0, 0, 0.0), K5_CASES[0]]
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+@pytest.mark.parametrize("case", CLUSTER_CASES)
+def test_k5_cluster_source_equals_plain(emulated, monkeypatch, case,
+                                        cluster):
+    """K5 as clusters of 2 and 4 CTAs, each CTA on its own shared memory
+    and the choice reduced through the others' (the stand-in runs a
+    cluster's blocks at once), equals the plain pass from random and
+    half-feasible starts. The CTAs have 128 threads, so the Move2/Move3
+    candidates wrap around the cluster's 8 or 16 warps."""
+    monkeypatch.setitem(kernels._LIBS, "sweep_pass", kernels._LIBS[K5_SMALL])
+    pa = _tiny()
+    P = 2
+    st = _state(pa, P, 30 + cluster)
+    sb, be, side, hot, p3 = case
+    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
+    draws = sweep.make_sweep_draws([torch.Generator().manual_seed(cluster)],
+                                   P, sh, pa.n_events, side, "cpu")
+    kernels.reset_launches()
+    _k5_equals_plain(pa, st, draws, case, clusters=(cluster,))
+    _k5_equals_plain(pa, _half_feasible(st), draws, case,
+                     clusters=(cluster,))
+    assert kernels.LAUNCHES["sweep_pass"] == 2
+
+
+def test_k5_refused_cluster_is_not_shrunk(emulated, monkeypatch):
+    """When the card can place no cluster of the asked size, K5's entry
+    point returns an error before it launches anything (the wrapper's
+    kernels.launch raises on it), and no smaller cluster is tried."""
+    pa = _tiny()
+    st = _state(pa, 2, 3)
+    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, 3, 1, 0, 0.0)
+    draws = sweep.make_sweep_draws([torch.Generator().manual_seed(0)], 2,
+                                   sh, pa.n_events, 0.0, "cpu")
+    lib = kernels._LIBS["sweep_pass"][0]
+    answer = ctypes.c_int.in_dll(lib, "emu_max_active_clusters")
+    rcs = []
+    monkeypatch.setattr(kernels, "launch", lambda name, *args: rcs.append(
+        kernels._LIBS[name][1](*args, None)))
+    answer.value = 0
+    try:
+        sweep.sweep_pass_kernel(pa, draws, st, 3, cluster=3)
+    finally:
+        answer.value = 1
+    assert rcs == [2]                      # cudaErrorLaunchOutOfResources
 
 
 @pytest.mark.parametrize("inst", range(4))

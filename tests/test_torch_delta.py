@@ -97,3 +97,86 @@ def test_apply_moves_matches_jax(medium_problem):
             if bool(accept[i]) else base)
         for w, g in zip(want, got):
             np.testing.assert_array_equal(np.asarray(w), g[i].numpy())
+
+
+def np_bitsets(slots, att, n_words):
+    """amask (P, S) int64 and slot_ev (P, T, W) int32 packed with numpy
+    from a state's slots (P, E) and attendance (P, S, T)."""
+    att = np.asarray(att)
+    slots = np.asarray(slots)
+    P, S, T = att.shape
+    amask = ((att > 0).astype(np.uint64)
+             << np.arange(T, dtype=np.uint64)).sum(-1, dtype=np.uint64)
+    slot_ev = np.zeros((P, T, n_words), np.uint32)
+    for p in range(P):
+        for f, t in enumerate(slots[p]):
+            slot_ev[p, t, f // 32] |= np.uint32(1 << (f % 32))
+    return amask.view(np.int64), slot_ev.view(np.int32)
+
+
+@pytest.mark.parametrize("which", ["medium", "padded"])
+def test_slot_bitsets_match_jax_state(which, medium_problem,
+                                      padded_problem):
+    """slot_bitsets of the port's state equals the bits packed from JAX
+    init_state's att > 0 and slots."""
+    problem = medium_problem if which == "medium" else padded_problem
+    jpa, tpa = arrays(problem)
+    slots, rooms = _population(problem, P, 12)
+    jst = jdelta.init_state(jpa, jnp.asarray(slots), jnp.asarray(rooms))
+    st = tdelta.init_state(tpa, t32(slots), t32(rooms))
+    W = tpa.conflict_bits.shape[1]
+    want = np_bitsets(jst.slots, jst.att, W)
+    got = tdelta.slot_bitsets(tpa, st.slots, st.att)
+    assert got[0].dtype == torch.int64 and got[1].dtype == torch.int32
+    assert tuple(got[1].shape) == (P, problem.n_slots, W)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g.numpy())
+
+
+@pytest.mark.parametrize("which", ["medium", "padded"])
+def test_apply_bitsets_equal_a_rebuild(which, medium_problem,
+                                       padded_problem):
+    """After the port's plain apply of each sampled move (Move1, Move2
+    and 3-cycles, some rows refused), the bitsets kept by apply_bitsets
+    equal a rebuild from the new state, and that state equals JAX's
+    _apply_move."""
+    problem = medium_problem if which == "medium" else padded_problem
+    jpa, tpa = arrays(problem)
+    slots, rooms = _population(problem, P, 13)
+    jst = jdelta.init_state(jpa, jnp.asarray(slots), jnp.asarray(rooms))
+    st = ls_state_from_numpy(jst)
+    evs, ns, act = _candidates(problem, slots, 14)
+    _, _, nr = tdelta.delta_one(tpa, st.slots, st.rooms, st.att, st.occ,
+                                evs, ns, act)
+    bits = tdelta.slot_bitsets(tpa, st.slots, st.att)
+    W = tpa.conflict_bits.shape[1]
+    for c in range(C):
+        accept = torch.tensor([True, c % 2 == 0, True, c % 3 != 0])
+        new = tdelta.apply_moves(tpa, st.slots, st.rooms, st.att, st.occ,
+                                 evs[:, c], ns[:, c], nr[:, c], accept)
+        kept = tdelta.apply_bitsets(tpa, *bits, new[2], st.slots,
+                                    evs[:, c], ns[:, c], accept)
+        for i in range(P):
+            base = (jst.slots[i], jst.rooms[i], jst.att[i], jst.occ[i])
+            want = (jdelta._apply_move(
+                jpa, base, jnp.asarray(evs[i, c].numpy()),
+                jnp.asarray(ns[i, c].numpy()),
+                jnp.asarray(nr[i, c].numpy()))
+                if bool(accept[i]) else base)
+            np.testing.assert_array_equal(np.asarray(want[0]),
+                                          new[0][i].numpy())
+            np.testing.assert_array_equal(np.asarray(want[2]),
+                                          new[2][i].numpy())
+        for w, g in zip(np_bitsets(new[0].numpy(), new[2].numpy(), W),
+                        kept):
+            np.testing.assert_array_equal(w, g.numpy())
+        # chain the next move from this state
+        st = tdelta.LSState(*new, st.pen, st.hcv, st.scv)
+        jst = jst._replace(slots=jnp.asarray(new[0].numpy()),
+                           rooms=jnp.asarray(new[1].numpy()),
+                           att=jnp.asarray(new[2].numpy()),
+                           occ=jnp.asarray(new[3].numpy()))
+        bits = kept
+        evs, ns, act = _candidates(problem, new[0].numpy(), 20 + c)
+        _, _, nr = tdelta.delta_one(tpa, st.slots, st.rooms, st.att,
+                                    st.occ, evs, ns, act)

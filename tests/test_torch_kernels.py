@@ -197,20 +197,23 @@ K5_CASES = [(4, 1, 0.5, 12, 0.3), (3, 2, 0.0, 0, 0.0),
             (8, 1, 0.25, 48, 0.0), (64, 1, 0.25, 0, 0.0)]
 
 
-def _k5_equals_plain(pa, st, draws, case):
-    """K5 and sweep_pass_plain on the same state and draws: every state
-    field, strict_rows and the pivots, exactly."""
-    got, rows, piv = sweep.sweep_pass_kernel(pa, draws, st, *case)
+def _k5_equals_plain(pa, st, draws, case, clusters=(None,)):
+    """K5 at each cluster size (None: the wrapper's own choice) and
+    sweep_pass_plain on the same state and draws: every state field,
+    strict_rows and the pivots, exactly."""
     want, want_rows = sweep.sweep_pass_plain(pa, draws, st, *case)
-    for w, g in zip(want, got):
-        assert torch.equal(w, g)
-    assert torch.equal(want_rows, rows)
     sb, be, _, hot, p3 = case
     sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
     want_piv = (sweep.hot_pivots(pa, st, draws.hot_noise, sh.K)
                 if sh.use_hot else sweep._perms(draws, pa.n_events,
                                                 st.slots.device))
-    assert torch.equal(want_piv, piv)
+    for cs in clusters:
+        got, rows, piv = sweep.sweep_pass_kernel(pa, draws, st, *case,
+                                                 cluster=cs)
+        for w, g in zip(want, got):
+            assert torch.equal(w, g), f"cluster {cs}"
+        assert torch.equal(want_rows, rows), f"cluster {cs}"
+        assert torch.equal(want_piv, piv), f"cluster {cs}"
 
 
 def _half_feasible(st):
@@ -232,24 +235,76 @@ def test_k5_sweep_pass_equals_plain(cuda, case):
         sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
         g = torch.Generator(device=cuda).manual_seed(9 + i)
         draws = sweep.make_sweep_draws([g], P, sh, pa.n_events, side, cuda)
-        _k5_equals_plain(pa, st, draws, case)
-        _k5_equals_plain(pa, _half_feasible(st), draws, case)
+        _k5_equals_plain(pa, st, draws, case, CLUSTERS)
+        _k5_equals_plain(pa, _half_feasible(st), draws, case, CLUSTERS)
+
+
+# K5's cluster sizes held against the plain pass: the wrapper's own
+# choice, then every power of two it may take
+CLUSTERS = (None, 1, 2, 4, 8)
+COMP05S = os.path.join(os.path.dirname(COMP01S), "comp05s.tim")
+
+
+def _witness_state(pa, path, P, seed):
+    """P copies of the instance's planted zero-penalty witness, row i
+    with i % 4 of three spread events moved to random slots: feasible
+    rows and nearly feasible ones."""
+    import json
+    with open(path.replace(".tim", ".witness.json")) as f:
+        w = json.load(f)
+    dev = pa.conflict.device
+    E = pa.n_events
+    g = torch.Generator(device=dev).manual_seed(seed)
+    slots = torch.tensor(w["slots"], dtype=torch.int32,
+                         device=dev).repeat(P, 1)
+    rms = torch.tensor(w["rooms"], dtype=torch.int32, device=dev).repeat(P, 1)
+    ev = (torch.randint(0, E, (P, 1), generator=g, device=dev)
+          + torch.tensor([0, E // 3, 2 * E // 3], device=dev)) % E
+    to = torch.randint(0, pa.n_slots, (P, 3), generator=g, device=dev,
+                       dtype=torch.int32)
+    moved = (torch.arange(3, device=dev)[None, :]
+             < (torch.arange(P, device=dev) % 4)[:, None])
+    slots.scatter_(1, ev, torch.where(moved, to, slots.gather(1, ev)))
+    return delta.init_state(pa, slots, rms)
+
+
+def _k5_at_comp_scale(cuda, path, phase, P, flags=()):
+    """K5 at one of a path's sweep shapes (its repair or post config on
+    the instance at `path`) from a random and a witness start, at every
+    cluster size."""
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    pa = load_tim_file(path).device_arrays(cuda)
+    cfg = config.parse_args(["-i", path, *flags]).apply_tuned_defaults(
+        pa.n_events)
+    gc = engine.build_ga_config(cfg)
+    if phase == "post":
+        gc = engine.build_post_config(cfg, gc)
+    case = (gc.ls_swap_block, gc.ls_block_events, gc.ls_sideways,
+            gc.ls_hot_k, gc.p3)
+    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, *case[:2], *case[3:])
+    g = torch.Generator(device=cuda).manual_seed(13 + P)
+    draws = sweep.make_sweep_draws([g], P, sh, pa.n_events, case[2], cuda)
+    for st in (_state(pa, P, 12), _witness_state(pa, path, P, 14)):
+        _k5_equals_plain(pa, st, draws, case, CLUSTERS)
+        _k5_equals_plain(pa, _half_feasible(st), draws, case, CLUSTERS)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(8, 1, 0.25, 48, 0.0),
-                                  (64, 1, 0.25, 0, 0.0)])
-def test_k5_equals_plain_at_comp01s(cuda, case):
-    """The main path's repair (P=16) and post (P=4) passes on comp01s."""
-    pa = load_tim_file(COMP01S).device_arrays(cuda)
-    sb, be, side, hot, p3 = case
-    P = 16 if hot else 4
-    st = _state(pa, P, 12)
-    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
-    g = torch.Generator(device=cuda).manual_seed(13)
-    draws = sweep.make_sweep_draws([g], P, sh, pa.n_events, side, cuda)
-    _k5_equals_plain(pa, st, draws, case)
-    _k5_equals_plain(pa, _half_feasible(st), draws, case)
+@pytest.mark.parametrize("phase,P", [("repair", 16), ("repair", 256),
+                                     ("post", 4)])
+def test_k5_equals_plain_at_comp01s(cuda, phase, P):
+    """The main path's repair (P=16 and 256) and post (P=4) passes on
+    comp01s."""
+    _k5_at_comp_scale(cuda, COMP01S, phase, P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase,P", [("repair", 16), ("post", 4)])
+def test_k5_equals_plain_at_comp05s_nsga_shapes(cuda, phase, P):
+    """The nsga path's (--nsga2 --rooms-mode parallel) repair (P=16) and
+    post (P=4) passes on comp05s."""
+    _k5_at_comp_scale(cuda, COMP05S, phase, P,
+                      ("--nsga2", "--rooms-mode", "parallel"))
 
 
 @pytest.mark.cuda
@@ -477,14 +532,15 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_sweep_pass_smem_bytes_at_comp01s():
-    """K5's shared memory per individual on comp01s (E=400, R=10, S=200,
-    T=45): att 18,000 B, conflict bits 20,800, slots and rooms 3,200,
-    occ 912, the rest pivots, heat and scratch."""
+    """K5's shared memory per CTA on comp01s (E=400, R=10, S=200, T=45,
+    W=13): att 18,000 B, conflict bits 20,800, slots and rooms 3,200,
+    the bitsets amask 1,600 and slot_ev 2,352 (2,340 rounded up), occ
+    912, the rest pivots, heat and scratch."""
     pa = load_tim_file(COMP01S).device_arrays()
     repair = sweep.sweep_shape(400, 45, 8, 1, 48, 0.0)
     post = sweep.sweep_shape(400, 45, 64, 1, 0, 0.0)
-    assert sweep.sweep_pass_smem_bytes(pa, repair) == 46_384
-    assert sweep.sweep_pass_smem_bytes(pa, post) == 47_088
+    assert sweep.sweep_pass_smem_bytes(pa, repair) == 50_336
+    assert sweep.sweep_pass_smem_bytes(pa, post) == 51_040
 
 
 def test_random_ls_smem_bytes_at_comp01s():
@@ -497,10 +553,11 @@ def test_random_ls_smem_bytes_at_comp01s():
 
 def test_lahc_smem_bytes_at_comp01s():
     """K10's shared memory per walker on comp01s at K = 16: slots, rooms
-    and the best snapshot's 6,400, candidates 768, scalars 128, occ 912,
-    att 18,000 and the conflict bits 20,800."""
+    and the best snapshot's 6,400, candidates 768, scalars 128, the
+    bitsets amask 1,600 and slot_ev 2,352, occ 912, att 18,000 and the
+    conflict bits 20,800."""
     pa = load_tim_file(COMP01S).device_arrays()
-    assert lahc.lahc_smem_bytes(pa, 16) == 47_008
+    assert lahc.lahc_smem_bytes(pa, 16) == 50_960
 
 
 def test_sweep_pass_kernel_raises_above_the_shared_memory_limit():
@@ -522,6 +579,45 @@ def test_sweep_pass_kernel_raises_above_the_shared_memory_limit():
         with pytest.raises(ValueError, match=match):
             sweep.sweep_pass_kernel(pa, draws, st, 2)
         assert sum(kernels.LAUNCHES.values()) == 0
+
+
+def test_k5_cluster_size_choice():
+    """K5's CTAs per individual: a warp for each Move2/Move3 candidate of
+    a step, as a power of two, capped at 8 and at the SMs per individual
+    (132 on an H100 SXM)."""
+    assert sweep.cluster_size(64, 4, 132) == 4      # the post pass
+    assert sweep.cluster_size(8, 16, 132) == 1      # the repair pass
+    assert sweep.cluster_size(8, 256, 132) == 1
+    assert sweep.cluster_size(0, 1, 132) == 1       # Move1 only
+    assert sweep.cluster_size(17, 1, 132) == 2
+    assert sweep.cluster_size(400, 1, 132) == 8
+    assert sweep.cluster_size(64, 40, 132) == 3     # 132 // 40 SMs each
+    pa = load_tim_file(COMP01S).device_arrays()
+    post = sweep.sweep_shape(400, 45, 64, 1, 0, 0.0)
+    assert post.n_cand - post.B * pa.n_slots == 64
+    st = _state(pa, 2, 1)
+    draws = sweep.make_sweep_draws([torch.Generator().manual_seed(0)], 2,
+                                   post, 400, 0.25, "cpu")
+    for cs in (0, 9):
+        with pytest.raises(ValueError, match="cluster"):
+            sweep.sweep_pass_kernel(pa, draws, st, 64, 1, 0.25, 0, 0.0,
+                                    cluster=cs)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """No module of the port, and not chip_smoke.py, has an import of
+    jax or of timetabling_ga_tpu (a grep of the sources)."""
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|timetabling_ga_tpu)"
+                     r"(?:\.|\s|$)", re.M)
+    files = [os.path.join(root, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(root,
+                                            "timetabling_ga_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = [f for f in files if pat.search(open(f).read())]
+    assert not bad, bad
 
 
 def test_library_paths_are_keyed_by_source_hash():

@@ -141,3 +141,50 @@ def test_post_lahc_cli_on_cpu(small_problem, tmp_path, capsys):
         s["totalBest"] for s in sols)
     assert runs[0]["feasible"] and runs[0]["totalBest"] == min(
         min(b) for b in per_island.values())
+
+
+@pytest.mark.parametrize("which", ["small", "padded"])
+def test_bitsets_kept_through_jax_lahc_steps(which, small_problem,
+                                             padded_problem):
+    """K10's bookkeeping, in plain form: the bitsets kept by
+    delta.apply_bitsets through each step of a JAX LAHC walk (the moved
+    events read off the step's slots) equal, after every step, the bits
+    packed from JAX's att and slots; and slot_bitsets of the port's init
+    state equals them at the start."""
+    from tests.test_torch_delta import np_bitsets
+    from timetabling_ga_tpu_torch.ops import delta as tdelta
+    problem = small_problem if which == "small" else padded_problem
+    jpa, tpa = arrays(problem)
+    W, Lh = 4, 3
+    slots, rooms = _population(problem, W, 31)
+    jst = jax.jit(jlahc.init_lahc, static_argnums=(3,))(
+        jpa, jnp.asarray(slots), jnp.asarray(rooms), Lh)
+    n_words = tpa.conflict_bits.shape[1]
+    tst = tlahc.init_lahc(tpa, torch.tensor(slots), torch.tensor(rooms), Lh)
+    bits = tdelta.slot_bitsets(tpa, tst.ls.slots, tst.ls.att)
+    for w, g in zip(np_bitsets(jst.ls.slots, jst.ls.att, n_words), bits):
+        np.testing.assert_array_equal(w, g.numpy())
+    step = jax.jit(jlahc.lahc_steps, static_argnums=(3, 4, 5, 6, 7))
+    moved_rows = 0
+    for i in range(6):
+        nxt = step(jpa, jax.random.key(50 + i), jst, 1, 1.0, 1.0, 0.5, 4)
+        old = np.asarray(jst.ls.slots)
+        new = np.asarray(nxt.ls.slots)
+        evs = np.zeros((W, 3), np.int32)
+        ns = np.zeros((W, 3), np.int32)
+        for w in range(W):
+            ch = np.nonzero(old[w] != new[w])[0]
+            assert len(ch) <= 3
+            # pad with unmoved events (new slot = old slot)
+            pad = [e for e in range(problem.n_events) if e not in ch]
+            evs[w] = np.concatenate([ch, pad[:3 - len(ch)]])
+            ns[w] = new[w][evs[w]]
+            moved_rows += len(ch) > 0
+        bits = tdelta.apply_bitsets(
+            tpa, *bits, torch.tensor(np.asarray(nxt.ls.att)),
+            torch.tensor(old), torch.tensor(evs), torch.tensor(ns),
+            torch.tensor((old != new).any(1)))
+        for w, g in zip(np_bitsets(new, nxt.ls.att, n_words), bits):
+            np.testing.assert_array_equal(w, g.numpy())
+        jst = nxt
+    assert moved_rows > 0

@@ -14,12 +14,15 @@
 //
 // Design: K8's (random_ls.cu), one block per walker for every step of
 // the launch, one warp per candidate (a warp takes several when K > 16).
-// The walker's slots, rooms, att and occ, its best-so-far slots and
-// rooms and, when it fits, the conflict bitset stay in shared memory
-// (~47 KB at comp01s, K = 16). A step: each warp takes its candidate's
-// events as the top 3 of its uniforms, builds sample_move's relocation
-// and scores it (sweep_dev.cuh `tt_score_candidate_warp`, K8's scoring:
-// K4's body and the anchor residual); thread 0 then
+// The walker's slots, rooms, att and occ, the two bitsets K5 keeps
+// (amask: a student's attended slots as one u64; slot_ev: each slot's
+// events as W words; built in the prologue, sweep_dev.cuh), its
+// best-so-far slots and rooms and, when it fits, the conflict bitset
+// stay in shared memory (~51 KB at comp01s, K = 16). A step: each warp
+// takes its candidate's events as the top 3 of its uniforms, builds
+// sample_move's relocation and scores it (sweep_dev.cuh
+// `tt_score_candidate_bits_warp`: K5's K4 body on the bitsets and the
+// anchor residual); thread 0 then
 //   - takes the block's lexicographic argmin over (pen, scv), the first
 //     candidate on a tie (jnp.lexsort((cs, cp))[0]);
 //   - accepts it when (pen, scv) <= hist[step % Lh] or <= the current
@@ -28,8 +31,9 @@
 //     two history rings stay in global memory, one entry read and
 //     written a step) and advances the step;
 //   - moves the best snapshot on a strict lexicographic improvement;
-// and the block applies an accepted move with K5's apply. The state
-// goes back to global memory in the epilogue, for the next launch.
+// and the block applies an accepted move with K5's apply, which keeps
+// the bitsets. The state goes back to global memory in the epilogue, for
+// the next launch (the bitsets die with the block).
 // Integer-exact: equal to the plain version (ops/lahc.py) bit for bit.
 #include "sweep_dev.cuh"
 #include "rooms_dev.cuh"
@@ -41,8 +45,8 @@
 #define K10_MISC_INTS 32
 
 struct K10Smem {
-    unsigned slots, rooms, best_slots, best_rooms, cand, misc, occ, att,
-        bits, total;
+    unsigned slots, rooms, best_slots, best_rooms, cand, misc, amask,
+        slot_ev, occ, att, bits, total;
     int bits_in_smem;
 };
 
@@ -60,6 +64,8 @@ __host__ __device__ inline K10Smem k10_smem_layout(int E, int R, int S,
     m.best_rooms = o; o += k10_align(4 * (size_t)E);
     m.cand = o; o += k10_align(4 * (size_t)K10_CAND_INTS * K);
     m.misc = o; o += k10_align(4 * (size_t)K10_MISC_INTS);
+    m.amask = o; o += k10_align(8 * (size_t)S);
+    m.slot_ev = o; o += k10_align(4 * (size_t)T * W);
     m.occ = o; o += k10_align(2 * (size_t)T * R);
     m.att = o; o += k10_align(2 * (size_t)S * T);
     m.bits = o;
@@ -109,6 +115,8 @@ __global__ void __launch_bounds__(32 * K10_MAX_WARPS) lahc_kernel(K10Args A) {
     int* flag = mv + 16;                         // improved
     int* best = flag + 1;                        // pen, hcv, scv
     int* stp = best + 3;                         // step
+    uint64_t* amask = (uint64_t*)(k10_smem + A.lay.amask);
+    uint32_t* slot_ev = (uint32_t*)(k10_smem + A.lay.slot_ev);
     int16_t* occ = (int16_t*)(k10_smem + A.lay.occ);
     int16_t* att = (int16_t*)(k10_smem + A.lay.att);
     uint32_t* bits = (uint32_t*)(k10_smem + A.lay.bits);
@@ -139,6 +147,8 @@ __global__ void __launch_bounds__(32 * K10_MAX_WARPS) lahc_kernel(K10Args A) {
     int* hp = A.hist_pen + (size_t)w * A.Lh;
     int* hs = A.hist_scv + (size_t)w * A.Lh;
     __syncthreads();
+    tt_build_bitsets_block(pb, slots, att, amask, slot_ev);
+    __syncthreads();
 
     for (int i = 0; i < A.n_steps; ++i) {
         for (int c = warp; c < A.K; c += n_warps) {
@@ -146,10 +156,11 @@ __global__ void __launch_bounds__(32 * K10_MAX_WARPS) lahc_kernel(K10Args A) {
             int ev[3], ns[3], on[3];
             tt_top3_warp(A.u + row * E, E, lane, ev);
             tt_sample_move(slots, A.mtype[row], A.tgt[row], ev, ns, on);
-            tt_score_candidate_warp(pb, slots, rooms, att, occ, ev, ns, on,
-                                    st, A.anchor_slots, A.anchor_w,
-                                    A.anchored, lane,
-                                    cand + c * K10_CAND_INTS);
+            tt_score_candidate_bits_warp(pb, slots, rooms, att, occ, amask,
+                                         slot_ev, ev, ns, on, st,
+                                         A.anchor_slots, A.anchor_w,
+                                         A.anchored, lane,
+                                         cand + c * K10_CAND_INTS);
         }
         __syncthreads();
         if (tid == 0) {
@@ -176,8 +187,11 @@ __global__ void __launch_bounds__(32 * K10_MAX_WARPS) lahc_kernel(K10Args A) {
             }
         }
         __syncthreads();
-        if (mv[0]) tt_apply_move_block(pb, mv + 1, slots, rooms, att, occ);
-        __syncthreads();
+        // the apply ends on a barrier; without one, the barrier above
+        // orders the copy after the flag's write
+        if (mv[0])
+            tt_apply_move_bits_block(pb, mv + 1, slots, rooms, att, occ,
+                                     amask, slot_ev);
         // the next step's barrier orders this copy before any later apply
         if (flag[0])
             for (int e = tid; e < E; e += blockDim.x) {

@@ -6,21 +6,26 @@
 // add deltas contracted over students from neighbour masks.
 //
 // Bound on this card: latency. One (individual, pivot) reads the pivot's
-// conflict row (ceil(E/32) words), the slots of its conflicting events,
-// one (T, R) occupancy grid and the attendance rows of its own students
-// (T int16 each); it writes 3*T int32.
+// conflict row (ceil(E/32) words) against each slot's event bits, one
+// (T, R) occupancy grid and one attended-slot word and one attendance
+// count per student of its own; it writes 3*T int32.
 //
 // Design: one CTA per (individual, pivot), one thread per target slot
 // for the room choice and the final combine. The room key stays in
 // lockstep with rooms.py `_room_key` (sweep.py:102 says so): occupancy
 // minus the pivot's own cell, plus the unsuitable flag, times 2^13, plus
 // the suitability tie, capacity rank and dead-room penalty; argmin takes
-// the first room. The correlation delta is a shared-memory histogram of
-// the conflict row by slot. The scv delta re-scores the pivot's old day
-// and adds the per-target window terms of the binarized post-removal
+// the first room. The correlation delta counts the conflict row's
+// events in each slot as popcounts against that slot's events (slot_ev,
+// (T, W) u32 per individual). The scv delta re-scores the pivot's old
+// day and adds the per-target window terms of the binarized post-removal
 // attendance of the pivot's students, one 64-bit mask per student in
-// shared memory. A padded pivot's deltas are forced to 0. The body lives
-// in sweep_dev.cuh (tt_move1_prepare / tt_move1_target), shared with K5.
+// shared memory, taken from the student's attended-slot word (amask,
+// (S,) u64 per individual) with the old slot's bit recomputed. The
+// wrapper builds both bitsets with their plain version (ops/delta.py
+// slot_bitsets); K5 keeps them in shared memory. A padded pivot's deltas
+// are forced to 0. The body lives in sweep_dev.cuh (tt_move1_prepare /
+// tt_move1_target), shared with K5.
 #include "sweep_dev.cuh"
 
 #define K3_THREADS 64
@@ -28,11 +33,12 @@
 __global__ void move1_sweep_kernel(
     TTSweepProblem pb, const int* __restrict__ slots,
     const int* __restrict__ rooms, const int16_t* __restrict__ att,
-    const int16_t* __restrict__ occ, const int* __restrict__ pivots,
+    const int16_t* __restrict__ occ, const uint64_t* __restrict__ amask,
+    const uint32_t* __restrict__ slot_ev, const int* __restrict__ pivots,
     int* __restrict__ d_hcv, int* __restrict__ d_scv,
     int* __restrict__ new_rooms, int B) {
     extern __shared__ int smem[];
-    const int E = pb.E, R = pb.R, S = pb.S, T = pb.T;
+    const int E = pb.E, R = pb.R, S = pb.S, T = pb.T, W = pb.W;
     int* per_slot = smem;                               // (T,)
     int* rm_acc = per_slot + T;                         // (1,)
     // 8-byte aligned after the int section (T + 2 rounded up to even)
@@ -44,7 +50,9 @@ __global__ void move1_sweep_kernel(
     const int* r_p = rooms + (size_t)p * E;
     const int16_t* occ_p = occ + (size_t)p * T * R;
     const int16_t* att_p = att + (size_t)p * S * T;
-    tt_move1_prepare(pb, s_p, att_p, e, per_slot, rm_acc, masks);
+    tt_move1_prepare(pb, s_p, att_p, amask + (size_t)p * S,
+                     slot_ev + (size_t)p * T * W, e, per_slot, rm_acc,
+                     masks);
     int t = threadIdx.x;
     if (t >= T) return;
     size_t o = (size_t)cand * T + t;
@@ -54,7 +62,8 @@ __global__ void move1_sweep_kernel(
 
 extern "C" int tt_move1_sweep(
     const int* slots, const int* rooms, const int16_t* att,
-    const int16_t* occ, const int* pivots, const uint8_t* possible,
+    const int16_t* occ, const uint64_t* amask, const uint32_t* slot_ev,
+    const int* pivots, const uint8_t* possible,
     const int* live, const int* student_count, const uint32_t* conflict_bits,
     const int* cap_rank, const int* dead, const int* ev_ptr,
     const int* ev_stu, int* d_hcv, int* d_scv, int* new_rooms, int P, int B,
@@ -70,6 +79,7 @@ extern "C" int tt_move1_sweep(
                          cap_rank, dead, nullptr, ev_ptr, ev_stu,
                          E, R, S, T, spd, W};
     move1_sweep_kernel<<<P * B, K3_THREADS, smem, (cudaStream_t)stream>>>(
-        pb, slots, rooms, att, occ, pivots, d_hcv, d_scv, new_rooms, B);
+        pb, slots, rooms, att, occ, amask, slot_ev, pivots, d_hcv, d_scv,
+        new_rooms, B);
     return (int)cudaGetLastError();
 }

@@ -4,20 +4,31 @@
 // (lahc.cu) share.
 //
 // Every function takes the individual's state through generic pointers
-// (slots, rooms, att, occ), so the same arithmetic reads it from global
-// memory in K3/K4 and from shared memory in K5; the K3/K4 kernel-vs-plain
-// checks therefore guard what K5 computes. The problem-wide arrays come
+// (slots, rooms, att, occ and, for the bitset forms, amask and slot_ev),
+// so the same arithmetic reads it from global memory in K3/K4 and from
+// shared memory in K5, K8 and K10; the K3/K4 kernel-vs-plain checks
+// therefore guard what the others compute. The problem-wide arrays come
 // in one TTSweepProblem, read from global memory (the conflict bitset
 // may point at a shared-memory copy).
+//
+// Two bitsets summarise an individual's state (ops/delta.py
+// `slot_bitsets` is their plain version):
+//   amask   (S,) u64     bit t of student s set iff att[s, t] > 0
+//   slot_ev (T, W) u32   bit f of row t set iff slots[f] == t
+// K5 and K10 build them in their prologue (tt_build_bitsets_block) and
+// keep them up to date in their apply (tt_apply_move_bits_block); their
+// K4 body (tt_delta_one_bits_warp) reads a student's days from one word
+// and counts a conflict row's events in a slot with popcounts. K8 and
+// K4's own launch keep the body that reads att alone (tt_delta_one_warp).
 #pragma once
 
 #include "common.cuh"
 
 // Phase counters of K5, compiled in only with -DTT_K5_PROF (see
-// timetabling_ga_tpu_torch/k5_phases.py): block 0's thread 0 adds the
-// clock64() cycles since its previous mark to counter k, so the counters
-// partition that thread's time in the pass. Otherwise the marks are
-// empty statements.
+// timetabling_ga_tpu_torch/k5_phases.py): block 0's thread 0 (rank 0 of
+// cluster 0) adds the clock64() cycles since its previous mark to
+// counter k, so the counters partition that thread's time in the pass.
+// Otherwise the marks are empty statements.
 #ifdef TT_K5_PROF
 __device__ unsigned long long tt_prof_acc[16];
 __device__ long long tt_prof_last;
@@ -60,43 +71,67 @@ struct TTSweepProblem {
     int E, R, S, T, spd, W;
 };
 
+// amask and slot_ev of the state in slots/att, built by the whole block
+// (a thread per student, a thread per (slot, word)); the caller syncs
+// before and after.
+__device__ __forceinline__ void tt_build_bitsets_block(
+    const TTSweepProblem& pb, const int* slots, const int16_t* att,
+    uint64_t* amask, uint32_t* slot_ev) {
+    const int E = pb.E, T = pb.T, W = pb.W;
+    for (int s = threadIdx.x; s < pb.S; s += blockDim.x) {
+        const int16_t* a = att + (size_t)s * T;
+        uint64_t m = 0ull;
+        for (int t = 0; t < T; ++t)
+            if (a[t] > 0) m |= 1ull << t;
+        amask[s] = m;
+    }
+    for (int i = threadIdx.x; i < T * W; i += blockDim.x) {
+        const int t = i / W, f0 = (i % W) * 32;
+        const int f1 = min(E, f0 + 32);
+        uint32_t bits = 0u;
+        for (int f = f0; f < f1; ++f)
+            if (slots[f] == t) bits |= 1u << (f - f0);
+        slot_ev[i] = bits;
+    }
+}
+
 // K3's body, phase 1, run by every thread of the block (it syncs twice):
-// the conflict row of pivot `e` (pivot excluded) as a per-slot
-// histogram, the post-removal slot masks of e's students (one 64-bit
-// mask each) and the re-score of e's old day summed into *rm_acc.
+// the conflict row of pivot `e` (pivot excluded) as a per-slot count —
+// a popcount of the row against each slot's event bits — the
+// post-removal slot masks of e's students (each its amask word with the
+// old slot's bit recomputed) and the re-score of e's old day summed into
+// *rm_acc.
 __device__ __forceinline__ void tt_move1_prepare(
-    const TTSweepProblem& pb, const int* slots, const int16_t* att, int e,
-    int* per_slot, int* rm_acc, uint64_t* masks) {
+    const TTSweepProblem& pb, const int* slots, const int16_t* att,
+    const uint64_t* amask, const uint32_t* slot_ev, int e, int* per_slot,
+    int* rm_acc, uint64_t* masks) {
     const int T = pb.T, spd = pb.spd, W = pb.W;
     const int s_old = slots[e];
     const int D0 = s_old / spd;
-    for (int t = threadIdx.x; t < T; t += blockDim.x) per_slot[t] = 0;
     if (threadIdx.x == 0) rm_acc[0] = 0;
-    __syncthreads();
-
     // correlation: conflicting events (pivot excluded) per slot
     const uint32_t* row = pb.conflict_bits + (size_t)e * W;
-    for (int w = threadIdx.x; w < W; w += blockDim.x) {
-        uint32_t bits = row[w];
-        if (w == (e >> 5)) bits &= ~(1u << (e & 31));
-        while (bits) {
-            int f = w * 32 + __ffs(bits) - 1;
-            bits &= bits - 1;
-            atomicAdd(&per_slot[slots[f]], 1);
+    const int we = e >> 5;
+    const uint32_t self = 1u << (e & 31);
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+        const uint32_t* sev = slot_ev + (size_t)t * W;
+        int n = 0;
+        for (int w = 0; w < W; ++w) {
+            uint32_t bits = row[w] & sev[w];
+            if (w == we) bits &= ~self;
+            n += __popc(bits);
         }
+        per_slot[t] = n;
     }
+    __syncthreads();
     // the pivot's students: post-removal masks + the old day's re-score
     int k0 = pb.ev_ptr[e], nst = pb.ev_ptr[e + 1] - k0;
     int rm = 0;
     for (int i = threadIdx.x; i < nst; i += blockDim.x) {
         int s = pb.ev_stu[k0 + i];
-        const int16_t* a = att + (size_t)s * T;
-        uint64_t before = 0ull, after = 0ull;
-        for (int t = 0; t < T; ++t) {
-            int v = a[t];
-            if (v > 0) before |= 1ull << t;
-            if (v - (t == s_old ? 1 : 0) > 0) after |= 1ull << t;
-        }
+        uint64_t before = amask[s];
+        uint64_t after = att[(size_t)s * T + s_old] > 1
+                             ? before : before & ~(1ull << s_old);
         masks[i] = after;
         rm += tt_day_scv(tt_day_bits(after, D0, spd))
               - tt_day_scv(tt_day_bits(before, D0, spd));
@@ -162,25 +197,21 @@ __device__ __forceinline__ void tt_move1_target(
     *new_room = best_r;
 }
 
-// K4's body: the delta of one padded 3-relocation candidate (events ev,
-// new slots ns, active flags on), run by all 32 lanes of one warp; every
-// lane returns the result. The occupancy replay is sequential and in
-// order — all removes, then the adds for m = 0, 1, 2, each re-rooming on
-// the row as updated so far — with the <= 6 touched cells kept as a
-// delta list in registers; the room argmin is one lane per room with a
-// shuffle reduction (ties to the lower room). The conflict dots walk the
-// set bits of each row (moved events masked out) with the lanes over
-// words. The day re-score walks the union of the students of the events
-// that change slot (each student once: it is skipped under event m when
-// it also attends an earlier one), one lane per student, and rebuilds
-// that student's bits of every affected day before and after the patch.
-__device__ __forceinline__ void tt_delta_one_warp(
+// The part of K4's body that reads no attendance, run by all 32 lanes of
+// one warp on the padded 3-relocation candidate (ev, ns, on): the
+// occupancy replay — all removes, then the adds for m = 0, 1, 2, each
+// re-rooming on the row as updated so far — with the <= 6 touched cells
+// kept as a delta list in registers, the room argmin one lane per room
+// with a shuffle reduction (ties to the lower room); then the
+// unsuitable, last-slot and within-move correlation terms. Returns the
+// old slots `os`, the new rooms `nr`, which events change slot
+// (`shift`), and the hcv (*dh) and scv (*ds) terms so far.
+__device__ __forceinline__ void tt_delta_rooms_warp(
     const TTSweepProblem& pb, const int* slots, const int* rooms,
-    const int16_t* att, const int16_t* occ, const int ev[3],
-    const int ns[3], const int on[3], int lane, int* d_hcv, int* d_scv,
-    int nr[3]) {
-    const int E = pb.E, R = pb.R, T = pb.T, spd = pb.spd, W = pb.W;
-    int os[3], orr[3], act[3];
+    const int16_t* occ, const int ev[3], const int ns[3], const int on[3],
+    int lane, int os[3], bool shift[3], int* dh, int* ds, int nr[3]) {
+    const int R = pb.R, spd = pb.spd, W = pb.W;
+    int orr[3], act[3];
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
         os[m] = slots[ev[m]];
@@ -241,41 +272,22 @@ __device__ __forceinline__ void tt_delta_one_warp(
             corr += (int)c * ((ns[m] == ns[mm] ? 1 : 0)
                               - (os[m] == os[mm] ? 1 : 0));
         }
-
-    // ---- moved x unmoved correlation: conflict rows over slot equality.
-    // An entry that keeps its slot (ns == os: an inactive pad) adds 0
-    // here and to every attendance patch below, so it is skipped.
-    bool shift[3];
+    // An entry that keeps its slot (ns == os: an inactive pad) adds 0 to
+    // the moved x unmoved correlation and to every attendance patch, so
+    // both bodies skip it.
 #pragma unroll
     for (int m = 0; m < 3; ++m) shift[m] = ns[m] != os[m];
-    int corr_l = 0;
-    for (int w = lane; w < W; w += 32) {
-        uint32_t moved = 0u;
-#pragma unroll
-        for (int m = 0; m < 3; ++m)
-            if ((ev[m] >> 5) == w) moved |= 1u << (ev[m] & 31);
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-            if (!shift[m]) continue;
-            uint32_t bits = pb.conflict_bits[(size_t)ev[m] * W + w] & ~moved;
-            while (bits) {
-                int f = w * 32 + __ffs(bits) - 1;
-                bits &= bits - 1;
-                int sf = slots[f];
-                corr_l += (sf == ns[m] ? 1 : 0) - (sf == os[m] ? 1 : 0);
-            }
-        }
-    }
-    corr += tt_warp_sum(corr_l);
-    TT_PROF(2);
+    *dh = pair_d + unsuit_d + corr;
+    *ds = last_d;
+}
 
-    // ---- affected days (<= 6, deduplicated), re-scored per student:
-    // each student of the slot-changing events once (skipped under event
-    // m when it also attends an earlier one), all its days in turn, so
-    // the student lists and attendance bytes are read once per student.
-    // Only those events' days and students can change.
-    int days[6];
-    bool uniq[6];
+// The affected days (<= 6: the old and new days of the events that
+// change slot), each flagged unique on its first occurrence.
+__device__ __forceinline__ void tt_affected_days(const int os[3],
+                                                 const int ns[3],
+                                                 const bool shift[3],
+                                                 int spd, int days[6],
+                                                 bool uniq[6]) {
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
         days[m] = os[m] / spd;
@@ -288,6 +300,62 @@ __device__ __forceinline__ void tt_delta_one_warp(
         for (int k = 0; k < i; ++k)
             if (shift[k % 3] && days[k] == days[i]) uniq[i] = false;
     }
+}
+
+// The moved events of word w of the conflict rows (they are masked out
+// of the moved x unmoved correlation).
+__device__ __forceinline__ uint32_t tt_moved_word(const int ev[3], int w) {
+    uint32_t moved = 0u;
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+        if ((ev[m] >> 5) == w) moved |= 1u << (ev[m] & 31);
+    return moved;
+}
+
+// K4's body: the delta of one padded 3-relocation candidate (events ev,
+// new slots ns, active flags on), run by all 32 lanes of one warp; every
+// lane returns the result. After the attendance-free terms
+// (tt_delta_rooms_warp), the conflict dots walk the set bits of each row
+// (moved events masked out) with the lanes over words. The day re-score
+// walks the union of the students of the events that change slot (each
+// student once: it is skipped under event m when it also attends an
+// earlier one), one lane per student, and rebuilds that student's bits
+// of every affected day before and after the patch from att.
+__device__ __forceinline__ void tt_delta_one_warp(
+    const TTSweepProblem& pb, const int* slots, const int* rooms,
+    const int16_t* att, const int16_t* occ, const int ev[3],
+    const int ns[3], const int on[3], int lane, int* d_hcv, int* d_scv,
+    int nr[3]) {
+    const int E = pb.E, T = pb.T, spd = pb.spd, W = pb.W;
+    int os[3], dh, ds;
+    bool shift[3];
+    tt_delta_rooms_warp(pb, slots, rooms, occ, ev, ns, on, lane, os, shift,
+                        &dh, &ds, nr);
+
+    // ---- moved x unmoved correlation: conflict rows over slot equality
+    int corr_l = 0;
+    for (int w = lane; w < W; w += 32) {
+        const uint32_t moved = tt_moved_word(ev, w);
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+            if (!shift[m]) continue;
+            uint32_t bits = pb.conflict_bits[(size_t)ev[m] * W + w] & ~moved;
+            while (bits) {
+                int f = w * 32 + __ffs(bits) - 1;
+                bits &= bits - 1;
+                int sf = slots[f];
+                corr_l += (sf == ns[m] ? 1 : 0) - (sf == os[m] ? 1 : 0);
+            }
+        }
+    }
+    dh += tt_warp_sum(corr_l);
+    TT_PROF(2);
+
+    // ---- affected days re-scored per student, from att: each student
+    // of the slot-changing events once, all its days in turn
+    int days[6];
+    bool uniq[6];
+    tt_affected_days(os, ns, shift, spd, days, uniq);
     int scv_l = 0;
     for (int m = 0; m < 3; ++m) {
         if (!shift[m]) continue;
@@ -323,8 +391,93 @@ __device__ __forceinline__ void tt_delta_one_warp(
             }
         }
     }
-    *d_hcv = pair_d + unsuit_d + corr;
-    *d_scv = last_d + tt_warp_sum(scv_l);
+    *d_hcv = dh;
+    *d_scv = ds + tt_warp_sum(scv_l);
+    TT_PROF(3);
+}
+
+// K4's body on the bitsets (K5, K10): the same delta as
+// tt_delta_one_warp, bit for bit. The conflict dots count, for each
+// event m that changes slot, the row's events (moved ones masked out) in
+// its new slot minus those in its old one — popcounts of the row against
+// slot_ev's two rows, the lanes over words, with no loop over set bits.
+// The day re-score takes a student's attended slots from its amask word
+// (`before`) and recomputes only the bits of the <= 6 slots the move
+// touches from att plus the patch (`after`); every affected day is then
+// re-scored from the two words.
+__device__ __forceinline__ void tt_delta_one_bits_warp(
+    const TTSweepProblem& pb, const int* slots, const int* rooms,
+    const int16_t* att, const int16_t* occ, const uint64_t* amask,
+    const uint32_t* slot_ev, const int ev[3], const int ns[3],
+    const int on[3], int lane, int* d_hcv, int* d_scv, int nr[3]) {
+    const int E = pb.E, T = pb.T, spd = pb.spd, W = pb.W;
+    int os[3], dh, ds;
+    bool shift[3];
+    tt_delta_rooms_warp(pb, slots, rooms, occ, ev, ns, on, lane, os, shift,
+                        &dh, &ds, nr);
+
+    // ---- moved x unmoved correlation: popcounts against slot_ev
+    int corr_l = 0;
+    for (int w = lane; w < W; w += 32) {
+        const uint32_t moved = tt_moved_word(ev, w);
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+            if (!shift[m]) continue;
+            const uint32_t row =
+                pb.conflict_bits[(size_t)ev[m] * W + w] & ~moved;
+            corr_l += __popc(row & slot_ev[(size_t)ns[m] * W + w])
+                      - __popc(row & slot_ev[(size_t)os[m] * W + w]);
+        }
+    }
+    dh += tt_warp_sum(corr_l);
+    TT_PROF(2);
+
+    // ---- affected days re-scored per student from its amask word
+    int days[6];
+    bool uniq[6];
+    tt_affected_days(os, ns, shift, spd, days, uniq);
+    int scv_l = 0;
+    for (int m = 0; m < 3; ++m) {
+        if (!shift[m]) continue;
+        int k0 = pb.ev_ptr[ev[m]], nst = pb.ev_ptr[ev[m] + 1] - k0;
+        for (int k = lane; k < nst; k += 32) {
+            int s = pb.ev_stu[k0 + k];
+            const uint8_t* a_s = pb.attends + (size_t)s * E;
+            int col[3];
+#pragma unroll
+            for (int q = 0; q < 3; ++q) col[q] = a_s[ev[q]];
+            bool seen = false;
+            for (int q = 0; q < m; ++q)
+                if (shift[q] && col[q]) seen = true;
+            if (seen) continue;
+            const int16_t* att_s = att + (size_t)s * T;
+            const uint64_t before = amask[s];
+            uint64_t after = before;
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+                if (!shift[q] || !col[q]) continue;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int t = h ? ns[q] : os[q];
+                    int v = att_s[t];
+#pragma unroll
+                    for (int x = 0; x < 3; ++x)
+                        v += col[x] * ((ns[x] == t ? 1 : 0)
+                                       - (os[x] == t ? 1 : 0));
+                    after = v > 0 ? after | (1ull << t)
+                                  : after & ~(1ull << t);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < 6; ++i) {
+                if (!uniq[i]) continue;
+                scv_l += tt_day_scv(tt_day_bits(after, days[i], spd))
+                         - tt_day_scv(tt_day_bits(before, days[i], spd));
+            }
+        }
+    }
+    *d_hcv = dh;
+    *d_scv = ds + tt_warp_sum(scv_l);
     TT_PROF(3);
 }
 
@@ -332,7 +485,8 @@ __device__ __forceinline__ void tt_delta_one_warp(
 // run by the whole block: `mv` holds the accepted move's events (3), old
 // slots (3), old rooms (3), new slots (3) and new rooms (3). Inactive
 // pad entries (new == old) cancel; padded events weigh 0 in occupancy.
-// K5 (sweep_pass.cu) and K8 (random_ls.cu) apply their moves with it.
+// K8 (random_ls.cu) applies its moves with it; K5 and K10, which keep
+// the bitsets, with tt_apply_move_bits_block.
 __device__ __forceinline__ void tt_apply_move_block(
     const TTSweepProblem& pb, const int* mv, int* slots, int* rooms,
     int16_t* att, int16_t* occ) {
@@ -362,28 +516,69 @@ __device__ __forceinline__ void tt_apply_move_block(
     }
 }
 
+// The same apply on a state that carries the bitsets, run by the whole
+// block; it ends on a barrier. Only the students of the events that
+// change slot are visited (ev_ptr / ev_stu), one event after another
+// with a barrier between, since a student may attend two of them: each
+// such student's att row loses the old slot and gains the new one, and
+// its amask bits of those two slots are recomputed. Thread 0 meanwhile
+// moves occupancy, slots, rooms and the events' slot_ev bits from the
+// old slot's row to the new one's. Equal to tt_apply_move_block on
+// slots, rooms, att and occ.
+__device__ __forceinline__ void tt_apply_move_bits_block(
+    const TTSweepProblem& pb, const int* mv, int* slots, int* rooms,
+    int16_t* att, int16_t* occ, uint64_t* amask, uint32_t* slot_ev) {
+    const int R = pb.R, T = pb.T, W = pb.W;
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+            int lv = pb.live[mv[m]];
+            occ[mv[3 + m] * R + mv[6 + m]] -= lv;
+            occ[mv[9 + m] * R + mv[12 + m]] += lv;
+        }
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+            slots[mv[m]] = mv[9 + m];
+            rooms[mv[m]] = mv[12 + m];
+            if (mv[3 + m] != mv[9 + m]) {
+                const int w = mv[m] >> 5;
+                const uint32_t bit = 1u << (mv[m] & 31);
+                slot_ev[(size_t)mv[3 + m] * W + w] &= ~bit;
+                slot_ev[(size_t)mv[9 + m] * W + w] |= bit;
+            }
+        }
+    }
+    for (int m = 0; m < 3; ++m) {
+        const int e = mv[m], so = mv[3 + m], sn = mv[9 + m];
+        if (so != sn)
+            for (int k = pb.ev_ptr[e] + threadIdx.x; k < pb.ev_ptr[e + 1];
+                 k += blockDim.x) {
+                const int s = pb.ev_stu[k];
+                int16_t* row = att + (size_t)s * T;
+                const int vo = row[so] - 1, vn = row[sn] + 1;
+                row[so] = (int16_t)vo;
+                row[sn] = (int16_t)vn;
+                uint64_t a = amask[s];
+                a = vo > 0 ? a | (1ull << so) : a & ~(1ull << so);
+                a = vn > 0 ? a | (1ull << sn) : a & ~(1ull << sn);
+                amask[s] = a;
+            }
+        __syncthreads();
+    }
+}
+
 // fitness.base_penalty: scv once feasible, else 1e6 + hcv
 __device__ __forceinline__ int tt_base_penalty(int hcv, int scv) {
     return hcv == 0 ? scv : TT_INFEASIBLE_OFFSET + hcv;
 }
 
-// One random candidate of K8 and K10 (ops/delta.py:240-257, ops/lahc.py
-// :255-281), run by the 32 lanes of one warp: the padded 3-relocation
-// (ev, ns, on) of the individual whose (pen, hcv, scv) are st[0..2]
-// scored by K4's body, then, on lane 0, 12 ints stored at `o`: the
-// candidate's penalty — its base penalty plus, when anchored, the
-// state's anchor residual pen - base_penalty(hcv, scv) and the move's
-// anchor delta — its hcv and scv, ev[3], ns[3] and the new rooms nr[3].
-__device__ __forceinline__ void tt_score_candidate_warp(
-    const TTSweepProblem& pb, const int* slots, const int* rooms,
-    const int16_t* att, const int16_t* occ, const int ev[3],
-    const int ns[3], const int on[3], const int* st,
-    const int* anchor_slots, const int* anchor_w, int anchored, int lane,
-    int* o) {
-    int nr[3], dh, ds;
-    tt_delta_one_warp(pb, slots, rooms, att, occ, ev, ns, on, lane, &dh,
-                      &ds, nr);
-    if (lane != 0) return;
+// Lane 0's part of the random-candidate scoring: the 12 ints of the
+// candidate (ev, ns) with deltas (dh, ds) and new rooms nr, stored at
+// `o` as tt_score_candidate_warp describes.
+__device__ __forceinline__ void tt_store_candidate(
+    const int* slots, const int ev[3], const int ns[3], const int nr[3],
+    int dh, int ds, const int* st, const int* anchor_slots,
+    const int* anchor_w, int anchored, int* o) {
     const int hcv = st[1] + dh, scv = st[2] + ds;
     int pen = tt_base_penalty(hcv, scv);
     if (anchored) {
@@ -405,6 +600,43 @@ __device__ __forceinline__ void tt_score_candidate_warp(
         o[6 + m] = ns[m];
         o[9 + m] = nr[m];
     }
+}
+
+// One random candidate of K8 (ops/delta.py:240-257), run by the 32
+// lanes of one warp: the padded 3-relocation (ev, ns, on) of the
+// individual whose (pen, hcv, scv) are st[0..2] scored by K4's body,
+// then, on lane 0, 12 ints stored at `o`: the candidate's penalty — its
+// base penalty plus, when anchored, the state's anchor residual pen -
+// base_penalty(hcv, scv) and the move's anchor delta — its hcv and scv,
+// ev[3], ns[3] and the new rooms nr[3].
+__device__ __forceinline__ void tt_score_candidate_warp(
+    const TTSweepProblem& pb, const int* slots, const int* rooms,
+    const int16_t* att, const int16_t* occ, const int ev[3],
+    const int ns[3], const int on[3], const int* st,
+    const int* anchor_slots, const int* anchor_w, int anchored, int lane,
+    int* o) {
+    int nr[3], dh, ds;
+    tt_delta_one_warp(pb, slots, rooms, att, occ, ev, ns, on, lane, &dh,
+                      &ds, nr);
+    if (lane == 0)
+        tt_store_candidate(slots, ev, ns, nr, dh, ds, st, anchor_slots,
+                           anchor_w, anchored, o);
+}
+
+// The same scoring on the bitsets (K10, ops/lahc.py:255-281): K4's body
+// is tt_delta_one_bits_warp.
+__device__ __forceinline__ void tt_score_candidate_bits_warp(
+    const TTSweepProblem& pb, const int* slots, const int* rooms,
+    const int16_t* att, const int16_t* occ, const uint64_t* amask,
+    const uint32_t* slot_ev, const int ev[3], const int ns[3],
+    const int on[3], const int* st, const int* anchor_slots,
+    const int* anchor_w, int anchored, int lane, int* o) {
+    int nr[3], dh, ds;
+    tt_delta_one_bits_warp(pb, slots, rooms, att, occ, amask, slot_ev, ev,
+                           ns, on, lane, &dh, &ds, nr);
+    if (lane == 0)
+        tt_store_candidate(slots, ev, ns, nr, dh, ds, st, anchor_slots,
+                           anchor_w, anchored, o);
 }
 
 // The chosen candidate `o` (12 ints, as tt_score_candidate_warp stores

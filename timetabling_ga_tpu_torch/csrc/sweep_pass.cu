@@ -9,45 +9,77 @@
 // :322. Before this kernel the port ran each step as ~130 launches: K3
 // (move1_sweep.cu) and K4 (delta_one.cu) plus the plain-torch step body.
 //
-// Bound on this card: the serial chain of n_steps CTA-wide steps, each a
-// handful of __syncthreads()-separated phases (evaluate, two block
-// reductions, apply), not bytes: one individual's state is ~50 KB at
-// comp scale and is read and written once per pass.
+// Bound on this card: the serial chain of n_steps steps, each a handful
+// of barrier-separated phases (evaluate, the reductions, apply), not
+// bytes: one individual's state is ~51 KB at comp scale and is read and
+// written once per pass.
 //
-// Design: one CTA of 512 threads per individual, so that 16 warps share
-// the Move2/Move3 candidates of a step. The prologue loads the
-// individual's slots, rooms, att (S x T int16) and occ (T x R int16),
-// and the conflict bitset when it fits, into dynamic shared memory, and
-// builds the pivots: the affine permutation (a*j + b) mod E, or in hot
-// mode the event heat in integers, made float32 as
-// fadd_rn(fmul_rn(heat, mask), noise) (no FMA contraction, as torch
-// computes it) and ranked by counting (value descending, lower index
-// first on ties: the stable sort's and lax.top_k's order). Each step
-// then runs K3's body (sweep_dev.cuh) per block pivot with one thread
-// per target slot, K4's body with one warp per Move2/Move3 candidate,
-// a block-wide lexicographic (pen, scv, index) min and, with sideways,
-// a block-wide argmax of the tie noise (lowest index on ties), and
-// applies the chosen move to the shared-memory state. Nothing goes back
-// to global memory until the epilogue. All arithmetic is integer-exact
-// and equals sweep_pass_plain (ops/sweep.py) bit for bit.
+// Design: a thread-block cluster of CS CTAs (512 threads each) per
+// individual, launched with cudaLaunchKernelEx. Every CTA of a cluster
+// loads the individual's slots, rooms, att (S x T int16) and occ (T x R
+// int16), and the conflict bitset when it fits, into its own dynamic
+// shared memory (from L2 after the first), and builds two bitsets there
+// (sweep_dev.cuh): amask, a student's attended slots as one u64, and
+// slot_ev, each slot's events as W words. It builds the pivots: the
+// affine permutation (a*j + b) mod E, or in hot mode the event heat in
+// integers, made float32 as fadd_rn(fmul_rn(heat, mask), noise) (no FMA
+// contraction, as torch computes it) and ranked by counting (value
+// descending, lower index first on ties: the stable sort's and
+// lax.top_k's order). Each step splits the candidates over the cluster:
+// block pivot b's Move1 (K3's body, a thread per target slot) goes to
+// the CTA of rank b mod CS, and the Move2/Move3 candidates to the
+// cluster's CS x 16 warps, one warp each (K4's body on the bitsets). Each
+// CTA reduces its own candidates to the lexicographic (pen, scv, index)
+// min and publishes it, with the winner's hcv and packed rooms, in its
+// shared memory; after a cluster barrier every warp reads the CS records
+// through distributed shared memory and reduces them (with sideways, a
+// second such round takes the argmax of the tie noise, lowest index on
+// ties). Both orders are total, so the winner does not depend on CS. The
+// records are double-buffered by step parity: a CTA writes step pos+2's
+// record only after the cluster barrier of step pos+1, which every CTA
+// reaches after reading step pos's. Every CTA then applies the same move
+// to its own copy (keeping att, occ and both bitsets), so the copies
+// never diverge; rank 0 writes the epilogue and the pivots. A last
+// cluster barrier keeps every CTA's shared memory alive until no other
+// reads it. All arithmetic is integer-exact and equals sweep_pass_plain
+// (ops/sweep.py) bit for bit.
+#include <cooperative_groups.h>
+
 #include "sweep_dev.cuh"
 
+namespace cg = cooperative_groups;
+
+// threads of one CTA; a build may ask for fewer (any multiple of 32 of at
+// least T), as the CPU emulation in tests/test_torch_cuda_emu.py does
+#ifndef K5_THREADS
 #define K5_THREADS 512
+#endif
 #define K5_WARPS (K5_THREADS / 32)
+// the largest portable cluster (ops/sweep.py K5_MAX_CLUSTER)
+#define K5_MAX_CLUSTER 8
 #define K5_BIG (1 << 20)
 #define K5_INT_MAX 0x7fffffff
+// per-step cluster records, two of each for the parity double buffer:
+// (pen, scv, idx, hcv, packed rooms) of the lexicographic min and
+// (noise, idx, pen, scv, hcv, packed rooms) of the tie argmax
+#define K5_LEX_REC 5
+#define K5_ARG_REC 6
 // block-wide scalars: the Move1 accumulator and the row's (pen, hcv, scv,
-// strict), 3 + 2 reduction ints per warp, the 16-int chosen move; the
-// Python side mirrors the 128 in ops/sweep.py _K5_MISC_INTS
+// strict), 3 + 2 reduction ints per warp, the 16-int chosen move, the
+// cluster records; the Python side mirrors the 128 in ops/sweep.py
+// _K5_MISC_INTS
 #define K5_MISC_INTS 128
-static_assert(8 + 5 * K5_WARPS + 16 <= K5_MISC_INTS,
+#define K5_MISC_MV (8 + 5 * K5_WARPS)
+#define K5_MISC_LEX (K5_MISC_MV + 16)
+#define K5_MISC_ARG (K5_MISC_LEX + 2 * K5_LEX_REC)
+static_assert(K5_MISC_ARG + 2 * K5_ARG_REC <= K5_MISC_INTS,
               "K5's misc region is too small for its warps");
 
 // Byte offsets of the shared-memory regions; the Python side mirrors it
 // in ops/sweep.py sweep_pass_smem_bytes.
 struct K5Smem {
-    unsigned slots, rooms, piv, heat, cand, per_slot, misc, masks, occ, att,
-        bits, total;
+    unsigned slots, rooms, piv, heat, cand, per_slot, misc, masks, amask,
+        slot_ev, occ, att, bits, total;
     int bits_in_smem;
 };
 
@@ -68,6 +100,8 @@ __host__ __device__ inline K5Smem k5_smem_layout(
     m.per_slot = o; o += k5_align(4 * (size_t)T);
     m.misc = o; o += k5_align(4 * (size_t)K5_MISC_INTS);
     m.masks = o; o += k5_align(8 * (size_t)(max_students > 0 ? max_students : 1));
+    m.amask = o; o += k5_align(8 * (size_t)S);
+    m.slot_ev = o; o += k5_align(4 * (size_t)T * W);
     m.occ = o; o += k5_align(2 * (size_t)T * R);
     m.att = o; o += k5_align(2 * (size_t)S * T);
     m.bits = o;
@@ -94,7 +128,7 @@ struct K5Args {
     int* slots_out; int* rooms_out; int16_t* att_out; int16_t* occ_out;
     int* pen_out; int* hcv_out; int* scv_out; uint8_t* strict_out;
     int* pivots_out;
-    int P, K, B, SB, n_steps, n_cand, use_hot, sideways, anchored;
+    int P, K, B, SB, n_steps, n_cand, use_hot, sideways, anchored, CS;
     K5Smem lay;
 };
 
@@ -154,6 +188,14 @@ __device__ __forceinline__ void k5_candidate(
     *invalid = q1 == e || q2 == e || q1 == q2;
 }
 
+// The rank of the CTA that evaluates candidate `c`: block pivot b's
+// Move1 targets go to rank b mod CS, Move2/Move3 candidate n1 + g to the
+// cluster's warp g mod (CS x 16), which is warp g mod 16 of rank
+// (g / 16) mod CS.
+__device__ __forceinline__ int k5_owner(int c, int n1, int T, int CS) {
+    return c < n1 ? (c / T) % CS : ((c - n1) / K5_WARPS) % CS;
+}
+
 // New (pen, scv, hcv) and packed rooms of candidate `c`; `st` holds the
 // individual's (pen, hcv, scv). The anchor residual and the candidate's
 // anchor delta enter only on anchored instances, as in the plain version.
@@ -180,36 +222,33 @@ __device__ __forceinline__ void k5_store(
 }
 
 // Event heat (sweep.py:173): while infeasible the clash count of e's
-// cell + its unsuitable flag + correlated events sharing its slot; once
-// feasible its last-slot cost + run-of-3 and single-day membership over
-// its students. Integers; the caller makes it float32.
+// cell + its unsuitable flag + correlated events sharing its slot (a
+// popcount of e's conflict row against its slot's events); once feasible
+// its last-slot cost + run-of-3 and single-day membership over its
+// students, their days read from amask. Integers; the caller makes it
+// float32.
 __device__ __forceinline__ int k5_heat(
     const TTSweepProblem& pb, const int* slots, const int* rooms,
-    const int16_t* att, const int16_t* occ, int e, bool infeasible) {
-    const int R = pb.R, T = pb.T, spd = pb.spd, W = pb.W;
+    const int16_t* occ, const uint64_t* amask, const uint32_t* slot_ev,
+    int e, bool infeasible) {
+    const int R = pb.R, spd = pb.spd, W = pb.W;
     const int s_e = slots[e];
     if (infeasible) {
         int r_e = rooms[e];
         int h = occ[s_e * R + r_e] - 1 + (pb.possible[e * R + r_e] ? 0 : 1);
         const uint32_t* row = pb.conflict_bits + (size_t)e * W;
+        const uint32_t* sev = slot_ev + (size_t)s_e * W;
         for (int w = 0; w < W; ++w) {
-            uint32_t bits = row[w];
+            uint32_t bits = row[w] & sev[w];
             if (w == (e >> 5)) bits &= ~(1u << (e & 31));
-            while (bits) {
-                int f = w * 32 + __ffs(bits) - 1;
-                bits &= bits - 1;
-                h += slots[f] == s_e ? 1 : 0;
-            }
+            h += __popc(bits);
         }
         return h;
     }
     int d = s_e / spd, j = s_e % spd;
     int h = j == spd - 1 ? pb.student_count[e] : 0;
     for (int k = pb.ev_ptr[e]; k < pb.ev_ptr[e + 1]; ++k) {
-        const int16_t* a = att + (size_t)pb.ev_stu[k] * T + d * spd;
-        uint32_t b = 0u;
-        for (int i = 0; i < spd; ++i)
-            if (a[i] > 0) b |= 1u << i;
+        uint32_t b = tt_day_bits(amask[pb.ev_stu[k]], d, spd);
         if (!((b >> j) & 1u)) continue;
         int l1 = j >= 1 ? (b >> (j - 1)) & 1u : 0;
         int l2 = j >= 2 ? (b >> (j - 2)) & 1u : 0;
@@ -223,6 +262,11 @@ __device__ __forceinline__ int k5_heat(
 __device__ __forceinline__ bool k5_lex_less(int p1, int s1, int i1, int p2,
                                             int s2, int i2) {
     return p1 < p2 || (p1 == p2 && (s1 < s2 || (s1 == s2 && i1 < i2)));
+}
+
+__device__ __forceinline__ bool k5_arg_better(float v1, int i1, float v2,
+                                              int i2) {
+    return v1 > v2 || (v1 == v2 && i1 < i2);
 }
 
 // Block-wide lexicographic min of (pen, scv, idx); `red` holds 3 ints
@@ -252,29 +296,77 @@ __device__ __forceinline__ void k5_block_lexmin(int* kp, int* ks, int* ki,
 
 // Block-wide argmax of (value, -idx): the highest value, the lowest
 // index among equal ones (torch.argmax / jnp.argmax take the first).
-__device__ __forceinline__ int k5_block_argmax(float v, int i, float* redv,
-                                               int* redi) {
+// Every thread returns the winner in *v, *i.
+__device__ __forceinline__ void k5_block_argmax(float* kv, int* ki,
+                                                float* redv, int* redi) {
+    float v = *kv;
+    int i = *ki;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
         float v2 = __shfl_xor_sync(TT_FULL_MASK, v, off);
         int i2 = __shfl_xor_sync(TT_FULL_MASK, i, off);
-        if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
+        if (k5_arg_better(v2, i2, v, i)) { v = v2; i = i2; }
     }
     int warp = threadIdx.x >> 5;
     if ((threadIdx.x & 31) == 0) { redv[warp] = v; redi[warp] = i; }
     __syncthreads();
     v = redv[0]; i = redi[0];
     for (int w = 1; w < K5_WARPS; ++w)
-        if (redv[w] > v || (redv[w] == v && redi[w] < i)) {
+        if (k5_arg_better(redv[w], redi[w], v, i)) {
             v = redv[w]; i = redi[w];
         }
-    return i;
+    *kv = v; *ki = i;
 }
 
-__global__ void __launch_bounds__(K5_THREADS) sweep_pass_kernel(K5Args A) {
+// A barrier over the cluster (one CTA: over the block). Its arrive
+// releases and its wait acquires this CTA's shared-memory writes.
+__device__ __forceinline__ void k5_cluster_sync(cg::cluster_group& cl,
+                                                int CS) {
+    if (CS > 1)
+        cl.sync();
+    else
+        __syncthreads();
+}
+
+// The cluster-wide winner of the records `rec` (n ints at the same
+// offset in every CTA's shared memory): lane q < CS reads rank q's
+// record through distributed shared memory, and a shuffle reduction
+// under `better` leaves the winner in every lane's out[0..n).
+template <int N, class Better>
+__device__ __forceinline__ void k5_cluster_reduce(cg::cluster_group& cl,
+                                                  int CS, int* rec,
+                                                  int lane, int out[N],
+                                                  const int empty[N],
+                                                  Better better) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) out[k] = empty[k];
+    if (lane < CS) {
+        const int* r = CS > 1 ? cl.map_shared_rank(rec, (unsigned)lane) : rec;
+#pragma unroll
+        for (int k = 0; k < N; ++k) out[k] = r[k];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        int o[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+            o[k] = __shfl_xor_sync(TT_FULL_MASK, out[k], off);
+        if (better(o, out)) {
+#pragma unroll
+            for (int k = 0; k < N; ++k) out[k] = o[k];
+        }
+    }
+}
+
+// Two CTAs an SM (at most 64 registers a thread): a repair pass of 256
+// individuals then runs in one wave on 132 SMs instead of two.
+__global__ void __launch_bounds__(K5_THREADS, 2)
+    sweep_pass_kernel(K5Args A) {
     extern __shared__ __align__(16) unsigned char k5_smem[];
+    cg::cluster_group cl = cg::this_cluster();
     const int E = A.pb.E, R = A.pb.R, S = A.pb.S, T = A.pb.T, W = A.pb.W;
-    const int p = blockIdx.x, tid = threadIdx.x;
+    const int CS = A.CS, rank = (int)cl.block_rank();
+    const int p = blockIdx.x / CS, tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     int* slots = (int*)(k5_smem + A.lay.slots);
     int* rooms = (int*)(k5_smem + A.lay.rooms);
@@ -287,6 +379,8 @@ __global__ void __launch_bounds__(K5_THREADS) sweep_pass_kernel(K5Args A) {
     int* per_slot = (int*)(k5_smem + A.lay.per_slot);
     int* misc = (int*)(k5_smem + A.lay.misc);
     uint64_t* masks = (uint64_t*)(k5_smem + A.lay.masks);
+    uint64_t* amask = (uint64_t*)(k5_smem + A.lay.amask);
+    uint32_t* slot_ev = (uint32_t*)(k5_smem + A.lay.slot_ev);
     int16_t* occ = (int16_t*)(k5_smem + A.lay.occ);
     int16_t* att = (int16_t*)(k5_smem + A.lay.att);
     uint32_t* bits = (uint32_t*)(k5_smem + A.lay.bits);
@@ -295,7 +389,9 @@ __global__ void __launch_bounds__(K5_THREADS) sweep_pass_kernel(K5Args A) {
     int* red = misc + 8;             // 3 per warp
     float* redv = (float*)(misc + 8 + 3 * K5_WARPS);
     int* redi = misc + 8 + 4 * K5_WARPS;
-    int* mv = misc + 8 + 5 * K5_WARPS;  // accept, ev, old slot/room, ns, nr
+    int* mv = misc + K5_MISC_MV;     // accept, ev, old slot/room, ns, nr
+    int* lexrec = misc + K5_MISC_LEX;
+    int* argrec = misc + K5_MISC_ARG;
 
     TT_PROF_START();
     // ---- prologue: the individual's state into shared memory
@@ -320,41 +416,51 @@ __global__ void __launch_bounds__(K5_THREADS) sweep_pass_kernel(K5Args A) {
     }
     const int perm_a = A.a[p], perm_b = A.b[p];
     __syncthreads();
+    tt_build_bitsets_block(pb, slots, att, amask, slot_ev);
+    __syncthreads();
 
     // ---- pivots: the permutation, or the top-K events by heat
     if (A.use_hot) {
         const bool infeasible = st[1] > 0;
         for (int e = tid; e < E; e += K5_THREADS) {
-            int h = k5_heat(pb, slots, rooms, att, occ, e, infeasible);
+            int h = k5_heat(pb, slots, rooms, occ, amask, slot_ev, e,
+                            infeasible);
             heat[e] = __fadd_rn(__fmul_rn((float)h, A.event_mask[e]),
                                 A.hot_noise[(size_t)p * E + e]);
         }
         __syncthreads();
         for (int e = tid; e < E; e += K5_THREADS) {
             float v = heat[e];
-            int rank = 0;
+            int rank_e = 0;
             for (int f = 0; f < E; ++f) {
                 float u = heat[f];
-                rank += (u > v || (u == v && f < e)) ? 1 : 0;
+                rank_e += (u > v || (u == v && f < e)) ? 1 : 0;
             }
-            if (rank < A.K) piv[rank] = e;
+            if (rank_e < A.K) piv[rank_e] = e;
         }
     } else {
         for (int j = tid; j < E; j += K5_THREADS)
             piv[j] = k5_perm(perm_a, perm_b, j, E);
     }
     __syncthreads();
-    for (int j = tid; j < A.K; j += K5_THREADS)
-        A.pivots_out[(size_t)p * A.K + j] = piv[j];
+    if (rank == 0)
+        for (int j = tid; j < A.K; j += K5_THREADS)
+            A.pivots_out[(size_t)p * A.K + j] = piv[j];
 
     TT_PROF(9);
     const int n1 = A.B * T;
+    const int lex_empty[K5_LEX_REC] = {K5_INT_MAX, K5_INT_MAX, K5_INT_MAX,
+                                       0, 0};
+    const int arg_empty[K5_ARG_REC] = {__float_as_int(-1.0f), K5_INT_MAX,
+                                       0, 0, 0, 0};
     for (int pos = 0; pos < A.n_steps; ++pos) {
-        // ---- Move1: every block pivot to every slot (K3's body)
-        for (int b = 0; b < A.B; ++b) {
+        const int buf = pos & 1;
+        // ---- Move1: this rank's block pivots to every slot (K3's body)
+        for (int b = rank; b < A.B; b += CS) {
             const int e = piv[(pos * A.B + b) % A.K];
             __syncthreads();
-            tt_move1_prepare(pb, slots, att, e, per_slot, rm_acc, masks);
+            tt_move1_prepare(pb, slots, att, amask, slot_ev, e, per_slot,
+                             rm_acc, masks);
             if (tid < T) {
                 int dh, ds, nr;
                 tt_move1_target(pb, slots, rooms, occ, e, tid, per_slot,
@@ -367,13 +473,15 @@ __global__ void __launch_bounds__(K5_THREADS) sweep_pass_kernel(K5Args A) {
             }
         }
         TT_PROF(0);
-        // ---- Move2 / Move3: one warp per candidate (K4's body)
-        for (int c = n1 + warp; c < A.n_cand; c += K5_WARPS) {
+        // ---- Move2 / Move3: one warp of the cluster per candidate (K4's
+        // body on the bitsets)
+        for (int c = n1 + rank * K5_WARPS + warp; c < A.n_cand;
+             c += CS * K5_WARPS) {
             int ev[3], ns[3], on[3], nr[3], invalid, dh, ds;
             k5_candidate(A, perm_a, perm_b, piv, slots, pos, c, ev, ns, on,
                          &invalid);
-            tt_delta_one_warp(pb, slots, rooms, att, occ, ev, ns, on, lane,
-                              &dh, &ds, nr);
+            tt_delta_one_bits_warp(pb, slots, rooms, att, occ, amask,
+                                   slot_ev, ev, ns, on, lane, &dh, &ds, nr);
             if (lane == 0)
                 k5_store(A, st, slots, c, invalid ? K5_BIG : dh, ds, ev, ns,
                          nr[0], nr[1], nr[2], c_pen, c_scv, c_hcv, c_nr);
@@ -383,14 +491,34 @@ __global__ void __launch_bounds__(K5_THREADS) sweep_pass_kernel(K5Args A) {
         __syncthreads();
         TT_PROF(5);
 
-        // ---- the choice (sweep.py:507-550)
+        // ---- the choice (sweep.py:507-550): this CTA's lexicographic
+        // min, then the cluster's
         int row_min = K5_INT_MAX, scv_min = K5_INT_MAX, best = K5_INT_MAX;
         for (int c = tid; c < A.n_cand; c += K5_THREADS)
-            if (k5_lex_less(c_pen[c], c_scv[c], c, row_min, scv_min, best)) {
+            if (k5_owner(c, n1, T, CS) == rank
+                && k5_lex_less(c_pen[c], c_scv[c], c, row_min, scv_min,
+                               best)) {
                 row_min = c_pen[c]; scv_min = c_scv[c]; best = c;
             }
         k5_block_lexmin(&row_min, &scv_min, &best, red);
+        if (tid == 0) {
+            int* r = lexrec + K5_LEX_REC * buf;
+            const bool any = best != K5_INT_MAX;
+            r[0] = row_min; r[1] = scv_min; r[2] = best;
+            r[3] = any ? c_hcv[best] : 0;
+            r[4] = any ? c_nr[best] : 0;
+        }
         TT_PROF(6);
+        k5_cluster_sync(cl, CS);
+        int win[K5_LEX_REC];
+        k5_cluster_reduce<K5_LEX_REC>(
+            cl, CS, lexrec + K5_LEX_REC * buf, lane, win, lex_empty,
+            [](const int* x, const int* y) {
+                return k5_lex_less(x[0], x[1], x[2], y[0], y[1], y[2]);
+            });
+        TT_PROF(11);
+        row_min = win[0]; scv_min = win[1]; best = win[2];
+        int bp = row_min, bs = scv_min, bh = win[3], bnr = win[4];
         int allow = 0;
         if (A.sideways) {
             // drift: any penalty tie; descent: the lexicographic ties;
@@ -401,61 +529,87 @@ __global__ void __launch_bounds__(K5_THREADS) sweep_pass_kernel(K5Args A) {
             float bv = -1.0f;
             int bi = K5_INT_MAX;
             for (int c = tid; c < A.n_cand; c += K5_THREADS) {
-                bool tie = c_pen[c] == row_min
+                bool tie = k5_owner(c, n1, T, CS) == rank
+                           && c_pen[c] == row_min
                            && (allow || c_scv[c] == scv_min);
-                if (tie) {
-                    float v = noise[c];
-                    if (v > bv || (v == bv && c < bi)) { bv = v; bi = c; }
+                if (tie && k5_arg_better(noise[c], c, bv, bi)) {
+                    bv = noise[c];
+                    bi = c;
                 }
             }
-            best = k5_block_argmax(bv, bi, redv, redi);
+            k5_block_argmax(&bv, &bi, redv, redi);
+            if (tid == 0) {
+                int* r = argrec + K5_ARG_REC * buf;
+                const bool any = bi != K5_INT_MAX;
+                r[0] = __float_as_int(bv); r[1] = bi;
+                r[2] = any ? c_pen[bi] : 0;
+                r[3] = any ? c_scv[bi] : 0;
+                r[4] = any ? c_hcv[bi] : 0;
+                r[5] = any ? c_nr[bi] : 0;
+            }
+            TT_PROF(7);
+            k5_cluster_sync(cl, CS);
+            int aw[K5_ARG_REC];
+            k5_cluster_reduce<K5_ARG_REC>(
+                cl, CS, argrec + K5_ARG_REC * buf, lane, aw, arg_empty,
+                [](const int* x, const int* y) {
+                    return k5_arg_better(__int_as_float(x[0]), x[1],
+                                         __int_as_float(y[0]), y[1]);
+                });
+            TT_PROF(11);
+            best = aw[1]; bp = aw[2]; bs = aw[3]; bh = aw[4]; bnr = aw[5];
         }
         if (tid == 0) {
-            int bp = c_pen[best], bs = c_scv[best];
             bool strict = bp < st[0] || (bp == st[0] && bs < st[2]);
             bool better = strict || (allow && bp == st[0]);
             st[3] |= strict ? 1 : 0;
             mv[0] = better ? 1 : 0;
             if (better) {
                 int ev[3], ns[3], on[3], invalid;
-                k5_candidate(A, perm_a, perm_b, piv, slots, pos, best, ev, ns, on,
-                             &invalid);
-                int nr = c_nr[best];
+                k5_candidate(A, perm_a, perm_b, piv, slots, pos, best, ev,
+                             ns, on, &invalid);
 #pragma unroll
                 for (int m = 0; m < 3; ++m) {
                     mv[1 + m] = ev[m];
                     mv[4 + m] = slots[ev[m]];
                     mv[7 + m] = rooms[ev[m]];
                     mv[10 + m] = ns[m];
-                    mv[13 + m] = (nr >> (10 * m)) & 1023;
+                    mv[13 + m] = (bnr >> (10 * m)) & 1023;
                 }
-                st[0] = bp; st[1] = c_hcv[best]; st[2] = bs;
+                st[0] = bp; st[1] = bh; st[2] = bs;
             }
         }
         __syncthreads();
 
         TT_PROF(7);
-        // ---- the apply (delta.py:188 _apply_move), in shared memory
-        if (mv[0]) tt_apply_move_block(pb, mv + 1, slots, rooms, att, occ);
+        // ---- the apply (delta.py:188 _apply_move), in shared memory, the
+        // same move in every CTA of the cluster
+        if (mv[0])
+            tt_apply_move_bits_block(pb, mv + 1, slots, rooms, att, occ,
+                                     amask, slot_ev);
         TT_PROF(8);
     }
     __syncthreads();
 
-    // ---- epilogue: the state back to global memory
-    for (int i = tid; i < E; i += K5_THREADS) {
-        A.slots_out[(size_t)p * E + i] = slots[i];
-        A.rooms_out[(size_t)p * E + i] = rooms[i];
+    // ---- epilogue: rank 0 writes the state back to global memory
+    if (rank == 0) {
+        for (int i = tid; i < E; i += K5_THREADS) {
+            A.slots_out[(size_t)p * E + i] = slots[i];
+            A.rooms_out[(size_t)p * E + i] = rooms[i];
+        }
+        for (int i = tid; i < S * T; i += K5_THREADS)
+            A.att_out[(size_t)p * S * T + i] = att[i];
+        for (int i = tid; i < T * R; i += K5_THREADS)
+            A.occ_out[(size_t)p * T * R + i] = occ[i];
+        if (tid == 0) {
+            A.pen_out[p] = st[0];
+            A.hcv_out[p] = st[1];
+            A.scv_out[p] = st[2];
+            A.strict_out[p] = (uint8_t)st[3];
+        }
     }
-    for (int i = tid; i < S * T; i += K5_THREADS)
-        A.att_out[(size_t)p * S * T + i] = att[i];
-    for (int i = tid; i < T * R; i += K5_THREADS)
-        A.occ_out[(size_t)p * T * R + i] = occ[i];
-    if (tid == 0) {
-        A.pen_out[p] = st[0];
-        A.hcv_out[p] = st[1];
-        A.scv_out[p] = st[2];
-        A.strict_out[p] = (uint8_t)st[3];
-    }
+    // no CTA leaves while another may still read its records
+    k5_cluster_sync(cl, CS);
     TT_PROF(10);
 }
 
@@ -479,9 +633,10 @@ extern "C" int tt_sweep_pass(
     int* hcv_out, int* scv_out, uint8_t* strict_out, int* pivots_out,
     int P, int E, int R, int S, int T, int spd, int W, int max_students,
     int K, int B, int SB, int n_steps, int n_cand, int use_hot,
-    int sideways, int anchored, void* stream) {
+    int sideways, int anchored, int cluster, void* stream) {
     if (P <= 0 || E < 3 || T > 64 || T > K5_THREADS || R > 32 || spd > 32
         || K <= 0 || B <= 0 || SB < 0 || n_steps <= 0 || n_cand < B * T
+        || cluster < 1 || cluster > K5_MAX_CLUSTER
         || (use_hot && !hot_noise) || (sideways && (!tie_noise || !allow)))
         return (int)cudaErrorInvalidValue;
     K5Smem lay = k5_smem_layout(E, R, S, T, K, n_cand, use_hot,
@@ -506,7 +661,26 @@ extern "C" int tt_sweep_pass(
     A.pivots_out = pivots_out;
     A.P = P; A.K = K; A.B = B; A.SB = SB; A.n_steps = n_steps;
     A.n_cand = n_cand; A.use_hot = use_hot; A.sideways = sideways;
-    A.anchored = anchored; A.lay = lay;
-    sweep_pass_kernel<<<P, K5_THREADS, lay.total, (cudaStream_t)stream>>>(A);
+    A.anchored = anchored; A.CS = cluster; A.lay = lay;
+
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(P * cluster, 1, 1);
+    cfg.blockDim = dim3(K5_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = lay.total;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // a cluster the card cannot place is refused, never shrunk
+    int n_clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&n_clusters, sweep_pass_kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (n_clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    err = cudaLaunchKernelEx(&cfg, sweep_pass_kernel, A);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -3,14 +3,17 @@
     python -m timetabling_ga_tpu_torch.k5_phases
 
 Builds csrc/sweep_pass.cu once more with K5's phase counters compiled in
-(-DTT_K5_PROF: block 0's thread 0 reads clock64() at each phase
-boundary, csrc/sweep_dev.cuh), under build/torch_kernels/k5_phases/. At
-the main path's three sweep shapes on fixtures/comp01s.tim — the
-engine's repair pass at P = 16 and 256 individuals, its post pass at
-P = 4 — it checks that the instrumented K5 equals the regular one
-exactly and prints one JSON line per shape with each phase's share of
-block 0's cycles and its cycles per step. The first line is the card's
-name and power limit. Needs a CUDA device and nvcc.
+(-DTT_K5_PROF: block 0's thread 0 — rank 0 of cluster 0 — reads
+clock64() at each phase boundary, csrc/sweep_dev.cuh), under
+build/torch_kernels/k5_phases/. At the main path's three sweep shapes on
+fixtures/comp01s.tim — the engine's repair pass at P = 16 and 256
+individuals, its post pass at P = 4 — each at the cluster size K5's
+wrapper takes there, it checks that the instrumented K5 equals the
+regular one exactly and prints one JSON line per shape with the cluster
+size, each phase's share of that thread's cycles and its cycles per
+step ("cluster reduction" is the wait at the cluster barrier and the
+read of the other CTAs' records). The first line is the card's name and
+power limit. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ PHASES = ("move1", "k4 occupancy + room argmins",
           "k4 unsuitable + conflict dots", "k4 day re-score",
           "candidate store", "wait for the other warps",
           "reduction 1 (lex min)", "reduction 2 + choice", "apply",
-          "prologue (load + pivots)", "epilogue")
+          "prologue (load + pivots)", "epilogue", "cluster reduction")
 
 
 def build_prof():
@@ -90,9 +93,12 @@ def main() -> int:
             draws = sweep.make_sweep_draws([g], P, sh, E, gc.ls_sideways,
                                            dev)
 
+            cs = sweep.auto_cluster(pa, sh, P, dev)
+
             def run(lib):
                 kernels._LIBS["sweep_pass"] = lib
-                return sweep.sweep_pass_kernel(pa, draws, st, *args)
+                return sweep.sweep_pass_kernel(pa, draws, st, *args,
+                                               cluster=cs)
 
             want = run(regular)
             if take(ctypes.addressof(counters)) != 0:
@@ -108,8 +114,8 @@ def main() -> int:
             cyc = [int(counters[k]) for k in range(len(PHASES))]
             total = sum(cyc)
             print(json.dumps({
-                "shape": [phase, P], "steps": sh.n_steps,
-                "block0_cycles": total,
+                "shape": [phase, P], "steps": sh.n_steps, "cluster": cs,
+                "rank0_cycles": total,
                 "share": {n: c / total for n, c in zip(PHASES, cyc)},
                 "cycles_per_step": {n: c / sh.n_steps
                                     for n, c in zip(PHASES, cyc)}}))

@@ -51,11 +51,11 @@ SIGNATURES = {
                      "assign_rooms"),
     "batch_penalty": ("tt_batch_penalty", [_P] * 13 + [_I] * 8 + [_P],
                       "batch_penalty"),
-    "move1_sweep": ("tt_move1_sweep", [_P] * 16 + [_I] * 9 + [_P],
+    "move1_sweep": ("tt_move1_sweep", [_P] * 18 + [_I] * 9 + [_P],
                     "move1_sweep"),
     "delta_one": ("tt_delta_one", [_P] * 19 + [_I] * 8 + [_P],
                   "delta_one"),
-    "sweep_pass": ("tt_sweep_pass", [_P] * 33 + [_I] * 16 + [_P],
+    "sweep_pass": ("tt_sweep_pass", [_P] * 33 + [_I] * 17 + [_P],
                    "sweep_pass"),
     "breed": ("tt_breed", [_P] * 21 + [_I] * 7 + [_P], "breed"),
     "relocate": ("tt_relocate", [_P] * 11 + [_I] * 5 + [_P], "breed"),

@@ -19,6 +19,10 @@ all rounds in one launch; `random_local_search_plain` is its plain
 version, a Python loop over the rounds. Both take and return `LSRows`
 (assignments and penalty terms; K8 builds att and occ itself) and take
 their draws as `LSDraws`.
+
+`slot_bitsets` is the plain version of the two bitsets K5 and K10 keep
+beside att in shared memory (a student's attended slots, each slot's
+events), and `apply_bitsets` of how their apply keeps them up to date.
 """
 
 from __future__ import annotations
@@ -84,6 +88,68 @@ def state_of(pa, rows: LSRows) -> LSState:
 def init_state(pa, slots, rooms) -> LSState:
     """Maintained tensors + baseline fitness for a population."""
     return state_of(pa, init_rows(pa, slots, rooms))
+
+
+def slot_bitsets(pa, slots, att):
+    """The two bitsets K5 and K10 keep beside att in shared memory:
+    amask (P, S) int64, bit t of student s set iff att[s, t] > 0, and
+    slot_ev (P, T, W) int32, bit f % 32 of word f // 32 of row t set iff
+    slots[f] == t (W = the conflict bitset's words per row). The plain
+    version of their prologue's build (csrc/sweep_dev.cuh)."""
+    P, E = slots.shape
+    T, W = pa.n_slots, pa.conflict_bits.shape[1]
+    dev = slots.device
+    i64 = torch.int64
+    one = torch.ones((), dtype=i64, device=dev)
+    bit_t = torch.bitwise_left_shift(one, torch.arange(T, device=dev))
+    amask = ((att > 0).to(i64) * bit_t).sum(-1)
+    in_slot = torch.zeros((P, W * 32, T), dtype=i64, device=dev)
+    in_slot[:, :E] = (slots.long()[..., None]
+                      == torch.arange(T, device=dev)).to(i64)
+    bit_f = torch.bitwise_left_shift(one, torch.arange(32, device=dev))
+    words = (in_slot.view(P, W, 32, T) * bit_f[:, None]).sum(2)  # (P, W, T)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return amask, words.transpose(1, 2).to(torch.int32).contiguous()
+
+
+def apply_bitsets(pa, amask, slot_ev, att, slots, evs, new_slots, accept):
+    """amask and slot_ev kept up to date through one apply_moves of the
+    candidate (P, 3) where `accept` (P,) holds, as K5's and K10's apply
+    keeps them: `att` is the attendance after the move, `slots` the
+    slots before it. Only the students of the events that change slot
+    have their bits of those events' old and new slots recomputed, and
+    each such event's bit moves from its old slot's row of slot_ev to its
+    new one's. The plain version of csrc/sweep_dev.cuh
+    tt_apply_move_bits_block's bookkeeping."""
+    P, S = amask.shape
+    T, W = pa.n_slots, slot_ev.shape[2]
+    i64 = torch.int64
+    evl = evs.long()
+    old = gather_rows(slots, evs).long()
+    ns = new_slots.long()
+    moving = accept[:, None] & (old != ns)                    # (P, 3)
+    cols = pa.attends_u8.t()[evl] > 0                         # (P, 3, S)
+    one = torch.ones((), dtype=i64, device=amask.device)
+    amask = amask.clone()
+    for m in range(3):
+        touched = moving[:, m, None] & cols[:, m]             # (P, S)
+        for t in (old[:, m], ns[:, m]):
+            on = att.gather(2, t[:, None, None].expand(P, S, 1))[..., 0] > 0
+            b = torch.bitwise_left_shift(one, t)[:, None]
+            amask = torch.where(touched, torch.where(on, amask | b,
+                                                     amask & ~b), amask)
+    words = slot_ev.reshape(P, T * W).clone()
+    w = evl // 32
+    b = torch.bitwise_left_shift(torch.ones((), dtype=torch.int32,
+                                            device=amask.device),
+                                 (evl % 32).to(torch.int32))
+    for m in range(3):
+        for row, keep in ((old, lambda x, y: x & ~y), (ns, torch.bitwise_or)):
+            idx = row[:, m:m + 1] * W + w[:, m:m + 1]
+            cur = words.gather(1, idx)
+            words.scatter_(1, idx, torch.where(
+                moving[:, m:m + 1], keep(cur, b[:, m:m + 1]), cur))
+    return amask, words.view(P, T, W)
 
 
 def _day_scv(b: torch.Tensor) -> torch.Tensor:

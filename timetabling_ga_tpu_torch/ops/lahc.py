@@ -12,7 +12,8 @@ lexicographically; the penalty keeps the anchor residual of the walker's
 start.
 
 `lahc_steps` is the wrapper of kernel K10 (csrc/lahc.cu), all steps of
-a call in one launch, one block per walker; `lahc_steps_plain` is its
+a call in one launch, one block per walker, scoring on the bitsets K5
+keeps (ops/delta.py `slot_bitsets`); `lahc_steps_plain` is its
 plain version, a Python loop over the steps. Draws come in as
 `LahcDraws`.
 """
@@ -153,13 +154,15 @@ def lahc_steps_plain(pa, draws: LahcDraws, state: LahcState) -> LahcState:
 def lahc_smem_bytes(pa, k_cands: int) -> int:
     """Dynamic shared memory K10 takes per walker, the layout of
     csrc/lahc.cu `k10_smem_layout`: slots, rooms and the best snapshot's
-    slots and rooms, 12 ints per candidate, 32 block scalars, occ and
-    att, each rounded up to 16 bytes, plus the conflict bitset when the
-    total still fits in SMEM_LIMIT (else K10 reads it from global
-    memory)."""
+    slots and rooms, 12 ints per candidate, 32 block scalars, the bitsets
+    amask (S u64) and slot_ev (T x W u32; ops/delta.py slot_bitsets),
+    occ and att, each rounded up to 16 bytes, plus the conflict bitset
+    when the total still fits in SMEM_LIMIT (else K10 reads it from
+    global memory)."""
     E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
     W = pa.conflict_bits.shape[1]
-    parts = (4 * E,) * 4 + (4 * 12 * k_cands, 4 * 32, 2 * T * R, 2 * S * T)
+    parts = (4 * E,) * 4 + (4 * 12 * k_cands, 4 * 32, 8 * S, 4 * T * W,
+                            2 * T * R, 2 * S * T)
     total = sum(-(-x // 16) * 16 for x in parts)
     with_bits = total + -(-4 * E * W // 16) * 16
     return with_bits if with_bits <= kernels.SMEM_LIMIT else total

@@ -8,8 +8,10 @@ with `swap_block` permutation partners plus, when p3 > 0, Move3 3-cycles
 over adjacent partner pairs (ops/delta.py `delta_one`); it then takes the
 lexicographic (penalty, scv) best with the sideways drift/descent mix and
 applies it. On CUDA tensors a whole pass is one launch of kernel K5
-(csrc/sweep_pass.cu), which keeps each individual's state in shared
-memory across every step and runs K3's and K4's bodies inside;
+(csrc/sweep_pass.cu): a thread-block cluster per individual, each of its
+CTAs holding the individual's state (with two bitsets, ops/delta.py
+`slot_bitsets`) in shared memory across every step, splitting each
+step's candidates and running K3's and K4's bodies inside;
 `sweep_pass_plain` is its plain version, a Python loop over the steps
 where JAX has a lax.scan. K3 (`move1_sweep`) and K4 (`delta_one`) keep
 their own launches as the unit checks of the device code K5 shares. The
@@ -27,7 +29,8 @@ import torch
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.delta import (
-    LSState, _day_scv, apply_moves, delta_one_plain, init_state)
+    LSState, _day_scv, apply_moves, delta_one_plain, init_state,
+    slot_bitsets)
 from timetabling_ga_tpu_torch.ops.fitness import day_view, gather_rows
 from timetabling_ga_tpu_torch.ops.rooms import W_COST, W_UNSUIT
 
@@ -36,6 +39,9 @@ SMEM_LIMIT = kernels.SMEM_LIMIT
 # K5's block-wide scalars and reduction scratch (K5_MISC_INTS in
 # csrc/sweep_pass.cu, which asserts that its 16 warps fit)
 _K5_MISC_INTS = 128
+# warps of one K5 CTA, and the largest (portable) cluster of CTAs
+K5_WARPS = 16
+K5_MAX_CLUSTER = 8
 
 
 class SweepShape(NamedTuple):
@@ -191,6 +197,7 @@ def move1_sweep(pa, slots, rooms, att, occ, pivots):
     if att.dtype != torch.int16 or occ.dtype != torch.int16:
         raise TypeError("move1_sweep takes int16 att/occ")
     args = [x.contiguous() for x in (slots, rooms, att, occ,
+                                     *slot_bitsets(pa, slots, att),
                                      pivots.to(torch.int32))]
     out = torch.empty((3, P, B, T), dtype=torch.int32, device=slots.device)
     if P * B == 0:
@@ -421,29 +428,53 @@ def sweep_pass_plain(pa, draws: SweepDraws, state: LSState,
 
 def sweep_pass_smem_bytes(pa, shape: SweepShape) -> int:
     """Dynamic shared memory K5 takes per individual, the layout of
-    csrc/sweep_pass.cu `k5_smem_layout`: slots, rooms, pivots, the heat
-    (hot mode), four ints per candidate, the Move1 scratch, occ and att,
-    each region rounded up to 16 bytes, plus the conflict bitset when the
-    total still fits in SMEM_LIMIT (else K5 reads it from global memory)."""
+    csrc/sweep_pass.cu `k5_smem_layout`, the same in every CTA of a
+    cluster: slots, rooms, pivots, the heat (hot mode), four ints per
+    candidate, the Move1 scratch, the bitsets amask (S u64) and slot_ev
+    (T x W u32), occ and att, each region rounded up to 16 bytes, plus
+    the conflict bitset when the total still fits in SMEM_LIMIT (else K5
+    reads it from global memory)."""
     E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
     W = pa.conflict_bits.shape[1]
     parts = (4 * E, 4 * E, 4 * shape.K, 4 * E if shape.use_hot else 0,
              16 * shape.n_cand, 4 * T, 4 * _K5_MISC_INTS,
-             8 * max(pa.max_ev_students, 1), 2 * T * R, 2 * S * T)
+             8 * max(pa.max_ev_students, 1), 8 * S, 4 * T * W, 2 * T * R,
+             2 * S * T)
     total = sum(-(-x // 16) * 16 for x in parts)
     with_bits = total + -(-4 * E * W // 16) * 16
     return with_bits if with_bits <= SMEM_LIMIT else total
 
 
+def cluster_size(n_moves: int, P: int, sm_count: int) -> int:
+    """K5's CTAs per individual: the smallest power of two that gives
+    each of a step's `n_moves` Move2/Move3 candidates a warp of its own
+    (16 a CTA), capped at K5_MAX_CLUSTER and at the card's SMs per
+    individual, and at least 1."""
+    need = -(-n_moves // K5_WARPS)
+    cs = 1
+    while cs < need:
+        cs *= 2
+    return max(1, min(cs, K5_MAX_CLUSTER, sm_count // max(P, 1)))
+
+
+def auto_cluster(pa, shape: SweepShape, P: int, device) -> int:
+    """The cluster size K5's wrapper takes on `device` for P individuals
+    of this pass shape."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return cluster_size(shape.n_cand - shape.B * pa.n_slots, P, sms)
+
+
 def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
                       swap_block: int = 8, block_events: int = 1,
                       sideways: float = 0.0, hot_k: int = 0,
-                      p3: float = 0.0):
-    """Kernel K5 on CUDA tensors: the whole pass in one launch, one block
-    per individual. Returns (state, strict_rows, pivots): pivots (P, K)
-    int32 are the pass's pivot order (hot_pivots in hot mode, else the
-    permutation). Raises ValueError when one individual's state does not
-    fit in shared memory; there is no fallback."""
+                      p3: float = 0.0, cluster: Optional[int] = None):
+    """Kernel K5 on CUDA tensors: the whole pass in one launch, a cluster
+    of `cluster` CTAs per individual (None: `auto_cluster`; an explicit
+    size is for tests and the chip smoke). Returns (state, strict_rows,
+    pivots): pivots (P, K) int32 are the pass's pivot order (hot_pivots
+    in hot mode, else the permutation). Raises ValueError when one
+    individual's state does not fit in shared memory, RuntimeError when
+    the card refuses the cluster; there is no fallback."""
     P, E = state.slots.shape
     T = pa.n_slots
     sh = sweep_shape(E, T, swap_block, block_events, hot_k, p3)
@@ -462,6 +493,9 @@ def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
             side and (draws.tie_noise is None or draws.allow is None)):
         raise ValueError("sweep_pass: the draws lack the hot or tie noise "
                          "this pass needs")
+    if cluster is not None and not 1 <= cluster <= K5_MAX_CLUSTER:
+        raise ValueError(f"sweep_pass: a cluster of {cluster} CTAs; K5 "
+                         f"takes 1 to {K5_MAX_CLUSTER}")
     i32 = torch.int32
     ins = [x.contiguous() for x in state]
     dr = [draws.a.to(i32).contiguous(), draws.b.to(i32).contiguous(),
@@ -474,17 +508,19 @@ def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
     if P == 0:
         return out, strict.view(torch.bool), pivots
     p = kernels.ptr
+    args = [*(p(x) for x in ins),
+            *(None if x is None else p(x) for x in dr), p(pa.possible_u8),
+            p(pa.live), p(pa.student_count), p(pa.conflict_bits),
+            p(pa.cap_rank), p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr),
+            p(pa.ev_stu), p(pa.event_mask), p(pa.anchor_slots),
+            p(pa.anchor_w), *(p(x) for x in out), p(strict), p(pivots)]
+    if cluster is None:
+        cluster = auto_cluster(pa, sh, P, state.slots.device)
     kernels.launch(
-        "sweep_pass", *(p(x) for x in ins),
-        *(None if x is None else p(x) for x in dr), p(pa.possible_u8),
-        p(pa.live), p(pa.student_count), p(pa.conflict_bits),
-        p(pa.cap_rank), p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr),
-        p(pa.ev_stu), p(pa.event_mask), p(pa.anchor_slots),
-        p(pa.anchor_w), *(p(x) for x in out), p(strict), p(pivots), P, E,
-        pa.n_rooms, pa.n_students, T, pa.slots_per_day,
-        pa.conflict_bits.shape[1], pa.max_ev_students, sh.K, sh.B, sh.SB,
-        sh.n_steps, sh.n_cand, int(sh.use_hot), int(side),
-        int(pa.anchored))
+        "sweep_pass", *args, P, E, pa.n_rooms, pa.n_students, T,
+        pa.slots_per_day, pa.conflict_bits.shape[1], pa.max_ev_students,
+        sh.K, sh.B, sh.SB, sh.n_steps, sh.n_cand, int(sh.use_hot),
+        int(side), int(pa.anchored), cluster)
     return out, strict.view(torch.bool), pivots
 
 
