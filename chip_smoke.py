@@ -10,7 +10,10 @@
    output — then times both with CUDA events after a warm-up:
    K1-K4, K6 (breed, relocate), K7 (survivors, migrate) and K9 (the
    parallel room matcher) at P = 16 and P = 256 individuals (P = 256 as
-   16 islands of 16), K9 also on a padded copy of comp01s, K6 also in
+   16 islands of 16), K9 also on a padded copy of comp01s, K1 and K6
+   also on degenerate slot buckets (every event in one slot, two slots,
+   half in one; on comp01s, its padded copy and comp01s cut to one
+   room), K6 also in
    its crowded-tournament and parallel-matcher modes, K7 also at L = 1,
    2, 4 islands of 2, 3 and 16 rows, K6's relocation entry also on the
    kick's chains (2 and 8 rows, 3 to 16 moves); K5 (the whole sweep
@@ -20,9 +23,11 @@
    the wrapper's own choice; the cluster size, CTAs, ms a pass and us a
    step printed per shape);
    K8 (the random-candidate local search, -p 2: 125 rounds of 8) at P =
-   10 and 256; K10 (LAHC) at 4 and 64 walkers, K = 1 and 16 candidates,
-   history 5 and 5000; K11 (NSGA-II ranks and survivors) at island sizes
-   8, 20, 32 and 512 with duplicate objectives; on fixtures/comp05s.tim
+   10 and 256, its pre-pass also on tied uniforms (the chain timed on
+   the pre-pass's events, each entry point on its own); K10 (LAHC) at
+   4 and 64 walkers, K = 1 and 16 candidates, history 5 and 5000; K11
+   (NSGA-II ranks and survivors) at island sizes 8, 20, 32 and 512 with
+   duplicate objectives; on fixtures/comp05s.tim
    at the nsga path's own shapes (its repair config, one island of 16,
    and its post config, 4 rows; random and feasible parents): K11 rank
    and survivors, K6 crowded + parallel with crossover on, off and
@@ -41,10 +46,11 @@
    best non-increasing, solution and runEntry records, a feasible
    reported timetable re-scores to its reported best), and so is which
    kernels each path launched (PATH_KERNELS);
-4. profiles one repair generation, one post-phase sweep pass, one
-   reference-path generation, one kick, one LAHC launch and two NSGA-II
-   generations, repair and post phase (launches, device idle share, device time per launch of
-   each kernel);
+4. profiles one population init (K1, K2, K7 at pop 16), one repair
+   generation, one post-phase sweep pass, one reference-path
+   generation, one kick, one LAHC launch and two NSGA-II generations,
+   repair and post phase (launches, device idle share, device time per
+   launch of each kernel);
 5. prints one line per kernel, the {"kernels": [...]} summary and, last,
    {"ok": true, "device": {...}}.
 
@@ -93,9 +99,6 @@ PEAK_FP32_OPS_S = 67e12 / 2
 # Operations per element K5 visits, counted by hand as the loads and ALU
 # instructions on that element's path in csrc/sweep_dev.cuh and
 # csrc/sweep_pass.cu (the loop bookkeeping around them not counted)
-OPS_WORD = 2          # a conflict word: load, mask off the event itself
-OPS_BIT = 6           # a set conflict bit: ffs, clear, index, slot load,
-                      # compare, add
 OPS_ROOM_KEY = 12     # a (slot, room) key of a room argmin: occupancy
                       # load, own-cell test, suitability load, the key's
                       # mul/adds, compare and select
@@ -103,11 +106,9 @@ OPS_MOVE1_STUDENT = 25  # a (target, student) of tt_move1_target: day bits,
                         # free test, 4 neighbour bits, popcount, 5 adds
 OPS_STUDENT = 6       # a student of the K4 re-score: 3 attendance loads,
                       # the earlier-event test
-OPS_DAY_SLOT = 9      # a (student, day, slot) of the K4 re-score: att
-                      # load, 3 patch compares and adds, 2 bit sets
 OPS_DAY_SCORE = 12    # tt_day_scv of one day's bits: runs and singles
-# the bitset forms of the K4 body, Move1's prepare and the heat (K5 and
-# K10 run them; K8 and K4's own launch keep the forms above)
+# the bitset forms of the K4 body (K4, K5, K8, K10), Move1's prepare and
+# the heat
 OPS_DOT_WORD = 9      # a conflict word of the popcount dots: load, mask the
                       # moved events, two slot_ev loads, two and+popc, sub
 OPS_SLOT_WORD = 5     # a (slot, word) of Move1's per-slot count or the
@@ -160,6 +161,8 @@ KERNELS = {
                   "timetabling_ga_tpu/ops/ga.py:290", "main"),
     "migrate": ("timetabling_ga_tpu_torch/csrc/survivors.cu",
                 "timetabling_ga_tpu/parallel/islands.py:213", "main"),
+    "random_ls_events": ("timetabling_ga_tpu_torch/csrc/random_ls.cu",
+                         "timetabling_ga_tpu/ops/moves.py:128", "reference"),
     "random_ls": ("timetabling_ga_tpu_torch/csrc/random_ls.cu",
                   "timetabling_ga_tpu/ops/delta.py:212", "reference"),
     "parallel_rooms": ("timetabling_ga_tpu_torch/csrc/parallel_rooms.cu",
@@ -180,24 +183,24 @@ BODY_RUNS_IN = {"move1_sweep": "sweep_pass",
 # least once, and never
 PER_GEN = ("breed", "survivors", "batch_penalty")
 SEARCH_MODES = ("lahc", "nsga_rank", "nsga_survivors", "parallel_rooms")
+K8 = ("random_ls_events", "random_ls")
 PATH_KERNELS = {
     "main": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
-             ("move1_sweep", "delta_one", "random_ls") + SEARCH_MODES),
-    "reference": (PER_GEN + ("random_ls",), ("assign_rooms",),
+             ("move1_sweep", "delta_one") + K8 + SEARCH_MODES),
+    "reference": (PER_GEN + K8, ("assign_rooms",),
                   ("move1_sweep", "delta_one", "sweep_pass")
                   + SEARCH_MODES),
     "full-eval": (PER_GEN + ("relocate",), ("assign_rooms",),
-                  ("move1_sweep", "delta_one", "sweep_pass", "random_ls")
+                  ("move1_sweep", "delta_one", "sweep_pass") + K8
                   + SEARCH_MODES),
     # comp01s is feasible inside the initial polish, so the LAHC walkers
     # take the whole budget after it
     "lahc": ((), ("assign_rooms", "sweep_pass", "batch_penalty", "lahc"),
-             ("move1_sweep", "delta_one", "random_ls", "nsga_rank",
-              "nsga_survivors", "parallel_rooms")),
+             ("move1_sweep", "delta_one") + K8
+             + ("nsga_rank", "nsga_survivors", "parallel_rooms")),
     "nsga": (("breed", "nsga_rank", "nsga_survivors", "batch_penalty"),
              ("assign_rooms", "sweep_pass"),
-             ("move1_sweep", "delta_one", "random_ls", "lahc",
-              "parallel_rooms")),
+             ("move1_sweep", "delta_one") + K8 + ("lahc", "parallel_rooms")),
 }
 
 
@@ -336,9 +339,9 @@ def kernel_cases(pa, P, dev):
                                           st.occ, evs, ns, act),
             rows + nbytes(st.att, st.occ, evs, ns, act) + prob
             + nbytes(pa.student_count, pa.conflict_bits, pa.attends_u8,
-                     pa.ev_ptr, pa.ev_stu) + P * C * 5 * 4,
-            P * C * (3 * R * 10 + 3 * W * 32 + 18 * pa.max_ev_students
-                     * pa.slots_per_day * 6)),
+                     pa.ev_ptr, pa.ev_stu) + P * (S * 8 + T * W * 4)
+            + P * C * 5 * 4,
+            k4_body_ops(pa, st.slots, evs, ns)),
     }}
 
 
@@ -449,6 +452,58 @@ def compare_breed_modes(pa, dev):
             out.append({"breed_mode": name, "P": P, "ms": time_ms(kern, 20),
                         "plain_ms": time_ms(plain, 2), "max_abs_err": 0})
     return out
+
+
+def degenerate_slots(pa, P, g):
+    """(P, E) slots with degenerate slot buckets for the greedy matcher,
+    which runs a chain per slot: row 0 every event in the last slot, row
+    1 every event in slot 0 or the last (the rest empty), row 2 half the
+    events in slot 3; the others random."""
+    import torch
+    slots = torch.randint(0, pa.n_slots, (P, pa.n_events), generator=g,
+                          device=pa.device, dtype=torch.int32)
+    last = pa.n_slots - 1
+    slots[0] = last
+    slots[1] = torch.where(slots[1] % 2 == 0, 0, last)
+    slots[2, :pa.n_events // 2] = 3
+    return slots
+
+
+def compare_matching_degenerate(problem, pa, dev):
+    """K1 and K6 (crossover on for every child, and mixed) against their
+    plain versions on degenerate slot buckets (`degenerate_slots`), P =
+    16 (one island), on comp01s, on a padded copy (dead events and
+    rooms) and on comp01s cut to its first room (R = 1), exactly."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import ga, rooms
+    from timetabling_ga_tpu_torch.problem import derive
+    one_room = derive(problem.n_events, 1, problem.n_features,
+                      problem.n_students, problem.room_size[:1],
+                      problem.attends, problem.room_features[:1],
+                      problem.event_features).device_arrays(dev)
+    cases = 0
+    for name, p in (("comp01s", pa), ("padded", padded_arrays(problem, dev)),
+                    ("one room", one_room)):
+        g = torch.Generator(device=dev).manual_seed(7700 + cases)
+        slots = degenerate_slots(p, 16, g)
+        check(torch.equal(rooms.assign_rooms(p, slots),
+                          rooms.assign_rooms_plain(p, slots)),
+              f"assign_rooms {name}, degenerate buckets: kernel differs "
+              f"from its plain version")
+        par = ga.evaluate(p, slots, torch.randint(
+            0, p.n_rooms, slots.shape, generator=g, device=dev,
+            dtype=torch.int32))
+        cfg = ga.GAConfig(pop_size=16, p3=0.2)
+        bd = ga.make_breed_draws([g], 16, p.n_events, p.n_slots, cfg, dev)
+        for d in (bd._replace(do_x=torch.ones_like(bd.do_x)), bd):
+            got = ga.make_children(p, d, par, cfg, 1)
+            want = ga.make_children_plain(p, d, par, cfg, 1)
+            torch.cuda.synchronize()
+            check(all(torch.equal(w, x) for w, x in zip(want, got)),
+                  f"breed {name}, degenerate buckets: kernel differs from "
+                  f"its plain version")
+        cases += 3
+    return cases
 
 
 def nsga_state(g, L, pop, E, T, dev):
@@ -613,7 +668,7 @@ def lahc_work(pa, l0, draws):
     read and written once (of each history ring the entries the steps
     touch), the draws and problem arrays read once; per step and
     candidate the top-3 scan of E uniforms and the K4 body on the
-    bitsets (k4_body_ops, bits=True) on the candidate (its events and new
+    bitsets (k4_body_ops) on the candidate (its events and new
     slots taken on the slots the call starts from); the bitsets' build,
     the choice, the acceptance and the apply are left out, so the count
     stays below what the kernel does."""
@@ -632,7 +687,7 @@ def lahc_work(pa, l0, draws):
     evs, ns, _ = moves.sample_move(
         pa, md, l0.ls.slots.repeat_interleave(n * K, 0))
     ops = (k4_body_ops(pa, l0.ls.slots, evs.view(W, n * K, 3),
-                       ns.view(W, n * K, 3), bits=True)
+                       ns.view(W, n * K, 3))
            + W * n * K * E * OPS_TOP3)
     return nb, ops
 
@@ -737,30 +792,26 @@ def compare(pa, dev):
     return out
 
 
-def event_degrees(pa):
-    """(students, conflict degree) of each event, int64."""
+def event_students(pa):
+    """The number of students of each event, int64."""
     import torch
-    n_st = (pa.ev_ptr[1:] - pa.ev_ptr[:-1]).to(torch.int64)
-    deg = ((pa.conflict > 0.5).sum(1)
-           - (pa.conflict.diagonal() > 0.5).to(torch.int64))
-    return n_st, deg
+    return (pa.ev_ptr[1:] - pa.ev_ptr[:-1]).to(torch.int64)
 
 
-def k4_body_ops(pa, slots, ev, ns, bits=False):
+def k4_body_ops(pa, slots, ev, ns):
     """Integer operations of the K4 body on candidates ev, ns (P, X, 3)
     over slots (P, E): 3 room argmins, then for each event that changes
     slot its conflict row and its students' days, counted once per
     (event, student, day), the days being the distinct days the moving
-    events leave and enter. bits=False counts sweep_dev.cuh
-    tt_delta_one_warp (a walk over the row's set bits, each day rebuilt
-    slot by slot from att), bits=True tt_delta_one_bits_warp (popcounts
-    of the row against slot_ev, a student's days from its amask word with
-    the two slots each of its moving events touches recomputed)."""
+    events leave and enter, as sweep_dev.cuh tt_delta_one_bits_warp does
+    them (popcounts of the row against slot_ev, a student's days from its
+    amask word with the two slots each of its moving events touches
+    recomputed)."""
     import torch
     import torch.nn.functional as F
     i64 = torch.int64
     W, spd = pa.conflict_bits.shape[1], pa.slots_per_day
-    n_st, deg = event_degrees(pa)
+    n_st = event_students(pa)
     slots = slots.to(i64)
     ev, ns = ev.to(i64), ns.to(i64)
     os = slots.gather(1, ev.flatten(1)).view_as(ev)
@@ -769,13 +820,9 @@ def k4_body_ops(pa, slots, ev, ns, bits=False):
     on = torch.cat([shift, shift], -1)
     n_d = ((F.one_hot(days, pa.n_days) * on[..., None]).sum(-2) > 0
            ).sum(-1, keepdim=True)
-    if bits:
-        per = shift * (W * OPS_DOT_WORD + n_st[ev] * (
-            OPS_STUDENT + OPS_AMASK + 2 * OPS_FIX_SLOT
-            + n_d * 2 * (OPS_DAY_BITS + OPS_DAY_SCORE)))
-    else:
-        per = shift * (W * OPS_WORD + deg[ev] * OPS_BIT + n_st[ev] * (
-            OPS_STUDENT + n_d * (spd * OPS_DAY_SLOT + 2 * OPS_DAY_SCORE)))
+    per = shift * (W * OPS_DOT_WORD + n_st[ev] * (
+        OPS_STUDENT + OPS_AMASK + 2 * OPS_FIX_SLOT
+        + n_d * 2 * (OPS_DAY_BITS + OPS_DAY_SCORE)))
     return int(per.sum()) + ev.shape[0] * ev.shape[1] * (
         3 * pa.n_rooms * OPS_ROOM_KEY + OPS_CAND)
 
@@ -789,7 +836,7 @@ def sweep_pass_work(pa, sh, st, draws, piv):
     forms K5 runs — per step, each block pivot's Move1 (its conflict row
     against every slot's event words, its students' amask words and old
     day, T targets of R room keys and one update per student), and each
-    Move2 / Move3 candidate's K4 body (k4_body_ops, bits=True) plus its
+    Move2 / Move3 candidate's K4 body (k4_body_ops) plus its
     share of the choice; in hot mode the prologue's heat per event (its
     conflict row against its slot's words while the row is infeasible,
     its students' days once feasible) and the E^2 rank compares (float).
@@ -807,7 +854,7 @@ def sweep_pass_work(pa, sh, st, draws, piv):
                    pa.conflict_bits, pa.cap_rank, pa.dead, pa.attends_u8,
                    pa.ev_ptr, pa.ev_stu, pa.event_mask, pa.anchor_slots,
                    pa.anchor_w) + P + P * sh.K * 4)
-    n_st, deg = event_degrees(pa)
+    n_st = event_students(pa)
     slots = st.slots.to(i64)
     pos = torch.arange(sh.n_steps, device=dev)[:, None]
     blk = torch.arange(sh.B, device=dev)[None, :]
@@ -826,7 +873,7 @@ def sweep_pass_work(pa, sh, st, draws, piv):
         pad = torch.where((e2 + 1) % E == q, (e2 + 2) % E, (e2 + 1) % E)
         ev = torch.stack([e2, q, pad], -1)
         sl = slots.gather(1, ev.flatten(1)).view_as(ev)
-        ops += k4_body_ops(pa, slots, ev, sl[..., [1, 0, 2]], bits=True)
+        ops += k4_body_ops(pa, slots, ev, sl[..., [1, 0, 2]])
     if sh.with_move3 and sh.SB >= 2:
         k = torch.arange(sh.SB - 1, device=dev)
         j = (pos[..., None] * sh.B + 1 + blk[..., None] + k).flatten()
@@ -834,8 +881,8 @@ def sweep_pass_work(pa, sh, st, draws, piv):
             P, sh.n_steps, sh.B, sh.SB - 1).reshape(P, -1)
         ev = torch.stack([e3, perm[:, j % E], perm[:, (j + 1) % E]], -1)
         sl = slots.gather(1, ev.flatten(1)).view_as(ev)
-        ops += (k4_body_ops(pa, slots, ev, sl[..., [1, 2, 0]], bits=True)
-                + k4_body_ops(pa, slots, ev, sl[..., [2, 0, 1]], bits=True))
+        ops += (k4_body_ops(pa, slots, ev, sl[..., [1, 2, 0]])
+                + k4_body_ops(pa, slots, ev, sl[..., [2, 0, 1]]))
     fops = 0
     if sh.use_hot:
         infeasible = (st.hcv > 0).to(i64)[:, None]
@@ -1049,40 +1096,55 @@ def compare_islands(pa, dev):
     return cases
 
 
-def random_ls_work(pa, st, draws):
-    """(bytes, integer operations) of one K8 call: the state read and
-    written once, the draws and problem arrays read once; per round and
-    candidate the top-3 scan of E uniforms, the K4 body on the candidate
-    (its events and new slots taken on the slots the call starts from)
-    and the choice; the prologue's att/occ build and the apply, which
-    runs only on an accepted round, are left out, so the count stays
-    below what the kernel does."""
-    import torch
+def random_ls_work(pa, st, draws, events):
+    """{entry point: (bytes, integer operations)} of one K8 call. The
+    pre-pass reads the draws' uniforms once and writes the events, and
+    does a top-3 scan of E uniforms a row. The chain reads and writes the
+    state once and reads the other draws, the events and the problem
+    arrays once; per round and candidate it runs the K4 body on the
+    bitsets (k4_body_ops; the candidate's events and new slots taken on
+    the slots the call starts from); the prologue's att/occ/bitset build,
+    the choice and the apply, which runs only on an accepted round, are
+    left out, so the counts stay below what the kernels do."""
     from timetabling_ga_tpu_torch.ops import moves
     n_rounds, K, P = draws.mtype.shape
     E = pa.n_events
-    nb = (2 * nbytes(*st) + nbytes(*draws)
-          + nbytes(pa.possible_u8, pa.live, pa.student_count,
-                   pa.conflict_bits, pa.cap_rank, pa.dead, pa.attends_u8,
-                   pa.ev_ptr, pa.ev_stu, pa.stu_ptr, pa.stu_ev,
-                   pa.anchor_slots, pa.anchor_w))
+    reps = n_rounds * K
     md = moves.MoveDraws(draws.mtype.permute(2, 0, 1).reshape(-1),
                          draws.u.permute(2, 0, 1, 3).reshape(-1, E),
                          draws.t.permute(2, 0, 1).reshape(-1))
-    reps = n_rounds * K
     evs, ns, _ = moves.sample_move(
         pa, md, st.slots.repeat_interleave(reps, 0))
-    ops = (k4_body_ops(pa, st.slots, evs.view(P, reps, 3),
-                       ns.view(P, reps, 3))
-           + P * reps * E * OPS_TOP3)
-    return nb, ops
+    chain_b = (2 * nbytes(*st) + nbytes(draws.mtype, draws.t, events)
+               + nbytes(pa.possible_u8, pa.live, pa.student_count,
+                        pa.conflict_bits, pa.cap_rank, pa.dead,
+                        pa.attends_u8, pa.ev_ptr, pa.ev_stu, pa.stu_ptr,
+                        pa.stu_ev, pa.anchor_slots, pa.anchor_w))
+    return {
+        "random_ls_events": (nbytes(draws.u, events),
+                             P * reps * E * OPS_TOP3),
+        "random_ls": (chain_b, k4_body_ops(pa, st.slots,
+                                           evs.view(P, reps, 3),
+                                           ns.view(P, reps, 3)))}
+
+
+def bound(nb, ops):
+    """(bound ms, "bytes" or "operations") of work moving `nb` bytes and
+    doing `ops` integer operations on the card."""
+    bytes_ms = nb / PEAK_BYTES_S * 1e3
+    ops_ms = ops / PEAK_INT_OPS_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def compare_random_ls(pa, dev):
     """K8 against random_local_search_plain at the reference path's
     shape (-p 2: 125 rounds of 8 candidates) with P = 10 (its population)
-    and 256, from random starts and from feasible ones, exactly; then
-    both timed from the random start, and K8 on one individual."""
+    and 256, from random starts and from feasible ones, exactly, and its
+    pre-pass against random_ls_events_plain, also on uniforms with ties;
+    then each entry point and the plain search timed from the random
+    start (the chain on the pre-pass's events), and K8 on one individual
+    (its chain's floor)."""
     import torch
     from timetabling_ga_tpu_torch.ops import delta, rooms
     from timetabling_ga_tpu_torch.runtime import config, engine
@@ -1099,6 +1161,12 @@ def compare_random_ls(pa, dev):
                                     E, T, gc.p1, gc.p2, gc.p3, dev)
         w = witness_state(pa, P, g)
         feasible = delta.LSRows(w.slots, w.rooms, w.pen, w.hcv, w.scv)
+        tied = draws._replace(u=(draws.u * 64).floor() / 64)
+        for d, tag in ((draws, ""), (tied, " (tied uniforms)")):
+            check(torch.equal(delta.random_ls_events_kernel(d),
+                              delta.random_ls_events_plain(d)),
+                  f"random_ls_events P={P}{tag}: kernel differs from its "
+                  f"plain version")
         err = 0
         for start, s0 in (("random", st), ("feasible", feasible)):
             got = delta.random_local_search_kernel(pa, draws, s0)
@@ -1115,31 +1183,40 @@ def compare_random_ls(pa, dev):
             if start == "random":
                 check(bool((got.pen < s0.pen).all()),
                       f"random_ls P={P}: a row did not improve")
-        ms = time_ms(lambda: delta.random_local_search_kernel(pa, draws, st),
+        events = delta.random_ls_events_kernel(draws)
+        ms = time_ms(lambda: delta.random_ls_chain(pa, draws, st, events),
                      10)
+        ev_ms = time_ms(lambda: delta.random_ls_events_kernel(draws), 10)
         plain_ms = time_ms(
             lambda: delta.random_local_search_plain(pa, draws, st), 1)
+        ev_plain_ms = time_ms(lambda: delta.random_ls_events_plain(draws),
+                              5)
         one = delta.LSRows(*(x[:1] for x in st))
         d1 = delta.LSDraws(*(x[:, :, :1] for x in draws))
-        ms1 = time_ms(lambda: delta.random_local_search_kernel(pa, d1, one),
-                      10)
-        nb, ops = random_ls_work(pa, st, draws)
-        bytes_ms = nb / PEAK_BYTES_S * 1e3
-        ops_ms = ops / PEAK_INT_OPS_S * 1e3
+        ms1 = time_ms(lambda: delta.random_ls_chain(pa, d1, one,
+                                                    events[:1]), 10)
+        work = random_ls_work(pa, st, draws, events)
+        b, by = bound(*work["random_ls"])
         out[("random_ls", P)] = dict(
             ms=ms, plain_ms=plain_ms, max_abs_err=err,
             rounds=gc.ls_steps, candidates=gc.ls_candidates,
             chain_floor_ms=ms1, us_per_round=ms1 * 1e3 / gc.ls_steps,
+            us_per_round_of_the_call=ms * 1e3 / gc.ls_steps,
+            with_pre_pass_ms=ms + ev_ms,
             smem_bytes=delta.random_ls_smem_bytes(pa, gc.ls_candidates),
-            feasible_rows=int((feasible.hcv == 0).sum()), int_ops=ops,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            feasible_rows=int((feasible.hcv == 0).sum()),
+            int_ops=work["random_ls"][1], bound_ms=b, bound_by=by)
+        b, by = bound(*work["random_ls_events"])
+        out[("random_ls_events", P)] = dict(
+            ms=ev_ms, plain_ms=ev_plain_ms, max_abs_err=0,
+            rows=gc.ls_steps * gc.ls_candidates * P,
+            int_ops=work["random_ls_events"][1], bound_ms=b, bound_by=by)
     return out
 
 
 def profile_phases(pa, pa05, dev):
-    """A short torch.profiler window per phase: one warm repair
-    generation (pop 16), one warm post-phase sweep pass (pop 4), one warm
+    """A short torch.profiler window per phase: one warm population init
+    (pop 16: K1, K2, K7), one warm repair generation (pop 16), one warm post-phase sweep pass (pop 4), one warm
     reference-path generation (pop 10, -p 2), one kick of the post
     population (3 moves: K6 relocate), one LAHC launch of the lahc path's
     walkers (256 steps) and two NSGA-II generations of the nsga path on
@@ -1165,7 +1242,10 @@ def profile_phases(pa, pa05, dev):
     nsga_cfg = engine.build_ga_config(cfg05)
     cfgl = config.parse_args(["-i", TIM] + PATHS["lahc"]
                              ).apply_tuned_defaults(pa.n_events)
-    windows = []
+    gens = engine.island_generators(dev, 7, 0, 1)
+    windows = [("init", repair.pop_size, "one population init",
+                lambda gens=gens: islands.init_island_population(
+                    pa, gens, repair.pop_size))]
     for name, gacfg in (("repair", repair), ("reference", ref)):
         gens = engine.island_generators(dev, 7, 0, 1)
         st = islands.init_island_population(pa, gens, gacfg.pop_size)
@@ -1176,7 +1256,7 @@ def profile_phases(pa, pa05, dev):
     st = islands.init_island_population(pa, gens, post.pop_size)
     ls = delta.init_state(pa, st.slots, st.rooms)
     draws_fn = ga.sweep_draws_fn(gens, post.pop_size, pa, post)
-    windows.insert(1, ("post", post.pop_size, "one sweep pass",
+    windows.insert(2, ("post", post.pop_size, "one sweep pass",
                        lambda: sweep.sweep_pass(
                            pa, draws_fn(0), ls, post.ls_swap_block,
                            post.ls_block_events, post.ls_sideways,
@@ -1390,6 +1470,8 @@ def main() -> int:
     print(json.dumps({"kick_chains_compared": compare_kick_chains(pa, dev)}))
     print(json.dumps({"padded_parallel_rooms_compared":
                       compare_parallel_rooms_padded(problem, dev)}))
+    print(json.dumps({"degenerate_matching_compared":
+                      compare_matching_degenerate(problem, pa, dev)}))
     print(json.dumps({"nsga_path_shapes_compared": nsga_cases}))
     for row in compare_breed_modes(pa, dev) + nsga_breed:
         print(json.dumps(row))
@@ -1420,6 +1502,7 @@ def main() -> int:
     for name, (src, replaces, path) in KERNELS.items():
         t = timings[{"sweep_pass": ("repair", 16),
                      "random_ls": ("random_ls", 10),
+                     "random_ls_events": ("random_ls_events", 10),
                      "lahc": ("lahc", 4, 16, 5000), **nsga_keys
                      }.get(name, (name, 16))]
         row = {"name": name, "route": "cuda", "source": src,

@@ -26,8 +26,9 @@ import pytest
 import torch
 
 from tests.test_torch_kernels import (
-    K5_CASES, _breed_case, _half_feasible, _instances, _island_state,
-    _k5_equals_plain, _ls_draws, _state)
+    K5_CASES, _breed_case, _degenerate_slots, _half_feasible, _instances,
+    _island_state, _k5_equals_plain, _ls_draws, _matching_instances,
+    _state)
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import (
     delta, ga, lahc, moves, nsga, rooms, sweep)
@@ -97,6 +98,17 @@ template <class T> T emu_shfl_xor(T v, int off) {
     return r;
 }
 #define __shfl_xor_sync(mask, v, off) emu_shfl_xor(v, off)
+inline unsigned emu_ballot(bool pred) {
+    int t = threadIdx.x, w = t >> 5;
+    emu_blk->lanes[t] = pred ? 1 : 0;
+    emu_blk->warp_bar[w]->arrive_and_wait();
+    unsigned m = 0;
+    for (int l = 0; l < 32; ++l)
+        if (emu_blk->lanes[(w << 5) | l]) m |= 1u << l;
+    emu_blk->warp_bar[w]->arrive_and_wait();
+    return m;
+}
+#define __ballot_sync(mask, pred) emu_ballot(pred)
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) {
@@ -227,6 +239,12 @@ K5_SMALL = "sweep_pass_small"
 EMULATED = ("assign_rooms", "move1_sweep", "delta_one", "sweep_pass",
             "breed", "survivors", "random_ls", "parallel_rooms", "lahc",
             "nsga")
+# the block-per-row kernels built with two warps a block (their thread
+# counts are macros), which keeps the std::threads few and gives each
+# warp several slots or candidates; K8 with room for 48 bytes of events
+# (two rounds of 4 candidates), so that its rounds cross chunks
+SMALL = {"assign_rooms": ["-DK1_THREADS=64"], "breed": ["-DK6_THREADS=64"],
+         "random_ls": ["-DK8_MAX_WARPS=2", "-DK8_EVENT_BYTES=48"]}
 
 
 def _for_the_cpu(src: str) -> str:
@@ -253,8 +271,9 @@ def emulated(tmp_path_factory):
     (d / "cooperative_groups.h").write_text(CG_STUB)
     for path in kernels.CSRC.iterdir():
         (d / path.name).write_text(_for_the_cpu(path.read_text()))
-    # each source as the card builds it, and K5 with 128-thread CTAs
-    builds = {n: (n, []) for n in EMULATED}
+    # each source as the card builds it but for SMALL's thread counts,
+    # and K5 with 128-thread CTAs
+    builds = {n: (n, SMALL.get(n, [])) for n in EMULATED}
     builds[K5_SMALL] = ("sweep_pass", ["-DK5_THREADS=128"])
     procs = {n: subprocess.Popen(
         [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
@@ -303,7 +322,9 @@ def _k4(pa, st, evs, ns, act):
     P, C, _ = evs.shape
     d = torch.empty((2, P, C), dtype=torch.int32)
     nr = torch.empty((P, C, 3), dtype=torch.int32)
-    args = [x.contiguous() for x in (evs, ns, act.to(torch.uint8))]
+    args = [x.contiguous() for x in (
+        *delta.slot_bitsets(pa, st.slots, st.att), evs, ns,
+        act.to(torch.uint8))]
     p = kernels.ptr
     kernels.launch(
         "delta_one", p(st.slots), p(st.rooms), p(st.att), p(st.occ),
@@ -441,6 +462,34 @@ def test_k1_k6_sources_equal_plain(emulated, inst):
     assert all(torch.equal(w, g) for w, g in zip(want, got))
 
 
+@pytest.mark.parametrize("inst", range(3))
+def test_k1_k6_sources_match_degenerate_buckets(emulated, inst):
+    """K1 and K6's crossover matching, slot by slot, on degenerate
+    buckets: every event in one slot, two slots and the rest empty, half
+    the events in one slot; R = 1; padded events and rooms."""
+    pa = _matching_instances("cpu")[inst]
+    slots = _degenerate_slots(pa, 3, 220 + inst)
+    assert torch.equal(rooms.assign_rooms_kernel(pa, slots),
+                       rooms.assign_rooms_plain(pa, slots))
+    _, cfg, par, draws = _breed_case(pa, "cpu", 1, 3, 230 + inst, slots)
+    draws = draws._replace(do_x=torch.ones_like(draws.do_x))
+    got = ga.make_children_kernel(pa, draws, par, groups=1)
+    want = ga.make_children_plain(pa, draws, par, cfg, groups=1)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+@pytest.mark.parametrize("P,n_rounds,K", [(3, 2, 4), (1, 1, 1), (2, 3, 5)])
+def test_k8_events_source_equals_plain(emulated, P, n_rounds, K):
+    """K8's pre-pass on every draw row, with ties among the uniforms."""
+    pa = _instances("cpu")[1]
+    draws = _ls_draws(pa, "cpu", P, n_rounds, K, 60 + K)
+    for d in (draws, draws._replace(u=(draws.u * 4).floor() / 4)):
+        kernels.reset_launches()
+        assert torch.equal(delta.random_ls_events_kernel(d),
+                           delta.random_ls_events_plain(d))
+        assert kernels.LAUNCHES["random_ls_events"] == 1
+
+
 @pytest.mark.parametrize("L,pop", [(1, 3), (2, 2), (4, 3), (2, 16)])
 def test_k7_sources_equal_plain(emulated, L, pop):
     par, ch = _island_state(L, pop, 1), _island_state(L, pop, 2)
@@ -464,6 +513,7 @@ def test_k8_source_equals_plain(emulated, inst):
     got = delta.random_local_search_kernel(pa, draws, st)
     want = delta.random_local_search_plain(pa, draws, st)
     assert all(torch.equal(w, g) for w, g in zip(want, got))
+    assert kernels.LAUNCHES["random_ls_events"] == 1
     assert kernels.LAUNCHES["random_ls"] == 1
     assert not torch.equal(got.slots, st.slots)
 

@@ -247,3 +247,63 @@ def test_package_imports_without_jax_or_nvcc():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=repo,
                    env={"PATH": os.defpath, "PYTHONPATH": repo})
+
+
+C1_FLAGS = ["-s", "3", "--backend", "cpu", "-t", "300", "--no-auto-tune",
+            "--ls-mode", "sweep", "--ls-sweeps", "1", "--init-sweeps", "1",
+            "--pop-size", "4", "--generations", "6", "--migration-period",
+            "2"]
+
+
+def test_migrations_follow_generations_2_4_6(tim_path, monkeypatch,
+                                             capsys):
+    """The first sec/gen estimate is one generation on a clone, outside
+    the run (JAX engine.py:817-836), so the run's first dispatch is a
+    full epoch and it migrates after generations 2, 4 and 6, as the JAX
+    engine does (engine.py:1997-2009)."""
+    from timetabling_ga_tpu_torch.ops import ga as tga
+    from timetabling_ga_tpu_torch.parallel import islands as tislands
+    gens, migrations, probes = [0], [], []
+    in_probe = [False]
+    real_gen, real_mig = tga.generation, tislands.migrate
+    real_probe = tengine.probe_sec_per_gen
+
+    def generation(*a, **k):
+        gens[0] += 0 if in_probe[0] else 1
+        return real_gen(*a, **k)
+
+    def migrate(*a, **k):
+        if not in_probe[0]:
+            migrations.append(gens[0])
+        return real_mig(*a, **k)
+
+    def probe(*a, **k):
+        in_probe[0] = True
+        try:
+            probes.append(real_probe(*a, **k))
+        finally:
+            in_probe[0] = False
+        return probes[-1]
+
+    monkeypatch.setattr(tga, "generation", generation)
+    monkeypatch.setattr(tislands, "migrate", migrate)
+    monkeypatch.setattr(tengine, "probe_sec_per_gen", probe)
+    assert tcli.main(["-i", tim_path] + C1_FLAGS) == 0
+    capsys.readouterr()
+    assert len(probes) == 1 and probes[0] > 0
+    assert gens[0] == 6
+    assert migrations == [2, 4, 6]
+
+
+def test_probe_leaves_the_record_stream_unchanged(tim_path, monkeypatch,
+                                                  capsys):
+    """A run that takes its first estimate from the probe and one seeded
+    with an estimate give the same records under strip_timing: the probe
+    advances neither the run's state nor its generators."""
+    assert tcli.main(["-i", tim_path] + C1_FLAGS) == 0
+    probed = _records(capsys.readouterr().out)
+    monkeypatch.setattr(tengine, "probe_sec_per_gen", lambda *a: 1e-3)
+    assert tcli.main(["-i", tim_path] + C1_FLAGS) == 0
+    seeded = _records(capsys.readouterr().out)
+    _check_protocol(probed)
+    assert tjsonl.strip_timing(probed) == tjsonl.strip_timing(seeded)

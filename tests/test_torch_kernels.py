@@ -74,6 +74,46 @@ def _instances(device):
             padded_arrays(medium, device=device), anchored]
 
 
+def _one_room(device):
+    """A 40-event instance with one room, unsuitable for every third
+    event."""
+    p = random_instance(6, n_events=40, n_rooms=1, n_features=2,
+                        n_students=30, attend_prob=0.1).device_arrays()
+    possible = p.possible.numpy().copy()
+    possible[::3] = False
+    return make_problem_arrays(
+        **{k: getattr(p, k).numpy() for k in (
+            "attends", "conflict", "student_count", "room_size",
+            "event_mask", "room_mask")},
+        possible=possible, anchor_slots=np.zeros(40, np.int32),
+        anchor_w=np.zeros(40, np.int32), n_days=5, slots_per_day=9,
+        device=device)
+
+
+def _matching_instances(device):
+    """The greedy matcher's degenerate cases: a 120-event instance, one
+    room (R = 1), and padded events and rooms."""
+    comp = itc_like_instance(3, n_events=120, n_rooms=6, n_students=80)
+    medium = random_instance(2, n_events=80, n_rooms=8, n_features=5,
+                             n_students=60, attend_prob=0.08)
+    return [comp.device_arrays(device), _one_room(device),
+            padded_arrays(medium, device=device)]
+
+
+def _degenerate_slots(pa, P, seed):
+    """(P, E) slots with degenerate slot buckets: row 0 every event in
+    the last slot, row 1 every event in slot 0 or the last (the rest
+    empty), row 2 half the events in slot 3; the others random."""
+    g = torch.Generator(device=pa.device).manual_seed(seed)
+    slots = torch.randint(0, pa.n_slots, (P, pa.n_events), generator=g,
+                          device=pa.device, dtype=torch.int32)
+    last = pa.n_slots - 1
+    slots[0] = last
+    slots[1] = torch.where(slots[1] % 2 == 0, 0, last)
+    slots[2, :pa.n_events // 2] = 3
+    return slots
+
+
 def _state(pa, P, seed):
     g = torch.Generator(device=pa.device).manual_seed(seed)
     slots = torch.randint(0, pa.n_slots, (P, pa.n_events), generator=g,
@@ -81,14 +121,16 @@ def _state(pa, P, seed):
     return delta.init_state(pa, slots, rooms.assign_rooms_plain(pa, slots))
 
 
-def _breed_case(pa, device, groups, pop, seed):
+def _breed_case(pa, device, groups, pop, seed, slots=None):
     """(pop, cfg, parents, draws) of one breeding: parents with random
     rooms (not their slots' matching, so a child without crossover shows
     whether it kept parent A's rooms) and (penalty, scv) in {0, 1, 2}^2,
     so tournaments tie; crossover on for even children, mutation off for
-    every third."""
+    every third. Random parent slots unless `slots` are given."""
     P = groups * pop
     st = _state(pa, P, seed)
+    if slots is not None:
+        st = st._replace(slots=slots)
     g = torch.Generator(device=device).manual_seed(seed)
     rms = torch.randint(0, pa.n_rooms, st.rooms.shape, generator=g,
                         device=device, dtype=torch.int32)
@@ -138,6 +180,24 @@ def test_k1_assign_rooms_equals_plain(cuda):
         st = _state(pa, 37, 1)
         assert torch.equal(rooms.assign_rooms(pa, st.slots),
                            rooms.assign_rooms_plain(pa, st.slots))
+
+
+@pytest.mark.cuda
+def test_k1_k6_match_degenerate_buckets(cuda):
+    """K1 and K6's crossover matching on degenerate slot buckets (every
+    event in one slot, two slots and the rest empty, R = 1, padded events
+    and rooms) equal their plain versions."""
+    for i, pa in enumerate(_matching_instances(cuda)):
+        slots = _degenerate_slots(pa, 8, 200 + i)
+        assert torch.equal(rooms.assign_rooms(pa, slots),
+                           rooms.assign_rooms_plain(pa, slots))
+        _, cfg, par, draws = _breed_case(pa, cuda, 2, 4, 210 + i, slots)
+        for do_x in (True, None):
+            d = draws if do_x is None else draws._replace(
+                do_x=torch.ones_like(draws.do_x))
+            got = ga.make_children(pa, d, par, cfg, 2)
+            want = ga.make_children_plain(pa, d, par, cfg, 2)
+            assert all(torch.equal(w, g) for w, g in zip(want, got))
 
 
 @pytest.mark.cuda
@@ -399,6 +459,27 @@ def test_k8_random_ls_equals_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_k8_events_pre_pass_and_chunks_equal_plain(cuda):
+    """K8's pre-pass equals its plain version (moves.top3 of every draw
+    row) with ties among the uniforms, and the chain equals the plain
+    search when its rounds span several chunks of events (K = 40: 51
+    rounds a chunk)."""
+    pa = _instances(cuda)[0]
+    st = delta.init_rows(pa, *_state(pa, 3, 95)[:2])
+    for P, n_rounds, K in ((3, 60, 40), (1, 1, 1), (7, 4, 9)):
+        draws = _ls_draws(pa, cuda, P, n_rounds, K, 96)
+        # ties: a few distinct values, so top_k's lower-index rule decides
+        tied = draws._replace(u=(draws.u * 4).floor() / 4)
+        for d in (draws, tied):
+            assert torch.equal(delta.random_ls_events_kernel(d),
+                               delta.random_ls_events_plain(d))
+    draws = _ls_draws(pa, cuda, 3, 60, 40, 97)
+    got = delta.random_local_search(pa, draws, st)
+    want = delta.random_local_search_plain(pa, draws, st)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+@pytest.mark.cuda
 def test_k8_shared_memory_count_matches_the_kernel(cuda):
     kernels.build()
     fn = kernels._LIBS["random_ls"][0].tt_random_ls_smem_bytes
@@ -545,10 +626,11 @@ def test_sweep_pass_smem_bytes_at_comp01s():
 
 def test_random_ls_smem_bytes_at_comp01s():
     """K8's shared memory per individual on comp01s at K = 8: slots and
-    rooms 3,200, candidates 384, scalars 128, occ 912, att 18,000 and
-    the conflict bits 20,800."""
+    rooms 3,200, two buffers of candidate records 1,152, the bitsets
+    amask 1,600 and slot_ev 2,352, occ 912, att 18,000, a chunk of 256
+    rounds' events 12,288 and the conflict bits 20,800."""
     pa = load_tim_file(COMP01S).device_arrays()
-    assert delta.random_ls_smem_bytes(pa, 8) == 43_424
+    assert delta.random_ls_smem_bytes(pa, 8) == 60_304
 
 
 def test_lahc_smem_bytes_at_comp01s():
@@ -631,6 +713,7 @@ def test_library_paths_are_keyed_by_source_hash():
         sorted(kernels.SIGNATURES)
     assert kernels.SOURCES["breed"] == ["breed", "relocate"]
     assert kernels.SOURCES["survivors"] == ["survivors", "migrate"]
+    assert kernels.SOURCES["random_ls"] == ["random_ls_events", "random_ls"]
     assert kernels.SOURCES["nsga"] == ["nsga_rank", "nsga_survivors"]
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     # every local header a source includes is part of its key

@@ -5,46 +5,46 @@
 // runs as an E-step lax.scan whose carry is the (T, R) occupancy grid.
 //
 // Bound on this card: neither bytes nor operations. One individual moves
-// 2*E int32 (3.2 KB at E=400) and does E*R key evaluations; the chain of
-// E dependent argmins is latency: each step reads the slot, the R
-// occupancy counts and the R suitability flags, reduces, and writes one
-// count that the next step may read.
+// 2*E int32 (3.2 KB at E=400) and does E*R key evaluations; the time is
+// the longest chain of dependent argmins: each step reads the slot's R
+// occupancy counts and the event's R suitability flags, reduces, and
+// writes one count that the slot's next step reads.
 //
-// Design: one warp per individual, one lane per room (R <= 32). The
-// individual's slots and its (T, R) occupancy live in shared memory, so
-// a step is shared-memory loads plus a 5-level shuffle argmin that
-// breaks ties toward the lower room (jnp.argmin's first-index rule). The
-// event order (a stable sort of suitable-room counts) and the capacity
-// rank are computed once per problem on the host, as the JAX version
-// computes them once per trace. The matching itself is
-// rooms_dev.cuh `tt_match_rooms_warp`, which K6 runs on every crossover
-// child.
+// Design: one block per individual. As the JAX docstring says (rooms.py
+// :111-117), slot occupancies are independent: an event's key reads only
+// its own slot's row, so the E-step chain splits exactly into T chains,
+// one per slot, each that slot's events in the matching order — at most
+// R live events a slot in a feasible timetable, about E/T in a random
+// one. The block takes each event's slot in matching order into shared
+// memory, then its warps walk their slots' chains in parallel
+// (rooms_dev.cuh `tt_match_rooms_block`: a ballot over the order picks a
+// slot's events, one lane per room takes each argmin, ties toward the
+// lower room as jnp.argmin). The event order (a stable sort of
+// suitable-room counts) and the capacity rank are computed once per
+// problem on the host, as the JAX version computes them once per trace.
+// K6 runs the same body on every crossover child.
 #include "rooms_dev.cuh"
 
-#define K1_WARPS 4
+// threads of a block (the CPU stand-in builds it small)
+#ifndef K1_THREADS
+#define K1_THREADS 512
+#endif
 
-__global__ void assign_rooms_kernel(
+__global__ void __launch_bounds__(K1_THREADS) assign_rooms_kernel(
     const int* __restrict__ slots, int* __restrict__ rooms,
     const uint8_t* __restrict__ possible, const int* __restrict__ cap_rank,
     const int* __restrict__ dead, const int* __restrict__ live,
-    const int* __restrict__ order, int P, int E, int R, int T) {
+    const int* __restrict__ order, int E, int R, int T) {
     extern __shared__ int smem[];
-    int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    int* ord = smem;                                   // (E,)
-    int* base = smem + E + warp * (T * R + E);
-    int* occ = base;                                   // (T, R)
-    int* sl = base + T * R;                            // (E,)
-    for (int i = threadIdx.x; i < E; i += blockDim.x) ord[i] = order[i];
-    int p = blockIdx.x * K1_WARPS + warp;
-    bool active = p < P;
-    if (active) {
-        for (int i = lane; i < T * R; i += 32) occ[i] = 0;
-        for (int i = lane; i < E; i += 32) sl[i] = slots[(size_t)p * E + i];
-    }
+    int* so = smem;                                    // (E,)
+    int* occ = smem + E;                               // (T, R)
+    const int p = blockIdx.x;
+    const int* sl = slots + (size_t)p * E;
+    for (int i = threadIdx.x; i < E; i += blockDim.x) so[i] = sl[order[i]];
+    for (int i = threadIdx.x; i < T * R; i += blockDim.x) occ[i] = 0;
     __syncthreads();
-    if (!active) return;
-    TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
-    tt_match_rooms_warp(rp, ord, sl, occ, rooms + (size_t)p * E, lane);
+    const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
+    tt_match_rooms_block(rp, order, so, occ, rooms + (size_t)p * E);
 }
 
 extern "C" int tt_assign_rooms(const int* slots, int* rooms,
@@ -53,11 +53,11 @@ extern "C" int tt_assign_rooms(const int* slots, int* rooms,
                                const int* order, int P, int E, int R, int T,
                                void* stream) {
     if (R > 32 || P <= 0) return (int)cudaErrorInvalidValue;
-    size_t smem = sizeof(int) * ((size_t)E + K1_WARPS * ((size_t)T * R + E));
+    size_t smem = sizeof(int) * ((size_t)E + (size_t)T * R);
+    if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     cudaError_t err = tt_set_smem(assign_rooms_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    int grid = (P + K1_WARPS - 1) / K1_WARPS;
-    assign_rooms_kernel<<<grid, 32 * K1_WARPS, smem, (cudaStream_t)stream>>>(
-        slots, rooms, possible, cap_rank, dead, live, order, P, E, R, T);
+    assign_rooms_kernel<<<P, K1_THREADS, smem, (cudaStream_t)stream>>>(
+        slots, rooms, possible, cap_rank, dead, live, order, E, R, T);
     return (int)cudaGetLastError();
 }

@@ -13,28 +13,36 @@
 //
 // Bound on this card: neither bytes nor operations. A child reads two
 // parent rows and writes one (~10 KB at E=400) and does E*R room keys;
-// its time is the matching's chain of E dependent warp argmins (K1's
-// ~0.1 ms), then a few more for the move.
+// its time is the matching's longest chain of dependent argmins, then a
+// few more for the move.
 //
-// Design: one warp per child, one lane per room (R <= 32), as K1. Each
-// warp keeps its child's slots, rooms and (T, R) occupancy in shared
-// memory from the crossover through the mutation:
+// Design: one block per child (K6_THREADS, 16 warps), which keeps the
+// child's slots, rooms and (T, R) occupancy in shared memory from the
+// crossover through the mutation:
 //   - two k-draw tournaments by (penalty, scv) — or, with `mo`, by
 //     (rank asc, crowding desc) from K11's nsga_rank — the earliest draw
 //     kept on a full tie (jnp.lexsort(...)[0]); draws index the child's
-//     island;
+//     island; every thread takes them itself;
 //   - do_x: the masked crossover of the parents' slots and K1's matching
-//     body (rooms_dev.cuh) — or, with `parallel`, the parallel matcher's
-//     body from best-fit rooms and the occupancy counted after; else
-//     parent A's slots and rooms, unmatched, and the occupancy counted
-//     from them;
-//   - do_m: the top 3 of the row's E uniforms by warp argmax (ties to the
-//     lower index), sample_move's padded 3-relocation and
-//     apply_relocation on the child's occupancy.
-// The relocation entry runs only the last step, n_moves times in order
+//     body (rooms_dev.cuh tt_match_rooms_block: the slots' chains in
+//     parallel, a warp per slot, one lane per room; the greedy scan was
+//     one warp's chain of E dependent argmins, ~0.1 ms) — or, with
+//     `parallel`, the parallel matcher's body from best-fit rooms on
+//     warp 0 and the occupancy counted after; else parent A's slots and
+//     rooms, unmatched, and the occupancy counted from them;
+//   - do_m, on warp 0 after a barrier: the top 3 of the row's E uniforms
+//     by warp argmax (ties to the lower index), sample_move's padded
+//     3-relocation and apply_relocation on the child's occupancy.
+// The relocation entry (kicks, the full-evaluation local search) keeps
+// one warp per row and runs only the last step, n_moves times in order
 // per row, on an occupancy counted once at the start.
 #include "rooms_dev.cuh"
 
+// threads of a breeding block (the CPU stand-in builds it small), and
+// rows of a relocation block
+#ifndef K6_THREADS
+#define K6_THREADS 512
+#endif
 #define K6_WARPS 4
 
 // the winner of one tournament: `draws` (k) index the island's rows
@@ -72,7 +80,7 @@ __device__ __forceinline__ void k6_random_move(const TTRoomProblem& rp,
     tt_relocate_warp(rp, sl, rm, occ, ev, ns, on, lane, rank);
 }
 
-__global__ void breed_kernel(
+__global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     const int* __restrict__ slots, const int* __restrict__ rooms,
     const int* __restrict__ pen, const int* __restrict__ scv,
     const int* __restrict__ ta, const int* __restrict__ tb,
@@ -83,24 +91,19 @@ __global__ void breed_kernel(
     const int* __restrict__ dead, const int* __restrict__ live,
     const int* __restrict__ order, const int* __restrict__ ranks,
     const float* __restrict__ crowd, int* __restrict__ out_slots,
-    int* __restrict__ out_rooms, int P, int pop, int k, int E, int R,
-    int T, int n_rounds) {
+    int* __restrict__ out_rooms, int pop, int k, int E, int R, int T,
+    int n_rounds) {
     extern __shared__ int k6_smem[];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    // n_rounds >= 0: the parallel matcher, with its scratch after occ
-    const int per_warp = 2 * E + T * R
-                         + (n_rounds >= 0 ? tt_parallel_rooms_ints(E, R, T)
-                                          : 0);
-    int* ord = k6_smem;                                  // (E,)
-    int* sl = k6_smem + E + warp * per_warp;             // (E,)
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    int* sl = k6_smem;                                   // (E,)
     int* rm = sl + E;                                    // (E,)
     int* occ = rm + E;                                   // (T, R)
-    for (int i = threadIdx.x; i < E; i += blockDim.x) ord[i] = order[i];
-    __syncthreads();
-    const int c = blockIdx.x * K6_WARPS + warp;
-    if (c >= P) return;
+    // the greedy matcher's event slots in matching order, or the
+    // parallel matcher's scratch
+    int* so = occ + T * R;
+    const int c = blockIdx.x;
     const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
-    const int rank = tt_room_rank(rp, lane);
+    // every thread takes both tournaments (a few reads, no barrier)
     const int base = c / pop * pop;
     const int ia = k6_tournament(ta + (size_t)c * k, k, base, pen, scv,
                                  ranks, crowd);
@@ -111,30 +114,37 @@ __global__ void breed_kernel(
     const int* sb = slots + (size_t)ib * E;
     if (do_x[c]) {
         const uint8_t* mk = mask + (size_t)c * E;
-        for (int e = lane; e < E; e += 32) sl[e] = mk[e] ? sa[e] : sb[e];
+        for (int e = tid; e < E; e += blockDim.x)
+            sl[e] = mk[e] ? sa[e] : sb[e];
         if (n_rounds >= 0) {
-            for (int e = lane; e < E; e += 32) rm[e] = tt_best_fit_room(rp, e);
-            __syncwarp();
-            tt_parallel_rooms_warp(rp, sl, rm, occ + T * R, n_rounds, lane);
-            tt_occupancy_warp(rp, sl, rm, occ, lane);
+            for (int e = tid; e < E; e += blockDim.x)
+                rm[e] = tt_best_fit_room(rp, e);
+            __syncthreads();
+            if (warp == 0) {
+                tt_parallel_rooms_warp(rp, sl, rm, so, n_rounds, lane);
+                tt_occupancy_warp(rp, sl, rm, occ, lane);
+            }
         } else {
-            for (int i = lane; i < T * R; i += 32) occ[i] = 0;
-            __syncwarp();
-            tt_match_rooms_warp(rp, ord, sl, occ, rm, lane);
+            for (int i = tid; i < T * R; i += blockDim.x) occ[i] = 0;
+            for (int i = tid; i < E; i += blockDim.x)
+                so[i] = mk[order[i]] ? sa[order[i]] : sb[order[i]];
+            __syncthreads();
+            tt_match_rooms_block(rp, order, so, occ, rm);
         }
     } else {
-        for (int e = lane; e < E; e += 32) {
+        for (int e = tid; e < E; e += blockDim.x) {
             sl[e] = sa[e];
             rm[e] = ra[e];
         }
-        __syncwarp();
-        tt_occupancy_warp(rp, sl, rm, occ, lane);
+        __syncthreads();
+        if (warp == 0) tt_occupancy_warp(rp, sl, rm, occ, lane);
     }
-    if (do_m[c])
+    __syncthreads();
+    if (do_m[c] && warp == 0)
         k6_random_move(rp, sl, rm, occ, u + (size_t)c * E, mtype[c], tgt[c],
-                       lane, rank);
-    __syncwarp();
-    for (int e = lane; e < E; e += 32) {
+                       lane, tt_room_rank(rp, lane));
+    __syncthreads();
+    for (int e = tid; e < E; e += blockDim.x) {
         out_slots[(size_t)c * E + e] = sl[e];
         out_rooms[(size_t)c * E + e] = rm[e];
     }
@@ -185,17 +195,17 @@ extern "C" int tt_breed(
     if (R > 32 || E < 3 || P <= 0 || pop <= 0 || P % pop != 0 || k <= 0
         || (ranks != nullptr) != (crowd != nullptr))
         return (int)cudaErrorInvalidValue;
-    size_t per_warp = 2 * (size_t)E + (size_t)T * R
-                      + (n_rounds >= 0 ? tt_parallel_rooms_ints(E, R, T) : 0);
-    size_t smem = sizeof(int) * ((size_t)E + K6_WARPS * per_warp);
+    size_t smem = sizeof(int)
+                  * (2 * (size_t)E + (size_t)T * R
+                     + (n_rounds >= 0 ? tt_parallel_rooms_ints(E, R, T)
+                                      : (size_t)E));
     if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     cudaError_t err = tt_set_smem(breed_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    int grid = (P + K6_WARPS - 1) / K6_WARPS;
-    breed_kernel<<<grid, 32 * K6_WARPS, smem, (cudaStream_t)stream>>>(
+    breed_kernel<<<P, K6_THREADS, smem, (cudaStream_t)stream>>>(
         slots, rooms, pen, scv, ta, tb, mask, do_x, do_m, mtype, u, tgt,
         possible, cap_rank, dead, live, order, ranks, crowd, out_slots,
-        out_rooms, P, pop, k, E, R, T, n_rounds);
+        out_rooms, pop, k, E, R, T, n_rounds);
     return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // K8: the random-candidate delta local search of a population, all
-// rounds in one launch.
+// rounds in one launch, after a wide pre-pass that takes every
+// candidate's events.
 //
 // Replaces timetabling_ga_tpu/ops/delta.py:212 `batch_local_search_delta`
 // — a lax.scan of n_rounds rounds, each drawing K random padded
@@ -10,38 +11,70 @@
 // `--ls-mode random`, sized by -p / -m).
 //
 // Bound on this card: the serial chain of n_rounds block-wide rounds
-// (evaluate, one barrier, a K-way choice, the apply), not bytes: an
+// (evaluate, one barrier, the K-way choice, the apply), not bytes: an
 // individual's rows and penalty terms are read and written once a call,
-// and the draws (K uniforms rows of E floats a round) once.
+// the draws (K uniform rows of E floats a round) once, by the pre-pass.
 //
-// Design: one block per individual for the whole call, one warp per
-// candidate (a warp takes several when K > 16). The prologue loads the
-// individual's slots and rooms and, when it fits, the conflict bitset
-// into dynamic shared memory, and builds there the maintained att
-// (S x T int16, a thread per student over its events) and occ (T x R
-// int16, live events only, a thread per slot), which JAX's init_state
-// computes on the way in; the penalty terms arrive from K2. A round:
-// each warp takes its candidate's events as the top 3 of its uniforms
-// (warp argmax, ties to the lower index; rooms_dev.cuh), builds
-// sample_move's relocation and scores it with K4's body and the anchor
-// terms (sweep_dev.cuh `tt_score_candidate_warp`, which K10 shares);
-// thread 0 takes the first candidate of least
-// penalty (jnp.argmin) and accepts it when strictly below the current
-// one; the block applies it with K5's apply. Nothing goes back to global
-// memory until the epilogue, which writes slots, rooms and the penalty
-// terms (att and occ die with the block). Integer-exact: equal to the
-// plain version (ops/delta.py) bit for bit.
+// Design, in two entry points:
+//   - random_ls_events (the pre-pass): sample_move's events are the top
+//     3 of each candidate's uniforms (moves.py:128, lax.top_k of iid
+//     draws), a pure function of the draws, so they are known before
+//     round 0. One warp per (round, candidate, individual) row over all
+//     SMs takes them (rooms_dev.cuh tt_top3_warp: largest first, ties to
+//     the lower index) and writes them as int16, (P, n_rounds, K, 3),
+//     each individual's contiguous. The phase counters of the previous
+//     design (k5_phases) put the draw read and top-3 at 23% of a round
+//     on the chain, ~5,600 cycles. A prologue inside the chain's block
+//     would leave those 1,000 scans (-p 2) to its 8 warps, serially; a
+//     launch of its own spreads them over every SM, and the 16 MB of
+//     uniforms at P = 10 stream at the card's bandwidth (24 us against
+//     the chain's 0.62 ms on an H100 SXM at 700 W).
+//   - random_ls (the chain): one block per individual for the whole
+//     call, one warp per candidate (a warp takes several when K >
+//     K8_MAX_WARPS). The prologue loads the slots, rooms and, when it
+//     fits, the conflict bitset into dynamic shared memory and builds
+//     there att (S x T int16), occ (T x R int16, live events only) and
+//     K5's two bitsets (amask, slot_ev; sweep_dev.cuh
+//     tt_build_bitsets_block). The events come in chunks of rounds
+//     (K8_EVENT_BYTES) into shared memory. A round: each warp builds
+//     its candidate's relocation from the chunk and scores it with K5's
+//     K4 body on the bitsets (tt_delta_one_bits_warp) and the anchor
+//     terms; after one barrier every warp takes the first candidate of
+//     least penalty (jnp.argmin) with a warp reduction, and every
+//     thread, holding the individual's (pen, hcv, scv) in registers,
+//     accepts it when strictly below; the block applies it with K5's
+//     apply, which keeps the bitsets (tt_apply_move_bits_block). The
+//     candidate records carry the move whole (old slots and rooms too)
+//     and alternate between two buffers by round parity, so a rejected
+//     round needs no second barrier. The K4 body then holds about half
+//     of a round (k5_phases); splitting its student loop over the free
+//     warps (K = 8 of 16) would save at most ~12% of a round on a path
+//     whose pace the host's launches now set, so a candidate keeps one
+//     warp.
+// Nothing goes back to global memory until the epilogue, which writes
+// slots, rooms and the penalty terms. Integer-exact: equal to the plain
+// version (ops/delta.py) bit for bit.
 #include "sweep_dev.cuh"
 #include "rooms_dev.cuh"
 
+// the most warps of the chain's block (the CPU stand-in builds it small)
+#ifndef K8_MAX_WARPS
 #define K8_MAX_WARPS 16
-#define K8_CAND_INTS 12
-// block-wide scalars: (pen, hcv, scv) and the 16-int chosen move
-#define K8_MISC_INTS 32
+#endif
+// a candidate's record: pen, hcv, scv, ev[3], ns[3], nr[3] (as
+// tt_store_candidate writes them), then the old slots and rooms[3]
+#define K8_CAND_INTS 18
+// shared memory for one chunk of rounds' events (at least one round;
+// the CPU stand-in builds it small, to cross chunks)
+#ifndef K8_EVENT_BYTES
+#define K8_EVENT_BYTES 12288
+#endif
+#define K8E_WARPS 8
 
 struct K8Smem {
-    unsigned slots, rooms, cand, misc, occ, att, bits, total;
-    int bits_in_smem;
+    unsigned slots, rooms, cand, amask, slot_ev, occ, att, events, bits,
+        total;
+    int chunk_rounds, bits_in_smem;
 };
 
 __host__ __device__ inline unsigned k8_align(size_t x) {
@@ -52,12 +85,16 @@ __host__ __device__ inline K8Smem k8_smem_layout(int E, int R, int S, int T,
                                                  int K, int W) {
     K8Smem m;
     unsigned o = 0;
+    m.chunk_rounds = K8_EVENT_BYTES / (6 * K);
+    if (m.chunk_rounds < 1) m.chunk_rounds = 1;
     m.slots = o; o += k8_align(4 * (size_t)E);
     m.rooms = o; o += k8_align(4 * (size_t)E);
-    m.cand = o; o += k8_align(4 * (size_t)K8_CAND_INTS * K);
-    m.misc = o; o += k8_align(4 * (size_t)K8_MISC_INTS);
+    m.cand = o; o += k8_align(2 * 4 * (size_t)K8_CAND_INTS * K);
+    m.amask = o; o += k8_align(8 * (size_t)S);
+    m.slot_ev = o; o += k8_align(4 * (size_t)T * W);
     m.occ = o; o += k8_align(2 * (size_t)T * R);
     m.att = o; o += k8_align(2 * (size_t)S * T);
+    m.events = o; o += k8_align(6 * (size_t)K * m.chunk_rounds);
     m.bits = o;
     unsigned with_bits = o + k8_align(4 * (size_t)E * W);
     m.bits_in_smem = with_bits <= TT_SMEM_LIMIT ? 1 : 0;
@@ -75,7 +112,8 @@ struct K8Args {
     const int* slots; const int* rooms; const int* pen; const int* hcv;
     const int* scv;
     // draws: row (round * K + candidate) * P + individual
-    const int* mtype; const float* u; const int* tgt;
+    const int* mtype; const int* tgt;
+    const int16_t* events;         // (P, n_rounds, K, 3) from the pre-pass
     // rows out
     int* slots_out; int* rooms_out; int* pen_out; int* hcv_out;
     int* scv_out;
@@ -83,22 +121,39 @@ struct K8Args {
     K8Smem lay;
 };
 
+__global__ void __launch_bounds__(32 * K8E_WARPS)
+random_ls_events_kernel(const float* __restrict__ u,
+                        int16_t* __restrict__ events, int P, int E, int K,
+                        int n_rounds) {
+    const int lane = threadIdx.x & 31;
+    const size_t q = (size_t)blockIdx.x * K8E_WARPS + (threadIdx.x >> 5);
+    if (q >= (size_t)n_rounds * K * P) return;
+    int ev[3];
+    tt_top3_warp(u + q * E, E, lane, ev);
+    // draw row q = (round * K + c) * P + p -> event row (p, round, c)
+    const size_t p = q % P, rc = q / P;
+    if (lane < 3)
+        events[(p * n_rounds * K + rc) * 3 + lane] = (int16_t)ev[lane];
+}
+
 __global__ void __launch_bounds__(32 * K8_MAX_WARPS)
 random_ls_kernel(K8Args A) {
     extern __shared__ __align__(16) unsigned char k8_smem[];
     const int E = A.pb.E, R = A.pb.R, S = A.pb.S, T = A.pb.T, W = A.pb.W;
+    const int K = A.K, chunk = A.lay.chunk_rounds;
     const int p = blockIdx.x, tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
     int* slots = (int*)(k8_smem + A.lay.slots);
     int* rooms = (int*)(k8_smem + A.lay.rooms);
-    int* cand = (int*)(k8_smem + A.lay.cand);    // K x (pen, hcv, scv,
-    //                                              ev[3], ns[3], nr[3])
-    int* st = (int*)(k8_smem + A.lay.misc);      // pen, hcv, scv
-    int* mv = st + 4;                            // accept, then the move
+    int* cand = (int*)(k8_smem + A.lay.cand);    // 2 x K records
+    uint64_t* amask = (uint64_t*)(k8_smem + A.lay.amask);
+    uint32_t* slot_ev = (uint32_t*)(k8_smem + A.lay.slot_ev);
     int16_t* occ = (int16_t*)(k8_smem + A.lay.occ);
     int16_t* att = (int16_t*)(k8_smem + A.lay.att);
+    int16_t* evs = (int16_t*)(k8_smem + A.lay.events);
     uint32_t* bits = (uint32_t*)(k8_smem + A.lay.bits);
 
+    TT_PROF_START();
     const int* g_slots = A.slots + (size_t)p * E;
     const int* g_rooms = A.rooms + (size_t)p * E;
     for (int i = tid; i < E; i += blockDim.x) {
@@ -111,9 +166,8 @@ random_ls_kernel(K8Args A) {
             bits[i] = A.pb.conflict_bits[i];
         pb.conflict_bits = bits;
     }
-    if (tid == 0) {
-        st[0] = A.pen[p]; st[1] = A.hcv[p]; st[2] = A.scv[p];
-    }
+    // every thread keeps the individual's (pen, hcv, scv)
+    int st[3] = {A.pen[p], A.hcv[p], A.scv[p]};
     __syncthreads();
     // att[s][t]: student s's attended events in slot t (delta.py
     // attendance_counts); each thread owns its students' rows
@@ -134,36 +188,81 @@ random_ls_kernel(K8Args A) {
             if (slots[e] == t && pb.live[e]) row[rooms[e]] += 1;
     }
     __syncthreads();
+    tt_build_bitsets_block(pb, slots, att, amask, slot_ev);
+    __syncthreads();
+    TT_PROF(9);
 
+    const int16_t* g_ev = A.events + (size_t)p * A.n_rounds * K * 3;
     for (int r = 0; r < A.n_rounds; ++r) {
-        for (int c = warp; c < A.K; c += n_warps) {
-            const size_t row = ((size_t)r * A.K + c) * A.P + p;
-            int ev[3], ns[3], on[3];
-            tt_top3_warp(A.u + row * E, E, lane, ev);
+        const int rc = r % chunk;
+        if (rc == 0) {
+            // every read of the previous chunk came before the previous
+            // round's barrier
+            const int n = min(chunk, A.n_rounds - r) * K * 3;
+            for (int i = tid; i < n; i += blockDim.x)
+                evs[i] = g_ev[(size_t)r * K * 3 + i];
+            __syncthreads();
+            TT_PROF(6);
+        }
+        int* rec = cand + (r & 1) * K * K8_CAND_INTS;
+        for (int c = warp; c < K; c += n_warps) {
+            const size_t row = ((size_t)r * K + c) * A.P + p;
+            const int16_t* e3 = evs + (rc * K + c) * 3;
+            int ev[3] = {e3[0], e3[1], e3[2]};
+            int ns[3], on[3], nr[3], dh, ds;
             tt_sample_move(slots, A.mtype[row], A.tgt[row], ev, ns, on);
-            tt_score_candidate_warp(pb, slots, rooms, att, occ, ev, ns, on,
-                                    st, A.anchor_slots, A.anchor_w,
-                                    A.anchored, lane,
-                                    cand + c * K8_CAND_INTS);
+            TT_PROF(0);
+            tt_delta_one_bits_warp(pb, slots, rooms, att, occ, amask,
+                                   slot_ev, ev, ns, on, lane, &dh, &ds, nr);
+            if (lane == 0) {
+                int* o = rec + c * K8_CAND_INTS;
+                tt_store_candidate(slots, ev, ns, nr, dh, ds, st,
+                                   A.anchor_slots, A.anchor_w, A.anchored,
+                                   o);
+#pragma unroll
+                for (int m = 0; m < 3; ++m) {
+                    o[12 + m] = slots[ev[m]];
+                    o[15 + m] = rooms[ev[m]];
+                }
+            }
+            TT_PROF(4);
         }
         __syncthreads();
-        if (tid == 0) {
-            int best = 0;
-            for (int c = 1; c < A.K; ++c)
-                if (cand[c * K8_CAND_INTS] < cand[best * K8_CAND_INTS])
-                    best = c;
-            const int* o = cand + best * K8_CAND_INTS;
-            mv[0] = o[0] < st[0] ? 1 : 0;
-            if (mv[0]) {
-                tt_move_of_candidate(o, slots, rooms, mv + 1);
-                st[0] = o[0]; st[1] = o[1]; st[2] = o[2];
+        TT_PROF(5);
+        // the first candidate of least penalty, in every warp: each lane
+        // keeps its first least, the reduction the lowest index of those
+        int key = 0x7fffffff, idx = 0x7fffffff;
+        for (int c = lane; c < K; c += 32) {
+            const int v = rec[c * K8_CAND_INTS];
+            if (v < key) {
+                key = v;
+                idx = c;
             }
         }
-        __syncthreads();
-        if (mv[0]) tt_apply_move_block(pb, mv + 1, slots, rooms, att, occ);
-        __syncthreads();
+        const int* o = rec + tt_warp_argmin(key, idx) * K8_CAND_INTS;
+        TT_PROF(7);
+        if (o[0] < st[0]) {
+            // the move as the apply takes it: events, old slots, old
+            // rooms, new slots, new rooms
+            int mv[15];
+#pragma unroll
+            for (int m = 0; m < 3; ++m) {
+                mv[m] = o[3 + m];
+                mv[3 + m] = o[12 + m];
+                mv[6 + m] = o[15 + m];
+                mv[9 + m] = o[6 + m];
+                mv[12 + m] = o[9 + m];
+            }
+            st[0] = o[0];
+            st[1] = o[1];
+            st[2] = o[2];
+            tt_apply_move_bits_block(pb, mv, slots, rooms, att, occ, amask,
+                                     slot_ev);
+            TT_PROF(8);
+        }
     }
 
+    // the last apply ended on a barrier; a rejected round wrote nothing
     for (int i = tid; i < E; i += blockDim.x) {
         A.slots_out[(size_t)p * E + i] = slots[i];
         A.rooms_out[(size_t)p * E + i] = rooms[i];
@@ -173,6 +272,7 @@ random_ls_kernel(K8Args A) {
         A.hcv_out[p] = st[1];
         A.scv_out[p] = st[2];
     }
+    TT_PROF(10);
 }
 
 extern "C" int tt_random_ls_smem_bytes(int E, int R, int S, int T, int K,
@@ -180,9 +280,23 @@ extern "C" int tt_random_ls_smem_bytes(int E, int R, int S, int T, int K,
     return (int)k8_smem_layout(E, R, S, T, K, W).total;
 }
 
+extern "C" int tt_random_ls_events(const float* u, int16_t* events, int P,
+                                   int E, int K, int n_rounds,
+                                   void* stream) {
+    if (P <= 0 || E < 3 || E > 32767 || K <= 0 || n_rounds <= 0)
+        return (int)cudaErrorInvalidValue;
+    const size_t rows = (size_t)n_rounds * K * P;
+    const size_t grid = (rows + K8E_WARPS - 1) / K8E_WARPS;
+    if (grid > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+    random_ls_events_kernel<<<(unsigned)grid, 32 * K8E_WARPS, 0,
+                              (cudaStream_t)stream>>>(u, events, P, E, K,
+                                                      n_rounds);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int tt_random_ls(
     const int* slots, const int* rooms, const int* pen, const int* hcv,
-    const int* scv, const int* mtype, const float* u, const int* tgt,
+    const int* scv, const int* mtype, const int16_t* events, const int* tgt,
     const uint8_t* possible, const int* live, const int* student_count,
     const uint32_t* conflict_bits, const int* cap_rank, const int* dead,
     const uint8_t* attends, const int* ev_ptr, const int* ev_stu,
@@ -205,7 +319,7 @@ extern "C" int tt_random_ls(
     A.anchor_slots = anchor_slots; A.anchor_w = anchor_w;
     A.stu_ptr = stu_ptr; A.stu_ev = stu_ev;
     A.slots = slots; A.rooms = rooms; A.pen = pen; A.hcv = hcv; A.scv = scv;
-    A.mtype = mtype; A.u = u; A.tgt = tgt;
+    A.mtype = mtype; A.tgt = tgt; A.events = events;
     A.slots_out = slots_out; A.rooms_out = rooms_out; A.pen_out = pen_out;
     A.hcv_out = hcv_out; A.scv_out = scv_out;
     A.P = P; A.K = K; A.n_rounds = n_rounds; A.anchored = anchored;

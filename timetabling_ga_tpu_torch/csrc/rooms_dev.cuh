@@ -1,13 +1,15 @@
 // Device bodies of the greedy room choice and of moves that re-room,
-// shared by K1 (assign_rooms.cu), K6 (breed.cu) and K8 (random_ls.cu).
+// shared by K1 (assign_rooms.cu), K6 (breed.cu), K8 (random_ls.cu) and
+// K10 (lahc.cu).
 //
-// Each body runs on the 32 lanes of one warp, one lane per room
+// A room choice runs on the 32 lanes of one warp, one lane per room
 // (R <= 32), with the individual's slots, rooms and (T, R) occupancy in
 // shared memory; lane 0 writes, and a __syncwarp() after each write
-// makes it visible to the warp's next step. The room key stays in
-// lockstep with ops/rooms.py `_room_key` (timetabling_ga_tpu/ops/
-// rooms.py:68): (occ + unsuit) * 2^13 + unsuit * 2^12 + cap_rank + dead,
-// the argmin taking the first room on ties.
+// makes it visible to the warp's next step. The greedy matching runs on
+// a whole block, a warp per slot (tt_match_rooms_block). The room key
+// stays in lockstep with ops/rooms.py `_room_key` (timetabling_ga_tpu/
+// ops/rooms.py:68): (occ + unsuit) * 2^13 + unsuit * 2^12 + cap_rank +
+// dead, the argmin taking the first room on ties.
 #pragma once
 
 #include "common.cuh"
@@ -41,26 +43,42 @@ __device__ __forceinline__ int tt_choose_room_warp(const TTRoomProblem& rp,
     return tt_warp_argmin(key, lane);
 }
 
-// K1's body (rooms.py:108 assign_rooms): events in the matching order
-// `ord`, each taking its room on its slot's occupancy row. `occ` (T x R)
-// comes in zeroed and leaves as the occupancy of (sl, rooms_out); padded
-// events choose a room but occupy nothing.
-__device__ __forceinline__ void tt_match_rooms_warp(const TTRoomProblem& rp,
-                                                    const int* ord,
-                                                    const int* sl, int* occ,
-                                                    int* rooms_out,
-                                                    int lane) {
-    const int R = rp.R;
+// K1's body (rooms.py:108 assign_rooms), run by the whole block, slot by
+// slot. An event's room key reads only its own slot's occupancy row
+// (`_room_key`, rooms.py:68), so the matching splits exactly into T
+// independent chains, one per slot, each running that slot's events in
+// the order of the matching order `ord` (argsort of the suitable-room
+// counts, stable). Warp w owns slots w, w + n_warps, ...; for each, it
+// walks `ord` in chunks of 32 with a ballot of the events in that slot
+// (`so[i]` = the slot of event ord[i]) and takes their rooms in order,
+// one lane per room. `occ` (T x R) comes in zeroed and leaves as the
+// occupancy of (slots, rooms_out); padded events choose a room but
+// occupy nothing. The caller syncs before (so and occ ready) and after.
+__device__ __forceinline__ void tt_match_rooms_block(const TTRoomProblem& rp,
+                                                     const int* ord,
+                                                     const int* so,
+                                                     int* occ,
+                                                     int* rooms_out) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5;
     const int rank = tt_room_rank(rp, lane);
-    for (int i = 0; i < rp.E; ++i) {
-        int e = ord[i];
-        int t = sl[e];
-        int r = tt_choose_room_warp(rp, occ + t * R, e, lane, rank);
-        if (lane == 0) {
-            rooms_out[e] = r;
-            occ[t * R + r] += rp.live[e];
+    for (int t = warp; t < rp.T; t += n_warps) {
+        int* row = occ + t * rp.R;
+        for (int k = 0; k < rp.E; k += 32) {
+            const int i = k + lane;
+            unsigned hit =
+                __ballot_sync(TT_FULL_MASK, i < rp.E && so[i] == t);
+            while (hit) {
+                const int e = ord[k + __ffs(hit) - 1];
+                hit &= hit - 1;
+                const int r = tt_choose_room_warp(rp, row, e, lane, rank);
+                if (lane == 0) {
+                    rooms_out[e] = r;
+                    row[r] += rp.live[e];
+                }
+                __syncwarp();
+            }
         }
-        __syncwarp();
     }
 }
 

@@ -15,16 +15,16 @@
 // `slot_bitsets` is their plain version):
 //   amask   (S,) u64     bit t of student s set iff att[s, t] > 0
 //   slot_ev (T, W) u32   bit f of row t set iff slots[f] == t
-// K5 and K10 build them in their prologue (tt_build_bitsets_block) and
-// keep them up to date in their apply (tt_apply_move_bits_block); their
-// K4 body (tt_delta_one_bits_warp) reads a student's days from one word
-// and counts a conflict row's events in a slot with popcounts. K8 and
-// K4's own launch keep the body that reads att alone (tt_delta_one_warp).
+// K5, K8 and K10 build them in their prologue (tt_build_bitsets_block)
+// and keep them up to date in their apply (tt_apply_move_bits_block);
+// the K4 body (tt_delta_one_bits_warp, also K4's own launch, whose
+// wrapper builds the bitsets) reads a student's days from one word and
+// counts a conflict row's events in a slot with popcounts.
 #pragma once
 
 #include "common.cuh"
 
-// Phase counters of K5, compiled in only with -DTT_K5_PROF (see
+// Phase counters of K5 and K8, compiled in only with -DTT_K5_PROF (see
 // timetabling_ga_tpu_torch/k5_phases.py): block 0's thread 0 (rank 0 of
 // cluster 0) adds the clock64() cycles since its previous mark to
 // counter k, so the counters partition that thread's time in the pass.
@@ -274,7 +274,7 @@ __device__ __forceinline__ void tt_delta_rooms_warp(
         }
     // An entry that keeps its slot (ns == os: an inactive pad) adds 0 to
     // the moved x unmoved correlation and to every attendance patch, so
-    // both bodies skip it.
+    // the body skips it.
 #pragma unroll
     for (int m = 0; m < 3; ++m) shift[m] = ns[m] != os[m];
     *dh = pair_d + unsuit_d + corr;
@@ -312,99 +312,19 @@ __device__ __forceinline__ uint32_t tt_moved_word(const int ev[3], int w) {
     return moved;
 }
 
-// K4's body: the delta of one padded 3-relocation candidate (events ev,
-// new slots ns, active flags on), run by all 32 lanes of one warp; every
-// lane returns the result. After the attendance-free terms
-// (tt_delta_rooms_warp), the conflict dots walk the set bits of each row
-// (moved events masked out) with the lanes over words. The day re-score
-// walks the union of the students of the events that change slot (each
-// student once: it is skipped under event m when it also attends an
-// earlier one), one lane per student, and rebuilds that student's bits
-// of every affected day before and after the patch from att.
-__device__ __forceinline__ void tt_delta_one_warp(
-    const TTSweepProblem& pb, const int* slots, const int* rooms,
-    const int16_t* att, const int16_t* occ, const int ev[3],
-    const int ns[3], const int on[3], int lane, int* d_hcv, int* d_scv,
-    int nr[3]) {
-    const int E = pb.E, T = pb.T, spd = pb.spd, W = pb.W;
-    int os[3], dh, ds;
-    bool shift[3];
-    tt_delta_rooms_warp(pb, slots, rooms, occ, ev, ns, on, lane, os, shift,
-                        &dh, &ds, nr);
-
-    // ---- moved x unmoved correlation: conflict rows over slot equality
-    int corr_l = 0;
-    for (int w = lane; w < W; w += 32) {
-        const uint32_t moved = tt_moved_word(ev, w);
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-            if (!shift[m]) continue;
-            uint32_t bits = pb.conflict_bits[(size_t)ev[m] * W + w] & ~moved;
-            while (bits) {
-                int f = w * 32 + __ffs(bits) - 1;
-                bits &= bits - 1;
-                int sf = slots[f];
-                corr_l += (sf == ns[m] ? 1 : 0) - (sf == os[m] ? 1 : 0);
-            }
-        }
-    }
-    dh += tt_warp_sum(corr_l);
-    TT_PROF(2);
-
-    // ---- affected days re-scored per student, from att: each student
-    // of the slot-changing events once, all its days in turn
-    int days[6];
-    bool uniq[6];
-    tt_affected_days(os, ns, shift, spd, days, uniq);
-    int scv_l = 0;
-    for (int m = 0; m < 3; ++m) {
-        if (!shift[m]) continue;
-        int k0 = pb.ev_ptr[ev[m]], nst = pb.ev_ptr[ev[m] + 1] - k0;
-        for (int k = lane; k < nst; k += 32) {
-            int s = pb.ev_stu[k0 + k];
-            const uint8_t* a_s = pb.attends + (size_t)s * E;
-            int col[3];
-#pragma unroll
-            for (int q = 0; q < 3; ++q) col[q] = a_s[ev[q]];
-            bool seen = false;
-            for (int q = 0; q < m; ++q)
-                if (shift[q] && col[q]) seen = true;
-            if (seen) continue;
-            const int16_t* att_s = att + (size_t)s * T;
-#pragma unroll
-            for (int i = 0; i < 6; ++i) {
-                if (!uniq[i]) continue;
-                int d = days[i];
-                uint32_t before = 0u, after = 0u;
-                for (int j = 0; j < spd; ++j) {
-                    int t = d * spd + j;
-                    int v = att_s[t];
-                    int w = v;
-#pragma unroll
-                    for (int q = 0; q < 3; ++q)
-                        w += col[q] * ((ns[q] == t ? 1 : 0)
-                                       - (os[q] == t ? 1 : 0));
-                    if (v > 0) before |= 1u << j;
-                    if (w > 0) after |= 1u << j;
-                }
-                scv_l += tt_day_scv(after) - tt_day_scv(before);
-            }
-        }
-    }
-    *d_hcv = dh;
-    *d_scv = ds + tt_warp_sum(scv_l);
-    TT_PROF(3);
-}
-
-// K4's body on the bitsets (K5, K10): the same delta as
-// tt_delta_one_warp, bit for bit. The conflict dots count, for each
-// event m that changes slot, the row's events (moved ones masked out) in
-// its new slot minus those in its old one — popcounts of the row against
-// slot_ev's two rows, the lanes over words, with no loop over set bits.
-// The day re-score takes a student's attended slots from its amask word
-// (`before`) and recomputes only the bits of the <= 6 slots the move
-// touches from att plus the patch (`after`); every affected day is then
-// re-scored from the two words.
+// K4's body (K4, K5, K8, K10): the delta of one padded 3-relocation
+// candidate (events ev, new slots ns, active flags on), run by all 32
+// lanes of one warp; every lane returns the result. After the
+// attendance-free terms (tt_delta_rooms_warp), the conflict dots count,
+// for each event m that changes slot, the row's events (moved ones
+// masked out) in its new slot minus those in its old one — popcounts of
+// the row against slot_ev's two rows, the lanes over words. The day
+// re-score walks the union of the students of the events that change
+// slot (each student once: it is skipped under event m when it also
+// attends an earlier one), one lane per student; it takes the student's
+// attended slots from its amask word (`before`) and recomputes only the
+// bits of the <= 6 slots the move touches from att plus the patch
+// (`after`); every affected day is then re-scored from the two words.
 __device__ __forceinline__ void tt_delta_one_bits_warp(
     const TTSweepProblem& pb, const int* slots, const int* rooms,
     const int16_t* att, const int16_t* occ, const uint64_t* amask,
@@ -482,49 +402,17 @@ __device__ __forceinline__ void tt_delta_one_bits_warp(
 }
 
 // delta.py:188 _apply_move on one individual's state in shared memory,
-// run by the whole block: `mv` holds the accepted move's events (3), old
-// slots (3), old rooms (3), new slots (3) and new rooms (3). Inactive
-// pad entries (new == old) cancel; padded events weigh 0 in occupancy.
-// K8 (random_ls.cu) applies its moves with it; K5 and K10, which keep
-// the bitsets, with tt_apply_move_bits_block.
-__device__ __forceinline__ void tt_apply_move_block(
-    const TTSweepProblem& pb, const int* mv, int* slots, int* rooms,
-    int16_t* att, int16_t* occ) {
-    const int E = pb.E, R = pb.R, T = pb.T;
-    for (int s = threadIdx.x; s < pb.S; s += blockDim.x) {
-        const uint8_t* a_s = pb.attends + (size_t)s * E;
-        int16_t* row = att + (size_t)s * T;
-#pragma unroll
-        for (int m = 0; m < 3; ++m)
-            if (a_s[mv[m]]) {
-                row[mv[3 + m]] -= 1;
-                row[mv[9 + m]] += 1;
-            }
-    }
-    if (threadIdx.x == 0) {
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-            int lv = pb.live[mv[m]];
-            occ[mv[3 + m] * R + mv[6 + m]] -= lv;
-            occ[mv[9 + m] * R + mv[12 + m]] += lv;
-        }
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-            slots[mv[m]] = mv[9 + m];
-            rooms[mv[m]] = mv[12 + m];
-        }
-    }
-}
-
-// The same apply on a state that carries the bitsets, run by the whole
-// block; it ends on a barrier. Only the students of the events that
+// run by the whole block; it ends on a barrier. `mv` holds the accepted
+// move's events (3), old slots (3), old rooms (3), new slots (3) and new
+// rooms (3); inactive pad entries (new == old) cancel, and padded events
+// weigh 0 in occupancy. Only the students of the events that
 // change slot are visited (ev_ptr / ev_stu), one event after another
 // with a barrier between, since a student may attend two of them: each
 // such student's att row loses the old slot and gains the new one, and
 // its amask bits of those two slots are recomputed. Thread 0 meanwhile
 // moves occupancy, slots, rooms and the events' slot_ev bits from the
-// old slot's row to the new one's. Equal to tt_apply_move_block on
-// slots, rooms, att and occ.
+// old slot's row to the new one's (delta.py:188 _apply_move, and
+// ops/delta.py apply_bitsets for the bitsets).
 __device__ __forceinline__ void tt_apply_move_bits_block(
     const TTSweepProblem& pb, const int* mv, int* slots, int* rooms,
     int16_t* att, int16_t* occ, uint64_t* amask, uint32_t* slot_ev) {
@@ -572,9 +460,12 @@ __device__ __forceinline__ int tt_base_penalty(int hcv, int scv) {
     return hcv == 0 ? scv : TT_INFEASIBLE_OFFSET + hcv;
 }
 
-// Lane 0's part of the random-candidate scoring: the 12 ints of the
-// candidate (ev, ns) with deltas (dh, ds) and new rooms nr, stored at
-// `o` as tt_score_candidate_warp describes.
+// Lane 0's part of the random-candidate scoring (ops/delta.py:240-257):
+// 12 ints of the candidate (ev, ns) of the individual whose (pen, hcv,
+// scv) are st[0..2], with deltas (dh, ds) and new rooms nr, stored at
+// `o`: the candidate's penalty — its base penalty plus, when anchored,
+// the state's anchor residual pen - base_penalty(hcv, scv) and the
+// move's anchor delta — its hcv and scv, ev[3], ns[3] and nr[3].
 __device__ __forceinline__ void tt_store_candidate(
     const int* slots, const int ev[3], const int ns[3], const int nr[3],
     int dh, int ds, const int* st, const int* anchor_slots,
@@ -602,29 +493,8 @@ __device__ __forceinline__ void tt_store_candidate(
     }
 }
 
-// One random candidate of K8 (ops/delta.py:240-257), run by the 32
-// lanes of one warp: the padded 3-relocation (ev, ns, on) of the
-// individual whose (pen, hcv, scv) are st[0..2] scored by K4's body,
-// then, on lane 0, 12 ints stored at `o`: the candidate's penalty — its
-// base penalty plus, when anchored, the state's anchor residual pen -
-// base_penalty(hcv, scv) and the move's anchor delta — its hcv and scv,
-// ev[3], ns[3] and the new rooms nr[3].
-__device__ __forceinline__ void tt_score_candidate_warp(
-    const TTSweepProblem& pb, const int* slots, const int* rooms,
-    const int16_t* att, const int16_t* occ, const int ev[3],
-    const int ns[3], const int on[3], const int* st,
-    const int* anchor_slots, const int* anchor_w, int anchored, int lane,
-    int* o) {
-    int nr[3], dh, ds;
-    tt_delta_one_warp(pb, slots, rooms, att, occ, ev, ns, on, lane, &dh,
-                      &ds, nr);
-    if (lane == 0)
-        tt_store_candidate(slots, ev, ns, nr, dh, ds, st, anchor_slots,
-                           anchor_w, anchored, o);
-}
-
-// The same scoring on the bitsets (K10, ops/lahc.py:255-281): K4's body
-// is tt_delta_one_bits_warp.
+// One random candidate of K10 (ops/lahc.py:255-281), run by the 32 lanes
+// of one warp: K4's body, then lane 0's store (tt_store_candidate).
 __device__ __forceinline__ void tt_score_candidate_bits_warp(
     const TTSweepProblem& pb, const int* slots, const int* rooms,
     const int16_t* att, const int16_t* occ, const uint64_t* amask,
@@ -639,8 +509,8 @@ __device__ __forceinline__ void tt_score_candidate_bits_warp(
                            anchor_w, anchored, o);
 }
 
-// The chosen candidate `o` (12 ints, as tt_score_candidate_warp stores
-// them) as the 15-int move tt_apply_move_block takes.
+// The chosen candidate `o` (12 ints, as tt_store_candidate stores them)
+// as the 15-int move tt_apply_move_bits_block takes.
 __device__ __forceinline__ void tt_move_of_candidate(const int* o,
                                                      const int* slots,
                                                      const int* rooms,

@@ -1,19 +1,27 @@
-"""Where one K5 sweep pass spends its time, on the card.
+"""Where one K5 sweep pass and one K8 local search spend their time, on
+the card.
 
     python -m timetabling_ga_tpu_torch.k5_phases
 
-Builds csrc/sweep_pass.cu once more with K5's phase counters compiled in
-(-DTT_K5_PROF: block 0's thread 0 — rank 0 of cluster 0 — reads
+Builds csrc/sweep_pass.cu and csrc/random_ls.cu once more with their
+phase counters compiled in (-DTT_K5_PROF: block 0's thread 0 reads
 clock64() at each phase boundary, csrc/sweep_dev.cuh), under
-build/torch_kernels/k5_phases/. At the main path's three sweep shapes on
-fixtures/comp01s.tim — the engine's repair pass at P = 16 and 256
-individuals, its post pass at P = 4 — each at the cluster size K5's
-wrapper takes there, it checks that the instrumented K5 equals the
-regular one exactly and prints one JSON line per shape with the cluster
-size, each phase's share of that thread's cycles and its cycles per
-step ("cluster reduction" is the wait at the cluster barrier and the
-read of the other CTAs' records). The first line is the card's name and
-power limit. Needs a CUDA device and nvcc.
+build/torch_kernels/k5_phases/, and checks that each instrumented kernel
+equals the regular one exactly. It prints one JSON line per shape with
+each phase's share of that thread's cycles and its cycles per step (K5)
+or per round (K8):
+
+- K5 at the main path's three sweep shapes on fixtures/comp01s.tim —
+  the engine's repair pass at P = 16 and 256 individuals, its post pass
+  at P = 4 — each at the cluster size K5's wrapper takes there; the
+  thread is rank 0 of cluster 0, and "cluster reduction" is its wait at
+  the cluster barrier and the read of the other CTAs' records;
+- K8 at the reference path's shape (`--no-auto-tune -p 2`: P = 10
+  individuals, 125 rounds of 8 candidates) from random starts; the
+  thread is warp 0's lane 0, which scores candidate 0 of every round.
+
+The first line is the card's name and power limit. Needs a CUDA device
+and nvcc.
 """
 
 from __future__ import annotations
@@ -38,21 +46,119 @@ PHASES = ("move1", "k4 occupancy + room argmins",
           "candidate store", "wait for the other warps",
           "reduction 1 (lex min)", "reduction 2 + choice", "apply",
           "prologue (load + pivots)", "epilogue", "cluster reduction")
+# counter k of csrc/random_ls.cu (1-3 are the K4 body's, as in K5)
+K8_PHASES = ("events (draw read + top-3 + sample_move)",
+             "k4 occupancy + room argmins",
+             "k4 unsuitable + conflict dots", "k4 day re-score",
+             "candidate store", "wait for the other warps",
+             "events chunk load", "choice", "apply",
+             "prologue (load + att/occ/bitsets)", "epilogue",
+             "barrier after the choice")
 
 
-def build_prof():
-    """K5 with the phase counters compiled in, loaded as kernels.load
-    loads the regular library."""
+def build_prof(source: str):
+    """The library of csrc/<source>.cu with the phase counters compiled
+    in, as kernels.load loads the regular one: {entry point: (library,
+    function)}."""
     out = kernels.BUILD_DIR / "k5_phases"
     out.mkdir(parents=True, exist_ok=True)
-    path = out / "sweep_pass-prof.so"
+    path = out / f"{source}-prof.so"
     proc = subprocess.run(
         [kernels._nvcc(), *kernels.NVCC_FLAGS, "-DTT_K5_PROF", "-o",
-         str(path), str(kernels.CSRC / "sweep_pass.cu")],
+         str(path), str(kernels.CSRC / f"{source}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"k5_phases: K5 does not build:\n{proc.stdout}")
-    return kernels.load("sweep_pass", path)
+        raise RuntimeError(f"k5_phases: {source} does not build:\n"
+                           f"{proc.stdout}")
+    return {n: kernels.load(n, path) for n in kernels.SOURCES[source]}
+
+
+class _Counters:
+    """tt_prof_take of one instrumented library."""
+
+    def __init__(self, lib):
+        self.buf = (ctypes.c_ulonglong * 16)()
+        self.take_fn = lib.tt_prof_take
+        self.take_fn.argtypes = [ctypes.c_void_p]
+        self.take_fn.restype = ctypes.c_int
+
+    def take(self, n: int) -> list:
+        if self.take_fn(ctypes.addressof(self.buf)) != 0:
+            raise RuntimeError("k5_phases: reading the counters failed")
+        return [int(self.buf[k]) for k in range(n)]
+
+
+def _instrumented(source: str, prof: dict, run):
+    """(regular result, instrumented result, cycles per counter) of
+    `run()` with csrc/<source>.cu's entry points swapped for `prof`."""
+    regular = {n: kernels._LIBS[n] for n in prof}
+    counters = _Counters(next(iter(prof.values()))[0])
+    try:
+        want = run()
+        counters.take(16)
+        kernels._LIBS.update(prof)
+        got = run()
+        torch.cuda.synchronize()
+        return want, got, counters.take(16)
+    finally:
+        kernels._LIBS.update(regular)
+
+
+def _line(shape, steps, unit, names, cyc, **extra):
+    total = sum(cyc[:len(names)])
+    return json.dumps({
+        "shape": shape, unit: steps, **extra, "thread_cycles": total,
+        "share": {n: c / total for n, c in zip(names, cyc)},
+        f"cycles_per_{unit[:-1]}": {n: c / steps
+                                    for n, c in zip(names, cyc)}})
+
+
+def k5_lines(pa, dev):
+    cfg = config.parse_args(["-i", str(COMP01S)]).apply_tuned_defaults(
+        pa.n_events)
+    repair = engine.build_ga_config(cfg)
+    post = engine.build_post_config(cfg, repair)
+    E, T = pa.n_events, pa.n_slots
+    prof = build_prof("sweep_pass")
+    for phase, P, gc in (("repair", 16, repair), ("repair", 256, repair),
+                         ("post", post.pop_size, post)):
+        args = (gc.ls_swap_block, gc.ls_block_events, gc.ls_sideways,
+                gc.ls_hot_k, gc.p3)
+        sh = sweep.sweep_shape(E, T, gc.ls_swap_block, gc.ls_block_events,
+                               gc.ls_hot_k, gc.p3)
+        g = torch.Generator(device=dev).manual_seed(3000 + P)
+        slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        st = delta.init_state(pa, slots, rooms.assign_rooms_plain(pa, slots))
+        draws = sweep.make_sweep_draws([g], P, sh, E, gc.ls_sideways, dev)
+        cs = sweep.auto_cluster(pa, sh, P, dev)
+        want, got, cyc = _instrumented("sweep_pass", prof, lambda: (
+            sweep.sweep_pass_kernel(pa, draws, st, *args, cluster=cs)))
+        if not all(torch.equal(w, x) for w, x in zip(
+                (*want[0], *want[1:]), (*got[0], *got[1:]))):
+            raise RuntimeError(f"k5_phases: the instrumented K5 differs "
+                               f"from K5 ({phase}, P={P})")
+        yield _line(["K5", phase, P], sh.n_steps, "steps", PHASES, cyc,
+                    cluster=cs)
+
+
+def k8_lines(pa, dev):
+    gc = engine.build_ga_config(config.parse_args(
+        ["-i", str(COMP01S), "--no-auto-tune", "-p", "2"]))
+    E, T, P = pa.n_events, pa.n_slots, gc.pop_size
+    prof = build_prof("random_ls")
+    g = torch.Generator(device=dev).manual_seed(5000 + P)
+    slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                          dtype=torch.int32)
+    rows = delta.init_rows(pa, slots, rooms.assign_rooms_plain(pa, slots))
+    draws = delta.make_ls_draws([g], P, gc.ls_steps, gc.ls_candidates, E, T,
+                                gc.p1, gc.p2, gc.p3, dev)
+    want, got, cyc = _instrumented("random_ls", prof, lambda: (
+        delta.random_local_search_kernel(pa, draws, rows)))
+    if not all(torch.equal(w, x) for w, x in zip(want, got)):
+        raise RuntimeError("k5_phases: the instrumented K8 differs from K8")
+    yield _line(["K8", "reference", P], gc.ls_steps, "rounds", K8_PHASES,
+                cyc, candidates=gc.ls_candidates)
 
 
 def main() -> int:
@@ -66,61 +172,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kernels.build()
-    regular = kernels._LIBS["sweep_pass"]
-    prof = build_prof()
     pa = load_tim_file(str(COMP01S)).device_arrays(dev)
-    cfg = config.parse_args(["-i", str(COMP01S)]).apply_tuned_defaults(
-        pa.n_events)
-    repair = engine.build_ga_config(cfg)
-    post = engine.build_post_config(cfg, repair)
-    E, T = pa.n_events, pa.n_slots
-    counters = (ctypes.c_ulonglong * 16)()
-    take = prof[0].tt_prof_take
-    take.argtypes = [ctypes.c_void_p]
-    take.restype = ctypes.c_int
-    try:
-        for phase, P, gc in (("repair", 16, repair), ("repair", 256, repair),
-                             ("post", post.pop_size, post)):
-            args = (gc.ls_swap_block, gc.ls_block_events, gc.ls_sideways,
-                    gc.ls_hot_k, gc.p3)
-            sh = sweep.sweep_shape(E, T, gc.ls_swap_block,
-                                   gc.ls_block_events, gc.ls_hot_k, gc.p3)
-            g = torch.Generator(device=dev).manual_seed(3000 + P)
-            slots = torch.randint(0, T, (P, E), generator=g, device=dev,
-                                  dtype=torch.int32)
-            st = delta.init_state(pa, slots,
-                                  rooms.assign_rooms_plain(pa, slots))
-            draws = sweep.make_sweep_draws([g], P, sh, E, gc.ls_sideways,
-                                           dev)
-
-            cs = sweep.auto_cluster(pa, sh, P, dev)
-
-            def run(lib):
-                kernels._LIBS["sweep_pass"] = lib
-                return sweep.sweep_pass_kernel(pa, draws, st, *args,
-                                               cluster=cs)
-
-            want = run(regular)
-            if take(ctypes.addressof(counters)) != 0:
-                raise RuntimeError("k5_phases: reading the counters failed")
-            got = run(prof)
-            torch.cuda.synchronize()
-            if take(ctypes.addressof(counters)) != 0:
-                raise RuntimeError("k5_phases: reading the counters failed")
-            if not all(torch.equal(w, x) for w, x in zip(
-                    (*want[0], *want[1:]), (*got[0], *got[1:]))):
-                raise RuntimeError(f"k5_phases: the instrumented K5 differs "
-                                   f"from K5 ({phase}, P={P})")
-            cyc = [int(counters[k]) for k in range(len(PHASES))]
-            total = sum(cyc)
-            print(json.dumps({
-                "shape": [phase, P], "steps": sh.n_steps, "cluster": cs,
-                "rank0_cycles": total,
-                "share": {n: c / total for n, c in zip(PHASES, cyc)},
-                "cycles_per_step": {n: c / sh.n_steps
-                                    for n, c in zip(PHASES, cyc)}}))
-    finally:
-        kernels._LIBS["sweep_pass"] = regular
+    for line in k5_lines(pa, dev):
+        print(line, flush=True)
+    for line in k8_lines(pa, dev):
+        print(line, flush=True)
     return 0
 
 

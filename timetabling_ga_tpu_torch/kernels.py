@@ -10,7 +10,8 @@ nothing here runs at import time, so `import timetabling_ga_tpu_torch`
 needs no CUDA toolchain.
 
 A source may hold several entry points (K6 `breed.cu`: breed and
-relocate; K7 `survivors.cu`: survivors and migrate; K11 `nsga.cu`:
+relocate; K7 `survivors.cu`: survivors and migrate; K8 `random_ls.cu`:
+its pre-pass random_ls_events and the chain random_ls; K11 `nsga.cu`:
 nsga_rank and nsga_survivors); each has its own name here. Every C entry
 point launches on PyTorch's current stream and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code.
@@ -53,7 +54,7 @@ SIGNATURES = {
                       "batch_penalty"),
     "move1_sweep": ("tt_move1_sweep", [_P] * 18 + [_I] * 9 + [_P],
                     "move1_sweep"),
-    "delta_one": ("tt_delta_one", [_P] * 19 + [_I] * 8 + [_P],
+    "delta_one": ("tt_delta_one", [_P] * 21 + [_I] * 8 + [_P],
                   "delta_one"),
     "sweep_pass": ("tt_sweep_pass", [_P] * 33 + [_I] * 17 + [_P],
                    "sweep_pass"),
@@ -62,6 +63,8 @@ SIGNATURES = {
     "survivors": ("tt_survivors", [_P] * 15 + [_I] * 5 + [_P],
                   "survivors"),
     "migrate": ("tt_migrate", [_P] * 10 + [_I] * 3 + [_P], "survivors"),
+    "random_ls_events": ("tt_random_ls_events", [_P] * 2 + [_I] * 4 + [_P],
+                         "random_ls"),
     "random_ls": ("tt_random_ls", [_P] * 26 + [_I] * 10 + [_P],
                   "random_ls"),
     "parallel_rooms": ("tt_parallel_rooms", [_P] * 7 + [_I] * 5 + [_P],

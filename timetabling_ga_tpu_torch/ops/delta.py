@@ -14,15 +14,19 @@ commits one accepted candidate per individual.
 `batch_local_search_delta` is the random-candidate local search (JAX
 delta.py:212): rounds of K random candidates per individual, scored by
 delta, the first least penalty accepted on a strict improvement.
-`random_local_search` is the wrapper of kernel K8 (csrc/random_ls.cu),
-all rounds in one launch; `random_local_search_plain` is its plain
-version, a Python loop over the rounds. Both take and return `LSRows`
+`random_local_search` is the wrapper of kernel K8 (csrc/random_ls.cu):
+a pre-pass that takes every candidate's events
+(`random_ls_events_kernel`), then all rounds in one launch
+(`random_ls_chain`);
+`random_local_search_plain` is its plain version, a Python loop over
+the rounds. Both take and return `LSRows`
 (assignments and penalty terms; K8 builds att and occ itself) and take
 their draws as `LSDraws`.
 
-`slot_bitsets` is the plain version of the two bitsets K5 and K10 keep
-beside att in shared memory (a student's attended slots, each slot's
-events), and `apply_bitsets` of how their apply keeps them up to date.
+`slot_bitsets` is the plain version of the two bitsets K5, K8 and K10
+keep beside att in shared memory (a student's attended slots, each
+slot's events), and `apply_bitsets` of how their apply keeps them up to
+date.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.fitness import gather_rows
-from timetabling_ga_tpu_torch.ops.moves import MoveDraws, sample_move
+from timetabling_ga_tpu_torch.ops.moves import MoveDraws, sample_move, top3
 from timetabling_ga_tpu_torch.ops.rooms import choose_room, occupancy
 
 
@@ -91,7 +95,7 @@ def init_state(pa, slots, rooms) -> LSState:
 
 
 def slot_bitsets(pa, slots, att):
-    """The two bitsets K5 and K10 keep beside att in shared memory:
+    """The two bitsets K5, K8 and K10 keep beside att in shared memory:
     amask (P, S) int64, bit t of student s set iff att[s, t] > 0, and
     slot_ev (P, T, W) int32, bit f % 32 of word f // 32 of row t set iff
     slots[f] == t (W = the conflict bitset's words per row). The plain
@@ -114,9 +118,9 @@ def slot_bitsets(pa, slots, att):
 
 def apply_bitsets(pa, amask, slot_ev, att, slots, evs, new_slots, accept):
     """amask and slot_ev kept up to date through one apply_moves of the
-    candidate (P, 3) where `accept` (P,) holds, as K5's and K10's apply
-    keeps them: `att` is the attendance after the move, `slots` the
-    slots before it. Only the students of the events that change slot
+    candidate (P, 3) where `accept` (P,) holds, as K5's, K8's and K10's
+    apply keeps them: `att` is the attendance after the move, `slots`
+    the slots before it. Only the students of the events that change slot
     have their bits of those events' old and new slots recomputed, and
     each such event's bit moves from its old slot's row of slot_ev to its
     new one's. The plain version of csrc/sweep_dev.cuh
@@ -254,7 +258,9 @@ def delta_one_plain(pa, slots, rooms, att, occ, evs, new_slots, active):
 def delta_one(pa, slots, rooms, att, occ, evs, new_slots, active):
     """Delta of padded 3-relocation candidates (P, C, 3) on individuals
     (P, ...): (d_hcv (P, C), d_scv (P, C), new_rooms (P, C, 3)). Kernel
-    K4 on CUDA tensors, the plain version on CPU ones."""
+    K4 on CUDA tensors (the wrapper builds the bitsets its body reads
+    with their plain version, slot_bitsets), the plain version on CPU
+    ones."""
     if not slots.is_cuda:
         return delta_one_plain(pa, slots, rooms, att, occ, evs, new_slots,
                                active)
@@ -262,6 +268,7 @@ def delta_one(pa, slots, rooms, att, occ, evs, new_slots, active):
     if att.dtype != torch.int16 or occ.dtype != torch.int16:
         raise TypeError("delta_one takes int16 att/occ")
     args = [x.contiguous() for x in (slots, rooms, att, occ,
+                                     *slot_bitsets(pa, slots, att),
                                      evs.to(torch.int32),
                                      new_slots.to(torch.int32),
                                      active.to(torch.uint8))]
@@ -385,23 +392,58 @@ def random_local_search_plain(pa, draws: LSDraws, rows: LSRows) -> LSRows:
     return LSRows(st.slots, st.rooms, st.pen, st.hcv, st.scv)
 
 
+# bytes of shared memory K8 gives one chunk of rounds' events (at least
+# one round), csrc/random_ls.cu K8_EVENT_BYTES
+K8_EVENT_BYTES = 12288
+
+
 def random_ls_smem_bytes(pa, n_candidates: int) -> int:
     """Dynamic shared memory K8 takes per individual, the layout of
-    csrc/random_ls.cu `k8_smem_layout`: slots, rooms, 12 ints per
-    candidate, 32 block scalars, occ and att, each rounded up to 16
-    bytes, plus the conflict bitset when the total still fits in
-    SMEM_LIMIT (else K8 reads it from global memory)."""
+    csrc/random_ls.cu `k8_smem_layout`: slots, rooms, two buffers of 18
+    ints per candidate, amask (8 B a student), slot_ev (T x W words),
+    occ, att and one chunk of rounds' events (6 B a candidate), each
+    rounded up to 16 bytes, plus the conflict bitset when the total
+    still fits in SMEM_LIMIT (else K8 reads it from global memory)."""
     E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
     W = pa.conflict_bits.shape[1]
-    parts = (4 * E, 4 * E, 4 * 12 * n_candidates, 4 * 32, 2 * T * R,
-             2 * S * T)
+    K = n_candidates
+    chunk = max(1, K8_EVENT_BYTES // (6 * K))
+    parts = (4 * E, 4 * E, 2 * 4 * 18 * K, 8 * S, 4 * T * W, 2 * T * R,
+             2 * S * T, 6 * K * chunk)
     total = sum(-(-x // 16) * 16 for x in parts)
     with_bits = total + -(-4 * E * W // 16) * 16
     return with_bits if with_bits <= kernels.SMEM_LIMIT else total
 
 
-def random_local_search_kernel(pa, draws: LSDraws, rows: LSRows) -> LSRows:
-    """Kernel K8 on CUDA tensors: every round for every individual in one
+def random_ls_events_plain(draws: LSDraws) -> torch.Tensor:
+    """Plain version of K8's pre-pass: the events of every candidate of
+    every round, the top 3 of its uniforms (moves.top3), as (P,
+    n_rounds, K, 3) int16."""
+    n_rounds, K, P, E = draws.u.shape
+    ev = top3(draws.u.reshape(-1, E)).reshape(n_rounds, K, P, 3)
+    return ev.permute(2, 0, 1, 3).to(torch.int16).contiguous()
+
+
+def random_ls_events_kernel(draws: LSDraws) -> torch.Tensor:
+    """Kernel K8's pre-pass (random_ls_events): one warp per draw row
+    over the whole card."""
+    n_rounds, K, P, E = draws.u.shape
+    if draws.u.dtype != torch.float32:
+        raise TypeError("random_ls_events takes float32 uniforms")
+    u = draws.u.contiguous()
+    out = torch.empty((P, n_rounds, K, 3), dtype=torch.int16,
+                      device=u.device)
+    if out.numel() == 0:
+        return out
+    kernels.launch("random_ls_events", kernels.ptr(u), kernels.ptr(out), P,
+                   E, K, n_rounds)
+    return out
+
+
+def random_ls_chain(pa, draws: LSDraws, rows: LSRows,
+                    events: torch.Tensor) -> LSRows:
+    """K8's chain (random_ls) on CUDA tensors, given every candidate's
+    events from the pre-pass: every round for every individual in one
     launch, one block per individual. Raises ValueError when one
     individual's state does not fit in shared memory; no fallback."""
     n_rounds, K, P = draws.mtype.shape
@@ -415,12 +457,12 @@ def random_local_search_kernel(pa, draws: LSDraws, rows: LSRows) -> LSRows:
     if any(x.dtype != torch.int32 for x in rows):
         raise TypeError("random_ls takes int32 slots, rooms, pen, hcv and "
                         "scv")
-    if draws.u.dtype != torch.float32 or tuple(draws.u.shape) != (
-            n_rounds, K, P, E) or rows.slots.shape[0] != P:
+    if tuple(events.shape) != (P, n_rounds, K, 3) or \
+            events.dtype != torch.int16 or rows.slots.shape[0] != P:
         raise ValueError("random_ls: the draws do not fit the population")
     i32 = torch.int32
     ins = [x.contiguous() for x in rows]
-    dr = [draws.mtype.to(i32).contiguous(), draws.u.contiguous(),
+    dr = [draws.mtype.to(i32).contiguous(), events.contiguous(),
           draws.t.to(i32).contiguous()]
     out = LSRows(*(torch.empty_like(x) for x in ins))
     if P == 0:
@@ -436,6 +478,15 @@ def random_local_search_kernel(pa, draws: LSDraws, rows: LSRows) -> LSRows:
         pa.slots_per_day, pa.conflict_bits.shape[1], K, n_rounds,
         int(pa.anchored))
     return out
+
+
+def random_local_search_kernel(pa, draws: LSDraws, rows: LSRows) -> LSRows:
+    """Kernel K8 on CUDA tensors: the pre-pass takes every candidate's
+    events, then the chain runs every round of every individual."""
+    n_rounds, K, P = draws.mtype.shape
+    if tuple(draws.u.shape) != (n_rounds, K, P, rows.slots.shape[1]):
+        raise ValueError("random_ls: the draws do not fit the population")
+    return random_ls_chain(pa, draws, rows, random_ls_events_kernel(draws))
 
 
 def random_local_search(pa, draws: LSDraws, rows: LSRows) -> LSRows:

@@ -217,7 +217,25 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
     return islands.lahc_finalize(lstate, tr.n)
 
 
-def _dispatch_size(cfg, remaining_gens: int, sec_per_gen, remaining_t):
+def probe_sec_per_gen(pa, state: ga.PopState, cfg: ga.GAConfig,
+                      n_islands: int) -> float:
+    """Seconds of one generation of `cfg` (its ring migration included)
+    on a clone of `state`, drawn from throwaway generators: the first
+    sec/gen estimate, taken as the JAX engine takes it in precompile
+    (timetabling_ga_tpu/runtime/engine.py:817-836), so that the run's
+    state and generators do not advance and its first dispatch is a
+    full one."""
+    gens = [torch.Generator(device=pa.device).manual_seed(i)
+            for i in range(n_islands)]
+    clone = ga.PopState(*(x.clone() for x in state))
+    t0 = time.monotonic()
+    _, trace = islands.run_epochs(pa, gens, clone, cfg, 1, 1)
+    trace.cpu()
+    return time.monotonic() - t0
+
+
+def _dispatch_size(cfg, remaining_gens: int, sec_per_gen: float,
+                   remaining_t):
     """(n_epochs, gens_per_epoch) of the next dispatch, or None when not
     one more generation is predicted to fit the budget."""
     g = cfg.migration_period
@@ -227,12 +245,6 @@ def _dispatch_size(cfg, remaining_gens: int, sec_per_gen, remaining_t):
         n_ep, g = 1, remaining_gens
     if remaining_t <= 0:
         return None
-    if sec_per_gen is None:
-        # no estimate yet: a one-generation probe, so an unmeasured
-        # dispatch cannot overrun -t by a whole fused chunk (the JAX CLI
-        # seeds its estimate with the same one-generation probe before
-        # the clock starts)
-        return 1, 1
     if sec_per_gen > 0:
         g_fit = int(remaining_t / sec_per_gen)
         if g_fit < 1:
@@ -284,6 +296,13 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                 lahc_done = True
 
     maybe_switch()
+    if not lahc_done and cfg.generations > 0:
+        # the first estimate, from the config the loop starts with (the
+        # post one, shrunk, when the polish reached feasibility), outside
+        # the try's clock
+        t = time.monotonic()
+        sec_per_gen = probe_sec_per_gen(pa, state, cur, n_islands)
+        tr.t0 += time.monotonic() - t
     kick_stall, kick_best, kick_streak = 0, min(tr.best), 0
     time_stopped = False
     n_dispatch = 0
