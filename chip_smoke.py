@@ -10,12 +10,17 @@
    output — then times both with CUDA events after a warm-up:
    K1-K4, K6 (breed, relocate), K7 (survivors, migrate) and K9 (the
    parallel room matcher) at P = 16 and P = 256 individuals (P = 256 as
-   16 islands of 16), K9 also on a padded copy of comp01s, K1 and K6
+   16 islands of 16), K2 also at P = 4 and at each of its cluster sizes
+   (1, 2, 4, 8 CTAs a row and the wrapper's own choice), K9 also on a
+   padded copy of comp01s, K1 and K6
    also on degenerate slot buckets (every event in one slot, two slots,
    half in one; on comp01s, its padded copy and comp01s cut to one
    room), K6 also in
-   its crowded-tournament and parallel-matcher modes, K7 also at L = 1,
-   2, 4 islands of 2, 3 and 16 rows, K6's relocation entry also on the
+   its crowded-tournament and parallel-matcher modes (the scores K6
+   writes for its children and K8 for its rows also held against
+   batch_penalty_plain of those rows), K7 also at L = 1, 2, 4 and 16
+   islands of 2, 3 and 16 rows of E = 400 and 397 int32, K6's
+   relocation entry also on the
    kick's chains (2 and 8 rows, 3 to 16 moves); K5 (the whole sweep
    pass) at the repair pass's P = 16 and 256 and the post pass's P = 4,
    and at the nsga path's repair (P = 16) and post (P = 4) passes on
@@ -34,7 +39,8 @@
    mixed, and K9 on the children, K6 and K11 timed at both pops; K5, K8
    and K10 from random starts and from feasible ones (the planted
    witness, a few events moved), and on one individual (their chains'
-   floor);
+   floor); then K2's and K7's phase counters (k5_phases, each
+   instrumented kernel checked equal to the regular one);
 3. drives five paths through `timetabling_ga_tpu_torch.cli`, seed 42,
    each with the launch counters zeroed just before and read just after:
    on comp01s the main path (size-tuned defaults, -t 60), the
@@ -45,7 +51,8 @@
    --rooms-mode parallel`, -t 20). Each stream is checked (per-island
    best non-increasing, solution and runEntry records, a feasible
    reported timetable re-scores to its reported best), and so is which
-   kernels each path launched (PATH_KERNELS);
+   kernels each path launched (PATH_KERNELS; the reference path launches
+   K2 only for its initial population and its kicks);
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
    generation, one kick, one LAHC launch and two NSGA-II generations,
@@ -180,14 +187,17 @@ BODY_RUNS_IN = {"move1_sweep": "sweep_pass",
                 "delta_one": "sweep_pass, random_ls, lahc",
                 "parallel_rooms": "breed"}
 # per path: the kernels it must launch at least once a generation, at
-# least once, and never
+# least once, and never. K6 scores its children and K8 the rows its search
+# returns, so the reference path launches K2 only for the initial
+# population (and for each kick's re-evaluation): K2_ONLY_AT_INIT
 PER_GEN = ("breed", "survivors", "batch_penalty")
 SEARCH_MODES = ("lahc", "nsga_rank", "nsga_survivors", "parallel_rooms")
 K8 = ("random_ls_events", "random_ls")
 PATH_KERNELS = {
     "main": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
              ("move1_sweep", "delta_one") + K8 + SEARCH_MODES),
-    "reference": (PER_GEN + K8, ("assign_rooms",),
+    "reference": (("breed", "survivors") + K8,
+                  ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass")
                   + SEARCH_MODES),
     "full-eval": (PER_GEN + ("relocate",), ("assign_rooms",),
@@ -202,6 +212,12 @@ PATH_KERNELS = {
              ("assign_rooms", "sweep_pass"),
              ("move1_sweep", "delta_one") + K8 + ("lahc", "parallel_rooms")),
 }
+K2_ONLY_AT_INIT = ("reference",)
+# K2's cluster sizes held against its plain version (None: the wrapper's
+# own choice), at P = 4 (the post phase), 16 (the repair phase) and 256
+K2_CLUSTERS = (None, 1, 2, 4, 8)
+# fused evaluations held against batch_penalty_plain, by kernel
+FUSED_CHECKS = {"breed": 0, "random_ls": 0}
 
 
 class SmokeFailure(Exception):
@@ -231,6 +247,22 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def penalty_ops(pa):
+    """Integer operations of one full evaluation (K2's body, also in K6's
+    and K8's epilogues): three a conflict word of the correlation, two a
+    CSR entry of the students' masks, eight a student's day, twelve an
+    event's occupancy, suitability, last-slot and anchor terms."""
+    E, S, W = pa.n_events, pa.n_students, pa.conflict_bits.shape[1]
+    return E * W * 3 + pa.stu_ev.numel() * 2 + S * pa.n_days * 8 + E * 12
+
+
+def penalty_bytes(pa):
+    """Bytes of the problem arrays a full evaluation reads once."""
+    return nbytes(pa.possible_u8, pa.live, pa.student_count,
+                  pa.conflict_bits, pa.stu_ptr, pa.stu_ev, pa.anchor_slots,
+                  pa.anchor_w)
+
+
 def kernel_cases(pa, P, dev):
     """For each kernel: (kernel call, plain call, bytes moved, integer
     operations) at the main path's shapes with P individuals; the
@@ -241,7 +273,6 @@ def kernel_cases(pa, P, dev):
     g = torch.Generator(device=dev).manual_seed(1000 + P)
     E, R, T, S = pa.n_events, pa.n_rooms, pa.n_slots, pa.n_students
     W = pa.conflict_bits.shape[1]
-    nnz = pa.ev_stu.numel()
     slots = torch.randint(0, T, (P, E), generator=g, device=dev,
                           dtype=torch.int32)
     rms = rooms.assign_rooms_plain(pa, slots)
@@ -284,9 +315,11 @@ def kernel_cases(pa, P, dev):
             lambda: ga.make_children(pa, bd, par, cfg, L),
             lambda: ga.make_children_plain(pa, bd, par, cfg, L),
             nbytes(par.slots, par.rooms, par.penalty, par.scv, *bd[:5],
-                   *bd.move, pa.room_order) + prob + 2 * P * E * 4,
+                   *bd.move, pa.room_order) + prob + penalty_bytes(pa)
+            + 2 * P * E * 4 + 3 * P * 4,
             n_x * E * (R * OPS_ROOM_KEY + 2) + (P - n_x) * E * 3
-            + n_m * top3_ops + P * 2 * cfg.tournament_k * OPS_LEX),
+            + n_m * top3_ops + P * 2 * cfg.tournament_k * OPS_LEX
+            + P * penalty_ops(pa)),
         "relocate": (
             lambda: moves.relocation_chain(pa, chain, slots, rms, 1),
             lambda: moves.relocation_chain_plain(pa, chain, slots, rms, 1),
@@ -318,10 +351,7 @@ def kernel_cases(pa, P, dev):
         "batch_penalty": (
             lambda: fitness.batch_penalty(pa, slots, rms),
             lambda: fitness.batch_penalty_plain(pa, slots, rms),
-            rows + prob + nbytes(pa.student_count, pa.conflict_bits,
-                                 pa.stu_ptr, pa.stu_ev, pa.anchor_slots,
-                                 pa.anchor_w) + 3 * P * 4,
-            P * (E * W * 3 + nnz * 2 + S * pa.n_days * 8 + E * 12)),
+            rows + penalty_bytes(pa) + 3 * P * 4, P * penalty_ops(pa)),
         "move1_sweep": (
             lambda: sweep.move1_sweep(pa, st.slots, st.rooms, st.att,
                                       st.occ, piv),
@@ -416,12 +446,14 @@ def compare_parallel_rooms_padded(problem, dev):
 
 
 def compare_breed_modes(pa, dev):
-    """K6 in its two new modes against make_children_plain at P = 16 and
-    256 (islands of 16): the crowded tournament (ranks and crowding from
-    nsga_rank), the parallel matcher, and both, parents with random
-    rooms; exactly, then both timed."""
+    """K6 in every mode against make_children_plain at P = 16 and 256
+    (islands of 16): the greedy matcher, the crowded tournament (ranks
+    and crowding from nsga_rank), the parallel matcher, and both, parents
+    with random rooms; exactly, with the scores K6 writes for its
+    children also held against batch_penalty_plain of the children it
+    wrote; then both timed."""
     import torch
-    from timetabling_ga_tpu_torch.ops import ga, nsga
+    from timetabling_ga_tpu_torch.ops import fitness, ga, nsga
     E, R, T = pa.n_events, pa.n_rooms, pa.n_slots
     out = []
     for P in (16, 256):
@@ -431,8 +463,8 @@ def compare_breed_modes(pa, dev):
                               dtype=torch.int32)
         par = ga.evaluate(pa, slots, torch.randint(
             0, R, (P, E), generator=g, device=dev, dtype=torch.int32), L)
-        for mo, mode in ((True, "scan"), (False, "parallel"),
-                         (True, "parallel")):
+        for mo, mode in ((False, "scan"), (True, "scan"),
+                         (False, "parallel"), (True, "parallel")):
             cfg = ga.GAConfig(pop_size=16, p3=0.2, rooms_mode=mode,
                               multi_objective=mo)
             bd = ga.make_breed_draws([g] * L, 16, E, T, cfg, dev)
@@ -449,6 +481,11 @@ def compare_breed_modes(pa, dev):
             check(all(torch.equal(w, x) for w, x in zip(want, got)),
                   f"breed {name} P={P}: kernel differs from its plain "
                   f"version")
+            full = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
+            check(all(torch.equal(w, x) for w, x in zip(full, got[2:])),
+                  f"breed {name} P={P}: the children's scores are not "
+                  f"batch_penalty_plain of the children")
+            FUSED_CHECKS["breed"] += 1
             out.append({"breed_mode": name, "P": P, "ms": time_ms(kern, 20),
                         "plain_ms": time_ms(plain, 2), "max_abs_err": 0})
     return out
@@ -634,14 +671,18 @@ def compare_nsga_path(pa05, dev):
                       f"{tag} do_x={do_x}: breed differs from its plain "
                       f"version")
                 cases += 1
-            c_slots, c_rooms = ga.make_children(pa05, bd, par, gacfg, 1, mo)
+            kid = ga.make_children(pa05, bd, par, gacfg, 1, mo)
             check(torch.equal(
-                rooms.parallel_assign_rooms(pa05, c_slots),
-                rooms.augment_rooms_plain(pa05, c_slots,
+                rooms.parallel_assign_rooms(pa05, kid.slots),
+                rooms.augment_rooms_plain(pa05, kid.slots,
                                           rooms.best_fit_rooms(pa05, pop))),
                 f"{tag}: parallel_rooms differs from its plain version")
-            ch = ga.PopState(c_slots, c_rooms,
-                             *fitness.batch_penalty(pa05, c_slots, c_rooms))
+            full = fitness.batch_penalty_plain(pa05, kid.slots, kid.rooms)
+            check(all(torch.equal(a, b) for a, b in zip(full, kid[2:])),
+                  f"{tag}: the children's scores are not "
+                  f"batch_penalty_plain of the children")
+            FUSED_CHECKS["breed"] += 1
+            ch = ga.PopState(*kid)
             got = nsga.survivors(par, ch, 1, pop)
             want = nsga.survivors_plain(par, ch, 1, pop)
             check(all(torch.equal(a, b) for a, b in zip(want, got)),
@@ -1062,15 +1103,16 @@ def compare_kick_chains(pa, dev):
 
 def compare_islands(pa, dev):
     """K7 (survivors, migrate) against the plain versions at L = 1, 2, 4
-    islands of 2, 3 and 16 rows of comp01s, (penalty, scv) drawn from
+    and 16 islands of 2, 3 and 16 rows, with rows of comp01s's E = 400
+    (16-byte copies) and E = 397 (4-byte ones), (penalty, scv) drawn from
     {0, 1, 2}^2 so that ties are common, exactly."""
     import torch
     from timetabling_ga_tpu_torch.ops import ga
     from timetabling_ga_tpu_torch.parallel import islands
-    E, T = pa.n_events, pa.n_slots
+    T = pa.n_slots
     g = torch.Generator(device=dev).manual_seed(4000)
 
-    def state(n):
+    def state(n, E):
         slots = torch.randint(0, T, (n, E), generator=g, device=dev,
                               dtype=torch.int32)
         ps = torch.randint(0, 3, (2, n), generator=g, device=dev,
@@ -1078,22 +1120,108 @@ def compare_islands(pa, dev):
         return ga.PopState(slots, slots.flip(1), ps[0], ps[0] * 2, ps[1])
 
     cases = 0
-    for L in (1, 2, 4):
-        for pop in (2, 3, 16):
-            par, ch = state(L * pop), state(L * pop)
-            for b, keep in ((ch, pop), (None, None)):
-                got = ga.survivors(par, b, L, keep)
-                want = ga.survivors_plain(par, b, L, keep)
-                check(all(torch.equal(w, x) for w, x in zip(want, got)),
-                      f"survivors L={L} pop={pop}: kernel differs from its "
-                      f"plain version")
-            got = islands.migrate(want, L)
-            check(all(torch.equal(w, x) for w, x in zip(
-                islands.migrate_plain(want, L), got)),
-                f"migrate L={L} pop={pop}: kernel differs from its plain "
-                f"version")
-            cases += 1
+    for E in (pa.n_events, pa.n_events - 3):
+        for L in (1, 2, 4, 16):
+            for pop in (2, 3, 16):
+                par, ch = state(L * pop, E), state(L * pop, E)
+                for b, keep in ((ch, pop), (None, None)):
+                    got = ga.survivors(par, b, L, keep)
+                    want = ga.survivors_plain(par, b, L, keep)
+                    check(all(torch.equal(w, x) for w, x in zip(want, got)),
+                          f"survivors L={L} pop={pop} E={E}: kernel "
+                          f"differs from its plain version")
+                got = islands.migrate(want, L)
+                check(all(torch.equal(w, x) for w, x in zip(
+                    islands.migrate_plain(want, L), got)),
+                    f"migrate L={L} pop={pop} E={E}: kernel differs from "
+                    f"its plain version")
+                cases += 1
     return cases
+
+
+def compare_batch_penalty(pa, dev):
+    """K2 at P = 4, 16 and 256 rows of comp01s (random slots, their
+    greedy rooms) at every cluster size it takes and the wrapper's own
+    choice, exactly against batch_penalty_plain, each timed."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import fitness, rooms
+    E, T = pa.n_events, pa.n_slots
+    out = {}
+    for P in (4, 16, 256):
+        g = torch.Generator(device=dev).manual_seed(8000 + P)
+        slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        rms = rooms.assign_rooms_plain(pa, slots)
+        want = fitness.batch_penalty_plain(pa, slots, rms)
+        plain_ms = time_ms(lambda: fitness.batch_penalty_plain(pa, slots,
+                                                               rms), 5)
+        b, by = bound(nbytes(slots, rms) + penalty_bytes(pa) + 3 * P * 4,
+                      P * penalty_ops(pa))
+        for cs in K2_CLUSTERS:
+            def kern(cs=cs):
+                return fitness.batch_penalty_kernel(pa, slots, rms, cs)
+            got = kern()
+            torch.cuda.synchronize()
+            check(all(torch.equal(w, x) for w, x in zip(want, got)),
+                  f"batch_penalty P={P} cluster={cs}: kernel differs from "
+                  f"its plain version")
+            out[("batch_penalty", P, cs or "auto")] = dict(
+                ms=time_ms(kern, 50), plain_ms=plain_ms, max_abs_err=0,
+                cluster=cs or fitness.penalty_cluster(pa, P, dev),
+                bound_ms=b, bound_by=by)
+    return out
+
+
+def k2_device_times(pa, dev, timings):
+    """K2's device time a launch at each shape and cluster size of
+    compare_batch_penalty (torch.profiler, 20 launches each), added to
+    its timings; run after the profile windows, each its own profiler
+    session."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import fitness, rooms
+    E, T = pa.n_events, pa.n_slots
+    for P in (4, 16, 256):
+        g = torch.Generator(device=dev).manual_seed(8000 + P)
+        slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        rms = rooms.assign_rooms_plain(pa, slots)
+        for cs in K2_CLUSTERS:
+            def kern(cs=cs):
+                return fitness.batch_penalty_kernel(pa, slots, rms, cs)
+            timings[("batch_penalty", P, cs or "auto")]["device_us"] = \
+                device_us_per_launch(kern, "batch_penalty")
+
+
+def device_us_per_launch(fn, kernel, reps=20):
+    """Device time of one launch of `kernel` (its CUDA kernel's name
+    prefix) over `reps` calls of `fn`, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA and \
+                ev.key.startswith(f"{kernel}_kernel") and ev.count:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            return us / ev.count
+    return None
+
+
+def phase_lines(pa, dev):
+    """K2's and K7's phase counters (k5_phases): each instrumented
+    kernel checked equal to the regular one, then its cycles a launch by
+    phase."""
+    from timetabling_ga_tpu_torch import k5_phases
+    return [json.loads(x) for x in (*k5_phases.k2_lines(pa, dev),
+                                    *k5_phases.k7_lines(pa, dev))]
 
 
 def random_ls_work(pa, st, draws, events):
@@ -1103,9 +1231,10 @@ def random_ls_work(pa, st, draws, events):
     state once and reads the other draws, the events and the problem
     arrays once; per round and candidate it runs the K4 body on the
     bitsets (k4_body_ops; the candidate's events and new slots taken on
-    the slots the call starts from); the prologue's att/occ/bitset build,
-    the choice and the apply, which runs only on an accepted round, are
-    left out, so the counts stay below what the kernels do."""
+    the slots the call starts from), and its epilogue one full evaluation
+    a row (penalty_ops); the prologue's att/occ/bitset build, the choice
+    and the apply, which runs only on an accepted round, are left out, so
+    the counts stay below what the kernels do."""
     from timetabling_ga_tpu_torch.ops import moves
     n_rounds, K, P = draws.mtype.shape
     E = pa.n_events
@@ -1125,7 +1254,8 @@ def random_ls_work(pa, st, draws, events):
                              P * reps * E * OPS_TOP3),
         "random_ls": (chain_b, k4_body_ops(pa, st.slots,
                                            evs.view(P, reps, 3),
-                                           ns.view(P, reps, 3)))}
+                                           ns.view(P, reps, 3))
+                      + P * penalty_ops(pa))}
 
 
 def bound(nb, ops):
@@ -1146,7 +1276,7 @@ def compare_random_ls(pa, dev):
     start (the chain on the pre-pass's events), and K8 on one individual
     (its chain's floor)."""
     import torch
-    from timetabling_ga_tpu_torch.ops import delta, rooms
+    from timetabling_ga_tpu_torch.ops import delta, fitness, rooms
     from timetabling_ga_tpu_torch.runtime import config, engine
     gc = engine.build_ga_config(config.parse_args(
         ["-i", TIM] + PATHS["reference"]))
@@ -1180,6 +1310,11 @@ def compare_random_ls(pa, dev):
                 err = max(err, int((gt.long() - wt.long()).abs().max()))
             check(err == 0, f"random_ls P={P} {start}: kernel differs from "
                             f"its plain version (max abs err {err})")
+            full = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
+            check(all(torch.equal(w, x) for w, x in zip(full, got[2:])),
+                  f"random_ls P={P} {start}: the epilogue's terms are not "
+                  f"batch_penalty_plain of its rows")
+            FUSED_CHECKS["random_ls"] += 1
             if start == "random":
                 check(bool((got.pen < s0.pen).all()),
                       f"random_ls P={P}: a row did not improve")
@@ -1346,8 +1481,13 @@ def run_path(name):
     return records, seconds, launches
 
 
-def check_path_kernels(name, launches, generations):
+def check_path_kernels(name, launches, generations, kicks):
     per_gen, some, none = PATH_KERNELS[name]
+    if name in K2_ONLY_AT_INIT:
+        check(launches["batch_penalty"] == 1 + kicks,
+              f"{name} path: batch_penalty launched "
+              f"{launches['batch_penalty']} times, more than at the "
+              f"initial population and the {kicks} kicks")
     check(generations > 0 or not per_gen,
           f"{name} path: no generation ran")
     for k in per_gen:
@@ -1395,6 +1535,7 @@ def check_stream(records, pa_cpu):
     feas = [x["time"] for x in logs if x["best"] < 1_000_000]
     lahc = [p for p in phases if p["name"] == "lahc"]
     return dict(
+        kicks=sum(1 for p in phases if p["name"] == "kick"),
         lahc_steps=sum(p["steps"] for p in lahc),
         lahc_seconds=sum(p["seconds"] for p in lahc),
         generations=gens,
@@ -1460,6 +1601,7 @@ def main() -> int:
           "comp05s witness does not score (0, 0)")
 
     timings = compare(pa, dev)
+    timings.update(compare_batch_penalty(pa, dev))
     timings.update(compare_sweep_pass(pa, pa05, dev))
     timings.update(compare_random_ls(pa, dev))
     timings.update(compare_lahc(pa, dev))
@@ -1475,6 +1617,7 @@ def main() -> int:
     print(json.dumps({"nsga_path_shapes_compared": nsga_cases}))
     for row in compare_breed_modes(pa, dev) + nsga_breed:
         print(json.dumps(row))
+    print(json.dumps({"fused_scores_compared": FUSED_CHECKS}))
     pa_cpu = {TIM: problem.device_arrays("cpu"),
               TIM05: problem05.device_arrays("cpu")}
     launches = {}
@@ -1482,7 +1625,8 @@ def main() -> int:
         records, seconds, launches[name] = run_path(name)
         summary = check_stream(records, pa_cpu[PATH_TIM.get(name, TIM)])
         summary["wall_s"] = round(seconds, 3)
-        check_path_kernels(name, launches[name], summary["generations"])
+        check_path_kernels(name, launches[name], summary["generations"],
+                           summary["kicks"])
         if summary["lahc_steps"]:
             lcfg = config.parse_args(["-i", TIM] + PATHS[name]
                                      ).apply_tuned_defaults(pa.n_events)
@@ -1494,6 +1638,9 @@ def main() -> int:
                           "launches": launches[name]}))
     for prof in profile_phases(pa, pa05, dev):
         print(json.dumps({"profile": prof}))
+    k2_device_times(pa, dev, timings)
+    for line in phase_lines(pa, dev):
+        print(json.dumps({"phases": line}))
     for key, t in timings.items():
         name = key[0] if key[0] in KERNELS else "sweep_pass"
         print(json.dumps({"kernel": name, "shape": list(key), **t,

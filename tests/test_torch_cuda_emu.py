@@ -1,4 +1,4 @@
-"""The CUDA sources of K1 and K3-K11, run on the CPU, against their plain
+"""The CUDA sources of K1-K11, run on the CPU, against their plain
 PyTorch versions.
 
 The kernels run only on the card (tests/test_torch_kernels.py, marked
@@ -31,9 +31,10 @@ from tests.test_torch_kernels import (
     _state)
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import (
-    delta, ga, lahc, moves, nsga, rooms, sweep)
+    delta, fitness, ga, lahc, moves, nsga, rooms, sweep)
 from timetabling_ga_tpu_torch.parallel import islands
-from timetabling_ga_tpu_torch.problem import random_instance
+from timetabling_ga_tpu_torch.problem import (
+    make_problem_arrays, random_instance)
 
 torch.set_num_threads(1)
 
@@ -47,6 +48,7 @@ CUDA_STUB = r'''
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <optional>
 #include <thread>
 #include <vector>
 #define __global__
@@ -79,6 +81,8 @@ inline thread_local emu_block* emu_blk;
 // shared memory
 inline thread_local unsigned emu_cluster_rank, emu_cluster_n;
 inline thread_local std::barrier<>* emu_cluster_bar;
+inline thread_local std::optional<std::barrier<>::arrival_token>
+    emu_cluster_token;
 inline thread_local unsigned char* const* emu_cluster_smem;
 // what cudaOccupancyMaxActiveClusters answers (a test sets 0)
 extern "C" {
@@ -114,6 +118,10 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) {
     return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+    return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
+struct alignas(16) int4 { int x, y, z, w; };
 inline int atomicMin(int* p, int v) {
     int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
     while (v < old && !__atomic_compare_exchange_n(
@@ -228,23 +236,36 @@ struct cluster_group {
                     + ((unsigned char*)p - emu_smem));
     }
     void sync() const { emu_cluster_bar->arrive_and_wait(); }
+    // the two halves of sync(); a thread holds one arrival at a time
+    void barrier_arrive() const {
+        emu_cluster_token.emplace(emu_cluster_bar->arrive());
+    }
+    void barrier_wait() const {
+        emu_cluster_bar->wait(std::move(*emu_cluster_token));
+        emu_cluster_token.reset();
+    }
 };
 inline cluster_group this_cluster() { return cluster_group{}; }
 }  // namespace cooperative_groups
 '''
 
 # K5 built with 128-thread CTAs (4 warps), which keeps a cluster's
-# std::threads few
+# std::threads few; K2 built to stage nothing, which runs its
+# global-memory path (a CSR slice and rows too large for shared memory)
 K5_SMALL = "sweep_pass_small"
-EMULATED = ("assign_rooms", "move1_sweep", "delta_one", "sweep_pass",
-            "breed", "survivors", "random_ls", "parallel_rooms", "lahc",
-            "nsga")
+K2_GLOBAL = "batch_penalty_global"
+EMULATED = ("assign_rooms", "batch_penalty", "move1_sweep", "delta_one",
+            "sweep_pass", "breed", "survivors", "random_ls",
+            "parallel_rooms", "lahc", "nsga")
 # the block-per-row kernels built with two warps a block (their thread
 # counts are macros), which keeps the std::threads few and gives each
 # warp several slots or candidates; K8 with room for 48 bytes of events
-# (two rounds of 4 candidates), so that its rounds cross chunks
+# (two rounds of 4 candidates), so that its rounds cross chunks; K2 with
+# 128-thread CTAs, as K5's cluster tests take them; K7 with two warps
 SMALL = {"assign_rooms": ["-DK1_THREADS=64"], "breed": ["-DK6_THREADS=64"],
-         "random_ls": ["-DK8_MAX_WARPS=2", "-DK8_EVENT_BYTES=48"]}
+         "random_ls": ["-DK8_MAX_WARPS=2", "-DK8_EVENT_BYTES=48"],
+         "batch_penalty": ["-DK2_THREADS=128"],
+         "survivors": ["-DK7_THREADS=64"]}
 
 
 def _for_the_cpu(src: str) -> str:
@@ -275,6 +296,8 @@ def emulated(tmp_path_factory):
     # and K5 with 128-thread CTAs
     builds = {n: (n, SMALL.get(n, [])) for n in EMULATED}
     builds[K5_SMALL] = ("sweep_pass", ["-DK5_THREADS=128"])
+    builds[K2_GLOBAL] = ("batch_penalty",
+                         SMALL["batch_penalty"] + ["-DK2_STAGE_LIMIT=0"])
     procs = {n: subprocess.Popen(
         [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
          f"-I{d}", *flags, "-o", str(d / f"{n}.so"), str(d / f"{src}.cu"),
@@ -288,6 +311,8 @@ def emulated(tmp_path_factory):
         for n in kernels.SOURCES[src]:
             kernels._LIBS[n] = kernels.load(n, d / f"{src}.so")
     kernels._LIBS[K5_SMALL] = kernels.load("sweep_pass", d / f"{K5_SMALL}.so")
+    kernels._LIBS[K2_GLOBAL] = kernels.load("batch_penalty",
+                                            d / f"{K2_GLOBAL}.so")
 
     def launch(name, *args):
         kernels.LAUNCHES[name] += 1
@@ -490,18 +515,112 @@ def test_k8_events_source_equals_plain(emulated, P, n_rounds, K):
         assert kernels.LAUNCHES["random_ls_events"] == 1
 
 
-@pytest.mark.parametrize("L,pop", [(1, 3), (2, 2), (4, 3), (2, 16)])
+@pytest.mark.parametrize("L,pop", [(1, 3), (2, 2), (4, 3), (2, 16), (1, 2),
+                                   (1, 16), (2, 3), (4, 2), (4, 16),
+                                   (16, 2), (16, 3), (16, 16)])
 def test_k7_sources_equal_plain(emulated, L, pop):
-    par, ch = _island_state(L, pop, 1), _island_state(L, pop, 2)
-    got = ga.survivors_kernel(par, ch, groups=L, keep=pop)
-    want = ga.survivors_plain(par, ch, groups=L, keep=pop)
+    """K7's survivors (parents + children, and the sort alone) and
+    migrate at L = 1, 2, 4, 16 islands of 2, 3 and 16 rows: a grid of
+    ceil(keep / 2) blocks an island, each copying two rows, with rows of
+    E = 8 (16-byte copies) and E = 7 int32 (4-byte ones)."""
+    for E in (8, 7):
+        par = _island_state(L, pop, 1, E=E)
+        ch = _island_state(L, pop, 2, E=E)
+        kernels.reset_launches()
+        got = ga.survivors_kernel(par, ch, groups=L, keep=pop)
+        want = ga.survivors_plain(par, ch, groups=L, keep=pop)
+        assert all(torch.equal(w, g) for w, g in zip(want, got))
+        got = ga.survivors_kernel(par, groups=L)
+        want = ga.survivors_plain(par, groups=L)
+        assert all(torch.equal(w, g) for w, g in zip(want, got))
+        got = islands.migrate(want, L) if pop < 3 else \
+            islands.migrate_kernel(want, L)
+        assert all(torch.equal(w, g)
+                   for w, g in zip(islands.migrate_plain(want, L), got))
+        assert kernels.LAUNCHES["survivors"] == 2
+        assert kernels.LAUNCHES["migrate"] == (1 if pop >= 3 else 0)
+
+
+def _k2_rows(pa, P, seed):
+    """P random rows and rooms, with a few clashes and unsuitable rooms
+    (rooms drawn at random, not matched)."""
+    g = torch.Generator().manual_seed(seed)
+    slots = torch.randint(0, pa.n_slots, (P, pa.n_events), generator=g,
+                          dtype=torch.int32)
+    rms = torch.randint(0, pa.n_rooms, (P, pa.n_events), generator=g,
+                        dtype=torch.int32)
+    return slots, rms
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("inst", [0, 1, 2, 3, "tiny"])
+def test_k2_source_equals_plain(emulated, inst, cluster):
+    """K2's own launch, a cluster of 1, 2 or 4 128-thread CTAs a row
+    (each its share of the cells, events, correlation words and the
+    students of its staged CSR slice, rank 0 summing the others' through
+    their shared memory), equals batch_penalty_plain on random rows, on
+    the 24-120-event instances (random, ITC-like, padded, anchored)."""
+    pa = _tiny() if inst == "tiny" else _instances("cpu")[inst]
+    slots, rms = _k2_rows(pa, 3, 300 + cluster)
+    kernels.reset_launches()
+    got = fitness.batch_penalty_kernel(pa, slots, rms, cluster=cluster)
+    want = fitness.batch_penalty_plain(pa, slots, rms)
+    assert kernels.LAUNCHES["batch_penalty"] == 1
     assert all(torch.equal(w, g) for w, g in zip(want, got))
-    got = ga.survivors_kernel(par, groups=L)
-    want = ga.survivors_plain(par, groups=L)
-    assert all(torch.equal(w, g) for w, g in zip(want, got))
-    got = islands.migrate_kernel(want, L)
-    assert all(torch.equal(w, g)
-               for w, g in zip(islands.migrate_plain(want, L), got))
+    assert int(want[1].min()) > 0          # infeasible rows: every term
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_k2_global_memory_path_equals_plain(emulated, monkeypatch,
+                                            cluster):
+    """K2 built to stage nothing reads the students' CSR and the conflict
+    rows from global memory, as it does where they do not fit in shared
+    memory, and equals batch_penalty_plain."""
+    monkeypatch.setitem(kernels._LIBS, "batch_penalty",
+                        kernels._LIBS[K2_GLOBAL])
+    for inst in (2, 3):
+        pa = _instances("cpu")[inst]
+        slots, rms = _k2_rows(pa, 3, 310 + inst)
+        got = fitness.batch_penalty_kernel(pa, slots, rms, cluster=cluster)
+        want = fitness.batch_penalty_plain(pa, slots, rms)
+        assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+def test_k2_refused_cluster_is_not_shrunk(emulated, monkeypatch):
+    """When the card can place no cluster of the asked size, K2's entry
+    point returns an error before it launches (the wrapper's
+    kernels.launch raises on it), and no smaller cluster is tried."""
+    pa = _tiny()
+    slots, rms = _k2_rows(pa, 2, 5)
+    lib = kernels._LIBS["batch_penalty"][0]
+    answer = ctypes.c_int.in_dll(lib, "emu_max_active_clusters")
+    rcs = []
+    monkeypatch.setattr(kernels, "launch", lambda name, *args: rcs.append(
+        kernels._LIBS[name][1](*args, None)))
+    answer.value = 0
+    try:
+        fitness.batch_penalty_kernel(pa, slots, rms, cluster=2)
+    finally:
+        answer.value = 1
+    assert rcs == [2]                      # cudaErrorLaunchOutOfResources
+
+
+@pytest.mark.parametrize("mode", ["greedy", "parallel", "crowded"])
+@pytest.mark.parametrize("inst", [1, 2, 3])
+def test_k6_fused_scores_equal_plain(emulated, inst, mode):
+    """The (penalty, hcv, scv) K6 writes for each child from its epilogue
+    equal batch_penalty_plain of the child it wrote, in the greedy and
+    parallel matching modes and under the crowded tournament."""
+    pa = _instances("cpu")[inst]
+    _, cfg, par, draws = _breed_case(pa, "cpu", 2, 3, 400 + inst)
+    mo = None
+    if mode == "crowded":
+        mo = nsga.rank_crowd_plain(par.hcv, par.scv, 2)
+    got = ga.make_children_kernel(pa, draws, par, 2, mo,
+                                  "parallel" if mode == "parallel"
+                                  else "scan")
+    want = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
+    assert all(torch.equal(w, g) for w, g in zip(want, got[2:]))
 
 
 @pytest.mark.parametrize("inst", range(4))
@@ -516,6 +635,41 @@ def test_k8_source_equals_plain(emulated, inst):
     assert kernels.LAUNCHES["random_ls_events"] == 1
     assert kernels.LAUNCHES["random_ls"] == 1
     assert not torch.equal(got.slots, st.slots)
+    # the epilogue's terms are a full evaluation of the rows it wrote
+    full = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
+    assert all(torch.equal(w, g) for w, g in zip(full, got[2:]))
+
+
+def test_evaluations_count_live_events_only(emulated):
+    """compute_hcv counts conflicts between live events only. K8's slot
+    bitsets hold padded events too, so its epilogue's full evaluation
+    masks them out; K2 builds its bitsets from live events alone. Both
+    equal the plain versions where a padded event's conflict row is not
+    empty (here made so: padded events 80-84 conflict with live events
+    0-4, each pair in one slot)."""
+    pa = _instances("cpu")[2]
+    fields = {k: getattr(pa, k).numpy().copy() for k in (
+        "attends", "conflict", "possible", "student_count", "room_size",
+        "event_mask", "room_mask", "anchor_slots", "anchor_w")}
+    live = fields["event_mask"] > 0.5
+    pad = [e for e in range(pa.n_events) if not live[e]]
+    assert len(pad) >= 5
+    for f, e in enumerate(pad[:5]):
+        fields["conflict"][e, f] = fields["conflict"][f, e] = 1.0
+    pa = make_problem_arrays(**fields, n_days=pa.n_days,
+                             slots_per_day=pa.slots_per_day)
+    slots, rms = _state(pa, 3, 44)[:2]
+    slots[:, pad[:5]] = slots[:, :5]       # each pair in one slot
+    st = delta.init_rows(pa, slots, rms)
+    draws = _ls_draws(pa, "cpu", 3, 3, 4, 54)
+    got = delta.random_local_search_kernel(pa, draws, st)
+    want = delta.random_local_search_plain(pa, draws, st)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    assert (got.slots[:, pad[:5]] == got.slots[:, :5]).any()
+    for cs in (1, 2):
+        assert all(torch.equal(w, g) for w, g in zip(
+            fitness.batch_penalty_plain(pa, slots, rms),
+            fitness.batch_penalty_kernel(pa, slots, rms, cs)))
 
 
 @pytest.mark.parametrize("inst", range(4))

@@ -329,3 +329,64 @@ def test_make_children_crowded_and_parallel_match_jax(which, small_problem,
                             mo_stats=mo)
     for w, g in zip(want[:2], got):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("mode", ["scan", "parallel", "crowded"])
+@pytest.mark.parametrize("which", ["small", "padded", "anchored"])
+def test_make_children_scores_match_jax_batch_penalty(which, mode,
+                                                      small_problem,
+                                                      padded_problem):
+    """The (penalty, hcv, scv) make_children returns with its children
+    (K6's epilogue on the card, its plain version here) equal JAX
+    fitness.batch_penalty of the same children, in both matching modes
+    and under the crowded tournament."""
+    from timetabling_ga_tpu_torch.ops import nsga as tnsga
+    problem = {"small": small_problem, "padded": padded_problem,
+               "anchored": _anchored(small_problem, 8)}[which]
+    jpa, tpa = arrays(problem)
+    n = 10
+    kw = dict(pop_size=n, p_crossover=0.6, p_mutation=0.6, p3=0.4,
+              rooms_mode="parallel" if mode == "parallel" else "scan",
+              multi_objective=mode == "crowded")
+    tcfg = tga.GAConfig(**kw)
+    slots, _ = _population(problem, n, 14)
+    rng = np.random.default_rng(15)
+    rooms = rng.integers(0, problem.n_rooms, slots.shape).astype(np.int32)
+    obj = rng.integers(0, 3, (2, n)).astype(np.int32)
+    jstate = jga.PopState(jnp.asarray(slots), jnp.asarray(rooms),
+                          jnp.asarray(obj[0] * 3), jnp.asarray(obj[0]),
+                          jnp.asarray(obj[1]))
+    state = pop_state_from_numpy(jstate)
+    mo = tnsga.rank_crowd(state.hcv, state.scv) if mode == "crowded" \
+        else None
+    draws = jax_breed_draws(jax.random.key(41), n, problem.n_events,
+                            problem.n_slots, jga.GAConfig(**kw))
+    got = tga.make_children(tpa, draws, state, tcfg, mo_stats=mo)
+    want = jfit.batch_penalty(jpa, jnp.asarray(got.slots.numpy()),
+                              jnp.asarray(got.rooms.numpy()))
+    for w, g in zip(want, got[2:]):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("which", ["small", "anchored"])
+def test_generation_carries_the_children_scores_like_jax(which,
+                                                         small_problem):
+    """A generation with no local search (random mode, ls_steps 0) keeps
+    the children's scores from make_children through to the truncation;
+    the survivors equal the JAX generation's, which evaluates them
+    anew."""
+    problem = small_problem if which == "small" else _anchored(
+        small_problem, 9)
+    jpa, tpa = arrays(problem)
+    jcfg, tcfg = _cfgs(ls_mode="random", ls_steps=0, p3=0.3)
+    slots, rooms = _population(problem, POP, 16)
+    jstate = jga.evaluate(jpa, jnp.asarray(slots), jnp.asarray(rooms))
+    key = jax.random.key(43)
+    want = jax.jit(jga.generation, static_argnums=(3,))(jpa, key, jstate,
+                                                        jcfg)
+    draws = jax_breed_draws(key, POP, problem.n_events, problem.n_slots,
+                            jcfg)
+    got = tga.generation(tpa, draws, None, pop_state_from_numpy(jstate),
+                         tcfg)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())

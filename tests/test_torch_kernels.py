@@ -202,15 +202,40 @@ def test_k1_k6_match_degenerate_buckets(cuda):
 
 @pytest.mark.cuda
 def test_k2_batch_penalty_equals_plain(cuda):
+    """K2 at the wrapper's cluster size and at every size it takes."""
     for pa in _instances(cuda):
         st = _state(pa, 33, 2)
         r = torch.randint(0, pa.n_rooms, st.rooms.shape, device=cuda,
                           dtype=torch.int32)
         for rm in (st.rooms, r):
-            got = fitness.batch_penalty(pa, st.slots, rm)
             want = fitness.batch_penalty_plain(pa, st.slots, rm)
+            got = fitness.batch_penalty(pa, st.slots, rm)
             for w, g in zip(want, got):
                 assert torch.equal(w, g)
+            for cs in (1, 2, 4, 8):
+                got = fitness.batch_penalty_kernel(pa, st.slots, rm, cs)
+                for w, g in zip(want, got):
+                    assert torch.equal(w, g)
+
+
+@pytest.mark.cuda
+def test_k6_k8_fused_scores_equal_plain(cuda):
+    """The scores K6 writes for its children (greedy and parallel
+    matching, crowded tournament) and K8 for its rows equal
+    batch_penalty_plain of the rows they wrote."""
+    for i, pa in enumerate(_instances(cuda)):
+        _, cfg, par, draws = _breed_case(pa, cuda, 2, 8, 240 + i)
+        mo = nsga.rank_crowd_plain(par.hcv, par.scv, 2)
+        for stats, mode in ((None, "scan"), (None, "parallel"),
+                            (mo, "scan")):
+            got = ga.make_children_kernel(pa, draws, par, 2, stats, mode)
+            want = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
+            assert all(torch.equal(w, g) for w, g in zip(want, got[2:]))
+        st = delta.init_rows(pa, *_state(pa, 6, 250 + i)[:2])
+        got = delta.random_local_search(pa, _ls_draws(pa, cuda, 6, 5, 8,
+                                                      260 + i), st)
+        want = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
+        assert all(torch.equal(w, g) for w, g in zip(want, got[2:]))
 
 
 @pytest.mark.cuda
@@ -429,17 +454,21 @@ def test_k6_breed_and_relocate_equal_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [1, 2, 4])
+@pytest.mark.parametrize("L", [1, 2, 4, 16])
 @pytest.mark.parametrize("pop", [2, 3, 16])
 def test_k7_survivors_and_migrate_equal_plain(cuda, L, pop):
-    par, ch = _island_state(L, pop, 1, cuda), _island_state(L, pop, 2, cuda)
-    for b, keep in ((ch, pop), (None, None)):
-        got = ga.survivors(par, b, groups=L, keep=keep)
-        want = ga.survivors_plain(par, b, groups=L, keep=keep)
-        assert all(torch.equal(w, g) for w, g in zip(want, got))
-    got = islands.migrate(want, L)
-    assert all(torch.equal(w, g)
-               for w, g in zip(islands.migrate_plain(want, L), got))
+    """K7's grid of blocks an island, with rows of E = 7 (4-byte copies)
+    and E = 400 (16-byte ones)."""
+    for E in (7, 400):
+        par = _island_state(L, pop, 1, cuda, E)
+        ch = _island_state(L, pop, 2, cuda, E)
+        for b, keep in ((ch, pop), (None, None)):
+            got = ga.survivors(par, b, groups=L, keep=keep)
+            want = ga.survivors_plain(par, b, groups=L, keep=keep)
+            assert all(torch.equal(w, g) for w, g in zip(want, got))
+        got = islands.migrate(want, L)
+        assert all(torch.equal(w, g)
+                   for w, g in zip(islands.migrate_plain(want, L), got))
 
 
 @pytest.mark.cuda
@@ -628,9 +657,10 @@ def test_random_ls_smem_bytes_at_comp01s():
     """K8's shared memory per individual on comp01s at K = 8: slots and
     rooms 3,200, two buffers of candidate records 1,152, the bitsets
     amask 1,600 and slot_ev 2,352, occ 912, att 18,000, a chunk of 256
-    rounds' events 12,288 and the conflict bits 20,800."""
+    rounds' events 12,288, the epilogue's live-event words and reduction
+    scratch 320 and the conflict bits 20,800."""
     pa = load_tim_file(COMP01S).device_arrays()
-    assert delta.random_ls_smem_bytes(pa, 8) == 60_304
+    assert delta.random_ls_smem_bytes(pa, 8) == 60_624
 
 
 def test_lahc_smem_bytes_at_comp01s():
@@ -661,6 +691,46 @@ def test_sweep_pass_kernel_raises_above_the_shared_memory_limit():
         with pytest.raises(ValueError, match=match):
             sweep.sweep_pass_kernel(pa, draws, st, 2)
         assert sum(kernels.LAUNCHES.values()) == 0
+
+
+def test_k2_cluster_size_choice():
+    """K2's CTAs per individual: the largest power of two up to 8 whose
+    P x CS CTAs fit one to an SM (132 on an H100 SXM); sizes other than
+    1, 2, 4 and 8 are refused before anything launches."""
+    assert fitness.penalty_cluster_size(4, 132) == 8    # the post phase
+    assert fitness.penalty_cluster_size(16, 132) == 8   # the repair phase
+    assert fitness.penalty_cluster_size(10, 132) == 8   # the reference
+    assert fitness.penalty_cluster_size(33, 132) == 4
+    assert fitness.penalty_cluster_size(66, 132) == 2
+    assert fitness.penalty_cluster_size(67, 132) == 1
+    assert fitness.penalty_cluster_size(256, 132) == 1
+    pa = load_tim_file(COMP01S).device_arrays()
+    st = _state(pa, 2, 1)
+    kernels.reset_launches()
+    for cs in (0, 3, 16):
+        with pytest.raises(ValueError, match="cluster"):
+            fitness.batch_penalty_kernel(pa, st.slots, st.rooms, cs)
+    assert sum(kernels.LAUNCHES.values()) == 0
+
+
+def test_k2_student_split_balances_the_csr_entries():
+    """ProblemArrays.stu_split: for CS = 1, 2, 4, 8 the students split
+    into CS contiguous ranges that cover them all, each range's CSR
+    entries within one student's of nnz / CS."""
+    pa = load_tim_file(COMP01S).device_arrays()
+    split = pa.stu_split.tolist()
+    ptr = pa.stu_ptr.tolist()
+    nnz, S = ptr[-1], pa.n_students
+    most = max(b - a for a, b in zip(ptr, ptr[1:]))
+    off = 0
+    for cs in (1, 2, 4, 8):
+        st, en = split[off:off + cs + 1], split[off + cs + 1:off + 2 * cs + 2]
+        off += 2 * (cs + 1)
+        assert st[0] == 0 and st[-1] == S and st == sorted(st)
+        assert en == [ptr[s] for s in st]
+        assert all(b - a <= -(-nnz // cs) + most for a, b in zip(en, en[1:]))
+    assert off == len(split)
+    assert pa.stu_split.device.type == "cpu"
 
 
 def test_k5_cluster_size_choice():
@@ -719,9 +789,16 @@ def test_library_paths_are_keyed_by_source_hash():
     # every local header a source includes is part of its key
     assert [p.name for p in kernels._sources("sweep_pass")] == [
         "sweep_pass.cu", "sweep_dev.cuh", "common.cuh"]
-    for src in ("random_ls", "lahc"):
-        assert [p.name for p in kernels._sources(src)] == [
-            f"{src}.cu", "sweep_dev.cuh", "rooms_dev.cuh", "common.cuh"]
+    assert [p.name for p in kernels._sources("lahc")] == [
+        "lahc.cu", "sweep_dev.cuh", "rooms_dev.cuh", "common.cuh"]
+    # the full evaluation's body: K2's own launch, K6's and K8's epilogues
+    assert [p.name for p in kernels._sources("random_ls")] == [
+        "random_ls.cu", "penalty_dev.cuh", "sweep_dev.cuh", "rooms_dev.cuh",
+        "common.cuh"]
+    assert [p.name for p in kernels._sources("breed")] == [
+        "breed.cu", "penalty_dev.cuh", "rooms_dev.cuh", "common.cuh"]
+    assert [p.name for p in kernels._sources("batch_penalty")] == [
+        "batch_penalty.cu", "penalty_dev.cuh", "common.cuh"]
 
 
 def test_conflict_bits_and_csr_encode_the_problem():

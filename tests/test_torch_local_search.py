@@ -91,3 +91,24 @@ def test_random_local_search_on_cpu_is_the_plain_version(case):
     again = tdelta.init_rows(tpa, got.slots, got.rooms)
     for w, g in zip(again, got):
         assert torch.equal(w, g)
+
+
+def test_random_local_search_terms_match_jax_batch_penalty(case):
+    """The penalty terms the delta search returns with its rows (K8's
+    epilogue on the card, the plain version's full evaluation here)
+    equal JAX batch_penalty of those rows; starting it from the rows'
+    scores (as the generation does with K6's) gives the same result."""
+    from timetabling_ga_tpu.ops import fitness as jfit
+    _, jpa, tpa, slots, rooms, _, draws = case
+    got = tdelta.batch_local_search_delta(tpa, draws, t32(slots),
+                                          t32(rooms))
+    want = jfit.batch_penalty(jpa, jnp.asarray(got.slots.numpy()),
+                              jnp.asarray(got.rooms.numpy()))
+    for w, g in zip(want, got[2:]):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    scores = tuple(torch.tensor(np.asarray(x)) for x in jfit.batch_penalty(
+        jpa, jnp.asarray(slots), jnp.asarray(rooms)))
+    again = tdelta.batch_local_search_delta(tpa, draws, t32(slots),
+                                            t32(rooms), scores)
+    for w, g in zip(got, again):
+        assert torch.equal(w, g)

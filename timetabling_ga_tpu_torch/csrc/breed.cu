@@ -32,10 +32,16 @@
 //     rooms, unmatched, and the occupancy counted from them;
 //   - do_m, on warp 0 after a barrier: the top 3 of the row's E uniforms
 //     by warp argmax (ties to the lower index), sample_move's padded
-//     3-relocation and apply_relocation on the child's occupancy.
+//     3-relocation and apply_relocation on the child's occupancy;
+//   - the epilogue writes the child and scores it where it lies, with
+//     penalty_dev.cuh's body on its slots, rooms and occupancy in shared
+//     memory (the live slot bitsets built there, the students' masks from
+//     the CSR in global memory), into the (3, P) (penalty, hcv, scv)
+//     rows: the children's evaluation needs no launch of K2 of its own.
 // The relocation entry (kicks, the full-evaluation local search) keeps
 // one warp per row and runs only the last step, n_moves times in order
 // per row, on an occupancy counted once at the start.
+#include "penalty_dev.cuh"
 #include "rooms_dev.cuh"
 
 // threads of a breeding block (the CPU stand-in builds it small), and
@@ -90,9 +96,10 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     const uint8_t* __restrict__ possible, const int* __restrict__ cap_rank,
     const int* __restrict__ dead, const int* __restrict__ live,
     const int* __restrict__ order, const int* __restrict__ ranks,
-    const float* __restrict__ crowd, int* __restrict__ out_slots,
-    int* __restrict__ out_rooms, int pop, int k, int E, int R, int T,
-    int n_rounds) {
+    const float* __restrict__ crowd, TTPenaltyProblem pp,
+    int* __restrict__ out_slots, int* __restrict__ out_rooms,
+    int* __restrict__ out_eval, int P, int pop, int k, int E, int R, int T,
+    int n_rounds, int so_ints) {
     extern __shared__ int k6_smem[];
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     int* sl = k6_smem;                                   // (E,)
@@ -101,6 +108,10 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     // the greedy matcher's event slots in matching order, or the
     // parallel matcher's scratch
     int* so = occ + T * R;
+    // the child's live slot bitsets and the reduction's scratch, for the
+    // epilogue's evaluation
+    uint32_t* slot_ev = (uint32_t*)(so + so_ints);
+    int* red = (int*)(slot_ev + T * pp.W);
     const int c = blockIdx.x;
     const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
     // every thread takes both tournaments (a few reads, no barrier)
@@ -144,10 +155,21 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
         k6_random_move(rp, sl, rm, occ, u + (size_t)c * E, mtype[c], tgt[c],
                        lane, tt_room_rank(rp, lane));
     __syncthreads();
+    tt_pen_slot_bits(pp, sl, slot_ev);
     for (int e = tid; e < E; e += blockDim.x) {
         out_slots[(size_t)c * E + e] = sl[e];
         out_rooms[(size_t)c * E + e] = rm[e];
     }
+    __syncthreads();
+    TTPenAcc acc = tt_pen_zero();
+    tt_pen_cells(occ, 0, T * R, acc);
+    tt_pen_events(pp, sl, rm, 0, E, acc);
+    tt_pen_corr(pp, sl, pp.conflict_bits, live, slot_ev, nullptr, 0, E, acc);
+    tt_pen_students_csr(pp, sl, pp.stu_ptr, pp.stu_ev, 0, pp.S, acc);
+    acc = tt_pen_block_reduce(acc, red);
+    if (tid == 0)
+        tt_pen_finish(pp, acc, out_eval + c, out_eval + P + c,
+                      out_eval + 2 * P + c);
 }
 
 __global__ void relocate_kernel(
@@ -190,22 +212,30 @@ extern "C" int tt_breed(
     const uint8_t* do_m, const int* mtype, const float* u, const int* tgt,
     const uint8_t* possible, const int* cap_rank, const int* dead,
     const int* live, const int* order, const int* ranks, const float* crowd,
-    int* out_slots, int* out_rooms, int P, int pop, int k, int E, int R,
-    int T, int n_rounds, void* stream) {
+    const int* student_count, const uint32_t* conflict_bits,
+    const int* stu_ptr, const int* stu_ev, const int* anchor_slots,
+    const int* anchor_w, int* out_slots, int* out_rooms, int* out_eval,
+    int P, int pop, int k, int E, int R, int T, int n_rounds, int S, int spd,
+    int W, int diag, void* stream) {
     if (R > 32 || E < 3 || P <= 0 || pop <= 0 || P % pop != 0 || k <= 0
-        || (ranks != nullptr) != (crowd != nullptr))
+        || T > 64 || spd > 32 || (ranks != nullptr) != (crowd != nullptr))
         return (int)cudaErrorInvalidValue;
+    const size_t so_ints = n_rounds >= 0 ? tt_parallel_rooms_ints(E, R, T)
+                                         : (size_t)E;
     size_t smem = sizeof(int)
-                  * (2 * (size_t)E + (size_t)T * R
-                     + (n_rounds >= 0 ? tt_parallel_rooms_ints(E, R, T)
-                                      : (size_t)E));
+                  * (2 * (size_t)E + (size_t)T * R + so_ints
+                     + (size_t)T * W + 4 * (K6_THREADS / 32));
     if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     cudaError_t err = tt_set_smem(breed_kernel, smem);
     if (err != cudaSuccess) return (int)err;
+    const TTPenaltyProblem pp = {possible, live, student_count,
+                                 conflict_bits, stu_ptr, stu_ev,
+                                 anchor_slots, anchor_w, E, R, S, T, spd, W,
+                                 diag};
     breed_kernel<<<P, K6_THREADS, smem, (cudaStream_t)stream>>>(
         slots, rooms, pen, scv, ta, tb, mask, do_x, do_m, mtype, u, tgt,
-        possible, cap_rank, dead, live, order, ranks, crowd, out_slots,
-        out_rooms, pop, k, E, R, T, n_rounds);
+        possible, cap_rank, dead, live, order, ranks, crowd, pp, out_slots,
+        out_rooms, out_eval, P, pop, k, E, R, T, n_rounds, (int)so_ints);
     return (int)cudaGetLastError();
 }
 

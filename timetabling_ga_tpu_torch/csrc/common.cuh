@@ -10,6 +10,44 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Phase counters of K2, K5, K7 and K8, compiled in only with
+// -DTT_K5_PROF (see timetabling_ga_tpu_torch/k5_phases.py): block 0's
+// thread 0 (rank 0 of cluster 0) adds the clock64() cycles since its
+// previous mark to counter k, so the counters partition that thread's
+// time in the launch. TT_PROF_BARRIER() is a block barrier in that build
+// only, where a phase's own time should not include the wait for the
+// block's slowest thread. Otherwise the marks are empty statements.
+#ifdef TT_K5_PROF
+__device__ unsigned long long tt_prof_acc[16];
+__device__ long long tt_prof_last;
+#define TT_PROF_START()                                                \
+    do {                                                               \
+        if (blockIdx.x == 0 && threadIdx.x == 0)                       \
+            tt_prof_last = clock64();                                  \
+    } while (0)
+#define TT_PROF(k)                                                     \
+    do {                                                               \
+        if (blockIdx.x == 0 && threadIdx.x == 0) {                     \
+            long long now_ = clock64();                                \
+            tt_prof_acc[k] += now_ - tt_prof_last;                     \
+            tt_prof_last = now_;                                       \
+        }                                                              \
+    } while (0)
+#define TT_PROF_BARRIER() __syncthreads()
+// copy the counters out and zero them
+extern "C" int tt_prof_take(unsigned long long* out) {
+    cudaError_t err = cudaMemcpyFromSymbol(out, tt_prof_acc,
+                                           sizeof(tt_prof_acc));
+    if (err != cudaSuccess) return (int)err;
+    unsigned long long zero[16] = {0};
+    return (int)cudaMemcpyToSymbol(tt_prof_acc, zero, sizeof(zero));
+}
+#else
+#define TT_PROF_START() do {} while (0)
+#define TT_PROF(k) do {} while (0)
+#define TT_PROF_BARRIER() do {} while (0)
+#endif
+
 // Room-key weights: marginal hcv cost >> suitability tie >> capacity
 // rank (timetabling_ga_tpu/ops/rooms.py:42-51, _room_key). The dead-room
 // penalty arrives precomputed per room (`dead`), as in _dead_rooms.

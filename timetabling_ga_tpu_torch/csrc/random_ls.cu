@@ -52,8 +52,12 @@
 //     whose pace the host's launches now set, so a candidate keeps one
 //     warp.
 // Nothing goes back to global memory until the epilogue, which writes
-// slots, rooms and the penalty terms. Integer-exact: equal to the plain
-// version (ops/delta.py) bit for bit.
+// slots, rooms and a full evaluation of the final row: penalty_dev.cuh's
+// body on the block's occupancy, slot bitsets (masked to the live events)
+// and amask words, in place of the delta-tracked terms — the value K2
+// would give, so the generation needs no launch of K2 after the search.
+// Integer-exact: equal to the plain version (ops/delta.py) bit for bit.
+#include "penalty_dev.cuh"
 #include "sweep_dev.cuh"
 #include "rooms_dev.cuh"
 
@@ -72,8 +76,8 @@
 #define K8E_WARPS 8
 
 struct K8Smem {
-    unsigned slots, rooms, cand, amask, slot_ev, occ, att, events, bits,
-        total;
+    unsigned slots, rooms, cand, amask, slot_ev, occ, att, events, eval,
+        bits, total;
     int chunk_rounds, bits_in_smem;
 };
 
@@ -95,6 +99,8 @@ __host__ __device__ inline K8Smem k8_smem_layout(int E, int R, int S, int T,
     m.occ = o; o += k8_align(2 * (size_t)T * R);
     m.att = o; o += k8_align(2 * (size_t)S * T);
     m.events = o; o += k8_align(6 * (size_t)K * m.chunk_rounds);
+    // the epilogue's live-event words and reduction scratch
+    m.eval = o; o += k8_align(4 * ((size_t)W + 4 * K8_MAX_WARPS));
     m.bits = o;
     unsigned with_bits = o + k8_align(4 * (size_t)E * W);
     m.bits_in_smem = with_bits <= TT_SMEM_LIMIT ? 1 : 0;
@@ -108,6 +114,7 @@ struct K8Args {
     const int* anchor_w;           // (E,)
     const int* stu_ptr;            // (S+1,) CSR of each student's events
     const int* stu_ev;             // (nnz,)
+    int diag;                      // sum of the conflict diagonal
     // rows in, (P, ...)
     const int* slots; const int* rooms; const int* pen; const int* hcv;
     const int* scv;
@@ -267,12 +274,31 @@ random_ls_kernel(K8Args A) {
         A.slots_out[(size_t)p * E + i] = slots[i];
         A.rooms_out[(size_t)p * E + i] = rooms[i];
     }
-    if (tid == 0) {
-        A.pen_out[p] = st[0];
-        A.hcv_out[p] = st[1];
-        A.scv_out[p] = st[2];
+    // the full evaluation of the final row: slot_ev holds padded events
+    // too, so the correlation masks it with the live events' words
+    uint32_t* live_bits = (uint32_t*)(k8_smem + A.lay.eval);
+    int* red = (int*)(live_bits + W);
+    for (int w = warp; w < W; w += n_warps) {
+        const int f = 32 * w + lane;
+        const uint32_t b = __ballot_sync(TT_FULL_MASK, f < E && pb.live[f]);
+        if (lane == 0) live_bits[w] = b;
     }
+    __syncthreads();
     TT_PROF(10);
+    const TTPenaltyProblem pp = {pb.possible, pb.live, pb.student_count,
+                                 pb.conflict_bits, A.stu_ptr, A.stu_ev,
+                                 A.anchor_slots, A.anchor_w, E, R, S, T,
+                                 pb.spd, W, A.diag};
+    TTPenAcc acc = tt_pen_zero();
+    tt_pen_cells(occ, 0, T * R, acc);
+    tt_pen_events(pp, slots, rooms, 0, E, acc);
+    tt_pen_corr(pp, slots, pb.conflict_bits, pb.live, slot_ev, live_bits, 0,
+                E, acc);
+    tt_pen_students_amask(pp, amask, 0, S, acc);
+    acc = tt_pen_block_reduce(acc, red);
+    if (tid == 0)
+        tt_pen_finish(pp, acc, A.pen_out + p, A.hcv_out + p, A.scv_out + p);
+    TT_PROF(11);
 }
 
 extern "C" int tt_random_ls_smem_bytes(int E, int R, int S, int T, int K,
@@ -303,7 +329,7 @@ extern "C" int tt_random_ls(
     const int* stu_ptr, const int* stu_ev, const int* anchor_slots,
     const int* anchor_w, int* slots_out, int* rooms_out, int* pen_out,
     int* hcv_out, int* scv_out, int P, int E, int R, int S, int T, int spd,
-    int W, int K, int n_rounds, int anchored, void* stream) {
+    int W, int K, int n_rounds, int anchored, int diag, void* stream) {
     if (P <= 0 || E < 3 || T > 64 || R > 32 || spd > 32 || K <= 0
         || n_rounds < 0)
         return (int)cudaErrorInvalidValue;
@@ -317,7 +343,7 @@ extern "C" int tt_random_ls(
     A.pb = {possible, live, student_count, conflict_bits, cap_rank, dead,
             attends, ev_ptr, ev_stu, E, R, S, T, spd, W};
     A.anchor_slots = anchor_slots; A.anchor_w = anchor_w;
-    A.stu_ptr = stu_ptr; A.stu_ev = stu_ev;
+    A.stu_ptr = stu_ptr; A.stu_ev = stu_ev; A.diag = diag;
     A.slots = slots; A.rooms = rooms; A.pen = pen; A.hcv = hcv; A.scv = scv;
     A.mtype = mtype; A.tgt = tgt; A.events = events;
     A.slots_out = slots_out; A.rooms_out = rooms_out; A.pen_out = pen_out;

@@ -10,23 +10,37 @@
 //
 // Bound on this card: bytes. The survivors' rows are copied once (2*E
 // int32 a row); the rank counting is (2 pop)^2 compares an island,
-// negligible at pop <= 256.
+// negligible at pop <= 256. The phase counters of the previous design
+// (one block an island; k5_phases) put four-fifths of a launch in the
+// row copy: 8 warps copied `keep` rows with 4-byte loads, a chain of
+// dependent L2 round trips through one SM.
 //
-// Design: one block per island. The entry ranks each candidate row by
-// counting the rows that precede it in (penalty, scv, index) order,
-// index being parents first then children, which is the stable
-// lexsort's order; the rows ranked below `keep` are written to their
-// rank, a warp per row. The migrate entry reads another island's rows,
-// so it is a launch of its own after the truncation, reading the
-// truncation's output and writing a new buffer: no block reads what a
-// block of the same launch writes, and the emigrants are read before any
-// write, as `_migrate` snapshots them (which matters at pop 3, where row
-// 1 is both an emigrant and a victim). With one island the ring closes
-// on itself. Populations under 3 do not migrate (the wrapper returns
-// them unchanged).
+// Design: a grid of L x ceil(keep / K7_ROWS) blocks. Every block loads
+// its island's n (penalty, scv) keys into shared memory and ranks all n
+// candidates by counting the ones that precede each in (penalty, scv,
+// index) order, index being parents first then children, which is the
+// stable lexsort's order — cheap, and duplicated so that no block waits
+// for another. It then copies only its own K7_ROWS output rows: the
+// penalty terms, and the slots and rooms with 16-byte loads and stores
+// when E % 4 == 0 and every row pointer is 16-byte aligned (4-byte ones
+// otherwise), the block's threads over all of its rows' words at once.
+// The migrate entry reads another island's rows, so it is a launch of its
+// own after the truncation, reading the truncation's output and writing a
+// new buffer: no block reads what a block of the same launch writes, and
+// the emigrants are read from the input, as `_migrate` snapshots them
+// (which matters at pop 3, where row 1 is both an emigrant and a victim).
+// With one island the ring closes on itself. Populations under 3 do not
+// migrate (the wrapper returns them unchanged).
 #include "common.cuh"
 
+// threads of a block (the CPU stand-in builds it small)
+#ifndef K7_THREADS
 #define K7_THREADS 256
+#endif
+// output rows a block copies
+#ifndef K7_ROWS
+#define K7_ROWS 2
+#endif
 
 __device__ __forceinline__ bool k7_less(int p1, int s1, int i1, int p2,
                                         int s2, int i2) {
@@ -42,53 +56,67 @@ struct K7Out {
     int* slots; int* rooms; int* pen; int* hcv; int* scv;
 };
 
-// Rank the n candidates (cp, cs) of this block by counting, then copy
-// the source rows `src_row[i]` (a row of `from[src_buf[i]]`) of those
-// ranked below `keep` to out rows `out0 + rank`.
+// Rank the n candidates (cp, cs) of this block's island by counting and
+// copy the source rows `src_row[i]` (a row of `from[src_buf[i]]`) of
+// those ranked in [o0, o1) to out rows `out0 + rank`; `vec`: the rows may
+// move as int4.
 __device__ __forceinline__ void k7_rank_and_copy(
     const int* cp, const int* cs, const int* src_buf, const int* src_row,
-    int* dst, int n, int keep, const K7Rows* from, K7Out out,
-    size_t out0, int E) {
+    int* dst, int n, int o0, int o1, const K7Rows* from, K7Out out,
+    size_t out0, int E, int vec) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int p = cp[i], s = cs[i];
         int rank = 0;
         for (int j = 0; j < n; ++j)
-            rank += k7_less(cp[j], cs[j], j, cp[i], cs[i], i) ? 1 : 0;
-        if (rank < keep) dst[rank] = i;
+            rank += k7_less(cp[j], cs[j], j, p, s, i) ? 1 : 0;
+        if (rank >= o0 && rank < o1) dst[rank - o0] = i;
     }
     __syncthreads();
-    for (int o = threadIdx.x; o < keep; o += blockDim.x) {
-        int i = dst[o];
+    TT_PROF(1);
+    const int nr = o1 - o0;
+    if ((int)threadIdx.x < nr) {
+        const int o = threadIdx.x, i = dst[o];
         const K7Rows& f = from[src_buf[i]];
-        size_t r = (size_t)src_row[i];
-        out.pen[out0 + o] = f.pen[r];
-        out.hcv[out0 + o] = f.hcv[r];
-        out.scv[out0 + o] = f.scv[r];
+        const size_t r = (size_t)src_row[i];
+        out.pen[out0 + o0 + o] = f.pen[r];
+        out.hcv[out0 + o0 + o] = f.hcv[r];
+        out.scv[out0 + o0 + o] = f.scv[r];
     }
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int n_warps = blockDim.x >> 5;
-    for (int o = warp; o < keep; o += n_warps) {
-        int i = dst[o];
+    TT_PROF(2);
+    // the rows' words: row o's slots are item o * 2 * nw + [0, nw), its
+    // rooms the next nw
+    const int nw = vec ? E / 4 : E;
+    const int n_items = nr * 2 * nw;
+    for (int it = threadIdx.x; it < n_items; it += blockDim.x) {
+        const int o = it / (2 * nw), q = it - o * 2 * nw;
+        const int i = dst[o], rooms = q >= nw, w = rooms ? q - nw : q;
         const K7Rows& f = from[src_buf[i]];
-        const int* s = f.slots + (size_t)src_row[i] * E;
-        const int* r = f.rooms + (size_t)src_row[i] * E;
-        int* so = out.slots + (out0 + o) * E;
-        int* ro = out.rooms + (out0 + o) * E;
-        for (int e = lane; e < E; e += 32) {
-            so[e] = s[e];
-            ro[e] = r[e];
-        }
+        const int* src = (rooms ? f.rooms : f.slots) + (size_t)src_row[i] * E;
+        int* dstp = (rooms ? out.rooms : out.slots) + (out0 + o0 + o) * E;
+        if (vec)
+            ((int4*)dstp)[w] = ((const int4*)src)[w];
+        else
+            dstp[w] = src[w];
     }
+    TT_PROF(3);
+    TT_PROF_BARRIER();
+    TT_PROF(4);
 }
 
 __global__ void __launch_bounds__(K7_THREADS) survivors_kernel(
-    K7Rows a, K7Rows b, K7Out out, int na, int nb, int keep, int E) {
+    K7Rows a, K7Rows b, K7Out out, int na, int nb, int keep, int E,
+    int vec) {
     extern __shared__ int k7_smem[];
-    const int n = na + nb, l = blockIdx.x;
+    const int n = na + nb;
+    const int per = (keep + K7_ROWS - 1) / K7_ROWS;
+    const int l = blockIdx.x / per, o0 = (blockIdx.x % per) * K7_ROWS;
+    const int o1 = min(keep, o0 + K7_ROWS);
+    TT_PROF_START();
     int* cp = k7_smem;          // (n,) penalty
     int* cs = cp + n;           // (n,) scv
     int* buf = cs + n;          // (n,) 0 parents / 1 children
     int* row = buf + n;         // (n,) row in that buffer
-    int* dst = row + n;         // (keep,) candidate of each output row
+    int* dst = row + n;         // (K7_ROWS,) candidate of each output row
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
         bool par = i < na;
         int r = par ? l * na + i : l * nb + (i - na);
@@ -98,15 +126,19 @@ __global__ void __launch_bounds__(K7_THREADS) survivors_kernel(
         cs[i] = par ? a.scv[r] : b.scv[r];
     }
     __syncthreads();
+    TT_PROF(0);
     K7Rows from[2] = {a, b};
-    k7_rank_and_copy(cp, cs, buf, row, dst, n, keep, from, out,
-                     (size_t)l * keep, E);
+    k7_rank_and_copy(cp, cs, buf, row, dst, n, o0, o1, from, out,
+                     (size_t)l * keep, E, vec);
 }
 
 __global__ void __launch_bounds__(K7_THREADS) migrate_kernel(
-    K7Rows in, K7Out out, int L, int pop, int E) {
+    K7Rows in, K7Out out, int L, int pop, int E, int vec) {
     extern __shared__ int k7_smem[];
-    const int l = blockIdx.x;
+    const int per = (pop + K7_ROWS - 1) / K7_ROWS;
+    const int l = blockIdx.x / per, o0 = (blockIdx.x % per) * K7_ROWS;
+    const int o1 = min(pop, o0 + K7_ROWS);
+    TT_PROF_START();
     int* cp = k7_smem;
     int* cs = cp + pop;
     int* buf = cs + pop;
@@ -124,8 +156,17 @@ __global__ void __launch_bounds__(K7_THREADS) migrate_kernel(
         cs[j] = in.scv[r];
     }
     __syncthreads();
-    k7_rank_and_copy(cp, cs, buf, row, dst, pop, pop, &in, out,
-                     (size_t)l * pop, E);
+    TT_PROF(0);
+    k7_rank_and_copy(cp, cs, buf, row, dst, pop, o0, o1, &in, out,
+                     (size_t)l * pop, E, vec);
+}
+
+// 1 when rows of E int32 at every pointer may move as int4
+static int k7_vec(int E, const void* const* ptrs, int n) {
+    if (E % 4 != 0) return 0;
+    for (int i = 0; i < n; ++i)
+        if (ptrs[i] && ((uintptr_t)ptrs[i] & 15u) != 0) return 0;
+    return 1;
 }
 
 extern "C" int tt_survivors(
@@ -137,14 +178,17 @@ extern "C" int tt_survivors(
     void* stream) {
     if (L <= 0 || na < 0 || nb < 0 || keep <= 0 || keep > na + nb || E <= 0)
         return (int)cudaErrorInvalidValue;
-    size_t smem = sizeof(int) * (4 * (size_t)(na + nb) + keep);
+    size_t smem = sizeof(int) * (4 * (size_t)(na + nb) + K7_ROWS);
     cudaError_t err = tt_set_smem(survivors_kernel, smem);
     if (err != cudaSuccess) return (int)err;
+    const void* rows[6] = {a_slots, a_rooms, b_slots, b_rooms, out_slots,
+                           out_rooms};
     K7Rows a = {a_slots, a_rooms, a_pen, a_hcv, a_scv};
     K7Rows b = {b_slots, b_rooms, b_pen, b_hcv, b_scv};
     K7Out out = {out_slots, out_rooms, out_pen, out_hcv, out_scv};
-    survivors_kernel<<<L, K7_THREADS, smem, (cudaStream_t)stream>>>(
-        a, b, out, na, nb, keep, E);
+    const int grid = L * ((keep + K7_ROWS - 1) / K7_ROWS);
+    survivors_kernel<<<grid, K7_THREADS, smem, (cudaStream_t)stream>>>(
+        a, b, out, na, nb, keep, E, k7_vec(E, rows, 6));
     return (int)cudaGetLastError();
 }
 
@@ -153,12 +197,14 @@ extern "C" int tt_migrate(
     const int* scv, int* out_slots, int* out_rooms, int* out_pen,
     int* out_hcv, int* out_scv, int L, int pop, int E, void* stream) {
     if (L <= 0 || pop < 3 || E <= 0) return (int)cudaErrorInvalidValue;
-    size_t smem = sizeof(int) * 5 * (size_t)pop;
+    size_t smem = sizeof(int) * (4 * (size_t)pop + K7_ROWS);
     cudaError_t err = tt_set_smem(migrate_kernel, smem);
     if (err != cudaSuccess) return (int)err;
+    const void* rows[4] = {slots, rooms, out_slots, out_rooms};
     K7Rows in = {slots, rooms, pen, hcv, scv};
     K7Out out = {out_slots, out_rooms, out_pen, out_hcv, out_scv};
-    migrate_kernel<<<L, K7_THREADS, smem, (cudaStream_t)stream>>>(
-        in, out, L, pop, E);
+    const int grid = L * ((pop + K7_ROWS - 1) / K7_ROWS);
+    migrate_kernel<<<grid, K7_THREADS, smem, (cudaStream_t)stream>>>(
+        in, out, L, pop, E, k7_vec(E, rows, 4));
     return (int)cudaGetLastError();
 }

@@ -24,40 +24,6 @@
 
 #include "common.cuh"
 
-// Phase counters of K5 and K8, compiled in only with -DTT_K5_PROF (see
-// timetabling_ga_tpu_torch/k5_phases.py): block 0's thread 0 (rank 0 of
-// cluster 0) adds the clock64() cycles since its previous mark to
-// counter k, so the counters partition that thread's time in the pass.
-// Otherwise the marks are empty statements.
-#ifdef TT_K5_PROF
-__device__ unsigned long long tt_prof_acc[16];
-__device__ long long tt_prof_last;
-#define TT_PROF_START()                                                \
-    do {                                                               \
-        if (blockIdx.x == 0 && threadIdx.x == 0)                       \
-            tt_prof_last = clock64();                                  \
-    } while (0)
-#define TT_PROF(k)                                                     \
-    do {                                                               \
-        if (blockIdx.x == 0 && threadIdx.x == 0) {                     \
-            long long now_ = clock64();                                \
-            tt_prof_acc[k] += now_ - tt_prof_last;                     \
-            tt_prof_last = now_;                                       \
-        }                                                              \
-    } while (0)
-// copy the counters out and zero them
-extern "C" int tt_prof_take(unsigned long long* out) {
-    cudaError_t err = cudaMemcpyFromSymbol(out, tt_prof_acc,
-                                           sizeof(tt_prof_acc));
-    if (err != cudaSuccess) return (int)err;
-    unsigned long long zero[16] = {0};
-    return (int)cudaMemcpyToSymbol(tt_prof_acc, zero, sizeof(zero));
-}
-#else
-#define TT_PROF_START() do {} while (0)
-#define TT_PROF(k) do {} while (0)
-#endif
-
 struct TTSweepProblem {
     const uint8_t* possible;       // (E, R)
     const int* live;               // (E,)

@@ -1,15 +1,16 @@
-"""Where one K5 sweep pass and one K8 local search spend their time, on
-the card.
+"""Where one K5 sweep pass, one K8 local search, one K2 evaluation and
+one K7 truncation or migration spend their time, on the card.
 
-    python -m timetabling_ga_tpu_torch.k5_phases
+    python -m timetabling_ga_tpu_torch.k5_phases [k5] [k8] [k2] [k7]
 
-Builds csrc/sweep_pass.cu and csrc/random_ls.cu once more with their
-phase counters compiled in (-DTT_K5_PROF: block 0's thread 0 reads
-clock64() at each phase boundary, csrc/sweep_dev.cuh), under
+(no argument: all four). Builds csrc/sweep_pass.cu, csrc/random_ls.cu,
+csrc/batch_penalty.cu and csrc/survivors.cu once more with their phase
+counters compiled in (-DTT_K5_PROF: block 0's thread 0 reads clock64()
+at each phase boundary, csrc/common.cuh), under
 build/torch_kernels/k5_phases/, and checks that each instrumented kernel
 equals the regular one exactly. It prints one JSON line per shape with
-each phase's share of that thread's cycles and its cycles per step (K5)
-or per round (K8):
+each phase's share of that thread's cycles and its cycles per step (K5),
+per round (K8) or per launch (K2, K7):
 
 - K5 at the main path's three sweep shapes on fixtures/comp01s.tim —
   the engine's repair pass at P = 16 and 256 individuals, its post pass
@@ -18,7 +19,14 @@ or per round (K8):
   the cluster barrier and the read of the other CTAs' records;
 - K8 at the reference path's shape (`--no-auto-tune -p 2`: P = 10
   individuals, 125 rounds of 8 candidates) from random starts; the
-  thread is warp 0's lane 0, which scores candidate 0 of every round.
+  thread is warp 0's lane 0, which scores candidate 0 of every round;
+- K2 on random comp01s rows at P = 4, 16 and 256, the mean of 20
+  launches, at the cluster size its wrapper takes; the thread is rank
+  0 of cluster 0;
+- K7's survivors (parents + children of one island, the main path's pop
+  16 and the reference path's pop 10; 16 islands of 16) and its migrate
+  entry (one island of 16, 16 of 16), the mean of 20 launches; the
+  thread is block 0's, which copies output rows 0 and 1.
 
 The first line is the card's name and power limit. Needs a CUDA device
 and nvcc.
@@ -52,8 +60,23 @@ K8_PHASES = ("events (draw read + top-3 + sample_move)",
              "k4 unsuitable + conflict dots", "k4 day re-score",
              "candidate store", "wait for the other warps",
              "events chunk load", "choice", "apply",
-             "prologue (load + att/occ/bitsets)", "epilogue",
-             "barrier after the choice")
+             "prologue (load + att/occ/bitsets)",
+             "epilogue (rows + live-event words)",
+             "epilogue evaluation (the full penalty)")
+
+
+# counter k of csrc/batch_penalty.cu
+K2_PHASES = ("prologue (row + CSR slice load, zero)",
+             "occupancy + slot bitsets (atomics)",
+             "room pairs + events", "correlation words",
+             "students (staged CSR)", "wait for the other threads",
+             "one block reduction",
+             "store into rank 0's inbox (CS 1: epilogue)",
+             "cluster barrier", "rank 0's sum + write")
+# counter k of csrc/survivors.cu
+K7_PHASES = ("prologue (the island's keys)", "rank count + barrier",
+             "penalty terms", "row copy", "wait for the other threads")
+REPS = 20
 
 
 def build_prof(source: str):
@@ -161,6 +184,70 @@ def k8_lines(pa, dev):
                 cyc, candidates=gc.ls_candidates)
 
 
+def _repeated(fn):
+    def run():
+        for _ in range(REPS):
+            out = fn()
+        return out
+    return run
+
+
+def _equal(want, got):
+    return all(torch.equal(w, x) for w, x in zip(want, got))
+
+
+def k2_lines(pa, dev):
+    from timetabling_ga_tpu_torch.ops import fitness
+    E, T = pa.n_events, pa.n_slots
+    prof = build_prof("batch_penalty")
+    for P in (4, 16, 256):
+        g = torch.Generator(device=dev).manual_seed(6000 + P)
+        slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        rms = rooms.assign_rooms_plain(pa, slots)
+        want, got, cyc = _instrumented("batch_penalty", prof, _repeated(
+            lambda: fitness.batch_penalty(pa, slots, rms)))
+        if not _equal(want, got):
+            raise RuntimeError(f"k5_phases: the instrumented K2 differs "
+                               f"from K2 (P={P})")
+        yield _line(["K2", P], REPS, "launches", K2_PHASES, cyc,
+                    cluster=fitness.penalty_cluster(pa, P, dev))
+
+
+def k7_lines(pa, dev):
+    from timetabling_ga_tpu_torch.ops import ga
+    from timetabling_ga_tpu_torch.parallel import islands
+    E, T = pa.n_events, pa.n_slots
+    prof = build_prof("survivors")
+    g = torch.Generator(device=dev).manual_seed(7000)
+
+    def state(n):
+        slots = torch.randint(0, T, (n, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        ps = torch.randint(0, 3, (2, n), generator=g, device=dev,
+                           dtype=torch.int32)
+        return ga.PopState(slots, slots.flip(1), ps[0], ps[0] * 2, ps[1])
+
+    for entry, L, pop in (("survivors", 1, 16), ("survivors", 1, 10),
+                          ("survivors", 16, 16), ("migrate", 1, 16),
+                          ("migrate", 16, 16)):
+        par, ch = state(L * pop), state(L * pop)
+        if entry == "survivors":
+            fn = _repeated(lambda: ga.survivors(par, ch, L, pop))
+        else:
+            srt = ga.survivors_plain(par, groups=L)
+            fn = _repeated(lambda: islands.migrate(srt, L))
+        want, got, cyc = _instrumented("survivors", prof, fn)
+        if not _equal(want, got):
+            raise RuntimeError(f"k5_phases: the instrumented K7 differs "
+                               f"from K7 ({entry}, L={L}, pop={pop})")
+        yield _line(["K7", entry, L, pop], REPS, "launches", K7_PHASES, cyc,
+                    E=E)
+
+
+LINES = {"k5": k5_lines, "k8": k8_lines, "k2": k2_lines, "k7": k7_lines}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("k5_phases: no CUDA device", file=sys.stderr)
@@ -173,10 +260,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kernels.build()
     pa = load_tim_file(str(COMP01S)).device_arrays(dev)
-    for line in k5_lines(pa, dev):
-        print(line, flush=True)
-    for line in k8_lines(pa, dev):
-        print(line, flush=True)
+    for which in sys.argv[1:] or list(LINES):
+        for line in LINES[which](pa, dev):
+            print(line, flush=True)
     return 0
 
 

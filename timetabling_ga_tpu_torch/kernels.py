@@ -50,7 +50,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "assign_rooms": ("tt_assign_rooms", [_P] * 7 + [_I] * 4 + [_P],
                      "assign_rooms"),
-    "batch_penalty": ("tt_batch_penalty", [_P] * 13 + [_I] * 8 + [_P],
+    "batch_penalty": ("tt_batch_penalty", [_P] * 14 + [_I] * 9 + [_P],
                       "batch_penalty"),
     "move1_sweep": ("tt_move1_sweep", [_P] * 18 + [_I] * 9 + [_P],
                     "move1_sweep"),
@@ -58,14 +58,14 @@ SIGNATURES = {
                   "delta_one"),
     "sweep_pass": ("tt_sweep_pass", [_P] * 33 + [_I] * 17 + [_P],
                    "sweep_pass"),
-    "breed": ("tt_breed", [_P] * 21 + [_I] * 7 + [_P], "breed"),
+    "breed": ("tt_breed", [_P] * 28 + [_I] * 11 + [_P], "breed"),
     "relocate": ("tt_relocate", [_P] * 11 + [_I] * 5 + [_P], "breed"),
     "survivors": ("tt_survivors", [_P] * 15 + [_I] * 5 + [_P],
                   "survivors"),
     "migrate": ("tt_migrate", [_P] * 10 + [_I] * 3 + [_P], "survivors"),
     "random_ls_events": ("tt_random_ls_events", [_P] * 2 + [_I] * 4 + [_P],
                          "random_ls"),
-    "random_ls": ("tt_random_ls", [_P] * 26 + [_I] * 10 + [_P],
+    "random_ls": ("tt_random_ls", [_P] * 26 + [_I] * 11 + [_P],
                   "random_ls"),
     "parallel_rooms": ("tt_parallel_rooms", [_P] * 7 + [_I] * 5 + [_P],
                        "parallel_rooms"),

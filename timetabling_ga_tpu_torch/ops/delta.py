@@ -76,9 +76,13 @@ def attendance_counts(pa, slots) -> torch.Tensor:
     return att
 
 
-def init_rows(pa, slots, rooms) -> LSRows:
-    """A population's rows with their penalty terms (K2)."""
-    return LSRows(slots, rooms, *fitness.batch_penalty(pa, slots, rooms))
+def init_rows(pa, slots, rooms, scores=None) -> LSRows:
+    """A population's rows with their penalty terms: `scores` (penalty,
+    hcv, scv) where the caller holds them (the children K6 scored), else
+    K2's."""
+    if scores is None:
+        scores = fitness.batch_penalty(pa, slots, rooms)
+    return LSRows(slots, rooms, *scores)
 
 
 def state_of(pa, rows: LSRows) -> LSState:
@@ -89,9 +93,10 @@ def state_of(pa, rows: LSRows) -> LSState:
                    pen=rows.pen, hcv=rows.hcv, scv=rows.scv)
 
 
-def init_state(pa, slots, rooms) -> LSState:
-    """Maintained tensors + baseline fitness for a population."""
-    return state_of(pa, init_rows(pa, slots, rooms))
+def init_state(pa, slots, rooms, scores=None) -> LSState:
+    """Maintained tensors + baseline fitness for a population (`scores`
+    as init_rows takes them)."""
+    return state_of(pa, init_rows(pa, slots, rooms, scores))
 
 
 def slot_bitsets(pa, slots, att):
@@ -365,7 +370,9 @@ def round_candidates(pa, draws: LSDraws, r: int, slots):
 def random_local_search_plain(pa, draws: LSDraws, rows: LSRows) -> LSRows:
     """Plain version of K8: every round's K candidates scored by
     delta_one_plain, the first of least anchored penalty (jnp.argmin)
-    accepted where strictly below the individual's (delta.py:240-272)."""
+    accepted where strictly below the individual's (delta.py:240-272);
+    the rows it returns carry a full evaluation (batch_penalty_plain), as
+    K8's epilogue writes one."""
     st = state_of(pa, rows)
     P = st.slots.shape[0]
     ar = torch.arange(P, device=st.slots.device)
@@ -389,27 +396,32 @@ def random_local_search_plain(pa, draws: LSDraws, rows: LSRows) -> LSRows:
                      torch.where(better, best_pen, st.pen),
                      torch.where(better, new_hcv[ar, best], st.hcv),
                      torch.where(better, new_scv[ar, best], st.scv))
-    return LSRows(st.slots, st.rooms, st.pen, st.hcv, st.scv)
+    return LSRows(st.slots, st.rooms,
+                  *fitness.batch_penalty_plain(pa, st.slots, st.rooms))
 
 
 # bytes of shared memory K8 gives one chunk of rounds' events (at least
-# one round), csrc/random_ls.cu K8_EVENT_BYTES
+# one round), csrc/random_ls.cu K8_EVENT_BYTES, and the most warps of its
+# block, K8_MAX_WARPS
 K8_EVENT_BYTES = 12288
+K8_MAX_WARPS = 16
 
 
 def random_ls_smem_bytes(pa, n_candidates: int) -> int:
     """Dynamic shared memory K8 takes per individual, the layout of
     csrc/random_ls.cu `k8_smem_layout`: slots, rooms, two buffers of 18
     ints per candidate, amask (8 B a student), slot_ev (T x W words),
-    occ, att and one chunk of rounds' events (6 B a candidate), each
-    rounded up to 16 bytes, plus the conflict bitset when the total
-    still fits in SMEM_LIMIT (else K8 reads it from global memory)."""
+    occ, att, one chunk of rounds' events (6 B a candidate) and the
+    epilogue's live-event words and reduction scratch (W + 4 x
+    K8_MAX_WARPS ints), each rounded up to 16 bytes, plus the conflict
+    bitset when the total still fits in SMEM_LIMIT (else K8 reads it
+    from global memory)."""
     E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
     W = pa.conflict_bits.shape[1]
     K = n_candidates
     chunk = max(1, K8_EVENT_BYTES // (6 * K))
     parts = (4 * E, 4 * E, 2 * 4 * 18 * K, 8 * S, 4 * T * W, 2 * T * R,
-             2 * S * T, 6 * K * chunk)
+             2 * S * T, 6 * K * chunk, 4 * (W + 4 * K8_MAX_WARPS))
     total = sum(-(-x // 16) * 16 for x in parts)
     with_bits = total + -(-4 * E * W // 16) * 16
     return with_bits if with_bits <= kernels.SMEM_LIMIT else total
@@ -476,7 +488,7 @@ def random_ls_chain(pa, draws: LSDraws, rows: LSRows,
         p(pa.anchor_w),
         *(p(x) for x in out), P, E, pa.n_rooms, pa.n_students, pa.n_slots,
         pa.slots_per_day, pa.conflict_bits.shape[1], K, n_rounds,
-        int(pa.anchored))
+        int(pa.anchored), pa.conflict_diag)
     return out
 
 
@@ -491,14 +503,20 @@ def random_local_search_kernel(pa, draws: LSDraws, rows: LSRows) -> LSRows:
 
 def random_local_search(pa, draws: LSDraws, rows: LSRows) -> LSRows:
     """The random-candidate delta local search of a population's scored
-    rows. Kernel K8 on CUDA tensors, the plain version on CPU ones."""
+    rows; the rows it returns carry a full evaluation of each (K8's
+    epilogue). Kernel K8 on CUDA tensors, the plain version on CPU
+    ones."""
     if not rows.slots.is_cuda:
         return random_local_search_plain(pa, draws, rows)
     return random_local_search_kernel(pa, draws, rows)
 
 
-def batch_local_search_delta(pa, draws: LSDraws, slots, rooms):
+def batch_local_search_delta(pa, draws: LSDraws, slots, rooms,
+                             scores=None) -> LSRows:
     """Hill-climb a (P, E) population for draws' n_rounds rounds of K
-    candidates each (JAX delta.py:212); returns (slots, rooms)."""
-    out = random_local_search(pa, draws, init_rows(pa, slots, rooms))
-    return out.slots, out.rooms
+    candidates each (JAX delta.py:212), from its penalty terms `scores`
+    where the caller holds them (else K2's); returns the rows, each with
+    a full evaluation (LSRows: slots, rooms first, as the JAX function
+    returns them)."""
+    return random_local_search(pa, draws, init_rows(pa, slots, rooms,
+                                                    scores))

@@ -4,7 +4,10 @@ Every function takes a population: slots/rooms `(P, E)` int32 -> `(P,)`.
 The plain versions repeat the JAX contractions over one-hot operands in
 float32 (all values are small exact integers, so every sum is exact);
 `batch_penalty` is the wrapper of kernel K2 (csrc/batch_penalty.cu),
-which computes the same counts in int32 on the card.
+which computes the same counts in int32 on the card, a cluster of CS
+CTAs an individual (`penalty_cluster`). Its body (csrc/penalty_dev.cuh)
+also scores the children inside K6 (ops/ga.py make_children) and the
+rows K8's local search returns (ops/delta.py random_local_search).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch.problem import K2_CLUSTERS
 
 # Penalty encoding (reference Solution.cpp:167 and ga.cpp:191)
 INFEASIBLE_OFFSET = 1_000_000
@@ -123,29 +127,64 @@ def batch_penalty_plain(pa, slots, rooms):
     return penalty.to(torch.int32), hcv, scv
 
 
-def batch_penalty(pa, slots, rooms):
-    """Evaluate a population: slots/rooms (P, E) int32 -> (penalty, hcv,
-    scv), each (P,) int32. Kernel K2 on a CUDA tensor, the plain
-    version on a CPU one."""
-    if not slots.is_cuda:
-        return batch_penalty_plain(pa, slots, rooms)
+# the largest of the cluster sizes K2 takes (problem.K2_CLUSTERS, the
+# sizes its students are split for; csrc/batch_penalty.cu K2_MAX_CLUSTER)
+K2_MAX_CLUSTER = K2_CLUSTERS[-1]
+
+
+def penalty_cluster_size(P: int, sm_count: int) -> int:
+    """K2's CTAs per individual: the largest power of two up to
+    K2_MAX_CLUSTER whose P x CS CTAs still fit one to an SM, at least 1."""
+    cs = 1
+    while cs < K2_MAX_CLUSTER and 2 * cs * P <= sm_count:
+        cs *= 2
+    return cs
+
+
+def penalty_cluster(pa, P: int, device) -> int:
+    """The cluster size K2's wrapper takes on `device` for P rows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return penalty_cluster_size(P, sms)
+
+
+def batch_penalty_kernel(pa, slots, rooms, cluster: int = None):
+    """Kernel K2 on CUDA tensors: every row in one launch, a cluster of
+    `cluster` CTAs a row (None: `penalty_cluster`; an explicit size, 1,
+    2, 4 or 8, is for tests and the chip smoke). Returns the (3, P) int32
+    tensor of (penalty, hcv, scv) rows. A cluster the card refuses
+    raises; there is no fallback."""
     P, E = slots.shape
     if slots.dtype != torch.int32 or rooms.dtype != torch.int32:
         raise TypeError("batch_penalty takes int32 slots and rooms")
     slots = slots.contiguous()
     rooms = rooms.contiguous()
     out = torch.empty((3, P), dtype=torch.int32, device=slots.device)
-    pen, hcv, scv = out[0], out[1], out[2]
+    if cluster is not None and cluster not in K2_CLUSTERS:
+        raise ValueError(f"batch_penalty: a cluster of {cluster} CTAs; K2 "
+                         f"takes {K2_CLUSTERS}")
     if P == 0:
-        return pen, hcv, scv
+        return out
+    if cluster is None:
+        cluster = penalty_cluster(pa, P, slots.device)
     p = kernels.ptr
     kernels.launch(
         "batch_penalty", p(slots), p(rooms), p(pa.possible_u8), p(pa.live),
         p(pa.student_count), p(pa.conflict_bits), p(pa.stu_ptr),
-        p(pa.stu_ev), p(pa.anchor_slots), p(pa.anchor_w), p(pen), p(hcv),
-        p(scv), P, E, pa.n_rooms, pa.n_students, pa.n_slots,
-        pa.slots_per_day, pa.conflict_bits.shape[1], pa.conflict_diag)
-    return pen, hcv, scv
+        p(pa.stu_ev), p(pa.anchor_slots), p(pa.anchor_w),
+        pa.stu_split.data_ptr(), p(out[0]), p(out[1]), p(out[2]), P, E,
+        pa.n_rooms, pa.n_students, pa.n_slots, pa.slots_per_day,
+        pa.conflict_bits.shape[1], pa.conflict_diag, cluster)
+    return out
+
+
+def batch_penalty(pa, slots, rooms):
+    """Evaluate a population: slots/rooms (P, E) int32 -> (penalty, hcv,
+    scv), each (P,) int32. Kernel K2 on a CUDA tensor, the plain
+    version on a CPU one."""
+    if not slots.is_cuda:
+        return batch_penalty_plain(pa, slots, rooms)
+    out = batch_penalty_kernel(pa, slots, rooms)
+    return out[0], out[1], out[2]
 
 
 def lex_order(penalty, scv) -> torch.Tensor:

@@ -5,7 +5,8 @@ greedy room rematch, one random move with p_mutation — all of a
 generation's breeding in one launch of kernel K6 (csrc/breed.cu,
 `make_children`) — the local search on every child (the sweep, K5, or
 the random-candidate search, K8 or its full-evaluation twin), full
-evaluation (K2) and (mu+lambda) truncation in (penalty, scv) order
+evaluation (K6's epilogue scores the children, K8's the delta search's
+rows, K2 the rest) and (mu+lambda) truncation in (penalty, scv) order
 (kernel K7, csrc/survivors.cu, `survivors`). `make_children_plain` and
 `survivors_plain` are the plain versions.
 
@@ -31,7 +32,7 @@ import torch
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import fitness, nsga
 from timetabling_ga_tpu_torch.ops.delta import (
-    batch_local_search_delta, make_ls_draws)
+    LSRows, batch_local_search_delta, init_rows, make_ls_draws)
 from timetabling_ga_tpu_torch.ops.local_search import batch_local_search
 from timetabling_ga_tpu_torch.ops.moves import (
     MoveDraws, make_move_draws, random_move_plain)
@@ -243,7 +244,8 @@ def make_children_plain(pa, draws: BreedDraws, state: PopState,
     """Plain version of K6: breed one child per parent row, 2x tournament
     -> crossover(p) -> mutation(p). `mo_stats` is None (tournaments by
     (penalty, scv)) or the parents' (ranks, crowding) for the crowded
-    tournament. Returns the children's (slots, rooms)."""
+    tournament. Returns the children's rows scored (LSRows: slots,
+    rooms and batch_penalty_plain's terms)."""
     P = state.slots.shape[0]
     pop = P // groups
     base = (torch.arange(P, device=state.slots.device) // pop * pop)[:, None]
@@ -268,13 +270,14 @@ def make_children_plain(pa, draws: BreedDraws, state: PopState,
     do_m = draws.do_m[:, None]
     slots = torch.where(do_m, m_slots, slots)
     rooms = torch.where(do_m, m_rooms, rooms)
-    return slots, rooms
+    return LSRows(slots, rooms, *fitness.batch_penalty_plain(pa, slots, rooms))
 
 
 def make_children_kernel(pa, draws: BreedDraws, state: PopState,
                          groups: int = 1, mo_stats=None,
                          rooms_mode: str = "scan"):
-    """Kernel K6: every child in one launch, one warp per child."""
+    """Kernel K6: every child in one launch, a block a child, which also
+    scores it (the (3, P) penalty terms K2 would give)."""
     check_packing(pa)
     P, E = state.slots.shape
     ins = [x.contiguous() for x in (state.slots, state.rooms,
@@ -297,67 +300,78 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
             raise TypeError("make_children takes int32 ranks and float32 "
                             "crowding")
     out = [torch.empty_like(ins[0]), torch.empty_like(ins[1])]
+    ev = torch.empty((3, P), dtype=torch.int32, device=ins[0].device)
     if P == 0:
-        return out[0], out[1]
+        return LSRows(*out, ev[0], ev[1], ev[2])
     p = kernels.ptr
     kernels.launch("breed", *(p(x) for x in ins + dr), p(pa.possible_u8),
                    p(pa.cap_rank), p(pa.dead), p(pa.live),
                    p(pa.room_order), *(None if x is None else p(x)
                                        for x in mo),
-                   p(out[0]), p(out[1]), P, P // groups,
+                   p(pa.student_count), p(pa.conflict_bits), p(pa.stu_ptr),
+                   p(pa.stu_ev), p(pa.anchor_slots), p(pa.anchor_w),
+                   p(out[0]), p(out[1]), p(ev), P, P // groups,
                    draws.ta.shape[1], E, pa.n_rooms, pa.n_slots,
-                   PARALLEL_ROUNDS if rooms_mode == "parallel" else -1)
-    return out[0], out[1]
+                   PARALLEL_ROUNDS if rooms_mode == "parallel" else -1,
+                   pa.n_students, pa.slots_per_day, pa.conflict_bits.shape[1],
+                   pa.conflict_diag)
+    return LSRows(*out, ev[0], ev[1], ev[2])
 
 
 def make_children(pa, draws: BreedDraws, state: PopState, cfg: GAConfig,
                   groups: int = 1, mo_stats=None):
     """Breed one child per parent row (each island's children from its
-    own parents); returns the children's (slots, rooms). Kernel K6 on
-    CUDA tensors, the plain version on CPU ones."""
+    own parents); returns the children's rows with their penalty terms
+    (LSRows). Kernel K6 on CUDA tensors, which scores each child in its
+    epilogue, the plain version on CPU ones."""
     if not state.slots.is_cuda:
         return make_children_plain(pa, draws, state, cfg, groups, mo_stats)
     return make_children_kernel(pa, draws, state, groups, mo_stats,
                                 cfg.rooms_mode)
 
 
-def local_search(pa, ls_draws, slots, rooms, cfg: GAConfig,
-                 groups: int = 1):
-    """The children's local search as JAX ga.py:249-274 selects it: the
-    sweep when ls_mode is "sweep", else ls_steps rounds of the random-
-    candidate search (delta-scored, or by full re-evaluation when
-    ls_delta is False), else none."""
-    if cfg.ls_mode == "sweep":
-        if cfg.ls_sweeps > 0:
-            slots, rooms = sweep_local_search(
-                pa, ls_draws, slots, rooms, n_sweeps=cfg.ls_sweeps,
-                swap_block=cfg.ls_swap_block, converge=cfg.ls_converge,
-                block_events=cfg.ls_block_events, sideways=cfg.ls_sideways,
-                hot_k=cfg.ls_hot_k, p3=cfg.p3, groups=groups)
-    elif cfg.ls_steps > 0:
-        ls_fn = (batch_local_search_delta if cfg.ls_delta
-                 else batch_local_search)
-        slots, rooms = ls_fn(pa, ls_draws(0), slots, rooms)
-    return slots, rooms
+def local_search(pa, ls_draws, children: LSRows, cfg: GAConfig,
+                 groups: int = 1) -> LSRows:
+    """The local search of the scored children as JAX ga.py:249-274
+    selects it: the sweep when ls_mode is "sweep", else ls_steps rounds
+    of the random-candidate search (delta-scored, or by full
+    re-evaluation when ls_delta is False), else none. Each search starts
+    from the children's scores; returns their rows after it, scored: K8
+    scores the delta search's rows in its epilogue, K2 the others'."""
+    slots, rooms = children.slots, children.rooms
+    if cfg.ls_mode == "sweep" and cfg.ls_sweeps > 0:
+        slots, rooms = sweep_local_search(
+            pa, ls_draws, slots, rooms, n_sweeps=cfg.ls_sweeps,
+            swap_block=cfg.ls_swap_block, converge=cfg.ls_converge,
+            block_events=cfg.ls_block_events, sideways=cfg.ls_sideways,
+            hot_k=cfg.ls_hot_k, p3=cfg.p3, groups=groups,
+            scores=children[2:])
+    elif cfg.ls_mode != "sweep" and cfg.ls_steps > 0:
+        if cfg.ls_delta:
+            return batch_local_search_delta(pa, ls_draws(0), slots, rooms,
+                                            children[2:])
+        slots, rooms = batch_local_search(pa, ls_draws(0), slots, rooms,
+                                          children.pen)
+    else:
+        return children
+    return init_rows(pa, slots, rooms)
 
 
 def generation(pa, draws: BreedDraws, ls_draws, state: PopState,
                cfg: GAConfig, groups: int = 1) -> PopState:
     """One generation over `groups` islands of cfg.pop_size rows: breed
-    every child, local-search them, evaluate, and keep each island's
-    best pop_size of parents + children in (penalty, scv) order — or,
-    under multi_objective, NSGA-II's survivors, penalty-sorted (JAX
+    and score every child, local-search them, evaluate, and keep each
+    island's best pop_size of parents + children in (penalty, scv) order
+    — or, under multi_objective, NSGA-II's survivors, penalty-sorted (JAX
     ga.py:221-293). `ls_draws` is the local search's draw function
-    (`ls_draws_fn`)."""
+    (`ls_draws_fn`). On the card the children's evaluations come from K6
+    and, after the delta search, K8; K2 runs only after the sweep and
+    the full-evaluation search."""
     mo_stats = None
     if cfg.multi_objective:
         mo_stats = nsga.rank_crowd(state.hcv, state.scv, groups)
-    ch_slots, ch_rooms = make_children(pa, draws, state, cfg, groups,
-                                       mo_stats)
-    ch_slots, ch_rooms = local_search(pa, ls_draws, ch_slots, ch_rooms, cfg,
-                                      groups)
-    c_pen, c_hcv, c_scv = fitness.batch_penalty(pa, ch_slots, ch_rooms)
-    children = PopState(ch_slots, ch_rooms, c_pen, c_hcv, c_scv)
+    children = make_children(pa, draws, state, cfg, groups, mo_stats)
+    children = PopState(*local_search(pa, ls_draws, children, cfg, groups))
     if cfg.multi_objective:
         return nsga.survivors(state, children, groups, keep=cfg.pop_size)
     return survivors(state, children, groups, keep=cfg.pop_size)

@@ -19,11 +19,13 @@ from timetabling_ga_tpu_torch.ops.delta import LSDraws
 from timetabling_ga_tpu_torch.ops.moves import MoveDraws, random_move
 
 
-def batch_local_search(pa, draws: LSDraws, slots, rooms):
+def batch_local_search(pa, draws: LSDraws, slots, rooms, pen=None):
     """Hill-climb a (P, E) population for draws' n_rounds rounds of K
-    candidates each; returns the improved (slots, rooms)."""
+    candidates each, from its penalties `pen` where the caller holds them
+    (else K2's); returns the improved (slots, rooms)."""
     n_rounds, K, P = draws.mtype.shape
-    pen, _, _ = fitness.batch_penalty(pa, slots, rooms)
+    if pen is None:
+        pen, _, _ = fitness.batch_penalty(pa, slots, rooms)
     ar = torch.arange(P, device=slots.device)
     for r in range(n_rounds):
         # candidate k of individual p is row k * P + p

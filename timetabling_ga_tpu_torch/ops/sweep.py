@@ -545,14 +545,15 @@ def sweep_local_search(pa, draws_fn: Callable[[int], SweepDraws], slots,
                        swap_block: int = 8, converge: bool = False,
                        block_events: int = 1, sideways: float = 0.0,
                        hot_k: int = 0, p3: float = 0.0, groups: int = 1,
-                       return_passes: bool = False):
+                       return_passes: bool = False, scores=None):
     """Up to `n_sweeps` sweep passes over a (P, E) population; pass i
     takes `draws_fn(i)`. converge=True stops a group of rows once one
     of its passes accepts no strict improvement (JAX's while_loop; the
     rows split into `groups` equal groups — islands — that converge
-    independently, as vmapped islands do). Returns (slots, rooms[,
-    passes executed])."""
-    state = init_state(pa, slots, rooms)
+    independently, as vmapped islands do). `scores` are the rows'
+    (penalty, hcv, scv) where the caller holds them (K6's children),
+    else K2 takes them. Returns (slots, rooms[, passes executed])."""
+    state = init_state(pa, slots, rooms, scores)
     P = slots.shape[0]
     passes = 0
     if converge:

@@ -124,6 +124,10 @@ class ProblemArrays:
     ev_ptr: torch.Tensor         # (E+1,) i32
     ev_stu: torch.Tensor         # (nnz,) i32
     max_ev_students: int         # largest student count of one event
+    # K2's split of the students over a cluster's CTAs (host memory, int32,
+    # whatever the device): for CS = 1, 2, 4, 8 in turn, the CS + 1 student
+    # boundaries, then the CS + 1 CSR entry boundaries (`stu_split_of`)
+    stu_split: torch.Tensor
     anchored: bool               # any anchor weight non-zero
 
     @property
@@ -158,6 +162,26 @@ def _csr(mat: np.ndarray):
     ptr = np.zeros(mat.shape[0] + 1, dtype=np.int64)
     np.add.at(ptr, rows + 1, 1)
     return np.cumsum(ptr).astype(np.int32), cols.astype(np.int32)
+
+
+# the cluster sizes K2 takes (ops/fitness.py batch_penalty_kernel)
+K2_CLUSTERS = (1, 2, 4, 8)
+
+
+def stu_split_of(stu_ptr: np.ndarray) -> list:
+    """K2's students split over CS CTAs, for each CS in K2_CLUSTERS: rank
+    c takes the students from the first whose CSR entries start at or
+    after ceil(c * nnz / CS), so every rank gets about nnz / CS entries
+    (at most that plus one student's); returned flat, each CS's CS + 1
+    student boundaries then their CS + 1 entry boundaries."""
+    stu_ptr = np.asarray(stu_ptr, dtype=np.int64)
+    S, nnz = len(stu_ptr) - 1, int(stu_ptr[-1])
+    out = []
+    for cs in K2_CLUSTERS:
+        bounds = [0] + [int(np.searchsorted(stu_ptr, -(-c * nnz // cs)))
+                        for c in range(1, cs)] + [S]
+        out += bounds + [int(stu_ptr[b]) for b in bounds]
+    return out
 
 
 def make_problem_arrays(attends, conflict, possible, student_count,
@@ -218,6 +242,7 @@ def make_problem_arrays(attends, conflict, possible, student_count,
         stu_ptr=t(stu_ptr, torch.int32), stu_ev=t(stu_ev, torch.int32),
         ev_ptr=t(ev_ptr, torch.int32), ev_stu=t(ev_stu, torch.int32),
         max_ev_students=int(np.diff(ev_ptr).max()) if E else 0,
+        stu_split=torch.tensor(stu_split_of(stu_ptr), dtype=torch.int32),
         anchored=bool(np.any(np.asarray(anchor_w) != 0)),
     )
 
