@@ -29,7 +29,12 @@
    step printed per shape);
    K8 (the random-candidate local search, -p 2: 125 rounds of 8) at P =
    10 and 256, its pre-pass also on tied uniforms (the chain timed on
-   the pre-pass's events, each entry point on its own); K10 (LAHC) at
+   the pre-pass's events, each entry point on its own; the pre-pass also
+   against torch.topk and the stable torch.sort, its library times);
+   K12 (the full-evaluation search, -p 1: 25 rounds of 8, fed by K8's
+   pre-pass) at P = 10 and 256 and at K = 12 > its 8 CTAs, from random
+   and feasible starts, its terms also against batch_penalty_plain of
+   its rows, and on one individual (its chain's floor); K10 (LAHC) at
    4 and 64 walkers, K = 1 and 16 candidates, history 5 and 5000; K11
    (NSGA-II ranks and survivors) at island sizes 8, 20, 32 and 512 with
    duplicate objectives; on fixtures/comp05s.tim
@@ -39,8 +44,9 @@
    mixed, and K9 on the children, K6 and K11 timed at both pops; K5, K8
    and K10 from random starts and from feasible ones (the planted
    witness, a few events moved), and on one individual (their chains'
-   floor); then K2's and K7's phase counters (k5_phases, each
-   instrumented kernel checked equal to the regular one);
+   floor); then K2's, K7's, K8's pre-pass's and K12's phase counters
+   (k5_phases, each instrumented kernel checked equal to the regular
+   one);
 3. drives five paths through `timetabling_ga_tpu_torch.cli`, seed 42,
    each with the launch counters zeroed just before and read just after:
    on comp01s the main path (size-tuned defaults, -t 60), the
@@ -51,11 +57,13 @@
    --rooms-mode parallel`, -t 20). Each stream is checked (per-island
    best non-increasing, solution and runEntry records, a feasible
    reported timetable re-scores to its reported best), and so is which
-   kernels each path launched (PATH_KERNELS; the reference path launches
-   K2 only for its initial population and its kicks);
+   kernels each path launched (PATH_KERNELS; the reference and
+   full-eval paths launch K2 only for their initial population and
+   their kicks, and K6's relocation entry only for their kicks);
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
-   generation, one kick, one LAHC launch and two NSGA-II generations,
+   generation, one full-eval generation, one kick, one LAHC launch and
+   two NSGA-II generations,
    repair and post phase (launches, device idle share, device time per
    launch of each kernel);
 5. prints one line per kernel, the {"kernels": [...]} summary and, last,
@@ -163,7 +171,7 @@ KERNELS = {
     "breed": ("timetabling_ga_tpu_torch/csrc/breed.cu",
               "timetabling_ga_tpu/ops/ga.py:168", "main"),
     "relocate": ("timetabling_ga_tpu_torch/csrc/breed.cu",
-                 "timetabling_ga_tpu/ops/moves.py:174", "full-eval"),
+                 "timetabling_ga_tpu/ops/moves.py:174", "main"),
     "survivors": ("timetabling_ga_tpu_torch/csrc/survivors.cu",
                   "timetabling_ga_tpu/ops/ga.py:290", "main"),
     "migrate": ("timetabling_ga_tpu_torch/csrc/survivors.cu",
@@ -172,6 +180,9 @@ KERNELS = {
                          "timetabling_ga_tpu/ops/moves.py:128", "reference"),
     "random_ls": ("timetabling_ga_tpu_torch/csrc/random_ls.cu",
                   "timetabling_ga_tpu/ops/delta.py:212", "reference"),
+    "full_eval_ls": ("timetabling_ga_tpu_torch/csrc/full_eval_ls.cu",
+                     "timetabling_ga_tpu/ops/local_search.py:40",
+                     "full-eval"),
     "parallel_rooms": ("timetabling_ga_tpu_torch/csrc/parallel_rooms.cu",
                        "timetabling_ga_tpu/ops/rooms.py:304", "nsga"),
     "lahc": ("timetabling_ga_tpu_torch/csrc/lahc.cu",
@@ -187,37 +198,41 @@ BODY_RUNS_IN = {"move1_sweep": "sweep_pass",
                 "delta_one": "sweep_pass, random_ls, lahc",
                 "parallel_rooms": "breed"}
 # per path: the kernels it must launch at least once a generation, at
-# least once, and never. K6 scores its children and K8 the rows its search
-# returns, so the reference path launches K2 only for the initial
-# population (and for each kick's re-evaluation): K2_ONLY_AT_INIT
+# least once, and never. K6 scores its children, K8 the rows its search
+# returns and K12 carries the evaluations it accepts, so the reference
+# and full-eval paths launch K2 only for the initial population (and for
+# each kick's re-evaluation), and K6's relocation entry only for kicks:
+# K2_ONLY_AT_INIT
 PER_GEN = ("breed", "survivors", "batch_penalty")
 SEARCH_MODES = ("lahc", "nsga_rank", "nsga_survivors", "parallel_rooms")
 K8 = ("random_ls_events", "random_ls")
+LS = K8 + ("full_eval_ls",)
 PATH_KERNELS = {
     "main": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
-             ("move1_sweep", "delta_one") + K8 + SEARCH_MODES),
+             ("move1_sweep", "delta_one") + LS + SEARCH_MODES),
     "reference": (("breed", "survivors") + K8,
                   ("assign_rooms", "batch_penalty"),
-                  ("move1_sweep", "delta_one", "sweep_pass")
+                  ("move1_sweep", "delta_one", "sweep_pass", "full_eval_ls")
                   + SEARCH_MODES),
-    "full-eval": (PER_GEN + ("relocate",), ("assign_rooms",),
-                  ("move1_sweep", "delta_one", "sweep_pass") + K8
+    "full-eval": (("breed", "survivors", "random_ls_events",
+                   "full_eval_ls"), ("assign_rooms", "batch_penalty"),
+                  ("move1_sweep", "delta_one", "sweep_pass", "random_ls")
                   + SEARCH_MODES),
     # comp01s is feasible inside the initial polish, so the LAHC walkers
     # take the whole budget after it
     "lahc": ((), ("assign_rooms", "sweep_pass", "batch_penalty", "lahc"),
-             ("move1_sweep", "delta_one") + K8
+             ("move1_sweep", "delta_one") + LS
              + ("nsga_rank", "nsga_survivors", "parallel_rooms")),
     "nsga": (("breed", "nsga_rank", "nsga_survivors", "batch_penalty"),
              ("assign_rooms", "sweep_pass"),
-             ("move1_sweep", "delta_one") + K8 + ("lahc", "parallel_rooms")),
+             ("move1_sweep", "delta_one") + LS + ("lahc", "parallel_rooms")),
 }
-K2_ONLY_AT_INIT = ("reference",)
+K2_ONLY_AT_INIT = ("reference", "full-eval")
 # K2's cluster sizes held against its plain version (None: the wrapper's
 # own choice), at P = 4 (the post phase), 16 (the repair phase) and 256
 K2_CLUSTERS = (None, 1, 2, 4, 8)
 # fused evaluations held against batch_penalty_plain, by kernel
-FUSED_CHECKS = {"breed": 0, "random_ls": 0}
+FUSED_CHECKS = {"breed": 0, "random_ls": 0, "full_eval_ls": 0}
 
 
 class SmokeFailure(Exception):
@@ -1216,12 +1231,13 @@ def device_us_per_launch(fn, kernel, reps=20):
 
 
 def phase_lines(pa, dev):
-    """K2's and K7's phase counters (k5_phases): each instrumented
-    kernel checked equal to the regular one, then its cycles a launch by
-    phase."""
+    """K2's, K7's, K8's pre-pass's and K12's phase counters (k5_phases):
+    each instrumented kernel checked equal to the regular one, then its
+    cycles a launch (a round for K12) by phase."""
     from timetabling_ga_tpu_torch import k5_phases
-    return [json.loads(x) for x in (*k5_phases.k2_lines(pa, dev),
-                                    *k5_phases.k7_lines(pa, dev))]
+    return [json.loads(x) for f in (k5_phases.k2_lines, k5_phases.k7_lines,
+                                    k5_phases.k8e_lines, k5_phases.k12_lines)
+            for x in f(pa, dev)]
 
 
 def random_ls_work(pa, st, draws, events):
@@ -1326,6 +1342,18 @@ def compare_random_ls(pa, dev):
             lambda: delta.random_local_search_plain(pa, draws, st), 1)
         ev_plain_ms = time_ms(lambda: delta.random_ls_events_plain(draws),
                               5)
+        # one PyTorch call each: the stable descending sort is moves.top3
+        # itself (exact, ties included); topk differs only where a row's
+        # top three tie
+        u2 = draws.u.view(-1, E)
+        sort_ms = time_ms(lambda: torch.sort(u2, dim=-1, descending=True,
+                                             stable=True), 5)
+        topk_ms = time_ms(lambda: torch.topk(u2, 3, -1), 10)
+        topk_equal = {tag: bool(torch.equal(
+            torch.topk(d.u.view(-1, E), 3, -1).indices,
+            torch.sort(d.u.view(-1, E), dim=-1, descending=True,
+                       stable=True).indices[:, :3]))
+            for d, tag in ((draws, "random"), (tied, "tied"))}
         one = delta.LSRows(*(x[:1] for x in st))
         d1 = delta.LSDraws(*(x[:, :, :1] for x in draws))
         ms1 = time_ms(lambda: delta.random_ls_chain(pa, d1, one,
@@ -1345,7 +1373,95 @@ def compare_random_ls(pa, dev):
         out[("random_ls_events", P)] = dict(
             ms=ev_ms, plain_ms=ev_plain_ms, max_abs_err=0,
             rows=gc.ls_steps * gc.ls_candidates * P,
-            int_ops=work["random_ls_events"][1], bound_ms=b, bound_by=by)
+            int_ops=work["random_ls_events"][1], bound_ms=b, bound_by=by,
+            library_ms=sort_ms, library="torch.sort(stable=True) (exact)",
+            library_ms_topk=topk_ms, topk_equals_exact=topk_equal)
+    return out
+
+
+def full_eval_work(pa, rows, draws, events):
+    """(bytes, integer operations) of one K12 call: the rows read and
+    written once, the draws (move types, targets, the pre-pass's events)
+    and the problem arrays read once; per round and candidate a
+    relocation (three room argmins) and a full evaluation
+    (penalty_ops). The copy, the exchange and the apply are left out."""
+    n_rounds, K, P = draws.mtype.shape
+    nb = (2 * nbytes(*rows) + nbytes(draws.mtype, draws.t, events)
+          + penalty_bytes(pa) + nbytes(pa.cap_rank, pa.dead))
+    ops = n_rounds * K * P * (penalty_ops(pa)
+                              + 3 * pa.n_rooms * OPS_ROOM_KEY)
+    return nb, ops
+
+
+def compare_full_eval_ls(pa, dev):
+    """K12 against batch_local_search_plain at the full-eval path's
+    shape (-p 1: 25 rounds of 8 candidates, pop 10), at P = 256 and at K
+    = 12 (more candidates than the cluster's 8 CTAs), from random starts
+    and from feasible ones, exactly, its terms also against
+    batch_penalty_plain of its rows; then its chain timed on the
+    pre-pass's events, the plain search, and one individual (the chain's
+    floor)."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import delta, fitness, local_search
+    from timetabling_ga_tpu_torch.ops import rooms
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    gc = engine.build_ga_config(config.parse_args(
+        ["-i", TIM] + PATHS["full-eval"]))
+    E, T = pa.n_events, pa.n_slots
+    out = {}
+    for P, K in ((gc.pop_size, gc.ls_candidates), (256, gc.ls_candidates),
+                 (gc.pop_size, 12)):
+        g = torch.Generator(device=dev).manual_seed(5500 + P + K)
+        slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        st = delta.init_rows(pa, slots, rooms.assign_rooms_plain(pa, slots))
+        draws = delta.make_ls_draws([g], P, gc.ls_steps, K, E, T, gc.p1,
+                                    gc.p2, gc.p3, dev)
+        w = witness_state(pa, P, g)
+        feasible = delta.LSRows(w.slots, w.rooms, w.pen, w.hcv, w.scv)
+        err = 0
+        for start, s0 in (("random", st), ("feasible", feasible)):
+            got = local_search.batch_local_search_kernel(pa, draws, s0)
+            want = local_search.batch_local_search_plain(pa, draws, s0)
+            torch.cuda.synchronize()
+            for gt, wt in zip(got, want):
+                check(gt.shape == wt.shape and gt.dtype == wt.dtype,
+                      f"full_eval_ls P={P} K={K} {start}: kernel output "
+                      f"{tuple(gt.shape)} {gt.dtype} vs plain "
+                      f"{tuple(wt.shape)} {wt.dtype}")
+                err = max(err, int((gt.long() - wt.long()).abs().max()))
+            check(err == 0, f"full_eval_ls P={P} K={K} {start}: kernel "
+                            f"differs from its plain version (max abs err "
+                            f"{err})")
+            full = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
+            check(all(torch.equal(x, y) for x, y in zip(full, got[2:])),
+                  f"full_eval_ls P={P} K={K} {start}: its terms are not "
+                  f"batch_penalty_plain of its rows")
+            FUSED_CHECKS["full_eval_ls"] += 1
+            if start == "random":
+                check(bool((got.pen < s0.pen).all()),
+                      f"full_eval_ls P={P} K={K}: a row did not improve")
+        events = delta.random_ls_events_kernel(draws)
+        ms = time_ms(lambda: local_search.full_eval_ls_chain(
+            pa, draws, st, events), 10)
+        plain_ms = time_ms(
+            lambda: local_search.batch_local_search_plain(pa, draws, st), 1)
+        one = delta.LSRows(*(x[:1] for x in st))
+        d1 = delta.LSDraws(*(x[:, :, :1] for x in draws))
+        ms1 = time_ms(lambda: local_search.full_eval_ls_chain(
+            pa, d1, one, events[:1]), 10)
+        b, by = bound(*full_eval_work(pa, st, draws, events))
+        key = ("full_eval_ls", P) if K == gc.ls_candidates else \
+            ("full_eval_ls", P, K)
+        out[key] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=err, rounds=gc.ls_steps,
+            candidates=K, cluster=local_search.full_eval_cluster(K),
+            chain_floor_ms=ms1, us_per_round=ms1 * 1e3 / gc.ls_steps,
+            us_per_round_of_the_call=ms * 1e3 / gc.ls_steps,
+            smem_bytes=local_search.full_eval_ls_smem_bytes(pa, K),
+            feasible_rows=int((feasible.hcv == 0).sum()),
+            int_ops=full_eval_work(pa, st, draws, events)[1], bound_ms=b,
+            bound_by=by)
     return out
 
 
@@ -1372,6 +1488,8 @@ def profile_phases(pa, pa05, dev):
     post = engine.build_post_config(cfg, repair)
     ref = engine.build_ga_config(config.parse_args(
         ["-i", TIM] + PATHS["reference"]))
+    full = engine.build_ga_config(config.parse_args(
+        ["-i", TIM] + PATHS["full-eval"]))
     cfg05 = config.parse_args(["-i", TIM05] + PATHS["nsga"]
                               ).apply_tuned_defaults(pa05.n_events)
     nsga_cfg = engine.build_ga_config(cfg05)
@@ -1381,7 +1499,8 @@ def profile_phases(pa, pa05, dev):
     windows = [("init", repair.pop_size, "one population init",
                 lambda gens=gens: islands.init_island_population(
                     pa, gens, repair.pop_size))]
-    for name, gacfg in (("repair", repair), ("reference", ref)):
+    for name, gacfg in (("repair", repair), ("reference", ref),
+                        ("full-eval", full)):
         gens = engine.island_generators(dev, 7, 0, 1)
         st = islands.init_island_population(pa, gens, gacfg.pop_size)
         windows.append((name, gacfg.pop_size, "one generation",
@@ -1488,6 +1607,9 @@ def check_path_kernels(name, launches, generations, kicks):
               f"{name} path: batch_penalty launched "
               f"{launches['batch_penalty']} times, more than at the "
               f"initial population and the {kicks} kicks")
+        check(launches["relocate"] <= kicks,
+              f"{name} path: relocate launched {launches['relocate']} "
+              f"times, more than at its {kicks} kicks")
     check(generations > 0 or not per_gen,
           f"{name} path: no generation ran")
     for k in per_gen:
@@ -1604,6 +1726,7 @@ def main() -> int:
     timings.update(compare_batch_penalty(pa, dev))
     timings.update(compare_sweep_pass(pa, pa05, dev))
     timings.update(compare_random_ls(pa, dev))
+    timings.update(compare_full_eval_ls(pa, dev))
     timings.update(compare_lahc(pa, dev))
     compare_nsga(pa, dev)
     nsga_t, nsga_keys, nsga_breed, nsga_cases = compare_nsga_path(pa05, dev)
@@ -1650,15 +1773,20 @@ def main() -> int:
         t = timings[{"sweep_pass": ("repair", 16),
                      "random_ls": ("random_ls", 10),
                      "random_ls_events": ("random_ls_events", 10),
+                     "full_eval_ls": ("full_eval_ls", 10),
                      "lahc": ("lahc", 4, 16, 5000), **nsga_keys
                      }.get(name, (name, 16))]
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[path][name],
                "path": path, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-               "bound_by": t["bound_by"], "library_ms": None}
+               "bound_by": t["bound_by"],
+               "library_ms": t.get("library_ms")}
         if "chain_floor_ms" in t:
             row["chain_floor_ms"] = t["chain_floor_ms"]
+        if "library" in t:
+            row["library"] = t["library"]
+            row["library_ms_topk"] = t["library_ms_topk"]
         if name in BODY_RUNS_IN:
             row["body_runs_in"] = BODY_RUNS_IN[name]
         rows.append(row)

@@ -1,4 +1,4 @@
-"""The CUDA sources of K1-K11, run on the CPU, against their plain
+"""The CUDA sources of K1-K12, run on the CPU, against their plain
 PyTorch versions.
 
 The kernels run only on the card (tests/test_torch_kernels.py, marked
@@ -31,7 +31,7 @@ from tests.test_torch_kernels import (
     _state)
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import (
-    delta, fitness, ga, lahc, moves, nsga, rooms, sweep)
+    delta, fitness, ga, lahc, local_search, moves, nsga, rooms, sweep)
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import (
     make_problem_arrays, random_instance)
@@ -74,7 +74,7 @@ struct emu_block {
     uint64_t lanes[1024];
 };
 inline thread_local emu_dim threadIdx, blockIdx;
-inline emu_dim blockDim;
+inline emu_dim blockDim, gridDim;
 inline thread_local unsigned char* emu_smem;
 inline thread_local emu_block* emu_blk;
 // the thread's cluster: its rank, size, barrier and every block's
@@ -121,7 +121,11 @@ inline int atomicAdd(int* p, int v) {
 inline unsigned atomicOr(unsigned* p, unsigned v) {
     return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }
+inline unsigned atomicAnd(unsigned* p, unsigned v) {
+    return __atomic_fetch_and(p, v, __ATOMIC_SEQ_CST);
+}
 struct alignas(16) int4 { int x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline int atomicMin(int* p, int v) {
     int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
     while (v < old && !__atomic_compare_exchange_n(
@@ -146,6 +150,19 @@ inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r;}
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+// a card of two SMs, one block each
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+    *v = 2;
+    return 0;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
+                                                          size_t) {
+    *n = 1;
+    return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
@@ -154,6 +171,7 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
 inline void emu_run(int grid, int block, size_t smem, int cluster,
                     std::function<void()> body) {
     blockDim = {(unsigned)block, 1, 1};
+    gridDim = {(unsigned)grid, 1, 1};
     for (int c = 0; c < grid / cluster; ++c) {
         std::vector<emu_block> blocks(cluster);
         std::vector<unsigned char*> bases(cluster);
@@ -251,21 +269,26 @@ inline cluster_group this_cluster() { return cluster_group{}; }
 
 # K5 built with 128-thread CTAs (4 warps), which keeps a cluster's
 # std::threads few; K2 built to stage nothing, which runs its
-# global-memory path (a CSR slice and rows too large for shared memory)
+# global-memory path (a CSR slice and rows too large for shared memory),
+# and K12 so too (the conflict bitset and the CSR from global memory)
 K5_SMALL = "sweep_pass_small"
 K2_GLOBAL = "batch_penalty_global"
+K12_GLOBAL = "full_eval_ls_global"
 EMULATED = ("assign_rooms", "batch_penalty", "move1_sweep", "delta_one",
             "sweep_pass", "breed", "survivors", "random_ls",
-            "parallel_rooms", "lahc", "nsga")
+            "parallel_rooms", "lahc", "nsga", "full_eval_ls")
 # the block-per-row kernels built with two warps a block (their thread
 # counts are macros), which keeps the std::threads few and gives each
 # warp several slots or candidates; K8 with room for 48 bytes of events
 # (two rounds of 4 candidates), so that its rounds cross chunks; K2 with
-# 128-thread CTAs, as K5's cluster tests take them; K7 with two warps
+# 128-thread CTAs, as K5's cluster tests take them; K7 with two warps;
+# K12 with two-warp CTAs and room for 112 bytes of draws (one to four
+# rounds at K = 5 to 2), so that its rounds cross chunks
 SMALL = {"assign_rooms": ["-DK1_THREADS=64"], "breed": ["-DK6_THREADS=64"],
          "random_ls": ["-DK8_MAX_WARPS=2", "-DK8_EVENT_BYTES=48"],
          "batch_penalty": ["-DK2_THREADS=128"],
-         "survivors": ["-DK7_THREADS=64"]}
+         "survivors": ["-DK7_THREADS=64"],
+         "full_eval_ls": ["-DK12_THREADS=64", "-DK12_CHUNK_BYTES=112"]}
 
 
 def _for_the_cpu(src: str) -> str:
@@ -298,6 +321,8 @@ def emulated(tmp_path_factory):
     builds[K5_SMALL] = ("sweep_pass", ["-DK5_THREADS=128"])
     builds[K2_GLOBAL] = ("batch_penalty",
                          SMALL["batch_penalty"] + ["-DK2_STAGE_LIMIT=0"])
+    builds[K12_GLOBAL] = ("full_eval_ls",
+                          SMALL["full_eval_ls"] + ["-DK12_STAGE_LIMIT=0"])
     procs = {n: subprocess.Popen(
         [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
          f"-I{d}", *flags, "-o", str(d / f"{n}.so"), str(d / f"{src}.cu"),
@@ -313,6 +338,8 @@ def emulated(tmp_path_factory):
     kernels._LIBS[K5_SMALL] = kernels.load("sweep_pass", d / f"{K5_SMALL}.so")
     kernels._LIBS[K2_GLOBAL] = kernels.load("batch_penalty",
                                             d / f"{K2_GLOBAL}.so")
+    kernels._LIBS[K12_GLOBAL] = kernels.load("full_eval_ls",
+                                             d / f"{K12_GLOBAL}.so")
 
     def launch(name, *args):
         kernels.LAUNCHES[name] += 1
@@ -503,12 +530,45 @@ def test_k1_k6_sources_match_degenerate_buckets(emulated, inst):
     assert all(torch.equal(w, g) for w, g in zip(want, got))
 
 
+def _event_draws(P, n_rounds, K, E, offset, seed):
+    """LSDraws whose uniforms (n_rounds, K, P, E) start `offset` floats
+    into their buffer (off a 16-byte boundary when offset % 4 != 0); the
+    pre-pass reads only the uniforms."""
+    g = torch.Generator().manual_seed(seed)
+    n = n_rounds * K * P
+    buf = torch.rand(offset + n * E, generator=g)
+    z = torch.zeros((n_rounds, K, P), dtype=torch.int32)
+    return delta.LSDraws(z, buf[offset:].view(n_rounds, K, P, E), z)
+
+
+def _tied_top3(draws):
+    """Every row's top three tied at 2.0 at indices spread over lanes,
+    the body and the last floats, and row 0 with its largest tied at
+    3.0 twice and its third tied with a later index."""
+    u = draws.u.clone()
+    E = u.shape[-1]
+    for i in (E - 1, 33 % E, 2):
+        u[..., i] = 2.0
+    u.view(-1, E)[0, [40 % E, 5 % E]] = 3.0
+    u.view(-1, E)[0, E - 2] = 2.0
+    return draws._replace(u=u)
+
+
 @pytest.mark.parametrize("P,n_rounds,K", [(3, 2, 4), (1, 1, 1), (2, 3, 5)])
 def test_k8_events_source_equals_plain(emulated, P, n_rounds, K):
-    """K8's pre-pass on every draw row, with ties among the uniforms."""
+    """K8's pre-pass (one streaming pass, a top 3 a lane, a warp merge)
+    on every draw row, odd row counts included: with ties among the
+    uniforms (a few distinct values; rows whose top three tie), at E = 80
+    and E = 83 (not a multiple of 4) and on rows that start off a 16-byte
+    boundary, so the scalar head and tail and the float4 body all run."""
     pa = _instances("cpu")[1]
     draws = _ls_draws(pa, "cpu", P, n_rounds, K, 60 + K)
-    for d in (draws, draws._replace(u=(draws.u * 4).floor() / 4)):
+    cases = [draws, draws._replace(u=(draws.u * 4).floor() / 4),
+             _tied_top3(draws)]
+    for E, offset in ((83, 0), (80, 1), (83, 3), (5, 2)):
+        d = _event_draws(P, n_rounds, K, E, offset, 70 + E + offset)
+        cases += [d, _tied_top3(d)]
+    for d in cases:
         kernels.reset_launches()
         assert torch.equal(delta.random_ls_events_kernel(d),
                            delta.random_ls_events_plain(d))
@@ -737,3 +797,43 @@ def test_k11_sources_equal_plain(emulated, L, pop, spread):
         got = nsga.survivors_kernel(par, ch, L, keep)
         want = nsga.survivors_plain(par, ch, L, keep)
         assert all(torch.equal(w, x) for w, x in zip(want, got))
+
+
+# (instance, K, cluster): the ITC-like, medium, padded and anchored
+# instances; K <= CS (a candidate a CTA) and K > CS (a CTA takes several)
+K12_CASES = [(1, 2, None), (2, 4, 4), (3, 5, 2), (0, 3, 1), (2, 3, 2)]
+
+
+@pytest.mark.parametrize("inst,K,cluster", K12_CASES)
+def test_k12_source_equals_plain(emulated, inst, K, cluster):
+    """K12 (fed by K8's pre-pass) as clusters of 1, 2 and 4 two-warp
+    CTAs, each CTA its candidates' relocations and full evaluations and
+    the choice exchanged through the others' shared memory, equals
+    batch_local_search_plain in rows and penalty terms; the terms are a
+    full evaluation of the rows it wrote."""
+    pa = _instances("cpu")[inst]
+    rows = delta.init_rows(pa, *_state(pa, 3, 500 + inst)[:2])
+    draws = _ls_draws(pa, "cpu", 3, 4, K, 510 + inst)
+    kernels.reset_launches()
+    got = local_search.batch_local_search_kernel(pa, draws, rows, cluster)
+    want = local_search.batch_local_search_plain(pa, draws, rows)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    assert kernels.LAUNCHES["random_ls_events"] == 1
+    assert kernels.LAUNCHES["full_eval_ls"] == 1
+    assert not torch.equal(got.slots, rows.slots)
+    full = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
+    assert all(torch.equal(w, g) for w, g in zip(full, got[2:]))
+
+
+def test_k12_global_memory_path_equals_plain(emulated, monkeypatch):
+    """K12 built to stage nothing reads the conflict bitset and the CSR
+    from global memory, as it does where they do not fit in shared
+    memory, and equals batch_local_search_plain."""
+    monkeypatch.setitem(kernels._LIBS, "full_eval_ls",
+                        kernels._LIBS[K12_GLOBAL])
+    pa = _instances("cpu")[3]
+    rows = delta.init_rows(pa, *_state(pa, 2, 520)[:2])
+    draws = _ls_draws(pa, "cpu", 2, 3, 3, 521)
+    got = local_search.batch_local_search_kernel(pa, draws, rows, 3)
+    want = local_search.batch_local_search_plain(pa, draws, rows)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))

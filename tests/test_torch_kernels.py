@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K11 against their plain PyTorch versions.
+"""The CUDA kernels K1-K12 against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package and needs no conftest
 fixture, so it also runs on a machine with the card but without JAX:
@@ -508,6 +508,69 @@ def test_k8_events_pre_pass_and_chunks_equal_plain(cuda):
     assert all(torch.equal(w, g) for w, g in zip(want, got))
 
 
+def _offset_uniforms(draws, E, offset, seed):
+    """`draws` with uniforms of width E that start `offset` floats into
+    their buffer (off a 16-byte boundary when offset % 4 != 0)."""
+    n_rounds, K, P = draws.mtype.shape
+    g = torch.Generator(device=draws.u.device).manual_seed(seed)
+    buf = torch.rand(offset + n_rounds * K * P * E, generator=g,
+                     device=draws.u.device)
+    return draws._replace(u=buf[offset:].view(n_rounds, K, P, E))
+
+
+@pytest.mark.cuda
+def test_k8_events_pre_pass_on_unaligned_rows_and_tied_top3(cuda):
+    """K8's pre-pass (one streaming pass: float4 bodies, scalar heads and
+    tails) equals its plain version at E = 400, 397 and 7, on rows that
+    start off a 16-byte boundary, and where a row's top three tie."""
+    pa = _instances(cuda)[0]
+    base = _ls_draws(pa, cuda, 10, 25, 8, 98)
+    for E, offset in ((400, 0), (400, 1), (397, 0), (397, 2), (7, 3)):
+        d = _offset_uniforms(base, E, offset, 99 + E + offset)
+        u = d.u.clone()
+        for i in (E - 1, 33 % E, 2):
+            u[..., i] = 2.0
+        for x in (d, d._replace(u=u), d._replace(u=(d.u * 8).floor() / 8)):
+            assert torch.equal(delta.random_ls_events_kernel(x),
+                               delta.random_ls_events_plain(x))
+
+
+@pytest.mark.cuda
+def test_k12_full_eval_ls_equals_plain(cuda):
+    """K12 (K8's pre-pass, then one launch) equals
+    batch_local_search_plain in rows and penalty terms, at K = 8 (a
+    candidate a CTA), 3 and 12 (K > CS: a CTA takes several), at the
+    wrapper's cluster size and at 1 and 2; its terms are a full
+    evaluation of its rows."""
+    for i, pa in enumerate(_instances(cuda)):
+        rows = delta.init_rows(pa, *_state(pa, 6, 600 + i)[:2])
+        for K in (8, 3, 12):
+            draws = _ls_draws(pa, cuda, 6, 5, K, 610 + i)
+            want = local_search.batch_local_search_plain(pa, draws, rows)
+            for cs in (None, 1, 2):
+                kernels.reset_launches()
+                got = local_search.batch_local_search_kernel(pa, draws,
+                                                             rows, cs)
+                assert kernels.LAUNCHES["full_eval_ls"] == 1
+                assert kernels.LAUNCHES["random_ls_events"] == 1
+                assert all(torch.equal(w, g) for w, g in zip(want, got))
+            full = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
+            assert all(torch.equal(w, g) for w, g in zip(full, got[2:]))
+
+
+@pytest.mark.cuda
+def test_k12_shared_memory_count_matches_the_kernel(cuda):
+    kernels.build()
+    fn = kernels._LIBS["full_eval_ls"][0].tt_full_eval_ls_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_int
+    for pa in _instances(cuda):
+        for K in (1, 8, 40):
+            assert fn(pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots, K,
+                      pa.conflict_bits.shape[1], pa.stu_ev.numel()) == \
+                local_search.full_eval_ls_smem_bytes(pa, K)
+
+
 @pytest.mark.cuda
 def test_k8_shared_memory_count_matches_the_kernel(cuda):
     kernels.build()
@@ -663,6 +726,38 @@ def test_random_ls_smem_bytes_at_comp01s():
     assert delta.random_ls_smem_bytes(pa, 8) == 60_624
 
 
+def test_full_eval_ls_smem_bytes_at_comp01s():
+    """K12's shared memory per CTA on comp01s at K = 8: the current row
+    and its candidate copy 14,704 (slots and rooms 3,200, int32
+    occupancy 1,800, slot bitsets 2,352, each twice), reduction scratch
+    256, two inboxes 1,024, a chunk of 109 rounds' draws 12,208, the
+    per-event arrays 10,400 (four of 1,600 and the suitable rooms'
+    4,000), the conflict bits 20,800 and the students' CSR 11,104."""
+    pa = load_tim_file(COMP01S).device_arrays()
+    assert local_search.full_eval_ls_smem_bytes(pa, 8) == 70_496
+
+
+def test_full_eval_ls_refuses_before_it_launches(monkeypatch):
+    """K12's wrapper refuses a cluster outside 1..min(K, 8) and a state
+    above the shared-memory limit before anything launches; within them
+    it gets as far as the CPU tensor the kernel cannot take."""
+    pa = load_tim_file(COMP01S).device_arrays()
+    rows = delta.init_rows(pa, *_state(pa, 2, 1)[:2])
+    draws = _ls_draws(pa, "cpu", 2, 2, 4, 3)
+    ev = delta.random_ls_events_plain(draws)
+    kernels.reset_launches()
+    for cs in (0, 5, 9):
+        with pytest.raises(ValueError, match="cluster"):
+            local_search.full_eval_ls_chain(pa, draws, rows, ev, cs)
+    with pytest.raises(ValueError, match="CUDA device"):
+        local_search.full_eval_ls_chain(pa, draws, rows, ev, 4)
+    monkeypatch.setattr(local_search, "full_eval_ls_smem_bytes",
+                        lambda pa, K: kernels.SMEM_LIMIT + 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        local_search.full_eval_ls_chain(pa, draws, rows, ev)
+    assert sum(kernels.LAUNCHES.values()) == 0
+
+
 def test_lahc_smem_bytes_at_comp01s():
     """K10's shared memory per walker on comp01s at K = 16: slots, rooms
     and the best snapshot's 6,400, candidates 768, scalars 128, the
@@ -784,6 +879,7 @@ def test_library_paths_are_keyed_by_source_hash():
     assert kernels.SOURCES["breed"] == ["breed", "relocate"]
     assert kernels.SOURCES["survivors"] == ["survivors", "migrate"]
     assert kernels.SOURCES["random_ls"] == ["random_ls_events", "random_ls"]
+    assert kernels.SOURCES["full_eval_ls"] == ["full_eval_ls"]
     assert kernels.SOURCES["nsga"] == ["nsga_rank", "nsga_survivors"]
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     # every local header a source includes is part of its key
@@ -795,6 +891,8 @@ def test_library_paths_are_keyed_by_source_hash():
     assert [p.name for p in kernels._sources("random_ls")] == [
         "random_ls.cu", "penalty_dev.cuh", "sweep_dev.cuh", "rooms_dev.cuh",
         "common.cuh"]
+    assert [p.name for p in kernels._sources("full_eval_ls")] == [
+        "full_eval_ls.cu", "penalty_dev.cuh", "rooms_dev.cuh", "common.cuh"]
     assert [p.name for p in kernels._sources("breed")] == [
         "breed.cu", "penalty_dev.cuh", "rooms_dev.cuh", "common.cuh"]
     assert [p.name for p in kernels._sources("batch_penalty")] == [

@@ -1,8 +1,9 @@
 """The port's random-candidate local search — the delta-scored form
 (timetabling_ga_tpu_torch/ops/delta.py `batch_local_search_delta`,
 kernel K8's plain version on the CPU) and the full re-evaluation form
-(ops/local_search.py) — against the JAX package's, exactly, under the
-draws of the JAX key tree, and against each other."""
+(ops/local_search.py `batch_local_search`, kernel K12's plain version on
+the CPU) — against the JAX package's, exactly, under the draws of the JAX
+key tree, and against each other."""
 
 import dataclasses
 
@@ -75,7 +76,8 @@ def test_delta_and_full_eval_agree_on_torch_draws(medium_problem):
     assert tuple(draws.u.shape) == (5, 6, 4, medium_problem.n_events)
     a = tdelta.batch_local_search_delta(tpa, draws, t32(slots), t32(rooms))
     b = tls.batch_local_search(tpa, draws, t32(slots), t32(rooms))
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_random_local_search_on_cpu_is_the_plain_version(case):
@@ -110,5 +112,28 @@ def test_random_local_search_terms_match_jax_batch_penalty(case):
         jpa, jnp.asarray(slots), jnp.asarray(rooms)))
     again = tdelta.batch_local_search_delta(tpa, draws, t32(slots),
                                             t32(rooms), scores)
+    for w, g in zip(got, again):
+        assert torch.equal(w, g)
+
+
+def test_full_eval_terms_match_jax_batch_penalty(case):
+    """The penalty terms the full-evaluation search returns with its rows
+    (K12's carried evaluations on the card, the plain version's here)
+    equal JAX batch_penalty of those rows; starting it from the rows'
+    scores gives the same result, and on the CPU it is the plain version
+    (no launch)."""
+    from timetabling_ga_tpu.ops import fitness as jfit
+    _, jpa, tpa, slots, rooms, _, draws = case
+    kernels.reset_launches()
+    got = tls.batch_local_search(tpa, draws, t32(slots), t32(rooms))
+    assert sum(kernels.LAUNCHES.values()) == 0
+    want = jfit.batch_penalty(jpa, jnp.asarray(got.slots.numpy()),
+                              jnp.asarray(got.rooms.numpy()))
+    for w, g in zip(want, got[2:]):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    scores = tuple(torch.tensor(np.asarray(x)) for x in jfit.batch_penalty(
+        jpa, jnp.asarray(slots), jnp.asarray(rooms)))
+    again = tls.batch_local_search(tpa, draws, t32(slots), t32(rooms),
+                                   scores)
     for w, g in zip(got, again):
         assert torch.equal(w, g)

@@ -1,6 +1,7 @@
 // Device body of the full evaluation (fitness.batch_penalty), shared by
 // K2's own launch (batch_penalty.cu), the epilogue of K6's breeding
-// (breed.cu) and the epilogue of K8's chain (random_ls.cu).
+// (breed.cu), the epilogue of K8's chain (random_ls.cu) and every
+// candidate of K12's search (full_eval_ls.cu).
 //
 // It scores one individual whose slots and rooms are already in shared
 // memory, from what the caller holds there, in four integer sums:
@@ -20,8 +21,8 @@
 // Every part takes a range of its items (cells, events, (event, word)
 // pairs, students) and the block's threads stride over it, so that a
 // cluster's CTAs can split an individual (K2) and a single block can
-// take all of it (K6, K8). The students' masks come from a CSR walk
-// (tt_pen_students_csr: K2 with its slice staged in shared memory by
+// take all of it (K6, K8, K12). The students' masks come from a CSR walk
+// (tt_pen_students_csr: K2 and K12 with it staged in shared memory by
 // cp.async, K6 from global memory) or from the amask bitset K5/K8/K10 keep
 // (tt_pen_students_amask). The four sums are reduced in one pass
 // (tt_pen_block_reduce: warp shuffles on the four at once, one barrier,

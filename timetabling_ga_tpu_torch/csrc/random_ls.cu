@@ -16,19 +16,24 @@
 // the draws (K uniform rows of E floats a round) once, by the pre-pass.
 //
 // Design, in two entry points:
-//   - random_ls_events (the pre-pass): sample_move's events are the top
-//     3 of each candidate's uniforms (moves.py:128, lax.top_k of iid
-//     draws), a pure function of the draws, so they are known before
-//     round 0. One warp per (round, candidate, individual) row over all
-//     SMs takes them (rooms_dev.cuh tt_top3_warp: largest first, ties to
-//     the lower index) and writes them as int16, (P, n_rounds, K, 3),
-//     each individual's contiguous. The phase counters of the previous
-//     design (k5_phases) put the draw read and top-3 at 23% of a round
-//     on the chain, ~5,600 cycles. A prologue inside the chain's block
-//     would leave those 1,000 scans (-p 2) to its 8 warps, serially; a
-//     launch of its own spreads them over every SM, and the 16 MB of
-//     uniforms at P = 10 stream at the card's bandwidth (24 us against
-//     the chain's 0.62 ms on an H100 SXM at 700 W).
+//   - random_ls_events (the pre-pass; it also feeds K12,
+//     full_eval_ls.cu): sample_move's events are the top 3 of each
+//     candidate's uniforms (moves.py:128, lax.top_k of iid draws), a
+//     pure function of the draws, so they are known before round 0. It
+//     is bound by bytes: it reads every uniform once (16 MB at P = 10,
+//     -p 2) and writes 6 bytes a row, but its compares, merge and store
+//     cost instructions a row too. A grid as large as the card holds at
+//     once strides over groups of four rows, a warp a group at a time, 8
+//     lanes a row; a lane issues all its loads of its row before any
+//     compare: 16-byte loads for the aligned body (scalar ones for the 0-3
+//     floats before and after it), each row read once. Each lane keeps a
+//     sorted top 3 of (value, index) in registers; three argmax rounds
+//     over its row's 8 lanes' heads merge them (largest first, ties to
+//     the lower index; the winning lane pops), for the four rows at once,
+//     and one store writes them. The events go out as int16, (P, n_rounds,
+//     K, 3), each individual's contiguous. (The earlier body,
+//     rooms_dev.cuh tt_top3_warp, made three passes of 4-byte loads,
+//     each ending in a dependent shuffle argmax.)
 //   - random_ls (the chain): one block per individual for the whole
 //     call, one warp per candidate (a warp takes several when K >
 //     K8_MAX_WARPS). The prologue loads the slots, rooms and, when it
@@ -73,7 +78,12 @@
 #ifndef K8_EVENT_BYTES
 #define K8_EVENT_BYTES 12288
 #endif
-#define K8E_WARPS 8
+// the pre-pass: warps a block, lanes a draw row, and float4 loads a lane
+// keeps in flight (a row of up to 4 x K8E_LANES x K8E_VEC + 6 floats in
+// one batch: 518 at these sizes, every ITC-2002 instance)
+#define K8E_WARPS 4
+#define K8E_LANES 8
+#define K8E_VEC 16
 
 struct K8Smem {
     unsigned slots, rooms, cand, amask, slot_ev, occ, att, events, eval,
@@ -128,19 +138,133 @@ struct K8Args {
     K8Smem lay;
 };
 
+// One (value, index) into a lane's sorted top 3. A lane visits its
+// indices in increasing order, so a later equal value never displaces an
+// earlier one and a strict compare keeps lax.top_k's tie order.
+__device__ __forceinline__ void k8e_push(float v, int i, float* tv,
+                                         int* ti) {
+    if (v > tv[2]) {
+        if (v > tv[1]) {
+            tv[2] = tv[1];
+            ti[2] = ti[1];
+            if (v > tv[0]) {
+                tv[1] = tv[0];
+                ti[1] = ti[0];
+                tv[0] = v;
+                ti[0] = i;
+            } else {
+                tv[1] = v;
+                ti[1] = i;
+            }
+        } else {
+            tv[2] = v;
+            ti[2] = i;
+        }
+    }
+}
+
+// A row's top 3 from its K8E_LANES lanes' sorted lists: three argmax
+// rounds over the lanes' heads (greater value, then lower index), the
+// winning lane popping its head. Every lane of the group returns them.
+__device__ __forceinline__ void k8e_merge(float* tv, int* ti, int ev[3]) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        float bv = tv[0];
+        int bi = ti[0];
+#pragma unroll
+        for (int off = K8E_LANES / 2; off > 0; off >>= 1) {
+            const float v2 = __shfl_xor_sync(TT_FULL_MASK, bv, off);
+            const int i2 = __shfl_xor_sync(TT_FULL_MASK, bi, off);
+            if (v2 > bv || (v2 == bv && i2 < bi)) {
+                bv = v2;
+                bi = i2;
+            }
+        }
+        ev[k] = bi;
+        if (ti[0] == bi) {
+            tv[0] = tv[1];
+            ti[0] = ti[1];
+            tv[1] = tv[2];
+            ti[1] = ti[2];
+            tv[2] = __int_as_float(0xff800000);   // -inf
+            ti[2] = 0x7fffffff;
+        }
+    }
+}
+
+// Warps stride over groups of 32 / K8E_LANES consecutive draw rows (a
+// grid as large as the card holds at once, so no wave of blocks waits for
+// another), K8E_LANES lanes a row. A lane loads its share of its row in
+// one batch before any compare: of the row's first 0-3 floats up to a
+// 16-byte boundary and its last 0-3 (scalar), and of the float4s between
+// (K8E_VEC a lane; a longer row takes more batches). The merge and the
+// store then serve the group's rows at once.
 __global__ void __launch_bounds__(32 * K8E_WARPS)
 random_ls_events_kernel(const float* __restrict__ u,
                         int16_t* __restrict__ events, int P, int E, int K,
                         int n_rounds) {
-    const int lane = threadIdx.x & 31;
-    const size_t q = (size_t)blockIdx.x * K8E_WARPS + (threadIdx.x >> 5);
-    if (q >= (size_t)n_rounds * K * P) return;
-    int ev[3];
-    tt_top3_warp(u + q * E, E, lane, ev);
-    // draw row q = (round * K + c) * P + p -> event row (p, round, c)
-    const size_t p = q % P, rc = q / P;
-    if (lane < 3)
-        events[(p * n_rounds * K + rc) * 3 + lane] = (int16_t)ev[lane];
+    constexpr int G = 32 / K8E_LANES;
+    const int lane = threadIdx.x & 31, sub = lane % K8E_LANES;
+    const unsigned rows = (unsigned)n_rounds * K * P;
+    const unsigned groups = (rows + G - 1) / G;
+    const unsigned stride = gridDim.x * K8E_WARPS;
+    const float NEG = __int_as_float(0xff800000);   // -inf
+    TT_PROF_START();
+    for (unsigned g = blockIdx.x * K8E_WARPS + (threadIdx.x >> 5);
+         g < groups; g += stride) {
+        const unsigned q = g * G + lane / K8E_LANES;
+        const bool ok = q < rows;
+        const float* row = u + (size_t)(ok ? q : 0) * E;
+        const unsigned mis = (unsigned)(uintptr_t)row & 15u;
+        const int head = ok ? min(E, (int)(((16u - mis) & 15u) >> 2)) : 0;
+        const int nv = ok ? (E - head) >> 2 : 0;
+        const int t0 = head + 4 * nv;
+        const float hx = sub < head ? row[sub] : NEG;
+        const float tx = ok && sub < E - t0 ? row[t0 + sub] : NEG;
+        const float4* r4 = (const float4*)(row + head);
+        float tv[3] = {NEG, NEG, NEG};
+        int ti[3] = {0x7fffffff, 0x7fffffff, 0x7fffffff};
+        if (sub < head) k8e_push(hx, sub, tv, ti);
+        for (int b = 0; b < nv; b += K8E_LANES * K8E_VEC) {
+            float4 x[K8E_VEC];
+#pragma unroll
+            for (int k = 0; k < K8E_VEC; ++k) {
+                const int i = b + K8E_LANES * k + sub;
+                if (i < nv) x[k] = r4[i];
+            }
+#ifdef TT_K5_PROF
+            // the phase counters' load: until the first float arrives
+            if (b + sub < nv) {
+                float s;
+                asm volatile("mov.b32 %0, %1;" : "=f"(s) : "f"(x[0].x));
+            }
+#endif
+            TT_PROF(12);
+#pragma unroll
+            for (int k = 0; k < K8E_VEC; ++k) {
+                const int i = b + K8E_LANES * k + sub;
+                if (i < nv) {
+                    const int f = head + 4 * i;
+                    k8e_push(x[k].x, f, tv, ti);
+                    k8e_push(x[k].y, f + 1, tv, ti);
+                    k8e_push(x[k].z, f + 2, tv, ti);
+                    k8e_push(x[k].w, f + 3, tv, ti);
+                }
+            }
+        }
+        k8e_push(tx, t0 + sub, tv, ti);
+        TT_PROF(13);
+        int ev[3];
+        k8e_merge(tv, ti, ev);
+        TT_PROF(14);
+        // draw row q = (round * K + c) * P + p -> event row (p, round, c)
+        if (ok && sub < 3) {
+            const unsigned p = q % (unsigned)P, rc = q / (unsigned)P;
+            events[((size_t)p * n_rounds * K + rc) * 3 + sub] =
+                (int16_t)(sub == 0 ? ev[0] : sub == 1 ? ev[1] : ev[2]);
+        }
+        TT_PROF(15);
+    }
 }
 
 __global__ void __launch_bounds__(32 * K8_MAX_WARPS)
@@ -312,8 +436,27 @@ extern "C" int tt_random_ls_events(const float* u, int16_t* events, int P,
     if (P <= 0 || E < 3 || E > 32767 || K <= 0 || n_rounds <= 0)
         return (int)cudaErrorInvalidValue;
     const size_t rows = (size_t)n_rounds * K * P;
-    const size_t grid = (rows + K8E_WARPS - 1) / K8E_WARPS;
-    if (grid > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+    if (rows > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+    // as many blocks as the card holds at once (asked once a device), at
+    // most a block a K8E_WARPS groups of rows
+    static int resident[64];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidValue;
+    if (resident[dev] == 0) {
+        int sms = 0, per_sm = 0;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, random_ls_events_kernel, 32 * K8E_WARPS, 0);
+        if (err != cudaSuccess) return (int)err;
+        resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
+    }
+    const size_t per_block = (size_t)K8E_WARPS * (32 / K8E_LANES);
+    size_t grid = (rows + per_block - 1) / per_block;
+    if (grid > (size_t)resident[dev]) grid = resident[dev];
     random_ls_events_kernel<<<(unsigned)grid, 32 * K8E_WARPS, 0,
                               (cudaStream_t)stream>>>(u, events, P, E, K,
                                                       n_rounds);

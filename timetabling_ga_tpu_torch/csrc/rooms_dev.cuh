@@ -1,6 +1,6 @@
 // Device bodies of the greedy room choice and of moves that re-room,
-// shared by K1 (assign_rooms.cu), K6 (breed.cu), K8 (random_ls.cu) and
-// K10 (lahc.cu).
+// shared by K1 (assign_rooms.cu), K6 (breed.cu), K8 (random_ls.cu), K10
+// (lahc.cu) and K12 (full_eval_ls.cu).
 //
 // A room choice runs on the 32 lanes of one warp, one lane per room
 // (R <= 32), with the individual's slots, rooms and (T, R) occupancy in

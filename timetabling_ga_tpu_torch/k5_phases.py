@@ -1,16 +1,18 @@
-"""Where one K5 sweep pass, one K8 local search, one K2 evaluation and
-one K7 truncation or migration spend their time, on the card.
+"""Where one K5 sweep pass, one K8 local search or its pre-pass, one K12
+full-evaluation search, one K2 evaluation and one K7 truncation or
+migration spend their time, on the card.
 
-    python -m timetabling_ga_tpu_torch.k5_phases [k5] [k8] [k2] [k7]
+    python -m timetabling_ga_tpu_torch.k5_phases [k5] [k8] [k8e] [k12] \
+        [k2] [k7]
 
-(no argument: all four). Builds csrc/sweep_pass.cu, csrc/random_ls.cu,
-csrc/batch_penalty.cu and csrc/survivors.cu once more with their phase
-counters compiled in (-DTT_K5_PROF: block 0's thread 0 reads clock64()
-at each phase boundary, csrc/common.cuh), under
+(no argument: all six). Builds csrc/sweep_pass.cu, csrc/random_ls.cu,
+csrc/full_eval_ls.cu, csrc/batch_penalty.cu and csrc/survivors.cu once
+more with their phase counters compiled in (-DTT_K5_PROF: block 0's
+thread 0 reads clock64() at each phase boundary, csrc/common.cuh), under
 build/torch_kernels/k5_phases/, and checks that each instrumented kernel
 equals the regular one exactly. It prints one JSON line per shape with
 each phase's share of that thread's cycles and its cycles per step (K5),
-per round (K8) or per launch (K2, K7):
+per round (K8, K12) or per launch (K8's pre-pass, K2, K7):
 
 - K5 at the main path's three sweep shapes on fixtures/comp01s.tim —
   the engine's repair pass at P = 16 and 256 individuals, its post pass
@@ -20,6 +22,14 @@ per round (K8) or per launch (K2, K7):
 - K8 at the reference path's shape (`--no-auto-tune -p 2`: P = 10
   individuals, 125 rounds of 8 candidates) from random starts; the
   thread is warp 0's lane 0, which scores candidate 0 of every round;
+- K8's pre-pass (`k8e`) at the same shape (10,000 draw rows of 400
+  uniforms), the mean of 20 launches; the thread is warp 0's lane 0,
+  which takes the first two rows (load: until the first loaded float
+  arrives; local top 3; the warp merge; the store);
+- K12 at the full-eval path's shape (`--no-auto-tune -p 1
+  --ls-full-eval`: P = 10 individuals, 25 rounds of 8 candidates, a
+  cluster of 8 CTAs each) from random starts; the thread is rank 0 of
+  cluster 0, which evaluates candidate 0 of every round;
 - K2 on random comp01s rows at P = 4, 16 and 256, the mean of 20
   launches, at the cluster size its wrapper takes; the thread is rank
   0 of cluster 0;
@@ -76,6 +86,16 @@ K2_PHASES = ("prologue (row + CSR slice load, zero)",
 # counter k of csrc/survivors.cu
 K7_PHASES = ("prologue (the island's keys)", "rank count + barrier",
              "penalty terms", "row copy", "wait for the other threads")
+# counters 12-15 of csrc/random_ls.cu (the pre-pass)
+K8E_PHASES = ("load", "local top-3", "warp merge", "store")
+# counter k of csrc/full_eval_ls.cu
+K12_PHASES = ("prologue (row, conflict bitset + CSR staged, occupancy, "
+              "cluster sync)", "draws chunk load", "candidate copy",
+              "relocate (warp 0) + barrier", "cells + events",
+              "correlation words", "students (staged CSR)",
+              "wait for the other threads", "block reduction + record",
+              "cluster exchange (record stores + cluster barrier)",
+              "choice", "apply", "epilogue")
 REPS = 20
 
 
@@ -166,22 +186,56 @@ def k5_lines(pa, dev):
 
 
 def k8_lines(pa, dev):
-    gc = engine.build_ga_config(config.parse_args(
-        ["-i", str(COMP01S), "--no-auto-tune", "-p", "2"]))
-    E, T, P = pa.n_events, pa.n_slots, gc.pop_size
+    gc, rows, draws = _reference_draws(pa, dev, ["-p", "2"], 5000)
     prof = build_prof("random_ls")
-    g = torch.Generator(device=dev).manual_seed(5000 + P)
+    want, got, cyc = _instrumented("random_ls", prof, lambda: (
+        delta.random_local_search_kernel(pa, draws, rows)))
+    if not all(torch.equal(w, x) for w, x in zip(want, got)):
+        raise RuntimeError("k5_phases: the instrumented K8 differs from K8")
+    yield _line(["K8", "reference", gc.pop_size], gc.ls_steps, "rounds",
+                K8_PHASES, cyc, candidates=gc.ls_candidates)
+
+
+def _reference_draws(pa, dev, flags, seed):
+    """(GA config, random rows, LSDraws) at the CLI shape of `flags`."""
+    gc = engine.build_ga_config(config.parse_args(
+        ["-i", str(COMP01S), "--no-auto-tune"] + flags))
+    E, T, P = pa.n_events, pa.n_slots, gc.pop_size
+    g = torch.Generator(device=dev).manual_seed(seed + P)
     slots = torch.randint(0, T, (P, E), generator=g, device=dev,
                           dtype=torch.int32)
     rows = delta.init_rows(pa, slots, rooms.assign_rooms_plain(pa, slots))
     draws = delta.make_ls_draws([g], P, gc.ls_steps, gc.ls_candidates, E, T,
                                 gc.p1, gc.p2, gc.p3, dev)
-    want, got, cyc = _instrumented("random_ls", prof, lambda: (
-        delta.random_local_search_kernel(pa, draws, rows)))
-    if not all(torch.equal(w, x) for w, x in zip(want, got)):
-        raise RuntimeError("k5_phases: the instrumented K8 differs from K8")
-    yield _line(["K8", "reference", P], gc.ls_steps, "rounds", K8_PHASES,
-                cyc, candidates=gc.ls_candidates)
+    return gc, rows, draws
+
+
+def k8e_lines(pa, dev):
+    gc, _, draws = _reference_draws(pa, dev, ["-p", "2"], 5000)
+    prof = build_prof("random_ls")
+    want, got, cyc = _instrumented("random_ls", prof, _repeated(
+        lambda: delta.random_ls_events_kernel(draws)))
+    if not torch.equal(want, got):
+        raise RuntimeError("k5_phases: the instrumented pre-pass differs "
+                           "from K8's pre-pass")
+    yield _line(["K8 pre-pass", "reference", gc.pop_size], REPS, "launches",
+                K8E_PHASES, cyc[12:16],
+                rows=gc.ls_steps * gc.ls_candidates * gc.pop_size)
+
+
+def k12_lines(pa, dev):
+    from timetabling_ga_tpu_torch.ops import local_search
+    gc, rows, draws = _reference_draws(pa, dev, ["-p", "1",
+                                                 "--ls-full-eval"], 5100)
+    prof = build_prof("full_eval_ls")
+    want, got, cyc = _instrumented("full_eval_ls", prof, lambda: (
+        local_search.batch_local_search_kernel(pa, draws, rows)))
+    if not _equal(want, got):
+        raise RuntimeError("k5_phases: the instrumented K12 differs from "
+                           "K12")
+    yield _line(["K12", "full-eval", gc.pop_size], gc.ls_steps, "rounds",
+                K12_PHASES, cyc, candidates=gc.ls_candidates,
+                cluster=local_search.full_eval_cluster(gc.ls_candidates))
 
 
 def _repeated(fn):
@@ -245,7 +299,8 @@ def k7_lines(pa, dev):
                     E=E)
 
 
-LINES = {"k5": k5_lines, "k8": k8_lines, "k2": k2_lines, "k7": k7_lines}
+LINES = {"k5": k5_lines, "k8": k8_lines, "k8e": k8e_lines,
+         "k12": k12_lines, "k2": k2_lines, "k7": k7_lines}
 
 
 def main() -> int:

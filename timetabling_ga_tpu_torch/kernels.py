@@ -11,7 +11,8 @@ needs no CUDA toolchain.
 
 A source may hold several entry points (K6 `breed.cu`: breed and
 relocate; K7 `survivors.cu`: survivors and migrate; K8 `random_ls.cu`:
-its pre-pass random_ls_events and the chain random_ls; K11 `nsga.cu`:
+its pre-pass random_ls_events, which also feeds K12 `full_eval_ls.cu`,
+and the chain random_ls; K11 `nsga.cu`:
 nsga_rank and nsga_survivors); each has its own name here. Every C entry
 point launches on PyTorch's current stream and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code.
@@ -67,6 +68,8 @@ SIGNATURES = {
                          "random_ls"),
     "random_ls": ("tt_random_ls", [_P] * 26 + [_I] * 11 + [_P],
                   "random_ls"),
+    "full_eval_ls": ("tt_full_eval_ls", [_P] * 23 + [_I] * 12 + [_P],
+                     "full_eval_ls"),
     "parallel_rooms": ("tt_parallel_rooms", [_P] * 7 + [_I] * 5 + [_P],
                        "parallel_rooms"),
     "lahc": ("tt_lahc", [_P] * 29 + [_I] * 11 + [_P], "lahc"),

@@ -4,9 +4,9 @@ Tournament-5 selection by (penalty, scv), uniform crossover with a full
 greedy room rematch, one random move with p_mutation — all of a
 generation's breeding in one launch of kernel K6 (csrc/breed.cu,
 `make_children`) — the local search on every child (the sweep, K5, or
-the random-candidate search, K8 or its full-evaluation twin), full
+the random-candidate search, K8 or its full-evaluation twin K12), full
 evaluation (K6's epilogue scores the children, K8's the delta search's
-rows, K2 the rest) and (mu+lambda) truncation in (penalty, scv) order
+rows, K12 carries its accepted evaluations, K2 scores the sweep's) and (mu+lambda) truncation in (penalty, scv) order
 (kernel K7, csrc/survivors.cu, `survivors`). `make_children_plain` and
 `survivors_plain` are the plain versions.
 
@@ -337,7 +337,8 @@ def local_search(pa, ls_draws, children: LSRows, cfg: GAConfig,
     of the random-candidate search (delta-scored, or by full
     re-evaluation when ls_delta is False), else none. Each search starts
     from the children's scores; returns their rows after it, scored: K8
-    scores the delta search's rows in its epilogue, K2 the others'."""
+    scores the delta search's rows in its epilogue, K12 carries the full
+    evaluations of the rows it accepts, K2 scores the sweep's."""
     slots, rooms = children.slots, children.rooms
     if cfg.ls_mode == "sweep" and cfg.ls_sweeps > 0:
         slots, rooms = sweep_local_search(
@@ -347,11 +348,9 @@ def local_search(pa, ls_draws, children: LSRows, cfg: GAConfig,
             hot_k=cfg.ls_hot_k, p3=cfg.p3, groups=groups,
             scores=children[2:])
     elif cfg.ls_mode != "sweep" and cfg.ls_steps > 0:
-        if cfg.ls_delta:
-            return batch_local_search_delta(pa, ls_draws(0), slots, rooms,
-                                            children[2:])
-        slots, rooms = batch_local_search(pa, ls_draws(0), slots, rooms,
-                                          children.pen)
+        search = (batch_local_search_delta if cfg.ls_delta
+                  else batch_local_search)
+        return search(pa, ls_draws(0), slots, rooms, children[2:])
     else:
         return children
     return init_rows(pa, slots, rooms)
@@ -365,8 +364,8 @@ def generation(pa, draws: BreedDraws, ls_draws, state: PopState,
     — or, under multi_objective, NSGA-II's survivors, penalty-sorted (JAX
     ga.py:221-293). `ls_draws` is the local search's draw function
     (`ls_draws_fn`). On the card the children's evaluations come from K6
-    and, after the delta search, K8; K2 runs only after the sweep and
-    the full-evaluation search."""
+    and, after the random-candidate search, K8 or K12; K2 runs only
+    after the sweep."""
     mo_stats = None
     if cfg.multi_objective:
         mo_stats = nsga.rank_crowd(state.hcv, state.scv, groups)

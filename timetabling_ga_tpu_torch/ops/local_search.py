@@ -1,46 +1,162 @@
 """Random-candidate local search by full re-evaluation (port of
 timetabling_ga_tpu/ops/local_search.py:40, the `--ls-full-eval` form).
 
-Each round applies the K candidate moves of every individual (K6's
-relocation entry, one launch for all K x P rows), evaluates them all
-(K2, one launch), and keeps each individual's first candidate of least
-penalty where it is strictly below its current one. It takes the same
-`LSDraws` as ops/delta.py `batch_local_search_delta` and gives the same
-result; it is the debugging twin of that kernel, a composition of hand
-kernels with no kernel of its own (2 launches plus the choice a round).
+Each round applies K candidate moves to every individual's current row,
+scores each candidate by a full evaluation and keeps the individual's
+first candidate of least penalty where it is strictly below its current
+one. It takes the same `LSDraws` as ops/delta.py
+`batch_local_search_delta` and gives the same rows; it is the
+independent check of that delta-scored search.
+
+`batch_local_search` takes and returns rows as the delta form does
+(`LSRows`: the assignments and their penalty terms, which the search
+carries from the starting terms through every accepted evaluation).
+`batch_local_search_kernel` is the wrapper of kernel K12
+(csrc/full_eval_ls.cu): K8's pre-pass takes every candidate's events,
+then one launch runs every round of every individual
+(`full_eval_ls_chain`); `batch_local_search_plain` is its plain version,
+a Python loop over the rounds.
 """
 
 from __future__ import annotations
 
 import torch
 
+from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import fitness
-from timetabling_ga_tpu_torch.ops.delta import LSDraws
-from timetabling_ga_tpu_torch.ops.moves import MoveDraws, random_move
+from timetabling_ga_tpu_torch.ops.delta import (
+    LSDraws, LSRows, init_rows, random_ls_events_kernel)
+from timetabling_ga_tpu_torch.ops.moves import MoveDraws, random_move_plain
+
+# the largest cluster of CTAs K12 gives an individual
+# (csrc/full_eval_ls.cu K12_MAX_CLUSTER), the bytes of one chunk of
+# rounds' draws in its shared memory (K12_CHUNK_BYTES) and the threads of
+# a CTA (K12_THREADS)
+K12_MAX_CLUSTER = 8
+K12_CHUNK_BYTES = 12288
+K12_THREADS = 512
 
 
-def batch_local_search(pa, draws: LSDraws, slots, rooms, pen=None):
-    """Hill-climb a (P, E) population for draws' n_rounds rounds of K
-    candidates each, from its penalties `pen` where the caller holds them
-    (else K2's); returns the improved (slots, rooms)."""
+def full_eval_cluster(n_candidates: int) -> int:
+    """CTAs K12 gives an individual: one a candidate, at most 8."""
+    return min(n_candidates, K12_MAX_CLUSTER)
+
+
+def full_eval_ls_smem_bytes(pa, n_candidates: int) -> int:
+    """Dynamic shared memory of one K12 CTA, the layout of
+    csrc/full_eval_ls.cu `k12_smem_layout`: the current row and its
+    candidate copy (slots, rooms, int32 occupancy, live slot bitsets),
+    the reduction scratch, two inboxes of 8 records of 16 ints, one
+    chunk of rounds' draws (14 B a candidate) and the per-event problem
+    arrays (live flags, student counts, anchor slots and weights, the
+    suitable rooms), each rounded up to 16 bytes, plus the conflict
+    bitset and the students' CSR when the total still fits in SMEM_LIMIT
+    (else K12 reads them from global memory)."""
+    E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
+    W = pa.conflict_bits.shape[1]
+    K = n_candidates
+    n = max(1, K12_CHUNK_BYTES // (14 * K)) * K
+    parts = (4 * E, 4 * E, 4 * T * R, 4 * T * W) * 2 + (
+        16 * (K12_THREADS // 32), 4 * 2 * K12_MAX_CLUSTER * 16, 6 * n,
+        4 * n, 4 * n, 4 * E, 4 * E, 4 * E, 4 * E, E * R)
+    total = sum(-(-x // 16) * 16 for x in parts)
+    staged = total + sum(-(-x // 16) * 16 for x in (
+        4 * E * W, 4 * (S + 1), 4 * pa.stu_ev.numel()))
+    return staged if staged <= kernels.SMEM_LIMIT else total
+
+
+def batch_local_search_plain(pa, draws: LSDraws, rows: LSRows) -> LSRows:
+    """Plain version of K12: every round's K candidate rows (candidate k
+    of individual p is row k * P + p) by random_move_plain, scored by
+    batch_penalty_plain, the first of least penalty (jnp.argmin) kept
+    where strictly below the individual's (JAX local_search.py:61-82)."""
     n_rounds, K, P = draws.mtype.shape
-    if pen is None:
-        pen, _, _ = fitness.batch_penalty(pa, slots, rooms)
+    slots, rooms, pen, hcv, scv = rows
     ar = torch.arange(P, device=slots.device)
     for r in range(n_rounds):
-        # candidate k of individual p is row k * P + p
         md = MoveDraws(draws.mtype[r].reshape(-1),
                        draws.u[r].reshape(K * P, -1),
                        draws.t[r].reshape(-1))
-        c_slots, c_rooms = random_move(pa, md, slots.repeat(K, 1),
-                                       rooms.repeat(K, 1))
-        c_pen, _, _ = fitness.batch_penalty(pa, c_slots, c_rooms)
-        c_pen = c_pen.reshape(K, P)
+        c_slots, c_rooms = random_move_plain(pa, md, slots.repeat(K, 1),
+                                             rooms.repeat(K, 1))
+        c_pen, c_hcv, c_scv = (x.reshape(K, P) for x in
+                               fitness.batch_penalty_plain(pa, c_slots,
+                                                           c_rooms))
         best = torch.argmin(c_pen, 0)
-        best_pen = c_pen[best, ar]
-        better = best_pen < pen
+        better = c_pen[best, ar] < pen
         row = best * P + ar
         slots = torch.where(better[:, None], c_slots[row], slots)
         rooms = torch.where(better[:, None], c_rooms[row], rooms)
-        pen = torch.where(better, best_pen, pen)
-    return slots, rooms
+        pen, hcv, scv = (torch.where(better, c[best, ar], x) for c, x in (
+            (c_pen, pen), (c_hcv, hcv), (c_scv, scv)))
+    return LSRows(slots, rooms, pen, hcv, scv)
+
+
+def full_eval_ls_chain(pa, draws: LSDraws, rows: LSRows,
+                       events: torch.Tensor, cluster=None) -> LSRows:
+    """K12 on CUDA tensors, given every candidate's events from K8's
+    pre-pass: every round for every individual in one launch, a cluster
+    of `cluster` CTAs an individual (default full_eval_cluster(K); 1 to
+    min(K, 8)). Raises ValueError when a CTA's state does not fit in
+    shared memory; no fallback."""
+    n_rounds, K, P = draws.mtype.shape
+    E = rows.slots.shape[1]
+    cs = full_eval_cluster(K) if cluster is None else cluster
+    if not 1 <= cs <= full_eval_cluster(K):
+        raise ValueError(f"full_eval_ls: a cluster of {cs} CTAs; it takes "
+                         f"1 to {full_eval_cluster(K)} at K = {K}")
+    smem = full_eval_ls_smem_bytes(pa, K)
+    if smem > kernels.SMEM_LIMIT:
+        raise ValueError(
+            f"full_eval_ls: one individual's state needs {smem} bytes of "
+            f"shared memory, more than the {kernels.SMEM_LIMIT} a block "
+            f"can have")
+    if any(x.dtype != torch.int32 for x in rows):
+        raise TypeError("full_eval_ls takes int32 slots, rooms, pen, hcv "
+                        "and scv")
+    if tuple(events.shape) != (P, n_rounds, K, 3) or \
+            events.dtype != torch.int16 or rows.slots.shape[0] != P:
+        raise ValueError("full_eval_ls: the draws do not fit the "
+                         "population")
+    i32 = torch.int32
+    ins = [x.contiguous() for x in rows]
+    dr = [draws.mtype.to(i32).contiguous(), events.contiguous(),
+          draws.t.to(i32).contiguous()]
+    out = LSRows(*(torch.empty_like(x) for x in ins))
+    if P == 0:
+        return out
+    p = kernels.ptr
+    kernels.launch(
+        "full_eval_ls", *(p(x) for x in ins + dr), p(pa.possible_u8),
+        p(pa.cap_rank), p(pa.dead), p(pa.live), p(pa.student_count),
+        p(pa.conflict_bits), p(pa.stu_ptr), p(pa.stu_ev),
+        p(pa.anchor_slots), p(pa.anchor_w), *(p(x) for x in out), P, E,
+        pa.n_rooms, pa.n_students, pa.n_slots, pa.slots_per_day,
+        pa.conflict_bits.shape[1], K, n_rounds, pa.stu_ev.numel(),
+        pa.conflict_diag, cs)
+    return out
+
+
+def batch_local_search_kernel(pa, draws: LSDraws, rows: LSRows,
+                              cluster=None) -> LSRows:
+    """Kernel K12 on CUDA tensors: K8's pre-pass takes every candidate's
+    events, then the chain runs every round of every individual."""
+    n_rounds, K, P = draws.mtype.shape
+    if tuple(draws.u.shape) != (n_rounds, K, P, rows.slots.shape[1]):
+        raise ValueError("full_eval_ls: the draws do not fit the "
+                         "population")
+    return full_eval_ls_chain(pa, draws, rows, random_ls_events_kernel(draws),
+                              cluster)
+
+
+def batch_local_search(pa, draws: LSDraws, slots, rooms,
+                       scores=None) -> LSRows:
+    """Hill-climb a (P, E) population for draws' n_rounds rounds of K
+    candidates each, from its penalty terms `scores` where the caller
+    holds them (else K2's); returns the rows with the terms of their last
+    accepted evaluation. Kernel K12 on CUDA tensors, the plain version
+    on CPU ones."""
+    rows = init_rows(pa, slots, rooms, scores)
+    if not slots.is_cuda:
+        return batch_local_search_plain(pa, draws, rows)
+    return batch_local_search_kernel(pa, draws, rows)

@@ -6,10 +6,10 @@ occupancy grid minus the moved events (rooms.choose_room). Randomness
 comes in as tensors (`MoveDraws`), made by `make_move_draws` from a
 torch.Generator — or, in the tests, from the JAX key tree.
 
-`relocation_chain` (and `random_move`, a chain of one) is the wrapper of
-kernel K6's relocation entry (csrc/breed.cu `tt_relocate`), which
-applies a row's moves in order in one launch; `relocation_chain_plain`
-is its plain version, `sample_move` + `apply_relocation` per move.
+`relocation_chain` is the wrapper of kernel K6's relocation entry
+(csrc/breed.cu `tt_relocate`), which applies a row's moves in order in
+one launch (the kicks'); `relocation_chain_plain` is its plain version,
+`random_move_plain` (`sample_move` + `apply_relocation`) per move.
 """
 
 from __future__ import annotations
@@ -218,10 +218,3 @@ def relocation_chain(pa, draws: MoveDraws, slots, rooms, n_moves: int):
     if not slots.is_cuda:
         return relocation_chain_plain(pa, draws, slots, rooms, n_moves)
     return relocation_chain_kernel(pa, draws, slots, rooms, n_moves)
-
-
-def random_move(pa, draws: MoveDraws, slots, rooms):
-    """One random move per individual: sample_move + apply_relocation
-    (a relocation chain of one move)."""
-    return relocation_chain(pa, MoveDraws(*(x[None] for x in draws)),
-                            slots, rooms, 1)
