@@ -36,17 +36,19 @@
    and feasible starts, its terms also against batch_penalty_plain of
    its rows, and on one individual (its chain's floor); K10 (LAHC) at
    4 and 64 walkers, K = 1 and 16 candidates, history 5 and 5000; K11
-   (NSGA-II ranks and survivors) at island sizes 8, 20, 32 and 512 with
-   duplicate objectives; on fixtures/comp05s.tim
+   (NSGA-II ranks and survivors) at island sizes 8, 20, 32, 33, 70, 512,
+   700 and 1,400 with duplicate objectives (several dominator words, and
+   islands too large for them); on fixtures/comp05s.tim
    at the nsga path's own shapes (its repair config, one island of 16,
    and its post config, 4 rows; random and feasible parents): K11 rank
    and survivors, K6 crowded + parallel with crossover on, off and
-   mixed, and K9 on the children, K6 and K11 timed at both pops; K5, K8
+   mixed, and K9 on the children, also on rows with every event in one
+   slot, K6, K9 and K11 timed at both pops; K5, K8
    and K10 from random starts and from feasible ones (the planted
    witness, a few events moved), and on one individual (their chains'
-   floor); then K2's, K7's, K8's pre-pass's and K12's phase counters
-   (k5_phases, each instrumented kernel checked equal to the regular
-   one);
+   floor); then K2's, K7's, K8's pre-pass's, K12's, K11's and the
+   parallel matcher's phase counters (k5_phases, each instrumented
+   kernel checked equal to the regular one);
 3. drives five paths through `timetabling_ga_tpu_torch.cli`, seed 42,
    each with the launch counters zeroed just before and read just after:
    on comp01s the main path (size-tuned defaults, -t 60), the
@@ -65,7 +67,8 @@
    generation, one full-eval generation, one kick, one LAHC launch and
    two NSGA-II generations,
    repair and post phase (launches, device idle share, device time per
-   launch of each kernel);
+   launch of each kernel), then K2's and K9's own launches at their timed
+   shapes (K9's body runs inside K6 on the paths);
 5. prints one line per kernel, the {"kernels": [...]} summary and, last,
    {"ok": true, "device": {...}}.
 
@@ -233,6 +236,8 @@ K2_ONLY_AT_INIT = ("reference", "full-eval")
 K2_CLUSTERS = (None, 1, 2, 4, 8)
 # fused evaluations held against batch_penalty_plain, by kernel
 FUSED_CHECKS = {"breed": 0, "random_ls": 0, "full_eval_ls": 0}
+# K9's timed calls by timing key, for their device times (k9_device_times)
+K9_TIMED = {}
 
 
 class SmokeFailure(Exception):
@@ -576,12 +581,17 @@ def nsga_state(g, L, pop, E, T, dev):
 
 def compare_nsga(pa, dev):
     """K11 against its plain versions at island sizes 8, 20, 32 (two
-    islands each) and 512 (one), duplicate objectives common, exactly."""
+    islands each), 33 and 70 (two and three dominator words; with the
+    children, 66 and 140 rows: three and five), 512 (one) and 700 and
+    1,400 (the survivors' 1,400 and 2,800 rows too many for the dominator
+    words in shared memory, so peeled without them), duplicate objectives
+    common, exactly."""
     import torch
     from timetabling_ga_tpu_torch.ops import nsga
     E, T = pa.n_events, pa.n_slots
     g = torch.Generator(device=dev).manual_seed(8000)
-    for pop, L in ((8, 2), (20, 2), (32, 2), (512, 1)):
+    for pop, L in ((8, 2), (20, 2), (32, 2), (33, 2), (70, 1), (512, 1),
+                   (700, 1), (1400, 1)):
         par, ch = nsga_state(g, L, pop, E, T, dev), nsga_state(g, L, pop, E,
                                                                 T, dev)
         got = nsga.rank_crowd(par.hcv, par.scv, L)
@@ -704,6 +714,21 @@ def compare_nsga_path(pa05, dev):
                   f"{tag}: nsga_survivors differs from its plain version")
             cases += 3
         timings.update(nsga_timings(par, ch, pop))
+        cases += compare_matcher_one_slot(pa05, par, gacfg, mo, g, phase)
+
+        def k9(kid=kid):
+            return rooms.parallel_assign_rooms(pa05, kid.slots)
+
+        def k9_plain(kid=kid, pop=pop):
+            return rooms.augment_rooms_plain(pa05, kid.slots,
+                                             rooms.best_fit_rooms(pa05, pop))
+        b, by = bound(nbytes(kid.slots) * 2 + nbytes(
+            pa05.possible_u8, pa05.live, pa05.cap_rank, pa05.dead),
+            pop * parallel_rooms_ops(E, pa05.n_rooms, ga.PARALLEL_ROUNDS))
+        key = ("parallel_rooms", "comp05s", pop)
+        timings[key] = dict(ms=time_ms(k9, 50), plain_ms=time_ms(k9_plain, 5),
+                            max_abs_err=0, bound_ms=b, bound_by=by)
+        K9_TIMED[key] = k9
 
         def kern(bd=bd, par=par, mo=mo, gacfg=gacfg):
             return ga.make_children(pa05, bd, par, gacfg, 1, mo)
@@ -717,6 +742,38 @@ def compare_nsga_path(pa05, dev):
     path_keys = {k: (k, post.pop_size) for k in ("nsga_rank",
                                                  "nsga_survivors")}
     return timings, path_keys, breed_rows, cases
+
+
+def compare_matcher_one_slot(pa05, par, gacfg, mo, g, phase):
+    """The parallel matcher on comp05s rows with every event in one slot
+    (350 events: eleven chunks of a warp's 32): K9 from best-fit rooms
+    and from the parents' rooms at 0, 1 and 4 rounds, and K6 breeding
+    from parents in that slot with crossover on for every child, each
+    exactly against its plain version. Returns the cases checked."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import ga, rooms
+    pop, E = par.slots.shape
+    slots = torch.full_like(par.slots, pa05.n_slots - 1)
+    tag = f"nsga path {phase} pop={pop}, every event in one slot"
+    check(torch.equal(rooms.parallel_assign_rooms(pa05, slots),
+                      rooms.augment_rooms_plain(
+                          pa05, slots, rooms.best_fit_rooms(pa05, pop))),
+          f"{tag}: parallel_rooms differs from its plain version")
+    for n in (0, 1, 4):
+        check(torch.equal(rooms.augment_rooms(pa05, slots, par.rooms, n),
+                          rooms.augment_rooms_plain(pa05, slots, par.rooms,
+                                                    n)),
+              f"{tag}: augment_rooms n_rounds={n} differs from its plain "
+              f"version")
+    one = par._replace(slots=slots)
+    bd = ga.make_breed_draws([g], pop, E, pa05.n_slots, gacfg, pa05.device)
+    bd = bd._replace(do_x=torch.ones_like(bd.do_x))
+    got = ga.make_children(pa05, bd, one, gacfg, 1, mo)
+    want = ga.make_children_plain(pa05, bd, one, gacfg, 1, mo)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(want, got)),
+          f"{tag}: breed differs from its plain version")
+    return 5
 
 
 def lahc_work(pa, l0, draws):
@@ -839,6 +896,8 @@ def compare(pa, dev):
             reps = 50
             ms = time_ms(kern, reps)
             plain_ms = time_ms(plain, 5)
+            if name == "parallel_rooms":
+                K9_TIMED[(name, P)] = kern
             bytes_ms = nb / PEAK_BYTES_S * 1e3
             ops_ms = ops / PEAK_INT_OPS_S * 1e3
             out[(name, P)] = dict(
@@ -1193,6 +1252,7 @@ def k2_device_times(pa, dev, timings):
     its timings; run after the profile windows, each its own profiler
     session."""
     import torch
+    from timetabling_ga_tpu_torch.k5_phases import device_us_per_launch
     from timetabling_ga_tpu_torch.ops import fitness, rooms
     E, T = pa.n_events, pa.n_slots
     for P in (4, 16, 256):
@@ -1207,37 +1267,27 @@ def k2_device_times(pa, dev, timings):
                 device_us_per_launch(kern, "batch_penalty")
 
 
-def device_us_per_launch(fn, kernel, reps=20):
-    """Device time of one launch of `kernel` (its CUDA kernel's name
-    prefix) over `reps` calls of `fn`, from torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) == DeviceType.CUDA and \
-                ev.key.startswith(f"{kernel}_kernel") and ev.count:
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = ev.self_cuda_time_total
-            return us / ev.count
-    return None
-
-
 def phase_lines(pa, dev):
-    """K2's, K7's, K8's pre-pass's and K12's phase counters (k5_phases):
-    each instrumented kernel checked equal to the regular one, then its
-    cycles a launch (a round for K12) by phase."""
+    """K2's, K7's, K8's pre-pass's, K12's, K11's and the parallel
+    matcher's (K9's own launch and K6) phase counters (k5_phases): each
+    instrumented kernel checked equal to the regular one, then its cycles
+    a launch (a round for K12) by phase."""
     from timetabling_ga_tpu_torch import k5_phases
     return [json.loads(x) for f in (k5_phases.k2_lines, k5_phases.k7_lines,
-                                    k5_phases.k8e_lines, k5_phases.k12_lines)
+                                    k5_phases.k8e_lines, k5_phases.k12_lines,
+                                    k5_phases.k11_lines, k5_phases.k9_lines)
             for x in f(pa, dev)]
+
+
+def k9_device_times(timings, cases):
+    """K9's own launch's device time at each of its timed shapes (its
+    body runs inside K6 on the paths), from torch.profiler, added to its
+    timings; `cases` maps each timing key to its kernel call. Run after
+    the profile windows, each its own profiler session."""
+    from timetabling_ga_tpu_torch.k5_phases import device_us_per_launch
+    for key, kern in cases.items():
+        timings[key]["device_us"] = device_us_per_launch(kern,
+                                                         "parallel_rooms")
 
 
 def random_ls_work(pa, st, draws, events):
@@ -1480,6 +1530,7 @@ def profile_phases(pa, pa05, dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.k5_phases import launches_kernel
     from timetabling_ga_tpu_torch.ops import delta, ga, lahc, sweep
     from timetabling_ga_tpu_torch.parallel import islands
     from timetabling_ga_tpu_torch.runtime import config, engine
@@ -1562,7 +1613,7 @@ def profile_phases(pa, pa05, dev):
                 dev_us = ev.self_cuda_time_total
             rows.append((dev_us, ev.count, ev.key[:60]))
             for k in KERNELS:
-                if ev.key.startswith(f"{k}_kernel") and ev.count:
+                if launches_kernel(ev.key, k) and ev.count:
                     per_launch[k] = dev_us / ev.count
         rows.sort(reverse=True)
         device_ms = sum(r[0] for r in rows) / 1e3
@@ -1762,6 +1813,7 @@ def main() -> int:
     for prof in profile_phases(pa, pa05, dev):
         print(json.dumps({"profile": prof}))
     k2_device_times(pa, dev, timings)
+    k9_device_times(timings, K9_TIMED)
     for line in phase_lines(pa, dev):
         print(json.dumps({"phases": line}))
     for key, t in timings.items():

@@ -26,9 +26,11 @@ import pytest
 import torch
 
 from tests.test_torch_kernels import (
-    K5_CASES, _breed_case, _degenerate_slots, _half_feasible, _instances,
-    _island_state, _k5_equals_plain, _ls_draws, _matching_instances,
-    _state)
+    K5_CASES, K11_CASES, _breed_case, _chained_augments, _degenerate_slots,
+    _half_feasible, _instances, _island_state, _k5_equals_plain,
+    _k11_equal_plain,
+    _k11_island, _ls_draws, _matcher_equals_plain, _matching_instances,
+    _state, _wide_rooms)
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import (
     delta, fitness, ga, lahc, local_search, moves, nsga, rooms, sweep)
@@ -72,6 +74,7 @@ struct emu_block {
     std::unique_ptr<std::barrier<>> bar;
     std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
     uint64_t lanes[1024];
+    int or_acc;
 };
 inline thread_local emu_dim threadIdx, blockIdx;
 inline emu_dim blockDim, gridDim;
@@ -113,6 +116,66 @@ inline unsigned emu_ballot(bool pred) {
     return m;
 }
 #define __ballot_sync(mask, pred) emu_ballot(pred)
+// every lane's value, then what each lane asks of the 32
+template <class T, class F> T emu_warp_all(T v, F f) {
+    int t = threadIdx.x, w = t >> 5;
+    std::memcpy(&emu_blk->lanes[t], &v, sizeof(T));
+    emu_blk->warp_bar[w]->arrive_and_wait();
+    T all[32];
+    for (int l = 0; l < 32; ++l)
+        std::memcpy(&all[l], &emu_blk->lanes[(w << 5) | l], sizeof(T));
+    T r = f(all, t & 31);
+    emu_blk->warp_bar[w]->arrive_and_wait();
+    return r;
+}
+#define __shfl_sync(mask, v, src) emu_warp_all(v, [&](auto* a, int) { \
+    return a[(src) & 31]; })
+#define __shfl_up_sync(mask, v, d) emu_warp_all(v, [&](auto* a, int l) { \
+    return l >= (d) ? a[l - (d)] : a[l]; })
+inline unsigned emu_match_any(int v) {
+    return (unsigned)emu_warp_all((int64_t)v, [](int64_t* a, int l) {
+        int64_t m = 0;
+        for (int i = 0; i < 32; ++i)
+            if (a[i] == a[l]) m |= int64_t(1) << i;
+        return m;
+    });
+}
+#define __match_any_sync(mask, v) emu_match_any(v)
+inline unsigned emu_reduce_or(unsigned v) {
+    return emu_warp_all(v, [](unsigned* a, int) {
+        unsigned r = 0;
+        for (int i = 0; i < 32; ++i) r |= a[i];
+        return r;
+    });
+}
+template <class T> T emu_reduce_min(T v) {
+    return emu_warp_all(v, [](T* a, int) {
+        T r = a[0];
+        for (int i = 1; i < 32; ++i) r = a[i] < r ? a[i] : r;
+        return r;
+    });
+}
+template <class T> T emu_reduce_max(T v) {
+    return emu_warp_all(v, [](T* a, int) {
+        T r = a[0];
+        for (int i = 1; i < 32; ++i) r = a[i] > r ? a[i] : r;
+        return r;
+    });
+}
+#define __reduce_or_sync(mask, v) emu_reduce_or(v)
+#define __reduce_min_sync(mask, v) emu_reduce_min(v)
+#define __reduce_max_sync(mask, v) emu_reduce_max(v)
+// a block barrier answering whether any thread's predicate was non-zero
+inline int __syncthreads_or(int pred) {
+    if (threadIdx.x == 0) __atomic_store_n(&emu_blk->or_acc, 0,
+                                           __ATOMIC_SEQ_CST);
+    emu_blk->bar->arrive_and_wait();
+    if (pred) __atomic_store_n(&emu_blk->or_acc, 1, __ATOMIC_SEQ_CST);
+    emu_blk->bar->arrive_and_wait();
+    int r = __atomic_load_n(&emu_blk->or_acc, __ATOMIC_SEQ_CST);
+    emu_blk->bar->arrive_and_wait();
+    return r;
+}
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) {
@@ -125,6 +188,7 @@ inline unsigned atomicAnd(unsigned* p, unsigned v) {
     return __atomic_fetch_and(p, v, __ATOMIC_SEQ_CST);
 }
 struct alignas(16) int4 { int x, y, z, w; };
+struct alignas(8) int2 { int x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 inline int atomicMin(int* p, int v) {
     int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
@@ -274,6 +338,7 @@ inline cluster_group this_cluster() { return cluster_group{}; }
 K5_SMALL = "sweep_pass_small"
 K2_GLOBAL = "batch_penalty_global"
 K12_GLOBAL = "full_eval_ls_global"
+K11_NO_WORDS = "nsga_no_words"
 EMULATED = ("assign_rooms", "batch_penalty", "move1_sweep", "delta_one",
             "sweep_pass", "breed", "survivors", "random_ls",
             "parallel_rooms", "lahc", "nsga", "full_eval_ls")
@@ -285,6 +350,7 @@ EMULATED = ("assign_rooms", "batch_penalty", "move1_sweep", "delta_one",
 # K12 with two-warp CTAs and room for 112 bytes of draws (one to four
 # rounds at K = 5 to 2), so that its rounds cross chunks
 SMALL = {"assign_rooms": ["-DK1_THREADS=64"], "breed": ["-DK6_THREADS=64"],
+         "nsga": ["-DK11_THREADS=64"], "parallel_rooms": ["-DK9_THREADS=64"],
          "random_ls": ["-DK8_MAX_WARPS=2", "-DK8_EVENT_BYTES=48"],
          "batch_penalty": ["-DK2_THREADS=128"],
          "survivors": ["-DK7_THREADS=64"],
@@ -323,6 +389,7 @@ def emulated(tmp_path_factory):
                          SMALL["batch_penalty"] + ["-DK2_STAGE_LIMIT=0"])
     builds[K12_GLOBAL] = ("full_eval_ls",
                           SMALL["full_eval_ls"] + ["-DK12_STAGE_LIMIT=0"])
+    builds[K11_NO_WORDS] = ("nsga", SMALL["nsga"] + ["-DK11_WORDS_LIMIT=0"])
     procs = {n: subprocess.Popen(
         [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
          f"-I{d}", *flags, "-o", str(d / f"{n}.so"), str(d / f"{src}.cu"),
@@ -340,6 +407,9 @@ def emulated(tmp_path_factory):
                                             d / f"{K2_GLOBAL}.so")
     kernels._LIBS[K12_GLOBAL] = kernels.load("full_eval_ls",
                                              d / f"{K12_GLOBAL}.so")
+    for n in kernels.SOURCES["nsga"]:
+        kernels._LIBS[K11_NO_WORDS + n] = kernels.load(
+            n, d / f"{K11_NO_WORDS}.so")
 
     def launch(name, *args):
         kernels.LAUNCHES[name] += 1
@@ -582,8 +652,9 @@ def test_k7_sources_equal_plain(emulated, L, pop):
     """K7's survivors (parents + children, and the sort alone) and
     migrate at L = 1, 2, 4, 16 islands of 2, 3 and 16 rows: a grid of
     ceil(keep / 2) blocks an island, each copying two rows, with rows of
-    E = 8 (16-byte copies) and E = 7 int32 (4-byte ones)."""
-    for E in (8, 7):
+    E = 8 (16-byte copies), E = 6 (8-byte ones) and E = 7 int32 (4-byte
+    ones)."""
+    for E in (8, 6, 7):
         par = _island_state(L, pop, 1, E=E)
         ch = _island_state(L, pop, 2, E=E)
         kernels.reset_launches()
@@ -797,6 +868,71 @@ def test_k11_sources_equal_plain(emulated, L, pop, spread):
         got = nsga.survivors_kernel(par, ch, L, keep)
         want = nsga.survivors_plain(par, ch, L, keep)
         assert all(torch.equal(w, x) for w, x in zip(want, got))
+
+
+@pytest.mark.parametrize("case", K11_CASES)
+def test_k11_sources_equal_plain_on_edge_cases(emulated, case):
+    """K11 with two-warp blocks: islands of 33-140 rows (two to five
+    dominator words, rows strided over the block's threads), a strict
+    chain (every row its own front), one front with every range 0,
+    keep = 1 and keep = n, E = 7 and rows off 16 bytes (4-byte copies)
+    and E = 8 aligned (16-byte ones)."""
+    kernels.reset_launches()
+    _k11_equal_plain(case, "cpu")
+    assert kernels.LAUNCHES["nsga_rank"] == 1
+    assert kernels.LAUNCHES["nsga_survivors"] == 3
+
+
+@pytest.mark.parametrize("case", [K11_CASES[1], K11_CASES[3],
+                                  K11_CASES[5]])
+def test_k11_peel_without_dominator_words_equals_plain(emulated,
+                                                       monkeypatch, case):
+    """K11 built to keep no dominator words (as an island too large for
+    them in shared memory runs) counts each row's words anew each round
+    and equals the plain versions."""
+    for n in kernels.SOURCES["nsga"]:
+        monkeypatch.setitem(kernels._LIBS, n,
+                            kernels._LIBS[K11_NO_WORDS + n])
+    _k11_equal_plain(case, "cpu", seed=10)
+
+
+def test_k11_refuses_an_island_above_the_shared_memory_limit(emulated,
+                                                             monkeypatch):
+    """An island whose state does not fit in shared memory even without
+    the dominator words (n = 10,000: 6 n ints) is refused before any
+    launch (the wrapper's kernels.launch raises on it)."""
+    par = _k11_island(1, 5000, "random", 1, E=1)
+    rcs = []
+    monkeypatch.setattr(kernels, "launch", lambda name, *args: rcs.append(
+        kernels._LIBS[name][1](*args, None)))
+    nsga.survivors_kernel(par, par, 1, 5000)
+    assert rcs == [2]                      # cudaErrorLaunchOutOfResources
+
+
+@pytest.mark.parametrize("inst", range(4))
+def test_k9_k6_parallel_matcher_on_edge_cases(emulated, inst):
+    """The parallel matcher (K9 and K6, two-warp blocks, a warp a slot)
+    on a slot holding every event (more than 32: several chunks and the
+    claimed mask between them), R = 1, padded events and rooms and R =
+    32, at 0, 1 and 4 rounds, K6 with crossover on, off and mixed."""
+    pa = (_matching_instances("cpu") + [_wide_rooms("cpu")])[inst]
+    kernels.reset_launches()
+    _matcher_equals_plain(pa, "cpu", 270 + inst)
+    assert kernels.LAUNCHES["parallel_rooms"] == 4
+    assert kernels.LAUNCHES["breed"] == 3
+
+
+def test_k9_augments_after_a_round_without_grabs(emulated):
+    """A round of length-3 augments that follows a round in which no
+    event grabbed a free room still runs (`_chained_augments`: the second
+    round's augment matches event 3), from the given rooms and from
+    best-fit ones, at 2 and 4 rounds."""
+    pa, slots, rms, want = _chained_augments("cpu")
+    for n in (2, 4):
+        assert torch.equal(rooms.augment_rooms_plain(pa, slots, rms, n), want)
+        assert torch.equal(rooms.augment_rooms_kernel(pa, slots, rms, n),
+                           want)
+    assert torch.equal(rooms.augment_rooms_kernel(pa, slots, None), want)
 
 
 # (instance, K, cluster): the ITC-like, medium, padded and anchored

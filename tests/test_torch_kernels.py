@@ -166,6 +166,120 @@ def _ls_draws(pa, device, P, n_rounds, K, seed):
                                1.0, 1.0, 0.5, device)
 
 
+# K11's edge cases: (islands, rows an island, objectives, row width E,
+# the rows' offset in ints into their buffers). Island sizes 33, 64 and
+# 70 take two or three dominator words (66-140 with the children);
+# "chain" is a strict chain in shuffled row order (every row its own
+# front), "equal" one front with every range 0 (taken as 1); E = 7 and
+# rows off 16 bytes take the 4-byte copy, E = 8 aligned the 16-byte one.
+K11_CASES = [(1, 33, "random", 7, 0), (2, 64, "random", 8, 1),
+             (1, 70, "random", 8, 0), (1, 40, "chain", 7, 0),
+             (2, 20, "chain", 8, 2), (2, 12, "equal", 8, 0),
+             (3, 5, "random", 7, 3)]
+
+
+def _k11_island(L, pop, kind, seed, base=0, E=7, offset=0, device="cpu"):
+    """L islands of `pop` rows for K11 with objectives `kind` ("random":
+    hcv in 0..4 and scv in 0..11, so duplicates and shared fronts are
+    common; "chain": hcv = base + a permutation, scv = 2 hcv; "equal"),
+    penalties in few values (the kept order ties), and distinct rows of
+    E int32 starting `offset` ints into their buffers."""
+    g = torch.Generator().manual_seed(seed)
+    n = L * pop
+    if kind == "random":
+        hcv = torch.randint(0, 5, (n,), generator=g)
+        scv = torch.randint(0, 12, (n,), generator=g)
+    elif kind == "chain":
+        hcv = torch.randperm(n, generator=g) + base
+        scv = 2 * hcv
+    else:
+        hcv, scv = torch.full((n,), 3), torch.full((n,), 7)
+    buf = torch.arange(2 * (offset + n * E), dtype=torch.int32) + 1000 * seed
+
+    def rows(k):
+        start = k * (offset + n * E) + offset
+        return buf[start:start + n * E].view(n, E).to(device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return ga.PopState(rows(0), rows(1), (hcv % 3 + scv % 2).to(**i32),
+                       hcv.to(**i32), scv.to(**i32))
+
+
+def _k11_equal_plain(case, device, seed=0):
+    """K11's two entries against their plain versions on `case` (a
+    K11_CASES entry): ranks, and crowding as float32 bits, of the
+    parents; survivors of parents + children at keep = pop, 1 and all."""
+    L, pop, kind, E, offset = case
+    par = _k11_island(L, pop, kind, seed + 1, 0, E, offset, device)
+    ch = _k11_island(L, pop, kind, seed + 2, L * pop, E, offset, device)
+    got = nsga.rank_crowd_kernel(par.hcv, par.scv, L)
+    want = nsga.rank_crowd_plain(par.hcv, par.scv, L)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    for keep in (pop, 1, 2 * pop):
+        got = nsga.survivors_kernel(par, ch, L, keep)
+        want = nsga.survivors_plain(par, ch, L, keep)
+        assert all(torch.equal(w, x) for w, x in zip(want, got))
+    return want
+
+
+def _wide_rooms(device):
+    """A 60-event instance with 32 rooms: a suitability word's every
+    bit."""
+    return random_instance(8, n_events=60, n_rooms=32, n_features=3,
+                           n_students=40, attend_prob=0.1).device_arrays(
+                               device)
+
+
+def _chained_augments(device):
+    """(pa, slots, rooms, want) of a slot where a second round of
+    length-3 augments follows a round that grabbed no free room: rooms
+    0-4 of capacity ranks 0-4; event 0 suits {0, 3}, event 1 {1, 4},
+    event 2 {0}, event 3 {0, 1}, all in slot 0, from rooms (0, 1, 0, 0).
+    Round 1: events 2 and 3 find no free room; both bid for room 0 (its
+    owner 0 can move to 3), event 2 wins. Round 2: event 3 evicts event
+    1 (to 4) from room 1."""
+    possible = np.array([[1, 0, 0, 1, 0], [0, 1, 0, 0, 1],
+                         [1, 0, 0, 0, 0], [1, 1, 0, 0, 0]], dtype=bool)
+    pa = make_problem_arrays(
+        attends=np.zeros((1, 4), np.float32),
+        conflict=np.zeros((4, 4), np.float32), possible=possible,
+        student_count=np.zeros(4, np.int32),
+        room_size=np.arange(1, 6, dtype=np.int32),
+        event_mask=np.ones(4, np.float32), room_mask=np.ones(5, bool),
+        anchor_slots=np.zeros(4, np.int32), anchor_w=np.zeros(4, np.int32),
+        n_days=5, slots_per_day=9, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return (pa, torch.zeros((1, 4), **i32),
+            torch.tensor([[0, 1, 0, 0]], **i32),
+            torch.tensor([[3, 4, 0, 1]], **i32))
+
+
+def _matcher_equals_plain(pa, device, seed):
+    """K9 (augment_rooms from random rooms at 0, 1 and 4 rounds, and
+    parallel_assign_rooms) and K6's parallel matcher (crossover on for
+    every child, off for every child, and mixed) against their plain
+    versions on degenerate slot buckets (`_degenerate_slots`: a slot
+    with every event, more than 32)."""
+    slots = _degenerate_slots(pa, 4, seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    rms = torch.randint(0, pa.n_rooms, slots.shape, generator=g,
+                        device=device, dtype=torch.int32)
+    for n in (0, 1, 4):
+        assert torch.equal(rooms.augment_rooms_kernel(pa, slots, rms, n),
+                           rooms.augment_rooms_plain(pa, slots, rms, n))
+    assert torch.equal(rooms.augment_rooms_kernel(pa, slots, None),
+                       rooms.augment_rooms_plain(
+                           pa, slots, rooms.best_fit_rooms(pa, 4)))
+    _, _, par, draws = _breed_case(pa, device, 1, 4, seed + 1, slots)
+    cfg = ga.GAConfig(pop_size=4, p3=0.4, rooms_mode="parallel")
+    for do_x in (True, False, None):
+        d = draws if do_x is None else draws._replace(
+            do_x=torch.full_like(draws.do_x, do_x))
+        got = ga.make_children_kernel(pa, d, par, 1, None, "parallel")
+        want = ga.make_children_plain(pa, d, par, cfg, 1)
+        assert all(torch.equal(w, x) for w, x in zip(want, got))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -640,6 +754,57 @@ def test_k11_nsga_equals_plain(cuda, L, pop):
     assert all(torch.equal(w, x) for w, x in zip(want, got))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K11_CASES)
+def test_k11_nsga_edge_cases_equal_plain(cuda, case):
+    """K11 on several dominator words, n fronts, one front with empty
+    ranges, keep = 1 and keep = n, and 4-byte and 16-byte row copies."""
+    _k11_equal_plain(case, cuda)
+
+
+@pytest.mark.cuda
+def test_k11_without_dominator_words_equals_plain(cuda):
+    """An island whose dominator words do not fit in shared memory (n =
+    1,400: 245 KB of words) peels without them and equals the plain
+    version."""
+    _k11_equal_plain((1, 700, "random", 8, 0), cuda)
+    par = _k11_island(1, 1400, "random", 5, device=cuda)
+    got = nsga.rank_crowd_kernel(par.hcv, par.scv)
+    want = nsga.rank_crowd_plain(par.hcv, par.scv)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_k9_k6_parallel_matcher_edge_cases(cuda):
+    """The parallel matcher on a slot holding every event (more than
+    32), R = 1, R = 32 and padded events and rooms, at 0, 1 and 4
+    rounds, in K9 and in K6 with crossover on, off and mixed."""
+    for i, pa in enumerate(_matching_instances(cuda) + [_wide_rooms(cuda)]):
+        _matcher_equals_plain(pa, cuda, 260 + i)
+    pa, slots, rms, want = _chained_augments(cuda)
+    for n in (2, 4):
+        assert torch.equal(rooms.augment_rooms_plain(pa, slots, rms, n), want)
+        assert torch.equal(rooms.augment_rooms(pa, slots, rms, n), want)
+    assert torch.equal(rooms.parallel_assign_rooms(pa, slots), want)
+
+
+def test_suitability_words_encode_the_problem():
+    """suit_rank bit k is possible[e, the room of capacity rank k], and
+    room_of_rank inverts cap_rank, on a padded instance and on R = 32."""
+    for pa in (padded_arrays(random_instance(4, n_events=50, n_rooms=4,
+                                             n_features=3, n_students=40,
+                                             attend_prob=0.1)),
+               _wide_rooms("cpu")):
+        R = pa.n_rooms
+        assert torch.equal(pa.cap_rank[pa.room_of_rank.long()],
+                           torch.arange(R, dtype=torch.int32))
+        bits = pa.suit_rank.numpy().view(np.uint32)
+        dec = (bits[:, None] >> np.arange(R, dtype=np.uint32)) & 1
+        np.testing.assert_array_equal(
+            dec.astype(bool), pa.possible.numpy()[:, pa.room_of_rank.numpy()])
+
+
 def _lahc_copy(state):
     """A copy of a LahcState, for K10 to update in place."""
     return lahc.LahcState(lahc.LSState(*(x.clone() for x in state.ls)),
@@ -897,6 +1062,11 @@ def test_library_paths_are_keyed_by_source_hash():
         "breed.cu", "penalty_dev.cuh", "rooms_dev.cuh", "common.cuh"]
     assert [p.name for p in kernels._sources("batch_penalty")] == [
         "batch_penalty.cu", "penalty_dev.cuh", "common.cuh"]
+    # K7's row copy, also K11's
+    assert [p.name for p in kernels._sources("survivors")] == [
+        "survivors.cu", "rows_dev.cuh", "common.cuh"]
+    assert [p.name for p in kernels._sources("nsga")] == [
+        "nsga.cu", "rows_dev.cuh", "common.cuh"]
 
 
 def test_conflict_bits_and_csr_encode_the_problem():

@@ -27,9 +27,11 @@
 //     body (rooms_dev.cuh tt_match_rooms_block: the slots' chains in
 //     parallel, a warp per slot, one lane per room; the greedy scan was
 //     one warp's chain of E dependent argmins, ~0.1 ms) — or, with
-//     `parallel`, the parallel matcher's body from best-fit rooms on
-//     warp 0 and the occupancy counted after; else parent A's slots and
-//     rooms, unmatched, and the occupancy counted from them;
+//     `parallel`, the parallel matcher's body from best-fit rooms
+//     (rooms_dev.cuh tt_parallel_rooms_block: a warp per slot, rooms as
+//     bits in capacity-rank order, each warp also writing its slots'
+//     occupancy rows; on warp 0 alone it was ~130 us); else parent A's
+//     slots and rooms, unmatched, and the occupancy counted from them;
 //   - do_m, on warp 0 after a barrier: the top 3 of the row's E uniforms
 //     by warp argmax (ties to the lower index), sample_move's padded
 //     3-relocation and apply_relocation on the child's occupancy;
@@ -86,6 +88,10 @@ __device__ __forceinline__ void k6_random_move(const TTRoomProblem& rp,
     tt_relocate_warp(rp, sl, rm, occ, ev, ns, on, lane, rank);
 }
 
+// PARALLEL: the crossover's matching is the parallel matcher's (n_rounds
+// rounds), else the greedy one; an instance each, so that neither
+// matcher's code weighs on the other's registers
+template <bool PARALLEL>
 __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     const int* __restrict__ slots, const int* __restrict__ rooms,
     const int* __restrict__ pen, const int* __restrict__ scv,
@@ -95,18 +101,20 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     const float* __restrict__ u, const int* __restrict__ tgt,
     const uint8_t* __restrict__ possible, const int* __restrict__ cap_rank,
     const int* __restrict__ dead, const int* __restrict__ live,
-    const int* __restrict__ order, const int* __restrict__ ranks,
+    const int* __restrict__ order, const uint32_t* __restrict__ suit,
+    const int* __restrict__ room_of, const int* __restrict__ ranks,
     const float* __restrict__ crowd, TTPenaltyProblem pp,
     int* __restrict__ out_slots, int* __restrict__ out_rooms,
     int* __restrict__ out_eval, int P, int pop, int k, int E, int R, int T,
     int n_rounds, int so_ints) {
     extern __shared__ int k6_smem[];
+    TT_PROF_START();
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     int* sl = k6_smem;                                   // (E,)
     int* rm = sl + E;                                    // (E,)
     int* occ = rm + E;                                   // (T, R)
     // the greedy matcher's event slots in matching order, or the
-    // parallel matcher's scratch
+    // parallel matcher's scratch (tt_parallel_rooms_ints)
     int* so = occ + T * R;
     // the child's live slot bitsets and the reduction's scratch, for the
     // epilogue's evaluation
@@ -127,14 +135,14 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
         const uint8_t* mk = mask + (size_t)c * E;
         for (int e = tid; e < E; e += blockDim.x)
             sl[e] = mk[e] ? sa[e] : sb[e];
-        if (n_rounds >= 0) {
+        if (PARALLEL) {
+            const TTRankRooms rr = {suit, room_of};
             for (int e = tid; e < E; e += blockDim.x)
-                rm[e] = tt_best_fit_room(rp, e);
+                rm[e] = tt_best_fit_room(rr, e);
             __syncthreads();
-            if (warp == 0) {
-                tt_parallel_rooms_warp(rp, sl, rm, so, n_rounds, lane);
-                tt_occupancy_warp(rp, sl, rm, occ, lane);
-            }
+            TT_PROF(0);
+            tt_parallel_rooms_block(rp, rr, sl, rm, so, n_rounds, occ);
+            TT_PROF(4);
         } else {
             for (int i = tid; i < T * R; i += blockDim.x) occ[i] = 0;
             for (int i = tid; i < E; i += blockDim.x)
@@ -211,7 +219,8 @@ extern "C" int tt_breed(
     const int* ta, const int* tb, const uint8_t* mask, const uint8_t* do_x,
     const uint8_t* do_m, const int* mtype, const float* u, const int* tgt,
     const uint8_t* possible, const int* cap_rank, const int* dead,
-    const int* live, const int* order, const int* ranks, const float* crowd,
+    const int* live, const int* order, const uint32_t* suit,
+    const int* room_of, const int* ranks, const float* crowd,
     const int* student_count, const uint32_t* conflict_bits,
     const int* stu_ptr, const int* stu_ev, const int* anchor_slots,
     const int* anchor_w, int* out_slots, int* out_rooms, int* out_eval,
@@ -220,21 +229,24 @@ extern "C" int tt_breed(
     if (R > 32 || E < 3 || P <= 0 || pop <= 0 || P % pop != 0 || k <= 0
         || T > 64 || spd > 32 || (ranks != nullptr) != (crowd != nullptr))
         return (int)cudaErrorInvalidValue;
-    const size_t so_ints = n_rounds >= 0 ? tt_parallel_rooms_ints(E, R, T)
-                                         : (size_t)E;
+    const size_t so_ints =
+        n_rounds >= 0 ? tt_parallel_rooms_ints(E, T, K6_THREADS / 32)
+                      : (size_t)E;
     size_t smem = sizeof(int)
                   * (2 * (size_t)E + (size_t)T * R + so_ints
                      + (size_t)T * W + 4 * (K6_THREADS / 32));
     if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
-    cudaError_t err = tt_set_smem(breed_kernel, smem);
+    auto kernel = n_rounds >= 0 ? breed_kernel<true> : breed_kernel<false>;
+    cudaError_t err = tt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const TTPenaltyProblem pp = {possible, live, student_count,
                                  conflict_bits, stu_ptr, stu_ev,
                                  anchor_slots, anchor_w, E, R, S, T, spd, W,
                                  diag};
-    breed_kernel<<<P, K6_THREADS, smem, (cudaStream_t)stream>>>(
+    kernel<<<P, K6_THREADS, smem, (cudaStream_t)stream>>>(
         slots, rooms, pen, scv, ta, tb, mask, do_x, do_m, mtype, u, tgt,
-        possible, cap_rank, dead, live, order, ranks, crowd, pp, out_slots,
+        possible, cap_rank, dead, live, order, suit, room_of, ranks, crowd,
+        pp, out_slots,
         out_rooms, out_eval, P, pop, k, E, R, T, n_rounds, (int)so_ints);
     return (int)cudaGetLastError();
 }

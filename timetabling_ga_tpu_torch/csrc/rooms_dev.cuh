@@ -184,213 +184,311 @@ __device__ __forceinline__ void tt_relocate_warp(const TTRoomProblem& rp,
 // parallel_assign_rooms), run by K6 on each crossover child under
 // --rooms-mode parallel and by K9 (parallel_rooms.cu) on whole rows.
 //
-// The warp's 32 lanes stride over the events; every phase reads what the
-// previous one wrote after a __syncwarp(). (slot, room) cells live in
-// (T, R+1) grids, column R the "unmatched" dump. Every bid is a
-// scatter-min of event indices and every park count a scatter-add, both
-// independent of order, so shared-memory atomicMin / atomicAdd give
-// exactly the JAX scatters' result.
+// Every step of augment_rooms is local to a slot: bids are scatter-mins
+// over (slot, room) cells, and owners, free rooms and the park occupancy
+// are read in the event's own slot row. So the matcher splits exactly
+// into T independent problems, and the block's warps stride over the
+// slots, one warp a slot (as tt_match_rooms_block). The block first
+// buckets the events by slot, each slot's in increasing event index (a
+// stable counting sort, tt_bucket_by_slot); a warp then works on its
+// slot's events 32 at a time, lane = event, with the slot's owner row in
+// lane = capacity rank. Rooms are bits in capacity-rank order: each
+// event's suitability word (bit k: the room of capacity rank k suits it,
+// ProblemArrays.suit_rank), so "the free suitable room of least capacity
+// rank" is the lowest set bit of suit & free (__ffs). Every bid goes to
+// the least event index among the events that chose the same cell:
+// within a chunk the lowest lane of the cell's ballot, across chunks the
+// first chunk, through the mask of cells an earlier chunk bid for. Bids
+// within a stage are simultaneous: every choice of a stage is made on
+// the state the stage started from.
 
-#define TT_BIG (1 << 20)
+// the rank-ordered rooms of a problem
+struct TTRankRooms {
+    const uint32_t* suit;  // (E,) bit k: the room of capacity rank k suits
+    const int* room_of;    // (R,) the room of capacity rank k
+};
 
 // parallel_assign_rooms's start (rooms.py:320-322): the suitable room of
 // least capacity rank, ignoring occupancy; room 0 when none is suitable.
-__device__ __forceinline__ int tt_best_fit_room(const TTRoomProblem& rp,
+__device__ __forceinline__ int tt_best_fit_room(const TTRankRooms& rr,
                                                 int e) {
-    int best = TT_BIG, br = 0;
-    for (int r = 0; r < rp.R; ++r) {
-        int k = rp.possible[e * rp.R + r] ? rp.cap_rank[r] : TT_BIG;
-        if (k < best) {
-            best = k;
-            br = r;
+    const uint32_t s = rr.suit[e];
+    return s ? rr.room_of[__ffs(s) - 1] : 0;
+}
+
+// ints of scratch tt_parallel_rooms_block takes in a block of n_warps
+// warps: each event's matched rank, suitability word and live flag, the
+// events bucketed by slot with each slot's start (T + 1) and each chunk
+// of 32 events' per-slot counts, and a warp's rank rows (owners,
+// evictors, park keys, rooms)
+__host__ __device__ __forceinline__ int tt_parallel_rooms_ints(int E, int T,
+                                                              int n_warps) {
+    return 4 * E + T + 1 + (E + 31) / 32 * T + 160 * n_warps;
+}
+
+// The events of (E,) slots `sl` bucketed by slot into `lst`, each
+// slot's in increasing event index from lst[start[t]] to
+// lst[start[t + 1]] (a stable counting sort on the whole block, T <= 64):
+// a warp a chunk of 32 events counts each slot's events in it and each
+// event's place among them (__match_any_sync, once a chunk), warp 0 takes
+// the running sums over the chunks and the slots, and every event writes
+// itself. `cnt` holds ceil(E / 32) x T counts, `loc` E ints of scratch.
+__device__ __forceinline__ void tt_bucket_by_slot(const int* sl, int E,
+                                                  int T, int* lst,
+                                                  int* start, int* cnt,
+                                                  int* loc) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5, C = (E + 31) / 32;
+    for (int c = warp; c < C; c += n_warps) {
+        const int e = 32 * c + lane;
+        const int s = e < E ? sl[e] : T + lane;
+        const unsigned peers = __match_any_sync(TT_FULL_MASK, s);
+        for (int t = lane; t < T; t += 32) cnt[c * T + t] = 0;
+        __syncwarp();
+        if (e < E) {
+            loc[e] = __popc(peers & ((1u << lane) - 1u));
+            if (__ffs(peers) - 1 == lane) cnt[c * T + s] = __popc(peers);
         }
     }
-    return br;
-}
-
-// event e's best-fit suitable room among the free cells of its slot's
-// owner row `own` (R+1 entries, E = free), or -1 when there is none
-__device__ __forceinline__ int tt_free_room(const TTRoomProblem& rp,
-                                            const int* own, int e) {
-    int best = TT_BIG, br = -1;
-    for (int r = 0; r < rp.R; ++r)
-        if (rp.possible[e * rp.R + r] && own[r] == rp.E
-            && rp.cap_rank[r] < best) {
-            best = rp.cap_rank[r];
-            br = r;
+    __syncthreads();
+    if (warp == 0) {
+        // lane: slots lane and lane + 32; chunk counts -> offsets
+        int tot[2] = {0, 0};
+        for (int h = 0; h < 2; ++h) {
+            const int t = lane + 32 * h;
+            for (int c = 0; t < T && c < C; ++c) {
+                const int v = cnt[c * T + t];
+                cnt[c * T + t] = tot[h];
+                tot[h] += v;
+            }
         }
-    return br;
+        // exclusive sums over the slots
+        int carry = 0;
+        for (int h = 0; h < 2; ++h) {
+            int x = tot[h];
+            for (int off = 1; off < 32; off <<= 1) {
+                const int y = __shfl_up_sync(TT_FULL_MASK, x, off);
+                if (lane >= off) x += y;
+            }
+            const int t = lane + 32 * h;
+            if (t <= T) start[t] = carry + x - tot[h];
+            carry += __shfl_sync(TT_FULL_MASK, x, 31);
+        }
+        if (lane == 0 && T == 64) start[64] = carry;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < E; e += blockDim.x) {
+        const int s = sl[e];
+        lst[start[s] + cnt[(e >> 5) * T + s] + loc[e]] = e;
+    }
 }
 
-// park choice (rooms.py:282-286): K1's room key on the matched occupancy
-// row `occ` (R+1 entries, column R excluded)
-__device__ __forceinline__ int tt_park_room(const TTRoomProblem& rp,
-                                            const int* occ, int e) {
-    int best = 0x7fffffff, br = 0;
-    for (int r = 0; r < rp.R; ++r) {
-        int unsuit = rp.possible[e * rp.R + r] ? 0 : 1;
-        int key = (occ[r] + unsuit) * TT_W_COST + unsuit * TT_W_UNSUIT
-                  + rp.cap_rank[r] + rp.dead[r];
-        if (key < best) {
+// One bid of each lane of a chunk (`bid`: it bids for cell k < 32):
+// whether it wins, being the least event of the chunk's bidders for k
+// (lanes hold the slot's events in increasing order: the lowest lane of
+// the cell's ballot) with no bid for k from an earlier chunk
+// (`claimed`, which takes this chunk's cells): one ballot per cell that
+// this chunk is the first to bid for.
+__device__ __forceinline__ bool tt_bid_wins(bool bid, int k,
+                                            unsigned& claimed, int lane) {
+    const unsigned cells =
+        __reduce_or_sync(TT_FULL_MASK, bid ? 1u << k : 0u);
+    bool win = false;
+    for (unsigned fresh = cells & ~claimed; fresh; fresh &= fresh - 1u) {
+        const int b = __ffs(fresh) - 1;
+        win |= __ffs(__ballot_sync(TT_FULL_MASK, bid && k == b)) - 1 == lane;
+    }
+    claimed |= cells;
+    return win;
+}
+
+// The park choice (rooms.py:282-286) of an event with suitability word
+// `suit`: the rank of least K1 room key, `ks[k]` where rank k suits it
+// and `ku[k]` where it does not (the keys on the slot's current
+// occupancy), ties to the lower room index `rk[k]` as jnp.argmin over
+// rooms takes them.
+__device__ __forceinline__ int tt_park_rank(uint32_t suit, const int* ks,
+                                            const int* ku, const int* rk,
+                                            int R) {
+    int best = 0x7fffffff, best_room = 0x7fffffff, best_k = 0;
+    for (int k = 0; k < R; ++k) {
+        const int key = ((suit >> k) & 1u) ? ks[k] : ku[k];
+        if (key < best || (key == best && rk[k] < best_room)) {
             best = key;
-            br = r;
+            best_room = rk[k];
+            best_k = k;
         }
     }
-    return br;
+    return best_k;
 }
 
-// ints of scratch tt_parallel_rooms_warp takes: mrooms, two per-event
-// arrays and three (T, R+1) grids
-__host__ __device__ __forceinline__ int tt_parallel_rooms_ints(int E, int R,
-                                                              int T) {
-    return 3 * E + 3 * T * (R + 1);
-}
-
-__device__ __forceinline__ void tt_fill_warp(int* x, int n, int v,
-                                             int lane) {
-    for (int i = lane; i < n; i += 32) x[i] = v;
-}
-
-// the matched owner grid (rooms.py:211 matched_grid): the least event
-// index per (slot, mrooms) cell, E where none
-__device__ __forceinline__ void tt_matched_grid_warp(const TTRoomProblem& rp,
-                                                     const int* sl,
-                                                     const int* mr, int* grid,
-                                                     int lane) {
-    const int C = rp.R + 1;
-    tt_fill_warp(grid, rp.T * C, rp.E, lane);
+// augment_rooms (rooms.py:154) of slot t of one individual, on one warp:
+// `rm` holds the incoming rooms (all < R) and leaves with the result for
+// the slot's events; `mr` (E) takes their matched ranks (-1 unmatched,
+// -2 a padded event parked unmatched), `lst` (n) lists them in
+// increasing order; `su` and `lv` (E) are the events' suitability words
+// and live flags. The warp's `own` (5 x 32) holds the owner of each rank
+// (-1 none), stage 2's evictors, the park keys of each rank when it suits
+// and when not, and rank k's room `rk[k]`; lane k holds rank k's key part
+// `base` (k + dead) and room k's rank `cap`. With `occ_out` (T x R), the
+// slot's row of the result's occupancy is written there.
+// n_rounds rounds of length-1 then length-3 augments, two park bid
+// rounds, then the stragglers' fallback; padded events bid in the
+// augment rounds as every event does, enter the park phase parked, and
+// keep their incoming room.
+__device__ __forceinline__ void tt_parallel_rooms_slot(
+    const TTRoomProblem& rp, const int* sl, int* rm, int* mr,
+    const uint32_t* su, const int* lv, const int* lst, int n, int* own,
+    int t, int n_rounds, int lane, int base, int cap, int* occ_out) {
+    const int R = rp.R;
+    int *evict = own + 32, *ks = evict + 32, *ku = ks + 32, *rk = ku + 32;
+    own[lane] = -1;
     __syncwarp();
-    for (int e = lane; e < rp.E; e += 32)
-        atomicMin(&grid[sl[e] * C + mr[e]], e);
-    __syncwarp();
-}
-
-// augment_rooms (rooms.py:154) of one individual: `rm` holds the
-// incoming rooms (all < R) and leaves as the result. n_rounds rounds of
-// length-1 then length-3 augments, two park bid rounds, then the
-// stragglers' fallback; padded events bid in the augment rounds as every
-// event does, enter the park phase parked, and keep their incoming room.
-__device__ void tt_parallel_rooms_warp(const TTRoomProblem& rp,
-                                       const int* sl, int* rm, int* scratch,
-                                       int n_rounds, int lane) {
-    const int E = rp.E, R = rp.R, C = R + 1, G = rp.T * C;
-    int* mr = scratch;          // matched room, R when unmatched
-    int* cand = mr + E;         // this phase's room choice, -1 none
-    int* fc = cand + E;         // relocation room / parked flag
-    int* grid = fc + E;         // owners, then the park occupancy
-    int* bid = grid + G;
-    int* bid2 = bid + G;
-    // owner0: the least event index in each incoming (slot, room) cell;
-    // an event is matched when it owns its cell and the room suits it
-    tt_fill_warp(grid, G, E, lane);
-    __syncwarp();
-    for (int e = lane; e < E; e += 32) atomicMin(&grid[sl[e] * C + rm[e]], e);
-    __syncwarp();
-    for (int e = lane; e < E; e += 32) {
-        const int r = rm[e];
-        mr[e] = (grid[sl[e] * C + r] == e && rp.possible[e * R + r]) ? r : R;
+    // owner0: the least event of each incoming (slot, room) cell; it is
+    // matched when the room suits it
+    unsigned claimed = 0;
+    for (int c = 0; c < n; c += 32) {
+        const bool act = c + lane < n;
+        const int e = act ? lst[c + lane] : 0;
+        const int k = __shfl_sync(TT_FULL_MASK, cap, act ? rm[e] : 0);
+        const bool m =
+            tt_bid_wins(act, k, claimed, lane) && ((su[e] >> k) & 1u);
+        if (act) mr[e] = m ? k : -1;
+        if (m) own[k] = e;
     }
     __syncwarp();
     for (int round = 0; round < n_rounds; ++round) {
         // ---- stage 1: an unmatched event grabs its best free room
-        tt_fill_warp(bid, G, E, lane);
-        tt_matched_grid_warp(rp, sl, mr, grid, lane);
-        for (int e = lane; e < E; e += 32) {
-            int c = -1;
-            if (mr[e] == R) {
-                c = tt_free_room(rp, grid + sl[e] * C, e);
-                if (c >= 0) atomicMin(&bid[sl[e] * C + c], e);
-            }
-            cand[e] = c;
-        }
+        int o = lane < R ? own[lane] : -1;
+        unsigned vacant = __ballot_sync(TT_FULL_MASK, lane < R && o < 0);
         __syncwarp();
-        for (int e = lane; e < E; e += 32) {
-            const int c = cand[e];
-            if (c >= 0 && bid[sl[e] * C + c] == e) mr[e] = c;
-        }
-        __syncwarp();
-        // ---- stage 2: e takes an owned room r whose owner f moves on to
-        // its own best free room r' of the slot; both claims bid
-        tt_fill_warp(bid, G, E, lane);
-        tt_fill_warp(bid2, G, E, lane);
-        tt_matched_grid_warp(rp, sl, mr, grid, lane);
-        for (int e = lane; e < E; e += 32)
-            fc[e] = mr[e] < R ? tt_free_room(rp, grid + sl[e] * C, e) : -1;
-        __syncwarp();
-        for (int e = lane; e < E; e += 32) {
-            int c = -1;
-            if (mr[e] == R) {
-                const int* own = grid + sl[e] * C;
-                int best = TT_BIG;
-                for (int r = 0; r < R; ++r) {
-                    const int f = own[r];
-                    if (rp.possible[e * R + r] && f != E && fc[f] >= 0
-                        && rp.cap_rank[r] < best) {
-                        best = rp.cap_rank[r];
-                        c = r;
-                    }
-                }
-                if (c >= 0) atomicMin(&bid[sl[e] * C + c], e);
-            }
-            cand[e] = c;
-        }
-        __syncwarp();
-        // winners' evicted owners bid for their relocation rooms
-        for (int e = lane; e < E; e += 32) {
-            const int c = cand[e];
-            if (c < 0) continue;
-            const int cell = sl[e] * C + c;
-            if (bid[cell] == e) {
-                const int f = grid[cell];
-                atomicMin(&bid2[sl[e] * C + fc[f]], f);
-            } else {
-                cand[e] = -1;
+        claimed = 0;
+        unsigned any = 0;
+        for (int c = 0; c < n; c += 32) {
+            const bool act = c + lane < n && mr[lst[c + lane]] == -1;
+            any |= __ballot_sync(TT_FULL_MASK, act);
+            const int e = act ? lst[c + lane] : 0;
+            const int k = act ? __ffs(su[e] & vacant) - 1 : -1;
+            if (tt_bid_wins(k >= 0, k, claimed, lane)) {
+                mr[e] = k;
+                own[k] = e;
             }
         }
+        // nothing unmatched: every later stage is a no-op
+        if (!any) break;
+        const bool grabbed = claimed != 0u;
         __syncwarp();
-        // the non-colliding augments: f -> r', e -> r (e is unmatched and
-        // f matched, so the two writes never touch one event)
-        for (int e = lane; e < E; e += 32) {
-            const int c = cand[e];
-            if (c < 0) continue;
-            const int f = grid[sl[e] * C + c];
-            const int fr = fc[f];
-            if (bid2[sl[e] * C + fr] == f) {
-                mr[f] = fr;
-                mr[e] = c;
-            }
+        // ---- stage 2: e takes an owned room k whose owner f moves on to
+        // its own best free room fr of the slot; both claims bid
+        o = lane < R ? own[lane] : -1;
+        vacant = __ballot_sync(TT_FULL_MASK, lane < R && o < 0);
+        const uint32_t fs = o >= 0 ? su[o] & vacant : 0u;
+        const int fr = __ffs(fs) - 1;
+        const unsigned movable = __ballot_sync(TT_FULL_MASK, fs != 0u);
+        claimed = 0;
+        for (int c = 0; c < n; c += 32) {
+            const bool act = c + lane < n && mr[lst[c + lane]] == -1;
+            const int e = act ? lst[c + lane] : 0;
+            const int k = act ? __ffs(su[e] & movable) - 1 : -1;
+            if (tt_bid_wins(k >= 0, k, claimed, lane)) evict[k] = e;
         }
         __syncwarp();
+        // every rank bid for has its winner; its owner bids for fr, the
+        // least owner of each fr winning it
+        const bool ev = (claimed >> lane) & 1u;
+        const int by = ev ? evict[lane] : 0;
+        unsigned targets = __reduce_or_sync(TT_FULL_MASK, ev ? 1u << fr : 0u);
+        bool moves = false;
+        while (targets) {
+            const int b = __ffs(targets) - 1;
+            targets &= targets - 1u;
+            const bool mine = ev && fr == b;
+            const unsigned least = __reduce_min_sync(
+                TT_FULL_MASK, mine ? (unsigned)o : 0xffffffffu);
+            moves |= mine && (unsigned)o == least;
+        }
+        // the non-colliding augments: f -> fr, e -> k (e unmatched, f
+        // matched; fr free, k owned)
+        if (moves) {
+            mr[o] = fr;
+            mr[by] = lane;
+            own[fr] = o;
+            own[lane] = by;
+        }
+        __syncwarp();
+        // a round that changed nothing repeats itself: the rest are no-ops
+        if (!grabbed && !__ballot_sync(TT_FULL_MASK, moves)) break;
     }
+    TT_PROF(2);
     // ---- park the unmatched at least marginal cost, two bid rounds
-    tt_fill_warp(grid, G, 0, lane);
-    __syncwarp();
-    for (int e = lane; e < E; e += 32) {
-        if (mr[e] < R) atomicAdd(&grid[sl[e] * C + mr[e]], 1);
-        fc[e] = (mr[e] < R || !rp.live[e]) ? 1 : 0;
+    for (int c = lane; c < n; c += 32) {
+        const int e = lst[c];
+        if (mr[e] == -1 && !lv[e]) mr[e] = -2;
     }
     __syncwarp();
-    for (int pr = 0; pr < 2; ++pr) {
-        tt_fill_warp(bid, G, E, lane);
+    // lane k: rank k's occupancy and its park keys
+    int occ = lane < R && own[lane] >= 0 ? 1 : 0;
+    for (int pr = 0; pr < 3; ++pr) {
+        ks[lane] = occ * TT_W_COST + base;
+        ku[lane] = (occ + 1) * TT_W_COST + TT_W_UNSUIT + base;
         __syncwarp();
-        for (int e = lane; e < E; e += 32) {
-            if (fc[e]) continue;
-            const int p = tt_park_room(rp, grid + sl[e] * C, e);
-            cand[e] = p;
-            atomicMin(&bid[sl[e] * C + p], e);
+        if (pr == 2) break;
+        claimed = 0;
+        for (int c = 0; c < n; c += 32) {
+            const bool act = c + lane < n && mr[lst[c + lane]] == -1;
+            const int e = act ? lst[c + lane] : 0;
+            const int k = act ? tt_park_rank(su[e], ks, ku, rk, R) : 0;
+            if (tt_bid_wins(act, k, claimed, lane)) mr[e] = k;
         }
-        __syncwarp();
-        for (int e = lane; e < E; e += 32) {
-            if (fc[e] || bid[sl[e] * C + cand[e]] != e) continue;
-            atomicAdd(&grid[sl[e] * C + cand[e]], 1);
-            mr[e] = cand[e];
-            fc[e] = 1;
-        }
+        // each cell bid for took one winner
+        occ += (claimed >> lane) & 1u;
         __syncwarp();
     }
     // stragglers take the current argmin; padded events keep their room
-    for (int e = lane; e < E; e += 32)
-        if (rp.live[e])
-            rm[e] = fc[e] ? mr[e] : tt_park_room(rp, grid + sl[e] * C, e);
+    if (occ_out && lane < R) occ_out[t * R + lane] = 0;
     __syncwarp();
+    for (int c = lane; c < n; c += 32) {
+        const int e = lst[c];
+        if (!lv[e]) continue;
+        const int k = mr[e] >= 0 ? mr[e] : tt_park_rank(su[e], ks, ku, rk, R);
+        rm[e] = rk[k];
+        if (occ_out) atomicAdd(&occ_out[t * R + rk[k]], 1);
+    }
+    __syncwarp();
+    TT_PROF(3);
+}
+
+// augment_rooms of one individual on the whole block, a warp a slot:
+// `sl` and `rm` (E each, `rm` the incoming rooms, all < R, and the
+// result) in shared memory, `scratch` tt_parallel_rooms_ints(E, T,
+// warps) ints; with `occ` (T x R), the result's occupancy is written
+// there. The caller syncs before and after.
+__device__ __forceinline__ void tt_parallel_rooms_block(
+    const TTRoomProblem& rp, const TTRankRooms& rr, const int* sl, int* rm,
+    int* scratch, int n_rounds, int* occ) {
+    const int E = rp.E, T = rp.T, lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+    int* mr = scratch;
+    uint32_t* su = (uint32_t*)(mr + E);
+    int* lv = (int*)(su + E);
+    int* lst = lv + E;
+    int* start = lst + E;
+    int* cnt = start + T + 1;
+    int* own = cnt + (E + 31) / 32 * T + 160 * warp;
+    for (int e = threadIdx.x; e < E; e += blockDim.x) {
+        su[e] = rr.suit[e];
+        lv[e] = rp.live[e];
+    }
+    const int room = lane < rp.R ? rr.room_of[lane] : 0;
+    const int base = lane < rp.R ? lane + rp.dead[room] : 0;
+    const int cap = lane < rp.R ? rp.cap_rank[lane] : 0;
+    own[128 + lane] = room;
+    // `mr` is the bucketing's scratch until the slots' matchings start
+    tt_bucket_by_slot(sl, E, T, lst, start, cnt, mr);
+    __syncthreads();
+    TT_PROF(1);
+    for (int t = warp; t < T; t += n_warps)
+        tt_parallel_rooms_slot(rp, sl, rm, mr, su, lv, lst + start[t],
+                               start[t + 1] - start[t], own, t, n_rounds,
+                               lane, base, cap, occ);
 }

@@ -22,8 +22,9 @@
 // stable lexsort's order — cheap, and duplicated so that no block waits
 // for another. It then copies only its own K7_ROWS output rows: the
 // penalty terms, and the slots and rooms with 16-byte loads and stores
-// when E % 4 == 0 and every row pointer is 16-byte aligned (4-byte ones
-// otherwise), the block's threads over all of its rows' words at once.
+// when E % 4 == 0 and every row pointer is 16-byte aligned (8-byte or
+// 4-byte ones otherwise), the block's threads over all of its rows'
+// words at once (rows_dev.cuh, shared with K11).
 // The migrate entry reads another island's rows, so it is a launch of its
 // own after the truncation, reading the truncation's output and writing a
 // new buffer: no block reads what a block of the same launch writes, and
@@ -31,7 +32,7 @@
 // (which matters at pop 3, where row 1 is both an emigrant and a victim).
 // With one island the ring closes on itself. Populations under 3 do not
 // migrate (the wrapper returns them unchanged).
-#include "common.cuh"
+#include "rows_dev.cuh"
 
 // threads of a block (the CPU stand-in builds it small)
 #ifndef K7_THREADS
@@ -47,22 +48,13 @@ __device__ __forceinline__ bool k7_less(int p1, int s1, int i1, int p2,
     return p1 < p2 || (p1 == p2 && (s1 < s2 || (s1 == s2 && i1 < i2)));
 }
 
-struct K7Rows {
-    const int* slots; const int* rooms;
-    const int* pen; const int* hcv; const int* scv;
-};
-
-struct K7Out {
-    int* slots; int* rooms; int* pen; int* hcv; int* scv;
-};
-
 // Rank the n candidates (cp, cs) of this block's island by counting and
 // copy the source rows `src_row[i]` (a row of `from[src_buf[i]]`) of
-// those ranked in [o0, o1) to out rows `out0 + rank`; `vec`: the rows may
-// move as int4.
+// those ranked in [o0, o1) to out rows `out0 + rank`; `vec`: the width
+// in ints the rows move in.
 __device__ __forceinline__ void k7_rank_and_copy(
     const int* cp, const int* cs, const int* src_buf, const int* src_row,
-    int* dst, int n, int o0, int o1, const K7Rows* from, K7Out out,
+    int* dst, int n, int o0, int o1, const TTRows* from, TTRowsOut out,
     size_t out0, int E, int vec) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
         const int p = cp[i], s = cs[i];
@@ -73,38 +65,15 @@ __device__ __forceinline__ void k7_rank_and_copy(
     }
     __syncthreads();
     TT_PROF(1);
-    const int nr = o1 - o0;
-    if ((int)threadIdx.x < nr) {
-        const int o = threadIdx.x, i = dst[o];
-        const K7Rows& f = from[src_buf[i]];
-        const size_t r = (size_t)src_row[i];
-        out.pen[out0 + o0 + o] = f.pen[r];
-        out.hcv[out0 + o0 + o] = f.hcv[r];
-        out.scv[out0 + o0 + o] = f.scv[r];
-    }
+    tt_copy_rows(dst, o1 - o0, src_buf, src_row, from, out, out0 + o0, E,
+                 vec);
     TT_PROF(2);
-    // the rows' words: row o's slots are item o * 2 * nw + [0, nw), its
-    // rooms the next nw
-    const int nw = vec ? E / 4 : E;
-    const int n_items = nr * 2 * nw;
-    for (int it = threadIdx.x; it < n_items; it += blockDim.x) {
-        const int o = it / (2 * nw), q = it - o * 2 * nw;
-        const int i = dst[o], rooms = q >= nw, w = rooms ? q - nw : q;
-        const K7Rows& f = from[src_buf[i]];
-        const int* src = (rooms ? f.rooms : f.slots) + (size_t)src_row[i] * E;
-        int* dstp = (rooms ? out.rooms : out.slots) + (out0 + o0 + o) * E;
-        if (vec)
-            ((int4*)dstp)[w] = ((const int4*)src)[w];
-        else
-            dstp[w] = src[w];
-    }
-    TT_PROF(3);
     TT_PROF_BARRIER();
-    TT_PROF(4);
+    TT_PROF(3);
 }
 
 __global__ void __launch_bounds__(K7_THREADS) survivors_kernel(
-    K7Rows a, K7Rows b, K7Out out, int na, int nb, int keep, int E,
+    TTRows a, TTRows b, TTRowsOut out, int na, int nb, int keep, int E,
     int vec) {
     extern __shared__ int k7_smem[];
     const int n = na + nb;
@@ -127,13 +96,13 @@ __global__ void __launch_bounds__(K7_THREADS) survivors_kernel(
     }
     __syncthreads();
     TT_PROF(0);
-    K7Rows from[2] = {a, b};
+    TTRows from[2] = {a, b};
     k7_rank_and_copy(cp, cs, buf, row, dst, n, o0, o1, from, out,
                      (size_t)l * keep, E, vec);
 }
 
 __global__ void __launch_bounds__(K7_THREADS) migrate_kernel(
-    K7Rows in, K7Out out, int L, int pop, int E, int vec) {
+    TTRows in, TTRowsOut out, int L, int pop, int E, int vec) {
     extern __shared__ int k7_smem[];
     const int per = (pop + K7_ROWS - 1) / K7_ROWS;
     const int l = blockIdx.x / per, o0 = (blockIdx.x % per) * K7_ROWS;
@@ -161,14 +130,6 @@ __global__ void __launch_bounds__(K7_THREADS) migrate_kernel(
                      (size_t)l * pop, E, vec);
 }
 
-// 1 when rows of E int32 at every pointer may move as int4
-static int k7_vec(int E, const void* const* ptrs, int n) {
-    if (E % 4 != 0) return 0;
-    for (int i = 0; i < n; ++i)
-        if (ptrs[i] && ((uintptr_t)ptrs[i] & 15u) != 0) return 0;
-    return 1;
-}
-
 extern "C" int tt_survivors(
     const int* a_slots, const int* a_rooms, const int* a_pen,
     const int* a_hcv, const int* a_scv, const int* b_slots,
@@ -183,12 +144,12 @@ extern "C" int tt_survivors(
     if (err != cudaSuccess) return (int)err;
     const void* rows[6] = {a_slots, a_rooms, b_slots, b_rooms, out_slots,
                            out_rooms};
-    K7Rows a = {a_slots, a_rooms, a_pen, a_hcv, a_scv};
-    K7Rows b = {b_slots, b_rooms, b_pen, b_hcv, b_scv};
-    K7Out out = {out_slots, out_rooms, out_pen, out_hcv, out_scv};
+    TTRows a = {a_slots, a_rooms, a_pen, a_hcv, a_scv};
+    TTRows b = {b_slots, b_rooms, b_pen, b_hcv, b_scv};
+    TTRowsOut out = {out_slots, out_rooms, out_pen, out_hcv, out_scv};
     const int grid = L * ((keep + K7_ROWS - 1) / K7_ROWS);
     survivors_kernel<<<grid, K7_THREADS, smem, (cudaStream_t)stream>>>(
-        a, b, out, na, nb, keep, E, k7_vec(E, rows, 6));
+        a, b, out, na, nb, keep, E, tt_rows_vec(E, rows, 6));
     return (int)cudaGetLastError();
 }
 
@@ -201,10 +162,10 @@ extern "C" int tt_migrate(
     cudaError_t err = tt_set_smem(migrate_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const void* rows[4] = {slots, rooms, out_slots, out_rooms};
-    K7Rows in = {slots, rooms, pen, hcv, scv};
-    K7Out out = {out_slots, out_rooms, out_pen, out_hcv, out_scv};
+    TTRows in = {slots, rooms, pen, hcv, scv};
+    TTRowsOut out = {out_slots, out_rooms, out_pen, out_hcv, out_scv};
     const int grid = L * ((pop + K7_ROWS - 1) / K7_ROWS);
     migrate_kernel<<<grid, K7_THREADS, smem, (cudaStream_t)stream>>>(
-        in, out, L, pop, E, k7_vec(E, rows, 4));
+        in, out, L, pop, E, tt_rows_vec(E, rows, 4));
     return (int)cudaGetLastError();
 }

@@ -1,13 +1,15 @@
 """Where one K5 sweep pass, one K8 local search or its pre-pass, one K12
-full-evaluation search, one K2 evaluation and one K7 truncation or
-migration spend their time, on the card.
+full-evaluation search, one K2 evaluation, one K7 truncation or
+migration, one K11 ranking or replacement and one parallel room
+matching spend their time, on the card.
 
     python -m timetabling_ga_tpu_torch.k5_phases [k5] [k8] [k8e] [k12] \
-        [k2] [k7]
+        [k2] [k7] [k11] [k9]
 
-(no argument: all six). Builds csrc/sweep_pass.cu, csrc/random_ls.cu,
-csrc/full_eval_ls.cu, csrc/batch_penalty.cu and csrc/survivors.cu once
-more with their phase counters compiled in (-DTT_K5_PROF: block 0's
+(no argument: all eight). Builds csrc/sweep_pass.cu, csrc/random_ls.cu,
+csrc/full_eval_ls.cu, csrc/batch_penalty.cu, csrc/survivors.cu,
+csrc/nsga.cu, csrc/parallel_rooms.cu and csrc/breed.cu once more with
+their phase counters compiled in (-DTT_K5_PROF: block 0's
 thread 0 reads clock64() at each phase boundary, csrc/common.cuh), under
 build/torch_kernels/k5_phases/, and checks that each instrumented kernel
 equals the regular one exactly. It prints one JSON line per shape with
@@ -36,7 +38,15 @@ per round (K8, K12) or per launch (K8's pre-pass, K2, K7):
 - K7's survivors (parents + children of one island, the main path's pop
   16 and the reference path's pop 10; 16 islands of 16) and its migrate
   entry (one island of 16, 16 of 16), the mean of 20 launches; the
-  thread is block 0's, which copies output rows 0 and 1.
+  thread is block 0's, which copies output rows 0 and 1;
+- K11's nsga_rank (one island of the nsga path's pop 16 and 4 parents,
+  and of 64, whose dominator sets take two words) and nsga_survivors
+  (those parents and as many children) on comp05s rows from random
+  slots, the mean of 20 launches; the thread is block 0's;
+- the parallel room matcher at the nsga path's shape (comp05s, 16
+  children): K9's own launch from best-fit rooms, and K6 breeding
+  under --nsga2 --rooms-mode parallel with crossover on for every
+  child, the mean of 20 launches; the thread is block 0's thread 0.
 
 The first line is the card's name and power limit. Needs a CUDA device
 and nvcc.
@@ -58,6 +68,7 @@ from timetabling_ga_tpu_torch.problem import load_tim_file
 from timetabling_ga_tpu_torch.runtime import config, engine
 
 COMP01S = Path(__file__).resolve().parent.parent / "fixtures" / "comp01s.tim"
+COMP05S = COMP01S.with_name("comp05s.tim")
 # counter k of csrc/sweep_pass.cu / sweep_dev.cuh TT_PROF(k)
 PHASES = ("move1", "k4 occupancy + room argmins",
           "k4 unsuitable + conflict dots", "k4 day re-score",
@@ -85,7 +96,8 @@ K2_PHASES = ("prologue (row + CSR slice load, zero)",
              "cluster barrier", "rank 0's sum + write")
 # counter k of csrc/survivors.cu
 K7_PHASES = ("prologue (the island's keys)", "rank count + barrier",
-             "penalty terms", "row copy", "wait for the other threads")
+             "row copy (penalty terms, slots and rooms)",
+             "wait for the other threads")
 # counters 12-15 of csrc/random_ls.cu (the pre-pass)
 K8E_PHASES = ("load", "local top-3", "warp merge", "store")
 # counter k of csrc/full_eval_ls.cu
@@ -96,7 +108,19 @@ K12_PHASES = ("prologue (row, conflict bitset + CSR staged, occupancy, "
               "wait for the other threads", "block reduction + record",
               "cluster exchange (record stores + cluster barrier)",
               "choice", "apply", "epilogue")
+# counter k of csrc/nsga.cu
+K11_PHASES = ("load", "dominator words", "peel", "crowding",
+              "crowded order + kept order", "row copy", "store")
+# counter k of the parallel matcher (csrc/rooms_dev.cuh), around it in
+# csrc/parallel_rooms.cu and csrc/breed.cu
+K9_PHASES = ("before the matcher (K9: row load + best-fit rooms; K6: "
+             "tournaments + crossover + best-fit rooms)",
+             "start (one warp: the incoming owner grid; a warp a slot: "
+             "the events bucketed by slot)",
+             "owners + augment rounds", "park + result",
+             "after (K9: store; K6: occupancy)")
 REPS = 20
+SINGULAR = {"steps": "step", "rounds": "round", "launches": "launch"}
 
 
 def build_prof(source: str):
@@ -152,8 +176,8 @@ def _line(shape, steps, unit, names, cyc, **extra):
     return json.dumps({
         "shape": shape, unit: steps, **extra, "thread_cycles": total,
         "share": {n: c / total for n, c in zip(names, cyc)},
-        f"cycles_per_{unit[:-1]}": {n: c / steps
-                                    for n, c in zip(names, cyc)}})
+        f"cycles_per_{SINGULAR[unit]}": {n: c / steps
+                                         for n, c in zip(names, cyc)}})
 
 
 def k5_lines(pa, dev):
@@ -238,6 +262,38 @@ def k12_lines(pa, dev):
                 cluster=local_search.full_eval_cluster(gc.ls_candidates))
 
 
+def launches_kernel(key: str, kernel: str) -> bool:
+    """Whether a profiler event's name is entry point `kernel`'s CUDA
+    kernel (`<kernel>_kernel...`; an instance of a kernel template is
+    named with its return type first, `void breed_kernel<true>(...)`)."""
+    return key.removeprefix("void ").startswith(f"{kernel}_kernel")
+
+
+def device_us_per_launch(fn, kernel, reps=REPS, sessions=3):
+    """Device time of one launch of `kernel` (its CUDA kernel's name
+    prefix) over `reps` calls of `fn`, from torch.profiler; a session
+    whose trace lacks the kernel (the profiler drops one now and then) is
+    taken again, up to `sessions` times, then None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) == DeviceType.CUDA and \
+                    launches_kernel(ev.key, kernel) and ev.count:
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = ev.self_cuda_time_total
+                return us / ev.count
+    return None
+
+
 def _repeated(fn):
     def run():
         for _ in range(REPS):
@@ -299,8 +355,76 @@ def k7_lines(pa, dev):
                     E=E)
 
 
+def _comp05s_rows(pa05, n, g):
+    """n comp05s rows from random slots and their greedy rooms, scored."""
+    from timetabling_ga_tpu_torch.ops import ga
+    slots = torch.randint(0, pa05.n_slots, (n, pa05.n_events), generator=g,
+                          device=pa05.device, dtype=torch.int32)
+    return ga.evaluate(pa05, slots, rooms.assign_rooms_plain(pa05, slots))
+
+
+def k11_lines(pa, dev):
+    from timetabling_ga_tpu_torch.ops import nsga
+    pa05 = load_tim_file(str(COMP05S)).device_arrays(dev)
+    prof = build_prof("nsga")
+    g = torch.Generator(device=dev).manual_seed(11000)
+    for pop in (16, 4, 64):
+        par, ch = _comp05s_rows(pa05, pop, g), _comp05s_rows(pa05, pop, g)
+        for entry, fn in (
+                ("nsga_rank", lambda: nsga.rank_crowd(par.hcv, par.scv)),
+                ("nsga_survivors", lambda: nsga.survivors(par, ch, 1, pop))):
+            want, got, cyc = _instrumented("nsga", prof, _repeated(fn))
+            if not _equal(want, got):
+                raise RuntimeError(f"k5_phases: the instrumented K11 "
+                                   f"differs from K11 ({entry}, pop={pop})")
+            fronts = int(nsga.rank_crowd_plain(
+                *((par.hcv, par.scv) if entry == "nsga_rank" else
+                  (torch.cat([par.hcv, ch.hcv]),
+                   torch.cat([par.scv, ch.scv]))))[0].max()) + 1
+            yield _line(["K11", entry, pop], REPS, "launches", K11_PHASES,
+                        cyc, fronts=fronts, E=pa05.n_events,
+                        device_us=device_us_per_launch(fn, entry))
+
+
+def k9_lines(pa, dev):
+    from timetabling_ga_tpu_torch.ops import ga, nsga
+    pa05 = load_tim_file(str(COMP05S)).device_arrays(dev)
+    cfg = config.parse_args(["-i", str(COMP05S), "--nsga2", "--rooms-mode",
+                             "parallel"]).apply_tuned_defaults(
+                                 pa05.n_events)
+    gc = engine.build_ga_config(cfg)
+    pop = gc.pop_size
+    g = torch.Generator(device=dev).manual_seed(9000)
+    par = _comp05s_rows(pa05, pop, g)
+    kids = _comp05s_rows(pa05, pop, g)
+    prof = build_prof("parallel_rooms")
+
+    def k9():
+        return rooms.parallel_assign_rooms(pa05, kids.slots)
+    want, got, cyc = _instrumented("parallel_rooms", prof, _repeated(k9))
+    if not torch.equal(want, got):
+        raise RuntimeError("k5_phases: the instrumented K9 differs from K9")
+    yield _line(["K9", "parallel_assign_rooms", pop], REPS, "launches",
+                K9_PHASES, cyc, E=pa05.n_events, rounds=ga.PARALLEL_ROUNDS,
+                device_us=device_us_per_launch(k9, "parallel_rooms"))
+    mo = nsga.rank_crowd(par.hcv, par.scv)
+    bd = ga.make_breed_draws([g], pop, pa05.n_events, pa05.n_slots, gc, dev)
+    bd = bd._replace(do_x=torch.ones_like(bd.do_x))
+    prof = build_prof("breed")
+
+    def k6():
+        return ga.make_children(pa05, bd, par, gc, 1, mo)
+    want, got, cyc = _instrumented("breed", prof, _repeated(k6))
+    if not _equal(want, got):
+        raise RuntimeError("k5_phases: the instrumented K6 differs from K6")
+    yield _line(["K6", "nsga2+parallel", pop], REPS, "launches", K9_PHASES,
+                cyc, E=pa05.n_events, rounds=ga.PARALLEL_ROUNDS,
+                device_us=device_us_per_launch(k6, "breed"))
+
+
 LINES = {"k5": k5_lines, "k8": k8_lines, "k8e": k8e_lines,
-         "k12": k12_lines, "k2": k2_lines, "k7": k7_lines}
+         "k12": k12_lines, "k2": k2_lines, "k7": k7_lines,
+         "k11": k11_lines, "k9": k9_lines}
 
 
 def main() -> int:

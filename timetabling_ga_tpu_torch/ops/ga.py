@@ -306,8 +306,8 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
     p = kernels.ptr
     kernels.launch("breed", *(p(x) for x in ins + dr), p(pa.possible_u8),
                    p(pa.cap_rank), p(pa.dead), p(pa.live),
-                   p(pa.room_order), *(None if x is None else p(x)
-                                       for x in mo),
+                   p(pa.room_order), p(pa.suit_rank), p(pa.room_of_rank),
+                   *(None if x is None else p(x) for x in mo),
                    p(pa.student_count), p(pa.conflict_bits), p(pa.stu_ptr),
                    p(pa.stu_ev), p(pa.anchor_slots), p(pa.anchor_w),
                    p(out[0]), p(out[1]), p(ev), P, P // groups,

@@ -237,8 +237,9 @@ def augment_rooms_plain(pa, slots, rooms, n_rounds: int = 4):
 
 
 def augment_rooms_kernel(pa, slots, rooms, n_rounds: int = 4):
-    """Kernel K9: every individual in one launch, a warp each; `rooms`
-    None starts from best_fit_rooms (parallel_assign_rooms)."""
+    """Kernel K9: every individual in one launch, a block each (a warp
+    a slot); `rooms` None starts from best_fit_rooms
+    (parallel_assign_rooms)."""
     check_packing(pa)
     ins = [slots.contiguous()] + ([] if rooms is None
                                   else [rooms.contiguous()])
@@ -251,7 +252,8 @@ def augment_rooms_kernel(pa, slots, rooms, n_rounds: int = 4):
     p = kernels.ptr
     kernels.launch("parallel_rooms", p(ins[0]),
                    None if rooms is None else p(ins[1]), p(pa.possible_u8),
-                   p(pa.cap_rank), p(pa.dead), p(pa.live), p(out), P, E,
+                   p(pa.cap_rank), p(pa.dead), p(pa.live), p(pa.suit_rank),
+                   p(pa.room_of_rank), p(out), P, E,
                    pa.n_rooms, pa.n_slots, n_rounds)
     return out
 

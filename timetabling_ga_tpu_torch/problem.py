@@ -116,6 +116,9 @@ class ProblemArrays:
     attends_u8: torch.Tensor     # (S, E) u8
     dead: torch.Tensor           # (R,)   i32 dead-room key penalty
     cap_rank: torch.Tensor       # (R,)   i32
+    room_of_rank: torch.Tensor   # (R,)   i32 the room of capacity rank k
+    suit_rank: torch.Tensor      # (E,)   i32 (uint32 bit patterns; R <= 32)
+                                 # bit k: the room of capacity rank k suits
     room_order: torch.Tensor     # (E,)   i32
     conflict_bits: torch.Tensor  # (E, W) i32 (uint32 bit patterns)
     conflict_diag: int           # sum of conflict's diagonal
@@ -206,6 +209,12 @@ def make_problem_arrays(attends, conflict, possible, student_count,
     cap_rank = np.argsort(np.argsort(room_size, kind="stable"),
                           kind="stable").astype(np.int32)
     room_order = np.argsort(suit_count, kind="stable").astype(np.int32)
+    room_of_rank = np.argsort(cap_rank, kind="stable").astype(np.int32)
+    # the parallel matcher's suitability words (K9, K6); zero past 32 rooms,
+    # where the kernels refuse to run
+    by_rank = possible[:, room_of_rank][:, :32].astype(np.uint64)
+    suit_rank = (by_rank << np.arange(by_rank.shape[1], dtype=np.uint64)
+                 ).sum(axis=1).astype(np.uint32).view(np.int32)
     W = (E + 31) // 32
     conf = conflict > 0.5
     padded = np.zeros((E, W * 32), dtype=bool)
@@ -236,6 +245,8 @@ def make_problem_arrays(attends, conflict, possible, student_count,
         attends_u8=t(attends.astype(np.uint8), torch.uint8),
         dead=t((~room_mask).astype(np.int32) * W_DEAD, torch.int32),
         cap_rank=t(cap_rank, torch.int32),
+        room_of_rank=t(room_of_rank, torch.int32),
+        suit_rank=t(suit_rank, torch.int32),
         room_order=t(room_order, torch.int32),
         conflict_bits=t(conflict_bits, torch.int32),
         conflict_diag=int(np.diagonal(conflict).sum()),
