@@ -149,11 +149,15 @@ OPS_TOP3 = 3          # a uniform of the top 3 of E uniforms (lax.top_k):
                       # charge)
 OPS_LEX = 3           # a pair of K7's rank count: two compares and add
 OPS_COPY = 2          # a word of a copied row: load and store
-OPS_ROOM_SCAN = 4     # a (event, room) visit of the parallel matcher's
-                      # scans: suitability and owner loads, compare, select
-OPS_BID = 3           # a bid: cell index, atomic min, the win test
-OPS_DOM = 6           # a pair of K11's peel: 4 compares, and/or, the
-                      # unassigned test
+OPS_PICK = 2          # a room pick of the parallel matcher: the AND of
+                      # the event's suitability word with a mask of
+                      # ranks, its find-first-set
+OPS_BID = 3           # a bid: the cell's ballot, the lowest-lane test,
+                      # the claimed mask
+OPS_DOM = 5           # a pair of K11's dominator words: 4 compares and
+                      # the ballot's and/or
+OPS_DOM_WORD = 3      # a dominator word of K11's peel round: load, AND
+                      # with the unassigned word, or into the test
 # K5's cluster sizes held against the plain pass (None: the wrapper's
 # own choice)
 K5_CLUSTERS = (None, 1, 2, 4, 8)
@@ -360,8 +364,8 @@ def kernel_cases(pa, P, dev):
         lambda: rooms.parallel_assign_rooms(pa, slots),
         lambda: rooms.augment_rooms_plain(pa, slots,
                                           rooms.best_fit_rooms(pa, P)),
-        nbytes(slots) + prob + nbytes(slots),
-        P * parallel_rooms_ops(E, R, ga.PARALLEL_ROUNDS))
+        parallel_rooms_bytes(pa, slots),
+        P * parallel_rooms_ops(E, ga.PARALLEL_ROUNDS))
     return {**cases, **{
         "assign_rooms": (
             lambda: rooms.assign_rooms(pa, slots),
@@ -395,17 +399,25 @@ def kernel_cases(pa, P, dev):
     }}
 
 
-def parallel_rooms_ops(E, R, n_rounds):
-    """Integer operations of one individual's parallel matching that
-    every event does whatever the data: its best-fit start and one scan
-    over the rooms a round (stage 1 when unmatched, the relocation room
-    when matched: stage 2 scans once either way) and its bids into the
-    owner grids (the start's and two a round). The rest — a second scan
-    for the unmatched, the bids that win, the park rounds — depends on
-    the data and is left out, so the count stays below what the kernel
-    does."""
-    return (E * R * OPS_ROOM_SCAN * (1 + n_rounds)
-            + E * OPS_BID * (1 + 2 * n_rounds))
+def parallel_rooms_ops(E, n_rounds):
+    """Integer operations of one individual's parallel matching on
+    rooms as bits: each event's best-fit pick and its bid for its
+    incoming room at the start, and in each of the n_rounds rounds its
+    stage-1 and stage-2 picks (one AND and one find-first-set each) and
+    their two bids. The rounds that end early when nothing is left
+    unmatched and the park rounds are not told apart: the count is of
+    every event bidding in every round."""
+    return E * ((OPS_PICK + OPS_BID) + n_rounds * 2 * (OPS_PICK + OPS_BID))
+
+
+def parallel_rooms_bytes(pa, slots, rooms_in=None):
+    """Bytes K9 moves: its rows' slots (and incoming rooms) read, their
+    rooms written, and the rooms' tables it reads (the events' suit
+    words in capacity-rank order, the rooms of each rank, the capacity
+    ranks, the dead rooms) and the live flags."""
+    return (nbytes(slots) * (3 if rooms_in is not None else 2)
+            + nbytes(pa.suit_rank, pa.room_of_rank, pa.cap_rank, pa.dead,
+                     pa.live))
 
 
 def padded_arrays(problem, dev, n_pad_events=5, n_pad_rooms=2):
@@ -611,7 +623,9 @@ def compare_nsga(pa, dev):
 def nsga_timings(par, ch, pop):
     """K11's two entry points and their plain versions timed on one
     island of `pop` parents (ranks) and `pop` + `pop` rows (survivors),
-    with their bounds counted from these rows' fronts."""
+    with their bounds counted from these rows' fronts: the n^2 tests
+    that build the dominator words once, then each front's round over
+    every row's ceil(n/32) words."""
     import torch
     from timetabling_ga_tpu_torch.ops import nsga
     E = par.slots.shape[1]
@@ -634,7 +648,8 @@ def nsga_timings(par, ch, pop):
              n2 * n2 * OPS_LEX + pop * n2 * OPS_LEX
              + pop * (2 * E + 3) * OPS_COPY)):
         nb = n * 2 * 4 + extra_b
-        ops = fronts * n * n * OPS_DOM + 2 * n * n * OPS_LEX + extra_ops
+        ops = (n * n * OPS_DOM + fronts * n * -(-n // 32) * OPS_DOM_WORD
+               + 2 * n * n * OPS_LEX + extra_ops)
         bytes_ms = nb / PEAK_BYTES_S * 1e3
         ops_ms = ops / PEAK_INT_OPS_S * 1e3
         out[(name, pop)] = dict(
@@ -722,9 +737,8 @@ def compare_nsga_path(pa05, dev):
         def k9_plain(kid=kid, pop=pop):
             return rooms.augment_rooms_plain(pa05, kid.slots,
                                              rooms.best_fit_rooms(pa05, pop))
-        b, by = bound(nbytes(kid.slots) * 2 + nbytes(
-            pa05.possible_u8, pa05.live, pa05.cap_rank, pa05.dead),
-            pop * parallel_rooms_ops(E, pa05.n_rooms, ga.PARALLEL_ROUNDS))
+        b, by = bound(parallel_rooms_bytes(pa05, kid.slots),
+                      pop * parallel_rooms_ops(E, ga.PARALLEL_ROUNDS))
         key = ("parallel_rooms", "comp05s", pop)
         timings[key] = dict(ms=time_ms(k9, 50), plain_ms=time_ms(k9_plain, 5),
                             max_abs_err=0, bound_ms=b, bound_by=by)
@@ -1530,7 +1544,6 @@ def profile_phases(pa, pa05, dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from timetabling_ga_tpu_torch import kernels
-    from timetabling_ga_tpu_torch.k5_phases import launches_kernel
     from timetabling_ga_tpu_torch.ops import delta, ga, lahc, sweep
     from timetabling_ga_tpu_torch.parallel import islands
     from timetabling_ga_tpu_torch.runtime import config, engine
@@ -1613,7 +1626,7 @@ def profile_phases(pa, pa05, dev):
                 dev_us = ev.self_cuda_time_total
             rows.append((dev_us, ev.count, ev.key[:60]))
             for k in KERNELS:
-                if launches_kernel(ev.key, k) and ev.count:
+                if ev.key.startswith(f"{k}_kernel") and ev.count:
                     per_launch[k] = dev_us / ev.count
         rows.sort(reverse=True)
         device_ms = sum(r[0] for r in rows) / 1e3

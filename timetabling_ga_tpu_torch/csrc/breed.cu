@@ -88,10 +88,6 @@ __device__ __forceinline__ void k6_random_move(const TTRoomProblem& rp,
     tt_relocate_warp(rp, sl, rm, occ, ev, ns, on, lane, rank);
 }
 
-// PARALLEL: the crossover's matching is the parallel matcher's (n_rounds
-// rounds), else the greedy one; an instance each, so that neither
-// matcher's code weighs on the other's registers
-template <bool PARALLEL>
 __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     const int* __restrict__ slots, const int* __restrict__ rooms,
     const int* __restrict__ pen, const int* __restrict__ scv,
@@ -135,7 +131,7 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
         const uint8_t* mk = mask + (size_t)c * E;
         for (int e = tid; e < E; e += blockDim.x)
             sl[e] = mk[e] ? sa[e] : sb[e];
-        if (PARALLEL) {
+        if (n_rounds >= 0) {
             const TTRankRooms rr = {suit, room_of};
             for (int e = tid; e < E; e += blockDim.x)
                 rm[e] = tt_best_fit_room(rr, e);
@@ -236,18 +232,17 @@ extern "C" int tt_breed(
                   * (2 * (size_t)E + (size_t)T * R + so_ints
                      + (size_t)T * W + 4 * (K6_THREADS / 32));
     if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
-    auto kernel = n_rounds >= 0 ? breed_kernel<true> : breed_kernel<false>;
-    cudaError_t err = tt_set_smem(kernel, smem);
+    cudaError_t err = tt_set_smem(breed_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const TTPenaltyProblem pp = {possible, live, student_count,
                                  conflict_bits, stu_ptr, stu_ev,
                                  anchor_slots, anchor_w, E, R, S, T, spd, W,
                                  diag};
-    kernel<<<P, K6_THREADS, smem, (cudaStream_t)stream>>>(
+    breed_kernel<<<P, K6_THREADS, smem, (cudaStream_t)stream>>>(
         slots, rooms, pen, scv, ta, tb, mask, do_x, do_m, mtype, u, tgt,
         possible, cap_rank, dead, live, order, suit, room_of, ranks, crowd,
-        pp, out_slots,
-        out_rooms, out_eval, P, pop, k, E, R, T, n_rounds, (int)so_ints);
+        pp, out_slots, out_rooms, out_eval, P, pop, k, E, R, T, n_rounds,
+        (int)so_ints);
     return (int)cudaGetLastError();
 }
 

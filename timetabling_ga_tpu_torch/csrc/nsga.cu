@@ -19,17 +19,19 @@
 //
 // Design: a block of K11_THREADS per island (nsga_rank), or a grid of
 // ceil(keep / K11_ROWS) blocks per island (nsga_survivors), every block
-// recomputing its island's selection, which is cheap at these n, so
-// that no block waits for another, and copying only its own K11_ROWS
-// output rows with K7's row copy (rows_dev.cuh). The whole block takes
-// part in the selection even at n <= 32: one warp doing it alone, with
-// no block barrier, measured slower (its ballots and counts in series).
+// recomputing its island's selection, which is cheap while the
+// dominator words fit, so that no block waits for another, and copying
+// only its own K11_ROWS output rows with K7's row copy (rows_dev.cuh);
+// an island too large for the words takes one block, which copies all
+// of its rows. The whole block takes part in the selection even at
+// n <= 32: one warp doing it alone, with no block barrier, measured
+// slower (its ballots and counts in series).
 // Everything else lives in shared memory:
 //   - dominators: row i's dominators as ceil(n/32) words, word w bit b
 //     set when row 32w + b dominates row i, one __ballot_sync a word,
 //     computed once (an island too large for them in shared memory,
-//     n above ~1,300, counts a row's words anew each round, the cost of
-//     the previous design);
+//     n above ~1,300, counts a row's words anew each round, up to the
+//     first that holds an unassigned dominator);
 //   - ranks: complete peeling against the bitset of unassigned rows; a
 //     round puts in the current front every unassigned row none of whose
 //     dominators is still unassigned (the JAX count of remaining
@@ -80,19 +82,18 @@ __host__ __device__ __forceinline__ int k11_words(int n) {
 #endif
 
 struct K11Smem {
-    int *hcv, *scv, *rank, *pos, *pen, *mm, *dst, *sbuf, *srow;
+    int *hcv, *scv, *rank, *pos, *pen, *mm;
     float* crowd;
     uint32_t *dom, *left;
 };
 
 // An island of n rows: 4 n ints (6 with the survivors' crowded
-// positions and penalties), the objectives' min and max, the block's
-// output rows, two unassigned bitsets; then, where they fit (`words`),
-// the dominator words.
+// positions and penalties), the objectives' min and max, two unassigned
+// bitsets; then, where they fit (`words`), the dominator words.
 static size_t k11_smem_bytes(int n, int surv, int words) {
     const size_t nw = (size_t)k11_words(n);
-    return sizeof(int) * ((surv ? 6 : 4) * (size_t)n + 4 + 3 * K11_ROWS
-                          + 2 * nw + (words ? nw * n : 0));
+    return sizeof(int) * ((surv ? 6 : 4) * (size_t)n + 4 + 2 * nw
+                          + (words ? nw * n : 0));
 }
 
 __device__ __forceinline__ K11Smem k11_smem(int n, int surv) {
@@ -105,10 +106,7 @@ __device__ __forceinline__ K11Smem k11_smem(int n, int surv) {
     m.pos = (int*)(m.crowd + n);    // position in the crowded order
     m.pen = m.pos + (surv ? n : 0);
     m.mm = m.pen + (surv ? n : 0);  // min hcv, max hcv, min scv, max scv
-    m.dst = m.mm + 4;               // the block's output rows: candidate,
-    m.sbuf = m.dst + K11_ROWS;      // its buffer (0 parents, 1 children)
-    m.srow = m.sbuf + K11_ROWS;     // and its row there
-    m.left = (uint32_t*)(m.srow + K11_ROWS);
+    m.left = (uint32_t*)(m.mm + 4);
     m.dom = m.left + 2 * k11_words(n);
     return m;
 }
@@ -316,13 +314,15 @@ __global__ void __launch_bounds__(K11_THREADS) nsga_rank_kernel(
     TT_PROF(6);
 }
 
+// `rows`: output rows a block copies (K11_ROWS, or the whole `keep`
+// where the selection is too dear to repeat)
 __global__ void __launch_bounds__(K11_THREADS) nsga_survivors_kernel(
     TTRows a, TTRows b, TTRowsOut out, int na, int nb, int keep, int E,
-    int vec, int words) {
+    int vec, int words, int rows) {
     const int n = na + nb;
-    const int per = (keep + K11_ROWS - 1) / K11_ROWS;
-    const int g = blockIdx.x / per, o0 = (blockIdx.x % per) * K11_ROWS;
-    const int o1 = min(keep, o0 + K11_ROWS);
+    const int per = (keep + rows - 1) / rows;
+    const int g = blockIdx.x / per, o0 = (blockIdx.x % per) * rows;
+    const int o1 = min(keep, o0 + rows);
     K11Smem m = k11_smem(n, 1);
     TT_PROF_START();
     // row i < na: parent g * na + i; else child g * nb + i - na
@@ -350,9 +350,13 @@ __global__ void __launch_bounds__(K11_THREADS) nsga_survivors_kernel(
         [&](int i, int c, const K11NoAcc&) { m.pos[i] = c; });
     __syncthreads();
     // the kept rows' places by (penalty, scv, crowded position); this
-    // block's are out rows [o0, o1)
+    // block's are out rows [o0, o1), out row q row srow[q] of buffer
+    // sbuf[q] (0 parents, 1 children), kept in the places of hcv, the
+    // ranks and the crowding, which this count does not read (oq[q] = q
+    // indexes them for the copy)
     const int* pos = m.pos;
     const int *pen = m.pen, *scv = m.scv;
+    int *oq = m.hcv, *sbuf = m.rank, *srow = (int*)m.crowd;
     k11_count<K11NoAcc>(
         n,
         [&](int j, int i, K11NoAcc&) {
@@ -365,16 +369,17 @@ __global__ void __launch_bounds__(K11_THREADS) nsga_survivors_kernel(
         },
         [&](int i, int q, const K11NoAcc&) {
             if (pos[i] < keep && q >= o0 && q < o1) {
-                m.dst[q - o0] = q - o0;
-                m.sbuf[q - o0] = i < na ? 0 : 1;
-                m.srow[q - o0] = i < na ? g * na + i : g * nb + i - na;
+                oq[q] = q;
+                sbuf[q] = i < na ? 0 : 1;
+                srow[q] = i < na ? g * na + i : g * nb + i - na;
             }
         });
     __syncthreads();
     TT_PROF(4);
     const TTRows from[2] = {a, b};
-    const size_t out0 = (size_t)g * keep + o0;
-    tt_copy_rows(m.dst, o1 - o0, m.sbuf, m.srow, from, out, out0, E, vec);
+    for (int c = o0; c < o1; c += blockDim.x)
+        tt_copy_rows(oq + c, min((int)blockDim.x, o1 - c), sbuf, srow,
+                     from, out, (size_t)g * keep + c, E, vec);
     TT_PROF(5);
 }
 
@@ -411,9 +416,13 @@ extern "C" int tt_nsga_survivors(
     TTRows a = {a_slots, a_rooms, a_pen, a_hcv, a_scv};
     TTRows b = {b_slots, b_rooms, b_pen, b_hcv, b_scv};
     TTRowsOut out = {o_slots, o_rooms, o_pen, o_hcv, o_scv};
-    const int grid = groups * ((keep + K11_ROWS - 1) / K11_ROWS);
+    // without the dominator words a block's selection costs a peel of
+    // n^2 tests a front: one block an island does it once
+    const int per_block = words ? K11_ROWS : keep;
+    const int grid = groups * ((keep + per_block - 1) / per_block);
     nsga_survivors_kernel<<<grid, K11_THREADS, smem,
                             (cudaStream_t)stream>>>(
-        a, b, out, na, nb, keep, E, tt_rows_vec(E, rows, 6), words);
+        a, b, out, na, nb, keep, E, tt_rows_vec(E, rows, 6), words,
+        per_block);
     return (int)cudaGetLastError();
 }

@@ -8,8 +8,9 @@
 // scatter-mins.
 //
 // Bound on this card: neither bytes (an individual's slots and rooms,
-// ~3 KB at E=400) nor operations (each round ~4 E R key compares); its
-// time is the chain of dependent steps of a slot's matching. The phase
+// ~3 KB at E=400) nor operations (a round takes an event two picks, an
+// AND and a find-first-set each, and two ballot bids); its time is the
+// chain of dependent steps of a slot's matching. The phase
 // counters of the previous design (the whole individual on one warp,
 // ~40 dependent warp phases over (T, R+1) grids in shared memory;
 // k5_phases) put four-fifths of a launch in the augment rounds.
@@ -33,8 +34,8 @@
 
 __global__ void __launch_bounds__(K9_THREADS) parallel_rooms_kernel(
     const int* __restrict__ slots, const int* __restrict__ rooms_in,
-    const uint8_t* __restrict__ possible, const int* __restrict__ cap_rank,
-    const int* __restrict__ dead, const int* __restrict__ live,
+    const int* __restrict__ cap_rank, const int* __restrict__ dead,
+    const int* __restrict__ live,
     const uint32_t* __restrict__ suit, const int* __restrict__ room_of,
     int* __restrict__ rooms_out, int E, int R, int T, int n_rounds) {
     extern __shared__ int k9_smem[];
@@ -42,7 +43,8 @@ __global__ void __launch_bounds__(K9_THREADS) parallel_rooms_kernel(
     const int c = blockIdx.x;
     int* sl = k9_smem;
     int* rm = sl + E;
-    const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
+    // the matcher reads the rooms' suitability as suit words only
+    const TTRoomProblem rp = {nullptr, cap_rank, dead, live, E, R, T};
     const TTRankRooms rr = {suit, room_of};
     for (int e = threadIdx.x; e < E; e += blockDim.x) {
         sl[e] = slots[(size_t)c * E + e];
@@ -59,7 +61,6 @@ __global__ void __launch_bounds__(K9_THREADS) parallel_rooms_kernel(
 }
 
 extern "C" int tt_parallel_rooms(const int* slots, const int* rooms_in,
-                                 const uint8_t* possible,
                                  const int* cap_rank, const int* dead,
                                  const int* live, const uint32_t* suit,
                                  const int* room_of, int* rooms_out, int P,
@@ -74,7 +75,7 @@ extern "C" int tt_parallel_rooms(const int* slots, const int* rooms_in,
     cudaError_t err = tt_set_smem(parallel_rooms_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     parallel_rooms_kernel<<<P, K9_THREADS, smem, (cudaStream_t)stream>>>(
-        slots, rooms_in, possible, cap_rank, dead, live, suit, room_of,
+        slots, rooms_in, cap_rank, dead, live, suit, room_of,
         rooms_out, E, R, T, n_rounds);
     return (int)cudaGetLastError();
 }

@@ -4,9 +4,9 @@ migration, one K11 ranking or replacement and one parallel room
 matching spend their time, on the card.
 
     python -m timetabling_ga_tpu_torch.k5_phases [k5] [k8] [k8e] [k12] \
-        [k2] [k7] [k11] [k9]
+        [k2] [k7] [k11] [k9] [k11big]
 
-(no argument: all eight). Builds csrc/sweep_pass.cu, csrc/random_ls.cu,
+(no argument: all but k11big). Builds csrc/sweep_pass.cu, csrc/random_ls.cu,
 csrc/full_eval_ls.cu, csrc/batch_penalty.cu, csrc/survivors.cu,
 csrc/nsga.cu, csrc/parallel_rooms.cu and csrc/breed.cu once more with
 their phase counters compiled in (-DTT_K5_PROF: block 0's
@@ -43,6 +43,10 @@ per round (K8, K12) or per launch (K8's pre-pass, K2, K7):
   and of 64, whose dominator sets take two words) and nsga_survivors
   (those parents and as many children) on comp05s rows from random
   slots, the mean of 20 launches; the thread is block 0's;
+- `k11big`, only when named: K11's device time alone (no counters) on
+  islands of 512 parents (survivors of 1,024 rows, the dominator words
+  still in shared memory), 700 and 1,400 (ranks of 1,400 rows and
+  survivors of 1,400 and 2,800, too many for them) and 16;
 - the parallel room matcher at the nsga path's shape (comp05s, 16
   children): K9's own launch from best-fit rooms, and K6 breeding
   under --nsga2 --rooms-mode parallel with crossover on for every
@@ -262,13 +266,6 @@ def k12_lines(pa, dev):
                 cluster=local_search.full_eval_cluster(gc.ls_candidates))
 
 
-def launches_kernel(key: str, kernel: str) -> bool:
-    """Whether a profiler event's name is entry point `kernel`'s CUDA
-    kernel (`<kernel>_kernel...`; an instance of a kernel template is
-    named with its return type first, `void breed_kernel<true>(...)`)."""
-    return key.removeprefix("void ").startswith(f"{kernel}_kernel")
-
-
 def device_us_per_launch(fn, kernel, reps=REPS, sessions=3):
     """Device time of one launch of `kernel` (its CUDA kernel's name
     prefix) over `reps` calls of `fn`, from torch.profiler; a session
@@ -286,7 +283,7 @@ def device_us_per_launch(fn, kernel, reps=REPS, sessions=3):
             torch.cuda.synchronize()
         for ev in prof.key_averages():
             if getattr(ev, "device_type", None) == DeviceType.CUDA and \
-                    launches_kernel(ev.key, kernel) and ev.count:
+                    ev.key.startswith(f"{kernel}_kernel") and ev.count:
                 us = getattr(ev, "self_device_time_total", None)
                 if us is None:
                     us = ev.self_cuda_time_total
@@ -386,6 +383,31 @@ def k11_lines(pa, dev):
                         device_us=device_us_per_launch(fn, entry))
 
 
+def k11big_lines(pa, dev):
+    """K11's two entries on islands of 512 parents (survivors of 1,024
+    rows, whose dominator words still fit in shared memory), of 700 and
+    1,400 (ranks of 1,400 rows and survivors of 1,400 and 2,800, too many
+    for them) and, beside them, of the nsga path's 16: comp05s
+    rows from random slots, device time only. No counters are compiled
+    in, so a copy of this file laid over an older tree of the port
+    times that tree's K11 the same way."""
+    from timetabling_ga_tpu_torch.ops import nsga
+    pa05 = load_tim_file(str(COMP05S)).device_arrays(dev)
+    g = torch.Generator(device=dev).manual_seed(11500)
+    for pop in (16, 512, 700, 1400):
+        par, ch = _comp05s_rows(pa05, pop, g), _comp05s_rows(pa05, pop, g)
+        for entry, fn, n, h, s in (
+                ("nsga_rank", lambda: nsga.rank_crowd(par.hcv, par.scv),
+                 pop, par.hcv, par.scv),
+                ("nsga_survivors", lambda: nsga.survivors(par, ch, 1, pop),
+                 2 * pop, torch.cat([par.hcv, ch.hcv]),
+                 torch.cat([par.scv, ch.scv]))):
+            fronts = int(nsga.rank_crowd_plain(h, s)[0].max()) + 1
+            yield json.dumps({"shape": ["K11", entry, pop], "rows": n,
+                              "fronts": fronts, "device_us":
+                              device_us_per_launch(fn, entry)})
+
+
 def k9_lines(pa, dev):
     from timetabling_ga_tpu_torch.ops import ga, nsga
     pa05 = load_tim_file(str(COMP05S)).device_arrays(dev)
@@ -425,6 +447,8 @@ def k9_lines(pa, dev):
 LINES = {"k5": k5_lines, "k8": k8_lines, "k8e": k8e_lines,
          "k12": k12_lines, "k2": k2_lines, "k7": k7_lines,
          "k11": k11_lines, "k9": k9_lines}
+# run only when named
+NAMED_ONLY = {"k11big": k11big_lines}
 
 
 def main() -> int:
@@ -440,7 +464,7 @@ def main() -> int:
     kernels.build()
     pa = load_tim_file(str(COMP01S)).device_arrays(dev)
     for which in sys.argv[1:] or list(LINES):
-        for line in LINES[which](pa, dev):
+        for line in {**LINES, **NAMED_ONLY}[which](pa, dev):
             print(line, flush=True)
     return 0
 

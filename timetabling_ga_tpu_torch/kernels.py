@@ -70,7 +70,7 @@ SIGNATURES = {
                   "random_ls"),
     "full_eval_ls": ("tt_full_eval_ls", [_P] * 23 + [_I] * 12 + [_P],
                      "full_eval_ls"),
-    "parallel_rooms": ("tt_parallel_rooms", [_P] * 9 + [_I] * 5 + [_P],
+    "parallel_rooms": ("tt_parallel_rooms", [_P] * 8 + [_I] * 5 + [_P],
                        "parallel_rooms"),
     "lahc": ("tt_lahc", [_P] * 29 + [_I] * 11 + [_P], "lahc"),
     "nsga_rank": ("tt_nsga_rank", [_P] * 4 + [_I] * 2 + [_P], "nsga"),

@@ -251,10 +251,10 @@ def augment_rooms_kernel(pa, slots, rooms, n_rounds: int = 4):
         return out
     p = kernels.ptr
     kernels.launch("parallel_rooms", p(ins[0]),
-                   None if rooms is None else p(ins[1]), p(pa.possible_u8),
-                   p(pa.cap_rank), p(pa.dead), p(pa.live), p(pa.suit_rank),
-                   p(pa.room_of_rank), p(out), P, E,
-                   pa.n_rooms, pa.n_slots, n_rounds)
+                   None if rooms is None else p(ins[1]), p(pa.cap_rank),
+                   p(pa.dead), p(pa.live), p(pa.suit_rank),
+                   p(pa.room_of_rank), p(out), P, E, pa.n_rooms,
+                   pa.n_slots, n_rounds)
     return out
 
 
