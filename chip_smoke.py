@@ -46,9 +46,16 @@
    slot, K6, K9 and K11 timed at both pops; K5, K8
    and K10 from random starts and from feasible ones (the planted
    witness, a few events moved), and on one individual (their chains'
-   floor); then K2's, K7's, K8's pre-pass's, K12's, K11's and the
-   parallel matcher's phase counters (k5_phases, each instrumented
-   kernel checked equal to the regular one);
+   floor); K13 (the trace compression of --trace-mode deltas|stats):
+   compress_trace in both modes at L = 1, 4, 16 islands x T = 1, 8, 33,
+   64, 200, 1000 generations x event caps below, equal to and above the
+   improvement counts, on traces with planted ties, long runs of equal
+   rows and sentinel rows (events and counts exact; moments: min and max
+   exact, mean within a relative 1e-6, var within 4 T 2^-24 mean(rep^2)),
+   and moment_rows on (L, n) rows the same way; then K2's, K7's, K8's
+   pre-pass's, K12's, K11's and the parallel matcher's phase counters
+   (k5_phases, each instrumented kernel checked equal to the regular
+   one);
 3. drives five paths through `timetabling_ga_tpu_torch.cli`, seed 42,
    each with the launch counters zeroed just before and read just after:
    on comp01s the main path (size-tuned defaults, -t 60), the
@@ -61,14 +68,25 @@
    reported timetable re-scores to its reported best), and so is which
    kernels each path launched (PATH_KERNELS; the reference and
    full-eval paths launch K2 only for their initial population and
-   their kicks, and K6's relocation entry only for their kicks);
+   their kicks, and K6's relocation entry only for their kicks; none
+   launches K13); then the resume path on comp01s (`--no-auto-tune -p 2
+   -s 42`): (a) 300 generations checkpointed every epoch in
+   `--trace-mode stats`, (b) the same resumed to 600, (c) 600
+   uninterrupted in full mode — the final checkpoints equal bit for bit,
+   (a)'s logEntry values then (b)'s equal (c)'s, K13 launched on (a) and
+   (b) and never on (c) — and the tuned main path, -t 15 with a
+   checkpoint in stats mode, resumed for another -t 15 (it starts at the
+   saved generation, stays below the saved best floor, keeps the tuned
+   16 rows: post_pop_size is dropped under --checkpoint); and the
+   reference config for 300 generations in each trace mode (the three
+   streams equal under strip_timing, K13 only in deltas and stats);
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
    generation, one full-eval generation, one kick, one LAHC launch and
    two NSGA-II generations,
    repair and post phase (launches, device idle share, device time per
-   launch of each kernel), then K2's and K9's own launches at their timed
-   shapes (K9's body runs inside K6 on the paths);
+   launch of each kernel), then K2's, K9's and K13's own launches at
+   their timed shapes (K9's body runs inside K6 on the paths);
 5. prints one line per kernel, the {"kernels": [...]} summary and, last,
    {"ok": true, "device": {...}}.
 
@@ -198,6 +216,12 @@ KERNELS = {
                   "timetabling_ga_tpu/ops/nsga.py:40", "nsga"),
     "nsga_survivors": ("timetabling_ga_tpu_torch/csrc/nsga.cu",
                        "timetabling_ga_tpu/ops/nsga.py:97", "nsga"),
+    "compress_trace": ("timetabling_ga_tpu_torch/csrc/trace_compress.cu",
+                       "timetabling_ga_tpu/parallel/islands.py:595",
+                       "resume"),
+    "moment_rows": ("timetabling_ga_tpu_torch/csrc/trace_compress.cu",
+                    "timetabling_ga_tpu/parallel/islands.py:445",
+                    "resume-main"),
 }
 # entry points whose body runs inside another kernel on the paths and
 # whose own launch is the unit check of that body (0 launches on a path)
@@ -212,27 +236,30 @@ BODY_RUNS_IN = {"move1_sweep": "sweep_pass",
 # K2_ONLY_AT_INIT
 PER_GEN = ("breed", "survivors", "batch_penalty")
 SEARCH_MODES = ("lahc", "nsga_rank", "nsga_survivors", "parallel_rooms")
+# K13 runs only under --trace-mode deltas|stats
+K13 = ("compress_trace", "moment_rows")
 K8 = ("random_ls_events", "random_ls")
 LS = K8 + ("full_eval_ls",)
 PATH_KERNELS = {
     "main": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
-             ("move1_sweep", "delta_one") + LS + SEARCH_MODES),
+             ("move1_sweep", "delta_one") + LS + SEARCH_MODES + K13),
     "reference": (("breed", "survivors") + K8,
                   ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass", "full_eval_ls")
-                  + SEARCH_MODES),
+                  + SEARCH_MODES + K13),
     "full-eval": (("breed", "survivors", "random_ls_events",
                    "full_eval_ls"), ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass", "random_ls")
-                  + SEARCH_MODES),
+                  + SEARCH_MODES + K13),
     # comp01s is feasible inside the initial polish, so the LAHC walkers
     # take the whole budget after it
     "lahc": ((), ("assign_rooms", "sweep_pass", "batch_penalty", "lahc"),
              ("move1_sweep", "delta_one") + LS
-             + ("nsga_rank", "nsga_survivors", "parallel_rooms")),
+             + ("nsga_rank", "nsga_survivors", "parallel_rooms") + K13),
     "nsga": (("breed", "nsga_rank", "nsga_survivors", "batch_penalty"),
              ("assign_rooms", "sweep_pass"),
-             ("move1_sweep", "delta_one") + LS + ("lahc", "parallel_rooms")),
+             ("move1_sweep", "delta_one") + LS + ("lahc", "parallel_rooms")
+             + K13),
 }
 K2_ONLY_AT_INIT = ("reference", "full-eval")
 # K2's cluster sizes held against its plain version (None: the wrapper's
@@ -242,6 +269,21 @@ K2_CLUSTERS = (None, 1, 2, 4, 8)
 FUSED_CHECKS = {"breed": 0, "random_ls": 0, "full_eval_ls": 0}
 # K9's timed calls by timing key, for their device times (k9_device_times)
 K9_TIMED = {}
+# K13's grid: islands, trace lengths and event caps (each trace also at
+# its islands' least and largest improvement counts), and its timed
+# shapes: the resume path's dispatch (1 island, 100 generations, stats)
+# and the main path's polish row (16 rows)
+K13_L = (1, 4, 16)
+K13_T = (1, 8, 33, 64, 200, 1000)
+K13_CAPS = (1, 3, 64, 5000)
+K13_TIMED = {"compress_trace": (1, 100), "moment_rows": (1, 16)}
+# the resume path: the reference config on comp01s, 300 generations
+# checkpointed every epoch in stats mode, resumed to 600, against 600
+# uninterrupted in full mode; then the tuned main path for -t 15 with a
+# checkpoint, resumed for another -t 15
+RESUME = ["--no-auto-tune", "-p", "2", "-s", "42", "-t", "120", "--trace"]
+RESUME_MAIN = ["-s", "42", "-t", "15", "--generations", "100000",
+               "--trace-mode", "stats", "--trace"]
 
 
 class SmokeFailure(Exception):
@@ -1646,8 +1688,161 @@ def profile_phases(pa, pa05, dev):
     return out
 
 
-def run_path(name):
-    """Run the CLI on the path's instance with its flags, the launch
+def k13_trace(L, T, seed, dev, sentinels=True):
+    """(L, T, 2) int32 per-generation (hcv, scv) traces with planted ties
+    and long runs of equal rows: a falling staircase with repeats, rows
+    equal to an earlier best, random rows and, unless `sentinels` is
+    False (the timed traces, like a run's), a few sentinel rows (the
+    CPU tests' `_trace`)."""
+    import numpy as np
+    import torch
+    from timetabling_ga_tpu_torch.parallel import islands
+    g = np.random.default_rng(seed)
+    h = np.maximum(0, 6 - np.cumsum(g.random((L, T)) < 0.05, 1))
+    s = np.maximum(0, 400 - np.cumsum(g.integers(0, 3, (L, T)), 1))
+    run = g.random((L, T)) < 0.5
+    for t in range(1, T):
+        h[:, t] = np.where(run[:, t], h[:, t - 1], h[:, t])
+        s[:, t] = np.where(run[:, t], s[:, t - 1], s[:, t])
+    wild = g.random((L, T)) < 0.1
+    h = np.where(wild, g.integers(0, 9, (L, T)), h)
+    s = np.where(wild, g.integers(0, 900, (L, T)), s)
+    sent = (g.random((L, T)) < 0.02) & sentinels
+    h = np.where(sent, islands.SENTINEL, h)
+    s = np.where(sent & (g.random((L, T)) < 0.5), islands.SENTINEL, s)
+    return torch.tensor(np.stack([h, s], -1), dtype=torch.int32,
+                        device=dev)
+
+
+def k13_moments_err(got, want, rep, what):
+    """The stated tolerance of K13's moments against the plain version:
+    min and max exact, mean within a relative 1e-6, var within
+    4 n 2^-24 mean(rep^2) over the n values `rep` of each row. Returns
+    the largest absolute difference."""
+    import numpy as np
+    got = np.asarray(got, np.float64).reshape(-1, 4)
+    want = np.asarray(want, np.float64).reshape(-1, 4)
+    rep = np.asarray(rep, np.float64).reshape(got.shape[0], -1)
+    tol = 4 * rep.shape[1] * 2.0 ** -24 * (rep * rep).mean(1)
+    check((got[:, 2:] == want[:, 2:]).all(), f"{what}: min/max differ")
+    check((np.abs(got[:, 0] - want[:, 0])
+           <= 1e-6 * np.abs(want[:, 0])).all(), f"{what}: mean differs")
+    check((np.abs(got[:, 1] - want[:, 1]) <= tol).all(),
+          f"{what}: var differs beyond 4 n 2^-24 mean(rep^2)")
+    return float(np.abs(got - want).max())
+
+
+def k13_equal(trace, mode, what):
+    """compress_trace against its plain version: events and counts
+    exactly, moments within the tolerance; (plain leaf, max abs err)."""
+    import numpy as np
+    from timetabling_ga_tpu_torch.parallel import islands
+    got = islands.compress_trace_kernel(trace, mode).cpu().numpy()
+    want = islands.compress_trace_plain(trace, mode).cpu().numpy()
+    check(got.shape == want.shape, f"{what}: leaf shape")
+    K = min(trace.shape[1], islands.TRACE_DELTAS_CAP)
+    check((got[:, :3 * K + 1] == want[:, :3 * K + 1]).all(),
+          f"{what}: events or counts differ")
+    err = 0.0
+    if mode == "stats":
+        t = trace.cpu()
+        err = k13_moments_err(
+            got[:, 3 * K + 1:].view(np.float32),
+            want[:, 3 * K + 1:].view(np.float32),
+            islands.reported_f32(t[..., 0], t[..., 1]).numpy(), what)
+    return want, err
+
+
+def compare_trace_compress(dev):
+    """K13 against its plain version: compress_trace in both modes over
+    K13_L x K13_T, each trace at the caps K13_CAPS and at its islands'
+    least and largest improvement counts (K below, equal to and above),
+    and moment_rows on (L, n) rows; then both timed at K13_TIMED.
+    Returns (timings, cases compared, cases with an island over its
+    cap)."""
+    import torch
+    from timetabling_ga_tpu_torch.parallel import islands
+    saved = islands.TRACE_DELTAS_CAP
+    n = over = 0
+    try:
+        for mode in ("deltas", "stats"):
+            for L in K13_L:
+                for T in K13_T:
+                    tr = k13_trace(L, T, L * T, dev)
+                    islands.TRACE_DELTAS_CAP = T
+                    counts = k13_equal(tr, mode, f"compress_trace L={L} "
+                                       f"T={T}")[0][:, 3 * T]
+                    for cap in sorted({*K13_CAPS, int(counts.min()),
+                                       int(counts.max())}):
+                        islands.TRACE_DELTAS_CAP = cap
+                        what = f"compress_trace {mode} L={L} T={T} K={cap}"
+                        leaf = k13_equal(tr, mode, what)[0]
+                        check((leaf[:, 3 * min(T, cap)] == counts).all(),
+                              f"{what}: count changed with the cap")
+                        n += 1
+                        over += bool((counts > min(T, cap)).any())
+        check(over > 0, "compress_trace: no case overflowed its cap")
+        for L in K13_L:
+            for pop in (1, 4, 10, 16, 64):
+                tr = k13_trace(L, pop, 7 * pop + L, dev)
+                h, s = tr[..., 0].contiguous(), tr[..., 1].contiguous()
+                k13_moments_err(
+                    islands.moment_rows_kernel(h, s).cpu().numpy()
+                    .view("float32").T,
+                    islands.moment_rows_plain(h, s).cpu().numpy()
+                    .view("float32").T,
+                    islands.reported_f32(h, s).cpu().numpy(),
+                    f"moment_rows L={L} n={pop}")
+                n += 1
+        islands.TRACE_DELTAS_CAP = 64
+        out = {}
+        L, T = K13_TIMED["compress_trace"]
+        tr = k13_trace(L, T, 1, dev, sentinels=False)
+        _, err = k13_equal(tr, "stats", "compress_trace timed")
+        W = islands.trace_leaf_width(T, "stats")
+        b, by = bound(L * T * 2 * 4 + L * W * 4, 0)
+        out[("compress_trace", L, T)] = dict(
+            ms=time_ms(lambda: islands.compress_trace_kernel(tr, "stats"),
+                       200),
+            plain_ms=time_ms(
+                lambda: islands.compress_trace_plain(tr, "stats"), 20),
+            max_abs_err=err, bound_ms=b, bound_by=by, library_ms=None)
+        L, m = K13_TIMED["moment_rows"]
+        tr = k13_trace(L, m, 2, dev, sentinels=False)
+        h, s = tr[..., 0].contiguous(), tr[..., 1].contiguous()
+        err = k13_moments_err(
+            islands.moment_rows_kernel(h, s).cpu().numpy().view("float32").T,
+            islands.moment_rows_plain(h, s).cpu().numpy().view("float32").T,
+            islands.reported_f32(h, s).cpu().numpy(), "moment_rows timed")
+        b, by = bound(2 * L * m * 4 + 4 * L * 4, 0)
+        out[("moment_rows", L, m)] = dict(
+            ms=time_ms(lambda: islands.moment_rows_kernel(h, s), 200),
+            plain_ms=time_ms(lambda: islands.moment_rows_plain(h, s), 20),
+            max_abs_err=err, bound_ms=b, bound_by=by, library_ms=None)
+        torch.cuda.synchronize()
+        return out, n, over
+    finally:
+        islands.TRACE_DELTAS_CAP = saved
+
+
+def k13_device_times(dev, timings):
+    """K13's device time a launch at its timed shapes (torch.profiler),
+    added to its timings; run after the profile windows."""
+    from timetabling_ga_tpu_torch.k5_phases import device_us_per_launch
+    from timetabling_ga_tpu_torch.parallel import islands
+    L, T = K13_TIMED["compress_trace"]
+    tr = k13_trace(L, T, 1, dev, sentinels=False)
+    timings[("compress_trace", L, T)]["device_us"] = device_us_per_launch(
+        lambda: islands.compress_trace_kernel(tr, "stats"), "compress_trace")
+    L, m = K13_TIMED["moment_rows"]
+    tr = k13_trace(L, m, 2, dev, sentinels=False)
+    h, s = tr[..., 0].contiguous(), tr[..., 1].contiguous()
+    timings[("moment_rows", L, m)]["device_us"] = device_us_per_launch(
+        lambda: islands.moment_rows_kernel(h, s), "moment_rows")
+
+
+def run_cli(name, argv, tim=TIM):
+    """Run the CLI with `argv` (output to build/chip_smoke/), the launch
     counters zeroed just before and read just after; returns (records,
     seconds, launches)."""
     from timetabling_ga_tpu_torch import cli, kernels
@@ -1655,13 +1850,164 @@ def run_path(name):
     path = os.path.join(OUT_DIR, f"comp01s_s42_{name}.jsonl")
     kernels.reset_launches()
     t0 = time.monotonic()
-    rc = cli.main(["-i", PATH_TIM.get(name, TIM), "-o", path] + PATHS[name])
+    rc = cli.main(["-i", tim, "-o", path] + argv)
     seconds = time.monotonic() - t0
     launches = dict(kernels.LAUNCHES)
-    check(rc == 0, f"{name} path: cli exited {rc}")
+    check(rc == 0, f"{name}: cli exited {rc}")
     with open(path) as f:
         records = [json.loads(line) for line in f]
     return records, seconds, launches
+
+
+def _fresh(path):
+    for p in (path, path + ".prev"):
+        if os.path.exists(p):
+            os.unlink(p)
+    return path
+
+
+def _phases(records, name):
+    return [r["phase"] for r in records
+            if "phase" in r and r["phase"]["name"] == name]
+
+
+def _dispatched(records):
+    return sum(p["gens"] for p in _phases(records, "dispatch"))
+
+
+def _rate(records):
+    """Generations per second of a run's dispatches."""
+    d = _phases(records, "dispatch")
+    return sum(p["gens"] for p in d) / sum(p["seconds"] for p in d)
+
+
+def _check_resumed(name, records, gen0, floor, gen1):
+    """A resumed run: it ran gen1 - gen0 generations, and each island's
+    logEntry bests fall, below the saved floor."""
+    check(_dispatched(records) == gen1 - gen0,
+          f"{name}: {_dispatched(records)} generations, not "
+          f"{gen1} - {gen0}")
+    for r in records:
+        if "logEntry" in r:
+            e = r["logEntry"]
+            check(e["best"] < floor[e["procID"]],
+                  f"{name}: logEntry {e['best']} not below the saved "
+                  f"floor {floor[e['procID']]}")
+
+
+def resume_path(pa_cpu, gens=300):
+    """The checkpoint/resume path on comp01s: (a) 300 generations of the
+    reference config checkpointed every epoch in stats mode, (b) resumed
+    to 600, (c) 600 uninterrupted in full mode; the final checkpoints
+    equal bit for bit, (a)'s logEntry values then (b)'s equal (c)'s, and
+    K13 runs on (a) and (b), never on (c). Then the tuned main path, -t
+    15 with a checkpoint in stats mode, resumed for another -t 15: it
+    starts at the saved generation, stays below the saved floor, and its
+    population kept the tuned 16 rows (post_pop_size dropped). Returns
+    (summary, launches by path)."""
+    import numpy as np
+    from timetabling_ga_tpu_torch.runtime import config, jsonl
+    a_ck = _fresh(os.path.join(OUT_DIR, "resume_A.npz"))
+    c_ck = _fresh(os.path.join(OUT_DIR, "resume_B.npz"))
+    ck = ["--checkpoint-every", "1", "--trace-mode", "stats"]
+    runs = {}
+    for name, argv in (
+            ("resume-a", ["--generations", str(gens), "--checkpoint", a_ck]
+             + ck),
+            ("resume-b", ["--generations", str(2 * gens), "--checkpoint",
+                          a_ck, "--resume"] + ck),
+            ("resume-c", ["--generations", str(2 * gens), "--checkpoint",
+                          c_ck])):
+        runs[name] = run_cli(name, RESUME + argv)
+    (a, _, la), (b, _, lb), (c, _, lc) = runs.values()
+    # (b) may improve on no floor; its values are held against (c)'s
+    check_stream(a, pa_cpu)
+    check_stream(c, pa_cpu)
+    check(_dispatched(a) == gens and _dispatched(b) == gens
+          and _dispatched(c) == 2 * gens, "resume: generations per run")
+    with np.load(a_ck) as za, np.load(c_ck) as zc:
+        for k in ("slots", "rooms", "penalty", "hcv", "scv", "generation",
+                  "best_seen"):
+            check(np.array_equal(za[k], zc[k]),
+                  f"resume: final checkpoints differ in {k}")
+        check(int(za["generation"]) == 2 * gens,
+              "resume: final generation")
+
+    def logs(recs):
+        return jsonl.strip_timing([r for r in recs if "logEntry" in r])
+    check(logs(a) + logs(b) == logs(c),
+          "resume: (a) then (b) logEntry values differ from (c)'s")
+    for name, la_ in (("resume-a", la), ("resume-b", lb)):
+        check(la_["compress_trace"] > 0, f"{name}: K13 never launched")
+    check(lc["compress_trace"] == 0 and lc["moment_rows"] == 0,
+          "resume-c: K13 launched in full mode")
+    m_ck = _fresh(os.path.join(OUT_DIR, "resume_main.npz"))
+    tuned = config.parse_args(["-i", TIM, "--checkpoint", m_ck]
+                              + RESUME_MAIN).apply_tuned_defaults(400)
+    check(tuned.post_pop_size is None,
+          "resume-main: tuned post_pop_size kept under --checkpoint")
+    m1, s1, l1 = run_cli("resume-main-1",
+                         RESUME_MAIN + ["--checkpoint", m_ck])
+    check_stream(m1, pa_cpu)
+    with np.load(m_ck) as z:
+        gen0, floor = int(z["generation"]), z["best_seen"].tolist()
+    m2, s2, l2 = run_cli("resume-main-2",
+                         RESUME_MAIN + ["--checkpoint", m_ck, "--resume"])
+    with np.load(m_ck) as z:
+        gen1, rows = int(z["generation"]), z["slots"].shape[0]
+    _check_resumed("resume-main-2", m2, gen0, floor, gen1)
+    check(rows == tuned.pop_size,
+          f"resume-main: {rows} rows saved, not the tuned {tuned.pop_size}")
+    check(l1["moment_rows"] > 0, "resume-main-1: moment_rows never ran")
+    saves = [p["seconds"] * 1e3 for r in (a, b, m1, m2)
+             for p in _phases(r, "checkpoint")]
+    summary = dict(
+        generations=[_dispatched(r) for r in (a, b, c)],
+        gens_per_s=[_rate(r) for r in (a, b, c)],
+        checkpoint_ms=dict(n=len(saves), mean=sum(saves) / len(saves),
+                           max=max(saves)),
+        wall_s=[round(x[1], 3) for x in runs.values()],
+        final_best=[r["runEntry"]["totalBest"] for r in (a[-1], b[-1],
+                                                          c[-1])],
+        main_saved_generation=gen0, main_final_generation=gen1,
+        main_wall_s=[round(s1, 3), round(s2, 3)],
+        main_gens_per_s=[_rate(m1), _rate(m2)],
+        main_final_best=[m1[-1]["runEntry"]["totalBest"],
+                         m2[-1]["runEntry"]["totalBest"]])
+    launches = {name: launch for name, (_, _, launch) in runs.items()}
+    launches["resume-main-1"], launches["resume-main-2"] = l1, l2
+    launches["resume"] = {k: la[k] + lb[k] for k in la}
+    launches["resume-main"] = {k: l1[k] + l2[k] for k in l1}
+    return summary, launches
+
+
+def trace_modes_path(pa_cpu, gens=300):
+    """The reference config on comp01s for `gens` generations in each
+    trace mode: the three record streams equal under strip_timing, K13
+    launched in deltas and stats and never in full. Returns the runs'
+    generations per second by mode."""
+    from timetabling_ga_tpu_torch.runtime import jsonl
+    streams, rates = {}, {}
+    for mode in ("full", "deltas", "stats"):
+        recs, _, launch = run_cli(f"trace-{mode}", RESUME + [
+            "--generations", str(gens), "--trace-mode", mode])
+        check_stream(recs, pa_cpu)
+        check((launch["compress_trace"] > 0) == (mode != "full"),
+              f"trace-{mode}: K13 launched {launch['compress_trace']} "
+              f"times")
+        streams[mode] = jsonl.strip_timing(recs)
+        rates[mode] = _rate(recs)
+    for mode in ("deltas", "stats"):
+        check(streams[mode] == streams["full"],
+              f"trace-{mode}: record stream differs from full")
+    return rates
+
+
+def run_path(name):
+    """Run the CLI on the path's instance with its flags, the launch
+    counters zeroed just before and read just after; returns (records,
+    seconds, launches)."""
+    return run_cli(name, PATHS[name], PATH_TIM.get(name, TIM))
 
 
 def check_path_kernels(name, launches, generations, kicks):
@@ -1795,6 +2141,10 @@ def main() -> int:
     compare_nsga(pa, dev)
     nsga_t, nsga_keys, nsga_breed, nsga_cases = compare_nsga_path(pa05, dev)
     timings.update(nsga_t)
+    k13_t, k13_cases, k13_over = compare_trace_compress(dev)
+    timings.update(k13_t)
+    print(json.dumps({"trace_compress_compared": k13_cases,
+                      "over_cap": k13_over}))
     print(json.dumps({"islands_compared": compare_islands(pa, dev)}))
     print(json.dumps({"kick_chains_compared": compare_kick_chains(pa, dev)}))
     print(json.dumps({"padded_parallel_rooms_compared":
@@ -1823,10 +2173,18 @@ def main() -> int:
                 rate * lcfg.post_pop_size * lcfg.post_lahc_k)
         print(json.dumps({"path": name, **summary,
                           "launches": launches[name]}))
+    print(json.dumps({"path": "trace-modes",
+                      "gens_per_s": trace_modes_path(pa_cpu[TIM])}))
+    summary, resume_launches = resume_path(pa_cpu[TIM])
+    launches.update(resume_launches)
+    print(json.dumps({"path": "resume", **summary, "launches": {
+        k: resume_launches[k] for k in ("resume-a", "resume-b", "resume-c",
+                                        "resume-main-1", "resume-main-2")}}))
     for prof in profile_phases(pa, pa05, dev):
         print(json.dumps({"profile": prof}))
     k2_device_times(pa, dev, timings)
     k9_device_times(timings, K9_TIMED)
+    k13_device_times(dev, timings)
     for line in phase_lines(pa, dev):
         print(json.dumps({"phases": line}))
     for key, t in timings.items():
@@ -1839,7 +2197,8 @@ def main() -> int:
                      "random_ls": ("random_ls", 10),
                      "random_ls_events": ("random_ls_events", 10),
                      "full_eval_ls": ("full_eval_ls", 10),
-                     "lahc": ("lahc", 4, 16, 5000), **nsga_keys
+                     "lahc": ("lahc", 4, 16, 5000), **nsga_keys,
+                     **{k: (k, *v) for k, v in K13_TIMED.items()}
                      }.get(name, (name, 16))]
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[path][name],
@@ -1854,6 +2213,8 @@ def main() -> int:
             row["library_ms_topk"] = t["library_ms_topk"]
         if name in BODY_RUNS_IN:
             row["body_runs_in"] = BODY_RUNS_IN[name]
+        if name in K13_TIMED:
+            row["device_us"] = t.get("device_us")
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""The CUDA sources of K1-K12, run on the CPU, against their plain
+"""The CUDA sources of K1-K13, run on the CPU, against their plain
 PyTorch versions.
 
 The kernels run only on the card (tests/test_torch_kernels.py, marked
@@ -26,7 +26,8 @@ import pytest
 import torch
 
 from tests.test_torch_kernels import (
-    K5_CASES, K11_CASES, _breed_case, _chained_augments, _degenerate_slots,
+    K5_CASES, K11_CASES, _breed_case, _trace, k13_equals_plain,
+    moment_rows_equal_plain, _chained_augments, _degenerate_slots,
     _half_feasible, _instances, _island_state, _k5_equals_plain,
     _k11_equal_plain,
     _k11_island, _ls_draws, _matcher_equals_plain, _matching_instances,
@@ -341,7 +342,8 @@ K12_GLOBAL = "full_eval_ls_global"
 K11_NO_WORDS = "nsga_no_words"
 EMULATED = ("assign_rooms", "batch_penalty", "move1_sweep", "delta_one",
             "sweep_pass", "breed", "survivors", "random_ls",
-            "parallel_rooms", "lahc", "nsga", "full_eval_ls")
+            "parallel_rooms", "lahc", "nsga", "full_eval_ls",
+            "trace_compress")
 # the block-per-row kernels built with two warps a block (their thread
 # counts are macros), which keeps the std::threads few and gives each
 # warp several slots or candidates; K8 with room for 48 bytes of events
@@ -973,3 +975,16 @@ def test_k12_global_memory_path_equals_plain(emulated, monkeypatch):
     got = local_search.batch_local_search_kernel(pa, draws, rows, 3)
     want = local_search.batch_local_search_plain(pa, draws, rows)
     assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+@pytest.mark.parametrize("L,T", [(1, 1), (2, 8), (1, 33), (3, 64), (2, 200)])
+@pytest.mark.parametrize("cap", [2, 64])
+def test_k13_source_equals_plain(emulated, monkeypatch, L, T, cap):
+    """K13's compress_trace in both modes (ties, long runs, sentinels,
+    T not a multiple of 32, K below and above the counts) and its
+    moment_rows entry."""
+    monkeypatch.setattr(islands, "TRACE_DELTAS_CAP", cap)
+    tr = _trace(L, T, 7 * T + cap, "cpu")
+    for mode in ("deltas", "stats"):
+        k13_equals_plain(tr, mode)
+    moment_rows_equal_plain(tr[..., 0].contiguous(), tr[..., 1].contiguous())

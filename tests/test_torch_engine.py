@@ -98,12 +98,12 @@ def test_tuned_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv,word", [
-    (["--obs"], "--obs"), (["--checkpoint", "c.npz"], "--checkpoint"),
+    (["--obs"], "--obs"),
+    (["--auto-kick-on-stall"], "--auto-kick-on-stall"),
     (["--faults", "dispatch:1:die"], "--faults"),
-    (["--resume"], "--resume"),
-    (["--trace-mode", "deltas"], "--trace-mode deltas"),
-    (["--quality"], "--quality"), (["--trace-mode", "stats"],
-                                   "--trace-mode stats"),
+    (["--metrics-every", "1"], "--metrics-every"),
+    (["--incident-dir", "d"], "--incident-dir"),
+    (["--quality"], "--quality"), (["--no-donate"], "--no-donate"),
     (["--distributed"], "--distributed"),
     (["--no-pipeline"], "--no-pipeline")])
 def test_unported_flags_are_refused_by_name(argv, word):
@@ -111,6 +111,37 @@ def test_unported_flags_are_refused_by_name(argv, word):
         tconfig.parse_args(["-i", "x.tim"] + argv)
     assert word in str(e.value)
 
+
+def test_checkpoint_flag_refusals_match_jax():
+    """The tuned post_pop_size is dropped under --checkpoint, and an
+    explicit --post-pop-size with --checkpoint stops the parse with
+    JAX's message (JAX config.py:411-415, 647-649)."""
+    for argv in ([], ["--pop-size", "8"]):
+        j = jconfig.parse_args(["-i", "x.tim", "--checkpoint", "c"] + argv)
+        t = tconfig.parse_args(["-i", "x.tim", "--checkpoint", "c"] + argv)
+        j.apply_tuned_defaults(400)
+        t.apply_tuned_defaults(400)
+        assert j.post_pop_size is None and t.post_pop_size is None
+        assert (j.checkpoint, j.checkpoint_every, j.resume) == (
+            t.checkpoint, t.checkpoint_every, t.resume)
+    argv = ["-i", "x.tim", "--checkpoint", "c", "--post-pop-size", "2"]
+    with pytest.raises(SystemExit) as je:
+        jconfig.parse_args(argv)
+    with pytest.raises(SystemExit) as te:
+        tconfig.parse_args(argv)
+    assert str(je.value) == str(te.value)
+    t = tconfig.parse_args(["-i", "x.tim", "--checkpoint", "c",
+                            "--checkpoint-every", "3", "--resume"])
+    assert (t.checkpoint, t.checkpoint_every, t.resume) == ("c", 3, True)
+
+
+@pytest.mark.parametrize("mode", ["full", "deltas", "stats"])
+def test_trace_mode_values_parse_as_jax(mode):
+    argv = ["-i", "x.tim", "--trace-mode", mode]
+    assert jconfig.parse_args(argv).trace_mode == \
+        tconfig.parse_args(argv).trace_mode == mode
+    with pytest.raises(SystemExit, match="unknown trace-mode"):
+        tconfig.parse_args(["-i", "x.tim", "--trace-mode", "terse"])
 
 @pytest.mark.parametrize("argv", [
     [], ["-p", "2"], ["-p", "3"], ["-p", "2", "-m", "50"],

@@ -93,3 +93,31 @@ def test_anchor_terms_match_jax(medium_problem):
                                      jnp.asarray(ns[i]))) == int(
             tfit.anchor_delta(tpa, t32(slots[i:i + 1]), t32(evs[i:i + 1]),
                               t32(ns[i:i + 1]))[0])
+
+
+@pytest.mark.parametrize("which,pop", [
+    ("tiny", 16), ("small", 8), ("medium", 4), ("room_tight", 6)])
+def test_fitness_matches_scalar_oracle(which, pop, tiny_problem,
+                                       small_problem, medium_problem):
+    """The port's batch_penalty (its plain version on the CPU) against
+    the scalar oracle (oracle/reference_oracle.py: Solution.cpp:63-170
+    transcribed), exactly, on random rows; the terms too."""
+    from timetabling_ga_tpu.oracle import (
+        oracle_hcv, oracle_penalty, oracle_scv)
+    from timetabling_ga_tpu_torch.problem import room_tight_instance
+    problem = {"tiny": tiny_problem, "small": small_problem,
+               "medium": medium_problem,
+               "room_tight": room_tight_instance(
+                   5, n_events=30, n_rooms=3, n_features=5,
+                   n_students=25)}[which]
+    _, tpa = arrays(problem)
+    slots, rooms = _random_pop(problem, pop, 42)
+    pen, hcv, scv = tfit.batch_penalty(tpa, t32(slots), t32(rooms))
+    th = tfit.compute_hcv(tpa, t32(slots), t32(rooms))
+    ts = tfit.compute_scv(tpa, t32(slots))
+    for i in range(pop):
+        want_h = oracle_hcv(problem, slots[i], rooms[i])
+        want_s = oracle_scv(problem, slots[i])
+        assert int(hcv[i]) == int(th[i]) == want_h, i
+        assert int(scv[i]) == int(ts[i]) == want_s, i
+        assert int(pen[i]) == oracle_penalty(problem, slots[i], rooms[i]), i

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K12 against their plain PyTorch versions.
+"""The CUDA kernels K1-K13 against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package and needs no conftest
 fixture, so it also runs on a machine with the card but without JAX:
@@ -278,6 +278,74 @@ def _matcher_equals_plain(pa, device, seed):
         got = ga.make_children_kernel(pa, d, par, 1, None, "parallel")
         want = ga.make_children_plain(pa, d, par, cfg, 1)
         assert all(torch.equal(w, x) for w, x in zip(want, got))
+
+
+# K13's shapes: islands, trace lengths (T not a multiple of 32 too) and
+# event caps below, equal to and above the improvement counts
+K13_L = (1, 4, 16)
+K13_T = (1, 8, 33, 64, 200, 1000)
+K13_CAPS = (1, 3, 64, 5000)
+
+
+def _trace(L, T, seed, device):
+    """(L, T, 2) int32 per-generation (hcv, scv) traces with planted ties
+    and long runs of equal rows: a falling staircase with repeats,
+    rows equal to an earlier best, a few sentinel rows and random
+    rows."""
+    g = np.random.default_rng(seed)
+    h = np.maximum(0, 6 - np.cumsum(g.random((L, T)) < 0.05, 1))
+    s = np.maximum(0, 400 - np.cumsum(g.integers(0, 3, (L, T)), 1))
+    run = g.random((L, T)) < 0.5          # long runs: repeat the last row
+    for t in range(1, T):
+        h[:, t] = np.where(run[:, t], h[:, t - 1], h[:, t])
+        s[:, t] = np.where(run[:, t], s[:, t - 1], s[:, t])
+    wild = g.random((L, T)) < 0.1
+    h = np.where(wild, g.integers(0, 9, (L, T)), h)
+    s = np.where(wild, g.integers(0, 900, (L, T)), s)
+    sent = g.random((L, T)) < 0.02
+    h = np.where(sent, islands.SENTINEL, h)
+    s = np.where(sent & (g.random((L, T)) < 0.5), islands.SENTINEL, s)
+    return torch.tensor(np.stack([h, s], -1), dtype=torch.int32,
+                        device=device)
+
+
+def moments_close(got, want, rep):
+    """The stated tolerance of K13's moments against the plain version
+    (and of the plain version against JAX): min and max exact, mean
+    within a relative 1e-6, var within 4 n 2^-24 mean(rep^2), where n
+    values `rep` (..., n) gave each row of (..., 4) float32 moments."""
+    got = np.asarray(got, np.float32).reshape(-1, 4)
+    want = np.asarray(want, np.float32).reshape(-1, 4)
+    rep = np.asarray(rep, np.float64).reshape(got.shape[0], -1)
+    n = rep.shape[1]
+    np.testing.assert_array_equal(got[:, 2:], want[:, 2:])
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-6, atol=0)
+    tol = 4 * n * 2.0 ** -24 * (rep * rep).mean(1)
+    assert (np.abs(got[:, 1].astype(np.float64) - want[:, 1]) <= tol).all()
+
+
+def k13_equals_plain(trace, mode):
+    """compress_trace's kernel against its plain version on one trace:
+    events and counts exactly, the moments (stats) within the stated
+    tolerance. Returns the plain leaf."""
+    got = islands.compress_trace_kernel(trace, mode).cpu().numpy()
+    want = islands.compress_trace_plain(trace, mode).cpu().numpy()
+    assert got.shape == want.shape
+    K = min(trace.shape[1], islands.TRACE_DELTAS_CAP)
+    np.testing.assert_array_equal(got[:, :3 * K + 1], want[:, :3 * K + 1])
+    if mode == "stats":
+        t = trace.cpu()
+        rep = islands.reported_f32(t[..., 0], t[..., 1]).numpy()
+        moments_close(got[:, 3 * K + 1:].view(np.float32),
+                      want[:, 3 * K + 1:].view(np.float32), rep)
+    return want
+
+
+def moment_rows_equal_plain(hcv, scv):
+    got = islands.moment_rows_kernel(hcv, scv).cpu().numpy()
+    want = islands.moment_rows_plain(hcv, scv).cpu().numpy()
+    rep = islands.reported_f32(hcv.cpu(), scv.cpu()).numpy()
+    moments_close(got.view(np.float32).T, want.view(np.float32).T, rep)
 
 
 @pytest.fixture
@@ -869,6 +937,56 @@ def test_cpu_tensors_take_the_plain_version():
     assert sum(kernels.LAUNCHES.values()) == 0
 
 
+def k13_grid(device, mode, set_cap):
+    """K13 against its plain version over K13_L x K13_T, each trace at
+    the caps K13_CAPS and at its islands' least and largest improvement
+    counts (K below, equal to and above the counts). `set_cap(k)` sets
+    islands.TRACE_DELTAS_CAP. Returns the number of traces compared and
+    of them with an island over its cap."""
+    n = over = 0
+    for L in K13_L:
+        for T in K13_T:
+            tr = _trace(L, T, L * T, device)
+            set_cap(T)
+            counts = k13_equals_plain(tr, mode)[:, 3 * T]
+            for cap in sorted({*K13_CAPS, int(counts.min()),
+                               int(counts.max())}):
+                set_cap(cap)
+                leaf = k13_equals_plain(tr, mode)
+                n += 1
+                over += bool((counts > min(T, cap)).any())
+                assert (leaf[:, 3 * min(T, cap)] == counts).all()
+    return n, over
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["deltas", "stats"])
+def test_k13_compress_trace_equals_plain(cuda, monkeypatch, mode):
+    """Events and counts exact, moments within the tolerance."""
+    n, over = k13_grid(cuda, mode, lambda k: monkeypatch.setattr(
+        islands, "TRACE_DELTAS_CAP", k))
+    assert n > len(K13_L) * len(K13_T) and over > 0
+
+
+@pytest.mark.cuda
+def test_k13_moment_rows_equals_plain(cuda):
+    for L, n in ((1, 64), (4, 16), (16, 4), (2, 1), (1, 1000)):
+        tr = _trace(L, n, n, cuda)
+        moment_rows_equal_plain(tr[..., 0].contiguous(),
+                                tr[..., 1].contiguous())
+
+
+def test_trace_compression_on_cpu_tensors_takes_the_plain_version():
+    kernels.reset_launches()
+    tr = _trace(2, 40, 0, "cpu")
+    leaf = islands.compress_trace(tr, "stats")
+    assert torch.equal(leaf, islands.compress_trace_plain(tr, "stats"))
+    rows = islands.moment_rows(tr[..., 0], tr[..., 1])
+    assert rows.shape == (4, 2)
+    assert kernels.LAUNCHES["compress_trace"] == 0
+    assert kernels.LAUNCHES["moment_rows"] == 0
+
+
 def test_sweep_pass_smem_bytes_at_comp01s():
     """K5's shared memory per CTA on comp01s (E=400, R=10, S=200, T=45,
     W=13): att 18,000 B, conflict bits 20,800, slots and rooms 3,200,
@@ -1046,6 +1164,8 @@ def test_library_paths_are_keyed_by_source_hash():
     assert kernels.SOURCES["random_ls"] == ["random_ls_events", "random_ls"]
     assert kernels.SOURCES["full_eval_ls"] == ["full_eval_ls"]
     assert kernels.SOURCES["nsga"] == ["nsga_rank", "nsga_survivors"]
+    assert kernels.SOURCES["trace_compress"] == ["compress_trace",
+                                                 "moment_rows"]
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     # every local header a source includes is part of its key
     assert [p.name for p in kernels._sources("sweep_pass")] == [
@@ -1067,6 +1187,8 @@ def test_library_paths_are_keyed_by_source_hash():
         "survivors.cu", "rows_dev.cuh", "common.cuh"]
     assert [p.name for p in kernels._sources("nsga")] == [
         "nsga.cu", "rows_dev.cuh", "common.cuh"]
+    assert [p.name for p in kernels._sources("trace_compress")] == [
+        "trace_compress.cu", "common.cuh"]
 
 
 def test_conflict_bits_and_csr_encode_the_problem():

@@ -84,6 +84,26 @@ def test_generators_match_jax(gen, kw):
     _same_host(j, t)
 
 
+@pytest.mark.parametrize("seed,kw", [
+    (0, dict(n_events=40, n_rooms=5, n_features=4, n_students=30)),
+    (3, dict(n_events=60, n_rooms=3, n_features=6, n_students=50,
+             attend_prob=0.08, feature_prob=0.6)),
+    (11, dict(n_events=25, n_rooms=2, n_features=8, n_students=20))])
+def test_room_tight_instance_matches_jax(seed, kw):
+    """room_tight_instance (JAX problem.py:443), field by field; each
+    case needs the orphan repair (its rooms' features differ from the
+    raw draw)."""
+    j = jprob.room_tight_instance(seed, **kw)
+    t = tprob.room_tight_instance(seed, **kw)
+    _same_host(j, t)
+    assert t.possible.any(axis=1).all()
+    rng = np.random.default_rng(seed)
+    rng.random((kw["n_students"], kw["n_events"]))
+    rng.random((kw["n_events"], kw["n_features"]))
+    raw = (rng.random((kw["n_rooms"], kw["n_features"])) < 0.4)
+    assert not np.array_equal(raw, t.room_features.astype(bool))
+
+
 def test_loader_errors_match_jax():
     for bad in ("3 2 1 2\n10 5\n1 1 0\n", "3 2 1 2\n10 5\n1 1 0\n0 1 1\n"
                 "1\n0\n0\n0\n1\n7\n"):

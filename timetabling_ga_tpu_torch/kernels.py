@@ -13,7 +13,8 @@ A source may hold several entry points (K6 `breed.cu`: breed and
 relocate; K7 `survivors.cu`: survivors and migrate; K8 `random_ls.cu`:
 its pre-pass random_ls_events, which also feeds K12 `full_eval_ls.cu`,
 and the chain random_ls; K11 `nsga.cu`:
-nsga_rank and nsga_survivors); each has its own name here. Every C entry
+nsga_rank and nsga_survivors; K13 `trace_compress.cu`: compress_trace
+and moment_rows); each has its own name here. Every C entry
 point launches on PyTorch's current stream and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code.
 `LAUNCHES` counts the launches of each entry point: a wrapper adds one
@@ -76,6 +77,10 @@ SIGNATURES = {
     "nsga_rank": ("tt_nsga_rank", [_P] * 4 + [_I] * 2 + [_P], "nsga"),
     "nsga_survivors": ("tt_nsga_survivors", [_P] * 15 + [_I] * 5 + [_P],
                        "nsga"),
+    "compress_trace": ("tt_compress_trace", [_P] * 2 + [_I] * 4 + [_P],
+                       "trace_compress"),
+    "moment_rows": ("tt_moment_rows", [_P] * 3 + [_I] * 2 + [_P],
+                    "trace_compress"),
 }
 
 # the entry points of each source

@@ -442,3 +442,42 @@ def itc_like_instance(key_or_seed, n_events: int = 400, n_rooms: int = 10,
     if return_planted:
         return p, p_slots, p_rooms
     return p
+
+
+def room_tight_instance(key_or_seed, n_events: int, n_rooms: int,
+                        n_features: int, n_students: int,
+                        attend_prob: float = 0.05,
+                        feature_prob: float = 0.4,
+                        n_days: int = DAYS_DEFAULT,
+                        slots_per_day: int = SLOTS_PER_DAY_DEFAULT
+                        ) -> Problem:
+    """Room-tight synthetic instance: no universal room, capacities drawn
+    from the events' sizes, ~40% feature coverage, so each slot's
+    possible rooms are few and overlap unevenly. An event with no
+    possible room gets the room needing the fewest changes upgraded,
+    until every event is placeable somewhere."""
+    rng = np.random.default_rng(key_or_seed)
+    attends = (rng.random((n_students, n_events))
+               < attend_prob).astype(np.int8)
+    event_features = (rng.random((n_events, n_features))
+                      < feature_prob).astype(np.int8)
+    room_features = (rng.random((n_rooms, n_features)) < 0.4).astype(np.int8)
+    student_count = attends.astype(np.int64).sum(axis=0).astype(np.int32)
+    sizes = np.sort(student_count)
+    picks = rng.integers(0, max(n_events, 1), size=n_rooms)
+    room_size = np.maximum(sizes[picks], 1).astype(np.int32)
+    for _ in range(n_features + 1):
+        p = derive(n_events, n_rooms, n_features, n_students, room_size,
+                   attends, room_features, event_features,
+                   n_days=n_days, slots_per_day=slots_per_day)
+        orphan = np.nonzero(~p.possible.any(axis=1))[0]
+        if orphan.size == 0:
+            return p
+        for e in orphan:
+            need = event_features[e].astype(bool)
+            deficit = ((need & ~room_features.astype(bool)).sum(axis=1)
+                       + (room_size < student_count[e]) * 1)
+            r = int(np.argmin(deficit))
+            room_features[r][need] = 1
+            room_size[r] = max(room_size[r], student_count[e])
+    return p

@@ -6,12 +6,16 @@ The flag surface is the JAX CLI's, in the reference's `-key value` model
 the sweep or the random-candidate local search (`--ls-mode random`, the
 untuned default, sized by `-p` / `-m` as the reference's maxSteps), the
 parallel room matcher (`--rooms-mode parallel`), NSGA-II selection
-(`--nsga2`) and the LAHC endgame (`--post-lahc`, `--post-lahc-k`); a
-flag it does not implement yet — or an implemented flag given a value
-it does not implement (`--trace-mode deltas`) — stops the parse with a
-message naming it as not yet ported, never silently ignored. `-l` is
-accepted and retired, as on the JAX path: the engine warns that the
-local search is bounded by -m instead.
+(`--nsga2`), the LAHC endgame (`--post-lahc`, `--post-lahc-k`),
+checkpoint/resume (`--checkpoint`, `--checkpoint-every`, `--resume`)
+and the compressed trace modes (`--trace-mode deltas|stats`). A flag it
+does not implement yet (`--quality`, `--metrics-every`, `--faults`, ...:
+`NOT_PORTED`) stops the parse with a message naming it as not yet
+ported, never silently ignored. `-l` is accepted and retired, as on the
+JAX path: the engine warns that the local search is bounded by -m
+instead. JAX's checkpoint refusals hold: the tuned `post_pop_size` is
+dropped under `--checkpoint`, and an explicit `--post-pop-size` with
+`--checkpoint` stops the parse.
 
 `--backend` is `gpu` (the default) or `cpu`; a GPU run that finds no
 CUDA device raises instead of falling back to the CPU.
@@ -66,6 +70,9 @@ class RunConfig:
     epochs_per_dispatch: int = 1
     trace: bool = False
     trace_mode: str = "full"
+    checkpoint: Optional[str] = None
+    checkpoint_every: int = 1
+    resume: bool = False
     auto_tune: bool = True
     explicit_fields: frozenset = frozenset()
 
@@ -96,6 +103,10 @@ class RunConfig:
                       post_swap_block=64, epochs_per_dispatch=4,
                       post_pop_size=4))
         tuned.update(ls_mode="sweep", ls_converge=True, ls_sideways=0.25)
+        if self.checkpoint:
+            # the mid-run shape change cannot round-trip a
+            # checkpoint/resume cycle (JAX config.py:411-415)
+            tuned.pop("post_pop_size", None)
         for field, value in tuned.items():
             if (field not in self.explicit_fields
                     and getattr(self, field) == getattr(d, field)):
@@ -148,16 +159,18 @@ _FLAG_MAP = {
     "--epochs-per-dispatch": ("epochs_per_dispatch", int),
     "--kick-stall": ("kick_stall", int),
     "--trace-mode": ("trace_mode", str),
+    "--checkpoint": ("checkpoint", str),
+    "--checkpoint-every": ("checkpoint_every", int),
 }
 
 _BOOL_FLAGS = {"--trace": "trace", "--ls-converge": "ls_converge",
-               "--ls-full-eval": "ls_full_eval", "--nsga2": "nsga2"}
+               "--ls-full-eval": "ls_full_eval", "--nsga2": "nsga2",
+               "--resume": "resume"}
 _NEG_BOOL_FLAGS = {"--no-auto-tune": "auto_tune"}
 
 # Flags of the JAX CLI this slice does not implement yet: True = takes
 # a value, False = a switch. Parsing any of them stops the run.
 NOT_PORTED = {
-    "--checkpoint": True, "--checkpoint-every": True,
     "--trace-profile": True, "--profile-dir": True, "--profile-for": True,
     "--mem-poll-every": True, "--metrics-every": True,
     "--obs-listen": True, "--history-every": True, "--incident-dir": True,
@@ -165,16 +178,11 @@ NOT_PORTED = {
     "--stall-hamming": True, "--max-recoveries": True,
     "--fetch-timeout": True, "--peer-timeout": True, "--faults": True,
     "--coordinator": True, "--num-processes": True, "--process-id": True,
-    "--resume": False,
     "--obs": False, "--quality": False, "--auto-kick-on-stall": False,
     "--distributed": False, "--no-precompile": False,
     "--no-pipeline": False, "--no-donate": False, "--no-accord": False,
 }
 
-# implemented flags whose other values are not ported yet
-_PORTED_VALUES = {"ls_mode": ("random", "sweep"),
-                  "rooms_mode": ("scan", "parallel"),
-                  "trace_mode": ("full",)}
 _KNOWN_VALUES = {"ls_mode": ("random", "sweep"),
                  "rooms_mode": ("scan", "parallel"),
                  "trace_mode": ("full", "deltas", "stats")}
@@ -236,10 +244,12 @@ def parse_args(argv) -> RunConfig:
         v = getattr(cfg, field)
         if v not in known:
             raise SystemExit(f"unknown {field.replace('_', '-')}: {v}")
-        if field in seen and v not in _PORTED_VALUES[field]:
-            raise not_ported(f"--{field.replace('_', '-')} {v}")
     if cfg.ls_candidates < 1:
         raise SystemExit("--ls-candidates must be >= 1")
+    if cfg.post_pop_size is not None and cfg.checkpoint:
+        raise SystemExit("--post-pop-size changes the population shape "
+                         "mid-run, which a checkpoint/resume cycle "
+                         "cannot represent; drop one of the two flags")
     if cfg.post_pop_size is not None and cfg.post_pop_size < 1:
         raise SystemExit("--post-pop-size must be >= 1")
     if cfg.post_lahc < 0:

@@ -9,11 +9,34 @@ timetabling_ga_tpu/runtime/engine.py:885-1066 and `_run_tries` :1272-).
     with --post-lahc the phase switch hands the rest of the budget to the
     LAHC walkers instead (no kick, no tail polish after them)
 
-Every dispatch ends in one host read of its (hcv, scv) best trace, which
-feeds the logEntry stream, the seconds-per-generation estimate and the
-control decisions. Not in the port yet: pipelining, buffer donation,
-fault recovery, multi-process agreement, observability, trace modes and
-checkpoints (runtime/config.py refuses their flags).
+Every dispatch ends in one host read of its best trace — the full
+(hcv, scv) trace, or under `--trace-mode deltas|stats` the packed leaf
+of its improvements that K13 computes on the card (islands.
+compress_trace) — decoded as JAX's dispatch_core.decode_telemetry does
+(without the quality split): the events feed the logEntry stream with
+the generation index each carries, dropped events count into
+`engine.trace_delta_overflow`, and stats mode sets the
+`engine.trace_best_*`, `engine.polish_*` and `engine.lahc_best_*` gauges
+(obs/metrics.py REGISTRY). The record stream is the same in all three
+modes.
+
+`--checkpoint` saves the population, the generation counter, the
+per-island best floor, the seed and the island generators' states
+(runtime/checkpoint.py) after a dispatch once `--checkpoint-every`
+epochs have passed since the last save (JAX engine.py:1846-1933). The
+loop is serial, so the save runs in line: no writer thread, no
+in-flight trace to fold into the saved floor. The LAHC endgame writes
+none. `--resume` loads it under the run's fingerprint (JAX
+engine.py:1329-1343): an explicit conflicting -s is refused, no -s
+adopts the saved seed, the init and its polish are skipped, and the
+generation count and the best floor continue, so the resumed logEntry
+stream stays monotone. The generators are restored from the file when
+it was written on the same device type, else reseeded from (seed,
+trial, island, generation).
+
+Not in the port yet: pipelining, buffer donation, fault recovery,
+multi-process agreement, the quality telemetry and the metrics
+exposition (runtime/config.py refuses their flags).
 """
 
 from __future__ import annotations
@@ -26,9 +49,11 @@ import numpy as np
 import torch
 
 from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
 from timetabling_ga_tpu_torch.ops import ga, lahc
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import load_tim_file
+from timetabling_ga_tpu_torch.runtime import checkpoint as ckpt
 from timetabling_ga_tpu_torch.runtime import jsonl
 from timetabling_ga_tpu_torch.runtime.config import RunConfig
 
@@ -88,16 +113,78 @@ def build_post_config(cfg: RunConfig, gacfg: ga.GAConfig):
     return None if post == gacfg else post
 
 
-def island_generators(device, seed: int, trial: int, n: int):
-    """One torch.Generator per island, seeded from (seed, trial, island)."""
+def island_generators(device, seed: int, trial: int, n: int,
+                      generation: int = None):
+    """One torch.Generator per island, seeded from (seed, trial, island),
+    or from (seed, trial, island, generation) when a resume reseeds."""
     gens = []
     for island in range(n):
-        s = int(np.random.SeedSequence([seed, trial, island])
+        words = [seed, trial, island] + (
+            [] if generation is None else [generation])
+        s = int(np.random.SeedSequence(words)
                 .generate_state(1, dtype=np.uint64)[0] >> 1)
         g = torch.Generator(device=device)
         g.manual_seed(s)
         gens.append(g)
     return gens
+
+
+def generator_states(gens) -> np.ndarray:
+    """(L, n) uint8: each island generator's state."""
+    return np.stack([g.get_state().numpy() for g in gens])
+
+
+def resume_generators(device, loaded: ckpt.Loaded, seed: int, trial: int,
+                      n: int):
+    """The island generators of a resumed try: restored from the
+    checkpoint when it holds their states from this device type, else
+    reseeded from (seed, trial, island, generation) with a note."""
+    if (loaded.generators is not None
+            and loaded.generator_device == device.type
+            and len(loaded.generators) == n):
+        gens = [torch.Generator(device=device) for _ in range(n)]
+        for g, st in zip(gens, loaded.generators):
+            g.set_state(torch.from_numpy(np.array(st)))
+        return gens
+    where = ("the JAX package" if loaded.generators is None
+             else f"a {loaded.generator_device} device")
+    print(f"note: checkpoint written by {where}; reseeding the "
+          f"{device.type} island generators from (seed, trial, island, "
+          f"generation {loaded.generation})", file=sys.stderr)
+    return island_generators(device, seed, trial, n, loaded.generation)
+
+
+def decode_trace(trace, trace_mode: str, overflow_warned: bool):
+    """Decode a fetched trace leaf (JAX dispatch_core.decode_telemetry
+    without the quality split): its events and moments, with dropped
+    improvement events counted into engine.trace_delta_overflow and
+    warned about once. Returns (events, moments, overflow_warned)."""
+    events, counts, moments = islands.trace_events(trace, trace_mode)
+    if counts is not None:
+        dropped = int(sum(max(0, int(c) - len(e))
+                          for c, e in zip(counts, events)))
+        if dropped:
+            REGISTRY.counter("engine.trace_delta_overflow").inc(dropped)
+            if not overflow_warned:
+                overflow_warned = True
+                print(f"warning: --trace-mode {trace_mode} dropped "
+                      f"{dropped} improvement event(s) this dispatch (cap "
+                      f"{islands.TRACE_DELTAS_CAP}; raise "
+                      f"TT_TRACE_DELTAS_CAP)", file=sys.stderr)
+    return events, moments, overflow_warned
+
+
+def _set_moment_gauges(prefix: str, mom) -> None:
+    """Gauges `<prefix>_{mean,min,max}` from (4, ...) float32 moment
+    rows (mean, var, min, max), aggregated over their columns."""
+    REGISTRY.gauge(f"{prefix}_mean").set(float(mom[0].mean()))
+    REGISTRY.gauge(f"{prefix}_min").set(float(mom[2].min()))
+    REGISTRY.gauge(f"{prefix}_max").set(float(mom[3].max()))
+
+
+def _moment_view(rows) -> np.ndarray:
+    return np.ascontiguousarray(
+        rows[:islands.TRACE_N_MOMENTS]).view(np.float32)
 
 
 def _phase(out, enabled: bool, name: str, trial: int, seconds: float,
@@ -156,9 +243,16 @@ def _polish_chunks(tr: _Try, pa, gens, state, gacfg, name: str,
         if chunk < 1:
             break
         tp0 = time.monotonic()
-        state, stats = islands.polish(pa, gens, state, gacfg, chunk)
+        state, stats = islands.polish(pa, gens, state, gacfg, chunk,
+                                      tr.cfg.trace_mode == "stats")
         stats = stats.cpu().numpy()
         tp1 = time.monotonic()
+        if stats.shape[0] > 3:
+            # stats mode: row 3 the executed pass count, rows 4.. the
+            # polished population's moments (JAX engine.py:1134-1156)
+            REGISTRY.gauge("engine.polish_passes").set(int(stats[3].max()))
+            _set_moment_gauges("engine.polish_best", _moment_view(stats[4:]))
+            stats = stats[:3]
         tr.phase(name, tp1 - tp0, sweeps=chunk)
         sps = (tp1 - tp0) / chunk
         sec_per_sweep = (sps if sec_per_sweep is None
@@ -203,9 +297,15 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
             break
         t0 = time.monotonic()
         lstate, stats = islands.lahc_run(pa, gens, lstate, post, n,
-                                         cfg.post_lahc_k)
+                                         cfg.post_lahc_k,
+                                         cfg.trace_mode == "stats")
         stats = stats.cpu().numpy()
         t1 = time.monotonic()
+        if stats.shape[0] > 3:
+            # stats mode: rows 3.. the walkers' moments per island (JAX
+            # engine.py:1238-1251)
+            _set_moment_gauges("engine.lahc_best", _moment_view(stats[3:]))
+            stats = stats[:3]
         tr.phase("lahc", t1 - t0, steps=n)
         if warm:
             sps = (t1 - t0) / n
@@ -218,7 +318,7 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
 
 
 def probe_sec_per_gen(pa, state: ga.PopState, cfg: ga.GAConfig,
-                      n_islands: int) -> float:
+                      n_islands: int, trace_mode: str = "full") -> float:
     """Seconds of one generation of `cfg` (its ring migration included)
     on a clone of `state`, drawn from throwaway generators: the first
     sec/gen estimate, taken as the JAX engine takes it in precompile
@@ -229,7 +329,7 @@ def probe_sec_per_gen(pa, state: ga.PopState, cfg: ga.GAConfig,
             for i in range(n_islands)]
     clone = ga.PopState(*(x.clone() for x in state))
     t0 = time.monotonic()
-    _, trace = islands.run_epochs(pa, gens, clone, cfg, 1, 1)
+    _, trace = islands.run_epochs(pa, gens, clone, cfg, 1, 1, trace_mode)
     trace.cpu()
     return time.monotonic() - t0
 
@@ -254,24 +354,64 @@ def _dispatch_size(cfg, remaining_gens: int, sec_per_gen: float,
     return n_ep, g
 
 
+def _fetch_state(state: ga.PopState) -> ga.PopState:
+    """Host (numpy) copy of a population in one device read."""
+    packed = torch.cat([state.slots, state.rooms, state.penalty[:, None],
+                        state.hcv[:, None], state.scv[:, None]],
+                       1).cpu().numpy()
+    E = state.slots.shape[1]
+    return ga.PopState(packed[:, :E], packed[:, E:2 * E], packed[:, 2 * E],
+                       packed[:, 2 * E + 1], packed[:, 2 * E + 2])
+
+
+def _resume(cfg, seed: int, fingerprint: str):
+    """Load --checkpoint for a --resume (JAX engine.py:1329-1343): the
+    checkpoint (None when the file does not exist) and the seed the try
+    runs under — the saved one when no -s was given; an explicit
+    conflicting -s is refused."""
+    try:
+        loaded = ckpt.load(cfg.checkpoint, fingerprint)
+    except FileNotFoundError:
+        return None, seed
+    if loaded.seed is not None:
+        if cfg.seed is not None and cfg.seed != loaded.seed:
+            raise ValueError(
+                f"checkpoint was written with seed {loaded.seed}, but -s "
+                f"{cfg.seed} given — refusing to mix RNG streams")
+        seed = loaded.seed
+    return loaded, seed
+
+
 def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
-             gacfg, post) -> int:
-    """One try: init, polish, the generation loop, tail polish and the
-    final records. Returns the try's best reported evaluation."""
+             gacfg, post, fingerprint: str) -> int:
+    """One try: init (or the resumed checkpoint), polish, the generation
+    loop with its checkpoints, tail polish and the final records.
+    Returns the try's best reported evaluation."""
     tr = _Try(out, cfg, trial, n_islands)
-    gens = island_generators(pa.device, seed, trial, n_islands)
-    t = time.monotonic()
-    state = islands.init_island_population(pa, gens, cfg.pop_size)
-    state.penalty.cpu()
-    tr.phase("init", time.monotonic() - t)
+    loaded = None
+    if cfg.resume and cfg.checkpoint:
+        loaded, seed = _resume(cfg, seed, fingerprint)
     sps = {}
-    if gacfg.init_sweeps > 0:
-        state, sps[gacfg] = _polish_chunks(tr, pa, gens, state, gacfg,
-                                           "polish", gacfg.init_sweeps,
-                                           None)
+    gens_done = 0
+    if loaded is not None:
+        gens = resume_generators(pa.device, loaded, seed, trial, n_islands)
+        state = ga.PopState(*(torch.from_numpy(np.ascontiguousarray(
+            x, np.int32)).to(pa.device) for x in loaded.state))
+        gens_done = loaded.generation
+        if loaded.best_seen is not None:
+            tr.best = [int(b) for b in loaded.best_seen]
+    else:
+        gens = island_generators(pa.device, seed, trial, n_islands)
+        t = time.monotonic()
+        state = islands.init_island_population(pa, gens, cfg.pop_size)
+        state.penalty.cpu()
+        tr.phase("init", time.monotonic() - t)
+        if gacfg.init_sweeps > 0:
+            state, sps[gacfg] = _polish_chunks(tr, pa, gens, state, gacfg,
+                                               "polish", gacfg.init_sweeps,
+                                               None)
     cur = gacfg
     sec_per_gen = None
-    gens_done = 0
     lahc_done = False
 
     def maybe_switch():
@@ -296,16 +436,19 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                 lahc_done = True
 
     maybe_switch()
-    if not lahc_done and cfg.generations > 0:
+    if not lahc_done and gens_done < cfg.generations:
         # the first estimate, from the config the loop starts with (the
         # post one, shrunk, when the polish reached feasibility), outside
         # the try's clock
         t = time.monotonic()
-        sec_per_gen = probe_sec_per_gen(pa, state, cur, n_islands)
+        sec_per_gen = probe_sec_per_gen(pa, state, cur, n_islands,
+                                        cfg.trace_mode)
         tr.t0 += time.monotonic() - t
     kick_stall, kick_best, kick_streak = 0, min(tr.best), 0
     time_stopped = False
     n_dispatch = 0
+    epochs_done = epochs_at_ckpt = 0
+    overflow_warned = False
     t_loop = time.monotonic()
     while not lahc_done and gens_done < cfg.generations:
         size = _dispatch_size(cfg, cfg.generations - gens_done, sec_per_gen,
@@ -315,21 +458,29 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
             break
         n_ep, g = size
         td0 = time.monotonic()
-        state, trace = islands.run_epochs(pa, gens, state, cur, n_ep, g)
+        state, trace = islands.run_epochs(pa, gens, state, cur, n_ep, g,
+                                          cfg.trace_mode)
         trace = trace.cpu().numpy()
         td1 = time.monotonic()
         gens_run = n_ep * g
         gens_done += gens_run
+        epochs_done += n_ep
         n_dispatch += 1
         dt = td1 - td0
         tr.phase("dispatch", dt, epochs=n_ep, gens=gens_run)
         spg = dt / gens_run
         sec_per_gen = spg if sec_per_gen is None else (
             0.7 * spg + 0.3 * sec_per_gen)
+        events, moments, overflow_warned = decode_trace(
+            trace, cfg.trace_mode, overflow_warned)
         for i in range(n_islands):
-            for gi in range(gens_run):
-                tr.observe(i, trace[i, gi, 0], trace[i, gi, 1],
+            for gi, h, sc in events[i]:
+                tr.observe(i, h, sc,
                            (td0 - tr.t0) + (gi + 1) / gens_run * dt)
+        if moments is not None:
+            # the per-generation best's moments, across islands (JAX
+            # engine.py:1676-1684)
+            _set_moment_gauges("engine.trace_best", moments.T)
         maybe_switch()
         if lahc_done:
             break
@@ -349,6 +500,16 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                          moves=n_moves)
                 kick_streak += 1
                 kick_stall = 0
+        if (cfg.checkpoint
+                and epochs_done - epochs_at_ckpt >= cfg.checkpoint_every):
+            t = time.monotonic()
+            ckpt.save(cfg.checkpoint, _fetch_state(state),
+                      ckpt.key_words(seed, trial, gens_done), gens_done,
+                      fingerprint, list(tr.best), seed,
+                      generator_states(gens), pa.device.type)
+            epochs_at_ckpt = epochs_done
+            tr.phase("checkpoint", time.monotonic() - t)
+            REGISTRY.counter("engine.checkpoints").inc()
     tr.phase("gen-loop", time.monotonic() - t_loop, dispatches=n_dispatch,
              pipelined=False)
 
@@ -360,14 +521,13 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
 
     t = time.monotonic()
     P = cur.pop_size
-    packed = torch.cat([state.slots, state.rooms, state.hcv[:, None],
-                        state.scv[:, None]], 1).cpu().numpy()
+    host = _fetch_state(state)
     tr.phase("fetch", time.monotonic() - t)
     E = pa.n_events
-    slots = packed[:, :E].reshape(n_islands, P, E)
-    rooms = packed[:, E:2 * E].reshape(n_islands, P, E)
-    hcv = packed[:, 2 * E].reshape(n_islands, P)[:, 0]
-    scv = packed[:, 2 * E + 1].reshape(n_islands, P)[:, 0]
+    slots = host.slots.reshape(n_islands, P, E)
+    rooms = host.rooms.reshape(n_islands, P, E)
+    hcv = host.hcv.reshape(n_islands, P)[:, 0]
+    scv = host.scv.reshape(n_islands, P)[:, 0]
     total_time = tr.elapsed()
     for i in range(n_islands):
         feas = bool(hcv[i] == 0)
@@ -415,15 +575,22 @@ def run(cfg: RunConfig, out=None) -> int:
         n_islands = cfg.islands if cfg.islands is not None else 1
         gacfg = build_ga_config(cfg)
         post = build_post_config(cfg, gacfg)
+        if (cfg.checkpoint and post is not None
+                and post.pop_size != gacfg.pop_size):
+            # the mid-run shape change cannot round-trip a checkpoint
+            # (parse_args refuses the flags; this guards programmatic
+            # configs, as JAX engine.py:657-663 does)
+            raise ValueError("post_pop_size with checkpoint is unsupported")
         if post is not None and not 1 <= post.pop_size <= gacfg.pop_size:
             raise ValueError(f"post_pop_size {post.pop_size} must be in "
                              f"[1, pop_size={gacfg.pop_size}]")
+        fingerprint = ckpt.config_fingerprint(problem, gacfg, n_islands)
         seed = cfg.resolved_seed()
         _phase(out, cfg.trace, "load", 0, time.monotonic() - t0)
         best = INT_MAX
         for trial in range(cfg.tries):
             best = min(best, _run_try(cfg, out, pa, trial, seed, n_islands,
-                                      gacfg, post))
+                                      gacfg, post, fingerprint))
         return best
     finally:
         if close_out:
