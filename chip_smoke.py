@@ -52,7 +52,17 @@
    improvement counts, on traces with planted ties, long runs of equal
    rows and sentinel rows (events and counts exact; moments: min and max
    exact, mean within a relative 1e-6, var within 4 T 2^-24 mean(rep^2)),
-   and moment_rows on (L, n) rows the same way; then K2's, K7's, K8's
+   and moment_rows on (L, n) rows the same way; K14 (the quality
+   telemetry of --quality): quality_ops and div_stats at L = 1, 4, 16
+   islands x pop 2, 3, 4, 10, 16 on comp01s and a padded copy
+   (counters, min, max and the Hamming sample exact; moments: min and
+   max exact, mean within a relative 1e-6 of the shifted mean plus one
+   float32 spacing, var within 4 n 2^-24 mean(c^2), c the min-shifted
+   values), and the new outputs of K5 (its accepted-move counts at the
+   main path's repair and post shapes), K6 (each child's base parent, in
+   both tournament modes and the parallel matcher) and K7 (migrate's
+   gain at L = 1, 2, 4, 16 x pop 2, 3, 16), exactly, each kernel's other
+   outputs unchanged with the new output off; then K2's, K7's, K8's
    pre-pass's, K12's, K11's and the parallel matcher's phase counters
    (k5_phases, each instrumented kernel checked equal to the regular
    one);
@@ -79,14 +89,20 @@
    saved generation, stays below the saved best floor, keeps the tuned
    16 rows: post_pop_size is dropped under --checkpoint); and the
    reference config for 300 generations in each trace mode (the three
-   streams equal under strip_timing, K13 only in deltas and stats);
+   streams equal under strip_timing, K13 only in deltas and stats); the
+   quality run: the reference config for 300 generations with and
+   without --quality (the streams equal under strip_timing, K14 launched
+   only with it, both rates printed); and the stall fixture, the JAX
+   tests' 30-event instance with the sweep and `--quality --stall-window
+   2 --stall-hamming 1.0 --auto-kick-on-stall` (a stall record, then a
+   kick record, engine.kicks counted, K5 counting its moves);
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
    generation, one full-eval generation, one kick, one LAHC launch and
    two NSGA-II generations,
    repair and post phase (launches, device idle share, device time per
-   launch of each kernel), then K2's, K9's and K13's own launches at
-   their timed shapes (K9's body runs inside K6 on the paths);
+   launch of each kernel), then K2's, K9's, K13's and K14's own launches
+   at their timed shapes (K9's body runs inside K6 on the paths);
 5. prints one line per kernel, the {"kernels": [...]} summary and, last,
    {"ok": true, "device": {...}}.
 
@@ -222,6 +238,10 @@ KERNELS = {
     "moment_rows": ("timetabling_ga_tpu_torch/csrc/trace_compress.cu",
                     "timetabling_ga_tpu/parallel/islands.py:445",
                     "resume-main"),
+    "quality_ops": ("timetabling_ga_tpu_torch/csrc/quality.cu",
+                    "timetabling_ga_tpu/ops/ga.py:221", "quality"),
+    "div_stats": ("timetabling_ga_tpu_torch/csrc/quality.cu",
+                  "timetabling_ga_tpu/parallel/islands.py:495", "quality"),
 }
 # entry points whose body runs inside another kernel on the paths and
 # whose own launch is the unit check of that body (0 launches on a path)
@@ -236,30 +256,32 @@ BODY_RUNS_IN = {"move1_sweep": "sweep_pass",
 # K2_ONLY_AT_INIT
 PER_GEN = ("breed", "survivors", "batch_penalty")
 SEARCH_MODES = ("lahc", "nsga_rank", "nsga_survivors", "parallel_rooms")
-# K13 runs only under --trace-mode deltas|stats
+# K13 runs only under --trace-mode deltas|stats, K14 only under --quality
 K13 = ("compress_trace", "moment_rows")
+K14 = ("quality_ops", "div_stats")
 K8 = ("random_ls_events", "random_ls")
 LS = K8 + ("full_eval_ls",)
 PATH_KERNELS = {
     "main": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
-             ("move1_sweep", "delta_one") + LS + SEARCH_MODES + K13),
+             ("move1_sweep", "delta_one") + LS + SEARCH_MODES + K13 + K14),
     "reference": (("breed", "survivors") + K8,
                   ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass", "full_eval_ls")
-                  + SEARCH_MODES + K13),
+                  + SEARCH_MODES + K13 + K14),
     "full-eval": (("breed", "survivors", "random_ls_events",
                    "full_eval_ls"), ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass", "random_ls")
-                  + SEARCH_MODES + K13),
+                  + SEARCH_MODES + K13 + K14),
     # comp01s is feasible inside the initial polish, so the LAHC walkers
     # take the whole budget after it
     "lahc": ((), ("assign_rooms", "sweep_pass", "batch_penalty", "lahc"),
              ("move1_sweep", "delta_one") + LS
-             + ("nsga_rank", "nsga_survivors", "parallel_rooms") + K13),
+             + ("nsga_rank", "nsga_survivors", "parallel_rooms") + K13
+             + K14),
     "nsga": (("breed", "nsga_rank", "nsga_survivors", "batch_penalty"),
              ("assign_rooms", "sweep_pass"),
              ("move1_sweep", "delta_one") + LS + ("lahc", "parallel_rooms")
-             + K13),
+             + K13 + K14),
 }
 K2_ONLY_AT_INIT = ("reference", "full-eval")
 # K2's cluster sizes held against its plain version (None: the wrapper's
@@ -284,6 +306,19 @@ K13_TIMED = {"compress_trace": (1, 100), "moment_rows": (1, 16)}
 RESUME = ["--no-auto-tune", "-p", "2", "-s", "42", "-t", "120", "--trace"]
 RESUME_MAIN = ["-s", "42", "-t", "15", "--generations", "100000",
                "--trace-mode", "stats", "--trace"]
+# K14's grid (islands x rows an island) and its timed shape: the main
+# path's repair population, one island of 16
+K14_L = (1, 4, 16)
+K14_POP = (2, 3, 4, 10, 16)
+K14_TIMED = (1, 16)
+# the stall fixture: the JAX quality tests' 30-event instance, the sweep
+# on two islands of 8, a stall after 2 dispatches with no new best at
+# any diversity, and the auto-kick
+STALL = ["--no-auto-tune", "--ls-mode", "sweep", "--ls-sweeps", "1",
+         "--init-sweeps", "2", "--pop-size", "8", "--islands", "2",
+         "--migration-period", "10", "--generations", "300", "-s", "5",
+         "-t", "120", "--trace", "--quality", "--stall-window", "2",
+         "--stall-hamming", "1.0", "--auto-kick-on-stall"]
 
 
 class SmokeFailure(Exception):
@@ -1841,6 +1876,285 @@ def k13_device_times(dev, timings):
         lambda: islands.moment_rows_kernel(h, s), "moment_rows")
 
 
+def k14_ops_case(L, pop, g, dev):
+    """One generation's flags and scores for quality_ops: parents within
+    each island, penalties in a small range (ties are no win), the
+    sweep's counts and an accumulator already holding counts."""
+    import torch
+    P, i32 = L * pop, torch.int32
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=i32)
+    base = torch.arange(P, device=dev, dtype=i32) // pop * pop
+    return dict(do_x=torch.rand(P, generator=g, device=dev) < 0.6,
+                do_m=torch.rand(P, generator=g, device=dev) < 0.5,
+                parent=(base + ints(pop, (P,))).to(i32),
+                child_pen=ints(5, (P,)), parent_pen=ints(5, (P,)),
+                sweep_ops=ints(40, (P, 3)), acc=ints(100, (L, 7)), L=L)
+
+
+def k14_div_case(E, L, pop, g, dev):
+    """(slots, penalty, scv) of L islands: slots with repeated values (so
+    pairs can agree), penalties mixing the feasible and infeasible
+    domains (to ~9e6, past float32's 2^24), scv in a small range."""
+    import torch
+    P, i32 = L * pop, torch.int32
+    base = torch.randint(0, 45, (P, E), generator=g, device=dev, dtype=i32)
+    same = torch.rand((P, E), generator=g, device=dev) < 0.6
+    slots = torch.where(same, base[:1], base)
+    hcv = torch.randint(0, 9, (P,), generator=g, device=dev, dtype=i32) * (
+        torch.rand(P, generator=g, device=dev) < 0.5)
+    scv = torch.randint(0, 200, (P,), generator=g, device=dev, dtype=i32)
+    pen = torch.where(hcv > 0, 1_000_000 * hcv + scv + 7, scv).to(i32)
+    return slots, pen, scv
+
+
+def k14_moments_err(got, want, x, what):
+    """The stated tolerance of div_stats' moments (float32 mean, var, min,
+    max of the float32 values x by JAX's min-shifted formula): min and
+    max exact, the mean within a relative 1e-6 of the shifted mean plus
+    one float32 spacing of the mean, the var within 4 n 2^-24 mean(c^2),
+    c = x - min. Returns the largest absolute difference."""
+    import numpy as np
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    x = np.asarray(x, np.float32).astype(np.float64)
+    c = x - x.min()
+    check((got[2:] == want[2:]).all(), f"{what}: min/max differ")
+    tol = 1e-6 * abs(c.mean()) + float(np.spacing(np.abs(want[0])))
+    check(abs(float(got[0]) - float(want[0])) <= tol,
+          f"{what}: mean {got[0]} vs {want[0]}")
+    tol = 4 * len(x) * 2.0 ** -24 * (c * c).mean()
+    check(abs(float(got[1]) - float(want[1])) <= tol,
+          f"{what}: var {got[1]} vs {want[1]}")
+    return float(np.abs(got.astype(np.float64) - want).max())
+
+
+def k14_div_equal(pa, slots, pen, scv, L, what):
+    """div_stats against its plain version; returns the max abs err of
+    the float values (0 on the exact columns)."""
+    import numpy as np
+    from timetabling_ga_tpu_torch.parallel import islands
+    args = (pa.event_mask, slots, pen, scv, L)
+    got = islands.div_stats_kernel(*args).cpu().numpy()
+    want = islands.div_stats_plain(*args).cpu().numpy()
+    check(got.shape == want.shape, f"{what}: shape")
+    check((got[:, 8] == want[:, 8]).all(), f"{what}: Hamming differs")
+    pop = pen.shape[0] // L
+    err = 0.0
+    for i in range(L):
+        r = slice(i * pop, (i + 1) * pop)
+        gf, wf = got[i].view(np.float32), want[i].view(np.float32)
+        err = max(err, k14_moments_err(gf[:4], wf[:4],
+                                       pen[r].float().cpu().numpy(), what),
+                  k14_moments_err(gf[4:8], wf[4:8],
+                                  scv[r].float().cpu().numpy(), what))
+    return err
+
+
+def quality_ops_work(L, pop):
+    """(bytes, integer operations) of one quality_ops call: each row's
+    two flags, parent, two penalties and three counts read once, the
+    accumulator read and written; a row's win compare, four flag ANDs
+    and adds and three count adds, and each block's seven sums."""
+    P = L * pop
+    return P * (2 + 4 * 3 + 12) + 2 * L * 7 * 4, P * 11 + L * 7 * 10
+
+
+def div_stats_work(L, pop, E):
+    """(bytes, integer and float operations) of one div_stats call: each
+    island's penalties and scvs, the rows of its Hamming pairs (at most
+    min(pop, 2k) distinct rows) and the mask read once, nine words
+    written; eight operations a value of the two moment series, four a
+    (pair, event) of the Hamming sample."""
+    from timetabling_ga_tpu_torch.obs.quality import HAMMING_PAIRS
+    k = min(pop, HAMMING_PAIRS) if pop >= 2 else 0
+    rows = min(pop, 2 * k)
+    nb = L * (8 * pop + rows * E * 4 + 9 * 4) + E * 4
+    return nb, L * (16 * pop + 4 * k * E)
+
+
+def compare_quality(problem, pa, dev):
+    """K14 and the new outputs of K5, K6 and K7 against their plain
+    versions (the quality telemetry): quality_ops and div_stats over
+    K14_L x K14_POP on comp01s and a padded copy; K5's accepted-move
+    counts at the main path's repair (P = 16) and post (P = 4) passes
+    from random and feasible starts; K6's base parents at P = 16 and 256
+    in the greedy and crowded tournaments and with the parallel matcher;
+    K7's migrate gain at L = 1, 2, 4, 16 x pop 2, 3, 16 (E = 400): the
+    new outputs exact, every other output equal to the call without
+    them. Then quality_ops and div_stats timed at K14_TIMED, and each
+    new output's call against the same call without it. Returns
+    (timings, cases compared, new-output rows)."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import delta, ga, nsga, rooms, sweep
+    from timetabling_ga_tpu_torch.parallel import islands
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    g = torch.Generator(device=dev).manual_seed(9000)
+    cases = 0
+    padded = padded_arrays(problem, dev)
+    for name, pa_ in (("comp01s", pa), ("padded", padded)):
+        for L in K14_L:
+            for pop in K14_POP:
+                what = f"quality_ops {name} L={L} pop={pop}"
+                c = k14_ops_case(L, pop, g, dev)
+                for sw in (c["sweep_ops"], None):
+                    c2 = {**c, "sweep_ops": sw}
+                    want = ga.quality_ops_plain(**{**c2,
+                                                   "acc": c["acc"].clone()})
+                    got = ga.quality_ops_kernel(**{**c2,
+                                                   "acc": c["acc"].clone()})
+                    check(torch.equal(want, got), f"{what}: differs")
+                slots, pen, scv = k14_div_case(pa_.n_events, L, pop, g, dev)
+                k14_div_equal(pa_, slots, pen, scv, L,
+                              f"div_stats {name} L={L} pop={pop}")
+                cases += 2
+    # K5's counts at the main path's repair and post passes
+    cfg = config.parse_args(["-i", TIM]).apply_tuned_defaults(pa.n_events)
+    repair = engine.build_ga_config(cfg)
+    post = engine.build_post_config(cfg, repair)
+    rows_out = []
+    for phase, P, gc in (("repair", 16, repair),
+                         ("post", post.pop_size, post)):
+        E, T = pa.n_events, pa.n_slots
+        args = (gc.ls_swap_block, gc.ls_block_events, gc.ls_sideways,
+                gc.ls_hot_k, gc.p3)
+        sh = sweep.sweep_shape(E, T, *args[:2], gc.ls_hot_k, gc.p3)
+        slots = torch.randint(0, T, (P, E), generator=g, device=dev,
+                              dtype=torch.int32)
+        st = delta.init_state(pa, slots, rooms.assign_rooms_plain(pa, slots))
+        draws = sweep.make_sweep_draws([g], P, sh, E, gc.ls_sideways, dev)
+        ops0 = torch.randint(0, 4, (P, 3), generator=g, device=dev,
+                             dtype=torch.int32)
+        n = 0
+        for start, s0 in (("random", st), ("feasible",
+                                            witness_state(pa, P, g))):
+            want = sweep.sweep_pass_plain(pa, draws, s0, *args, ops=ops0)
+            got = sweep.sweep_pass_kernel(pa, draws, s0, *args, ops=ops0)
+            off = sweep.sweep_pass_kernel(pa, draws, s0, *args)
+            what = f"sweep_pass ops {phase} P={P} {start}"
+            check(torch.equal(got[3], want[2]), f"{what}: counts differ")
+            check(all(torch.equal(a, b) for a, b in zip(got[0], off[0]))
+                  and all(torch.equal(a, b) for a, b in zip(got[1:3],
+                                                            off[1:3])),
+                  f"{what}: the counts changed the pass")
+            n += int((want[2] - ops0).sum())
+            cases += 1
+        check(n > 0, f"sweep_pass ops {phase}: no move counted")
+        rows_out.append({"new_output": "sweep_pass ops", "shape": [phase, P],
+                         "moves_counted": n,
+                         "ms": time_ms(lambda: sweep.sweep_pass_kernel(
+                             pa, draws, st, *args, ops=ops0), 5),
+                         "ms_off": time_ms(lambda: sweep.sweep_pass_kernel(
+                             pa, draws, st, *args), 5)})
+    # K6's base parents
+    E, R, T = pa.n_events, pa.n_rooms, pa.n_slots
+    for P in (16, 256):
+        L = P // 16
+        par = ga.evaluate(pa, torch.randint(
+            0, T, (P, E), generator=g, device=dev, dtype=torch.int32),
+            torch.randint(0, R, (P, E), generator=g, device=dev,
+                          dtype=torch.int32), L)
+        for mode, mo in (("greedy", False), ("crowded", True),
+                         ("parallel", False)):
+            rm = "parallel" if mode == "parallel" else "scan"
+            gc = ga.GAConfig(pop_size=16, p3=0.2, rooms_mode=rm,
+                             multi_objective=mo)
+            bd = ga.make_breed_draws([g] * L, 16, E, T, gc, dev)
+            stats = nsga.rank_crowd(par.hcv, par.scv, L) if mo else None
+            got, parent = ga.make_children_kernel(pa, bd, par, L, stats, rm,
+                                                  with_parent=True)
+            off = ga.make_children_kernel(pa, bd, par, L, stats, rm)
+            want, wp = ga.make_children_plain(pa, bd, par, gc, L, stats,
+                                              with_parent=True)
+            what = f"breed parents {mode} P={P}"
+            check(torch.equal(parent, wp), f"{what}: parents differ")
+            check(all(torch.equal(a, b) and torch.equal(a, c)
+                      for a, b, c in zip(got, off, want)),
+                  f"{what}: the parents changed the children")
+            cases += 1
+            if P == 16 and mode == "greedy":
+                rows_out.append({
+                    "new_output": "breed parent", "shape": [mode, P],
+                    "ms": time_ms(lambda: ga.make_children_kernel(
+                        pa, bd, par, L, stats, rm, with_parent=True), 20),
+                    "ms_off": time_ms(lambda: ga.make_children_kernel(
+                        pa, bd, par, L, stats, rm), 20)})
+    # K7's migrate gain
+    for L in (1, 2, 4, 16):
+        for pop in (2, 3, 16):
+            P = L * pop
+            pen = torch.randint(0, 3, (P,), generator=g, device=dev,
+                                dtype=torch.int32)
+            isl = torch.arange(P, device=dev) // pop
+            pen = (pen + 3 * (L - 1 - isl)).to(torch.int32)
+            sc = torch.randint(0, 3, (P,), generator=g, device=dev,
+                               dtype=torch.int32)
+            sl = torch.randint(0, T, (P, E), generator=g, device=dev,
+                               dtype=torch.int32)
+            st = ga.survivors_plain(ga.PopState(sl, sl.flip(1), pen,
+                                                pen.clone(), sc), groups=L)
+            got, gain = islands.migrate_kernel(st, L, return_gain=True)
+            off = islands.migrate_kernel(st, L)
+            want, wg = islands.migrate_plain(st, L, return_gain=True)
+            what = f"migrate gain L={L} pop={pop}"
+            check(torch.equal(gain, wg), f"{what}: gain differs")
+            check(all(torch.equal(a, b) and torch.equal(a, c)
+                      for a, b, c in zip(got, off, want)),
+                  f"{what}: the gain changed the exchange")
+            check((int(gain.sum()) > 0) == (L > 1 and pop >= 3),
+                  f"{what}: gain {gain.tolist()}")
+            cases += 1
+            if (L, pop) == (1, 16):
+                rows_out.append({
+                    "new_output": "migrate gain", "shape": [L, pop],
+                    "ms": time_ms(lambda: islands.migrate_kernel(
+                        st, L, return_gain=True), 50),
+                    "ms_off": time_ms(lambda: islands.migrate_kernel(
+                        st, L), 50)})
+    # K14 timed at the main path's repair population
+    L, pop = K14_TIMED
+    c = k14_ops_case(L, pop, g, dev)
+    nb, ops = quality_ops_work(L, pop)
+    b, by = bound(nb, ops)
+    out = {("quality_ops", pop): dict(
+        ms=time_ms(lambda: ga.quality_ops_kernel(**c), 200),
+        plain_ms=time_ms(lambda: ga.quality_ops_plain(**c), 20),
+        max_abs_err=0, bound_ms=b, bound_by=by, library_ms=None,
+        bytes=nb, int_ops=ops)}
+    slots, pen, scv = k14_div_case(pa.n_events, L, pop, g, dev)
+    err = k14_div_equal(pa, slots, pen, scv, L, "div_stats timed")
+    nb, ops = div_stats_work(L, pop, pa.n_events)
+    b, by = bound(nb, ops)
+    args = (pa.event_mask, slots, pen, scv, L)
+    out[("div_stats", pop)] = dict(
+        ms=time_ms(lambda: islands.div_stats_kernel(*args), 200),
+        plain_ms=time_ms(lambda: islands.div_stats_plain(*args), 20),
+        max_abs_err=err, bound_ms=b, bound_by=by, library_ms=None,
+        bytes=nb, int_ops=ops)
+    torch.cuda.synchronize()
+    return out, cases, rows_out
+
+
+def k14_device_times(pa, dev, timings):
+    """K14's device time a launch at its timed shape (torch.profiler),
+    added to its timings; run after the profile windows."""
+    import torch
+    from timetabling_ga_tpu_torch.k5_phases import device_us_per_launch
+    from timetabling_ga_tpu_torch.ops import ga
+    from timetabling_ga_tpu_torch.parallel import islands
+    L, pop = K14_TIMED
+    g = torch.Generator(device=dev).manual_seed(9100)
+    c = k14_ops_case(L, pop, g, dev)
+    timings[("quality_ops", pop)]["device_us"] = device_us_per_launch(
+        lambda: ga.quality_ops_kernel(**c), "quality_ops")
+    slots, pen, scv = k14_div_case(pa.n_events, L, pop, g, dev)
+    timings[("div_stats", pop)]["device_us"] = device_us_per_launch(
+        lambda: islands.div_stats_kernel(pa.event_mask, slots, pen, scv, L),
+        "div_stats")
+
+
 def run_cli(name, argv, tim=TIM):
     """Run the CLI with `argv` (output to build/chip_smoke/), the launch
     counters zeroed just before and read just after; returns (records,
@@ -2003,6 +2317,78 @@ def trace_modes_path(pa_cpu, gens=300):
     return rates
 
 
+def quality_path(pa_cpu, gens=300):
+    """The reference config on comp01s for `gens` generations without and
+    with --quality: the record streams equal under strip_timing, K14
+    launched only with it (quality_ops every generation, div_stats every
+    dispatch), the quality counters in the registry. Returns (rates,
+    launches of the quality run)."""
+    from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+    from timetabling_ga_tpu_torch.runtime import jsonl
+    streams, rates, launches, n_disp = {}, {}, {}, 0
+    for name, extra in (("quality-off", []), ("quality", ["--quality"])):
+        before = REGISTRY.counter("quality.ops.crossover_attempts").value
+        recs, _, launches[name] = run_cli(name, RESUME + [
+            "--generations", str(gens)] + extra)
+        check_stream(recs, pa_cpu)
+        streams[name] = jsonl.strip_timing(recs)
+        n_disp = len(_phases(recs, "dispatch"))
+        rates[name] = _rate(recs)
+        moved = REGISTRY.counter("quality.ops.crossover_attempts").value \
+            - before
+        check((moved > 0) == bool(extra),
+              f"{name}: quality counters moved by {moved}")
+    check(streams["quality"] == streams["quality-off"],
+          "quality: record stream differs from the run without --quality")
+    on, off = launches["quality"], launches["quality-off"]
+    check(all(off[k] == 0 for k in K14),
+          f"quality-off: K14 launched {[off[k] for k in K14]} times")
+    check(on["quality_ops"] >= gens and on["div_stats"] >= n_disp > 0,
+          f"quality: quality_ops {on['quality_ops']}, div_stats "
+          f"{on['div_stats']} launches in {gens} generations and "
+          f"{n_disp} dispatches")
+    return rates, on
+
+
+def stall_path():
+    """The stall fixture (JAX tests/test_quality.py's instance: 30
+    events, 4 rooms, 20 students) with the sweep and --quality
+    --stall-window 2 --stall-hamming 1.0 --auto-kick-on-stall: a
+    quality/stall faultEntry, then a quality/kick one (moves >= 3),
+    engine.kicks counted, K5 and K14 launched. Returns its summary."""
+    from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+    from timetabling_ga_tpu_torch.problem import (
+        dump_tim, load_tim_file, random_instance)
+    tim = os.path.join(OUT_DIR, "stall.tim")
+    with open(tim, "w") as f:
+        f.write(dump_tim(random_instance(1, n_events=30, n_rooms=4,
+                                         n_features=3, n_students=20,
+                                         attend_prob=0.15)))
+    kicks0 = REGISTRY.counter("engine.kicks").value
+    recs, seconds, launch = run_cli("stall", STALL, tim)
+    check_stream(recs, load_tim_file(tim).device_arrays("cpu"),
+                 ("faultEntry",))
+    faults = [r["faultEntry"] for r in recs if "faultEntry" in r]
+    acts = [(f["site"], f["action"]) for f in faults]
+    check(("quality", "stall") in acts, f"stall: no stall record {acts}")
+    first = acts.index(("quality", "stall"))
+    check(("quality", "kick") in acts[first:],
+          f"stall: no kick record after the stall {acts}")
+    kicks = [f for f in faults if f["action"] == "kick"]
+    check(kicks[0]["moves"] >= 3, f"stall: kick moves {kicks[0]}")
+    n_kicks = REGISTRY.counter("engine.kicks").value - kicks0
+    check(n_kicks >= 1 and n_kicks == len(kicks),
+          f"stall: engine.kicks moved by {n_kicks}, {len(kicks)} kicks")
+    for k in ("sweep_pass",) + K14:
+        check(launch[k] > 0, f"stall: {k} never launched")
+    return dict(stalls=acts.count(("quality", "stall")), kicks=len(kicks),
+                kick_moves=[f["moves"] for f in kicks],
+                engine_kicks=n_kicks, wall_s=round(seconds, 3),
+                gens_per_s=_rate(recs),
+                launches={k: launch[k] for k in (
+                    "sweep_pass", "breed", "migrate") + K14})
+
+
 def run_path(name):
     """Run the CLI on the path's instance with its flags, the launch
     counters zeroed just before and read just after; returns (records,
@@ -2033,11 +2419,12 @@ def check_path_kernels(name, launches, generations, kicks):
               f"{name} path: {k} launched {launches[k]} times")
 
 
-def check_stream(records, pa_cpu):
-    """Protocol checks; returns the summary numbers."""
+def check_stream(records, pa_cpu, extra_kinds=()):
+    """Protocol checks (record kinds: the protocol's, phase records and
+    `extra_kinds`); returns the summary numbers."""
     import torch
     from timetabling_ga_tpu_torch.ops import fitness
-    kinds = {"logEntry", "solution", "runEntry", "phase"}
+    kinds = {"logEntry", "solution", "runEntry", "phase", *extra_kinds}
     for rec in records:
         check(len(rec) == 1 and next(iter(rec)) in kinds,
               f"unexpected record {rec}")
@@ -2145,6 +2532,11 @@ def main() -> int:
     timings.update(k13_t)
     print(json.dumps({"trace_compress_compared": k13_cases,
                       "over_cap": k13_over}))
+    k14_t, k14_cases, new_outputs = compare_quality(problem, pa, dev)
+    timings.update(k14_t)
+    print(json.dumps({"quality_compared": k14_cases}))
+    for row in new_outputs:
+        print(json.dumps(row))
     print(json.dumps({"islands_compared": compare_islands(pa, dev)}))
     print(json.dumps({"kick_chains_compared": compare_kick_chains(pa, dev)}))
     print(json.dumps({"padded_parallel_rooms_compared":
@@ -2175,8 +2567,15 @@ def main() -> int:
                           "launches": launches[name]}))
     print(json.dumps({"path": "trace-modes",
                       "gens_per_s": trace_modes_path(pa_cpu[TIM])}))
+    q_rates, launches["quality"] = quality_path(pa_cpu[TIM])
+    print(json.dumps({"path": "quality", "gens_per_s": q_rates,
+                      "launches": launches["quality"]}))
+    print(json.dumps({"path": "stall", **stall_path()}))
     summary, resume_launches = resume_path(pa_cpu[TIM])
     launches.update(resume_launches)
+    for name in ("resume", "resume-main"):
+        check(all(resume_launches[name][k] == 0 for k in K14),
+              f"{name}: K14 launched without --quality")
     print(json.dumps({"path": "resume", **summary, "launches": {
         k: resume_launches[k] for k in ("resume-a", "resume-b", "resume-c",
                                         "resume-main-1", "resume-main-2")}}))
@@ -2185,6 +2584,7 @@ def main() -> int:
     k2_device_times(pa, dev, timings)
     k9_device_times(timings, K9_TIMED)
     k13_device_times(dev, timings)
+    k14_device_times(pa, dev, timings)
     for line in phase_lines(pa, dev):
         print(json.dumps({"phases": line}))
     for key, t in timings.items():
@@ -2213,7 +2613,7 @@ def main() -> int:
             row["library_ms_topk"] = t["library_ms_topk"]
         if name in BODY_RUNS_IN:
             row["body_runs_in"] = BODY_RUNS_IN[name]
-        if name in K13_TIMED:
+        if name in K13_TIMED or name in K14:
             row["device_us"] = t.get("device_us")
         rows.append(row)
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,4 @@
-"""The CUDA sources of K1-K13, run on the CPU, against their plain
+"""The CUDA sources of K1-K14, run on the CPU, against their plain
 PyTorch versions.
 
 The kernels run only on the card (tests/test_torch_kernels.py, marked
@@ -26,7 +26,9 @@ import pytest
 import torch
 
 from tests.test_torch_kernels import (
-    K5_CASES, K11_CASES, _breed_case, _trace, k13_equals_plain,
+    K5_CASES, K6_MODES, K11_CASES, _breed_case, _trace, k13_equals_plain,
+    k14_div_equal_plain, k14_ops_equal_plain, k5_ops_equal_plain,
+    k6_parents_equal_plain, k7_gain_equal_plain,
     moment_rows_equal_plain, _chained_augments, _degenerate_slots,
     _half_feasible, _instances, _island_state, _k5_equals_plain,
     _k11_equal_plain,
@@ -343,7 +345,7 @@ K11_NO_WORDS = "nsga_no_words"
 EMULATED = ("assign_rooms", "batch_penalty", "move1_sweep", "delta_one",
             "sweep_pass", "breed", "survivors", "random_ls",
             "parallel_rooms", "lahc", "nsga", "full_eval_ls",
-            "trace_compress")
+            "trace_compress", "quality")
 # the block-per-row kernels built with two warps a block (their thread
 # counts are macros), which keeps the std::threads few and gives each
 # warp several slots or candidates; K8 with room for 48 bytes of events
@@ -355,7 +357,7 @@ SMALL = {"assign_rooms": ["-DK1_THREADS=64"], "breed": ["-DK6_THREADS=64"],
          "nsga": ["-DK11_THREADS=64"], "parallel_rooms": ["-DK9_THREADS=64"],
          "random_ls": ["-DK8_MAX_WARPS=2", "-DK8_EVENT_BYTES=48"],
          "batch_penalty": ["-DK2_THREADS=128"],
-         "survivors": ["-DK7_THREADS=64"],
+         "survivors": ["-DK7_THREADS=64"], "quality": ["-DK14_THREADS=64"],
          "full_eval_ls": ["-DK12_THREADS=64", "-DK12_CHUNK_BYTES=112"]}
 
 
@@ -988,3 +990,59 @@ def test_k13_source_equals_plain(emulated, monkeypatch, L, T, cap):
     for mode in ("deltas", "stats"):
         k13_equals_plain(tr, mode)
     moment_rows_equal_plain(tr[..., 0].contiguous(), tr[..., 1].contiguous())
+
+
+@pytest.mark.parametrize("L,pop", [(1, 1), (1, 2), (2, 3), (4, 10),
+                                   (2, 33), (3, 16)])
+def test_k14_sources_equal_plain(emulated, L, pop):
+    """K14's quality_ops (with and without the sweep's counts) and
+    div_stats (pop 1 without Hamming pairs, 33 rows past the 32 pairs;
+    on a padded instance, whose dead events never count) against their
+    plain versions, with 64-thread blocks, so rows and pairs wrap."""
+    pa = _instances("cpu")[2]
+    kernels.reset_launches()
+    k14_ops_equal_plain(L, pop, L + pop, "cpu", with_sweep=pop % 2 == 1)
+    k14_div_equal_plain(pa, L, pop, L * pop)
+    assert kernels.LAUNCHES["quality_ops"] == 1
+    assert kernels.LAUNCHES["div_stats"] == 1
+
+
+@pytest.mark.parametrize("case,inst,cluster", [
+    (K5_CASES[0], 1, 1), (K5_CASES[3], 2, 1), (K5_CASES[1], "tiny", 1),
+    (CLUSTER_CASES[0], "tiny", 2)])
+def test_k5_move_counts_source_equals_plain(emulated, monkeypatch, case,
+                                            inst, cluster):
+    """K5's accepted Move1/Move2/Move3 counts a row, added to a given
+    ops_in, against the plain pass's (hot pivots with sideways and
+    3-cycles, blocks of pivots, the full permutation, a cluster of two
+    CTAs), and its other outputs unchanged."""
+    if cluster > 1:
+        monkeypatch.setitem(kernels._LIBS, "sweep_pass",
+                            kernels._LIBS[K5_SMALL])
+    pa = _tiny() if inst == "tiny" else _instances("cpu")[inst]
+    P = 2
+    st = _state(pa, P, 50 + cluster)
+    sb, be, side, hot, p3 = case
+    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
+    draws = sweep.make_sweep_draws([torch.Generator().manual_seed(51)], P,
+                                   sh, pa.n_events, side, "cpu")
+    n = k5_ops_equal_plain(pa, st, draws, case, clusters=(cluster,))
+    n = n + k5_ops_equal_plain(pa, _half_feasible(st), draws, case,
+                               clusters=(cluster,))
+    assert int(n.sum()) > 0
+
+
+@pytest.mark.parametrize("mode", K6_MODES)
+def test_k6_base_parents_source_equals_plain(emulated, mode):
+    """K6's base parents in the greedy, crowded and parallel modes."""
+    k6_parents_equal_plain(_instances("cpu")[2], "cpu", 500, mode,
+                           shapes=((2, 3),))
+
+
+@pytest.mark.parametrize("L,pop", [(1, 3), (2, 2), (4, 3), (2, 16),
+                                   (16, 3)])
+def test_k7_migrate_gain_source_equals_plain(emulated, L, pop):
+    """K7's migrate with its gain, rows of E = 8 and E = 7 int32."""
+    for E in (8, 7):
+        gain = k7_gain_equal_plain(L, pop, E, "cpu")
+        assert (int(gain.sum()) > 0) == (L > 1 and pop >= 3)

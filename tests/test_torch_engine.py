@@ -99,11 +99,12 @@ def test_tuned_defaults_match_jax():
 
 @pytest.mark.parametrize("argv,word", [
     (["--obs"], "--obs"),
-    (["--auto-kick-on-stall"], "--auto-kick-on-stall"),
+    (["--trace-profile", "d"], "--trace-profile"),
     (["--faults", "dispatch:1:die"], "--faults"),
     (["--metrics-every", "1"], "--metrics-every"),
     (["--incident-dir", "d"], "--incident-dir"),
-    (["--quality"], "--quality"), (["--no-donate"], "--no-donate"),
+    (["--no-precompile"], "--no-precompile"),
+    (["--no-donate"], "--no-donate"),
     (["--distributed"], "--distributed"),
     (["--no-pipeline"], "--no-pipeline")])
 def test_unported_flags_are_refused_by_name(argv, word):
@@ -338,3 +339,102 @@ def test_probe_leaves_the_record_stream_unchanged(tim_path, monkeypatch,
     seeded = _records(capsys.readouterr().out)
     _check_protocol(probed)
     assert tjsonl.strip_timing(probed) == tjsonl.strip_timing(seeded)
+
+
+class _Sizing:
+    """A config of the fields _dispatch_size reads."""
+
+    def __init__(self, migration_period, epochs_per_dispatch):
+        self.migration_period = migration_period
+        self.epochs_per_dispatch = epochs_per_dispatch
+
+
+@pytest.mark.parametrize("rule,args,want", [
+    # budget spent, or one generation predicted over the cap: stop
+    ("stop-budget", (_Sizing(5, 8), 100, 0.1, 0.0), None),
+    ("stop-over-cap", (_Sizing(5, 8), 100, 10.5, 1e6), None),
+    # n_epochs floored to a power of two (7 -> 4), then bounded by the
+    # cap: 10 / (0.4 * 5) = 5 epochs fit, floored to 4; 2 at 0.9 s/gen
+    ("pow2", (_Sizing(5, 7), 100, 0.01, 1e6), (4, 5)),
+    ("cap-bounds-epochs", (_Sizing(5, 8), 100, 0.4, 1e6), (4, 5)),
+    ("cap-bounds-epochs-2", (_Sizing(5, 8), 100, 0.9, 1e6), (2, 5)),
+    # one epoch predicted over the cap: one shortened epoch of the
+    # generations that fit, int(10 / 3) = 3
+    ("shortened-epoch", (_Sizing(5, 8), 100, 3.0, 1e6), (1, 3)),
+    # a tail shorter than migration_period, bounded by the cap too
+    ("tail-capped", (_Sizing(50, 1), 40, 2.0, 1e6), (1, 5)),
+    ("tail", (_Sizing(50, 1), 40, 0.01, 1e6), (1, 40)),
+    # then the budget: 12 generations fit -> 2 epochs (a power of two),
+    # 3 fit -> one shortened epoch
+    ("budget-epochs", (_Sizing(5, 8), 100, 0.01, 0.125), (2, 5)),
+    ("budget-short", (_Sizing(5, 8), 100, 0.01, 0.035), (1, 3)),
+])
+def test_dispatch_size_follows_jax_watchdog_rules(monkeypatch, rule, args,
+                                                  want):
+    """The port's dispatch sizing under TT_DISPATCH_CAP_S = 10 and a
+    fixed sec/gen, case by case against JAX engine.py:1988-2075."""
+    monkeypatch.setattr(tengine, "DISPATCH_CAP_S", 10.0)
+    assert tengine._dispatch_size(*args) == want
+
+
+def test_dispatch_cap_reads_the_environment():
+    code = ("from timetabling_ga_tpu_torch.runtime import engine; "
+            "print(engine.DISPATCH_CAP_S)")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", code], check=True, cwd=repo,
+        capture_output=True, text=True,
+        env={"PATH": os.defpath, "PYTHONPATH": repo,
+             "TT_DISPATCH_CAP_S": "2.5"}).stdout
+    assert float(out) == 2.5
+
+
+C2_FLAGS = ["-s", "3", "--backend", "cpu", "-t", "300", "--no-auto-tune",
+            "--ls-mode", "sweep", "--ls-sweeps", "1", "--init-sweeps", "1",
+            "--pop-size", "4", "--generations", "12", "--migration-period",
+            "5", "--trace"]
+
+
+def test_engine_shortens_an_epoch_over_the_cap(tim_path, monkeypatch,
+                                               capsys):
+    """With a 1 s cap and a probe of 0.4 s a generation, a 5-generation
+    epoch is predicted over the cap: the first dispatch is one shortened
+    epoch of int(1 / 0.4) = 2 generations, and migration closes it
+    (JAX engine.py:2019-2034)."""
+    from timetabling_ga_tpu_torch.parallel import islands as tislands
+    monkeypatch.setattr(tengine, "DISPATCH_CAP_S", 1.0)
+    monkeypatch.setattr(tengine, "probe_sec_per_gen", lambda *a: 0.4)
+    migrations = []
+    real_mig = tislands.migrate
+
+    def migrate(*a, **k):
+        migrations.append(1)
+        return real_mig(*a, **k)
+    monkeypatch.setattr(tislands, "migrate", migrate)
+    assert tcli.main(["-i", tim_path] + C2_FLAGS) == 0
+    records = _records(capsys.readouterr().out)
+    _check_protocol(records)
+    disp = [r["phase"] for r in records if "phase" in r
+            and r["phase"]["name"] == "dispatch"]
+    assert (disp[0]["epochs"], disp[0]["gens"]) == (1, 2)
+    assert sum(p["gens"] for p in disp) == 12
+    assert all(p["gens"] <= 5 * p["epochs"] for p in disp)
+    assert len(migrations) == sum(p["epochs"] for p in disp)
+
+
+def test_engine_stops_before_the_tail_polish_over_the_cap(
+        tim_path, monkeypatch, capsys):
+    """A probe predicting one generation over the cap stops the
+    generation loop before its first dispatch; the budget goes to the
+    tail polish (JAX engine.py:1988-1997)."""
+    monkeypatch.setattr(tengine, "DISPATCH_CAP_S", 1.0)
+    monkeypatch.setattr(tengine, "probe_sec_per_gen", lambda *a: 5.0)
+    assert tcli.main(["-i", tim_path] + C2_FLAGS) == 0
+    records = _records(capsys.readouterr().out)
+    _check_protocol(records)
+    names = [r["phase"]["name"] for r in records if "phase" in r]
+    assert "dispatch" not in names
+    loop = [r["phase"] for r in records if "phase" in r
+            and r["phase"]["name"] == "gen-loop"]
+    assert loop[0]["dispatches"] == 0
+    assert names.index("gen-loop") < names.index("tail-polish")

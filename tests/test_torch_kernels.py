@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K13 against their plain PyTorch versions.
+"""The CUDA kernels K1-K14 against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package and needs no conftest
 fixture, so it also runs on a machine with the card but without JAX:
@@ -12,6 +12,7 @@ bookkeeping and that a CPU tensor takes the plain version.
 """
 
 import ctypes
+import dataclasses
 import os
 
 import numpy as np
@@ -348,6 +349,167 @@ def moment_rows_equal_plain(hcv, scv):
     moments_close(got.view(np.float32).T, want.view(np.float32).T, rep)
 
 
+# ----------------------------------------------------------- the quality
+# telemetry: K14's two entries and the new outputs of K5, K6 and K7, with
+# their helpers shared by the card tests below and the CPU stand-in
+# (tests/test_torch_cuda_emu.py), which calls the *_kernel wrappers.
+
+
+def k5_ops_equal_plain(pa, st, draws, case, clusters=(None,)):
+    """K5 with its move counts on, added to a given ops_in: the counts
+    equal sweep_pass_plain's, every other output equals the pass with
+    them off (kernel and plain). Returns the pass's counts."""
+    P, dev = st.slots.shape[0], st.slots.device
+    g = torch.Generator(device=dev).manual_seed(P)
+    ops0 = torch.randint(0, 4, (P, 3), generator=g, device=dev,
+                         dtype=torch.int32)
+    want = sweep.sweep_pass_plain(pa, draws, st, *case, ops=ops0)
+    off = sweep.sweep_pass_plain(pa, draws, st, *case)
+    assert all(torch.equal(w, o) for w, o in zip(want[0], off[0]))
+    assert torch.equal(want[1], off[1])
+    for cs in clusters:
+        got = sweep.sweep_pass_kernel(pa, draws, st, *case, cluster=cs,
+                                      ops=ops0)
+        ref = sweep.sweep_pass_kernel(pa, draws, st, *case, cluster=cs)
+        assert len(got) == 4 and len(ref) == 3
+        for w, g2, r in zip(want[0], got[0], ref[0]):
+            assert torch.equal(w, g2) and torch.equal(r, g2), f"cluster {cs}"
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+        assert torch.equal(got[3], want[2]), f"cluster {cs}"
+    return want[2] - ops0
+
+
+K6_MODES = ("greedy", "crowded", "parallel")
+
+
+def k6_parents_equal_plain(pa, device, seed, mode,
+                           shapes=((1, 16), (3, 5))):
+    """K6 with its base parents on, in one tournament and matching mode,
+    at each (islands, pop) of `shapes`: the parents equal
+    make_children_plain's (tournament A's winners), the children and
+    their scores equal the breeding with them off."""
+    for groups, pop in shapes:
+        _, cfg, par, draws = _breed_case(pa, device, groups, pop, seed)
+        mo = (nsga.rank_crowd_plain(par.hcv, par.scv, groups)
+              if mode == "crowded" else None)
+        rm = "parallel" if mode == "parallel" else "scan"
+        cfg = dataclasses.replace(cfg, rooms_mode=rm,
+                                  multi_objective=mo is not None)
+        got, parent = ga.make_children_kernel(pa, draws, par, groups, mo,
+                                              rm, with_parent=True)
+        off = ga.make_children_kernel(pa, draws, par, groups, mo, rm)
+        want, want_parent = ga.make_children_plain(
+            pa, draws, par, cfg, groups, mo, with_parent=True)
+        assert all(torch.equal(w, g) and torch.equal(o, g)
+                   for w, g, o in zip(want, got, off))
+        assert torch.equal(parent, want_parent)
+        assert (parent // pop == torch.arange(
+            groups * pop, device=device) // pop).all()
+
+
+def _gain_state(L, pop, E, device):
+    """_island_state with island l's penalties raised by 3 (L - 1 - l)
+    and hcv = penalty (feasible where 0), so every island but the last
+    takes a better second-best from its next neighbour."""
+    st = _island_state(L, pop, 1, device, E)
+    isl = torch.arange(L * pop, device=device) // pop
+    pen = (st.penalty + 3 * (L - 1 - isl)).to(torch.int32)
+    return st._replace(penalty=pen, hcv=pen.clone())
+
+
+def k7_gain_equal_plain(L, pop, E, device):
+    """K7's migrate with its gain on: the population equals the exchange
+    with it off, the gain migrate_plain's. Returns the gain."""
+    st = _gain_state(L, pop, E, device)
+    got, gain = islands.migrate_kernel(st, L, return_gain=True)
+    off = islands.migrate_kernel(st, L)
+    want, want_gain = islands.migrate_plain(st, L, return_gain=True)
+    assert all(torch.equal(w, g) and torch.equal(o, g)
+               for w, g, o in zip(want, got, off))
+    assert torch.equal(gain, want_gain)
+    return gain
+
+
+def _quality_ops_case(L, pop, seed, device, with_sweep=True):
+    """One generation's flags and scores for K14's quality_ops: parents
+    drawn within each island, penalties in a small range (ties are no
+    win), an accumulator already holding counts."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    P = L * pop
+    i32 = torch.int32
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=device,
+                             dtype=i32)
+    base = torch.arange(P, device=device, dtype=i32) // pop * pop
+    return dict(
+        do_x=torch.rand(P, generator=g, device=device) < 0.6,
+        do_m=torch.rand(P, generator=g, device=device) < 0.5,
+        parent=(base + ints(pop, (P,))).to(i32),
+        child_pen=ints(5, (P,)), parent_pen=ints(5, (P,)),
+        sweep_ops=ints(40, (P, 3)) if with_sweep else None,
+        acc=ints(100, (L, 7)), L=L)
+
+
+def k14_ops_equal_plain(L, pop, seed, device, with_sweep=True):
+    """K14's quality_ops against its plain version, exactly."""
+    case = _quality_ops_case(L, pop, seed, device, with_sweep)
+    want = ga.quality_ops_plain(**{**case, "acc": case["acc"].clone()})
+    got = ga.quality_ops_kernel(**{**case, "acc": case["acc"].clone()})
+    assert torch.equal(want, got)
+    return want - case["acc"]
+
+
+def div_case(E, L, pop, seed, device="cpu"):
+    """(slots, penalty, scv) of L islands of `pop` rows: slots with
+    repeated values (so pairs can agree), penalties mixing the feasible
+    and the infeasible domains (to ~9e6, past float32's 2^24), scv in a
+    small range."""
+    g = np.random.default_rng(seed)
+    base = g.integers(0, 45, (L * pop, E))
+    same = g.random((L * pop, E)) < 0.6
+    slots = np.where(same, base[:1], base).astype(np.int32)
+    hcv = g.integers(0, 9, L * pop) * (g.random(L * pop) < 0.5)
+    scv = g.integers(0, 200, L * pop).astype(np.int32)
+    pen = np.where(hcv > 0, 1_000_000 * hcv + scv + 7, scv).astype(np.int32)
+    return tuple(torch.tensor(x, device=device) for x in (slots, pen, scv))
+
+
+def div_moments_close(got, want, x):
+    """The stated tolerance of the diversity moments (float32 mean, var,
+    min, max of the float32 values x by JAX's min-shifted formula): min
+    and max exact; the mean within a relative 1e-6 of the shifted mean
+    plus one float32 spacing of the mean (the shift back rounds to it);
+    the var within 4 n 2^-24 mean(c^2), c = x - min."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    x = np.asarray(x, np.float32).astype(np.float64)
+    c = x - x.min()
+    np.testing.assert_array_equal(got[2:], want[2:])
+    tol = 1e-6 * abs(c.mean()) + float(np.spacing(np.abs(want[0])))
+    assert abs(float(got[0]) - float(want[0])) <= tol, (got, want)
+    tol = 4 * len(x) * 2.0 ** -24 * (c * c).mean()
+    assert abs(float(got[1]) - float(want[1])) <= tol, (got, want)
+
+
+def k14_div_equal_plain(pa, L, pop, seed):
+    """K14's div_stats against its plain version: min, max and the
+    Hamming sample exactly, the moments within the stated tolerance.
+    Returns the plain rows."""
+    slots, pen, scv = div_case(pa.n_events, L, pop, seed, pa.device)
+    args = (pa.event_mask, slots, pen, scv, L)
+    got = islands.div_stats_kernel(*args).cpu().numpy()
+    want = islands.div_stats_plain(*args).cpu().numpy()
+    assert got.shape == want.shape == (L, 9)
+    np.testing.assert_array_equal(got[:, 8], want[:, 8])
+    for i in range(L):
+        r = slice(i * pop, (i + 1) * pop)
+        gf, wf = got[i].view(np.float32), want[i].view(np.float32)
+        div_moments_close(gf[:4], wf[:4], pen[r].cpu().float().numpy())
+        div_moments_close(gf[4:8], wf[4:8], scv[r].cpu().float().numpy())
+    return want
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -651,6 +813,55 @@ def test_k7_survivors_and_migrate_equal_plain(cuda, L, pop):
         got = islands.migrate(want, L)
         assert all(torch.equal(w, g)
                    for w, g in zip(islands.migrate_plain(want, L), got))
+
+
+# K14's grid: islands x rows an island (pop 1 has no Hamming pair; 33
+# rows more than the 32 pairs)
+K14_L = (1, 4, 16)
+K14_POP = (1, 2, 3, 4, 10, 16, 33)
+
+
+@pytest.mark.cuda
+def test_k14_quality_ops_and_div_stats_equal_plain(cuda):
+    for i, pa in enumerate(_instances(cuda)):
+        for L in K14_L:
+            for pop in K14_POP:
+                k14_ops_equal_plain(L, pop, 10 * L + pop + i, cuda,
+                                    with_sweep=pop % 2 == 0)
+                k14_div_equal_plain(pa, L, pop, 10 * L + pop + i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K5_CASES)
+def test_k5_move_counts_equal_plain(cuda, case):
+    sb, be, side, hot, p3 = case
+    n = torch.zeros(3, dtype=torch.int32, device=cuda)
+    for i, pa in enumerate(_instances(cuda)):
+        P = 6
+        st = _state(pa, P, 40 + i)
+        sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
+        g = torch.Generator(device=cuda).manual_seed(41 + i)
+        draws = sweep.make_sweep_draws([g], P, sh, pa.n_events, side, cuda)
+        n += k5_ops_equal_plain(pa, st, draws, case, CLUSTERS).sum(0)
+        n += k5_ops_equal_plain(pa, _half_feasible(st), draws, case,
+                                CLUSTERS).sum(0)
+    assert n[0] > 0 and (n[1] > 0 or sb == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", K6_MODES)
+def test_k6_base_parents_equal_plain(cuda, mode):
+    for i, pa in enumerate(_instances(cuda)):
+        k6_parents_equal_plain(pa, cuda, 90 + i, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 2, 4, 16])
+@pytest.mark.parametrize("pop", [2, 3, 16])
+def test_k7_migrate_gain_equal_plain(cuda, L, pop):
+    for E in (7, 400):
+        gain = k7_gain_equal_plain(L, pop, E, cuda)
+        assert (gain.sum() > 0) == (L > 1 and pop >= 3)
 
 
 @pytest.mark.cuda
@@ -1150,6 +1361,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_signatures_match_the_c_entry_points():
+    """Each SIGNATURES entry binds its C entry point's parameters, in
+    order, as pointers or ints, then the stream: a missing int would pass
+    the stream pointer through an int slot (a grep of the sources)."""
+    import re
+    for name, (sym, argtypes, src) in kernels.SIGNATURES.items():
+        text = (kernels.CSRC / f"{src}.cu").read_text()
+        m = re.search(r'extern "C" int ' + sym + r"\((.*?)\)\s*\{", text,
+                      re.S)
+        assert m, name
+        kinds = ["P" if "*" in p else "I" for p in m.group(1).split(",")]
+        bound = ["P" if a is ctypes.c_void_p else "I" for a in argtypes]
+        assert kinds == bound, name
+
+
 def test_library_paths_are_keyed_by_source_hash():
     paths = {s: kernels._lib_path(s) for s in kernels.SOURCES}
     assert len(set(paths.values())) == len(paths)
@@ -1166,6 +1392,7 @@ def test_library_paths_are_keyed_by_source_hash():
     assert kernels.SOURCES["nsga"] == ["nsga_rank", "nsga_survivors"]
     assert kernels.SOURCES["trace_compress"] == ["compress_trace",
                                                  "moment_rows"]
+    assert kernels.SOURCES["quality"] == ["quality_ops", "div_stats"]
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     # every local header a source includes is part of its key
     assert [p.name for p in kernels._sources("sweep_pass")] == [
@@ -1189,6 +1416,8 @@ def test_library_paths_are_keyed_by_source_hash():
         "nsga.cu", "rows_dev.cuh", "common.cuh"]
     assert [p.name for p in kernels._sources("trace_compress")] == [
         "trace_compress.cu", "common.cuh"]
+    assert [p.name for p in kernels._sources("quality")] == [
+        "quality.cu", "common.cuh"]
 
 
 def test_conflict_bits_and_csr_encode_the_problem():

@@ -39,7 +39,11 @@
 //     penalty_dev.cuh's body on its slots, rooms and occupancy in shared
 //     memory (the live slot bitsets built there, the students' masks from
 //     the CSR in global memory), into the (3, P) (penalty, hcv, scv)
-//     rows: the children's evaluation needs no launch of K2 of its own.
+//     rows: the children's evaluation needs no launch of K2 of its own;
+//   - with `out_parent` (the quality telemetry: its crossover and
+//     mutation wins compare a child with its base parent,
+//     ga.py:221-302 with_quality), thread 0 also writes tournament A's
+//     winner, the row the child started from; without it nothing more.
 // The relocation entry (kicks, the full-evaluation local search) keeps
 // one warp per row and runs only the last step, n_moves times in order
 // per row, on an occupancy counted once at the start.
@@ -101,8 +105,8 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     const int* __restrict__ room_of, const int* __restrict__ ranks,
     const float* __restrict__ crowd, TTPenaltyProblem pp,
     int* __restrict__ out_slots, int* __restrict__ out_rooms,
-    int* __restrict__ out_eval, int P, int pop, int k, int E, int R, int T,
-    int n_rounds, int so_ints) {
+    int* __restrict__ out_eval, int* __restrict__ out_parent, int P,
+    int pop, int k, int E, int R, int T, int n_rounds, int so_ints) {
     extern __shared__ int k6_smem[];
     TT_PROF_START();
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -127,6 +131,7 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     const int* sa = slots + (size_t)ia * E;
     const int* ra = rooms + (size_t)ia * E;
     const int* sb = slots + (size_t)ib * E;
+    if (out_parent && tid == 0) out_parent[c] = ia;
     if (do_x[c]) {
         const uint8_t* mk = mask + (size_t)c * E;
         for (int e = tid; e < E; e += blockDim.x)
@@ -220,8 +225,8 @@ extern "C" int tt_breed(
     const int* student_count, const uint32_t* conflict_bits,
     const int* stu_ptr, const int* stu_ev, const int* anchor_slots,
     const int* anchor_w, int* out_slots, int* out_rooms, int* out_eval,
-    int P, int pop, int k, int E, int R, int T, int n_rounds, int S, int spd,
-    int W, int diag, void* stream) {
+    int* out_parent, int P, int pop, int k, int E, int R, int T,
+    int n_rounds, int S, int spd, int W, int diag, void* stream) {
     if (R > 32 || E < 3 || P <= 0 || pop <= 0 || P % pop != 0 || k <= 0
         || T > 64 || spd > 32 || (ranks != nullptr) != (crowd != nullptr))
         return (int)cudaErrorInvalidValue;
@@ -241,8 +246,8 @@ extern "C" int tt_breed(
     breed_kernel<<<P, K6_THREADS, smem, (cudaStream_t)stream>>>(
         slots, rooms, pen, scv, ta, tb, mask, do_x, do_m, mtype, u, tgt,
         possible, cap_rank, dead, live, order, suit, room_of, ranks, crowd,
-        pp, out_slots, out_rooms, out_eval, P, pop, k, E, R, T, n_rounds,
-        (int)so_ints);
+        pp, out_slots, out_rooms, out_eval, out_parent, P, pop, k, E, R, T,
+        n_rounds, (int)so_ints);
     return (int)cudaGetLastError();
 }
 

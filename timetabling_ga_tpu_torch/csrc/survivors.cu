@@ -31,7 +31,12 @@
 // the emigrants are read from the input, as `_migrate` snapshots them
 // (which matters at pop 3, where row 1 is both an emigrant and a victim).
 // With one island the ring closes on itself. Populations under 3 do not
-// migrate (the wrapper returns them unchanged).
+// migrate (the wrapper returns them unchanged). With `gain` (the quality
+// telemetry, islands.py:213 _migrate return_gain), thread 0 of each
+// island's first block, which holds the island's new row 0, also writes
+// max(reported best before - after, 0) in int32 (scv once feasible,
+// else hcv * 1e6 + scv, wrapping as XLA's int32 does); without it
+// nothing more is done.
 #include "rows_dev.cuh"
 
 // threads of a block (the CPU stand-in builds it small)
@@ -101,8 +106,15 @@ __global__ void __launch_bounds__(K7_THREADS) survivors_kernel(
                      (size_t)l * keep, E, vec);
 }
 
+// the reported best (jsonl.reported_best) in int32, wrapping
+__device__ __forceinline__ int k7_reported(int hcv, int scv) {
+    return hcv == 0 ? scv
+                    : (int)((unsigned)hcv * 1000000u + (unsigned)scv);
+}
+
 __global__ void __launch_bounds__(K7_THREADS) migrate_kernel(
-    TTRows in, TTRowsOut out, int L, int pop, int E, int vec) {
+    TTRows in, TTRowsOut out, int* __restrict__ gain, int L, int pop, int E,
+    int vec) {
     extern __shared__ int k7_smem[];
     const int per = (pop + K7_ROWS - 1) / K7_ROWS;
     const int l = blockIdx.x / per, o0 = (blockIdx.x % per) * K7_ROWS;
@@ -128,6 +140,12 @@ __global__ void __launch_bounds__(K7_THREADS) migrate_kernel(
     TT_PROF(0);
     k7_rank_and_copy(cp, cs, buf, row, dst, pop, o0, o1, &in, out,
                      (size_t)l * pop, E, vec);
+    if (gain && o0 == 0 && threadIdx.x == 0) {
+        const int b = l * pop, a = row[dst[0]];
+        const int d = (int)((unsigned)k7_reported(in.hcv[b], in.scv[b])
+                            - (unsigned)k7_reported(in.hcv[a], in.scv[a]));
+        gain[l] = d > 0 ? d : 0;
+    }
 }
 
 extern "C" int tt_survivors(
@@ -156,7 +174,8 @@ extern "C" int tt_survivors(
 extern "C" int tt_migrate(
     const int* slots, const int* rooms, const int* pen, const int* hcv,
     const int* scv, int* out_slots, int* out_rooms, int* out_pen,
-    int* out_hcv, int* out_scv, int L, int pop, int E, void* stream) {
+    int* out_hcv, int* out_scv, int* gain, int L, int pop, int E,
+    void* stream) {
     if (L <= 0 || pop < 3 || E <= 0) return (int)cudaErrorInvalidValue;
     size_t smem = sizeof(int) * (4 * (size_t)pop + K7_ROWS);
     cudaError_t err = tt_set_smem(migrate_kernel, smem);
@@ -166,6 +185,6 @@ extern "C" int tt_migrate(
     TTRowsOut out = {out_slots, out_rooms, out_pen, out_hcv, out_scv};
     const int grid = L * ((pop + K7_ROWS - 1) / K7_ROWS);
     migrate_kernel<<<grid, K7_THREADS, smem, (cudaStream_t)stream>>>(
-        in, out, L, pop, E, tt_rows_vec(E, rows, 4));
+        in, out, gain, L, pop, E, tt_rows_vec(E, rows, 4));
     return (int)cudaGetLastError();
 }

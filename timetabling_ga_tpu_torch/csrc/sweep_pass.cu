@@ -42,7 +42,11 @@
 // never diverge; rank 0 writes the epilogue and the pivots. A last
 // cluster barrier keeps every CTA's shared memory alive until no other
 // reads it. All arithmetic is integer-exact and equals sweep_pass_plain
-// (ops/sweep.py) bit for bit.
+// (ops/sweep.py) bit for bit. With `ops` (the quality telemetry,
+// sweep.py:567-589 return_ops), thread 0 also counts each accepted move
+// (sideways accepts too) by the block its candidate index falls in,
+// Move1 | Move2 | Move3, in registers, and rank 0 writes ops_out = ops_in
+// + those counts a row; without it nothing more is done.
 #include <cooperative_groups.h>
 
 #include "sweep_dev.cuh"
@@ -128,6 +132,9 @@ struct K5Args {
     int* slots_out; int* rooms_out; int16_t* att_out; int16_t* occ_out;
     int* pen_out; int* hcv_out; int* scv_out; uint8_t* strict_out;
     int* pivots_out;
+    // accepted moves by kind (P, 3): ops_out = ops_in + this pass's, or
+    // null (no counting)
+    const int* ops_in; int* ops_out;
     int P, K, B, SB, n_steps, n_cand, use_hot, sideways, anchored, CS;
     K5Smem lay;
 };
@@ -453,6 +460,8 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
                                        0, 0};
     const int arg_empty[K5_ARG_REC] = {__float_as_int(-1.0f), K5_INT_MAX,
                                        0, 0, 0, 0};
+    // thread 0's accepted Move1 / Move2 / Move3 counts
+    int n_acc[3] = {0, 0, 0};
     for (int pos = 0; pos < A.n_steps; ++pos) {
         const int buf = pos & 1;
         // ---- Move1: this rank's block pivots to every slot (K3's body)
@@ -564,6 +573,8 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
             bool better = strict || (allow && bp == st[0]);
             st[3] |= strict ? 1 : 0;
             mv[0] = better ? 1 : 0;
+            if (better && A.ops_out)
+                ++n_acc[best < n1 ? 0 : best < n1 + A.B * A.SB ? 1 : 2];
             if (better) {
                 int ev[3], ns[3], on[3], invalid;
                 k5_candidate(A, perm_a, perm_b, piv, slots, pos, best, ev,
@@ -606,6 +617,11 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
             A.hcv_out[p] = st[1];
             A.scv_out[p] = st[2];
             A.strict_out[p] = (uint8_t)st[3];
+            if (A.ops_out)
+                for (int k = 0; k < 3; ++k)
+                    A.ops_out[(size_t)p * 3 + k] =
+                        (A.ops_in ? A.ops_in[(size_t)p * 3 + k] : 0)
+                        + n_acc[k];
         }
     }
     // no CTA leaves while another may still read its records
@@ -631,9 +647,10 @@ extern "C" int tt_sweep_pass(
     const int* anchor_slots, const int* anchor_w, int* slots_out,
     int* rooms_out, int16_t* att_out, int16_t* occ_out, int* pen_out,
     int* hcv_out, int* scv_out, uint8_t* strict_out, int* pivots_out,
-    int P, int E, int R, int S, int T, int spd, int W, int max_students,
-    int K, int B, int SB, int n_steps, int n_cand, int use_hot,
-    int sideways, int anchored, int cluster, void* stream) {
+    const int* ops_in, int* ops_out, int P, int E, int R, int S, int T,
+    int spd, int W, int max_students, int K, int B, int SB, int n_steps,
+    int n_cand, int use_hot, int sideways, int anchored, int cluster,
+    void* stream) {
     if (P <= 0 || E < 3 || T > 64 || T > K5_THREADS || R > 32 || spd > 32
         || K <= 0 || B <= 0 || SB < 0 || n_steps <= 0 || n_cand < B * T
         || cluster < 1 || cluster > K5_MAX_CLUSTER
@@ -659,6 +676,7 @@ extern "C" int tt_sweep_pass(
     A.occ_out = occ_out; A.pen_out = pen_out; A.hcv_out = hcv_out;
     A.scv_out = scv_out; A.strict_out = strict_out;
     A.pivots_out = pivots_out;
+    A.ops_in = ops_in; A.ops_out = ops_out;
     A.P = P; A.K = K; A.B = B; A.SB = SB; A.n_steps = n_steps;
     A.n_cand = n_cand; A.use_hot = use_hot; A.sideways = sideways;
     A.anchored = anchored; A.CS = cluster; A.lay = lay;

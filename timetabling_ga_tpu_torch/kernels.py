@@ -14,7 +14,8 @@ relocate; K7 `survivors.cu`: survivors and migrate; K8 `random_ls.cu`:
 its pre-pass random_ls_events, which also feeds K12 `full_eval_ls.cu`,
 and the chain random_ls; K11 `nsga.cu`:
 nsga_rank and nsga_survivors; K13 `trace_compress.cu`: compress_trace
-and moment_rows); each has its own name here. Every C entry
+and moment_rows; K14 `quality.cu`: quality_ops and div_stats); each has
+its own name here. Every C entry
 point launches on PyTorch's current stream and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code.
 `LAUNCHES` counts the launches of each entry point: a wrapper adds one
@@ -58,13 +59,13 @@ SIGNATURES = {
                     "move1_sweep"),
     "delta_one": ("tt_delta_one", [_P] * 21 + [_I] * 8 + [_P],
                   "delta_one"),
-    "sweep_pass": ("tt_sweep_pass", [_P] * 33 + [_I] * 17 + [_P],
+    "sweep_pass": ("tt_sweep_pass", [_P] * 35 + [_I] * 17 + [_P],
                    "sweep_pass"),
-    "breed": ("tt_breed", [_P] * 30 + [_I] * 11 + [_P], "breed"),
+    "breed": ("tt_breed", [_P] * 31 + [_I] * 11 + [_P], "breed"),
     "relocate": ("tt_relocate", [_P] * 11 + [_I] * 5 + [_P], "breed"),
     "survivors": ("tt_survivors", [_P] * 15 + [_I] * 5 + [_P],
                   "survivors"),
-    "migrate": ("tt_migrate", [_P] * 10 + [_I] * 3 + [_P], "survivors"),
+    "migrate": ("tt_migrate", [_P] * 11 + [_I] * 3 + [_P], "survivors"),
     "random_ls_events": ("tt_random_ls_events", [_P] * 2 + [_I] * 4 + [_P],
                          "random_ls"),
     "random_ls": ("tt_random_ls", [_P] * 26 + [_I] * 11 + [_P],
@@ -81,6 +82,9 @@ SIGNATURES = {
                        "trace_compress"),
     "moment_rows": ("tt_moment_rows", [_P] * 3 + [_I] * 2 + [_P],
                     "trace_compress"),
+    "quality_ops": ("tt_quality_ops", [_P] * 7 + [_I] * 2 + [_P],
+                    "quality"),
+    "div_stats": ("tt_div_stats", [_P] * 5 + [_I] * 5 + [_P], "quality"),
 }
 
 # the entry points of each source

@@ -16,6 +16,13 @@ crowded tournament on ranks and crowding computed once a generation
 under `rooms_mode="parallel"` the crossover rematch is the parallel
 matcher (ops/rooms.py parallel_assign_rooms), inside K6 on the card.
 
+Under the quality telemetry (`--quality`) a generation also adds its
+crossover and mutation attempts and wins and the sweep's accepted moves
+to an (L, N_OPS) int32 accumulator on the card (kernel K14's quality_ops,
+csrc/quality.cu; JAX ga.py:221-302 with_quality): K6 writes each child's
+base parent, K5 each row's accepted moves. Nothing new is drawn, so the
+trajectory is the same with it on or off.
+
 Populations may hold several islands as consecutive equal row blocks
 (`groups`): selection, truncation and the converge rule act within each
 block, as the JAX package's vmap over local islands does. Randomness
@@ -30,6 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch.obs.quality import N_OPS
 from timetabling_ga_tpu_torch.ops import fitness, nsga
 from timetabling_ga_tpu_torch.ops.delta import (
     LSRows, batch_local_search_delta, init_rows, make_ls_draws)
@@ -240,12 +248,15 @@ PARALLEL_ROUNDS = 4
 
 
 def make_children_plain(pa, draws: BreedDraws, state: PopState,
-                        cfg: GAConfig, groups: int = 1, mo_stats=None):
+                        cfg: GAConfig, groups: int = 1, mo_stats=None,
+                        with_parent: bool = False):
     """Plain version of K6: breed one child per parent row, 2x tournament
     -> crossover(p) -> mutation(p). `mo_stats` is None (tournaments by
     (penalty, scv)) or the parents' (ranks, crowding) for the crowded
     tournament. Returns the children's rows scored (LSRows: slots,
-    rooms and batch_penalty_plain's terms)."""
+    rooms and batch_penalty_plain's terms), and with with_parent also
+    each child's base parent (tournament A's winner, a row of `state`)
+    as (P,) int32."""
     P = state.slots.shape[0]
     pop = P // groups
     base = (torch.arange(P, device=state.slots.device) // pop * pop)[:, None]
@@ -270,14 +281,20 @@ def make_children_plain(pa, draws: BreedDraws, state: PopState,
     do_m = draws.do_m[:, None]
     slots = torch.where(do_m, m_slots, slots)
     rooms = torch.where(do_m, m_rooms, rooms)
-    return LSRows(slots, rooms, *fitness.batch_penalty_plain(pa, slots, rooms))
+    rows = LSRows(slots, rooms, *fitness.batch_penalty_plain(pa, slots,
+                                                              rooms))
+    if with_parent:
+        return rows, ia.to(torch.int32)
+    return rows
 
 
 def make_children_kernel(pa, draws: BreedDraws, state: PopState,
                          groups: int = 1, mo_stats=None,
-                         rooms_mode: str = "scan"):
+                         rooms_mode: str = "scan",
+                         with_parent: bool = False):
     """Kernel K6: every child in one launch, a block a child, which also
-    scores it (the (3, P) penalty terms K2 would give)."""
+    scores it (the (3, P) penalty terms K2 would give) and, with
+    with_parent, writes its base parent."""
     check_packing(pa)
     P, E = state.slots.shape
     ins = [x.contiguous() for x in (state.slots, state.rooms,
@@ -301,8 +318,11 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
                             "crowding")
     out = [torch.empty_like(ins[0]), torch.empty_like(ins[1])]
     ev = torch.empty((3, P), dtype=torch.int32, device=ins[0].device)
+    parent = (torch.empty(P, dtype=torch.int32, device=ins[0].device)
+              if with_parent else None)
+    rows = LSRows(*out, ev[0], ev[1], ev[2])
     if P == 0:
-        return LSRows(*out, ev[0], ev[1], ev[2])
+        return (rows, parent) if with_parent else rows
     p = kernels.ptr
     kernels.launch("breed", *(p(x) for x in ins + dr), p(pa.possible_u8),
                    p(pa.cap_rank), p(pa.dead), p(pa.live),
@@ -310,54 +330,116 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
                    *(None if x is None else p(x) for x in mo),
                    p(pa.student_count), p(pa.conflict_bits), p(pa.stu_ptr),
                    p(pa.stu_ev), p(pa.anchor_slots), p(pa.anchor_w),
-                   p(out[0]), p(out[1]), p(ev), P, P // groups,
+                   p(out[0]), p(out[1]), p(ev),
+                   None if parent is None else p(parent), P, P // groups,
                    draws.ta.shape[1], E, pa.n_rooms, pa.n_slots,
                    PARALLEL_ROUNDS if rooms_mode == "parallel" else -1,
                    pa.n_students, pa.slots_per_day, pa.conflict_bits.shape[1],
                    pa.conflict_diag)
-    return LSRows(*out, ev[0], ev[1], ev[2])
+    return (rows, parent) if with_parent else rows
 
 
 def make_children(pa, draws: BreedDraws, state: PopState, cfg: GAConfig,
-                  groups: int = 1, mo_stats=None):
+                  groups: int = 1, mo_stats=None, with_parent: bool = False):
     """Breed one child per parent row (each island's children from its
     own parents); returns the children's rows with their penalty terms
-    (LSRows). Kernel K6 on CUDA tensors, which scores each child in its
-    epilogue, the plain version on CPU ones."""
+    (LSRows), and with with_parent also each child's base parent row
+    ((P,) int32). Kernel K6 on CUDA tensors, which scores each child in
+    its epilogue, the plain version on CPU ones."""
     if not state.slots.is_cuda:
-        return make_children_plain(pa, draws, state, cfg, groups, mo_stats)
+        return make_children_plain(pa, draws, state, cfg, groups, mo_stats,
+                                   with_parent)
     return make_children_kernel(pa, draws, state, groups, mo_stats,
-                                cfg.rooms_mode)
+                                cfg.rooms_mode, with_parent)
 
 
 def local_search(pa, ls_draws, children: LSRows, cfg: GAConfig,
-                 groups: int = 1) -> LSRows:
+                 groups: int = 1, return_ops: bool = False):
     """The local search of the scored children as JAX ga.py:249-274
     selects it: the sweep when ls_mode is "sweep", else ls_steps rounds
     of the random-candidate search (delta-scored, or by full
     re-evaluation when ls_delta is False), else none. Each search starts
     from the children's scores; returns their rows after it, scored: K8
     scores the delta search's rows in its epilogue, K12 carries the full
-    evaluations of the rows it accepts, K2 scores the sweep's."""
+    evaluations of the rows it accepts, K2 scores the sweep's. With
+    return_ops, returns (rows, ops): the sweep's (P, 3) accepted-move
+    counts a row, or None after the other searches (JAX's zeros)."""
     slots, rooms = children.slots, children.rooms
+    ops = None
     if cfg.ls_mode == "sweep" and cfg.ls_sweeps > 0:
-        slots, rooms = sweep_local_search(
+        slots, rooms, *ops = sweep_local_search(
             pa, ls_draws, slots, rooms, n_sweeps=cfg.ls_sweeps,
             swap_block=cfg.ls_swap_block, converge=cfg.ls_converge,
             block_events=cfg.ls_block_events, sideways=cfg.ls_sideways,
             hot_k=cfg.ls_hot_k, p3=cfg.p3, groups=groups,
-            scores=children[2:])
+            scores=children[2:], return_ops=return_ops)
+        rows = init_rows(pa, slots, rooms)
+        ops = ops[0] if return_ops else None
     elif cfg.ls_mode != "sweep" and cfg.ls_steps > 0:
         search = (batch_local_search_delta if cfg.ls_delta
                   else batch_local_search)
-        return search(pa, ls_draws(0), slots, rooms, children[2:])
+        rows = search(pa, ls_draws(0), slots, rooms, children[2:])
     else:
-        return children
-    return init_rows(pa, slots, rooms)
+        rows = children
+    return (rows, ops) if return_ops else rows
+
+
+def quality_ops_plain(do_x, do_m, parent, child_pen, parent_pen, sweep_ops,
+                      acc, L: int) -> torch.Tensor:
+    """Plain version of K14's quality_ops entry (see `quality_ops`)."""
+    win = child_pen < parent_pen[parent.long()]
+    x, m = do_x.to(torch.bool), do_m.to(torch.bool)
+    n = torch.stack([x, x & win, m, m & win], 1).to(torch.int32)
+    if sweep_ops is None:
+        sweep_ops = torch.zeros((n.shape[0], 3), dtype=torch.int32,
+                                device=n.device)
+    n = torch.cat([n, sweep_ops.to(torch.int32)], 1)
+    acc += n.reshape(L, -1, N_OPS).sum(1, dtype=torch.int32)
+    return acc
+
+
+def quality_ops_kernel(do_x, do_m, parent, child_pen, parent_pen,
+                       sweep_ops, acc, L: int) -> torch.Tensor:
+    """K14's quality_ops entry: a block an island adds into `acc`."""
+    i32 = torch.int32
+    ins = [parent.contiguous(), child_pen.contiguous(),
+           parent_pen.contiguous()]
+    if sweep_ops is not None:
+        ins.append(sweep_ops.contiguous())
+    if (any(x.dtype != i32 for x in ins) or acc.dtype != i32
+            or not acc.is_contiguous() or tuple(acc.shape) != (L, N_OPS)):
+        raise TypeError("quality_ops takes int32 rows and a contiguous "
+                        f"(L, {N_OPS}) int32 accumulator")
+    p = kernels.ptr
+    kernels.launch("quality_ops",
+                   p(do_x.contiguous().view(torch.uint8)),
+                   p(do_m.contiguous().view(torch.uint8)),
+                   *(p(x) for x in ins[:3]),
+                   p(ins[3]) if sweep_ops is not None else None, p(acc),
+                   L, do_x.shape[0] // L)
+    return acc
+
+
+def quality_ops(do_x, do_m, parent, child_pen, parent_pen, sweep_ops, acc,
+                L: int) -> torch.Tensor:
+    """Add one generation's operator counters to the (L, N_OPS) int32
+    accumulator `acc`, in place, per island of L equal row blocks:
+    crossover attempts and wins, mutation attempts and wins — a win is a
+    child whose penalty after its local search is below its base
+    parent's (`parent`, rows of the parents' `parent_pen`), credited to
+    each operator that touched it — then the rows' accepted Move1, Move2
+    and Move3 counts (`sweep_ops` (P, 3), or None: zeros). JAX
+    ga.py:294-302. Kernel K14 on CUDA tensors, the plain version on CPU
+    ones. Returns acc."""
+    if not acc.is_cuda:
+        return quality_ops_plain(do_x, do_m, parent, child_pen, parent_pen,
+                                 sweep_ops, acc, L)
+    return quality_ops_kernel(do_x, do_m, parent, child_pen, parent_pen,
+                              sweep_ops, acc, L)
 
 
 def generation(pa, draws: BreedDraws, ls_draws, state: PopState,
-               cfg: GAConfig, groups: int = 1) -> PopState:
+               cfg: GAConfig, groups: int = 1, qacc=None) -> PopState:
     """One generation over `groups` islands of cfg.pop_size rows: breed
     and score every child, local-search them, evaluate, and keep each
     island's best pop_size of parents + children in (penalty, scv) order
@@ -365,12 +447,23 @@ def generation(pa, draws: BreedDraws, ls_draws, state: PopState,
     ga.py:221-293). `ls_draws` is the local search's draw function
     (`ls_draws_fn`). On the card the children's evaluations come from K6
     and, after the random-candidate search, K8 or K12; K2 runs only
-    after the sweep."""
+    after the sweep. `qacc`, an (L, N_OPS) int32 tensor, takes the
+    generation's quality counters (`quality_ops`, JAX with_quality)."""
     mo_stats = None
     if cfg.multi_objective:
         mo_stats = nsga.rank_crowd(state.hcv, state.scv, groups)
-    children = make_children(pa, draws, state, cfg, groups, mo_stats)
-    children = PopState(*local_search(pa, ls_draws, children, cfg, groups))
+    if qacc is None:
+        children = make_children(pa, draws, state, cfg, groups, mo_stats)
+        children = PopState(*local_search(pa, ls_draws, children, cfg,
+                                          groups))
+    else:
+        children, parent = make_children(pa, draws, state, cfg, groups,
+                                         mo_stats, with_parent=True)
+        rows, sweep_ops = local_search(pa, ls_draws, children, cfg, groups,
+                                       return_ops=True)
+        children = PopState(*rows)
+        quality_ops(draws.do_x, draws.do_m, parent, children.penalty,
+                    state.penalty, sweep_ops, qacc, groups)
     if cfg.multi_objective:
         return nsga.survivors(state, children, groups, keep=cfg.pop_size)
     return survivors(state, children, groups, keep=cfg.pop_size)

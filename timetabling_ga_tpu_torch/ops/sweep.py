@@ -281,9 +281,11 @@ def _perms(draws: SweepDraws, E: int, dev) -> torch.Tensor:
 
 def sweep_pass_plain(pa, draws: SweepDraws, state: LSState,
                      swap_block: int = 8, block_events: int = 1,
-                     sideways: float = 0.0, hot_k: int = 0, p3: float = 0.0):
+                     sideways: float = 0.0, hot_k: int = 0, p3: float = 0.0,
+                     ops=None):
     """Plain version of K5: one sweep pass as a loop over its steps, in
-    PyTorch on any device. Returns (state, strict_rows), as sweep_pass."""
+    PyTorch on any device. Returns (state, strict_rows[, ops_out]), as
+    sweep_pass."""
     P, E = state.slots.shape
     T = pa.n_slots
     sh = sweep_shape(E, T, swap_block, block_events, hot_k, p3)
@@ -305,6 +307,10 @@ def sweep_pass_plain(pa, draws: SweepDraws, state: LSState,
         n3 = 2 * B * (SB - 1) if sh.with_move3 else 0
         act_c = torch.ones((P, n2 + n3, 3), dtype=torch.bool, device=dev)
         act_c[:, :n2, 2] = False
+    if ops is not None:
+        # accepted moves by candidate block: Move1 | Move2 | Move3
+        n_acc = ops.clone()
+        bounds = torch.tensor([B * T, B * T + B * SB], device=dev)
     st = state
     for pos in range(n_steps):
         s, r = st.slots, st.rooms
@@ -423,6 +429,12 @@ def sweep_pass_plain(pa, draws: SweepDraws, state: LSState,
             hcv=torch.where(better, new_hcv[ar, best], st.hcv).to(i32),
             scv=torch.where(better, new_scv[ar, best], st.scv).to(i32))
         strict_rows |= strict
+        if ops is not None:
+            kind = torch.bucketize(best, bounds, right=True)
+            n_acc += (torch.nn.functional.one_hot(kind, 3)
+                      * better[:, None]).to(i32)
+    if ops is not None:
+        return st, strict_rows, n_acc
     return st, strict_rows
 
 
@@ -467,12 +479,15 @@ def auto_cluster(pa, shape: SweepShape, P: int, device) -> int:
 def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
                       swap_block: int = 8, block_events: int = 1,
                       sideways: float = 0.0, hot_k: int = 0,
-                      p3: float = 0.0, cluster: Optional[int] = None):
+                      p3: float = 0.0, cluster: Optional[int] = None,
+                      ops=None):
     """Kernel K5 on CUDA tensors: the whole pass in one launch, a cluster
     of `cluster` CTAs per individual (None: `auto_cluster`; an explicit
     size is for tests and the chip smoke). Returns (state, strict_rows,
-    pivots): pivots (P, K) int32 are the pass's pivot order (hot_pivots
-    in hot mode, else the permutation). Raises ValueError when one
+    pivots[, ops_out]): pivots (P, K) int32 are the pass's pivot order
+    (hot_pivots in hot mode, else the permutation); with `ops` (P, 3)
+    int32, ops_out is ops plus the pass's accepted Move1/Move2/Move3
+    counts of each row. Raises ValueError when one
     individual's state does not fit in shared memory, RuntimeError when
     the card refuses the cluster; there is no fallback."""
     P, E = state.slots.shape
@@ -505,15 +520,23 @@ def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
     out = LSState(*(torch.empty_like(x) for x in ins))
     strict = torch.empty(P, dtype=torch.uint8, device=state.slots.device)
     pivots = torch.empty((P, sh.K), dtype=i32, device=state.slots.device)
+    ops_out = None
+    if ops is not None:
+        ops = ops.contiguous()
+        if ops.dtype != i32 or ops.shape != (P, 3):
+            raise TypeError("sweep_pass takes (P, 3) int32 move counts")
+        ops_out = torch.empty_like(ops)
+    tail = () if ops is None else (ops_out,)
     if P == 0:
-        return out, strict.view(torch.bool), pivots
+        return (out, strict.view(torch.bool), pivots) + tail
     p = kernels.ptr
     args = [*(p(x) for x in ins),
             *(None if x is None else p(x) for x in dr), p(pa.possible_u8),
             p(pa.live), p(pa.student_count), p(pa.conflict_bits),
             p(pa.cap_rank), p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr),
             p(pa.ev_stu), p(pa.event_mask), p(pa.anchor_slots),
-            p(pa.anchor_w), *(p(x) for x in out), p(strict), p(pivots)]
+            p(pa.anchor_w), *(p(x) for x in out), p(strict), p(pivots),
+            *((None, None) if ops is None else (p(ops), p(ops_out)))]
     if cluster is None:
         cluster = auto_cluster(pa, sh, P, state.slots.device)
     kernels.launch(
@@ -521,23 +544,27 @@ def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
         pa.slots_per_day, pa.conflict_bits.shape[1], pa.max_ev_students,
         sh.K, sh.B, sh.SB, sh.n_steps, sh.n_cand, int(sh.use_hot),
         int(side), int(pa.anchored), cluster)
-    return out, strict.view(torch.bool), pivots
+    return (out, strict.view(torch.bool), pivots) + tail
 
 
 def sweep_pass(pa, draws: SweepDraws, state: LSState, swap_block: int = 8,
                block_events: int = 1, sideways: float = 0.0,
-               hot_k: int = 0, p3: float = 0.0):
+               hot_k: int = 0, p3: float = 0.0, ops=None):
     """One sweep pass over a (P, E) population. Returns (state,
-    improved_rows): improved_rows (P,) bool marks the individuals that
-    accepted at least one STRICT improvement (sideways accepts do not
-    count), the per-row form of JAX's `improved` scalar. Kernel K5 on
-    CUDA tensors, the plain version on CPU ones."""
+    improved_rows[, ops_out]): improved_rows (P,) bool marks the
+    individuals that accepted at least one STRICT improvement (sideways
+    accepts do not count), the per-row form of JAX's `improved` scalar;
+    with `ops` (P, 3) int32, ops_out adds each row's accepted Move1,
+    Move2 and Move3 counts of this pass (every accept, sideways too: JAX
+    sweep.py:567-589 return_ops, per row). Kernel K5 on CUDA tensors,
+    the plain version on CPU ones."""
     if not state.slots.is_cuda:
         return sweep_pass_plain(pa, draws, state, swap_block, block_events,
-                                sideways, hot_k, p3)
-    st, rows, _ = sweep_pass_kernel(pa, draws, state, swap_block,
-                                    block_events, sideways, hot_k, p3)
-    return st, rows
+                                sideways, hot_k, p3, ops)
+    st, rows, _, *tail = sweep_pass_kernel(
+        pa, draws, state, swap_block, block_events, sideways, hot_k, p3,
+        ops=ops)
+    return (st, rows, *tail)
 
 
 def sweep_local_search(pa, draws_fn: Callable[[int], SweepDraws], slots,
@@ -545,36 +572,51 @@ def sweep_local_search(pa, draws_fn: Callable[[int], SweepDraws], slots,
                        swap_block: int = 8, converge: bool = False,
                        block_events: int = 1, sideways: float = 0.0,
                        hot_k: int = 0, p3: float = 0.0, groups: int = 1,
-                       return_passes: bool = False, scores=None):
+                       return_passes: bool = False, scores=None,
+                       return_ops: bool = False):
     """Up to `n_sweeps` sweep passes over a (P, E) population; pass i
     takes `draws_fn(i)`. converge=True stops a group of rows once one
     of its passes accepts no strict improvement (JAX's while_loop; the
     rows split into `groups` equal groups — islands — that converge
     independently, as vmapped islands do). `scores` are the rows'
     (penalty, hcv, scv) where the caller holds them (K6's children),
-    else K2 takes them. Returns (slots, rooms[, passes executed])."""
+    else K2 takes them. return_ops (the quality telemetry, JAX
+    sweep.py:600-677) adds a (P, 3) int32 tensor of each row's accepted
+    Move1/Move2/Move3 counts over the passes its group executed: a
+    converged group's rows, like its state, take nothing from the
+    passes after it. Returns (slots, rooms[, passes executed][, ops])."""
     state = init_state(pa, slots, rooms, scores)
     P = slots.shape[0]
+    ops = (torch.zeros((P, 3), dtype=torch.int32, device=slots.device)
+           if return_ops else None)
     passes = 0
     if converge:
         alive = torch.ones(groups, dtype=torch.bool, device=slots.device)
         while passes < n_sweeps:
-            new, improved = sweep_pass(pa, draws_fn(passes), state,
-                                       swap_block, block_events, sideways,
-                                       hot_k, p3)
+            new, improved, *new_ops = sweep_pass(
+                pa, draws_fn(passes), state, swap_block, block_events,
+                sideways, hot_k, p3, ops)
             rows = alive.repeat_interleave(P // groups)
             state = LSState(*(torch.where(
                 rows.reshape((P,) + (1,) * (x.dim() - 1)), x, y)
                 for x, y in zip(new, state)))
+            if return_ops:
+                ops = torch.where(rows[:, None], new_ops[0], ops)
             passes += 1
             alive = alive & improved.reshape(groups, -1).any(1)
             if not bool(alive.any()):
                 break
     else:
         for i in range(n_sweeps):
-            state, _ = sweep_pass(pa, draws_fn(i), state, swap_block,
-                                  block_events, sideways, hot_k, p3)
+            state, _, *new_ops = sweep_pass(pa, draws_fn(i), state,
+                                            swap_block, block_events,
+                                            sideways, hot_k, p3, ops)
+            if return_ops:
+                ops = new_ops[0]
         passes = n_sweeps
+    out = (state.slots, state.rooms)
     if return_passes:
-        return state.slots, state.rooms, passes
-    return state.slots, state.rooms
+        out += (passes,)
+    if return_ops:
+        out += (ops,)
+    return out

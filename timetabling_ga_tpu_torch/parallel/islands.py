@@ -20,16 +20,30 @@ their count and, in stats mode, four float32 moments (JAX
 on the card, `compress_trace_plain` on the CPU. `trace_events` decodes
 either on the host. In stats mode the polish and the LAHC chunks append
 the same moments of their rows (K13's moment_rows entry).
+
+Under `--quality` (JAX islands.py:545-595, the quality runners at
+:336-397 and :986-1067) a dispatch's leaf is packed as `deltas` even in
+`full` mode, then, uncapped (K = T), the trace keeps every improvement,
+and each island's row carries the quality block (obs/quality.py) after
+it: [event leaf | N_OPS counters | migration gain | N_DIV diversity].
+The counters accumulate on the card a generation at a time (kernel K14's
+quality_ops, through ops/ga.py generation), the gain at each ring
+exchange (K7's migrate), the diversity of the dispatch's final
+population once (K14's div_stats); the host splits the block off with
+`split_quality`. Nothing new is drawn: the trajectory and the record
+stream are the same with it on or off.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
 import torch
 
 from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch.obs import quality as obs_quality
 from timetabling_ga_tpu_torch.ops import fitness, ga, lahc
 from timetabling_ga_tpu_torch.ops.moves import (
     MoveDraws, make_move_draws, relocation_chain)
@@ -50,10 +64,19 @@ def init_island_population(pa, gens, pop_size: int) -> ga.PopState:
     return ga.init_population(pa, slots0, groups=len(gens))
 
 
-def migrate_plain(state: ga.PopState, L: int) -> ga.PopState:
+def reported_i32(hcv, scv):
+    """The reported best in int32 (JAX `_reported_i32`): scv once
+    feasible, else hcv * 1e6 + scv, wrapping as int32 arithmetic does."""
+    return torch.where(hcv == 0, scv, hcv * 1_000_000 + scv)
+
+
+def migrate_plain(state: ga.PopState, L: int, return_gain: bool = False):
     """Plain version of K7's migrate entry (see `migrate`)."""
     pop = state.penalty.shape[0] // L
     if pop < 3:
+        if return_gain:
+            return state, torch.zeros(L, dtype=torch.int32,
+                                      device=state.penalty.device)
         return state
     out = []
     for x in state:
@@ -63,36 +86,54 @@ def migrate_plain(state: ga.PopState, L: int) -> ga.PopState:
         b[:, -1] = torch.roll(best, 1, dims=0)
         b[:, -2] = torch.roll(second, -1, dims=0)
         out.append(b.reshape(x.shape))
-    return ga.survivors_plain(ga.PopState(*out), groups=L)
+    new = ga.survivors_plain(ga.PopState(*out), groups=L)
+    if not return_gain:
+        return new
+
+    def best(st):
+        return reported_i32(_blocks(st.hcv, L)[:, 0],
+                            _blocks(st.scv, L)[:, 0])
+    return new, torch.clamp(best(state) - best(new), min=0)
 
 
-def migrate_kernel(state: ga.PopState, L: int) -> ga.PopState:
+def migrate_kernel(state: ga.PopState, L: int, return_gain: bool = False):
     """Kernel K7's migrate entry: every island in one launch, out of
-    place (the emigrants are read from the input)."""
+    place (the emigrants are read from the input); with return_gain the
+    first block of each island also writes its gain."""
     pop = state.penalty.shape[0] // L
     if pop < 3:
+        if return_gain:
+            return state, torch.zeros(L, dtype=torch.int32,
+                                      device=state.penalty.device)
         return state
+    # every island's first block writes its gain
+    gain = (torch.empty(L, dtype=torch.int32, device=state.penalty.device)
+            if return_gain else None)
     ins = [x.contiguous() for x in state]
     if any(x.dtype != torch.int32 for x in ins):
         raise TypeError("migrate takes an int32 population")
     out = ga.PopState(*(torch.empty_like(x) for x in ins))
     p = kernels.ptr
     kernels.launch("migrate", *(p(x) for x in ins), *(p(x) for x in out),
-                   L, pop, state.slots.shape[1])
-    return out
+                   None if gain is None else p(gain), L, pop,
+                   state.slots.shape[1])
+    return (out, gain) if return_gain else out
 
 
-def migrate(state: ga.PopState, L: int) -> ga.PopState:
+def migrate(state: ga.PopState, L: int, return_gain: bool = False):
     """Bidirectional ring migration of one migrant each way: island l's
     worst row receives island l-1's best, its second-worst island l+1's
     second-best, then each island re-sorts (ga.cpp:522-535). With one
     island the ring closes on itself, as the JAX ring over one device
     does. Populations under 3 skip migration: a victim row would alias
-    the best (islands.py:247-251). Kernel K7's migrate entry on CUDA
-    tensors, the plain version on CPU ones."""
+    the best (islands.py:247-251). With return_gain (the quality
+    telemetry) also returns each island's (L,) int32 gain: its reported
+    best before the exchange minus after, at least 0 (zeros under pop
+    3). Kernel K7's migrate entry on CUDA tensors, the plain version on
+    CPU ones."""
     if not state.slots.is_cuda:
-        return migrate_plain(state, L)
-    return migrate_kernel(state, L)
+        return migrate_plain(state, L, return_gain)
+    return migrate_kernel(state, L, return_gain)
 
 
 # Improvement-event capacity per island per dispatch (JAX islands.py:425):
@@ -103,11 +144,34 @@ TRACE_N_MOMENTS = 4
 SENTINEL = 2 ** 31 - 1
 
 
-def trace_leaf_width(n_gens: int, trace_mode: str) -> int:
+def effective_trace_mode(trace_mode: str, quality: bool) -> str:
+    """The leaf's packing: the quality block rides a compressed leaf, so
+    under quality a `full` trace packs as `deltas` (JAX islands.py:556).
+    The record stream is the same either way."""
+    return "deltas" if quality and trace_mode == "full" else trace_mode
+
+
+def split_quality(trace, quality: bool):
+    """Host split of a fetched leaf into (event leaf, quality block or
+    None), numpy only (JAX islands.py:568)."""
+    if not quality:
+        return trace, None
+    tr = np.asarray(trace)
+    w = obs_quality.QUALITY_WIDTH
+    return tr[:, :-w], tr[:, -w:]
+
+
+def trace_leaf_width(n_gens: int, trace_mode: str,
+                     quality: bool = False) -> int:
     """Packed columns per island: K events x (gen, hcv, scv), the
-    improvement count [and the moments]."""
-    k = min(n_gens, TRACE_DELTAS_CAP)
-    return 3 * k + 1 + (TRACE_N_MOMENTS if trace_mode == "stats" else 0)
+    improvement count [and the moments] [and the quality block]. A
+    quality-packed `full` trace is uncapped, K = n_gens (JAX
+    islands.py:580)."""
+    k = (n_gens if quality and trace_mode == "full"
+         else min(n_gens, TRACE_DELTAS_CAP))
+    mode = effective_trace_mode(trace_mode, quality)
+    return (3 * k + 1 + (TRACE_N_MOMENTS if mode == "stats" else 0)
+            + (obs_quality.QUALITY_WIDTH if quality else 0))
 
 
 def reported_f32(hcv, scv):
@@ -155,14 +219,18 @@ def moment_rows(hcv, scv):
     return moment_rows_kernel(hcv, scv)
 
 
-def compress_trace_plain(trace, trace_mode: str):
+def _event_cap(T: int, cap) -> int:
+    return min(T, TRACE_DELTAS_CAP if cap is None else cap)
+
+
+def compress_trace_plain(trace, trace_mode: str, cap: int = None):
     """Plain version of K13's compress_trace entry (JAX `_compress_trace`
     with every row valid): per island the running lexicographic minimum
     of (hcv, scv) from the sentinel, its strict improvements, the last K
     of them as (gen, hcv, scv) rows padded with the sentinel, their
     count, and in stats mode the moments of the reported values."""
     L, T, _ = trace.shape
-    K = min(T, TRACE_DELTAS_CAP)
+    K = _event_cap(T, cap)
     h, s = trace[..., 0], trace[..., 1]
     key = (h.to(torch.int64) << 32) | s.to(torch.int64)
     start = torch.full((L, 1), (SENTINEL << 32) | SENTINEL,
@@ -184,28 +252,101 @@ def compress_trace_plain(trace, trace_mode: str):
     return torch.cat(parts, 1)
 
 
-def compress_trace_kernel(trace, trace_mode: str):
+def compress_trace_kernel(trace, trace_mode: str, cap: int = None):
     """K13's compress_trace entry: a warp an island, walking T in chunks
     of 32 rows."""
     trace = trace.contiguous()
     if trace.dtype != torch.int32:
         raise TypeError("compress_trace takes an int32 trace")
     L, T, _ = trace.shape
-    K = min(T, TRACE_DELTAS_CAP)
-    out = torch.empty((L, trace_leaf_width(T, trace_mode)),
-                      dtype=torch.int32, device=trace.device)
+    K = _event_cap(T, cap)
+    n_mom = TRACE_N_MOMENTS if trace_mode == "stats" else 0
+    out = torch.empty((L, 3 * K + 1 + n_mom), dtype=torch.int32,
+                      device=trace.device)
     kernels.launch("compress_trace", kernels.ptr(trace), kernels.ptr(out),
                    L, T, K, int(trace_mode == "stats"))
     return out
 
 
-def compress_trace(trace, trace_mode: str):
+def compress_trace(trace, trace_mode: str, cap: int = None):
     """(L, T, 2) int32 per-generation (hcv, scv) trace -> (L, 3K + 1
-    [+ 4]) packed leaf, K = min(T, TRACE_DELTAS_CAP): K13 on a CUDA
+    [+ 4]) packed leaf, K = min(T, cap), `cap` TRACE_DELTAS_CAP unless
+    given (a quality-packed `full` trace passes T): K13 on a CUDA
     tensor, the plain version on a CPU one."""
     if not trace.is_cuda:
-        return compress_trace_plain(trace, trace_mode)
-    return compress_trace_kernel(trace, trace_mode)
+        return compress_trace_plain(trace, trace_mode, cap)
+    return compress_trace_kernel(trace, trace_mode, cap)
+
+
+def hamming_stride(pop: int) -> int:
+    """The coprime pair stride of the Hamming sample (JAX islands.py:478
+    `_hamming_stride`): the largest a <= pop // 2 with gcd(a, pop) == 1,
+    0 when pop < 2."""
+    if pop < 2:
+        return 0
+    for a in range(max(1, pop // 2), 0, -1):
+        if math.gcd(a, pop) == 1:
+            return a
+    return 1
+
+
+def _div_moments(x):
+    """(L, 4) float32 mean, var, min, max of (L, n) float32 values by
+    JAX's min-shifted formula (islands.py:508-517)."""
+    mn = x.amin(1)
+    c = x - mn[:, None]
+    mean_c = c.mean(1)
+    var = torch.clamp((c * c).mean(1) - mean_c * mean_c, min=0.0)
+    return torch.stack([mn + mean_c, var, mn, x.amax(1)], 1)
+
+
+def div_stats_plain(event_mask, slots, pen, scv, L: int):
+    """Plain version of K14's div_stats entry (see `div_stats`)."""
+    pop = pen.shape[0] // L
+    k = min(pop, obs_quality.HAMMING_PAIRS)
+    stride = hamming_stride(pop)
+    if stride == 0:
+        ham = torch.zeros(L, dtype=torch.float32, device=pen.device)
+    else:
+        s = _blocks(slots, L)
+        a, b = s[:, :k], torch.roll(s, -stride, 1)[:, :k]
+        m = event_mask.to(torch.float32)
+        live = torch.clamp(m.sum(), min=1.0)
+        ham = (((a != b).to(torch.float32) * m).sum((1, 2))
+               / (k * live))
+    div = torch.cat([_div_moments(_blocks(pen, L).to(torch.float32)),
+                     _div_moments(_blocks(scv, L).to(torch.float32)),
+                     ham[:, None]], 1)
+    return div.view(torch.int32)
+
+
+def div_stats_kernel(event_mask, slots, pen, scv, L: int):
+    """K14's div_stats entry: a block an island."""
+    ins = [x.contiguous() for x in (pen, scv, slots)]
+    if (any(x.dtype != torch.int32 for x in ins)
+            or event_mask.dtype != torch.float32):
+        raise TypeError("div_stats takes int32 rows and a float32 mask")
+    pop = pen.shape[0] // L
+    out = torch.empty((L, obs_quality.N_DIV), dtype=torch.int32,
+                      device=pen.device)
+    p = kernels.ptr
+    kernels.launch("div_stats", *(p(x) for x in ins),
+                   p(event_mask.contiguous()), p(out), L, pop,
+                   slots.shape[1], min(pop, obs_quality.HAMMING_PAIRS),
+                   hamming_stride(pop))
+    return out
+
+
+def div_stats(pa, state: ga.PopState, L: int):
+    """(L, N_DIV) int32 (float32 bits) diversity rows of L islands (JAX
+    islands.py:495 `_div_stats` over `_div_rows`): the min-shifted
+    mean, var, min and max of penalty and of scv, then the Hamming
+    sample — the share of live events (event_mask) on which rows i and
+    (i + stride) mod pop differ, over the first min(pop, HAMMING_PAIRS)
+    rows, as one float32 division by k * live; 0 when pop < 2. Kernel
+    K14 on CUDA tensors, the plain version on CPU ones."""
+    fn = div_stats_kernel if state.slots.is_cuda else div_stats_plain
+    return fn(pa.event_mask, state.slots, state.penalty, state.scv, L)
 
 
 def trace_events(trace, trace_mode: str):
@@ -237,27 +378,44 @@ def trace_events(trace, trace_mode: str):
 
 def run_epochs(pa, gens, state: ga.PopState, cfg: ga.GAConfig,
                n_epochs: int, gens_per_epoch: int,
-               trace_mode: str = "full"):
+               trace_mode: str = "full", quality: bool = False):
     """`n_epochs` x `gens_per_epoch` generations on every island, a ring
     migration after each epoch. Returns (state, trace) with trace on the
     device: (L, n_epochs * gens_per_epoch, 2) int32, each generation's
     per-island best (hcv, scv), or under `deltas`/`stats` its packed
-    leaf (`compress_trace`). The trajectory is the same in every mode."""
+    leaf (`compress_trace`); with `quality` the leaf packed as
+    `effective_trace_mode` says, then the quality block (see the module
+    docstring). The trajectory is the same in every mode."""
     L = len(gens)
     pop = cfg.pop_size
     ls_fn = ga.ls_draws_fn(gens, pop, pa, cfg)
+    qacc = mig = None
+    if quality:
+        qacc = torch.zeros((L, obs_quality.N_OPS), dtype=torch.int32,
+                           device=pa.device)
+        mig = torch.zeros((L, 1), dtype=torch.int32, device=pa.device)
     trace = []
     for _ in range(n_epochs):
         for _ in range(gens_per_epoch):
             draws = ga.make_breed_draws(gens, pop, pa.n_events, pa.n_slots,
                                         cfg, pa.device)
-            state = ga.generation(pa, draws, ls_fn, state, cfg, groups=L)
+            state = ga.generation(pa, draws, ls_fn, state, cfg, groups=L,
+                                  qacc=qacc)
             trace.append(torch.stack([_blocks(state.hcv, L)[:, 0],
                                       _blocks(state.scv, L)[:, 0]], -1))
-        state = migrate(state, L)
+        if quality:
+            state, gain = migrate(state, L, return_gain=True)
+            mig += gain[:, None]
+        else:
+            state = migrate(state, L)
     trace = torch.stack(trace, 1)
-    if trace_mode != "full":
-        trace = compress_trace(trace, trace_mode)
+    mode = effective_trace_mode(trace_mode, quality)
+    if mode != "full":
+        # a quality-packed full trace keeps every improvement (K = T)
+        trace = compress_trace(trace, mode, trace.shape[1]
+                               if mode != trace_mode else None)
+    if quality:
+        trace = torch.cat([trace, qacc, mig, div_stats(pa, state, L)], 1)
     return state, trace
 
 

@@ -7,9 +7,11 @@ the sweep or the random-candidate local search (`--ls-mode random`, the
 untuned default, sized by `-p` / `-m` as the reference's maxSteps), the
 parallel room matcher (`--rooms-mode parallel`), NSGA-II selection
 (`--nsga2`), the LAHC endgame (`--post-lahc`, `--post-lahc-k`),
-checkpoint/resume (`--checkpoint`, `--checkpoint-every`, `--resume`)
-and the compressed trace modes (`--trace-mode deltas|stats`). A flag it
-does not implement yet (`--quality`, `--metrics-every`, `--faults`, ...:
+checkpoint/resume (`--checkpoint`, `--checkpoint-every`, `--resume`),
+the compressed trace modes (`--trace-mode deltas|stats`) and the quality
+telemetry (`--quality`, `--stall-window`, `--stall-hamming`,
+`--auto-kick-on-stall`). A flag it
+does not implement yet (`--obs`, `--metrics-every`, `--faults`, ...:
 `NOT_PORTED`) stops the parse with a message naming it as not yet
 ported, never silently ignored. `-l` is accepted and retired, as on the
 JAX path: the engine warns that the local search is bounded by -m
@@ -73,6 +75,12 @@ class RunConfig:
     checkpoint: Optional[str] = None
     checkpoint_every: int = 1
     resume: bool = False
+    quality: bool = False         # the quality telemetry (K14)
+    stall_window: int = 8         # dispatches with no new best before a
+    #                               stall (0 disables the detector)
+    stall_hamming: float = 0.05   # ... with the most-collapsed island's
+    #                               Hamming sample at or below this
+    auto_kick_on_stall: bool = False  # a stall fires the kick
     auto_tune: bool = True
     explicit_fields: frozenset = frozenset()
 
@@ -161,11 +169,14 @@ _FLAG_MAP = {
     "--trace-mode": ("trace_mode", str),
     "--checkpoint": ("checkpoint", str),
     "--checkpoint-every": ("checkpoint_every", int),
+    "--stall-window": ("stall_window", int),
+    "--stall-hamming": ("stall_hamming", float),
 }
 
 _BOOL_FLAGS = {"--trace": "trace", "--ls-converge": "ls_converge",
                "--ls-full-eval": "ls_full_eval", "--nsga2": "nsga2",
-               "--resume": "resume"}
+               "--resume": "resume", "--quality": "quality",
+               "--auto-kick-on-stall": "auto_kick_on_stall"}
 _NEG_BOOL_FLAGS = {"--no-auto-tune": "auto_tune"}
 
 # Flags of the JAX CLI this slice does not implement yet: True = takes
@@ -174,12 +185,10 @@ NOT_PORTED = {
     "--trace-profile": True, "--profile-dir": True, "--profile-for": True,
     "--mem-poll-every": True, "--metrics-every": True,
     "--obs-listen": True, "--history-every": True, "--incident-dir": True,
-    "--incident-min-interval": True, "--stall-window": True,
-    "--stall-hamming": True, "--max-recoveries": True,
+    "--incident-min-interval": True, "--max-recoveries": True,
     "--fetch-timeout": True, "--peer-timeout": True, "--faults": True,
     "--coordinator": True, "--num-processes": True, "--process-id": True,
-    "--obs": False, "--quality": False, "--auto-kick-on-stall": False,
-    "--distributed": False, "--no-precompile": False,
+    "--obs": False, "--distributed": False, "--no-precompile": False,
     "--no-pipeline": False, "--no-donate": False, "--no-accord": False,
 }
 
@@ -261,6 +270,17 @@ def parse_args(argv) -> RunConfig:
     if not 1 <= cfg.post_lahc_k <= 4096:
         raise SystemExit("--post-lahc-k must be in [1, 4096] "
                          "(candidates per walker per step)")
+    # JAX config.py:632-640, the same messages
+    if cfg.stall_window < 0:
+        raise SystemExit("--stall-window must be >= 0 dispatches "
+                         "(0 disables the stall detector)")
+    if not 0.0 <= cfg.stall_hamming <= 1.0:
+        raise SystemExit("--stall-hamming must be in [0, 1] (a Hamming "
+                         "sample mean is a fraction of differing slots)")
+    if cfg.auto_kick_on_stall and not cfg.quality:
+        raise SystemExit("--auto-kick-on-stall needs --quality (the "
+                         "stall detector reads the on-device diversity "
+                         "telemetry)")
     if (cfg.post_pop_size is not None and "pop_size" in seen
             and cfg.post_pop_size > cfg.pop_size):
         raise SystemExit("--post-pop-size must not exceed --pop-size "

@@ -34,14 +34,31 @@ stream stays monotone. The generators are restored from the file when
 it was written on the same device type, else reseeded from (seed,
 trial, island, generation).
 
+Dispatches are sized under JAX's watchdog cap (engine.py:296,
+:1988-2041): no dispatch is predicted to take more than DISPATCH_CAP_S
+seconds (`TT_DISPATCH_CAP_S`, read at import as JAX reads it), an epoch
+predicted over it runs shortened and migration closes it, and a single
+generation predicted over it ends the generation loop for the tail
+polish. LAHC chunks take the same cap.
+
+`--quality` (JAX engine.py:1687-1705, 1809-1845) packs each dispatch's
+quality block onto its trace leaf (islands.run_epochs): decoded into the
+`quality.*` counters and gauges of REGISTRY, and, with `--stall-window`
+> 0, fed to a StallDetector whose stalls set `engine.stalled` and write
+a quality/stall `faultEntry`; `--auto-kick-on-stall` then fires the same
+kick routine as the post phase's stall kick (a quality/kick
+`faultEntry`, `engine.kicks`) and re-arms the detector. The record
+stream without the auto-kick is the same with it on or off.
+
 Not in the port yet: pipelining, buffer donation, fault recovery,
-multi-process agreement, the quality telemetry and the metrics
+multi-process agreement, the qualityEntry record and the metrics
 exposition (runtime/config.py refuses their flags).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import time
 
@@ -49,6 +66,7 @@ import numpy as np
 import torch
 
 from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch.obs import quality as obs_quality
 from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
 from timetabling_ga_tpu_torch.ops import ga, lahc
 from timetabling_ga_tpu_torch.parallel import islands
@@ -59,6 +77,12 @@ from timetabling_ga_tpu_torch.runtime.config import RunConfig
 
 INT_MAX = 2 ** 31 - 1
 FEASIBLE_LIMIT = 1_000_000
+# The longest a dispatch (or an LAHC chunk) is predicted to take, in
+# seconds (JAX engine.py:296, the same variable and default): a fused
+# dispatch is sized so sec_per_gen * gens stays under it. JAX also
+# bounds n_epochs by what its precompile built (_MAX_EP_CACHE); the port
+# compiles nothing per shape, so it has no such bound.
+DISPATCH_CAP_S = float(os.environ.get("TT_DISPATCH_CAP_S", "30.0"))
 
 
 def resolve_device(backend: str) -> torch.device:
@@ -154,12 +178,16 @@ def resume_generators(device, loaded: ckpt.Loaded, seed: int, trial: int,
     return island_generators(device, seed, trial, n, loaded.generation)
 
 
-def decode_trace(trace, trace_mode: str, overflow_warned: bool):
-    """Decode a fetched trace leaf (JAX dispatch_core.decode_telemetry
-    without the quality split): its events and moments, with dropped
-    improvement events counted into engine.trace_delta_overflow and
-    warned about once. Returns (events, moments, overflow_warned)."""
-    events, counts, moments = islands.trace_events(trace, trace_mode)
+def decode_trace(trace, trace_mode: str, overflow_warned: bool,
+                 quality: bool = False):
+    """Decode a fetched trace leaf (JAX dispatch_core.decode_telemetry):
+    the quality block split off, then its events and moments under the
+    effective trace mode, with dropped improvement events counted into
+    engine.trace_delta_overflow and warned about once. Returns (events,
+    moments, quality rows or None, overflow_warned)."""
+    trace, qrows = islands.split_quality(trace, quality)
+    events, counts, moments = islands.trace_events(
+        trace, islands.effective_trace_mode(trace_mode, quality))
     if counts is not None:
         dropped = int(sum(max(0, int(c) - len(e))
                           for c, e in zip(counts, events)))
@@ -171,7 +199,19 @@ def decode_trace(trace, trace_mode: str, overflow_warned: bool):
                       f"{dropped} improvement event(s) this dispatch (cap "
                       f"{islands.TRACE_DELTAS_CAP}; raise "
                       f"TT_TRACE_DELTAS_CAP)", file=sys.stderr)
-    return events, moments, overflow_warned
+    return events, moments, qrows, overflow_warned
+
+
+def record_quality(qrows) -> dict:
+    """One dispatch's quality block into REGISTRY (JAX engine.py:
+    1687-1699): counters take the dispatch's deltas, gauges its
+    cross-island view. Returns the aggregate."""
+    agg = obs_quality.aggregate(obs_quality.decode_rows(qrows))
+    for name, v in agg["counters"].items():
+        REGISTRY.counter(name).inc(v)
+    for name, v in agg["gauges"].items():
+        REGISTRY.gauge(name).set(v)
+    return agg
 
 
 def _set_moment_gauges(prefix: str, mom) -> None:
@@ -273,10 +313,6 @@ def _polish_chunks(tr: _Try, pa, gens, state, gacfg, name: str,
     return state, sec_per_sweep
 
 
-# the longest chunk of LAHC steps (JAX engine.py DISPATCH_CAP_S)
-LAHC_CHUNK_CAP_S = 30.0
-
-
 def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
     """The LAHC endgame (JAX engine.py:1185 _lahc_loop): the try's
     remaining budget in chunks of steps sized from the measured sec/step
@@ -290,7 +326,7 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
     while True:
         remaining = tr.remaining()
         if sec_per_step is not None and sec_per_step > 0:
-            n = int(min(remaining / 1.1, LAHC_CHUNK_CAP_S) / sec_per_step)
+            n = int(min(remaining / 1.1, DISPATCH_CAP_S) / sec_per_step)
         else:
             n = 256 if remaining > 0 else 0
         if n < 1:
@@ -318,7 +354,8 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
 
 
 def probe_sec_per_gen(pa, state: ga.PopState, cfg: ga.GAConfig,
-                      n_islands: int, trace_mode: str = "full") -> float:
+                      n_islands: int, trace_mode: str = "full",
+                      quality: bool = False) -> float:
     """Seconds of one generation of `cfg` (its ring migration included)
     on a clone of `state`, drawn from throwaway generators: the first
     sec/gen estimate, taken as the JAX engine takes it in precompile
@@ -329,29 +366,57 @@ def probe_sec_per_gen(pa, state: ga.PopState, cfg: ga.GAConfig,
             for i in range(n_islands)]
     clone = ga.PopState(*(x.clone() for x in state))
     t0 = time.monotonic()
-    _, trace = islands.run_epochs(pa, gens, clone, cfg, 1, 1, trace_mode)
+    _, trace = islands.run_epochs(pa, gens, clone, cfg, 1, 1, trace_mode,
+                                  quality)
     trace.cpu()
     return time.monotonic() - t0
 
 
-def _dispatch_size(cfg, remaining_gens: int, sec_per_gen: float,
-                   remaining_t):
-    """(n_epochs, gens_per_epoch) of the next dispatch, or None when not
-    one more generation is predicted to fit the budget."""
-    g = cfg.migration_period
-    if remaining_gens >= g:
-        n_ep = max(1, min(cfg.epochs_per_dispatch, remaining_gens // g))
-    else:
-        n_ep, g = 1, remaining_gens
-    if remaining_t <= 0:
+def _pow2_floor(n: int) -> int:
+    """Largest power of two <= n (n >= 1), JAX engine.py:145."""
+    return 1 << (n.bit_length() - 1)
+
+
+def _dispatch_size(cfg, remaining_gens: int, sec_per_gen, remaining_t):
+    """(n_epochs, gens_per_epoch) of the next dispatch, or None to stop
+    the generation loop: when the budget is spent, when not one more
+    generation is predicted to fit it, or when one generation is
+    predicted over DISPATCH_CAP_S (the rest of the budget then goes to
+    the tail polish). JAX engine.py:1988-2075, in its order: n_epochs a
+    power of two, bounded so the dispatch is predicted under the cap;
+    an epoch predicted over the cap shortened to the generations that
+    fit (one epoch, migration closing it); a tail shorter than
+    migration_period bounded by the cap too; then everything bounded by
+    the remaining budget, a full-epoch count again a power of two."""
+    spg = sec_per_gen if sec_per_gen is not None and sec_per_gen > 0 \
+        else None
+    if remaining_t <= 0 or (spg is not None and spg > DISPATCH_CAP_S):
         return None
-    if sec_per_gen > 0:
-        g_fit = int(remaining_t / sec_per_gen)
+    g = cfg.migration_period
+    short = None                 # the generations of a shortened epoch
+    if remaining_gens >= g:
+        n_ep = _pow2_floor(max(1, min(cfg.epochs_per_dispatch,
+                                      remaining_gens // g)))
+        if spg is not None:
+            fit_cap = int(DISPATCH_CAP_S / (spg * g))
+            n_ep = max(1, min(n_ep, _pow2_floor(max(1, fit_cap))))
+            if spg * g > DISPATCH_CAP_S:
+                n_ep, short = 1, max(1, min(g, int(DISPATCH_CAP_S / spg)))
+    else:
+        n_ep, short = 1, remaining_gens
+        if spg is not None:
+            short = max(1, min(short, int(DISPATCH_CAP_S / spg)))
+    if spg is not None:
+        g_fit = int(remaining_t / spg)
         if g_fit < 1:
             return None
-        if n_ep * g > g_fit:
-            n_ep, g = (g_fit // g, g) if g_fit >= g else (1, g_fit)
-    return n_ep, g
+        if short is not None:
+            short = min(short, g_fit)
+        elif g_fit // g < 1:
+            n_ep, short = 1, min(g_fit, g)
+        elif g_fit // g < n_ep:
+            n_ep = _pow2_floor(g_fit // g)
+    return (1, short) if short is not None else (n_ep, g)
 
 
 def _fetch_state(state: ga.PopState) -> ga.PopState:
@@ -442,9 +507,31 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
         # the try's clock
         t = time.monotonic()
         sec_per_gen = probe_sec_per_gen(pa, state, cur, n_islands,
-                                        cfg.trace_mode)
+                                        cfg.trace_mode, cfg.quality)
         tr.t0 += time.monotonic() - t
     kick_stall, kick_best, kick_streak = 0, min(tr.best), 0
+    # the stall detector, fed once a dispatch (JAX engine.py:1469-1478)
+    stall_det = (obs_quality.StallDetector(cfg.stall_window,
+                                           cfg.stall_hamming)
+                 if cfg.quality and cfg.stall_window > 0 else None)
+    REGISTRY.gauge("engine.stalled").set(0.0)
+
+    def dispatch_kick() -> int:
+        """The kick, shared by the post phase's stall kick and the
+        quality auto-kick (JAX engine.py:1744-1776 _dispatch_kick):
+        reseed each island's worst half from its best at the escalating
+        depth, record, count. Returns the depth."""
+        nonlocal state, kick_streak
+        n_moves = min(3 << kick_streak, islands.KICK_MAX_MOVES)
+        t = time.monotonic()
+        state = islands.kick(pa, gens, state, cur, n_moves)
+        state.penalty.cpu()
+        tr.phase("kick", time.monotonic() - t, at_gen=gens_done,
+                 moves=n_moves)
+        REGISTRY.counter("engine.kicks").inc()
+        kick_streak += 1
+        return n_moves
+
     time_stopped = False
     n_dispatch = 0
     epochs_done = epochs_at_ckpt = 0
@@ -459,7 +546,7 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
         n_ep, g = size
         td0 = time.monotonic()
         state, trace = islands.run_epochs(pa, gens, state, cur, n_ep, g,
-                                          cfg.trace_mode)
+                                          cfg.trace_mode, cfg.quality)
         trace = trace.cpu().numpy()
         td1 = time.monotonic()
         gens_run = n_ep * g
@@ -471,8 +558,8 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
         spg = dt / gens_run
         sec_per_gen = spg if sec_per_gen is None else (
             0.7 * spg + 0.3 * sec_per_gen)
-        events, moments, overflow_warned = decode_trace(
-            trace, cfg.trace_mode, overflow_warned)
+        events, moments, qrows, overflow_warned = decode_trace(
+            trace, cfg.trace_mode, overflow_warned, cfg.quality)
         for i in range(n_islands):
             for gi, h, sc in events[i]:
                 tr.observe(i, h, sc,
@@ -481,6 +568,7 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
             # the per-generation best's moments, across islands (JAX
             # engine.py:1676-1684)
             _set_moment_gauges("engine.trace_best", moments.T)
+        q_agg = record_quality(qrows) if qrows is not None else None
         maybe_switch()
         if lahc_done:
             break
@@ -492,14 +580,31 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                 kick_stall += 1
             kick_best = nb
             if kick_stall >= cfg.kick_stall and tr.remaining() > 0:
-                n_moves = min(3 << kick_streak, islands.KICK_MAX_MOVES)
-                t = time.monotonic()
-                state = islands.kick(pa, gens, state, cur, n_moves)
-                state.penalty.cpu()
-                tr.phase("kick", time.monotonic() - t, at_gen=gens_done,
-                         moves=n_moves)
-                kick_streak += 1
+                dispatch_kick()
                 kick_stall = 0
+        if stall_det is not None and q_agg is not None:
+            # a plateau of stall_window dispatches with the most-collapsed
+            # island's Hamming sample at or below stall_hamming (JAX
+            # engine.py:1809-1845); recovery and level are 0: the port
+            # has no supervisor
+            hmin = q_agg["gauges"]["quality.diversity.hamming_min"]
+            was_stalled = stall_det.stalled
+            stalled = stall_det.update(min(tr.best), hmin)
+            REGISTRY.gauge("engine.stalled").set(1.0 if stalled else 0.0)
+            if stalled and not was_stalled:
+                jsonl.fault_entry(
+                    out, "quality", "stall",
+                    f"no new best for {stall_det.streak} dispatches with "
+                    f"diversity {hmin:.4f} <= {cfg.stall_hamming}",
+                    trial, 0, 0, tr.elapsed(), streak=stall_det.streak,
+                    hamming=round(hmin, 6))
+            if (stalled and cfg.auto_kick_on_stall and cur.pop_size >= 2
+                    and tr.remaining() > 0):
+                n_moves = dispatch_kick()
+                jsonl.fault_entry(out, "quality", "kick", "stall auto-kick",
+                                  trial, 0, 0, tr.elapsed(), moves=n_moves)
+                stall_det.reset()
+                REGISTRY.gauge("engine.stalled").set(0.0)
         if (cfg.checkpoint
                 and epochs_done - epochs_at_ckpt >= cfg.checkpoint_every):
             t = time.monotonic()

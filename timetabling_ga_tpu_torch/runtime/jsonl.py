@@ -1,5 +1,5 @@
 """JSONL reporting protocol (copy of timetabling_ga_tpu/runtime/jsonl.py
-:42-52, 265-306, 552-621): one compact JSON object per line, the
+:42-52, 265-306, 326-360, 552-621): one compact JSON object per line, the
 reference's field names (ga.cpp:169-257, 469-470, 604-607).
 
   {"logEntry":{"procID":i,"threadID":0,"best":b,"time":s}}
@@ -8,6 +8,8 @@ reference's field names (ga.cpp:169-257, 469-470, 604-607).
   {"runEntry":{"totalBest":b,"feasible":f}} then the same with
                procsNum/threadsNum/totalTime appended
   {"phase":{"name":n,"trial":k,"seconds":s,...}}   under --trace only
+  {"faultEntry":{"site":...,"action":...,"error":...,"trial":k,
+                 "recovery":r,"level":l,"time":s,...}}   always
 
 `best` is scv when feasible, else hcv*1e6+scv. threadID is 0: an
 island's breeding is one batched launch with no thread identity.
@@ -66,6 +68,25 @@ def phase_record(stream: IO, name: str, trial: int, seconds: float,
     for k, v in extra.items():
         rec[k] = v
     _write(stream, {"phase": rec})
+
+
+def fault_entry(stream: IO, site: str, action: str, error, trial: int,
+                recovery: int, level: int, time_s: float,
+                **extra) -> dict:
+    """Robustness extension record (JAX jsonl.py:326), always emitted:
+    one line per event, `site` the operation class, `action` what was
+    done, `recovery` the recoveries so far, `level` the degradation
+    level, `time` seconds into the trial. The port writes it for the
+    quality telemetry's stall and kick events (site "quality"), with
+    recovery and level 0: it has no supervisor yet. A TIMING_RECORDS
+    member, so strip_timing drops it."""
+    rec = {"site": str(site), "action": str(action),
+           "error": str(error)[:200], "trial": int(trial),
+           "recovery": int(recovery), "level": int(level),
+           "time": max(0.0, float(time_s))}
+    for k, v in extra.items():
+        rec[k] = v
+    return _write(stream, {"faultEntry": rec})
 
 
 # wall-clock-dependent fields and records: two runs of one seeded
