@@ -58,7 +58,12 @@
    (counters, min, max and the Hamming sample exact; moments: min and
    max exact, mean within a relative 1e-6 of the shifted mean plus one
    float32 spacing, var within 4 n 2^-24 mean(c^2), c the min-shifted
-   values), and the new outputs of K5 (its accepted-move counts at the
+   values); K6 (both tournament modes) and K8's chain with a lane table
+   (B13, the serve path: each block reads its lane's problem) on four
+   mixed lanes of comp01s's bucket (comp01s, the ITC-like 400/10/10/200
+   instance, each cut to 360 and 300 events) at pop 16 a lane, exactly,
+   timed with the table and without it at the same shapes; and the new
+   outputs of K5 (its accepted-move counts at the
    main path's repair and post shapes), K6 (each child's base parent, in
    both tournament modes and the parallel matcher) and K7 (migrate's
    gain at L = 1, 2, 4, 16 x pop 2, 3, 16), exactly, each kernel's other
@@ -95,7 +100,16 @@
    only with it, both rates printed); and the stall fixture, the JAX
    tests' 30-event instance with the sweep and `--quality --stall-window
    2 --stall-hamming 1.0 --auto-kick-on-stall` (a stall record, then a
-   kick record, engine.kicks counted, K5 counting its moves);
+   kick record, engine.kicks counted, K5 counting its moves); and the
+   serve path, `python -m timetabling_ga_tpu_torch serve` at the
+   service's defaults on SERVE_JOBS (comp01s x4 with one at priority 5,
+   the ITC-like instance inline, comp05s: two buckets), a cancelled job,
+   a deadline before the first slice and a malformed line: every
+   lifecycle, every feasible solution re-scored on its unpadded
+   instance, s1 and s4 alone equal to their packed records and the file
+   under --no-resident equal to it resident (strip_timing), K6 and K8's
+   lane forms, K8's pre-pass and K7 every dispatch, K1 and K2 once a
+   started job and no other kernel;
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
    generation, one full-eval generation, one kick, one LAHC launch and
@@ -242,6 +256,12 @@ KERNELS = {
                     "timetabling_ga_tpu/ops/ga.py:221", "quality"),
     "div_stats": ("timetabling_ga_tpu_torch/csrc/quality.cu",
                   "timetabling_ga_tpu/parallel/islands.py:495", "quality"),
+    # K6 and K8's chain with a lane table: B13, the serve lane runner
+    "breed_lanes": ("timetabling_ga_tpu_torch/csrc/breed.cu",
+                    "timetabling_ga_tpu/parallel/islands.py:1115", "serve"),
+    "random_ls_lanes": ("timetabling_ga_tpu_torch/csrc/random_ls.cu",
+                        "timetabling_ga_tpu/parallel/islands.py:1115",
+                        "serve"),
 }
 # entry points whose body runs inside another kernel on the paths and
 # whose own launch is the unit check of that body (0 launches on a path)
@@ -261,28 +281,46 @@ K13 = ("compress_trace", "moment_rows")
 K14 = ("quality_ops", "div_stats")
 K8 = ("random_ls_events", "random_ls")
 LS = K8 + ("full_eval_ls",)
+# the lane-table forms run only on the serve path
+LANES = ("breed_lanes", "random_ls_lanes")
 PATH_KERNELS = {
     "main": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
-             ("move1_sweep", "delta_one") + LS + SEARCH_MODES + K13 + K14),
+             ("move1_sweep", "delta_one") + LS + SEARCH_MODES + K13 + K14
+             + LANES),
     "reference": (("breed", "survivors") + K8,
                   ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass", "full_eval_ls")
-                  + SEARCH_MODES + K13 + K14),
+                  + SEARCH_MODES + K13 + K14 + LANES),
     "full-eval": (("breed", "survivors", "random_ls_events",
                    "full_eval_ls"), ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass", "random_ls")
-                  + SEARCH_MODES + K13 + K14),
+                  + SEARCH_MODES + K13 + K14 + LANES),
     # comp01s is feasible inside the initial polish, so the LAHC walkers
     # take the whole budget after it
     "lahc": ((), ("assign_rooms", "sweep_pass", "batch_penalty", "lahc"),
              ("move1_sweep", "delta_one") + LS
              + ("nsga_rank", "nsga_survivors", "parallel_rooms") + K13
-             + K14),
+             + K14 + LANES),
     "nsga": (("breed", "nsga_rank", "nsga_survivors", "batch_penalty"),
              ("assign_rooms", "sweep_pass"),
              ("move1_sweep", "delta_one") + LS + ("lahc", "parallel_rooms")
-             + K13 + K14),
+             + K13 + K14 + LANES),
 }
+# the serve path: its lanes' kernels every dispatch, K1 and K2 once a
+# started job (each job's init), and none of the engine paths' others
+SERVE_NEVER = (("breed", "random_ls", "relocate", "move1_sweep",
+                "delta_one", "sweep_pass", "migrate", "full_eval_ls")
+               + SEARCH_MODES + K13 + K14)
+# the serve path's requests: the service's defaults (4 lanes, pop 16,
+# quantum 25, -m 32, 8 candidates); s1-s4 and s6 share comp01s's
+# bucket (512, 16, 16, 256, 5, 9), s5 (comp05s) is the second bucket
+SERVE_JOBS = (("s1", TIM, 1, 200, 0), ("s2", TIM, 2, 200, 0),
+              ("s3", TIM, 3, 200, 0), ("s4", "itc", 4, 200, 0),
+              ("s5", TIM05, 5, 200, 0), ("s6", TIM, 6, 100, 5))
+# the four mixed lanes of the lane-kernel phase: comp01s, the ITC-like
+# 400/10/10/200 instance, and padded copies of each cut to 360 and 300
+# events, all in comp01s's bucket; pop 16 a lane
+LANE_POP = 16
 K2_ONLY_AT_INIT = ("reference", "full-eval")
 # K2's cluster sizes held against its plain version (None: the wrapper's
 # own choice), at P = 4 (the post phase), 16 (the repair phase) and 256
@@ -2155,6 +2193,303 @@ def k14_device_times(pa, dev, timings):
         "div_stats")
 
 
+def itc_problem():
+    """The ITC-like 400/10/10/200 instance of the lane phase and the
+    serve path (the port's generator, seed 4): comp01s's bucket."""
+    from timetabling_ga_tpu_torch.problem import itc_like_instance
+    return itc_like_instance(4, n_events=400, n_rooms=10, n_features=10,
+                             n_students=200)
+
+
+def cut_problem(problem, n_events):
+    """`problem` restricted to its first `n_events` events."""
+    from timetabling_ga_tpu_torch.problem import derive
+    return derive(n_events, problem.n_rooms, problem.n_features,
+                  problem.n_students, problem.room_size,
+                  problem.attends[:, :n_events], problem.room_features,
+                  problem.event_features[:n_events])
+
+
+def lane_problems(problem, dev):
+    """The lane phase's four mixed lanes (LANE_POP's comment), padded
+    into comp01s's bucket, as a LaneProblems on `dev`."""
+    from timetabling_ga_tpu_torch.problem import LaneProblems
+    from timetabling_ga_tpu_torch.serve import bucket
+    itc = itc_problem()
+    lanes = [problem, itc, cut_problem(problem, 360), cut_problem(itc, 300)]
+    keys = {bucket.bucket_key(p) for p in lanes}
+    check(keys == {(512, 16, 16, 256, 5, 9)},
+          f"lane phase: the lanes are not in comp01s's bucket: {keys}")
+    return LaneProblems([bucket.pad_problem(p).device_arrays(dev)
+                         for p in lanes])
+
+
+def lane_work(lp, par, draws, rows, ls, events):
+    """{form: (bytes, integer operations)} of one K6 and one K8 chain
+    call over the lanes, each lane's problem arrays read once and its
+    rows' work counted on its own problem, as kernel_cases and
+    random_ls_work count them for one problem."""
+    from timetabling_ga_tpu_torch.ops import delta
+    L = len(lp)
+    pop = par.slots.shape[0] // L
+    E, R = lp.n_events, lp.n_rooms
+    k6_b = (nbytes(par.slots, par.rooms, par.penalty, par.scv, *draws[:5],
+                   *draws.move) + 2 * par.slots.numel() * 4
+            + 3 * par.penalty.numel() * 4 + lp.table.numel() * 8)
+    k6_ops = 0
+    k8_b = k8_ops = 0
+    top3_ops = E * OPS_TOP3 + 3 * R * OPS_ROOM_KEY
+    for lane, pa in enumerate(lp.pas):
+        r = slice(lane * pop, (lane + 1) * pop)
+        n_x = int(draws.do_x[r].sum())
+        n_m = int(draws.do_m[r].sum())
+        k6_b += (nbytes(pa.possible_u8, pa.live, pa.cap_rank, pa.dead,
+                        pa.room_order) + penalty_bytes(pa))
+        k6_ops += (n_x * E * (R * OPS_ROOM_KEY + 2) + (pop - n_x) * E * 3
+                   + n_m * top3_ops + pop * 2 * 5 * OPS_LEX
+                   + pop * penalty_ops(pa))
+        b, ops = random_ls_work(
+            pa, delta.LSRows(*(x[r] for x in rows)),
+            delta.LSDraws(*(x[:, :, r] for x in ls)), events[r])["random_ls"]
+        k8_b += b
+        k8_ops += ops
+    return {"breed_lanes": (k6_b, k6_ops),
+            "random_ls_lanes": (k8_b + lp.table.numel() * 8, k8_ops)}
+
+
+def compare_lane_kernels(problem, dev):
+    """K6 (both tournament modes, the serve generation's greedy matcher)
+    and K8's chain with the lane table against their lane-looped plain
+    versions on four mixed lanes of LANE_POP rows, exactly (and the
+    chain's terms against batch_penalty_plain of each lane's rows on its
+    own problem); then ms a call, the plain ms, and device us a launch
+    with the table and without it (every lane on comp01s's padded
+    problem) at the same shapes."""
+    import torch
+    from timetabling_ga_tpu_torch.k5_phases import device_us_per_launch
+    from timetabling_ga_tpu_torch.ops import delta, fitness, ga, nsga
+    from timetabling_ga_tpu_torch.runtime import config
+    from timetabling_ga_tpu_torch.serve.scheduler import serve_ga_config
+    lp = lane_problems(problem, dev)
+    L, pop = len(lp), LANE_POP
+    cfg = serve_ga_config(config.ServeConfig())
+    g = torch.Generator(device=dev).manual_seed(7000)
+
+    def rand(n):
+        return torch.randint(0, n, (pop, lp.n_events), generator=g,
+                             device=dev, dtype=torch.int32)
+    # each lane's parents: random slots and rooms, scored and sorted on
+    # its own problem
+    par = ga.PopState(*(torch.cat(x) for x in zip(*(
+        ga.evaluate(pa, rand(pa.n_slots), rand(pa.n_rooms))
+        for pa in lp.pas))))
+    draws = ga.make_breed_draws([g] * L, pop, lp.n_events, lp.n_slots, cfg,
+                                dev)
+    mo = nsga.rank_crowd_plain(par.hcv, par.scv, L)
+    for tag, m in (("penalty", None), ("crowded", mo)):
+        got = ga.make_children_kernel(lp, draws, par, L, m)
+        want = ga.make_children_lanes_plain(lp, draws, par, cfg, m)
+        torch.cuda.synchronize()
+        check(all(torch.equal(w, x) for w, x in zip(want, got)),
+              f"breed_lanes ({tag} tournament): kernel differs from its "
+              f"lane-looped plain version")
+    rows = ga.make_children_kernel(lp, draws, par, L)
+    ls = delta.make_ls_draws([g], L * pop, cfg.ls_steps, cfg.ls_candidates,
+                             lp.n_events, lp.n_slots, cfg.p1, cfg.p2,
+                             cfg.p3, dev)
+    events = delta.random_ls_events_kernel(ls)
+    got = delta.random_ls_chain(lp, ls, rows, events)
+    want = delta.random_ls_lanes_plain(lp, ls, rows)
+    torch.cuda.synchronize()
+    check(all(torch.equal(w, x) for w, x in zip(want, got)),
+          "random_ls_lanes: kernel differs from its lane-looped plain "
+          "version")
+    for lane, pa in enumerate(lp.pas):
+        r = slice(lane * pop, (lane + 1) * pop)
+        full = fitness.batch_penalty_plain(pa, got.slots[r], got.rooms[r])
+        check(all(torch.equal(w, x[r]) for w, x in zip(full, got[2:])),
+              f"random_ls_lanes lane {lane}: the epilogue's terms are not "
+              f"batch_penalty_plain of its rows on its problem")
+    one = lp.first
+    calls = {
+        "breed_lanes": (
+            lambda: ga.make_children_kernel(lp, draws, par, L),
+            lambda: ga.make_children_kernel(one, draws, par, L),
+            lambda: ga.make_children_lanes_plain(lp, draws, par, cfg),
+            "breed"),
+        "random_ls_lanes": (
+            lambda: delta.random_ls_chain(lp, ls, rows, events),
+            lambda: delta.random_ls_chain(one, ls, rows, events),
+            lambda: delta.random_ls_lanes_plain(lp, ls, rows),
+            "random_ls"),
+    }
+    work = lane_work(lp, par, draws, rows, ls, events)
+    out = {}
+    for name, (kern, no_table, plain, kname) in calls.items():
+        b, by = bound(*work[name])
+        out[(name, L)] = dict(
+            ms=time_ms(kern, 20), plain_ms=time_ms(plain, 1),
+            max_abs_err=0, lanes=L, rows_a_lane=pop,
+            device_us=device_us_per_launch(kern, kname),
+            device_us_without_table=device_us_per_launch(no_table, kname),
+            bound_ms=b, bound_by=by, library_ms=None)
+    return out
+
+
+def serve_requests(path, itc_tim):
+    """The serve path's request file (SERVE_JOBS, then s7 submitted and
+    cancelled, s8 with a deadline that passes before its first slice, a
+    malformed line, drain)."""
+    lines = []
+    for jid, tim, seed, gens, prio in SERVE_JOBS:
+        sub = {"id": jid, "seed": seed, "generations": gens,
+               "priority": prio}
+        if tim == "itc":
+            sub["tim"] = itc_tim
+        else:
+            sub["instance"] = tim
+        lines.append({"submit": sub})
+    lines += [{"submit": {"id": "s7", "instance": TIM, "seed": 7}},
+              {"cancel": "s7"},
+              {"submit": {"id": "s8", "instance": TIM, "seed": 8,
+                          "deadline": 1e-6}},
+              "{malformed",
+              {"drain": True}]
+    with open(path, "w") as f:
+        for x in lines:
+            f.write((x if isinstance(x, str) else json.dumps(x)) + "\n")
+
+
+def run_serve(name, req, extra=()):
+    """`python -m timetabling_ga_tpu_torch serve -i req` on the card, the
+    launch counters zeroed just before and read just after; returns
+    (records, seconds, launches, the serve.* counters it added)."""
+    from timetabling_ga_tpu_torch import cli, kernels
+    from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+    out = os.path.join(OUT_DIR, f"serve_{name}.jsonl")
+    before = REGISTRY.snapshot().get("counters", {})
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    rc = cli.main(["serve", "-i", req, "-o", out] + list(extra))
+    seconds = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(rc == 0, f"serve {name}: cli exited {rc}")
+    after = REGISTRY.snapshot().get("counters", {})
+    counters = {k: v - before.get(k, 0) for k, v in after.items()
+                if k.startswith("serve.")}
+    with open(out) as f:
+        records = [json.loads(line) for line in f]
+    return records, seconds, launches, counters
+
+
+def _job_records(records, jid):
+    return [r for r in records if next(iter(r.values())).get("job") == jid]
+
+
+def serve_path(pa_cpu):
+    """The serve path at the service's defaults on SERVE_JOBS: every
+    lifecycle, every feasible solution re-scored on its unpadded
+    instance, s1 and s4 alone equal to their packed records and a
+    --no-resident run equal to the resident one under strip_timing, and
+    which kernels it launched. Returns (summary, launches)."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import fitness
+    from timetabling_ga_tpu_torch.problem import dump_tim
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    itc = itc_problem()
+    itc_tim = dump_tim(itc)
+    req = os.path.join(OUT_DIR, "serve_requests.jsonl")
+    serve_requests(req, itc_tim)
+    records, seconds, launches, counters = run_serve("packed", req)
+    events = {}
+    for r in records:
+        if "jobEntry" in r:
+            e = r["jobEntry"]
+            events.setdefault(e["job"], []).append(e)
+    for jid, _, _, gens, _ in SERVE_JOBS:
+        ev = [e["event"] for e in events.get(jid, [])]
+        check(ev == ["admitted", "started", "done"],
+              f"serve: {jid} lifecycle {ev}")
+        check(events[jid][-1]["gens"] == gens,
+              f"serve: {jid} ran {events[jid][-1]['gens']} generations")
+    check([e["event"] for e in events["s7"]] == ["admitted", "cancelled"],
+          f"serve: s7 lifecycle {events['s7']}")
+    check([(e["event"], e.get("reason")) for e in events["s8"]]
+          == [("admitted", None), ("failed", "deadline")],
+          f"serve: s8 lifecycle {events['s8']}")
+    check([e["event"] for e in events["?"]] == ["rejected"],
+          f"serve: the malformed line gave {events['?']}")
+    pas = {TIM: pa_cpu[TIM], TIM05: pa_cpu[TIM05],
+           "itc": itc.device_arrays("cpu")}
+    done_s, feasible = {}, 0
+    for jid, tim, _, _, _ in SERVE_JOBS:
+        recs = _job_records(records, jid)
+        sols = [r["solution"] for r in recs if "solution" in r]
+        runs = [r["runEntry"] for r in recs if "runEntry" in r]
+        check(len(sols) == 1 and len(runs) == 2,
+              f"serve: {jid} has {len(sols)} solutions, {len(runs)} runs")
+        logs = [r["logEntry"]["best"] for r in recs if "logEntry" in r]
+        check(logs == sorted(logs, reverse=True) and logs
+              and logs[-1] == sols[0]["totalBest"],
+              f"serve: {jid} logEntry bests {logs[-3:]}")
+        done_s[jid] = round(sols[0]["totalTime"], 3)
+        if sols[0]["feasible"]:
+            feasible += 1
+            sl = torch.tensor([sols[0]["timeslots"]], dtype=torch.int32)
+            rm = torch.tensor([sols[0]["rooms"]], dtype=torch.int32)
+            _, hcv, scv = fitness.batch_penalty_plain(pas[tim], sl, rm)
+            check(int(hcv[0]) == 0 and int(scv[0]) == sols[0]["totalBest"],
+                  f"serve: {jid}'s timetable does not re-score to its "
+                  f"best")
+    started = sum(1 for ev in events.values()
+                  if any(e["event"] == "started" for e in ev))
+    n_disp = counters.get("serve.dispatches", 0)
+    check(launches["assign_rooms"] == started
+          and launches["batch_penalty"] == started,
+          f"serve: K1 {launches['assign_rooms']} and K2 "
+          f"{launches['batch_penalty']} launches for {started} started jobs")
+    for k in LANES + ("random_ls_events", "survivors"):
+        check(launches[k] >= n_disp,
+              f"serve: {k} launched {launches[k]} times in {n_disp} "
+              f"dispatches")
+    for k in SERVE_NEVER:
+        check(launches[k] == 0,
+              f"serve: {k} launched {launches[k]} times")
+    stripped = strip_timing(records)
+    for jid, tim in (("s1", TIM), ("s4", "itc")):
+        sub = os.path.join(OUT_DIR, f"serve_{jid}_alone_requests.jsonl")
+        row = next(x for x in SERVE_JOBS if x[0] == jid)
+        with open(sub, "w") as f:
+            s = {"id": jid, "seed": row[2], "generations": row[3],
+                 "priority": row[4]}
+            s.update({"tim": itc_tim} if tim == "itc" else {"instance": tim})
+            f.write(json.dumps({"submit": s}) + "\n")
+        alone, _, _, _ = run_serve(f"{jid}_alone", sub)
+        check(strip_timing(alone) == strip_timing(_job_records(records,
+                                                               jid)),
+              f"serve: {jid} alone differs from {jid} packed")
+    nores, nores_s, _, nores_c = run_serve("no_resident", req,
+                                           ["--no-resident"])
+    check(strip_timing(nores) == stripped,
+          "serve: the --no-resident stream differs from the resident one")
+    check(nores_c.get("serve.resident_hits", 0) == 0
+          and counters.get("serve.resident_hits", 0) > 0,
+          f"serve: resident hits {counters.get('serve.resident_hits')} / "
+          f"{nores_c.get('serve.resident_hits')} without residency")
+    lane_gens = counters.get("serve.gens", 0)
+    return dict(
+        wall_s=round(seconds, 3), dispatches=n_disp, lane_gens=lane_gens,
+        lane_gens_per_s=lane_gens / seconds,
+        lane_gens_per_quantum_s=(
+            lane_gens / counters["serve.quantum_seconds"]),
+        time_to_done_s=done_s, feasible_jobs=feasible,
+        resident_hits=counters.get("serve.resident_hits", 0),
+        park_bytes=counters.get("serve.park_bytes", 0),
+        resume_bytes=counters.get("serve.resume_bytes", 0),
+        no_resident_wall_s=round(nores_s, 3),
+        no_resident_park_bytes=nores_c.get("serve.park_bytes", 0)), launches
+
+
 def run_cli(name, argv, tim=TIM):
     """Run the CLI with `argv` (output to build/chip_smoke/), the launch
     counters zeroed just before and read just after; returns (records,
@@ -2537,6 +2872,10 @@ def main() -> int:
     print(json.dumps({"quality_compared": k14_cases}))
     for row in new_outputs:
         print(json.dumps(row))
+    lane_t = compare_lane_kernels(problem, dev)
+    timings.update(lane_t)
+    for key, t in lane_t.items():
+        print(json.dumps({"lane_kernel": key[0], "lanes": key[1], **t}))
     print(json.dumps({"islands_compared": compare_islands(pa, dev)}))
     print(json.dumps({"kick_chains_compared": compare_kick_chains(pa, dev)}))
     print(json.dumps({"padded_parallel_rooms_compared":
@@ -2571,6 +2910,9 @@ def main() -> int:
     print(json.dumps({"path": "quality", "gens_per_s": q_rates,
                       "launches": launches["quality"]}))
     print(json.dumps({"path": "stall", **stall_path()}))
+    serve_summary, launches["serve"] = serve_path(pa_cpu)
+    print(json.dumps({"path": "serve", **serve_summary,
+                      "launches": launches["serve"]}))
     summary, resume_launches = resume_path(pa_cpu[TIM])
     launches.update(resume_launches)
     for name in ("resume", "resume-main"):
@@ -2598,6 +2940,7 @@ def main() -> int:
                      "random_ls_events": ("random_ls_events", 10),
                      "full_eval_ls": ("full_eval_ls", 10),
                      "lahc": ("lahc", 4, 16, 5000), **nsga_keys,
+                     **{k: (k, 4) for k in LANES},
                      **{k: (k, *v) for k, v in K13_TIMED.items()}
                      }.get(name, (name, 16))]
         row = {"name": name, "route": "cuda", "source": src,
@@ -2615,6 +2958,9 @@ def main() -> int:
             row["body_runs_in"] = BODY_RUNS_IN[name]
         if name in K13_TIMED or name in K14:
             row["device_us"] = t.get("device_us")
+        if name in LANES:
+            row["device_us"] = t["device_us"]
+            row["device_us_without_table"] = t["device_us_without_table"]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

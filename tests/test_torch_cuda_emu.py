@@ -31,7 +31,8 @@ from tests.test_torch_kernels import (
     k6_parents_equal_plain, k7_gain_equal_plain,
     moment_rows_equal_plain, _chained_augments, _degenerate_slots,
     _half_feasible, _instances, _island_state, _k5_equals_plain,
-    _k11_equal_plain,
+    _k11_equal_plain, _lane_case, _lane_problems, k6_lanes_equal_plain,
+    k8_lanes_equal_plain,
     _k11_island, _ls_draws, _matcher_equals_plain, _matching_instances,
     _state, _wide_rooms)
 from timetabling_ga_tpu_torch import kernels
@@ -417,7 +418,8 @@ def emulated(tmp_path_factory):
 
     def launch(name, *args):
         kernels.LAUNCHES[name] += 1
-        assert kernels._LIBS[name][1](*args, None) == 0
+        entry = kernels.FORMS.get(name, name)
+        assert kernels._LIBS[entry][1](*args, None) == 0
 
     kernels.ptr = lambda t: t.data_ptr()
     kernels.launch = launch
@@ -773,6 +775,28 @@ def test_k8_source_equals_plain(emulated, inst):
     # the epilogue's terms are a full evaluation of the rows it wrote
     full = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
     assert all(torch.equal(w, g) for w, g in zip(full, got[2:]))
+
+
+@pytest.mark.parametrize("n_lanes", [2, 3])
+def test_k6_k8_lane_tables_sources_equal_plain(emulated, n_lanes):
+    """K6 (greedy and parallel matchers, both tournament modes) and K8's
+    chain with a lane table against their lane-looped plain versions,
+    each lane a different instance of one bucket (a full lane with the
+    group's largest event, a lane padded in events and rooms with the
+    shortest CSR, an anchored padded lane), built with 64-thread K6
+    blocks and 2-warp K8 blocks whose rounds cross event chunks."""
+    lp = _lane_problems(n_lanes)
+    cfg, par, draws, rows, ls = _lane_case(lp, "cpu", 3, 70 + n_lanes)
+    kernels.reset_launches()
+    k6_lanes_equal_plain(lp, cfg, par, draws)
+    k6_lanes_equal_plain(lp, cfg, par, draws, rooms_mode="parallel")
+    k6_lanes_equal_plain(lp, cfg, par, draws,
+                         nsga.rank_crowd_plain(par.hcv, par.scv, n_lanes))
+    got = k8_lanes_equal_plain(lp, ls, rows)
+    assert not torch.equal(got.slots, rows.slots)
+    assert kernels.LAUNCHES["breed_lanes"] == 3
+    assert kernels.LAUNCHES["random_ls_lanes"] == 1
+    assert kernels.LAUNCHES["breed"] == kernels.LAUNCHES["random_ls"] == 0
 
 
 def test_evaluations_count_live_events_only(emulated):

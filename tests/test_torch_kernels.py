@@ -24,8 +24,8 @@ from timetabling_ga_tpu_torch.ops import (
     delta, fitness, ga, lahc, local_search, moves, nsga, rooms, sweep)
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import (
-    derive, itc_like_instance, load_tim_file, make_problem_arrays,
-    random_instance)
+    LaneProblems, derive, itc_like_instance, load_tim_file,
+    make_problem_arrays, random_instance)
 
 COMP01S = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "fixtures", "comp01s.tim")
@@ -159,6 +159,77 @@ def _island_state(L, pop, seed, device="cpu", E=7):
     slots = rows[:, None] * 10 + torch.arange(E, dtype=torch.int32,
                                               device=device)
     return st._replace(slots=slots, rooms=slots + seed)
+
+
+def _lane_problems(n_lanes, device="cpu"):
+    """LaneProblems of `n_lanes` (1 to 4) different instances of the
+    (32, 4, 4, 32) bucket, padded by serve.bucket: a full-size lane with
+    the group's largest event (max_ev_students), a small lane padded in
+    events and rooms with the shortest CSR, an anchored lane padded in
+    events, and an ITC-like lane padded in events."""
+    from timetabling_ga_tpu_torch.serve.bucket import pad_problem
+    full = random_instance(11, n_events=32, n_rooms=4, n_features=4,
+                           n_students=32, attend_prob=0.3)
+    small = random_instance(12, n_events=20, n_rooms=3, n_features=2,
+                            n_students=12, attend_prob=0.08)
+    itc = itc_like_instance(13, n_events=27, n_rooms=4, n_features=4,
+                            n_students=24)
+    rng = np.random.default_rng(14)
+    anchored = dataclasses.replace(
+        random_instance(14, n_events=30, n_rooms=4, n_features=3,
+                        n_students=28, attend_prob=0.15),
+        anchor_slots=rng.integers(0, 45, 30).astype(np.int32),
+        anchor_w=rng.integers(0, 4, 30).astype(np.int32))
+    pas = [pad_problem(p).device_arrays(device)
+           for p in (full, small, anchored, itc)[:n_lanes]]
+    return LaneProblems(pas)
+
+
+def _lane_case(lp, device, pop, seed):
+    """(cfg, parents, breed draws, LS rows, LS draws) of a lane dispatch:
+    each lane's parents random slots with random rooms and tied
+    (penalty, scv), its LS rows scored on its own problem."""
+    L = len(lp)
+    g = torch.Generator(device=device).manual_seed(seed)
+    parts = [_state(pa, pop, seed + i) for i, pa in enumerate(lp.pas)]
+    slots = torch.cat([st.slots for st in parts])
+    rms = torch.randint(0, lp.n_rooms, slots.shape, generator=g,
+                        device=device, dtype=torch.int32)
+    tie = torch.randint(0, 3, (2, L * pop), generator=g, device=device,
+                        dtype=torch.int32)
+    par = ga.PopState(slots, rms, tie[0], tie[0] + 5, tie[1])
+    cfg = ga.GAConfig(pop_size=pop, p3=0.4)
+    draws = ga.make_breed_draws([g] * L, pop, lp.n_events, lp.n_slots, cfg,
+                                device)
+    i = torch.arange(L * pop, device=device)
+    draws = draws._replace(do_x=i % 2 == 0, do_m=i % 3 != 0)
+    rows = delta.LSRows(*(torch.cat(x) for x in zip(*(
+        delta.init_rows(pa, st.slots, st.rooms)
+        for pa, st in zip(lp.pas, parts)))))
+    ls = delta.make_ls_draws([g], L * pop, 3, 4, lp.n_events, lp.n_slots,
+                             1.0, 1.0, 0.5, device)
+    return cfg, par, draws, rows, ls
+
+
+def k6_lanes_equal_plain(lp, cfg, par, draws, mo=None, rooms_mode="scan"):
+    """K6 with the lane table against its lane-looped plain version, the
+    children and their base parents; returns the children."""
+    got, gp = ga.make_children_kernel(lp, draws, par, len(lp), mo,
+                                      rooms_mode, with_parent=True)
+    want, wp = ga.make_children_lanes_plain(
+        lp, draws, par, dataclasses.replace(cfg, rooms_mode=rooms_mode),
+        mo, with_parent=True)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    assert torch.equal(wp, gp)
+    return got
+
+
+def k8_lanes_equal_plain(lp, ls, rows):
+    """K8 with the lane table against its lane-looped plain version."""
+    got = delta.random_local_search_kernel(lp, ls, rows)
+    want = delta.random_ls_lanes_plain(lp, ls, rows)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    return got
 
 
 def _ls_draws(pa, device, P, n_rounds, K, seed):
@@ -777,6 +848,45 @@ def test_k5_shared_memory_count_matches_the_kernel(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_lanes", [1, 3, 4])
+def test_k6_k8_lane_tables_equal_plain(cuda, n_lanes):
+    """K6 (both tournament modes, both matchers) and K8's chain with a
+    lane table against their lane-looped plain versions, each lane a
+    different instance of one bucket (padded, anchored, the largest and
+    the shortest CSR), and the K8 chain's rows re-scored per lane."""
+    lp = _lane_problems(n_lanes, cuda)
+    cfg, par, draws, rows, ls = _lane_case(lp, cuda, 6, 90 + n_lanes)
+    kernels.reset_launches()
+    k6_lanes_equal_plain(lp, cfg, par, draws)
+    k6_lanes_equal_plain(lp, cfg, par, draws, rooms_mode="parallel")
+    k6_lanes_equal_plain(lp, cfg, par, draws,
+                         nsga.rank_crowd_plain(par.hcv, par.scv, n_lanes))
+    got = k8_lanes_equal_plain(lp, ls, rows)
+    assert kernels.LAUNCHES["breed_lanes"] == 3
+    assert kernels.LAUNCHES["random_ls_lanes"] == 1
+    assert kernels.LAUNCHES["breed"] == kernels.LAUNCHES["random_ls"] == 0
+    for lane, pa in enumerate(lp.pas):
+        r = slice(lane * 6, (lane + 1) * 6)
+        full = fitness.batch_penalty_plain(pa, got.slots[r], got.rooms[r])
+        assert all(torch.equal(w, g[r]) for w, g in zip(full, got[2:]))
+
+
+@pytest.mark.cuda
+def test_k6_k8_null_table_unchanged(cuda):
+    """With a null table K6 and K8's chain are the one-problem kernels:
+    a LaneProblems of one lane equals the ProblemArrays form bit for
+    bit."""
+    lp = _lane_problems(1, cuda)
+    cfg, par, draws, rows, ls = _lane_case(lp, cuda, 8, 97)
+    a = ga.make_children_kernel(lp, draws, par, 1)
+    b = ga.make_children_kernel(lp.first, draws, par, 1)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = delta.random_local_search_kernel(lp, ls, rows)
+    b = delta.random_local_search_kernel(lp.first, ls, rows)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
 def test_k6_breed_and_relocate_equal_plain(cuda):
     for i, pa in enumerate(_instances(cuda)):
         for groups, pop in ((1, 16), (3, 5)):
@@ -1185,6 +1295,50 @@ def test_k13_moment_rows_equals_plain(cuda):
         tr = _trace(L, n, n, cuda)
         moment_rows_equal_plain(tr[..., 0].contiguous(),
                                 tr[..., 1].contiguous())
+
+
+def test_lane_tables_on_cpu_tensors_take_the_lane_loops():
+    """On CPU tensors make_children and the random search take a
+    LaneProblems through their lane-looped plain versions: no launch."""
+    lp = _lane_problems(3)
+    cfg, par, draws, rows, ls = _lane_case(lp, "cpu", 4, 5)
+    kernels.reset_launches()
+    a = ga.make_children(lp, draws, par, cfg, 3)
+    b = delta.random_local_search(lp, ls, rows)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    assert all(torch.equal(x, y) for x, y in zip(
+        a, ga.make_children_lanes_plain(lp, draws, par, cfg)))
+    assert all(torch.equal(x, y) for x, y in zip(
+        b, delta.random_ls_lanes_plain(lp, ls, rows)))
+    # each lane's block is the one-problem plain version on its problem
+    for lane, pa in enumerate(lp.pas):
+        r = slice(lane * 4, (lane + 1) * 4)
+        one = delta.random_local_search_plain(
+            pa, delta.LSDraws(*(x[:, :, r] for x in ls)),
+            delta.LSRows(*(x[r] for x in rows)))
+        assert all(torch.equal(x[r], y) for x, y in zip(b, one))
+
+
+def test_lane_table_columns_match_the_kernels():
+    """problem.LANE_FIELDS is csrc/common.cuh's TT_LANE_* order, and a
+    table row holds each lane's field addresses, then its scalars."""
+    import re
+    from timetabling_ga_tpu_torch import problem
+    text = (kernels.CSRC / "common.cuh").read_text()
+    body = re.search(r"enum \{(.*?)\};", text, re.S).group(1)
+    names = re.findall(r"TT_LANE_(\w+)", body)
+    assert names[-1] == "FIELDS"
+    want = [f.upper().removesuffix("_U8") for f in problem.LANE_POINTERS]
+    assert names[:-1] == want + ["DIAG", "ANCHORED"]
+    lp = _lane_problems(4)
+    assert tuple(lp.table.shape) == (4, len(problem.LANE_FIELDS))
+    for row, pa in zip(lp.table.tolist(), lp.pas):
+        assert row[:len(problem.LANE_POINTERS)] == [
+            getattr(pa, f).data_ptr() for f in problem.LANE_POINTERS]
+        assert row[-2:] == [pa.conflict_diag, int(pa.anchored)]
+    sub = lp.select([2, 0])
+    assert sub.pas == [lp.pas[2], lp.pas[0]]
+    assert torch.equal(sub.table, lp.table[[2, 0]])
 
 
 def test_trace_compression_on_cpu_tensors_takes_the_plain_version():

@@ -3,9 +3,10 @@
 The same memetic GA for university course timetabling (`.tim` input,
 the same CLI flags, the same JSONL protocol), running on an NVIDIA
 Hopper GPU: plain PyTorch for the tensor code and hand-written CUDA
-kernels (csrc/, built lazily by kernels.py) for room matching (K1),
-fitness (K2) and the two sweep-delta evaluators (K3, K4). Importing the
-package needs no CUDA toolchain and never imports JAX.
+kernels (csrc/, K1-K14, built lazily by kernels.py) for every device
+program of its paths — the CLI solve and the multi-tenant `serve`
+subcommand (serve/). Importing the package needs no CUDA toolchain and
+never imports JAX.
 """
 
 from timetabling_ga_tpu_torch.problem import (  # noqa: F401

@@ -1,21 +1,36 @@
 """Command-line entry point of the PyTorch port.
 
     python -m timetabling_ga_tpu_torch.cli -i fixtures/comp01s.tim -s 42
+    python -m timetabling_ga_tpu_torch serve -i requests.jsonl
 
 runs the size-tuned solve on the GPU (`--backend cpu` runs it on the
-host) and writes the JSONL protocol to stdout or `-o <file>`. The flags
-are the JAX CLI's (runtime/config.py); those not ported yet stop the
-parse with a message that names them.
+host) and writes the JSONL protocol to stdout or `-o <file>`; `serve`
+runs the multi-tenant solver service (serve/service.py) over line-JSON
+requests. The flags are the JAX CLI's (runtime/config.py); those not
+ported yet stop the parse with a message that names them, and so do the
+JAX CLI's other subcommands.
 """
 
 from __future__ import annotations
 
 import sys
 
+# the JAX CLI's subcommands besides `serve` (timetabling_ga_tpu/cli.py:
+# 95-156), none ported yet
+NOT_PORTED_SUBCOMMANDS = ("trace", "stats", "quality", "incident", "usage",
+                          "profile", "hotspots", "scale", "fleet",
+                          "submit")
+
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    from timetabling_ga_tpu_torch.runtime.config import parse_args
+    from timetabling_ga_tpu_torch.runtime.config import (
+        not_ported, parse_args)
+    if argv and argv[0] == "serve":
+        from timetabling_ga_tpu_torch.serve.service import main_serve
+        return main_serve(argv[1:])
+    if argv and argv[0] in NOT_PORTED_SUBCOMMANDS:
+        raise not_ported(f"the {argv[0]} subcommand")
     cfg = parse_args(argv)
     from timetabling_ga_tpu_torch.runtime.engine import run
     run(cfg)

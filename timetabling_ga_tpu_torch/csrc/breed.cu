@@ -43,7 +43,12 @@
 //   - with `out_parent` (the quality telemetry: its crossover and
 //     mutation wins compare a child with its base parent,
 //     ga.py:221-302 with_quality), thread 0 also writes tournament A's
-//     winner, the row the child started from; without it nothing more.
+//     winner, the row the child started from; without it nothing more;
+//   - with `lanes` (the serve path, parallel/islands.py:1115
+//     make_lane_runner: every island a job's lane, each its own problem
+//     of one bucket), the block reads its island's row of the lane table
+//     (common.cuh) once and runs every body above on that lane's arrays;
+//     null, the problem is the one of the other arguments, as before.
 // The relocation entry (kicks, the full-evaluation local search) keeps
 // one warp per row and runs only the last step, n_moves times in order
 // per row, on an occupancy counted once at the start.
@@ -104,12 +109,35 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     const int* __restrict__ order, const uint32_t* __restrict__ suit,
     const int* __restrict__ room_of, const int* __restrict__ ranks,
     const float* __restrict__ crowd, TTPenaltyProblem pp,
-    int* __restrict__ out_slots, int* __restrict__ out_rooms,
-    int* __restrict__ out_eval, int* __restrict__ out_parent, int P,
-    int pop, int k, int E, int R, int T, int n_rounds, int so_ints) {
+    const long long* __restrict__ lanes, int* __restrict__ out_slots,
+    int* __restrict__ out_rooms, int* __restrict__ out_eval,
+    int* __restrict__ out_parent, int P, int pop, int k, int E, int R,
+    int T, int n_rounds, int so_ints) {
     extern __shared__ int k6_smem[];
     TT_PROF_START();
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int c = blockIdx.x;
+    if (lanes) {
+        // this island's lane: its problem's arrays and scalars
+        const long long* row = lanes + (size_t)(c / pop) * TT_LANE_FIELDS;
+        possible = tt_lane_ptr<uint8_t>(row, TT_LANE_POSSIBLE);
+        cap_rank = tt_lane_ptr<int>(row, TT_LANE_CAP_RANK);
+        dead = tt_lane_ptr<int>(row, TT_LANE_DEAD);
+        live = tt_lane_ptr<int>(row, TT_LANE_LIVE);
+        order = tt_lane_ptr<int>(row, TT_LANE_ROOM_ORDER);
+        suit = tt_lane_ptr<uint32_t>(row, TT_LANE_SUIT_RANK);
+        room_of = tt_lane_ptr<int>(row, TT_LANE_ROOM_OF_RANK);
+        pp.possible = possible;
+        pp.live = live;
+        pp.student_count = tt_lane_ptr<int>(row, TT_LANE_STUDENT_COUNT);
+        pp.conflict_bits =
+            tt_lane_ptr<uint32_t>(row, TT_LANE_CONFLICT_BITS);
+        pp.stu_ptr = tt_lane_ptr<int>(row, TT_LANE_STU_PTR);
+        pp.stu_ev = tt_lane_ptr<int>(row, TT_LANE_STU_EV);
+        pp.anchor_slots = tt_lane_ptr<int>(row, TT_LANE_ANCHOR_SLOTS);
+        pp.anchor_w = tt_lane_ptr<int>(row, TT_LANE_ANCHOR_W);
+        pp.diag = (int)row[TT_LANE_DIAG];
+    }
     int* sl = k6_smem;                                   // (E,)
     int* rm = sl + E;                                    // (E,)
     int* occ = rm + E;                                   // (T, R)
@@ -120,7 +148,6 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     // epilogue's evaluation
     uint32_t* slot_ev = (uint32_t*)(so + so_ints);
     int* red = (int*)(slot_ev + T * pp.W);
-    const int c = blockIdx.x;
     const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
     // every thread takes both tournaments (a few reads, no barrier)
     const int base = c / pop * pop;
@@ -224,9 +251,10 @@ extern "C" int tt_breed(
     const int* room_of, const int* ranks, const float* crowd,
     const int* student_count, const uint32_t* conflict_bits,
     const int* stu_ptr, const int* stu_ev, const int* anchor_slots,
-    const int* anchor_w, int* out_slots, int* out_rooms, int* out_eval,
-    int* out_parent, int P, int pop, int k, int E, int R, int T,
-    int n_rounds, int S, int spd, int W, int diag, void* stream) {
+    const int* anchor_w, const long long* lanes, int* out_slots,
+    int* out_rooms, int* out_eval, int* out_parent, int P, int pop, int k,
+    int E, int R, int T, int n_rounds, int S, int spd, int W, int diag,
+    void* stream) {
     if (R > 32 || E < 3 || P <= 0 || pop <= 0 || P % pop != 0 || k <= 0
         || T > 64 || spd > 32 || (ranks != nullptr) != (crowd != nullptr))
         return (int)cudaErrorInvalidValue;
@@ -246,8 +274,8 @@ extern "C" int tt_breed(
     breed_kernel<<<P, K6_THREADS, smem, (cudaStream_t)stream>>>(
         slots, rooms, pen, scv, ta, tb, mask, do_x, do_m, mtype, u, tgt,
         possible, cap_rank, dead, live, order, suit, room_of, ranks, crowd,
-        pp, out_slots, out_rooms, out_eval, out_parent, P, pop, k, E, R, T,
-        n_rounds, (int)so_ints);
+        pp, lanes, out_slots, out_rooms, out_eval, out_parent, P, pop, k, E,
+        R, T, n_rounds, (int)so_ints);
     return (int)cudaGetLastError();
 }
 

@@ -112,6 +112,30 @@ __device__ __forceinline__ int tt_block_sum(int v, int* scratch) {
     return total;
 }
 
+// A lane table (the serve path's per-lane problems, problem.py
+// LaneProblems): one row of TT_LANE_FIELDS int64 a lane, the device
+// addresses of that lane's ProblemArrays fields and then its scalars.
+// K6 and K8's chain take it as one pointer: null, they read the problem
+// from their other arguments; else a block reads its lane's row once and
+// runs the shared bodies on that lane's arrays. Within a bucket every
+// lane has the same E, R, S, T and W, so the shared memory a block takes
+// is the same for every lane. The order is problem.py LANE_FIELDS.
+enum {
+    TT_LANE_POSSIBLE, TT_LANE_CAP_RANK, TT_LANE_DEAD, TT_LANE_LIVE,
+    TT_LANE_ROOM_ORDER, TT_LANE_SUIT_RANK, TT_LANE_ROOM_OF_RANK,
+    TT_LANE_STUDENT_COUNT, TT_LANE_CONFLICT_BITS, TT_LANE_STU_PTR,
+    TT_LANE_STU_EV, TT_LANE_EV_PTR, TT_LANE_EV_STU, TT_LANE_ATTENDS,
+    TT_LANE_ANCHOR_SLOTS, TT_LANE_ANCHOR_W, TT_LANE_DIAG, TT_LANE_ANCHORED,
+    TT_LANE_FIELDS
+};
+
+// field `f` of a lane's row, as a pointer to T
+template <typename T>
+__device__ __forceinline__ const T* tt_lane_ptr(const long long* row,
+                                                int f) {
+    return (const T*)(uintptr_t)row[f];
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>
 static cudaError_t tt_set_smem(K kernel, size_t bytes) {

@@ -56,6 +56,10 @@
 //     warps (K = 8 of 16) would save at most ~12% of a round on a path
 //     whose pace the host's launches now set, so a candidate keeps one
 //     warp.
+// With a lane table (the serve path, parallel/islands.py:1115
+// make_lane_runner; common.cuh), individual p's block reads the row of
+// lane p / lane_rows once and runs everything above on that lane's
+// problem; with a null table the problem is the one of the arguments.
 // Nothing goes back to global memory until the epilogue, which writes
 // slots, rooms and a full evaluation of the final row: penalty_dev.cuh's
 // body on the block's occupancy, slot bitsets (masked to the live events)
@@ -135,6 +139,9 @@ struct K8Args {
     int* slots_out; int* rooms_out; int* pen_out; int* hcv_out;
     int* scv_out;
     int P, K, n_rounds, anchored;
+    // the serve path's lane table and rows a lane (null: one problem)
+    const long long* lanes;
+    int lane_rows;
     K8Smem lay;
 };
 
@@ -285,16 +292,39 @@ random_ls_kernel(K8Args A) {
     uint32_t* bits = (uint32_t*)(k8_smem + A.lay.bits);
 
     TT_PROF_START();
+    TTSweepProblem pb = A.pb;
+    const int *anchor_slots = A.anchor_slots, *anchor_w = A.anchor_w;
+    const int *stu_ptr = A.stu_ptr, *stu_ev = A.stu_ev;
+    int diag = A.diag, anchored = A.anchored;
+    if (A.lanes) {
+        // this individual's lane: its problem's arrays and scalars
+        const long long* row =
+            A.lanes + (size_t)(p / A.lane_rows) * TT_LANE_FIELDS;
+        pb.possible = tt_lane_ptr<uint8_t>(row, TT_LANE_POSSIBLE);
+        pb.live = tt_lane_ptr<int>(row, TT_LANE_LIVE);
+        pb.student_count = tt_lane_ptr<int>(row, TT_LANE_STUDENT_COUNT);
+        pb.conflict_bits = tt_lane_ptr<uint32_t>(row, TT_LANE_CONFLICT_BITS);
+        pb.cap_rank = tt_lane_ptr<int>(row, TT_LANE_CAP_RANK);
+        pb.dead = tt_lane_ptr<int>(row, TT_LANE_DEAD);
+        pb.attends = tt_lane_ptr<uint8_t>(row, TT_LANE_ATTENDS);
+        pb.ev_ptr = tt_lane_ptr<int>(row, TT_LANE_EV_PTR);
+        pb.ev_stu = tt_lane_ptr<int>(row, TT_LANE_EV_STU);
+        anchor_slots = tt_lane_ptr<int>(row, TT_LANE_ANCHOR_SLOTS);
+        anchor_w = tt_lane_ptr<int>(row, TT_LANE_ANCHOR_W);
+        stu_ptr = tt_lane_ptr<int>(row, TT_LANE_STU_PTR);
+        stu_ev = tt_lane_ptr<int>(row, TT_LANE_STU_EV);
+        diag = (int)row[TT_LANE_DIAG];
+        anchored = (int)row[TT_LANE_ANCHORED];
+    }
+    const uint32_t* g_bits = pb.conflict_bits;
     const int* g_slots = A.slots + (size_t)p * E;
     const int* g_rooms = A.rooms + (size_t)p * E;
     for (int i = tid; i < E; i += blockDim.x) {
         slots[i] = g_slots[i];
         rooms[i] = g_rooms[i];
     }
-    TTSweepProblem pb = A.pb;
     if (A.lay.bits_in_smem) {
-        for (int i = tid; i < E * W; i += blockDim.x)
-            bits[i] = A.pb.conflict_bits[i];
+        for (int i = tid; i < E * W; i += blockDim.x) bits[i] = g_bits[i];
         pb.conflict_bits = bits;
     }
     // every thread keeps the individual's (pen, hcv, scv)
@@ -305,8 +335,8 @@ random_ls_kernel(K8Args A) {
     for (int s = tid; s < S; s += blockDim.x) {
         int16_t* row = att + (size_t)s * T;
         for (int t = 0; t < T; ++t) row[t] = 0;
-        for (int k = A.stu_ptr[s]; k < A.stu_ptr[s + 1]; ++k) {
-            const int e = A.stu_ev[k];
+        for (int k = stu_ptr[s]; k < stu_ptr[s + 1]; ++k) {
+            const int e = stu_ev[k];
             row[slots[e]] += pb.attends[(size_t)s * E + e];
         }
     }
@@ -348,8 +378,7 @@ random_ls_kernel(K8Args A) {
             if (lane == 0) {
                 int* o = rec + c * K8_CAND_INTS;
                 tt_store_candidate(slots, ev, ns, nr, dh, ds, st,
-                                   A.anchor_slots, A.anchor_w, A.anchored,
-                                   o);
+                                   anchor_slots, anchor_w, anchored, o);
 #pragma unroll
                 for (int m = 0; m < 3; ++m) {
                     o[12 + m] = slots[ev[m]];
@@ -410,9 +439,9 @@ random_ls_kernel(K8Args A) {
     __syncthreads();
     TT_PROF(10);
     const TTPenaltyProblem pp = {pb.possible, pb.live, pb.student_count,
-                                 pb.conflict_bits, A.stu_ptr, A.stu_ev,
-                                 A.anchor_slots, A.anchor_w, E, R, S, T,
-                                 pb.spd, W, A.diag};
+                                 pb.conflict_bits, stu_ptr, stu_ev,
+                                 anchor_slots, anchor_w, E, R, S, T,
+                                 pb.spd, W, diag};
     TTPenAcc acc = tt_pen_zero();
     tt_pen_cells(occ, 0, T * R, acc);
     tt_pen_events(pp, slots, rooms, 0, E, acc);
@@ -470,11 +499,12 @@ extern "C" int tt_random_ls(
     const uint32_t* conflict_bits, const int* cap_rank, const int* dead,
     const uint8_t* attends, const int* ev_ptr, const int* ev_stu,
     const int* stu_ptr, const int* stu_ev, const int* anchor_slots,
-    const int* anchor_w, int* slots_out, int* rooms_out, int* pen_out,
-    int* hcv_out, int* scv_out, int P, int E, int R, int S, int T, int spd,
-    int W, int K, int n_rounds, int anchored, int diag, void* stream) {
+    const int* anchor_w, const long long* lanes, int* slots_out,
+    int* rooms_out, int* pen_out, int* hcv_out, int* scv_out, int P, int E,
+    int R, int S, int T, int spd, int W, int K, int n_rounds, int anchored,
+    int diag, int lane_rows, void* stream) {
     if (P <= 0 || E < 3 || T > 64 || R > 32 || spd > 32 || K <= 0
-        || n_rounds < 0)
+        || n_rounds < 0 || (lanes && (lane_rows <= 0 || P % lane_rows)))
         return (int)cudaErrorInvalidValue;
     K8Smem lay = k8_smem_layout(E, R, S, T, K, W);
     if (lay.total > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
@@ -492,6 +522,7 @@ extern "C" int tt_random_ls(
     A.slots_out = slots_out; A.rooms_out = rooms_out; A.pen_out = pen_out;
     A.hcv_out = hcv_out; A.scv_out = scv_out;
     A.P = P; A.K = K; A.n_rounds = n_rounds; A.anchored = anchored;
+    A.lanes = lanes; A.lane_rows = lane_rows;
     A.lay = lay;
     int threads = 32 * (K < K8_MAX_WARPS ? K : K8_MAX_WARPS);
     random_ls_kernel<<<P, threads, lay.total, (cudaStream_t)stream>>>(A);

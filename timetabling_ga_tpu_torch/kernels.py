@@ -15,7 +15,8 @@ its pre-pass random_ls_events, which also feeds K12 `full_eval_ls.cu`,
 and the chain random_ls; K11 `nsga.cu`:
 nsga_rank and nsga_survivors; K13 `trace_compress.cu`: compress_trace
 and moment_rows; K14 `quality.cu`: quality_ops and div_stats); each has
-its own name here. Every C entry
+its own name here; K6 and K8's chain launched with a lane table (the
+serve path) count under FORMS' names. Every C entry
 point launches on PyTorch's current stream and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code.
 `LAUNCHES` counts the launches of each entry point: a wrapper adds one
@@ -61,14 +62,14 @@ SIGNATURES = {
                   "delta_one"),
     "sweep_pass": ("tt_sweep_pass", [_P] * 35 + [_I] * 17 + [_P],
                    "sweep_pass"),
-    "breed": ("tt_breed", [_P] * 31 + [_I] * 11 + [_P], "breed"),
+    "breed": ("tt_breed", [_P] * 32 + [_I] * 11 + [_P], "breed"),
     "relocate": ("tt_relocate", [_P] * 11 + [_I] * 5 + [_P], "breed"),
     "survivors": ("tt_survivors", [_P] * 15 + [_I] * 5 + [_P],
                   "survivors"),
     "migrate": ("tt_migrate", [_P] * 11 + [_I] * 3 + [_P], "survivors"),
     "random_ls_events": ("tt_random_ls_events", [_P] * 2 + [_I] * 4 + [_P],
                          "random_ls"),
-    "random_ls": ("tt_random_ls", [_P] * 26 + [_I] * 11 + [_P],
+    "random_ls": ("tt_random_ls", [_P] * 27 + [_I] * 12 + [_P],
                   "random_ls"),
     "full_eval_ls": ("tt_full_eval_ls", [_P] * 23 + [_I] * 12 + [_P],
                      "full_eval_ls"),
@@ -92,7 +93,12 @@ SOURCES: dict = {}
 for _name, (_, _, _src) in SIGNATURES.items():
     SOURCES.setdefault(_src, []).append(_name)
 
-LAUNCHES = {name: 0 for name in SIGNATURES}
+# Forms of an entry point counted under a name of their own: K6 and K8's
+# chain with a lane table (the serve path's per-lane problems,
+# problem.py LaneProblems) are the same C entry points as without it
+FORMS = {"breed_lanes": "breed", "random_ls_lanes": "random_ls"}
+
+LAUNCHES = {name: 0 for name in (*SIGNATURES, *FORMS)}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -200,10 +206,13 @@ def ptr(t: torch.Tensor) -> int:
 
 
 def launch(name: str, *args) -> None:
-    """Launch kernel `name` on the current stream; raise on an error."""
-    if name not in _LIBS:
+    """Launch kernel `name` (an entry point, or one of its FORMS, which
+    counts under its own name) on the current stream; raise on an
+    error."""
+    entry = FORMS.get(name, name)
+    if entry not in _LIBS:
         build()
-    lib, fn = _LIBS[name]
+    lib, fn = _LIBS[entry]
     stream = torch.cuda.current_stream().cuda_stream
     LAUNCHES[name] += 1
     rc = fn(*args, stream)

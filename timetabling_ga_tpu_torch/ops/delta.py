@@ -23,6 +23,11 @@ the rounds. Both take and return `LSRows`
 (assignments and penalty terms; K8 builds att and occ itself) and take
 their draws as `LSDraws`.
 
+On the serve path the search takes a `problem.LaneProblems` in place of
+the ProblemArrays, each lane a block of equal rows with its own problem:
+K8's chain reads each lane's problem from the lane table, and the plain
+version runs each lane's rows on its own ProblemArrays.
+
 `slot_bitsets` is the plain version of the two bitsets K5, K8 and K10
 keep beside att in shared memory (a student's attended slots, each
 slot's events), and `apply_bitsets` of how their apply keeps them up to
@@ -40,6 +45,7 @@ from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.fitness import gather_rows
 from timetabling_ga_tpu_torch.ops.moves import MoveDraws, sample_move, top3
 from timetabling_ga_tpu_torch.ops.rooms import choose_room, occupancy
+from timetabling_ga_tpu_torch.problem import LaneProblems
 
 
 class LSState(NamedTuple):
@@ -452,12 +458,37 @@ def random_ls_events_kernel(draws: LSDraws) -> torch.Tensor:
     return out
 
 
+def random_ls_lanes_plain(lp: LaneProblems, draws: LSDraws,
+                          rows: LSRows) -> LSRows:
+    """Plain version of K8 with a lane table: each lane's block of rows
+    searched by random_local_search_plain on its own ProblemArrays."""
+    P = rows.slots.shape[0]
+    n = P // len(lp)
+    parts = []
+    for lane, pa in enumerate(lp.pas):
+        sl = slice(lane * n, (lane + 1) * n)
+        parts.append(random_local_search_plain(
+            pa, LSDraws(*(x[:, :, sl] for x in draws)),
+            LSRows(*(x[sl] for x in rows))))
+    return LSRows(*(torch.cat(x) for x in zip(*parts)))
+
+
 def random_ls_chain(pa, draws: LSDraws, rows: LSRows,
                     events: torch.Tensor) -> LSRows:
     """K8's chain (random_ls) on CUDA tensors, given every candidate's
     events from the pre-pass: every round for every individual in one
-    launch, one block per individual. Raises ValueError when one
-    individual's state does not fit in shared memory; no fallback."""
+    launch, one block per individual. With `pa` a LaneProblems each
+    lane is an equal block of the individuals and each block reads its
+    lane's problem from the lane table (launches count as
+    random_ls_lanes). Raises ValueError when one individual's state does
+    not fit in shared memory; no fallback."""
+    lanes, lane_rows = None, 0
+    if isinstance(pa, LaneProblems):
+        if rows.slots.shape[0] % len(pa):
+            raise ValueError("random_ls: the rows do not split into the "
+                             "lanes")
+        lanes, lane_rows = pa.table, rows.slots.shape[0] // len(pa)
+        pa = pa.first
     n_rounds, K, P = draws.mtype.shape
     E = rows.slots.shape[1]
     smem = random_ls_smem_bytes(pa, K)
@@ -481,14 +512,15 @@ def random_ls_chain(pa, draws: LSDraws, rows: LSRows,
         return out
     p = kernels.ptr
     kernels.launch(
-        "random_ls", *(p(x) for x in ins + dr), p(pa.possible_u8),
+        "random_ls" if lanes is None else "random_ls_lanes",
+        *(p(x) for x in ins + dr), p(pa.possible_u8),
         p(pa.live), p(pa.student_count), p(pa.conflict_bits),
         p(pa.cap_rank), p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr),
         p(pa.ev_stu), p(pa.stu_ptr), p(pa.stu_ev), p(pa.anchor_slots),
-        p(pa.anchor_w),
+        p(pa.anchor_w), None if lanes is None else p(lanes),
         *(p(x) for x in out), P, E, pa.n_rooms, pa.n_students, pa.n_slots,
         pa.slots_per_day, pa.conflict_bits.shape[1], K, n_rounds,
-        int(pa.anchored), pa.conflict_diag)
+        int(pa.anchored), pa.conflict_diag, lane_rows)
     return out
 
 
@@ -504,9 +536,12 @@ def random_local_search_kernel(pa, draws: LSDraws, rows: LSRows) -> LSRows:
 def random_local_search(pa, draws: LSDraws, rows: LSRows) -> LSRows:
     """The random-candidate delta local search of a population's scored
     rows; the rows it returns carry a full evaluation of each (K8's
-    epilogue). Kernel K8 on CUDA tensors, the plain version on CPU
-    ones."""
+    epilogue). `pa` is a ProblemArrays, or a LaneProblems whose lanes
+    are equal blocks of the rows. Kernel K8 on CUDA tensors, the plain
+    version on CPU ones."""
     if not rows.slots.is_cuda:
+        if isinstance(pa, LaneProblems):
+            return random_ls_lanes_plain(pa, draws, rows)
         return random_local_search_plain(pa, draws, rows)
     return random_local_search_kernel(pa, draws, rows)
 

@@ -27,6 +27,14 @@ Populations may hold several islands as consecutive equal row blocks
 (`groups`): selection, truncation and the converge rule act within each
 block, as the JAX package's vmap over local islands does. Randomness
 comes in as tensors (`BreedDraws` and a per-call LS draw function).
+
+On the serve path each island is a job's lane with a problem of its own
+(JAX parallel/islands.py:1115 make_lane_runner): `make_children`, the
+random-candidate search and `generation` then take a
+`problem.LaneProblems` in place of the ProblemArrays, one island of
+`pop` rows a lane. K6 and K8's chain read each lane's problem from its
+lane table; the plain versions loop over the lanes, each on its own
+ProblemArrays.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from timetabling_ga_tpu_torch.ops.rooms import (
     check_packing)
 from timetabling_ga_tpu_torch.ops.sweep import (
     make_sweep_draws, sweep_local_search, sweep_shape)
+from timetabling_ga_tpu_torch.problem import LaneProblems
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,13 +297,56 @@ def make_children_plain(pa, draws: BreedDraws, state: PopState,
     return rows
 
 
+def _lane_rows(x, lane: int, pop: int):
+    return x[lane * pop:(lane + 1) * pop]
+
+
+def _lane_draws(draws: BreedDraws, lane: int, pop: int) -> BreedDraws:
+    return BreedDraws(*(_lane_rows(x, lane, pop) for x in draws[:5]),
+                      move=MoveDraws(*(_lane_rows(x, lane, pop)
+                                       for x in draws.move)))
+
+
+def make_children_lanes_plain(lp: LaneProblems, draws: BreedDraws,
+                              state: PopState, cfg: GAConfig,
+                              mo_stats=None, with_parent: bool = False):
+    """Plain version of K6 with a lane table: each lane's children by
+    make_children_plain on its rows and its own ProblemArrays."""
+    pop = state.slots.shape[0] // len(lp)
+    parts = []
+    for lane, pa in enumerate(lp.pas):
+        mo = (None if mo_stats is None else
+              tuple(_lane_rows(x, lane, pop) for x in mo_stats))
+        out = make_children_plain(
+            pa, _lane_draws(draws, lane, pop),
+            PopState(*(_lane_rows(x, lane, pop) for x in state)), cfg, 1,
+            mo, with_parent)
+        if with_parent:
+            rows, parent = out
+            parts.append((*rows, parent + lane * pop))
+        else:
+            parts.append(out)
+    out = [torch.cat(x) for x in zip(*parts)]
+    rows = LSRows(*out[:5])
+    return (rows, out[5]) if with_parent else rows
+
+
 def make_children_kernel(pa, draws: BreedDraws, state: PopState,
                          groups: int = 1, mo_stats=None,
                          rooms_mode: str = "scan",
                          with_parent: bool = False):
     """Kernel K6: every child in one launch, a block a child, which also
     scores it (the (3, P) penalty terms K2 would give) and, with
-    with_parent, writes its base parent."""
+    with_parent, writes its base parent. With `pa` a LaneProblems the
+    islands are its lanes (groups is len(pa)) and each block reads its
+    lane's problem from the lane table (launches count as
+    breed_lanes)."""
+    lanes = None
+    if isinstance(pa, LaneProblems):
+        if groups != len(pa):
+            raise ValueError(f"make_children: {groups} islands for "
+                             f"{len(pa)} lanes")
+        lanes, pa = pa.table, pa.first
     check_packing(pa)
     P, E = state.slots.shape
     ins = [x.contiguous() for x in (state.slots, state.rooms,
@@ -324,12 +376,14 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
     if P == 0:
         return (rows, parent) if with_parent else rows
     p = kernels.ptr
-    kernels.launch("breed", *(p(x) for x in ins + dr), p(pa.possible_u8),
+    kernels.launch("breed" if lanes is None else "breed_lanes",
+                   *(p(x) for x in ins + dr), p(pa.possible_u8),
                    p(pa.cap_rank), p(pa.dead), p(pa.live),
                    p(pa.room_order), p(pa.suit_rank), p(pa.room_of_rank),
                    *(None if x is None else p(x) for x in mo),
                    p(pa.student_count), p(pa.conflict_bits), p(pa.stu_ptr),
                    p(pa.stu_ev), p(pa.anchor_slots), p(pa.anchor_w),
+                   None if lanes is None else p(lanes),
                    p(out[0]), p(out[1]), p(ev),
                    None if parent is None else p(parent), P, P // groups,
                    draws.ta.shape[1], E, pa.n_rooms, pa.n_slots,
@@ -344,9 +398,13 @@ def make_children(pa, draws: BreedDraws, state: PopState, cfg: GAConfig,
     """Breed one child per parent row (each island's children from its
     own parents); returns the children's rows with their penalty terms
     (LSRows), and with with_parent also each child's base parent row
-    ((P,) int32). Kernel K6 on CUDA tensors, which scores each child in
-    its epilogue, the plain version on CPU ones."""
+    ((P,) int32). `pa` is a ProblemArrays, or a LaneProblems whose lanes
+    are the islands. Kernel K6 on CUDA tensors, which scores each child
+    in its epilogue, the plain version on CPU ones."""
     if not state.slots.is_cuda:
+        if isinstance(pa, LaneProblems):
+            return make_children_lanes_plain(pa, draws, state, cfg,
+                                             mo_stats, with_parent)
         return make_children_plain(pa, draws, state, cfg, groups, mo_stats,
                                    with_parent)
     return make_children_kernel(pa, draws, state, groups, mo_stats,
@@ -366,6 +424,10 @@ def local_search(pa, ls_draws, children: LSRows, cfg: GAConfig,
     counts a row, or None after the other searches (JAX's zeros)."""
     slots, rooms = children.slots, children.rooms
     ops = None
+    if isinstance(pa, LaneProblems) and (cfg.ls_mode == "sweep"
+                                         or not cfg.ls_delta):
+        raise ValueError("lanes take the delta-scored random-candidate "
+                         "search only (the serve generation's)")
     if cfg.ls_mode == "sweep" and cfg.ls_sweeps > 0:
         slots, rooms, *ops = sweep_local_search(
             pa, ls_draws, slots, rooms, n_sweeps=cfg.ls_sweeps,

@@ -32,6 +32,15 @@ exchange (K7's migrate), the diversity of the dispatch's final
 population once (K14's div_stats); the host splits the block off with
 `split_quality`. Nothing new is drawn: the trajectory and the record
 stream are the same with it on or off.
+
+The serve lanes (JAX islands.py:139 `pad_lanes`, :1087 `make_lane_init`,
+:1115 `make_lane_runner`): `lane_init` initialises one job's population
+on its own problem, and `lane_run` advances a dispatch's lanes — each a
+job with its own problem (problem.LaneProblems), generator and count —
+through the serve generation, with no migration, returning each lane's
+per-generation best (hcv, scv) and sentinels past its count (trace mode
+`full`; the compressed modes and the quality block wait for K13's and
+K14's per-lane forms).
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from timetabling_ga_tpu_torch.ops import fitness, ga, lahc
 from timetabling_ga_tpu_torch.ops.moves import (
     MoveDraws, make_move_draws, relocation_chain)
 from timetabling_ga_tpu_torch.ops.sweep import sweep_local_search
+from timetabling_ga_tpu_torch.problem import LaneProblems
 
 
 def _blocks(x, L):
@@ -528,3 +538,116 @@ def lahc_finalize(lstate: lahc.LahcState, L: int) -> ga.PopState:
     return ga.survivors(ga.PopState(lstate.best_slots, lstate.best_rooms,
                                     lstate.best_pen, lstate.best_hcv,
                                     lstate.best_scv), groups=L)
+
+
+# ----------------------------------------------------------- serve lanes
+
+# the word after a job's seed in its generators' seeds: a dispatch chunk's
+# generations, or the job's initial population
+LANE_CHUNK_WORD = 1
+LANE_INIT_WORD = 2
+
+
+def pad_lanes(n_lanes: int, n_devices: int = 1) -> int:
+    """Smallest lane count >= `n_lanes` that is a multiple of
+    `n_devices` (JAX islands.py:139, which takes the mesh's device
+    count). The port serves one card, so this is max(1, n_lanes)."""
+    return ((max(1, n_lanes) + n_devices - 1) // n_devices) * n_devices
+
+
+def lane_generator(device, seed: int, chunk: int = None) -> torch.Generator:
+    """A job's generator: for its dispatch chunk `chunk`, or, with None,
+    for its initial population — seeded through SeedSequence from (seed,
+    the word, chunk) as engine.island_generators seeds islands. A job's
+    stream is then a pure function of its own seed and progress, as JAX's
+    fold_in(fold_in(key(seed), chunk), generation) keys are
+    (serve/scheduler.py:64-69)."""
+    words = [int(seed) & (2 ** 64 - 1),
+             LANE_INIT_WORD if chunk is None else LANE_CHUNK_WORD,
+             0 if chunk is None else int(chunk)]
+    s = int(np.random.SeedSequence(words).generate_state(
+        1, dtype=np.uint64)[0] >> 1)
+    g = torch.Generator(device=device)
+    g.manual_seed(s)
+    return g
+
+
+def lane_init(pa, seed: int, pop_size: int) -> ga.PopState:
+    """One job's initial population on its own problem (JAX
+    make_lane_init's lane: ga.init_population with the serve config,
+    which has no initial polish): uniform random slots from the job's
+    init generator, greedy rooms (K1), evaluation (K2), sorted (K7)."""
+    return init_island_population(
+        pa, [lane_generator(pa.device, seed)], pop_size)
+
+
+def _lane_rows(lanes, pop: int, device) -> torch.Tensor:
+    """The row indices of `lanes`' blocks of `pop` rows."""
+    return (torch.as_tensor(lanes, dtype=torch.long, device=device)[:, None]
+            * pop + torch.arange(pop, device=device)).reshape(-1)
+
+
+def _gather_lanes(state: ga.PopState, lanes, L: int, pop: int):
+    """The rows of `lanes` (all L of them: `state` itself)."""
+    if len(lanes) == L:
+        return state
+    idx = _lane_rows(lanes, pop, state.slots.device)
+    return ga.PopState(*(x[idx] for x in state))
+
+
+def _scatter_lanes(state: ga.PopState, lanes, rows: ga.PopState, L: int,
+                   pop: int):
+    """`state` with the rows of `lanes` replaced by `rows` (all L of
+    them: `rows` itself)."""
+    if len(lanes) == L:
+        return rows
+    idx = _lane_rows(lanes, pop, state.slots.device)
+    return ga.PopState(*(x.index_copy(0, idx, y)
+                         for x, y in zip(state, rows)))
+
+
+def lane_run(lp: LaneProblems, gens, state: ga.PopState, counts,
+             cfg: ga.GAConfig, max_gens: int):
+    """One serve dispatch (JAX make_lane_runner, trace mode full, no
+    quality): lane l of `lp` (its rows the l-th block of `state`) runs
+    counts[l] <= max_gens generations of `cfg` drawn from its generator
+    gens[l] (None where counts[l] is 0), with no migration. Returns
+    (state, trace): trace (L, max_gens, 2) int32 on the device, each
+    lane's best (hcv, scv) after each of its generations and the
+    sentinel past its count (JAX's tr0).
+
+    A lane whose count is reached drops out of the launches: the still
+    running lanes' rows are gathered (and their problems selected) when
+    the set shrinks, at most L - 1 times a dispatch, so no kernel takes a
+    mask and a lane's rows stay as its last generation left them. Only
+    lanes with a count > 0 ever run."""
+    L = len(lp)
+    if len(counts) != L or len(gens) != L:
+        raise ValueError("lane_run: one count and one generator a lane")
+    if any(not 0 <= c <= max_gens for c in counts):
+        raise ValueError(f"lane_run: counts {list(counts)} outside "
+                         f"[0, {max_gens}]")
+    pop = cfg.pop_size
+    dev = state.slots.device
+    trace = torch.full((L, max_gens, 2), SENTINEL, dtype=torch.int32,
+                       device=dev)
+    cur_lanes, cur = [], None        # the running lanes and their rows
+    for i in range(max(counts)):
+        run = [lane for lane in range(L) if counts[lane] > i]
+        if run != cur_lanes:
+            if cur_lanes:
+                state = _scatter_lanes(state, cur_lanes, cur, L, pop)
+            cur_lanes, cur = run, _gather_lanes(state, run, L, pop)
+            sub = lp if len(run) == L else lp.select(run)
+            rows = (slice(None) if len(run) == L
+                    else torch.as_tensor(run, device=dev))
+        g = [gens[lane] for lane in run]
+        draws = ga.make_breed_draws(g, pop, lp.n_events, lp.n_slots, cfg,
+                                    dev)
+        cur = ga.generation(sub, draws, ga.ls_draws_fn(g, pop, sub, cfg),
+                            cur, cfg, groups=len(run))
+        trace[rows, i] = torch.stack([_blocks(cur.hcv, len(run))[:, 0],
+                                      _blocks(cur.scv, len(run))[:, 0]], -1)
+    if cur_lanes:
+        state = _scatter_lanes(state, cur_lanes, cur, L, pop)
+    return state, trace

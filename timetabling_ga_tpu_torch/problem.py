@@ -15,6 +15,9 @@ hand-written CUDA kernels read:
     cap_rank (R,) int32          room rank by capacity (double stable sort)
     room_order (E,) int32        most-constrained-first matching order
 
+`LaneProblems` holds the problems of a serve dispatch's lanes, one
+ProblemArrays a lane, and the lane table K6 and K8's chain read them by.
+
 `.tim` format (Metaheuristics-Network / ITC-2002):
 
     E R F S                      header (events, rooms, features, students)
@@ -152,6 +155,90 @@ class ProblemArrays:
     @property
     def device(self) -> torch.device:
         return self.attends.device
+
+
+# The lane table's columns, in csrc/common.cuh's TT_LANE_* order: the
+# ProblemArrays fields whose device addresses K6 and K8's chain read, then
+# the per-problem scalars they read
+LANE_POINTERS = ("possible_u8", "cap_rank", "dead", "live", "room_order",
+                 "suit_rank", "room_of_rank", "student_count",
+                 "conflict_bits", "stu_ptr", "stu_ev", "ev_ptr", "ev_stu",
+                 "attends_u8", "anchor_slots", "anchor_w")
+LANE_SCALARS = ("conflict_diag", "anchored")
+LANE_FIELDS = LANE_POINTERS + LANE_SCALARS
+
+
+class LaneProblems:
+    """The problems of a serve dispatch's lanes, one ProblemArrays a lane
+    (the serve path: each lane a job, JAX parallel/islands.py:1115
+    make_lane_runner, which vmaps over a stack of them).
+
+    Each job's padded ProblemArrays is placed on the device once and
+    stays its own set of tensors; what a pack builds is `table`, an
+    (L, len(LANE_FIELDS)) int64 tensor on their device holding each
+    lane's field addresses and scalars (csrc/common.cuh), which K6 and
+    K8's chain take as one pointer. The lanes must share a bucket: every
+    shape (E, R, S, T, W) and so every kernel's shared memory is the
+    same for each, and the kernels take them from `pas[0]`. What differs
+    from lane to lane is the data, CSR lengths and scalars included.
+    The plain versions loop over `pas`. `select` gives the problems of
+    some of the lanes (a table gather)."""
+
+    def __init__(self, pas, table=None):
+        self.pas = list(pas)
+        if not self.pas:
+            raise ValueError("LaneProblems needs at least one lane")
+        first = self.pas[0]
+        shape = (first.n_events, first.n_rooms, first.n_students,
+                 first.n_days, first.slots_per_day,
+                 first.conflict_bits.shape[1], first.device)
+        for pa in self.pas[1:]:
+            if (pa.n_events, pa.n_rooms, pa.n_students, pa.n_days,
+                    pa.slots_per_day, pa.conflict_bits.shape[1],
+                    pa.device) != shape:
+                raise ValueError("LaneProblems: every lane needs the same "
+                                 "bucket shape and device")
+        if table is None:
+            rows = [[getattr(pa, f).data_ptr() for f in LANE_POINTERS]
+                    + [int(getattr(pa, f)) for f in LANE_SCALARS]
+                    for pa in self.pas]
+            table = torch.tensor(rows, dtype=torch.int64,
+                                 device=first.device)
+        self.table = table
+
+    def __len__(self) -> int:
+        return len(self.pas)
+
+    def select(self, lanes) -> "LaneProblems":
+        """The problems of `lanes` (indices), in that order."""
+        idx = torch.as_tensor(list(lanes), dtype=torch.long,
+                              device=self.table.device)
+        return LaneProblems([self.pas[i] for i in lanes],
+                            self.table.index_select(0, idx))
+
+    @property
+    def first(self) -> ProblemArrays:
+        return self.pas[0]
+
+    @property
+    def n_events(self) -> int:
+        return self.pas[0].n_events
+
+    @property
+    def n_rooms(self) -> int:
+        return self.pas[0].n_rooms
+
+    @property
+    def n_students(self) -> int:
+        return self.pas[0].n_students
+
+    @property
+    def n_slots(self) -> int:
+        return self.pas[0].n_slots
+
+    @property
+    def device(self) -> torch.device:
+        return self.pas[0].device
 
 
 # Dead-room key penalty (JAX ops/rooms.py _W_DEAD): masked-out rooms never

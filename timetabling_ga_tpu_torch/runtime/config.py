@@ -21,6 +21,12 @@ dropped under `--checkpoint`, and an explicit `--post-pop-size` with
 
 `--backend` is `gpu` (the default) or `cpu`; a GPU run that finds no
 CUDA device raises instead of falling back to the CPU.
+
+`ServeConfig` and `parse_serve_args` are the `serve` subcommand's (JAX
+config.py:689-936): the same flags, defaults and messages for what the
+port serves; the service's other flags (`SERVE_NOT_PORTED`),
+`--trace-mode deltas|stats` and `--mesh-devices` above 1 stop the parse
+by name.
 """
 
 from __future__ import annotations
@@ -202,48 +208,64 @@ def not_ported(what: str) -> SystemExit:
                       f"timetabling_ga_tpu_torch (use timetabling_ga_tpu)")
 
 
-def _usage() -> str:
-    lines = ["usage: python -m timetabling_ga_tpu_torch -i <instance.tim> "
-             "[flags]", ""]
-    for flag, (field, typ) in _FLAG_MAP.items():
+def _format_usage(header, flag_map, bool_maps) -> str:
+    lines = [header, ""]
+    for flag, (field, typ) in flag_map.items():
         lines.append(f"  {flag} <{typ.__name__}>".ljust(28) + field)
-    for m in (_BOOL_FLAGS, _NEG_BOOL_FLAGS):
+    for m in bool_maps:
         for flag, field in m.items():
             lines.append(f"  {flag}".ljust(28) + field)
     lines.append("  -h, --help".ljust(28) + "show this message and exit")
     return "\n".join(lines)
 
 
-def parse_args(argv) -> RunConfig:
-    """Parse `-key value` pairs; unknown or unported flags raise."""
-    cfg = RunConfig()
+def _usage() -> str:
+    return _format_usage("usage: python -m timetabling_ga_tpu_torch -i "
+                         "<instance.tim> [flags]", _FLAG_MAP,
+                         (_BOOL_FLAGS, _NEG_BOOL_FLAGS))
+
+
+def _parse_flag_stream(argv, cfg, flag_map, usage_fn, bool_flags,
+                       neg_bool_flags, unported) -> set:
+    """The `-key value` loop of parse_args and parse_serve_args: -h
+    prints the usage and exits 0, an `unported` flag stops the parse by
+    name, unknown flags and missing values are SystemExit. Returns the
+    fields the argv set."""
     seen = set()
     i = 0
     while i < len(argv):
         a = argv[i]
         if a in ("-h", "--help"):
-            print(_usage())
+            print(usage_fn())
             raise SystemExit(0)
-        if a in NOT_PORTED:
+        if a in unported:
             raise not_ported(a)
-        if a in _BOOL_FLAGS:
-            setattr(cfg, _BOOL_FLAGS[a], True)
-            seen.add(_BOOL_FLAGS[a])
+        if a in bool_flags:
+            setattr(cfg, bool_flags[a], True)
+            seen.add(bool_flags[a])
             i += 1
             continue
-        if a in _NEG_BOOL_FLAGS:
-            setattr(cfg, _NEG_BOOL_FLAGS[a], False)
-            seen.add(_NEG_BOOL_FLAGS[a])
+        if a in neg_bool_flags:
+            setattr(cfg, neg_bool_flags[a], False)
+            seen.add(neg_bool_flags[a])
             i += 1
             continue
-        if a not in _FLAG_MAP:
+        if a not in flag_map:
             raise SystemExit(f"unknown flag: {a}")
         if i + 1 >= len(argv):
             raise SystemExit(f"flag {a} needs a value")
-        field, typ = _FLAG_MAP[a]
+        field, typ = flag_map[a]
         setattr(cfg, field, typ(argv[i + 1]))
         seen.add(field)
         i += 2
+    return seen
+
+
+def parse_args(argv) -> RunConfig:
+    """Parse `-key value` pairs; unknown or unported flags raise."""
+    cfg = RunConfig()
+    seen = _parse_flag_stream(argv, cfg, _FLAG_MAP, _usage, _BOOL_FLAGS,
+                              _NEG_BOOL_FLAGS, NOT_PORTED)
     cfg.explicit_fields = frozenset(seen)
     if cfg.input is None:
         raise SystemExit("No instance file specified, use -i <file>")
@@ -285,4 +307,118 @@ def parse_args(argv) -> RunConfig:
             and cfg.post_pop_size > cfg.pop_size):
         raise SystemExit("--post-pop-size must not exceed --pop-size "
                          "(it truncates to the elite rows)")
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# The solver service (`serve`; serve/service.py has the request grammar).
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """Configuration of the multi-tenant solver service (JAX
+    config.py:689): jobs arrive over the line-JSON protocol, each
+    instance is padded to its shape bucket (serve/bucket.py), and up to
+    `lanes` same-bucket jobs share a dispatch of `quantum` generations."""
+
+    input: Optional[str] = None   # line-JSON request file; None = stdin
+    output: Optional[str] = None  # record stream; None = stdout
+    backend: str = "gpu"
+    lanes: int = 4                # job lanes per dispatch
+    mesh_devices: int = 0         # cards serving (0 and 1: the one card)
+    resident: bool = True         # a group whose lanes are unchanged
+    #                               between quanta stays on the card;
+    #                               --no-resident parks it every quantum
+    #                               (the record stream is the same)
+    quantum: int = 25             # generations per time slice
+    backlog: int = 64             # admission-control bound (active jobs)
+    pop_size: int = 16            # per-job island population
+    generations: int = 200        # default per-job budget
+    seed: int = 0                 # default per-job seed
+    bucket_events: int = 32       # geometric bucket floors + ratio
+    bucket_rooms: int = 4         #   (serve/bucket.py BucketSpec)
+    bucket_features: int = 4
+    bucket_students: int = 32
+    bucket_ratio: float = 2.0
+    max_steps: int = 32           # LS budget per generation (candidate
+    #                               evaluations; rounds = this //
+    #                               ls_candidates)
+    ls_candidates: int = 8
+    trace_mode: str = "full"      # the lane runner's telemetry: full
+    usage: bool = True            # usage metering; the port has none and
+    #                               runs as JAX does under --no-usage
+
+
+_SERVE_FLAG_MAP = {
+    "-i": ("input", str),
+    "-o": ("output", str),
+    "--backend": ("backend", str),
+    "--lanes": ("lanes", int),
+    "--mesh-devices": ("mesh_devices", int),
+    "--quantum": ("quantum", int),
+    "--backlog": ("backlog", int),
+    "--pop-size": ("pop_size", int),
+    "--generations": ("generations", int),
+    "-s": ("seed", int),
+    "--bucket-events": ("bucket_events", int),
+    "--bucket-rooms": ("bucket_rooms", int),
+    "--bucket-features": ("bucket_features", int),
+    "--bucket-students": ("bucket_students", int),
+    "--bucket-ratio": ("bucket_ratio", float),
+    "-m": ("max_steps", int),
+    "--ls-candidates": ("ls_candidates", int),
+    "--trace-mode": ("trace_mode", str),
+}
+
+_SERVE_NEG_BOOL_FLAGS = {"--no-usage": "usage",
+                         "--no-resident": "resident"}
+
+# The JAX service's flags this slice does not serve yet: True = takes a
+# value, False = a switch. Parsing any of them stops the parse.
+SERVE_NOT_PORTED = {
+    "--metrics-every": True, "--obs-listen": True, "--history-every": True,
+    "--incident-dir": True, "--incident-min-interval": True,
+    "--profile-dir": True, "--profile-for": True,
+    "--mem-poll-every": True, "--shed-queue-hwm": True,
+    "--shed-writer-hwm": True, "--faults": True, "--http": True,
+    "--max-job-recoveries": True, "--preempt-grace": True,
+    "--obs": False, "--quality": False, "--preempt-on-term": False,
+}
+
+
+def _serve_usage() -> str:
+    return _format_usage(
+        "usage: python -m timetabling_ga_tpu_torch serve [flags] "
+        "(line-JSON jobs on -i/stdin, job-tagged JSONL records on "
+        "-o/stdout)", _SERVE_FLAG_MAP, (_SERVE_NEG_BOOL_FLAGS,))
+
+
+def parse_serve_args(argv) -> ServeConfig:
+    """Parse the `serve` subcommand's flags (JAX config.py:885, the same
+    checks and messages for the flags the port serves)."""
+    cfg = ServeConfig()
+    _parse_flag_stream(argv, cfg, _SERVE_FLAG_MAP, _serve_usage, {},
+                       _SERVE_NEG_BOOL_FLAGS, SERVE_NOT_PORTED)
+    if cfg.backend not in ("gpu", "cpu"):
+        raise SystemExit(f"unknown backend: {cfg.backend} (gpu or cpu)")
+    if cfg.trace_mode not in _KNOWN_VALUES["trace_mode"]:
+        raise SystemExit(f"unknown trace-mode: {cfg.trace_mode} (one of "
+                         f"{', '.join(_KNOWN_VALUES['trace_mode'])})")
+    if cfg.trace_mode != "full":
+        raise not_ported(f"--trace-mode {cfg.trace_mode} on the serve path")
+    if cfg.lanes < 1:
+        raise SystemExit("--lanes must be >= 1")
+    if cfg.mesh_devices < 0:
+        raise SystemExit("--mesh-devices must be >= 0 "
+                         "(0 = every visible device)")
+    if cfg.mesh_devices > 1:
+        raise not_ported(f"--mesh-devices {cfg.mesh_devices} (serving on "
+                         f"more than one card)")
+    if cfg.quantum < 1:
+        raise SystemExit("--quantum must be >= 1 generation")
+    if cfg.backlog < 1:
+        raise SystemExit("--backlog must be >= 1")
+    if cfg.bucket_ratio <= 1.0:
+        raise SystemExit("--bucket-ratio must be > 1.0 (geometric "
+                         "bucket growth)")
     return cfg

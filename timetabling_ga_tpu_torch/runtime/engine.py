@@ -74,6 +74,8 @@ from timetabling_ga_tpu_torch.problem import load_tim_file
 from timetabling_ga_tpu_torch.runtime import checkpoint as ckpt
 from timetabling_ga_tpu_torch.runtime import jsonl
 from timetabling_ga_tpu_torch.runtime.config import RunConfig
+from timetabling_ga_tpu_torch.runtime.dispatch_core import (
+    fetch_state, place_state)
 
 INT_MAX = 2 ** 31 - 1
 FEASIBLE_LIMIT = 1_000_000
@@ -419,16 +421,6 @@ def _dispatch_size(cfg, remaining_gens: int, sec_per_gen, remaining_t):
     return (1, short) if short is not None else (n_ep, g)
 
 
-def _fetch_state(state: ga.PopState) -> ga.PopState:
-    """Host (numpy) copy of a population in one device read."""
-    packed = torch.cat([state.slots, state.rooms, state.penalty[:, None],
-                        state.hcv[:, None], state.scv[:, None]],
-                       1).cpu().numpy()
-    E = state.slots.shape[1]
-    return ga.PopState(packed[:, :E], packed[:, E:2 * E], packed[:, 2 * E],
-                       packed[:, 2 * E + 1], packed[:, 2 * E + 2])
-
-
 def _resume(cfg, seed: int, fingerprint: str):
     """Load --checkpoint for a --resume (JAX engine.py:1329-1343): the
     checkpoint (None when the file does not exist) and the seed the try
@@ -460,8 +452,7 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
     gens_done = 0
     if loaded is not None:
         gens = resume_generators(pa.device, loaded, seed, trial, n_islands)
-        state = ga.PopState(*(torch.from_numpy(np.ascontiguousarray(
-            x, np.int32)).to(pa.device) for x in loaded.state))
+        state = place_state(loaded.state, pa.device)
         gens_done = loaded.generation
         if loaded.best_seen is not None:
             tr.best = [int(b) for b in loaded.best_seen]
@@ -608,7 +599,7 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
         if (cfg.checkpoint
                 and epochs_done - epochs_at_ckpt >= cfg.checkpoint_every):
             t = time.monotonic()
-            ckpt.save(cfg.checkpoint, _fetch_state(state),
+            ckpt.save(cfg.checkpoint, fetch_state(state),
                       ckpt.key_words(seed, trial, gens_done), gens_done,
                       fingerprint, list(tr.best), seed,
                       generator_states(gens), pa.device.type)
@@ -626,7 +617,7 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
 
     t = time.monotonic()
     P = cur.pop_size
-    host = _fetch_state(state)
+    host = fetch_state(state)
     tr.phase("fetch", time.monotonic() - t)
     E = pa.n_events
     slots = host.slots.reshape(n_islands, P, E)

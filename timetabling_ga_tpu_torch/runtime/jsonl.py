@@ -1,5 +1,5 @@
 """JSONL reporting protocol (copy of timetabling_ga_tpu/runtime/jsonl.py
-:42-52, 265-306, 326-360, 552-621): one compact JSON object per line, the
+:42-52, 265-400, 552-621): one compact JSON object per line, the
 reference's field names (ga.cpp:169-257, 469-470, 604-607).
 
   {"logEntry":{"procID":i,"threadID":0,"best":b,"time":s}}
@@ -10,8 +10,12 @@ reference's field names (ga.cpp:169-257, 469-470, 604-607).
   {"phase":{"name":n,"trial":k,"seconds":s,...}}   under --trace only
   {"faultEntry":{"site":...,"action":...,"error":...,"trial":k,
                  "recovery":r,"level":l,"time":s,...}}   always
+  {"jobEntry":{"job":id,"event":e,...}}     the serve path's lifecycle
+  {"metricsEntry":{"counters":...,"gauges":...,"histograms":...}}
+                                            a serve `stats` request
 
-`best` is scv when feasible, else hcv*1e6+scv. threadID is 0: an
+On the serve path logEntry, solution and runEntry carry the job's id as
+`job`. `best` is scv when feasible, else hcv*1e6+scv. threadID is 0: an
 island's breeding is one batched launch with no thread identity.
 Writes are synchronous.
 """
@@ -34,20 +38,24 @@ def reported_best(hcv: int, scv: int) -> int:
 
 
 def log_entry(stream: IO, proc_id: int, thread_id: int, best: int,
-              time_s: float) -> dict:
+              time_s: float, job: Optional[str] = None) -> dict:
     rec = {
         "procID": proc_id,
         "threadID": thread_id,
         "best": int(best),
         "time": max(0.0, float(time_s)),
     }
+    if job is not None:
+        # the serve path: one shared stream, demultiplexed by job id
+        rec["job"] = str(job)
     return _write(stream, {"logEntry": rec})
 
 
 def solution_record(stream: IO, proc_id: int, thread_id: int,
                     total_time: float, total_best: int, feasible: bool,
                     timeslots: Optional[List[int]] = None,
-                    rooms: Optional[List[int]] = None) -> dict:
+                    rooms: Optional[List[int]] = None,
+                    job: Optional[str] = None) -> dict:
     rec = {
         "procID": proc_id,
         "threadID": thread_id,
@@ -58,7 +66,30 @@ def solution_record(stream: IO, proc_id: int, thread_id: int,
     if feasible:
         rec["timeslots"] = [int(x) for x in timeslots]
         rec["rooms"] = [int(x) for x in rooms]
+    if job is not None:
+        rec["job"] = str(job)
     return _write(stream, {"solution": rec})
+
+
+def job_entry(stream: IO, job: str, event: str, **extra) -> dict:
+    """The serve path's lifecycle record (JAX jsonl.py:308): one line per
+    job transition — admitted, rejected, started, done, failed,
+    cancelled — with its context in `extra` (bucket, generation counts,
+    a rejection's reason). No wall-clock field: strip_timing keeps it."""
+    rec = {"job": str(job), "event": str(event)}
+    for k, v in extra.items():
+        rec[k] = v
+    return _write(stream, {"jobEntry": rec})
+
+
+def metrics_entry(stream: IO, snapshot: dict, ts=None) -> None:
+    """One metrics-registry snapshot (obs/metrics.py
+    MetricsRegistry.snapshot; JAX jsonl.py:386), `ts` optional. A
+    TIMING_RECORDS member."""
+    rec = dict(snapshot)
+    if ts is not None:
+        rec["ts"] = round(max(0.0, float(ts)), 6)
+    _write(stream, {"metricsEntry": rec})
 
 
 def phase_record(stream: IO, name: str, trial: int, seconds: float,
@@ -116,10 +147,13 @@ def strip_timing(records: List[dict]) -> List[dict]:
 def run_entry(stream: IO, total_best: int, feasible: bool,
               procs_num: Optional[int] = None,
               threads_num: Optional[int] = None,
-              total_time: Optional[float] = None) -> dict:
+              total_time: Optional[float] = None,
+              job: Optional[str] = None) -> dict:
     rec = {"totalBest": int(total_best), "feasible": bool(feasible)}
     if procs_num is not None:
         rec["procsNum"] = int(procs_num)
         rec["threadsNum"] = int(threads_num)
         rec["totalTime"] = float(total_time)
+    if job is not None:
+        rec["job"] = str(job)
     return _write(stream, {"runEntry": rec})

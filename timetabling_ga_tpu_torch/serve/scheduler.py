@@ -1,0 +1,377 @@
+"""The serve scheduler: pack, time-slice, park, resume (port of
+timetabling_ga_tpu/serve/scheduler.py:104-1130 on one card).
+
+  PACKING   runnable jobs are grouped by bucket key (serve/bucket.py):
+            same-bucket jobs share every shape, so up to `lanes` of them
+            ride one dispatch, a lane each (problem.LaneProblems: each
+            job's padded problem stays its own tensors, placed once at
+            `prepare`; a pack builds the lane table K6 and K8's chain
+            read, and rebuilds it only when the pack changes).
+
+  SLICING   a dispatch runs min(quantum, remaining) generations a lane
+            (islands.lane_run; a lane whose count is reached drops out
+            of the launches). Between dispatches is the control fence:
+            cancellations, deadlines and new jobs take effect there.
+
+  PARKING   a job's population between quanta is a host snapshot
+            (dispatch_core.fetch_state), placed back with
+            dispatch_core.place_state at its next slice.
+
+  RESIDENCY while a group's lanes are unchanged between consecutive
+            quanta (same bucket, same jobs in the same order) its state
+            stays on the card and only the trace is fetched. Residency
+            starts at the second consecutive quantum of an unchanged
+            pack — every member must have parked to the host once (JAX's
+            `job.ship is not None`) — and ends on a repack, a finishing
+            job, a deadline or an idle fence, each of which parks the
+            group (a flush). While resident a job's snapshot is its last
+            host fence's: a deadline flushes the group before it
+            finalizes the job. --no-resident parks every quantum; the
+            record stream is the same either way.
+
+  FAIRNESS  buckets are served round-robin; within one, jobs go in
+            (priority desc, generations served asc, arrival) order.
+
+Randomness: lane l of a dispatch runs its job's chunk c from
+islands.lane_generator(seed, c), and its init from the job's init
+generator: a job's records are the same alone or packed with any
+co-tenants, resident or not, across repacks.
+
+One card: the dispatch is as wide as pad_lanes(cfg.lanes) (the
+`serve.lanes` gauge), a stacked state of that many lanes is placed and
+parked as JAX's is (so `serve.resume_bytes` and `serve.park_bytes` count
+what JAX's do on the same schedule), but only occupied lanes run: the
+port has no compile cache keyed on the width, so JAX's zero-generation
+filler lanes would be idle work. An exception in a quantum propagates:
+JAX's quantum recovery (`_recover_quantum`) and load shedding wait for
+the dispatch pipeline's fault handling (A16).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+from timetabling_ga_tpu_torch.ops import ga
+from timetabling_ga_tpu_torch.parallel import islands
+from timetabling_ga_tpu_torch.problem import LaneProblems
+from timetabling_ga_tpu_torch.runtime import dispatch_core as dcore
+from timetabling_ga_tpu_torch.runtime import jsonl
+from timetabling_ga_tpu_torch.runtime.config import ServeConfig
+from timetabling_ga_tpu_torch.serve import bucket as bucket_mod
+from timetabling_ga_tpu_torch.serve.queue import (
+    DEFAULT_TENANT, Job, JobQueue, JobState)
+
+INT_MAX = 2 ** 31 - 1
+
+
+def _stack_states(snaps, pop: int, n_lanes: int, n_events: int
+                  ) -> ga.PopState:
+    """Per-job host snapshots, then filler lanes (zero rows, INT_MAX
+    scores) up to `n_lanes`, as one (n_lanes * pop, E) host state."""
+    parts = list(snaps)
+    for _ in range(n_lanes - len(parts)):
+        parts.append(ga.PopState(
+            np.zeros((pop, n_events), np.int32),
+            np.zeros((pop, n_events), np.int32),
+            *(np.full((pop,), INT_MAX, np.int32) for _ in range(3))))
+    return ga.PopState(*(np.concatenate([p[i] for p in parts])
+                         for i in range(len(ga.PopState._fields))))
+
+
+def _slice_state(host: ga.PopState, lane: int, pop: int) -> ga.PopState:
+    """One lane's rows of a stacked host state, copied."""
+    lo, hi = lane * pop, (lane + 1) * pop
+    return ga.PopState(*(np.array(x[lo:hi]) for x in host))
+
+
+def serve_ga_config(cfg: ServeConfig) -> ga.GAConfig:
+    """The serve generation (JAX scheduler.py:201-204): the default
+    GAConfig — the random-candidate delta search, no sweep, no
+    migration — at the service's pop size, with maxSteps // candidates
+    rounds of cfg.ls_candidates candidates."""
+    return ga.GAConfig(pop_size=cfg.pop_size,
+                       ls_steps=max(1, cfg.max_steps // cfg.ls_candidates),
+                       ls_candidates=cfg.ls_candidates)
+
+
+class Scheduler:
+    """Drives a JobQueue through the lane runner on `device`."""
+
+    def __init__(self, cfg: ServeConfig, queue: JobQueue, out, device,
+                 now=None, registry=None):
+        self.cfg = cfg
+        self.queue = queue
+        self.out = out
+        self.device = device
+        self._now = now or time.monotonic
+        self._metrics = REGISTRY if registry is None else registry
+        self._metrics.gauge_fn("serve.queue_depth",
+                               lambda: len(queue.active()))
+        self._metrics.gauge("serve.backlog").set(cfg.backlog)
+        self.spec = bucket_mod.BucketSpec(
+            event_floor=cfg.bucket_events, room_floor=cfg.bucket_rooms,
+            feature_floor=cfg.bucket_features,
+            student_floor=cfg.bucket_students, ratio=cfg.bucket_ratio)
+        self.lanes = islands.pad_lanes(cfg.lanes)
+        self._metrics.gauge("serve.mesh_devices").set(1)
+        self._metrics.gauge("serve.lanes").set(self.lanes)
+        # bucket key -> {"jids": lane-ordered job ids, "state": the
+        # group's PopState on the card}
+        self._resident: dict = {}
+        self._metrics.gauge_fn("serve.resident_groups",
+                               lambda: len(self._resident))
+        self._metrics.gauge_fn("serve.resident_bytes",
+                               lambda: float(self._resident_bytes()))
+        # bucket key -> (lane-ordered job ids, their LaneProblems)
+        self._packs: dict = {}
+        self.gacfg = serve_ga_config(cfg)
+        self._rr = 0               # round-robin cursor over buckets
+
+    # -- admission ------------------------------------------------------
+
+    def prepare(self, job: Job) -> None:
+        """Pad the instance to its bucket and place the padded problem
+        on the card, once for the job's life. Called before the queue
+        takes the job: an instance that fails here leaves no trace."""
+        job.padded = bucket_mod.pad_problem(job.problem, self.spec)
+        job.bucket = bucket_mod.bucket_key(job.problem, self.spec)
+        job.pa_dev = job.padded.device_arrays(self.device)
+
+    def admit(self, job: Job) -> None:
+        """Record the admission (after queue.submit succeeds)."""
+        extra = {}
+        if job.tenant != DEFAULT_TENANT:
+            extra["tenant"] = job.tenant
+        jsonl.job_entry(self.out, job.id, "admitted",
+                        bucket=list(job.bucket),
+                        generations=job.generations,
+                        priority=job.priority, **extra)
+        self._metrics.counter("serve.jobs_admitted").inc()
+
+    # -- one dispatch cycle ---------------------------------------------
+
+    def _reap(self) -> None:
+        """Deadline pass at the control fence: a job past its deadline
+        finalizes with its best so far (failed, if it never got a
+        slice)."""
+        now = self._now()
+        for job in self.queue.active():
+            if (job.deadline_s is not None
+                    and now - job.submitted_t > job.deadline_s):
+                if job.snapshot is not None:
+                    # a resident job's snapshot is its last host fence's:
+                    # park its group first
+                    self._flush_job(job)
+                    self._finalize(job, deadline_hit=True)
+                else:
+                    job.state = JobState.FAILED
+                    job.finished_t = now
+                    job.error = "deadline before first slice"
+                    jsonl.job_entry(self.out, job.id, "failed",
+                                    reason="deadline", gens=0)
+                    self._metrics.counter("serve.jobs_failed").inc()
+
+    def _buckets_ready(self) -> list:
+        seen: list = []
+        for job in self.queue.ready():
+            if job.bucket not in seen:
+                seen.append(job.bucket)
+        return seen
+
+    def step(self) -> bool:
+        """One dispatch for the next bucket group (round-robin). Returns
+        True while any runnable job remains."""
+        self._reap()
+        buckets = self._buckets_ready()
+        if not buckets:
+            if self._resident:
+                # nothing runnable, but a group's state is still on the
+                # card (its jobs went terminal between fences)
+                self.flush_resident()
+            return False
+        bkey = buckets[self._rr % len(buckets)]
+        self._rr += 1
+        jobs = self.queue.ready(bkey)[:self.cfg.lanes]
+        fresh = [j for j in jobs if j.snapshot is None]
+        if fresh:
+            self._init_jobs(fresh)
+        for job in jobs:
+            job.state = JobState.RUNNING
+        gens = [min(self.cfg.quantum, job.remaining()) for job in jobs]
+        self._metrics.counter("serve.dispatches").inc()
+        self._cycle(jobs, gens)
+        self._metrics.counter("serve.gens").inc(sum(gens))
+        return bool(self.queue.ready())
+
+    def _lane_problems(self, bkey, jobs) -> LaneProblems:
+        """The pack's LaneProblems: its jobs' problems, then the first
+        job's as filler up to the dispatch width (filler lanes never
+        run); built again only when the pack changes."""
+        jids = tuple(j.id for j in jobs)
+        cached = self._packs.get(bkey)
+        if cached is None or cached[0] != jids:
+            pas = [j.pa_dev for j in jobs]
+            cached = (jids, LaneProblems(
+                pas + [pas[0]] * (self.lanes - len(pas))))
+            self._packs[bkey] = cached
+        return cached[1]
+
+    def _cycle(self, jobs, gens) -> None:
+        """Resume (or keep resident), one quantum, park (or stay)."""
+        pop = self.cfg.pop_size
+        bkey = jobs[0].bucket
+        jids = tuple(j.id for j in jobs)
+        entry = self._resident.get(bkey)
+        if entry is not None and (entry["jids"] != jids
+                                  or not self.cfg.resident):
+            # the lanes changed: park the old group first, so this pack
+            # resumes every member from a fresh snapshot
+            self._flush_bucket(bkey)
+            entry = None
+        if entry is not None:
+            state = entry["state"]
+            self._metrics.counter("serve.resident_hits").inc()
+        else:
+            host0 = _stack_states([j.snapshot for j in jobs], pop,
+                                  self.lanes, jobs[0].padded.n_events)
+            state = dcore.place_state(host0, self.device)
+            self._metrics.counter("serve.resume_bytes").inc(
+                dcore.state_nbytes(host0))
+            entry = {"jids": jids, "state": None}
+        lp = self._lane_problems(bkey, jobs)
+        idle = self.lanes - len(jobs)
+        rngs = [islands.lane_generator(self.device, j.seed, j.chunks)
+                for j in jobs] + [None] * idle
+        t0 = self._now()
+        state, trace = islands.lane_run(lp, rngs, state, gens + [0] * idle,
+                                        self.gacfg, self.cfg.quantum)
+        trace = dcore.fetch_leaf(trace)
+        self._metrics.counter("serve.quantum_seconds").inc(
+            self._now() - t0)
+        # stay on the card only when every member has parked once and
+        # none finishes in this quantum
+        stay = (self.cfg.resident
+                and all(j.parked_once for j in jobs)
+                and not any(g >= j.remaining() for g, j in zip(gens, jobs)))
+        if stay:
+            entry["state"] = state
+            self._resident[bkey] = entry
+            host = None
+        else:
+            host = dcore.fetch_state(state)
+            self._resident.pop(bkey, None)
+            self._metrics.counter("serve.park_bytes").inc(
+                dcore.state_nbytes(host))
+        events, _, _ = islands.trace_events(trace, "full")
+        now = self._now()
+        for lane, job in enumerate(jobs):
+            if host is not None:
+                job.snapshot = _slice_state(host, lane, pop)
+                job.parked_once = True
+            job.chunks += 1
+            job.gens_done += gens[lane]
+            for _g, h, s in events[lane]:
+                rep = jsonl.reported_best(h, s)
+                job.best = min(job.best, rep)
+                if rep < job.emitted:
+                    job.emitted = rep
+                    jsonl.log_entry(self.out, 0, 0, rep,
+                                    now - job.submitted_t, job=job.id)
+            job.state = JobState.PARKED
+            if job.remaining() == 0:
+                self._finalize(job)
+
+    # -- residency flushes ----------------------------------------------
+
+    def _flush_bucket(self, bkey) -> None:
+        """Park one resident group to the host: its live members'
+        snapshots are refreshed and the card's copy dropped."""
+        entry = self._resident.pop(bkey, None)
+        if entry is None:
+            return
+        live = [(lane, self.queue.get(jid))
+                for lane, jid in enumerate(entry["jids"])
+                if jid in self.queue]
+        live = [(lane, job) for lane, job in live
+                if job.state not in JobState.TERMINAL]
+        if not live:
+            return
+        host = dcore.fetch_state(entry["state"])
+        self._metrics.counter("serve.park_bytes").inc(
+            dcore.state_nbytes(host))
+        for lane, job in live:
+            job.snapshot = _slice_state(host, lane, self.cfg.pop_size)
+            job.parked_once = True
+        self._metrics.counter("serve.resident_flushes").inc()
+
+    def _flush_job(self, job: Job) -> None:
+        """Park the resident group holding `job`, if any."""
+        entry = self._resident.get(job.bucket)
+        if entry is not None and job.id in entry["jids"]:
+            self._flush_bucket(job.bucket)
+
+    def flush_resident(self) -> None:
+        """Park every resident group now."""
+        for bkey in list(self._resident):
+            self._flush_bucket(bkey)
+
+    def _resident_bytes(self) -> int:
+        return sum(dcore.state_nbytes(g.get("state"))
+                   for g in list(self._resident.values()))
+
+    def drive(self) -> None:
+        """Run dispatches until no runnable job remains."""
+        while self.step():
+            pass
+
+    # -- job endpoints --------------------------------------------------
+
+    def _init_jobs(self, jobs) -> None:
+        """First slices. JAX initialises a pack's fresh jobs in one lane
+        program; here each initialises on its own problem, from its own
+        init generator, through the single-problem K1 assign_rooms and K2
+        batch_penalty entries (islands.lane_init): one launch pair a job,
+        once in its life, and no lane form of K1 or K2 is needed."""
+        for job in jobs:
+            job.snapshot = dcore.fetch_state(islands.lane_init(
+                job.pa_dev, job.seed, self.cfg.pop_size))
+        for job in jobs:
+            jsonl.job_entry(self.out, job.id, "started",
+                            bucket=list(job.bucket))
+
+    def _finalize(self, job: Job, deadline_hit: bool = False) -> None:
+        """The job's endTry records from its snapshot (row 0 is the
+        lane's lex-best individual), the padded events dropped; DONE."""
+        snap = job.snapshot
+        hcv, scv = int(snap.hcv[0]), int(snap.scv[0])
+        job.best = min(job.best, jsonl.reported_best(hcv, scv))
+        feasible = hcv == 0
+        total_time = self._now() - job.submitted_t
+        slots, rooms = bucket_mod.extract_solution(
+            snap.slots[0], snap.rooms[0], job.padded)
+        jsonl.solution_record(
+            self.out, 0, 0, total_time, job.best, feasible,
+            timeslots=slots.tolist() if feasible else None,
+            rooms=rooms.tolist() if feasible else None, job=job.id)
+        jsonl.run_entry(self.out, job.best, feasible, job=job.id)
+        jsonl.run_entry(self.out, job.best, feasible, procs_num=1,
+                        threads_num=1, total_time=total_time, job=job.id)
+        jsonl.job_entry(self.out, job.id, "done", gens=job.gens_done,
+                        best=job.best, feasible=feasible,
+                        deadline_hit=deadline_hit)
+        job.state = JobState.DONE
+        job.finished_t = self._now()
+        self._metrics.counter("serve.jobs_done").inc()
+        self._metrics.histogram("serve.job_seconds").observe(
+            total_time, exemplar={"job": job.id})
+        # JAX's result without its usage keys (--no-usage); resumed_at
+        # stays 0: the port has no warm starts
+        job.result = {"best": job.best, "feasible": feasible,
+                      "hcv": hcv, "scv": scv, "gens": job.gens_done,
+                      "deadline_hit": deadline_hit, "resumed_at": 0,
+                      "timeslots": slots.tolist(),
+                      "rooms": rooms.tolist()}
+        job.snapshot = None

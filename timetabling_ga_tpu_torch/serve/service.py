@@ -1,0 +1,224 @@
+"""The service frontend: Python API + line-JSON protocol (port of
+timetabling_ga_tpu/serve/service.py:64-459).
+
+Python API:
+
+    from timetabling_ga_tpu_torch.runtime.config import ServeConfig
+    from timetabling_ga_tpu_torch.serve.service import SolveService
+
+    svc = SolveService(ServeConfig(backend="cpu"), out=stream)
+    jid = svc.submit(problem, generations=100, priority=5)
+    svc.drive()                       # run until every job settles
+    svc.result(jid)                   # {"best": ..., "feasible": ...}
+    svc.close()
+
+Line-JSON protocol (`python -m timetabling_ga_tpu_torch serve`): one
+request object per input line, one record per output line — the
+engine's JSONL protocol with each record tagged `"job"`, plus the
+`jobEntry` lifecycle records:
+
+    {"submit": {"id": "j1", "instance": "comp01.tim", "priority": 5,
+                "seed": 42, "generations": 200, "deadline": 30.0,
+                "tenant": "acme"}}
+    {"submit": {"id": "j2", "tim": "4 2 2 5\\n..."}}   inline instance
+    {"cancel": "j1"}
+    {"stats": true}                    metricsEntry snapshot
+    {"drain": true}                    run everything admitted so far
+
+Requests are processed in order; `drain` (and the end of the input)
+hands the queue to the scheduler. A malformed request or a rejected
+submission emits a jobEntry (event "rejected") and the stream goes on.
+A submit with `snapshot` (warm starts) or `edit` (incremental
+re-solves), and `{"stats": "prometheus"}`, are not ported yet: each
+gets a rejected jobEntry saying so. Records are written in line on the
+drive loop (JAX's writer thread waits for the dispatch pipeline, A16);
+the stream is the same.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+from timetabling_ga_tpu_torch.problem import load_tim, load_tim_file
+from timetabling_ga_tpu_torch.runtime import jsonl
+from timetabling_ga_tpu_torch.runtime.config import (
+    ServeConfig, not_ported, parse_serve_args)
+from timetabling_ga_tpu_torch.serve.queue import Job, JobQueue, tenant_label
+from timetabling_ga_tpu_torch.serve.scheduler import Scheduler
+
+# submit fields and stats forms the port does not serve yet
+_SUBMIT_NOT_PORTED = {"snapshot": "a submit's snapshot (warm start)",
+                      "edit": "a submit's edit (incremental re-solve)"}
+
+
+def _not_ported_reason(what: str) -> str:
+    return str(not_ported(what))
+
+
+class SolveService:
+    """Owns the queue, the scheduler and the job-tagged record stream.
+    Runs on the card unless cfg.backend is "cpu"."""
+
+    def __init__(self, cfg: ServeConfig, out=None, now=None,
+                 registry=None):
+        import torch
+        from timetabling_ga_tpu_torch import kernels
+        from timetabling_ga_tpu_torch.runtime.engine import resolve_device
+        self.cfg = cfg
+        self.device = resolve_device(cfg.backend)
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            kernels.build()
+        self._registry = REGISTRY if registry is None else registry
+        self._close_out = False
+        if out is None:
+            if cfg.output:
+                out = open(cfg.output, "w")
+                self._close_out = True
+            else:
+                out = sys.stdout
+        self.out = out
+        self.queue = JobQueue(cfg.backlog, now=now)
+        self.scheduler = Scheduler(cfg, self.queue, out, self.device,
+                                   now=now, registry=self._registry)
+        self._auto_id = 0
+
+    @property
+    def registry(self):
+        return self._registry
+
+    def submit(self, problem, job_id=None, priority: int = 0, seed=None,
+               generations=None, deadline_s=None, tenant=None) -> str:
+        """Admit one job; returns its id. Raises AdmissionError when the
+        backlog is full or the id is taken; an instance that cannot be
+        padded or placed raises before the queue takes the job."""
+        if job_id is None:
+            self._auto_id += 1
+            job_id = f"job-{self._auto_id}"
+        job = Job(id=str(job_id), problem=problem, priority=int(priority),
+                  seed=int(self.cfg.seed if seed is None else seed),
+                  generations=int(self.cfg.generations
+                                  if generations is None else generations),
+                  deadline_s=deadline_s, tenant=tenant_label(tenant))
+        self.scheduler.prepare(job)
+        self.queue.submit(job)
+        self.scheduler.admit(job)
+        return job.id
+
+    def cancel(self, job_id: str) -> bool:
+        ok = self.queue.cancel(job_id)
+        if ok:
+            jsonl.job_entry(self.out, job_id, "cancelled")
+        return ok
+
+    def drive(self) -> None:
+        """Run dispatches until every admitted job settles."""
+        self.scheduler.drive()
+
+    def step(self) -> bool:
+        """One dispatch cycle (for callers interleaving submissions)."""
+        return self.scheduler.step()
+
+    def result(self, job_id: str):
+        return self.queue.get(job_id).result
+
+    def state(self, job_id: str) -> str:
+        return self.queue.get(job_id).state
+
+    def stats(self) -> dict:
+        """Live metrics-registry snapshot (the metricsEntry payload)."""
+        return self._registry.snapshot()
+
+    def emit_stats(self) -> None:
+        """Answer a `stats` request: one metricsEntry."""
+        jsonl.metrics_entry(self.out, self.stats())
+
+    def close(self) -> None:
+        # the registry must not keep closures over this service's queue
+        # and scheduler alive
+        for name in ("serve.queue_depth", "serve.resident_groups",
+                     "serve.resident_bytes"):
+            self._registry.freeze(name, 0.0)
+        if self._close_out:
+            self.out.close()
+
+
+def _load_submit_problem(req: dict):
+    if "tim" in req:
+        return load_tim(req["tim"])
+    return load_tim_file(req["instance"])
+
+
+def serve_stream(cfg: ServeConfig, in_stream, out_stream=None, now=None,
+                 registry=None) -> SolveService:
+    """Run the line-JSON protocol over `in_stream` to completion. Returns
+    the (closed) service so callers can inspect results. A bad request
+    is reported on the record stream and skipped."""
+    svc = SolveService(cfg, out=out_stream, now=now, registry=registry)
+    try:
+        for line in in_stream:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                req = json.loads(line)
+            except ValueError as e:
+                jsonl.job_entry(svc.out, "?", "rejected",
+                                reason=f"bad request: {e}")
+                continue
+            if "submit" in req:
+                sub = req["submit"]
+                unported = [w for k, w in _SUBMIT_NOT_PORTED.items()
+                            if k in sub]
+                if unported:
+                    jsonl.job_entry(svc.out, str(sub.get("id", "?")),
+                                    "rejected", reason=_not_ported_reason(
+                                        unported[0]))
+                    continue
+                try:
+                    svc.submit(_load_submit_problem(sub),
+                               job_id=sub.get("id"),
+                               priority=sub.get("priority", 0),
+                               seed=sub.get("seed"),
+                               generations=sub.get("generations"),
+                               deadline_s=sub.get("deadline"),
+                               tenant=sub.get("tenant"))
+                except Exception as e:
+                    # one bad tenant must not take down the service: any
+                    # submit-side failure is a rejection record, and
+                    # submit() leaves no partial state behind
+                    jsonl.job_entry(svc.out, str(sub.get("id", "?")),
+                                    "rejected", reason=str(e)[:200])
+            elif "cancel" in req:
+                svc.cancel(str(req["cancel"]))
+            elif "stats" in req:
+                if req["stats"] == "prometheus":
+                    jsonl.job_entry(svc.out, "?", "rejected",
+                                    reason=_not_ported_reason(
+                                        '{"stats": "prometheus"}'))
+                else:
+                    svc.emit_stats()
+            elif "drain" in req:
+                svc.drive()
+            else:
+                jsonl.job_entry(svc.out, "?", "rejected",
+                                reason=f"unknown request "
+                                       f"{sorted(req)[:3]}")
+        svc.drive()
+    finally:
+        svc.close()
+    return svc
+
+
+def main_serve(argv) -> int:
+    """The `serve` subcommand (cli.py dispatches here)."""
+    cfg = parse_serve_args(argv)
+    if cfg.input:
+        with open(cfg.input, "r") as fh:
+            serve_stream(cfg, fh)
+    else:
+        serve_stream(cfg, sys.stdin)
+    return 0
