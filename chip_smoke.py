@@ -262,6 +262,14 @@ KERNELS = {
     "random_ls_lanes": ("timetabling_ga_tpu_torch/csrc/random_ls.cu",
                         "timetabling_ga_tpu/parallel/islands.py:1115",
                         "serve"),
+    # K13 and K14's lane forms: the rest of B13 (serve --trace-mode
+    # deltas|stats, serve --quality)
+    "compress_trace_lanes": ("timetabling_ga_tpu_torch/csrc/trace_compress.cu",
+                             "timetabling_ga_tpu/parallel/islands.py:1195",
+                             "serve-stats"),
+    "div_stats_lanes": ("timetabling_ga_tpu_torch/csrc/quality.cu",
+                        "timetabling_ga_tpu/parallel/islands.py:1200",
+                        "serve-quality"),
 }
 # entry points whose body runs inside another kernel on the paths and
 # whose own launch is the unit check of that body (0 launches on a path)
@@ -281,36 +289,58 @@ K13 = ("compress_trace", "moment_rows")
 K14 = ("quality_ops", "div_stats")
 K8 = ("random_ls_events", "random_ls")
 LS = K8 + ("full_eval_ls",)
-# the lane-table forms run only on the serve path
+# the lane forms run only on the serve path: K6 and K8's chain with a
+# lane table every dispatch, K13's and K14's under its trace modes and
+# --quality
 LANES = ("breed_lanes", "random_ls_lanes")
+LANE_TRACE = ("compress_trace_lanes", "div_stats_lanes")
 PATH_KERNELS = {
     "main": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
              ("move1_sweep", "delta_one") + LS + SEARCH_MODES + K13 + K14
-             + LANES),
+             + LANES + LANE_TRACE),
     "reference": (("breed", "survivors") + K8,
                   ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass", "full_eval_ls")
-                  + SEARCH_MODES + K13 + K14 + LANES),
+                  + SEARCH_MODES + K13 + K14 + LANES + LANE_TRACE),
     "full-eval": (("breed", "survivors", "random_ls_events",
                    "full_eval_ls"), ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass", "random_ls")
-                  + SEARCH_MODES + K13 + K14 + LANES),
+                  + SEARCH_MODES + K13 + K14 + LANES + LANE_TRACE),
     # comp01s is feasible inside the initial polish, so the LAHC walkers
     # take the whole budget after it
     "lahc": ((), ("assign_rooms", "sweep_pass", "batch_penalty", "lahc"),
              ("move1_sweep", "delta_one") + LS
              + ("nsga_rank", "nsga_survivors", "parallel_rooms") + K13
-             + K14 + LANES),
+             + K14 + LANES + LANE_TRACE),
     "nsga": (("breed", "nsga_rank", "nsga_survivors", "batch_penalty"),
              ("assign_rooms", "sweep_pass"),
              ("move1_sweep", "delta_one") + LS + ("lahc", "parallel_rooms")
-             + K13 + K14 + LANES),
+             + K13 + K14 + LANES + LANE_TRACE),
 }
 # the serve path: its lanes' kernels every dispatch, K1 and K2 once a
 # started job (each job's init), and none of the engine paths' others
 SERVE_NEVER = (("breed", "random_ls", "relocate", "move1_sweep",
                 "delta_one", "sweep_pass", "migrate", "full_eval_ls")
-               + SEARCH_MODES + K13 + K14)
+               + SEARCH_MODES + K13 + K14 + LANE_TRACE)
+# the serve path's telemetry legs: SERVE_JOBS again under each, its
+# stream equal to the full run's; which of K13's and K14's lane forms
+# (and K14's quality_ops) each launches
+SERVE_LEGS = {"deltas": ["--trace-mode", "deltas"],
+              "stats": ["--trace-mode", "stats"],
+              "quality": ["--quality"],
+              "quality-stats": ["--quality", "--trace-mode", "stats"]}
+# the warm start: s1 shipped at its first host fence after this many
+# generations and resumed from the wire
+SERVE_SHIP_AT = 100
+# the edit leg: an edit of comp01s (one event removed, one added) at
+# w_anchor 1 from the finished s1's wire, and a cross-bucket edit (144
+# events removed: comp01s's 400 fall into the 256-event bucket), which
+# demotes
+EDIT_GENS = 50
+EDIT_OPS = [{"op": "remove_event", "event": 7},
+            {"op": "add_event", "students": [0, 5, 17, 42],
+             "features": [1]}]
+EDIT_CROSS_OPS = [{"op": "remove_event", "event": 0}] * 144
 # the serve path's requests: the service's defaults (4 lanes, pop 16,
 # quantum 25, -m 32, 8 candidates); s1-s4 and s6 share comp01s's
 # bucket (512, 16, 16, 256, 5, 9), s5 (comp05s) is the second bucket
@@ -337,6 +367,16 @@ K13_L = (1, 4, 16)
 K13_T = (1, 8, 33, 64, 200, 1000)
 K13_CAPS = (1, 3, 64, 5000)
 K13_TIMED = {"compress_trace": (1, 100), "moment_rows": (1, 16)}
+# K13 and K14's lane forms: the grid (lanes x quantum lengths, each with
+# an idle lane, a lane at the quantum and lanes between), and the serve
+# path's shape they are timed at: the lane phase's four lanes of
+# comp01s's bucket (E = 512 padded; 400, 400, 360 and 300 live events),
+# a quantum of 25 generations, pop 16 a lane, an idle lane
+K13_LANE_L = (1, 4, 16)
+K13_LANE_T = (1, 8, 25, 33, 200)
+LANE_TRACE_T = 25
+LANE_COUNTS = (25, 0, 13, 25)
+K14_LANE_POP = (1, 2, 3, 16, 33)
 # the resume path: the reference config on comp01s, 300 generations
 # checkpointed every epoch in stats mode, resumed to 600, against 600
 # uninterrupted in full mode; then the tuned main path for -t 15 with a
@@ -2210,13 +2250,27 @@ def cut_problem(problem, n_events):
                   problem.event_features[:n_events])
 
 
-def lane_problems(problem, dev):
+def lane_problems(problem, dev, anchored=False):
     """The lane phase's four mixed lanes (LANE_POP's comment), padded
-    into comp01s's bucket, as a LaneProblems on `dev`."""
+    into comp01s's bucket, as a LaneProblems on `dev`; with `anchored`,
+    the first three carry an edit's anchor (random slots, weights 1-3 on
+    every event but each eighth, which is new: weight 0) and the fourth
+    none."""
+    import dataclasses
+    import numpy as np
     from timetabling_ga_tpu_torch.problem import LaneProblems
     from timetabling_ga_tpu_torch.serve import bucket
     itc = itc_problem()
     lanes = [problem, itc, cut_problem(problem, 360), cut_problem(itc, 300)]
+    if anchored:
+        g = np.random.default_rng(8000)
+        for i in range(3):
+            E = lanes[i].n_events
+            w = g.integers(1, 4, E).astype(np.int32)
+            w[::8] = 0
+            lanes[i] = dataclasses.replace(
+                lanes[i], anchor_w=w, anchor_slots=g.integers(
+                    0, lanes[i].n_slots, E).astype(np.int32))
     keys = {bucket.bucket_key(p) for p in lanes}
     check(keys == {(512, 16, 16, 256, 5, 9)},
           f"lane phase: the lanes are not in comp01s's bucket: {keys}")
@@ -2310,6 +2364,7 @@ def compare_lane_kernels(problem, dev):
         check(all(torch.equal(w, x[r]) for w, x in zip(full, got[2:])),
               f"random_ls_lanes lane {lane}: the epilogue's terms are not "
               f"batch_penalty_plain of its rows on its problem")
+    compare_anchored_lanes(problem, dev, cfg, g)
     one = lp.first
     calls = {
         "breed_lanes": (
@@ -2334,6 +2389,226 @@ def compare_lane_kernels(problem, dev):
             device_us_without_table=device_us_per_launch(no_table, kname),
             bound_ms=b, bound_by=by, library_ms=None)
     return out
+
+
+def compare_anchored_lanes(problem, dev, cfg, g):
+    """K6 and K8's chain with a lane table whose lanes carry an edit's
+    anchor (three anchored lanes and a plain one, as an edit job packs
+    with other jobs) against their lane-looped plain versions, exactly,
+    and the chain's terms against batch_penalty_plain on each lane's
+    anchored problem."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import delta, fitness, ga
+    lp = lane_problems(problem, dev, anchored=True)
+    check([pa.anchored for pa in lp.pas] == [True, True, True, False],
+          "anchored lanes: the anchors did not reach the lane table")
+    L, pop = len(lp), LANE_POP
+    par = ga.PopState(*(torch.cat(x) for x in zip(*(
+        ga.evaluate(pa, torch.randint(0, pa.n_slots, (pop, lp.n_events),
+                                      generator=g, device=dev,
+                                      dtype=torch.int32),
+                    torch.randint(0, pa.n_rooms, (pop, lp.n_events),
+                                  generator=g, device=dev,
+                                  dtype=torch.int32))
+        for pa in lp.pas))))
+    draws = ga.make_breed_draws([g] * L, pop, lp.n_events, lp.n_slots, cfg,
+                                dev)
+    got = ga.make_children_kernel(lp, draws, par, L)
+    want = ga.make_children_lanes_plain(lp, draws, par, cfg)
+    torch.cuda.synchronize()
+    check(all(torch.equal(w, x) for w, x in zip(want, got)),
+          "breed_lanes (anchored lanes): kernel differs from its plain "
+          "version")
+    ls = delta.make_ls_draws([g], L * pop, cfg.ls_steps, cfg.ls_candidates,
+                             lp.n_events, lp.n_slots, cfg.p1, cfg.p2,
+                             cfg.p3, dev)
+    events = delta.random_ls_events_kernel(ls)
+    rows = delta.random_ls_chain(lp, ls, got, events)
+    want = delta.random_ls_lanes_plain(lp, ls, got)
+    torch.cuda.synchronize()
+    check(all(torch.equal(w, x) for w, x in zip(want, rows)),
+          "random_ls_lanes (anchored lanes): kernel differs from its plain "
+          "version")
+    for lane, pa in enumerate(lp.pas):
+        r = slice(lane * pop, (lane + 1) * pop)
+        full = fitness.batch_penalty_plain(pa, rows.slots[r], rows.rooms[r])
+        check(all(torch.equal(w, x[r]) for w, x in zip(full, rows[2:])),
+              f"random_ls_lanes anchored lane {lane}: its terms are not "
+              f"batch_penalty_plain of its rows")
+
+
+def k13_lanes_equal(trace, mode, nv, cap, what):
+    """compress_trace's lane form against its plain version: events and
+    counts exactly; the moments of each lane's first nv[l] rows within
+    the stated tolerance, an idle lane's (0, 0, +inf, -inf) exactly.
+    Returns (plain leaf, max abs err over the finite moments)."""
+    import numpy as np
+    import torch
+    from timetabling_ga_tpu_torch.parallel import islands
+    n_valid = torch.tensor(list(nv), dtype=torch.int32, device=trace.device)
+    got = islands.compress_trace_kernel(trace, mode, cap, n_valid)
+    got = got.cpu().numpy()
+    want = islands.compress_trace_plain(trace, mode, cap,
+                                        n_valid).cpu().numpy()
+    check(got.shape == want.shape, f"{what}: leaf shape")
+    T = trace.shape[1]
+    K = min(T, islands.TRACE_DELTAS_CAP if cap is None else cap)
+    check((got[:, :3 * K + 1] == want[:, :3 * K + 1]).all(),
+          f"{what}: events or counts differ")
+    err = 0.0
+    if mode == "stats":
+        t = trace.cpu()
+        rep = islands.reported_f32(t[..., 0], t[..., 1]).numpy()
+        gm = got[:, 3 * K + 1:].view(np.float32)
+        wm = want[:, 3 * K + 1:].view(np.float32)
+        empty = np.array([0, 0, np.inf, -np.inf], np.float32)
+        for lane, n in enumerate(nv):
+            if n == 0:
+                check((gm[lane].view(np.int32) == empty.view(np.int32)).all()
+                      and (wm[lane].view(np.int32)
+                           == empty.view(np.int32)).all(),
+                      f"{what}: idle lane {lane} moments {gm[lane]}")
+            else:
+                err = max(err, k13_moments_err(
+                    gm[lane:lane + 1], wm[lane:lane + 1],
+                    rep[lane:lane + 1, :n], f"{what} lane {lane}"))
+    return want, err
+
+
+def k14_lanes_equal(masks, slots, pen, scv, L, what):
+    """div_stats' lane form (a mask row a lane) against its plain
+    version, and each lane's row against the shared-mask form run on
+    that lane alone (bit for bit: the same sums); returns the max abs
+    err of the float values."""
+    import numpy as np
+    from timetabling_ga_tpu_torch.parallel import islands
+    got = islands.div_stats_kernel(masks, slots, pen, scv, L).cpu().numpy()
+    want = islands.div_stats_plain(masks, slots, pen, scv, L).cpu().numpy()
+    check(got.shape == want.shape, f"{what}: shape")
+    check((got[:, 8] == want[:, 8]).all(), f"{what}: Hamming differs")
+    pop = pen.shape[0] // L
+    err = 0.0
+    for i in range(L):
+        r = slice(i * pop, (i + 1) * pop)
+        gf, wf = got[i].view(np.float32), want[i].view(np.float32)
+        err = max(err, k14_moments_err(gf[:4], wf[:4],
+                                       pen[r].float().cpu().numpy(), what),
+                  k14_moments_err(gf[4:8], wf[4:8],
+                                  scv[r].float().cpu().numpy(), what))
+        one = islands.div_stats_kernel(masks[i].contiguous(), slots[r],
+                                       pen[r], scv[r], 1).cpu().numpy()
+        check((one[0] == got[i]).all(),
+              f"{what}: lane {i} differs from the shared-mask form")
+    return err
+
+
+def lane_counts(L, T, g):
+    """(L,) valid counts: an idle lane, a lane at the quantum, the rest
+    between."""
+    nv = [int(x) for x in g.integers(0, T + 1, L)]
+    nv[0] = 0
+    if L > 1:
+        nv[-1] = T
+    return nv
+
+
+def compare_lane_trace_forms(problem, dev):
+    """K13's compress_trace and K14's div_stats in their lane forms (the
+    serve path's --trace-mode deltas|stats and --quality) against their
+    plain versions: compress_trace_lanes over K13_LANE_L x K13_LANE_T in
+    both modes at caps 3 (overflow), the default and T (a quality-packed
+    full trace); div_stats_lanes on the lane phase's four lanes of
+    comp01s's bucket (and 16 lanes of them) at K14_LANE_POP. Then each
+    timed at the serve shape (LANE_COUNTS, pop 16). Returns (timings,
+    cases)."""
+    import numpy as np
+    import torch
+    from timetabling_ga_tpu_torch.obs.quality import N_DIV
+    from timetabling_ga_tpu_torch.parallel import islands
+    saved = islands.TRACE_DELTAS_CAP
+    g = np.random.default_rng(9000)
+    n = 0
+    try:
+        for L in K13_LANE_L:
+            for T in K13_LANE_T:
+                tr = k13_trace(L, T, 31 * T + L, dev)
+                nv = lane_counts(L, T, g)
+                for mode in ("deltas", "stats"):
+                    for cap in (3, 64):
+                        islands.TRACE_DELTAS_CAP = cap
+                        k13_lanes_equal(tr, mode, nv, None,
+                                        f"compress_trace_lanes {mode} "
+                                        f"L={L} T={T} cap={cap}")
+                        n += 1
+                    k13_lanes_equal(tr, mode, nv, T,
+                                    f"compress_trace_lanes {mode} L={L} "
+                                    f"T={T} K=T")
+                    n += 1
+    finally:
+        islands.TRACE_DELTAS_CAP = saved
+    lp = lane_problems(problem, dev)
+    masks = lp.event_masks
+    E = lp.n_events
+    gt = torch.Generator(device=dev).manual_seed(9001)
+    for L, m in ((4, masks), (16, masks.repeat(4, 1))):
+        for pop in K14_LANE_POP:
+            slots, pen, scv = k14_div_case(E, L, pop, gt, dev)
+            k14_lanes_equal(m, slots, pen, scv, L,
+                            f"div_stats_lanes L={L} pop={pop}")
+            n += 1
+    out = {}
+    L, T = len(LANE_COUNTS), LANE_TRACE_T
+    tr = k13_trace(L, T, 9002, dev, sentinels=False)
+    nv = torch.tensor(LANE_COUNTS, dtype=torch.int32, device=dev)
+    _, err = k13_lanes_equal(tr, "stats", LANE_COUNTS, None,
+                             "compress_trace_lanes timed")
+    W = islands.trace_leaf_width(T, "stats")
+    # each warp reads only its lane's first min(count, T) rows
+    rows = sum(min(c, T) for c in LANE_COUNTS)
+    b, by = bound(rows * 2 * 4 + L * 4 + L * W * 4, 0)
+    out[("compress_trace_lanes", L, T)] = dict(
+        ms=time_ms(lambda: islands.compress_trace_kernel(
+            tr, "stats", None, nv), 200),
+        plain_ms=time_ms(lambda: islands.compress_trace_plain(
+            tr, "stats", None, nv), 20),
+        max_abs_err=err, counts=list(LANE_COUNTS), bound_ms=b, bound_by=by,
+        library_ms=None)
+    pop = LANE_POP
+    slots, pen, scv = k14_div_case(E, L, pop, gt, dev)
+    err = k14_lanes_equal(masks, slots, pen, scv, L, "div_stats_lanes timed")
+    nb, ops = div_stats_work(L, pop, E)
+    b, by = bound(nb + (L - 1) * E * 4, ops)
+    out[("div_stats_lanes", L, pop)] = dict(
+        ms=time_ms(lambda: islands.div_stats_kernel(masks, slots, pen, scv,
+                                                    L), 200),
+        plain_ms=time_ms(lambda: islands.div_stats_plain(masks, slots, pen,
+                                                         scv, L), 20),
+        max_abs_err=err, bound_ms=b, bound_by=by, library_ms=None,
+        n_div=N_DIV)
+    torch.cuda.synchronize()
+    return out, n
+
+
+def lane_trace_device_times(problem, dev, timings):
+    """The lane forms' device time a launch at their timed shapes
+    (torch.profiler), added to their timings; run after the profile
+    windows."""
+    import torch
+    from timetabling_ga_tpu_torch.k5_phases import device_us_per_launch
+    from timetabling_ga_tpu_torch.parallel import islands
+    L, T = len(LANE_COUNTS), LANE_TRACE_T
+    tr = k13_trace(L, T, 9002, dev, sentinels=False)
+    nv = torch.tensor(LANE_COUNTS, dtype=torch.int32, device=dev)
+    timings[("compress_trace_lanes", L, T)]["device_us"] = \
+        device_us_per_launch(lambda: islands.compress_trace_kernel(
+            tr, "stats", None, nv), "compress_trace")
+    lp = lane_problems(problem, dev)
+    gt = torch.Generator(device=dev).manual_seed(9003)
+    slots, pen, scv = k14_div_case(lp.n_events, L, LANE_POP, gt, dev)
+    masks = lp.event_masks
+    timings[("div_stats_lanes", L, LANE_POP)]["device_us"] = \
+        device_us_per_launch(lambda: islands.div_stats_kernel(
+            masks, slots, pen, scv, L), "div_stats")
 
 
 def serve_requests(path, itc_tim):
@@ -2456,6 +2731,7 @@ def serve_path(pa_cpu):
         check(launches[k] == 0,
               f"serve: {k} launched {launches[k]} times")
     stripped = strip_timing(records)
+    alone_records = {}
     for jid, tim in (("s1", TIM), ("s4", "itc")):
         sub = os.path.join(OUT_DIR, f"serve_{jid}_alone_requests.jsonl")
         row = next(x for x in SERVE_JOBS if x[0] == jid)
@@ -2468,6 +2744,7 @@ def serve_path(pa_cpu):
         check(strip_timing(alone) == strip_timing(_job_records(records,
                                                                jid)),
               f"serve: {jid} alone differs from {jid} packed")
+        alone_records[jid] = alone
     nores, nores_s, _, nores_c = run_serve("no_resident", req,
                                            ["--no-resident"])
     check(strip_timing(nores) == stripped,
@@ -2476,8 +2753,10 @@ def serve_path(pa_cpu):
           and counters.get("serve.resident_hits", 0) > 0,
           f"serve: resident hits {counters.get('serve.resident_hits')} / "
           f"{nores_c.get('serve.resident_hits')} without residency")
+    legs, leg_launches = serve_legs(req, stripped, n_disp)
     lane_gens = counters.get("serve.gens", 0)
     return dict(
+        legs=legs, warm_start=serve_warm_start(alone_records["s1"]),
         wall_s=round(seconds, 3), dispatches=n_disp, lane_gens=lane_gens,
         lane_gens_per_s=lane_gens / seconds,
         lane_gens_per_quantum_s=(
@@ -2487,7 +2766,203 @@ def serve_path(pa_cpu):
         park_bytes=counters.get("serve.park_bytes", 0),
         resume_bytes=counters.get("serve.resume_bytes", 0),
         no_resident_wall_s=round(nores_s, 3),
-        no_resident_park_bytes=nores_c.get("serve.park_bytes", 0)), launches
+        no_resident_park_bytes=nores_c.get("serve.park_bytes", 0)), \
+        dict(leg_launches, serve=launches)
+
+
+def serve_legs(req, stripped, n_disp):
+    """SERVE_JOBS under each SERVE_LEGS entry: the stream equal to the
+    full run's under strip_timing, K13's lane form every dispatch of a
+    packed leaf (a quality-packed full trace too) and K14's div_stats
+    lane form every dispatch under --quality, K14's quality_ops a
+    generation step under it, the one-problem K13/K14 forms never.
+    Returns ({leg: summary}, {"serve-" + leg: launches})."""
+    from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    out, launches = {}, {}
+    for leg, extra in SERVE_LEGS.items():
+        recs, secs, la, c = run_serve(leg, req, extra)
+        check(strip_timing(recs) == stripped,
+              f"serve {leg}: the stream differs from trace mode full's")
+        quality = "--quality" in extra
+        check(la["compress_trace_lanes"] == c.get("serve.dispatches", 0)
+              == n_disp,
+              f"serve {leg}: compress_trace_lanes launched "
+              f"{la['compress_trace_lanes']} times in "
+              f"{c.get('serve.dispatches')} dispatches")
+        check(la["div_stats_lanes"] == (n_disp if quality else 0),
+              f"serve {leg}: div_stats_lanes launched "
+              f"{la['div_stats_lanes']} times")
+        check(la["quality_ops"] == (la["breed_lanes"] if quality else 0),
+              f"serve {leg}: quality_ops {la['quality_ops']} for "
+              f"{la['breed_lanes']} generation steps")
+        check(all(la[k] == 0 for k in K13 + ("div_stats",)),
+              f"serve {leg}: a one-problem K13/K14 form launched")
+        summary = dict(wall_s=round(secs, 3),
+                       lane_gens_per_s=c.get("serve.gens", 0) / secs,
+                       trace_delta_overflow=c.get(
+                           "serve.trace_delta_overflow", 0))
+        if quality:
+            snap = REGISTRY.snapshot()
+            summary["hamming_min"] = snap["gauges"].get(
+                "quality.diversity.hamming_min")
+            check(snap["counters"].get("quality.ops.crossover_attempts", 0)
+                  > 0, f"serve {leg}: no quality counters")
+        out[leg] = summary
+        launches["serve-" + leg] = la
+    return out, launches
+
+
+def _service(out):
+    """A SolveService at the service's defaults on the card, with its
+    own registry."""
+    from timetabling_ga_tpu_torch.obs.metrics import MetricsRegistry
+    from timetabling_ga_tpu_torch.runtime.config import ServeConfig
+    from timetabling_ga_tpu_torch.serve.service import SolveService
+    return SolveService(ServeConfig(), out=out, registry=MetricsRegistry())
+
+
+def _lines(buf):
+    return [json.loads(x) for x in buf.getvalue().splitlines()]
+
+
+def serve_warm_start(alone_s1):
+    """s1 alone through the Python API, shipped at its first host fence
+    at or after SERVE_SHIP_AT generations (its group is resident by then:
+    the fence is flush_resident's), then a new service resumed from the
+    wire: the shipped prefix plus the continuation equals the
+    uninterrupted s1 under strip_timing, resumed_at is the fence's
+    generation, and the resumed run launches no K1 or K2 (no init)."""
+    import io
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.problem import load_tim_file
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    row = next(x for x in SERVE_JOBS if x[0] == "s1")
+    problem = load_tim_file(TIM)
+    svc = _service(io.StringIO())
+    svc.submit(problem, job_id="s1", seed=row[2], generations=row[3])
+    job = svc.queue.get("s1")
+    while job.gens_done < SERVE_SHIP_AT:
+        svc.step()
+    resident = bool(svc.scheduler._resident)
+    svc.scheduler.flush_resident()
+    ship = job.ship
+    check(ship.gens_done == job.gens_done >= SERVE_SHIP_AT
+          and not ship.truncated,
+          f"warm start: shipped at {ship.gens_done}, job at "
+          f"{job.gens_done}")
+    wire = json.loads(json.dumps(ship.pack()))
+    prefix = list(ship.records)
+    svc.close()
+    buf = io.StringIO()
+    svc = _service(buf)
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    svc.submit(problem, job_id="s1", seed=row[2], generations=row[3],
+               snapshot=wire)
+    svc.drive()
+    seconds = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    svc.close()
+    cont = _lines(buf)
+    check(strip_timing(prefix + cont) == strip_timing(alone_s1),
+          "warm start: prefix + continuation differs from s1 alone")
+    res = svc.result("s1")
+    check(res["resumed_at"] == ship.gens_done and res["gens"] == row[3],
+          f"warm start: result {res['resumed_at']} / {res['gens']}")
+    check(launches["assign_rooms"] == 0 and launches["batch_penalty"] == 0,
+          "warm start: the resumed job ran an init")
+    seams = [(r["faultEntry"]["site"], r["faultEntry"]["action"])
+             for r in cont if "faultEntry" in r]
+    check(seams == [("fleet", "resume")], f"warm start: seams {seams}")
+    counters = svc.registry.snapshot()["counters"]
+    return dict(shipped_at=ship.gens_done, resident_before_ship=resident,
+                wire_bytes=len(json.dumps(wire)),
+                resumed_seconds=round(seconds, 3),
+                resumed_resident_hits=counters.get("serve.resident_hits",
+                                                   0),
+                base_wire=json.loads(json.dumps(
+                    svc.queue.get("s1").ship.pack())))
+
+
+def serve_edits(base_wire, pa_cpu):
+    """An edit of comp01s (EDIT_OPS) at w_anchor 1 from the finished s1's
+    wire, warm (its K6 and K8 lane forms launched on its anchored lane,
+    K2 once for the transplant, no K1), done with its edit_distance; its
+    solution re-scored on the edited instance; then a cross-bucket edit
+    (EDIT_CROSS_OPS), demoted with exactly one faultEntry."""
+    import io
+    import numpy as np
+    import torch
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.ops import fitness
+    from timetabling_ga_tpu_torch.runtime import jsonl
+    from timetabling_ga_tpu_torch.problem import dump_tim, load_tim_file
+    from timetabling_ga_tpu_torch.serve import editsolve
+    tim = dump_tim(load_tim_file(TIM))
+    out = {}
+    for name, ops in (("edit", EDIT_OPS), ("edit-cross", EDIT_CROSS_OPS)):
+        buf = io.StringIO()
+        svc = _service(buf)
+        spec = {"base": {"tim": tim}, "base_id": "s1", "ops": ops,
+                "w_anchor": 1, "snapshot": base_wire}
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        svc.submit(None, job_id=name, seed=9, generations=EDIT_GENS,
+                   edit=spec)
+        job = svc.queue.get(name)
+        anchored = bool(job.pa_dev.anchored)
+        svc.drive()
+        seconds = time.monotonic() - t0
+        launches = dict(kernels.LAUNCHES)
+        svc.close()
+        recs = _lines(buf)
+        res = svc.result(name)
+        faults = [(r["faultEntry"]["site"], r["faultEntry"]["action"])
+                  for r in recs if "faultEntry" in r]
+        done = [r["jobEntry"] for r in recs if "jobEntry" in r
+                and r["jobEntry"]["event"] == "done"]
+        check(len(done) == 1 and done[0].get("mode") == "edit"
+              and isinstance(res["edit_distance"], int)
+              and done[0].get("edit_distance") == res["edit_distance"],
+              f"{name}: done record {done}")
+        if name == "edit":
+            check(faults == [("fleet", "resume")] and not res["edit_demoted"],
+                  f"edit: faults {faults}, demoted {res['edit_demoted']}")
+            check(anchored, "edit: the edit job's problem is not anchored")
+            check(launches["breed_lanes"] > 0
+                  and launches["random_ls_lanes"] > 0
+                  and launches["batch_penalty"] == 1
+                  and launches["assign_rooms"] == 0,
+                  f"edit: launches {launches}")
+            # the answer re-scored on the edited instance, feasible or
+            # not, and its distance to the base recomputed on the host
+            edited, _ = editsolve.apply_ops(load_tim_file(TIM), ops)
+            _, hcv, scv = fitness.batch_penalty_plain(
+                edited.device_arrays("cpu"),
+                torch.tensor([res["timeslots"]], dtype=torch.int32),
+                torch.tensor([res["rooms"]], dtype=torch.int32))
+            hcv, scv = int(hcv[0]), int(scv[0])
+            check((hcv, scv) == (res["hcv"], res["scv"])
+                  and res["feasible"] == (hcv == 0)
+                  and res["best"] <= jsonl.reported_best(hcv, scv),
+                  f"edit: re-scored ({hcv}, {scv}), result "
+                  f"({res['hcv']}, {res['scv']}) best {res['best']}")
+            dist = editsolve.edit_distance(
+                np.asarray(res["timeslots"]), job.padded.anchor_slots,
+                job.edit_map)
+            check(dist == res["edit_distance"],
+                  f"edit: edit_distance {res['edit_distance']}, "
+                  f"recomputed {dist}")
+        else:
+            check(faults == [("edit", "demote")] and res["edit_demoted"],
+                  f"edit-cross: faults {faults}")
+        out[name] = dict(seconds=round(seconds, 3),
+                         edit_distance=res["edit_distance"],
+                         best=res["best"], feasible=res["feasible"],
+                         demoted=res["edit_demoted"], anchored=anchored,
+                         launches={k: v for k, v in launches.items() if v})
+    return out
 
 
 def run_cli(name, argv, tim=TIM):
@@ -2876,6 +3351,9 @@ def main() -> int:
     timings.update(lane_t)
     for key, t in lane_t.items():
         print(json.dumps({"lane_kernel": key[0], "lanes": key[1], **t}))
+    lane_trace_t, lane_trace_cases = compare_lane_trace_forms(problem, dev)
+    timings.update(lane_trace_t)
+    print(json.dumps({"lane_trace_forms_compared": lane_trace_cases}))
     print(json.dumps({"islands_compared": compare_islands(pa, dev)}))
     print(json.dumps({"kick_chains_compared": compare_kick_chains(pa, dev)}))
     print(json.dumps({"padded_parallel_rooms_compared":
@@ -2910,9 +3388,13 @@ def main() -> int:
     print(json.dumps({"path": "quality", "gens_per_s": q_rates,
                       "launches": launches["quality"]}))
     print(json.dumps({"path": "stall", **stall_path()}))
-    serve_summary, launches["serve"] = serve_path(pa_cpu)
+    serve_summary, serve_launches = serve_path(pa_cpu)
+    launches.update(serve_launches)
+    base_wire = serve_summary["warm_start"].pop("base_wire")
     print(json.dumps({"path": "serve", **serve_summary,
                       "launches": launches["serve"]}))
+    print(json.dumps({"path": "serve-edit",
+                      **serve_edits(base_wire, pa_cpu)}))
     summary, resume_launches = resume_path(pa_cpu[TIM])
     launches.update(resume_launches)
     for name in ("resume", "resume-main"):
@@ -2927,6 +3409,7 @@ def main() -> int:
     k9_device_times(timings, K9_TIMED)
     k13_device_times(dev, timings)
     k14_device_times(pa, dev, timings)
+    lane_trace_device_times(problem, dev, timings)
     for line in phase_lines(pa, dev):
         print(json.dumps({"phases": line}))
     for key, t in timings.items():
@@ -2941,6 +3424,11 @@ def main() -> int:
                      "full_eval_ls": ("full_eval_ls", 10),
                      "lahc": ("lahc", 4, 16, 5000), **nsga_keys,
                      **{k: (k, 4) for k in LANES},
+                     "compress_trace_lanes": ("compress_trace_lanes",
+                                              len(LANE_COUNTS),
+                                              LANE_TRACE_T),
+                     "div_stats_lanes": ("div_stats_lanes",
+                                         len(LANE_COUNTS), LANE_POP),
                      **{k: (k, *v) for k, v in K13_TIMED.items()}
                      }.get(name, (name, 16))]
         row = {"name": name, "route": "cuda", "source": src,
@@ -2956,7 +3444,7 @@ def main() -> int:
             row["library_ms_topk"] = t["library_ms_topk"]
         if name in BODY_RUNS_IN:
             row["body_runs_in"] = BODY_RUNS_IN[name]
-        if name in K13_TIMED or name in K14:
+        if name in K13_TIMED or name in K14 or name in LANE_TRACE:
             row["device_us"] = t.get("device_us")
         if name in LANES:
             row["device_us"] = t["device_us"]

@@ -32,7 +32,8 @@ from tests.test_torch_kernels import (
     moment_rows_equal_plain, _chained_augments, _degenerate_slots,
     _half_feasible, _instances, _island_state, _k5_equals_plain,
     _k11_equal_plain, _lane_case, _lane_problems, k6_lanes_equal_plain,
-    k8_lanes_equal_plain,
+    k8_lanes_equal_plain, k13_lanes_equal_plain, k14_div_lanes_equal_plain,
+    lane_counts, lane_masks,
     _k11_island, _ls_draws, _matcher_equals_plain, _matching_instances,
     _state, _wide_rooms)
 from timetabling_ga_tpu_torch import kernels
@@ -1029,6 +1030,30 @@ def test_k14_sources_equal_plain(emulated, L, pop):
     k14_div_equal_plain(pa, L, pop, L * pop)
     assert kernels.LAUNCHES["quality_ops"] == 1
     assert kernels.LAUNCHES["div_stats"] == 1
+
+
+@pytest.mark.parametrize("L,T", [(1, 1), (3, 8), (4, 33), (3, 64),
+                                 (2, 200)])
+def test_k13_lanes_source_equals_plain(emulated, monkeypatch, L, T):
+    """K13's lane form in both modes: a lane with count 0 (+inf and -inf
+    exactly), a lane with count T, the rest between; cap 2 (overflow),
+    64 and T."""
+    tr = _trace(L, T, 11 * T + L, "cpu")
+    nv = lane_counts(L, T, 3 * T + L)
+    for mode in ("deltas", "stats"):
+        for cap in (2, 64):
+            monkeypatch.setattr(islands, "TRACE_DELTAS_CAP", cap)
+            k13_lanes_equal_plain(tr, mode, nv)
+        k13_lanes_equal_plain(tr, mode, nv, cap=T)
+
+
+@pytest.mark.parametrize("L,pop", [(1, 2), (2, 3), (3, 10), (4, 33)])
+def test_k14_div_lanes_source_equals_plain(emulated, L, pop):
+    """K14's div_stats lane form, a mask row a lane: a lane with every
+    event live, a lane padded to one live event, the rest between; pop
+    33 past the 32 pairs, with 64-thread blocks."""
+    k14_div_lanes_equal_plain(lane_masks(L, 40, L + pop), L, pop,
+                              L * pop + 1)
 
 
 @pytest.mark.parametrize("case,inst,cluster", [

@@ -413,6 +413,95 @@ def k13_equals_plain(trace, mode):
     return want
 
 
+def masked_moments_close(got, want, rep, n_valid):
+    """moments_close on each island's first n_valid[l] values (n their
+    count); an island with none has (0, 0, +inf, -inf) in both, bit for
+    bit."""
+    got = np.asarray(got, np.float32).reshape(-1, 4)
+    want = np.asarray(want, np.float32).reshape(-1, 4)
+    rep = np.asarray(rep, np.float64).reshape(got.shape[0], -1)
+    empty = np.array([0, 0, np.inf, -np.inf], np.float32).view(np.int32)
+    for lane, n in enumerate(n_valid):
+        if n == 0:
+            np.testing.assert_array_equal(got[lane].view(np.int32), empty)
+            np.testing.assert_array_equal(want[lane].view(np.int32), empty)
+        else:
+            moments_close(got[lane:lane + 1], want[lane:lane + 1],
+                          rep[lane:lane + 1, :n])
+
+
+def lane_counts(L, T, seed):
+    """(L,) valid counts of a lane trace: 0, T and values between."""
+    g = np.random.default_rng(seed)
+    nv = g.integers(0, T + 1, L)
+    nv[0] = 0
+    if L > 1:
+        nv[-1] = T
+    return nv.astype(np.int32)
+
+
+def k13_lanes_equal_plain(trace, mode, n_valid, cap=None):
+    """compress_trace's lane form (an (L,) n_valid) against its plain
+    version: events and counts exactly, the moments over each lane's
+    valid rows within the stated tolerance. Returns the plain leaf."""
+    nv = torch.tensor(np.asarray(n_valid), dtype=torch.int32,
+                      device=trace.device)
+    kernels.reset_launches()
+    got = islands.compress_trace_kernel(trace, mode, cap, nv).cpu().numpy()
+    assert kernels.LAUNCHES["compress_trace_lanes"] == 1
+    assert kernels.LAUNCHES["compress_trace"] == 0
+    want = islands.compress_trace_plain(trace, mode, cap, nv).cpu().numpy()
+    assert got.shape == want.shape
+    T = trace.shape[1]
+    K = min(T, islands.TRACE_DELTAS_CAP if cap is None else cap)
+    np.testing.assert_array_equal(got[:, :3 * K + 1], want[:, :3 * K + 1])
+    if mode == "stats":
+        t = trace.cpu()
+        rep = islands.reported_f32(t[..., 0], t[..., 1]).numpy()
+        masked_moments_close(got[:, 3 * K + 1:].view(np.float32),
+                             want[:, 3 * K + 1:].view(np.float32), rep,
+                             np.asarray(n_valid))
+    return want
+
+
+def lane_masks(L, E, seed, device="cpu"):
+    """(L, E) float32 event masks of lanes padded to E events: each a
+    live prefix of its own length (one lane every event, one a single
+    event), as a bucket's padded problems have."""
+    g = np.random.default_rng(seed)
+    live = g.integers(1, E + 1, L)
+    live[0] = E
+    if L > 1:
+        live[1] = 1
+    m = (np.arange(E)[None, :] < live[:, None]).astype(np.float32)
+    return torch.tensor(m, device=device)
+
+
+def k14_div_lanes_equal_plain(masks, L, pop, seed):
+    """K14's div_stats lane form (a mask row a lane) against its plain
+    version: min, max and the Hamming sample exactly, the moments within
+    the stated tolerance; and each lane's row equal to the shared-mask
+    form on that lane alone. Returns the plain rows."""
+    E = masks.shape[1]
+    slots, pen, scv = div_case(E, L, pop, seed, masks.device)
+    kernels.reset_launches()
+    got = islands.div_stats_kernel(masks, slots, pen, scv, L).cpu().numpy()
+    assert kernels.LAUNCHES["div_stats_lanes"] == 1
+    assert kernels.LAUNCHES["div_stats"] == 0
+    want = islands.div_stats_plain(masks, slots, pen, scv, L).cpu().numpy()
+    assert got.shape == want.shape == (L, 9)
+    np.testing.assert_array_equal(got[:, 8], want[:, 8])
+    for i in range(L):
+        r = slice(i * pop, (i + 1) * pop)
+        gf, wf = got[i].view(np.float32), want[i].view(np.float32)
+        div_moments_close(gf[:4], wf[:4], pen[r].cpu().float().numpy())
+        div_moments_close(gf[4:8], wf[4:8], scv[r].cpu().float().numpy())
+        one = islands.div_stats_plain(masks[i], slots[r], pen[r], scv[r],
+                                      1).cpu().numpy()
+        np.testing.assert_array_equal(want[i], one[0])
+    return want
+
+
 def moment_rows_equal_plain(hcv, scv):
     got = islands.moment_rows_kernel(hcv, scv).cpu().numpy()
     want = islands.moment_rows_plain(hcv, scv).cpu().numpy()
@@ -1290,6 +1379,30 @@ def test_k13_compress_trace_equals_plain(cuda, monkeypatch, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["deltas", "stats"])
+def test_k13_compress_trace_lanes_equals_plain(cuda, monkeypatch, mode):
+    """The lane form: counts 0, T and between, cap None (below and above
+    the counts) and T (a quality-packed full trace)."""
+    for L in K13_L:
+        for T in K13_T:
+            tr = _trace(L, T, 13 * T + L, cuda)
+            nv = lane_counts(L, T, T + L)
+            for k in (3, 64):
+                monkeypatch.setattr(islands, "TRACE_DELTAS_CAP", k)
+                k13_lanes_equal_plain(tr, mode, nv)
+            k13_lanes_equal_plain(tr, mode, nv, cap=T)
+
+
+@pytest.mark.cuda
+def test_k14_div_stats_lanes_equals_plain(cuda):
+    for L in K14_L:
+        for pop in K14_POP:
+            for E in (40, 400):
+                k14_div_lanes_equal_plain(lane_masks(L, E, E + L, cuda), L,
+                                          pop, 10 * L + pop)
+
+
+@pytest.mark.cuda
 def test_k13_moment_rows_equals_plain(cuda):
     for L, n in ((1, 64), (4, 16), (16, 4), (2, 1), (1, 1000)):
         tr = _trace(L, n, n, cuda)
@@ -1350,6 +1463,26 @@ def test_trace_compression_on_cpu_tensors_takes_the_plain_version():
     assert rows.shape == (4, 2)
     assert kernels.LAUNCHES["compress_trace"] == 0
     assert kernels.LAUNCHES["moment_rows"] == 0
+
+
+def test_lane_trace_forms_on_cpu_tensors_take_the_plain_versions():
+    """compress_trace with n_valid and div_stats with a mask row a lane
+    launch nothing on CPU tensors; an n_valid of T everywhere is the
+    unmasked leaf, and a shared mask expanded to rows is the shared-mask
+    form."""
+    kernels.reset_launches()
+    tr = _trace(3, 40, 2, "cpu")
+    for mode in ("deltas", "stats"):
+        full = torch.full((3,), 40, dtype=torch.int32)
+        assert torch.equal(islands.compress_trace(tr, mode, n_valid=full),
+                           islands.compress_trace_plain(tr, mode))
+    masks = lane_masks(3, 20, 1)
+    slots, pen, scv = div_case(20, 3, 4, 5)
+    lanes = islands.div_stats_plain(masks[:1].expand(3, -1), slots, pen,
+                                    scv, 3)
+    assert torch.equal(lanes, islands.div_stats_plain(masks[0], slots, pen,
+                                                      scv, 3))
+    assert sum(kernels.LAUNCHES.values()) == 0
 
 
 def test_sweep_pass_smem_bytes_at_comp01s():

@@ -18,7 +18,8 @@ JAX package's, on the CPU.
     every done job ends feasible in both, and each feasible solution
     re-scores to its totalBest on the unpadded instance;
   - `python -m timetabling_ga_tpu_torch serve --backend cpu` through
-    cli.main, with the requests that are not ported yet.
+    cli.main, with a bad snapshot, a malformed edit and the request
+    that is not ported yet.
 """
 
 import dataclasses
@@ -235,7 +236,8 @@ _PORTED_ARGV = ["-i", "req.jsonl", "-o", "out.jsonl", "--lanes", "3",
                 "--bucket-events", "16", "--bucket-rooms", "2",
                 "--bucket-features", "2", "--bucket-students", "16",
                 "--bucket-ratio", "1.5", "-m", "16", "--ls-candidates", "4",
-                "--trace-mode", "full", "--no-usage", "--no-resident"]
+                "--trace-mode", "stats", "--quality", "--no-usage",
+                "--no-resident"]
 
 
 @pytest.mark.parametrize("argv", [[], _PORTED_ARGV])
@@ -272,9 +274,9 @@ def test_unported_serve_flags_are_refused_by_name(flag):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--trace-mode", "deltas"], "--trace-mode deltas"),
-    (["--trace-mode", "stats"], "--trace-mode stats"),
-    (["--mesh-devices", "2"], "--mesh-devices 2")])
+    (["--mesh-devices", "2"], "--mesh-devices 2"),
+    (["--mesh-devices", "4"], "--mesh-devices 4"),
+    (["--quality", "--mesh-devices", "8"], "--mesh-devices 8")])
 def test_unported_serve_values_are_refused_by_name(argv, what):
     jconfig.parse_serve_args(argv)
     with pytest.raises(SystemExit) as e:
@@ -283,7 +285,7 @@ def test_unported_serve_values_are_refused_by_name(argv, what):
 
 
 def test_every_jax_serve_flag_is_ported_or_refused():
-    ported = (set(tconfig._SERVE_FLAG_MAP)
+    ported = (set(tconfig._SERVE_FLAG_MAP) | set(tconfig._SERVE_BOOL_FLAGS)
               | set(tconfig._SERVE_NEG_BOOL_FLAGS))
     for flag in (set(jconfig._SERVE_FLAG_MAP) | set(jconfig._SERVE_BOOL_FLAGS)
                  | set(jconfig._SERVE_NEG_BOOL_FLAGS)):
@@ -509,12 +511,14 @@ def test_done_jobs_end_feasible_and_rescore(skeleton):
 
 def test_serve_cli_on_cpu(tmp_path):
     """`python -m timetabling_ga_tpu_torch serve --backend cpu -i ...`
-    through cli.main: submits run to their end; a snapshot or edit
-    submit and a Prometheus stats request get rejected jobEntry records
-    naming what is not ported, and the stream goes on; stats answers
-    with a metricsEntry."""
+    through cli.main: submits run to their end; a submit whose snapshot
+    is no wire falls back to a fresh solve (faultEntry resume / replay),
+    a malformed edit and a Prometheus stats request get rejected
+    jobEntry records, and the stream goes on; stats answers with a
+    metricsEntry."""
     tims = _bucket32()
-    reqs = [{"submit": {"id": "w", "tim": tims[0], "snapshot": {}}},
+    reqs = [{"submit": {"id": "w", "tim": tims[0], "snapshot": {},
+                        "generations": 3}},
             {"submit": {"id": "e", "edit": {"base": {"tim": tims[0]}}}},
             {"stats": "prometheus"},
             {"submit": {"id": "k", "tim": tims[1], "seed": 3,
@@ -529,13 +533,18 @@ def test_serve_cli_on_cpu(tmp_path):
     records = [json.loads(x) for x in out.read_text().splitlines()]
     rejected = [r["jobEntry"] for r in records if "jobEntry" in r
                 and r["jobEntry"]["event"] == "rejected"]
-    assert [r["job"] for r in rejected] == ["w", "e", "?", "?"]
-    for r, what in zip(rejected, ("snapshot", "edit", "prometheus")):
-        assert what in r["reason"] and "not yet ported" in r["reason"]
-    assert "unknown request" in rejected[3]["reason"]
-    events = [r["jobEntry"]["event"] for r in _job(records, "k")
-              if "jobEntry" in r]
-    assert events == ["admitted", "started", "done"]
+    assert [r["job"] for r in rejected] == ["e", "?", "?"]
+    assert "exactly one of 'ops' or 'edited'" in rejected[0]["reason"]
+    assert ("prometheus" in rejected[1]["reason"]
+            and "not yet ported" in rejected[1]["reason"])
+    assert "unknown request" in rejected[2]["reason"]
+    for jid in "wk":
+        events = [r["jobEntry"]["event"] for r in _job(records, jid)
+                  if "jobEntry" in r]
+        assert events == ["admitted", "started", "done"], jid
+    assert [(r["faultEntry"]["site"], r["faultEntry"]["action"])
+            for r in _job(records, "w") if "faultEntry" in r] == [
+        ("resume", "replay")]
     stats = [r["metricsEntry"] for r in records if "metricsEntry" in r]
     assert len(stats) == 1
     assert stats[0]["counters"]["serve.jobs_done"] >= 1

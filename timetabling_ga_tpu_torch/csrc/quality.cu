@@ -36,6 +36,10 @@
 //     double (exact: 0/1 weights, counts far below 2^53), then one
 //     float32 division by the float32 product k * live, as XLA computes
 //     it. Thread 0 writes the nine float32 values' bits.
+//     Its lane form (the serve lanes, JAX's vmap of _div_stats over the
+//     lanes' problems): `mask_stride` E, and block l reads its own lane's
+//     mask row at event_mask + l * E for `live` and `diff`; 0 shares one
+//     (E,) mask among the islands.
 #include "common.cuh"
 
 #ifndef K14_THREADS
@@ -136,11 +140,13 @@ __device__ __forceinline__ void k14_moments(const int* x, int n, int* out,
 __global__ void __launch_bounds__(K14_THREADS) div_stats_kernel(
     const int* __restrict__ pen, const int* __restrict__ scv,
     const int* __restrict__ slots, const float* __restrict__ event_mask,
-    int* __restrict__ out, int pop, int E, int k_pairs, int stride) {
+    int* __restrict__ out, int pop, int E, int k_pairs, int stride,
+    int mask_stride) {
     extern __shared__ __align__(16) unsigned char k14_smem[];
     double* dred = (double*)k14_smem;        // a double a warp
     float* fred = (float*)(dred + K14_WARPS);  // a float a warp
     const int l = blockIdx.x;
+    event_mask += (size_t)l * mask_stride;   // this lane's row, or the one
     int* o = out + (size_t)l * K14_N_DIV;
     k14_moments(pen + (size_t)l * pop, pop, o, fred, dred);
     k14_moments(scv + (size_t)l * pop, pop, o + 4, fred, dred);
@@ -180,11 +186,13 @@ extern "C" int tt_quality_ops(const uint8_t* do_x, const uint8_t* do_m,
 extern "C" int tt_div_stats(const int* pen, const int* scv, const int* slots,
                             const float* event_mask, int* out, int L,
                             int pop, int E, int k_pairs, int stride,
-                            void* stream) {
+                            int mask_stride, void* stream) {
     if (L <= 0 || pop <= 0 || E <= 0 || k_pairs < 0 || k_pairs > pop
-        || stride < 0 || stride >= pop)
+        || stride < 0 || stride >= pop
+        || (mask_stride != 0 && mask_stride != E))
         return (int)cudaErrorInvalidValue;
     div_stats_kernel<<<L, K14_THREADS, K14_SMEM, (cudaStream_t)stream>>>(
-        pen, scv, slots, event_mask, out, pop, E, k_pairs, stride);
+        pen, scv, slots, event_mask, out, pop, E, k_pairs, stride,
+        mask_stride);
     return (int)cudaGetLastError();
 }

@@ -18,6 +18,14 @@
 // and max; a warp reduction, then lane 0 writes the mean, the variance
 // clamped at 0, min and max as float32 bits.
 //
+// Its lane form (the serve lanes, JAX's `_compress_trace(trace, gens,
+// ...)` with an (L,) valid count): a non-null `n_valid` bounds warp l's
+// walk, both passes and its moments, to its first n = min(n_valid[l], T)
+// rows; a row past it is no improvement and no value, as JAX's `valid =
+// gidx < n_val` mask makes it. The moments keep the masked formula: sums
+// over max(n, 1), min and max from +inf and -inf, so a lane with n = 0
+// writes mean 0, var 0, +inf and -inf, all of them exact.
+//
 // moment_rows: the same four moments of (L, n) reported values, a warp a
 // row, written as (4, L) (the polish and LAHC stats rows).
 //
@@ -95,12 +103,18 @@ __device__ __forceinline__ bool tt_improves(long long key, long long& carry) {
 }
 
 __global__ void __launch_bounds__(32) compress_trace_kernel(
-    const int* __restrict__ trace, int* __restrict__ out, int T, int K,
-    int stats) {
+    const int* __restrict__ trace, const int* __restrict__ n_valid,
+    int* __restrict__ out, int T_all, int K, int stats) {
     const int isl = blockIdx.x;
     const int lane = threadIdx.x;
     const int W = 3 * K + 1 + (stats ? 4 : 0);
-    const int* tr = trace + (size_t)isl * T * 2;
+    const int* tr = trace + (size_t)isl * T_all * 2;
+    // the rows this warp walks: all of them, or its lane's valid count
+    int T = T_all;
+    if (n_valid) {
+        const int nv = n_valid[isl];
+        T = nv < 0 ? 0 : (nv < T_all ? nv : T_all);
+    }
     int* o = out + (size_t)isl * W;
     const long long sent = ((long long)K13_SENTINEL << 32) | K13_SENTINEL;
     const long long none = 0x7fffffffffffffffLL;
@@ -155,12 +169,13 @@ __global__ void __launch_bounds__(32) moment_rows_kernel(
     tt_moments_store(m, n, out + row, L);
 }
 
-extern "C" int tt_compress_trace(const int* trace, int* out, int L, int T,
-                                 int K, int stats, void* stream) {
+extern "C" int tt_compress_trace(const int* trace, const int* n_valid,
+                                 int* out, int L, int T, int K, int stats,
+                                 void* stream) {
     if (L <= 0 || T <= 0 || K <= 0 || K > T)
         return (int)cudaErrorInvalidValue;
     compress_trace_kernel<<<L, 32, 0, (cudaStream_t)stream>>>(
-        trace, out, T, K, stats);
+        trace, n_valid, out, T, K, stats);
     return (int)cudaGetLastError();
 }
 

@@ -15,8 +15,9 @@ its pre-pass random_ls_events, which also feeds K12 `full_eval_ls.cu`,
 and the chain random_ls; K11 `nsga.cu`:
 nsga_rank and nsga_survivors; K13 `trace_compress.cu`: compress_trace
 and moment_rows; K14 `quality.cu`: quality_ops and div_stats); each has
-its own name here; K6 and K8's chain launched with a lane table (the
-serve path) count under FORMS' names. Every C entry
+its own name here; K6 and K8's chain launched with a lane table, K13's
+compress_trace with per-lane valid counts and K14's div_stats with
+per-lane masks (the serve path) count under FORMS' names. Every C entry
 point launches on PyTorch's current stream and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code.
 `LAUNCHES` counts the launches of each entry point: a wrapper adds one
@@ -79,13 +80,13 @@ SIGNATURES = {
     "nsga_rank": ("tt_nsga_rank", [_P] * 4 + [_I] * 2 + [_P], "nsga"),
     "nsga_survivors": ("tt_nsga_survivors", [_P] * 15 + [_I] * 5 + [_P],
                        "nsga"),
-    "compress_trace": ("tt_compress_trace", [_P] * 2 + [_I] * 4 + [_P],
+    "compress_trace": ("tt_compress_trace", [_P] * 3 + [_I] * 4 + [_P],
                        "trace_compress"),
     "moment_rows": ("tt_moment_rows", [_P] * 3 + [_I] * 2 + [_P],
                     "trace_compress"),
     "quality_ops": ("tt_quality_ops", [_P] * 7 + [_I] * 2 + [_P],
                     "quality"),
-    "div_stats": ("tt_div_stats", [_P] * 5 + [_I] * 5 + [_P], "quality"),
+    "div_stats": ("tt_div_stats", [_P] * 5 + [_I] * 6 + [_P], "quality"),
 }
 
 # the entry points of each source
@@ -93,10 +94,13 @@ SOURCES: dict = {}
 for _name, (_, _, _src) in SIGNATURES.items():
     SOURCES.setdefault(_src, []).append(_name)
 
-# Forms of an entry point counted under a name of their own: K6 and K8's
-# chain with a lane table (the serve path's per-lane problems,
-# problem.py LaneProblems) are the same C entry points as without it
-FORMS = {"breed_lanes": "breed", "random_ls_lanes": "random_ls"}
+# Forms of an entry point counted under a name of their own, the serve
+# lanes' (problem.py LaneProblems): K6 and K8's chain with a lane table,
+# K13's compress_trace with a per-lane valid count and K14's div_stats
+# with a mask row a lane are the same C entry points as without them
+FORMS = {"breed_lanes": "breed", "random_ls_lanes": "random_ls",
+         "compress_trace_lanes": "compress_trace",
+         "div_stats_lanes": "div_stats"}
 
 LAUNCHES = {name: 0 for name in (*SIGNATURES, *FORMS)}
 

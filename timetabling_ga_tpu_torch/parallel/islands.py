@@ -38,9 +38,12 @@ The serve lanes (JAX islands.py:139 `pad_lanes`, :1087 `make_lane_init`,
 on its own problem, and `lane_run` advances a dispatch's lanes — each a
 job with its own problem (problem.LaneProblems), generator and count —
 through the serve generation, with no migration, returning each lane's
-per-generation best (hcv, scv) and sentinels past its count (trace mode
-`full`; the compressed modes and the quality block wait for K13's and
-K14's per-lane forms).
+per-generation best (hcv, scv) and sentinels past its count, or under
+`deltas`/`stats` (and `--quality`) the packed leaf with each lane's rows
+at and past its count masked (K13's lane form, `compress_trace_lanes`),
+then each lane's quality block: its counters over its own generations, a
+zero gain (lanes never migrate) and the diversity of its final rows
+under its own event mask (K14's lane form, `div_stats_lanes`).
 """
 
 from __future__ import annotations
@@ -191,14 +194,26 @@ def reported_f32(hcv, scv):
     return torch.where(hcv == 0, s, hcv.to(torch.float32) * 1e6 + s)
 
 
-def _moments(rep, dim):
+def _moments(rep, dim, valid=None):
     """(4, ...) float32 bits as int32 of (mean, var clamped at 0, min,
-    max) of `rep` over `dim` (JAX `_moment_rows`, float32 throughout)."""
-    n = float(max(rep.shape[dim], 1))
-    mean = rep.sum(dim) / n
-    var = torch.clamp((rep * rep).sum(dim) / n - mean * mean, min=0.0)
-    return torch.stack([mean, var, rep.amin(dim), rep.amax(dim)]).view(
-        torch.int32)
+    max) of `rep` over `dim` (JAX `_moment_rows`, float32 throughout).
+    With a boolean `valid` of rep's shape, JAX's mask-weighted form:
+    sums of the valid values over max(their count, 1), min and max over
+    them (+inf and -inf where none is)."""
+    if valid is None:
+        n = float(max(rep.shape[dim], 1))
+        mean = rep.sum(dim) / n
+        var = torch.clamp((rep * rep).sum(dim) / n - mean * mean, min=0.0)
+        mn, mx = rep.amin(dim), rep.amax(dim)
+    else:
+        w = valid.to(torch.float32)
+        n = torch.clamp(w.sum(dim), min=1.0)
+        mean = (rep * w).sum(dim) / n
+        var = torch.clamp((rep * rep * w).sum(dim) / n - mean * mean,
+                          min=0.0)
+        mn = torch.where(valid, rep, math.inf).amin(dim)
+        mx = torch.where(valid, rep, -math.inf).amax(dim)
+    return torch.stack([mean, var, mn, mx]).view(torch.int32)
 
 
 def moment_rows_plain(hcv, scv):
@@ -233,16 +248,32 @@ def _event_cap(T: int, cap) -> int:
     return min(T, TRACE_DELTAS_CAP if cap is None else cap)
 
 
-def compress_trace_plain(trace, trace_mode: str, cap: int = None):
-    """Plain version of K13's compress_trace entry (JAX `_compress_trace`
-    with every row valid): per island the running lexicographic minimum
-    of (hcv, scv) from the sentinel, its strict improvements, the last K
-    of them as (gen, hcv, scv) rows padded with the sentinel, their
-    count, and in stats mode the moments of the reported values."""
+def _valid_rows(n_valid, T: int, device):
+    """(L, T) bool: row t of island l is valid iff t < n_valid[l] (None
+    with n_valid None: every row)."""
+    if n_valid is None:
+        return None
+    nv = torch.as_tensor(n_valid, dtype=torch.int32, device=device)
+    return (torch.arange(T, dtype=torch.int32, device=device)[None, :]
+            < nv[:, None])
+
+
+def compress_trace_plain(trace, trace_mode: str, cap: int = None,
+                         n_valid=None):
+    """Plain version of K13's compress_trace entry (JAX `_compress_trace`):
+    per island the running lexicographic minimum of (hcv, scv) from the
+    sentinel over its valid rows, its strict improvements, the last K of
+    them as (gen, hcv, scv) rows padded with the sentinel, their count,
+    and in stats mode the moments of the valid rows' reported values
+    (`_moments`' masked form with an `n_valid`)."""
     L, T, _ = trace.shape
     K = _event_cap(T, cap)
     h, s = trace[..., 0], trace[..., 1]
     key = (h.to(torch.int64) << 32) | s.to(torch.int64)
+    valid = _valid_rows(n_valid, T, trace.device)
+    if valid is not None:
+        # an invalid row neither improves nor moves the running minimum
+        key = torch.where(valid, key, torch.iinfo(torch.int64).max)
     start = torch.full((L, 1), (SENTINEL << 32) | SENTINEL,
                        dtype=torch.int64, device=trace.device)
     before = torch.cat([start, key], 1).cummin(1).values[:, :T]
@@ -258,13 +289,15 @@ def compress_trace_plain(trace, trace_mode: str, cap: int = None):
     ev.scatter_(1, idx[..., None].expand(L, T, 3), rows)
     parts = [ev[:, :K].reshape(L, 3 * K), n_imp[:, None]]
     if trace_mode == "stats":
-        parts.append(_moments(reported_f32(h, s), 1).T)
+        parts.append(_moments(reported_f32(h, s), 1, valid).T)
     return torch.cat(parts, 1)
 
 
-def compress_trace_kernel(trace, trace_mode: str, cap: int = None):
+def compress_trace_kernel(trace, trace_mode: str, cap: int = None,
+                          n_valid=None):
     """K13's compress_trace entry: a warp an island, walking T in chunks
-    of 32 rows."""
+    of 32 rows, or, with an (L,) int32 n_valid (its lane form, counted as
+    compress_trace_lanes), its first n_valid[l] rows."""
     trace = trace.contiguous()
     if trace.dtype != torch.int32:
         raise TypeError("compress_trace takes an int32 trace")
@@ -273,19 +306,30 @@ def compress_trace_kernel(trace, trace_mode: str, cap: int = None):
     n_mom = TRACE_N_MOMENTS if trace_mode == "stats" else 0
     out = torch.empty((L, 3 * K + 1 + n_mom), dtype=torch.int32,
                       device=trace.device)
-    kernels.launch("compress_trace", kernels.ptr(trace), kernels.ptr(out),
-                   L, T, K, int(trace_mode == "stats"))
+    nv = None
+    if n_valid is not None:
+        nv = torch.as_tensor(n_valid, dtype=torch.int32,
+                             device=trace.device).contiguous()
+        if tuple(nv.shape) != (L,):
+            raise ValueError(f"compress_trace: n_valid {tuple(nv.shape)} "
+                             f"for {L} islands")
+    kernels.launch("compress_trace" if nv is None
+                   else "compress_trace_lanes", kernels.ptr(trace),
+                   None if nv is None else kernels.ptr(nv),
+                   kernels.ptr(out), L, T, K, int(trace_mode == "stats"))
     return out
 
 
-def compress_trace(trace, trace_mode: str, cap: int = None):
+def compress_trace(trace, trace_mode: str, cap: int = None, n_valid=None):
     """(L, T, 2) int32 per-generation (hcv, scv) trace -> (L, 3K + 1
     [+ 4]) packed leaf, K = min(T, cap), `cap` TRACE_DELTAS_CAP unless
-    given (a quality-packed `full` trace passes T): K13 on a CUDA
-    tensor, the plain version on a CPU one."""
+    given (a quality-packed `full` trace passes T). `n_valid`, an (L,)
+    int32 count (the serve lanes' generations), masks each island's rows
+    at and past it: they are never improvements and take no part in the
+    moments. K13 on a CUDA tensor, the plain version on a CPU one."""
     if not trace.is_cuda:
-        return compress_trace_plain(trace, trace_mode, cap)
-    return compress_trace_kernel(trace, trace_mode, cap)
+        return compress_trace_plain(trace, trace_mode, cap, n_valid)
+    return compress_trace_kernel(trace, trace_mode, cap, n_valid)
 
 
 def hamming_stride(pop: int) -> int:
@@ -320,9 +364,10 @@ def div_stats_plain(event_mask, slots, pen, scv, L: int):
     else:
         s = _blocks(slots, L)
         a, b = s[:, :k], torch.roll(s, -stride, 1)[:, :k]
-        m = event_mask.to(torch.float32)
-        live = torch.clamp(m.sum(), min=1.0)
-        ham = (((a != b).to(torch.float32) * m).sum((1, 2))
+        # a mask row a lane, or the one (E,) mask for every island
+        m = event_mask.to(torch.float32).expand(L, -1)
+        live = torch.clamp(m.sum(1), min=1.0)
+        ham = (((a != b).to(torch.float32) * m[:, None, :]).sum((1, 2))
                / (k * live))
     div = torch.cat([_div_moments(_blocks(pen, L).to(torch.float32)),
                      _div_moments(_blocks(scv, L).to(torch.float32)),
@@ -331,19 +376,26 @@ def div_stats_plain(event_mask, slots, pen, scv, L: int):
 
 
 def div_stats_kernel(event_mask, slots, pen, scv, L: int):
-    """K14's div_stats entry: a block an island."""
+    """K14's div_stats entry: a block an island, reading the shared (E,)
+    mask or, from an (L, E) one (its lane form, counted as
+    div_stats_lanes), its own row."""
     ins = [x.contiguous() for x in (pen, scv, slots)]
     if (any(x.dtype != torch.int32 for x in ins)
             or event_mask.dtype != torch.float32):
         raise TypeError("div_stats takes int32 rows and a float32 mask")
     pop = pen.shape[0] // L
+    E = slots.shape[1]
+    lanes = event_mask.dim() == 2
+    if lanes and tuple(event_mask.shape) != (L, E):
+        raise ValueError(f"div_stats: an event mask of "
+                         f"{tuple(event_mask.shape)} for {L} lanes of {E}")
     out = torch.empty((L, obs_quality.N_DIV), dtype=torch.int32,
                       device=pen.device)
     p = kernels.ptr
-    kernels.launch("div_stats", *(p(x) for x in ins),
-                   p(event_mask.contiguous()), p(out), L, pop,
-                   slots.shape[1], min(pop, obs_quality.HAMMING_PAIRS),
-                   hamming_stride(pop))
+    kernels.launch("div_stats_lanes" if lanes else "div_stats",
+                   *(p(x) for x in ins), p(event_mask.contiguous()), p(out),
+                   L, pop, E, min(pop, obs_quality.HAMMING_PAIRS),
+                   hamming_stride(pop), E if lanes else 0)
     return out
 
 
@@ -353,10 +405,14 @@ def div_stats(pa, state: ga.PopState, L: int):
     mean, var, min and max of penalty and of scv, then the Hamming
     sample — the share of live events (event_mask) on which rows i and
     (i + stride) mod pop differ, over the first min(pop, HAMMING_PAIRS)
-    rows, as one float32 division by k * live; 0 when pop < 2. Kernel
+    rows, as one float32 division by k * live; 0 when pop < 2. With `pa`
+    a LaneProblems (the serve lanes, JAX's vmap of `_div_stats` over the
+    lanes' problems) each lane counts under its own event mask. Kernel
     K14 on CUDA tensors, the plain version on CPU ones."""
+    mask = (pa.event_masks if isinstance(pa, LaneProblems)
+            else pa.event_mask)
     fn = div_stats_kernel if state.slots.is_cuda else div_stats_plain
-    return fn(pa.event_mask, state.slots, state.penalty, state.scv, L)
+    return fn(mask, state.slots, state.penalty, state.scv, L)
 
 
 def trace_events(trace, trace_mode: str):
@@ -587,40 +643,47 @@ def _lane_rows(lanes, pop: int, device) -> torch.Tensor:
             * pop + torch.arange(pop, device=device)).reshape(-1)
 
 
-def _gather_lanes(state: ga.PopState, lanes, L: int, pop: int):
-    """The rows of `lanes` (all L of them: `state` itself)."""
-    if len(lanes) == L:
-        return state
-    idx = _lane_rows(lanes, pop, state.slots.device)
-    return ga.PopState(*(x[idx] for x in state))
+def _gather_lanes(xs, lanes, L: int, per: int) -> tuple:
+    """The rows of `lanes`' blocks of `per` rows of each tensor of `xs`
+    (all L of them, or no tensor: `xs` itself)."""
+    if len(lanes) == L or not xs:
+        return tuple(xs)
+    idx = _lane_rows(lanes, per, xs[0].device)
+    return tuple(x[idx] for x in xs)
 
 
-def _scatter_lanes(state: ga.PopState, lanes, rows: ga.PopState, L: int,
-                   pop: int):
-    """`state` with the rows of `lanes` replaced by `rows` (all L of
-    them: `rows` itself)."""
-    if len(lanes) == L:
-        return rows
-    idx = _lane_rows(lanes, pop, state.slots.device)
-    return ga.PopState(*(x.index_copy(0, idx, y)
-                         for x, y in zip(state, rows)))
+def _scatter_lanes(xs, lanes, rows, L: int, per: int) -> tuple:
+    """`xs` with the rows of `lanes` replaced by `rows` (all L of them:
+    `rows` itself)."""
+    if len(lanes) == L or not xs:
+        return tuple(rows)
+    idx = _lane_rows(lanes, per, xs[0].device)
+    return tuple(x.index_copy(0, idx, y) for x, y in zip(xs, rows))
 
 
 def lane_run(lp: LaneProblems, gens, state: ga.PopState, counts,
-             cfg: ga.GAConfig, max_gens: int):
-    """One serve dispatch (JAX make_lane_runner, trace mode full, no
-    quality): lane l of `lp` (its rows the l-th block of `state`) runs
-    counts[l] <= max_gens generations of `cfg` drawn from its generator
-    gens[l] (None where counts[l] is 0), with no migration. Returns
-    (state, trace): trace (L, max_gens, 2) int32 on the device, each
-    lane's best (hcv, scv) after each of its generations and the
-    sentinel past its count (JAX's tr0).
+             cfg: ga.GAConfig, max_gens: int, trace_mode: str = "full",
+             quality: bool = False):
+    """One serve dispatch (JAX make_lane_runner, islands.py:1148-1218):
+    lane l of `lp` (its rows the l-th block of `state`) runs counts[l] <=
+    max_gens generations of `cfg` drawn from its generator gens[l] (None
+    where counts[l] is 0), with no migration. Returns (state, trace):
+    trace on the device, (L, max_gens, 2) int32 in trace mode `full`,
+    each lane's best (hcv, scv) after each of its generations and the
+    sentinel past its count (JAX's tr0); under `deltas`/`stats` the
+    packed leaf of those rows with each lane's count as its valid count
+    (`compress_trace`'s n_valid). With `quality` the leaf is packed as
+    `effective_trace_mode` says (an upgraded `full` trace uncapped, K =
+    max_gens) and each lane's row gets its quality block: the operator
+    counters of its own generations, a zero gain and the diversity of
+    its final rows under its own event mask.
 
     A lane whose count is reached drops out of the launches: the still
-    running lanes' rows are gathered (and their problems selected) when
-    the set shrinks, at most L - 1 times a dispatch, so no kernel takes a
-    mask and a lane's rows stay as its last generation left them. Only
-    lanes with a count > 0 ever run."""
+    running lanes' rows (and their counters' rows) are gathered, and
+    their problems selected, when the set shrinks, at most L - 1 times a
+    dispatch, so no kernel takes a mask, a lane's rows stay as its last
+    generation left them and a lane that has dropped out counts nothing
+    more (JAX's `keep`). Only lanes with a count > 0 ever run."""
     L = len(lp)
     if len(counts) != L or len(gens) != L:
         raise ValueError("lane_run: one count and one generator a lane")
@@ -631,13 +694,20 @@ def lane_run(lp: LaneProblems, gens, state: ga.PopState, counts,
     dev = state.slots.device
     trace = torch.full((L, max_gens, 2), SENTINEL, dtype=torch.int32,
                        device=dev)
-    cur_lanes, cur = [], None        # the running lanes and their rows
-    for i in range(max(counts)):
+    # the operator counters, one row a lane (none without quality)
+    qacc = ((torch.zeros((L, obs_quality.N_OPS), dtype=torch.int32,
+                         device=dev),) if quality else ())
+    cur_lanes, cur, cur_q = [], None, ()   # the running lanes' rows
+    for i in range(max(counts, default=0)):
         run = [lane for lane in range(L) if counts[lane] > i]
         if run != cur_lanes:
             if cur_lanes:
-                state = _scatter_lanes(state, cur_lanes, cur, L, pop)
-            cur_lanes, cur = run, _gather_lanes(state, run, L, pop)
+                state = ga.PopState(*_scatter_lanes(state, cur_lanes, cur,
+                                                    L, pop))
+                qacc = _scatter_lanes(qacc, cur_lanes, cur_q, L, 1)
+            cur_lanes = run
+            cur = ga.PopState(*_gather_lanes(state, run, L, pop))
+            cur_q = _gather_lanes(qacc, run, L, 1)
             sub = lp if len(run) == L else lp.select(run)
             rows = (slice(None) if len(run) == L
                     else torch.as_tensor(run, device=dev))
@@ -645,9 +715,24 @@ def lane_run(lp: LaneProblems, gens, state: ga.PopState, counts,
         draws = ga.make_breed_draws(g, pop, lp.n_events, lp.n_slots, cfg,
                                     dev)
         cur = ga.generation(sub, draws, ga.ls_draws_fn(g, pop, sub, cfg),
-                            cur, cfg, groups=len(run))
+                            cur, cfg, groups=len(run),
+                            qacc=cur_q[0] if cur_q else None)
         trace[rows, i] = torch.stack([_blocks(cur.hcv, len(run))[:, 0],
                                       _blocks(cur.scv, len(run))[:, 0]], -1)
     if cur_lanes:
-        state = _scatter_lanes(state, cur_lanes, cur, L, pop)
+        state = ga.PopState(*_scatter_lanes(state, cur_lanes, cur, L, pop))
+        qacc = _scatter_lanes(qacc, cur_lanes, cur_q, L, 1)
+    mode = effective_trace_mode(trace_mode, quality)
+    if mode != "full":
+        trace = compress_trace(
+            trace, mode, max_gens if mode != trace_mode else None,
+            n_valid=torch.tensor(list(counts), dtype=torch.int32,
+                                 device=dev))
+    if quality:
+        # lanes never migrate: the gain column is zeros, so the layout
+        # stays the island runners' (JAX _append_quality)
+        trace = torch.cat([trace, *qacc,
+                           torch.zeros((L, 1), dtype=torch.int32,
+                                       device=dev),
+                           div_stats(lp, state, L)], 1)
     return state, trace

@@ -2,7 +2,9 @@
 
 A copy of `timetabling_ga_tpu/problem.py`'s host side — `Problem`,
 `derive`, `load_tim`, `load_tim_file`, `dump_tim`, `random_instance`,
-`itc_like_instance` — kept here because the port never imports the JAX
+`itc_like_instance` — and of the problem JSON codec of
+`timetabling_ga_tpu/fleet/replicas.py` (`problem_from_json`,
+`problem_to_json`), kept here because the port never imports the JAX
 package. What differs is the device view: `ProblemArrays` holds torch
 tensors on an explicit device, with the same fields, dtypes and masks as
 the JAX `ProblemArrays` (problem.py:128-170) plus the derived forms the
@@ -68,6 +70,11 @@ class Problem:
     @property
     def n_slots(self) -> int:
         return self.n_days * self.slots_per_day
+
+    def to_tim(self) -> str:
+        """Canonical `.tim` text (dump_tim); load_tim reads it back
+        exactly."""
+        return dump_tim(self)
 
     def device_arrays(self, device="cpu") -> "ProblemArrays":
         """The kernel-facing tensors on `device` (see ProblemArrays)."""
@@ -205,9 +212,19 @@ class LaneProblems:
             table = torch.tensor(rows, dtype=torch.int64,
                                  device=first.device)
         self.table = table
+        self._event_masks = None
 
     def __len__(self) -> int:
         return len(self.pas)
+
+    @property
+    def event_masks(self) -> torch.Tensor:
+        """(L, E) float32: each lane's event mask (K14's lane form reads
+        a row a lane), stacked once."""
+        if self._event_masks is None:
+            self._event_masks = torch.stack([pa.event_mask
+                                             for pa in self.pas])
+        return self._event_masks
 
     def select(self, lanes) -> "LaneProblems":
         """The problems of `lanes` (indices), in that order."""
@@ -430,6 +447,40 @@ def dump_tim(problem: Problem) -> str:
     lines += [str(int(x)) for x in problem.room_features.reshape(-1)]
     lines += [str(int(x)) for x in problem.event_features.reshape(-1)]
     return "\n".join(lines) + "\n"
+
+
+def problem_from_json(obj: dict) -> Problem:
+    """The problem JSON object (the `{"problem": {...}}` form of a submit
+    or an edit base; JAX fleet/replicas.py:220) as a Problem: the counts
+    and the four reference arrays, the derived matrices recomputed."""
+    try:
+        E, R, F, S = (int(obj[k]) for k in (
+            "n_events", "n_rooms", "n_features", "n_students"))
+        return derive(
+            E, R, F, S,
+            np.asarray(obj["room_size"], np.int32),
+            np.asarray(obj["attends"], np.int8),
+            np.asarray(obj["room_features"], np.int8),
+            np.asarray(obj["event_features"], np.int8),
+            n_days=int(obj.get("n_days", DAYS_DEFAULT)),
+            slots_per_day=int(obj.get("slots_per_day",
+                                      SLOTS_PER_DAY_DEFAULT)))
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"bad problem JSON: {e}") from None
+
+
+def problem_to_json(problem: Problem) -> dict:
+    """A Problem as the JSON object problem_from_json reads (JAX
+    fleet/replicas.py:246)."""
+    return {"n_events": problem.n_events, "n_rooms": problem.n_rooms,
+            "n_features": problem.n_features,
+            "n_students": problem.n_students,
+            "n_days": problem.n_days,
+            "slots_per_day": problem.slots_per_day,
+            "room_size": np.asarray(problem.room_size).tolist(),
+            "attends": np.asarray(problem.attends).tolist(),
+            "room_features": np.asarray(problem.room_features).tolist(),
+            "event_features": np.asarray(problem.event_features).tolist()}
 
 
 def random_instance(key_or_seed, n_events: int, n_rooms: int,

@@ -143,9 +143,10 @@ def save(path: str, state: ga.PopState, key, generation: int,
 
 # np.load failures that mean the file on disk is damaged (truncated zip,
 # bad magic, member cut short, missing arrays); not OSError, so that a
-# transient read error on an intact newest file propagates
-_CORRUPT_ERRORS = (zipfile.BadZipFile, zlib.error, ValueError, EOFError,
-                   KeyError)
+# transient read error on an intact newest file propagates (serve/
+# snapshot.py classifies a torn npz of a job's wire by the same errors)
+CORRUPT_ERRORS = (zipfile.BadZipFile, zlib.error, ValueError, EOFError,
+                  KeyError)
 
 
 def _load_one(path: str, fingerprint: str) -> Loaded:
@@ -184,7 +185,7 @@ def load(path: str, fingerprint: str) -> Loaded:
         if not os.path.exists(prev):
             raise
         first_err: BaseException = FileNotFoundError(path)
-    except _CORRUPT_ERRORS as e:
+    except CORRUPT_ERRORS as e:
         first_err = e
     if not os.path.exists(prev):
         raise CheckpointCorrupt(
@@ -193,7 +194,7 @@ def load(path: str, fingerprint: str) -> Loaded:
     try:
         result = _load_one(prev, fingerprint)
     except (FingerprintMismatch, FileNotFoundError,
-            *_CORRUPT_ERRORS) as e2:
+            *CORRUPT_ERRORS) as e2:
         raise CheckpointCorrupt(
             f"checkpoint {path!r} is unreadable ({first_err!r}) and the "
             f"previous checkpoint {prev!r} failed too ({e2!r})"

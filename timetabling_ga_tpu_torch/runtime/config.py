@@ -24,9 +24,9 @@ CUDA device raises instead of falling back to the CPU.
 
 `ServeConfig` and `parse_serve_args` are the `serve` subcommand's (JAX
 config.py:689-936): the same flags, defaults and messages for what the
-port serves; the service's other flags (`SERVE_NOT_PORTED`),
-`--trace-mode deltas|stats` and `--mesh-devices` above 1 stop the parse
-by name.
+port serves (`--trace-mode full|deltas|stats` and `--quality` among
+them); the service's other flags (`SERVE_NOT_PORTED`) and
+`--mesh-devices` above 1 stop the parse by name.
 """
 
 from __future__ import annotations
@@ -345,6 +345,10 @@ class ServeConfig:
     #                               ls_candidates)
     ls_candidates: int = 8
     trace_mode: str = "full"      # the lane runner's telemetry: full
+    #                               (every generation's best), deltas or
+    #                               stats (the packed leaf, K13)
+    quality: bool = False         # the quality block on every quantum's
+    #                               leaf (quality.* metrics; K14)
     usage: bool = True            # usage metering; the port has none and
     #                               runs as JAX does under --no-usage
 
@@ -370,6 +374,8 @@ _SERVE_FLAG_MAP = {
     "--trace-mode": ("trace_mode", str),
 }
 
+_SERVE_BOOL_FLAGS = {"--quality": "quality"}
+
 _SERVE_NEG_BOOL_FLAGS = {"--no-usage": "usage",
                          "--no-resident": "resident"}
 
@@ -382,7 +388,7 @@ SERVE_NOT_PORTED = {
     "--mem-poll-every": True, "--shed-queue-hwm": True,
     "--shed-writer-hwm": True, "--faults": True, "--http": True,
     "--max-job-recoveries": True, "--preempt-grace": True,
-    "--obs": False, "--quality": False, "--preempt-on-term": False,
+    "--obs": False, "--preempt-on-term": False,
 }
 
 
@@ -390,22 +396,22 @@ def _serve_usage() -> str:
     return _format_usage(
         "usage: python -m timetabling_ga_tpu_torch serve [flags] "
         "(line-JSON jobs on -i/stdin, job-tagged JSONL records on "
-        "-o/stdout)", _SERVE_FLAG_MAP, (_SERVE_NEG_BOOL_FLAGS,))
+        "-o/stdout)", _SERVE_FLAG_MAP,
+        (_SERVE_BOOL_FLAGS, _SERVE_NEG_BOOL_FLAGS))
 
 
 def parse_serve_args(argv) -> ServeConfig:
     """Parse the `serve` subcommand's flags (JAX config.py:885, the same
     checks and messages for the flags the port serves)."""
     cfg = ServeConfig()
-    _parse_flag_stream(argv, cfg, _SERVE_FLAG_MAP, _serve_usage, {},
-                       _SERVE_NEG_BOOL_FLAGS, SERVE_NOT_PORTED)
+    _parse_flag_stream(argv, cfg, _SERVE_FLAG_MAP, _serve_usage,
+                       _SERVE_BOOL_FLAGS, _SERVE_NEG_BOOL_FLAGS,
+                       SERVE_NOT_PORTED)
     if cfg.backend not in ("gpu", "cpu"):
         raise SystemExit(f"unknown backend: {cfg.backend} (gpu or cpu)")
     if cfg.trace_mode not in _KNOWN_VALUES["trace_mode"]:
         raise SystemExit(f"unknown trace-mode: {cfg.trace_mode} (one of "
                          f"{', '.join(_KNOWN_VALUES['trace_mode'])})")
-    if cfg.trace_mode != "full":
-        raise not_ported(f"--trace-mode {cfg.trace_mode} on the serve path")
     if cfg.lanes < 1:
         raise SystemExit("--lanes must be >= 1")
     if cfg.mesh_devices < 0:

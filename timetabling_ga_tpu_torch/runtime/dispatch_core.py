@@ -8,17 +8,23 @@ timetabling_ga_tpu/runtime/dispatch_core.py:344-525).
                   `serve.resume_bytes`
     fetch_leaf    a telemetry leaf (a trace) to the host
     fetch_state   a PopState to the host in one device read
+    decode_telemetry  a fetched trace leaf's events, moments and quality
+                  rows, dropped improvement events counted (JAX :520)
 
-The engine's final read and checkpoints and the serve scheduler's parks
-share them. JAX's dispatch pipeline (A16) is not ported yet.
+The engine's final read, checkpoints and trace decode and the serve
+scheduler's parks and quanta share them. JAX's dispatch pipeline (A16)
+is not ported yet.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
 
 from timetabling_ga_tpu_torch.ops import ga
+from timetabling_ga_tpu_torch.parallel import islands
 
 
 def place_state(host: ga.PopState, device) -> ga.PopState:
@@ -51,3 +57,32 @@ def fetch_state(state: ga.PopState) -> ga.PopState:
     E = state.slots.shape[1]
     return ga.PopState(packed[:, :E], packed[:, E:2 * E], packed[:, 2 * E],
                        packed[:, 2 * E + 1], packed[:, 2 * E + 2])
+
+
+def decode_telemetry(trace, quality: bool, trace_mode: str, metrics,
+                     overflow_counter: str, overflow_warned: bool,
+                     warn_label: str = ""):
+    """The telemetry decode of a retired dispatch or quantum, shared by
+    the engine and the serve scheduler (JAX dispatch_core.py:520): the
+    quality rows split off the fetched leaf, its events decoded under
+    the effective trace mode (a `full` trace packs as deltas under
+    quality; the record stream is the same), and the improvement events
+    the event block could not hold counted into `overflow_counter` of
+    `metrics` (engine.trace_delta_overflow, serve.trace_delta_overflow),
+    with one warning on stderr, prefixed by `warn_label`. Returns
+    (events, moments, quality rows or None, overflow_warned)."""
+    trace, qrows = islands.split_quality(trace, quality)
+    events, counts, moments = islands.trace_events(
+        trace, islands.effective_trace_mode(trace_mode, quality))
+    if counts is not None:
+        dropped = int(sum(max(0, int(c) - len(e))
+                          for c, e in zip(counts, events)))
+        if dropped:
+            metrics.counter(overflow_counter).inc(dropped)
+            if not overflow_warned:
+                overflow_warned = True
+                print(f"warning: {warn_label}--trace-mode {trace_mode} "
+                      f"dropped {dropped} improvement event(s) this "
+                      f"dispatch (cap {islands.TRACE_DELTAS_CAP}; raise "
+                      f"TT_TRACE_DELTAS_CAP)", file=sys.stderr)
+    return events, moments, qrows, overflow_warned

@@ -12,8 +12,8 @@ timetabling_ga_tpu/runtime/engine.py:885-1066 and `_run_tries` :1272-).
 Every dispatch ends in one host read of its best trace — the full
 (hcv, scv) trace, or under `--trace-mode deltas|stats` the packed leaf
 of its improvements that K13 computes on the card (islands.
-compress_trace) — decoded as JAX's dispatch_core.decode_telemetry does
-(without the quality split): the events feed the logEntry stream with
+compress_trace) — decoded by dispatch_core.decode_telemetry, the
+decode the serve scheduler shares: the events feed the logEntry stream with
 the generation index each carries, dropped events count into
 `engine.trace_delta_overflow`, and stats mode sets the
 `engine.trace_best_*`, `engine.polish_*` and `engine.lahc_best_*` gauges
@@ -74,6 +74,7 @@ from timetabling_ga_tpu_torch.problem import load_tim_file
 from timetabling_ga_tpu_torch.runtime import checkpoint as ckpt
 from timetabling_ga_tpu_torch.runtime import jsonl
 from timetabling_ga_tpu_torch.runtime.config import RunConfig
+from timetabling_ga_tpu_torch.runtime import dispatch_core as dcore
 from timetabling_ga_tpu_torch.runtime.dispatch_core import (
     fetch_state, place_state)
 
@@ -178,30 +179,6 @@ def resume_generators(device, loaded: ckpt.Loaded, seed: int, trial: int,
           f"{device.type} island generators from (seed, trial, island, "
           f"generation {loaded.generation})", file=sys.stderr)
     return island_generators(device, seed, trial, n, loaded.generation)
-
-
-def decode_trace(trace, trace_mode: str, overflow_warned: bool,
-                 quality: bool = False):
-    """Decode a fetched trace leaf (JAX dispatch_core.decode_telemetry):
-    the quality block split off, then its events and moments under the
-    effective trace mode, with dropped improvement events counted into
-    engine.trace_delta_overflow and warned about once. Returns (events,
-    moments, quality rows or None, overflow_warned)."""
-    trace, qrows = islands.split_quality(trace, quality)
-    events, counts, moments = islands.trace_events(
-        trace, islands.effective_trace_mode(trace_mode, quality))
-    if counts is not None:
-        dropped = int(sum(max(0, int(c) - len(e))
-                          for c, e in zip(counts, events)))
-        if dropped:
-            REGISTRY.counter("engine.trace_delta_overflow").inc(dropped)
-            if not overflow_warned:
-                overflow_warned = True
-                print(f"warning: --trace-mode {trace_mode} dropped "
-                      f"{dropped} improvement event(s) this dispatch (cap "
-                      f"{islands.TRACE_DELTAS_CAP}; raise "
-                      f"TT_TRACE_DELTAS_CAP)", file=sys.stderr)
-    return events, moments, qrows, overflow_warned
 
 
 def record_quality(qrows) -> dict:
@@ -549,8 +526,11 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
         spg = dt / gens_run
         sec_per_gen = spg if sec_per_gen is None else (
             0.7 * spg + 0.3 * sec_per_gen)
-        events, moments, qrows, overflow_warned = decode_trace(
-            trace, cfg.trace_mode, overflow_warned, cfg.quality)
+        events, moments, qrows, overflow_warned = \
+            dcore.decode_telemetry(
+                trace, cfg.quality, cfg.trace_mode, metrics=REGISTRY,
+                overflow_counter="engine.trace_delta_overflow",
+                overflow_warned=overflow_warned)
         for i in range(n_islands):
             for gi, h, sc in events[i]:
                 tr.observe(i, h, sc,

@@ -75,7 +75,9 @@ def job_entry(stream: IO, job: str, event: str, **extra) -> dict:
     """The serve path's lifecycle record (JAX jsonl.py:308): one line per
     job transition — admitted, rejected, started, done, failed,
     cancelled — with its context in `extra` (bucket, generation counts,
-    a rejection's reason). No wall-clock field: strip_timing keeps it."""
+    a rejection's reason; an edit job's `mode`, `edit_of`, `demoted` and,
+    when done, `edit_distance`). No wall-clock field: strip_timing keeps
+    it."""
     rec = {"job": str(job), "event": str(event)}
     for k, v in extra.items():
         rec[k] = v
@@ -108,9 +110,12 @@ def fault_entry(stream: IO, site: str, action: str, error, trial: int,
     one line per event, `site` the operation class, `action` what was
     done, `recovery` the recoveries so far, `level` the degradation
     level, `time` seconds into the trial. The port writes it for the
-    quality telemetry's stall and kick events (site "quality"), with
-    recovery and level 0: it has no supervisor yet. A TIMING_RECORDS
-    member, so strip_timing drops it."""
+    quality telemetry's stall and kick events (site "quality") and for
+    the serve path's seams, each tagged `job`: a warm start (site
+    "fleet", action "resume", with the wire's `gens` and `chunks`), a
+    refused wire (site "resume", action "replay") and a demoted edit
+    (site "edit", action "demote"); recovery and level are 0: it has no
+    supervisor yet. A TIMING_RECORDS member, so strip_timing drops it."""
     rec = {"site": str(site), "action": str(action),
            "error": str(error)[:200], "trial": int(trial),
            "recovery": int(recovery), "level": int(level),

@@ -10,6 +10,10 @@ timetabling_ga_tpu/serve).
                 each lane its own problem: problem.LaneProblems),
                 time-slices them into generation quanta, parks and
                 resumes them, keeps unchanged groups on the card
+  snapshot.py   the per-job wire format: a park fence's state and
+                progress, shipped and resumed (warm starts)
+  editsolve.py  edit specs, the population transplant and the anchored
+                objective's host side (edit jobs)
   service.py    the Python API (SolveService) and the line-JSON protocol
                 (`python -m timetabling_ga_tpu_torch serve`)
 """

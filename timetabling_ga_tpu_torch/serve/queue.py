@@ -1,6 +1,7 @@
 """Job admission and lifecycle for the solver service (copy of
-timetabling_ga_tpu/serve/queue.py:33-257, with the fields this slice
-uses: warm starts, shipping, usage metering and edits wait).
+timetabling_ga_tpu/serve/queue.py:33-257, with the fields the port
+uses: warm starts, shipping and edits are here; usage metering, flows,
+recoveries and the fleet's ship_hot wait).
 
 The backlog is bounded (admission control): a submit past it is
 rejected at once rather than queued into unbounded latency. Priorities
@@ -20,12 +21,14 @@ snapshot, or, while its group stays resident, on the card.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import re
 from typing import Optional
 
 from timetabling_ga_tpu_torch.problem import Problem
+from timetabling_ga_tpu_torch.serve.snapshot import SHIP_RECORDS_CAP
 
 DEFAULT_TENANT = "default"
 # no dots: JAX splices the label into dotted metric names
@@ -79,8 +82,24 @@ class Job:
     chunks: int = 0                   # dispatched quanta (its generators'
     #                                   chunk word)
     snapshot: object = None           # host PopState as of its last park
-    parked_once: bool = False         # parked to the host at least once:
-    #                                   its group may then stay resident
+    # -- warm starts and shipping (serve/snapshot.py) --------------------
+    resume_wire: Optional[dict] = None  # warm-start wire given at submit
+    #                                   (consumed at admission)
+    ship: object = None               # ShipUnit: the last park fence's
+    #                                   state and record prefix; once set
+    #                                   the job's group may stay resident
+    ship_records: collections.deque = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=SHIP_RECORDS_CAP))
+    #                                   the job's records so far, a ring
+    #                                   of SHIP_RECORDS_CAP
+    ship_truncated: bool = False      # ship_records dropped its oldest
+    resumed_at: int = 0               # gens_done restored from a wire
+    # -- incremental re-solve (serve/editsolve.py) -----------------------
+    mode: str = "solve"               # "solve" | "edit"
+    edit_of: Optional[str] = None     # the base job's id, when known
+    edit_map: object = None           # (E_edited,) int32 base event of
+    #                                   each edited event, -1 for a new one
+    edit_demoted: bool = False        # a valid edit that ran cold
     best: int = 2 ** 31 - 1           # reported-form best seen
     emitted: int = 2 ** 31 - 1        # logEntry floor (no duplicates)
     submitted_t: float = 0.0
@@ -141,6 +160,7 @@ class JobQueue:
         job.state = JobState.CANCELLED
         job.finished_t = self._now()
         job.snapshot = None
+        job.ship = None
         return True
 
     def ready(self, bucket: Optional[tuple] = None) -> list:

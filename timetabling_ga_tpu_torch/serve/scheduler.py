@@ -15,19 +15,39 @@ timetabling_ga_tpu/serve/scheduler.py:104-1130 on one card).
 
   PARKING   a job's population between quanta is a host snapshot
             (dispatch_core.fetch_state), placed back with
-            dispatch_core.place_state at its next slice.
+            dispatch_core.place_state at its next slice. Every host park
+            fence is also a ship fence: the job's ShipUnit (serve/
+            snapshot.py) is replaced by that fence's state and the
+            record prefix emitted through it (`_ship_rec`, bounded), the
+            unit a warm start elsewhere resumes from.
 
   RESIDENCY while a group's lanes are unchanged between consecutive
             quanta (same bucket, same jobs in the same order) its state
-            stays on the card and only the trace is fetched. Residency
-            starts at the second consecutive quantum of an unchanged
-            pack — every member must have parked to the host once (JAX's
-            `job.ship is not None`) — and ends on a repack, a finishing
-            job, a deadline or an idle fence, each of which parks the
-            group (a flush). While resident a job's snapshot is its last
-            host fence's: a deadline flushes the group before it
-            finalizes the job. --no-resident parks every quantum; the
-            record stream is the same either way.
+            stays on the card and only the trace is fetched. A group
+            may stay only when every member has a ship unit (JAX's
+            `job.ship is not None`): a fresh job parks once first, a
+            warm-started job has one from admission. Residency ends on
+            a repack, a finishing job, a deadline, an idle fence or
+            `flush_resident` (a ship request), each of which parks the
+            group (a flush). While resident a job's snapshot and ship
+            unit are its last host fence's: a deadline flushes the group
+            before it finalizes the job. --no-resident parks every
+            quantum; the record stream is the same either way.
+
+  WARM STARTS a submit's `snapshot` wire admits the job PARKED at the
+            wire's progress (`_admit_resumed`): no init, the stream
+            continuing from the wire's `emitted` floor, one faultEntry
+            (site fleet, action resume) as the seam. A wire that fails
+            validation falls back to a fresh solve (faultEntry resume /
+            replay, serve.jobs_resume_rejected). An edit job (serve/
+            editsolve.py) is warm-started from a population transplanted
+            out of its base wire (`prepare_edit`), or demoted to a cold
+            solve of its edited instance.
+
+  TELEMETRY each quantum's leaf is packed under --trace-mode and
+            --quality (islands.lane_run) and decoded by
+            dispatch_core.decode_telemetry; the quality rows of the real
+            lanes fold into the quality.* counters and gauges.
 
   FAIRNESS  buckets are served round-robin; within one, jobs go in
             (priority desc, generations served asc, arrival) order.
@@ -44,15 +64,20 @@ what JAX's do on the same schedule), but only occupied lanes run: the
 port has no compile cache keyed on the width, so JAX's zero-generation
 filler lanes would be idle work. An exception in a quantum propagates:
 JAX's quantum recovery (`_recover_quantum`) and load shedding wait for
-the dispatch pipeline's fault handling (A16).
+the dispatch pipeline's fault handling (A16), and JAX's
+`faults.maybe_fail` sites (edit, resume, quantum) for runtime/faults.py.
+The usage meter is not ported: the port runs as JAX does under
+--no-usage.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 
+from timetabling_ga_tpu_torch.obs import quality as obs_quality
 from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
 from timetabling_ga_tpu_torch.ops import ga
 from timetabling_ga_tpu_torch.parallel import islands
@@ -61,6 +86,7 @@ from timetabling_ga_tpu_torch.runtime import dispatch_core as dcore
 from timetabling_ga_tpu_torch.runtime import jsonl
 from timetabling_ga_tpu_torch.runtime.config import ServeConfig
 from timetabling_ga_tpu_torch.serve import bucket as bucket_mod
+from timetabling_ga_tpu_torch.serve import snapshot as snapshot_mod
 from timetabling_ga_tpu_torch.serve.queue import (
     DEFAULT_TENANT, Job, JobQueue, JobState)
 
@@ -129,6 +155,7 @@ class Scheduler:
         self._packs: dict = {}
         self.gacfg = serve_ga_config(cfg)
         self._rr = 0               # round-robin cursor over buckets
+        self._overflow_warned = False
 
     # -- admission ------------------------------------------------------
 
@@ -140,16 +167,123 @@ class Scheduler:
         job.bucket = bucket_mod.bucket_key(job.problem, self.spec)
         job.pa_dev = job.padded.device_arrays(self.device)
 
+    def prepare_edit(self, job: Job, base_wire) -> None:
+        """Warm-start an edit job from its base wire (JAX scheduler.py:
+        220), after `prepare` and only when the job brings no wire of its
+        own: the transplanted population becomes job.resume_wire, which
+        `admit` restores as any warm start. Any failure (a cross-bucket
+        edit, no or a bad base wire, a population mismatch) demotes the
+        job to a cold solve of its edited instance: one faultEntry (site
+        edit, action demote) and serve.jobs_edit_demoted, never an
+        error. (JAX's fault site `edit` waits for runtime/faults.py.)"""
+        from timetabling_ga_tpu_torch.serve import editsolve
+        self._metrics.counter("serve.jobs_edit").inc()
+        try:
+            job.resume_wire = editsolve.transplant(
+                job.padded, job.edit_map, base_wire, bucket=job.bucket,
+                pop_size=self.cfg.pop_size, seed=job.seed, pa=job.pa_dev)
+        except KeyboardInterrupt:
+            raise
+        except BaseException as e:
+            job.edit_demoted = True
+            job.resume_wire = None
+            jsonl.fault_entry(self.out, "edit", "demote", e, 0, 0, 0,
+                              self._now() - job.submitted_t, job=job.id)
+            self._metrics.counter("serve.jobs_edit_demoted").inc()
+
     def admit(self, job: Job) -> None:
-        """Record the admission (after queue.submit succeeds)."""
+        """Record the admission (after queue.submit succeeds). A job with
+        a warm-start wire is admitted PARKED at the wire's progress when
+        the wire holds (`_admit_resumed`): only an edit job then writes
+        its admitted jobEntry (its transplant is its birth, not a
+        recovery seam); a wire that fails falls back to a fresh job."""
+        resumed = (job.resume_wire is not None
+                   and self._admit_resumed(job))
+        if resumed and job.mode != "edit":
+            self._metrics.counter("serve.jobs_admitted").inc()
+            return
         extra = {}
         if job.tenant != DEFAULT_TENANT:
             extra["tenant"] = job.tenant
-        jsonl.job_entry(self.out, job.id, "admitted",
-                        bucket=list(job.bucket),
-                        generations=job.generations,
-                        priority=job.priority, **extra)
+        if job.mode != "solve":
+            extra["mode"] = job.mode
+            if job.edit_of:
+                extra["edit_of"] = job.edit_of
+            if job.edit_demoted:
+                extra["demoted"] = True
+        self._ship_rec(job, jsonl.job_entry(
+            self.out, job.id, "admitted", bucket=list(job.bucket),
+            generations=job.generations, priority=job.priority, **extra))
         self._metrics.counter("serve.jobs_admitted").inc()
+
+    def _ship_rec(self, job: Job, rec: dict) -> None:
+        """Mirror one just-written record into the job's ship prefix, a
+        ring of SHIP_RECORDS_CAP: past it the oldest drop and the unit is
+        marked truncated."""
+        if len(job.ship_records) == job.ship_records.maxlen:
+            job.ship_truncated = True
+        job.ship_records.append(rec)
+
+    def _ship_unit(self, job: Job,
+                   wire: Optional[dict] = None) -> snapshot_mod.ShipUnit:
+        """The job's unit at this host fence: its snapshot and the record
+        prefix through the fence (`wire`: the unit's packed form, where
+        it was admitted from one)."""
+        return snapshot_mod.ShipUnit(
+            state=job.snapshot, bucket=job.bucket,
+            pop_size=self.cfg.pop_size, seed=job.seed,
+            gens_done=job.gens_done, chunks=job.chunks,
+            emitted=job.emitted, best=job.best,
+            records=list(job.ship_records), truncated=job.ship_truncated,
+            wire=wire)
+
+    def _admit_resumed(self, job: Job) -> bool:
+        """Warm-start admission from job.resume_wire (JAX scheduler.py:
+        335). True: the job is PARKED with the wire's progress, ships
+        that state at once, and one faultEntry (site fleet, action
+        resume) marks the seam. False: the wire was refused (faultEntry
+        resume / replay, serve.jobs_resume_rejected) and the job starts
+        fresh. The wire's usage cursor is read and dropped: the port has
+        no meter. (JAX's fault site `resume` waits for
+        runtime/faults.py.)"""
+        pop = self.cfg.pop_size
+        wire, job.resume_wire = job.resume_wire, None
+        try:
+            expect = snapshot_mod.wire_fingerprint(job.bucket, pop,
+                                                   job.seed)
+            state, meta = snapshot_mod.unpack_state(
+                wire, expect_fingerprint=expect)
+            if tuple(state.slots.shape) != (pop, job.padded.n_events):
+                raise snapshot_mod.SnapshotMismatch(
+                    f"snapshot population shape "
+                    f"{tuple(state.slots.shape)} != "
+                    f"({pop}, {job.padded.n_events}) for bucket "
+                    f"{job.bucket}")
+        except KeyboardInterrupt:
+            raise
+        except BaseException as e:
+            jsonl.fault_entry(self.out, "resume", "replay", e, 0, 0, 0,
+                              self._now() - job.submitted_t, job=job.id)
+            self._metrics.counter("serve.jobs_resume_rejected").inc()
+            return False
+        job.snapshot = state
+        job.gens_done = meta["gens_done"]
+        job.chunks = meta["chunks"]
+        job.emitted = meta["emitted"]
+        job.best = meta["best"]
+        job.resumed_at = meta["gens_done"]
+        job.state = JobState.PARKED
+        # the resumed job ships from admission (an empty continuation
+        # prefix), so its group may stay resident from its first quantum
+        job.ship = self._ship_unit(job, wire=dict(wire))
+        jsonl.fault_entry(
+            self.out, "fleet", "resume",
+            f"resumed from shipped snapshot at gen {meta['gens_done']}",
+            0, 0, 0, self._now() - job.submitted_t, job=job.id,
+            gens=meta["gens_done"],
+            chunks=meta["chunks"])
+        self._metrics.counter("serve.jobs_resumed").inc()
+        return True
 
     # -- one dispatch cycle ---------------------------------------------
 
@@ -246,15 +380,17 @@ class Scheduler:
         rngs = [islands.lane_generator(self.device, j.seed, j.chunks)
                 for j in jobs] + [None] * idle
         t0 = self._now()
-        state, trace = islands.lane_run(lp, rngs, state, gens + [0] * idle,
-                                        self.gacfg, self.cfg.quantum)
+        state, trace = islands.lane_run(
+            lp, rngs, state, gens + [0] * idle, self.gacfg,
+            self.cfg.quantum, trace_mode=self.cfg.trace_mode,
+            quality=self.cfg.quality)
         trace = dcore.fetch_leaf(trace)
         self._metrics.counter("serve.quantum_seconds").inc(
             self._now() - t0)
-        # stay on the card only when every member has parked once and
-        # none finishes in this quantum
+        # stay on the card only when every member has a ship unit (a
+        # fresh job parks once first) and none finishes in this quantum
         stay = (self.cfg.resident
-                and all(j.parked_once for j in jobs)
+                and all(j.ship is not None for j in jobs)
                 and not any(g >= j.remaining() for g, j in zip(gens, jobs)))
         if stay:
             entry["state"] = state
@@ -265,12 +401,23 @@ class Scheduler:
             self._resident.pop(bkey, None)
             self._metrics.counter("serve.park_bytes").inc(
                 dcore.state_nbytes(host))
-        events, _, _ = islands.trace_events(trace, "full")
+        events, _, qrows, self._overflow_warned = dcore.decode_telemetry(
+            trace, self.cfg.quality, self.cfg.trace_mode,
+            metrics=self._metrics,
+            overflow_counter="serve.trace_delta_overflow",
+            overflow_warned=self._overflow_warned, warn_label="serve ")
+        if qrows is not None:
+            # the real lanes only: a filler lane's rows mean nothing
+            agg = obs_quality.aggregate(
+                obs_quality.decode_rows(qrows[:len(jobs)]))
+            for name, v in agg["counters"].items():
+                self._metrics.counter(name).inc(v)
+            for name, v in agg["gauges"].items():
+                self._metrics.gauge(name).set(v)
         now = self._now()
         for lane, job in enumerate(jobs):
             if host is not None:
                 job.snapshot = _slice_state(host, lane, pop)
-                job.parked_once = True
             job.chunks += 1
             job.gens_done += gens[lane]
             for _g, h, s in events[lane]:
@@ -278,17 +425,22 @@ class Scheduler:
                 job.best = min(job.best, rep)
                 if rep < job.emitted:
                     job.emitted = rep
-                    jsonl.log_entry(self.out, 0, 0, rep,
-                                    now - job.submitted_t, job=job.id)
+                    self._ship_rec(job, jsonl.log_entry(
+                        self.out, 0, 0, rep, now - job.submitted_t,
+                        job=job.id))
             job.state = JobState.PARKED
             if job.remaining() == 0:
                 self._finalize(job)
+            elif host is not None:
+                # the park fence is the ship fence
+                job.ship = self._ship_unit(job)
 
     # -- residency flushes ----------------------------------------------
 
     def _flush_bucket(self, bkey) -> None:
         """Park one resident group to the host: its live members'
-        snapshots are refreshed and the card's copy dropped."""
+        snapshots and ship units are refreshed and the card's copy
+        dropped."""
         entry = self._resident.pop(bkey, None)
         if entry is None:
             return
@@ -304,7 +456,7 @@ class Scheduler:
             dcore.state_nbytes(host))
         for lane, job in live:
             job.snapshot = _slice_state(host, lane, self.cfg.pop_size)
-            job.parked_once = True
+            job.ship = self._ship_unit(job)
         self._metrics.counter("serve.resident_flushes").inc()
 
     def _flush_job(self, job: Job) -> None:
@@ -313,10 +465,14 @@ class Scheduler:
         if entry is not None and job.id in entry["jids"]:
             self._flush_bucket(job.bucket)
 
-    def flush_resident(self) -> None:
-        """Park every resident group now."""
+    def flush_resident(self) -> int:
+        """Park every resident group now: at an idle fence, or to ship
+        (every job's unit then holds its current progress; JAX's
+        flush_resident("ship")). Returns the number of groups parked."""
+        n = len(self._resident)
         for bkey in list(self._resident):
             self._flush_bucket(bkey)
+        return n
 
     def _resident_bytes(self) -> int:
         return sum(dcore.state_nbytes(g.get("state"))
@@ -339,8 +495,8 @@ class Scheduler:
             job.snapshot = dcore.fetch_state(islands.lane_init(
                 job.pa_dev, job.seed, self.cfg.pop_size))
         for job in jobs:
-            jsonl.job_entry(self.out, job.id, "started",
-                            bucket=list(job.bucket))
+            self._ship_rec(job, jsonl.job_entry(
+                self.out, job.id, "started", bucket=list(job.bucket)))
 
     def _finalize(self, job: Job, deadline_hit: bool = False) -> None:
         """The job's endTry records from its snapshot (row 0 is the
@@ -359,19 +515,41 @@ class Scheduler:
         jsonl.run_entry(self.out, job.best, feasible, job=job.id)
         jsonl.run_entry(self.out, job.best, feasible, procs_num=1,
                         threads_num=1, total_time=total_time, job=job.id)
+        done_extra = {}
+        edit_dist = None
+        if job.mode == "edit":
+            # the distance to the base's published timetable, from the
+            # event map (a w_anchor 0 edit still reports it)
+            from timetabling_ga_tpu_torch.serve import editsolve
+            edit_dist = editsolve.edit_distance(
+                snap.slots[0], job.padded.anchor_slots, job.edit_map)
+            done_extra["mode"] = job.mode
+            if edit_dist is not None:
+                done_extra["edit_distance"] = edit_dist
+            if job.edit_demoted:
+                done_extra["demoted"] = True
         jsonl.job_entry(self.out, job.id, "done", gens=job.gens_done,
                         best=job.best, feasible=feasible,
-                        deadline_hit=deadline_hit)
+                        deadline_hit=deadline_hit, **done_extra)
         job.state = JobState.DONE
         job.finished_t = self._now()
         self._metrics.counter("serve.jobs_done").inc()
         self._metrics.histogram("serve.job_seconds").observe(
             total_time, exemplar={"job": job.id})
-        # JAX's result without its usage keys (--no-usage); resumed_at
-        # stays 0: the port has no warm starts
+        # JAX's result without its usage keys (--no-usage)
         job.result = {"best": job.best, "feasible": feasible,
                       "hcv": hcv, "scv": scv, "gens": job.gens_done,
-                      "deadline_hit": deadline_hit, "resumed_at": 0,
+                      "deadline_hit": deadline_hit,
+                      "resumed_at": job.resumed_at,
                       "timeslots": slots.tolist(),
                       "rooms": rooms.tolist()}
-        job.snapshot = None
+        if job.mode != "solve":
+            job.result["mode"] = job.mode
+            job.result["edit_distance"] = edit_dist
+            job.result["edit_demoted"] = job.edit_demoted
+            if job.edit_of:
+                job.result["edit_of"] = job.edit_of
+        job.snapshot = None        # the last non-final park's ship
+        #                            unit stays: a done job's wire is
+        #                            what an edit of it transplants from
+        job.ship_records.clear()

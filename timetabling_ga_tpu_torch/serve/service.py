@@ -21,18 +21,24 @@ engine's JSONL protocol with each record tagged `"job"`, plus the
                 "seed": 42, "generations": 200, "deadline": 30.0,
                 "tenant": "acme"}}
     {"submit": {"id": "j2", "tim": "4 2 2 5\\n..."}}   inline instance
+    {"submit": {"id": "j3", "tim": ..., "snapshot": {wire}}}  warm start
+    {"submit": {"id": "j4", "edit": {"base": {"tim": ...}, "ops": [...],
+                "w_anchor": 1, "snapshot": {base wire}}}}  edit job
     {"cancel": "j1"}
     {"stats": true}                    metricsEntry snapshot
     {"drain": true}                    run everything admitted so far
 
 Requests are processed in order; `drain` (and the end of the input)
 hands the queue to the scheduler. A malformed request or a rejected
-submission emits a jobEntry (event "rejected") and the stream goes on.
-A submit with `snapshot` (warm starts) or `edit` (incremental
-re-solves), and `{"stats": "prometheus"}`, are not ported yet: each
-gets a rejected jobEntry saying so. Records are written in line on the
-drive loop (JAX's writer thread waits for the dispatch pipeline, A16);
-the stream is the same.
+submission (a malformed edit spec among them) emits a jobEntry (event
+"rejected") and the stream goes on. A `snapshot` wire (serve/
+snapshot.py) warm-starts the job at the wire's progress, or falls back
+to a fresh solve; an `edit` (serve/editsolve.py) solves the edited
+instance under the anchored objective, warm from its base wire when it
+stays in the base's bucket. `{"stats": "prometheus"}` is not ported yet:
+it gets a rejected jobEntry saying so. Records are written in line on
+the drive loop (JAX's writer thread waits for the dispatch pipeline,
+A16); the stream is the same.
 """
 
 from __future__ import annotations
@@ -47,11 +53,6 @@ from timetabling_ga_tpu_torch.runtime.config import (
     ServeConfig, not_ported, parse_serve_args)
 from timetabling_ga_tpu_torch.serve.queue import Job, JobQueue, tenant_label
 from timetabling_ga_tpu_torch.serve.scheduler import Scheduler
-
-# submit fields and stats forms the port does not serve yet
-_SUBMIT_NOT_PORTED = {"snapshot": "a submit's snapshot (warm start)",
-                      "edit": "a submit's edit (incremental re-solve)"}
-
 
 def _not_ported_reason(what: str) -> str:
     return str(not_ported(what))
@@ -91,20 +92,50 @@ class SolveService:
         return self._registry
 
     def submit(self, problem, job_id=None, priority: int = 0, seed=None,
-               generations=None, deadline_s=None, tenant=None) -> str:
-        """Admit one job; returns its id. Raises AdmissionError when the
-        backlog is full or the id is taken; an instance that cannot be
-        padded or placed raises before the queue takes the job."""
+               generations=None, deadline_s=None, tenant=None,
+               snapshot=None, edit=None) -> str:
+        """Admit one job; returns its id (JAX service.py:222). Raises
+        AdmissionError when the backlog is full or the id is taken; an
+        instance that cannot be padded or placed raises before the queue
+        takes the job. `snapshot` is a warm-start wire: the job is
+        admitted PARKED at its progress, `generations` staying the whole
+        budget; a wire that fails validation falls back to a fresh solve.
+        `edit` is an edit spec (serve/editsolve.py): the edited instance
+        is derived from it (`problem` may be None), the base wire's best
+        timetable anchors it at weight w_anchor, and its population is
+        transplanted from the base wire when the edit stays in the base's
+        bucket, else the job runs cold (demoted, counted); a malformed
+        spec raises EditError. An edit job with a `snapshot` of its own
+        resumes from that instead."""
         if job_id is None:
             self._auto_id += 1
             job_id = f"job-{self._auto_id}"
+        mode, edit_map, edit_of, base_wire = "solve", None, None, None
+        if edit is not None:
+            from timetabling_ga_tpu_torch.serve import editsolve
+            _base, edited, edit_map, _ops = editsolve.resolve_edit(edit)
+            base_wire = edit.get("snapshot")
+            w_anchor = int(edit.get("w_anchor",
+                                    editsolve.DEFAULT_ANCHOR_W))
+            problem = editsolve.attach_anchor(
+                edited, edit_map, editsolve.anchor_from_wire(base_wire),
+                w_anchor)
+            mode = "edit"
+            edit_of = edit.get("base_id") or (
+                edit["base"] if isinstance(edit["base"], str) else None)
         job = Job(id=str(job_id), problem=problem, priority=int(priority),
                   seed=int(self.cfg.seed if seed is None else seed),
                   generations=int(self.cfg.generations
                                   if generations is None else generations),
-                  deadline_s=deadline_s, tenant=tenant_label(tenant))
+                  deadline_s=deadline_s, tenant=tenant_label(tenant),
+                  resume_wire=snapshot, mode=mode, edit_of=edit_of,
+                  edit_map=edit_map)
         self.scheduler.prepare(job)
         self.queue.submit(job)
+        if mode == "edit" and job.resume_wire is None:
+            # after the queue takes the job (its faultEntry joins its
+            # stream), before admit (the wire warm-starts it)
+            self.scheduler.prepare_edit(job, base_wire)
         self.scheduler.admit(job)
         return job.id
 
@@ -147,6 +178,8 @@ class SolveService:
 
 
 def _load_submit_problem(req: dict):
+    if "edit" in req:
+        return None          # the edit spec derives the instance
     if "tim" in req:
         return load_tim(req["tim"])
     return load_tim_file(req["instance"])
@@ -171,13 +204,6 @@ def serve_stream(cfg: ServeConfig, in_stream, out_stream=None, now=None,
                 continue
             if "submit" in req:
                 sub = req["submit"]
-                unported = [w for k, w in _SUBMIT_NOT_PORTED.items()
-                            if k in sub]
-                if unported:
-                    jsonl.job_entry(svc.out, str(sub.get("id", "?")),
-                                    "rejected", reason=_not_ported_reason(
-                                        unported[0]))
-                    continue
                 try:
                     svc.submit(_load_submit_problem(sub),
                                job_id=sub.get("id"),
@@ -185,7 +211,9 @@ def serve_stream(cfg: ServeConfig, in_stream, out_stream=None, now=None,
                                seed=sub.get("seed"),
                                generations=sub.get("generations"),
                                deadline_s=sub.get("deadline"),
-                               tenant=sub.get("tenant"))
+                               tenant=sub.get("tenant"),
+                               snapshot=sub.get("snapshot"),
+                               edit=sub.get("edit"))
                 except Exception as e:
                     # one bad tenant must not take down the service: any
                     # submit-side failure is a rejection record, and
