@@ -110,6 +110,28 @@
    under --no-resident equal to it resident (strip_timing), K6 and K8's
    lane forms, K8's pre-pass and K7 every dispatch, K1 and K2 once a
    started job and no other kernel;
+   then the dispatch pipeline and in-run fault recovery on the
+   reference config (comp01s, `--no-auto-tune -p 2 -s 42`, 300
+   generations): (a) pipelined (the default) against `--no-pipeline`,
+   every dispatch and every retire's event wait under
+   torch.cuda.set_sync_debug_mode("error") (a hidden host sync raises),
+   the streams equal under strip_timing, `gen-loop` saying pipelined
+   true and false, both rates and host gaps a generation printed, then
+   the full-eval config (`-p 1 --ls-full-eval`) pipelined once; (b)
+   `--faults dispatch:2:unavailable`: one recover record; (c)
+   `fetch:3:hang --fetch-timeout 2` with TT_FAULT_HANG_S=30: a fetch
+   watchdog recover, the run's wall below the hang; (d)
+   `dispatch:1:unavailable,dispatch:2:unavailable --max-recoveries 5`:
+   recover, recover, degrade to serial; (e) `--checkpoint
+   --checkpoint-every 1` with `dispatch:3:unavailable`: the final npz at
+   generation 300 — each fault leg's stream equal to (a)'s, its
+   faultEntry sequence JAX's for the plan, its wall beside the clean
+   run's; (f) the serve path on SERVE_FAULT_JOBS (two buckets): with
+   `--faults quantum:2:unavailable` every job's records equal a clean
+   run's; with `--max-job-recoveries 0` only that dispatch's job fails
+   and the others' records equal the clean run's; with
+   `--shed-queue-hwm 2` the lowest-priority jobs shed with a `shed`
+   jobEntry and the highest-priority one finishes as in the clean run;
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
    generation, one full-eval generation, one kick, one LAHC launch and
@@ -130,6 +152,10 @@ import os
 import subprocess
 import sys
 import time
+
+# the fault legs' hang: above their --fetch-timeout, read by the port's
+# runtime/faults.py when it is imported
+os.environ.setdefault("TT_FAULT_HANG_S", "30")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TIM = os.path.join(HERE, "fixtures", "comp01s.tim")
@@ -397,6 +423,33 @@ STALL = ["--no-auto-tune", "--ls-mode", "sweep", "--ls-sweeps", "1",
          "--migration-period", "10", "--generations", "300", "-s", "5",
          "-t", "120", "--trace", "--quality", "--stall-window", "2",
          "--stall-hamming", "1.0", "--auto-kick-on-stall"]
+
+
+# the pipeline and fault legs: the reference config for 300 generations
+# (three dispatches of 100), each fault plan with the faultEntry (site,
+# action, recovery, level, mode, lostGens) sequence the JAX engine
+# writes for it on the same config, pipelined: dispatch 2 fails with
+# dispatch 1 in flight (100 generations lost), and fetch 3 (after the
+# init fence and the first snapshot) is dispatch 1's trace, read with
+# dispatch 2 in flight (200)
+PIPE = RESUME + ["--generations", "300"]
+FAULT_LEGS = {
+    "dispatch": (["--faults", "dispatch:2:unavailable"],
+                 [("dispatch", "recover", 1, 0, None, 100)]),
+    "fetch-hang": (["--faults", "fetch:3:hang", "--fetch-timeout", "2"],
+                   [("fetch", "recover", 1, 0, None, 200)]),
+    "degrade": (["--faults", "dispatch:1:unavailable,dispatch:2:unavailable",
+                 "--max-recoveries", "5"],
+                [("dispatch", "recover", 1, 0, None, 0),
+                 ("dispatch", "recover", 2, 0, None, 0),
+                 ("dispatch", "degrade", 2, 1, "serial", None)]),
+    "checkpoint": (["--checkpoint-every", "1", "--faults",
+                    "dispatch:3:unavailable"],
+                   [("dispatch", "recover", 1, 0, None, 0)]),
+}
+# the serve fault legs: two buckets, s6 at priority 5
+SERVE_FAULT_JOBS = tuple(x for x in SERVE_JOBS if x[0] in
+                         ("s1", "s2", "s5", "s6"))
 
 
 class SmokeFailure(Exception):
@@ -3199,6 +3252,230 @@ def stall_path():
                     "sweep_pass", "breed", "migrate") + K14})
 
 
+class _SyncDebug:
+    """Every dispatch of the engine's generation loop (islands.
+    run_epochs, the enqueue of its trace's copy) and every retire's
+    event wait under torch.cuda.set_sync_debug_mode("error"): a hidden
+    host synchronization there raises instead of serializing the
+    pipeline without a word."""
+
+    def __enter__(self):
+        import torch
+        from timetabling_ga_tpu_torch.parallel import islands
+        from timetabling_ga_tpu_torch.runtime import dispatch_core as dcore
+
+        def strict(fn):
+            def wrapped(*a, **k):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            return wrapped
+
+        class StrictCopy(dcore.HostCopy):
+            __init__ = strict(dcore.HostCopy.__init__)
+            wait = strict(dcore.HostCopy.wait)
+
+        # the mode is armed: a host read raises under it
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            torch.zeros(1, device="cuda").item()
+            armed = False
+        except RuntimeError:
+            armed = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(armed, "sync debug mode: .item() did not raise")
+        self._saved = (islands.run_epochs, dcore.HostCopy)
+        islands.run_epochs = strict(islands.run_epochs)
+        dcore.HostCopy = StrictCopy
+        return self
+
+    def __exit__(self, *exc):
+        from timetabling_ga_tpu_torch.parallel import islands
+        from timetabling_ga_tpu_torch.runtime import dispatch_core as dcore
+        islands.run_epochs, dcore.HostCopy = self._saved
+        return False
+
+
+def _loop(records):
+    loop = _phases(records, "gen-loop")
+    check(len(loop) == 1, f"gen-loop records {loop}")
+    return loop[0]
+
+
+def _fault_seq(records):
+    return [(f["site"], f["action"], f["recovery"], f["level"],
+             f.get("mode"), f.get("lostGens"))
+            for f in (r["faultEntry"] for r in records if "faultEntry" in r)]
+
+
+def pipeline_path(pa_cpu):
+    """(a) The reference config pipelined and with --no-pipeline, every
+    dispatch under the sync-debug mode (_SyncDebug): equal streams,
+    `gen-loop` pipelined true and false; then the full-eval config
+    pipelined. Returns (summary, the clean stream, launches by run)."""
+    from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+    from timetabling_ga_tpu_torch.runtime import jsonl
+    gens = int(PIPE[PIPE.index("--generations") + 1])
+    out, streams, launches = {}, {}, {}
+    with _SyncDebug():
+        for name, extra in (("pipelined", []),
+                            ("serial", ["--no-pipeline"])):
+            recs, secs, launches["pipe-" + name] = run_cli(
+                "pipe-" + name, PIPE + extra)
+            check_stream(recs, pa_cpu)
+            loop = _loop(recs)
+            check(loop["pipelined"] is (name == "pipelined"),
+                  f"pipe-{name}: gen-loop says {loop}")
+            check(_dispatched(recs) == gens,
+                  f"pipe-{name}: {_dispatched(recs)} generations")
+            streams[name] = jsonl.strip_timing(recs)
+            out[name] = dict(
+                wall_s=round(secs, 3), dispatches=loop["dispatches"],
+                gens_per_s=gens / loop["seconds"],
+                dispatch_gens_per_s=_rate(recs),
+                host_gap_ms_per_gen=REGISTRY.gauge(
+                    "engine.host_gap_ms_per_gen").value,
+                device_busy_frac=REGISTRY.gauge(
+                    "engine.device_busy_frac").value)
+    check(streams["pipelined"] == streams["serial"],
+          "pipe: the pipelined stream differs from the serial one")
+    argv = ["--no-auto-tune", "-p", "1", "--ls-full-eval", "-s", "42",
+            "-t", "120", "--trace", "--generations", str(gens)]
+    recs, secs, launches["pipe-full-eval"] = run_cli("pipe-full-eval", argv)
+    check_stream(recs, pa_cpu)
+    check(_loop(recs)["pipelined"] is True, "pipe-full-eval: not pipelined")
+    check(launches["pipe-full-eval"]["full_eval_ls"] >= gens,
+          "pipe-full-eval: full_eval_ls did not run every generation")
+    out["full-eval"] = dict(wall_s=round(secs, 3),
+                            gens_per_s=gens / _loop(recs)["seconds"])
+    return out, streams["pipelined"], launches
+
+
+def fault_legs(pa_cpu, clean, clean_wall):
+    """(b)-(e): each FAULT_LEGS plan on the reference config: its
+    faultEntry sequence JAX's, its stream equal to the clean one under
+    strip_timing, its wall beside the clean run's. Returns (summary,
+    launches by leg)."""
+    import numpy as np
+    from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+    from timetabling_ga_tpu_torch.runtime import faults, jsonl
+    gens = int(PIPE[PIPE.index("--generations") + 1])
+    out, launches = {}, {}
+    for leg, (extra, want) in FAULT_LEGS.items():
+        argv = PIPE + extra
+        ck = None
+        if "--checkpoint-every" in extra:
+            ck = _fresh(os.path.join(OUT_DIR, "fault_leg.npz"))
+            argv = argv + ["--checkpoint", ck]
+        recs, secs, launches["fault-" + leg] = run_cli("fault-" + leg, argv)
+        check_stream(recs, pa_cpu, ("faultEntry",))
+        seq = _fault_seq(recs)
+        check(seq == want, f"fault-{leg}: faultEntry sequence {seq}, "
+                           f"JAX writes {want}")
+        check(jsonl.strip_timing(recs) == clean,
+              f"fault-{leg}: the stream differs from the clean run's")
+        fe = [r["faultEntry"] for r in recs if "faultEntry" in r]
+        row = dict(wall_s=round(secs, 3),
+                   wall_over_clean_s=round(secs - clean_wall, 3),
+                   rehydrate_s=REGISTRY.gauge(
+                       "engine.recovery_seconds").value,
+                   lost_gens=[f.get("lostGens") for f in fe
+                              if f["action"] == "recover"],
+                   pipelined=_loop(recs)["pipelined"])
+        if leg == "fetch-hang":
+            check("fetch watchdog" in fe[0]["error"],
+                  f"fault-fetch-hang: {fe[0]['error']}")
+            check(secs < faults.HANG_S,
+                  f"fault-fetch-hang: {secs:.1f} s, the hang is "
+                  f"{faults.HANG_S} s")
+        if leg == "degrade":
+            check(row["pipelined"] is False,
+                  "fault-degrade: the ladder did not serialize the loop")
+        if ck is not None:
+            with np.load(ck) as z:
+                check(int(z["generation"]) == gens,
+                      f"fault-checkpoint: the npz holds generation "
+                      f"{int(z['generation'])}")
+            row["checkpoints"] = len(_phases(recs, "checkpoint"))
+        out[leg] = row
+    return out, launches
+
+
+def serve_fault_legs():
+    """(f) SERVE_FAULT_JOBS through `serve` clean, with a transient
+    quantum fault, with that fault and --max-job-recoveries 0, and with
+    --shed-queue-hwm 2. Returns (summary, launches by leg)."""
+    from timetabling_ga_tpu_torch.runtime import faults
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    req = os.path.join(OUT_DIR, "serve_fault_requests.jsonl")
+    with open(req, "w") as f:
+        for jid, tim, seed, gens, prio in SERVE_FAULT_JOBS:
+            f.write(json.dumps({"submit": {
+                "id": jid, "instance": tim, "seed": seed,
+                "generations": gens, "priority": prio}}) + "\n")
+        f.write(json.dumps({"drain": True}) + "\n")
+    ids = [x[0] for x in SERVE_FAULT_JOBS]
+
+    def jobs(records):
+        return {j: strip_timing(_job_records(records, j)) for j in ids}
+
+    def final(records, jid):
+        ev = [r["jobEntry"] for r in _job_records(records, jid)
+              if "jobEntry" in r]
+        return ev[-1] if ev else {}
+
+    clean, secs, launches, _ = run_serve("faults_clean", req)
+    base = jobs(clean)
+    check(all(final(clean, j).get("event") == "done" for j in ids),
+          "serve faults: the clean run did not finish every job")
+    out = {"clean": dict(wall_s=round(secs, 3))}
+    legs = {"requeue": ["--faults", "quantum:2:unavailable"],
+            "fail-alone": ["--faults", "quantum:2:unavailable",
+                           "--max-job-recoveries", "0"],
+            "shed": ["--shed-queue-hwm", "2"]}
+    all_launches = {"serve-faults-clean": launches}
+    for leg, extra in legs.items():
+        try:
+            recs, secs, la, c = run_serve("faults_" + leg, req, extra)
+        finally:
+            faults.install(None)     # the service leaves its plan
+        all_launches["serve-faults-" + leg] = la
+        got = jobs(recs)
+        state = {j: final(recs, j).get("event") for j in ids}
+        row = dict(wall_s=round(secs, 3), states=state,
+                   recoveries=c.get("serve.job_recoveries", 0),
+                   shed=c.get("serve.jobs_shed", 0))
+        if leg == "requeue":
+            check(c.get("serve.job_recoveries", 0) >= 1,
+                  "serve requeue: no job recovered")
+            for j in ids:
+                check(got[j] == base[j],
+                      f"serve requeue: {j}'s records differ from clean")
+        elif leg == "fail-alone":
+            failed = [j for j in ids if state[j] == "failed"]
+            check(len(failed) >= 1 and len(failed) < len(ids),
+                  f"serve fail-alone: states {state}")
+            for j in ids:
+                if j not in failed:
+                    check(got[j] == base[j],
+                          f"serve fail-alone: co-tenant {j} differs")
+            row["failed"] = failed
+        else:
+            shed = [j for j in ids if state[j] == "shed"]
+            check(shed and all(final(recs, j)["reason"] == "queue_hwm"
+                               for j in shed),
+                  f"serve shed: states {state}")
+            top = max(SERVE_FAULT_JOBS, key=lambda x: x[4])[0]
+            check(top not in shed and got[top] == base[top],
+                  f"serve shed: {top} was shed or differs from clean")
+            row["shed_jobs"] = shed
+        out[leg] = row
+    return out, all_launches
+
+
 def run_path(name):
     """Run the CLI on the path's instance with its flags, the launch
     counters zeroed just before and read just after; returns (records,
@@ -3388,6 +3665,16 @@ def main() -> int:
     print(json.dumps({"path": "quality", "gens_per_s": q_rates,
                       "launches": launches["quality"]}))
     print(json.dumps({"path": "stall", **stall_path()}))
+    pipe, clean, pipe_launches = pipeline_path(pa_cpu[TIM])
+    launches.update(pipe_launches)
+    print(json.dumps({"path": "pipeline", **pipe}))
+    legs, fault_launches = fault_legs(pa_cpu[TIM], clean,
+                                      pipe["pipelined"]["wall_s"])
+    launches.update(fault_launches)
+    print(json.dumps({"path": "faults", **legs}))
+    serve_faults, serve_fault_launches = serve_fault_legs()
+    launches.update(serve_fault_launches)
+    print(json.dumps({"path": "serve-faults", **serve_faults}))
     serve_summary, serve_launches = serve_path(pa_cpu)
     launches.update(serve_launches)
     base_wire = serve_summary["warm_start"].pop("base_wire")

@@ -100,13 +100,13 @@ def test_tuned_defaults_match_jax():
 @pytest.mark.parametrize("argv,word", [
     (["--obs"], "--obs"),
     (["--trace-profile", "d"], "--trace-profile"),
-    (["--faults", "dispatch:1:die"], "--faults"),
+    (["--peer-timeout", "5"], "--peer-timeout"),
     (["--metrics-every", "1"], "--metrics-every"),
     (["--incident-dir", "d"], "--incident-dir"),
-    (["--no-precompile"], "--no-precompile"),
-    (["--no-donate"], "--no-donate"),
+    (["--coordinator", "h:1"], "--coordinator"),
+    (["--no-accord"], "--no-accord"),
     (["--distributed"], "--distributed"),
-    (["--no-pipeline"], "--no-pipeline")])
+    (["--obs-listen", "127.0.0.1:0"], "--obs-listen")])
 def test_unported_flags_are_refused_by_name(argv, word):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         tconfig.parse_args(["-i", "x.tim"] + argv)

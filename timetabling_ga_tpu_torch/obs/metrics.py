@@ -5,9 +5,14 @@ OpenMetrics rendering is left out with the exposition).
 Counters and gauges the engine reports into: the trace modes'
 `engine.trace_delta_overflow`, `engine.trace_best_{mean,min,max}`,
 `engine.polish_passes`, `engine.polish_best_*`, `engine.lahc_best_*`,
-and `engine.checkpoints`; the serve scheduler's `serve.*` counters,
-gauges (some pulled at snapshot time, `gauge_fn`) and the
-`serve.job_seconds` histogram. Naming is dotted lowercase. The
+and `engine.checkpoints`; the dispatch pipeline's
+`engine.host_gap_ms_per_gen` and `engine.device_busy_frac`; the supervisor's `engine.recoveries`,
+`engine.degrade_level`, `engine.recovery_budget_configured`,
+`engine.recovery_budget_remaining` and `engine.recovery_seconds` (the
+last rehydrate's wall, JAX's `recover` span); `faults.injected` (runtime/
+faults.py); the record writer's pull gauge `writer.queue_depth`; the serve scheduler's `serve.*` counters (among them
+`serve.jobs_shed` and `serve.job_recoveries`), gauges (some pulled at
+snapshot time, `gauge_fn`) and the `serve.job_seconds` histogram. Naming is dotted lowercase. The
 exposition (Prometheus text, `/metrics`, `--metrics-every`) is not
 ported yet: a snapshot (the metricsEntry payload) is what the port
 reads.

@@ -43,7 +43,8 @@ import torch
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.fitness import gather_rows
-from timetabling_ga_tpu_torch.ops.moves import MoveDraws, sample_move, top3
+from timetabling_ga_tpu_torch.ops.moves import (
+    MoveDraws, move_probs, sample_move, top3)
 from timetabling_ga_tpu_torch.ops.rooms import choose_room, occupancy
 from timetabling_ga_tpu_torch.problem import LaneProblems
 
@@ -347,7 +348,7 @@ def make_ls_draws(gens, rows_per_gen: int, n_rounds: int,
                   p1: float, p2: float, p3: float, device) -> LSDraws:
     """LSDraws for len(gens) * rows_per_gen individuals, each generator
     drawing its own block of individuals in one call per field."""
-    probs = torch.tensor([p1, p2, p3], dtype=torch.float32, device=device)
+    probs = move_probs(p1, p2, p3, device)
     shape = (n_rounds, n_candidates, rows_per_gen)
     parts = []
     for g in gens:

@@ -28,7 +28,7 @@ from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.delta import (
     LSState, apply_moves, delta_one_plain, init_state)
-from timetabling_ga_tpu_torch.ops.moves import MoveDraws, sample_move
+from timetabling_ga_tpu_torch.ops.moves import MoveDraws, move_probs, sample_move
 
 
 class LahcState(NamedTuple):
@@ -59,7 +59,7 @@ def make_lahc_draws(gens, walkers_per_gen: int, n_steps: int, k_cands: int,
                     p3: float, device) -> LahcDraws:
     """LahcDraws for len(gens) * walkers_per_gen walkers, each generator
     drawing its own block of walkers in one call per field."""
-    probs = torch.tensor([p1, p2, p3], dtype=torch.float32, device=device)
+    probs = move_probs(p1, p2, p3, device)
     shape = (n_steps, walkers_per_gen, k_cands)
     parts = []
     for g in gens:

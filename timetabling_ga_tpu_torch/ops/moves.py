@@ -14,6 +14,7 @@ one launch (the kicks'); `relocation_chain_plain` is its plain version,
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -33,11 +34,24 @@ class MoveDraws(NamedTuple):
     t: torch.Tensor       # (P,) int   Move1 target slot
 
 
+@functools.lru_cache(maxsize=64)
+def move_probs(p1: float, p2: float, p3: float, device) -> torch.Tensor:
+    """The (3,) float32 move-type weights on `device`, made once a
+    device. On a card the copy leaves pinned memory without a fence: a
+    pageable copy would synchronize the stream in every generation that
+    draws moves, and a pipelined dispatch would wait for the one before
+    it."""
+    w = torch.tensor([p1, p2, p3], dtype=torch.float32)
+    if torch.device(device).type == "cuda":
+        return w.pin_memory().to(device, non_blocking=True)
+    return w.to(device)
+
+
 def make_move_draws(gens, rows_per_gen: int, n_events: int, n_slots: int,
                     p1: float, p2: float, p3: float, device) -> MoveDraws:
     """Draw MoveDraws for len(gens) * rows_per_gen individuals, each
     generator drawing its own block of rows."""
-    probs = torch.tensor([p1, p2, p3], dtype=torch.float32, device=device)
+    probs = move_probs(p1, p2, p3, device)
     parts = []
     for g in gens:
         parts.append((

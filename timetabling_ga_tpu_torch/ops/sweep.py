@@ -21,6 +21,7 @@ converge loop reads one flag per pass. Randomness comes in as tensors
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -86,10 +87,19 @@ def coprimes(E: int) -> torch.Tensor:
                          if math.gcd(a, E) == 1], dtype=torch.int32)
 
 
+@functools.lru_cache(maxsize=64)
+def _coprimes_on(E: int, device) -> torch.Tensor:
+    """coprimes(E) on `device`, made once (see moves.move_probs)."""
+    c = coprimes(E)
+    if torch.device(device).type == "cuda":
+        return c.pin_memory().to(device, non_blocking=True)
+    return c.to(device)
+
+
 def make_sweep_draws(gens, rows_per_gen: int, shape: SweepShape,
                      n_events: int, sideways: float, device) -> SweepDraws:
     """Draw one pass's SweepDraws, each generator its own block of rows."""
-    cop = coprimes(n_events).to(device)
+    cop = _coprimes_on(n_events, device)
     a, b, hot, tie, allow = [], [], [], [], []
     n = rows_per_gen
     for g in gens:

@@ -19,9 +19,10 @@ same device type, and reseeds them otherwise (runtime/engine.py).
 
 `save` is atomic and durable: temp file, fsync, rotation of the previous
 file to `prev_path(path)`, rename, directory fsync. `load` falls back to
-the rotated file when the newest one is damaged. The JAX save's fault
-injection site (`faults.maybe_fail("ckpt")`) waits for the port of
-runtime/faults.py with the dispatch pipeline and run supervisor.
+the rotated file when the newest one is damaged. The fault site `ckpt`
+fires after the durable rename (JAX checkpoint.py:142): `ckpt:N:truncate`
+tears the file just written, as a torn disk would, and the next load
+falls back to the rotated one.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from timetabling_ga_tpu_torch.ops import ga
+from timetabling_ga_tpu_torch.runtime import faults
 
 FORMAT_VERSION = 2
 
@@ -139,6 +141,7 @@ def save(path: str, state: ga.PopState, key, generation: int,
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+    faults.maybe_fail("ckpt", path=path)
 
 
 # np.load failures that mean the file on disk is damaged (truncated zip,

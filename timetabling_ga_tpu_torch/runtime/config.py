@@ -8,12 +8,15 @@ untuned default, sized by `-p` / `-m` as the reference's maxSteps), the
 parallel room matcher (`--rooms-mode parallel`), NSGA-II selection
 (`--nsga2`), the LAHC endgame (`--post-lahc`, `--post-lahc-k`),
 checkpoint/resume (`--checkpoint`, `--checkpoint-every`, `--resume`),
-the compressed trace modes (`--trace-mode deltas|stats`) and the quality
+the compressed trace modes (`--trace-mode deltas|stats`), the quality
 telemetry (`--quality`, `--stall-window`, `--stall-hamming`,
-`--auto-kick-on-stall`). A flag it
-does not implement yet (`--obs`, `--metrics-every`, `--faults`, ...:
-`NOT_PORTED`) stops the parse with a message naming it as not yet
-ported, never silently ignored. `-l` is accepted and retired, as on the
+`--auto-kick-on-stall`), and the dispatch pipeline with in-run fault
+recovery (`--no-pipeline`, `--max-recoveries`, `--fetch-timeout`,
+`--faults`, `--no-precompile`: skip the sec/gen probe; `--no-donate`: a
+no-op, since no dispatch writes into its input state). A flag it does
+not implement yet (`--obs`, `--metrics-every`, ...: `NOT_PORTED`) stops
+the parse with a message naming it as not yet ported, never silently
+ignored. `-l` is accepted and retired, as on the
 JAX path: the engine warns that the local search is bounded by -m
 instead. JAX's checkpoint refusals hold: the tuned `post_pop_size` is
 dropped under `--checkpoint`, and an explicit `--post-pop-size` with
@@ -25,7 +28,8 @@ CUDA device raises instead of falling back to the CPU.
 `ServeConfig` and `parse_serve_args` are the `serve` subcommand's (JAX
 config.py:689-936): the same flags, defaults and messages for what the
 port serves (`--trace-mode full|deltas|stats` and `--quality` among
-them); the service's other flags (`SERVE_NOT_PORTED`) and
+them, and the fault plan, the per-job recovery budget and the shedding
+marks); the service's other flags (`SERVE_NOT_PORTED`) and
 `--mesh-devices` above 1 stop the parse by name.
 """
 
@@ -87,6 +91,22 @@ class RunConfig:
     stall_hamming: float = 0.05   # ... with the most-collapsed island's
     #                               Hamming sample at or below this
     auto_kick_on_stall: bool = False  # a stall fires the kick
+    precompile: bool = True       # probe sec/gen before the loop;
+    #                               --no-precompile runs serially until
+    #                               a measured chunk gives the estimate
+    pipeline: bool = True         # the depth-2 dispatch pipeline
+    #                               (off with a post config or the
+    #                               quality auto-kick; --no-pipeline)
+    donate: bool = True           # JAX's buffer donation; no dispatch
+    #                               of the port writes into its input
+    #                               state, so --no-donate changes nothing
+    max_recoveries: int = 3       # in-run recoveries before the run
+    #                               aborts with a final checkpoint
+    #                               (0 = off)
+    fetch_timeout: float = 600.0  # control-fence read deadline in
+    #                               seconds (0 = no watchdog)
+    faults: Optional[str] = None  # fault plan (runtime/faults.py);
+    #                               None reads $TT_FAULTS
     auto_tune: bool = True
     explicit_fields: frozenset = frozenset()
 
@@ -177,13 +197,19 @@ _FLAG_MAP = {
     "--checkpoint-every": ("checkpoint_every", int),
     "--stall-window": ("stall_window", int),
     "--stall-hamming": ("stall_hamming", float),
+    "--max-recoveries": ("max_recoveries", int),
+    "--fetch-timeout": ("fetch_timeout", float),
+    "--faults": ("faults", str),
 }
 
 _BOOL_FLAGS = {"--trace": "trace", "--ls-converge": "ls_converge",
                "--ls-full-eval": "ls_full_eval", "--nsga2": "nsga2",
                "--resume": "resume", "--quality": "quality",
                "--auto-kick-on-stall": "auto_kick_on_stall"}
-_NEG_BOOL_FLAGS = {"--no-auto-tune": "auto_tune"}
+_NEG_BOOL_FLAGS = {"--no-auto-tune": "auto_tune",
+                   "--no-precompile": "precompile",
+                   "--no-pipeline": "pipeline",
+                   "--no-donate": "donate"}
 
 # Flags of the JAX CLI this slice does not implement yet: True = takes
 # a value, False = a switch. Parsing any of them stops the run.
@@ -191,11 +217,9 @@ NOT_PORTED = {
     "--trace-profile": True, "--profile-dir": True, "--profile-for": True,
     "--mem-poll-every": True, "--metrics-every": True,
     "--obs-listen": True, "--history-every": True, "--incident-dir": True,
-    "--incident-min-interval": True, "--max-recoveries": True,
-    "--fetch-timeout": True, "--peer-timeout": True, "--faults": True,
+    "--incident-min-interval": True, "--peer-timeout": True,
     "--coordinator": True, "--num-processes": True, "--process-id": True,
-    "--obs": False, "--distributed": False, "--no-precompile": False,
-    "--no-pipeline": False, "--no-donate": False, "--no-accord": False,
+    "--obs": False, "--distributed": False, "--no-accord": False,
 }
 
 _KNOWN_VALUES = {"ls_mode": ("random", "sweep"),
@@ -283,6 +307,12 @@ def parse_args(argv) -> RunConfig:
                          "cannot represent; drop one of the two flags")
     if cfg.post_pop_size is not None and cfg.post_pop_size < 1:
         raise SystemExit("--post-pop-size must be >= 1")
+    if cfg.max_recoveries < 0:
+        raise SystemExit("--max-recoveries must be >= 0 (0 disables "
+                         "in-run recovery)")
+    if cfg.fetch_timeout < 0:
+        raise SystemExit("--fetch-timeout must be >= 0 seconds "
+                         "(0 disables the fetch watchdog)")
     if cfg.post_lahc < 0:
         raise SystemExit("--post-lahc must be >= 0 (history length; "
                          "0 disables the LAHC endgame)")
@@ -351,6 +381,16 @@ class ServeConfig:
     #                               leaf (quality.* metrics; K14)
     usage: bool = True            # usage metering; the port has none and
     #                               runs as JAX does under --no-usage
+    shed_queue_hwm: int = 0       # serve.queue_depth high-water mark:
+    #                               at or over it a control fence sheds
+    #                               the lowest-priority runnable job
+    #                               (0 = never)
+    shed_writer_hwm: int = 0      # writer.queue_depth high-water mark
+    #                               (0 = never)
+    faults: Optional[str] = None  # fault plan (runtime/faults.py);
+    #                               None reads $TT_FAULTS
+    max_job_recoveries: int = 2   # quantum-fault requeues a job before
+    #                               it fails alone
 
 
 _SERVE_FLAG_MAP = {
@@ -372,6 +412,10 @@ _SERVE_FLAG_MAP = {
     "-m": ("max_steps", int),
     "--ls-candidates": ("ls_candidates", int),
     "--trace-mode": ("trace_mode", str),
+    "--shed-queue-hwm": ("shed_queue_hwm", int),
+    "--shed-writer-hwm": ("shed_writer_hwm", int),
+    "--faults": ("faults", str),
+    "--max-job-recoveries": ("max_job_recoveries", int),
 }
 
 _SERVE_BOOL_FLAGS = {"--quality": "quality"}
@@ -385,9 +429,7 @@ SERVE_NOT_PORTED = {
     "--metrics-every": True, "--obs-listen": True, "--history-every": True,
     "--incident-dir": True, "--incident-min-interval": True,
     "--profile-dir": True, "--profile-for": True,
-    "--mem-poll-every": True, "--shed-queue-hwm": True,
-    "--shed-writer-hwm": True, "--faults": True, "--http": True,
-    "--max-job-recoveries": True, "--preempt-grace": True,
+    "--mem-poll-every": True, "--http": True, "--preempt-grace": True,
     "--obs": False, "--preempt-on-term": False,
 }
 
@@ -412,6 +454,12 @@ def parse_serve_args(argv) -> ServeConfig:
     if cfg.trace_mode not in _KNOWN_VALUES["trace_mode"]:
         raise SystemExit(f"unknown trace-mode: {cfg.trace_mode} (one of "
                          f"{', '.join(_KNOWN_VALUES['trace_mode'])})")
+    if cfg.shed_queue_hwm < 0 or cfg.shed_writer_hwm < 0:
+        raise SystemExit("--shed-queue-hwm / --shed-writer-hwm must be "
+                         ">= 0 (0 disables that shed trigger)")
+    if cfg.max_job_recoveries < 0:
+        raise SystemExit("--max-job-recoveries must be >= 0 requeues "
+                         "per job")
     if cfg.lanes < 1:
         raise SystemExit("--lanes must be >= 1")
     if cfg.mesh_devices < 0:

@@ -1,30 +1,185 @@
-"""The dispatch helpers on one card (port of the one-device part of
-timetabling_ga_tpu/runtime/dispatch_core.py:344-525).
+"""The dispatch core on one card (port of timetabling_ga_tpu/runtime/
+dispatch_core.py:109-165, 202-341, 344-560): the pieces the engine's
+run loop and the serve scheduler share.
 
     place_state   a host (numpy) PopState onto the device (JAX
                   `reshard_state`, on one card a copy per field)
     state_nbytes  bytes a PopState moves across the host boundary when
                   parked or placed: the unit of `serve.park_bytes` and
                   `serve.resume_bytes`
-    fetch_leaf    a telemetry leaf (a trace) to the host
-    fetch_state   a PopState to the host in one device read
+    HostCopy      a device tensor's copy to the host, started without a
+                  fence (JAX's copy_to_host_async)
+    fetch         the control-fence host read, on a watchdog thread
+                  under the `--fetch-timeout` deadline, with the `fetch`
+                  fault site inside it
+    fetch_leaf    a telemetry leaf to the host: never a control fence,
+                  never injected, never under the deadline
+    fetch_state   a PopState to the host in one control-fence read
+    fetch_final   the try's last read: slots, rooms and each island's
+                  best row's (hcv, scv), in one control-fence read
     decode_telemetry  a fetched trace leaf's events, moments and quality
                   rows, dropped improvement events counted (JAX :520)
+    Chunk / DispatchPipeline  the depth-2 dispatch pipeline: at most one
+                  chunk in flight, retired with the next one enqueued
+    Snapshot / Supervisor     the rolling host snapshot and the
+                  recovery policy (classify, budget, degradation ladder)
 
-The engine's final read, checkpoints and trace decode and the serve
-scheduler's parks and quanta share them. JAX's dispatch pipeline (A16)
-is not ported yet.
+JAX's `purge_programs` has no counterpart: the port compiles nothing
+per shape, so after a fault there is no compiled program bound to
+poisoned state to drop; the kernel libraries stay loaded. JAX's
+`agree_on_fault` (the multi-process recovery agreement) waits for
+multi-process runs. Nothing here runs at import or needs a card.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import os
 import sys
+import threading
 
 import numpy as np
 import torch
 
 from timetabling_ga_tpu_torch.ops import ga
 from timetabling_ga_tpu_torch.parallel import islands
+from timetabling_ga_tpu_torch.runtime import faults
+from timetabling_ga_tpu_torch.runtime import retry
+
+
+# one dispatched chunk not yet retired: its start on the host clock,
+# epochs, generations and its trace's HostCopy
+Chunk = collections.namedtuple("Chunk", "td0 n_ep gens_run trace")
+
+
+class DispatchPipeline:
+    """Depth-2 dispatch pipeline (JAX dispatch_core.py:121): at most one
+    chunk in flight; submitting chunk N+1 retires chunk N with N+1
+    already enqueued on the card, so N's telemetry is read and processed
+    while N+1 runs. `enabled` may change mid-run (the supervisor's
+    degradation ladder serializes the loop); it changes when chunks
+    retire, never what is dispatched, so serial and pipelined runs give
+    the same records under strip_timing."""
+
+    def __init__(self, process, enabled: bool):
+        self.process = process       # process(chunk, inflight=None)
+        self.enabled = enabled
+        self.pending = None          # the one in-flight chunk
+
+    def submit(self, chunk) -> None:
+        """Pipelined: park `chunk` and retire its predecessor (which
+        `process` sees with `chunk` as `inflight`); serial: retire it."""
+        if self.enabled:
+            if self.pending is not None:
+                self.process(self.pending, inflight=chunk)
+            self.pending = chunk
+        else:
+            self.process(chunk)
+
+    def drain(self) -> None:
+        """Retire the in-flight chunk, if any."""
+        if self.pending is not None:
+            self.process(self.pending)
+            self.pending = None
+
+    def abandon(self):
+        """Forget the in-flight chunk without retiring it (recovery) and
+        return it."""
+        chunk, self.pending = self.pending, None
+        return chunk
+
+
+@dataclasses.dataclass
+class Snapshot:
+    """The rolling host snapshot of the last control fence, what the
+    supervisor rehydrates from (JAX dispatch_core.py:202). All host
+    data: a device fault cannot poison it. Taken at init (or resume) and
+    at every checkpoint fence, where the host state is in hand anyway.
+    The island generators' states stand in for JAX's key."""
+    state: ga.PopState          # host (numpy) population
+    generators: np.ndarray      # (L, n) uint8 island generator states
+    gens_done: int
+    epochs_done: int
+    epochs_at_ckpt: int
+    best_seen: list             # control floor at this point
+    post: bool                  # post-feasibility phase active
+    kick: tuple                 # (kick_stall, kick_best, kick_streak)
+    # a pipelined checkpoint fence covers the in-flight chunk's state,
+    # whose logEntries are not emitted yet: its trace, for recovery to
+    # emit them before resuming
+    inflight_trace: object = None
+    # the init snapshot of a run whose LAHC endgame ran before the loop
+    lahc_done: bool = False
+
+
+class Supervisor:
+    """In-run fault recovery policy (JAX dispatch_core.py:229): the
+    rolling Snapshot, classification by retry.is_transient, the
+    --max-recoveries budget and the degradation ladder on failures that
+    cluster inside WINDOW_S seconds (`$TT_FAULT_WINDOW_S`, default 300):
+
+        level 0  pipelined dispatch (as configured)
+        level 1  strictly serial loop
+        level 2+ serial, and each dispatch halved per level
+
+    A WINDOW_S stretch without failure steps back up one level."""
+
+    WINDOW_S = float(os.environ.get("TT_FAULT_WINDOW_S", "300"))
+    MAX_LEVEL = 4
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.enabled = cfg.max_recoveries > 0
+        self.snap = None
+        self.recoveries = 0
+        self.level = 0
+        self.failures: list = []     # monotonic failure times
+        self._relaxed_at = None      # last step back up
+
+    def snapshot(self, **kw) -> None:
+        if self.enabled:
+            self.snap = Snapshot(**kw)
+
+    def dispatch_scale(self) -> float:
+        """Chunk-size multiplier at ladder levels >= 2."""
+        return 0.5 ** max(0, self.level - 1)
+
+    def classify(self, exc: BaseException):
+        """The faultEntry site when `exc` is recoverable (supervisor on,
+        a snapshot to rehydrate from, transient over its cause chain),
+        else None: the caller re-raises."""
+        if not self.enabled or self.snap is None:
+            return None
+        if not retry.is_transient(exc):
+            return None
+        return getattr(exc, "tt_site", "dispatch")
+
+    def escalate(self, now: float) -> bool:
+        """Record a failure; step the ladder when failures cluster
+        inside WINDOW_S. True when the level changed."""
+        self.failures.append(now)
+        recent = [t for t in self.failures if now - t <= self.WINDOW_S]
+        new_level = min(len(recent) - 1, self.MAX_LEVEL)
+        if new_level > self.level:
+            self.level = new_level
+            return True
+        return False
+
+    def maybe_relax(self, now: float) -> bool:
+        """Step back up one level after WINDOW_S without a failure since
+        the last failure or the last relax. True when it did."""
+        if self.level <= 0:
+            return False
+        anchor = self.failures[-1] if self.failures else None
+        if self._relaxed_at is not None:
+            anchor = (self._relaxed_at if anchor is None
+                      else max(anchor, self._relaxed_at))
+        if anchor is not None and now - anchor < self.WINDOW_S:
+            return False
+        self.level -= 1
+        self._relaxed_at = now
+        return True
 
 
 def place_state(host: ga.PopState, device) -> ga.PopState:
@@ -42,21 +197,123 @@ def state_nbytes(state) -> int:
                    else x.numel() * x.element_size() for x in state))
 
 
+class HostCopy:
+    """A device tensor's copy to the host, enqueued without a fence (the
+    counterpart of JAX's copy_to_host_async, engine.py:2119-2126): a
+    pinned host tensor filled by a non-blocking copy, and a CUDA event
+    recorded right after it. `wait` blocks on that event alone, so
+    reading chunk N's trace does not wait for the launches of chunk N+1
+    queued behind it. A CPU tensor is its own copy."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, x: torch.Tensor):
+        if x.is_cuda:
+            self.host = torch.empty(x.shape, dtype=x.dtype,
+                                    pin_memory=True)
+            self.host.copy_(x, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = x, None
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _to_host(x) -> np.ndarray:
+    if isinstance(x, HostCopy):
+        return x.wait()
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+# the control-fence read deadline in seconds (None: no watchdog), set
+# per run from --fetch-timeout
+_FETCH_TIMEOUT = None
+
+
+def set_fetch_timeout(timeout) -> None:
+    """Install the control-fence read deadline; 0 or None disables the
+    watchdog."""
+    global _FETCH_TIMEOUT
+    _FETCH_TIMEOUT = timeout if timeout else None
+
+
+class FetchTimeout(TimeoutError):
+    """A control-fence host read outlived the watchdog deadline. Its
+    message carries the 'fetch watchdog' marker, so it is transient."""
+
+
+def fetch(x) -> np.ndarray:
+    """The control-fence host read (JAX dispatch_core.py:403) of a
+    device tensor, a HostCopy or an array. Under a deadline the read
+    runs on a daemon thread that the caller joins with the deadline: a
+    read that outlives it raises FetchTimeout (site `fetch`) and the
+    thread is abandoned. The `fetch` fault site fires inside the read."""
+    timeout = _FETCH_TIMEOUT
+    if not timeout:
+        faults.maybe_fail("fetch")
+        return _to_host(x)
+    box: dict = {}
+
+    def _read():
+        try:
+            faults.maybe_fail("fetch")
+            box["value"] = _to_host(x)
+        except BaseException as e:   # re-raised on the caller's thread
+            box["error"] = e
+
+    th = threading.Thread(target=_read, name="tt-fetch-watchdog",
+                          daemon=True)
+    th.start()
+    th.join(timeout)
+    if th.is_alive():
+        err = FetchTimeout(
+            f"fetch watchdog: control-fence host read exceeded "
+            f"{timeout:.0f}s deadline")
+        err.tt_site = "fetch"
+        raise err
+    if "error" in box:
+        e = box["error"]
+        e.tt_site = "fetch"
+        raise e
+    return box["value"]
+
+
 def fetch_leaf(x) -> np.ndarray:
-    """A telemetry leaf (a trace) on the host."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    """A telemetry leaf (a trace) on the host: no fault site, no
+    deadline."""
+    return _to_host(x)
 
 
 def fetch_state(state: ga.PopState) -> ga.PopState:
-    """Host (numpy) copy of a population in one device read: slots,
-    rooms, penalty, hcv and scv packed into one (N, 2E + 3) int32 array,
-    fetched once and sliced apart."""
-    packed = torch.cat([state.slots, state.rooms, state.penalty[:, None],
-                        state.hcv[:, None], state.scv[:, None]],
-                       1).cpu().numpy()
+    """Host (numpy) copy of a population in one control-fence read:
+    slots, rooms, penalty, hcv and scv packed into one (N, 2E + 3) int32
+    array, fetched once and sliced apart."""
+    packed = fetch(torch.cat([state.slots, state.rooms,
+                              state.penalty[:, None], state.hcv[:, None],
+                              state.scv[:, None]], 1))
     E = state.slots.shape[1]
     return ga.PopState(packed[:, :E], packed[:, E:2 * E], packed[:, 2 * E],
                        packed[:, 2 * E + 1], packed[:, 2 * E + 2])
+
+
+def fetch_final(state: ga.PopState, n_islands: int, pop: int):
+    """The try's last read in one control fence (JAX dispatch_core.py:
+    475): (slots (N, P, E), rooms (N, P, E), each island's best row's hcv
+    (N,) and scv (N,))."""
+    packed = fetch(torch.cat([state.slots, state.rooms, state.hcv[:, None],
+                              state.scv[:, None]], 1))
+    E = state.slots.shape[1]
+    slots = packed[:, :E].reshape(n_islands, pop, E)
+    rooms = packed[:, E:2 * E].reshape(n_islands, pop, E)
+    hcv = packed[:, 2 * E].reshape(n_islands, pop)[:, 0]
+    scv = packed[:, 2 * E + 1].reshape(n_islands, pop)[:, 0]
+    return slots, rooms, hcv, scv
 
 
 def decode_telemetry(trace, quality: bool, trace_mode: str, metrics,

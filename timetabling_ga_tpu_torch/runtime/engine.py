@@ -23,9 +23,8 @@ modes.
 `--checkpoint` saves the population, the generation counter, the
 per-island best floor, the seed and the island generators' states
 (runtime/checkpoint.py) after a dispatch once `--checkpoint-every`
-epochs have passed since the last save (JAX engine.py:1846-1933). The
-loop is serial, so the save runs in line: no writer thread, no
-in-flight trace to fold into the saved floor. The LAHC endgame writes
+epochs have passed since the last save (JAX engine.py:1846-1933); the
+npz is written on the record writer's thread. The LAHC endgame writes
 none. `--resume` loads it under the run's fingerprint (JAX
 engine.py:1329-1343): an explicit conflicting -s is refused, no -s
 adopts the saved seed, the init and its polish are skipped, and the
@@ -50,9 +49,40 @@ kick routine as the post phase's stall kick (a quality/kick
 `faultEntry`, `engine.kicks`) and re-arms the detector. The record
 stream without the auto-kick is the same with it on or off.
 
-Not in the port yet: pipelining, buffer donation, fault recovery,
-multi-process agreement, the qualityEntry record and the metrics
-exposition (runtime/config.py refuses their flags).
+Dispatch pipeline (JAX engine.py:1515-1546, 1938-2150): chunk N+1 is
+enqueued before chunk N's trace is read, so N's telemetry is decoded
+while N+1 runs. Each chunk's trace leaves the card by a non-blocking
+copy into pinned memory with a CUDA event behind it
+(dispatch_core.HostCopy); retiring the chunk waits on that event alone.
+The loop is serial with a post config (the phase switch and the stall
+kick read chunk N before choosing chunk N+1), with the quality
+auto-kick, and under --no-pipeline; the records are the same either
+way. A chunk's time runs from the previous fence when pipelined, and
+the budget reserves the in-flight chunk's predicted cost before sizing
+the next. Under --no-precompile there is no sec/gen probe, and the loop
+retires each chunk before the next until one has been measured.
+
+In-run fault recovery (JAX engine.py:1370-1440, 1940-2375): the init
+is retried (at most twice) on a transient error; from then on a
+Supervisor (runtime/dispatch_core.py) holds a rolling host snapshot —
+population, generator states, counters, best floor, phase and kick
+state — taken after init or resume and at every checkpoint fence. A
+transient error (runtime/retry.py) anywhere in the loop, the tail
+polish or the final read re-places the snapshot on the same card (or
+the durable checkpoint, when the placement fails) and replays from
+there; the emitted floor keeps replayed improvements off the stream, so
+a recovered run's records equal an uninjected run's under strip_timing,
+plus faultEntry records (recover with `lostGens`, degrade and restore
+on the ladder, abort when --max-recoveries is spent, after which the
+run raises with a final checkpoint written from the snapshot). Every
+control-fence read goes through dispatch_core.fetch (the `fetch` fault
+site, the --fetch-timeout watchdog), and the `dispatch` site fires
+before every generation, polish, LAHC and kick dispatch, in JAX's
+order. A fault never moves a run off its device.
+
+Not in the port yet: multi-process agreement, the qualityEntry record
+and the metrics exposition (runtime/config.py refuses their flags).
+`--no-donate` changes nothing: no dispatch writes into its input state.
 """
 
 from __future__ import annotations
@@ -72,11 +102,10 @@ from timetabling_ga_tpu_torch.ops import ga, lahc
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import load_tim_file
 from timetabling_ga_tpu_torch.runtime import checkpoint as ckpt
-from timetabling_ga_tpu_torch.runtime import jsonl
-from timetabling_ga_tpu_torch.runtime.config import RunConfig
 from timetabling_ga_tpu_torch.runtime import dispatch_core as dcore
-from timetabling_ga_tpu_torch.runtime.dispatch_core import (
-    fetch_state, place_state)
+from timetabling_ga_tpu_torch.runtime import faults, jsonl, retry
+from timetabling_ga_tpu_torch.runtime.config import RunConfig
+from timetabling_ga_tpu_torch.runtime.dispatch_core import place_state
 
 INT_MAX = 2 ** 31 - 1
 FEASIBLE_LIMIT = 1_000_000
@@ -161,6 +190,14 @@ def generator_states(gens) -> np.ndarray:
     return np.stack([g.get_state().numpy() for g in gens])
 
 
+def restore_generators(device, states) -> list:
+    """Island generators on `device` set to the (L, n) uint8 `states`."""
+    gens = [torch.Generator(device=device) for _ in range(len(states))]
+    for g, st in zip(gens, states):
+        g.set_state(torch.from_numpy(np.array(st)))
+    return gens
+
+
 def resume_generators(device, loaded: ckpt.Loaded, seed: int, trial: int,
                       n: int):
     """The island generators of a resumed try: restored from the
@@ -169,10 +206,7 @@ def resume_generators(device, loaded: ckpt.Loaded, seed: int, trial: int,
     if (loaded.generators is not None
             and loaded.generator_device == device.type
             and len(loaded.generators) == n):
-        gens = [torch.Generator(device=device) for _ in range(n)]
-        for g, st in zip(gens, loaded.generators):
-            g.set_state(torch.from_numpy(np.array(st)))
-        return gens
+        return restore_generators(device, loaded.generators)
     where = ("the JAX package" if loaded.generators is None
              else f"a {loaded.generator_device} device")
     print(f"note: checkpoint written by {where}; reseeding the "
@@ -214,7 +248,11 @@ def _phase(out, enabled: bool, name: str, trial: int, seconds: float,
 
 class _Try:
     """The mutable bookkeeping of one try: its clock, the per-island
-    best floors and the logEntry emission."""
+    best floors and the logEntry emission. `best` is the control floor
+    (phase switch, kick, checkpoint), which a recovery rewinds to its
+    snapshot; `emitted` is the emission floor, which it never rewinds,
+    so replayed improvements are not written twice (JAX best_seen and
+    emitted)."""
 
     def __init__(self, out, cfg: RunConfig, trial: int, n_islands: int):
         self.out = out
@@ -223,6 +261,7 @@ class _Try:
         self.n = n_islands
         self.t0 = time.monotonic()
         self.best = [INT_MAX] * n_islands
+        self.emitted = [INT_MAX] * n_islands
 
     def elapsed(self) -> float:
         return time.monotonic() - self.t0
@@ -234,6 +273,8 @@ class _Try:
         rep = jsonl.reported_best(hcv, scv)
         if rep < self.best[island]:
             self.best[island] = rep
+        if rep < self.emitted[island]:
+            self.emitted[island] = rep
             jsonl.log_entry(self.out, island, 0, rep, t)
 
     def phase(self, name: str, seconds: float, **extra) -> None:
@@ -262,9 +303,10 @@ def _polish_chunks(tr: _Try, pa, gens, state, gacfg, name: str,
         if chunk < 1:
             break
         tp0 = time.monotonic()
+        faults.maybe_fail("dispatch")
         state, stats = islands.polish(pa, gens, state, gacfg, chunk,
                                       tr.cfg.trace_mode == "stats")
-        stats = stats.cpu().numpy()
+        stats = dcore.fetch(stats)
         tp1 = time.monotonic()
         if stats.shape[0] > 3:
             # stats mode: row 3 the executed pass count, rows 4.. the
@@ -311,10 +353,11 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
         if n < 1:
             break
         t0 = time.monotonic()
+        faults.maybe_fail("dispatch")
         lstate, stats = islands.lahc_run(pa, gens, lstate, post, n,
                                          cfg.post_lahc_k,
                                          cfg.trace_mode == "stats")
-        stats = stats.cpu().numpy()
+        stats = dcore.fetch(stats)
         t1 = time.monotonic()
         if stats.shape[0] > 3:
             # stats mode: rows 3.. the walkers' moments per island (JAX
@@ -329,7 +372,9 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
         warm = True
         for i in range(tr.n):
             tr.observe(i, stats[1][i], stats[2][i], t1 - tr.t0)
-    return islands.lahc_finalize(lstate, tr.n)
+    state = islands.lahc_finalize(lstate, tr.n)
+    dcore.fetch(state.penalty)
+    return state
 
 
 def probe_sec_per_gen(pa, state: ga.PopState, cfg: ga.GAConfig,
@@ -356,7 +401,8 @@ def _pow2_floor(n: int) -> int:
     return 1 << (n.bit_length() - 1)
 
 
-def _dispatch_size(cfg, remaining_gens: int, sec_per_gen, remaining_t):
+def _dispatch_size(cfg, remaining_gens: int, sec_per_gen, remaining_t,
+                   scale: float = 1.0):
     """(n_epochs, gens_per_epoch) of the next dispatch, or None to stop
     the generation loop: when the budget is spent, when not one more
     generation is predicted to fit it, or when one generation is
@@ -366,7 +412,10 @@ def _dispatch_size(cfg, remaining_gens: int, sec_per_gen, remaining_t):
     an epoch predicted over the cap shortened to the generations that
     fit (one epoch, migration closing it); a tail shorter than
     migration_period bounded by the cap too; then everything bounded by
-    the remaining budget, a full-epoch count again a power of two."""
+    the remaining budget, a full-epoch count again a power of two. At a
+    degradation-ladder `scale` below 1 the dispatch is one epoch of that
+    share of its generations (JAX engine.py:2042-2051), before the
+    budget bounds it."""
     spg = sec_per_gen if sec_per_gen is not None and sec_per_gen > 0 \
         else None
     if remaining_t <= 0 or (spg is not None and spg > DISPATCH_CAP_S):
@@ -385,6 +434,9 @@ def _dispatch_size(cfg, remaining_gens: int, sec_per_gen, remaining_t):
         n_ep, short = 1, remaining_gens
         if spg is not None:
             short = max(1, min(short, int(DISPATCH_CAP_S / spg)))
+    if scale < 1.0:
+        n_ep, short = 1, max(1, int((g if short is None else short)
+                                    * scale))
     if spg is not None:
         g_fit = int(remaining_t / spg)
         if g_fit < 1:
@@ -416,35 +468,64 @@ def _resume(cfg, seed: int, fingerprint: str):
     return loaded, seed
 
 
-def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
+def _ladder_mode(level: int) -> str:
+    return ("pipelined" if level == 0 else "serial" if level == 1
+            else f"chunk-1/{2 ** (level - 1)}")
+
+
+def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
              gacfg, post, fingerprint: str) -> int:
     """One try: init (or the resumed checkpoint), polish, the generation
-    loop with its checkpoints, tail polish and the final records.
-    Returns the try's best reported evaluation."""
+    loop with its checkpoints, tail polish and the final records, the
+    loop supervised (module docstring). Returns the try's best reported
+    evaluation."""
     tr = _Try(out, cfg, trial, n_islands)
+    device = pa.device
     loaded = None
     if cfg.resume and cfg.checkpoint:
         loaded, seed = _resume(cfg, seed, fingerprint)
     sps = {}
     gens_done = 0
+    host_loaded = None      # the resumed host state, the first snapshot
     if loaded is not None:
-        gens = resume_generators(pa.device, loaded, seed, trial, n_islands)
-        state = place_state(loaded.state, pa.device)
+        gens = resume_generators(device, loaded, seed, trial, n_islands)
+        host_loaded = loaded.state
+        state = place_state(loaded.state, device)
         gens_done = loaded.generation
         if loaded.best_seen is not None:
             tr.best = [int(b) for b in loaded.best_seen]
+        tr.emitted = list(tr.best)
     else:
-        gens = island_generators(pa.device, seed, trial, n_islands)
-        t = time.monotonic()
-        state = islands.init_island_population(pa, gens, cfg.pop_size)
-        state.penalty.cpu()
-        tr.phase("init", time.monotonic() - t)
-        if gacfg.init_sweeps > 0:
-            state, sps[gacfg] = _polish_chunks(tr, pa, gens, state, gacfg,
-                                               "polish", gacfg.init_sweeps,
-                                               None)
+        # the init before the first snapshot, retried on a transient
+        # error: the same generators replay the same trajectory, and the
+        # emitted floor keeps replayed polish bests off the stream (JAX
+        # engine.py:1364-1438); no retry at --max-recoveries 0
+        init_tries = 1 + (2 if cfg.max_recoveries > 0 else 0)
+        for attempt in range(init_tries):
+            try:
+                t = time.monotonic()
+                faults.maybe_fail("init")
+                gens = island_generators(device, seed, trial, n_islands)
+                state = islands.init_island_population(pa, gens,
+                                                       cfg.pop_size)
+                dcore.fetch(state.penalty)
+                tr.phase("init", time.monotonic() - t)
+                if gacfg.init_sweeps > 0:
+                    state, sps[gacfg] = _polish_chunks(
+                        tr, pa, gens, state, gacfg, "polish",
+                        gacfg.init_sweeps, None)
+                break
+            except Exception as e:
+                if attempt + 1 >= init_tries or not retry.is_transient(e):
+                    raise
+                jsonl.fault_entry(out, getattr(e, "tt_site", "init"),
+                                  "recover", e, trial, attempt + 1, 0,
+                                  tr.elapsed(), init=True)
+                state = None
+                pa = problem.device_arrays(device)
     cur = gacfg
     sec_per_gen = None
+    spg_of = {}             # the last sec/gen estimate of each config
     lahc_done = False
 
     def maybe_switch():
@@ -461,6 +542,7 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                 if gacfg.ls_hot_k > 0 and post.ls_hot_k == 0:
                     ratio *= 2.0
                 sec_per_gen *= ratio * post.pop_size / gacfg.pop_size
+                spg_of[cur] = sec_per_gen
             tr.phase("phase-switch", 0.0, at_gen=gens_done)
             if cfg.post_lahc > 0:
                 # the endgame leaves the GA: the rest of the budget
@@ -469,13 +551,14 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                 lahc_done = True
 
     maybe_switch()
-    if not lahc_done and gens_done < cfg.generations:
+    if (cfg.precompile and not lahc_done
+            and gens_done < cfg.generations):
         # the first estimate, from the config the loop starts with (the
         # post one, shrunk, when the polish reached feasibility), outside
-        # the try's clock
+        # the try's clock; --no-precompile skips it
         t = time.monotonic()
-        sec_per_gen = probe_sec_per_gen(pa, state, cur, n_islands,
-                                        cfg.trace_mode, cfg.quality)
+        sec_per_gen = spg_of[cur] = probe_sec_per_gen(
+            pa, state, cur, n_islands, cfg.trace_mode, cfg.quality)
         tr.t0 += time.monotonic() - t
     kick_stall, kick_best, kick_streak = 0, min(tr.best), 0
     # the stall detector, fed once a dispatch (JAX engine.py:1469-1478)
@@ -483,6 +566,24 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                                            cfg.stall_hamming)
                  if cfg.quality and cfg.stall_window > 0 else None)
     REGISTRY.gauge("engine.stalled").set(0.0)
+
+    # the run supervisor and its first snapshot (JAX engine.py:1491-1513)
+    sup = dcore.Supervisor(cfg)
+    REGISTRY.gauge("engine.degrade_level").set(sup.level)
+    REGISTRY.gauge("engine.recovery_budget_configured").set(
+        cfg.max_recoveries)
+    REGISTRY.gauge("engine.recovery_budget_remaining").set(
+        cfg.max_recoveries)
+    if sup.enabled:
+        host0 = (host_loaded
+                 if host_loaded is not None and cur is gacfg
+                 and not lahc_done else dcore.fetch_state(state))
+        sup.snapshot(state=host0, generators=generator_states(gens),
+                     gens_done=gens_done, epochs_done=0, epochs_at_ckpt=0,
+                     best_seen=list(tr.best),
+                     post=post is not None and cur is post,
+                     kick=(kick_stall, kick_best, kick_streak),
+                     lahc_done=lahc_done)
 
     def dispatch_kick() -> int:
         """The kick, shared by the post phase's stall kick and the
@@ -492,39 +593,63 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
         nonlocal state, kick_streak
         n_moves = min(3 << kick_streak, islands.KICK_MAX_MOVES)
         t = time.monotonic()
+        faults.maybe_fail("dispatch")
         state = islands.kick(pa, gens, state, cur, n_moves)
-        state.penalty.cpu()
+        dcore.fetch(state.penalty)
         tr.phase("kick", time.monotonic() - t, at_gen=gens_done,
                  moves=n_moves)
         REGISTRY.counter("engine.kicks").inc()
         kick_streak += 1
         return n_moves
 
+    def save_checkpoint(host_state, gen_states, gens_at, best) -> None:
+        ckpt.save(cfg.checkpoint, host_state,
+                  ckpt.key_words(seed, trial, gens_at), gens_at,
+                  fingerprint, list(best), seed, gen_states, device.type)
+
+    # the pipeline runs only where no control read falls between
+    # dispatches (JAX engine.py:1534-1538)
+    pipelined_cfg = bool(cfg.pipeline and post is None
+                         and not (cfg.quality and cfg.auto_kick_on_stall))
+    ev_mode = islands.effective_trace_mode(cfg.trace_mode, cfg.quality)
     time_stopped = False
     n_dispatch = 0
     epochs_done = epochs_at_ckpt = 0
     overflow_warned = False
+    last_fence = None      # host time of the previous chunk's fence
+    host_gap_s = 0.0       # card-idle time between chunks
     t_loop = time.monotonic()
-    while not lahc_done and gens_done < cfg.generations:
-        size = _dispatch_size(cfg, cfg.generations - gens_done, sec_per_gen,
-                              tr.remaining())
-        if size is None:
-            time_stopped = True
-            break
-        n_ep, g = size
-        td0 = time.monotonic()
-        state, trace = islands.run_epochs(pa, gens, state, cur, n_ep, g,
-                                          cfg.trace_mode, cfg.quality)
-        trace = trace.cpu().numpy()
+
+    def process(chunk, inflight=None):
+        """Retire one chunk (JAX engine.py:1548-1933 _process): read its
+        trace, emit its telemetry, update the sec/gen estimate, then the
+        control checks (phase switch, kick, stall, checkpoint). Serial
+        mode calls it right after the chunk's dispatch; pipelined mode
+        with the next chunk already enqueued, passed as `inflight`."""
+        nonlocal state, cur, sec_per_gen, lahc_done, kick_stall
+        nonlocal kick_best, kick_streak, epochs_at_ckpt, last_fence
+        nonlocal host_gap_s, overflow_warned
+        td0, n_ep, gens_run, tcopy = chunk
+        trace = dcore.fetch(tcopy)
         td1 = time.monotonic()
-        gens_run = n_ep * g
-        gens_done += gens_run
-        epochs_done += n_ep
-        n_dispatch += 1
-        dt = td1 - td0
+        # when the chunk started on the card: at its enqueue when serial,
+        # at the previous fence when pipelined (JAX engine.py:1573-1592)
+        t_start = (last_fence if pipe.enabled and last_fence is not None
+                   else td0)
+        dt = td1 - t_start
+        if last_fence is not None:
+            host_gap_s += max(0.0, td0 - last_fence)
+        last_fence = td1
         tr.phase("dispatch", dt, epochs=n_ep, gens=gens_run)
+        loop_s = td1 - t_loop
+        if loop_s > 0:
+            REGISTRY.gauge("engine.device_busy_frac").set(
+                max(0.0, 1.0 - host_gap_s / loop_s))
+        if gens_done > 0:
+            REGISTRY.gauge("engine.host_gap_ms_per_gen").set(
+                1e3 * host_gap_s / gens_done)
         spg = dt / gens_run
-        sec_per_gen = spg if sec_per_gen is None else (
+        sec_per_gen = spg_of[cur] = spg if sec_per_gen is None else (
             0.7 * spg + 0.3 * sec_per_gen)
         events, moments, qrows, overflow_warned = \
             dcore.decode_telemetry(
@@ -533,8 +658,8 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                 overflow_warned=overflow_warned)
         for i in range(n_islands):
             for gi, h, sc in events[i]:
-                tr.observe(i, h, sc,
-                           (td0 - tr.t0) + (gi + 1) / gens_run * dt)
+                tr.observe(i, h, sc, (t_start - tr.t0)
+                           + (gi + 1) / gens_run * (td1 - t_start))
         if moments is not None:
             # the per-generation best's moments, across islands (JAX
             # engine.py:1676-1684)
@@ -542,7 +667,7 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
         q_agg = record_quality(qrows) if qrows is not None else None
         maybe_switch()
         if lahc_done:
-            break
+            return
         if cur is post and cfg.kick_stall > 0 and cur.pop_size >= 2:
             nb = min(tr.best)
             if nb < kick_best:
@@ -556,8 +681,7 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
         if stall_det is not None and q_agg is not None:
             # a plateau of stall_window dispatches with the most-collapsed
             # island's Hamming sample at or below stall_hamming (JAX
-            # engine.py:1809-1845); recovery and level are 0: the port
-            # has no supervisor
+            # engine.py:1809-1845)
             hmin = q_agg["gauges"]["quality.diversity.hamming_min"]
             was_stalled = stall_det.stalled
             stalled = stall_det.update(min(tr.best), hmin)
@@ -567,43 +691,199 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
                     out, "quality", "stall",
                     f"no new best for {stall_det.streak} dispatches with "
                     f"diversity {hmin:.4f} <= {cfg.stall_hamming}",
-                    trial, 0, 0, tr.elapsed(), streak=stall_det.streak,
-                    hamming=round(hmin, 6))
+                    trial, sup.recoveries, sup.level, tr.elapsed(),
+                    streak=stall_det.streak, hamming=round(hmin, 6))
             if (stalled and cfg.auto_kick_on_stall and cur.pop_size >= 2
                     and tr.remaining() > 0):
                 n_moves = dispatch_kick()
                 jsonl.fault_entry(out, "quality", "kick", "stall auto-kick",
-                                  trial, 0, 0, tr.elapsed(), moves=n_moves)
+                                  trial, sup.recoveries, sup.level,
+                                  tr.elapsed(), moves=n_moves)
                 stall_det.reset()
                 REGISTRY.gauge("engine.stalled").set(0.0)
         if (cfg.checkpoint
                 and epochs_done - epochs_at_ckpt >= cfg.checkpoint_every):
+            # the state, generators and gens_done cover the in-flight
+            # chunk when pipelined (the read below waits for it); its
+            # improvements are folded into the saved floor only, so they
+            # still emit when it retires (JAX engine.py:1846-1933)
             t = time.monotonic()
-            ckpt.save(cfg.checkpoint, fetch_state(state),
-                      ckpt.key_words(seed, trial, gens_done), gens_done,
-                      fingerprint, list(tr.best), seed,
-                      generator_states(gens), pa.device.type)
+            host_state = dcore.fetch_state(state)
+            gen_states = generator_states(gens)
+            bs = list(tr.best)
+            tr_fold = None
+            if inflight is not None:
+                tr_fold, _ = islands.split_quality(
+                    dcore.fetch(inflight.trace), cfg.quality)
+                for i, evs in enumerate(
+                        islands.trace_events(tr_fold, ev_mode)[0]):
+                    for _g, h, sc in evs:
+                        bs[i] = min(bs[i], jsonl.reported_best(h, sc))
+            job = (lambda hs=host_state, gs=gen_states, gd=gens_done,
+                   b=bs: save_checkpoint(hs, gs, gd, b))
+            submit = getattr(out, "submit", None)
+            if submit is not None:
+                submit(job)      # on the writer's thread, in order
+            else:
+                job()
             epochs_at_ckpt = epochs_done
+            sup.snapshot(state=host_state, generators=gen_states,
+                         gens_done=gens_done, epochs_done=epochs_done,
+                         epochs_at_ckpt=epochs_done, best_seen=bs,
+                         post=post is not None and cur is post,
+                         kick=(kick_stall, kick_best, kick_streak),
+                         inflight_trace=tr_fold)
             tr.phase("checkpoint", time.monotonic() - t)
             REGISTRY.counter("engine.checkpoints").inc()
-    tr.phase("gen-loop", time.monotonic() - t_loop, dispatches=n_dispatch,
-             pipelined=False)
 
-    # budget-tail polish: the slice too short for one more generation
-    # goes to sweep passes, when a measured sec/sweep says one fits
-    if time_stopped and sps.get(cur):
-        state, _ = _polish_chunks(tr, pa, gens, state, cur, "tail-polish",
-                                  None, sps[cur])
+    pipe = dcore.DispatchPipeline(process, enabled=pipelined_cfg)
+    while True:
+        try:
+            while not lahc_done and gens_done < cfg.generations:
+                if (sup.enabled and sup.level > 0
+                        and sup.maybe_relax(time.monotonic())):
+                    REGISTRY.gauge("engine.degrade_level").set(sup.level)
+                    jsonl.fault_entry(out, "run", "restore",
+                                      "clean stretch", trial,
+                                      sup.recoveries, sup.level,
+                                      tr.elapsed(),
+                                      mode=_ladder_mode(sup.level))
+                    if sup.level < 1:
+                        pipe.enabled = pipelined_cfg
+                if pipe.pending is not None and sec_per_gen is None:
+                    # no estimate for the chunk in flight: retire it
+                    # before enqueueing another unmeasured one
+                    pipe.drain()
+                remaining_t = tr.remaining()
+                if pipe.pending is not None and sec_per_gen is not None:
+                    # the in-flight chunk spends budget the clock has not
+                    # charged yet
+                    remaining_t -= sec_per_gen * pipe.pending.gens_run
+                size = _dispatch_size(cfg, cfg.generations - gens_done,
+                                      sec_per_gen, remaining_t,
+                                      sup.dispatch_scale())
+                if size is None:
+                    time_stopped = True
+                    break
+                n_ep, g = size
+                faults.maybe_fail("dispatch")
+                td0 = time.monotonic()
+                state, trace = islands.run_epochs(
+                    pa, gens, state, cur, n_ep, g, cfg.trace_mode,
+                    cfg.quality)
+                # the trace starts for the host now; its reader waits
+                # on this copy alone
+                tcopy = dcore.HostCopy(trace)
+                gens_done += n_ep * g
+                epochs_done += n_ep
+                n_dispatch += 1
+                pipe.submit(dcore.Chunk(td0, n_ep, n_ep * g, tcopy))
+            pipe.drain()
+            tr.phase("gen-loop", time.monotonic() - t_loop,
+                     dispatches=n_dispatch, pipelined=pipe.enabled)
 
-    t = time.monotonic()
-    P = cur.pop_size
-    host = fetch_state(state)
-    tr.phase("fetch", time.monotonic() - t)
-    E = pa.n_events
-    slots = host.slots.reshape(n_islands, P, E)
-    rooms = host.rooms.reshape(n_islands, P, E)
-    hcv = host.hcv.reshape(n_islands, P)[:, 0]
-    scv = host.scv.reshape(n_islands, P)[:, 0]
+            # budget-tail polish: the slice too short for one more
+            # generation goes to sweep passes, when a measured sec/sweep
+            # says one fits
+            if time_stopped and sps.get(cur):
+                state, _ = _polish_chunks(tr, pa, gens, state, cur,
+                                          "tail-polish", None, sps[cur])
+            t = time.monotonic()
+            slots, rooms, hcv, scv = dcore.fetch_final(state, n_islands,
+                                                       cur.pop_size)
+            tr.phase("fetch", time.monotonic() - t)
+            break
+        except Exception as e:
+            site = sup.classify(e)
+            if site is None:
+                raise
+            now = time.monotonic()
+            sup.recoveries += 1
+            REGISTRY.gauge("engine.recovery_budget_remaining").set(
+                max(0, cfg.max_recoveries - sup.recoveries))
+            if sup.recoveries > cfg.max_recoveries:
+                # the budget is spent: the abort record, a final durable
+                # checkpoint from the snapshot, and the error propagates
+                jsonl.fault_entry(out, site, "abort", e, trial,
+                                  sup.recoveries - 1, sup.level,
+                                  now - tr.t0)
+                if cfg.checkpoint:
+                    snap = sup.snap
+                    try:
+                        save_checkpoint(snap.state, snap.generators,
+                                        snap.gens_done, snap.best_seen)
+                    except Exception as e3:
+                        print(f"warning: final abort checkpoint failed: "
+                              f"{e3}", file=sys.stderr)
+                raise
+            REGISTRY.counter("engine.recoveries").inc()
+            snap = sup.snap
+            jsonl.fault_entry(out, site, "recover", e, trial,
+                              sup.recoveries, sup.level, now - tr.t0,
+                              lostGens=max(0, gens_done - snap.gens_done))
+            if sup.escalate(now):
+                REGISTRY.gauge("engine.degrade_level").set(sup.level)
+                jsonl.fault_entry(out, site, "degrade", e, trial,
+                                  sup.recoveries, sup.level, now - tr.t0,
+                                  mode=_ladder_mode(sup.level))
+            if sup.level >= 1:
+                pipe.enabled = False
+            # whatever the failed dispatch left on the card is dropped:
+            # the problem is placed again and the snapshot re-placed on
+            # the same device (no program purge: see dispatch_core)
+            pipe.abandon()
+            state = None
+            pa = problem.device_arrays(device)
+            try:
+                state = place_state(snap.state, device)
+                dcore.fetch(state.penalty)
+            except Exception as e2:
+                if not cfg.checkpoint:
+                    raise
+                print(f"warning: snapshot rehydration failed "
+                      f"({str(e2)[:120]}); falling back to the durable "
+                      f"checkpoint", file=sys.stderr)
+                ld = ckpt.load(cfg.checkpoint, fingerprint)
+                b2 = (ld.best_seen if ld.best_seen is not None
+                      else [INT_MAX] * n_islands)
+                mp = max(1, cfg.migration_period)
+                snap = sup.snap = dcore.Snapshot(
+                    state=ld.state,
+                    generators=generator_states(resume_generators(
+                        device, ld, seed, trial, n_islands)),
+                    gens_done=ld.generation,
+                    epochs_done=ld.generation // mp,
+                    epochs_at_ckpt=ld.generation // mp,
+                    best_seen=list(b2),
+                    post=post is not None and min(b2) < FEASIBLE_LIMIT,
+                    kick=(0, min(b2), 0))
+                state = place_state(snap.state, device)
+                dcore.fetch(state.penalty)
+            # the control state as of the snapshot: replayed decisions
+            # land at the generations an uninjected run's do
+            gens = restore_generators(device, snap.generators)
+            gens_done = snap.gens_done
+            epochs_done = snap.epochs_done
+            epochs_at_ckpt = snap.epochs_at_ckpt
+            tr.best[:] = list(snap.best_seen)
+            cur = post if snap.post else gacfg
+            sec_per_gen = spg_of.get(cur, sec_per_gen)
+            kick_stall, kick_best, kick_streak = snap.kick
+            lahc_done = snap.lahc_done
+            time_stopped = False
+            last_fence = None
+            if snap.inflight_trace is not None:
+                # the chunk in flight at the snapshot's fence: its
+                # improvements were never emitted
+                tnow = tr.elapsed()
+                for i, evs in enumerate(islands.trace_events(
+                        snap.inflight_trace, ev_mode)[0]):
+                    for _g, h, sc in evs:
+                        tr.observe(i, h, sc, tnow)
+            # the rehydrate's wall (JAX's `recover` span)
+            REGISTRY.gauge("engine.recovery_seconds").set(
+                time.monotonic() - now)
+
     total_time = tr.elapsed()
     for i in range(n_islands):
         feas = bool(hcv[i] == 0)
@@ -622,8 +902,10 @@ def _run_try(cfg, out, pa, trial: int, seed: int, n_islands: int,
 
 def run(cfg: RunConfig, out=None) -> int:
     """Execute the configured run; emit the JSONL protocol on `out` (or
-    -o, or stdout). Returns the best reported evaluation."""
+    -o, or stdout) through an AsyncWriter, drained before this returns
+    or raises. Returns the best reported evaluation."""
     device = resolve_device(cfg.backend)
+    dcore.set_fetch_timeout(cfg.fetch_timeout)
     if cfg.ls_time_limit != 99999.0:
         # -l is retired, as on the JAX path (engine.py:894-901): the
         # local search is bounded by candidate count, not wall clock
@@ -635,39 +917,58 @@ def run(cfg: RunConfig, out=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         kernels.build()
+    # the fault plan, its counters reset for this run
+    faults.install(faults.active_spec(cfg.faults))
     close_out = False
-    if out is None:
-        if cfg.output:
-            out = open(cfg.output, "w")
-            close_out = True
-        else:
-            out = sys.stdout
+    writer = None
     try:
-        t0 = time.monotonic()
-        problem = load_tim_file(cfg.input)
-        if cfg.auto_tune:
-            cfg.apply_tuned_defaults(problem.n_events)
-        pa = problem.device_arrays(device)
-        n_islands = cfg.islands if cfg.islands is not None else 1
-        gacfg = build_ga_config(cfg)
-        post = build_post_config(cfg, gacfg)
-        if (cfg.checkpoint and post is not None
-                and post.pop_size != gacfg.pop_size):
-            # the mid-run shape change cannot round-trip a checkpoint
-            # (parse_args refuses the flags; this guards programmatic
-            # configs, as JAX engine.py:657-663 does)
-            raise ValueError("post_pop_size with checkpoint is unsupported")
-        if post is not None and not 1 <= post.pop_size <= gacfg.pop_size:
-            raise ValueError(f"post_pop_size {post.pop_size} must be in "
-                             f"[1, pop_size={gacfg.pop_size}]")
-        fingerprint = ckpt.config_fingerprint(problem, gacfg, n_islands)
-        seed = cfg.resolved_seed()
-        _phase(out, cfg.trace, "load", 0, time.monotonic() - t0)
-        best = INT_MAX
-        for trial in range(cfg.tries):
-            best = min(best, _run_try(cfg, out, pa, trial, seed, n_islands,
-                                      gacfg, post, fingerprint))
+        if out is None:
+            if cfg.output:
+                out = open(cfg.output, "w")
+                close_out = True
+            else:
+                out = sys.stdout
+        writer = jsonl.AsyncWriter(out)
+        REGISTRY.gauge_fn("writer.queue_depth", writer.qsize)
+        try:
+            best = _run_tries(cfg, writer, device)
+        except BaseException:
+            writer.close(raise_error=False)
+            raise
+        writer.close()
         return best
     finally:
+        if writer is not None:
+            # the registry must not keep this run's writer alive
+            REGISTRY.freeze("writer.queue_depth", 0.0)
+        faults.install(None)
         if close_out:
             out.close()
+
+
+def _run_tries(cfg: RunConfig, out, device) -> int:
+    t0 = time.monotonic()
+    problem = load_tim_file(cfg.input)
+    if cfg.auto_tune:
+        cfg.apply_tuned_defaults(problem.n_events)
+    pa = problem.device_arrays(device)
+    n_islands = cfg.islands if cfg.islands is not None else 1
+    gacfg = build_ga_config(cfg)
+    post = build_post_config(cfg, gacfg)
+    if (cfg.checkpoint and post is not None
+            and post.pop_size != gacfg.pop_size):
+        # the mid-run shape change cannot round-trip a checkpoint
+        # (parse_args refuses the flags; this guards programmatic
+        # configs, as JAX engine.py:657-663 does)
+        raise ValueError("post_pop_size with checkpoint is unsupported")
+    if post is not None and not 1 <= post.pop_size <= gacfg.pop_size:
+        raise ValueError(f"post_pop_size {post.pop_size} must be in "
+                         f"[1, pop_size={gacfg.pop_size}]")
+    fingerprint = ckpt.config_fingerprint(problem, gacfg, n_islands)
+    seed = cfg.resolved_seed()
+    _phase(out, cfg.trace, "load", 0, time.monotonic() - t0)
+    best = INT_MAX
+    for trial in range(cfg.tries):
+        best = min(best, _run_try(cfg, out, problem, pa, trial, seed,
+                                  n_islands, gacfg, post, fingerprint))
+    return best

@@ -1,5 +1,5 @@
 """JSONL reporting protocol (copy of timetabling_ga_tpu/runtime/jsonl.py
-:42-52, 265-400, 552-621): one compact JSON object per line, the
+:42-262, 265-400, 552-621): one compact JSON object per line, the
 reference's field names (ga.cpp:169-257, 469-470, 604-607).
 
   {"logEntry":{"procID":i,"threadID":0,"best":b,"time":s}}
@@ -17,19 +17,167 @@ reference's field names (ga.cpp:169-257, 469-470, 604-607).
 On the serve path logEntry, solution and runEntry carry the job's id as
 `job`. `best` is scv when feasible, else hcv*1e6+scv. threadID is 0: an
 island's breeding is one batched launch with no thread identity.
-Writes are synchronous.
+
+The engine and the serve path write through an `AsyncWriter`: a
+background thread behind a bounded queue, so a dispatch never waits on
+the disk; `submit` queues a job (a checkpoint's npz write) in order with
+the records around it.
 """
 
 from __future__ import annotations
 
 import json
+import queue
+import threading
 from typing import IO, List, Optional
+
+from timetabling_ga_tpu_torch.runtime import faults
 
 
 def _write(stream: IO, obj: dict) -> dict:
     stream.write(json.dumps(obj, separators=(",", ":")) + "\n")
     stream.flush()
     return obj
+
+
+class AsyncWriter:
+    """A file-like writer whose lines a background thread hands to
+    `stream` (JAX jsonl.py:53). Each `write` enqueues one whole record
+    line, which the worker writes and flushes in one call, so a killed
+    run leaves whole records. `submit(job)` enqueues a callable on the
+    same queue. `drain` and `close` block until everything queued is
+    written; an error on the worker (a full disk) is raised on the
+    producer at its next write, submit, drain or close. The queue is
+    bounded (backpressure), and every wait on it checks that the worker
+    is alive, so a dead worker raises instead of hanging the producer.
+    The worker fires the fault site `site` once per dequeued item."""
+
+    _STOP = object()
+
+    def __init__(self, stream: IO, maxsize: int = 1024,
+                 site: str = "writer"):
+        self._stream = stream
+        self._site = site
+        self._q: queue.Queue = queue.Queue(maxsize=maxsize)
+        self._error = None
+        self._failed = False    # a write failed mid-record: never write
+        #                         again (the next line would splice)
+        self._closed = False
+        self._thread = threading.Thread(
+            target=self._worker, name="tt-jsonl-writer", daemon=True)
+        self._thread.start()
+
+    def _worker(self) -> None:
+        while True:
+            item = self._q.get()
+            try:
+                faults.maybe_fail(self._site)
+            except SystemExit:
+                return          # an injected death: no task_done
+            try:
+                if item is self._STOP:
+                    return
+                if callable(item):
+                    if self._error is None:
+                        item()
+                elif not self._failed:
+                    try:
+                        self._stream.write(item)
+                        self._stream.flush()
+                    except BaseException:
+                        self._failed = True
+                        raise
+            except BaseException as e:
+                self._error = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("AsyncWriter is closed")
+
+    def _put(self, item) -> None:
+        """Enqueue in bounded waits, checking the worker is alive."""
+        while True:
+            if not self._thread.is_alive():
+                self._raise_pending()
+                raise RuntimeError(
+                    "AsyncWriter worker thread died; enqueue would "
+                    "never drain")
+            try:
+                self._q.put(item, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+
+    def _await_drained(self) -> None:
+        """Queue.join, but raising when the worker dies meanwhile."""
+        q = self._q
+        with q.all_tasks_done:
+            while q.unfinished_tasks:
+                if not self._thread.is_alive():
+                    self._raise_pending()
+                    raise RuntimeError(
+                        "AsyncWriter worker thread died with items "
+                        "still queued")
+                q.all_tasks_done.wait(0.1)
+
+    def write(self, s: str) -> None:
+        if threading.current_thread() is self._thread:
+            # from a submitted job: the worker is the stream's only
+            # writer and it is here, so write directly (enqueueing could
+            # wait on a drain only this thread performs)
+            if not self._failed:
+                try:
+                    self._stream.write(s)
+                    self._stream.flush()
+                except BaseException:
+                    self._failed = True
+                    raise
+            return
+        self._check_open()
+        self._raise_pending()
+        self._put(s)
+
+    def qsize(self) -> int:
+        """Queue occupancy: the `writer.queue_depth` pull gauge."""
+        return self._q.qsize()
+
+    def flush(self) -> None:
+        """No-op: the worker flushes after every record."""
+
+    def submit(self, job) -> None:
+        """Enqueue `job()` behind every record already queued."""
+        self._check_open()
+        self._raise_pending()
+        self._put(job)
+
+    def drain(self) -> None:
+        """Block until every queued item is written."""
+        self._await_drained()
+        self._raise_pending()
+
+    def close(self, raise_error: bool = True) -> None:
+        """Drain, then stop the worker; idempotent. The stream stays
+        open. `raise_error=False` (on an error path) swallows a pending
+        worker error so it cannot mask the run's own."""
+        if not self._closed:
+            self._closed = True
+            try:
+                self._put(self._STOP)
+                self._await_drained()
+            except BaseException:
+                if raise_error:
+                    self._thread.join(timeout=1.0)
+                    raise
+            self._thread.join(timeout=5.0)
+        if raise_error:
+            self._raise_pending()
 
 
 def reported_best(hcv: int, scv: int) -> int:
@@ -109,13 +257,16 @@ def fault_entry(stream: IO, site: str, action: str, error, trial: int,
     """Robustness extension record (JAX jsonl.py:326), always emitted:
     one line per event, `site` the operation class, `action` what was
     done, `recovery` the recoveries so far, `level` the degradation
-    level, `time` seconds into the trial. The port writes it for the
-    quality telemetry's stall and kick events (site "quality") and for
-    the serve path's seams, each tagged `job`: a warm start (site
-    "fleet", action "resume", with the wire's `gens` and `chunks`), a
-    refused wire (site "resume", action "replay") and a demoted edit
-    (site "edit", action "demote"); recovery and level are 0: it has no
-    supervisor yet. A TIMING_RECORDS member, so strip_timing drops it."""
+    level, `time` seconds into the trial. The engine's supervisor writes
+    recover (with `lostGens`), degrade and restore (with `mode`) and
+    abort records, the init retry a recover with `init`; the quality
+    telemetry its stall and kick events (site "quality"); the serve path
+    its seams, each tagged `job`: a warm start (site "fleet", action
+    "resume", with the wire's `gens` and `chunks`), a refused wire (site
+    "resume", action "replay"), a demoted edit (site "edit", action
+    "demote"), a quantum fault (site "quantum", action "requeue" or
+    "abort", with `gens`) and a failed flush (site "flush", action
+    "rollback"). A TIMING_RECORDS member, so strip_timing drops it."""
     rec = {"site": str(site), "action": str(action),
            "error": str(error)[:200], "trial": int(trial),
            "recovery": int(recovery), "level": int(level),

@@ -1,7 +1,8 @@
 """Job admission and lifecycle for the solver service (copy of
 timetabling_ga_tpu/serve/queue.py:33-257, with the fields the port
-uses: warm starts, shipping and edits are here; usage metering, flows,
-recoveries and the fleet's ship_hot wait).
+uses: warm starts, shipping, edits, quantum-fault recoveries and load
+shedding are here; usage metering, flows and the fleet's ship_hot and
+preemption wait).
 
 The backlog is bounded (admission control): a submit past it is
 rejected at once rather than queued into unbounded latency. Priorities
@@ -14,6 +15,7 @@ another's stream.
        |                  |                    |
        |                  +------- budget/deadline ------> DONE
        +--cancel--> CANCELLED      (failure) ------------> FAILED
+       +--backpressure (scheduler shed) ---------------> SHED
 
 PARKED is the between-quanta state: the job's population is a host
 snapshot, or, while its group stays resident, on the card.
@@ -52,9 +54,12 @@ class JobState:
     DONE = "done"
     FAILED = "failed"
     CANCELLED = "cancelled"
+    SHED = "shed"         # released by backpressure: the lowest-priority
+    #                       runnable job while a registry depth is at or
+    #                       over its high-water mark
 
     ACTIVE = (PENDING, RUNNING, PARKED)
-    TERMINAL = (DONE, FAILED, CANCELLED)
+    TERMINAL = (DONE, FAILED, CANCELLED, SHED)
 
 
 class AdmissionError(RuntimeError):
@@ -94,6 +99,9 @@ class Job:
     #                                   of SHIP_RECORDS_CAP
     ship_truncated: bool = False      # ship_records dropped its oldest
     resumed_at: int = 0               # gens_done restored from a wire
+    recoveries: int = 0               # quantum-fault requeues so far;
+    #                                   past --max-job-recoveries the job
+    #                                   fails alone
     # -- incremental re-solve (serve/editsolve.py) -----------------------
     mode: str = "solve"               # "solve" | "edit"
     edit_of: Optional[str] = None     # the base job's id, when known

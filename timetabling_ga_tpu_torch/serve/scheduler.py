@@ -52,6 +52,25 @@ timetabling_ga_tpu/serve/scheduler.py:104-1130 on one card).
   FAIRNESS  buckets are served round-robin; within one, jobs go in
             (priority desc, generations served asc, arrival) order.
 
+  SHEDDING  at the top of every step (the control fence), while
+            `serve.queue_depth` or `writer.queue_depth` is at or over
+            --shed-queue-hwm / --shed-writer-hwm, the lowest-priority
+            runnable job is released: state SHED, a jobEntry `shed`,
+            `serve.jobs_shed` (JAX scheduler.py:407-460).
+
+  RECOVERY  a failed quantum (the `quantum` fault site fires before each
+            lane dispatch) touches only its dispatch's jobs
+            (`_recover_quantum`, JAX :845-912): a transient error
+            requeues each from its park snapshot, a resident group's
+            cursors rolled back to the host fence its snapshots hold, so
+            the replay repeats the same chunks and the emitted floor
+            keeps the stream equal to an uninjected run's; a
+            non-transient error, or a job past --max-job-recoveries,
+            fails that job alone. A warm start whose admission fails
+            (site `resume`) replays from scratch, and an edit whose
+            transplant fails (site `edit`) runs cold, each with a
+            faultEntry.
+
 Randomness: lane l of a dispatch runs its job's chunk c from
 islands.lane_generator(seed, c), and its init from the job's init
 generator: a job's records are the same alone or packed with any
@@ -62,12 +81,8 @@ One card: the dispatch is as wide as pad_lanes(cfg.lanes) (the
 parked as JAX's is (so `serve.resume_bytes` and `serve.park_bytes` count
 what JAX's do on the same schedule), but only occupied lanes run: the
 port has no compile cache keyed on the width, so JAX's zero-generation
-filler lanes would be idle work. An exception in a quantum propagates:
-JAX's quantum recovery (`_recover_quantum`) and load shedding wait for
-the dispatch pipeline's fault handling (A16), and JAX's
-`faults.maybe_fail` sites (edit, resume, quantum) for runtime/faults.py.
-The usage meter is not ported: the port runs as JAX does under
---no-usage.
+filler lanes would be idle work. The usage meter is not ported: the
+port runs as JAX does under --no-usage.
 """
 
 from __future__ import annotations
@@ -83,7 +98,7 @@ from timetabling_ga_tpu_torch.ops import ga
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import LaneProblems
 from timetabling_ga_tpu_torch.runtime import dispatch_core as dcore
-from timetabling_ga_tpu_torch.runtime import jsonl
+from timetabling_ga_tpu_torch.runtime import faults, jsonl, retry
 from timetabling_ga_tpu_torch.runtime.config import ServeConfig
 from timetabling_ga_tpu_torch.serve import bucket as bucket_mod
 from timetabling_ga_tpu_torch.serve import snapshot as snapshot_mod
@@ -175,10 +190,11 @@ class Scheduler:
         edit, no or a bad base wire, a population mismatch) demotes the
         job to a cold solve of its edited instance: one faultEntry (site
         edit, action demote) and serve.jobs_edit_demoted, never an
-        error. (JAX's fault site `edit` waits for runtime/faults.py.)"""
+        error; so does a fault at the site `edit`."""
         from timetabling_ga_tpu_torch.serve import editsolve
         self._metrics.counter("serve.jobs_edit").inc()
         try:
+            faults.maybe_fail("edit")
             job.resume_wire = editsolve.transplant(
                 job.padded, job.edit_map, base_wire, bucket=job.bucket,
                 pop_size=self.cfg.pop_size, seed=job.seed, pa=job.pa_dev)
@@ -243,12 +259,13 @@ class Scheduler:
         that state at once, and one faultEntry (site fleet, action
         resume) marks the seam. False: the wire was refused (faultEntry
         resume / replay, serve.jobs_resume_rejected) and the job starts
-        fresh. The wire's usage cursor is read and dropped: the port has
-        no meter. (JAX's fault site `resume` waits for
-        runtime/faults.py.)"""
+        fresh; so does any failure at the fault site `resume`, an
+        injected thread death included. The wire's usage cursor is read
+        and dropped: the port has no meter."""
         pop = self.cfg.pop_size
         wire, job.resume_wire = job.resume_wire, None
         try:
+            faults.maybe_fail("resume")
             expect = snapshot_mod.wire_fingerprint(job.bucket, pop,
                                                    job.seed)
             state, meta = snapshot_mod.unpack_state(
@@ -285,6 +302,48 @@ class Scheduler:
         self._metrics.counter("serve.jobs_resumed").inc()
         return True
 
+    # -- backpressure ---------------------------------------------------
+
+    def _shed(self) -> None:
+        """Load shedding at the control fence (JAX scheduler.py:407):
+        while `serve.queue_depth` or `writer.queue_depth` in this
+        scheduler's registry is at or over its mark (0 disables), the
+        lowest-priority runnable job (ready()'s last) is released with a
+        jobEntry `shed`. A writer shed is one a fence: shedding queued
+        jobs does not drain the writer's queue."""
+        q_hwm = self.cfg.shed_queue_hwm
+        w_hwm = self.cfg.shed_writer_hwm
+        if q_hwm <= 0 and w_hwm <= 0:
+            return
+
+        def depth(name):
+            v = self._metrics.gauge(name).value
+            return 0.0 if v != v else v        # nan (unbound): no load
+
+        while True:
+            over = None
+            if q_hwm > 0 and depth("serve.queue_depth") >= q_hwm:
+                over = "queue_hwm"
+            elif w_hwm > 0 and depth("writer.queue_depth") >= w_hwm:
+                over = "writer_hwm"
+            if over is None:
+                return
+            victims = self.queue.ready()
+            if not victims:
+                return
+            job = victims[-1]
+            job.state = JobState.SHED
+            job.finished_t = self._now()
+            job.error = f"shed ({over})"
+            job.snapshot = None
+            job.ship = None
+            job.ship_records.clear()
+            jsonl.job_entry(self.out, job.id, "shed", reason=over,
+                            priority=job.priority, gens=job.gens_done)
+            self._metrics.counter("serve.jobs_shed").inc()
+            if over == "writer_hwm":
+                return
+
     # -- one dispatch cycle ---------------------------------------------
 
     def _reap(self) -> None:
@@ -316,8 +375,10 @@ class Scheduler:
         return seen
 
     def step(self) -> bool:
-        """One dispatch for the next bucket group (round-robin). Returns
-        True while any runnable job remains."""
+        """One dispatch for the next bucket group (round-robin), after
+        the control fence's shedding and deadline pass. Returns True
+        while any runnable job remains."""
+        self._shed()
         self._reap()
         buckets = self._buckets_ready()
         if not buckets:
@@ -336,9 +397,53 @@ class Scheduler:
             job.state = JobState.RUNNING
         gens = [min(self.cfg.quantum, job.remaining()) for job in jobs]
         self._metrics.counter("serve.dispatches").inc()
-        self._cycle(jobs, gens)
-        self._metrics.counter("serve.gens").inc(sum(gens))
+        try:
+            self._cycle(jobs, gens)
+            self._metrics.counter("serve.gens").inc(sum(gens))
+        except Exception as e:
+            self._recover_quantum(jobs, e)
         return bool(self.queue.ready())
+
+    def _recover_quantum(self, jobs, exc) -> None:
+        """A failed quantum, at job granularity (JAX scheduler.py:845):
+        what the failed dispatch left on the card is dropped, a resident
+        group's cursors go back to the host fence its snapshots hold,
+        and each of the dispatch's jobs is requeued from its snapshot
+        (a transient error within the job's --max-job-recoveries) or
+        fails alone. Co-tenants of other dispatches, the writer and the
+        service run on."""
+        entry = self._resident.pop(jobs[0].bucket, None)
+        if entry is not None:
+            for job in jobs:
+                if (job.state not in JobState.TERMINAL
+                        and job.id in entry["fence"]):
+                    job.chunks, job.gens_done = entry["fence"][job.id]
+        transient = retry.is_transient(exc)
+        for job in jobs:
+            if job.state in JobState.TERMINAL:
+                continue         # settled before the fault: stays so
+            job.recoveries += 1
+            t = self._now() - job.submitted_t
+            if transient and job.recoveries <= self.cfg.max_job_recoveries:
+                job.state = JobState.PARKED
+                jsonl.fault_entry(self.out, "quantum", "requeue", exc, 0,
+                                  job.recoveries, 0, t, job=job.id,
+                                  gens=job.gens_done)
+                self._metrics.counter("serve.job_recoveries").inc()
+                continue
+            jsonl.fault_entry(self.out, "quantum", "abort", exc, 0,
+                              job.recoveries, 0, t, job=job.id,
+                              gens=job.gens_done)
+            jsonl.job_entry(self.out, job.id, "failed",
+                            reason="quantum fault: " + str(exc)[:120],
+                            gens=job.gens_done)
+            job.state = JobState.FAILED
+            job.error = f"quantum fault: {str(exc)[:200]}"
+            job.finished_t = self._now()
+            job.snapshot = None
+            job.ship = None
+            job.ship_records.clear()
+            self._metrics.counter("serve.jobs_failed").inc()
 
     def _lane_problems(self, bkey, jobs) -> LaneProblems:
         """The pack's LaneProblems: its jobs' problems, then the first
@@ -374,7 +479,12 @@ class Scheduler:
             state = dcore.place_state(host0, self.device)
             self._metrics.counter("serve.resume_bytes").inc(
                 dcore.state_nbytes(host0))
-            entry = {"jids": jids, "state": None}
+            # the host fence this state matches: a failed quantum of the
+            # group rolls the cursors back here
+            entry = {"jids": jids, "state": None,
+                     "fence": {j.id: (j.chunks, j.gens_done)
+                               for j in jobs}}
+        faults.maybe_fail("quantum")
         lp = self._lane_problems(bkey, jobs)
         idle = self.lanes - len(jobs)
         rngs = [islands.lane_generator(self.device, j.seed, j.chunks)
@@ -451,7 +561,15 @@ class Scheduler:
                 if job.state not in JobState.TERMINAL]
         if not live:
             return
-        host = dcore.fetch_state(entry["state"])
+        try:
+            host = dcore.fetch_state(entry["state"])
+        except BaseException:
+            # the snapshots stay the last host fence's: their cursors
+            # with them
+            for _, job in live:
+                if job.id in entry["fence"]:
+                    job.chunks, job.gens_done = entry["fence"][job.id]
+            raise
         self._metrics.counter("serve.park_bytes").inc(
             dcore.state_nbytes(host))
         for lane, job in live:
@@ -460,18 +578,32 @@ class Scheduler:
         self._metrics.counter("serve.resident_flushes").inc()
 
     def _flush_job(self, job: Job) -> None:
-        """Park the resident group holding `job`, if any."""
+        """Park the resident group holding `job`, if any. A failed park
+        is absorbed (faultEntry flush/rollback): the job goes on from
+        its last host fence."""
         entry = self._resident.get(job.bucket)
-        if entry is not None and job.id in entry["jids"]:
+        if entry is None or job.id not in entry["jids"]:
+            return
+        try:
             self._flush_bucket(job.bucket)
+        except Exception as e:
+            jsonl.fault_entry(self.out, "flush", "rollback", e, 0, 0, 0,
+                              self._now() - job.submitted_t, job=job.id)
 
     def flush_resident(self) -> int:
         """Park every resident group now: at an idle fence, or to ship
         (every job's unit then holds its current progress; JAX's
-        flush_resident("ship")). Returns the number of groups parked."""
-        n = len(self._resident)
+        flush_resident("ship")). A group whose park fails is rolled back
+        to its last host fence and skipped. Returns the number of groups
+        parked."""
+        n = 0
         for bkey in list(self._resident):
-            self._flush_bucket(bkey)
+            try:
+                self._flush_bucket(bkey)
+                n += 1
+            except Exception as e:
+                jsonl.fault_entry(self.out, "flush", "rollback", e, 0, 0,
+                                  0, 0.0)
         return n
 
     def _resident_bytes(self) -> int:

@@ -36,9 +36,13 @@ snapshot.py) warm-starts the job at the wire's progress, or falls back
 to a fresh solve; an `edit` (serve/editsolve.py) solves the edited
 instance under the anchored objective, warm from its base wire when it
 stays in the base's bucket. `{"stats": "prometheus"}` is not ported yet:
-it gets a rejected jobEntry saying so. Records are written in line on
-the drive loop (JAX's writer thread waits for the dispatch pipeline,
-A16); the stream is the same.
+it gets a rejected jobEntry saying so.
+
+Records ride a jsonl.AsyncWriter (its queue is the `writer.queue_depth`
+gauge that `--shed-writer-hwm` reads); `drive` returns with them written
+and `close` drains it. The fault plan (`--faults`, else `$TT_FAULTS`) is
+installed when the service starts, as JAX's service does: the serve
+path's sites are `writer`, `fetch`, `quantum`, `resume` and `edit`.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ import sys
 
 from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
 from timetabling_ga_tpu_torch.problem import load_tim, load_tim_file
-from timetabling_ga_tpu_torch.runtime import jsonl
+from timetabling_ga_tpu_torch.runtime import faults, jsonl
 from timetabling_ga_tpu_torch.runtime.config import (
     ServeConfig, not_ported, parse_serve_args)
 from timetabling_ga_tpu_torch.serve.queue import Job, JobQueue, tenant_label
@@ -74,6 +78,11 @@ class SolveService:
             torch.backends.cudnn.allow_tf32 = False
             kernels.build()
         self._registry = REGISTRY if registry is None else registry
+        # installed only when a spec is given: a plan a caller installed
+        # before constructing the service stays (JAX service.py:90-101)
+        spec = faults.active_spec(cfg.faults)
+        if spec:
+            faults.install(spec)
         self._close_out = False
         if out is None:
             if cfg.output:
@@ -81,10 +90,13 @@ class SolveService:
                 self._close_out = True
             else:
                 out = sys.stdout
-        self.out = out
+        self._raw_out = out
+        self.writer = self.out = jsonl.AsyncWriter(out)
+        self._registry.gauge_fn("writer.queue_depth", self.writer.qsize)
         self.queue = JobQueue(cfg.backlog, now=now)
-        self.scheduler = Scheduler(cfg, self.queue, out, self.device,
-                                   now=now, registry=self._registry)
+        self.scheduler = Scheduler(cfg, self.queue, self.writer,
+                                   self.device, now=now,
+                                   registry=self._registry)
         self._auto_id = 0
 
     @property
@@ -146,8 +158,10 @@ class SolveService:
         return ok
 
     def drive(self) -> None:
-        """Run dispatches until every admitted job settles."""
+        """Run dispatches until every admitted job settles; returns with
+        their records written."""
         self.scheduler.drive()
+        self.writer.drain()
 
     def step(self) -> bool:
         """One dispatch cycle (for callers interleaving submissions)."""
@@ -168,13 +182,17 @@ class SolveService:
         jsonl.metrics_entry(self.out, self.stats())
 
     def close(self) -> None:
-        # the registry must not keep closures over this service's queue
-        # and scheduler alive
-        for name in ("serve.queue_depth", "serve.resident_groups",
-                     "serve.resident_bytes"):
-            self._registry.freeze(name, 0.0)
-        if self._close_out:
-            self.out.close()
+        """Drain and stop the writer, then release the registry's pull
+        gauges (they must not keep this service's writer, queue and
+        scheduler alive) and close -o."""
+        try:
+            self.writer.close()
+        finally:
+            for name in ("writer.queue_depth", "serve.queue_depth",
+                         "serve.resident_groups", "serve.resident_bytes"):
+                self._registry.freeze(name, 0.0)
+            if self._close_out:
+                self._raw_out.close()
 
 
 def _load_submit_problem(req: dict):
