@@ -132,6 +132,25 @@
    and the others' records equal the clean run's; with
    `--shed-queue-hwm 2` the lowest-priority jobs shed with a `shed`
    jobEntry and the highest-priority one finishes as in the clean run;
+   then the observability and usage metering (the obs phase): (a) the
+   pipeline's reference config with `--obs --metrics-every 1`, in a
+   fresh metrics registry and under the sync-debug mode as (a) above:
+   its stream equal to the clean leg's under strip_timing, every
+   dispatch with its `dispatch`, `fetch` and `process` spans on one flow,
+   the last metricsEntry's engine.dispatches the dispatch count and
+   engine.gens 300, both rates (with and without --obs) printed, the
+   port's `trace` subcommand writing Chrome JSON that json.load reads
+   with one `X` event a span, `stats` exiting 0; (b) the fault legs run
+   with --obs and read each rehydrate's wall off its `recover` span;
+   (c) SERVE_JOBS with tenants through `serve --obs` (metering on)
+   against `--no-usage`: the streams equal under strip_timing, every
+   dispatch usageEntry's lanes summing exactly to its gens,
+   device_seconds, compile_seconds and flops, every finished job's
+   result carrying its tenant and a meter of the generations it ran, the
+   summed device_seconds beside the quanta spans' summed wall and the
+   service's wall, a `{"stats": "prometheus"}` answer parsed as text
+   exposition; each number of the phase printed with the card's name
+   and power limit;
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
    generation, one full-eval generation, one kick, one LAHC launch and
@@ -158,6 +177,9 @@ import time
 os.environ.setdefault("TT_FAULT_HANG_S", "30")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the card's name and power limit (nvidia-smi), set by main() and printed
+# beside the obs phase's numbers
+CARD = None
 TIM = os.path.join(HERE, "fixtures", "comp01s.tim")
 WITNESS = os.path.join(HERE, "fixtures", "comp01s.witness.json")
 TIM05 = os.path.join(HERE, "fixtures", "comp05s.tim")
@@ -433,6 +455,10 @@ STALL = ["--no-auto-tune", "--ls-mode", "sweep", "--ls-sweeps", "1",
 # init fence and the first snapshot) is dispatch 1's trace, read with
 # dispatch 2 in flight (200)
 PIPE = RESUME + ["--generations", "300"]
+# the obs phase's flags: every span and a metricsEntry every dispatch
+OBS = ["--obs", "--metrics-every", "1"]
+# the obs phase's serve tenants (the other jobs are the default tenant)
+SERVE_TENANTS = {"s1": "acme", "s2": "acme", "s5": "zeta"}
 FAULT_LEGS = {
     "dispatch": (["--faults", "dispatch:2:unavailable"],
                  [("dispatch", "recover", 1, 0, None, 100)]),
@@ -2923,6 +2949,10 @@ def serve_warm_start(alone_s1):
     res = svc.result("s1")
     check(res["resumed_at"] == ship.gens_done and res["gens"] == row[3],
           f"warm start: result {res['resumed_at']} / {res['gens']}")
+    # the wire's usage cursor: the resumed job's meter continues it
+    check(wire["usage"]["gens"] == ship.gens_done
+          and res["usage"]["gens"] == row[3],
+          f"warm start: cursor {wire['usage']}, meter {res['usage']}")
     check(launches["assign_rooms"] == 0 and launches["batch_penalty"] == 0,
           "warm start: the resumed job ran an init")
     seams = [(r["faultEntry"]["site"], r["faultEntry"]["action"])
@@ -3311,23 +3341,50 @@ def _fault_seq(records):
             for f in (r["faultEntry"] for r in records if "faultEntry" in r)]
 
 
+class _FreshRegistry:
+    """The port's process metrics registry swapped for a fresh one, so a
+    run's metricsEntry counts are its own."""
+
+    def __enter__(self):
+        from timetabling_ga_tpu_torch.obs import metrics
+        self._saved = metrics.REGISTRY
+        metrics.REGISTRY = metrics.MetricsRegistry()
+        return metrics.REGISTRY
+
+    def __exit__(self, *exc):
+        from timetabling_ga_tpu_torch.obs import metrics
+        metrics.REGISTRY = self._saved
+        return False
+
+
 def pipeline_path(pa_cpu):
-    """(a) The reference config pipelined and with --no-pipeline, every
-    dispatch under the sync-debug mode (_SyncDebug): equal streams,
-    `gen-loop` pipelined true and false; then the full-eval config
-    pipelined. Returns (summary, the clean stream, launches by run)."""
-    from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+    """(a) The reference config pipelined, with --no-pipeline and
+    pipelined with OBS (in a fresh registry), every dispatch under the
+    sync-debug mode (_SyncDebug): equal streams, `gen-loop` pipelined
+    true, false and true; then the full-eval config pipelined. Returns
+    (summary, the clean stream, launches by run, the OBS leg's
+    records)."""
+    import contextlib
+    from timetabling_ga_tpu_torch.obs import metrics
     from timetabling_ga_tpu_torch.runtime import jsonl
     gens = int(PIPE[PIPE.index("--generations") + 1])
-    out, streams, launches = {}, {}, {}
+    out, streams, launches, obs_recs = {}, {}, {}, None
     with _SyncDebug():
         for name, extra in (("pipelined", []),
-                            ("serial", ["--no-pipeline"])):
-            recs, secs, launches["pipe-" + name] = run_cli(
-                "pipe-" + name, PIPE + extra)
-            check_stream(recs, pa_cpu)
+                            ("serial", ["--no-pipeline"]),
+                            ("obs", OBS)):
+            with (_FreshRegistry() if name == "obs"
+                  else contextlib.nullcontext(metrics.REGISTRY)) as reg:
+                recs, secs, launches["pipe-" + name] = run_cli(
+                    "pipe-" + name, PIPE + extra)
+                gauges = {k: reg.gauge(k).value for k in (
+                    "engine.host_gap_ms_per_gen",
+                    "engine.device_busy_frac")}
+            check_stream(recs, pa_cpu,
+                         ("spanEntry", "metricsEntry") if extra == OBS
+                         else ())
             loop = _loop(recs)
-            check(loop["pipelined"] is (name == "pipelined"),
+            check(loop["pipelined"] is (name != "serial"),
                   f"pipe-{name}: gen-loop says {loop}")
             check(_dispatched(recs) == gens,
                   f"pipe-{name}: {_dispatched(recs)} generations")
@@ -3336,12 +3393,14 @@ def pipeline_path(pa_cpu):
                 wall_s=round(secs, 3), dispatches=loop["dispatches"],
                 gens_per_s=gens / loop["seconds"],
                 dispatch_gens_per_s=_rate(recs),
-                host_gap_ms_per_gen=REGISTRY.gauge(
-                    "engine.host_gap_ms_per_gen").value,
-                device_busy_frac=REGISTRY.gauge(
-                    "engine.device_busy_frac").value)
+                host_gap_ms_per_gen=gauges["engine.host_gap_ms_per_gen"],
+                device_busy_frac=gauges["engine.device_busy_frac"])
+            if name == "obs":
+                obs_recs = recs
     check(streams["pipelined"] == streams["serial"],
           "pipe: the pipelined stream differs from the serial one")
+    check(streams["obs"] == streams["pipelined"],
+          "pipe: the --obs stream differs from the clean one")
     argv = ["--no-auto-tune", "-p", "1", "--ls-full-eval", "-s", "42",
             "-t", "120", "--trace", "--generations", str(gens)]
     recs, secs, launches["pipe-full-eval"] = run_cli("pipe-full-eval", argv)
@@ -3351,7 +3410,75 @@ def pipeline_path(pa_cpu):
           "pipe-full-eval: full_eval_ls did not run every generation")
     out["full-eval"] = dict(wall_s=round(secs, 3),
                             gens_per_s=gens / _loop(recs)["seconds"])
-    return out, streams["pipelined"], launches
+    return out, streams["pipelined"], launches, obs_recs
+
+
+def _spans(records, name=None):
+    return [r["spanEntry"] for r in records if "spanEntry" in r
+            and (name is None or r["spanEntry"]["name"] == name)]
+
+
+def obs_path(obs_recs, pipe):
+    """(a) of the obs phase, on the pipeline's OBS leg: every dispatch
+    with its dispatch, fetch and process spans on one flow (and the
+    watchdog's fetch-read on it), the last metricsEntry's counts the
+    run's, the port's `trace` and `stats` subcommands on its log.
+    Returns the summary."""
+    import contextlib
+    import io
+    from timetabling_ga_tpu_torch import cli
+    gens = int(PIPE[PIPE.index("--generations") + 1])
+    n_disp = pipe["obs"]["dispatches"]
+    flows = {}
+    for name in ("dispatch", "fetch", "process"):
+        flows[name] = [s["flow"] for s in _spans(obs_recs, name)
+                       if "flow" in s]
+        check(len(flows[name]) == n_disp == len(set(flows[name])),
+              f"obs: {len(flows[name])} {name} spans on "
+              f"{len(set(flows[name]))} flows for {n_disp} dispatches")
+    check(set(flows["dispatch"]) == set(flows["fetch"])
+          == set(flows["process"]),
+          "obs: a dispatch's dispatch, fetch and process spans are on "
+          "different flows")
+    metrics = [r["metricsEntry"] for r in obs_recs if "metricsEntry" in r]
+    check(len(metrics) == n_disp + 1,
+          f"obs: {len(metrics)} metricsEntry records for {n_disp} "
+          f"dispatches and the try's end")
+    c = metrics[-1]["counters"]
+    check(c.get("engine.dispatches") == n_disp
+          and c.get("engine.gens") == gens,
+          f"obs: the last metricsEntry counts {c.get('engine.dispatches')}"
+          f" dispatches and {c.get('engine.gens')} generations")
+    log = os.path.join(OUT_DIR, "comp01s_s42_pipe-obs.jsonl")
+    trace = os.path.join(OUT_DIR, "obs_trace.json")
+    err, text = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err):
+        check(cli.main(["trace", log, "-o", trace]) == 0,
+              "obs: the trace subcommand failed")
+    with open(trace) as f:
+        doc = json.load(f)
+    xs = [e for e in doc["traceEvents"]
+          if e["ph"] == "X" and e["cat"] not in ("phase", "compile")]
+    spans = _spans(obs_recs)
+    check(len(xs) == len(spans),
+          f"obs: {len(xs)} X events for {len(spans)} spans")
+    with contextlib.redirect_stdout(text):
+        check(cli.main(["stats", log]) == 0,
+              "obs: the stats subcommand failed")
+    check("== record stream" in text.getvalue(), "obs: stats printed "
+          "no record-stream section")
+    secs = {}
+    for s in spans:
+        secs[s["name"]] = secs.get(s["name"], 0.0) + s["dur"]
+    return dict(card=CARD, dispatches=n_disp,
+                obs_records_per_dispatch=(len(spans) + len(metrics))
+                / n_disp,
+                gens_per_s_obs=pipe["obs"]["gens_per_s"],
+                gens_per_s_clean=pipe["pipelined"]["gens_per_s"],
+                wall_s_obs=pipe["obs"]["wall_s"],
+                wall_s_clean=pipe["pipelined"]["wall_s"],
+                span_seconds={k: round(v, 6) for k, v in secs.items()},
+                trace_events=len(doc["traceEvents"]))
 
 
 def fault_legs(pa_cpu, clean, clean_wall):
@@ -3360,28 +3487,35 @@ def fault_legs(pa_cpu, clean, clean_wall):
     strip_timing, its wall beside the clean run's. Returns (summary,
     launches by leg)."""
     import numpy as np
-    from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
     from timetabling_ga_tpu_torch.runtime import faults, jsonl
     gens = int(PIPE[PIPE.index("--generations") + 1])
     out, launches = {}, {}
     for leg, (extra, want) in FAULT_LEGS.items():
-        argv = PIPE + extra
+        argv = PIPE + extra + ["--obs"]
         ck = None
         if "--checkpoint-every" in extra:
             ck = _fresh(os.path.join(OUT_DIR, "fault_leg.npz"))
             argv = argv + ["--checkpoint", ck]
         recs, secs, launches["fault-" + leg] = run_cli("fault-" + leg, argv)
-        check_stream(recs, pa_cpu, ("faultEntry",))
+        check_stream(recs, pa_cpu,
+                     ("faultEntry", "spanEntry", "metricsEntry"))
         seq = _fault_seq(recs)
         check(seq == want, f"fault-{leg}: faultEntry sequence {seq}, "
                            f"JAX writes {want}")
         check(jsonl.strip_timing(recs) == clean,
               f"fault-{leg}: the stream differs from the clean run's")
         fe = [r["faultEntry"] for r in recs if "faultEntry" in r]
+        # each rehydrate's wall, off its `recover` span
+        rec = _spans(recs, "recover")
+        n_rec = sum(1 for f in fe if f["action"] == "recover")
+        check(len(rec) == n_rec and all(s["site"] == f["site"] for s, f in
+                                        zip(rec, (f for f in fe if
+                                                  f["action"] == "recover"))),
+              f"fault-{leg}: {len(rec)} recover spans for {n_rec} "
+              f"recoveries")
         row = dict(wall_s=round(secs, 3),
                    wall_over_clean_s=round(secs - clean_wall, 3),
-                   rehydrate_s=REGISTRY.gauge(
-                       "engine.recovery_seconds").value,
+                   rehydrate_s=[s["dur"] for s in rec],
                    lost_gens=[f.get("lostGens") for f in fe
                               if f["action"] == "recover"],
                    pipelined=_loop(recs)["pipelined"])
@@ -3474,6 +3608,119 @@ def serve_fault_legs():
             row["shed_jobs"] = shed
         out[leg] = row
     return out, all_launches
+
+
+_PROM_LINE = None
+
+
+def _prometheus_ok(text):
+    """Every line of a text exposition a `# TYPE` comment or a sample."""
+    import re
+    global _PROM_LINE
+    if _PROM_LINE is None:
+        _PROM_LINE = re.compile(
+            r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+            r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})? (NaN|[-+0-9.e]+)$')
+    lines = text.splitlines()
+    return bool(lines) and all(
+        x.startswith("# TYPE ") or _PROM_LINE.match(x) for x in lines)
+
+
+def serve_obs_path():
+    """(c) of the obs phase: SERVE_JOBS with SERVE_TENANTS, drained, then
+    a {"stats": "prometheus"} request, through the serve path with --obs
+    (metering on, the Python API so the results can be read) and with
+    --no-usage (the CLI): equal streams under strip_timing, every
+    dispatch usageEntry conserving its totals exactly over its lanes,
+    every job's result with its tenant and a meter of the generations
+    it ran, the exposition parsed. Returns (summary, launches)."""
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.problem import dump_tim
+    from timetabling_ga_tpu_torch.runtime import config
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    from timetabling_ga_tpu_torch.serve.service import serve_stream
+    itc_tim = dump_tim(itc_problem())
+    req = os.path.join(OUT_DIR, "serve_obs_requests.jsonl")
+    with open(req, "w") as f:
+        for jid, tim, seed, gens, prio in SERVE_JOBS:
+            sub = {"id": jid, "seed": seed, "generations": gens,
+                   "priority": prio}
+            sub.update({"tim": itc_tim} if tim == "itc"
+                       else {"instance": tim})
+            if jid in SERVE_TENANTS:
+                sub["tenant"] = SERVE_TENANTS[jid]
+            f.write(json.dumps({"submit": sub}) + "\n")
+        f.write(json.dumps({"drain": True}) + "\n")
+        f.write(json.dumps({"stats": "prometheus"}) + "\n")
+    out = os.path.join(OUT_DIR, "serve_obs.jsonl")
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    with open(req) as fi, open(out, "w") as fo:
+        svc = serve_stream(config.parse_serve_args(["--obs"]), fi, fo)
+    wall = time.monotonic() - t0
+    launches = {"serve-obs": dict(kernels.LAUNCHES)}
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
+    plain, plain_s, launches["serve-no-usage"], _ = run_serve(
+        "obs_no_usage", req, ["--no-usage"])
+    check(strip_timing(recs) == strip_timing(plain),
+          "serve obs: the --obs stream differs from the --no-usage one")
+    check(not any("usageEntry" in r or "spanEntry" in r for r in plain),
+          "serve obs: --no-usage wrote obs records")
+    disp = [r["usageEntry"] for r in recs
+            if "usageEntry" in r and "lanes" in r["usageEntry"]]
+    check(disp, "serve obs: no dispatch usageEntry")
+    for u in disp:
+        for fld in ("gens", "device_seconds", "compile_seconds", "flops"):
+            check(sum(lane[fld] for lane in u["lanes"]) == u[fld],
+                  f"serve obs: dispatch {u['dispatch']}'s lanes' {fld} "
+                  f"do not sum to its total")
+    for jid, _, _, gens, _ in SERVE_JOBS:
+        res = svc.result(jid)
+        want = SERVE_TENANTS.get(jid, "default")
+        check(res["tenant"] == want and res["usage"]["gens"] == gens
+              == res["gens"],
+              f"serve obs: {jid}'s result tenant {res.get('tenant')} "
+              f"usage {res.get('usage')} for {gens} generations")
+    finals = [r["usageEntry"] for r in recs
+              if r.get("usageEntry", {}).get("event") == "total"]
+    check(sorted(f["job"] for f in finals)
+          == sorted(x[0] for x in SERVE_JOBS),
+          f"serve obs: settle totals for {[f['job'] for f in finals]}")
+    names = {s["name"] for s in _spans(recs)}
+    check({"admit", "pack", "init", "resume", "quantum", "park",
+           "finalize"} <= names, f"serve obs: spans {sorted(names)}")
+    # the ledger's settlement lag: from a quantum's park fence (its park
+    # span's end; the drive loop hands the settlement over just before)
+    # to the stamp of the usageEntry the ledger thread writes for it
+    parks = _spans(recs, "park")
+    check(len(parks) == len(disp),
+          f"serve obs: {len(parks)} park spans for {len(disp)} dispatches")
+    lags = sorted(u["ts"] - (p["ts"] + p["dur"]) for u, p in zip(
+        sorted(disp, key=lambda u: u["dispatch"]), parks))
+    device_s = sum(u["device_seconds"] for u in disp)
+    compile_s = sum(u["compile_seconds"] for u in disp)
+    quanta_s = sum(s["dur"] for s in _spans(recs, "quantum"))
+    check(device_s <= quanta_s + 1e-3 and quanta_s <= wall,
+          f"serve obs: device {device_s} s, quanta {quanta_s} s, "
+          f"wall {wall} s")
+    prom = [r["metricsEntry"] for r in recs if "metricsEntry" in r
+            and "prometheus" in r["metricsEntry"]]
+    check(len(prom) == 1 and _prometheus_ok(prom[0]["prometheus"])
+          and "tt_serve_dispatches_total" in prom[0]["prometheus"],
+          "serve obs: the prometheus answer is not a text exposition")
+    return dict(card=CARD, wall_s=round(wall, 3),
+                no_usage_wall_s=round(plain_s, 3),
+                dispatches=len(disp), device_seconds=device_s,
+                compile_seconds=compile_s, quantum_span_seconds=quanta_s,
+                flops=sum(u["flops"] for u in disp),
+                settle_lag_ms=dict(median=1e3 * lags[len(lags) // 2],
+                                   max=1e3 * lags[-1]),
+                obs_records=sum(1 for r in recs if next(iter(r)) in (
+                    "spanEntry", "metricsEntry", "usageEntry")),
+                tenants=svc.usage.totals(),
+                prometheus_lines=len(prom[0]["prometheus"].splitlines())
+                ), launches
 
 
 def run_path(name):
@@ -3575,7 +3822,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3665,13 +3914,17 @@ def main() -> int:
     print(json.dumps({"path": "quality", "gens_per_s": q_rates,
                       "launches": launches["quality"]}))
     print(json.dumps({"path": "stall", **stall_path()}))
-    pipe, clean, pipe_launches = pipeline_path(pa_cpu[TIM])
+    pipe, clean, pipe_launches, obs_recs = pipeline_path(pa_cpu[TIM])
     launches.update(pipe_launches)
-    print(json.dumps({"path": "pipeline", **pipe}))
+    print(json.dumps({"path": "pipeline", "card": CARD, **pipe}))
+    print(json.dumps({"path": "obs", **obs_path(obs_recs, pipe)}))
     legs, fault_launches = fault_legs(pa_cpu[TIM], clean,
                                       pipe["pipelined"]["wall_s"])
     launches.update(fault_launches)
-    print(json.dumps({"path": "faults", **legs}))
+    print(json.dumps({"path": "faults", "card": CARD, **legs}))
+    serve_obs, serve_obs_launches = serve_obs_path()
+    launches.update(serve_obs_launches)
+    print(json.dumps({"path": "serve-obs", **serve_obs}))
     serve_faults, serve_fault_launches = serve_fault_legs()
     launches.update(serve_fault_launches)
     print(json.dumps({"path": "serve-faults", **serve_faults}))

@@ -98,10 +98,10 @@ def test_tuned_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv,word", [
-    (["--obs"], "--obs"),
+    (["--mem-poll-every", "1"], "--mem-poll-every"),
     (["--trace-profile", "d"], "--trace-profile"),
     (["--peer-timeout", "5"], "--peer-timeout"),
-    (["--metrics-every", "1"], "--metrics-every"),
+    (["--profile-for", "2"], "--profile-for"),
     (["--incident-dir", "d"], "--incident-dir"),
     (["--coordinator", "h:1"], "--coordinator"),
     (["--no-accord"], "--no-accord"),

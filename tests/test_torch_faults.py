@@ -505,19 +505,27 @@ def test_engine_fault_scenario_equals_jax_slow(name, tim_file, tmp_path,
 
 def test_recovery_gauges_and_counters(tim_file, tmp_path):
     """The supervisor's registry state after a run with two recoveries
-    and a ladder step."""
+    and a ladder step, and the rehydrates' walls as `recover` spans (the
+    run under --obs)."""
     from timetabling_ga_tpu_torch.runtime import engine as tengine
     rec0 = REGISTRY.counter("engine.recoveries").value
     inj0 = REGISTRY.counter("faults.injected").value
-    _run(tengine, TRunConfig, tim_file, SCENARIOS["degrade"][0], tmp_path,
-         "gauges")
+    _, lines, _ = _run(tengine, TRunConfig, tim_file,
+                       dict(SCENARIOS["degrade"][0], obs=True), tmp_path,
+                       "gauges")
     assert REGISTRY.counter("engine.recoveries").value - rec0 == 2
     assert REGISTRY.counter("faults.injected").value - inj0 == 2
     snap = REGISTRY.snapshot()["gauges"]
     assert snap["engine.degrade_level"] == 1
     assert snap["engine.recovery_budget_configured"] == 5
     assert snap["engine.recovery_budget_remaining"] == 3
-    assert snap["engine.recovery_seconds"] >= 0
+    assert "engine.recovery_seconds" not in snap
+    recover = [x["spanEntry"] for x in lines if "spanEntry" in x
+               and x["spanEntry"]["name"] == "recover"]
+    assert len(recover) == 2
+    for span in recover:
+        assert span["cat"] == "engine" and span["dur"] >= 0
+        assert span["site"] == "dispatch" and span["level"] in (0, 1)
     assert snap["writer.queue_depth"] == 0
 
 

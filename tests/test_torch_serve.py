@@ -513,9 +513,9 @@ def test_serve_cli_on_cpu(tmp_path):
     """`python -m timetabling_ga_tpu_torch serve --backend cpu -i ...`
     through cli.main: submits run to their end; a submit whose snapshot
     is no wire falls back to a fresh solve (faultEntry resume / replay),
-    a malformed edit and a Prometheus stats request get rejected
-    jobEntry records, and the stream goes on; stats answers with a
-    metricsEntry."""
+    a malformed edit and an unknown request get rejected jobEntry
+    records, and the stream goes on; stats answers with a metricsEntry,
+    a Prometheus stats request with one carrying the text exposition."""
     tims = _bucket32()
     reqs = [{"submit": {"id": "w", "tim": tims[0], "snapshot": {},
                         "generations": 3}},
@@ -533,11 +533,9 @@ def test_serve_cli_on_cpu(tmp_path):
     records = [json.loads(x) for x in out.read_text().splitlines()]
     rejected = [r["jobEntry"] for r in records if "jobEntry" in r
                 and r["jobEntry"]["event"] == "rejected"]
-    assert [r["job"] for r in rejected] == ["e", "?", "?"]
+    assert [r["job"] for r in rejected] == ["e", "?"]
     assert "exactly one of 'ops' or 'edited'" in rejected[0]["reason"]
-    assert ("prometheus" in rejected[1]["reason"]
-            and "not yet ported" in rejected[1]["reason"])
-    assert "unknown request" in rejected[2]["reason"]
+    assert "unknown request" in rejected[1]["reason"]
     for jid in "wk":
         events = [r["jobEntry"]["event"] for r in _job(records, jid)
                   if "jobEntry" in r]
@@ -546,13 +544,14 @@ def test_serve_cli_on_cpu(tmp_path):
             for r in _job(records, "w") if "faultEntry" in r] == [
         ("resume", "replay")]
     stats = [r["metricsEntry"] for r in records if "metricsEntry" in r]
-    assert len(stats) == 1
-    assert stats[0]["counters"]["serve.jobs_done"] >= 1
-    assert stats[0]["histograms"]["serve.job_seconds"]["count"] >= 1
+    assert len(stats) == 2
+    assert "# TYPE tt_serve_backlog gauge" in stats[0]["prometheus"]
+    assert "prometheus" not in stats[1]
+    assert stats[1]["counters"]["serve.jobs_done"] >= 1
+    assert stats[1]["histograms"]["serve.job_seconds"]["count"] >= 1
 
 
-@pytest.mark.parametrize("sub", ["trace", "stats", "quality", "incident",
-                                 "usage", "profile", "hotspots", "scale",
+@pytest.mark.parametrize("sub", ["incident", "profile", "hotspots", "scale",
                                  "fleet", "submit"])
 def test_other_subcommands_are_refused_by_name(sub):
     with pytest.raises(SystemExit) as e:

@@ -338,8 +338,8 @@ def _job_entries(recs, jid):
 def test_edit_job_end_to_end_matches_jax_keys():
     """An edit job warm from its finished base's wire, through the
     protocol: admitted and done carry mode and edit_of, done the
-    edit_distance; the result has JAX's keys (with its usage keys off);
-    nothing demotes."""
+    edit_distance; the result has JAX's keys (both metered: its tenant
+    and usage too, the usage's generations JAX's); nothing demotes."""
     tim = dump_tim(_jbase(seed=91))
     wire = _base_wire(tim)
     spec = _edit_spec(tim, wire, _EDIT_OPS)
@@ -354,15 +354,19 @@ def test_edit_job_end_to_end_matches_jax_keys():
         registry=reg)
     jsvc = JSolveService(JServeConfig(backend="cpu", lanes=2, quantum=10,
                                       pop_size=6, max_steps=8,
-                                      mesh_devices=1, usage=False),
+                                      mesh_devices=1),
                          out=(jout := io.StringIO()))
     jsvc.submit(None, job_id="ed", seed=6, generations=10, edit=spec)
     jsvc.drive()
     jsvc.close()
     res, jres = svc.result("ed"), jsvc.result("ed")
     assert set(res) == set(jres)
-    for k in ("mode", "edit_of", "edit_demoted", "gens", "resumed_at"):
+    for k in ("mode", "edit_of", "edit_demoted", "gens", "resumed_at",
+              "tenant"):
         assert res[k] == jres[k], k
+    assert set(res["usage"]) == set(jres["usage"])
+    assert res["usage"]["gens"] == jres["usage"]["gens"]
+    assert res["usage"]["dispatches"] == jres["usage"]["dispatches"]
     assert res["mode"] == "edit" and res["edit_of"] == "base"
     assert res["edit_demoted"] is False
     assert isinstance(res["edit_distance"], int)

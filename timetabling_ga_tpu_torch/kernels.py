@@ -106,8 +106,10 @@ LAUNCHES = {name: 0 for name in (*SIGNATURES, *FORMS)}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
-# seconds the last build() took and the compiler's resource report
-BUILD_INFO: dict = {"seconds": None, "ptxas": {}}
+# seconds the last build() took, the seconds of every build that loaded
+# a library (the serve meter's compile_seconds reads its growth across a
+# quantum) and the compiler's resource report
+BUILD_INFO: dict = {"seconds": None, "total_seconds": 0.0, "ptxas": {}}
 
 
 def reset_launches() -> None:
@@ -184,6 +186,8 @@ def build() -> float:
             for name in SOURCES[src]:
                 _LIBS[name] = load(name, path)
         BUILD_INFO["seconds"] = time.monotonic() - t0
+        if todo:
+            BUILD_INFO["total_seconds"] += BUILD_INFO["seconds"]
         return BUILD_INFO["seconds"]
 
 

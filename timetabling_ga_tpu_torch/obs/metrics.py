@@ -1,38 +1,40 @@
 """The process metrics registry (copy of timetabling_ga_tpu/obs/
-metrics.py:43-265, 343-373, under the same names; the exemplars'
-OpenMetrics rendering is left out with the exposition).
+metrics.py, under the same names): counters, gauges (a last-set value or
+a pull function sampled at read time) and fixed-bucket histograms with
+exemplars, in one namespace that the engine, the serve scheduler, the
+record writer and the usage ledger share.
 
-Counters and gauges the engine reports into: the trace modes'
-`engine.trace_delta_overflow`, `engine.trace_best_{mean,min,max}`,
-`engine.polish_passes`, `engine.polish_best_*`, `engine.lahc_best_*`,
-and `engine.checkpoints`; the dispatch pipeline's
-`engine.host_gap_ms_per_gen` and `engine.device_busy_frac`; the supervisor's `engine.recoveries`,
-`engine.degrade_level`, `engine.recovery_budget_configured`,
-`engine.recovery_budget_remaining` and `engine.recovery_seconds` (the
-last rehydrate's wall, JAX's `recover` span); `faults.injected` (runtime/
-faults.py); the record writer's pull gauge `writer.queue_depth`; the serve scheduler's `serve.*` counters (among them
-`serve.jobs_shed` and `serve.job_recoveries`), gauges (some pulled at
-snapshot time, `gauge_fn`) and the `serve.job_seconds` histogram. Naming is dotted lowercase. The
-exposition (Prometheus text, `/metrics`, `--metrics-every`) is not
-ported yet: a snapshot (the metricsEntry payload) is what the port
-reads.
+A snapshot is the metricsEntry payload (`--obs --metrics-every N`, the
+serve path's `{"stats": true}`); `to_prometheus` is the text exposition
+(format 0.0.4) that `{"stats": "prometheus"}` answers with, and
+`to_openmetrics` the OpenMetrics rendering with the histogram buckets'
+exemplars and the `# EOF` trailer. Names are dotted lowercase
+(`engine.gens_per_sec`); the expositions map dots to underscores
+(`tt_engine_gens_per_sec`).
 
-Thread-safe behind one registry lock; stdlib only.
+Thread-safe behind one registry lock; stdlib only, so the offline
+readers (`trace`, `stats`, `quality`, `usage`) import it without torch.
 """
 
 from __future__ import annotations
 
 import math
+import re
 import threading
 
-# histogram bucket bounds (seconds), JAX obs/metrics.py:43
+# log-spaced latency buckets (seconds): 1 ms .. 10 min, the range one
+# dispatch (~100 ms), one quantum (~1 s) and one solve job (~minutes)
+# all land in with resolution proportional to magnitude
 DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                    0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
                    600.0)
 
 
 class Counter:
-    """Monotone accumulator; `inc` with a negative delta raises."""
+    """Monotone accumulator. `inc` with a negative delta raises — a
+    decreasing 'counter' is a gauge wearing the wrong type, and the
+    Prometheus scrape semantics (rate() over resets) depend on
+    monotonicity."""
 
     __slots__ = ("name", "_value", "_lock")
 
@@ -57,10 +59,10 @@ class Gauge:
 
     __slots__ = ("name", "_value", "_fn", "_lock")
 
-    def __init__(self, name: str, lock: threading.Lock):
+    def __init__(self, name: str, lock: threading.Lock, fn=None):
         self.name = name
         self._value = 0.0
-        self._fn = None
+        self._fn = fn
         self._lock = lock
 
     def set(self, v: float) -> None:
@@ -68,8 +70,12 @@ class Gauge:
             self._value = float(v)
 
     def bind(self, fn) -> None:
-        """Re-point a pull gauge at a new source; `bind(None)` freezes
-        it at its last `set()` value."""
+        """Re-point a pull gauge at a new source (each engine.run binds
+        `writer.queue_depth` to ITS writer; the old writer is gone).
+        `bind(None)` unbinds: the gauge freezes at its last `set()`
+        value and stops holding the old source (and everything its
+        closure reaches — a finished run's writer and output stream)
+        alive through the process-global registry."""
         with self._lock:
             self._fn = fn
 
@@ -80,20 +86,32 @@ class Gauge:
             try:
                 return float(fn())
             except Exception:
-                # a pull source may outlive its object: a snapshot
-                # degrades, never raises
+                # a pull source may outlive its object (a closed writer's
+                # queue); a snapshot must degrade, never raise
                 return float("nan")
         return self._value
 
 
 class Histogram:
     """Fixed-bucket histogram with count/sum/min/max and interpolated
-    percentile estimates (Prometheus `le` bounds plus +Inf). `observe`
-    may carry an exemplar (e.g. {"job": "j42"}): the last one landing in
-    each bucket is kept."""
+    percentile estimates.
 
-    __slots__ = ("name", "buckets", "_counts", "count", "sum", "_min",
-                 "_max", "_exemplars", "_lock")
+    Buckets are cumulative-less-or-equal boundaries (Prometheus `le`
+    semantics) plus an implicit +Inf bucket. `percentile(q)` linearly
+    interpolates within the target bucket's bounds — exact enough for
+    p50/p95 dashboards at log-spaced resolution, with O(1) memory
+    (no reservoir: serve streams are unbounded).
+
+    Exemplars (OpenMetrics): `observe(v, exemplar={"job": "j42"})`
+    remembers the LAST exemplar landing in each bucket — one
+    (labels, value) pair per bucket, O(buckets) memory. A p99 spike on
+    the scrape dashboard then joins back to the concrete job/dispatch
+    that caused it (its jobEntry lifecycle is on the record stream
+    under the same id); `to_openmetrics` renders them, the 0.0.4 text
+    exposition ignores them (no exemplar syntax there)."""
+
+    __slots__ = ("name", "buckets", "_counts", "count", "sum",
+                 "_min", "_max", "_exemplars", "_lock")
 
     def __init__(self, name: str, lock: threading.Lock, buckets=None):
         self.name = name
@@ -106,7 +124,7 @@ class Histogram:
         self._max = -math.inf
         self._lock = lock
 
-    def observe(self, v: float, exemplar: dict = None) -> None:
+    def observe(self, v: float, exemplar: dict | None = None) -> None:
         v = float(v)
         with self._lock:
             i = 0
@@ -138,7 +156,10 @@ class Histogram:
                 hi = (self.buckets[i] if i < len(self.buckets)
                       else self._max)
                 if seen + c >= target:
-                    est = lo + (target - seen) / c * (hi - lo)
+                    frac = (target - seen) / c
+                    est = lo + frac * (hi - lo)
+                    # clamp into the observed range (interpolation can
+                    # undershoot the true min in the first bucket)
                     return min(max(est, self._min), self._max)
                 seen += c
             return self._max
@@ -157,8 +178,9 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Name -> instrument map with get-or-create accessors: an
-    instrument exists from its first touch."""
+    """Name -> instrument map. get-or-create accessors: callers never
+    pre-register, so an instrument exists from its first touch and a
+    snapshot sees every name ever used this process."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -183,15 +205,18 @@ class MetricsRegistry:
         return self._get(name, Gauge)
 
     def gauge_fn(self, name: str, fn) -> Gauge:
-        """Pull gauge: `fn()` is sampled at snapshot time; re-binding a
-        name re-points it."""
+        """Pull gauge: `fn()` is sampled at snapshot time. Re-binding an
+        existing name re-points it (per-run sources like a writer's
+        queue)."""
         g = self._get(name, Gauge)
         g.bind(fn)
         return g
 
     def freeze(self, name: str, value: float) -> None:
-        """Freeze a pull gauge at `value` and drop its source (a closed
-        service must not stay reachable through the registry)."""
+        """Freeze a pull gauge at `value` and unbind its source (see
+        Gauge.bind): run/service teardown must not leave the
+        process-global registry holding closures over a finished
+        writer or queue."""
         g = self.gauge(name)
         g.set(value)
         g.bind(None)
@@ -200,8 +225,8 @@ class MetricsRegistry:
         return self._get(name, Histogram, buckets=buckets)
 
     def snapshot(self) -> dict:
-        """The metricsEntry payload: {"counters": {...}, "gauges": {...},
-        "histograms": {name: {count, sum, p50, p95, ...}}}."""
+        """The metricsEntry payload: {"counters": {...}, "gauges":
+        {...}, "histograms": {name: {count, sum, p50, p95, ...}}}."""
         with self._lock:
             items = list(self._metrics.items())
         counters, gauges, hists = {}, {}, {}
@@ -211,7 +236,8 @@ class MetricsRegistry:
                 counters[name] = int(v) if v == int(v) else round(v, 6)
             elif isinstance(m, Gauge):
                 v = m.value
-                gauges[name] = None if v != v else round(v, 6)
+                gauges[name] = (None if v != v          # nan -> null
+                                else round(v, 6))
             else:
                 hists[name] = m.summary()
         out: dict = {}
@@ -223,11 +249,110 @@ class MetricsRegistry:
             out["histograms"] = hists
         return out
 
+    def to_prometheus(self, prefix: str = "tt") -> str:
+        """Prometheus text exposition (format 0.0.4): counters as
+        `<prefix>_<name>_total`, gauges plain, histograms as the
+        standard `_bucket{le=...}` / `_sum` / `_count` triplet.
+
+        Rendered UNDER the registry lock (one lock shared by every
+        instrument): the pull front scrapes from its own handler
+        threads, and a histogram read racing observe() could otherwise
+        emit `x_count` != its `+Inf` bucket — invalid exposition a
+        strict parser rejects. Render cost is O(metrics) string ops;
+        pull-gauge sources must not touch the registry (none do — they
+        read queue sizes)."""
+        lines: list[str] = []
+        with self._lock:
+            for name, m in sorted(self._metrics.items()):
+                pn = _prom_name(f"{prefix}.{name}")
+                if isinstance(m, Counter):
+                    lines.append(f"# TYPE {pn}_total counter")
+                    lines.append(f"{pn}_total {_prom_num(m.value)}")
+                elif isinstance(m, Gauge):
+                    lines.append(f"# TYPE {pn} gauge")
+                    lines.append(f"{pn} {_prom_num(m.value)}")
+                else:
+                    lines.append(f"# TYPE {pn} histogram")
+                    cum = 0
+                    for i, b in enumerate(m.buckets):
+                        cum += m._counts[i]
+                        lines.append(
+                            f'{pn}_bucket{{le="{_prom_num(b)}"}} {cum}')
+                    lines.append(f'{pn}_bucket{{le="+Inf"}} {m.count}')
+                    lines.append(f"{pn}_sum {_prom_num(m.sum)}")
+                    lines.append(f"{pn}_count {m.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def to_openmetrics(self, prefix: str = "tt") -> str:
+        """OpenMetrics 1.0 text exposition — what the pull front's
+        `/metrics` endpoint serves (obs/http.py). Same sample names as
+        `to_prometheus` plus histogram bucket EXEMPLARS
+        (`... # {job="j42"} 0.93`) and the mandatory `# EOF` trailer.
+        Counters drop the `_total` suffix from the metric NAME line
+        (OpenMetrics: the family is `x`, the sample `x_total`).
+
+        Rendered under the registry lock, like `to_prometheus` (and
+        more urgently: this IS the scrape endpoint's payload, read
+        from handler threads while the dispatch path observes)."""
+        lines: list[str] = []
+        with self._lock:
+            for name, m in sorted(self._metrics.items()):
+                pn = _prom_name(f"{prefix}.{name}")
+                if isinstance(m, Counter):
+                    lines.append(f"# TYPE {pn} counter")
+                    lines.append(f"{pn}_total {_prom_num(m.value)}")
+                elif isinstance(m, Gauge):
+                    lines.append(f"# TYPE {pn} gauge")
+                    lines.append(f"{pn} {_prom_num(m.value)}")
+                else:
+                    lines.append(f"# TYPE {pn} histogram")
+                    cum = 0
+                    bounds = ([_prom_num(b) for b in m.buckets]
+                              + ["+Inf"])
+                    for i, le in enumerate(bounds):
+                        cum += m._counts[i]
+                        line = f'{pn}_bucket{{le="{le}"}} {cum}'
+                        ex = m._exemplars[i]
+                        if ex is not None:
+                            labels, v = ex
+                            lbl = ",".join(
+                                f'{k}="{_escape_label(w)}"'
+                                for k, w in sorted(labels.items()))
+                            line += f" # {{{lbl}}} {_prom_num(v)}"
+                        lines.append(line)
+                    lines.append(f"{pn}_sum {_prom_num(m.sum)}")
+                    lines.append(f"{pn}_count {m.count}")
+        lines.append("# EOF")
+        return "\n".join(lines) + "\n"
+
     def reset(self) -> None:
-        """Drop every instrument (tests only)."""
+        """Drop every instrument (tests only — production code keeps
+        process-lifetime counters, the bench legs diff them)."""
         with self._lock:
             self._metrics.clear()
 
 
-# the process registry
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(name: str) -> str:
+    return _NAME_RE.sub("_", name)
+
+
+def _escape_label(v: str) -> str:
+    """Label-value escaping per the exposition formats (backslash,
+    double quote, newline)."""
+    return (v.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _prom_num(v: float) -> str:
+    if v != v:
+        return "NaN"
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+# THE process registry: engine, serve, writer and bench all meet here.
 REGISTRY = MetricsRegistry()

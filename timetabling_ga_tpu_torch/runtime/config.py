@@ -10,11 +10,12 @@ parallel room matcher (`--rooms-mode parallel`), NSGA-II selection
 checkpoint/resume (`--checkpoint`, `--checkpoint-every`, `--resume`),
 the compressed trace modes (`--trace-mode deltas|stats`), the quality
 telemetry (`--quality`, `--stall-window`, `--stall-hamming`,
-`--auto-kick-on-stall`), and the dispatch pipeline with in-run fault
+`--auto-kick-on-stall`), the spans and metrics records (`--obs`,
+`--metrics-every`), and the dispatch pipeline with in-run fault
 recovery (`--no-pipeline`, `--max-recoveries`, `--fetch-timeout`,
 `--faults`, `--no-precompile`: skip the sec/gen probe; `--no-donate`: a
 no-op, since no dispatch writes into its input state). A flag it does
-not implement yet (`--obs`, `--metrics-every`, ...: `NOT_PORTED`) stops
+not implement yet (`--obs-listen`, `--trace-profile`, ...: `NOT_PORTED`) stops
 the parse with a message naming it as not yet ported, never silently
 ignored. `-l` is accepted and retired, as on the
 JAX path: the engine warns that the local search is bounded by -m
@@ -27,10 +28,11 @@ CUDA device raises instead of falling back to the CPU.
 
 `ServeConfig` and `parse_serve_args` are the `serve` subcommand's (JAX
 config.py:689-936): the same flags, defaults and messages for what the
-port serves (`--trace-mode full|deltas|stats` and `--quality` among
-them, and the fault plan, the per-job recovery budget and the shedding
-marks); the service's other flags (`SERVE_NOT_PORTED`) and
-`--mesh-devices` above 1 stop the parse by name.
+port serves (`--trace-mode full|deltas|stats`, `--quality`, `--obs`,
+`--metrics-every` and `--no-usage` among them, and the fault plan, the
+per-job recovery budget and the shedding marks); the service's other
+flags (`SERVE_NOT_PORTED`) and `--mesh-devices` above 1 stop the parse
+by name.
 """
 
 from __future__ import annotations
@@ -81,7 +83,14 @@ class RunConfig:
     ls_full_eval: bool = False
     epochs_per_dispatch: int = 1
     trace: bool = False
+    obs: bool = False             # spanEntry spans and metricsEntry
+    #                               snapshots on the record stream; the
+    #                               registry updates regardless, this
+    #                               gates only the records
     trace_mode: str = "full"
+    metrics_every: int = 10       # dispatches between metricsEntry
+    #                               snapshots under --obs (0 = only the
+    #                               end-of-try snapshot)
     checkpoint: Optional[str] = None
     checkpoint_every: int = 1
     resume: bool = False
@@ -200,9 +209,11 @@ _FLAG_MAP = {
     "--max-recoveries": ("max_recoveries", int),
     "--fetch-timeout": ("fetch_timeout", float),
     "--faults": ("faults", str),
+    "--metrics-every": ("metrics_every", int),
 }
 
 _BOOL_FLAGS = {"--trace": "trace", "--ls-converge": "ls_converge",
+               "--obs": "obs",
                "--ls-full-eval": "ls_full_eval", "--nsga2": "nsga2",
                "--resume": "resume", "--quality": "quality",
                "--auto-kick-on-stall": "auto_kick_on_stall"}
@@ -215,11 +226,11 @@ _NEG_BOOL_FLAGS = {"--no-auto-tune": "auto_tune",
 # a value, False = a switch. Parsing any of them stops the run.
 NOT_PORTED = {
     "--trace-profile": True, "--profile-dir": True, "--profile-for": True,
-    "--mem-poll-every": True, "--metrics-every": True,
-    "--obs-listen": True, "--history-every": True, "--incident-dir": True,
+    "--mem-poll-every": True, "--obs-listen": True,
+    "--history-every": True, "--incident-dir": True,
     "--incident-min-interval": True, "--peer-timeout": True,
     "--coordinator": True, "--num-processes": True, "--process-id": True,
-    "--obs": False, "--distributed": False, "--no-accord": False,
+    "--distributed": False, "--no-accord": False,
 }
 
 _KNOWN_VALUES = {"ls_mode": ("random", "sweep"),
@@ -307,6 +318,9 @@ def parse_args(argv) -> RunConfig:
                          "cannot represent; drop one of the two flags")
     if cfg.post_pop_size is not None and cfg.post_pop_size < 1:
         raise SystemExit("--post-pop-size must be >= 1")
+    if cfg.metrics_every < 0:
+        raise SystemExit("--metrics-every must be >= 0 dispatches "
+                         "(0 = only the end-of-try snapshot)")
     if cfg.max_recoveries < 0:
         raise SystemExit("--max-recoveries must be >= 0 (0 disables "
                          "in-run recovery)")
@@ -374,13 +388,23 @@ class ServeConfig:
     #                               evaluations; rounds = this //
     #                               ls_candidates)
     ls_candidates: int = 8
+    obs: bool = False             # spanEntry spans (admit/pack/quantum/
+    #                               park/resume) and metricsEntry
+    #                               snapshots on the record stream
     trace_mode: str = "full"      # the lane runner's telemetry: full
     #                               (every generation's best), deltas or
     #                               stats (the packed leaf, K13)
     quality: bool = False         # the quality block on every quantum's
     #                               leaf (quality.* metrics; K14)
-    usage: bool = True            # usage metering; the port has none and
-    #                               runs as JAX does under --no-usage
+    metrics_every: int = 10       # dispatches between metricsEntry
+    #                               snapshots under --obs
+    usage: bool = True            # usage metering (obs/usage.py): the
+    #                               per-job meter folded at every park
+    #                               fence, the usage.tenant.<t>.*
+    #                               counters, the wire's usage cursor,
+    #                               and usageEntry records under --obs;
+    #                               --no-usage turns it off (the record
+    #                               streams are the same either way)
     shed_queue_hwm: int = 0       # serve.queue_depth high-water mark:
     #                               at or over it a control fence sheds
     #                               the lowest-priority runnable job
@@ -416,9 +440,10 @@ _SERVE_FLAG_MAP = {
     "--shed-writer-hwm": ("shed_writer_hwm", int),
     "--faults": ("faults", str),
     "--max-job-recoveries": ("max_job_recoveries", int),
+    "--metrics-every": ("metrics_every", int),
 }
 
-_SERVE_BOOL_FLAGS = {"--quality": "quality"}
+_SERVE_BOOL_FLAGS = {"--obs": "obs", "--quality": "quality"}
 
 _SERVE_NEG_BOOL_FLAGS = {"--no-usage": "usage",
                          "--no-resident": "resident"}
@@ -426,11 +451,11 @@ _SERVE_NEG_BOOL_FLAGS = {"--no-usage": "usage",
 # The JAX service's flags this slice does not serve yet: True = takes a
 # value, False = a switch. Parsing any of them stops the parse.
 SERVE_NOT_PORTED = {
-    "--metrics-every": True, "--obs-listen": True, "--history-every": True,
+    "--obs-listen": True, "--history-every": True,
     "--incident-dir": True, "--incident-min-interval": True,
     "--profile-dir": True, "--profile-for": True,
     "--mem-poll-every": True, "--http": True, "--preempt-grace": True,
-    "--obs": False, "--preempt-on-term": False,
+    "--preempt-on-term": False,
 }
 
 
@@ -454,6 +479,8 @@ def parse_serve_args(argv) -> ServeConfig:
     if cfg.trace_mode not in _KNOWN_VALUES["trace_mode"]:
         raise SystemExit(f"unknown trace-mode: {cfg.trace_mode} (one of "
                          f"{', '.join(_KNOWN_VALUES['trace_mode'])})")
+    if cfg.metrics_every < 0:
+        raise SystemExit("--metrics-every must be >= 0 dispatches")
     if cfg.shed_queue_hwm < 0 or cfg.shed_writer_hwm < 0:
         raise SystemExit("--shed-queue-hwm / --shed-writer-hwm must be "
                          ">= 0 (0 disables that shed trigger)")

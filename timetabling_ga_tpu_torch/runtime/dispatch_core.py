@@ -11,7 +11,9 @@ run loop and the serve scheduler share.
                   fence (JAX's copy_to_host_async)
     fetch         the control-fence host read, on a watchdog thread
                   under the `--fetch-timeout` deadline, with the `fetch`
-                  fault site inside it
+                  fault site inside it; given a tracer and a flow id,
+                  the watchdog thread's read is a `fetch-read` span on
+                  the dispatch's flow
     fetch_leaf    a telemetry leaf to the host: never a control fence,
                   never injected, never under the deadline
     fetch_state   a PopState to the host in one control-fence read
@@ -38,10 +40,12 @@ import dataclasses
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 import torch
 
+from timetabling_ga_tpu_torch.obs.spans import NULL_TRACER
 from timetabling_ga_tpu_torch.ops import ga
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.runtime import faults
@@ -49,8 +53,9 @@ from timetabling_ga_tpu_torch.runtime import retry
 
 
 # one dispatched chunk not yet retired: its start on the host clock,
-# epochs, generations and its trace's HostCopy
-Chunk = collections.namedtuple("Chunk", "td0 n_ep gens_run trace")
+# epochs, generations, its trace's HostCopy and its flow id (obs/spans.py
+# new_flow: its dispatch, fetch-read and process spans form one chain)
+Chunk = collections.namedtuple("Chunk", "td0 n_ep gens_run trace flow")
 
 
 class DispatchPipeline:
@@ -248,12 +253,15 @@ class FetchTimeout(TimeoutError):
     message carries the 'fetch watchdog' marker, so it is transient."""
 
 
-def fetch(x) -> np.ndarray:
-    """The control-fence host read (JAX dispatch_core.py:403) of a
+def fetch(x, tracer=NULL_TRACER, flow=None) -> np.ndarray:
+    """The control-fence host read (JAX dispatch_core.py:401) of a
     device tensor, a HostCopy or an array. Under a deadline the read
     runs on a daemon thread that the caller joins with the deadline: a
     read that outlives it raises FetchTimeout (site `fetch`) and the
-    thread is abandoned. The `fetch` fault site fires inside the read."""
+    thread is abandoned. The `fetch` fault site fires inside the read.
+    With a `flow` id the watchdog thread records its read as a
+    `fetch-read` span on that flow, the arrow across the thread
+    boundary."""
     timeout = _FETCH_TIMEOUT
     if not timeout:
         faults.maybe_fail("fetch")
@@ -261,9 +269,13 @@ def fetch(x) -> np.ndarray:
     box: dict = {}
 
     def _read():
+        tr0 = time.monotonic()
         try:
             faults.maybe_fail("fetch")
             box["value"] = _to_host(x)
+            if flow is not None:
+                tracer.record("fetch-read", tr0, time.monotonic() - tr0,
+                              cat="engine", flow=flow)
         except BaseException as e:   # re-raised on the caller's thread
             box["error"] = e
 

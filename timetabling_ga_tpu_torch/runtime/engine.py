@@ -80,9 +80,22 @@ site, the --fetch-timeout watchdog), and the `dispatch` site fires
 before every generation, polish, LAHC and kick dispatch, in JAX's
 order. A fault never moves a run off its device.
 
-Not in the port yet: multi-process agreement, the qualityEntry record
-and the metrics exposition (runtime/config.py refuses their flags).
-`--no-donate` changes nothing: no dispatch writes into its input state.
+`--obs` (JAX engine.py:965-971) emits host timing spans through the
+run's writer (obs/spans.py SpanTracer), at JAX's sites with JAX's names,
+`cat` and attributes: `init`, `polish` / `tail-polish`, `lahc`, one flow
+a chunk over its `dispatch`, `fetch`, `fetch-read` (the watchdog thread)
+and `process` spans, `kick`, `checkpoint` with `ckpt-write` on the
+writer thread under its own flow, the final read's `fetch` (`endTry`)
+and `recover`. The clocks are the pipeline's own, read at the fences it
+already has: a span adds no device synchronization. Every
+`--metrics-every` dispatches, and once at the end of each try, a
+`metricsEntry` snapshots REGISTRY; under `--quality` each dispatch's
+aggregate is a `qualityEntry`. The records are timing records: the
+stream is the same under strip_timing with --obs on or off.
+
+Not in the port yet: multi-process agreement, the pull front and the
+profiler (runtime/config.py refuses their flags). `--no-donate` changes
+nothing: no dispatch writes into its input state.
 """
 
 from __future__ import annotations
@@ -96,8 +109,9 @@ import numpy as np
 import torch
 
 from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch.obs import metrics as obs_metrics
 from timetabling_ga_tpu_torch.obs import quality as obs_quality
-from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+from timetabling_ga_tpu_torch.obs.spans import NULL_TRACER, SpanTracer
 from timetabling_ga_tpu_torch.ops import ga, lahc
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import load_tim_file
@@ -221,18 +235,18 @@ def record_quality(qrows) -> dict:
     cross-island view. Returns the aggregate."""
     agg = obs_quality.aggregate(obs_quality.decode_rows(qrows))
     for name, v in agg["counters"].items():
-        REGISTRY.counter(name).inc(v)
+        obs_metrics.REGISTRY.counter(name).inc(v)
     for name, v in agg["gauges"].items():
-        REGISTRY.gauge(name).set(v)
+        obs_metrics.REGISTRY.gauge(name).set(v)
     return agg
 
 
 def _set_moment_gauges(prefix: str, mom) -> None:
     """Gauges `<prefix>_{mean,min,max}` from (4, ...) float32 moment
     rows (mean, var, min, max), aggregated over their columns."""
-    REGISTRY.gauge(f"{prefix}_mean").set(float(mom[0].mean()))
-    REGISTRY.gauge(f"{prefix}_min").set(float(mom[2].min()))
-    REGISTRY.gauge(f"{prefix}_max").set(float(mom[3].max()))
+    obs_metrics.REGISTRY.gauge(f"{prefix}_mean").set(float(mom[0].mean()))
+    obs_metrics.REGISTRY.gauge(f"{prefix}_min").set(float(mom[2].min()))
+    obs_metrics.REGISTRY.gauge(f"{prefix}_max").set(float(mom[3].max()))
 
 
 def _moment_view(rows) -> np.ndarray:
@@ -282,7 +296,7 @@ class _Try:
 
 
 def _polish_chunks(tr: _Try, pa, gens, state, gacfg, name: str,
-                   max_sweeps, sec_per_sweep):
+                   max_sweeps, sec_per_sweep, tracer=NULL_TRACER):
     """Budget-aware chunked polish (JAX engine.py:1074): chunks of up to
     4 converge passes while the pass budget lasts, the next chunk is
     predicted to fit the budget (x1.25), and the population's penalty
@@ -308,13 +322,15 @@ def _polish_chunks(tr: _Try, pa, gens, state, gacfg, name: str,
                                       tr.cfg.trace_mode == "stats")
         stats = dcore.fetch(stats)
         tp1 = time.monotonic()
+        tr.phase(name, tp1 - tp0, sweeps=chunk)
+        tracer.record(name, tp0, tp1 - tp0, cat="device", sweeps=chunk)
         if stats.shape[0] > 3:
             # stats mode: row 3 the executed pass count, rows 4.. the
             # polished population's moments (JAX engine.py:1134-1156)
-            REGISTRY.gauge("engine.polish_passes").set(int(stats[3].max()))
+            obs_metrics.REGISTRY.gauge("engine.polish_passes").set(
+                int(stats[3].max()))
             _set_moment_gauges("engine.polish_best", _moment_view(stats[4:]))
             stats = stats[:3]
-        tr.phase(name, tp1 - tp0, sweeps=chunk)
         sps = (tp1 - tp0) / chunk
         sec_per_sweep = (sps if sec_per_sweep is None
                          else 0.7 * sps + 0.3 * sec_per_sweep)
@@ -334,7 +350,7 @@ def _polish_chunks(tr: _Try, pa, gens, state, gacfg, name: str,
     return state, sec_per_sweep
 
 
-def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
+def _lahc_loop(tr: _Try, pa, gens, state, post, cfg, tracer=NULL_TRACER):
     """The LAHC endgame (JAX engine.py:1185 _lahc_loop): the try's
     remaining budget in chunks of steps sized from the measured sec/step
     (a 256-step probe until there is one; the first chunk's timing, which
@@ -365,6 +381,7 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg):
             _set_moment_gauges("engine.lahc_best", _moment_view(stats[3:]))
             stats = stats[:3]
         tr.phase("lahc", t1 - t0, steps=n)
+        tracer.record("lahc", t0, t1 - t0, cat="device", steps=n)
         if warm:
             sps = (t1 - t0) / n
             sec_per_step = (sps if sec_per_step is None
@@ -474,7 +491,7 @@ def _ladder_mode(level: int) -> str:
 
 
 def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
-             gacfg, post, fingerprint: str) -> int:
+             gacfg, post, fingerprint: str, tracer=NULL_TRACER) -> int:
     """One try: init (or the resumed checkpoint), polish, the generation
     loop with its checkpoints, tail polish and the final records, the
     loop supervised (module docstring). Returns the try's best reported
@@ -510,10 +527,12 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                                                        cfg.pop_size)
                 dcore.fetch(state.penalty)
                 tr.phase("init", time.monotonic() - t)
+                tracer.record("init", t, time.monotonic() - t,
+                              cat="device")
                 if gacfg.init_sweeps > 0:
                     state, sps[gacfg] = _polish_chunks(
                         tr, pa, gens, state, gacfg, "polish",
-                        gacfg.init_sweeps, None)
+                        gacfg.init_sweeps, None, tracer)
                 break
             except Exception as e:
                 if attempt + 1 >= init_tries or not retry.is_transient(e):
@@ -547,7 +566,7 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
             if cfg.post_lahc > 0:
                 # the endgame leaves the GA: the rest of the budget
                 # belongs to the LAHC walkers
-                state = _lahc_loop(tr, pa, gens, state, post, cfg)
+                state = _lahc_loop(tr, pa, gens, state, post, cfg, tracer)
                 lahc_done = True
 
     maybe_switch()
@@ -565,14 +584,14 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
     stall_det = (obs_quality.StallDetector(cfg.stall_window,
                                            cfg.stall_hamming)
                  if cfg.quality and cfg.stall_window > 0 else None)
-    REGISTRY.gauge("engine.stalled").set(0.0)
+    obs_metrics.REGISTRY.gauge("engine.stalled").set(0.0)
 
     # the run supervisor and its first snapshot (JAX engine.py:1491-1513)
     sup = dcore.Supervisor(cfg)
-    REGISTRY.gauge("engine.degrade_level").set(sup.level)
-    REGISTRY.gauge("engine.recovery_budget_configured").set(
+    obs_metrics.REGISTRY.gauge("engine.degrade_level").set(sup.level)
+    obs_metrics.REGISTRY.gauge("engine.recovery_budget_configured").set(
         cfg.max_recoveries)
-    REGISTRY.gauge("engine.recovery_budget_remaining").set(
+    obs_metrics.REGISTRY.gauge("engine.recovery_budget_remaining").set(
         cfg.max_recoveries)
     if sup.enabled:
         host0 = (host_loaded
@@ -598,7 +617,9 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
         dcore.fetch(state.penalty)
         tr.phase("kick", time.monotonic() - t, at_gen=gens_done,
                  moves=n_moves)
-        REGISTRY.counter("engine.kicks").inc()
+        tracer.record("kick", t, time.monotonic() - t, cat="device",
+                      moves=n_moves)
+        obs_metrics.REGISTRY.counter("engine.kicks").inc()
         kick_streak += 1
         return n_moves
 
@@ -629,9 +650,12 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
         nonlocal state, cur, sec_per_gen, lahc_done, kick_stall
         nonlocal kick_best, kick_streak, epochs_at_ckpt, last_fence
         nonlocal host_gap_s, overflow_warned
-        td0, n_ep, gens_run, tcopy = chunk
-        trace = dcore.fetch(tcopy)
+        td0, n_ep, gens_run, tcopy, flow = chunk
+        tf0 = time.monotonic()
+        trace = dcore.fetch(tcopy, tracer=tracer, flow=flow or None)
         td1 = time.monotonic()
+        tracer.record("fetch", tf0, td1 - tf0, cat="engine", gens=gens_run,
+                      flow=flow)
         # when the chunk started on the card: at its enqueue when serial,
         # at the previous fence when pipelined (JAX engine.py:1573-1592)
         t_start = (last_fence if pipe.enabled and last_fence is not None
@@ -641,19 +665,29 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
             host_gap_s += max(0.0, td0 - last_fence)
         last_fence = td1
         tr.phase("dispatch", dt, epochs=n_ep, gens=gens_run)
+        tracer.record("dispatch", t_start, dt, cat="device", epochs=n_ep,
+                      gens=gens_run, flow=flow)
+        mreg = obs_metrics.REGISTRY
+        mreg.counter("engine.dispatches").inc()
+        mreg.counter("engine.gens").inc(gens_run)
+        # the exemplar joins a latency spike back to its dispatch ordinal
+        mreg.histogram("engine.dispatch_seconds").observe(
+            dt, exemplar={"dispatch": str(n_dispatch)})
+        if dt > 0:
+            mreg.gauge("engine.gens_per_sec").set(gens_run / dt)
         loop_s = td1 - t_loop
         if loop_s > 0:
-            REGISTRY.gauge("engine.device_busy_frac").set(
+            mreg.gauge("engine.device_busy_frac").set(
                 max(0.0, 1.0 - host_gap_s / loop_s))
         if gens_done > 0:
-            REGISTRY.gauge("engine.host_gap_ms_per_gen").set(
+            mreg.gauge("engine.host_gap_ms_per_gen").set(
                 1e3 * host_gap_s / gens_done)
         spg = dt / gens_run
         sec_per_gen = spg_of[cur] = spg if sec_per_gen is None else (
             0.7 * spg + 0.3 * sec_per_gen)
         events, moments, qrows, overflow_warned = \
             dcore.decode_telemetry(
-                trace, cfg.quality, cfg.trace_mode, metrics=REGISTRY,
+                trace, cfg.quality, cfg.trace_mode, metrics=mreg,
                 overflow_counter="engine.trace_delta_overflow",
                 overflow_warned=overflow_warned)
         for i in range(n_islands):
@@ -664,7 +698,17 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
             # the per-generation best's moments, across islands (JAX
             # engine.py:1676-1684)
             _set_moment_gauges("engine.trace_best", moments.T)
-        q_agg = record_quality(qrows) if qrows is not None else None
+        q_agg = None
+        if qrows is not None:
+            q_agg = record_quality(qrows)
+            if cfg.obs:
+                jsonl.quality_entry(out, obs_quality.entry_payload(q_agg),
+                                    ts=tracer.now(), dispatch=n_dispatch)
+        tracer.record("process", td1, time.monotonic() - td1,
+                      cat="engine", gens=gens_run, flow=flow)
+        if (cfg.obs and cfg.metrics_every > 0
+                and n_dispatch % cfg.metrics_every == 0):
+            jsonl.metrics_entry(out, mreg.snapshot(), ts=tracer.now())
         maybe_switch()
         if lahc_done:
             return
@@ -685,7 +729,7 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
             hmin = q_agg["gauges"]["quality.diversity.hamming_min"]
             was_stalled = stall_det.stalled
             stalled = stall_det.update(min(tr.best), hmin)
-            REGISTRY.gauge("engine.stalled").set(1.0 if stalled else 0.0)
+            mreg.gauge("engine.stalled").set(1.0 if stalled else 0.0)
             if stalled and not was_stalled:
                 jsonl.fault_entry(
                     out, "quality", "stall",
@@ -700,7 +744,7 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                                   trial, sup.recoveries, sup.level,
                                   tr.elapsed(), moves=n_moves)
                 stall_det.reset()
-                REGISTRY.gauge("engine.stalled").set(0.0)
+                obs_metrics.REGISTRY.gauge("engine.stalled").set(0.0)
         if (cfg.checkpoint
                 and epochs_done - epochs_at_ckpt >= cfg.checkpoint_every):
             # the state, generators and gens_done cover the in-flight
@@ -719,11 +763,18 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                         islands.trace_events(tr_fold, ev_mode)[0]):
                     for _g, h, sc in evs:
                         bs[i] = min(bs[i], jsonl.reported_best(h, sc))
+            ck_flow = tracer.new_flow()
             job = (lambda hs=host_state, gs=gen_states, gd=gens_done,
                    b=bs: save_checkpoint(hs, gs, gd, b))
             submit = getattr(out, "submit", None)
             if submit is not None:
-                submit(job)      # on the writer's thread, in order
+                # on the writer's thread, in order; its span shares the
+                # checkpoint's flow, the enqueue -> write hand-off
+                def ckpt_job(job=job, f=ck_flow, gd=gens_done):
+                    with tracer.span("ckpt-write", cat="writer", flow=f,
+                                     gens=gd):
+                        job()
+                submit(ckpt_job)
             else:
                 job()
             epochs_at_ckpt = epochs_done
@@ -734,7 +785,9 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                          kick=(kick_stall, kick_best, kick_streak),
                          inflight_trace=tr_fold)
             tr.phase("checkpoint", time.monotonic() - t)
-            REGISTRY.counter("engine.checkpoints").inc()
+            tracer.record("checkpoint", t, time.monotonic() - t,
+                          cat="engine", gens=gens_done, flow=ck_flow)
+            obs_metrics.REGISTRY.counter("engine.checkpoints").inc()
 
     pipe = dcore.DispatchPipeline(process, enabled=pipelined_cfg)
     while True:
@@ -742,7 +795,8 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
             while not lahc_done and gens_done < cfg.generations:
                 if (sup.enabled and sup.level > 0
                         and sup.maybe_relax(time.monotonic())):
-                    REGISTRY.gauge("engine.degrade_level").set(sup.level)
+                    obs_metrics.REGISTRY.gauge("engine.degrade_level").set(
+                        sup.level)
                     jsonl.fault_entry(out, "run", "restore",
                                       "clean stretch", trial,
                                       sup.recoveries, sup.level,
@@ -767,6 +821,9 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                     break
                 n_ep, g = size
                 faults.maybe_fail("dispatch")
+                # one flow a chunk: its dispatch, fetch-read (the
+                # watchdog thread) and process spans form one chain
+                flow_id = tracer.new_flow()
                 td0 = time.monotonic()
                 state, trace = islands.run_epochs(
                     pa, gens, state, cur, n_ep, g, cfg.trace_mode,
@@ -777,7 +834,8 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                 gens_done += n_ep * g
                 epochs_done += n_ep
                 n_dispatch += 1
-                pipe.submit(dcore.Chunk(td0, n_ep, n_ep * g, tcopy))
+                pipe.submit(dcore.Chunk(td0, n_ep, n_ep * g, tcopy,
+                                        flow_id))
             pipe.drain()
             tr.phase("gen-loop", time.monotonic() - t_loop,
                      dispatches=n_dispatch, pipelined=pipe.enabled)
@@ -787,11 +845,14 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
             # says one fits
             if time_stopped and sps.get(cur):
                 state, _ = _polish_chunks(tr, pa, gens, state, cur,
-                                          "tail-polish", None, sps[cur])
+                                          "tail-polish", None, sps[cur],
+                                          tracer)
             t = time.monotonic()
             slots, rooms, hcv, scv = dcore.fetch_final(state, n_islands,
                                                        cur.pop_size)
             tr.phase("fetch", time.monotonic() - t)
+            tracer.record("fetch", t, time.monotonic() - t, cat="engine",
+                          endTry=True)
             break
         except Exception as e:
             site = sup.classify(e)
@@ -799,7 +860,7 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                 raise
             now = time.monotonic()
             sup.recoveries += 1
-            REGISTRY.gauge("engine.recovery_budget_remaining").set(
+            obs_metrics.REGISTRY.gauge("engine.recovery_budget_remaining").set(
                 max(0, cfg.max_recoveries - sup.recoveries))
             if sup.recoveries > cfg.max_recoveries:
                 # the budget is spent: the abort record, a final durable
@@ -816,13 +877,15 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                         print(f"warning: final abort checkpoint failed: "
                               f"{e3}", file=sys.stderr)
                 raise
-            REGISTRY.counter("engine.recoveries").inc()
+            obs_metrics.REGISTRY.counter("engine.recoveries").inc()
+            t_rec = time.monotonic()
             snap = sup.snap
             jsonl.fault_entry(out, site, "recover", e, trial,
                               sup.recoveries, sup.level, now - tr.t0,
                               lostGens=max(0, gens_done - snap.gens_done))
             if sup.escalate(now):
-                REGISTRY.gauge("engine.degrade_level").set(sup.level)
+                obs_metrics.REGISTRY.gauge("engine.degrade_level").set(
+                    sup.level)
                 jsonl.fault_entry(out, site, "degrade", e, trial,
                                   sup.recoveries, sup.level, now - tr.t0,
                                   mode=_ladder_mode(sup.level))
@@ -880,9 +943,8 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                         snap.inflight_trace, ev_mode)[0]):
                     for _g, h, sc in evs:
                         tr.observe(i, h, sc, tnow)
-            # the rehydrate's wall (JAX's `recover` span)
-            REGISTRY.gauge("engine.recovery_seconds").set(
-                time.monotonic() - now)
+            tracer.record("recover", t_rec, time.monotonic() - t_rec,
+                          cat="engine", site=site, level=sup.level)
 
     total_time = tr.elapsed()
     for i in range(n_islands):
@@ -897,6 +959,10 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
     jsonl.run_entry(out, trial_best, feasible)
     jsonl.run_entry(out, trial_best, feasible, procs_num=n_islands,
                     threads_num=cfg.threads, total_time=total_time)
+    if cfg.obs:
+        # the try's last metricsEntry holds its final counters
+        jsonl.metrics_entry(out, obs_metrics.REGISTRY.snapshot(),
+                            ts=tracer.now())
     return trial_best
 
 
@@ -929,9 +995,14 @@ def run(cfg: RunConfig, out=None) -> int:
             else:
                 out = sys.stdout
         writer = jsonl.AsyncWriter(out)
-        REGISTRY.gauge_fn("writer.queue_depth", writer.qsize)
+        # the tracer emits through the same writer; the writer's pull
+        # gauges re-bind to this run's writer
+        tracer = SpanTracer(writer, enabled=cfg.obs)
+        reg = obs_metrics.REGISTRY
+        reg.gauge_fn("writer.queue_depth", writer.qsize)
+        reg.gauge_fn("writer.records", lambda: writer.records_written)
         try:
-            best = _run_tries(cfg, writer, device)
+            best = _run_tries(cfg, writer, device, tracer)
         except BaseException:
             writer.close(raise_error=False)
             raise
@@ -940,13 +1011,15 @@ def run(cfg: RunConfig, out=None) -> int:
     finally:
         if writer is not None:
             # the registry must not keep this run's writer alive
-            REGISTRY.freeze("writer.queue_depth", 0.0)
+            obs_metrics.REGISTRY.freeze("writer.records",
+                                        writer.records_written)
+            obs_metrics.REGISTRY.freeze("writer.queue_depth", 0.0)
         faults.install(None)
         if close_out:
             out.close()
 
 
-def _run_tries(cfg: RunConfig, out, device) -> int:
+def _run_tries(cfg: RunConfig, out, device, tracer=NULL_TRACER) -> int:
     t0 = time.monotonic()
     problem = load_tim_file(cfg.input)
     if cfg.auto_tune:
@@ -970,5 +1043,6 @@ def _run_tries(cfg: RunConfig, out, device) -> int:
     best = INT_MAX
     for trial in range(cfg.tries):
         best = min(best, _run_try(cfg, out, problem, pa, trial, seed,
-                                  n_islands, gacfg, post, fingerprint))
+                                  n_islands, gacfg, post, fingerprint,
+                                  tracer))
     return best

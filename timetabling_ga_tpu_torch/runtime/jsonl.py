@@ -1,5 +1,5 @@
 """JSONL reporting protocol (copy of timetabling_ga_tpu/runtime/jsonl.py
-:42-262, 265-400, 552-621): one compact JSON object per line, the
+:42-262, 265-426, 527-550, 552-621): one compact JSON object per line, the
 reference's field names (ga.cpp:169-257, 469-470, 604-607).
 
   {"logEntry":{"procID":i,"threadID":0,"best":b,"time":s}}
@@ -12,7 +12,16 @@ reference's field names (ga.cpp:169-257, 469-470, 604-607).
                  "recovery":r,"level":l,"time":s,...}}   always
   {"jobEntry":{"job":id,"event":e,...}}     the serve path's lifecycle
   {"metricsEntry":{"counters":...,"gauges":...,"histograms":...}}
-                                            a serve `stats` request
+                                            a serve `stats` request, and
+                                            every --metrics-every
+                                            dispatches under --obs
+  {"spanEntry":{"name":n,"cat":c,"ts":s,"dur":s,"depth":d,"tid":t,...}}
+                                            a host timing span (--obs)
+  {"qualityEntry":{"quality.*":...,"ts":s[,"job":id]}}
+                                            --obs --quality
+  {"usageEntry":{"dispatch":n,"gens":g,...,"lanes":[...]}}
+                                            the serve path's meter
+                                            (--obs, metering on)
 
 On the serve path logEntry, solution and runEntry carry the job's id as
 `job`. `best` is scv when feasible, else hcv*1e6+scv. threadID is 0: an
@@ -59,6 +68,7 @@ class AsyncWriter:
         self._stream = stream
         self._site = site
         self._q: queue.Queue = queue.Queue(maxsize=maxsize)
+        self._records = 0       # lines enqueued (writer.records)
         self._error = None
         self._failed = False    # a write failed mid-record: never write
         #                         again (the next line would splice)
@@ -133,6 +143,7 @@ class AsyncWriter:
             # writer and it is here, so write directly (enqueueing could
             # wait on a drain only this thread performs)
             if not self._failed:
+                self._records += 1
                 try:
                     self._stream.write(s)
                     self._stream.flush()
@@ -142,11 +153,22 @@ class AsyncWriter:
             return
         self._check_open()
         self._raise_pending()
+        self._records += 1
         self._put(s)
+
+    def alive(self) -> bool:
+        """Whether the worker thread is alive."""
+        return self._thread.is_alive()
 
     def qsize(self) -> int:
         """Queue occupancy: the `writer.queue_depth` pull gauge."""
         return self._q.qsize()
+
+    @property
+    def records_written(self) -> int:
+        """Lines enqueued over this writer's life: the `writer.records`
+        pull gauge."""
+        return self._records
 
     def flush(self) -> None:
         """No-op: the worker flushes after every record."""
@@ -230,6 +252,47 @@ def job_entry(stream: IO, job: str, event: str, **extra) -> dict:
     for k, v in extra.items():
         rec[k] = v
     return _write(stream, {"jobEntry": rec})
+
+
+def span_entry(stream: IO, name: str, cat: str, ts: float, dur: float,
+               depth: int = 0, tid: int = 0, **extra) -> None:
+    """One host-side timing span (obs/spans.py): `ts` seconds since the
+    tracer epoch, `dur` its length, `depth` its nesting on thread `tid`.
+    A timing record: strip_timing drops it."""
+    rec = {"name": str(name), "cat": str(cat),
+           "ts": round(max(0.0, float(ts)), 6),
+           "dur": round(max(0.0, float(dur)), 6),
+           "depth": int(depth), "tid": int(tid)}
+    for k, v in extra.items():
+        rec[k] = v
+    _write(stream, {"spanEntry": rec})
+
+
+def quality_entry(stream: IO, payload: dict, ts=None,
+                  job: Optional[str] = None, **extra) -> None:
+    """One decoded quality block under --obs --quality: the engine's
+    cross-island aggregate (obs/quality.entry_payload) or one serve
+    lane's payload tagged with its job (obs/quality.lane_payload). A
+    timing record: strip_timing drops it."""
+    rec = dict(payload)
+    if job is not None:
+        rec["job"] = str(job)
+    if ts is not None:
+        rec["ts"] = round(max(0.0, float(ts)), 6)
+    for k, v in extra.items():
+        rec[k] = v
+    _write(stream, {"qualityEntry": rec})
+
+
+def usage_entry(stream: IO, payload: dict, ts=None) -> None:
+    """The serve path's meter (obs/usage.py), under --obs with metering
+    on: a dispatch's capacity split over its lanes (the lanes' shares
+    sum exactly to the totals) or a settled job's cumulative meter
+    (`"event": "total"`). A timing record: strip_timing drops it."""
+    rec = dict(payload)
+    if ts is not None:
+        rec["ts"] = round(max(0.0, float(ts)), 6)
+    _write(stream, {"usageEntry": rec})
 
 
 def metrics_entry(stream: IO, snapshot: dict, ts=None) -> None:

@@ -1,8 +1,8 @@
 """Job admission and lifecycle for the solver service (copy of
 timetabling_ga_tpu/serve/queue.py:33-257, with the fields the port
-uses: warm starts, shipping, edits, quantum-fault recoveries and load
-shedding are here; usage metering, flows and the fleet's ship_hot and
-preemption wait).
+uses: warm starts, shipping, edits, quantum-fault recoveries, load
+shedding, the usage meter and the span flow are here; the fleet's
+ship_hot and preemption wait).
 
 The backlog is bounded (admission control): a submit past it is
 rejected at once rather than queued into unbounded latency. Priorities
@@ -26,24 +26,12 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
-import re
 from typing import Optional
 
+from timetabling_ga_tpu_torch.obs.usage import (  # noqa: F401
+    DEFAULT_TENANT, tenant_label)
 from timetabling_ga_tpu_torch.problem import Problem
 from timetabling_ga_tpu_torch.serve.snapshot import SHIP_RECORDS_CAP
-
-DEFAULT_TENANT = "default"
-# no dots: JAX splices the label into dotted metric names
-_LABEL_RE = re.compile(r"[^a-zA-Z0-9_-]")
-
-
-def tenant_label(tenant) -> str:
-    """Canonical tenant tag (JAX obs/usage.py:121): bounded and
-    metric-name safe; empty or None is DEFAULT_TENANT."""
-    t = str(tenant or "").strip()
-    if not t:
-        return DEFAULT_TENANT
-    return _LABEL_RE.sub("_", t)[:64]
 
 
 class JobState:
@@ -76,7 +64,12 @@ class Job:
     seed: int = 0
     generations: int = 200            # total generation budget
     deadline_s: Optional[float] = None  # wall-clock bound from submit
-    tenant: str = DEFAULT_TENANT      # who submitted it
+    tenant: str = DEFAULT_TENANT      # who submitted it: every share of
+    #                                   capacity the job consumes is
+    #                                   attributed to this tag
+    count_usage: bool = True          # False on a fleet resend: metered,
+    #                                   but not counted again in its
+    #                                   tenant's `jobs`
     # -- runtime (owned by the scheduler) --------------------------------
     state: str = JobState.PENDING
     seq: int = 0                      # admission order (FIFO tie-break)
@@ -114,6 +107,20 @@ class Job:
     finished_t: Optional[float] = None
     result: Optional[dict] = None
     error: Optional[str] = None
+    flow: int = 0                     # causal flow id (obs/spans.py
+    #                                   new_flow): every span of the
+    #                                   job's life carries it
+    # -- usage metering (obs/usage.py) -----------------------------------
+    usage: dict = dataclasses.field(default_factory=dict)
+    #                                   the cumulative meter, replaced
+    #                                   wholesale at every park fence;
+    #                                   it rides the wire as the usage
+    #                                   cursor, so a resumed job
+    #                                   continues it
+    first_work_t: Optional[float] = None  # first dispatch fence: where
+    #                                   queue_seconds ends
+    last_fence_t: Optional[float] = None  # latest park fence: the next
+    #                                   quantum's park_seconds baseline
 
     def runnable(self) -> bool:
         return self.state in JobState.ACTIVE

@@ -47,7 +47,37 @@ timetabling_ga_tpu/serve/scheduler.py:104-1130 on one card).
   TELEMETRY each quantum's leaf is packed under --trace-mode and
             --quality (islands.lane_run) and decoded by
             dispatch_core.decode_telemetry; the quality rows of the real
-            lanes fold into the quality.* counters and gauges.
+            lanes fold into the quality.* counters and gauges, and under
+            --obs each lane's is a job-tagged qualityEntry.
+
+  SPANS     under --obs (JAX :251-317, :391-399, :447, :520-563,
+            :614-679, :942, :1032, :1056): `admit`, `pack` (with `init`
+            inside it for fresh jobs), `resume`, `quantum`, `park`
+            (`finalize` inside it for a finishing job), `flush`, `shed`
+            and a warm start's `recover`, each carrying its jobs' ids
+            and flows (a job's flow is set at admission, so every span
+            of its life is one chain), and a metricsEntry every
+            --metrics-every dispatches.
+
+  METERING  with metering on (the default; --no-usage turns it off),
+            each quantum is metered at its park fence (`_meter_quantum`,
+            JAX :775-848): its wall, minus any kernel build inside it,
+            split over the lanes by the generations each ran
+            (obs/usage.split: the shares sum exactly to the totals),
+            plus each job's queue and park waits, folded into Job.usage
+            and handed to the UsageLedger's thread. Two of JAX's inputs
+            have counterparts of their own: compile_seconds is the wall
+            `kernels.build()` spent inside that quantum (JAX: the
+            lower+compile wall a cold dispatch paid), 0 once the kernels
+            are built and never left inside device_seconds; flops is 0,
+            since the port compiles no program whose cost XLA could
+            count (JAX: `CostProgram.last_cost`; the port's lane runner
+            has no `last_cost`). Only occupied lanes run, so no wall is
+            idle-lane overhead: `overhead_device_seconds` is 0. A
+            finished job's result carries `tenant` and `usage`, the
+            ledger writes its `event: "total"` usageEntry, and every
+            ship unit carries the meter as the wire's cursor, which a
+            warm start continues.
 
   FAIRNESS  buckets are served round-robin; within one, jobs go in
             (priority desc, generations served asc, arrival) order.
@@ -81,8 +111,7 @@ One card: the dispatch is as wide as pad_lanes(cfg.lanes) (the
 parked as JAX's is (so `serve.resume_bytes` and `serve.park_bytes` count
 what JAX's do on the same schedule), but only occupied lanes run: the
 port has no compile cache keyed on the width, so JAX's zero-generation
-filler lanes would be idle work. The usage meter is not ported: the
-port runs as JAX does under --no-usage.
+filler lanes would be idle work.
 """
 
 from __future__ import annotations
@@ -92,8 +121,11 @@ from typing import Optional
 
 import numpy as np
 
+from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch.obs import metrics as obs_metrics
 from timetabling_ga_tpu_torch.obs import quality as obs_quality
-from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+from timetabling_ga_tpu_torch.obs import usage as usage_mod
+from timetabling_ga_tpu_torch.obs.spans import NULL_TRACER
 from timetabling_ga_tpu_torch.ops import ga
 from timetabling_ga_tpu_torch.parallel import islands
 from timetabling_ga_tpu_torch.problem import LaneProblems
@@ -142,13 +174,20 @@ class Scheduler:
     """Drives a JobQueue through the lane runner on `device`."""
 
     def __init__(self, cfg: ServeConfig, queue: JobQueue, out, device,
-                 now=None, registry=None):
+                 now=None, registry=None, tracer=NULL_TRACER, usage=None):
         self.cfg = cfg
         self.queue = queue
         self.out = out
         self.device = device
+        self.tracer = tracer
         self._now = now or time.monotonic
-        self._metrics = REGISTRY if registry is None else registry
+        self._dispatches = 0
+        # the UsageLedger (obs/usage.py) the service wires under
+        # cfg.usage: job meters fold inline at each park fence, tenant
+        # settlement rides the ledger's thread; None = metering off
+        self._usage = usage
+        self._metrics = (obs_metrics.REGISTRY if registry is None
+                         else registry)
         self._metrics.gauge_fn("serve.queue_depth",
                                lambda: len(queue.active()))
         self._metrics.gauge("serve.backlog").set(cfg.backlog)
@@ -212,25 +251,34 @@ class Scheduler:
         a warm-start wire is admitted PARKED at the wire's progress when
         the wire holds (`_admit_resumed`): only an edit job then writes
         its admitted jobEntry (its transplant is its birth, not a
-        recovery seam); a wire that fails falls back to a fresh job."""
+        recovery seam); a wire that fails falls back to a fresh job. The
+        job's flow is set here (a job that brought one keeps it), and a
+        fresh job joins its tenant's `jobs` count."""
+        if not job.flow:
+            job.flow = self.tracer.new_flow()
         resumed = (job.resume_wire is not None
                    and self._admit_resumed(job))
-        if resumed and job.mode != "edit":
+        if resumed and not (job.mode == "edit" and job.count_usage):
             self._metrics.counter("serve.jobs_admitted").inc()
             return
-        extra = {}
-        if job.tenant != DEFAULT_TENANT:
-            extra["tenant"] = job.tenant
-        if job.mode != "solve":
-            extra["mode"] = job.mode
-            if job.edit_of:
-                extra["edit_of"] = job.edit_of
-            if job.edit_demoted:
-                extra["demoted"] = True
-        self._ship_rec(job, jsonl.job_entry(
-            self.out, job.id, "admitted", bucket=list(job.bucket),
-            generations=job.generations, priority=job.priority, **extra))
+        with self.tracer.span("admit", cat="serve", job=job.id,
+                              flow=job.flow):
+            extra = {}
+            if job.tenant != DEFAULT_TENANT:
+                extra["tenant"] = job.tenant
+            if job.mode != "solve":
+                extra["mode"] = job.mode
+                if job.edit_of:
+                    extra["edit_of"] = job.edit_of
+                if job.edit_demoted:
+                    extra["demoted"] = True
+            self._ship_rec(job, jsonl.job_entry(
+                self.out, job.id, "admitted", bucket=list(job.bucket),
+                generations=job.generations, priority=job.priority,
+                **extra))
         self._metrics.counter("serve.jobs_admitted").inc()
+        if self._usage is not None and job.count_usage:
+            self._usage.job(job.id, job.tenant)
 
     def _ship_rec(self, job: Job, rec: dict) -> None:
         """Mirror one just-written record into the job's ship prefix, a
@@ -251,7 +299,7 @@ class Scheduler:
             gens_done=job.gens_done, chunks=job.chunks,
             emitted=job.emitted, best=job.best,
             records=list(job.ship_records), truncated=job.ship_truncated,
-            wire=wire)
+            usage=dict(job.usage), wire=wire)
 
     def _admit_resumed(self, job: Job) -> bool:
         """Warm-start admission from job.resume_wire (JAX scheduler.py:
@@ -260,9 +308,11 @@ class Scheduler:
         resume) marks the seam. False: the wire was refused (faultEntry
         resume / replay, serve.jobs_resume_rejected) and the job starts
         fresh; so does any failure at the fault site `resume`, an
-        injected thread death included. The wire's usage cursor is read
-        and dropped: the port has no meter."""
+        injected thread death included. The wire's usage cursor (of
+        either package) seeds the job's meter, which then continues; the
+        seam is a `recover` span."""
         pop = self.cfg.pop_size
+        t0 = self._now()
         wire, job.resume_wire = job.resume_wire, None
         try:
             faults.maybe_fail("resume")
@@ -290,6 +340,9 @@ class Scheduler:
         job.best = meta["best"]
         job.resumed_at = meta["gens_done"]
         job.state = JobState.PARKED
+        cursor = wire.get("usage")
+        if isinstance(cursor, dict):
+            job.usage = usage_mod.add(None, cursor)
         # the resumed job ships from admission (an empty continuation
         # prefix), so its group may stay resident from its first quantum
         job.ship = self._ship_unit(job, wire=dict(wire))
@@ -299,6 +352,9 @@ class Scheduler:
             0, 0, 0, self._now() - job.submitted_t, job=job.id,
             gens=meta["gens_done"],
             chunks=meta["chunks"])
+        self.tracer.record("recover", t0, self._now() - t0, cat="serve",
+                           job=job.id, flow=job.flow,
+                           gens=meta["gens_done"])
         self._metrics.counter("serve.jobs_resumed").inc()
         return True
 
@@ -338,8 +394,10 @@ class Scheduler:
             job.snapshot = None
             job.ship = None
             job.ship_records.clear()
-            jsonl.job_entry(self.out, job.id, "shed", reason=over,
-                            priority=job.priority, gens=job.gens_done)
+            with self.tracer.span("shed", cat="serve", job=job.id,
+                                  flow=job.flow, reason=over):
+                jsonl.job_entry(self.out, job.id, "shed", reason=over,
+                                priority=job.priority, gens=job.gens_done)
             self._metrics.counter("serve.jobs_shed").inc()
             if over == "writer_hwm":
                 return
@@ -357,7 +415,7 @@ class Scheduler:
                 if job.snapshot is not None:
                     # a resident job's snapshot is its last host fence's:
                     # park its group first
-                    self._flush_job(job)
+                    self._flush_job(job, "deadline")
                     self._finalize(job, deadline_hit=True)
                 else:
                     job.state = JobState.FAILED
@@ -385,23 +443,33 @@ class Scheduler:
             if self._resident:
                 # nothing runnable, but a group's state is still on the
                 # card (its jobs went terminal between fences)
-                self.flush_resident()
+                self.flush_resident("idle")
             return False
         bkey = buckets[self._rr % len(buckets)]
         self._rr += 1
         jobs = self.queue.ready(bkey)[:self.cfg.lanes]
-        fresh = [j for j in jobs if j.snapshot is None]
-        if fresh:
-            self._init_jobs(fresh)
-        for job in jobs:
-            job.state = JobState.RUNNING
-        gens = [min(self.cfg.quantum, job.remaining()) for job in jobs]
+        # every span of the cycle carries the packed jobs' ids and flows
+        jids = [j.id for j in jobs]
+        flows = [j.flow for j in jobs]
+        with self.tracer.span("pack", cat="serve", bucket=list(bkey),
+                              job=jids, flow=flows):
+            fresh = [j for j in jobs if j.snapshot is None]
+            if fresh:
+                self._init_jobs(fresh)
+            for job in jobs:
+                job.state = JobState.RUNNING
+            gens = [min(self.cfg.quantum, job.remaining()) for job in jobs]
+        self._dispatches += 1
         self._metrics.counter("serve.dispatches").inc()
         try:
-            self._cycle(jobs, gens)
+            self._cycle(jobs, gens, jids, flows)
             self._metrics.counter("serve.gens").inc(sum(gens))
         except Exception as e:
             self._recover_quantum(jobs, e)
+        if (self.cfg.obs and self.cfg.metrics_every > 0
+                and self._dispatches % self.cfg.metrics_every == 0):
+            jsonl.metrics_entry(self.out, self._metrics.snapshot(),
+                                ts=self.tracer.now())
         return bool(self.queue.ready())
 
     def _recover_quantum(self, jobs, exc) -> None:
@@ -458,50 +526,76 @@ class Scheduler:
             self._packs[bkey] = cached
         return cached[1]
 
-    def _cycle(self, jobs, gens) -> None:
+    def _cycle(self, jobs, gens, jids, flows) -> None:
         """Resume (or keep resident), one quantum, park (or stay)."""
         pop = self.cfg.pop_size
         bkey = jobs[0].bucket
-        jids = tuple(j.id for j in jobs)
+        jid_t = tuple(jids)
+        # the fence the meter's waits are measured to: queue_seconds
+        # (admission to first dispatch) and park_seconds (last fence to
+        # this dispatch), applied only at a successful park
+        t_fence0 = self._now()
         entry = self._resident.get(bkey)
-        if entry is not None and (entry["jids"] != jids
+        if entry is not None and (entry["jids"] != jid_t
                                   or not self.cfg.resident):
             # the lanes changed: park the old group first, so this pack
             # resumes every member from a fresh snapshot
-            self._flush_bucket(bkey)
+            self._flush_bucket(bkey, "repack")
             entry = None
-        if entry is not None:
-            state = entry["state"]
-            self._metrics.counter("serve.resident_hits").inc()
-        else:
-            host0 = _stack_states([j.snapshot for j in jobs], pop,
-                                  self.lanes, jobs[0].padded.n_events)
-            state = dcore.place_state(host0, self.device)
-            self._metrics.counter("serve.resume_bytes").inc(
-                dcore.state_nbytes(host0))
-            # the host fence this state matches: a failed quantum of the
-            # group rolls the cursors back here
-            entry = {"jids": jids, "state": None,
-                     "fence": {j.id: (j.chunks, j.gens_done)
-                               for j in jobs}}
-        faults.maybe_fail("quantum")
-        lp = self._lane_problems(bkey, jobs)
-        idle = self.lanes - len(jobs)
-        rngs = [islands.lane_generator(self.device, j.seed, j.chunks)
-                for j in jobs] + [None] * idle
-        t0 = self._now()
-        state, trace = islands.lane_run(
-            lp, rngs, state, gens + [0] * idle, self.gacfg,
-            self.cfg.quantum, trace_mode=self.cfg.trace_mode,
-            quality=self.cfg.quality)
-        trace = dcore.fetch_leaf(trace)
-        self._metrics.counter("serve.quantum_seconds").inc(
-            self._now() - t0)
+        resident = entry is not None
+        with self.tracer.span("resume", cat="serve", job=jids, flow=flows,
+                              resident=resident):
+            if resident:
+                state = entry["state"]
+                self._metrics.counter("serve.resident_hits").inc()
+            else:
+                host0 = _stack_states([j.snapshot for j in jobs], pop,
+                                      self.lanes, jobs[0].padded.n_events)
+                state = dcore.place_state(host0, self.device)
+                self._metrics.counter("serve.resume_bytes").inc(
+                    dcore.state_nbytes(host0))
+                # the host fence this state matches: a failed quantum of
+                # the group rolls the cursors back here
+                entry = {"jids": jid_t, "state": None,
+                         "fence": {j.id: (j.chunks, j.gens_done)
+                                   for j in jobs}}
+        with self.tracer.span("quantum", cat="device", job=jids,
+                              flow=flows, gens=int(sum(gens))):
+            faults.maybe_fail("quantum")
+            lp = self._lane_problems(bkey, jobs)
+            idle = self.lanes - len(jobs)
+            rngs = [islands.lane_generator(self.device, j.seed, j.chunks)
+                    for j in jobs] + [None] * idle
+            b0 = kernels.BUILD_INFO["total_seconds"]
+            tq0 = self._now()
+            state, trace = islands.lane_run(
+                lp, rngs, state, gens + [0] * idle, self.gacfg,
+                self.cfg.quantum, trace_mode=self.cfg.trace_mode,
+                quality=self.cfg.quality)
+            trace = dcore.fetch_leaf(trace)
+            tq_wall = self._now() - tq0
+            # a kernel build inside the quantum (the first launch of a
+            # library not loaded yet): the meter's compile_seconds
+            build_s = kernels.BUILD_INFO["total_seconds"] - b0
+            self._metrics.counter("serve.quantum_seconds").inc(tq_wall)
         # stay on the card only when every member has a ship unit (a
         # fresh job parks once first) and none finishes in this quantum
         stay = (self.cfg.resident
                 and all(j.ship is not None for j in jobs)
                 and not any(g >= j.remaining() for g, j in zip(gens, jobs)))
+        with self.tracer.span("park", cat="serve", job=jids, flow=flows,
+                              resident=stay):
+            self._park(jobs, gens, entry, state, trace, stay, tq_wall,
+                       build_s, t_fence0)
+
+    def _park(self, jobs, gens, entry, state, trace, stay, tq_wall,
+              build_s, t_fence0) -> None:
+        """The park fence of a quantum: the group stays on the card or
+        its state comes to the host; the telemetry is decoded, the
+        quantum metered, each job's cursors, records and ship unit
+        advanced, and a finishing job finalized."""
+        pop = self.cfg.pop_size
+        bkey = jobs[0].bucket
         if stay:
             entry["state"] = state
             self._resident[bkey] = entry
@@ -516,20 +610,29 @@ class Scheduler:
             metrics=self._metrics,
             overflow_counter="serve.trace_delta_overflow",
             overflow_warned=self._overflow_warned, warn_label="serve ")
+        q_dec = None
         if qrows is not None:
             # the real lanes only: a filler lane's rows mean nothing
-            agg = obs_quality.aggregate(
-                obs_quality.decode_rows(qrows[:len(jobs)]))
+            q_dec = obs_quality.decode_rows(qrows[:len(jobs)])
+            agg = obs_quality.aggregate(q_dec)
             for name, v in agg["counters"].items():
                 self._metrics.counter(name).inc(v)
             for name, v in agg["gauges"].items():
                 self._metrics.gauge(name).set(v)
         now = self._now()
+        deltas, meter_payload = self._meter_quantum(
+            jobs, gens, tq_wall, build_s, t_fence0)
         for lane, job in enumerate(jobs):
             if host is not None:
                 job.snapshot = _slice_state(host, lane, pop)
             job.chunks += 1
             job.gens_done += gens[lane]
+            if deltas is not None:
+                # a new dict: a reader sees one fence's meter or the next
+                job.usage = usage_mod.add(job.usage, deltas[lane])
+                if job.first_work_t is None:
+                    job.first_work_t = t_fence0
+                job.last_fence_t = now
             for _g, h, s in events[lane]:
                 rep = jsonl.reported_best(h, s)
                 job.best = min(job.best, rep)
@@ -538,19 +641,70 @@ class Scheduler:
                     self._ship_rec(job, jsonl.log_entry(
                         self.out, 0, 0, rep, now - job.submitted_t,
                         job=job.id))
+            if q_dec is not None and self.cfg.obs:
+                jsonl.quality_entry(
+                    self.out, obs_quality.lane_payload(q_dec, lane),
+                    ts=self.tracer.now(), job=job.id, gens=int(gens[lane]))
             job.state = JobState.PARKED
             if job.remaining() == 0:
                 self._finalize(job)
             elif host is not None:
                 # the park fence is the ship fence
                 job.ship = self._ship_unit(job)
+        if meter_payload is not None:
+            # the tenant settlement rides the ledger's own thread
+            self._usage.dispatch(meter_payload)
+
+    def _meter_quantum(self, jobs, gens, tq_wall, build_s, t_fence0):
+        """One quantum's usage attribution (JAX scheduler.py:775): its
+        wall minus the kernel build inside it, the build's wall and the
+        generations, split over the lanes by the generations each ran
+        (usage_mod.split: the shares sum exactly to the quantized
+        totals), plus each job's queue and park waits. Returns (per-lane
+        deltas, the ledger's payload), or (None, None) with metering
+        off. flops is 0 (module docstring), and so is the idle-lane
+        overhead: only occupied lanes run."""
+        if self._usage is None:
+            return None, None
+        gens_l = [int(g) for g in gens]
+        compile_s = max(0.0, float(build_s))
+        exec_s = max(0.0, float(tq_wall) - compile_s)
+        exec_s, dev_shares = usage_mod.split(exec_s, gens_l)
+        compile_s, comp_shares = usage_mod.split(compile_s, gens_l)
+        deltas = []
+        lanes_out = []
+        for lane, job in enumerate(jobs):
+            queued = (max(0.0, t_fence0 - job.submitted_t)
+                      if job.first_work_t is None else 0.0)
+            parked = (max(0.0, t_fence0 - job.last_fence_t)
+                      if job.last_fence_t is not None else 0.0)
+            delta = {"gens": gens_l[lane], "dispatches": 1,
+                     "device_seconds": dev_shares[lane],
+                     "compile_seconds": comp_shares[lane],
+                     "flops": 0.0,
+                     "queue_seconds": queued,
+                     "park_seconds": parked}
+            deltas.append(delta)
+            # unrounded shares: the record's lanes sum exactly to its
+            # totals
+            lanes_out.append({"job": job.id, "tenant": job.tenant,
+                              **delta})
+        payload = {"dispatch": self._dispatches,
+                   "bucket": list(jobs[0].bucket),
+                   "gens": sum(gens_l),
+                   "device_seconds": exec_s,
+                   "overhead_device_seconds": 0.0,
+                   "compile_seconds": compile_s,
+                   "flops": 0.0,
+                   "lanes": lanes_out}
+        return deltas, payload
 
     # -- residency flushes ----------------------------------------------
 
-    def _flush_bucket(self, bkey) -> None:
-        """Park one resident group to the host: its live members'
-        snapshots and ship units are refreshed and the card's copy
-        dropped."""
+    def _flush_bucket(self, bkey, reason: str) -> None:
+        """Park one resident group to the host (a `flush` span with its
+        `reason`): its live members' snapshots and ship units are
+        refreshed and the card's copy dropped."""
         entry = self._resident.pop(bkey, None)
         if entry is None:
             return
@@ -562,7 +716,10 @@ class Scheduler:
         if not live:
             return
         try:
-            host = dcore.fetch_state(entry["state"])
+            with self.tracer.span("flush", cat="serve", bucket=list(bkey),
+                                  reason=reason,
+                                  job=[job.id for _, job in live]):
+                host = dcore.fetch_state(entry["state"])
         except BaseException:
             # the snapshots stay the last host fence's: their cursors
             # with them
@@ -577,7 +734,7 @@ class Scheduler:
             job.ship = self._ship_unit(job)
         self._metrics.counter("serve.resident_flushes").inc()
 
-    def _flush_job(self, job: Job) -> None:
+    def _flush_job(self, job: Job, reason: str) -> None:
         """Park the resident group holding `job`, if any. A failed park
         is absorbed (faultEntry flush/rollback): the job goes on from
         its last host fence."""
@@ -585,12 +742,12 @@ class Scheduler:
         if entry is None or job.id not in entry["jids"]:
             return
         try:
-            self._flush_bucket(job.bucket)
+            self._flush_bucket(job.bucket, reason)
         except Exception as e:
             jsonl.fault_entry(self.out, "flush", "rollback", e, 0, 0, 0,
                               self._now() - job.submitted_t, job=job.id)
 
-    def flush_resident(self) -> int:
+    def flush_resident(self, reason: str = "ship") -> int:
         """Park every resident group now: at an idle fence, or to ship
         (every job's unit then holds its current progress; JAX's
         flush_resident("ship")). A group whose park fails is rolled back
@@ -599,7 +756,7 @@ class Scheduler:
         n = 0
         for bkey in list(self._resident):
             try:
-                self._flush_bucket(bkey)
+                self._flush_bucket(bkey, reason)
                 n += 1
             except Exception as e:
                 jsonl.fault_entry(self.out, "flush", "rollback", e, 0, 0,
@@ -623,16 +780,25 @@ class Scheduler:
         init generator, through the single-problem K1 assign_rooms and K2
         batch_penalty entries (islands.lane_init): one launch pair a job,
         once in its life, and no lane form of K1 or K2 is needed."""
-        for job in jobs:
-            job.snapshot = dcore.fetch_state(islands.lane_init(
-                job.pa_dev, job.seed, self.cfg.pop_size))
+        with self.tracer.span("init", cat="device",
+                              job=[j.id for j in jobs],
+                              flow=[j.flow for j in jobs]):
+            for job in jobs:
+                job.snapshot = dcore.fetch_state(islands.lane_init(
+                    job.pa_dev, job.seed, self.cfg.pop_size))
         for job in jobs:
             self._ship_rec(job, jsonl.job_entry(
                 self.out, job.id, "started", bucket=list(job.bucket)))
 
     def _finalize(self, job: Job, deadline_hit: bool = False) -> None:
         """The job's endTry records from its snapshot (row 0 is the
-        lane's lex-best individual), the padded events dropped; DONE."""
+        lane's lex-best individual), the padded events dropped; DONE. A
+        `finalize` span on the job's flow closes its chain."""
+        with self.tracer.span("finalize", cat="serve", job=job.id,
+                              flow=job.flow):
+            self._finalize_records(job, deadline_hit)
+
+    def _finalize_records(self, job: Job, deadline_hit: bool) -> None:
         snap = job.snapshot
         hcv, scv = int(snap.hcv[0]), int(snap.scv[0])
         job.best = min(job.best, jsonl.reported_best(hcv, scv))
@@ -668,7 +834,6 @@ class Scheduler:
         self._metrics.counter("serve.jobs_done").inc()
         self._metrics.histogram("serve.job_seconds").observe(
             total_time, exemplar={"job": job.id})
-        # JAX's result without its usage keys (--no-usage)
         job.result = {"best": job.best, "feasible": feasible,
                       "hcv": hcv, "scv": scv, "gens": job.gens_done,
                       "deadline_hit": deadline_hit,
@@ -681,6 +846,14 @@ class Scheduler:
             job.result["edit_demoted"] = job.edit_demoted
             if job.edit_of:
                 job.result["edit_of"] = job.edit_of
+        if self._usage is not None:
+            # the settled meter rides the result, and the ledger writes
+            # it as the job's `event: "total"` usageEntry (cumulative
+            # across incarnations for a warm-started job)
+            job.result["tenant"] = job.tenant
+            job.result["usage"] = usage_mod.rounded(job.usage)
+            self._usage.final(job.id, job.tenant, job.usage,
+                              mode=job.mode)
         job.snapshot = None        # the last non-final park's ship
         #                            unit stays: a done job's wire is
         #                            what an edit of it transplants from

@@ -26,6 +26,7 @@ engine's JSONL protocol with each record tagged `"job"`, plus the
                 "w_anchor": 1, "snapshot": {base wire}}}}  edit job
     {"cancel": "j1"}
     {"stats": true}                    metricsEntry snapshot
+    {"stats": "prometheus"}            ... carrying the text exposition
     {"drain": true}                    run everything admitted so far
 
 Requests are processed in order; `drain` (and the end of the input)
@@ -35,8 +36,14 @@ submission (a malformed edit spec among them) emits a jobEntry (event
 snapshot.py) warm-starts the job at the wire's progress, or falls back
 to a fresh solve; an `edit` (serve/editsolve.py) solves the edited
 instance under the anchored objective, warm from its base wire when it
-stays in the base's bucket. `{"stats": "prometheus"}` is not ported yet:
-it gets a rejected jobEntry saying so.
+stays in the base's bucket.
+
+Under --obs the scheduler's spans (serve/scheduler.py) ride the record
+writer through this service's SpanTracer. With metering on (the
+default) a UsageLedger (obs/usage.py) settles each quantum on its own
+thread; under --obs it writes usageEntry records through the same
+writer. `close` closes the ledger before the writer drains, so its last
+records are written (a hung ledger is abandoned, never waited out).
 
 Records ride a jsonl.AsyncWriter (its queue is the `writer.queue_depth`
 gauge that `--shed-writer-hwm` reads); `drive` returns with them written
@@ -50,16 +57,15 @@ from __future__ import annotations
 import json
 import sys
 
-from timetabling_ga_tpu_torch.obs.metrics import REGISTRY
+from timetabling_ga_tpu_torch.obs import metrics as obs_metrics
+from timetabling_ga_tpu_torch.obs import usage as obs_usage
+from timetabling_ga_tpu_torch.obs.spans import SpanTracer
 from timetabling_ga_tpu_torch.problem import load_tim, load_tim_file
 from timetabling_ga_tpu_torch.runtime import faults, jsonl
 from timetabling_ga_tpu_torch.runtime.config import (
-    ServeConfig, not_ported, parse_serve_args)
+    ServeConfig, parse_serve_args)
 from timetabling_ga_tpu_torch.serve.queue import Job, JobQueue, tenant_label
 from timetabling_ga_tpu_torch.serve.scheduler import Scheduler
-
-def _not_ported_reason(what: str) -> str:
-    return str(not_ported(what))
 
 
 class SolveService:
@@ -77,7 +83,8 @@ class SolveService:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             kernels.build()
-        self._registry = REGISTRY if registry is None else registry
+        self._registry = (obs_metrics.REGISTRY if registry is None
+                          else registry)
         # installed only when a spec is given: a plan a caller installed
         # before constructing the service stays (JAX service.py:90-101)
         spec = faults.active_spec(cfg.faults)
@@ -92,11 +99,25 @@ class SolveService:
                 out = sys.stdout
         self._raw_out = out
         self.writer = self.out = jsonl.AsyncWriter(out)
+        # spans ride the writer; the writer's pull gauges re-bind to
+        # this service's writer
+        self.tracer = SpanTracer(self.writer, enabled=cfg.obs)
         self._registry.gauge_fn("writer.queue_depth", self.writer.qsize)
+        self._registry.gauge_fn(
+            "writer.records", lambda: self.writer.records_written)
+        # the usage ledger's own thread folds the per-tenant settlement
+        # off the drive loop; --no-usage drops the meter
+        self.usage = None
+        if cfg.usage:
+            self.usage = obs_usage.UsageLedger(
+                registry=self._registry,
+                out=(self.writer if cfg.obs else None),
+                now=self.tracer.now)
         self.queue = JobQueue(cfg.backlog, now=now)
         self.scheduler = Scheduler(cfg, self.queue, self.writer,
                                    self.device, now=now,
-                                   registry=self._registry)
+                                   registry=self._registry,
+                                   tracer=self.tracer, usage=self.usage)
         self._auto_id = 0
 
     @property
@@ -177,17 +198,30 @@ class SolveService:
         """Live metrics-registry snapshot (the metricsEntry payload)."""
         return self._registry.snapshot()
 
-    def emit_stats(self) -> None:
-        """Answer a `stats` request: one metricsEntry."""
-        jsonl.metrics_entry(self.out, self.stats())
+    def prometheus(self) -> str:
+        """Prometheus text exposition of the registry (format 0.0.4)."""
+        return self._registry.to_prometheus()
+
+    def emit_stats(self, prometheus: bool = False) -> None:
+        """Answer a `stats` request: one metricsEntry, carrying the text
+        exposition under `prometheus` when asked."""
+        snap = self.stats()
+        if prometheus:
+            snap["prometheus"] = self.prometheus()
+        jsonl.metrics_entry(self.out, snap, ts=self.tracer.now())
 
     def close(self) -> None:
-        """Drain and stop the writer, then release the registry's pull
-        gauges (they must not keep this service's writer, queue and
+        """Close the usage ledger (its pending settlements enqueue their
+        records), drain and stop the writer, then release the registry's
+        pull gauges (they must not keep this service's writer, queue and
         scheduler alive) and close -o."""
+        if self.usage is not None:
+            self.usage.close()
         try:
             self.writer.close()
         finally:
+            self._registry.freeze("writer.records",
+                                  self.writer.records_written)
             for name in ("writer.queue_depth", "serve.queue_depth",
                          "serve.resident_groups", "serve.resident_bytes"):
                 self._registry.freeze(name, 0.0)
@@ -241,12 +275,7 @@ def serve_stream(cfg: ServeConfig, in_stream, out_stream=None, now=None,
             elif "cancel" in req:
                 svc.cancel(str(req["cancel"]))
             elif "stats" in req:
-                if req["stats"] == "prometheus":
-                    jsonl.job_entry(svc.out, "?", "rejected",
-                                    reason=_not_ported_reason(
-                                        '{"stats": "prometheus"}'))
-                else:
-                    svc.emit_stats()
+                svc.emit_stats(prometheus=req["stats"] == "prometheus")
             elif "drain" in req:
                 svc.drive()
             else:

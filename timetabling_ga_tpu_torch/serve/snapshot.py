@@ -13,7 +13,7 @@ fence across a process boundary, JSON-safe:
      "emitted": 873, "best": 873,              logEntry floor
      "crc": 2839463521, "bytes": 51712,        integrity of the npz
      "npz": "<base64 of np.savez(PopState fields)>",
-     "usage": {...}}                           optional meter cursor
+     "usage": {"gens": 150, ...}}              the job's meter cursor
 
 The fingerprint pins what must agree for the resumed lane to continue
 the uninterrupted stream: the wire version, the bucket key, the
@@ -24,9 +24,10 @@ fingerprints); damaged bytes raise SnapshotCorrupt naming the failing
 field. `np.savez` stamps the time into its zip: compare two wires by
 their unpacked arrays and meta, never by their `npz` strings.
 
-The port has no usage meter: its own wires carry no `usage` key, and
-another's cursor is read and dropped at resume (as under JAX
-`--no-usage`).
+`usage` is the job's cumulative meter at the fence (obs/usage.py,
+rounded), absent when metering is off or the meter is empty; a job
+resumed from a wire of either package continues it
+(serve/scheduler.py).
 `verify_wire` needs only the standard library; nothing here touches the
 device.
 """
@@ -78,9 +79,10 @@ def wire_fingerprint(bucket, pop_size: int, seed: int) -> str:
 
 def pack_state(state, *, bucket, pop_size: int, seed: int,
                gens_done: int, chunks: int, emitted: int,
-               best: int) -> dict:
-    """One job's host PopState and progress cursor as a wire object (no
-    `usage` key: the port has no meter)."""
+               best: int, usage: Optional[dict] = None) -> dict:
+    """One job's host PopState and progress cursor as a wire object;
+    `usage` (the job's cumulative meter) rides as the cursor when
+    non-empty."""
     buf = io.BytesIO()
     np.savez(buf, **{f: np.asarray(getattr(state, f)) for f in _FIELDS})
     raw = buf.getvalue()
@@ -91,6 +93,9 @@ def pack_state(state, *, bucket, pop_size: int, seed: int,
             "emitted": int(emitted), "best": int(best),
             "crc": zlib.crc32(raw) & 0xFFFFFFFF, "bytes": len(raw),
             "npz": base64.b64encode(raw).decode("ascii")}
+    if usage:
+        from timetabling_ga_tpu_torch.obs import usage as usage_mod
+        wire["usage"] = usage_mod.rounded(usage)
     return wire
 
 
@@ -165,6 +170,8 @@ class ShipUnit:
     best: int
     records: list               # the job's records through this fence
     truncated: bool = False     # records hit SHIP_RECORDS_CAP
+    usage: Optional[dict] = None  # the job's meter at this fence: the
+    #                             wire's usage cursor
     wire: Optional[dict] = None  # pack's memo
 
     def pack(self) -> dict:
@@ -172,5 +179,6 @@ class ShipUnit:
             self.wire = pack_state(
                 self.state, bucket=self.bucket, pop_size=self.pop_size,
                 seed=self.seed, gens_done=self.gens_done,
-                chunks=self.chunks, emitted=self.emitted, best=self.best)
+                chunks=self.chunks, emitted=self.emitted, best=self.best,
+                usage=self.usage)
         return self.wire
