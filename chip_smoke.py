@@ -150,7 +150,29 @@
    summed device_seconds beside the quanta spans' summed wall and the
    service's wall, a `{"stats": "prometheus"}` answer parsed as text
    exposition; each number of the phase printed with the card's name
-   and power limit;
+   and power limit; then the pull front, the history ring, the flight
+   recorder and the memory poller (the pullfront phase): (a) the
+   reference config for 300 generations clean, with `--obs --obs-listen
+   127.0.0.1:<a free port> --history-every 0.2 --incident-dir <dir>
+   --incident-min-interval 0 --faults dispatch:2:unavailable` (a fresh
+   registry; a thread scraping /metrics, /healthz, /readyz and
+   /metrics/history?window=10 through the run) and with the same fault
+   and --obs but neither the listener nor the recorder: the three
+   streams equal under strip_timing, the same launches in both fault
+   legs, /metrics OpenMetrics ending in `# EOF` with a `dispatch=`
+   exemplar, /healthz 200, /readyz JSON with JAX's keys, the history
+   with series, device.mem_bytes_limit the card's total memory and
+   device.mem_bytes_in_use above 0, exactly one bundle (trigger
+   `fault:dispatch/recover`) with its flight_dump span on the stream,
+   `python -m timetabling_ga_tpu_torch incident <dir>` and `trace <log>
+   <bundle>` exiting 0; (b) the serve-faults jobs (SERVE_FAULT_JOBS)
+   with `--obs --obs-listen --incident-dir --faults
+   quantum:2:unavailable`: one `fault:quantum/requeue` bundle, served by
+   incident_response, /readyz answered during the run, every job's
+   records those of the serve-faults requeue leg; (c) `scale` on a
+   small scaleEntry log exiting 0; the legs' rates, the scrape latency,
+   the time-to-dump, the ring sizes and the poller's bytes printed with
+   the card's name and power limit;
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
    generation, one full-eval generation, one kick, one LAHC launch and
@@ -3723,6 +3745,288 @@ def serve_obs_path():
                 ), launches
 
 
+# the pullfront phase: the recorder and ring flags (the listener's port
+# is picked free at run time), and the fault each leg takes
+PULL = ["--obs", "--history-every", "0.2", "--incident-min-interval", "0"]
+PULL_FAULT = ["--faults", "dispatch:2:unavailable"]
+PULL_ROUTES = ("/metrics", "/healthz", "/readyz",
+               "/metrics/history?window=10")
+# /readyz's body keys (JAX obs/http.py readiness)
+READYZ_KEYS = {"ready", "reasons", "queue_depth", "backlog",
+               "degrade_level", "recovery_budget_remaining",
+               "mem_frac_used", "stalled", "draining"}
+# (c): three decisions of the autoscaler's log
+SCALE_LOG = [
+    {"scaleEntry": {"ts": 1.5, "action": "up", "reason": "backlog",
+                    "replica": "r2", "live": 1, "target": 2,
+                    "evidence": {"serve.queue_depth": {
+                        "op": ">=", "threshold": 8.0, "for_s": 30.0,
+                        "mean": 9.5}}}},
+    {"scaleEntry": {"ts": 9.0, "action": "down", "reason": "idle",
+                    "replica": "r1", "live": 2}},
+    {"scaleEntry": {"action": "hold", "reason": "cooldown",
+                    "blocked": "cooldown"}},
+]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# the pull front's scraper, a process of its own as Prometheus would be
+# (a thread of this process would take the interpreter's lock from the
+# host loop it measures): it scrapes every route in argv[2:] of the
+# front at argv[1] every 50 ms until its stdin closes, skipping a scrape
+# the listener refuses (not up yet, or closed), then prints one JSON
+# object: each route's (status, content type) answers and last body,
+# and each /metrics scrape's latency in ms
+SCRAPER = r"""
+import json, sys, threading, time, urllib.error, urllib.request
+url, routes = sys.argv[1], sys.argv[2:]
+stop = threading.Event()
+threading.Thread(target=lambda: (sys.stdin.read(), stop.set()),
+                 daemon=True).start()
+out = {r: {"answers": [], "body": None} for r in routes}
+ms = []
+while not stop.wait(0.05):
+    for route in routes:
+        t0 = time.monotonic()
+        try:
+            with urllib.request.urlopen(url + route, timeout=5) as r:
+                ans = (r.status, r.headers["Content-Type"], r.read())
+        except urllib.error.HTTPError as e:
+            ans = (e.code, e.headers["Content-Type"], e.read())
+        except OSError:
+            continue
+        if route == "/metrics":
+            ms.append(1e3 * (time.monotonic() - t0))
+        out[route]["answers"].append(ans[:2])
+        out[route]["body"] = ans[2].decode()
+print(json.dumps({"routes": out, "metrics_ms": ms}))
+"""
+
+
+class _Scraper:
+    """The SCRAPER process on the front at `url` for the block's length;
+    `got(route)` is then the route's (status, content type) answers and
+    `body(route)` its last body."""
+
+    def __init__(self, url, routes=PULL_ROUTES):
+        self._argv = [sys.executable, "-c", SCRAPER, url, *routes]
+
+    def __enter__(self):
+        self._proc = subprocess.Popen(self._argv, stdin=subprocess.PIPE,
+                                      stdout=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        out, _ = self._proc.communicate(input="", timeout=60)
+        check(self._proc.returncode == 0, "pull: the scraper failed")
+        res = json.loads(out)
+        self._routes, self.metrics_ms = res["routes"], res["metrics_ms"]
+        return False
+
+    def got(self, route):
+        return self._routes[route]["answers"]
+
+    def body(self, route):
+        return self._routes[route]["body"]
+
+
+def _reader(argv):
+    """`python -m timetabling_ga_tpu_torch <argv>` from the checkout;
+    returns its completed process."""
+    return subprocess.run([sys.executable, "-m", "timetabling_ga_tpu_torch",
+                           *argv], cwd=HERE, capture_output=True,
+                          text=True, timeout=120)
+
+
+def _bundles(d):
+    from timetabling_ga_tpu_torch.obs import flight
+    return [(p, flight.load_bundle(p)) for p in flight.list_bundles(d)]
+
+
+def pullfront_path(pa_cpu):
+    """(a)-(c) of the pullfront phase. Returns (summary, launches by
+    leg)."""
+    import shutil
+    import statistics
+    import torch
+    from timetabling_ga_tpu_torch.obs import flight, scrape
+    from timetabling_ga_tpu_torch.runtime import jsonl
+    gens = int(PIPE[PIPE.index("--generations") + 1])
+    inc = os.path.join(OUT_DIR, "incidents")
+    shutil.rmtree(inc, ignore_errors=True)
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    legs = {"clean": PIPE,
+            "front": PIPE + PULL + PULL_FAULT + [
+                "--obs-listen", f"127.0.0.1:{port}", "--incident-dir", inc],
+            "fault": PIPE + ["--obs"] + PULL_FAULT}
+    out, streams, launches, records = {}, {}, {}, {}
+    for leg, argv in legs.items():
+        with _FreshRegistry() as reg:
+            if leg == "front":
+                with _Scraper(url) as scraper:
+                    recs, secs, la = run_cli("pull-" + leg, argv)
+            else:
+                recs, secs, la = run_cli("pull-" + leg, argv)
+            gauges = reg.snapshot().get("gauges", {})
+        summary = check_stream(recs, pa_cpu, () if leg == "clean" else
+                               ("faultEntry", "spanEntry", "metricsEntry"))
+        check(_dispatched(recs) >= gens,
+              f"pull-{leg}: {_dispatched(recs)} generations")
+        if leg == "clean":
+            check_path_kernels("reference", la, summary["generations"],
+                               summary["kicks"])
+        else:
+            # a recovery re-runs its lost generations: the reference
+            # path's kernels every generation, none of the others
+            per_gen, _, none = PATH_KERNELS["reference"]
+            check(all(la[k] >= gens for k in per_gen)
+                  and not any(la[k] for k in none),
+                  f"pull-{leg}: launches {la}")
+        streams[leg] = jsonl.strip_timing(recs)
+        launches["pull-" + leg], records[leg] = la, recs
+        out[leg] = dict(wall_s=round(secs, 3),
+                        gens_per_s=gens / _loop(recs)["seconds"])
+        if leg == "front":
+            mem = {k: gauges.get("device." + k) for k in (
+                "mem_bytes_in_use", "mem_peak_bytes_in_use",
+                "mem_bytes_limit", "mem_frac_used")}
+    for leg in ("front", "fault"):
+        check(streams[leg] == streams["clean"],
+              f"pull-{leg}: the stream differs from the clean leg's")
+    check(launches["pull-front"] == launches["pull-fault"],
+          "pull-front: the launches differ from the fault leg's without "
+          "the listener and the recorder")
+    # the front, read during the run
+    m = scraper.got("/metrics")
+    check(m and all(a[0] == 200 for a in m), "pull: /metrics scrapes "
+          f"{[a[0] for a in m]}")
+    body = scraper.body("/metrics")
+    check(body.endswith("# EOF\n") and 'dispatch="' in body,
+          "pull: /metrics is not OpenMetrics with a dispatch= exemplar")
+    h = scraper.got("/healthz")
+    check(h and all(a[0] == 200 for a in h), f"pull: /healthz "
+          f"{[a[0] for a in h]}")
+    r = scraper.got("/readyz")
+    check(r and all(a[1] == "application/json" for a in r)
+          and set(json.loads(scraper.body("/readyz"))) == READYZ_KEYS,
+          "pull: /readyz is not JAX's JSON")
+    hw = "/metrics/history?window=10"
+    hist = json.loads(scraper.body(hw)) if scraper.got(hw) else None
+    check(hist and hist["series"], "pull: the history has no series")
+    fams = scrape.parse_exposition(body)
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(mem["mem_bytes_limit"] == total
+          and scrape.scalar(fams, "tt_device_mem_bytes_limit") == total,
+          f"pull: device.mem_bytes_limit {mem['mem_bytes_limit']}, the "
+          f"card's total memory {total}")
+    check((mem["mem_bytes_in_use"] or 0) > 0,
+          f"pull: device.mem_bytes_in_use {mem['mem_bytes_in_use']}")
+    # the bundles: one a faultEntry at --incident-min-interval 0
+    got = _bundles(inc)
+    check([c["trigger"] for _, c in got] == ["fault:dispatch/recover"],
+          f"pull: bundles {[c['trigger'] for _, c in got]}")
+    dumps = _spans(records["front"], "flight_dump")
+    check(sorted(s["path"] for s in dumps)
+          == sorted(os.path.basename(p) for p, _ in got),
+          "pull: a bundle without its flight_dump span")
+    log = os.path.join(OUT_DIR, "comp01s_s42_pull-front.jsonl")
+    for argv in (["incident", inc, "-o", os.path.join(OUT_DIR,
+                                                      "incident.json")],
+                 ["trace", log, got[0][0], "-o",
+                  os.path.join(OUT_DIR, "pull_trace.json")]):
+        proc = _reader(argv)
+        check(proc.returncode == 0, f"pull: {argv[0]} exited "
+              f"{proc.returncode}: {proc.stderr[-400:]}")
+    core = got[0][1]
+    out["front"].update(
+        metrics_scrapes=len(m),
+        scrape_ms=dict(median=statistics.median(scraper.metrics_ms),
+                       max=max(scraper.metrics_ms)),
+        history=dict(series=len(hist["series"]),
+                     samples=hist["samples"]),
+        bundle=dict(spans=len(core["spans"]),
+                    spans_dropped=core["spans_dropped"],
+                    records=len(core["records"]),
+                    records_dropped=core["records_dropped"],
+                    span_ring_bytes_hw=core["metrics"]["gauges"].get(
+                        "flight.span_ring_bytes_hw"),
+                    file_bytes=os.path.getsize(got[0][0])),
+        mem=dict(mem, total_memory=total))
+    serve, launches["pull-serve"] = _pull_serve(inc + "-serve")
+    ttd = [s["dur"] for s in dumps] + serve.pop("dump_s")
+    # (c) the scale reader
+    slog = os.path.join(OUT_DIR, "scale.jsonl")
+    with open(slog, "w") as f:
+        f.write("\n".join(json.dumps(x) for x in SCALE_LOG) + "\n")
+    proc = _reader(["scale", slog])
+    check(proc.returncode == 0 and "== scale decisions (3 records)"
+          in proc.stdout, f"pull: scale exited {proc.returncode}")
+    return dict(card=CARD, legs=out, serve=serve,
+                time_to_dump_ms=dict(median=1e3 * statistics.median(ttd),
+                                     n=len(ttd))), launches
+
+
+def _pull_serve(inc):
+    """(b): SERVE_FAULT_JOBS under the requeue leg's fault with the
+    front, the recorder and --obs on; returns (summary, launches)."""
+    import shutil
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.obs import flight
+    from timetabling_ga_tpu_torch.runtime import config, faults
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    from timetabling_ga_tpu_torch.serve.service import serve_stream
+    shutil.rmtree(inc, ignore_errors=True)
+    port = _free_port()
+    req = os.path.join(OUT_DIR, "serve_fault_requests.jsonl")
+    out = os.path.join(OUT_DIR, "serve_pull.jsonl")
+    cfg = config.parse_serve_args(
+        ["--obs", "--obs-listen", f"127.0.0.1:{port}", "--incident-dir",
+         inc, "--incident-min-interval", "0", "--history-every", "0.2",
+         "--faults", "quantum:2:unavailable"])
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    try:
+        with _FreshRegistry(), _Scraper(f"http://127.0.0.1:{port}",
+                                        ("/readyz",)) as scraper, \
+                open(req) as fi, open(out, "w") as fo:
+            svc = serve_stream(cfg, fi, fo)
+    finally:
+        faults.install(None)             # the service leaves its plan
+    wall = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
+    with open(os.path.join(OUT_DIR, "serve_faults_requeue.jsonl")) as f:
+        base = [json.loads(line) for line in f]
+    for jid, *_ in SERVE_FAULT_JOBS:
+        check(strip_timing(_job_records(recs, jid))
+              == strip_timing(_job_records(base, jid)),
+              f"pull serve: {jid}'s records differ from the serve-faults "
+              f"requeue leg's")
+    got = _bundles(inc)
+    check([c["trigger"] for _, c in got] == ["fault:quantum/requeue"],
+          f"pull serve: bundles {[c['trigger'] for _, c in got]}")
+    status, body = flight.incident_response(svc.flight)
+    check(status == 200 and body["incident"]["trigger"]
+          == "fault:quantum/requeue", f"pull serve: /v1/incident {status}")
+    r = scraper.got("/readyz")
+    check(r and all(a[1] == "application/json" for a in r)
+          and set(json.loads(scraper.body("/readyz"))) == READYZ_KEYS,
+          "pull serve: /readyz was not answered during the run")
+    dumps = _spans(recs, "flight_dump")
+    check(len(dumps) == 1, f"pull serve: {len(dumps)} flight_dump spans")
+    return dict(wall_s=round(wall, 3), readyz_answers=len(r),
+                bundle_records=len(got[0][1]["records"]),
+                dump_s=[s["dur"] for s in dumps]), launches
+
+
 def run_path(name):
     """Run the CLI on the path's instance with its flags, the launch
     counters zeroed just before and read just after; returns (records,
@@ -3935,6 +4239,9 @@ def main() -> int:
                       "launches": launches["serve"]}))
     print(json.dumps({"path": "serve-edit",
                       **serve_edits(base_wire, pa_cpu)}))
+    pull, pull_launches = pullfront_path(pa_cpu[TIM])
+    launches.update(pull_launches)
+    print(json.dumps({"path": "pullfront", **pull}))
     summary, resume_launches = resume_path(pa_cpu[TIM])
     launches.update(resume_launches)
     for name in ("resume", "resume-main"):

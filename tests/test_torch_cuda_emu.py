@@ -5,16 +5,25 @@ The kernels run only on the card (tests/test_torch_kernels.py, marked
 `cuda`), but their sources are plain CUDA C++. Here they compile with
 g++ against a small stand-in for `cuda_runtime.h` that runs every CUDA
 thread of a block as a std::thread: `__syncthreads` and the warp
-shuffles become std::barrier waits, shared-memory atomics become atomic
+shuffles become barrier waits, shared-memory atomics become atomic
 builtins, and a launch runs its blocks one after another — or, for K5's
 thread-block clusters (`cudaLaunchKernelEx`), one cluster after another
 with all of a cluster's blocks at once, each on its own shared memory,
-`cooperative_groups`' cluster barrier a std::barrier over their threads
+`cooperative_groups`' cluster barrier a barrier over their threads
 and `map_shared_rank` a pointer into the other block's buffer. The C entry
 points are then called through ctypes on CPU tensors. This checks the
 kernels' indexing, tie order, reductions and shared-memory layout on
 every machine with a C++20 compiler; what nvcc alone refuses, and
-timing, show only on the card. The file imports no JAX.
+timing, show only on the card. The file imports no JAX. The barriers
+(`emu_barrier`) put a waiting thread to sleep at once: a block's
+threads outnumber the cores, and on a loaded machine (the test run's
+other workers) spinning waiters would starve the threads still to
+arrive.
+
+This file holds the stand-in and `emulated_fixture`, which builds only
+the libraries a test file launches; K5's tests, the longest, are in
+tests/test_torch_cuda_emu_k5*.py, so that under `--dist loadfile` they
+spread over the workers.
 """
 
 import ctypes
@@ -26,15 +35,14 @@ import pytest
 import torch
 
 from tests.test_torch_kernels import (
-    K5_CASES, K6_MODES, K11_CASES, _breed_case, _trace, k13_equals_plain,
-    k14_div_equal_plain, k14_ops_equal_plain, k5_ops_equal_plain,
+    K6_MODES, K11_CASES, _breed_case, _trace, k13_equals_plain,
+    k14_div_equal_plain, k14_ops_equal_plain,
     k6_parents_equal_plain, k7_gain_equal_plain,
     moment_rows_equal_plain, _chained_augments, _degenerate_slots,
-    _half_feasible, _instances, _island_state, _k5_equals_plain,
-    _k11_equal_plain, _lane_case, _lane_problems, k6_lanes_equal_plain,
-    k8_lanes_equal_plain, k13_lanes_equal_plain, k14_div_lanes_equal_plain,
-    lane_counts, lane_masks,
-    _k11_island, _ls_draws, _matcher_equals_plain, _matching_instances,
+    _instances, _island_state, _k11_equal_plain, _lane_case,
+    _lane_problems, k6_lanes_equal_plain, k8_lanes_equal_plain,
+    k13_lanes_equal_plain, k14_div_lanes_equal_plain, lane_counts,
+    lane_masks, _k11_island, _ls_draws, _matcher_equals_plain, _matching_instances,
     _state, _wide_rooms)
 from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.ops import (
@@ -48,7 +56,8 @@ torch.set_num_threads(1)
 CUDA_STUB = r'''
 #pragma once
 #include <algorithm>
-#include <barrier>
+#include <atomic>
+#include <climits>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -58,6 +67,55 @@ CUDA_STUB = r'''
 #include <optional>
 #include <thread>
 #include <vector>
+#ifdef __linux__
+#include <linux/futex.h>
+#include <sys/syscall.h>
+#include <unistd.h>
+#endif
+// std::barrier's interface on an arrival count and a phase word. A
+// waiter sleeps on the phase word at once (a futex wait on Linux, with
+// no spin first, unlike std::barrier and std::atomic::wait): when a
+// block's threads outnumber the cores of a loaded machine, spinning
+// waiters would take the cores from the threads still to arrive.
+struct emu_barrier {
+    using arrival_token = unsigned;
+    explicit emu_barrier(int n) : n_(n), left_(n) {}
+    arrival_token arrive() {
+        arrival_token phase = phase_.load(std::memory_order_acquire);
+        if (left_.fetch_sub(1, std::memory_order_acq_rel) == 1) {
+            left_.store(n_.load(std::memory_order_relaxed),
+                        std::memory_order_relaxed);
+            phase_.fetch_add(1, std::memory_order_release);
+            wake();
+        }
+        return phase;
+    }
+    void wait(arrival_token phase) {
+        while (phase_.load(std::memory_order_acquire) == phase)
+            sleep(phase);
+    }
+    void arrive_and_wait() { wait(arrive()); }
+    void arrive_and_drop() {
+        n_.fetch_sub(1, std::memory_order_relaxed);
+        arrive();
+    }
+  private:
+#ifdef __linux__
+    void sleep(arrival_token phase) {
+        syscall(SYS_futex, &phase_, FUTEX_WAIT_PRIVATE, phase, nullptr,
+                nullptr, 0);
+    }
+    void wake() {
+        syscall(SYS_futex, &phase_, FUTEX_WAKE_PRIVATE, INT_MAX, nullptr,
+                nullptr, 0);
+    }
+#else
+    void sleep(arrival_token phase) { phase_.wait(phase); }
+    void wake() { phase_.notify_all(); }
+#endif
+    std::atomic<int> n_, left_;
+    std::atomic<arrival_token> phase_{0};
+};
 #define __global__
 #define __device__
 #define __host__
@@ -76,8 +134,8 @@ struct dim3 {
 // one block's shared memory, barriers and shuffle scratch
 struct emu_block {
     std::vector<uint64_t> smem;
-    std::unique_ptr<std::barrier<>> bar;
-    std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+    std::unique_ptr<emu_barrier> bar;
+    std::vector<std::unique_ptr<emu_barrier>> warp_bar;
     uint64_t lanes[1024];
     int or_acc;
 };
@@ -88,8 +146,8 @@ inline thread_local emu_block* emu_blk;
 // the thread's cluster: its rank, size, barrier and every block's
 // shared memory
 inline thread_local unsigned emu_cluster_rank, emu_cluster_n;
-inline thread_local std::barrier<>* emu_cluster_bar;
-inline thread_local std::optional<std::barrier<>::arrival_token>
+inline thread_local emu_barrier* emu_cluster_bar;
+inline thread_local std::optional<emu_barrier::arrival_token>
     emu_cluster_token;
 inline thread_local unsigned char* const* emu_cluster_smem;
 // what cudaOccupancyMaxActiveClusters answers (a test sets 0)
@@ -246,12 +304,12 @@ inline void emu_run(int grid, int block, size_t smem, int cluster,
         std::vector<unsigned char*> bases(cluster);
         for (int r = 0; r < cluster; ++r) {
             blocks[r].smem.assign(smem / 8 + 2, 0xABABABABABABABABull);
-            blocks[r].bar.reset(new std::barrier<>(block));
+            blocks[r].bar.reset(new emu_barrier(block));
             for (int w = 0; w < (block + 31) / 32; ++w)
-                blocks[r].warp_bar.emplace_back(new std::barrier<>(32));
+                blocks[r].warp_bar.emplace_back(new emu_barrier(32));
             bases[r] = (unsigned char*)blocks[r].smem.data();
         }
-        std::barrier<> cbar(cluster * block);
+        emu_barrier cbar(cluster * block);
         std::vector<std::thread> th;
         for (int r = 0; r < cluster; ++r)
             for (int t = 0; t < block; ++t)
@@ -375,59 +433,80 @@ def _for_the_cpu(src: str) -> str:
         src, flags=re.S)
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The libraries built for the CPU, swapped into `kernels` (and
-    `kernels.ptr` taught to take CPU tensors) for the module's tests."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the CUDA sources for the CPU")
-    d = tmp_path_factory.mktemp("cuda_emu")
-    (d / "cuda_runtime.h").write_text(CUDA_STUB)
-    (d / "cooperative_groups.h").write_text(CG_STUB)
-    for path in kernels.CSRC.iterdir():
-        (d / path.name).write_text(_for_the_cpu(path.read_text()))
-    # each source as the card builds it but for SMALL's thread counts,
-    # and K5 with 128-thread CTAs
-    builds = {n: (n, SMALL.get(n, [])) for n in EMULATED}
-    builds[K5_SMALL] = ("sweep_pass", ["-DK5_THREADS=128"])
-    builds[K2_GLOBAL] = ("batch_penalty",
-                         SMALL["batch_penalty"] + ["-DK2_STAGE_LIMIT=0"])
-    builds[K12_GLOBAL] = ("full_eval_ls",
-                          SMALL["full_eval_ls"] + ["-DK12_STAGE_LIMIT=0"])
-    builds[K11_NO_WORDS] = ("nsga", SMALL["nsga"] + ["-DK11_WORDS_LIMIT=0"])
-    procs = {n: subprocess.Popen(
-        [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
-         f"-I{d}", *flags, "-o", str(d / f"{n}.so"), str(d / f"{src}.cu"),
-         "-lpthread"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for n, (src, flags) in builds.items()}
-    for n, proc in procs.items():
-        out, _ = proc.communicate()
-        assert proc.returncode == 0, f"{n} does not build for the CPU:\n{out}"
-    saved = dict(kernels._LIBS), kernels.ptr, kernels.launch
-    for src in EMULATED:
-        for n in kernels.SOURCES[src]:
-            kernels._LIBS[n] = kernels.load(n, d / f"{src}.so")
-    kernels._LIBS[K5_SMALL] = kernels.load("sweep_pass", d / f"{K5_SMALL}.so")
-    kernels._LIBS[K2_GLOBAL] = kernels.load("batch_penalty",
-                                            d / f"{K2_GLOBAL}.so")
-    kernels._LIBS[K12_GLOBAL] = kernels.load("full_eval_ls",
-                                             d / f"{K12_GLOBAL}.so")
-    for n in kernels.SOURCES["nsga"]:
-        kernels._LIBS[K11_NO_WORDS + n] = kernels.load(
-            n, d / f"{K11_NO_WORDS}.so")
+# each library as the card builds its source but for SMALL's thread
+# counts (name: (source, flags)), and the variants: K5 with 128-thread
+# CTAs, K2 and K12 staging nothing, K11 without its dominator words
+BUILDS = {n: (n, SMALL.get(n, [])) for n in EMULATED}
+BUILDS[K5_SMALL] = ("sweep_pass", ["-DK5_THREADS=128"])
+BUILDS[K2_GLOBAL] = ("batch_penalty",
+                     SMALL["batch_penalty"] + ["-DK2_STAGE_LIMIT=0"])
+BUILDS[K12_GLOBAL] = ("full_eval_ls",
+                      SMALL["full_eval_ls"] + ["-DK12_STAGE_LIMIT=0"])
+BUILDS[K11_NO_WORDS] = ("nsga", SMALL["nsga"] + ["-DK11_WORDS_LIMIT=0"])
 
-    def launch(name, *args):
-        kernels.LAUNCHES[name] += 1
-        entry = kernels.FORMS.get(name, name)
-        assert kernels._LIBS[entry][1](*args, None) == 0
 
-    kernels.ptr = lambda t: t.data_ptr()
-    kernels.launch = launch
-    yield
-    kernels._LIBS.clear()
-    kernels._LIBS.update(saved[0])
-    kernels.ptr, kernels.launch = saved[1], saved[2]
+def _keys(name: str, src: str) -> dict:
+    """`kernels._LIBS` key -> entry point of library `name` built from
+    `src`: a source's own build under its entry points' names, a variant
+    of a one-entry source under its own name, else under its name
+    followed by each entry point's."""
+    entries = kernels.SOURCES[src]
+    if name == src:
+        return {e: e for e in entries}
+    if len(entries) == 1:
+        return {name: entries[0]}
+    return {name + e: e for e in entries}
+
+
+def emulated_fixture(*names):
+    """A module fixture that builds the libraries `names` (keys of
+    BUILDS) for the CPU, all at once, and swaps them into `kernels` (and
+    `kernels.ptr` taught to take CPU tensors) for the module's tests.
+    Each test file builds only what its tests launch."""
+
+    @pytest.fixture(scope="module")
+    def emulated(tmp_path_factory):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            pytest.skip("needs g++ to build the CUDA sources for the CPU")
+        d = tmp_path_factory.mktemp("cuda_emu")
+        (d / "cuda_runtime.h").write_text(CUDA_STUB)
+        (d / "cooperative_groups.h").write_text(CG_STUB)
+        for path in kernels.CSRC.iterdir():
+            (d / path.name).write_text(_for_the_cpu(path.read_text()))
+        procs = {n: subprocess.Popen(
+            [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
+             f"-I{d}", *BUILDS[n][1], "-o", str(d / f"{n}.so"),
+             str(d / f"{BUILDS[n][0]}.cu"), "-lpthread"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in names}
+        for n, proc in procs.items():
+            out, _ = proc.communicate()
+            assert proc.returncode == 0, (
+                f"{n} does not build for the CPU:\n{out}")
+        saved = dict(kernels._LIBS), kernels.ptr, kernels.launch
+        for n in names:
+            for key, entry in _keys(n, BUILDS[n][0]).items():
+                kernels._LIBS[key] = kernels.load(entry, d / f"{n}.so")
+
+        def launch(name, *args):
+            kernels.LAUNCHES[name] += 1
+            entry = kernels.FORMS.get(name, name)
+            assert kernels._LIBS[entry][1](*args, None) == 0
+
+        kernels.ptr = lambda t: t.data_ptr()
+        kernels.launch = launch
+        yield
+        kernels._LIBS.clear()
+        kernels._LIBS.update(saved[0])
+        kernels.ptr, kernels.launch = saved[1], saved[2]
+
+    return emulated
+
+
+# K5 has files of its own (tests/test_torch_cuda_emu_k5*.py)
+emulated = emulated_fixture(*(n for n in BUILDS
+                              if BUILDS[n][0] != "sweep_pass"))
 
 
 def _k3(pa, st, piv):
@@ -493,80 +572,6 @@ def _tiny():
     """A 24-event instance, small enough for a full-permutation pass."""
     return random_instance(7, n_events=24, n_rooms=4, n_features=3,
                            n_students=30, attend_prob=0.15).device_arrays()
-
-
-# short passes (hot pivots, or the tiny instance's 24-event permutation
-# in blocks of 2): the stand-in takes ~0.1 s per block and step
-@pytest.mark.parametrize("case,inst", [
-    (K5_CASES[0], 1), (K5_CASES[2], 3), (K5_CASES[3], 2), (K5_CASES[4], 0),
-    (K5_CASES[1], "tiny"), (K5_CASES[5], "tiny")])
-def test_k5_source_equals_plain(emulated, case, inst):
-    pa = _tiny() if inst == "tiny" else _instances("cpu")[inst]
-    inst = 4 if inst == "tiny" else inst
-    P = 2
-    st = _state(pa, P, 8 + inst)
-    sb, be, side, hot, p3 = case
-    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
-    draws = sweep.make_sweep_draws([torch.Generator().manual_seed(9)], P,
-                                   sh, pa.n_events, side, "cpu")
-    kernels.reset_launches()
-    _k5_equals_plain(pa, st, draws, case, clusters=(1,))
-    _k5_equals_plain(pa, _half_feasible(st), draws, case, clusters=(1,))
-    assert kernels.LAUNCHES["sweep_pass"] == 2
-
-
-# passes whose candidates spread over a cluster: 11 partners and their
-# 3-cycles (31 Move2/Move3 candidates a step, more than the 8 or 16 warps
-# of two or four 128-thread CTAs) on 8 hot pivots, with sideways; the
-# tiny instance's full permutation in blocks of two pivots, whose Move1
-# goes to two ranks; hot pivots with sideways and 3-cycles
-CLUSTER_CASES = [(11, 1, 0.3, 8, 0.2), (3, 2, 0.0, 0, 0.0), K5_CASES[0]]
-
-
-@pytest.mark.parametrize("cluster", [2, 4])
-@pytest.mark.parametrize("case", CLUSTER_CASES)
-def test_k5_cluster_source_equals_plain(emulated, monkeypatch, case,
-                                        cluster):
-    """K5 as clusters of 2 and 4 CTAs, each CTA on its own shared memory
-    and the choice reduced through the others' (the stand-in runs a
-    cluster's blocks at once), equals the plain pass from random and
-    half-feasible starts. The CTAs have 128 threads, so the Move2/Move3
-    candidates wrap around the cluster's 8 or 16 warps."""
-    monkeypatch.setitem(kernels._LIBS, "sweep_pass", kernels._LIBS[K5_SMALL])
-    pa = _tiny()
-    P = 2
-    st = _state(pa, P, 30 + cluster)
-    sb, be, side, hot, p3 = case
-    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
-    draws = sweep.make_sweep_draws([torch.Generator().manual_seed(cluster)],
-                                   P, sh, pa.n_events, side, "cpu")
-    kernels.reset_launches()
-    _k5_equals_plain(pa, st, draws, case, clusters=(cluster,))
-    _k5_equals_plain(pa, _half_feasible(st), draws, case,
-                     clusters=(cluster,))
-    assert kernels.LAUNCHES["sweep_pass"] == 2
-
-
-def test_k5_refused_cluster_is_not_shrunk(emulated, monkeypatch):
-    """When the card can place no cluster of the asked size, K5's entry
-    point returns an error before it launches anything (the wrapper's
-    kernels.launch raises on it), and no smaller cluster is tried."""
-    pa = _tiny()
-    st = _state(pa, 2, 3)
-    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, 3, 1, 0, 0.0)
-    draws = sweep.make_sweep_draws([torch.Generator().manual_seed(0)], 2,
-                                   sh, pa.n_events, 0.0, "cpu")
-    lib = kernels._LIBS["sweep_pass"][0]
-    answer = ctypes.c_int.in_dll(lib, "emu_max_active_clusters")
-    rcs = []
-    monkeypatch.setattr(kernels, "launch", lambda name, *args: rcs.append(
-        kernels._LIBS[name][1](*args, None)))
-    answer.value = 0
-    try:
-        sweep.sweep_pass_kernel(pa, draws, st, 3, cluster=3)
-    finally:
-        answer.value = 1
-    assert rcs == [2]                      # cudaErrorLaunchOutOfResources
 
 
 @pytest.mark.parametrize("inst", range(4))
@@ -1054,31 +1059,6 @@ def test_k14_div_lanes_source_equals_plain(emulated, L, pop):
     33 past the 32 pairs, with 64-thread blocks."""
     k14_div_lanes_equal_plain(lane_masks(L, 40, L + pop), L, pop,
                               L * pop + 1)
-
-
-@pytest.mark.parametrize("case,inst,cluster", [
-    (K5_CASES[0], 1, 1), (K5_CASES[3], 2, 1), (K5_CASES[1], "tiny", 1),
-    (CLUSTER_CASES[0], "tiny", 2)])
-def test_k5_move_counts_source_equals_plain(emulated, monkeypatch, case,
-                                            inst, cluster):
-    """K5's accepted Move1/Move2/Move3 counts a row, added to a given
-    ops_in, against the plain pass's (hot pivots with sideways and
-    3-cycles, blocks of pivots, the full permutation, a cluster of two
-    CTAs), and its other outputs unchanged."""
-    if cluster > 1:
-        monkeypatch.setitem(kernels._LIBS, "sweep_pass",
-                            kernels._LIBS[K5_SMALL])
-    pa = _tiny() if inst == "tiny" else _instances("cpu")[inst]
-    P = 2
-    st = _state(pa, P, 50 + cluster)
-    sb, be, side, hot, p3 = case
-    sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
-    draws = sweep.make_sweep_draws([torch.Generator().manual_seed(51)], P,
-                                   sh, pa.n_events, side, "cpu")
-    n = k5_ops_equal_plain(pa, st, draws, case, clusters=(cluster,))
-    n = n + k5_ops_equal_plain(pa, _half_feasible(st), draws, case,
-                               clusters=(cluster,))
-    assert int(n.sum()) > 0
 
 
 @pytest.mark.parametrize("mode", K6_MODES)

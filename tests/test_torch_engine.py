@@ -98,15 +98,15 @@ def test_tuned_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv,word", [
-    (["--mem-poll-every", "1"], "--mem-poll-every"),
+    (["--profile-dir", "d"], "--profile-dir"),
     (["--trace-profile", "d"], "--trace-profile"),
     (["--peer-timeout", "5"], "--peer-timeout"),
     (["--profile-for", "2"], "--profile-for"),
-    (["--incident-dir", "d"], "--incident-dir"),
+    (["--num-processes", "2"], "--num-processes"),
     (["--coordinator", "h:1"], "--coordinator"),
     (["--no-accord"], "--no-accord"),
     (["--distributed"], "--distributed"),
-    (["--obs-listen", "127.0.0.1:0"], "--obs-listen")])
+    (["--process-id", "1"], "--process-id")])
 def test_unported_flags_are_refused_by_name(argv, word):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         tconfig.parse_args(["-i", "x.tim"] + argv)

@@ -153,9 +153,10 @@ def test_stitched_trace_and_stats_equal_jax(logs, tmp_path):
         jcli.main, ["stats", *inputs])
 
 
-@pytest.mark.parametrize("sub", ["trace", "stats", "quality", "usage"])
+@pytest.mark.parametrize("sub", ["trace", "stats", "quality", "usage",
+                                 "incident", "scale"])
 def test_reader_help_and_refusals_equal_jax(sub):
-    """The four subcommands are served (no longer refused): -h prints
+    """The reader subcommands are served (no longer refused): -h prints
     JAX's help, no input stops with JAX's message."""
     assert _run(tcli.main, [sub, "-h"]) == _run(jcli.main, [sub, "-h"])
     with pytest.raises(SystemExit) as got:

@@ -551,8 +551,7 @@ def test_serve_cli_on_cpu(tmp_path):
     assert stats[1]["histograms"]["serve.job_seconds"]["count"] >= 1
 
 
-@pytest.mark.parametrize("sub", ["incident", "profile", "hotspots", "scale",
-                                 "fleet", "submit"])
+@pytest.mark.parametrize("sub", ["profile", "hotspots", "fleet", "submit"])
 def test_other_subcommands_are_refused_by_name(sub):
     with pytest.raises(SystemExit) as e:
         cli.main([sub])

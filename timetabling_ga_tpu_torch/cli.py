@@ -12,10 +12,13 @@ requests. The offline readers of a record stream,
     python -m timetabling_ga_tpu_torch stats run.jsonl
     python -m timetabling_ga_tpu_torch quality run.jsonl
     python -m timetabling_ga_tpu_torch usage serve.jsonl
+    python -m timetabling_ga_tpu_torch incident incidents/
+    python -m timetabling_ga_tpu_torch scale gateway.jsonl
 
-(obs/trace_export.py, obs/logstats.py, obs/quality.py, obs/usage.py)
-import neither torch nor the kernels, so they run on any machine a log
-was copied to: nothing above their dispatch below imports torch. The
+(obs/trace_export.py, obs/logstats.py, obs/quality.py, obs/usage.py,
+obs/flight.py, fleet/autoscaler.py) import neither torch nor the
+kernels, so they run on any machine a log or a bundle was copied to:
+nothing above their dispatch below imports torch. The
 flags are the JAX CLI's (runtime/config.py); those not ported yet stop
 the parse with a message that names them, and so do the JAX CLI's other
 subcommands.
@@ -32,12 +35,13 @@ READERS = {
     "stats": ("timetabling_ga_tpu_torch.obs.logstats", "main_stats"),
     "quality": ("timetabling_ga_tpu_torch.obs.quality", "main_quality"),
     "usage": ("timetabling_ga_tpu_torch.obs.usage", "main_usage"),
+    "incident": ("timetabling_ga_tpu_torch.obs.flight", "main_incident"),
+    "scale": ("timetabling_ga_tpu_torch.fleet.autoscaler", "main_scale"),
 }
 
 # the JAX CLI's other subcommands (timetabling_ga_tpu/cli.py:95-156), not
 # ported yet
-NOT_PORTED_SUBCOMMANDS = ("incident", "profile", "hotspots", "scale",
-                          "fleet", "submit")
+NOT_PORTED_SUBCOMMANDS = ("profile", "hotspots", "fleet", "submit")
 
 
 def main(argv=None) -> int:

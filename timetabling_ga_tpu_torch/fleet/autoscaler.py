@@ -1,10 +1,14 @@
 """The fleet autoscaler's decision report (copy of timetabling_ga_tpu/
-fleet/autoscaler.py:507-585, `summarize_entries` and `_evidence_lines`):
-the scaleEntry section of the `stats` subcommand. The autoscaler itself
-is not ported yet; this module holds only its report. Stdlib only.
+fleet/autoscaler.py:507-629, `summarize_entries`, `_evidence_lines` and
+`main_scale`): the scaleEntry section of the `stats` subcommand and the
+`scale` reader. The autoscaler itself is not ported yet; this module
+holds only its report. Stdlib only.
 """
 
 from __future__ import annotations
+
+import json
+import sys
 
 
 def summarize_entries(records) -> str:
@@ -84,3 +88,49 @@ def _evidence_lines(ev: dict) -> list:
         else:
             out.append(f"{name}: {v}")
     return out
+
+
+def main_scale(argv) -> int:
+    """`tt scale <gateway.jsonl> [more.jsonl ...]` — render the
+    autoscaler's decision log (stdlib, no torch, like tt stats)."""
+    inputs = []
+    as_json = False
+    for a in argv:
+        if a in ("-h", "--help"):
+            print("usage: tt scale <gateway.jsonl> [more.jsonl ...] "
+                  "[--json]\n\n"
+                  "summarize the tt-scale decision log: every "
+                  "scaleEntry with the sustained-window evidence that "
+                  "justified it (spawn triggers, idle guards, warmth "
+                  "blocks, cooldown holds), plus action tallies")
+            return 0
+        if a == "--json":
+            as_json = True
+        elif a.startswith("-"):
+            raise SystemExit(f"unknown argument: {a}")
+        else:
+            inputs.append(a)
+    if not inputs:
+        raise SystemExit("usage: tt scale <gateway.jsonl> "
+                         "[more.jsonl ...] [--json]")
+    records = []
+    for path in inputs:
+        with open(path, encoding="utf-8") as fh:
+            for line in fh:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    records.append(json.loads(line))
+                except ValueError:
+                    continue        # torn tail line of a live log
+    if as_json:
+        print(json.dumps([r["scaleEntry"] for r in records
+                          if "scaleEntry" in r], indent=2))
+        return 0
+    print(summarize_entries(records))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main_scale(sys.argv[1:]))

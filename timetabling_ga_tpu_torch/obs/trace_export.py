@@ -370,14 +370,19 @@ def main_trace(argv) -> int:
     resolved: list = []
     for p in inputs:
         records = read_jsonl(p)
-        # an INCIDENT BUNDLE (the JAX package's obs/flight.py) needs the
-        # flight recorder, which is not ported yet: refused by name
-        if any(isinstance(r, dict) and isinstance(r.get("incident"), dict)
-               for r in records):
-            raise SystemExit(f"{p}: incident bundles are not yet ported "
-                             f"to timetabling_ga_tpu_torch (use "
-                             f"timetabling_ga_tpu)")
-        resolved.append((os.path.basename(p), records))
+        # an INCIDENT BUNDLE (obs/flight.py) is accepted next to JSONL
+        # logs: its span/record rings expand into ordinary inputs, one
+        # process lane per member of a stitched bundle
+        bundle = next((r["incident"] for r in records
+                       if isinstance(r, dict)
+                       and isinstance(r.get("incident"), dict)), None)
+        if bundle is not None:
+            from timetabling_ga_tpu_torch.obs.flight import bundle_records
+            base = os.path.basename(p)
+            for label, recs in bundle_records(bundle):
+                resolved.append((f"{base}:{label}", recs))
+        else:
+            resolved.append((os.path.basename(p), records))
     doc = export_stitched(resolved, job=job)
     if out is None:
         out = inputs[0] + ".trace.json"

@@ -11,13 +11,16 @@ checkpoint/resume (`--checkpoint`, `--checkpoint-every`, `--resume`),
 the compressed trace modes (`--trace-mode deltas|stats`), the quality
 telemetry (`--quality`, `--stall-window`, `--stall-hamming`,
 `--auto-kick-on-stall`), the spans and metrics records (`--obs`,
-`--metrics-every`), and the dispatch pipeline with in-run fault
-recovery (`--no-pipeline`, `--max-recoveries`, `--fetch-timeout`,
+`--metrics-every`), the pull front, history ring, flight recorder and
+memory poller (`--obs-listen`, `--history-every`, `--incident-dir`,
+`--incident-min-interval`, `--mem-poll-every`; JAX config.py:200-265,
+the same defaults and checks), and the dispatch pipeline with in-run
+fault recovery (`--no-pipeline`, `--max-recoveries`, `--fetch-timeout`,
 `--faults`, `--no-precompile`: skip the sec/gen probe; `--no-donate`: a
 no-op, since no dispatch writes into its input state). A flag it does
-not implement yet (`--obs-listen`, `--trace-profile`, ...: `NOT_PORTED`) stops
-the parse with a message naming it as not yet ported, never silently
-ignored. `-l` is accepted and retired, as on the
+not implement yet (`--trace-profile`, `--profile-dir`, ...:
+`NOT_PORTED`) stops the parse with a message naming it as not yet
+ported, never silently ignored. `-l` is accepted and retired, as on the
 JAX path: the engine warns that the local search is bounded by -m
 instead. JAX's checkpoint refusals hold: the tuned `post_pop_size` is
 dropped under `--checkpoint`, and an explicit `--post-pop-size` with
@@ -29,8 +32,9 @@ CUDA device raises instead of falling back to the CPU.
 `ServeConfig` and `parse_serve_args` are the `serve` subcommand's (JAX
 config.py:689-936): the same flags, defaults and messages for what the
 port serves (`--trace-mode full|deltas|stats`, `--quality`, `--obs`,
-`--metrics-every` and `--no-usage` among them, and the fault plan, the
-per-job recovery budget and the shedding marks); the service's other
+`--metrics-every`, `--no-usage` and the five flags above among them,
+and the fault plan, the per-job recovery budget and the shedding
+marks); the service's other
 flags (`SERVE_NOT_PORTED`) and `--mesh-devices` above 1 stop the parse
 by name.
 """
@@ -91,6 +95,17 @@ class RunConfig:
     metrics_every: int = 10       # dispatches between metricsEntry
     #                               snapshots under --obs (0 = only the
     #                               end-of-try snapshot)
+    obs_listen: Optional[str] = None  # HOST:PORT of the pull front
+    #                               (obs/http.py: /metrics, /healthz,
+    #                               /readyz, /metrics/history); None = off
+    history_every: float = 1.0    # seconds between registry samples on
+    #                               the history ring (0 disables it)
+    incident_dir: Optional[str] = None  # where the flight recorder
+    #                               dumps incident bundles; None = off
+    incident_min_interval: float = 30.0  # seconds between dumps
+    mem_poll_every: float = 1.0   # seconds between device memory
+    #                               samples on the poller thread (under
+    #                               --obs/--obs-listen; 0 disables it)
     checkpoint: Optional[str] = None
     checkpoint_every: int = 1
     resume: bool = False
@@ -210,6 +225,11 @@ _FLAG_MAP = {
     "--fetch-timeout": ("fetch_timeout", float),
     "--faults": ("faults", str),
     "--metrics-every": ("metrics_every", int),
+    "--obs-listen": ("obs_listen", str),
+    "--history-every": ("history_every", float),
+    "--incident-dir": ("incident_dir", str),
+    "--incident-min-interval": ("incident_min_interval", float),
+    "--mem-poll-every": ("mem_poll_every", float),
 }
 
 _BOOL_FLAGS = {"--trace": "trace", "--ls-converge": "ls_converge",
@@ -226,9 +246,7 @@ _NEG_BOOL_FLAGS = {"--no-auto-tune": "auto_tune",
 # a value, False = a switch. Parsing any of them stops the run.
 NOT_PORTED = {
     "--trace-profile": True, "--profile-dir": True, "--profile-for": True,
-    "--mem-poll-every": True, "--obs-listen": True,
-    "--history-every": True, "--incident-dir": True,
-    "--incident-min-interval": True, "--peer-timeout": True,
+    "--peer-timeout": True,
     "--coordinator": True, "--num-processes": True, "--process-id": True,
     "--distributed": False, "--no-accord": False,
 }
@@ -296,6 +314,29 @@ def _parse_flag_stream(argv, cfg, flag_map, usage_fn, bool_flags,
     return seen
 
 
+def _validate_obs_listen(spec) -> None:
+    """Fail the parse, not the run, on a malformed --obs-listen (JAX
+    config.py:569-580; the pull front's parse_listen is the one source
+    of the grammar)."""
+    if spec is None:
+        return
+    from timetabling_ga_tpu_torch.obs.http import parse_listen
+    try:
+        parse_listen(spec)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def _validate_flight(cfg) -> None:
+    """The history and recorder flags' checks (JAX config.py:582-590)."""
+    if cfg.history_every < 0:
+        raise SystemExit("--history-every must be >= 0 seconds "
+                         "(0 disables the metrics history ring)")
+    if cfg.incident_min_interval < 0:
+        raise SystemExit("--incident-min-interval must be >= 0 "
+                         "seconds between incident dumps")
+
+
 def parse_args(argv) -> RunConfig:
     """Parse `-key value` pairs; unknown or unported flags raise."""
     cfg = RunConfig()
@@ -321,6 +362,11 @@ def parse_args(argv) -> RunConfig:
     if cfg.metrics_every < 0:
         raise SystemExit("--metrics-every must be >= 0 dispatches "
                          "(0 = only the end-of-try snapshot)")
+    _validate_obs_listen(cfg.obs_listen)
+    _validate_flight(cfg)
+    if cfg.mem_poll_every < 0:
+        raise SystemExit("--mem-poll-every must be >= 0 seconds "
+                         "(0 disables the device memory poller)")
     if cfg.max_recoveries < 0:
         raise SystemExit("--max-recoveries must be >= 0 (0 disables "
                          "in-run recovery)")
@@ -413,6 +459,11 @@ class ServeConfig:
     #                               (0 = never)
     faults: Optional[str] = None  # fault plan (runtime/faults.py);
     #                               None reads $TT_FAULTS
+    obs_listen: Optional[str] = None  # the pull front, the history
+    history_every: float = 1.0    #   ring, the flight recorder and the
+    incident_dir: Optional[str] = None  # memory poller: the same
+    incident_min_interval: float = 30.0  # semantics as RunConfig's
+    mem_poll_every: float = 1.0
     max_job_recoveries: int = 2   # quantum-fault requeues a job before
     #                               it fails alone
 
@@ -441,6 +492,11 @@ _SERVE_FLAG_MAP = {
     "--faults": ("faults", str),
     "--max-job-recoveries": ("max_job_recoveries", int),
     "--metrics-every": ("metrics_every", int),
+    "--obs-listen": ("obs_listen", str),
+    "--history-every": ("history_every", float),
+    "--incident-dir": ("incident_dir", str),
+    "--incident-min-interval": ("incident_min_interval", float),
+    "--mem-poll-every": ("mem_poll_every", float),
 }
 
 _SERVE_BOOL_FLAGS = {"--obs": "obs", "--quality": "quality"}
@@ -451,11 +507,8 @@ _SERVE_NEG_BOOL_FLAGS = {"--no-usage": "usage",
 # The JAX service's flags this slice does not serve yet: True = takes a
 # value, False = a switch. Parsing any of them stops the parse.
 SERVE_NOT_PORTED = {
-    "--obs-listen": True, "--history-every": True,
-    "--incident-dir": True, "--incident-min-interval": True,
-    "--profile-dir": True, "--profile-for": True,
-    "--mem-poll-every": True, "--http": True, "--preempt-grace": True,
-    "--preempt-on-term": False,
+    "--profile-dir": True, "--profile-for": True, "--http": True,
+    "--preempt-grace": True, "--preempt-on-term": False,
 }
 
 
@@ -481,6 +534,10 @@ def parse_serve_args(argv) -> ServeConfig:
                          f"{', '.join(_KNOWN_VALUES['trace_mode'])})")
     if cfg.metrics_every < 0:
         raise SystemExit("--metrics-every must be >= 0 dispatches")
+    _validate_obs_listen(cfg.obs_listen)
+    _validate_flight(cfg)
+    if cfg.mem_poll_every < 0:
+        raise SystemExit("--mem-poll-every must be >= 0 seconds")
     if cfg.shed_queue_hwm < 0 or cfg.shed_writer_hwm < 0:
         raise SystemExit("--shed-queue-hwm / --shed-writer-hwm must be "
                          ">= 0 (0 disables that shed trigger)")

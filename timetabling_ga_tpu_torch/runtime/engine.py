@@ -93,8 +93,19 @@ already has: a span adds no device synchronization. Every
 aggregate is a `qualityEntry`. The records are timing records: the
 stream is the same under strip_timing with --obs on or off.
 
-Not in the port yet: multi-process agreement, the pull front and the
-profiler (runtime/config.py refuses their flags). `--no-donate` changes
+The pull front and the flight recorder (JAX engine.py:954-1040):
+`--obs-listen HOST:PORT` serves /metrics, /healthz, /readyz and
+/metrics/history from a daemon thread (obs/http.py); any obs surface
+starts the history ring (obs/history.py, `--history-every`);
+`--incident-dir` tees the record stream into the flight recorder
+(obs/flight.py), which dumps a bundle on a faultEntry or a readiness
+flip; under `--obs` or `--obs-listen` the memory poller (obs/cost.py,
+`--mem-poll-every`) feeds the `device.mem_*` gauges from the caching
+allocator. None of them writes a record: the stream is the same with
+them on or off.
+
+Not in the port yet: multi-process agreement and the profiler
+(runtime/config.py refuses their flags). `--no-donate` changes
 nothing: no dispatch writes into its input state.
 """
 
@@ -109,6 +120,8 @@ import numpy as np
 import torch
 
 from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch.obs import cost as obs_cost
+from timetabling_ga_tpu_torch.obs import flight as obs_flight
 from timetabling_ga_tpu_torch.obs import metrics as obs_metrics
 from timetabling_ga_tpu_torch.obs import quality as obs_quality
 from timetabling_ga_tpu_torch.obs.spans import NULL_TRACER, SpanTracer
@@ -987,6 +1000,7 @@ def run(cfg: RunConfig, out=None) -> int:
     faults.install(faults.active_spec(cfg.faults))
     close_out = False
     writer = None
+    obs_srv = mem_poller = hist_ring = flight = None
     try:
         if out is None:
             if cfg.output:
@@ -994,13 +1008,35 @@ def run(cfg: RunConfig, out=None) -> int:
                 close_out = True
             else:
                 out = sys.stdout
-        writer = jsonl.AsyncWriter(out)
+        # the history ring samples the registry on its own thread under
+        # any obs surface; the flight recorder tees the record stream
+        # (on the writer thread) and dumps bundles from its own thread
+        # (JAX engine.py:954-966). The stream is the same either way.
+        hist_ring, flight, sink = obs_flight.wire(cfg, out,
+                                                  process="engine")
+        writer = jsonl.AsyncWriter(sink)
         # the tracer emits through the same writer; the writer's pull
         # gauges re-bind to this run's writer
         tracer = SpanTracer(writer, enabled=cfg.obs)
+        if flight is not None:
+            flight.bind_tracer(tracer)
+            flight.start()
         reg = obs_metrics.REGISTRY
         reg.gauge_fn("writer.queue_depth", writer.qsize)
         reg.gauge_fn("writer.records", lambda: writer.records_written)
+        if (cfg.obs or cfg.obs_listen) and cfg.mem_poll_every > 0:
+            # the device.mem_* gauges, sampled off the dispatch path
+            mem_poller = obs_cost.MemPoller(
+                obs_cost.torch_memory_stats_fn(device),
+                cfg.mem_poll_every).start()
+        if cfg.obs_listen:
+            # the pull front: /metrics, /healthz (this run's writer
+            # thread), /readyz, /metrics/history; it writes no records
+            from timetabling_ga_tpu_torch.obs import http as obs_http
+            obs_srv = obs_http.ObsServer(
+                cfg.obs_listen,
+                probes={"process": lambda: True, "writer": writer.alive},
+                history=hist_ring).start()
         try:
             best = _run_tries(cfg, writer, device, tracer)
         except BaseException:
@@ -1009,6 +1045,17 @@ def run(cfg: RunConfig, out=None) -> int:
         writer.close()
         return best
     finally:
+        # JAX's order: the listener first (no handler may race a closing
+        # ring), the poller, then the recorder and the ring before the
+        # fault plan is uninstalled
+        if obs_srv is not None:
+            obs_srv.close()
+        if mem_poller is not None:
+            mem_poller.close()
+        if flight is not None:
+            flight.close()
+        if hist_ring is not None:
+            hist_ring.close()
         if writer is not None:
             # the registry must not keep this run's writer alive
             obs_metrics.REGISTRY.freeze("writer.records",

@@ -31,7 +31,11 @@ dispatch_core.fetch, inside the watchdog thread), `writer` (the
 AsyncWriter worker, once per dequeued item), `ckpt` (checkpoint.save,
 after the durable rename), `init` (the engine's init before the first
 supervisor snapshot), `quantum` (once per serve lane dispatch), `resume`
-(a warm-start admission) and `edit` (an edit job's transplant). SITES is
+(a warm-start admission), `edit` (an edit job's transplant), and the
+observability threads' own: `obs_listen` (the pull front's accept loop),
+`scrape` (each request it answers), `mem_poll` (each memory sample),
+`history` (each history-ring sample) and `flight_dump` (each incident
+dump); a hang or death there parks or ends that thread alone. SITES is
 JAX's closed tuple, so every plan valid for JAX parses here; the sites
 of JAX modules the port does not have never fire. Like JAX's, it holds
 no `edit`: no parsed plan reaches that site.

@@ -49,7 +49,16 @@ Records ride a jsonl.AsyncWriter (its queue is the `writer.queue_depth`
 gauge that `--shed-writer-hwm` reads); `drive` returns with them written
 and `close` drains it. The fault plan (`--faults`, else `$TT_FAULTS`) is
 installed when the service starts, as JAX's service does: the serve
-path's sites are `writer`, `fetch`, `quantum`, `resume` and `edit`.
+path's sites are `writer`, `fetch`, `quantum`, `resume` and `edit`, and
+those of the observability threads below.
+
+`--obs-listen`, `--history-every`, `--incident-dir` and
+`--mem-poll-every` wire the pull front, the history ring, the flight
+recorder and the memory poller as engine.run does, over this service's
+registry (JAX service.py:102-205): a quantum fault's faultEntry dumps a
+bundle, and /readyz reads `backlog_full` while the queue is at its
+bound. A listener that cannot bind raises from the constructor with
+every thread it started closed.
 """
 
 from __future__ import annotations
@@ -57,6 +66,8 @@ from __future__ import annotations
 import json
 import sys
 
+from timetabling_ga_tpu_torch.obs import cost as obs_cost
+from timetabling_ga_tpu_torch.obs import flight as obs_flight
 from timetabling_ga_tpu_torch.obs import metrics as obs_metrics
 from timetabling_ga_tpu_torch.obs import usage as obs_usage
 from timetabling_ga_tpu_torch.obs.spans import SpanTracer
@@ -98,13 +109,27 @@ class SolveService:
             else:
                 out = sys.stdout
         self._raw_out = out
-        self.writer = self.out = jsonl.AsyncWriter(out)
+        # the history ring and the flight recorder, as engine.run wires
+        # them (JAX service.py:102-117), reporting into this service's
+        # registry
+        self.history, self.flight, sink = obs_flight.wire(
+            cfg, out, registry=self._registry, process="serve")
+        self.writer = self.out = jsonl.AsyncWriter(sink)
         # spans ride the writer; the writer's pull gauges re-bind to
         # this service's writer
         self.tracer = SpanTracer(self.writer, enabled=cfg.obs)
+        if self.flight is not None:
+            self.flight.bind_tracer(self.tracer)
+            self.flight.start()
         self._registry.gauge_fn("writer.queue_depth", self.writer.qsize)
         self._registry.gauge_fn(
             "writer.records", lambda: self.writer.records_written)
+        # the memory poller on its own thread, off the serve path
+        self.mem_poller = None
+        if (cfg.obs or cfg.obs_listen) and cfg.mem_poll_every > 0:
+            self.mem_poller = obs_cost.MemPoller(
+                obs_cost.torch_memory_stats_fn(self.device),
+                cfg.mem_poll_every, registry=self._registry).start()
         # the usage ledger's own thread folds the per-tenant settlement
         # off the drive loop; --no-usage drops the meter
         self.usage = None
@@ -119,6 +144,34 @@ class SolveService:
                                    registry=self._registry,
                                    tracer=self.tracer, usage=self.usage)
         self._auto_id = 0
+        self.obs_server = None
+        if cfg.obs_listen:
+            # the pull front (obs/http.py) over this service's registry;
+            # it writes no records
+            try:
+                from timetabling_ga_tpu_torch.obs import http as obs_http
+                self.obs_server = obs_http.ObsServer(
+                    cfg.obs_listen, registry=self._registry,
+                    probes={"process": lambda: True,
+                            "writer": self.writer.alive},
+                    history=self.history).start()
+            except BaseException:
+                # a failed construction (the port is taken, say) never
+                # reaches close(): the threads started above must not
+                # outlive the service, nor the registry's pull gauges
+                # keep its writer and queue alive (JAX
+                # service.py:184-205)
+                if self.mem_poller is not None:
+                    self.mem_poller.close()
+                if self.usage is not None:
+                    self.usage.close()
+                if self.flight is not None:
+                    self.flight.close()
+                if self.history is not None:
+                    self.history.close()
+                self.writer.close(raise_error=False)
+                self._freeze_gauges()
+                raise
 
     @property
     def registry(self):
@@ -210,21 +263,35 @@ class SolveService:
             snap["prometheus"] = self.prometheus()
         jsonl.metrics_entry(self.out, snap, ts=self.tracer.now())
 
+    def _freeze_gauges(self) -> None:
+        """Release the registry's pull gauges: they must not keep this
+        service's writer, queue and scheduler alive."""
+        self._registry.freeze("writer.records", self.writer.records_written)
+        for name in ("writer.queue_depth", "serve.queue_depth",
+                     "serve.resident_groups", "serve.resident_bytes"):
+            self._registry.freeze(name, 0.0)
+
     def close(self) -> None:
-        """Close the usage ledger (its pending settlements enqueue their
-        records), drain and stop the writer, then release the registry's
-        pull gauges (they must not keep this service's writer, queue and
-        scheduler alive) and close -o."""
+        """Stop the listener and the memory poller, close the usage
+        ledger (its pending settlements enqueue their records), drain and
+        stop the writer, then close the flight recorder (the tee's last
+        records are in its rings; a pending trigger dumps in its close)
+        and the history ring, release the registry's pull gauges and
+        close -o (JAX service.py:360-390)."""
+        if self.obs_server is not None:
+            self.obs_server.close()
+        if self.mem_poller is not None:
+            self.mem_poller.close()
         if self.usage is not None:
             self.usage.close()
         try:
             self.writer.close()
         finally:
-            self._registry.freeze("writer.records",
-                                  self.writer.records_written)
-            for name in ("writer.queue_depth", "serve.queue_depth",
-                         "serve.resident_groups", "serve.resident_bytes"):
-                self._registry.freeze(name, 0.0)
+            if self.flight is not None:
+                self.flight.close()
+            if self.history is not None:
+                self.history.close()
+            self._freeze_gauges()
             if self._close_out:
                 self._raw_out.close()
 
