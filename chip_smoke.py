@@ -172,7 +172,25 @@
    records those of the serve-faults requeue leg; (c) `scale` on a
    small scaleEntry log exiting 0; the legs' rates, the scrape latency,
    the time-to-dump, the ring sizes and the poller's bytes printed with
-   the card's name and power limit;
+   the card's name and power limit; then the profiler and the cost
+   observatory (the profile phase, one `profile` line): (a) the
+   reference config, 300 generations, with `--trace-profile`: one
+   `profile` phase record, the capture's unattributed share at most
+   10%, `delta`'s top op K8's chain, the attributed total within 2% of
+   the kernel, memcpy and memset time summed off the same trace; (b)
+   the main path's tuned defaults with `--obs --obs-listen
+   --profile-dir --profile-for 2` (`-t 15`) and, from a process of its
+   own once that capture has landed, `profile URL --for 1 --attribute`:
+   both captures land, two profEntry records, `sweep` the largest phase
+   of the second, whether the worker-started capture holds ranges or
+   kernels only printed, `hotspots LOG` and `hotspots --diff` rendering;
+   (c) (a)'s config with no capture and with `--profile-for 1`: the
+   three streams equal under strip_timing; (d) reference gens/s with the
+   scopes on and with TT_PROF_SCOPES=0, two processes started together,
+   legs interleaved on, off, on, off; (e) the serve jobs through `serve
+   --obs`: every dispatch usageEntry's flops the work its quantum's
+   launches counted (work.py), its lanes summing to it, and
+   cost.flop_utilization_pct in (0, 100];
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
    generation, one full-eval generation, one kick, one LAHC launch and
@@ -224,58 +242,12 @@ PATHS = {
 }
 # the paths' instance where it is not comp01s
 PATH_TIM = {"nsga": TIM05}
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and float32
-# outside the tensor cores, 67e12/s, which counts an FMA as two operations
-# on 128 lanes an SM. These kernels' work is integer: Hopper issues INT32
-# on 64 lanes an SM, one operation each, a quarter of that rate; a plain
-# float32 operation (a compare, an add) issues at half of it.
-PEAK_BYTES_S = 3.35e12
-PEAK_INT_OPS_S = 67e12 / 4
-PEAK_FP32_OPS_S = 67e12 / 2
-# Operations per element K5 visits, counted by hand as the loads and ALU
-# instructions on that element's path in csrc/sweep_dev.cuh and
-# csrc/sweep_pass.cu (the loop bookkeeping around them not counted)
-OPS_ROOM_KEY = 12     # a (slot, room) key of a room argmin: occupancy
-                      # load, own-cell test, suitability load, the key's
-                      # mul/adds, compare and select
-OPS_MOVE1_STUDENT = 25  # a (target, student) of tt_move1_target: day bits,
-                        # free test, 4 neighbour bits, popcount, 5 adds
-OPS_STUDENT = 6       # a student of the K4 re-score: 3 attendance loads,
-                      # the earlier-event test
-OPS_DAY_SCORE = 12    # tt_day_scv of one day's bits: runs and singles
-# the bitset forms of the K4 body (K4, K5, K8, K10), Move1's prepare and
-# the heat
-OPS_DOT_WORD = 9      # a conflict word of the popcount dots: load, mask the
-                      # moved events, two slot_ev loads, two and+popc, sub
-OPS_SLOT_WORD = 5     # a (slot, word) of Move1's per-slot count or the
-                      # heat: two loads, and, popcount, add
-OPS_AMASK = 4         # a student's amask word: load, the old slot's
-                      # attendance load, compare, select
-OPS_FIX_SLOT = 9      # a touched slot of a student: att load, 3 patch
-                      # compares and adds, the bit set or clear
-OPS_DAY_BITS = 2      # a day's bits out of a mask: shift, and
-OPS_HEAT_STUDENT = 14  # a student of the feasible heat: amask load, day
-                       # bits, 4 neighbour bits, popcount, 3 adds
-OPS_CAND = 16         # a candidate's fixed work: 4 stores, the lexicographic
-                      # compare, the tie test and noise compare
-OPS_HEAT = 10         # an event's fixed heat work: cell, suitability, mask
-OPS_RANK = 3          # a float pair of the rank count: >, ==, index <
-OPS_TOP3 = 3          # a uniform of the top 3 of E uniforms (lax.top_k):
-                      # one pass, a load, the compare with the third
-                      # largest so far and its select (K6/K8's three-pass
-                      # warp argmax does more, which the bound does not
-                      # charge)
-OPS_LEX = 3           # a pair of K7's rank count: two compares and add
-OPS_COPY = 2          # a word of a copied row: load and store
-OPS_PICK = 2          # a room pick of the parallel matcher: the AND of
-                      # the event's suitability word with a mask of
-                      # ranks, its find-first-set
-OPS_BID = 3           # a bid: the cell's ballot, the lowest-lane test,
-                      # the claimed mask
-OPS_DOM = 5           # a pair of K11's dominator words: 4 compares and
-                      # the ballot's and/or
-OPS_DOM_WORD = 3      # a dominator word of K11's peel round: load, AND
-                      # with the unassigned word, or into the test
+# The card's peaks (H100_HBM_BYTES_S, H100_INT32_OPS_S, H100_FP32_OPS_S:
+# obs/cost.py, the NVIDIA data sheet's) and the operations each kernel
+# does per element it visits (work.py OPS_*, counted by hand from
+# csrc/) have one home in the package: `bind_counts` binds them here
+# once the package is found (PEAK_BYTES_S, PEAK_INT_OPS_S,
+# PEAK_FP32_OPS_S and OPS_*), and the bounds below count with them.
 # K5's cluster sizes held against the plain pass (None: the wrapper's
 # own choice)
 K5_CLUSTERS = (None, 1, 2, 4, 8)
@@ -527,20 +499,22 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def penalty_ops(pa):
-    """Integer operations of one full evaluation (K2's body, also in K6's
-    and K8's epilogues): three a conflict word of the correlation, two a
-    CSR entry of the students' masks, eight a student's day, twelve an
-    event's occupancy, suitability, last-slot and anchor terms."""
-    E, S, W = pa.n_events, pa.n_students, pa.conflict_bits.shape[1]
-    return E * W * 3 + pa.stu_ev.numel() * 2 + S * pa.n_days * 8 + E * 12
-
-
-def penalty_bytes(pa):
-    """Bytes of the problem arrays a full evaluation reads once."""
-    return nbytes(pa.possible_u8, pa.live, pa.student_count,
-                  pa.conflict_bits, pa.stu_ptr, pa.stu_ev, pa.anchor_slots,
-                  pa.anchor_w)
+def bind_counts():
+    """Bind the package's peaks (obs/cost.py) and per-element operation
+    counts (work.py OPS_*) as this script's globals, and the shape-only
+    counts it shares with the package's work table: penalty_ops,
+    penalty_bytes, parallel_rooms_ops and parallel_rooms_bytes."""
+    from timetabling_ga_tpu_torch import work
+    from timetabling_ga_tpu_torch.obs import cost
+    g = globals()
+    g.update({k: getattr(work, k) for k in dir(work)
+              if k.startswith("OPS_")})
+    g.update(PEAK_BYTES_S=cost.H100_HBM_BYTES_S,
+             PEAK_INT_OPS_S=cost.H100_INT32_OPS_S,
+             PEAK_FP32_OPS_S=cost.H100_FP32_OPS_S)
+    for name in ("penalty_ops", "penalty_bytes", "parallel_rooms_ops",
+                 "parallel_rooms_bytes"):
+        g[name] = getattr(work, name)
 
 
 def kernel_cases(pa, P, dev):
@@ -549,6 +523,7 @@ def kernel_cases(pa, P, dev):
     operations are each inner loop's trip count times its loads and ALU
     instructions, counted by hand from the kernel's source."""
     import torch
+    from timetabling_ga_tpu_torch import work
     from timetabling_ga_tpu_torch.ops import delta, fitness, rooms, sweep
     g = torch.Generator(device=dev).manual_seed(1000 + P)
     E, R, T, S = pa.n_events, pa.n_rooms, pa.n_slots, pa.n_students
@@ -622,26 +597,24 @@ def kernel_cases(pa, P, dev):
                                           rooms.best_fit_rooms(pa, P)),
         parallel_rooms_bytes(pa, slots),
         P * parallel_rooms_ops(E, ga.PARALLEL_ROUNDS))
+    w_assign = work.assign_rooms(pa, slots)
+    w_pen = work.batch_penalty(pa, slots)
+    w_move1 = work.move1_sweep(pa, st.slots, st.att, st.occ, piv)
     return {**cases, **{
         "assign_rooms": (
             lambda: rooms.assign_rooms(pa, slots),
             lambda: rooms.assign_rooms_plain(pa, slots),
-            nbytes(slots, pa.room_order) + prob + nbytes(slots),
-            P * E * R * 8),
+            w_assign.bytes, w_assign.ops),
         "batch_penalty": (
             lambda: fitness.batch_penalty(pa, slots, rms),
             lambda: fitness.batch_penalty_plain(pa, slots, rms),
-            rows + penalty_bytes(pa) + 3 * P * 4, P * penalty_ops(pa)),
+            w_pen.bytes, w_pen.ops),
         "move1_sweep": (
             lambda: sweep.move1_sweep(pa, st.slots, st.rooms, st.att,
                                       st.occ, piv),
             lambda: sweep.move1_sweep_plain(pa, st.slots, st.rooms, st.att,
                                             st.occ, piv),
-            rows + nbytes(st.att, st.occ, piv) + prob
-            + nbytes(pa.student_count, pa.conflict_bits, pa.ev_ptr,
-                     pa.ev_stu) + P * (S * 8 + T * W * 4) + 3 * P * T * 4,
-            P * (T * R * 8 + T * W * OPS_SLOT_WORD
-                 + pa.max_ev_students * T * 14)),
+            w_move1.bytes, w_move1.ops),
         "delta_one": (
             lambda: delta.delta_one(pa, st.slots, st.rooms, st.att, st.occ,
                                     evs, ns, act),
@@ -653,27 +626,6 @@ def kernel_cases(pa, P, dev):
             + P * C * 5 * 4,
             k4_body_ops(pa, st.slots, evs, ns)),
     }}
-
-
-def parallel_rooms_ops(E, n_rounds):
-    """Integer operations of one individual's parallel matching on
-    rooms as bits: each event's best-fit pick and its bid for its
-    incoming room at the start, and in each of the n_rounds rounds its
-    stage-1 and stage-2 picks (one AND and one find-first-set each) and
-    their two bids. The rounds that end early when nothing is left
-    unmatched and the park rounds are not told apart: the count is of
-    every event bidding in every round."""
-    return E * ((OPS_PICK + OPS_BID) + n_rounds * 2 * (OPS_PICK + OPS_BID))
-
-
-def parallel_rooms_bytes(pa, slots, rooms_in=None):
-    """Bytes K9 moves: its rows' slots (and incoming rooms) read, their
-    rooms written, and the rooms' tables it reads (the events' suit
-    words in capacity-rank order, the rooms of each rank, the capacity
-    ranks, the dead rooms) and the live flags."""
-    return (nbytes(slots) * (3 if rooms_in is not None else 2)
-            + nbytes(pa.suit_rank, pa.room_of_rank, pa.cap_rank, pa.dead,
-                     pa.live))
 
 
 def padded_arrays(problem, dev, n_pad_events=5, n_pad_rooms=2):
@@ -2133,25 +2085,19 @@ def k14_div_equal(pa, slots, pen, scv, L, what):
 
 
 def quality_ops_work(L, pop):
-    """(bytes, integer operations) of one quality_ops call: each row's
-    two flags, parent, two penalties and three counts read once, the
-    accumulator read and written; a row's win compare, four flag ANDs
-    and adds and three count adds, and each block's seven sums."""
-    P = L * pop
-    return P * (2 + 4 * 3 + 12) + 2 * L * 7 * 4, P * 11 + L * 7 * 10
+    """(bytes, integer operations) of one quality_ops call (work.py)."""
+    from timetabling_ga_tpu_torch import work
+    w = work.quality_ops(L, pop)
+    return w.bytes, w.ops
 
 
 def div_stats_work(L, pop, E):
-    """(bytes, integer and float operations) of one div_stats call: each
-    island's penalties and scvs, the rows of its Hamming pairs (at most
-    min(pop, 2k) distinct rows) and the mask read once, nine words
-    written; eight operations a value of the two moment series, four a
-    (pair, event) of the Hamming sample."""
+    """(bytes, integer and float operations) of one div_stats call
+    (work.py)."""
+    from timetabling_ga_tpu_torch import work
     from timetabling_ga_tpu_torch.obs.quality import HAMMING_PAIRS
-    k = min(pop, HAMMING_PAIRS) if pop >= 2 else 0
-    rows = min(pop, 2 * k)
-    nb = L * (8 * pop + rows * E * 4 + 9 * 4) + E * 4
-    return nb, L * (16 * pop + 4 * k * E)
+    w = work.div_stats(L, pop, E, HAMMING_PAIRS)
+    return w.bytes, w.ops
 
 
 def compare_quality(problem, pa, dev):
@@ -3122,6 +3068,290 @@ def _check_resumed(name, records, gen0, floor, gen1):
             check(e["best"] < floor[e["procID"]],
                   f"{name}: logEntry {e['best']} not below the saved "
                   f"floor {floor[e['procID']]}")
+
+
+# the profile phase's worker-started capture: the main path's tuned
+# defaults with the pull front, --profile-for 2 at launch, -t long
+# enough for the client's second capture to land
+PROF_MAIN = ["-s", "42", "-t", "15", "--generations", "100000", "--trace",
+             "--obs"]
+# the scopes' cost: reference-path legs of this many generations
+PROF_SCOPE_GENS = 600
+
+# the `profile` client's process: it waits for the launch capture to
+# land (GET /profile?last=1 at argv[1]), then becomes `python -m
+# timetabling_ga_tpu_torch profile URL --for 1 --attribute`
+PROF_CLIENT = r"""
+import json, os, sys, time, urllib.request
+url = sys.argv[1]
+t0 = time.monotonic()
+while time.monotonic() - t0 < 120:
+    try:
+        with urllib.request.urlopen(url + "/profile?last=1", timeout=5) as r:
+            if json.loads(r.read()).get("completed", 0) >= 1:
+                break
+    except OSError:
+        pass
+    time.sleep(0.2)
+os.execv(sys.executable, [sys.executable, "-m", "timetabling_ga_tpu_torch",
+                          "profile", url, "--for", "1", "--attribute",
+                          "--timeout", "60"])
+"""
+
+# a gens/s leg runner for the scopes' cost: one process per setting of
+# TT_PROF_SCOPES (read at import), each running the reference legs fed
+# to it on stdin, one JSON argv a line, and answering each with the
+# leg's generations a second of its gen-loop
+SCOPE_LEGS = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from timetabling_ga_tpu_torch import cli, kernels
+kernels.build()
+print(json.dumps({"ready": True}), flush=True)
+for line in sys.stdin:
+    argv = json.loads(line)
+    rc = cli.main(argv)
+    with open(argv[argv.index("-o") + 1]) as f:
+        recs = [json.loads(x) for x in f]
+    ph = [r["phase"] for r in recs if "phase" in r]
+    gens = sum(p["gens"] for p in ph if p["name"] == "dispatch")
+    loop = [p for p in ph if p["name"] == "gen-loop"][-1]
+    print(json.dumps({"rc": rc, "gens": gens,
+                      "gens_per_s": gens / loop["seconds"]}), flush=True)
+"""
+
+
+def _device_seconds(trace_path):
+    """Kernel, memcpy and memset time summed straight off a Chrome
+    trace, in seconds (the attribution's independent check)."""
+    import gzip
+    with gzip.open(trace_path, "rt") as f:
+        doc = json.load(f)
+    return sum(float(e.get("dur", 0)) for e in doc.get("traceEvents", [])
+               if isinstance(e, dict) and e.get("ph") == "X"
+               and str(e.get("cat", "")).lower()
+               in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e6
+
+
+def _newest_trace(capture_dir):
+    import glob
+    runs = sorted(glob.glob(os.path.join(capture_dir, "plugins", "profile",
+                                         "*")))
+    check(runs, f"profile: no capture under {capture_dir}")
+    files = glob.glob(os.path.join(runs[-1], "*.pt.trace.json.gz"))
+    check(len(files) == 1, f"profile: trace files {files}")
+    return files[0], len(runs)
+
+
+def _trace_has_ranges(trace_path):
+    """True when the capture holds `tt.*` ranges on the card's timeline
+    (gpu_user_annotation), False when it recorded kernels only."""
+    import gzip
+    from timetabling_ga_tpu_torch.obs import prof
+    with gzip.open(trace_path, "rt") as f:
+        doc = json.load(f)
+    return any(isinstance(e, dict) and e.get("name") in prof.PHASES
+               and str(e.get("cat", "")).lower() == "gpu_user_annotation"
+               for e in doc.get("traceEvents", []))
+
+
+def scopes_cost():
+    """(d) gens/s of the reference path with the scopes on and with
+    TT_PROF_SCOPES=0, each in a process of its own started together, the
+    legs interleaved on, off, on, off at the same generation budget."""
+    procs = {}
+    argv0 = PIPE[:PIPE.index("--generations")] + [
+        "--generations", str(PROF_SCOPE_GENS)]
+    try:
+        for name, val in (("on", "1"), ("off", "0")):
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", SCOPE_LEGS, HERE], cwd=HERE,
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+                env={**os.environ, "TT_PROF_SCOPES": val})
+        for name, p in procs.items():
+            check(json.loads(p.stdout.readline()).get("ready"),
+                  f"profile: the scopes-{name} process did not start")
+        rates = {"on": [], "off": []}
+        for i in range(2):
+            for name in ("on", "off"):
+                out = os.path.join(OUT_DIR, f"prof_scopes_{name}{i}.jsonl")
+                p = procs[name]
+                p.stdin.write(json.dumps(
+                    ["-i", TIM, "-o", out] + argv0) + "\n")
+                p.stdin.flush()
+                res = json.loads(p.stdout.readline())
+                check(res["rc"] == 0 and res["gens"] == PROF_SCOPE_GENS,
+                      f"profile: scopes-{name} leg {res}")
+                rates[name].append(res["gens_per_s"])
+    finally:
+        for p in procs.values():
+            if p.stdin:
+                p.stdin.close()
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    for name, p in procs.items():
+        check(p.returncode == 0, f"profile: scopes-{name} exited "
+                                 f"{p.returncode}")
+    on, off = sum(rates["on"]) / 2, sum(rates["off"]) / 2
+    return {"gens_per_s_on": rates["on"], "gens_per_s_off": rates["off"],
+            "ratio_on_off": on / off}
+
+
+def profile_path(pa_cpu):
+    """The profile phase, (a)-(e): a --trace-profile capture of the
+    reference path; a worker-started capture of the main path (launch
+    and `profile` client) with hotspots on its log; stream equality;
+    the scopes' cost; serve's counted flops. Returns (summary, launches
+    by leg)."""
+    import shutil
+    import torch
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.obs import prof
+    from timetabling_ga_tpu_torch.parallel import islands
+    from timetabling_ga_tpu_torch.problem import dump_tim
+    from timetabling_ga_tpu_torch.runtime import jsonl
+    out, launches = {"card": CARD}, {}
+    # (a) one synchronous capture on the reference path
+    adir = os.path.join(OUT_DIR, "prof_trace")
+    shutil.rmtree(adir, ignore_errors=True)
+    t0 = time.monotonic()
+    recs_a, secs_a, launches["prof-a"] = run_cli(
+        "prof-a", PIPE + ["--trace-profile", adir])
+    check_stream(recs_a, pa_cpu)
+    ph = _phases(recs_a, "profile")
+    check(len(ph) == 1 and ph[0]["dir"] == adir,
+          f"profile (a): profile phase records {ph}")
+    ta = time.monotonic()
+    attr = prof.attribute(adir)
+    attr_s = time.monotonic() - ta
+    trace_a, _ = _newest_trace(adir)
+    dev_s = _device_seconds(trace_a)
+    check(attr["unattributed_frac"] <= 0.10,
+          f"profile (a): unattributed {attr['unattributed_frac']}")
+    delta = attr["phases"].get("delta", {})
+    check(delta and prof.kernel_entry(delta["top_ops"][0][0]) == "random_ls",
+          f"profile (a): delta's top op {delta.get('top_ops')}")
+    check(abs(attr["total_s"] - dev_s) <= 0.02 * dev_s,
+          f"profile (a): attributed {attr['total_s']} s against "
+          f"{dev_s} s of device time")
+    out["a"] = {"wall_s": round(secs_a, 3), "capture_s": ph[0]["seconds"],
+                "attribute_s": attr_s, "n_events": attr["n_events"],
+                "total_s": attr["total_s"], "device_s": dev_s,
+                "unattributed_frac": attr["unattributed_frac"],
+                "phases": {k: [v["seconds"], v["frac"],
+                               v["top_ops"][0][0][:40]]
+                           for k, v in attr["phases"].items()},
+                "ranges": _trace_has_ranges(trace_a)}
+    # (b) worker-started captures: --profile-for 2 at launch, then the
+    # `profile` client's, from a process of its own
+    bdir = os.path.join(OUT_DIR, "prof_worker")
+    shutil.rmtree(bdir, ignore_errors=True)
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    client = subprocess.Popen([sys.executable, "-c", PROF_CLIENT, url],
+                              cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+    try:
+        with _FreshRegistry() as reg:
+            recs_b, secs_b, launches["prof-b"] = run_cli(
+                "prof-b", PROF_MAIN + ["--obs-listen", f"127.0.0.1:{port}",
+                                       "--profile-dir", bdir,
+                                       "--profile-for", "2"])
+            gauges = reg.snapshot()["gauges"]
+        cout, cerr = client.communicate(timeout=120)
+    finally:
+        if client.poll() is None:
+            client.kill()
+            client.wait()
+    check(client.returncode == 0,
+          f"profile (b): the client exited {client.returncode}: {cerr}")
+    check("== phases (" in cout, f"profile (b): client output {cout}")
+    check_stream(recs_b, pa_cpu, ("spanEntry", "metricsEntry",
+                                  "costEntry", "profEntry"))
+    trace_b, n_runs = _newest_trace(bdir)
+    check(n_runs == 2, f"profile (b): {n_runs} captures landed")
+    entries = [r["profEntry"] for r in recs_b if "profEntry" in r]
+    check(len(entries) == 2, f"profile (b): {len(entries)} profEntry "
+                             f"records")
+    post = entries[-1]["phases"]
+    check(post and max(post, key=lambda k: post[k]["s"]) == "sweep",
+          f"profile (b): the post capture's phases {post}")
+    log_b = os.path.join(OUT_DIR, "comp01s_s42_prof-b.jsonl")
+    hs = _reader(["hotspots", log_b])
+    check(hs.returncode == 0 and "== phases (" in hs.stdout,
+          f"profile (b): hotspots LOG: {hs.stderr}")
+    hd = _reader(["hotspots", "--diff", adir, log_b])
+    check(hd.returncode == 0 and "== phase diff" in hd.stdout,
+          f"profile (b): hotspots --diff: {hd.stderr}")
+    out["b"] = {"wall_s": round(secs_b, 3),
+                "ranges": _trace_has_ranges(trace_b),
+                "launch_capture": {k: v["s"] for k, v in
+                                   entries[0]["phases"].items()},
+                "post_capture": {k: v["s"] for k, v in post.items()},
+                "post_unattributed_frac": entries[-1]["unattributedFrac"],
+                "prof_gauges": sorted(k for k in gauges
+                                      if k.startswith("prof.")),
+                "client": next(x for x in cout.splitlines()
+                               if x.startswith("== phases ("))}
+    # (c) (a)'s config without a capture and with --profile-for
+    streams = {"trace-profile": jsonl.strip_timing(recs_a)}
+    for name, extra in (("none", []),
+                        ("profile-for", ["--profile-for", "1",
+                                         "--profile-dir",
+                                         os.path.join(OUT_DIR,
+                                                      "prof_c")])):
+        recs, _, launches["prof-c-" + name] = run_cli("prof-c-" + name,
+                                                      PIPE + extra)
+        streams[name] = jsonl.strip_timing(recs)
+    check(streams["none"] == streams["trace-profile"]
+          == streams["profile-for"],
+          "profile (c): the streams differ with a capture")
+    out["c"] = {"equal": True, "records": len(streams["none"])}
+    # (d) the scopes' cost
+    out["d"] = scopes_cost()
+    # (e) serve: each dispatch usageEntry's flops is its quantum's
+    # counted work
+    req = os.path.join(OUT_DIR, "prof_serve_requests.jsonl")
+    serve_requests(req, dump_tim(itc_problem()))
+    counted = []
+    lane_run = islands.lane_run
+
+    def spy(*a, **k):
+        o0 = kernels.WORK["ops"]
+        res = lane_run(*a, **k)
+        counted.append(kernels.WORK["ops"] - o0)
+        return res
+
+    islands.lane_run = spy
+    try:
+        with _FreshRegistry() as reg:
+            recs_e, secs_e, launches["prof-serve"], _ = run_serve(
+                "prof", req, ["--obs"])
+            util = reg.gauge("cost.flop_utilization_pct").value
+            tflops = reg.gauge("cost.achieved_tflops").value
+    finally:
+        islands.lane_run = lane_run
+    disp = sorted((r["usageEntry"] for r in recs_e if "usageEntry" in r
+                   and "dispatch" in r["usageEntry"]),
+                  key=lambda u: u["dispatch"])
+    check(disp and len(disp) == len(counted),
+          f"profile (e): {len(disp)} usageEntry for {len(counted)} quanta")
+    for u, c in zip(disp, counted):
+        check(c > 0 and u["flops"] == float(c),
+              f"profile (e): usageEntry flops {u['flops']} for {c}")
+        check(sum(x["flops"] for x in u["lanes"]) == u["flops"],
+              "profile (e): the lanes' flops do not sum")
+    check(0 < util <= 100, f"profile (e): flop_utilization_pct {util}")
+    out["e"] = {"dispatches": len(disp), "flops": sum(counted),
+                "flops_per_dispatch": sum(counted) / len(counted),
+                "flop_utilization_pct": util, "achieved_tflops": tflops,
+                "wall_s": round(secs_e, 3)}
+    out["seconds"] = round(time.monotonic() - t0, 3)
+    torch.cuda.synchronize()
+    return out, launches
 
 
 def resume_path(pa_cpu, gens=300):
@@ -4128,6 +4358,7 @@ def main() -> int:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     global CARD
     CARD = smi.stdout.strip().splitlines()[0]
+    bind_counts()
     print(CARD)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4250,6 +4481,9 @@ def main() -> int:
     print(json.dumps({"path": "resume", **summary, "launches": {
         k: resume_launches[k] for k in ("resume-a", "resume-b", "resume-c",
                                         "resume-main-1", "resume-main-2")}}))
+    prof_summary, prof_launches = profile_path(pa_cpu[TIM])
+    launches.update(prof_launches)
+    print(json.dumps({"path": "profile", **prof_summary}))
     for prof in profile_phases(pa, pa05, dev):
         print(json.dumps({"profile": prof}))
     k2_device_times(pa, dev, timings)

@@ -489,8 +489,10 @@ def emulated_fixture(*names):
             for key, entry in _keys(n, BUILDS[n][0]).items():
                 kernels._LIBS[key] = kernels.load(entry, d / f"{n}.so")
 
-        def launch(name, *args):
+        def launch(name, *args, work=None):
             kernels.LAUNCHES[name] += 1
+            if work is not None:
+                kernels.tally(work)
             entry = kernels.FORMS.get(name, name)
             assert kernels._LIBS[entry][1](*args, None) == 0
 
@@ -738,7 +740,7 @@ def test_k2_refused_cluster_is_not_shrunk(emulated, monkeypatch):
     lib = kernels._LIBS["batch_penalty"][0]
     answer = ctypes.c_int.in_dll(lib, "emu_max_active_clusters")
     rcs = []
-    monkeypatch.setattr(kernels, "launch", lambda name, *args: rcs.append(
+    monkeypatch.setattr(kernels, "launch", lambda name, *args, work=None: rcs.append(
         kernels._LIBS[name][1](*args, None)))
     answer.value = 0
     try:
@@ -937,7 +939,7 @@ def test_k11_refuses_an_island_above_the_shared_memory_limit(emulated,
     launch (the wrapper's kernels.launch raises on it)."""
     par = _k11_island(1, 5000, "random", 1, E=1)
     rcs = []
-    monkeypatch.setattr(kernels, "launch", lambda name, *args: rcs.append(
+    monkeypatch.setattr(kernels, "launch", lambda name, *args, work=None: rcs.append(
         kernels._LIBS[name][1](*args, None)))
     nsga.survivors_kernel(par, par, 1, 5000)
     assert rcs == [2]                      # cudaErrorLaunchOutOfResources

@@ -55,7 +55,7 @@ def test_k5_refused_cluster_is_not_shrunk(emulated, monkeypatch):
     lib = kernels._LIBS["sweep_pass"][0]
     answer = ctypes.c_int.in_dll(lib, "emu_max_active_clusters")
     rcs = []
-    monkeypatch.setattr(kernels, "launch", lambda name, *args: rcs.append(
+    monkeypatch.setattr(kernels, "launch", lambda name, *args, work=None: rcs.append(
         kernels._LIBS[name][1](*args, None)))
     answer.value = 0
     try:

@@ -98,10 +98,7 @@ def test_tuned_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv,word", [
-    (["--profile-dir", "d"], "--profile-dir"),
-    (["--trace-profile", "d"], "--trace-profile"),
     (["--peer-timeout", "5"], "--peer-timeout"),
-    (["--profile-for", "2"], "--profile-for"),
     (["--num-processes", "2"], "--num-processes"),
     (["--coordinator", "h:1"], "--coordinator"),
     (["--no-accord"], "--no-accord"),
@@ -111,6 +108,30 @@ def test_unported_flags_are_refused_by_name(argv, word):
     with pytest.raises(SystemExit, match="not yet ported") as e:
         tconfig.parse_args(["-i", "x.tim"] + argv)
     assert word in str(e.value)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--trace-profile", "d"], ["--profile-dir", "d"],
+    ["--profile-for", "2"],
+    ["--profile-for", "0", "--profile-dir", "p", "--trace-profile", "t"]])
+def test_profile_flags_parse_as_jax(argv):
+    """The run's profiling flags parse as JAX's; serve takes
+    --profile-dir and --profile-for as JAX's serve does."""
+    j = jconfig.parse_args(["-i", "x.tim"] + argv)
+    t = tconfig.parse_args(["-i", "x.tim"] + argv)
+    for f in ("trace_profile", "profile_dir", "profile_for"):
+        assert getattr(t, f) == getattr(j, f), f
+    sargv = [a for i, a in enumerate(argv)
+             if a != "--trace-profile" and (i == 0 or argv[i - 1]
+                                            != "--trace-profile")]
+    js = jconfig.parse_serve_args(sargv)
+    ts = tconfig.parse_serve_args(sargv)
+    assert (ts.profile_dir, ts.profile_for) == (js.profile_dir,
+                                                js.profile_for)
+    with pytest.raises(SystemExit, match="--profile-for must be >= 0"):
+        tconfig.parse_args(["-i", "x.tim", "--profile-for", "-1"])
+    with pytest.raises(SystemExit, match="--profile-for must be >= 0"):
+        tconfig.parse_serve_args(["--profile-for", "-1"])
 
 
 def test_checkpoint_flag_refusals_match_jax():

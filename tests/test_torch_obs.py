@@ -12,9 +12,9 @@ against the JAX package's.
           tests/test_usage.py, with --quality and a checkpoint every
           epoch: the port's --obs stream equals its run without --obs
           under strip_timing; its span names, each span's cat and
-          attribute keys, its last metricsEntry's metric names (minus
-          JAX's compile.*/cost.* families, not ported) and its
-          qualityEntry keys are JAX's
+          attribute keys, its last metricsEntry's metric names (the
+          cost observatory's compile.*/cost.* families included) and
+          its qualityEntry keys are JAX's
   serve   the same on a request file of tests/test_usage.py's
           problems: the span taxonomy, each job's flow (one chain a job,
           the same spans in the same order as JAX's) and
@@ -66,12 +66,6 @@ _ENGINE = dict(seed=3, pop_size=8, islands=2, generations=30,
 _SERVE = dict(backend="cpu", lanes=2, quantum=5, pop_size=4, max_steps=8,
               metrics_every=1, quality=True)
 
-# JAX's cost observatory's families (compile accounting, the live
-# roofline) wait for the profiling slice; the memory poller's device.*
-# names are ported and compared (on the CPU: device.mem_polls)
-_UNPORTED_FAMILIES = ("compile.", "cost.")
-
-
 @contextlib.contextmanager
 def _fresh_registries():
     """Both packages' process registries swapped for fresh ones."""
@@ -102,8 +96,7 @@ def _taxonomy(recs) -> dict:
 
 
 def _metric_names(snapshot) -> dict:
-    return {kind: sorted(n for n in snapshot.get(kind, {})
-                         if not n.startswith(_UNPORTED_FAMILIES))
+    return {kind: sorted(snapshot.get(kind, {}))
             for kind in ("counters", "gauges", "histograms")}
 
 
@@ -453,12 +446,12 @@ def test_serve_stats_prometheus(serve_runs):
     assert "tt_serve_job_seconds_bucket" in text
     assert prom["counters"]["serve.jobs_done"] == 3
     # after close the ledger has settled every quantum: the registries
-    # name the same metrics, the tenants' counters among them
-    # (the ledger bumps a tenant counter only for a non-zero share: the
-    # port's flops are 0 and so are its compile_seconds once the kernels
-    # are built, where JAX bills XLA's FLOP count and its compiles)
+    # name the same metrics, the tenants' counters among them (the
+    # ledger bumps a tenant counter only for a non-zero share: the
+    # port's compile_seconds are 0 once the kernels are built, where JAX
+    # bills its compiles; both bill their counted flops)
     jsvc = serve_runs["jax-obs"][0]
-    zero = re.compile(r"^usage\.tenant\..*\.(compile_seconds|flops)$")
+    zero = re.compile(r"^usage\.tenant\..*\.compile_seconds$")
 
     def names(snap):
         out = _metric_names(snap)
@@ -466,6 +459,7 @@ def test_serve_stats_prometheus(serve_runs):
         return out
     assert names(svc.stats()) == names(jsvc.stats())
     assert not any(zero.match(n) for n in svc.stats()["counters"])
+    assert "usage.tenant.acme.flops" in svc.stats()["counters"]
     assert "tt_usage_tenant_acme_gens_total 10" in svc.prometheus()
     assert math.isclose(float(re.search(
         r"^tt_serve_gens_total (\S+)$", text, re.M).group(1)),

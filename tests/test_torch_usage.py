@@ -21,8 +21,9 @@ the serve path's meter) against the JAX package's.
 
 The port's meter has two counterparts of JAX's inputs: compile_seconds
 is the kernel build's wall inside a quantum (0 on the host, where no
-kernel is built), flops is 0 (the port compiles no program XLA could
-count); conservation holds for both all the same.
+kernel is built), flops the quantum's counted work (obs/cost.py, the
+kernels' work.py counts, tallied on the host as on the card);
+conservation holds for both all the same.
 """
 
 import io
@@ -246,7 +247,7 @@ def test_serve_ab_identity_and_conservation():
     for u in disp:
         for f in ("gens", "device_seconds", "compile_seconds", "flops"):
             assert sum(lane[f] for lane in u["lanes"]) == u[f], (f, u)
-        assert u["flops"] == 0.0 and u["compile_seconds"] == 0.0
+        assert u["flops"] > 0.0 and u["compile_seconds"] == 0.0
         assert u["overhead_device_seconds"] == 0.0
         assert u["device_seconds"] > 0
     packed = next(u for u in disp if len(u["lanes"]) == 2

@@ -14,11 +14,15 @@ requests. The offline readers of a record stream,
     python -m timetabling_ga_tpu_torch usage serve.jsonl
     python -m timetabling_ga_tpu_torch incident incidents/
     python -m timetabling_ga_tpu_torch scale gateway.jsonl
+    python -m timetabling_ga_tpu_torch hotspots tt-profile/
+    python -m timetabling_ga_tpu_torch profile http://HOST:PORT --for 2
 
 (obs/trace_export.py, obs/logstats.py, obs/quality.py, obs/usage.py,
-obs/flight.py, fleet/autoscaler.py) import neither torch nor the
-kernels, so they run on any machine a log or a bundle was copied to:
-nothing above their dispatch below imports torch. The
+obs/flight.py, fleet/autoscaler.py, obs/prof.py, and obs/cost.py's
+stdlib HTTP client of a live run's --obs-listen front) import neither
+torch nor the kernels, so they run on any machine a log, a bundle or a
+capture was copied to: nothing above their dispatch below imports
+torch. The
 flags are the JAX CLI's (runtime/config.py); those not ported yet stop
 the parse with a message that names them, and so do the JAX CLI's other
 subcommands.
@@ -37,11 +41,13 @@ READERS = {
     "usage": ("timetabling_ga_tpu_torch.obs.usage", "main_usage"),
     "incident": ("timetabling_ga_tpu_torch.obs.flight", "main_incident"),
     "scale": ("timetabling_ga_tpu_torch.fleet.autoscaler", "main_scale"),
+    "hotspots": ("timetabling_ga_tpu_torch.obs.prof", "main_hotspots"),
+    "profile": ("timetabling_ga_tpu_torch.obs.cost", "main_profile"),
 }
 
 # the JAX CLI's other subcommands (timetabling_ga_tpu/cli.py:95-156), not
 # ported yet
-NOT_PORTED_SUBCOMMANDS = ("profile", "hotspots", "fleet", "submit")
+NOT_PORTED_SUBCOMMANDS = ("fleet", "submit")
 
 
 def main(argv=None) -> int:

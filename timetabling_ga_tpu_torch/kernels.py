@@ -22,7 +22,11 @@ point launches on PyTorch's current stream and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code.
 `LAUNCHES` counts the launches of each entry point: a wrapper adds one
 exactly where it launches its kernel, so a run can show its path went
-through them.
+through them. `WORK` sums the operations and bytes of every launch
+(work.py TABLE, counted from shapes, the port's counterpart of XLA's
+cost_analysis); on the CPU each wrapper adds its kernel branch's work
+with `tally`, so a program's counted work is the same on either device
+(obs/cost.py CostProgram reads its growth over a call).
 """
 
 from __future__ import annotations
@@ -103,6 +107,8 @@ FORMS = {"breed_lanes": "breed", "random_ls_lanes": "random_ls",
          "div_stats_lanes": "div_stats"}
 
 LAUNCHES = {name: 0 for name in (*SIGNATURES, *FORMS)}
+# running totals of the launched (or, on the CPU, tallied) work
+WORK = {"ops": 0, "bytes": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -115,6 +121,13 @@ BUILD_INFO: dict = {"seconds": None, "total_seconds": 0.0, "ptxas": {}}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def tally(work) -> None:
+    """Add one launch's `work` (a work.Work) to WORK: `launch` does it
+    for a kernel, a wrapper's CPU branch for its plain version."""
+    WORK["ops"] += int(work.ops)
+    WORK["bytes"] += int(work.bytes)
 
 
 def _nvcc() -> str:
@@ -213,16 +226,18 @@ def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, work=None) -> None:
     """Launch kernel `name` (an entry point, or one of its FORMS, which
-    counts under its own name) on the current stream; raise on an
-    error."""
+    counts under its own name) on the current stream, adding its `work`
+    (a work.Work) to WORK; raise on an error."""
     entry = FORMS.get(name, name)
     if entry not in _LIBS:
         build()
     lib, fn = _LIBS[entry]
     stream = torch.cuda.current_stream().cuda_stream
     LAUNCHES[name] += 1
+    if work is not None:
+        tally(work)
     rc = fn(*args, stream)
     if rc != 0:
         msg = lib.tt_error_string(rc).decode()

@@ -18,13 +18,17 @@ timetabling_ga_tpu/obs/http.py, under the same names).
              reason strings are a wire contract
   /metrics/history   the history ring (obs/history.py) as JSON,
              `?window=S` bounded; 404 with no ring
-  /profile   404: the on-demand profiler capture is not ported yet,
-             so the port answers JAX's reply for a server with no
-             capture wired
+  /profile   the on-demand capture trigger (obs/cost.py
+             ProfileCapture; `profile` is the client): `?for=N` answers
+             the trigger's ack, 200 or 409 while one is active;
+             `?last=1` the newest capture's attribution (obs/prof.py);
+             404 where no capture is wired
 
 Handlers only READ: registry snapshots and expositions, never a counter
-bump or a gauge write, so a scrape changes no number another consumer
-reads; they do no blocking I/O beyond their own socket. The server is a
+bump or a gauge write (/profile's trigger is a state flip and a worker
+wake, the capture runs on its own thread), so a scrape changes no
+number another consumer reads; they do no blocking I/O beyond their own
+socket. The server is a
 `ThreadingHTTPServer` with daemon threads and `block_on_close=False`:
 a hung handler (the `scrape` fault site's `hang`) parks its own thread
 and nothing else. The listener writes no records, so the JSONL stream
@@ -221,13 +225,33 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 out["window"] = window
             self._reply_json(200, out)
         elif path == "/profile":
-            # the on-demand profiler capture is not ported yet: the
-            # port answers JAX's reply for a server with no capture
-            # wired (JAX obs/http.py:254-259)
-            self._reply_json(404, {"ok": False,
-                                   "reason": "no profile capture "
-                                             "wired (--profile-dir"
-                                             "/--profile-for)"})
+            # the on-demand capture trigger (obs/cost.py ProfileCapture;
+            # `profile` is the client): trigger() flips state and wakes
+            # the capture worker — no blocking I/O here, no registry
+            # touch; the profiler calls happen on the worker
+            capture = getattr(self.server, "profile", None)
+            if capture is None:
+                self._reply_json(404, {"ok": False,
+                                       "reason": "no profile capture "
+                                                 "wired (--profile-dir"
+                                                 "/--profile-for)"})
+                return
+            params = dict(
+                p.split("=", 1) for p in query.split("&") if "=" in p)
+            if params.get("last"):
+                # the newest completed capture's attribution (the
+                # capture worker ran obs/prof.capture_hook): a pure read
+                last = capture.last()
+                self._reply_json(200, {"ok": True, **last})
+                return
+            try:
+                n = int(params.get("for", 1))
+            except ValueError:
+                self._reply_json(400, {"ok": False,
+                                       "reason": "for must be an int"})
+                return
+            ack = capture.trigger(n)
+            self._reply_json(200 if ack.get("ok") else 409, ack)
         elif path == "/healthz":
             probes = {}
             for name, fn in self.server.probes.items():
@@ -278,8 +302,9 @@ class ObsServer:
     `start()`, stop on `close()`.
 
     `probes` maps name -> zero-arg callable for /healthz (the owner
-    registers e.g. its AsyncWriter's worker liveness). /profile answers
-    404: no profiler capture is wired in the port. The registry defaults
+    registers e.g. its AsyncWriter's worker liveness). `profile` is the
+    ProfileCapture /profile triggers and polls (absent: 404). The
+    registry defaults
     to THE process REGISTRY — the same numbers every other consumer
     sees. `history` is the ring /metrics/history serves (absent: 404);
     handlers only READ it, like the registry.
@@ -289,13 +314,14 @@ class ObsServer:
     is always `obs_listen`."""
 
     def __init__(self, listen: str, registry=None, probes=None,
-                 history=None):
+                 profile=None, history=None):
         host, port = parse_listen(listen)
         self._srv = _Server((host, port), _Handler)
         self._srv.registry = (obs_metrics.REGISTRY if registry is None
                               else registry)
         self._srv.probes = dict(probes or {})
         self._srv.history = history
+        self._srv.profile = profile
         self._thread = threading.Thread(
             target=self._serve, name="tt-obs_listen", daemon=True)
         self._state_lock = threading.Lock()

@@ -8,9 +8,10 @@ each job's `tenant` tag to the tenant that submitted it:
   device_seconds   the quantum's measured wall, fence to fence on the
                    host clock (minus any kernel build the same quantum
                    paid: that goes to compile_seconds)
-  flops            the lane program's FLOP count. JAX reads XLA's
-                   compile-time count; the port compiles no program, so
-                   its lane runner's `last_cost` is None and this is 0
+  flops            the lane program's counted work: the operations of
+                   the quantum's kernel launches (obs/cost.py
+                   CostProgram.last_cost, work.py; JAX reads XLA's
+                   compile-time count), split on the integer grid
   compile_seconds  the wall that `kernels.build()` spent inside the
                    quantum (JAX's lower+compile wall of a cold
                    dispatch); 0 once the kernels are built

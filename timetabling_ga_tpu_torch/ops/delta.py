@@ -40,7 +40,8 @@ from typing import NamedTuple
 
 import torch
 
-from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch import kernels, work
+from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.fitness import gather_rows
 from timetabling_ga_tpu_torch.ops.moves import (
@@ -100,6 +101,7 @@ def state_of(pa, rows: LSRows) -> LSState:
                    pen=rows.pen, hcv=rows.hcv, scv=rows.scv)
 
 
+@obs_prof.scope("tt.delta")
 def init_state(pa, slots, rooms, scores=None) -> LSState:
     """Maintained tensors + baseline fitness for a population (`scores`
     as init_rows takes them)."""
@@ -267,6 +269,7 @@ def delta_one_plain(pa, slots, rooms, att, occ, evs, new_slots, active):
     return d_hcv.to(torch.int32), d_scv.to(torch.int32), new_rooms
 
 
+@obs_prof.scope("tt.delta")
 def delta_one(pa, slots, rooms, att, occ, evs, new_slots, active):
     """Delta of padded 3-relocation candidates (P, C, 3) on individuals
     (P, ...): (d_hcv (P, C), d_scv (P, C), new_rooms (P, C, 3)). Kernel
@@ -274,6 +277,7 @@ def delta_one(pa, slots, rooms, att, occ, evs, new_slots, active):
     with their plain version, slot_bitsets), the plain version on CPU
     ones."""
     if not slots.is_cuda:
+        kernels.tally(work.delta_one(pa, slots, att, occ, evs))
         return delta_one_plain(pa, slots, rooms, att, occ, evs, new_slots,
                                active)
     P, C, _ = evs.shape
@@ -296,10 +300,12 @@ def delta_one(pa, slots, rooms, att, occ, evs, new_slots, active):
         p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr), p(pa.ev_stu), p(d[0]),
         p(d[1]), p(new_rooms), P, C, slots.shape[1], pa.n_rooms,
         pa.n_students, pa.n_slots, pa.slots_per_day,
-        pa.conflict_bits.shape[1])
+        pa.conflict_bits.shape[1],
+        work=work.delta_one(pa, slots, att, occ, evs))
     return d[0], d[1], new_rooms
 
 
+@obs_prof.scope("tt.delta")
 def apply_moves(pa, slots, rooms, att, occ, evs, new_slots, new_rooms,
                 accept):
     """Commit one candidate (P, 3) per individual where `accept` (P,)
@@ -455,7 +461,7 @@ def random_ls_events_kernel(draws: LSDraws) -> torch.Tensor:
     if out.numel() == 0:
         return out
     kernels.launch("random_ls_events", kernels.ptr(u), kernels.ptr(out), P,
-                   E, K, n_rounds)
+                   E, K, n_rounds, work=work.random_ls_events(draws))
     return out
 
 
@@ -489,7 +495,7 @@ def random_ls_chain(pa, draws: LSDraws, rows: LSRows,
             raise ValueError("random_ls: the rows do not split into the "
                              "lanes")
         lanes, lane_rows = pa.table, rows.slots.shape[0] // len(pa)
-        pa = pa.first
+        lane_pa, pa = pa, pa.first
     n_rounds, K, P = draws.mtype.shape
     E = rows.slots.shape[1]
     smem = random_ls_smem_bytes(pa, K)
@@ -521,7 +527,8 @@ def random_ls_chain(pa, draws: LSDraws, rows: LSRows,
         p(pa.anchor_w), None if lanes is None else p(lanes),
         *(p(x) for x in out), P, E, pa.n_rooms, pa.n_students, pa.n_slots,
         pa.slots_per_day, pa.conflict_bits.shape[1], K, n_rounds,
-        int(pa.anchored), pa.conflict_diag, lane_rows)
+        int(pa.anchored), pa.conflict_diag, lane_rows,
+        work=work.random_ls(pa if lanes is None else lane_pa, draws, rows))
     return out
 
 
@@ -534,6 +541,7 @@ def random_local_search_kernel(pa, draws: LSDraws, rows: LSRows) -> LSRows:
     return random_ls_chain(pa, draws, rows, random_ls_events_kernel(draws))
 
 
+@obs_prof.scope("tt.delta")
 def random_local_search(pa, draws: LSDraws, rows: LSRows) -> LSRows:
     """The random-candidate delta local search of a population's scored
     rows; the rows it returns carry a full evaluation of each (K8's
@@ -541,12 +549,15 @@ def random_local_search(pa, draws: LSDraws, rows: LSRows) -> LSRows:
     are equal blocks of the rows. Kernel K8 on CUDA tensors, the plain
     version on CPU ones."""
     if not rows.slots.is_cuda:
+        kernels.tally(work.random_ls_events(draws))
+        kernels.tally(work.random_ls(pa, draws, rows))
         if isinstance(pa, LaneProblems):
             return random_ls_lanes_plain(pa, draws, rows)
         return random_local_search_plain(pa, draws, rows)
     return random_local_search_kernel(pa, draws, rows)
 
 
+@obs_prof.scope("tt.delta")
 def batch_local_search_delta(pa, draws: LSDraws, slots, rooms,
                              scores=None) -> LSRows:
     """Hill-climb a (P, E) population for draws' n_rounds rounds of K

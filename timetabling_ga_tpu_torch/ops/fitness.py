@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch import kernels, work
+from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.problem import K2_CLUSTERS
 
 # Penalty encoding (reference Solution.cpp:167 and ga.cpp:191)
@@ -41,6 +42,7 @@ def room_onehot(rooms: torch.Tensor, n_rooms: int) -> torch.Tensor:
     return (rooms[:, None, :] == ar[None, :, None]).to(torch.float32)
 
 
+@obs_prof.scope("tt.fitness")
 def compute_hcv(pa, slots, rooms) -> torch.Tensor:
     """Hard-constraint violations (P,) int32: room clash pairs,
     correlated pairs sharing a slot, events in unsuitable rooms
@@ -61,6 +63,7 @@ def compute_hcv(pa, slots, rooms) -> torch.Tensor:
         torch.int32)
 
 
+@obs_prof.scope("tt.fitness")
 def attendance_matrix(pa, slots) -> torch.Tensor:
     """Per-(student, slot) attended-event counts (P, S, T) float32."""
     check_no_tf32(slots)
@@ -73,6 +76,7 @@ def day_view(x: torch.Tensor, n_days: int, spd: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n_days, spd))
 
 
+@obs_prof.scope("tt.fitness")
 def scv_from_attendance(pa, slots, att) -> torch.Tensor:
     """Soft-constraint violations (P,) int32 given attendance counts:
     last-slot classes weighted by students, runs of >= 3, single-class
@@ -96,6 +100,7 @@ def base_penalty(hcv, scv):
     return torch.where(hcv == 0, scv, INFEASIBLE_OFFSET + hcv)
 
 
+@obs_prof.scope("tt.fitness")
 def anchor_cost(pa, slots) -> torch.Tensor:
     """Weighted Hamming distance to the anchor timetable (P,) int32."""
     return (pa.anchor_w[None, :]
@@ -108,6 +113,7 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx.reshape(P, -1).long()).reshape(idx.shape)
 
 
+@obs_prof.scope("tt.fitness")
 def anchor_delta(pa, slots, evs, new_slots) -> torch.Tensor:
     """Anchor-cost change of sparse moves: slots (P, E), evs/new_slots
     (P, ..., M) -> (P, ...). Inactive lanes pass new == old and cancel."""
@@ -173,15 +179,18 @@ def batch_penalty_kernel(pa, slots, rooms, cluster: int = None):
         p(pa.stu_ev), p(pa.anchor_slots), p(pa.anchor_w),
         pa.stu_split.data_ptr(), p(out[0]), p(out[1]), p(out[2]), P, E,
         pa.n_rooms, pa.n_students, pa.n_slots, pa.slots_per_day,
-        pa.conflict_bits.shape[1], pa.conflict_diag, cluster)
+        pa.conflict_bits.shape[1], pa.conflict_diag, cluster,
+        work=work.batch_penalty(pa, slots))
     return out
 
 
+@obs_prof.scope("tt.fitness")
 def batch_penalty(pa, slots, rooms):
     """Evaluate a population: slots/rooms (P, E) int32 -> (penalty, hcv,
     scv), each (P,) int32. Kernel K2 on a CUDA tensor, the plain
     version on a CPU one."""
     if not slots.is_cuda:
+        kernels.tally(work.batch_penalty(pa, slots))
         return batch_penalty_plain(pa, slots, rooms)
     out = batch_penalty_kernel(pa, slots, rooms)
     return out[0], out[1], out[2]

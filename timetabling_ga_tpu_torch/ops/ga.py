@@ -44,7 +44,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch import kernels, work
+from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.obs.quality import N_OPS
 from timetabling_ga_tpu_torch.ops import fitness, nsga
 from timetabling_ga_tpu_torch.ops.delta import (
@@ -210,7 +211,8 @@ def survivors_kernel(a: PopState, b: Optional[PopState] = None,
     p = kernels.ptr
     kernels.launch("survivors", *(p(x) for x in ins),
                    *(None if x is None else p(x) for x in ins_b),
-                   *(p(x) for x in out), groups, na, nb, keep, E)
+                   *(p(x) for x in out), groups, na, nb, keep, E,
+                   work=work.survivors(groups, na, nb, keep, E))
     return out
 
 
@@ -222,10 +224,16 @@ def survivors(a: PopState, b: Optional[PopState] = None, groups: int = 1,
     children, or with b = None the sort of `evaluate`. Kernel K7 on CUDA
     tensors, the plain version on CPU ones."""
     if not a.slots.is_cuda:
+        na = a.slots.shape[0] // groups
+        nb = 0 if b is None else b.slots.shape[0] // groups
+        kernels.tally(work.survivors(groups, na, nb,
+                                     na + nb if keep is None else keep,
+                                     a.slots.shape[1]))
         return survivors_plain(a, b, groups, keep)
     return survivors_kernel(a, b, groups, keep)
 
 
+@obs_prof.scope("tt.ga")
 def init_population(pa, slots0, cfg: GAConfig = None, draws_fn=None,
                     groups: int = 1) -> PopState:
     """Initial population from random slots `slots0` (P, E): greedy room
@@ -342,6 +350,8 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
     lane's problem from the lane table (launches count as
     breed_lanes)."""
     lanes = None
+    n_rounds = PARALLEL_ROUNDS if rooms_mode == "parallel" else -1
+    w = work.breed(pa, state, draws, n_rounds)
     if isinstance(pa, LaneProblems):
         if groups != len(pa):
             raise ValueError(f"make_children: {groups} islands for "
@@ -386,13 +396,13 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
                    None if lanes is None else p(lanes),
                    p(out[0]), p(out[1]), p(ev),
                    None if parent is None else p(parent), P, P // groups,
-                   draws.ta.shape[1], E, pa.n_rooms, pa.n_slots,
-                   PARALLEL_ROUNDS if rooms_mode == "parallel" else -1,
+                   draws.ta.shape[1], E, pa.n_rooms, pa.n_slots, n_rounds,
                    pa.n_students, pa.slots_per_day, pa.conflict_bits.shape[1],
-                   pa.conflict_diag)
+                   pa.conflict_diag, work=w)
     return (rows, parent) if with_parent else rows
 
 
+@obs_prof.scope("tt.ga")
 def make_children(pa, draws: BreedDraws, state: PopState, cfg: GAConfig,
                   groups: int = 1, mo_stats=None, with_parent: bool = False):
     """Breed one child per parent row (each island's children from its
@@ -402,6 +412,9 @@ def make_children(pa, draws: BreedDraws, state: PopState, cfg: GAConfig,
     are the islands. Kernel K6 on CUDA tensors, which scores each child
     in its epilogue, the plain version on CPU ones."""
     if not state.slots.is_cuda:
+        kernels.tally(work.breed(
+            pa, state, draws,
+            PARALLEL_ROUNDS if cfg.rooms_mode == "parallel" else -1))
         if isinstance(pa, LaneProblems):
             return make_children_lanes_plain(pa, draws, state, cfg,
                                              mo_stats, with_parent)
@@ -478,7 +491,8 @@ def quality_ops_kernel(do_x, do_m, parent, child_pen, parent_pen,
                    p(do_m.contiguous().view(torch.uint8)),
                    *(p(x) for x in ins[:3]),
                    p(ins[3]) if sweep_ops is not None else None, p(acc),
-                   L, do_x.shape[0] // L)
+                   L, do_x.shape[0] // L,
+                   work=work.quality_ops(L, do_x.shape[0] // L))
     return acc
 
 
@@ -494,12 +508,14 @@ def quality_ops(do_x, do_m, parent, child_pen, parent_pen, sweep_ops, acc,
     ga.py:294-302. Kernel K14 on CUDA tensors, the plain version on CPU
     ones. Returns acc."""
     if not acc.is_cuda:
+        kernels.tally(work.quality_ops(L, do_x.shape[0] // L))
         return quality_ops_plain(do_x, do_m, parent, child_pen, parent_pen,
                                  sweep_ops, acc, L)
     return quality_ops_kernel(do_x, do_m, parent, child_pen, parent_pen,
                               sweep_ops, acc, L)
 
 
+@obs_prof.scope("tt.ga")
 def generation(pa, draws: BreedDraws, ls_draws, state: PopState,
                cfg: GAConfig, groups: int = 1, qacc=None) -> PopState:
     """One generation over `groups` islands of cfg.pop_size rows: breed

@@ -24,7 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch import kernels, work
+from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.delta import (
     LSState, apply_moves, delta_one_plain, init_state)
@@ -81,6 +82,7 @@ def draw_bytes_per_step(walkers: int, k_cands: int, n_events: int) -> int:
     return walkers * k_cands * (4 * n_events + 8)
 
 
+@obs_prof.scope("tt.lahc")
 def init_lahc(pa, slots, rooms, hist_len: int) -> LahcState:
     """Walkers at the given rows, the history primed with each walker's
     initial cost (JAX lahc.py:89)."""
@@ -206,13 +208,15 @@ def lahc_steps_kernel(pa, draws: LahcDraws, state: LahcState) -> LahcState:
         p(pa.anchor_slots), p(pa.anchor_w), W, E, pa.n_rooms,
         pa.n_students, pa.n_slots, pa.slots_per_day,
         pa.conflict_bits.shape[1], K, state.hist_pen.shape[1], n,
-        int(pa.anchored))
+        int(pa.anchored), work=work.lahc(pa, draws, state))
     return out
 
 
+@obs_prof.scope("tt.lahc")
 def lahc_steps(pa, draws: LahcDraws, state: LahcState) -> LahcState:
     """Advance every walker by the draws' n steps. Kernel K10 on CUDA
     tensors (in place), the plain version on CPU ones."""
     if not state.ls.slots.is_cuda:
+        kernels.tally(work.lahc(pa, draws, state))
         return lahc_steps_plain(pa, draws, state)
     return lahc_steps_kernel(pa, draws, state)

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch import kernels, work
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.delta import (
     LSDraws, LSRows, init_rows, random_ls_events_kernel)
@@ -133,7 +133,7 @@ def full_eval_ls_chain(pa, draws: LSDraws, rows: LSRows,
         p(pa.anchor_slots), p(pa.anchor_w), *(p(x) for x in out), P, E,
         pa.n_rooms, pa.n_students, pa.n_slots, pa.slots_per_day,
         pa.conflict_bits.shape[1], K, n_rounds, pa.stu_ev.numel(),
-        pa.conflict_diag, cs)
+        pa.conflict_diag, cs, work=work.full_eval_ls(pa, draws, rows))
     return out
 
 
@@ -158,5 +158,7 @@ def batch_local_search(pa, draws: LSDraws, slots, rooms,
     on CPU ones."""
     rows = init_rows(pa, slots, rooms, scores)
     if not slots.is_cuda:
+        kernels.tally(work.random_ls_events(draws))
+        kernels.tally(work.full_eval_ls(pa, draws, rows))
         return batch_local_search_plain(pa, draws, rows)
     return batch_local_search_kernel(pa, draws, rows)

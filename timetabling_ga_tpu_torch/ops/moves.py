@@ -19,7 +19,8 @@ from typing import NamedTuple
 
 import torch
 
-from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch import kernels, work
+from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.ops.fitness import gather_rows
 from timetabling_ga_tpu_torch.ops.rooms import (
     check_packing, choose_room, occupancy)
@@ -84,6 +85,7 @@ def _set(x, e, v):
     x[ar, e.long()] = v.to(x.dtype)
 
 
+@obs_prof.scope("tt.moves")
 def move1(pa, slots, rooms, e, t):
     """Move event `e` (P,) to slot `t` (P,) and re-room it."""
     slots, rooms = slots.clone(), rooms.clone()
@@ -96,6 +98,7 @@ def move1(pa, slots, rooms, e, t):
     return slots, rooms
 
 
+@obs_prof.scope("tt.moves")
 def move2(pa, slots, rooms, e1, e2):
     """Swap the slots of e1 and e2 (P,); both re-roomed."""
     slots, rooms = slots.clone(), rooms.clone()
@@ -114,6 +117,7 @@ def move2(pa, slots, rooms, e1, e2):
     return slots, rooms
 
 
+@obs_prof.scope("tt.moves")
 def move3(pa, slots, rooms, e1, e2, e3):
     """3-cycle: e1 -> slot of e2, e2 -> slot of e3, e3 -> slot of e1."""
     slots, rooms = slots.clone(), rooms.clone()
@@ -141,6 +145,7 @@ def top3(u: torch.Tensor) -> torch.Tensor:
         :, :3].to(torch.int32)
 
 
+@obs_prof.scope("tt.moves")
 def sample_move(pa, draws: MoveDraws, slots):
     """One random move per individual in padded 3-relocation form:
     (evs (P, 3), new_slots (P, 3), active (P, 3) bool); inactive entries
@@ -159,6 +164,7 @@ def sample_move(pa, draws: MoveDraws, slots):
     return evs, new_slots, table[m]
 
 
+@obs_prof.scope("tt.moves")
 def apply_relocation(pa, slots, rooms, evs, new_slots, active):
     """Apply padded 3-relocations (P, 3): remove the active events from
     the occupancy grid, then re-slot and greedily re-room them in order
@@ -182,6 +188,7 @@ def apply_relocation(pa, slots, rooms, evs, new_slots, active):
     return slots, rooms
 
 
+@obs_prof.scope("tt.moves")
 def random_move_plain(pa, draws: MoveDraws, slots, rooms):
     """One random move per individual: sample_move + apply_relocation."""
     evs, new_slots, active = sample_move(pa, draws, slots)
@@ -219,10 +226,12 @@ def relocation_chain_kernel(pa, draws: MoveDraws, slots, rooms,
     kernels.launch("relocate", *(p(x) for x in ins + dr),
                    p(pa.possible_u8), p(pa.cap_rank), p(pa.dead),
                    p(pa.live), *(p(x) for x in out), N, n_moves, E,
-                   pa.n_rooms, pa.n_slots)
+                   pa.n_rooms, pa.n_slots,
+                   work=work.relocate(pa, slots, n_moves))
     return out[0], out[1]
 
 
+@obs_prof.scope("tt.moves")
 def relocation_chain(pa, draws: MoveDraws, slots, rooms, n_moves: int):
     """Apply the first `n_moves` random moves of `draws` (mtype/t
     (n, N), u (n, N, E)) to every row of (N, E) int32 slots/rooms, in
@@ -230,5 +239,7 @@ def relocation_chain(pa, draws: MoveDraws, slots, rooms, n_moves: int):
     Kernel K6's relocation entry (one launch) on CUDA tensors, the plain
     version on CPU ones."""
     if not slots.is_cuda:
+        if slots.shape[0] and n_moves:
+            kernels.tally(work.relocate(pa, slots, n_moves))
         return relocation_chain_plain(pa, draws, slots, rooms, n_moves)
     return relocation_chain_kernel(pa, draws, slots, rooms, n_moves)

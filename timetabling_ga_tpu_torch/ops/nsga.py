@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch import kernels, work
 from timetabling_ga_tpu_torch.ops import fitness
 
 INF = float("inf")
@@ -131,7 +131,7 @@ def rank_crowd_kernel(hcv, scv, groups: int = 1):
         return ranks, crowd
     p = kernels.ptr
     kernels.launch("nsga_rank", p(hcv), p(scv), p(ranks), p(crowd), groups,
-                   P // groups)
+                   P // groups, work=work.nsga_rank(groups, P // groups))
     return ranks, crowd
 
 
@@ -141,6 +141,8 @@ def rank_crowd(hcv, scv, groups: int = 1):
     parents, JAX ga.py:239-245). Kernel K11 on CUDA tensors, the plain
     version on CPU ones."""
     if not hcv.is_cuda:
+        if hcv.shape[0]:
+            kernels.tally(work.nsga_rank(groups, hcv.shape[0] // groups))
         return rank_crowd_plain(hcv, scv, groups)
     return rank_crowd_kernel(hcv, scv, groups)
 
@@ -182,7 +184,8 @@ def survivors_kernel(a, b, groups: int = 1, keep: Optional[int] = None):
           for _ in range(3)))
     p = kernels.ptr
     kernels.launch("nsga_survivors", *(p(x) for x in ins),
-                   *(p(x) for x in out), groups, na, nb, keep, E)
+                   *(p(x) for x in out), groups, na, nb, keep, E,
+                   work=work.nsga_survivors(groups, na, nb, keep, E))
     return out
 
 
@@ -193,5 +196,10 @@ def survivors(a, b, groups: int = 1, keep: Optional[int] = None):
     migration emigrants. Kernel K11 on CUDA tensors, the plain version
     on CPU ones."""
     if not a.slots.is_cuda:
+        na = a.slots.shape[0] // groups
+        nb = b.slots.shape[0] // groups
+        kernels.tally(work.nsga_survivors(
+            groups, na, nb, na + nb if keep is None else keep,
+            a.slots.shape[1]))
         return survivors_plain(a, b, groups, keep)
     return survivors_kernel(a, b, groups, keep)

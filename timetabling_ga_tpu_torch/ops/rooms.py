@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch import kernels, work
+from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.problem import W_DEAD
 
 # Composite-key weights (JAX rooms.py:42-51)
@@ -49,6 +50,7 @@ def _room_key(pa, occ_row, event, cap_rank) -> torch.Tensor:
             + cap_rank + _dead_rooms(pa))
 
 
+@obs_prof.scope("tt.rooms")
 def choose_room(pa, occ_row, event, cap_rank=None) -> torch.Tensor:
     """Room (...,) int32 for `event` on its slot's occupancy row."""
     if cap_rank is None:
@@ -99,19 +101,23 @@ def assign_rooms_kernel(pa, slots) -> torch.Tensor:
     p = kernels.ptr
     kernels.launch("assign_rooms", p(slots), p(rooms), p(pa.possible_u8),
                    p(pa.cap_rank), p(pa.dead), p(pa.live),
-                   p(pa.room_order), P, E, pa.n_rooms, pa.n_slots)
+                   p(pa.room_order), P, E, pa.n_rooms, pa.n_slots,
+                   work=work.assign_rooms(pa, slots))
     return rooms
 
 
+@obs_prof.scope("tt.rooms")
 def assign_rooms(pa, slots) -> torch.Tensor:
     """Full room matching of a population: (P, E) int32 slots -> (P, E)
     int32 rooms. Kernel K1 on a CUDA tensor, the plain version on a CPU
     one."""
     if not slots.is_cuda:
+        kernels.tally(work.assign_rooms(pa, slots))
         return assign_rooms_plain(pa, slots)
     return assign_rooms_kernel(pa, slots)
 
 
+@obs_prof.scope("tt.rooms")
 def occupancy(pa, slots, rooms) -> torch.Tensor:
     """Occupancy counts (P, T, R) int32; padded events occupy nothing."""
     P = slots.shape[0]
@@ -254,25 +260,30 @@ def augment_rooms_kernel(pa, slots, rooms, n_rounds: int = 4):
                    None if rooms is None else p(ins[1]), p(pa.cap_rank),
                    p(pa.dead), p(pa.live), p(pa.suit_rank),
                    p(pa.room_of_rank), p(out), P, E, pa.n_rooms,
-                   pa.n_slots, n_rounds)
+                   pa.n_slots, n_rounds,
+                   work=work.parallel_rooms(pa, slots, rooms, n_rounds))
     return out
 
 
+@obs_prof.scope("tt.rooms")
 def augment_rooms(pa, slots, rooms, n_rounds: int = 4) -> torch.Tensor:
     """Round-limited augmenting-path improvement of the rooms (P, E) of
     slots (P, E) (JAX rooms.py:154). Kernel K9 on CUDA tensors, the
     plain version on CPU ones."""
     if not slots.is_cuda:
+        kernels.tally(work.parallel_rooms(pa, slots, rooms, n_rounds))
         return augment_rooms_plain(pa, slots, rooms, n_rounds)
     return augment_rooms_kernel(pa, slots, rooms, n_rounds)
 
 
+@obs_prof.scope("tt.rooms")
 def parallel_assign_rooms(pa, slots, n_rounds: int = 4) -> torch.Tensor:
     """O(1)-depth room assignment of a population (JAX rooms.py:304;
     populations (P, E), as JAX batch_parallel_assign_rooms takes them):
     best-fit rooms, then augment_rooms. Kernel K9 on CUDA tensors, the
     plain version on CPU ones."""
     if not slots.is_cuda:
+        kernels.tally(work.parallel_rooms(pa, slots, None, n_rounds))
         return augment_rooms_plain(
             pa, slots, best_fit_rooms(pa, slots.shape[0]), n_rounds)
     return augment_rooms_kernel(pa, slots, None, n_rounds)

@@ -27,7 +27,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch import kernels, work
+from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.delta import (
     LSState, _day_scv, apply_moves, delta_one_plain, init_state,
@@ -196,11 +197,13 @@ def move1_sweep_plain(pa, slots, rooms, att, occ, pivots):
             new_rooms.to(torch.int32))
 
 
+@obs_prof.scope("tt.sweep")
 def move1_sweep(pa, slots, rooms, att, occ, pivots):
     """Move1 deltas of pivots (P, B) to every slot: (d_hcv, d_scv,
     new_rooms), each (P, B, T) int32. Kernel K3 on CUDA tensors, the
     plain version on CPU ones."""
     if not slots.is_cuda:
+        kernels.tally(work.move1_sweep(pa, slots, att, occ, pivots))
         return move1_sweep_plain(pa, slots, rooms, att, occ, pivots)
     P, B = pivots.shape
     T = pa.n_slots
@@ -219,10 +222,12 @@ def move1_sweep(pa, slots, rooms, att, occ, pivots):
         p(pa.cap_rank), p(pa.dead), p(pa.ev_ptr), p(pa.ev_stu), p(out[0]),
         p(out[1]), p(out[2]), P, B, slots.shape[1], pa.n_rooms,
         pa.n_students, T, pa.slots_per_day, pa.conflict_bits.shape[1],
-        pa.max_ev_students)
+        pa.max_ev_students, work=work.move1_sweep(pa, slots, att, occ,
+                                                  pivots))
     return out[0], out[1], out[2]
 
 
+@obs_prof.scope("tt.sweep")
 def event_heat(pa, slots, rooms, att, occ, hcv) -> torch.Tensor:
     """Per-event violation involvement (P, E) float32 (JAX sweep.py:173):
     while infeasible the clash count of its cell + unsuitable flag +
@@ -553,10 +558,12 @@ def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
         "sweep_pass", *args, P, E, pa.n_rooms, pa.n_students, T,
         pa.slots_per_day, pa.conflict_bits.shape[1], pa.max_ev_students,
         sh.K, sh.B, sh.SB, sh.n_steps, sh.n_cand, int(sh.use_hot),
-        int(side), int(pa.anchored), cluster)
+        int(side), int(pa.anchored), cluster,
+        work=work.sweep_pass(pa, sh, state, draws))
     return (out, strict.view(torch.bool), pivots) + tail
 
 
+@obs_prof.scope("tt.sweep")
 def sweep_pass(pa, draws: SweepDraws, state: LSState, swap_block: int = 8,
                block_events: int = 1, sideways: float = 0.0,
                hot_k: int = 0, p3: float = 0.0, ops=None):
@@ -569,6 +576,9 @@ def sweep_pass(pa, draws: SweepDraws, state: LSState, swap_block: int = 8,
     sweep.py:567-589 return_ops, per row). Kernel K5 on CUDA tensors,
     the plain version on CPU ones."""
     if not state.slots.is_cuda:
+        kernels.tally(work.sweep_pass(
+            pa, sweep_shape(state.slots.shape[1], pa.n_slots, swap_block,
+                            block_events, hot_k, p3), state, draws))
         return sweep_pass_plain(pa, draws, state, swap_block, block_events,
                                 sideways, hot_k, p3, ops)
     st, rows, _, *tail = sweep_pass_kernel(
@@ -577,6 +587,7 @@ def sweep_pass(pa, draws: SweepDraws, state: LSState, swap_block: int = 8,
     return (st, rows, *tail)
 
 
+@obs_prof.scope("tt.sweep")
 def sweep_local_search(pa, draws_fn: Callable[[int], SweepDraws], slots,
                        rooms, n_sweeps: int,
                        swap_block: int = 8, converge: bool = False,

@@ -54,7 +54,8 @@ import os
 import numpy as np
 import torch
 
-from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch import kernels, work
+from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.obs import quality as obs_quality
 from timetabling_ga_tpu_torch.ops import fitness, ga, lahc
 from timetabling_ga_tpu_torch.ops.moves import (
@@ -129,10 +130,12 @@ def migrate_kernel(state: ga.PopState, L: int, return_gain: bool = False):
     p = kernels.ptr
     kernels.launch("migrate", *(p(x) for x in ins), *(p(x) for x in out),
                    None if gain is None else p(gain), L, pop,
-                   state.slots.shape[1])
+                   state.slots.shape[1],
+                   work=work.migrate(L, pop, state.slots.shape[1]))
     return (out, gain) if return_gain else out
 
 
+@obs_prof.scope("tt.migrate")
 def migrate(state: ga.PopState, L: int, return_gain: bool = False):
     """Bidirectional ring migration of one migrant each way: island l's
     worst row receives island l-1's best, its second-worst island l+1's
@@ -145,6 +148,9 @@ def migrate(state: ga.PopState, L: int, return_gain: bool = False):
     3). Kernel K7's migrate entry on CUDA tensors, the plain version on
     CPU ones."""
     if not state.slots.is_cuda:
+        pop = state.penalty.shape[0] // L
+        if pop >= 3:
+            kernels.tally(work.migrate(L, pop, state.slots.shape[1]))
         return migrate_plain(state, L, return_gain)
     return migrate_kernel(state, L, return_gain)
 
@@ -231,7 +237,7 @@ def moment_rows_kernel(hcv, scv):
     out = torch.empty((TRACE_N_MOMENTS, L), dtype=torch.int32,
                       device=hcv.device)
     kernels.launch("moment_rows", kernels.ptr(hcv), kernels.ptr(scv),
-                   kernels.ptr(out), L, n)
+                   kernels.ptr(out), L, n, work=work.moment_rows(hcv))
     return out
 
 
@@ -240,6 +246,7 @@ def moment_rows(hcv, scv):
     values of each of L rows of n (hcv, scv): K13 on CUDA tensors, the
     plain version on CPU ones."""
     if not hcv.is_cuda:
+        kernels.tally(work.moment_rows(hcv))
         return moment_rows_plain(hcv, scv)
     return moment_rows_kernel(hcv, scv)
 
@@ -316,7 +323,8 @@ def compress_trace_kernel(trace, trace_mode: str, cap: int = None,
     kernels.launch("compress_trace" if nv is None
                    else "compress_trace_lanes", kernels.ptr(trace),
                    None if nv is None else kernels.ptr(nv),
-                   kernels.ptr(out), L, T, K, int(trace_mode == "stats"))
+                   kernels.ptr(out), L, T, K, int(trace_mode == "stats"),
+                   work=work.compress_trace(trace, K, n_mom, nv is not None))
     return out
 
 
@@ -328,6 +336,10 @@ def compress_trace(trace, trace_mode: str, cap: int = None, n_valid=None):
     at and past it: they are never improvements and take no part in the
     moments. K13 on a CUDA tensor, the plain version on a CPU one."""
     if not trace.is_cuda:
+        kernels.tally(work.compress_trace(
+            trace, _event_cap(trace.shape[1], cap),
+            TRACE_N_MOMENTS if trace_mode == "stats" else 0,
+            n_valid is not None))
         return compress_trace_plain(trace, trace_mode, cap, n_valid)
     return compress_trace_kernel(trace, trace_mode, cap, n_valid)
 
@@ -395,10 +407,12 @@ def div_stats_kernel(event_mask, slots, pen, scv, L: int):
     kernels.launch("div_stats_lanes" if lanes else "div_stats",
                    *(p(x) for x in ins), p(event_mask.contiguous()), p(out),
                    L, pop, E, min(pop, obs_quality.HAMMING_PAIRS),
-                   hamming_stride(pop), E if lanes else 0)
+                   hamming_stride(pop), E if lanes else 0,
+                   work=work.div_stats(L, pop, E, obs_quality.HAMMING_PAIRS))
     return out
 
 
+@obs_prof.scope("tt.quality")
 def div_stats(pa, state: ga.PopState, L: int):
     """(L, N_DIV) int32 (float32 bits) diversity rows of L islands (JAX
     islands.py:495 `_div_stats` over `_div_rows`): the min-shifted
@@ -411,8 +425,13 @@ def div_stats(pa, state: ga.PopState, L: int):
     K14 on CUDA tensors, the plain version on CPU ones."""
     mask = (pa.event_masks if isinstance(pa, LaneProblems)
             else pa.event_mask)
-    fn = div_stats_kernel if state.slots.is_cuda else div_stats_plain
-    return fn(mask, state.slots, state.penalty, state.scv, L)
+    if not state.slots.is_cuda:
+        kernels.tally(work.div_stats(L, state.penalty.shape[0] // L,
+                                     state.slots.shape[1],
+                                     obs_quality.HAMMING_PAIRS))
+        return div_stats_plain(mask, state.slots, state.penalty, state.scv,
+                               L)
+    return div_stats_kernel(mask, state.slots, state.penalty, state.scv, L)
 
 
 def trace_events(trace, trace_mode: str):
@@ -485,6 +504,7 @@ def run_epochs(pa, gens, state: ga.PopState, cfg: ga.GAConfig,
     return state, trace
 
 
+@obs_prof.scope("tt.polish")
 def polish(pa, gens, state: ga.PopState, cfg: ga.GAConfig, n_sweeps: int,
            with_passes: bool = False):
     """Up to `n_sweeps` converge sweep passes over the whole population

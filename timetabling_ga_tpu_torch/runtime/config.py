@@ -17,8 +17,9 @@ memory poller (`--obs-listen`, `--history-every`, `--incident-dir`,
 the same defaults and checks), and the dispatch pipeline with in-run
 fault recovery (`--no-pipeline`, `--max-recoveries`, `--fetch-timeout`,
 `--faults`, `--no-precompile`: skip the sec/gen probe; `--no-donate`: a
-no-op, since no dispatch writes into its input state). A flag it does
-not implement yet (`--trace-profile`, `--profile-dir`, ...:
+no-op, since no dispatch writes into its input state), and the
+profiler (`--trace-profile`, `--profile-dir`, `--profile-for`). A flag
+it does not implement yet (`--peer-timeout`, `--coordinator`, ...:
 `NOT_PORTED`) stops the parse with a message naming it as not yet
 ported, never silently ignored. `-l` is accepted and retired, as on the
 JAX path: the engine warns that the local search is bounded by -m
@@ -32,9 +33,9 @@ CUDA device raises instead of falling back to the CPU.
 `ServeConfig` and `parse_serve_args` are the `serve` subcommand's (JAX
 config.py:689-936): the same flags, defaults and messages for what the
 port serves (`--trace-mode full|deltas|stats`, `--quality`, `--obs`,
-`--metrics-every`, `--no-usage` and the five flags above among them,
-and the fault plan, the per-job recovery budget and the shedding
-marks); the service's other
+`--metrics-every`, `--no-usage`, `--profile-dir`, `--profile-for` and
+the five flags above among them, and the fault plan, the per-job
+recovery budget and the shedding marks); the service's other
 flags (`SERVE_NOT_PORTED`) and `--mesh-devices` above 1 stop the parse
 by name.
 """
@@ -106,6 +107,15 @@ class RunConfig:
     mem_poll_every: float = 1.0   # seconds between device memory
     #                               samples on the poller thread (under
     #                               --obs/--obs-listen; 0 disables it)
+    trace_profile: Optional[str] = None  # capture one warm dispatch a
+    #                               try with torch.profiler into this
+    #                               directory (serial loop)
+    profile_dir: Optional[str] = None  # on-demand captures' directory
+    #                               (`profile` / GET /profile on
+    #                               --obs-listen / --profile-for);
+    #                               default "tt-profile"
+    profile_for: int = 0          # > 0: capture the run's first N
+    #                               dispatches at launch
     checkpoint: Optional[str] = None
     checkpoint_every: int = 1
     resume: bool = False
@@ -230,6 +240,9 @@ _FLAG_MAP = {
     "--incident-dir": ("incident_dir", str),
     "--incident-min-interval": ("incident_min_interval", float),
     "--mem-poll-every": ("mem_poll_every", float),
+    "--trace-profile": ("trace_profile", str),
+    "--profile-dir": ("profile_dir", str),
+    "--profile-for": ("profile_for", int),
 }
 
 _BOOL_FLAGS = {"--trace": "trace", "--ls-converge": "ls_converge",
@@ -245,7 +258,6 @@ _NEG_BOOL_FLAGS = {"--no-auto-tune": "auto_tune",
 # Flags of the JAX CLI this slice does not implement yet: True = takes
 # a value, False = a switch. Parsing any of them stops the run.
 NOT_PORTED = {
-    "--trace-profile": True, "--profile-dir": True, "--profile-for": True,
     "--peer-timeout": True,
     "--coordinator": True, "--num-processes": True, "--process-id": True,
     "--distributed": False, "--no-accord": False,
@@ -364,6 +376,9 @@ def parse_args(argv) -> RunConfig:
                          "(0 = only the end-of-try snapshot)")
     _validate_obs_listen(cfg.obs_listen)
     _validate_flight(cfg)
+    if cfg.profile_for < 0:
+        raise SystemExit("--profile-for must be >= 0 dispatches "
+                         "(0 = no launch-time capture)")
     if cfg.mem_poll_every < 0:
         raise SystemExit("--mem-poll-every must be >= 0 seconds "
                          "(0 disables the device memory poller)")
@@ -464,6 +479,8 @@ class ServeConfig:
     incident_dir: Optional[str] = None  # memory poller: the same
     incident_min_interval: float = 30.0  # semantics as RunConfig's
     mem_poll_every: float = 1.0
+    profile_dir: Optional[str] = None  # on-demand captures (RunConfig's
+    profile_for: int = 0          #   semantics)
     max_job_recoveries: int = 2   # quantum-fault requeues a job before
     #                               it fails alone
 
@@ -497,6 +514,8 @@ _SERVE_FLAG_MAP = {
     "--incident-dir": ("incident_dir", str),
     "--incident-min-interval": ("incident_min_interval", float),
     "--mem-poll-every": ("mem_poll_every", float),
+    "--profile-dir": ("profile_dir", str),
+    "--profile-for": ("profile_for", int),
 }
 
 _SERVE_BOOL_FLAGS = {"--obs": "obs", "--quality": "quality"}
@@ -507,7 +526,7 @@ _SERVE_NEG_BOOL_FLAGS = {"--no-usage": "usage",
 # The JAX service's flags this slice does not serve yet: True = takes a
 # value, False = a switch. Parsing any of them stops the parse.
 SERVE_NOT_PORTED = {
-    "--profile-dir": True, "--profile-for": True, "--http": True,
+    "--http": True,
     "--preempt-grace": True, "--preempt-on-term": False,
 }
 
@@ -536,6 +555,8 @@ def parse_serve_args(argv) -> ServeConfig:
         raise SystemExit("--metrics-every must be >= 0 dispatches")
     _validate_obs_listen(cfg.obs_listen)
     _validate_flight(cfg)
+    if cfg.profile_for < 0:
+        raise SystemExit("--profile-for must be >= 0 dispatches")
     if cfg.mem_poll_every < 0:
         raise SystemExit("--mem-poll-every must be >= 0 seconds")
     if cfg.shed_queue_hwm < 0 or cfg.shed_writer_hwm < 0:

@@ -45,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from timetabling_ga_tpu_torch.obs import cost as obs_cost
 from timetabling_ga_tpu_torch.obs.spans import NULL_TRACER
 from timetabling_ga_tpu_torch.ops import ga
 from timetabling_ga_tpu_torch.parallel import islands
@@ -53,9 +54,29 @@ from timetabling_ga_tpu_torch.runtime import retry
 
 
 # one dispatched chunk not yet retired: its start on the host clock,
-# epochs, generations, its trace's HostCopy and its flow id (obs/spans.py
-# new_flow: its dispatch, fetch-read and process spans form one chain)
-Chunk = collections.namedtuple("Chunk", "td0 n_ep gens_run trace flow")
+# epochs, generations, its trace's HostCopy, its flow id (obs/spans.py
+# new_flow: its dispatch, fetch-read and process spans form one chain),
+# the --trace-profile capture to stop at its fetch (or None) and its
+# program call's counted work for the live roofline (obs/cost.py; None
+# on a call that counted as a compile)
+Chunk = collections.namedtuple("Chunk",
+                               "td0 n_ep gens_run trace flow prof cost",
+                               defaults=(None, None))
+
+# the programs under the cost observatory (obs/cost.py instrument), one
+# proxy a name for the process, as JAX's program caches are
+PROGRAMS: dict = {}
+
+
+def program(name: str, fn):
+    """`fn` as the cost observatory's program `name` (JAX's names:
+    runner, dyn_runner, init, polish, kick, shrink, lahc_init, lahc_run,
+    lahc_fin, lane_runner, lane_init); `fn` itself under TT_COST_OBS=0.
+    A proxy is made again when `fn` is not the one it wraps."""
+    p = PROGRAMS.get(name)
+    if p is None or getattr(p, "_fn", p) is not fn:
+        p = PROGRAMS[name] = obs_cost.instrument(fn, name)
+    return p
 
 
 class DispatchPipeline:

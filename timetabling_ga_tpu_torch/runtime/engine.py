@@ -104,9 +104,27 @@ flip; under `--obs` or `--obs-listen` the memory poller (obs/cost.py,
 allocator. None of them writes a record: the stream is the same with
 them on or off.
 
-Not in the port yet: multi-process agreement and the profiler
-(runtime/config.py refuses their flags). `--no-donate` changes
-nothing: no dispatch writes into its input state.
+Profiling (JAX engine.py:976-1005, 1534-1612, 2105-2139): every
+program call goes through the cost observatory (obs/cost.py
+CostProgram, under JAX's program names: `init`, `polish`, `runner` for
+full epochs, `dyn_runner` for the sec/gen probe and a shortened
+dispatch, `kick`, `shrink`, `lahc_init`, `lahc_run`, `lahc_fin`), whose
+costEntry records bind to the run's writer under --obs; each retired
+chunk feeds the live roofline gauges with its call's counted work over
+its wall, unless that call counted as a compile. `--trace-profile DIR`
+captures one warm dispatch a try with torch.profiler on the dispatch
+thread (started at its enqueue, stopped at its fetch, a `profile` phase
+record; it forces the serial loop). `--profile-for N` or
+`--obs-listen` wires a ProfileCapture (its own worker thread; the loop
+only ticks `on_dispatch` once a chunk retires), whose finished captures
+attribute themselves (obs/prof.capture_hook: gauges, and a profEntry
+under --obs); `--profile-for N` triggers it at launch and /profile on
+the pull front on demand. None of it changes a record of the stream
+under strip_timing.
+
+Not in the port yet: multi-process agreement (runtime/config.py refuses
+its flags). `--no-donate` changes nothing: no dispatch writes into its
+input state.
 """
 
 from __future__ import annotations
@@ -123,6 +141,7 @@ from timetabling_ga_tpu_torch import kernels
 from timetabling_ga_tpu_torch.obs import cost as obs_cost
 from timetabling_ga_tpu_torch.obs import flight as obs_flight
 from timetabling_ga_tpu_torch.obs import metrics as obs_metrics
+from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.obs import quality as obs_quality
 from timetabling_ga_tpu_torch.obs.spans import NULL_TRACER, SpanTracer
 from timetabling_ga_tpu_torch.ops import ga, lahc
@@ -331,8 +350,8 @@ def _polish_chunks(tr: _Try, pa, gens, state, gacfg, name: str,
             break
         tp0 = time.monotonic()
         faults.maybe_fail("dispatch")
-        state, stats = islands.polish(pa, gens, state, gacfg, chunk,
-                                      tr.cfg.trace_mode == "stats")
+        state, stats = dcore.program("polish", islands.polish)(
+            pa, gens, state, gacfg, chunk, tr.cfg.trace_mode == "stats")
         stats = dcore.fetch(stats)
         tp1 = time.monotonic()
         tr.phase(name, tp1 - tp0, sweeps=chunk)
@@ -370,7 +389,8 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg, tracer=NULL_TRACER):
     carries the first launch's set-up, is not kept), one (3, L) stats
     read a chunk feeding the logEntry stream and a `lahc` phase record.
     Returns each island's best snapshots, sorted, as the population."""
-    lstate = lahc.init_lahc(pa, state.slots, state.rooms, cfg.post_lahc)
+    lstate = dcore.program("lahc_init", lahc.init_lahc)(
+        pa, state.slots, state.rooms, cfg.post_lahc)
     sec_per_step = None
     warm = False
     while True:
@@ -383,9 +403,9 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg, tracer=NULL_TRACER):
             break
         t0 = time.monotonic()
         faults.maybe_fail("dispatch")
-        lstate, stats = islands.lahc_run(pa, gens, lstate, post, n,
-                                         cfg.post_lahc_k,
-                                         cfg.trace_mode == "stats")
+        lstate, stats = dcore.program("lahc_run", islands.lahc_run)(
+            pa, gens, lstate, post, n, cfg.post_lahc_k,
+            cfg.trace_mode == "stats")
         stats = dcore.fetch(stats)
         t1 = time.monotonic()
         if stats.shape[0] > 3:
@@ -402,7 +422,7 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg, tracer=NULL_TRACER):
         warm = True
         for i in range(tr.n):
             tr.observe(i, stats[1][i], stats[2][i], t1 - tr.t0)
-    state = islands.lahc_finalize(lstate, tr.n)
+    state = dcore.program("lahc_fin", islands.lahc_finalize)(lstate, tr.n)
     dcore.fetch(state.penalty)
     return state
 
@@ -415,13 +435,14 @@ def probe_sec_per_gen(pa, state: ga.PopState, cfg: ga.GAConfig,
     sec/gen estimate, taken as the JAX engine takes it in precompile
     (timetabling_ga_tpu/runtime/engine.py:817-836), so that the run's
     state and generators do not advance and its first dispatch is a
-    full one."""
+    full one. It runs as the `dyn_runner` program, as JAX's first probe
+    is its dynamic runner's one generation."""
     gens = [torch.Generator(device=pa.device).manual_seed(i)
             for i in range(n_islands)]
     clone = ga.PopState(*(x.clone() for x in state))
     t0 = time.monotonic()
-    _, trace = islands.run_epochs(pa, gens, clone, cfg, 1, 1, trace_mode,
-                                  quality)
+    _, trace = dcore.program("dyn_runner", islands.run_epochs)(
+        pa, gens, clone, cfg, 1, 1, trace_mode, quality)
     trace.cpu()
     return time.monotonic() - t0
 
@@ -504,7 +525,8 @@ def _ladder_mode(level: int) -> str:
 
 
 def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
-             gacfg, post, fingerprint: str, tracer=NULL_TRACER) -> int:
+             gacfg, post, fingerprint: str, tracer=NULL_TRACER,
+             profiler=None) -> int:
     """One try: init (or the resumed checkpoint), polish, the generation
     loop with its checkpoints, tail polish and the final records, the
     loop supervised (module docstring). Returns the try's best reported
@@ -536,8 +558,9 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                 t = time.monotonic()
                 faults.maybe_fail("init")
                 gens = island_generators(device, seed, trial, n_islands)
-                state = islands.init_island_population(pa, gens,
-                                                       cfg.pop_size)
+                state = dcore.program(
+                    "init", islands.init_island_population)(
+                        pa, gens, cfg.pop_size)
                 dcore.fetch(state.penalty)
                 tr.phase("init", time.monotonic() - t)
                 tracer.record("init", t, time.monotonic() - t,
@@ -566,7 +589,8 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                 FEASIBLE_LIMIT:
             cur = post
             if post.pop_size != gacfg.pop_size:
-                state = islands.shrink(state, n_islands, post.pop_size)
+                state = dcore.program("shrink", islands.shrink)(
+                    state, n_islands, post.pop_size)
             if sec_per_gen is not None:
                 # post generations cost about their LS-depth ratio more
                 # (JAX engine.py:316 _spg_for)
@@ -626,7 +650,8 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
         n_moves = min(3 << kick_streak, islands.KICK_MAX_MOVES)
         t = time.monotonic()
         faults.maybe_fail("dispatch")
-        state = islands.kick(pa, gens, state, cur, n_moves)
+        state = dcore.program("kick", islands.kick)(pa, gens, state, cur,
+                                                    n_moves)
         dcore.fetch(state.penalty)
         tr.phase("kick", time.monotonic() - t, at_gen=gens_done,
                  moves=n_moves)
@@ -642,9 +667,13 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                   fingerprint, list(best), seed, gen_states, device.type)
 
     # the pipeline runs only where no control read falls between
-    # dispatches (JAX engine.py:1534-1538)
+    # dispatches, and not under --trace-profile, whose capture must
+    # enclose exactly one dispatch (JAX engine.py:1534-1539)
     pipelined_cfg = bool(cfg.pipeline and post is None
+                         and cfg.trace_profile is None
                          and not (cfg.quality and cfg.auto_kick_on_stall))
+    profiled = False       # this try's --trace-profile capture taken
+    open_prof = [None]     # a --trace-profile capture not stopped yet
     ev_mode = islands.effective_trace_mode(cfg.trace_mode, cfg.quality)
     time_stopped = False
     n_dispatch = 0
@@ -662,13 +691,21 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
         with the next chunk already enqueued, passed as `inflight`."""
         nonlocal state, cur, sec_per_gen, lahc_done, kick_stall
         nonlocal kick_best, kick_streak, epochs_at_ckpt, last_fence
-        nonlocal host_gap_s, overflow_warned
-        td0, n_ep, gens_run, tcopy, flow = chunk
+        nonlocal host_gap_s, overflow_warned, profiled
+        td0, n_ep, gens_run, tcopy, flow, tprof, chunk_cost = chunk
         tf0 = time.monotonic()
         trace = dcore.fetch(tcopy, tracer=tracer, flow=flow or None)
         td1 = time.monotonic()
         tracer.record("fetch", tf0, td1 - tf0, cat="engine", gens=gens_run,
                       flow=flow)
+        if tprof is not None:
+            # the --trace-profile capture ends at the chunk's fetch
+            # (JAX engine.py:1568-1573)
+            open_prof[0] = None
+            tprof.stop()
+            profiled = True
+            _phase(out, True, "profile", trial, td1 - td0,
+                   dir=cfg.trace_profile)
         # when the chunk started on the card: at its enqueue when serial,
         # at the previous fence when pipelined (JAX engine.py:1573-1592)
         t_start = (last_fence if pipe.enabled and last_fence is not None
@@ -688,6 +725,8 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
             dt, exemplar={"dispatch": str(n_dispatch)})
         if dt > 0:
             mreg.gauge("engine.gens_per_sec").set(gens_run / dt)
+        # the live roofline: the chunk's counted work over its wall
+        obs_cost.set_live_roofline(chunk_cost, dt)
         loop_s = td1 - t_loop
         if loop_s > 0:
             mreg.gauge("engine.device_busy_frac").set(
@@ -719,6 +758,10 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                                     ts=tracer.now(), dispatch=n_dispatch)
         tracer.record("process", td1, time.monotonic() - td1,
                       cat="engine", gens=gens_run, flow=flow)
+        if profiler is not None:
+            # tick the on-demand capture (a lock-guarded counter: the
+            # profiler's start and stop happen on its worker)
+            profiler.on_dispatch()
         if (cfg.obs and cfg.metrics_every > 0
                 and n_dispatch % cfg.metrics_every == 0):
             jsonl.metrics_entry(out, mreg.snapshot(), ts=tracer.now())
@@ -834,21 +877,36 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                     break
                 n_ep, g = size
                 faults.maybe_fail("dispatch")
+                # --trace-profile: one warm dispatch a try (a measured
+                # sec/gen says this shape has run), on this thread
+                tprof = None
+                if (cfg.trace_profile is not None and not profiled
+                        and sec_per_gen is not None):
+                    tprof = open_prof[0] = obs_prof.TorchProfiler(device)
+                    tprof.start(cfg.trace_profile)
                 # one flow a chunk: its dispatch, fetch-read (the
                 # watchdog thread) and process spans form one chain
                 flow_id = tracer.new_flow()
+                # full epochs run as `runner`, a shortened dispatch as
+                # `dyn_runner` (JAX's static and dynamic runners)
+                runner = dcore.program(
+                    "runner" if g >= cfg.migration_period
+                    else "dyn_runner", islands.run_epochs)
                 td0 = time.monotonic()
-                state, trace = islands.run_epochs(
-                    pa, gens, state, cur, n_ep, g, cfg.trace_mode,
-                    cfg.quality)
+                state, trace = runner(pa, gens, state, cur, n_ep, g,
+                                      cfg.trace_mode, cfg.quality)
                 # the trace starts for the host now; its reader waits
                 # on this copy alone
                 tcopy = dcore.HostCopy(trace)
                 gens_done += n_ep * g
                 epochs_done += n_ep
                 n_dispatch += 1
-                pipe.submit(dcore.Chunk(td0, n_ep, n_ep * g, tcopy,
-                                        flow_id))
+                # a call that counted as a compile carries no cost: its
+                # wall may hold the kernels' build
+                pipe.submit(dcore.Chunk(
+                    td0, n_ep, n_ep * g, tcopy, flow_id, tprof,
+                    None if getattr(runner, "last_compiled", False)
+                    else getattr(runner, "last_cost", None)))
             pipe.drain()
             tr.phase("gen-loop", time.monotonic() - t_loop,
                      dispatches=n_dispatch, pipelined=pipe.enabled)
@@ -892,6 +950,11 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                 raise
             obs_metrics.REGISTRY.counter("engine.recoveries").inc()
             t_rec = time.monotonic()
+            if open_prof[0] is not None:
+                # the failed chunk's capture is dropped unwritten; the
+                # replay takes it again
+                open_prof[0].abandon()
+                open_prof[0] = None
             snap = sup.snap
             jsonl.fault_entry(out, site, "recover", e, trial,
                               sup.recoveries, sup.level, now - tr.t0,
@@ -1000,7 +1063,7 @@ def run(cfg: RunConfig, out=None) -> int:
     faults.install(faults.active_spec(cfg.faults))
     close_out = False
     writer = None
-    obs_srv = mem_poller = hist_ring = flight = None
+    obs_srv = mem_poller = hist_ring = flight = prof_cap = None
     try:
         if out is None:
             if cfg.output:
@@ -1024,21 +1087,37 @@ def run(cfg: RunConfig, out=None) -> int:
         reg = obs_metrics.REGISTRY
         reg.gauge_fn("writer.queue_depth", writer.qsize)
         reg.gauge_fn("writer.records", lambda: writer.records_written)
+        # the cost observatory's costEntry records go through this run's
+        # writer under --obs only (a timing record either way)
+        obs_cost.OBSERVATORY.bind(writer if cfg.obs else None,
+                                  now=tracer.now)
         if (cfg.obs or cfg.obs_listen) and cfg.mem_poll_every > 0:
             # the device.mem_* gauges, sampled off the dispatch path
             mem_poller = obs_cost.MemPoller(
                 obs_cost.torch_memory_stats_fn(device),
                 cfg.mem_poll_every).start()
+        if cfg.profile_for > 0 or cfg.obs_listen:
+            # the on-demand capture, driven from its own worker thread;
+            # finished captures attribute themselves there (gauges, and
+            # the profEntry under --obs)
+            tp = obs_prof.TorchProfiler(device, all_threads=True)
+            prof_cap = obs_cost.ProfileCapture(tp.start, tp.stop,
+                                               default_dir=cfg.profile_dir)
+            prof_cap.on_complete = obs_prof.capture_hook(
+                writer if cfg.obs else None, now=tracer.now)
+            if cfg.profile_for > 0:
+                prof_cap.trigger(cfg.profile_for)
         if cfg.obs_listen:
             # the pull front: /metrics, /healthz (this run's writer
-            # thread), /readyz, /metrics/history; it writes no records
+            # thread), /readyz, /metrics/history, /profile; it writes no
+            # records
             from timetabling_ga_tpu_torch.obs import http as obs_http
             obs_srv = obs_http.ObsServer(
                 cfg.obs_listen,
                 probes={"process": lambda: True, "writer": writer.alive},
-                history=hist_ring).start()
+                profile=prof_cap, history=hist_ring).start()
         try:
-            best = _run_tries(cfg, writer, device, tracer)
+            best = _run_tries(cfg, writer, device, tracer, prof_cap)
         except BaseException:
             writer.close(raise_error=False)
             raise
@@ -1046,16 +1125,20 @@ def run(cfg: RunConfig, out=None) -> int:
         return best
     finally:
         # JAX's order: the listener first (no handler may race a closing
-        # ring), the poller, then the recorder and the ring before the
-        # fault plan is uninstalled
+        # ring), the capture, the poller, then the recorder and the ring
+        # before the fault plan is uninstalled
         if obs_srv is not None:
             obs_srv.close()
+        if prof_cap is not None:
+            prof_cap.close()
         if mem_poller is not None:
             mem_poller.close()
         if flight is not None:
             flight.close()
         if hist_ring is not None:
             hist_ring.close()
+        # the global must not hold this run's writer
+        obs_cost.OBSERVATORY.unbind()
         if writer is not None:
             # the registry must not keep this run's writer alive
             obs_metrics.REGISTRY.freeze("writer.records",
@@ -1066,7 +1149,8 @@ def run(cfg: RunConfig, out=None) -> int:
             out.close()
 
 
-def _run_tries(cfg: RunConfig, out, device, tracer=NULL_TRACER) -> int:
+def _run_tries(cfg: RunConfig, out, device, tracer=NULL_TRACER,
+               profiler=None) -> int:
     t0 = time.monotonic()
     problem = load_tim_file(cfg.input)
     if cfg.auto_tune:
@@ -1091,5 +1175,5 @@ def _run_tries(cfg: RunConfig, out, device, tracer=NULL_TRACER) -> int:
     for trial in range(cfg.tries):
         best = min(best, _run_try(cfg, out, problem, pa, trial, seed,
                                   n_islands, gacfg, post, fingerprint,
-                                  tracer))
+                                  tracer, profiler))
     return best

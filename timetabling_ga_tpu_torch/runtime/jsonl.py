@@ -305,6 +305,44 @@ def metrics_entry(stream: IO, snapshot: dict, ts=None) -> None:
     _write(stream, {"metricsEntry": rec})
 
 
+def cost_entry(stream: IO, program: str, **extra) -> None:
+    """One program's first call of a signature under the cost
+    observatory (obs/cost.py; emitted only under --obs), JAX's record:
+
+      {"costEntry":{"program":"lane_runner","sig":"9f31c2ab44",
+                    "lowerSeconds":0.0,"compileSeconds":2.31,
+                    "flops":1.1e9,"bytes_accessed":3.4e7,
+                    "arg_bytes":2.1e6,"out_bytes":2.1e6,
+                    "intensity":32.4,"ts":5.2}}
+
+    A TIMING_RECORDS member, so strip_timing drops it."""
+    rec = {"program": str(program)}
+    for k, v in extra.items():
+        rec[k] = v
+    _write(stream, {"costEntry": rec})
+
+
+def prof_entry(stream: IO, payload: dict, ts=None, **extra) -> None:
+    """One attributed profiler capture (obs/prof.py publish; emitted only
+    under --obs), JAX's record:
+
+      {"profEntry":{"dir":"tt-profile","totalSeconds":2.31,
+                    "phases":{"sweep":{"s":1.1,"frac":0.47,
+                                       "top_ops":[["sweep_pass_kernel",
+                                                   0.8]]},
+                              ...},
+                    "unattributedSeconds":0.12,
+                    "unattributedFrac":0.05,"ts":41.2}}
+
+    A TIMING_RECORDS member, so strip_timing drops it."""
+    rec = dict(payload)
+    if ts is not None:
+        rec["ts"] = round(max(0.0, float(ts)), 6)
+    for k, v in extra.items():
+        rec[k] = v
+    _write(stream, {"profEntry": rec})
+
+
 def phase_record(stream: IO, name: str, trial: int, seconds: float,
                  **extra) -> None:
     """Per-phase host timing (extension record, --trace only)."""

@@ -69,10 +69,11 @@ timetabling_ga_tpu/serve/scheduler.py:104-1130 on one card).
             have counterparts of their own: compile_seconds is the wall
             `kernels.build()` spent inside that quantum (JAX: the
             lower+compile wall a cold dispatch paid), 0 once the kernels
-            are built and never left inside device_seconds; flops is 0,
-            since the port compiles no program whose cost XLA could
-            count (JAX: `CostProgram.last_cost`; the port's lane runner
-            has no `last_cost`). Only occupied lanes run, so no wall is
+            are built and never left inside device_seconds; flops is the
+            lane runner's counted work over the quantum (obs/cost.py
+            CostProgram.last_cost, the kernels' launches' work.py
+            counts; JAX: XLA's cost_analysis of the lane program), split
+            on the integer grid. Only occupied lanes run, so no wall is
             idle-lane overhead: `overhead_device_seconds` is 0. A
             finished job's result carries `tenant` and `usage`, the
             ledger writes its `event: "total"` usageEntry, and every
@@ -122,6 +123,7 @@ from typing import Optional
 import numpy as np
 
 from timetabling_ga_tpu_torch import kernels
+from timetabling_ga_tpu_torch.obs import cost as obs_cost
 from timetabling_ga_tpu_torch.obs import metrics as obs_metrics
 from timetabling_ga_tpu_torch.obs import quality as obs_quality
 from timetabling_ga_tpu_torch.obs import usage as usage_mod
@@ -174,7 +176,8 @@ class Scheduler:
     """Drives a JobQueue through the lane runner on `device`."""
 
     def __init__(self, cfg: ServeConfig, queue: JobQueue, out, device,
-                 now=None, registry=None, tracer=NULL_TRACER, usage=None):
+                 now=None, registry=None, tracer=NULL_TRACER, usage=None,
+                 profiler=None):
         self.cfg = cfg
         self.queue = queue
         self.out = out
@@ -186,6 +189,9 @@ class Scheduler:
         # cfg.usage: job meters fold inline at each park fence, tenant
         # settlement rides the ledger's thread; None = metering off
         self._usage = usage
+        # the on-demand capture (obs/cost.py ProfileCapture), ticked once
+        # a quantum retires
+        self._profiler = profiler
         self._metrics = (obs_metrics.REGISTRY if registry is None
                          else registry)
         self._metrics.gauge_fn("serve.queue_depth",
@@ -466,6 +472,8 @@ class Scheduler:
             self._metrics.counter("serve.gens").inc(sum(gens))
         except Exception as e:
             self._recover_quantum(jobs, e)
+        if self._profiler is not None:
+            self._profiler.on_dispatch()
         if (self.cfg.obs and self.cfg.metrics_every > 0
                 and self._dispatches % self.cfg.metrics_every == 0):
             jsonl.metrics_entry(self.out, self._metrics.snapshot(),
@@ -567,13 +575,20 @@ class Scheduler:
             rngs = [islands.lane_generator(self.device, j.seed, j.chunks)
                     for j in jobs] + [None] * idle
             b0 = kernels.BUILD_INFO["total_seconds"]
+            runner = dcore.program("lane_runner", islands.lane_run)
             tq0 = self._now()
-            state, trace = islands.lane_run(
+            state, trace = runner(
                 lp, rngs, state, gens + [0] * idle, self.gacfg,
                 self.cfg.quantum, trace_mode=self.cfg.trace_mode,
                 quality=self.cfg.quality)
             trace = dcore.fetch_leaf(trace)
             tq_wall = self._now() - tq0
+            cost = getattr(runner, "last_cost", None)
+            # the live roofline, the engine's gauges and formula: the
+            # quantum's counted work over its wall, skipped on a call
+            # that counted as a compile (JAX scheduler.py:652-662)
+            if not getattr(runner, "last_compiled", False):
+                obs_cost.set_live_roofline(cost, tq_wall)
             # a kernel build inside the quantum (the first launch of a
             # library not loaded yet): the meter's compile_seconds
             build_s = kernels.BUILD_INFO["total_seconds"] - b0
@@ -586,10 +601,10 @@ class Scheduler:
         with self.tracer.span("park", cat="serve", job=jids, flow=flows,
                               resident=stay):
             self._park(jobs, gens, entry, state, trace, stay, tq_wall,
-                       build_s, t_fence0)
+                       build_s, t_fence0, (cost or {}).get("flops", 0.0))
 
     def _park(self, jobs, gens, entry, state, trace, stay, tq_wall,
-              build_s, t_fence0) -> None:
+              build_s, t_fence0, flops=0.0) -> None:
         """The park fence of a quantum: the group stays on the card or
         its state comes to the host; the telemetry is decoded, the
         quantum metered, each job's cursors, records and ship unit
@@ -621,7 +636,7 @@ class Scheduler:
                 self._metrics.gauge(name).set(v)
         now = self._now()
         deltas, meter_payload = self._meter_quantum(
-            jobs, gens, tq_wall, build_s, t_fence0)
+            jobs, gens, tq_wall, build_s, t_fence0, flops)
         for lane, job in enumerate(jobs):
             if host is not None:
                 job.snapshot = _slice_state(host, lane, pop)
@@ -655,15 +670,16 @@ class Scheduler:
             # the tenant settlement rides the ledger's own thread
             self._usage.dispatch(meter_payload)
 
-    def _meter_quantum(self, jobs, gens, tq_wall, build_s, t_fence0):
+    def _meter_quantum(self, jobs, gens, tq_wall, build_s, t_fence0,
+                       flops=0.0):
         """One quantum's usage attribution (JAX scheduler.py:775): its
-        wall minus the kernel build inside it, the build's wall and the
-        generations, split over the lanes by the generations each ran
-        (usage_mod.split: the shares sum exactly to the quantized
-        totals), plus each job's queue and park waits. Returns (per-lane
-        deltas, the ledger's payload), or (None, None) with metering
-        off. flops is 0 (module docstring), and so is the idle-lane
-        overhead: only occupied lanes run."""
+        wall minus the kernel build inside it, the build's wall, the
+        counted `flops` and the generations, split over the lanes by the
+        generations each ran (usage_mod.split: the shares sum exactly to
+        the quantized totals; flops on the integer grid), plus each
+        job's queue and park waits. Returns (per-lane deltas, the
+        ledger's payload), or (None, None) with metering off. The
+        idle-lane overhead is 0: only occupied lanes run."""
         if self._usage is None:
             return None, None
         gens_l = [int(g) for g in gens]
@@ -671,6 +687,8 @@ class Scheduler:
         exec_s = max(0.0, float(tq_wall) - compile_s)
         exec_s, dev_shares = usage_mod.split(exec_s, gens_l)
         compile_s, comp_shares = usage_mod.split(compile_s, gens_l)
+        flops, flop_shares = usage_mod.split(float(flops), gens_l,
+                                             quantum=1.0)
         deltas = []
         lanes_out = []
         for lane, job in enumerate(jobs):
@@ -681,7 +699,7 @@ class Scheduler:
             delta = {"gens": gens_l[lane], "dispatches": 1,
                      "device_seconds": dev_shares[lane],
                      "compile_seconds": comp_shares[lane],
-                     "flops": 0.0,
+                     "flops": flop_shares[lane],
                      "queue_seconds": queued,
                      "park_seconds": parked}
             deltas.append(delta)
@@ -695,7 +713,7 @@ class Scheduler:
                    "device_seconds": exec_s,
                    "overhead_device_seconds": 0.0,
                    "compile_seconds": compile_s,
-                   "flops": 0.0,
+                   "flops": flops,
                    "lanes": lanes_out}
         return deltas, payload
 
@@ -784,8 +802,9 @@ class Scheduler:
                               job=[j.id for j in jobs],
                               flow=[j.flow for j in jobs]):
             for job in jobs:
-                job.snapshot = dcore.fetch_state(islands.lane_init(
-                    job.pa_dev, job.seed, self.cfg.pop_size))
+                job.snapshot = dcore.fetch_state(dcore.program(
+                    "lane_init", islands.lane_init)(
+                        job.pa_dev, job.seed, self.cfg.pop_size))
         for job in jobs:
             self._ship_rec(job, jsonl.job_entry(
                 self.out, job.id, "started", bucket=list(job.bucket)))

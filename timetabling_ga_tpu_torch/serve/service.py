@@ -58,7 +58,11 @@ recorder and the memory poller as engine.run does, over this service's
 registry (JAX service.py:102-205): a quantum fault's faultEntry dumps a
 bundle, and /readyz reads `backlog_full` while the queue is at its
 bound. A listener that cannot bind raises from the constructor with
-every thread it started closed.
+every thread it started closed. The cost observatory binds its
+costEntry records to this service's writer under --obs, and
+`--profile-dir` / `--profile-for` (or `--obs-listen`'s /profile) wire
+an on-demand capture ticked once a quantum retires, as engine.run does
+(JAX service.py:128-150).
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ import json
 import sys
 
 from timetabling_ga_tpu_torch.obs import cost as obs_cost
+from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.obs import flight as obs_flight
 from timetabling_ga_tpu_torch.obs import metrics as obs_metrics
 from timetabling_ga_tpu_torch.obs import usage as obs_usage
@@ -124,12 +129,29 @@ class SolveService:
         self._registry.gauge_fn("writer.queue_depth", self.writer.qsize)
         self._registry.gauge_fn(
             "writer.records", lambda: self.writer.records_written)
+        # the cost observatory's costEntry records bind to this
+        # service's writer under --obs (a timing record either way)
+        obs_cost.OBSERVATORY.bind(self.writer if cfg.obs else None,
+                                  now=self.tracer.now)
         # the memory poller on its own thread, off the serve path
         self.mem_poller = None
         if (cfg.obs or cfg.obs_listen) and cfg.mem_poll_every > 0:
             self.mem_poller = obs_cost.MemPoller(
                 obs_cost.torch_memory_stats_fn(self.device),
                 cfg.mem_poll_every, registry=self._registry).start()
+        # the on-demand capture on its own worker thread; finished
+        # captures attribute themselves there into this service's
+        # registry (and its writer under --obs)
+        self.profile_capture = None
+        if cfg.profile_for > 0 or cfg.obs_listen:
+            tp = obs_prof.TorchProfiler(self.device, all_threads=True)
+            self.profile_capture = obs_cost.ProfileCapture(
+                tp.start, tp.stop, default_dir=cfg.profile_dir)
+            self.profile_capture.on_complete = obs_prof.capture_hook(
+                self.writer if cfg.obs else None,
+                registry=self._registry, now=self.tracer.now)
+            if cfg.profile_for > 0:
+                self.profile_capture.trigger(cfg.profile_for)
         # the usage ledger's own thread folds the per-tenant settlement
         # off the drive loop; --no-usage drops the meter
         self.usage = None
@@ -142,7 +164,8 @@ class SolveService:
         self.scheduler = Scheduler(cfg, self.queue, self.writer,
                                    self.device, now=now,
                                    registry=self._registry,
-                                   tracer=self.tracer, usage=self.usage)
+                                   tracer=self.tracer, usage=self.usage,
+                                   profiler=self.profile_capture)
         self._auto_id = 0
         self.obs_server = None
         if cfg.obs_listen:
@@ -154,6 +177,7 @@ class SolveService:
                     cfg.obs_listen, registry=self._registry,
                     probes={"process": lambda: True,
                             "writer": self.writer.alive},
+                    profile=self.profile_capture,
                     history=self.history).start()
             except BaseException:
                 # a failed construction (the port is taken, say) never
@@ -161,6 +185,8 @@ class SolveService:
                 # outlive the service, nor the registry's pull gauges
                 # keep its writer and queue alive (JAX
                 # service.py:184-205)
+                if self.profile_capture is not None:
+                    self.profile_capture.close()
                 if self.mem_poller is not None:
                     self.mem_poller.close()
                 if self.usage is not None:
@@ -169,6 +195,7 @@ class SolveService:
                     self.flight.close()
                 if self.history is not None:
                     self.history.close()
+                obs_cost.OBSERVATORY.unbind()
                 self.writer.close(raise_error=False)
                 self._freeze_gauges()
                 raise
@@ -280,6 +307,8 @@ class SolveService:
         close -o (JAX service.py:360-390)."""
         if self.obs_server is not None:
             self.obs_server.close()
+        if self.profile_capture is not None:
+            self.profile_capture.close()
         if self.mem_poller is not None:
             self.mem_poller.close()
         if self.usage is not None:
@@ -291,6 +320,8 @@ class SolveService:
                 self.flight.close()
             if self.history is not None:
                 self.history.close()
+            # the global must not hold this service's writer
+            obs_cost.OBSERVATORY.unbind()
             self._freeze_gauges()
             if self._close_out:
                 self._raw_out.close()
