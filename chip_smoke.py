@@ -109,7 +109,22 @@
    instance, s1 and s4 alone equal to their packed records and the file
    under --no-resident equal to it resident (strip_timing), K6 and K8's
    lane forms, K8's pre-pass and K7 every dispatch, K1 and K2 once a
-   started job and no other kernel;
+   started job and no other kernel; then the fleet replica (the
+   fleet-replica phase, one line): SERVE_JOBS through POST /v1/solve on
+   an in-process `fleet/replicas.py` Replica at the same defaults, each
+   job's records equal to the serve path's line-JSON records of that
+   job under strip_timing, the lane kernels launched; the same jobs
+   again, the card's allocated memory after the second round is reaped
+   no higher than after the first; a long job on the ITC-like instance
+   until its group stays resident, then ?snapshot=1 at each fence (no
+   resident hit while polled, every wire within one quantum of the
+   cursor, the median fetch time); POST /v1/drain?mode=preempt (the job
+   `preempted` with its wire, the exit before --preempt-grace), the
+   wire resumed on a second replica at its fence (0 generations re-run)
+   to the records of an uninterrupted run; and `python -m
+   timetabling_ga_tpu_torch serve --http --preempt-on-term -o LOG` in a
+   process of its own sent SIGTERM after its job's first park: exit 0
+   within the grace, the log ending with the `preempted` jobEntry;
    then the dispatch pipeline and in-run fault recovery on the
    reference config (comp01s, `--no-auto-tune -p 2 -s 42`, 300
    generations): (a) pipelined (the default) against `--no-pipeline`,
@@ -3016,6 +3031,312 @@ def serve_edits(base_wire, pa_cpu):
     return out
 
 
+# the fleet-replica phase: the serve path's defaults through an
+# in-process replica's /v1 front. FLEET_LONG is the freshness and preempt
+# job (the ITC-like instance): long enough that it is still running when
+# the polls end and the preempt lands; FLEET_POLLS ?snapshot=1 polls are
+# held to one quantum of its cursor
+FLEET_LONG = ("f1", "itc", 11, 2000)
+FLEET_POLLS = 10
+FLEET_SETTLED = ("done", "failed", "cancelled", "shed", "rejected")
+
+
+def _fleet_payload(jid, tim, seed, gens, prio, texts):
+    return {"id": jid, "tim": texts[tim], "seed": seed,
+            "generations": gens, "priority": prio}
+
+
+def _fleet_settle(handle, ids, what, timeout=120.0):
+    """Poll GET /v1/jobs until every id has settled, then each job's view
+    until its tail holds its settling jobEntry (the writer's thread
+    feeds the tail); returns ({id: view}, the settle time)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        states = handle.list_jobs()
+        if all(states.get(j, {}).get("state") in FLEET_SETTLED
+               for j in ids):
+            break
+        check(time.monotonic() < deadline,
+              f"fleet-replica: {what} not settled: {states}")
+        # a tight poll would take the interpreter's lock from the drive
+        # loop's host work
+        time.sleep(0.02)
+    t_settled = time.monotonic()
+    views = {}
+    for j in ids:
+        while True:
+            v = handle.get_job(j, timeout=30.0)
+            ev = [r["jobEntry"]["event"] for r in v["records"]
+                  if "jobEntry" in r]
+            if ev and ev[-1] in FLEET_SETTLED:
+                views[j] = v
+                break
+            check(time.monotonic() < deadline,
+                  f"fleet-replica: {what}: {j}'s tail never settled")
+            time.sleep(0.02)
+    return views, t_settled
+
+
+def _fleet_reaped(rep, ids):
+    """Wait until the drive loop has dropped every settled job's tensors
+    (and any cached pack holding them); returns memory_allocated."""
+    import torch
+    deadline = time.monotonic() + 60.0
+    while True:
+        jobs = [rep.svc.queue.get(j) for j in ids]
+        packed = {jid for jids, _ in rep.svc.scheduler._packs.values()
+                  for jid in jids}
+        if all(j.pa_dev is None and j.padded is None for j in jobs) \
+                and not packed.intersection(ids):
+            break
+        check(time.monotonic() < deadline,
+              "fleet-replica: settled jobs' tensors never reaped")
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def fleet_replica_path(serve_summary):
+    """The fleet replica on the card (fleet/replicas.py, the serve path's
+    defaults): (a) SERVE_JOBS through POST /v1/solve on an in-process
+    replica, each job's records equal to the serve phase's line-JSON
+    records of the same job (strip_timing), the lane kernels launched;
+    (e) the same jobs again, and after each round settles and is reaped
+    the card's allocated memory no higher than after the first; (b)
+    FLEET_LONG until its group stays resident, then ?snapshot=1 at each
+    fence: resident hits stop and every wire is within one quantum of
+    the job's cursor; (c) POST /v1/drain?mode=preempt: the job reads
+    `preempted` with its wire, the fetch lets the replica exit before
+    --preempt-grace, and the wire resumed on a second replica continues
+    at its fence (0 generations re-run) to the records of an
+    uninterrupted run; (d) `python -m timetabling_ga_tpu_torch serve
+    --http ... --preempt-on-term -o LOG` on the card sent SIGTERM after
+    its job's first ship: the fetch of the preempted job, exit 0 within
+    the grace, the log ending with the `preempted` jobEntry."""
+    import io
+    import signal
+    import statistics
+    import torch
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.fleet import replicas
+    from timetabling_ga_tpu_torch.problem import dump_tim, load_tim
+    from timetabling_ga_tpu_torch.runtime.config import ServeConfig
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    with open(TIM) as f:
+        tim01 = f.read()
+    with open(TIM05) as f:
+        tim05 = f.read()
+    texts = {TIM: tim01, TIM05: tim05, "itc": dump_tim(itc_problem())}
+    with open(os.path.join(OUT_DIR, "serve_packed.jsonl")) as f:
+        line_json = [json.loads(x) for x in f]
+    cfg = ServeConfig(http="127.0.0.1:0")
+    out = {"card": CARD}
+    t_phase = time.monotonic()
+
+    # (a) SERVE_JOBS over HTTP against the serve phase's line-JSON run
+    rep, handle = replicas.in_process_replica(cfg, "card")
+    try:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        for row in SERVE_JOBS:
+            handle.post_job(_fleet_payload(*row, texts))
+        ids = [row[0] for row in SERVE_JOBS]
+        views, t_done = _fleet_settle(handle, ids, "SERVE_JOBS")
+        launches = dict(kernels.LAUNCHES)
+        wall = t_done - t0
+        equal = 0
+        for jid, _, _, gens, _ in SERVE_JOBS:
+            v = views[jid]
+            check(v["state"] == "done" and v["result"]["gens"] == gens,
+                  f"fleet-replica: {jid} {v['state']} {v.get('error')}")
+            check(not v["records_truncated"],
+                  f"fleet-replica: {jid}'s tail truncated")
+            check(strip_timing(v["records"])
+                  == strip_timing(_job_records(line_json, jid)),
+                  f"fleet-replica: {jid} over HTTP differs from its "
+                  f"line-JSON records")
+            equal += 1
+        for k in LANES + ("random_ls_events", "survivors",
+                          "assign_rooms", "batch_penalty"):
+            check(launches[k] > 0,
+                  f"fleet-replica: {k} never launched over HTTP")
+        for k in SERVE_NEVER:
+            check(launches[k] == 0,
+                  f"fleet-replica: {k} launched {launches[k]} times")
+        counters = rep.svc.registry.snapshot()["counters"]
+        lane_gens = counters.get("serve.gens", 0)
+        out.update(jobs_equal=equal, jobs=len(SERVE_JOBS),
+                   http_wall_s=wall, lane_gens=lane_gens,
+                   lane_gens_per_s_http=lane_gens / wall,
+                   lane_gens_per_s_line_json=serve_summary[
+                       "lane_gens_per_s"],
+                   dispatches=counters.get("serve.dispatches", 0),
+                   launches={k: launches[k] for k in
+                             LANES + ("random_ls_events", "survivors",
+                                      "assign_rooms", "batch_penalty")})
+
+        # (e) the card's memory after a round is reaped, twice
+        mem1 = _fleet_reaped(rep, ids)
+        ids2 = [row[0] + "-2" for row in SERVE_JOBS]
+        for row in SERVE_JOBS:
+            handle.post_job(_fleet_payload(row[0] + "-2", *row[1:], texts))
+        views2, _ = _fleet_settle(handle, ids2, "the second round")
+        check(all(v["state"] == "done" for v in views2.values()),
+              "fleet-replica: the second round did not finish")
+        mem2 = _fleet_reaped(rep, ids2)
+        check(mem2 <= mem1, f"fleet-replica: {mem2} bytes allocated "
+              f"after the second round, {mem1} after the first")
+        out.update(mem_allocated_before=mem0, mem_allocated_round1=mem1,
+                   mem_allocated_round2=mem2)
+
+        # (b) freshness: the long job resident, then polled at each fence
+        jid, tim, seed, gens = FLEET_LONG
+        handle.post_job(_fleet_payload(jid, tim, seed, gens, 0, texts))
+        hits = rep.svc.registry.counter("serve.resident_hits")
+        h0 = hits.value
+        deadline = time.monotonic() + 60.0
+        while hits.value < h0 + 2:
+            check(time.monotonic() < deadline,
+                  "fleet-replica: the long job never stayed resident")
+            time.sleep(0.002)
+        job = rep.svc.queue.get(jid)
+        first = handle.get_job(jid, with_records=False, snapshot=True)
+        first_lag = first["gens"] - first["snapshot"]["gens_done"]
+        g_first = job.gens_done
+        while job.gens_done < g_first + 2 * cfg.quantum:
+            check(job.gens_done < gens,
+                  "fleet-replica: the long job ended during the polls")
+            time.sleep(0.002)
+        h_polled = hits.value
+        fetch_ms, lags = [], []
+        for _ in range(FLEET_POLLS):
+            t1 = time.monotonic()
+            v = handle.get_job(jid, with_records=False, snapshot=True)
+            fetch_ms.append(1e3 * (time.monotonic() - t1))
+            lag = v["gens"] - v["snapshot"]["gens_done"]
+            check(abs(lag) <= cfg.quantum,
+                  f"fleet-replica: a wire {lag} generations behind the "
+                  f"cursor {v['gens']}")
+            lags.append(lag)
+            g = job.gens_done
+            while job.gens_done == g and job.gens_done < gens:
+                time.sleep(0.001)            # the next fence
+        check(hits.value == h_polled,
+              f"fleet-replica: {hits.value - h_polled} resident hits "
+              f"while polled")
+        check(job.gens_done < gens,
+              "fleet-replica: the long job ended before its preemption")
+        out.update(first_poll_lag_gens=first_lag, poll_lags_gens=lags,
+                   snapshot_fetch_ms_median=statistics.median(fetch_ms),
+                   snapshot_wire_bytes=len(json.dumps(v["snapshot"])))
+
+        # (c) the preempt drain, then the wire resumed elsewhere
+        t1 = time.monotonic()
+        handle.drain(mode="preempt")
+        while True:
+            v = handle.get_job(jid, with_records=False, snapshot=True)
+            if v["state"] == "preempted":
+                break
+            check(time.monotonic() - t1 < cfg.preempt_grace,
+                  f"fleet-replica: not preempted: {v['state']}")
+            time.sleep(0.005)
+        check(rep.drained.wait(cfg.preempt_grace),
+              "fleet-replica: no exit within --preempt-grace")
+        preempt_exit = time.monotonic() - t1
+        wire, prefix = v["snapshot"], v["snapshot_records"]
+        fence = wire["gens_done"]
+        check(fence == v["gens"] < gens and not v["snapshot_truncated"],
+              f"fleet-replica: preempted at {v['gens']}, wire {fence}")
+        out.update(preempt_to_exit_s=preempt_exit, preempted_at=fence,
+                   jobs_preempted=rep.svc.registry.counter(
+                       "serve.jobs_preempted").value)
+    finally:
+        rep.kill()
+    rep2, handle2 = replicas.in_process_replica(cfg, "card2")
+    try:
+        handle2.post_job(dict(_fleet_payload(jid, tim, seed, gens, 0,
+                                             texts), snapshot=wire))
+        views, _ = _fleet_settle(handle2, [jid], "the resumed job")
+        res = views[jid]["result"]
+        ran = rep2.svc.registry.counter("serve.gens").value
+        check(views[jid]["state"] == "done"
+              and res["resumed_at"] == fence and res["gens"] == gens
+              and ran == gens - fence,
+              f"fleet-replica: resumed at {res.get('resumed_at')}, ran "
+              f"{ran} of {gens - fence}")
+        cont = views[jid]["records"]
+    finally:
+        rep2.kill()
+    buf = io.StringIO()
+    svc = _service(buf)
+    svc.submit(load_tim(texts[tim]), job_id=jid, seed=seed,
+               generations=gens)
+    svc.drive()
+    svc.close()
+    check(strip_timing(prefix + cont) == strip_timing(_lines(buf)),
+          "fleet-replica: the preempted and resumed job differs from "
+          "its uninterrupted run")
+    out["gens_rerun"] = ran - (gens - fence)
+
+    # (d) the real entry point, SIGTERM under --preempt-on-term
+    port = _free_port()
+    log = os.path.join(OUT_DIR, "fleet_replica.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    url = f"http://127.0.0.1:{port}"
+    t1 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "timetabling_ga_tpu_torch", "serve",
+         "--http", f"127.0.0.1:{port}", "--preempt-on-term", "-o", log],
+        cwd=HERE, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        while True:
+            try:
+                replicas.http_json("GET", url + "/readyz", ok=(200, 503))
+                break
+            except OSError:
+                check(proc.poll() is None and time.monotonic() - t1 < 120,
+                      "fleet-replica: serve --http never came up")
+                time.sleep(0.1)
+        boot = time.monotonic() - t1
+        sub = replicas.ReplicaHandle("proc", url)
+        sub.post_job(_fleet_payload("t1", TIM, 1, 100000, 0, texts))
+        while sub.get_job("t1", with_records=False).get("gens", 0) == 0:
+            check(time.monotonic() - t1 < 180,
+                  "fleet-replica: the process's job never parked")
+            time.sleep(0.01)
+        t2 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        while sub.get_job("t1", with_records=False,
+                          snapshot=True)["state"] != "preempted":
+            check(time.monotonic() - t2 < cfg.preempt_grace,
+                  "fleet-replica: SIGTERM did not preempt")
+            time.sleep(0.01)
+        rc = proc.wait(timeout=cfg.preempt_grace + 30)
+        term_exit = time.monotonic() - t2
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err = proc.stderr.read().decode()
+        proc.stderr.close()
+    check(rc == 0,
+          f"fleet-replica: serve --http exited {rc}: {err[-2000:]}")
+    check(term_exit < cfg.preempt_grace,
+          f"fleet-replica: {term_exit:.1f} s from SIGTERM to exit")
+    with open(log) as f:
+        last = json.loads(f.read().splitlines()[-1])
+    check(last.get("jobEntry", {}).get("event") == "preempted"
+          and last["jobEntry"]["job"] == "t1"
+          and last["jobEntry"]["shipped"] is True,
+          f"fleet-replica: the log ends with {last}")
+    out.update(process_boot_s=boot, sigterm_to_exit_s=term_exit,
+               phase_s=time.monotonic() - t_phase)
+    return out
+
+
 def run_cli(name, argv, tim=TIM):
     """Run the CLI with `argv` (output to build/chip_smoke/), the launch
     counters zeroed just before and read just after; returns (records,
@@ -4468,6 +4789,8 @@ def main() -> int:
     base_wire = serve_summary["warm_start"].pop("base_wire")
     print(json.dumps({"path": "serve", **serve_summary,
                       "launches": launches["serve"]}))
+    print(json.dumps({"path": "fleet-replica",
+                      **fleet_replica_path(serve_summary)}))
     print(json.dumps({"path": "serve-edit",
                       **serve_edits(base_wire, pa_cpu)}))
     pull, pull_launches = pullfront_path(pa_cpu[TIM])

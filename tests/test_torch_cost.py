@@ -302,9 +302,14 @@ def test_profile_endpoint_and_cli_client(capsys):
         for _ in range(3):
             cap.on_dispatch()
         assert _wait(lambda: not cap.active())
-        # --attribute: the next capture's attribution, rendered
+        # --attribute: the next capture's attribution, rendered. The
+        # dispatch comes once the worker has started the capture and
+        # counts dispatches (active() is already true at the trigger: a
+        # dispatch before the worker's start would not count, and on a
+        # loaded host the capture then never landed)
         th = threading.Thread(target=lambda: [
-            _wait(cap.active), cap.on_dispatch()])
+            _wait(lambda: cap._remaining > 0, timeout=30.0),
+            cap.on_dispatch()])
         th.start()
         assert tcost.main_profile([srv.url.replace("http://", ""),
                                    "--attribute", "--timeout", "10"]) == 0

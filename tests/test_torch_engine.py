@@ -416,15 +416,66 @@ C2_FLAGS = ["-s", "3", "--backend", "cpu", "-t", "300", "--no-auto-tune",
             "5", "--trace"]
 
 
+class _DispatchClock:
+    """A stand-in for the engine's `time` module whose monotonic clock
+    moves only when a dispatch's trace is read: by `spg` seconds for each
+    generation of that dispatch, whatever the host's load. Serial or
+    pipelined, the wall the engine measures for a dispatch (its trace
+    read's fence minus the previous fence or its enqueue) is then
+    exactly spg x its generations."""
+
+    def __init__(self, spg):
+        import time
+        self._time = time
+        self.spg = spg
+        self.t = 1000.0
+        self.queued = []          # generations of dispatches not yet read
+
+    def __getattr__(self, name):
+        return getattr(self._time, name)
+
+    def monotonic(self):
+        return self.t
+
+
+def _pin_dispatch_wall(monkeypatch, spg):
+    """Make every dispatch of the port engine measure `spg` seconds a
+    generation: the engine's clock is a _DispatchClock, advanced as each
+    dispatch's trace is read (run_epochs queues its generations, the
+    trace's HostCopy read takes them)."""
+    from timetabling_ga_tpu_torch.parallel import islands as tislands
+    from timetabling_ga_tpu_torch.runtime import dispatch_core as tdcore
+    clock = _DispatchClock(spg)
+    real_run, real_fetch = tislands.run_epochs, tdcore.fetch
+
+    def run_epochs(pa, gens, state, cur, n_ep, g, *a, **k):
+        clock.queued.append(n_ep * g)
+        return real_run(pa, gens, state, cur, n_ep, g, *a, **k)
+
+    def fetch(x, *a, **k):
+        out = real_fetch(x, *a, **k)
+        if isinstance(x, tdcore.HostCopy) and clock.queued:
+            clock.t += clock.spg * clock.queued.pop(0)
+        return out
+    monkeypatch.setattr(tengine, "time", clock)
+    monkeypatch.setattr(tislands, "run_epochs", run_epochs)
+    monkeypatch.setattr(tdcore, "fetch", fetch)
+    return clock
+
+
 def test_engine_shortens_an_epoch_over_the_cap(tim_path, monkeypatch,
                                                capsys):
     """With a 1 s cap and a probe of 0.4 s a generation, a 5-generation
     epoch is predicted over the cap: the first dispatch is one shortened
     epoch of int(1 / 0.4) = 2 generations, and migration closes it
-    (JAX engine.py:2019-2034)."""
+    (JAX engine.py:2019-2034). Every dispatch measures 0.4 s a
+    generation too (_pin_dispatch_wall), so the sizing rule is checked
+    whatever the host's load: a loaded host's real wall would move the
+    estimate the engine folds in after each dispatch."""
     from timetabling_ga_tpu_torch.parallel import islands as tislands
     monkeypatch.setattr(tengine, "DISPATCH_CAP_S", 1.0)
     monkeypatch.setattr(tengine, "probe_sec_per_gen", lambda *a: 0.4)
+    _pin_dispatch_wall(monkeypatch, 0.4)
     migrations = []
     real_mig = tislands.migrate
 

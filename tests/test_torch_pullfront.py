@@ -553,4 +553,4 @@ def test_flight_flags_parse_as_jax(entry, case):
     for flag in ("--obs-listen", "--history-every", "--incident-dir",
                  "--incident-min-interval", "--mem-poll-every"):
         assert flag not in tconfig.NOT_PORTED
-        assert flag not in tconfig.SERVE_NOT_PORTED
+        assert flag in tconfig._SERVE_FLAG_MAP

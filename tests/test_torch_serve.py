@@ -263,14 +263,25 @@ def test_bad_serve_flags_give_jax_messages(argv):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("flag", sorted(tconfig.SERVE_NOT_PORTED))
+# the fleet replica's flags, once refused by name: True = takes a value
+_FLEET_SERVE_FLAGS = {"--http": "127.0.0.1:0", "--preempt-grace": "1",
+                      "--preempt-on-term": None}
+
+
+@pytest.mark.parametrize("flag", sorted(_FLEET_SERVE_FLAGS))
 def test_unported_serve_flags_are_refused_by_name(flag):
-    takes = tconfig.SERVE_NOT_PORTED[flag]
-    assert flag in (jconfig._SERVE_FLAG_MAP if takes
+    """The service flags that stopped the parse by name until the fleet
+    replica came (`--http`, `--preempt-grace`, `--preempt-on-term`) now
+    parse to JAX's values; the service has no flag left to refuse by
+    name (--mesh-devices above 1 is refused by value, below)."""
+    value = _FLEET_SERVE_FLAGS[flag]
+    assert flag in (jconfig._SERVE_FLAG_MAP if value is not None
                     else jconfig._SERVE_BOOL_FLAGS)
-    with pytest.raises(SystemExit) as e:
-        tconfig.parse_serve_args([flag] + (["1"] if takes else []))
-    assert str(e.value).startswith(f"{flag} is not yet ported")
+    argv = [flag] + ([value] if value is not None else [])
+    want = jconfig.parse_serve_args(argv)
+    got = tconfig.parse_serve_args(argv)
+    for f in ("http", "preempt_grace", "preempt_on_term"):
+        assert getattr(got, f) == getattr(want, f), (flag, f)
 
 
 @pytest.mark.parametrize("argv,what", [
@@ -289,7 +300,7 @@ def test_every_jax_serve_flag_is_ported_or_refused():
               | set(tconfig._SERVE_NEG_BOOL_FLAGS))
     for flag in (set(jconfig._SERVE_FLAG_MAP) | set(jconfig._SERVE_BOOL_FLAGS)
                  | set(jconfig._SERVE_NEG_BOOL_FLAGS)):
-        assert (flag in ported) != (flag in tconfig.SERVE_NOT_PORTED), flag
+        assert flag in ported, flag
 
 
 # --------------------------------------------- the port's co-tenancy

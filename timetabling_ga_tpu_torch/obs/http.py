@@ -309,21 +309,28 @@ class ObsServer:
     sees. `history` is the ring /metrics/history serves (absent: 404);
     handlers only READ it, like the registry.
 
-    JAX's ObsServer also takes the fleet fronts' `handler`, `api` and
-    `site`; the port has no fleet yet, so its accept loop's fault site
-    is always `obs_listen`."""
+    The fleet fronts reuse this lifecycle with a handler of their own
+    (JAX obs/http.py:334-356): `handler` swaps the request router (a
+    `_Handler` subclass adding the `/v1` solve API, fleet/gateway.py
+    ApiHandler), `api` is the enqueue-or-read-only object those handlers
+    call, and `site` names the accept loop's thread (`tt-<site>`) and
+    its fault site (`obs_listen` here; a replica front keeps it, the
+    fleet gateway's is `gateway`)."""
 
     def __init__(self, listen: str, registry=None, probes=None,
-                 profile=None, history=None):
+                 profile=None, handler=None, api=None,
+                 site: str = "obs_listen", history=None):
         host, port = parse_listen(listen)
-        self._srv = _Server((host, port), _Handler)
+        self._srv = _Server((host, port), handler or _Handler)
         self._srv.registry = (obs_metrics.REGISTRY if registry is None
                               else registry)
         self._srv.probes = dict(probes or {})
         self._srv.history = history
         self._srv.profile = profile
+        self._srv.api = api
+        self._site = site
         self._thread = threading.Thread(
-            target=self._serve, name="tt-obs_listen", daemon=True)
+            target=self._serve, name=f"tt-{site}", daemon=True)
         self._state_lock = threading.Lock()
         self._serving = False
         self._closed = False
@@ -339,11 +346,11 @@ class ObsServer:
         return f"http://{host}:{port}"
 
     def _serve(self) -> None:
-        # fault-injection point (`obs_listen` site): a `die` here kills
-        # ONLY the accept loop — the process, and every solve path, runs
-        # on untouched
+        # fault-injection point (`obs_listen`, or the owner's `site`): a
+        # `die` here kills ONLY the accept loop — the process, and every
+        # solve path, runs on untouched
         try:
-            faults.maybe_fail("obs_listen")
+            faults.maybe_fail(self._site)
         except SystemExit:
             self._srv.server_close()
             return

@@ -34,10 +34,10 @@ CUDA device raises instead of falling back to the CPU.
 config.py:689-936): the same flags, defaults and messages for what the
 port serves (`--trace-mode full|deltas|stats`, `--quality`, `--obs`,
 `--metrics-every`, `--no-usage`, `--profile-dir`, `--profile-for` and
-the five flags above among them, and the fault plan, the per-job
-recovery budget and the shedding marks); the service's other
-flags (`SERVE_NOT_PORTED`) and `--mesh-devices` above 1 stop the parse
-by name.
+the five flags above among them, the fault plan, the per-job recovery
+budget, the shedding marks, and the fleet replica's `--http`,
+`--preempt-grace` and `--preempt-on-term`); `--mesh-devices` above 1
+stops the parse by name.
 """
 
 from __future__ import annotations
@@ -291,7 +291,7 @@ def _usage() -> str:
 
 
 def _parse_flag_stream(argv, cfg, flag_map, usage_fn, bool_flags,
-                       neg_bool_flags, unported) -> set:
+                       neg_bool_flags, unported=()) -> set:
     """The `-key value` loop of parse_args and parse_serve_args: -h
     prints the usage and exits 0, an `unported` flag stops the parse by
     name, unknown flags and missing values are SystemExit. Returns the
@@ -483,6 +483,21 @@ class ServeConfig:
     profile_for: int = 0          #   semantics)
     max_job_recoveries: int = 2   # quantum-fault requeues a job before
     #                               it fails alone
+    preempt_grace: float = 10.0   # the preempt drain's ship deadline:
+    #                               after POST /v1/drain?mode=preempt
+    #                               (or SIGTERM under --preempt-on-term)
+    #                               the replica parks every active job,
+    #                               publishes its snapshot and stays up
+    #                               until each is fetched or this many
+    #                               seconds pass
+    preempt_on_term: bool = False  # SIGTERM is the preempt drain (a spot
+    #                               worker: park and ship, do not run the
+    #                               queue dry)
+    http: Optional[str] = None    # HOST:PORT of the replica's HTTP solve
+    #                               front (fleet/replicas.py serve_http):
+    #                               JAX's /v1 protocol plus /metrics,
+    #                               /healthz and /readyz on one port;
+    #                               None = the line-JSON protocol
 
 
 _SERVE_FLAG_MAP = {
@@ -516,26 +531,23 @@ _SERVE_FLAG_MAP = {
     "--mem-poll-every": ("mem_poll_every", float),
     "--profile-dir": ("profile_dir", str),
     "--profile-for": ("profile_for", int),
+    "--http": ("http", str),
+    "--preempt-grace": ("preempt_grace", float),
 }
 
-_SERVE_BOOL_FLAGS = {"--obs": "obs", "--quality": "quality"}
+_SERVE_BOOL_FLAGS = {"--obs": "obs", "--quality": "quality",
+                     "--preempt-on-term": "preempt_on_term"}
 
 _SERVE_NEG_BOOL_FLAGS = {"--no-usage": "usage",
                          "--no-resident": "resident"}
-
-# The JAX service's flags this slice does not serve yet: True = takes a
-# value, False = a switch. Parsing any of them stops the parse.
-SERVE_NOT_PORTED = {
-    "--http": True,
-    "--preempt-grace": True, "--preempt-on-term": False,
-}
 
 
 def _serve_usage() -> str:
     return _format_usage(
         "usage: python -m timetabling_ga_tpu_torch serve [flags] "
         "(line-JSON jobs on -i/stdin, job-tagged JSONL records on "
-        "-o/stdout)", _SERVE_FLAG_MAP,
+        "-o/stdout; --http HOST:PORT serves the /v1 solve API instead)",
+        _SERVE_FLAG_MAP,
         (_SERVE_BOOL_FLAGS, _SERVE_NEG_BOOL_FLAGS))
 
 
@@ -544,8 +556,7 @@ def parse_serve_args(argv) -> ServeConfig:
     checks and messages for the flags the port serves)."""
     cfg = ServeConfig()
     _parse_flag_stream(argv, cfg, _SERVE_FLAG_MAP, _serve_usage,
-                       _SERVE_BOOL_FLAGS, _SERVE_NEG_BOOL_FLAGS,
-                       SERVE_NOT_PORTED)
+                       _SERVE_BOOL_FLAGS, _SERVE_NEG_BOOL_FLAGS)
     if cfg.backend not in ("gpu", "cpu"):
         raise SystemExit(f"unknown backend: {cfg.backend} (gpu or cpu)")
     if cfg.trace_mode not in _KNOWN_VALUES["trace_mode"]:
@@ -554,6 +565,7 @@ def parse_serve_args(argv) -> ServeConfig:
     if cfg.metrics_every < 0:
         raise SystemExit("--metrics-every must be >= 0 dispatches")
     _validate_obs_listen(cfg.obs_listen)
+    _validate_obs_listen(cfg.http)   # the same HOST:PORT grammar
     _validate_flight(cfg)
     if cfg.profile_for < 0:
         raise SystemExit("--profile-for must be >= 0 dispatches")
@@ -565,6 +577,8 @@ def parse_serve_args(argv) -> ServeConfig:
     if cfg.max_job_recoveries < 0:
         raise SystemExit("--max-job-recoveries must be >= 0 requeues "
                          "per job")
+    if cfg.preempt_grace < 0:
+        raise SystemExit("--preempt-grace must be >= 0 seconds")
     if cfg.lanes < 1:
         raise SystemExit("--lanes must be >= 1")
     if cfg.mesh_devices < 0:

@@ -1,6 +1,6 @@
 """The dispatch core on one card (port of timetabling_ga_tpu/runtime/
-dispatch_core.py:109-165, 202-341, 344-560): the pieces the engine's
-run loop and the serve scheduler share.
+dispatch_core.py:109-200, 202-341, 344-560): the pieces the engine's
+run loop, the serve scheduler and the fleet replica share.
 
     place_state   a host (numpy) PopState onto the device (JAX
                   `reshard_state`, on one card a copy per field)
@@ -25,6 +25,8 @@ run loop and the serve scheduler share.
                   chunk in flight, retired with the next one enqueued
     Snapshot / Supervisor     the rolling host snapshot and the
                   recovery policy (classify, budget, degradation ladder)
+    CommandFence  the fleet replica's command inbox, drained by its drive
+                  loop between quanta
 
 JAX's `purge_programs` has no counterpart: the port compiles nothing
 per shape, so after a fault there is no compiled program bound to
@@ -114,6 +116,40 @@ class DispatchPipeline:
         return it."""
         chunk, self.pending = self.pending, None
         return chunk
+
+
+class CommandFence:
+    """Unbounded command inbox drained at control fences: the fleet
+    replica's drive loop (fleet/replicas.py) is the only thread that
+    touches the card, and HTTP handlers, signal flags and tests
+    reach it by enqueueing commands, which the loop takes only between
+    quanta (every job at a park fence), never during one. `poll` is the
+    busy tick; `wait` the idle one, bounded so the loop still sees its
+    drain and kill flags promptly."""
+
+    def __init__(self):
+        import queue
+        self._q = queue.Queue()
+        self._empty = queue.Empty
+
+    def put(self, cmd) -> None:
+        self._q.put(cmd)
+
+    def poll(self):
+        """The next queued command, or None at once when there is none
+        (the loop goes on to dispatch)."""
+        try:
+            return self._q.get_nowait()
+        except self._empty:
+            return None
+
+    def wait(self, timeout: float):
+        """Block up to `timeout` seconds for a command; None when none
+        came (the loop re-checks its flags either way)."""
+        try:
+            return self._q.get(timeout=timeout)
+        except self._empty:
+            return None
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 """Job admission and lifecycle for the solver service (copy of
 timetabling_ga_tpu/serve/queue.py:33-257, with the fields the port
 uses: warm starts, shipping, edits, quantum-fault recoveries, load
-shedding, the usage meter and the span flow are here; the fleet's
-ship_hot and preemption wait).
+shedding, the usage meter, the span flow, and the fleet replica's
+preemption and ship_hot).
 
 The backlog is bounded (admission control): a submit past it is
 rejected at once rather than queued into unbounded latency. Priorities
@@ -16,6 +16,7 @@ another's stream.
        |                  +------- budget/deadline ------> DONE
        +--cancel--> CANCELLED      (failure) ------------> FAILED
        +--backpressure (scheduler shed) ---------------> SHED
+       +--preempt drain (fleet replica) ---------------> PREEMPTED
 
 PARKED is the between-quanta state: the job's population is a host
 snapshot, or, while its group stays resident, on the card.
@@ -45,6 +46,13 @@ class JobState:
     SHED = "shed"         # released by backpressure: the lowest-priority
     #                       runnable job while a registry depth is at or
     #                       over its high-water mark
+    PREEMPTED = "preempted"  # released by a preempt drain (POST
+    #                       /v1/drain?mode=preempt, or SIGTERM under
+    #                       --preempt-on-term): the replica stops the
+    #                       job and ships its park snapshot instead. The
+    #                       replica never runs it again, but a gateway
+    #                       reads it as "resume me elsewhere", not as
+    #                       settled, so it is in neither tuple below
 
     ACTIVE = (PENDING, RUNNING, PARKED)
     TERMINAL = (DONE, FAILED, CANCELLED, SHED)
@@ -91,6 +99,11 @@ class Job:
     #                                   the job's records so far, a ring
     #                                   of SHIP_RECORDS_CAP
     ship_truncated: bool = False      # ship_records dropped its oldest
+    ship_hot: bool = False            # someone polls ?snapshot=1 on the
+    #                                   job: its group parks at every
+    #                                   fence, so each poll ships current
+    #                                   progress (residency yields to
+    #                                   freshness; serve/scheduler.py)
     resumed_at: int = 0               # gens_done restored from a wire
     recoveries: int = 0               # quantum-fault requeues so far;
     #                                   past --max-job-recoveries the job

@@ -28,11 +28,25 @@ timetabling_ga_tpu/serve/scheduler.py:104-1130 on one card).
             `job.ship is not None`): a fresh job parks once first, a
             warm-started job has one from admission. Residency ends on
             a repack, a finishing job, a deadline, an idle fence or
-            `flush_resident` (a ship request), each of which parks the
-            group (a flush). While resident a job's snapshot and ship
-            unit are its last host fence's: a deadline flushes the group
-            before it finalizes the job. --no-resident parks every
-            quantum; the record stream is the same either way.
+            `flush_resident` (a ship request, or the fleet replica's
+            preempt drain), each of which parks the group (a flush).
+            While resident a job's snapshot and ship unit are its last
+            host fence's: a deadline flushes the group before it
+            finalizes the job. --no-resident parks every quantum; the
+            record stream is the same either way.
+
+  FRESHNESS (JAX :36-50) a handler serving `?snapshot=1` on a resident
+            job (fleet/replicas.py) touches nothing on the card: it
+            calls `request_flush`, which only sets a flag, and marks the
+            job `ship_hot`. The next control fence (the top of `step`)
+            consumes the flag with flush_resident("request"); while the
+            flag is pending no group re-enters residency, at resume or
+            at park; and a group holding a ship_hot job parks at every
+            fence, so a polling gateway's wire stays within one quantum
+            of the job's cursor. The stay rule is JAX's; so are the
+            flush reasons on the `flush` spans ("repack", "deadline",
+            "idle", "request", "preempt"), except that a caller of
+            flush_resident that names none gets "ship".
 
   WARM STARTS a submit's `snapshot` wire admits the job PARKED at the
             wire's progress (`_admit_resumed`): no init, the stream
@@ -211,6 +225,9 @@ class Scheduler:
                                lambda: len(self._resident))
         self._metrics.gauge_fn("serve.resident_bytes",
                                lambda: float(self._resident_bytes()))
+        # a ship request from a handler thread (request_flush), consumed
+        # at the next control fence
+        self._flush_req = False
         # bucket key -> (lane-ordered job ids, their LaneProblems)
         self._packs: dict = {}
         self.gacfg = serve_ga_config(cfg)
@@ -440,8 +457,13 @@ class Scheduler:
 
     def step(self) -> bool:
         """One dispatch for the next bucket group (round-robin), after
-        the control fence's shedding and deadline pass. Returns True
-        while any runnable job remains."""
+        the control fence's ship request, shedding and deadline pass.
+        Returns True while any runnable job remains."""
+        if self._flush_req:
+            # a handler asked for fresh ship units: park every resident
+            # group here, on the thread that owns the card
+            self._flush_req = False
+            self.flush_resident("request")
         self._shed()
         self._reap()
         buckets = self._buckets_ready()
@@ -545,9 +567,11 @@ class Scheduler:
         t_fence0 = self._now()
         entry = self._resident.get(bkey)
         if entry is not None and (entry["jids"] != jid_t
-                                  or not self.cfg.resident):
-            # the lanes changed: park the old group first, so this pack
-            # resumes every member from a fresh snapshot
+                                  or not self.cfg.resident
+                                  or self._flush_req):
+            # the lanes changed (or a ship request is pending): park the
+            # old group first, so this pack resumes every member from a
+            # fresh snapshot
             self._flush_bucket(bkey, "repack")
             entry = None
         resident = entry is not None
@@ -593,10 +617,13 @@ class Scheduler:
             # library not loaded yet): the meter's compile_seconds
             build_s = kernels.BUILD_INFO["total_seconds"] - b0
             self._metrics.counter("serve.quantum_seconds").inc(tq_wall)
-        # stay on the card only when every member has a ship unit (a
-        # fresh job parks once first) and none finishes in this quantum
-        stay = (self.cfg.resident
-                and all(j.ship is not None for j in jobs)
+        # stay on the card only when no ship request is pending, every
+        # member has a ship unit (a fresh job parks once first) and none
+        # is ship_hot (polled: it parks every fence), and none finishes
+        # in this quantum
+        stay = (self.cfg.resident and not self._flush_req
+                and all(j.ship is not None and not j.ship_hot
+                        for j in jobs)
                 and not any(g >= j.remaining() for g, j in zip(gens, jobs)))
         with self.tracer.span("park", cat="serve", job=jids, flow=flows,
                               resident=stay):
@@ -780,6 +807,23 @@ class Scheduler:
                 jsonl.fault_entry(self.out, "flush", "rollback", e, 0, 0,
                                   0, 0.0)
         return n
+
+    def request_flush(self) -> None:
+        """Ask the drive loop to park every resident group at its next
+        control fence (JAX scheduler.py:1006). It sets a flag and nothing
+        else, so any thread may call it: a handler serving ?snapshot=1
+        must not touch the card. Until that fence a shipped unit is the
+        last host fence's."""
+        self._flush_req = True
+
+    def drop_packs(self, job_ids) -> None:
+        """Forget every cached pack holding one of `job_ids`: its
+        LaneProblems references those jobs' problem tensors on the card
+        (the fleet replica releases a settled job's tensors)."""
+        gone = set(job_ids)
+        for bkey, (jids, _) in list(self._packs.items()):
+            if gone.intersection(jids):
+                del self._packs[bkey]
 
     def _resident_bytes(self) -> int:
         return sum(dcore.state_nbytes(g.get("state"))

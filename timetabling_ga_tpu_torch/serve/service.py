@@ -29,6 +29,11 @@ engine's JSONL protocol with each record tagged `"job"`, plus the
     {"stats": "prometheus"}            ... carrying the text exposition
     {"drain": true}                    run everything admitted so far
 
+`serve --http HOST:PORT` serves the same service as a fleet replica
+(fleet/replicas.py): JAX's `/v1` solve API instead of this protocol.
+The replica reads the attributes `registry`, `writer`, `scheduler`,
+`queue`, `profile_capture`, `history`, `flight`, `usage` and `device`.
+
 Requests are processed in order; `drain` (and the end of the input)
 hands the queue to the scheduler. A malformed request or a rejected
 submission (a malformed edit spec among them) emits a jobEntry (event
@@ -206,7 +211,8 @@ class SolveService:
 
     def submit(self, problem, job_id=None, priority: int = 0, seed=None,
                generations=None, deadline_s=None, tenant=None,
-               snapshot=None, edit=None) -> str:
+               snapshot=None, edit=None, flow: int = 0,
+               count_job: bool = True) -> str:
         """Admit one job; returns its id (JAX service.py:222). Raises
         AdmissionError when the backlog is full or the id is taken; an
         instance that cannot be padded or placed raises before the queue
@@ -219,7 +225,11 @@ class SolveService:
         transplanted from the base wire when the edit stays in the base's
         bucket, else the job runs cold (demoted, counted); a malformed
         spec raises EditError. An edit job with a `snapshot` of its own
-        resumes from that instead."""
+        resumes from that instead. `flow` is a flow id the job inherits
+        (a gateway's X-TT-Flow: its spans here continue the gateway's
+        chain; 0 lets the scheduler make one), and `count_job=False`
+        marks a fleet resend (X-TT-Resubmit): metered, but not counted
+        again in its tenant's `jobs`."""
         if job_id is None:
             self._auto_id += 1
             job_id = f"job-{self._auto_id}"
@@ -241,6 +251,7 @@ class SolveService:
                   generations=int(self.cfg.generations
                                   if generations is None else generations),
                   deadline_s=deadline_s, tenant=tenant_label(tenant),
+                  count_usage=bool(count_job), flow=int(flow or 0),
                   resume_wire=snapshot, mode=mode, edit_of=edit_of,
                   edit_map=edit_map)
         self.scheduler.prepare(job)
@@ -387,8 +398,14 @@ def serve_stream(cfg: ServeConfig, in_stream, out_stream=None, now=None,
 
 
 def main_serve(argv) -> int:
-    """The `serve` subcommand (cli.py dispatches here)."""
+    """The `serve` subcommand (cli.py dispatches here). With --http the
+    same service is a fleet replica: a drive loop fed by a command inbox
+    behind the `/v1` front (fleet/replicas.py serve_http) instead of
+    line-JSON on stdio."""
     cfg = parse_serve_args(argv)
+    if cfg.http:
+        from timetabling_ga_tpu_torch.fleet.replicas import serve_http
+        return serve_http(cfg)
     if cfg.input:
         with open(cfg.input, "r") as fh:
             serve_stream(cfg, fh)

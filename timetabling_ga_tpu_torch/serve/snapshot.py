@@ -157,8 +157,12 @@ def unpack_state(wire, expect_fingerprint: Optional[str] = None):
 @dataclasses.dataclass
 class ShipUnit:
     """One job's shippable park-fence unit: the host state and the
-    record prefix emitted up to that fence, replaced whole at every park
-    (serve/scheduler.py). `pack` makes its wire once."""
+    record prefix emitted up to that fence, built on the drive loop and
+    replaced whole at every park (serve/scheduler.py), so a handler
+    thread reading `job.ship` sees one fence's pair or the next's.
+    `pack` makes its wire once, on the handler thread that serves
+    `?snapshot=1` (fleet/replicas.py): the state is host memory, so the
+    pack makes no device call."""
 
     state: object               # host PopState at the fence
     bucket: tuple
@@ -172,7 +176,14 @@ class ShipUnit:
     truncated: bool = False     # records hit SHIP_RECORDS_CAP
     usage: Optional[dict] = None  # the job's meter at this fence: the
     #                             wire's usage cursor
-    wire: Optional[dict] = None  # pack's memo
+    wire: Optional[dict] = None  # pack's memo (handler threads may race
+    #                             it: both compute the same wire)
+    records_bytes: Optional[int] = None  # the serialized size of
+    #                             `records`, measured once by the first
+    #                             handler that serves the unit: a gateway
+    #                             budgets its snapshot cache on it
+    served: bool = False        # fetched at least once: the preempt
+    #                             drain's "shipped" signal
 
     def pack(self) -> dict:
         if self.wire is None:

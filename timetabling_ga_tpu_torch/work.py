@@ -40,6 +40,7 @@ pays a few integer products on the host.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 
@@ -121,16 +122,18 @@ class _Problem(NamedTuple):
     stu_bytes: int         # the students' CSR
 
 
-# id(problem) -> (problem, its counts), a bounded memo
+# id(problem) -> (a weak reference to the problem, its counts): the memo
+# keeps no problem's tensors alive (a fleet replica drops a settled
+# job's problem, and its entry here goes with it)
 _PROBLEMS: dict = {}
-_MAX_PROBLEMS = 64
 
 
 def _problem(pa) -> _Problem:
-    """A problem's own counts, computed once (the problem kept beside
-    them, so an id is never reused under them)."""
-    hit = _PROBLEMS.get(id(pa))
-    if hit is not None and hit[0] is pa:
+    """A problem's own counts, computed once while the problem lives
+    (the reference beside them says the id is still the problem's)."""
+    key = id(pa)
+    hit = _PROBLEMS.get(key)
+    if hit is not None and hit[0]() is pa:
         return hit[1]
     E, S, W = pa.n_events, pa.n_students, pa.conflict_bits.shape[1]
     n_d = min(pa.n_days, _K4_DAYS)
@@ -150,9 +153,8 @@ def _problem(pa) -> _Problem:
                         pa.attends_u8, pa.ev_ptr, pa.ev_stu,
                         pa.anchor_slots, pa.anchor_w),
         stu_bytes=nbytes(pa.stu_ptr, pa.stu_ev))
-    if len(_PROBLEMS) >= _MAX_PROBLEMS:
-        _PROBLEMS.clear()
-    _PROBLEMS[id(pa)] = (pa, counts)
+    _PROBLEMS[key] = (
+        weakref.ref(pa, lambda _, k=key: _PROBLEMS.pop(k, None)), counts)
     return counts
 
 
