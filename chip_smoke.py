@@ -125,6 +125,23 @@
    timetabling_ga_tpu_torch serve --http --preempt-on-term -o LOG` in a
    process of its own sent SIGTERM after its job's first park: exit 0
    within the grace, the log ending with the `preempted` jobEntry;
+   then the fleet gateway (the fleet-gateway phase, one line): `python
+   -m timetabling_ga_tpu_torch fleet --spawn 2 -- --obs`, two `serve
+   --http` processes of the port on the card: SERVE_JOBS (s1 through
+   the `submit` CLI) with the line-JSON records, `warm` then `hit` each
+   bucket, the routeEntry lines equal to /v1/fleet's router stats, the
+   workers' lane kernels launched (their `kernels.launches.*` gauges),
+   their usageEntry flops above 0 and /v1/usage their sum; a long job's
+   owner SIGKILLed at a synced wire (resumed on the other worker, at
+   most one quantum re-run, the uninterrupted records); a second long
+   job moved by POST /v1/drain?mode=preempt&replica=NAME (0 generations
+   re-run, the owner exiting 0); the graceful drain (the fleet and every
+   worker exit 0, none left); and an autoscaler's gateway (`--spawn 1
+   --scale-max 2`, short windows): a burst scales up, the spawned worker
+   serves a bucket of its own, idle scales down through the preempt
+   drain; kill-to-resumed, preempt-to-exit, boot and decision-to-ready
+   seconds and lane-gens/s through the gateway beside the line-JSON
+   leg's printed;
    then the dispatch pipeline and in-run fault recovery on the
    reference config (comp01s, `--no-auto-tune -p 2 -s 42`, 300
    generations): (a) pipelined (the default) against `--no-pipeline`,
@@ -223,6 +240,8 @@ Outputs go under build/chip_smoke/.
 
 import json
 import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -3039,6 +3058,8 @@ def serve_edits(base_wire, pa_cpu):
 FLEET_LONG = ("f1", "itc", 11, 2000)
 FLEET_POLLS = 10
 FLEET_SETTLED = ("done", "failed", "cancelled", "shed", "rejected")
+# FLEET_LONG's uninterrupted records, written by the fleet-replica phase
+FLEET_LONG_RECORDS = os.path.join(OUT_DIR, "fleet_long.jsonl")
 
 
 def _fleet_payload(jid, tim, seed, gens, prio, texts):
@@ -3278,6 +3299,10 @@ def fleet_replica_path(serve_summary):
     check(strip_timing(prefix + cont) == strip_timing(_lines(buf)),
           "fleet-replica: the preempted and resumed job differs from "
           "its uninterrupted run")
+    # the fleet-gateway phase holds its failed-over jobs to this run
+    with open(FLEET_LONG_RECORDS, "w") as f:
+        for rec in _lines(buf):
+            f.write(json.dumps(rec) + "\n")
     out["gens_rerun"] = ran - (gens - fence)
 
     # (d) the real entry point, SIGTERM under --preempt-on-term
@@ -3334,6 +3359,636 @@ def fleet_replica_path(serve_summary):
           f"fleet-replica: the log ends with {last}")
     out.update(process_boot_s=boot, sigterm_to_exit_s=term_exit,
                phase_s=time.monotonic() - t_phase)
+    return out
+
+
+# the fleet-gateway phase: `python -m timetabling_ga_tpu_torch fleet
+# --spawn N` over `serve --http` processes of the port on the card, at
+# the serve path's defaults (the workers also under --obs: their
+# usageEntry records). The probe and poll cadences are tightened; the
+# boot grace, dead-after and restart budget are the defaults
+FLEET_WORKER_ARGS = ["--obs"]
+FLEET_CADENCE = ["--probe-every", "0.2", "--poll-every", "0.05"]
+# the autoscaler's gateway: one worker, at most two, short windows
+FLEET_SCALE = ["--spawn", "1", "--scale-min", "1", "--scale-max", "2",
+               "--scale-up-queue", "4", "--scale-up-for", "0.5",
+               "--scale-down-queue", "1", "--scale-down-for", "2",
+               "--scale-idle-window", "2", "--scale-cooldown", "1",
+               "--scale-every", "0.2", "--history-every", "0.2",
+               "--scale-warm-recent", "0"]
+# the generations the targeted preempt's job runs on its owner first
+FLEET_PREEMPT_AT = 50
+FLEET_EXIT = re.compile(
+    r"^# tt fleet: replica (\S+) \(pid (\d+)\) exited (-?\d+)$")
+
+
+def _get_url(url):
+    from timetabling_ga_tpu_torch.fleet.replicas import http_json
+    return http_json("GET", url, ok=(200,), timeout=30.0)
+
+
+def _serving_pids(ports):
+    """{port: pid} of the live processes whose argv holds `--http
+    127.0.0.1:<port>` for a port in `ports` (a zombie's argv is
+    empty)."""
+    out = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                args = [a.decode("utf-8", "replace")
+                        for a in f.read().split(b"\0")]
+        except OSError:
+            continue
+        if "--http" in args[:-1]:
+            addr = args[args.index("--http") + 1]
+            port = int(addr.rsplit(":", 1)[1]) if ":" in addr else None
+            if port in ports:
+                out[port] = int(d)
+    return out
+
+
+def _alive(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return bool(f.read())
+    except OSError:
+        return False
+
+
+def _as_job(records, jid):
+    """`records` with every job id set to `jid` (one job's stream under
+    another id)."""
+    out = json.loads(json.dumps(records))
+    for rec in out:
+        body = next(iter(rec.values()))
+        if isinstance(body, dict) and "job" in body:
+            body["job"] = jid
+    return out
+
+
+class _Fleet:
+    """One `fleet` process of the port, its log and its workers' logs in
+    build/chip_smoke/<name>/ (its cwd), its stderr in gateway.err."""
+
+    def __init__(self, name, argv):
+        self.dir = os.path.join(OUT_DIR, name)
+        os.makedirs(self.dir, exist_ok=True)
+        for f in os.listdir(self.dir):
+            os.remove(os.path.join(self.dir, f))
+        port = _free_port()
+        self.url = f"http://127.0.0.1:{port}"
+        self.log = os.path.join(self.dir, "gateway.jsonl")
+        self.err = os.path.join(self.dir, "gateway.err")
+        env = dict(os.environ, PYTHONPATH=HERE)
+        self.t0 = time.monotonic()
+        with open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "timetabling_ga_tpu_torch",
+                 "fleet", "--listen", f"127.0.0.1:{port}", "-o",
+                 self.log, *argv], cwd=self.dir, env=env,
+                stdout=subprocess.DEVNULL, stderr=err)
+        self.ports = set()
+
+    def get(self, path, **kw):
+        from timetabling_ga_tpu_torch.fleet.replicas import http_json
+        return http_json("GET", self.url + path, ok=(200,), **kw)
+
+    def post(self, path, obj, ok=(200, 202)):
+        from timetabling_ga_tpu_torch.fleet.replicas import http_json
+        return http_json("POST", self.url + path, obj, ok=ok, timeout=30.0)
+
+    def view(self):
+        """GET /v1/fleet, the workers' ports noted."""
+        v = self.get("/v1/fleet")
+        for r in v["replicas"]:
+            self.ports.add(int(r["url"].rsplit(":", 1)[1]))
+        return v
+
+    def replica(self, name):
+        return next((r for r in self.view()["replicas"]
+                     if r["name"] == name), None)
+
+    def wait_ready(self, names, what, since=None, timeout=180.0):
+        """{name: seconds from `since` (the fleet's start) until each
+        replica first probed ready}."""
+        since = self.t0 if since is None else since
+        got = {}
+        while len(got) < len(names):
+            check(self.proc.poll() is None,
+                  f"fleet-gateway: the fleet exited {self.proc.returncode}"
+                  f" waiting for {what}: {self.tail()}")
+            try:
+                for r in self.view()["replicas"]:
+                    if (r["name"] in names and r["ready"]
+                            and not r["dead"] and r["name"] not in got):
+                        got[r["name"]] = time.monotonic() - since
+            except OSError:
+                pass                # the front is not up yet
+            check(time.monotonic() - since < timeout,
+                  f"fleet-gateway: {what} never ready: {got}")
+            time.sleep(0.05)
+        return got
+
+    def settle(self, ids, what, timeout=240.0):
+        """{id: the gateway's view} once every id settled."""
+        deadline = time.monotonic() + timeout
+        while True:
+            states = self.get("/v1/jobs")["jobs"]
+            if all(states.get(j, {}).get("state") in FLEET_SETTLED
+                   for j in ids):
+                return {j: self.get(f"/v1/jobs/{j}", timeout=30.0)
+                        for j in ids}
+            check(time.monotonic() < deadline,
+                  f"fleet-gateway: {what} not settled: "
+                  f"{ {j: states.get(j) for j in ids} }")
+            time.sleep(0.05)
+
+    def metric(self, url, name):
+        from timetabling_ga_tpu_torch.fleet.replicas import http_text
+        from timetabling_ga_tpu_torch.obs import scrape
+        return scrape.scalar(scrape.parse_exposition(
+            http_text(url + "/metrics")), name, 0.0)
+
+    def tail(self):
+        with open(self.err) as f:
+            return f.read()[-2000:]
+
+    def exits(self):
+        """[(replica, pid, exit status)] the gateway reported."""
+        with open(self.err) as f:
+            return [(m.group(1), int(m.group(2)), int(m.group(3)))
+                    for m in map(FLEET_EXIT.match, f.read().splitlines())
+                    if m]
+
+    def drain(self, what):
+        """POST /v1/drain; the fleet and every worker exit, 0 each, and
+        no worker is left. Returns (the fleet's exit seconds, exits)."""
+        t1 = time.monotonic()
+        ack = self.post("/v1/drain", {}, ok=(200,))
+        check(ack.get("draining") is True,
+              f"fleet-gateway: {what}: drain answered {ack}")
+        try:
+            rc = self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            rc = None
+        drained_s = time.monotonic() - t1
+        check(rc == 0, f"fleet-gateway: {what}: the fleet exited {rc}: "
+              f"{self.tail()}")
+        left = _serving_pids(self.ports)
+        check(not left, f"fleet-gateway: {what}: workers left {left}")
+        return drained_s, self.exits()
+
+    def records(self, name="gateway"):
+        """A log's records (a live log's torn last line skipped)."""
+        path = (self.log if name == "gateway"
+                else os.path.join(self.dir, f"tt-fleet-{name}.jsonl"))
+        out = []
+        with open(path) as f:
+            for line in f:
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    pass
+        return out
+
+    def kill(self):
+        """Stop the fleet and its workers, whatever state they are in."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for pid in _serving_pids(self.ports).values():
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+
+
+def fleet_gateway_path(serve_summary):
+    """The fleet gateway on the card (fleet/gateway.py, router.py,
+    replicas.py's ReplicaSet and spawn_one, autoscaler.py, client.py):
+    `fleet --spawn 2 -- --obs` at the serve path's defaults, two `serve
+    --http` processes of the port on the one card: (a) SERVE_JOBS, s1
+    through the `submit` CLI and the rest through POST /v1/solve: every
+    job's records equal to the serve phase's line-JSON records of the
+    job (strip_timing), each bucket's first landing `warm` and the
+    others `hit`, no `miss`, the routeEntry lines agreeing with
+    /v1/fleet's router stats, each worker's lane kernels launched (its
+    `kernels.launches.*` gauges), each worker's usageEntry flops above 0
+    and /v1/usage the sum of the workers' ledgers; (b) FLEET_LONG's
+    owner SIGKILLed while the gateway's cached wire is at its cursor:
+    the job resumes on the other worker (at most one quantum re-run,
+    fleet.resume.hits), its records those of the uninterrupted run; (c)
+    once the killed worker is respawned and ready, a second FLEET_LONG
+    job preempted on its owner at FLEET_PREEMPT_AT generations through
+    POST /v1/drain?mode=preempt&replica=NAME: it resumes at the
+    preempted fence (0 generations re-run), the owner exits 0, the
+    records those of the uninterrupted run; (e) POST /v1/drain: the
+    fleet and every worker exit 0, none is left; (d) a second gateway,
+    FLEET_SCALE: a burst (SERVE_JOBS twice) gives a scaleEntry `up`, the
+    spawned worker is adopted and serves a job of a bucket of its own,
+    idle gives `down` through the preempt drain, every job's records
+    equal, the retired worker exits 0; then (e) again."""
+    from timetabling_ga_tpu_torch.problem import dump_tim
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    itc_path = os.path.join(OUT_DIR, "itc.tim")
+    with open(itc_path, "w") as f:
+        f.write(dump_tim(itc_problem()))
+    paths = {TIM: TIM, TIM05: TIM05, "itc": itc_path}
+    texts = {}
+    for k, p in paths.items():
+        with open(p) as f:
+            texts[k] = f.read()
+    with open(os.path.join(OUT_DIR, "serve_packed.jsonl")) as f:
+        line_json = [json.loads(x) for x in f]
+    with open(FLEET_LONG_RECORDS) as f:
+        long_base = strip_timing([json.loads(x) for x in f])
+    out = {"card": CARD}
+    t_phase = time.monotonic()
+    fleets = []
+    try:
+        fl = _Fleet("fleet_gateway", ["--spawn", "2", *FLEET_CADENCE,
+                                      "--", *FLEET_WORKER_ARGS])
+        fleets.append(fl)
+        boot = fl.wait_ready(["r0", "r1"], "the two workers")
+        out["replica_boot_s"] = boot
+        out.update(_fleet_routing(fl, paths, texts, line_json,
+                                  serve_summary))
+        out.update(_fleet_failover(fl, texts, long_base))
+        # the preempted worker is respawned: let it boot before the drain
+        # (one still importing torch would be stopped by a signal)
+        deadline = time.monotonic() + 180.0
+        while not all(r["ready"] and not r["dead"]
+                      for r in fl.view()["replicas"]):
+            check(time.monotonic() < deadline,
+                  f"fleet-gateway: not every worker ready before the "
+                  f"drain: {fl.view()['replicas']}")
+            time.sleep(0.05)
+        routes = fl.view()["router"]
+        drained_s, exits = fl.drain("the first gateway")
+        out.update(_fleet_exits(fl, exits, routes))
+        out["drain_to_exit_s"] = drained_s
+        out["scale"] = _fleet_autoscaler(texts, line_json)
+    finally:
+        for fl in fleets:
+            fl.kill()
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
+def _fleet_payload_of(row, texts, prefix=""):
+    jid, tim, seed, gens, prio = row
+    return {"id": prefix + jid, "tim": texts[tim], "seed": seed,
+            "generations": gens, "priority": prio}
+
+
+def _fleet_routing(fl, paths, texts, line_json, serve_summary):
+    """(a): SERVE_JOBS through the gateway, s1 through the submit CLI."""
+    from timetabling_ga_tpu_torch.obs import usage as obs_usage
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    out = {}
+    ids = [row[0] for row in SERVE_JOBS]
+    sub_out = os.path.join(fl.dir, "submit_s1.jsonl")
+    jid, tim, seed, gens, prio = SERVE_JOBS[0]
+    t0 = time.monotonic()
+    sub = subprocess.Popen(
+        [sys.executable, "-m", "timetabling_ga_tpu_torch", "submit",
+         fl.url, paths[tim], "--id", jid, "-s", str(seed),
+         "--generations", str(gens), "--priority", str(prio), "--poll",
+         "0.1", "--records-out", sub_out],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # the other jobs once s1 is in the table, so the placements run
+        # in SERVE_JOBS' order
+        deadline = time.monotonic() + 60.0
+        while jid not in fl.get("/v1/jobs")["jobs"]:
+            check(sub.poll() is None and time.monotonic() < deadline,
+                  "fleet-gateway: submit never reached the gateway")
+            time.sleep(0.01)
+        for row in SERVE_JOBS[1:]:
+            fl.post("/v1/solve", _fleet_payload_of(row, texts))
+        views = fl.settle(ids, "SERVE_JOBS")
+        wall = time.monotonic() - t0
+        so, se = sub.communicate(timeout=120)
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+            sub.wait()
+    check(sub.returncode == 0,
+          f"fleet-gateway: submit exited {sub.returncode}: {se[-2000:]}")
+    check(json.loads(so.strip().splitlines()[-1])["state"] == "done",
+          f"fleet-gateway: submit printed {so[-500:]}")
+    with open(sub_out) as f:
+        check([json.loads(x) for x in f if x.strip()]
+              == views[jid]["records"],
+              "fleet-gateway: submit's --records-out differs from the "
+              "gateway's record tail")
+    for row in SERVE_JOBS:
+        v = views[row[0]]
+        check(v["state"] == "done" and v["result"]["gens"] == row[3],
+              f"fleet-gateway: {row[0]} {v['state']} {v.get('error')}")
+        check(not v["records_truncated"],
+              f"fleet-gateway: {row[0]}'s records truncated")
+        check(strip_timing(v["records"])
+              == strip_timing(_job_records(line_json, row[0])),
+              f"fleet-gateway: {row[0]} through the gateway differs from "
+              f"its line-JSON records")
+    view = fl.view()
+    router = view["router"]
+    owners = {views[j]["replica"] for j in ids}
+    check(owners == {"r0", "r1"},
+          f"fleet-gateway: two buckets, owners {owners}")
+    check(router["misses"] == 0 and router["warmups"] == 2
+          and router["affinity_hits"] == len(ids) - 2,
+          f"fleet-gateway: router {router}")
+    reps = {r["name"]: r["url"] for r in view["replicas"]}
+    lane_gens, launches = 0.0, {}
+    for name, url in reps.items():
+        lane_gens += fl.metric(url, "tt_serve_gens_total")
+        mine = {k: fl.metric(url, f"tt_kernels_launches_{k}")
+                for k in LANES + ("random_ls_events", "survivors",
+                                  "assign_rooms", "batch_penalty")
+                + SERVE_NEVER}
+        for k in LANES + ("random_ls_events", "survivors"):
+            check(mine[k] > 0,
+                  f"fleet-gateway: {name} never launched {k}")
+        for k in SERVE_NEVER:
+            check(mine[k] == 0,
+                  f"fleet-gateway: {name} launched {k} {mine[k]} times")
+        launches[name] = {k: int(v) for k, v in mine.items() if v}
+
+    # /v1/usage: the workers' ledgers summed, once the prober read them
+    def usage_agrees():
+        fleet = fl.get("/v1/usage")
+        want = obs_usage.aggregate(
+            [(n, False, _get_url(u + "/v1/usage")) for n, u in
+             reps.items()])
+        return (fleet["tenants"], fleet["jobs"]) == (want["tenants"],
+                                                      want["jobs"])
+    deadline = time.monotonic() + 30.0
+    while not usage_agrees():
+        check(time.monotonic() < deadline,
+              "fleet-gateway: /v1/usage never equal to the workers' sum")
+        time.sleep(0.2)
+    out.update(jobs_equal=len(ids), http_wall_s=wall, lane_gens=lane_gens,
+               lane_gens_per_s_gateway=lane_gens / wall,
+               lane_gens_per_s_line_json=serve_summary["lane_gens_per_s"],
+               affinity_hit_rate=router["affinity_hit_rate"],
+               routing=router, launches=launches,
+               usage_tenants=fl.get("/v1/usage")["tenants"])
+    return out
+
+
+def _fleet_failover(fl, texts, long_base):
+    """(b) and (c): a SIGKILLed owner, then a targeted preempt."""
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    from timetabling_ga_tpu_torch.runtime.config import ServeConfig
+    out = {}
+    quantum = ServeConfig().quantum
+    jid, tim, seed, gens = FLEET_LONG
+    fl.post("/v1/solve", _fleet_payload_of((jid, tim, seed, gens, 0),
+                                           texts))
+    # (b) kill the owner while the gateway's cached wire is at its cursor
+    deadline = time.monotonic() + 120.0
+    while True:
+        v = fl.get(f"/v1/jobs/{jid}?records=0&snapshot=1", timeout=30.0)
+        owner = v.get("replica")
+        wire = v.get("snapshot")
+        if owner and wire and wire["gens_done"] >= quantum:
+            rep = fl.replica(owner)
+            t_read = time.monotonic()
+            cursor = _get_url(
+                f"{rep['url']}/v1/jobs/{jid}?records=0")["gens"]
+            if cursor == wire["gens_done"]:
+                pid = _serving_pids(fl.ports)[
+                    int(rep["url"].rsplit(":", 1)[1])]
+                os.kill(pid, signal.SIGKILL)
+                t_kill = time.monotonic()
+                break
+        check(v["state"] not in FLEET_SETTLED and time.monotonic()
+              < deadline, f"fleet-gateway: no kill point for {jid}: "
+              f"{v['state']}")
+        time.sleep(0.005)
+    survivor = "r1" if owner == "r0" else "r0"
+    while fl.get(f"/v1/jobs/{jid}?records=0").get("replica") != survivor:
+        check(time.monotonic() - t_kill < 60.0,
+              f"fleet-gateway: {jid} never moved to {survivor}")
+        time.sleep(0.005)
+    kill_to_resumed = time.monotonic() - t_kill
+    # (c) the killed worker respawned, then a preempt moves a job to it
+    while True:
+        r = fl.replica(owner)
+        if r["restarts"] == 1 and r["ready"] and not r["dead"]:
+            break
+        check(time.monotonic() - t_kill < 180.0,
+              f"fleet-gateway: {owner} never came back: {r}")
+        time.sleep(0.02)
+    respawn_ready = time.monotonic() - t_kill
+    jid3 = "f3"
+    fl.post("/v1/solve", _fleet_payload_of((jid3, tim, seed, gens, 0),
+                                           texts))
+    deadline = time.monotonic() + 120.0
+    while True:
+        v3 = fl.get(f"/v1/jobs/{jid3}?records=0")
+        owner3 = v3.get("replica")
+        if owner3:
+            rep3 = fl.replica(owner3)
+            g3 = _get_url(f"{rep3['url']}/v1/jobs/{jid3}?records=0"
+                            ).get("gens", 0)
+            if g3 >= FLEET_PREEMPT_AT:
+                break
+        check(time.monotonic() < deadline,
+              f"fleet-gateway: {jid3} never reached "
+              f"{FLEET_PREEMPT_AT} generations")
+        time.sleep(0.01)
+    pid3 = _serving_pids(fl.ports)[int(rep3["url"].rsplit(":", 1)[1])]
+    t_pre = time.monotonic()
+    ack = fl.post(f"/v1/drain?mode=preempt&replica={owner3}", {},
+                  ok=(202,))
+    check(ack == {"preempting": owner3},
+          f"fleet-gateway: the preempt answered {ack}")
+    while _alive(pid3):
+        check(time.monotonic() - t_pre < 60.0,
+              f"fleet-gateway: {owner3} did not exit after its preempt")
+        time.sleep(0.005)
+    preempt_to_exit = time.monotonic() - t_pre
+    views = fl.settle([jid, jid3], "the failed-over jobs", timeout=300.0)
+    res3 = views[jid3]["result"]
+    for j in (jid, jid3):
+        check(views[j]["state"] == "done"
+              and views[j]["result"]["gens"] == gens,
+              f"fleet-gateway: {j} {views[j]['state']}")
+        check(strip_timing(_as_job(views[j]["records"], jid)) == long_base,
+              f"fleet-gateway: {j} differs from its uninterrupted run")
+    check(views[jid3]["replica"] != owner3,
+          f"fleet-gateway: {jid3} still on {owner3}")
+    # the gateway's `resume` spans: each failover's fence, in order (f1
+    # may move twice: at the kill, and again if the preempt found it)
+    deadline = time.monotonic() + 30.0
+    while True:
+        spans = [r["spanEntry"] for r in fl.records()
+                 if r.get("spanEntry", {}).get("name") == "resume"]
+        fences = {j: [sp["gens"] for sp in spans if sp.get("job") == j]
+                  for j in (jid, jid3)}
+        if fences[jid] and fences[jid3]:
+            break
+        check(time.monotonic() < deadline,
+              f"fleet-gateway: resume spans {fences}")
+        time.sleep(0.05)
+    kill_fence = fences[jid][0]
+    # (b)'s bound: the wire was at the cursor when read, and the owner
+    # could pass at most one more fence before the signal landed
+    check(kill_fence >= cursor > 0,
+          f"fleet-gateway: {jid} resumed at {kill_fence}, cursor "
+          f"{cursor} at the kill (more than a quantum re-run)")
+    preempted = [r["jobEntry"] for r in fl.records(owner3)
+                 if r.get("jobEntry", {}).get("job") == jid3
+                 and r["jobEntry"]["event"] == "preempted"]
+    check(len(preempted) == 1 and preempted[0]["shipped"] is True,
+          f"fleet-gateway: {owner3}'s log: {preempted}")
+    check(res3["resumed_at"] == fences[jid3][-1] == preempted[0]["gens"]
+          > 0, f"fleet-gateway: {jid3} resumed at {res3['resumed_at']}, "
+          f"preempted at {preempted[0]['gens']}")
+    hits = fl.metric(fl.url, "tt_fleet_resume_hits_total")
+    check(hits >= 2, f"fleet-gateway: fleet.resume.hits {hits}")
+    out.update(killed=owner, kill_cursor_gens=cursor,
+               read_to_kill_ms=1e3 * (t_kill - t_read),
+               kill_resumed_at=kill_fence,
+               # the owner had done cursor or, had a fence passed between
+               # the read and the signal, cursor + a quantum
+               gens_rerun_at_kill_at_most=cursor + quantum - kill_fence,
+               kill_to_resumed_s=kill_to_resumed,
+               f1_fences=fences[jid],
+               respawn_ready_after_kill_s=respawn_ready,
+               preempted=owner3, preempted_at=preempted[0]["gens"],
+               preempt_resumed_at=res3["resumed_at"],
+               gens_rerun_at_preempt=(preempted[0]["gens"]
+                                      - res3["resumed_at"]),
+               preempt_to_exit_s=preempt_to_exit,
+               pid_preempted=pid3, resume_hits=hits)
+    return out
+
+
+def _fleet_exits(fl, exits, router):
+    """(e)'s checks after the first gateway's drain: each worker's last
+    incarnation and the preempted one exit 0, the killed one -9; the
+    log's routeEntry lines agree with the router's stats; each worker's
+    usageEntry flops above 0."""
+    out = {}
+    by_pid = {pid: (name, rc) for name, pid, rc in exits}
+    killed = [x for x in exits if x[2] == -9]
+    check(len(killed) == 1, f"fleet-gateway: exits {exits}")
+    clean = [x for x in exits if x[2] == 0]
+    check(len(clean) == len(exits) - 1 and len(clean) >= 3,
+          f"fleet-gateway: exits {exits}")
+    recs = fl.records()
+    routes = [r["routeEntry"] for r in recs if "routeEntry" in r]
+    tally = {o: sum(1 for r in routes if r["outcome"] == o)
+             for o in ("hit", "warm", "miss")}
+    check(len(routes) == router["routed"]
+          and tally["hit"] == router["affinity_hits"]
+          and tally["warm"] == router["warmups"]
+          and tally["miss"] == router["misses"],
+          f"fleet-gateway: routeEntry {tally} ({len(routes)}) against "
+          f"/v1/fleet {router}")
+    first = {}
+    for r in routes:
+        if r["job"] in {row[0] for row in SERVE_JOBS}:
+            b = tuple(r["bucket"])
+            want = "warm" if b not in first else "hit"
+            first.setdefault(b, r["replica"])
+            check(r["outcome"] == want,
+                  f"fleet-gateway: {r['job']} landed {r['outcome']}")
+    for name in ("r0", "r1"):
+        flops = sum(r["usageEntry"].get("flops", 0)
+                    for r in fl.records(name) if "usageEntry" in r)
+        check(flops > 0, f"fleet-gateway: {name}'s usageEntry flops "
+              f"{flops}")
+        out[f"usage_flops_{name}"] = flops
+    out.update(exits=exits, routes=tally, router_final=router)
+    return out
+
+
+def _fleet_autoscaler(texts, line_json):
+    """(d): the autoscaler's gateway over one worker."""
+    from timetabling_ga_tpu_torch.problem import dump_tim, load_tim_file
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    out = {}
+    fl = _Fleet("fleet_scale", [*FLEET_SCALE, *FLEET_CADENCE, "--",
+                                *FLEET_WORKER_ARGS])
+    try:
+        out["replica_boot_s"] = fl.wait_ready(["r0"], "the first worker")
+        burst = [("a" + str(k) + "-", row) for k in (1, 2)
+                 for row in SERVE_JOBS]
+        for prefix, row in burst:
+            fl.post("/v1/solve", _fleet_payload_of(row, texts, prefix))
+        deadline = time.monotonic() + 60.0
+        while fl.metric(fl.url, "tt_fleet_scale_ups_total") < 1:
+            check(time.monotonic() < deadline,
+                  "fleet-gateway: the burst never scaled up")
+            time.sleep(0.02)
+        t_up = time.monotonic()
+        ready = fl.wait_ready(["s0"], "the spawned worker", since=t_up)
+        # a bucket of its own: the least loaded, least pinned replica
+        fresh = dump_tim(cut_problem(load_tim_file(TIM), 200))
+        fl.post("/v1/solve", {"id": "fresh", "tim": fresh, "seed": 9,
+                              "generations": 50})
+        ids = [p + row[0] for p, row in burst] + ["fresh"]
+        views = fl.settle(ids, "the burst", timeout=300.0)
+        t_served = time.monotonic()
+        check(views["fresh"]["replica"] == "s0"
+              and views["fresh"]["state"] == "done",
+              f"fleet-gateway: the fresh bucket's job "
+              f"{views['fresh']['replica']} {views['fresh']['state']}")
+        for prefix, row in burst:
+            v = views[prefix + row[0]]
+            check(v["state"] == "done"
+                  and strip_timing(_as_job(v["records"], row[0]))
+                  == strip_timing(_job_records(line_json, row[0])),
+                  f"fleet-gateway: {prefix + row[0]} differs")
+        deadline = time.monotonic() + 60.0
+        while fl.metric(fl.url, "tt_fleet_scale_downs_total") < 1:
+            check(time.monotonic() < deadline,
+                  "fleet-gateway: idle never scaled down")
+            time.sleep(0.02)
+        t_down = time.monotonic()
+        retired = None
+        while retired is None:
+            retired = next((r["scaleEntry"]["replica"]
+                            for r in fl.records() if r.get(
+                                "scaleEntry", {}).get("action") == "down"
+                            and not r["scaleEntry"].get("blocked")), None)
+            check(time.monotonic() - t_down < 30.0,
+                  "fleet-gateway: no scaleEntry down on the log")
+            time.sleep(0.02)
+        pid = _serving_pids(fl.ports).get(
+            int(fl.replica(retired)["url"].rsplit(":", 1)[1]))
+        while pid is not None and _alive(pid):
+            check(time.monotonic() - t_down < 60.0,
+                  f"fleet-gateway: the retired {retired} never exited")
+            time.sleep(0.01)
+        down_to_exit = time.monotonic() - t_down
+        drained_s, exits = fl.drain("the autoscaler's gateway")
+        check(sorted(name for name, _, _ in exits) == ["r0", "s0"]
+              and all(rc == 0 for _, _, rc in exits),
+              f"fleet-gateway: the autoscaler's exits {exits}")
+        entries = [r["scaleEntry"] for r in fl.records()
+                   if "scaleEntry" in r]
+        acted = [(e["action"], e["reason"], e.get("replica"))
+                 for e in entries if not e.get("blocked")]
+        check(acted[:1] == [("up", "queue_depth", "s0")]
+              and any(a[:2] == ("down", "idle") for a in acted),
+              f"fleet-gateway: scale decisions {acted}")
+        out.update(decisions=acted, up_to_ready_s=ready["s0"],
+                   up_to_served_s=t_served - t_up, retired=retired,
+                   down_to_exit_s=down_to_exit,
+                   up_decision_ts=next(e["ts"] for e in entries
+                                       if e["action"] == "up"),
+                   exits=exits, drain_to_exit_s=drained_s)
+    finally:
+        fl.kill()
     return out
 
 
@@ -4791,6 +5446,8 @@ def main() -> int:
                       "launches": launches["serve"]}))
     print(json.dumps({"path": "fleet-replica",
                       **fleet_replica_path(serve_summary)}))
+    print(json.dumps({"path": "fleet-gateway",
+                      **fleet_gateway_path(serve_summary)}))
     print(json.dumps({"path": "serve-edit",
                       **serve_edits(base_wire, pa_cpu)}))
     pull, pull_launches = pullfront_path(pa_cpu[TIM])

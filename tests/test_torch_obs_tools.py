@@ -164,7 +164,7 @@ def test_reader_help_and_refusals_equal_jax(sub):
     with pytest.raises(SystemExit) as want:
         jcli.main([sub])
     assert str(got.value) == str(want.value)
-    assert sub not in tcli.NOT_PORTED_SUBCOMMANDS
+    assert sub in tcli.TORCH_FREE
 
 
 @contextlib.contextmanager

@@ -103,14 +103,21 @@ def _get(url):
 class _Scraper:
     """Records every ObsServer the port builds (the listener binds
     127.0.0.1:0, so its port is known only then) and scrapes each route
-    of the newest one from a thread until stopped."""
+    of the newest one from a thread until stopped.
+
+    The run is held at the front's start until the scraper has an
+    answer from every route and one non-empty history series (or
+    GATE_S passes): a 20-generation run on the 15-event instance can
+    end before a loaded worker lands one round of scrapes."""
 
     ROUTES = ("/metrics", "/healthz", "/readyz",
               "/metrics/history?window=10")
+    GATE_S = 60.0
 
     def __init__(self, monkeypatch):
         self.servers, self.answers = [], []
         self._stop = threading.Event()
+        self._ready = threading.Event()
         real = thttp.ObsServer
         scraper = self
 
@@ -118,6 +125,11 @@ class _Scraper:
             def __init__(self, *a, **k):
                 super().__init__(*a, **k)
                 scraper.servers.append(self)
+
+            def start(self):
+                started = super().start()
+                scraper._ready.wait(scraper.GATE_S)
+                return started
 
         monkeypatch.setattr(thttp, "ObsServer", Recorded)
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -133,9 +145,18 @@ class _Scraper:
                         (route, *_get(self.servers[-1].url + route)))
                 except (urllib.error.URLError, OSError):
                     pass            # the run ended and closed the front
+            if self._has_every_route():
+                self._ready.set()
+
+    def _has_every_route(self):
+        history = self.got("/metrics/history?window=10")
+        return (all(self.got(route) for route in self.ROUTES)
+                and any(a[1] == 200 and json.loads(a[3])["series"]
+                        for a in history))
 
     def close(self):
         self._stop.set()
+        self._ready.set()
         self._thread.join(timeout=10.0)
 
     def got(self, route):

@@ -2,8 +2,9 @@
 protocol half, `serve --http`) against the JAX package on the CPU:
 
   - the fleet flags parse as JAX's parse_serve_args does, refusals
-    included; `--mesh-devices 2` and the `fleet` and `submit`
-    subcommands are still refused by name;
+    included; `--mesh-devices 2` is still refused by name, and the
+    `fleet` and `submit` subcommands are served (JAX's flags under -h,
+    JAX's exits and messages without their input);
   - parse_solve_body, payload_counts, edit_payload_counts and JobTail
     (its cap and eviction) equal JAX's on a table of cases;
   - JAX's replica lifecycle script (tests/test_fleet.py
@@ -19,7 +20,8 @@ protocol half, `serve --http`) against the JAX package on the CPU:
   - `snapshot_ship:1:hang` and `:die` park or drop one handler while the
     drive loop advances;
   - no handler thread calls into torch.cuda;
-  - importing the port's fleet.replicas and fleet.gateway loads no torch;
+  - importing the port's fleet modules, and the CLI's `fleet` and
+    `submit` dispatch, load no torch;
   - a `serve --http --preempt-on-term --backend cpu` process sent
     SIGTERM exits 0 with the `preempted` record.
 
@@ -28,6 +30,7 @@ tests/test_fleet.py:58-65); JAX's services serve one device
 (--mesh-devices 1) so their lanes are the port's.
 """
 
+import contextlib
 import io
 import json
 import os
@@ -154,14 +157,52 @@ def test_fleet_flag_defaults_equal_jax():
 @pytest.mark.parametrize("argv,what", [
     (["serve", "--mesh-devices", "2"], "--mesh-devices 2"),
     (["serve", "--http", "127.0.0.1:0", "--mesh-devices", "2"],
-     "--mesh-devices 2"),
-    (["fleet", "--spawn", "1"], "the fleet subcommand"),
-    (["submit", "http://127.0.0.1:1", "x.tim"], "the submit subcommand")])
+     "--mesh-devices 2")])
 def test_still_refused_by_name(argv, what):
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     assert str(e.value).startswith(what)
     assert "not yet ported" in str(e.value)
+
+
+def _cli(main, argv):
+    """(exit, stdout, stderr) of one CLI call; a SystemExit is its
+    message."""
+    so, se = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = ("SystemExit", str(e))
+    return rc, so.getvalue(), se.getvalue()
+
+
+def _flags(usage):
+    return sorted(line.split()[0] for line in usage.splitlines()
+                  if line.startswith("  -"))
+
+
+@pytest.mark.parametrize("sub,bad", [
+    ("fleet", [[], ["--replica"], ["--spawn", "1", "--", "-o", "x"]]),
+    ("submit", [["http://127.0.0.1:1"],
+                ["http://127.0.0.1:1", "/nonexistent/x.tim"],
+                ["http://127.0.0.1:1", "x.tim", "-s", "one"]])])
+def test_fleet_and_submit_are_served(sub, bad):
+    """The fleet subcommands are no longer refused: -h gives JAX's flags,
+    and a call without its input stops with JAX's exit and message."""
+    from timetabling_ga_tpu import cli as jcli
+    got, want = _cli(tcli.main, [sub, "-h"]), _cli(jcli.main, [sub, "-h"])
+    assert got[0] == want[0] and _flags(got[1]) == _flags(want[1])
+    assert len(_flags(got[1])) > 10
+    for argv in bad:
+        got, want = _cli(tcli.main, [sub, *argv]), _cli(jcli.main,
+                                                         [sub, *argv])
+        assert got[0] == want[0] != 0, argv
+        if got[2].startswith("usage:"):
+            assert _flags(got[2]) == _flags(want[2])
+        else:
+            assert got[2] == want[2]
+    assert sub in tcli.TORCH_FREE
 
 
 # --------------------------------------------------------------- protocol
@@ -295,14 +336,27 @@ def test_tail_bounds_read_the_environment():
 
 
 def test_fleet_modules_import_no_torch():
-    """A client of the port's replica protocol (a gateway, a submit
-    client) loads no torch and no numpy."""
-    code = ("import sys; "
-            "import timetabling_ga_tpu_torch.fleet.replicas, "
-            "timetabling_ga_tpu_torch.fleet.gateway; "
-            "print('torch' in sys.modules, 'numpy' in sys.modules, "
-            "any(m == 'jax' or m.startswith('timetabling_ga_tpu.') "
-            "for m in sys.modules))")
+    """The fleet's control plane (gateway, router, replica set and
+    spawners, autoscaler, submit client) and the CLI's `fleet` and
+    `submit` dispatch load no torch and no numpy."""
+    code = """if True:
+        import contextlib, io, sys
+        import timetabling_ga_tpu_torch.fleet.autoscaler
+        import timetabling_ga_tpu_torch.fleet.client
+        import timetabling_ga_tpu_torch.fleet.gateway
+        import timetabling_ga_tpu_torch.fleet.replicas
+        import timetabling_ga_tpu_torch.fleet.router
+        from timetabling_ga_tpu_torch import cli
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["submit", "-h"])
+            try:
+                cli.main(["fleet", "-h"])
+            except SystemExit:
+                pass
+        print("torch" in sys.modules, "numpy" in sys.modules,
+              any(m == "jax" or m.startswith("timetabling_ga_tpu.")
+                  for m in sys.modules))
+    """
     out = subprocess.run(
         [sys.executable, "-c", code], check=True, cwd=REPO,
         capture_output=True, text=True,

@@ -1,5 +1,5 @@
 """The fleet replica and its client (port of timetabling_ga_tpu/fleet/
-replicas.py:1-1116 and :1298-1309, under the same names).
+replicas.py, under the same names).
 
   Replica       turns a SolveService into an HTTP replica: a DRIVE LOOP
                 owns every call that touches the card (admission's pad
@@ -15,6 +15,12 @@ replicas.py:1-1116 and :1298-1309, under the same names).
                 reads (readiness reasons, the backlog gauge, the
                 residency gauges, the incident and usage caches).
   http_json / http_text   the stdlib HTTP client both use.
+  ReplicaSet    the gateway's probe thread over its handles: death
+                after --dead-after failed probes (not while a worker
+                boots, --boot-grace), respawn within --max-restarts.
+  spawn_one / spawn_local   `serve --http` worker processes of the port
+                on fresh local ports (`fleet --spawn N`, the
+                autoscaler's scale-up).
 
 A draining replica finishes its jobs first (the loop steps until the
 queue has no active job), then closes its service, so the writer drains
@@ -34,9 +40,6 @@ the views read host fields. A settled job's problem tensors are dropped
 at once (`_reap_terminal`), so the card's memory does not grow with the
 jobs served.
 
-The replica set, its prober and the spawners (JAX ReplicaSet, free_port,
-spawn_one, spawn_local) serve the gateway, which is not ported yet.
-
 Stdlib and the port's protocol modules only at import: the solver
 stack (torch, the kernels) loads in `Replica.__init__`, so a client of
 http_json or ReplicaHandle loads no torch.
@@ -49,6 +52,7 @@ import io
 import itertools
 import json
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -61,7 +65,7 @@ from timetabling_ga_tpu_torch.fleet.gateway import TERMINAL, ApiHandler
 from timetabling_ga_tpu_torch.obs import http as obs_http
 from timetabling_ga_tpu_torch.obs import scrape as obs_scrape
 from timetabling_ga_tpu_torch.runtime import faults, jsonl
-from timetabling_ga_tpu_torch.runtime.config import ServeConfig
+from timetabling_ga_tpu_torch.runtime.config import FleetConfig, ServeConfig
 
 # the bound on a job's record tail on a replica: GET /v1/jobs/<id>
 # serves at most this many records (a job's stream is a handful of
@@ -402,6 +406,14 @@ class Replica:
             dataclasses.replace(cfg, output=None), out=self.tail,
             now=now, registry=registry)
         self.inbox = dispatch_core.CommandFence()
+        # the process's kernel launches (kernels.LAUNCHES) as
+        # `kernels.launches.<name>` pull gauges: a gateway's client reads
+        # on /metrics which kernels a worker process ran
+        from timetabling_ga_tpu_torch import kernels
+        for kname in kernels.LAUNCHES:
+            self.svc.registry.gauge_fn(
+                f"kernels.launches.{kname}",
+                lambda k=kname: float(kernels.LAUNCHES[k]))
         self.index: dict = {}        # states before admission, rejections
         self.index_lock = threading.Lock()
         self.auto_id = itertools.count(1)
@@ -655,6 +667,11 @@ def serve_http(cfg: ServeConfig) -> int:
     signal.signal(signal.SIGTERM, _drain)
     signal.signal(signal.SIGINT, _drain)
     replica.run()
+    # the loop has ended and the records are out: a later SIGTERM (a
+    # gateway reaping a replica whose front went quiet) has nothing left
+    # to stop, and must not turn the teardown into a signal death
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
     if replica.front is not None:
         replica.front.close()
     return 0
@@ -906,6 +923,193 @@ class ReplicaHandle:
                 "dead": self.dead, "restarts": self.restarts,
                 "queue_depth": self.queue_depth,
                 "compile_hit_rate": round(self.compile_hit_rate(), 4)}
+
+
+class ReplicaSet:
+    """The probe thread's owner over a set of handles. It detects death
+    (`dead_after` failed probes in a row, or a reaped process), respawns
+    spawned workers within `max_restarts`, and reports every death
+    through `on_death(handle, respawned)`, the gateway's failover
+    trigger. A restarted process comes back cold (no warm buckets, an
+    empty queue), so its jobs fail over as a dead replica's do."""
+
+    def __init__(self, handles, probe_every: float = 0.5,
+                 probe_timeout: float = 2.0, dead_after: int = 3,
+                 max_restarts: int = 0, on_death=None,
+                 boot_grace: float = 120.0):
+        self._handles = {h.name: h for h in handles}
+        self.probe_every = probe_every
+        self.probe_timeout = probe_timeout
+        self.dead_after = dead_after
+        self.max_restarts = max_restarts
+        self.on_death = on_death
+        self.boot_grace = boot_grace
+        self._no_restart = False
+        self._exits: set = set()     # pids whose exit was reported
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._probe_loop, name="tt-fleet-probe",
+            daemon=True)
+
+    # -- views ----------------------------------------------------------
+
+    def all(self) -> list:
+        return list(self._handles.values())
+
+    def live(self) -> list:
+        return [h for h in self._handles.values() if not h.dead]
+
+    def get(self, name: str):
+        return self._handles.get(name)
+
+    def add(self, handle: ReplicaHandle) -> None:
+        """Adopt a replica mid-run (the autoscaler's scale-up): the
+        prober takes it up next round, and `--boot-grace` covers its
+        start as at a startup spawn. One dict store: the probe loop
+        iterates over copies."""
+        self._handles[handle.name] = handle
+
+    # -- probing --------------------------------------------------------
+
+    def start(self) -> "ReplicaSet":
+        self._thread.start()
+        return self
+
+    def probe_all(self) -> None:
+        for handle in list(self._handles.values()):
+            if not handle.dead:
+                self._probe_one(handle)
+            elif (handle.respawn is None and handle.proc is None
+                  and not handle.retired):
+                # a static (externally managed) replica is probed after
+                # its death too: a network blip must not remove a
+                # healthy process for good. It rejoins cold on its first
+                # answered probe; a spawned worker's corpse stays dead
+                if handle.probe(self.probe_timeout):
+                    handle.dead = False
+                    handle.fails = 0
+
+    def _probe_loop(self) -> None:
+        while not self._stop.wait(self.probe_every):
+            self.probe_all()
+
+    def _probe_one(self, handle: ReplicaHandle) -> None:
+        exited = handle.process_exited()
+        ok = False if exited else handle.probe(self.probe_timeout)
+        if ok:
+            handle.fails = 0
+            return
+        handle.ready = False
+        if exited:
+            self._note_exit(handle)
+        if (not exited and not handle.ok_once
+                and time.monotonic() - handle.born < self.boot_grace):
+            # still booting (a spawned worker imports torch and binds
+            # its port first): unreachable is expected, not a death
+            return
+        handle.fails += 1
+        if exited or handle.fails >= self.dead_after:
+            self._declare_dead(handle)
+
+    def _declare_dead(self, handle: ReplicaHandle) -> None:
+        respawned = False
+        if (not self._no_restart and not handle.retired
+                and handle.respawn is not None
+                and handle.restarts < self.max_restarts):
+            try:
+                handle.terminate()   # reap a half-dead process first
+                self._note_exit(handle)
+                # the dying incarnation's metered work joins the retired
+                # ledger before the fresh worker answers /v1/usage
+                handle.retire_usage()
+                handle.proc = handle.respawn()
+                handle.restarts += 1
+                handle.fails = 0
+                handle.ok_once = False
+                handle.born = time.monotonic()
+                # a fresh incarnation counts its dumps from 0 again
+                # (last_incident stays: the dead one's bundle is the
+                # death's evidence until a newer one lands)
+                handle.flight_dumps = 0.0
+                respawned = True
+            except Exception:
+                pass
+        if not respawned:
+            handle.dead = True
+        if self.on_death is not None:
+            self.on_death(handle, respawned)
+
+    def stop_restarts(self) -> None:
+        """Drain mode: replicas exiting after their drain are done, not
+        dead; stop respawning them."""
+        self._no_restart = True
+
+    def _note_exit(self, handle: ReplicaHandle) -> None:
+        """One stderr line for each spawned worker process that ended,
+        with its exit status (the gateway, its parent, is the only
+        process that can read it)."""
+        proc = handle.proc
+        rc = getattr(proc, "returncode", None)
+        if rc is None or proc.pid in self._exits:
+            return
+        self._exits.add(proc.pid)
+        print(f"# tt fleet: replica {handle.name} (pid {proc.pid}) "
+              f"exited {rc}", file=sys.stderr, flush=True)
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=5.0)
+        for handle in self._handles.values():
+            handle.terminate()
+            self._note_exit(handle)
+
+
+# ------------------------------------------------------------- spawning
+
+
+def free_port() -> int:
+    """An ephemeral local port (bind, then release; the worker binds it
+    a moment later). A worker that loses the port to another process
+    exits, and its prober declares it dead."""
+    s = socket.socket()
+    try:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+    finally:
+        s.close()
+
+
+def spawn_one(cfg: FleetConfig, name: str) -> ReplicaHandle:
+    """One `serve --http` worker process of the port on a fresh local
+    port, on `cfg.backend` (the card unless `--backend cpu`): the unit
+    behind `--spawn N` and the autoscaler's scale-up. Its record stream
+    goes to ./tt-fleet-<name>.jsonl unless the passthrough serve flags
+    set -o; the respawn closure reuses the port, so a restarted replica
+    keeps its URL. Workers started together share the kernel build
+    directory safely: each library is written under a name of its
+    content's hash through a per-process temporary file and an atomic
+    rename (kernels.build)."""
+    port = free_port()
+    argv = [sys.executable, "-m", "timetabling_ga_tpu_torch", "serve",
+            "--http", f"127.0.0.1:{port}",
+            "--backend", cfg.backend]
+    if "-o" not in cfg.serve_args:
+        argv += ["-o", f"tt-fleet-{name}.jsonl"]
+    argv += list(cfg.serve_args)
+
+    def respawn(argv=tuple(argv)):
+        return subprocess.Popen(
+            list(argv), stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+
+    return ReplicaHandle(name, f"http://127.0.0.1:{port}",
+                         proc=respawn(), respawn=respawn)
+
+
+def spawn_local(cfg: FleetConfig) -> list:
+    """`fleet --spawn N`: one `serve --http` worker a replica."""
+    return [spawn_one(cfg, f"r{i}") for i in range(cfg.spawn)]
 
 
 def in_process_replica(cfg: ServeConfig, name: str, now=None) -> tuple:

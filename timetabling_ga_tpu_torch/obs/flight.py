@@ -36,7 +36,7 @@ trigger and readiness reasons, the config fingerprint, a registry
 snapshot, the history window (obs/history.py), both rings and the
 `device.mem_*` series. A bundle that names peers (`trigger(reason,
 peers)` with a `peers_fn`) pulls their bundles and stitches one
-timeline; no process of the port has peers until the fleet is ported.
+timeline: the fleet gateway's, at a failover or an SLO burn.
 `incident DIR` renders a bundle as Perfetto-loadable JSON, and `trace`
 reads bundles next to JSONL logs.
 
@@ -525,22 +525,26 @@ class FlightRecorder:
             return self._latest
 
 
-def wire(cfg, out, registry=None, process: str = "engine"):
-    """The one wiring engine.run and SolveService.__init__ share: build
-    the history ring (under any obs surface), the recorder, and the
-    teed record sink. Returns (history, flight, sink); the caller still
-    owns `bind_tracer(...)` + `start()` (the tracer exists only after
-    the writer the sink feeds) and the teardown ordering. If the
-    recorder's construction fails, the just-started sampler is closed
-    before the error propagates — no half-wired thread leaks. (JAX's
-    wire also takes the fleet gateway's `peers_fn`, `now` and
-    `history_always`; the port has no gateway yet.)"""
+def wire(cfg, out, registry=None, process: str = "engine",
+         peers_fn=None, now=time.monotonic,
+         history_always: bool = False):
+    """The one wiring engine.run, SolveService.__init__ and the fleet
+    Gateway share: build the history ring (under any obs surface, or
+    always for a gateway), the recorder, and the teed record sink.
+    Returns (history, flight, sink); the caller still owns
+    `bind_tracer(...)` + `start()` (the tracer exists only after the
+    writer the sink feeds) and the teardown ordering. If the recorder's
+    construction fails, the just-started sampler is closed before the
+    error propagates — no half-wired thread leaks. `peers_fn` is the
+    gateway's pull of its replicas' bundles (stitched dumps)."""
     history = None
-    if cfg.history_every > 0 and (cfg.obs or cfg.obs_listen
-                                  or cfg.incident_dir):
+    if cfg.history_every > 0 and (
+            history_always or getattr(cfg, "obs", False)
+            or getattr(cfg, "obs_listen", None) or cfg.incident_dir):
         from timetabling_ga_tpu_torch.obs import history as obs_history
         history = obs_history.HistoryRing(
-            registry=registry, every_s=cfg.history_every).start()
+            registry=registry, every_s=cfg.history_every,
+            now=now).start()
     flight = None
     sink = out
     if cfg.incident_dir:
@@ -548,7 +552,8 @@ def wire(cfg, out, registry=None, process: str = "engine"):
             flight = FlightRecorder(
                 cfg.incident_dir, registry=registry, history=history,
                 min_interval_s=cfg.incident_min_interval,
-                process=process, config=cfg)
+                process=process, config=cfg, peers_fn=peers_fn,
+                now=now)
         except BaseException:
             if history is not None:
                 history.close()

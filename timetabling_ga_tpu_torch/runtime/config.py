@@ -37,7 +37,10 @@ port serves (`--trace-mode full|deltas|stats`, `--quality`, `--obs`,
 the five flags above among them, the fault plan, the per-job recovery
 budget, the shedding marks, and the fleet replica's `--http`,
 `--preempt-grace` and `--preempt-on-term`); `--mesh-devices` above 1
-stops the parse by name.
+stops the parse by name. `FleetConfig` and `parse_fleet_args` are the
+`fleet` subcommand's (JAX config.py:941-1314): the same flags, defaults,
+checks and messages, but for `--backend`, which takes `gpu` (the
+default: spawned workers run on the card) or `cpu`.
 """
 
 from __future__ import annotations
@@ -594,4 +597,307 @@ def parse_serve_args(argv) -> ServeConfig:
     if cfg.bucket_ratio <= 1.0:
         raise SystemExit("--bucket-ratio must be > 1.0 (geometric "
                          "bucket growth)")
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# The fleet gateway (`fleet`, timetabling_ga_tpu_torch/fleet).
+
+
+@dataclasses.dataclass
+class FleetConfig:
+    """Configuration of the fleet gateway (JAX config.py:941,
+    fleet/gateway.py): one HTTP solve API over N replicas, each job
+    routed where its bucket is warm (fleet/router.py). Replicas come
+    from a static `--replica URL` list, or `--spawn N` local worker
+    processes (`serve --http`, fleet/replicas.py). Flags after a
+    literal `--` pass through to spawned workers, and the gateway
+    parses them as serve flags for its bucket spec, so router and
+    workers agree. Spawned workers run on the card (`backend` "gpu",
+    where JAX's default is "tpu") unless `--backend cpu`."""
+
+    listen: str = "127.0.0.1:8070"   # gateway HTTP bind
+    replicas: list = dataclasses.field(default_factory=list)
+    spawn: int = 0                   # local worker processes to spawn
+    backend: str = "gpu"             # backend for spawned workers
+    probe_every: float = 0.5         # liveness + /readyz + /metrics
+    #                                  scrape cadence (the router's
+    #                                  inputs refresh at this rate)
+    poll_every: float = 0.2          # job-status poll cadence on the
+    #                                  dispatcher thread (handlers
+    #                                  serve the cached copy)
+    probe_timeout: float = 2.0       # control-plane HTTP timeout
+    #                                  (/readyz, /metrics, state polls)
+    io_timeout: float = 30.0         # data-plane HTTP timeout
+    #                                  (submissions, terminal record
+    #                                  tails: a problem-JSON payload can
+    #                                  be tens of MB)
+    max_restarts: int = 3            # restarts a spawned replica may
+    #                                  take after deaths
+    dead_after: int = 3              # failed probes in a row before a
+    #                                  replica is dead and its jobs
+    #                                  fail over
+    boot_grace: float = 120.0        # seconds a replica that never
+    #                                  answered may stay unreachable
+    #                                  before failures count (a worker
+    #                                  imports torch and binds its port
+    #                                  first)
+    place_timeout: float = 120.0     # seconds a job may wait in
+    #                                  requeue-and-retry placement
+    #                                  (e.g. every replica booting),
+    #                                  counted from its placement round
+    retain_terminal: int = 4096      # settled jobs kept queryable;
+    #                                  the oldest beyond are evicted
+    #                                  (404)
+    route_retries: int = 3           # submission attempts a replica
+    #                                  (runtime/retry.py schedule)
+    retry_wait_s: float = 0.2        # base wait of that schedule
+    backlog: int = 256               # gateway job-table admission bound
+    snapshot_timeout: float = 5.0    # HTTP budget of one ?snapshot=1
+    #                                  cache refresh: it runs on the
+    #                                  one dispatcher thread and is an
+    #                                  optimization, so one hung
+    #                                  replica's export must not eat
+    #                                  the fleet's tick
+    snapshot_hwm: int = 256 * 1024 * 1024
+    #                                  byte budget of the per-job
+    #                                  snapshot cache: the newest
+    #                                  fingerprint-valid wire of each
+    #                                  job in flight, oldest progress
+    #                                  evicted first over the budget;
+    #                                  an uncached job fails over by
+    #                                  replay. 0 disables the cache
+    faults: Optional[str] = None     # fault plan (gateway/route/
+    #                                  gw_writer/gw_scrape sites)
+    # ---- the gateway's own telemetry and readiness
+    output: Optional[str] = None     # -o LOG: the gateway's JSONL stream
+    #                                  (dispatcher spans with
+    #                                  cross-process flow ids, a
+    #                                  routeEntry a placement,
+    #                                  metricsEntry snapshots, SLO
+    #                                  faultEntry records); None = none
+    metrics_every: int = 50          # dispatcher ticks between
+    #                                  metricsEntry snapshots (0 = only
+    #                                  the final one)
+    slo_p99: float = 0.0             # rolling p99 bound (seconds) over
+    #                                  submit-to-settled latencies;
+    #                                  above it /readyz reports
+    #                                  `slo_burn`. 0 = no SLO monitor
+    slo_window: int = 100            # settled jobs in that window
+    stall_after: float = 60.0        # seconds since the dispatcher's
+    #                                  last tick before /readyz reports
+    #                                  `dispatcher_stalled` (0 = off)
+    # ---- the history ring and the flight recorder (RunConfig's
+    # semantics); the gateway also triggers on failover and SLO burn and
+    # stitches the involved replicas' bundles into one
+    history_every: float = 1.0
+    incident_dir: Optional[str] = None
+    incident_min_interval: float = 30.0
+    # ---- the autoscaler (fleet/autoscaler.py), on when --scale-max > 0;
+    # it acts on the --spawn pool, or only logs under --scale-dry-run
+    scale_min: int = 1               # never retire below this many
+    scale_max: int = 0               # never spawn above this many;
+    #                                  0 = autoscaler off
+    scale_up_queue: float = 8.0      # spawn: serve.queue_depth >= this
+    scale_up_for: float = 30.0       #   for this many seconds (also the
+    #                                  fleet.slo_burn window)
+    scale_down_queue: float = 1.0    # retire: queue_depth <= this
+    scale_down_for: float = 120.0    #   for this many seconds
+    scale_idle_window: float = 300.0  # a victim's own mean backlog over
+    #                                  this window must be at or below
+    #                                  the retire threshold too
+    scale_cooldown: float = 60.0     # seconds after an action before
+    #                                  the next (the below-min floor
+    #                                  heal bypasses it)
+    scale_every: float = 1.0         # policy evaluation cadence
+    scale_warm_recent: float = 120.0  # a bucket routed within this many
+    #                                  seconds is hot: its only warm
+    #                                  replica is never retired
+    scale_starve_rate: float = 0.0   # spawn when a tenant's
+    #                                  usage.tenant.<t>.queue_seconds
+    #                                  grows at this rate (s/s); 0 = off
+    scale_dry_run: bool = False      # log decisions, actuate nothing
+    serve_args: list = dataclasses.field(default_factory=list)
+    #                                  verbatim worker flags (after --)
+
+
+_FLEET_FLAG_MAP = {
+    "--listen": ("listen", str),
+    "-o": ("output", str),
+    "--metrics-every": ("metrics_every", int),
+    "--slo-p99": ("slo_p99", float),
+    "--slo-window": ("slo_window", int),
+    "--stall-after": ("stall_after", float),
+    "--history-every": ("history_every", float),
+    "--incident-dir": ("incident_dir", str),
+    "--incident-min-interval": ("incident_min_interval", float),
+    "--spawn": ("spawn", int),
+    "--backend": ("backend", str),
+    "--probe-every": ("probe_every", float),
+    "--poll-every": ("poll_every", float),
+    "--probe-timeout": ("probe_timeout", float),
+    "--io-timeout": ("io_timeout", float),
+    "--max-restarts": ("max_restarts", int),
+    "--dead-after": ("dead_after", int),
+    "--boot-grace": ("boot_grace", float),
+    "--place-timeout": ("place_timeout", float),
+    "--retain-terminal": ("retain_terminal", int),
+    "--route-retries": ("route_retries", int),
+    "--retry-wait": ("retry_wait_s", float),
+    "--backlog": ("backlog", int),
+    "--snapshot-hwm": ("snapshot_hwm", int),
+    "--snapshot-timeout": ("snapshot_timeout", float),
+    "--scale-min": ("scale_min", int),
+    "--scale-max": ("scale_max", int),
+    "--scale-up-queue": ("scale_up_queue", float),
+    "--scale-up-for": ("scale_up_for", float),
+    "--scale-down-queue": ("scale_down_queue", float),
+    "--scale-down-for": ("scale_down_for", float),
+    "--scale-idle-window": ("scale_idle_window", float),
+    "--scale-cooldown": ("scale_cooldown", float),
+    "--scale-every": ("scale_every", float),
+    "--scale-warm-recent": ("scale_warm_recent", float),
+    "--scale-starve-rate": ("scale_starve_rate", float),
+    "--faults": ("faults", str),
+}
+
+_FLEET_BOOL_FLAGS = {"--scale-dry-run": "scale_dry_run"}
+
+
+def _fleet_usage() -> str:
+    return _format_usage(
+        "usage: python -m timetabling_ga_tpu_torch fleet --listen H:P "
+        "(--replica URL ... | --spawn N) [flags] [-- serve flags]\n\n"
+        "fleet gateway: HTTP solve front + bucket-affine router over "
+        "N replicas (`--replica` may repeat; flags after `--` pass "
+        "through to spawned `serve --http` workers):",
+        {"--replica": ("replicas (repeatable)", str),
+         **_FLEET_FLAG_MAP},
+        (_FLEET_BOOL_FLAGS,))
+
+
+def parse_fleet_args(argv) -> FleetConfig:
+    """Parse the `fleet` subcommand's flags (JAX config.py:1215, the
+    same checks and messages). `--replica URL` repeats; everything
+    after a literal `--` is kept verbatim for spawned workers (and
+    parsed as serve flags by the gateway for its bucket spec)."""
+    cfg = FleetConfig()
+    argv = list(argv)
+    if "--" in argv:
+        split = argv.index("--")
+        cfg.serve_args = argv[split + 1:]
+        argv = argv[:split]
+    rest = []
+    i = 0
+    while i < len(argv):
+        if argv[i] == "--replica":
+            if i + 1 >= len(argv):
+                raise SystemExit("flag --replica needs a value")
+            cfg.replicas.append(argv[i + 1])
+            i += 2
+        else:
+            rest.append(argv[i])
+            i += 1
+    _parse_flag_stream(rest, cfg, _FLEET_FLAG_MAP, _fleet_usage,
+                       _FLEET_BOOL_FLAGS, {})
+    _validate_obs_listen(cfg.listen)
+    if cfg.backend not in ("gpu", "cpu"):
+        raise SystemExit(f"unknown backend: {cfg.backend} (gpu or cpu)")
+    if cfg.spawn < 0:
+        raise SystemExit("--spawn must be >= 0 worker processes")
+    if not cfg.replicas and cfg.spawn == 0:
+        raise SystemExit("fleet needs replicas: pass --replica URL "
+                         "(repeatable) or --spawn N")
+    if cfg.replicas and cfg.spawn:
+        raise SystemExit("--replica and --spawn are exclusive: either "
+                         "the fleet manages its own local workers or "
+                         "it fronts externally managed ones")
+    if cfg.probe_every <= 0 or cfg.poll_every <= 0:
+        raise SystemExit("--probe-every / --poll-every must be > 0 "
+                         "seconds")
+    if cfg.probe_timeout <= 0 or cfg.io_timeout <= 0:
+        raise SystemExit("--probe-timeout / --io-timeout must be > 0 "
+                         "seconds")
+    if cfg.max_restarts < 0:
+        raise SystemExit("--max-restarts must be >= 0")
+    if cfg.dead_after < 1:
+        raise SystemExit("--dead-after must be >= 1 failed probes")
+    if cfg.boot_grace < 0 or cfg.place_timeout < 0:
+        raise SystemExit("--boot-grace / --place-timeout must be "
+                         ">= 0 seconds")
+    if cfg.retain_terminal < 1:
+        raise SystemExit("--retain-terminal must be >= 1 settled job")
+    if cfg.route_retries < 1:
+        raise SystemExit("--route-retries must be >= 1 attempts")
+    if cfg.retry_wait_s <= 0:
+        raise SystemExit("--retry-wait must be > 0 seconds")
+    if cfg.backlog < 1:
+        raise SystemExit("--backlog must be >= 1")
+    if cfg.snapshot_hwm < 0:
+        raise SystemExit("--snapshot-hwm must be >= 0 bytes (0 "
+                         "disables the snapshot cache: failover "
+                         "replays from generation 0)")
+    if cfg.snapshot_timeout <= 0:
+        raise SystemExit("--snapshot-timeout must be > 0 seconds")
+    if cfg.metrics_every < 0:
+        raise SystemExit("--metrics-every must be >= 0 dispatcher "
+                         "ticks (0 = only the final snapshot)")
+    if cfg.slo_p99 < 0:
+        raise SystemExit("--slo-p99 must be >= 0 seconds (0 disables "
+                         "the SLO monitor)")
+    if cfg.slo_window < 1:
+        raise SystemExit("--slo-window must be >= 1 settled jobs")
+    if cfg.stall_after < 0:
+        raise SystemExit("--stall-after must be >= 0 seconds (0 "
+                         "disables the dispatcher watchdog)")
+    _validate_flight(cfg)
+    if cfg.scale_max < 0:
+        raise SystemExit("--scale-max must be >= 0 replicas "
+                         "(0 disables the autoscaler)")
+    if cfg.scale_max > 0:
+        # the autoscaler (fleet/autoscaler.py) needs a worker pool to
+        # grow and shrink and a history ring to evaluate
+        if cfg.scale_min < 1:
+            raise SystemExit("--scale-min must be >= 1 replica (the "
+                             "fleet must keep something to route to)")
+        if cfg.scale_min > cfg.scale_max:
+            raise SystemExit("--scale-min must not exceed --scale-max")
+        if not cfg.spawn and not cfg.scale_dry_run:
+            raise SystemExit(
+                "--scale-max needs the --spawn worker pool (the "
+                "actuator spawns/retires local workers; a static "
+                "--replica fleet has no pool) — or --scale-dry-run "
+                "to evaluate the policy without acting")
+        if cfg.history_every <= 0:
+            raise SystemExit("--scale-max needs --history-every > 0 "
+                             "(the policy evaluates obs/history.py "
+                             "sustained()/rate()/mean_over() windows)")
+        if cfg.scale_every <= 0:
+            raise SystemExit("--scale-every must be > 0 seconds")
+        if cfg.scale_up_for <= 0 or cfg.scale_down_for <= 0:
+            raise SystemExit("--scale-up-for / --scale-down-for must "
+                             "be > 0 seconds (a sustained window)")
+        if cfg.scale_up_queue <= cfg.scale_down_queue:
+            raise SystemExit(
+                "--scale-up-queue must exceed --scale-down-queue "
+                "(overlapping trigger bands guarantee flapping)")
+        if (cfg.scale_cooldown < 0 or cfg.scale_idle_window < 0
+                or cfg.scale_warm_recent < 0
+                or cfg.scale_starve_rate < 0):
+            raise SystemExit("--scale-cooldown / --scale-idle-window "
+                             "/ --scale-warm-recent / "
+                             "--scale-starve-rate must be >= 0")
+    # the worker flags must themselves parse (a typo would otherwise
+    # only surface as N crashed spawns); the parsed copy also gives
+    # the gateway its bucket spec, so router and workers agree
+    if cfg.serve_args:
+        parse_serve_args(cfg.serve_args)
+    if cfg.spawn and "-o" in cfg.serve_args:
+        # N worker processes appending one record file interleave
+        # torn JSONL lines; each spawned worker writes its own
+        # tt-fleet-<name>.jsonl instead (fleet/replicas.spawn_one)
+        raise SystemExit("-o in the worker passthrough flags would "
+                         "make every spawned replica write ONE shared "
+                         "record file; drop it — workers write "
+                         "./tt-fleet-<name>.jsonl each")
     return cfg

@@ -343,6 +343,50 @@ def prof_entry(stream: IO, payload: dict, ts=None, **extra) -> None:
     _write(stream, {"profEntry": rec})
 
 
+def route_entry(stream: IO, job: str, bucket, replica: str,
+                outcome: str, **extra) -> None:
+    """One placement decision of the fleet gateway's dispatcher (emitted
+    only under the gateway's `-o LOG`), JAX's record:
+
+      {"routeEntry":{"job":"j42","bucket":[64,8,8,64,5,9],
+                     "replica":"r0","outcome":"hit","backlog":1.0,
+                     "pins":2,"compile_hit_rate":0.93,"attempt":1}}
+
+    `outcome` is the router's affinity class (hit / warm / miss,
+    fleet/router.py); the extra fields are the score inputs the decision
+    read. A TIMING_RECORDS member, so strip_timing drops it."""
+    rec = {"job": str(job),
+           "bucket": list(bucket) if bucket is not None else None,
+           "replica": str(replica), "outcome": str(outcome)}
+    for k, v in extra.items():
+        rec[k] = v
+    _write(stream, {"routeEntry": rec})
+
+
+def scale_entry(stream: IO, action: str, reason: str, ts=None,
+                **extra) -> dict:
+    """One autoscaler decision (fleet/autoscaler.py; emitted only under
+    the gateway's `-o LOG`), JAX's record:
+
+      {"scaleEntry":{"action":"up","reason":"queue_depth",
+                     "replica":"s1","live":1,"target":2,
+                     "dry_run":false,"evidence":{
+                       "serve.queue_depth":{"op":">=","threshold":8.0,
+                                            "for_s":30.0,"mean":12.4}},
+                     "ts":41.2}}
+
+    `action` is up / down / blocked_warmth / blocked_cooldown / hold;
+    `evidence` holds the window queries behind the decision (the
+    numbers `scale` renders). A TIMING_RECORDS member, so strip_timing
+    drops it."""
+    rec = {"action": str(action), "reason": str(reason)}
+    for k, v in extra.items():
+        rec[k] = v
+    if ts is not None:
+        rec["ts"] = round(max(0.0, float(ts)), 6)
+    return _write(stream, {"scaleEntry": rec})
+
+
 def phase_record(stream: IO, name: str, trial: int, seconds: float,
                  **extra) -> None:
     """Per-phase host timing (extension record, --trace only)."""

@@ -20,15 +20,22 @@ So for any genotype that places the live events as an unpadded genotype
 does, (penalty, hcv, scv) are equal bit for bit, and the greedy matcher
 gives the live events the same rooms (tests/test_torch_serve.py holds
 both against JAX's, as tests/test_serve.py does for JAX).
+
+The key math (BucketSpec, bucket_key_from_counts) loads neither torch
+nor numpy, so the fleet gateway routes by bucket without them; the
+padding imports them when it runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import TYPE_CHECKING
 
-import numpy as np
+if TYPE_CHECKING:
+    import numpy as np
 
-from timetabling_ga_tpu_torch.problem import Problem, derive
+    from timetabling_ga_tpu_torch.problem import Problem
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +63,7 @@ def _round_up(n: int, floor: int, ratio: float) -> int:
         return floor
     size = floor
     while size < n:
-        size = int(np.ceil(size * ratio))
+        size = math.ceil(size * ratio)
     return size
 
 
@@ -102,6 +109,9 @@ def pad_problem(problem: Problem, spec: BucketSpec = DEFAULT_SPEC
     `n_live_rooms` drive the ProblemArrays validity masks. Idempotent
     on an already-bucket-shaped instance (same dims in = same dims
     out), and a no-op-shaped instance still gets the mask fields set."""
+    import numpy as np
+
+    from timetabling_ga_tpu_torch.problem import derive
     E, R, F, S = (problem.n_events, problem.n_rooms, problem.n_features,
                   problem.n_students)
     Ep, Rp, Fp, Sp = bucket_dims(problem, spec)
@@ -160,6 +170,7 @@ def embed_population(slots: np.ndarray, rooms: np.ndarray,
 
     Padded events are parked at slot 0 / room 0 — any valid indices
     work, since the masks make them fitness- and matching-invisible."""
+    import numpy as np
     P, E = slots.shape
     Ep = padded.n_events
     s = np.zeros((P, Ep), np.int32)
@@ -171,6 +182,7 @@ def embed_population(slots: np.ndarray, rooms: np.ndarray,
 
 def extract_solution(slots, rooms, padded: Problem):
     """Slice a padded genotype back to the live events."""
+    import numpy as np
     E = (padded.n_live_events if padded.n_live_events is not None
          else padded.n_events)
     return np.asarray(slots)[..., :E], np.asarray(rooms)[..., :E]

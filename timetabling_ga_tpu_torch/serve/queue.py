@@ -27,12 +27,14 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 from timetabling_ga_tpu_torch.obs.usage import (  # noqa: F401
     DEFAULT_TENANT, tenant_label)
-from timetabling_ga_tpu_torch.problem import Problem
 from timetabling_ga_tpu_torch.serve.snapshot import SHIP_RECORDS_CAP
+
+if TYPE_CHECKING:     # the queue itself loads no torch (a gateway
+    from timetabling_ga_tpu_torch.problem import Problem  # imports it)
 
 
 class JobState:

@@ -41,8 +41,6 @@ import os
 import zlib
 from typing import Optional
 
-import numpy as np
-
 WIRE_VERSION = 1
 
 # bound on the record prefix a ship unit mirrors: beyond it the oldest
@@ -83,6 +81,7 @@ def pack_state(state, *, bucket, pop_size: int, seed: int,
     """One job's host PopState and progress cursor as a wire object;
     `usage` (the job's cumulative meter) rides as the cursor when
     non-empty."""
+    import numpy as np
     buf = io.BytesIO()
     np.savez(buf, **{f: np.asarray(getattr(state, f)) for f in _FIELDS})
     raw = buf.getvalue()
@@ -140,6 +139,8 @@ def unpack_state(wire, expect_fingerprint: Optional[str] = None):
     """verify_wire, then the arrays: (PopState of numpy arrays, meta)
     with meta {'gens_done', 'chunks', 'emitted', 'best'}. A torn npz
     raises SnapshotCorrupt."""
+    import numpy as np
+
     from timetabling_ga_tpu_torch.ops import ga
     from timetabling_ga_tpu_torch.runtime.checkpoint import CORRUPT_ERRORS
     raw = verify_wire(wire, expect_fingerprint)
