@@ -141,7 +141,28 @@
    serves a bucket of its own, idle scales down through the preempt
    drain; kill-to-resumed, preempt-to-exit, boot and decision-to-ready
    seconds and lane-gens/s through the gateway beside the line-JSON
-   leg's printed;
+   leg's printed; then islands across cards and processes (the mesh
+   phase, one `mesh` line, after K7's halo form `migrate_halo` is held
+   against migrate_plain with the same halo rows at 2-4 shards of the
+   card x 1-2 islands x pop 3 and 8 (E = 8) and on comp01s at 2 shards
+   x 2 islands x 16 rows, populations and gains exact, and timed beside
+   its in-card form): (a) the main path's tuned config on 4 islands at
+   MESH_MAIN's generations, on one shard and on a 2-shard mesh of the
+   card (the engine in this process over [cuda:0, cuda:0]), the streams
+   equal under strip_timing, every migration of the mesh run K7's halo
+   form; (b) the reference config on 4 islands in one process and in
+   two processes sharing the card (`--coordinator`, 2 islands each;
+   gloo, printed as such), process 0's stream equal to one process's,
+   process 1's never written; (c) `--faults dispatch@1:2:die
+   --peer-timeout 5 --checkpoint`: process 0 exits 70 with the abort
+   faultEntry (lostProc 1, agreed false) and the checkpoint, and a fresh
+   two-process `--resume` run ends as (b); (d) ms a halo exchange
+   through gloo between two processes on the card; (e) SERVE_JOBS on a
+   2-shard lane mesh of the card, each job's records equal to the serve
+   path's line-JSON leg; the gens/s of each layout, the lane-gens/s at
+   1 and 2 shards and the phase's wall printed with the card's name and
+   power limit (NCCL and copies between cards are not measured: one
+   card);
    then the dispatch pipeline and in-run fault recovery on the
    reference config (comp01s, `--no-auto-tune -p 2 -s 42`, 300
    generations): (a) pipelined (the default) against `--no-pipeline`,
@@ -307,6 +328,10 @@ KERNELS = {
                   "timetabling_ga_tpu/ops/ga.py:290", "main"),
     "migrate": ("timetabling_ga_tpu_torch/csrc/survivors.cu",
                 "timetabling_ga_tpu/parallel/islands.py:213", "main"),
+    # K7's migrate with an island mesh's halo rows (the lax.ppermute
+    # edges of _migrate): the main path on a 2-shard mesh of one card
+    "migrate_halo": ("timetabling_ga_tpu_torch/csrc/survivors.cu",
+                     "timetabling_ga_tpu/parallel/islands.py:262", "mesh"),
     "random_ls_events": ("timetabling_ga_tpu_torch/csrc/random_ls.cu",
                          "timetabling_ga_tpu/ops/moves.py:128", "reference"),
     "random_ls": ("timetabling_ga_tpu_torch/csrc/random_ls.cu",
@@ -370,34 +395,45 @@ LS = K8 + ("full_eval_ls",)
 # --quality
 LANES = ("breed_lanes", "random_ls_lanes")
 LANE_TRACE = ("compress_trace_lanes", "div_stats_lanes")
+# K7's halo form runs only where the ring crosses shards (the mesh phase)
+HALO = ("migrate_halo",)
 PATH_KERNELS = {
     "main": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
              ("move1_sweep", "delta_one") + LS + SEARCH_MODES + K13 + K14
-             + LANES + LANE_TRACE),
+             + LANES + LANE_TRACE + HALO),
     "reference": (("breed", "survivors") + K8,
                   ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass", "full_eval_ls")
-                  + SEARCH_MODES + K13 + K14 + LANES + LANE_TRACE),
+                  + SEARCH_MODES + K13 + K14 + LANES + LANE_TRACE + HALO),
     "full-eval": (("breed", "survivors", "random_ls_events",
                    "full_eval_ls"), ("assign_rooms", "batch_penalty"),
                   ("move1_sweep", "delta_one", "sweep_pass", "random_ls")
-                  + SEARCH_MODES + K13 + K14 + LANES + LANE_TRACE),
+                  + SEARCH_MODES + K13 + K14 + LANES + LANE_TRACE + HALO),
     # comp01s is feasible inside the initial polish, so the LAHC walkers
     # take the whole budget after it
     "lahc": ((), ("assign_rooms", "sweep_pass", "batch_penalty", "lahc"),
              ("move1_sweep", "delta_one") + LS
              + ("nsga_rank", "nsga_survivors", "parallel_rooms") + K13
-             + K14 + LANES + LANE_TRACE),
+             + K14 + LANES + LANE_TRACE + HALO),
     "nsga": (("breed", "nsga_rank", "nsga_survivors", "batch_penalty"),
              ("assign_rooms", "sweep_pass"),
              ("move1_sweep", "delta_one") + LS + ("lahc", "parallel_rooms")
+             + K13 + K14 + LANES + LANE_TRACE + HALO),
+    # the mesh phase: the main path on one shard of 4 islands, and on a
+    # 2-shard mesh of the one card, where every migration crosses a
+    # shard boundary (K7's halo form, never its in-card ring)
+    "mesh-one": (PER_GEN, ("assign_rooms", "sweep_pass", "migrate"),
+                 ("move1_sweep", "delta_one") + LS + SEARCH_MODES + K13
+                 + K14 + LANES + LANE_TRACE + HALO),
+    "mesh": (PER_GEN, ("assign_rooms", "sweep_pass") + HALO,
+             ("move1_sweep", "delta_one", "migrate") + LS + SEARCH_MODES
              + K13 + K14 + LANES + LANE_TRACE),
 }
 # the serve path: its lanes' kernels every dispatch, K1 and K2 once a
 # started job (each job's init), and none of the engine paths' others
 SERVE_NEVER = (("breed", "random_ls", "relocate", "move1_sweep",
                 "delta_one", "sweep_pass", "migrate", "full_eval_ls")
-               + SEARCH_MODES + K13 + K14 + LANE_TRACE)
+               + SEARCH_MODES + K13 + K14 + LANE_TRACE + HALO)
 # the serve path's telemetry legs: SERVE_JOBS again under each, its
 # stream equal to the full run's; which of K13's and K14's lane forms
 # (and K14's quality_ops) each launches
@@ -4512,7 +4548,7 @@ def stall_path():
 
 class _SyncDebug:
     """Every dispatch of the engine's generation loop (islands.
-    run_epochs, the enqueue of its trace's copy) and every retire's
+    mesh_run_epochs, the enqueue of its trace's copy) and every retire's
     event wait under torch.cuda.set_sync_debug_mode("error"): a hidden
     host synchronization there raises instead of serializing the
     pipeline without a word."""
@@ -4545,15 +4581,15 @@ class _SyncDebug:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         check(armed, "sync debug mode: .item() did not raise")
-        self._saved = (islands.run_epochs, dcore.HostCopy)
-        islands.run_epochs = strict(islands.run_epochs)
+        self._saved = (islands.mesh_run_epochs, dcore.HostCopy)
+        islands.mesh_run_epochs = strict(islands.mesh_run_epochs)
         dcore.HostCopy = StrictCopy
         return self
 
     def __exit__(self, *exc):
         from timetabling_ga_tpu_torch.parallel import islands
         from timetabling_ga_tpu_torch.runtime import dispatch_core as dcore
-        islands.run_epochs, dcore.HostCopy = self._saved
+        islands.mesh_run_epochs, dcore.HostCopy = self._saved
         return False
 
 
@@ -5233,6 +5269,337 @@ def _pull_serve(inc):
                 dump_s=[s["dur"] for s in dumps]), launches
 
 
+# The mesh phase (islands across cards and processes): the main path's
+# tuned config on 4 islands at a fixed generation count, once on one
+# shard and once on a 2-shard mesh of the one card; the reference config
+# on 4 islands in one process and in two processes sharing the card (2
+# islands each); the peer death and the resume across processes.
+MESH_MAIN = ["-s", "42", "-t", "600", "--islands", "4", "--generations",
+             "20", "--trace"]
+MESH_REF = ["--no-auto-tune", "-p", "2", "-s", "42", "-t", "600",
+            "--islands", "4", "--generations", "200", "--trace"]
+MESH_PEER = ["--peer-timeout", "5", "--checkpoint-every", "1"]
+# K7's halo form against migrate_plain: the CPU tests' (shards, islands a
+# shard) x pop at E = 8, then comp01s at the mesh path's shape
+MESH_HALO_CASES = [(d, l, p) for d, l in ((2, 1), (2, 2), (4, 2))
+                   for p in (3, 8)]
+MESH_EXCHANGES = 200
+# two processes on the card time `ProcessGroup.exchange` of one comp01s
+# halo row each way through gloo (argv: rank, port, E)
+EXCHANGE_SCRIPT = r"""
+import json, sys, time, datetime
+import torch
+import torch.distributed as dist
+from timetabling_ga_tpu_torch.parallel import comm
+rank, port, E = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+dev = torch.device("cuda", 0)
+store = dist.TCPStore("127.0.0.1", port, 2, is_master=rank == 0,
+                      timeout=datetime.timedelta(seconds=60))
+group = comm.start(store, rank, 2, [dev], False, 60.0)
+row = torch.arange(2 * E + 3, dtype=torch.int32, device=dev) + rank
+for _ in range(10):
+    group.exchange(row, row)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(%d):
+    a, b = group.exchange(row, row)
+torch.cuda.synchronize()
+ms = (time.perf_counter() - t0) * 1e3 / %d
+ok = bool((a == row - rank + (1 - rank)).all() and (b == a).all())
+print(json.dumps({"rank": rank, "ms_per_exchange": ms, "ok": ok,
+                  "backend": group.backend}))
+""" % (MESH_EXCHANGES, MESH_EXCHANGES)
+
+
+def _halo_state(L, pop, E, g, dev):
+    """L sorted islands of pop rows of E int32 on `dev`, with ties in
+    (penalty, scv) and feasible and infeasible rows."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import ga
+    n = L * pop
+    pen = torch.randint(0, 6, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    scv = torch.randint(0, 4, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    hcv = (torch.randint(0, 2, (n,), generator=g, device=dev,
+                         dtype=torch.int32) * pen)
+    slots = torch.randint(0, 45, (n, E), generator=g, device=dev,
+                          dtype=torch.int32)
+    rooms = torch.randint(0, 10, (n, E), generator=g, device=dev,
+                          dtype=torch.int32)
+    return ga.survivors_plain(ga.PopState(slots, rooms, pen, hcv, scv),
+                              groups=L)
+
+
+def compare_migrate_halo(pa, dev):
+    """K7's halo form (`migrate_kernel` with a shard's halo rows)
+    against migrate_plain on every shard of a mesh of `dev` repeated, at
+    the CPU tests' cases and on comp01s rows at the mesh path's shape
+    (2 shards of 2 islands of 16 rows): populations and gains exact.
+    Times the halo form, the in-card form and the plain version at that
+    shape. Returns ({("migrate_halo", 16): timing}, cases)."""
+    import torch
+    from timetabling_ga_tpu_torch import work
+    from timetabling_ga_tpu_torch.ops import ga, rooms
+    from timetabling_ga_tpu_torch.parallel import comm, islands
+    g = torch.Generator(device=dev).manual_seed(2020)
+    cases = [(d, l, p, 8) for d, l, p in MESH_HALO_CASES] + [
+        (2, 2, 16, pa.n_events)]
+    for D, L, pop, E in cases:
+        mesh = islands.Mesh([dev] * D, comm.SOLO)
+        if E == pa.n_events:
+            slots = torch.randint(0, pa.n_slots, (D * L * pop, E),
+                                  generator=g, device=dev,
+                                  dtype=torch.int32)
+            full = ga.evaluate(pa, slots, rooms.assign_rooms(pa, slots),
+                               groups=D * L)
+        else:
+            full = _halo_state(D * L, pop, E, g, dev)
+        states = [ga.PopState(*(x[s * L * pop:(s + 1) * L * pop]
+                                for x in full)) for s in range(D)]
+        to_next = [islands.halo_row(st, (L - 1) * pop) for st in states]
+        to_prev = [islands.halo_row(st, 1) for st in states]
+        fwd, bwd = mesh.halo(to_next, to_prev)
+        for s, st in enumerate(states):
+            got, gain = islands.migrate_kernel(st, L, True, fwd[s], bwd[s])
+            off = islands.migrate_kernel(st, L, False, fwd[s], bwd[s])
+            want, wgain = islands.migrate_plain(st, L, True, fwd[s], bwd[s])
+            torch.cuda.synchronize()
+            check(all(torch.equal(w, x) and torch.equal(w, o)
+                      for w, x, o in zip(want, got, off))
+                  and torch.equal(gain, wgain),
+                  f"migrate_halo D={D} L={L} pop={pop} E={E} shard {s}: "
+                  f"kernel differs from plain")
+    st, f, b = states[0], fwd[0], bwd[0]
+    w = work.migrate(L, pop, E, halo=True)
+    bound_ms, by = bound(w.bytes, w.ops)
+    t = {"max_abs_err": 0,
+         "ms": time_ms(lambda: islands.migrate_kernel(st, L, False, f, b),
+                       200),
+         "in_card_ms": time_ms(lambda: islands.migrate_kernel(st, L), 200),
+         "plain_ms": time_ms(lambda: islands.migrate_plain(st, L, False, f,
+                                                           b), 20),
+         "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+    return {("migrate_halo", 16): t}, len(cases)
+
+
+def run_mesh_engine(name, argv, devices):
+    """The engine in this process on the mesh over `devices` (one card
+    repeated), the launch counters zeroed just before and read just
+    after; returns (records, seconds, launches)."""
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    path = os.path.join(OUT_DIR, f"mesh_{name}.jsonl")
+    cfg = config.parse_args(["-i", TIM, "-o", path] + argv)
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    engine.run(cfg, devices=devices)
+    seconds = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    return records, seconds, launches
+
+
+def _two_processes(name, argv, faults=None, timeout=300):
+    """Two CLI processes on the card joined by --coordinator (each rank
+    on cuda:0: gloo); returns [(rc, stderr, records or None)] a rank and
+    the wall. Both are stopped whatever happens."""
+    port = _free_port()
+    env = dict(os.environ)
+    env.pop("TT_FAULTS", None)
+    if faults:
+        env["TT_FAULTS"] = faults
+    outs = [os.path.join(OUT_DIR, f"mesh_{name}_p{r}.jsonl")
+            for r in range(2)]
+    for o in outs:
+        if os.path.exists(o):
+            os.unlink(o)
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "timetabling_ga_tpu_torch", "-i", TIM,
+         "-o", outs[r], *argv, "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", "2", "--process-id", str(r)], cwd=HERE,
+        env=env, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    res = []
+    try:
+        for p, o in zip(procs, outs):
+            _, err = p.communicate(timeout=timeout)
+            recs = None
+            if os.path.exists(o):
+                with open(o) as f:
+                    recs = [json.loads(line) for line in f]
+            res.append((p.returncode, err, recs))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res, time.monotonic() - t0
+
+
+def _core(records):
+    """The records a resumed run must share with an uninterrupted one."""
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    return [r for r in strip_timing(records)
+            if "solution" in r or "runEntry" in r]
+
+
+def _first_diff(a, b):
+    """The first differing pair of two record lists (or their lengths),
+    for a failure's message."""
+    for x, y in zip(a, b):
+        if x != y:
+            return f"{json.dumps(x)[:300]} != {json.dumps(y)[:300]}"
+    return f"{len(a)} records against {len(b)}"
+
+
+def exchange_ms():
+    """One halo exchange through gloo between two processes on the card,
+    each way one comp01s halo row (ProcessGroup.exchange): ms an
+    exchange over MESH_EXCHANGES."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", EXCHANGE_SCRIPT, str(r), str(port), "400"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            check(p.returncode == 0, f"exchange timing: rc {p.returncode} "
+                  f"{err[-800:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(o["ok"] and o["backend"] == "gloo" for o in outs),
+          f"exchange timing: rows or backend wrong {outs}")
+    return max(o["ms_per_exchange"] for o in outs)
+
+
+def mesh_path(pa_cpu, serve_summary):
+    """The islands across cards and processes, on the one card. (a) The
+    main path's tuned config, 4 islands, MESH_MAIN's generations: one
+    shard, then a 2-shard mesh of cuda:0 (the engine in this process with
+    its `devices`), the streams equal under strip_timing, every migration
+    of the mesh run K7's halo form. (b) The reference config, 4 islands:
+    one process, then two processes sharing the card (2 islands each,
+    gloo, printed as such): process 0's stream equal to one process's,
+    process 1's file never written. (c) `--faults dispatch@1:2:die
+    --peer-timeout 5` with a checkpoint: process 0 exits 70 within the
+    timeout with the abort faultEntry (lostProc 1, agreed false) and the
+    checkpoint; a fresh two-process --resume run ends as (b) does. (d) A
+    halo exchange's time through gloo. (e) SERVE_JOBS on a 2-shard lane
+    mesh of the card, each job's records equal to the serve path's
+    line-JSON leg. Returns (summary, launches)."""
+    import torch
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.obs.metrics import MetricsRegistry
+    from timetabling_ga_tpu_torch.runtime import config
+    from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
+    from timetabling_ga_tpu_torch.serve.service import serve_stream
+    dev = torch.device("cuda", 0)
+    t_phase = time.monotonic()
+    launches = {}
+    # (a) one shard, then two shards of the card
+    one, one_s, launches["mesh-one"] = run_cli("mesh_one", MESH_MAIN)
+    two, two_s, launches["mesh"] = run_mesh_engine("mesh_two", MESH_MAIN,
+                                                   [dev, dev])
+    check(strip_timing(two) == strip_timing(one),
+          "mesh: the 2-shard main path differs from one shard: "
+          + _first_diff(strip_timing(two), strip_timing(one)))
+    for name, recs in (("mesh-one", one), ("mesh", two)):
+        s = check_stream(recs, pa_cpu)
+        check(s["generations"] > 0, f"{name}: no generation")
+        check_path_kernels(name, launches[name], s["generations"],
+                           s["kicks"])
+    check([r["runEntry"] for r in two if "runEntry" in r][1]["procsNum"]
+          == 4, "mesh: runEntry.procsNum is not 4")
+    # (b) one process, then two processes sharing the card
+    ref, ref_s, _ = run_cli("mesh_ref", MESH_REF)
+    res, two_proc_s = _two_processes("ref", MESH_REF)
+    for r, (rc, err, _) in enumerate(res):
+        check(rc == 0, f"mesh two processes: rank {r} exited {rc}: "
+              f"{err[-1500:]}")
+        check("gloo process group (ranks 0 and 1 share card" in err,
+              f"mesh two processes: rank {r} did not choose gloo: "
+              f"{err[-600:]}")
+    check(res[1][2] is None, "mesh two processes: process 1 wrote records")
+    two_ref = res[0][2]
+    check(strip_timing(two_ref) == strip_timing(ref),
+          "mesh two processes: process 0's stream differs from one "
+          "process's: " + _first_diff(strip_timing(two_ref),
+                                      strip_timing(ref)))
+    # (c) process 1 dies at its second dispatch
+    ck = _fresh(os.path.join(OUT_DIR, "mesh_peer.npz"))
+    peer = MESH_REF + MESH_PEER + ["--checkpoint", ck]
+    res, peer_s = _two_processes("peer", peer, faults="dispatch@1:2:die")
+    (rc0, err0, recs0), (rc1, _, _) = res
+    check(rc0 == 70 and rc1 != 0, f"mesh peer death: exits {rc0}, {rc1}: "
+          f"{err0[-1500:]}")
+    check("lost contact with process 1" in err0, "mesh peer death: no "
+          "PeerLost on process 0")
+    fe = [r["faultEntry"] for r in recs0 if "faultEntry" in r]
+    check(fe and fe[-1]["site"] == "accord" and fe[-1]["action"] == "abort"
+          and fe[-1]["lostProc"] == 1 and fe[-1]["agreed"] is False
+          and fe[-1]["time"] < 60,
+          f"mesh peer death: the abort faultEntry {fe[-1:]}")
+    check(os.path.exists(ck), "mesh peer death: no checkpoint")
+    res, resume_s = _two_processes("resume", peer + ["--resume"])
+    for r, (rc, err, _) in enumerate(res):
+        check(rc == 0, f"mesh resume: rank {r} exited {rc}: {err[-1500:]}")
+    check(_core(res[0][2]) == _core(two_ref),
+          "mesh resume: the resumed run ends elsewhere than the "
+          "uninterrupted one: " + _first_diff(_core(res[0][2]),
+                                              _core(two_ref)))
+    # (d) the halo exchange through gloo
+    ex_ms = exchange_ms()
+    # (e) the serve lane mesh, two shards of the card
+    req = os.path.join(OUT_DIR, "serve_requests.jsonl")
+    out = os.path.join(OUT_DIR, "serve_mesh2.jsonl")
+    reg = MetricsRegistry()
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    with open(req) as fin, open(out, "w") as fout:
+        serve_stream(config.parse_serve_args([]), fin, out_stream=fout,
+                     registry=reg, devices=[dev, dev])
+    serve_s = time.monotonic() - t0
+    launches["serve-mesh"] = dict(kernels.LAUNCHES)
+    with open(out) as f:
+        mesh_recs = [json.loads(line) for line in f]
+    with open(os.path.join(OUT_DIR, "serve_packed.jsonl")) as f:
+        base = [json.loads(line) for line in f]
+    for jid, *_ in SERVE_JOBS:
+        check(strip_timing(_job_records(mesh_recs, jid))
+              == strip_timing(_job_records(base, jid)),
+              f"serve mesh: job {jid}'s records differ from the line-JSON "
+              f"leg's")
+    check(reg.gauge("serve.mesh_devices").value == 2,
+          "serve mesh: serve.mesh_devices is not 2")
+    for k in LANES:
+        check(launches["serve-mesh"][k] > 0, f"serve mesh: {k} never ran")
+    check(launches["serve-mesh"]["migrate_halo"] == 0,
+          "serve mesh: a lane migrated")
+    lane_gens = reg.counter("serve.gens").value
+    return dict(
+        card=CARD, main_one_shard_gens_per_s=_rate(one),
+        main_two_shards_gens_per_s=_rate(two),
+        main_wall_s=[round(one_s, 3), round(two_s, 3)],
+        migrate_halo_launches=launches["mesh"]["migrate_halo"],
+        reference_one_process_gens_per_s=_rate(ref),
+        reference_two_processes_gens_per_s=_rate(two_ref),
+        two_processes_wall_s=round(two_proc_s, 3),
+        peer_lost_after_s=fe[-1]["time"], peer_wall_s=round(peer_s, 3),
+        resume_wall_s=round(resume_s, 3),
+        gloo_exchange_ms=ex_ms,
+        serve_lane_gens_per_s_one_shard=serve_summary["lane_gens_per_s"],
+        serve_lane_gens_per_s_two_shards=lane_gens / serve_s,
+        phase_s=round(time.monotonic() - t_phase, 3)), launches
+
+
 def run_path(name):
     """Run the CLI on the path's instance with its flags, the launch
     counters zeroed just before and read just after; returns (records,
@@ -5448,6 +5815,13 @@ def main() -> int:
                       **fleet_replica_path(serve_summary)}))
     print(json.dumps({"path": "fleet-gateway",
                       **fleet_gateway_path(serve_summary)}))
+    halo_t, halo_cases = compare_migrate_halo(pa, dev)
+    timings.update(halo_t)
+    print(json.dumps({"migrate_halo_compared": halo_cases}))
+    mesh, mesh_launches = mesh_path(pa_cpu[TIM], serve_summary)
+    launches.update(mesh_launches)
+    print(json.dumps({"path": "mesh", **mesh,
+                      "launches": mesh_launches["mesh"]}))
     print(json.dumps({"path": "serve-edit",
                       **serve_edits(base_wire, pa_cpu)}))
     pull, pull_launches = pullfront_path(pa_cpu[TIM])

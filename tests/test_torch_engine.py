@@ -97,17 +97,23 @@ def test_tuned_defaults_match_jax():
                 assert getattr(j, f) == getattr(t, f), (n_events, argv, f)
 
 
-@pytest.mark.parametrize("argv,word", [
-    (["--peer-timeout", "5"], "--peer-timeout"),
-    (["--num-processes", "2"], "--num-processes"),
-    (["--coordinator", "h:1"], "--coordinator"),
-    (["--no-accord"], "--no-accord"),
-    (["--distributed"], "--distributed"),
-    (["--process-id", "1"], "--process-id")])
-def test_unported_flags_are_refused_by_name(argv, word):
-    with pytest.raises(SystemExit, match="not yet ported") as e:
-        tconfig.parse_args(["-i", "x.tim"] + argv)
-    assert word in str(e.value)
+@pytest.mark.parametrize("argv", [
+    ["--peer-timeout", "5"], ["--num-processes", "2"],
+    ["--coordinator", "h:1"], ["--no-accord"], ["--distributed"],
+    ["--process-id", "1"],
+    ["--coordinator", "h:1", "--num-processes", "2", "--process-id", "1"],
+    ["--peer-timeout", "-1"]])
+def test_distributed_flags_parse_as_jax(argv):
+    """The multi-process flags parse to JAX's fields, with JAX's
+    defaults, checks and messages (JAX config.py:294-331, 642-660)."""
+    def outcome(mod):
+        try:
+            c = mod.parse_args(["-i", "x.tim"] + argv)
+        except SystemExit as e:
+            return str(e)
+        return (c.peer_timeout, c.coordinator, c.num_processes,
+                c.process_id, c.distributed, c.accord)
+    assert outcome(tconfig) == outcome(jconfig)
 
 
 @pytest.mark.parametrize("argv", [
@@ -441,24 +447,25 @@ class _DispatchClock:
 def _pin_dispatch_wall(monkeypatch, spg):
     """Make every dispatch of the port engine measure `spg` seconds a
     generation: the engine's clock is a _DispatchClock, advanced as each
-    dispatch's trace is read (run_epochs queues its generations, the
-    trace's HostCopy read takes them)."""
+    dispatch's trace is read (mesh_run_epochs queues its generations,
+    the read of the trace's HostCopies takes them)."""
     from timetabling_ga_tpu_torch.parallel import islands as tislands
     from timetabling_ga_tpu_torch.runtime import dispatch_core as tdcore
     clock = _DispatchClock(spg)
-    real_run, real_fetch = tislands.run_epochs, tdcore.fetch
+    real_run, real_fetch = tislands.mesh_run_epochs, tdcore.fetch
 
-    def run_epochs(pa, gens, state, cur, n_ep, g, *a, **k):
+    def run_epochs(mesh, pa, gens, state, cur, n_ep, g, *a, **k):
         clock.queued.append(n_ep * g)
-        return real_run(pa, gens, state, cur, n_ep, g, *a, **k)
+        return real_run(mesh, pa, gens, state, cur, n_ep, g, *a, **k)
 
     def fetch(x, *a, **k):
         out = real_fetch(x, *a, **k)
-        if isinstance(x, tdcore.HostCopy) and clock.queued:
+        if (isinstance(x, list) and isinstance(x[0], tdcore.HostCopy)
+                and clock.queued):
             clock.t += clock.spg * clock.queued.pop(0)
         return out
     monkeypatch.setattr(tengine, "time", clock)
-    monkeypatch.setattr(tislands, "run_epochs", run_epochs)
+    monkeypatch.setattr(tislands, "mesh_run_epochs", run_epochs)
     monkeypatch.setattr(tdcore, "fetch", fetch)
     return clock
 

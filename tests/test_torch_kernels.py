@@ -1055,6 +1055,33 @@ def test_k6_base_parents_equal_plain(cuda, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pop", [3, 8, 16])
+@pytest.mark.parametrize("D,L", [(2, 1), (2, 2), (4, 2)])
+def test_k7_halo_form_equals_plain(cuda, D, L, pop):
+    """K7's halo form on a mesh of D shards of the card (L islands each):
+    every shard's migrate with its halo rows equals migrate_plain with
+    them, gain included, rows of E = 7 and E = 400; one launch a shard,
+    counted as migrate_halo."""
+    from timetabling_ga_tpu_torch.parallel import comm
+    for E in (7, 400):
+        full = _gain_state(D * L, pop, E, cuda)
+        mesh = islands.Mesh([cuda] * D, comm.SOLO)
+        states = [ga.PopState(*(x[s * L * pop:(s + 1) * L * pop]
+                                for x in full)) for s in range(D)]
+        to_next = [islands.halo_row(st, (L - 1) * pop) for st in states]
+        to_prev = [islands.halo_row(st, 1) for st in states]
+        fwd, bwd = mesh.halo(to_next, to_prev)
+        kernels.reset_launches()
+        for s, st in enumerate(states):
+            got, gain = islands.migrate_kernel(st, L, True, fwd[s], bwd[s])
+            want, wgain = islands.migrate_plain(st, L, True, fwd[s], bwd[s])
+            assert all(torch.equal(w, g) for w, g in zip(want, got))
+            assert torch.equal(gain, wgain)
+        assert kernels.LAUNCHES["migrate_halo"] == D
+        assert kernels.LAUNCHES["migrate"] == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("L", [1, 2, 4, 16])
 @pytest.mark.parametrize("pop", [2, 3, 16])
 def test_k7_migrate_gain_equal_plain(cuda, L, pop):

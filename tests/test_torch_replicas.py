@@ -2,7 +2,7 @@
 protocol half, `serve --http`) against the JAX package on the CPU:
 
   - the fleet flags parse as JAX's parse_serve_args does, refusals
-    included; `--mesh-devices 2` is still refused by name, and the
+    included; `--mesh-devices 2` parses for a replica as for JAX, and the
     `fleet` and `submit` subcommands are served (JAX's flags under -h,
     JAX's exits and messages without their input);
   - parse_solve_body, payload_counts, edit_payload_counts and JobTail
@@ -154,15 +154,15 @@ def test_fleet_flag_defaults_equal_jax():
     assert not hasattr(tconfig, "SERVE_NOT_PORTED")
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["serve", "--mesh-devices", "2"], "--mesh-devices 2"),
-    (["serve", "--http", "127.0.0.1:0", "--mesh-devices", "2"],
-     "--mesh-devices 2")])
-def test_still_refused_by_name(argv, what):
-    with pytest.raises(SystemExit) as e:
-        tcli.main(argv)
-    assert str(e.value).startswith(what)
-    assert "not yet ported" in str(e.value)
+@pytest.mark.parametrize("argv", [
+    ["--mesh-devices", "2"],
+    ["--http", "127.0.0.1:0", "--mesh-devices", "2"]])
+def test_mesh_devices_parse_for_a_replica(argv):
+    """`serve [--http] --mesh-devices 2` parses as JAX's: the replica's
+    lanes spread over two cards (serve/scheduler.py)."""
+    t, j = tconfig.parse_serve_args(argv), jconfig.parse_serve_args(argv)
+    assert (t.mesh_devices, t.http) == (j.mesh_devices, j.http)
+    assert t.mesh_devices == 2
 
 
 def _cli(main, argv):

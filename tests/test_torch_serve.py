@@ -284,15 +284,18 @@ def test_unported_serve_flags_are_refused_by_name(flag):
         assert getattr(got, f) == getattr(want, f), (flag, f)
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["--mesh-devices", "2"], "--mesh-devices 2"),
-    (["--mesh-devices", "4"], "--mesh-devices 4"),
-    (["--quality", "--mesh-devices", "8"], "--mesh-devices 8")])
-def test_unported_serve_values_are_refused_by_name(argv, what):
-    jconfig.parse_serve_args(argv)
-    with pytest.raises(SystemExit) as e:
-        tconfig.parse_serve_args(argv)
-    assert str(e.value).startswith(what) and "not yet ported" in str(e.value)
+@pytest.mark.parametrize("argv,n", [
+    (["--mesh-devices", "2"], 2),
+    (["--mesh-devices", "4"], 4),
+    (["--quality", "--mesh-devices", "8"], 8)])
+def test_mesh_devices_parse_as_jax(argv, n):
+    """`--mesh-devices N` above 1 parses as JAX's; the scheduler pads
+    the lanes to a multiple of it as JAX's pad_lanes does."""
+    j, t = jconfig.parse_serve_args(argv), tconfig.parse_serve_args(argv)
+    assert t.mesh_devices == j.mesh_devices == n
+    assert t.quality == j.quality
+    from timetabling_ga_tpu_torch.parallel import islands as tisl
+    assert tisl.pad_lanes(t.lanes, n) == ((t.lanes + n - 1) // n) * n
 
 
 def test_every_jax_serve_flag_is_ported_or_refused():

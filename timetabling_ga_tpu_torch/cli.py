@@ -31,8 +31,9 @@ torch nor the kernels, so they run on any machine a log, a bundle or a
 capture was copied to: nothing above their dispatch below imports
 torch, and neither do the gateway and the submit client, which route
 and poll over HTTP only. The flags are the JAX CLI's
-(runtime/config.py); those not ported yet stop the parse with a message
-that names them.
+(runtime/config.py). A run split over processes (`--coordinator
+host:port --num-processes N --process-id i`, or `--distributed` under
+torchrun) exits 70 when a peer process is lost.
 """
 
 from __future__ import annotations
@@ -68,8 +69,21 @@ def main(argv=None) -> int:
         from timetabling_ga_tpu_torch.serve.service import main_serve
         return main_serve(argv[1:])
     cfg = parse_args(argv)
+    from timetabling_ga_tpu_torch.runtime import control_channel
     from timetabling_ga_tpu_torch.runtime.engine import run
-    run(cfg)
+    try:
+        run(cfg)
+    except control_channel.PeerLost as e:
+        # a peer process died mid-run: the abort faultEntry and the
+        # final checkpoint are already durable (the engine flushes
+        # before re-raising). The dead peer's collective never
+        # completes, so no teardown can be clean: a hard exit is the
+        # only exit (JAX cli.py:177-190)
+        import os
+        print(f"tt: aborting run: {e}", file=sys.stderr)
+        sys.stderr.flush()
+        sys.stdout.flush()
+        os._exit(70)    # EX_SOFTWARE: abnormal, deliberate
     return 0
 
 

@@ -31,7 +31,15 @@
 // the emigrants are read from the input, as `_migrate` snapshots them
 // (which matters at pop 3, where row 1 is both an emigrant and a victim).
 // With one island the ring closes on itself. Populations under 3 do not
-// migrate (the wrapper returns them unchanged). With `gain` (the quality
+// migrate (the wrapper returns them unchanged). On an island mesh whose
+// ring crosses cards or processes (parallel/islands.py mesh_migrate, the
+// `lax.ppermute` edges of `_migrate`, islands.py:262-270) the two edges
+// at the shard boundary arrive as halo rows, each one packed row of
+// [slots E | rooms E | penalty | hcv | scv]: `fwd_in`, the previous
+// shard's island L-1 best, becomes island 0's row -1, and `bwd_in`, the
+// next shard's island 0 second best, island L-1's row -2. Null, the
+// ring closes inside the card as above; the launch is the same one
+// either way, only where those two rows are read from changes. With `gain` (the quality
 // telemetry, islands.py:213 _migrate return_gain), thread 0 of each
 // island's first block, which holds the island's new row 0, also writes
 // max(reported best before - after, 0) in int32 (scv once feasible,
@@ -112,9 +120,16 @@ __device__ __forceinline__ int k7_reported(int hcv, int scv) {
                     : (int)((unsigned)hcv * 1000000u + (unsigned)scv);
 }
 
+// one packed halo row [slots E | rooms E | penalty | hcv | scv] as rows
+__host__ __device__ __forceinline__ TTRows k7_halo_rows(const int* p,
+                                                        int E) {
+    TTRows r = {p, p + E, p + 2 * E, p + 2 * E + 1, p + 2 * E + 2};
+    return r;
+}
+
 __global__ void __launch_bounds__(K7_THREADS) migrate_kernel(
-    TTRows in, TTRowsOut out, int* __restrict__ gain, int L, int pop, int E,
-    int vec) {
+    TTRows in, TTRows fwd, TTRows bwd, bool has_fwd, bool has_bwd,
+    TTRowsOut out, int* __restrict__ gain, int L, int pop, int E, int vec) {
     extern __shared__ int k7_smem[];
     const int per = (pop + K7_ROWS - 1) / K7_ROWS;
     const int l = blockIdx.x / per, o0 = (blockIdx.x % per) * K7_ROWS;
@@ -125,25 +140,35 @@ __global__ void __launch_bounds__(K7_THREADS) migrate_kernel(
     int* buf = cs + pop;
     int* row = buf + pop;
     int* dst = row + pop;
+    // buffer 0 the island rows, 1 the forward halo row, 2 the backward
+    const TTRows from[3] = {in, fwd, bwd};
     for (int j = threadIdx.x; j < pop; j += blockDim.x) {
-        int r = l * pop + j;
+        int r = l * pop + j, b = 0;
         // row -1 <- the previous island's best, row -2 <- the next
-        // island's second best (ga.cpp:522-535)
-        if (j == pop - 1) r = ((l + L - 1) % L) * pop;
-        else if (j == pop - 2) r = ((l + 1) % L) * pop + 1;
-        buf[j] = 0;
+        // island's second best (ga.cpp:522-535); across the shard
+        // boundary, the halo rows
+        if (j == pop - 1) {
+            if (has_fwd && l == 0) b = 1, r = 0;
+            else r = ((l + L - 1) % L) * pop;
+        } else if (j == pop - 2) {
+            if (has_bwd && l == L - 1) b = 2, r = 0;
+            else r = ((l + 1) % L) * pop + 1;
+        }
+        buf[j] = b;
         row[j] = r;
-        cp[j] = in.pen[r];
-        cs[j] = in.scv[r];
+        cp[j] = from[b].pen[r];
+        cs[j] = from[b].scv[r];
     }
     __syncthreads();
     TT_PROF(0);
-    k7_rank_and_copy(cp, cs, buf, row, dst, pop, o0, o1, &in, out,
+    k7_rank_and_copy(cp, cs, buf, row, dst, pop, o0, o1, from, out,
                      (size_t)l * pop, E, vec);
     if (gain && o0 == 0 && threadIdx.x == 0) {
-        const int b = l * pop, a = row[dst[0]];
+        const int b = l * pop, i = dst[0];
+        const TTRows& f = from[buf[i]];
+        const int a = row[i];
         const int d = (int)((unsigned)k7_reported(in.hcv[b], in.scv[b])
-                            - (unsigned)k7_reported(in.hcv[a], in.scv[a]));
+                            - (unsigned)k7_reported(f.hcv[a], f.scv[a]));
         gain[l] = d > 0 ? d : 0;
     }
 }
@@ -171,20 +196,25 @@ extern "C" int tt_survivors(
     return (int)cudaGetLastError();
 }
 
+// fwd_in / bwd_in: the halo rows (null: the ring closes on the card)
 extern "C" int tt_migrate(
     const int* slots, const int* rooms, const int* pen, const int* hcv,
     const int* scv, int* out_slots, int* out_rooms, int* out_pen,
-    int* out_hcv, int* out_scv, int* gain, int L, int pop, int E,
-    void* stream) {
+    int* out_hcv, int* out_scv, const int* fwd_in, const int* bwd_in,
+    int* gain, int L, int pop, int E, void* stream) {
     if (L <= 0 || pop < 3 || E <= 0) return (int)cudaErrorInvalidValue;
     size_t smem = sizeof(int) * (4 * (size_t)pop + K7_ROWS);
     cudaError_t err = tt_set_smem(migrate_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    const void* rows[4] = {slots, rooms, out_slots, out_rooms};
     TTRows in = {slots, rooms, pen, hcv, scv};
+    const TTRows fwd = fwd_in ? k7_halo_rows(fwd_in, E) : in;
+    const TTRows bwd = bwd_in ? k7_halo_rows(bwd_in, E) : in;
+    const void* rows[8] = {slots, rooms, out_slots, out_rooms, fwd.slots,
+                           fwd.rooms, bwd.slots, bwd.rooms};
     TTRowsOut out = {out_slots, out_rooms, out_pen, out_hcv, out_scv};
     const int grid = L * ((pop + K7_ROWS - 1) / K7_ROWS);
     migrate_kernel<<<grid, K7_THREADS, smem, (cudaStream_t)stream>>>(
-        in, out, gain, L, pop, E, tt_rows_vec(E, rows, 4));
+        in, fwd, bwd, fwd_in != nullptr, bwd_in != nullptr, out, gain, L,
+        pop, E, tt_rows_vec(E, rows, 8));
     return (int)cudaGetLastError();
 }

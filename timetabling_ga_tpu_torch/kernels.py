@@ -17,7 +17,8 @@ nsga_rank and nsga_survivors; K13 `trace_compress.cu`: compress_trace
 and moment_rows; K14 `quality.cu`: quality_ops and div_stats); each has
 its own name here; K6 and K8's chain launched with a lane table, K13's
 compress_trace with per-lane valid counts and K14's div_stats with
-per-lane masks (the serve path) count under FORMS' names. Every C entry
+per-lane masks (the serve path), and K7's migrate with an island mesh's
+halo rows, count under FORMS' names. Every C entry
 point launches on PyTorch's current stream and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code.
 `LAUNCHES` counts the launches of each entry point: a wrapper adds one
@@ -71,7 +72,7 @@ SIGNATURES = {
     "relocate": ("tt_relocate", [_P] * 11 + [_I] * 5 + [_P], "breed"),
     "survivors": ("tt_survivors", [_P] * 15 + [_I] * 5 + [_P],
                   "survivors"),
-    "migrate": ("tt_migrate", [_P] * 11 + [_I] * 3 + [_P], "survivors"),
+    "migrate": ("tt_migrate", [_P] * 13 + [_I] * 3 + [_P], "survivors"),
     "random_ls_events": ("tt_random_ls_events", [_P] * 2 + [_I] * 4 + [_P],
                          "random_ls"),
     "random_ls": ("tt_random_ls", [_P] * 27 + [_I] * 12 + [_P],
@@ -104,7 +105,10 @@ for _name, (_, _, _src) in SIGNATURES.items():
 # with a mask row a lane are the same C entry points as without them
 FORMS = {"breed_lanes": "breed", "random_ls_lanes": "random_ls",
          "compress_trace_lanes": "compress_trace",
-         "div_stats_lanes": "div_stats"}
+         "div_stats_lanes": "div_stats",
+         # K7's migrate with the halo rows of an island mesh's shard
+         # boundary (parallel/islands.py mesh_migrate)
+         "migrate_halo": "migrate"}
 
 LAUNCHES = {name: 0 for name in (*SIGNATURES, *FORMS)}
 # running totals of the launched (or, on the CPU, tallied) work

@@ -109,6 +109,7 @@ KERNEL_PHASES = {
     "survivors": "tt.ga",
     # K7's migrate, JAX islands.py:212 _migrate (tt.migrate)
     "migrate": "tt.migrate",
+    "migrate_halo": "tt.migrate",
     # K8's pre-pass, the top 3 of JAX delta.py:211's candidates (tt.delta)
     "random_ls_events": "tt.delta",
     # K8's chain, JAX delta.py:211 batch_local_search_delta (tt.delta)

@@ -13,8 +13,8 @@ not raise.
 
 The family names the fleet's router and prober score on (QUEUE_DEPTH,
 BACKLOG, COMPILE_COUNT, COMPILE_HITS, FLIGHT_DUMPS, RESIDENT_GROUPS,
-RESIDENT_BYTES) are kept beside the parser as in the JAX package; the
-fleet is not ported yet. Stdlib only.
+RESIDENT_BYTES) are kept beside the parser as in the JAX package.
+Stdlib only.
 """
 
 from __future__ import annotations

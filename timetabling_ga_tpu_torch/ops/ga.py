@@ -139,9 +139,12 @@ def sweep_draws_fn(gens, rows_per_gen: int, pa, cfg: GAConfig):
     shape = sweep_shape(pa.n_events, pa.n_slots, cfg.ls_swap_block,
                         cfg.ls_block_events, cfg.ls_hot_k, cfg.p3)
 
-    def draws(_i):
+    def draws(_i, live=None):
         return make_sweep_draws(gens, rows_per_gen, shape, pa.n_events,
-                                cfg.ls_sideways, pa.device)
+                                cfg.ls_sideways, pa.device,
+                                live if live is not None
+                                and len(live) == len(gens) else None)
+    draws.takes_live = True
     return draws
 
 

@@ -98,12 +98,29 @@ def _coprimes_on(E: int, device) -> torch.Tensor:
 
 
 def make_sweep_draws(gens, rows_per_gen: int, shape: SweepShape,
-                     n_events: int, sideways: float, device) -> SweepDraws:
-    """Draw one pass's SweepDraws, each generator its own block of rows."""
+                     n_events: int, sideways: float, device,
+                     live=None) -> SweepDraws:
+    """Draw one pass's SweepDraws, each generator its own block of rows.
+    With `live` (a bool a generator), a generator that is not live draws
+    nothing and its rows get fixed draws (the coprime 1, pivot 0, zero
+    noise, nothing allowed): a converged island, whose pass results are
+    thrown away, then consumes its generator only for the passes it ran,
+    so its stream does not depend on which islands share its shard."""
     cop = _coprimes_on(n_events, device)
     a, b, hot, tie, allow = [], [], [], [], []
     n = rows_per_gen
-    for g in gens:
+    for i, g in enumerate(gens):
+        if live is not None and not live[i]:
+            a.append(cop[torch.zeros(n, dtype=torch.long, device=device)])
+            b.append(torch.zeros(n, dtype=torch.int32, device=device))
+            if shape.use_hot:
+                hot.append(torch.zeros((n, n_events), device=device))
+            if sideways > 0.0:
+                tie.append(torch.zeros((shape.n_steps, n, shape.n_cand),
+                                       device=device))
+                allow.append(torch.zeros((shape.n_steps, n),
+                                         dtype=torch.bool, device=device))
+            continue
         a.append(cop[torch.randint(0, cop.numel(), (n,), generator=g,
                                    device=device)])
         b.append(torch.randint(0, n_events, (n,), generator=g,
@@ -599,7 +616,10 @@ def sweep_local_search(pa, draws_fn: Callable[[int], SweepDraws], slots,
     takes `draws_fn(i)`. converge=True stops a group of rows once one
     of its passes accepts no strict improvement (JAX's while_loop; the
     rows split into `groups` equal groups — islands — that converge
-    independently, as vmapped islands do). `scores` are the rows'
+    independently, as vmapped islands do). A draws_fn with `takes_live`
+    set (ga.sweep_draws_fn) is called as draws_fn(i, live) once a group
+    has stopped, `live` a bool a group, so a stopped group's generator
+    draws no more. `scores` are the rows'
     (penalty, hcv, scv) where the caller holds them (K6's children),
     else K2 takes them. return_ops (the quality telemetry, JAX
     sweep.py:600-677) adds a (P, 3) int32 tensor of each row's accepted
@@ -613,9 +633,13 @@ def sweep_local_search(pa, draws_fn: Callable[[int], SweepDraws], slots,
     passes = 0
     if converge:
         alive = torch.ones(groups, dtype=torch.bool, device=slots.device)
+        live = None             # every group runs
+        takes_live = getattr(draws_fn, "takes_live", False)
         while passes < n_sweeps:
+            d = (draws_fn(passes) if live is None or not takes_live
+                 else draws_fn(passes, live))
             new, improved, *new_ops = sweep_pass(
-                pa, draws_fn(passes), state, swap_block, block_events,
+                pa, d, state, swap_block, block_events,
                 sideways, hot_k, p3, ops)
             rows = alive.repeat_interleave(P // groups)
             state = LSState(*(torch.where(
@@ -625,8 +649,10 @@ def sweep_local_search(pa, draws_fn: Callable[[int], SweepDraws], slots,
                 ops = torch.where(rows[:, None], new_ops[0], ops)
             passes += 1
             alive = alive & improved.reshape(groups, -1).any(1)
-            if not bool(alive.any()):
+            flags = alive.tolist()
+            if not any(flags):
                 break
+            live = None if all(flags) else flags
     else:
         for i in range(n_sweeps):
             state, _, *new_ops = sweep_pass(pa, draws_fn(i), state,

@@ -1,11 +1,18 @@
-"""Island model on one GPU (port of the single-device part of
-timetabling_ga_tpu/parallel/islands.py:166-397, 702-884).
+"""Island model (port of timetabling_ga_tpu/parallel/islands.py:128-397,
+702-884).
 
-All L islands live on one card as consecutive row blocks of one
+A shard's L islands live on its card as consecutive row blocks of one
 population `(L * pop, E)`; the JAX package's local-island vmap becomes
-that block structure (ops/ga.py `groups`). Migration is the ring of the
-JAX `_migrate` over the island axis, kernel K7's migrate entry
-(csrc/survivors.cu) on the card: no collective is needed on one card.
+that block structure (ops/ga.py `groups`). The island mesh (`Mesh`,
+JAX's `make_mesh`) holds one such shard a device — a list of
+torch.devices, which may repeat one card — and, across processes
+(parallel/comm.py), every rank's shards in rank order; the `mesh_*`
+programs run each shard's program on its card. Migration is the ring of
+the JAX `_migrate` over every island of the mesh: inside a shard kernel
+K7's migrate entry (csrc/survivors.cu), and at each shard boundary a
+halo exchange of one row each way (`mesh_migrate`, JAX's
+`lax.ppermute` edges) that K7's halo form reads; the global best is a
+min across shards and an all_reduce(MIN) across processes.
 The kick's move chains are one launch of K6's relocation entry. The
 LAHC endgame (`lahc_run`, `lahc_finalize` around ops/lahc.py's
 init_lahc; JAX islands.py:899 make_lahc_runners) runs each island's rows
@@ -48,6 +55,7 @@ under its own event mask (K14's lane form, `div_stats_lanes`).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -61,6 +69,7 @@ from timetabling_ga_tpu_torch.ops import fitness, ga, lahc
 from timetabling_ga_tpu_torch.ops.moves import (
     MoveDraws, make_move_draws, relocation_chain)
 from timetabling_ga_tpu_torch.ops.sweep import sweep_local_search
+from timetabling_ga_tpu_torch.parallel import comm
 from timetabling_ga_tpu_torch.problem import LaneProblems
 
 
@@ -84,7 +93,22 @@ def reported_i32(hcv, scv):
     return torch.where(hcv == 0, scv, hcv * 1_000_000 + scv)
 
 
-def migrate_plain(state: ga.PopState, L: int, return_gain: bool = False):
+def halo_row(state: ga.PopState, r: int) -> torch.Tensor:
+    """Row `r` of a population packed as one (2E + 3,) int32 halo row:
+    [slots | rooms | penalty | hcv | scv], a copy (the emigrant as it
+    was before any write)."""
+    return torch.cat([state.slots[r], state.rooms[r], state.penalty[r:r + 1],
+                      state.hcv[r:r + 1], state.scv[r:r + 1]])
+
+
+def _unpack_row(row: torch.Tensor, E: int) -> tuple:
+    """A packed halo row's PopState fields, each with a leading 1."""
+    return (row[:E][None], row[E:2 * E][None], row[2 * E:2 * E + 1],
+            row[2 * E + 1:2 * E + 2], row[2 * E + 2:2 * E + 3])
+
+
+def migrate_plain(state: ga.PopState, L: int, return_gain: bool = False,
+                  fwd_in=None, bwd_in=None):
     """Plain version of K7's migrate entry (see `migrate`)."""
     pop = state.penalty.shape[0] // L
     if pop < 3:
@@ -92,13 +116,22 @@ def migrate_plain(state: ga.PopState, L: int, return_gain: bool = False):
             return state, torch.zeros(L, dtype=torch.int32,
                                       device=state.penalty.device)
         return state
+    E = state.slots.shape[1]
+    fwd = None if fwd_in is None else _unpack_row(fwd_in, E)
+    bwd = None if bwd_in is None else _unpack_row(bwd_in, E)
     out = []
-    for x in state:
+    for i, x in enumerate(state):
         b = _blocks(x, L).clone()
         best = b[:, 0].clone()
         second = b[:, 1].clone()
-        b[:, -1] = torch.roll(best, 1, dims=0)
-        b[:, -2] = torch.roll(second, -1, dims=0)
+        imm_f = torch.roll(best, 1, dims=0)
+        imm_b = torch.roll(second, -1, dims=0)
+        if fwd is not None:
+            imm_f[0] = fwd[i][0]
+        if bwd is not None:
+            imm_b[L - 1] = bwd[i][0]
+        b[:, -1] = imm_f
+        b[:, -2] = imm_b
         out.append(b.reshape(x.shape))
     new = ga.survivors_plain(ga.PopState(*out), groups=L)
     if not return_gain:
@@ -110,16 +143,28 @@ def migrate_plain(state: ga.PopState, L: int, return_gain: bool = False):
     return new, torch.clamp(best(state) - best(new), min=0)
 
 
-def migrate_kernel(state: ga.PopState, L: int, return_gain: bool = False):
+def migrate_kernel(state: ga.PopState, L: int, return_gain: bool = False,
+                   fwd_in=None, bwd_in=None):
     """Kernel K7's migrate entry: every island in one launch, out of
     place (the emigrants are read from the input); with return_gain the
-    first block of each island also writes its gain."""
+    first block of each island also writes its gain; with halo rows
+    island 0's row -1 and island L-1's row -2 come from them (its halo
+    form, counted as migrate_halo)."""
     pop = state.penalty.shape[0] // L
     if pop < 3:
         if return_gain:
             return state, torch.zeros(L, dtype=torch.int32,
                                       device=state.penalty.device)
         return state
+    E = state.slots.shape[1]
+    has_halo = fwd_in is not None or bwd_in is not None
+    for row in (fwd_in, bwd_in):
+        if row is not None and (row.dtype != torch.int32
+                                or row.shape != (2 * E + 3,)
+                                or row.device != state.slots.device):
+            raise ValueError(f"migrate: a halo row must be ({2 * E + 3},) "
+                             f"int32 on the population's device, got "
+                             f"{tuple(row.shape)} {row.dtype} {row.device}")
     # every island's first block writes its gain
     gain = (torch.empty(L, dtype=torch.int32, device=state.penalty.device)
             if return_gain else None)
@@ -128,31 +173,177 @@ def migrate_kernel(state: ga.PopState, L: int, return_gain: bool = False):
         raise TypeError("migrate takes an int32 population")
     out = ga.PopState(*(torch.empty_like(x) for x in ins))
     p = kernels.ptr
-    kernels.launch("migrate", *(p(x) for x in ins), *(p(x) for x in out),
-                   None if gain is None else p(gain), L, pop,
-                   state.slots.shape[1],
-                   work=work.migrate(L, pop, state.slots.shape[1]))
+    kernels.launch("migrate_halo" if has_halo else "migrate",
+                   *(p(x) for x in ins), *(p(x) for x in out),
+                   *(None if h is None else p(h) for h in (fwd_in, bwd_in)),
+                   None if gain is None else p(gain), L, pop, E,
+                   work=work.migrate(L, pop, E, halo=has_halo))
     return (out, gain) if return_gain else out
 
 
 @obs_prof.scope("tt.migrate")
-def migrate(state: ga.PopState, L: int, return_gain: bool = False):
+def migrate(state: ga.PopState, L: int, return_gain: bool = False,
+            fwd_in=None, bwd_in=None):
     """Bidirectional ring migration of one migrant each way: island l's
     worst row receives island l-1's best, its second-worst island l+1's
     second-best, then each island re-sorts (ga.cpp:522-535). With one
     island the ring closes on itself, as the JAX ring over one device
-    does. Populations under 3 skip migration: a victim row would alias
-    the best (islands.py:247-251). With return_gain (the quality
-    telemetry) also returns each island's (L,) int32 gain: its reported
-    best before the exchange minus after, at least 0 (zeros under pop
-    3). Kernel K7's migrate entry on CUDA tensors, the plain version on
-    CPU ones."""
+    does. On a mesh (`mesh_migrate`) the shard-boundary edges arrive as
+    halo rows (`halo_row`): `fwd_in`, the previous shard's last island's
+    best, replaces island L-1's best as island 0's immigrant, and
+    `bwd_in`, the next shard's first island's second best, replaces
+    island 0's second as island L-1's. Populations under 3 skip
+    migration: a victim row would alias the best (islands.py:247-251).
+    With return_gain (the quality telemetry) also returns each island's
+    (L,) int32 gain: its reported best before the exchange minus after,
+    at least 0 (zeros under pop 3). Kernel K7's migrate entry on CUDA
+    tensors, the plain version on CPU ones."""
     if not state.slots.is_cuda:
         pop = state.penalty.shape[0] // L
         if pop >= 3:
-            kernels.tally(work.migrate(L, pop, state.slots.shape[1]))
-        return migrate_plain(state, L, return_gain)
-    return migrate_kernel(state, L, return_gain)
+            kernels.tally(work.migrate(
+                L, pop, state.slots.shape[1],
+                halo=fwd_in is not None or bwd_in is not None))
+        return migrate_plain(state, L, return_gain, fwd_in, bwd_in)
+    return migrate_kernel(state, L, return_gain, fwd_in, bwd_in)
+
+
+# ------------------------------------------------------------ the mesh
+
+class Mesh:
+    """The island mesh (JAX `make_mesh`'s 1-D "island" axis): this
+    process's shards, a torch.device each, and the process group
+    (parallel/comm.py) whose ranks hold the other shards. A device may
+    repeat: shards on one card are separate populations on it (the
+    counterpart of JAX's virtual CPU devices). The global shard order is
+    rank 0's shards, then rank 1's, ...; shard k holds islands [k L,
+    (k + 1) L) (`local_islands`)."""
+
+    def __init__(self, devices, group=None):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a mesh needs at least one shard")
+        self.group = comm.active() if group is None else group
+
+    @property
+    def n_local(self) -> int:
+        return len(self.devices)
+
+    @property
+    def n_shards(self) -> int:
+        """Shards over every process."""
+        return self.n_local * self.group.world
+
+    @property
+    def first_shard(self) -> int:
+        """The global index of this process's first shard."""
+        return self.group.rank * self.n_local
+
+    def shard_device(self, s: int):
+        """A context that makes local shard `s`'s card current (kernels
+        launch on the current card's stream); nothing for the host."""
+        d = self.devices[s]
+        return torch.cuda.device(d) if d.type == "cuda" else \
+            contextlib.nullcontext()
+
+    def local_rows(self, n_global: int) -> list:
+        """(start, stop) of each local shard's rows of an array of
+        `n_global` rows split evenly over every shard."""
+        per = n_global // self.n_shards
+        return [((self.first_shard + s) * per,
+                 (self.first_shard + s + 1) * per)
+                for s in range(self.n_local)]
+
+    def global_min(self, vals) -> torch.Tensor:
+        """The minimum of one scalar a shard, over every shard: a min
+        across the local shards, then an all_reduce(MIN) across the
+        processes (JAX's lax.pmin)."""
+        d0 = self.devices[0]
+        m = torch.stack([v.to(d0) for v in vals]).min()
+        return self.group.all_reduce_min(m)
+
+    def halo(self, to_next, to_prev) -> tuple:
+        """The ring's shard-boundary exchange: shard k's `to_next` row
+        goes to shard k+1 and its `to_prev` row to shard k-1, around every
+        shard of every process. Returns (from_prev, from_next) per local
+        shard, each on its shard's device. Between local shards a row is
+        a copy; this process's first and last shards trade with the
+        neighbouring processes through one exchange (JAX's
+        lax.ppermute), which closes the ring on itself in one process."""
+        n = self.n_local
+        x_prev, x_next = self.group.exchange(to_next[-1], to_prev[0])
+        from_prev = [x_prev if s == 0 else to_next[s - 1] for s in range(n)]
+        from_next = [x_next if s == n - 1 else to_prev[s + 1]
+                     for s in range(n)]
+        return ([r.to(self.devices[s]) for s, r in enumerate(from_prev)],
+                [r.to(self.devices[s]) for s, r in enumerate(from_next)])
+
+
+def visible_devices(backend: str) -> list:
+    """The cards this process sees (`torch.cuda.device_count()`), or the
+    host alone for `cpu`."""
+    if backend == "cpu":
+        return [torch.device("cpu")]
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def make_mesh(n_islands: int = None, devices=None, group=None) -> Mesh:
+    """The island mesh over `devices` (default: the visible cards), cut
+    to the first `n_islands` shards when given (JAX islands.py:128)."""
+    if devices is None:
+        devices = visible_devices("gpu")
+    devices = list(devices)
+    if n_islands is not None:
+        devices = devices[:max(1, n_islands)]
+    return Mesh(devices, group)
+
+
+def local_islands(mesh: Mesh, n_islands: int = None) -> int:
+    """Islands a shard (JAX islands.py:150): n_islands may exceed the
+    shard count, each shard then carries L = n_islands / n_shards
+    islands as consecutive row blocks, the ring running within a shard
+    by K7 and across shards by the halo. Must divide evenly."""
+    if n_islands is None:
+        return 1
+    n = mesh.n_shards
+    if n_islands % n:
+        raise ValueError(f"n_islands={n_islands} must be a multiple of "
+                         f"the device count {n}")
+    return n_islands // n
+
+
+def on_shards(mesh: Mesh, fn, *per_shard, **kw) -> list:
+    """fn(shard's args..., **kw) on each local shard, its card current;
+    `per_shard` are lists with one item a shard."""
+    out = []
+    for s in range(mesh.n_local):
+        with mesh.shard_device(s):
+            out.append(fn(*(a[s] for a in per_shard), **kw))
+    return out
+
+
+def mesh_migrate(mesh: Mesh, states, L: int, return_gain: bool = False):
+    """JAX `_migrate` over every island of the mesh (islands.py:213-285):
+    the ring edges inside a shard are K7's on the card; the two edges at
+    each shard boundary are the halo — island L-1's best forward to the
+    next shard's island 0, island 0's second backward to the previous
+    shard's island L-1 — every field of the rows, taken before any
+    write. One shard in all: K7's ring closes on the card. Returns the
+    shards' states (and each shard's (L,) gains)."""
+    pop = states[0].penalty.shape[0] // L
+    if mesh.n_shards == 1 or pop < 3:
+        out = on_shards(mesh, migrate, states, L=L, return_gain=return_gain)
+    else:
+        to_next = on_shards(mesh, halo_row, states, r=(L - 1) * pop)
+        to_prev = on_shards(mesh, halo_row, states, r=1)
+        from_prev, from_next = mesh.halo(to_next, to_prev)
+        out = on_shards(mesh, lambda st, f, b: migrate(st, L, return_gain,
+                                                       f, b),
+                        states, from_prev, from_next)
+    if return_gain:
+        return [o[0] for o in out], [o[1] for o in out]
+    return out
 
 
 # Improvement-event capacity per island per dispatch (JAX islands.py:425):
@@ -470,46 +661,85 @@ def run_epochs(pa, gens, state: ga.PopState, cfg: ga.GAConfig,
     per-island best (hcv, scv), or under `deltas`/`stats` its packed
     leaf (`compress_trace`); with `quality` the leaf packed as
     `effective_trace_mode` says, then the quality block (see the module
-    docstring). The trajectory is the same in every mode."""
-    L = len(gens)
+    docstring). The trajectory is the same in every mode. One shard of
+    `mesh_run_epochs`, its ring closing on the card."""
+    states, traces, _ = mesh_run_epochs(
+        Mesh([state.slots.device], comm.SOLO), [pa], [gens], [state], cfg,
+        n_epochs, gens_per_epoch, trace_mode, quality)
+    return states[0], traces[0]
+
+
+def mesh_run_epochs(mesh: Mesh, pas, gens, states, cfg: ga.GAConfig,
+                    n_epochs: int, gens_per_epoch: int,
+                    trace_mode: str = "full", quality: bool = False):
+    """`run_epochs` on every shard of the mesh (JAX make_island_runner):
+    each epoch every shard runs its generations on its card, then the
+    migration crosses the mesh (`mesh_migrate`). `pas`, `gens` and
+    `states` hold one item a local shard. Returns (states, traces,
+    global best): each shard's state and trace leaf on its card, and
+    the lowest best-row penalty over every island (JAX's lax.pmin, one
+    all_reduce(MIN) across processes)."""
+    n_sh = mesh.n_local
+    L = len(gens[0])
     pop = cfg.pop_size
-    ls_fn = ga.ls_draws_fn(gens, pop, pa, cfg)
-    qacc = mig = None
+    ls_fns = [ga.ls_draws_fn(g, pop, pa, cfg) for g, pa in zip(gens, pas)]
+    qacc = [None] * n_sh
+    mig = [None] * n_sh
     if quality:
-        qacc = torch.zeros((L, obs_quality.N_OPS), dtype=torch.int32,
-                           device=pa.device)
-        mig = torch.zeros((L, 1), dtype=torch.int32, device=pa.device)
-    trace = []
+        qacc = [torch.zeros((L, obs_quality.N_OPS), dtype=torch.int32,
+                            device=pa.device) for pa in pas]
+        mig = [torch.zeros((L, 1), dtype=torch.int32, device=pa.device)
+               for pa in pas]
+    traces = [[] for _ in range(n_sh)]
+    states = list(states)
     for _ in range(n_epochs):
-        for _ in range(gens_per_epoch):
-            draws = ga.make_breed_draws(gens, pop, pa.n_events, pa.n_slots,
-                                        cfg, pa.device)
-            state = ga.generation(pa, draws, ls_fn, state, cfg, groups=L,
-                                  qacc=qacc)
-            trace.append(torch.stack([_blocks(state.hcv, L)[:, 0],
-                                      _blocks(state.scv, L)[:, 0]], -1))
+        for s in range(n_sh):
+            pa, st = pas[s], states[s]
+            with mesh.shard_device(s):
+                for _ in range(gens_per_epoch):
+                    draws = ga.make_breed_draws(gens[s], pop, pa.n_events,
+                                                pa.n_slots, cfg, pa.device)
+                    st = ga.generation(pa, draws, ls_fns[s], st, cfg,
+                                       groups=L, qacc=qacc[s])
+                    traces[s].append(torch.stack(
+                        [_blocks(st.hcv, L)[:, 0], _blocks(st.scv, L)[:, 0]],
+                        -1))
+            states[s] = st
         if quality:
-            state, gain = migrate(state, L, return_gain=True)
-            mig += gain[:, None]
+            states, gains = mesh_migrate(mesh, states, L, return_gain=True)
+            for s in range(n_sh):
+                mig[s] += gains[s][:, None]
         else:
-            state = migrate(state, L)
-    trace = torch.stack(trace, 1)
+            states = mesh_migrate(mesh, states, L)
     mode = effective_trace_mode(trace_mode, quality)
-    if mode != "full":
-        # a quality-packed full trace keeps every improvement (K = T)
-        trace = compress_trace(trace, mode, trace.shape[1]
-                               if mode != trace_mode else None)
-    if quality:
-        trace = torch.cat([trace, qacc, mig, div_stats(pa, state, L)], 1)
-    return state, trace
+    out = []
+    for s in range(n_sh):
+        with mesh.shard_device(s):
+            trace = torch.stack(traces[s], 1)
+            if mode != "full":
+                # a quality-packed full trace keeps every improvement
+                # (K = T)
+                trace = compress_trace(trace, mode, trace.shape[1]
+                                       if mode != trace_mode else None)
+            if quality:
+                trace = torch.cat([trace, qacc[s], mig[s],
+                                   div_stats(pas[s], states[s], L)], 1)
+        out.append(trace)
+    best = mesh.global_min([_blocks(st.penalty, L)[:, 0].min()
+                            for st in states])
+    return states, out, best
 
 
 @obs_prof.scope("tt.polish")
 def polish(pa, gens, state: ga.PopState, cfg: ga.GAConfig, n_sweeps: int,
            with_passes: bool = False):
-    """Up to `n_sweeps` converge sweep passes over the whole population
-    (one convergence group, as the JAX polish runner sweeps its flat
-    shard), then re-evaluation sorted per island. Returns (state, stats)
+    """Up to `n_sweeps` converge sweep passes over the population, each
+    island a convergence group of its own whose generator draws only
+    for the passes it runs (JAX's polish runner converges its flat shard
+    as one group, which on its default layout of one island a device is
+    one island; here a shard's islands stay independent of which
+    islands share the shard, so a mesh run gives one card's records),
+    then re-evaluation sorted per island. Returns (state, stats)
     with stats (3, L * pop) int32 = penalty, hcv, scv; with_passes
     (stats mode, JAX make_polish_runner) appends a row of the executed
     pass count and the four moment rows of the polished population's
@@ -520,7 +750,7 @@ def polish(pa, gens, state: ga.PopState, cfg: ga.GAConfig, n_sweeps: int,
         pa, ga.sweep_draws_fn(gens, pop, pa, cfg), state.slots, state.rooms,
         n_sweeps=n_sweeps, swap_block=cfg.ls_swap_block, converge=True,
         block_events=cfg.ls_block_events, sideways=cfg.ls_sideways,
-        hot_k=cfg.ls_hot_k, p3=cfg.p3, return_passes=True)
+        hot_k=cfg.ls_hot_k, p3=cfg.p3, groups=L, return_passes=True)
     st = ga.evaluate(pa, slots, rooms, groups=L)
     stats = torch.stack([st.penalty, st.hcv, st.scv])
     if with_passes:
@@ -616,6 +846,55 @@ def lahc_finalize(lstate: lahc.LahcState, L: int) -> ga.PopState:
                                     lstate.best_scv), groups=L)
 
 
+# ------------------------------------------------- the mesh's programs
+# Each runs its single-shard program on every local shard, its card
+# current, with no collective: only the generation runner migrates
+# (mesh_run_epochs). The engine fetches their outputs through
+# dispatch_core.fetch, which gathers the shards.
+
+def mesh_init(mesh: Mesh, pas, gens, pop_size: int) -> list:
+    return on_shards(mesh, init_island_population, pas, gens,
+                     pop_size=pop_size)
+
+
+def mesh_polish(mesh: Mesh, pas, gens, states, cfg: ga.GAConfig,
+                n_sweeps: int, with_passes: bool = False):
+    """(states, stats) of `polish` on every shard; stats one (rows,
+    L * pop) block a shard, joined along axis 1 by the fetch."""
+    out = on_shards(mesh, polish, pas, gens, states, cfg=cfg,
+                    n_sweeps=n_sweeps, with_passes=with_passes)
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def mesh_kick(mesh: Mesh, pas, gens, states, cfg: ga.GAConfig,
+              n_moves: int) -> list:
+    return on_shards(mesh, kick, pas, gens, states, cfg=cfg,
+                     n_moves=n_moves)
+
+
+def mesh_shrink(mesh: Mesh, states, L: int, pop_out: int) -> list:
+    return on_shards(mesh, shrink, states, L=L, pop_out=pop_out)
+
+
+def mesh_lahc_init(mesh: Mesh, pas, states, hist: int) -> list:
+    return on_shards(mesh, lambda pa, st: lahc.init_lahc(
+        pa, st.slots, st.rooms, hist), pas, states)
+
+
+def mesh_lahc_run(mesh: Mesh, pas, gens, lstates, cfg: ga.GAConfig,
+                  n_steps: int, k_cands: int, with_moments: bool = False):
+    """(lstates, stats) of `lahc_run` on every shard; stats (rows, L) a
+    shard, joined along axis 1 by the fetch."""
+    out = on_shards(mesh, lahc_run, pas, gens, lstates, cfg=cfg,
+                    n_steps=n_steps, k_cands=k_cands,
+                    with_moments=with_moments)
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def mesh_lahc_finalize(mesh: Mesh, lstates, L: int) -> list:
+    return on_shards(mesh, lahc_finalize, lstates, L=L)
+
+
 # ----------------------------------------------------------- serve lanes
 
 # the word after a job's seed in its generators' seeds: a dispatch chunk's
@@ -627,7 +906,7 @@ LANE_INIT_WORD = 2
 def pad_lanes(n_lanes: int, n_devices: int = 1) -> int:
     """Smallest lane count >= `n_lanes` that is a multiple of
     `n_devices` (JAX islands.py:139, which takes the mesh's device
-    count). The port serves one card, so this is max(1, n_lanes)."""
+    count): the serve scheduler's dispatch width on its lane mesh."""
     return ((max(1, n_lanes) + n_devices - 1) // n_devices) * n_devices
 
 
@@ -756,3 +1035,28 @@ def lane_run(lp: LaneProblems, gens, state: ga.PopState, counts,
                                        device=dev),
                            div_stats(lp, state, L)], 1)
     return state, trace
+
+
+def mesh_lane_run(mesh: Mesh, lps, gens, states, counts, cfg: ga.GAConfig,
+                  max_gens: int, trace_mode: str = "full",
+                  quality: bool = False):
+    """One serve dispatch over the lane mesh: card s's lanes (the s-th
+    block of len(gens) / mesh.n_local) run as one `lane_run` on its card
+    from its state `states[s]` and its LaneProblems `lps[s]`; a card
+    whose lanes all have count 0 (filler, `lps[s]` None) does not run.
+    Lanes never migrate: no collective. Returns (states, traces), the
+    traces of the cards that ran, in lane order (the cards that run are
+    a prefix: jobs fill the lanes in order)."""
+    per = len(gens) // mesh.n_local
+    states = list(states)
+    traces = []
+    for s in range(mesh.n_local):
+        lanes = slice(s * per, (s + 1) * per)
+        if lps[s] is None or not any(counts[lanes]):
+            continue
+        with mesh.shard_device(s):
+            states[s], tr = lane_run(lps[s], gens[lanes], states[s],
+                                     counts[lanes], cfg, max_gens,
+                                     trace_mode, quality)
+        traces.append(tr)
+    return states, traces

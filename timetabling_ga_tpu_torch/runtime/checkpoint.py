@@ -17,6 +17,14 @@ and its island generators' states as the extra arrays `torch_generators`
 resume restores the generators from them when they were written on the
 same device type, and reseeds them otherwise (runtime/engine.py).
 
+A run split over an island mesh or over processes saves the whole
+population and every island's generator state (gathered; process 0
+writes), so a file resumes on any layout — 2 processes to 1, 1 to 2, a
+JAX file onto a 2-shard mesh — each shard taking its islands' rows
+(dispatch_core.reshard_state) and, from a port file of the same device
+type, its islands' generator states; a JAX file reseeds them from each
+island's global index.
+
 `save` is atomic and durable: temp file, fsync, rotation of the previous
 file to `prev_path(path)`, rename, directory fsync. `load` falls back to
 the rotated file when the newest one is damaged. The fault site `ckpt`

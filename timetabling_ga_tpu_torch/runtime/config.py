@@ -2,7 +2,7 @@
 timetabling_ga_tpu/runtime/config.py:95-434, 601-).
 
 The flag surface is the JAX CLI's, in the reference's `-key value` model
-(Control.cpp:3-176). The port implements the single-GPU CLI solve, with
+(Control.cpp:3-176). The port implements the CLI solve, with
 the sweep or the random-candidate local search (`--ls-mode random`, the
 untuned default, sized by `-p` / `-m` as the reference's maxSteps), the
 parallel room matcher (`--rooms-mode parallel`), NSGA-II selection
@@ -18,10 +18,11 @@ the same defaults and checks), and the dispatch pipeline with in-run
 fault recovery (`--no-pipeline`, `--max-recoveries`, `--fetch-timeout`,
 `--faults`, `--no-precompile`: skip the sec/gen probe; `--no-donate`: a
 no-op, since no dispatch writes into its input state), and the
-profiler (`--trace-profile`, `--profile-dir`, `--profile-for`). A flag
-it does not implement yet (`--peer-timeout`, `--coordinator`, ...:
-`NOT_PORTED`) stops the parse with a message naming it as not yet
-ported, never silently ignored. `-l` is accepted and retired, as on the
+profiler (`--trace-profile`, `--profile-dir`, `--profile-for`), and
+islands across processes (`--coordinator`, `--num-processes`,
+`--process-id`, `--distributed`, `--peer-timeout`, `--no-accord`; JAX
+config.py:294-331, the same defaults and checks). Every flag of the JAX
+CLI parses; an unknown flag stops the parse. `-l` is accepted and retired, as on the
 JAX path: the engine warns that the local search is bounded by -m
 instead. JAX's checkpoint refusals hold: the tuned `post_pop_size` is
 dropped under `--checkpoint`, and an explicit `--post-pop-size` with
@@ -36,8 +37,8 @@ port serves (`--trace-mode full|deltas|stats`, `--quality`, `--obs`,
 `--metrics-every`, `--no-usage`, `--profile-dir`, `--profile-for` and
 the five flags above among them, the fault plan, the per-job recovery
 budget, the shedding marks, and the fleet replica's `--http`,
-`--preempt-grace` and `--preempt-on-term`); `--mesh-devices` above 1
-stops the parse by name. `FleetConfig` and `parse_fleet_args` are the
+`--preempt-grace` and `--preempt-on-term`), and `--mesh-devices`: the
+cards the lanes are spread over (serve/scheduler.py). `FleetConfig` and `parse_fleet_args` are the
 `fleet` subcommand's (JAX config.py:941-1314): the same flags, defaults,
 checks and messages, but for `--backend`, which takes `gpu` (the
 default: spawned workers run on the card) or `cpu`.
@@ -144,6 +145,29 @@ class RunConfig:
     #                               seconds (0 = no watchdog)
     faults: Optional[str] = None  # fault plan (runtime/faults.py);
     #                               None reads $TT_FAULTS
+    accord: bool = True           # the accord control channel
+    #                               (runtime/control_channel.py): the
+    #                               schedule agreement, the guard before
+    #                               every collective and the fault
+    #                               consensus ride the process group's
+    #                               store; --no-accord broadcasts the
+    #                               schedule from process 0 instead
+    #                               (and hangs on a dead peer); one
+    #                               process runs the same either way
+    peer_timeout: float = 60.0    # seconds of heartbeat silence before
+    #                               a peer process is classified lost
+    #                               (control_channel.PeerLost: the
+    #                               agreed clean abort; 0 = wait
+    #                               forever); also the process group's
+    #                               timeout
+    # multi-process (the reference's MPI_Init, ga.cpp:373-380): the
+    # process group starts before any device use when --distributed or
+    # --coordinator is given; the island mesh then spans every process's
+    # shards (runtime/engine.py maybe_init_distributed)
+    distributed: bool = False     # torch's env:// variables
+    coordinator: Optional[str] = None  # host:port of process 0's store
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
     auto_tune: bool = True
     explicit_fields: frozenset = frozenset()
 
@@ -236,7 +260,11 @@ _FLAG_MAP = {
     "--stall-hamming": ("stall_hamming", float),
     "--max-recoveries": ("max_recoveries", int),
     "--fetch-timeout": ("fetch_timeout", float),
+    "--peer-timeout": ("peer_timeout", float),
     "--faults": ("faults", str),
+    "--coordinator": ("coordinator", str),
+    "--num-processes": ("num_processes", int),
+    "--process-id": ("process_id", int),
     "--metrics-every": ("metrics_every", int),
     "--obs-listen": ("obs_listen", str),
     "--history-every": ("history_every", float),
@@ -252,28 +280,17 @@ _BOOL_FLAGS = {"--trace": "trace", "--ls-converge": "ls_converge",
                "--obs": "obs",
                "--ls-full-eval": "ls_full_eval", "--nsga2": "nsga2",
                "--resume": "resume", "--quality": "quality",
-               "--auto-kick-on-stall": "auto_kick_on_stall"}
+               "--auto-kick-on-stall": "auto_kick_on_stall",
+               "--distributed": "distributed"}
 _NEG_BOOL_FLAGS = {"--no-auto-tune": "auto_tune",
                    "--no-precompile": "precompile",
                    "--no-pipeline": "pipeline",
-                   "--no-donate": "donate"}
-
-# Flags of the JAX CLI this slice does not implement yet: True = takes
-# a value, False = a switch. Parsing any of them stops the run.
-NOT_PORTED = {
-    "--peer-timeout": True,
-    "--coordinator": True, "--num-processes": True, "--process-id": True,
-    "--distributed": False, "--no-accord": False,
-}
+                   "--no-donate": "donate",
+                   "--no-accord": "accord"}
 
 _KNOWN_VALUES = {"ls_mode": ("random", "sweep"),
                  "rooms_mode": ("scan", "parallel"),
                  "trace_mode": ("full", "deltas", "stats")}
-
-
-def not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not yet ported to "
-                      f"timetabling_ga_tpu_torch (use timetabling_ga_tpu)")
 
 
 def _format_usage(header, flag_map, bool_maps) -> str:
@@ -294,11 +311,10 @@ def _usage() -> str:
 
 
 def _parse_flag_stream(argv, cfg, flag_map, usage_fn, bool_flags,
-                       neg_bool_flags, unported=()) -> set:
+                       neg_bool_flags) -> set:
     """The `-key value` loop of parse_args and parse_serve_args: -h
-    prints the usage and exits 0, an `unported` flag stops the parse by
-    name, unknown flags and missing values are SystemExit. Returns the
-    fields the argv set."""
+    prints the usage and exits 0, unknown flags and missing values are
+    SystemExit. Returns the fields the argv set."""
     seen = set()
     i = 0
     while i < len(argv):
@@ -306,8 +322,6 @@ def _parse_flag_stream(argv, cfg, flag_map, usage_fn, bool_flags,
         if a in ("-h", "--help"):
             print(usage_fn())
             raise SystemExit(0)
-        if a in unported:
-            raise not_ported(a)
         if a in bool_flags:
             setattr(cfg, bool_flags[a], True)
             seen.add(bool_flags[a])
@@ -353,10 +367,10 @@ def _validate_flight(cfg) -> None:
 
 
 def parse_args(argv) -> RunConfig:
-    """Parse `-key value` pairs; unknown or unported flags raise."""
+    """Parse `-key value` pairs; unknown flags raise."""
     cfg = RunConfig()
     seen = _parse_flag_stream(argv, cfg, _FLAG_MAP, _usage, _BOOL_FLAGS,
-                              _NEG_BOOL_FLAGS, NOT_PORTED)
+                              _NEG_BOOL_FLAGS)
     cfg.explicit_fields = frozenset(seen)
     if cfg.input is None:
         raise SystemExit("No instance file specified, use -i <file>")
@@ -391,6 +405,9 @@ def parse_args(argv) -> RunConfig:
     if cfg.fetch_timeout < 0:
         raise SystemExit("--fetch-timeout must be >= 0 seconds "
                          "(0 disables the fetch watchdog)")
+    if cfg.peer_timeout < 0:
+        raise SystemExit("--peer-timeout must be >= 0 seconds "
+                         "(0 waits forever for a silent peer)")
     if cfg.post_lahc < 0:
         raise SystemExit("--post-lahc must be >= 0 (history length; "
                          "0 disables the LAHC endgame)")
@@ -411,6 +428,11 @@ def parse_args(argv) -> RunConfig:
         raise SystemExit("--auto-kick-on-stall needs --quality (the "
                          "stall detector reads the on-device diversity "
                          "telemetry)")
+    if cfg.coordinator is not None and (cfg.num_processes is None
+                                        or cfg.process_id is None):
+        raise SystemExit("--coordinator requires --num-processes and "
+                         "--process-id (the reference's mpirun provides "
+                         "these; here they are explicit)")
     if (cfg.post_pop_size is not None and "pop_size" in seen
             and cfg.post_pop_size > cfg.pop_size):
         raise SystemExit("--post-pop-size must not exceed --pop-size "
@@ -433,7 +455,10 @@ class ServeConfig:
     output: Optional[str] = None  # record stream; None = stdout
     backend: str = "gpu"
     lanes: int = 4                # job lanes per dispatch
-    mesh_devices: int = 0         # cards serving (0 and 1: the one card)
+    mesh_devices: int = 0         # cards the lanes are spread over
+    #                               (0 = every visible card; N = the
+    #                               first N); the dispatch width is
+    #                               padded up to a multiple of it
     resident: bool = True         # a group whose lanes are unchanged
     #                               between quanta stays on the card;
     #                               --no-resident parks it every quantum
@@ -587,9 +612,6 @@ def parse_serve_args(argv) -> ServeConfig:
     if cfg.mesh_devices < 0:
         raise SystemExit("--mesh-devices must be >= 0 "
                          "(0 = every visible device)")
-    if cfg.mesh_devices > 1:
-        raise not_ported(f"--mesh-devices {cfg.mesh_devices} (serving on "
-                         f"more than one card)")
     if cfg.quantum < 1:
         raise SystemExit("--quantum must be >= 1 generation")
     if cfg.backlog < 1:

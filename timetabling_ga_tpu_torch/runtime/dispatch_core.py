@@ -1,9 +1,12 @@
-"""The dispatch core on one card (port of timetabling_ga_tpu/runtime/
+"""The dispatch core (port of timetabling_ga_tpu/runtime/
 dispatch_core.py:109-200, 202-341, 344-560): the pieces the engine's
 run loop, the serve scheduler and the fleet replica share.
 
-    place_state   a host (numpy) PopState onto the device (JAX
-                  `reshard_state`, on one card a copy per field)
+    place_state   a host (numpy) PopState onto one device, a copy per
+                  field
+    reshard_state a host (numpy) global PopState onto an island mesh:
+                  each local shard's rows onto its card (JAX
+                  `reshard_state`, :349-357)
     state_nbytes  bytes a PopState moves across the host boundary when
                   parked or placed: the unit of `serve.park_bytes` and
                   `serve.resume_bytes`
@@ -13,7 +16,11 @@ run loop, the serve scheduler and the fleet replica share.
                   under the `--fetch-timeout` deadline, with the `fetch`
                   fault site inside it; given a tracer and a flow id,
                   the watchdog thread's read is a `fetch-read` span on
-                  the dispatch's flow
+                  the dispatch's flow. A mesh value (one tensor a local
+                  shard) is joined along its island axis and, in a run
+                  split over processes, gathered from every rank behind
+                  the accord guard, so every rank sees the whole result
+                  (JAX :404-429); telemetry (fetch_leaf) stays local
     fetch_leaf    a telemetry leaf to the host: never a control fence,
                   never injected, never under the deadline
     fetch_state   a PopState to the host in one control-fence read
@@ -30,9 +37,8 @@ run loop, the serve scheduler and the fleet replica share.
 
 JAX's `purge_programs` has no counterpart: the port compiles nothing
 per shape, so after a fault there is no compiled program bound to
-poisoned state to drop; the kernel libraries stay loaded. JAX's
-`agree_on_fault` (the multi-process recovery agreement) waits for
-multi-process runs. Nothing here runs at import or needs a card.
+poisoned state to drop; the kernel libraries stay loaded. Nothing here
+runs at import or needs a card.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ import torch
 from timetabling_ga_tpu_torch.obs import cost as obs_cost
 from timetabling_ga_tpu_torch.obs.spans import NULL_TRACER
 from timetabling_ga_tpu_torch.ops import ga
-from timetabling_ga_tpu_torch.parallel import islands
+from timetabling_ga_tpu_torch.parallel import comm, islands
 from timetabling_ga_tpu_torch.runtime import faults
 from timetabling_ga_tpu_torch.runtime import retry
 
@@ -228,6 +234,24 @@ class Supervisor:
             return True
         return False
 
+    def agree_on_fault(self, channel, site: str, error=None) -> dict:
+        """Multi-process recovery consensus (JAX dispatch_core.py:299):
+        this process's verdict — `recover` at the snapshot's generation
+        count, or `abort` when the recovery budget is spent — merged
+        with every peer's over the control channel (abort wins, else the
+        lowest-pid real fault site). Host-side only: nothing here may
+        touch the possibly poisoned collectives. A single-process
+        channel returns the local verdict, agreed."""
+        local = {
+            "site": site,
+            "action": ("abort"
+                       if self.recoveries + 1 > self.cfg.max_recoveries
+                       else "recover"),
+            "gens": int(self.snap.gens_done) if self.snap else -1,
+            "err": str(error)[:200] if error is not None else None,
+        }
+        return channel.agree_on_fault(local)
+
     def maybe_relax(self, now: float) -> bool:
         """Step back up one level after WINDOW_S without a failure since
         the last failure or the last relax. True when it did."""
@@ -250,11 +274,25 @@ def place_state(host: ga.PopState, device) -> ga.PopState:
         x, dtype=np.int32)).to(device) for x in host))
 
 
+def reshard_state(host: ga.PopState, mesh) -> list:
+    """Place a host (numpy) global PopState on an island mesh (JAX
+    dispatch_core.py:349): every process holds the whole host copy (a
+    checkpoint or a snapshot holds the global population), and each
+    local shard takes its own rows onto its card. Returns one PopState a
+    local shard."""
+    rows = mesh.local_rows(len(host.penalty))
+    return [place_state(ga.PopState(*(x[a:b] for x in host)), dev)
+            for (a, b), dev in zip(rows, mesh.devices)]
+
+
 def state_nbytes(state) -> int:
-    """Bytes of a PopState's fields, host (numpy) or device (torch);
-    0 for None."""
+    """Bytes of a PopState's fields, host (numpy) or device (torch), or
+    of a mesh state's shards; 0 for None."""
     if state is None:
         return 0
+    if isinstance(state, list):
+        # a mesh state: its shards'
+        return sum(state_nbytes(st) for st in state)
     return int(sum(x.nbytes if isinstance(x, np.ndarray)
                    else x.numel() * x.element_size() for x in state))
 
@@ -273,9 +311,12 @@ class HostCopy:
         if x.is_cuda:
             self.host = torch.empty(x.shape, dtype=x.dtype,
                                     pin_memory=True)
-            self.host.copy_(x, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
+            # the copy and its event on the tensor's card's stream (a
+            # mesh shard may live on another card than the current one)
+            with torch.cuda.device(x.device):
+                self.host.copy_(x, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record()
         else:
             self.host, self.event = x, None
 
@@ -285,7 +326,18 @@ class HostCopy:
         return self.host.numpy()
 
 
-def _to_host(x) -> np.ndarray:
+def host_copies(x):
+    """HostCopy of a tensor, or one a shard of a mesh value (a list)."""
+    if isinstance(x, list):
+        return [HostCopy(t) for t in x]
+    return HostCopy(x)
+
+
+def _to_host(x, axis: int = 0) -> np.ndarray:
+    if isinstance(x, list):
+        # a mesh value: the local shards joined along the island axis
+        parts = [_to_host(t) for t in x]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis)
     if isinstance(x, HostCopy):
         return x.wait()
     if isinstance(x, torch.Tensor):
@@ -310,26 +362,32 @@ class FetchTimeout(TimeoutError):
     message carries the 'fetch watchdog' marker, so it is transient."""
 
 
-def fetch(x, tracer=NULL_TRACER, flow=None) -> np.ndarray:
+def fetch(x, tracer=NULL_TRACER, flow=None, axis: int = 0) -> np.ndarray:
     """The control-fence host read (JAX dispatch_core.py:401) of a
-    device tensor, a HostCopy or an array. Under a deadline the read
-    runs on a daemon thread that the caller joins with the deadline: a
-    read that outlives it raises FetchTimeout (site `fetch`) and the
-    thread is abandoned. The `fetch` fault site fires inside the read.
-    With a `flow` id the watchdog thread records its read as a
-    `fetch-read` span on that flow, the arrow across the thread
-    boundary."""
+    device tensor, a HostCopy, an array, or a mesh value (a list of
+    them, one a local shard, joined along `axis`), then gathered from
+    every process of the run in rank order (comm.ProcessGroup
+    all_gather, behind the accord guard; the identity in one process).
+    Under a deadline the read runs on a daemon thread that the caller
+    joins with the deadline: a read that outlives it raises FetchTimeout
+    (site `fetch`) and the thread is abandoned. A run split over
+    processes reads on this thread, since every process must enter the
+    gather in program order (JAX's rule). The `fetch` fault site fires
+    inside the read. With a `flow` id the watchdog thread records its
+    read as a `fetch-read` span on that flow, the arrow across the
+    thread boundary."""
+    group = comm.active()
     timeout = _FETCH_TIMEOUT
-    if not timeout:
+    if not timeout or group.world > 1:
         faults.maybe_fail("fetch")
-        return _to_host(x)
+        return group.all_gather(_to_host(x, axis), axis)
     box: dict = {}
 
     def _read():
         tr0 = time.monotonic()
         try:
             faults.maybe_fail("fetch")
-            box["value"] = _to_host(x)
+            box["value"] = _to_host(x, axis)
             if flow is not None:
                 tracer.record("fetch-read", tr0, time.monotonic() - tr0,
                               cat="engine", flow=flow)
@@ -350,34 +408,41 @@ def fetch(x, tracer=NULL_TRACER, flow=None) -> np.ndarray:
         e = box["error"]
         e.tt_site = "fetch"
         raise e
-    return box["value"]
+    return group.all_gather(box["value"], axis)
 
 
 def fetch_leaf(x) -> np.ndarray:
     """A telemetry leaf (a trace) on the host: no fault site, no
-    deadline."""
+    deadline, no gather (telemetry stays local to each process)."""
     return _to_host(x)
 
 
-def fetch_state(state: ga.PopState) -> ga.PopState:
-    """Host (numpy) copy of a population in one control-fence read:
-    slots, rooms, penalty, hcv and scv packed into one (N, 2E + 3) int32
-    array, fetched once and sliced apart."""
-    packed = fetch(torch.cat([state.slots, state.rooms,
-                              state.penalty[:, None], state.hcv[:, None],
-                              state.scv[:, None]], 1))
-    E = state.slots.shape[1]
+def _packed(state, fields):
+    """A PopState's (N, ...) fields packed side by side, or one such
+    tensor a shard of a mesh state (a list of PopStates)."""
+    if isinstance(state, list):
+        return [_packed(st, fields) for st in state]
+    return torch.cat([getattr(state, f) if f in ("slots", "rooms")
+                      else getattr(state, f)[:, None] for f in fields], 1)
+
+
+def fetch_state(state) -> ga.PopState:
+    """Host (numpy) copy of a population — a PopState, or a mesh state
+    whose shards are gathered into the global one — in one control-fence
+    read: slots, rooms, penalty, hcv and scv packed into one (N, 2E + 3)
+    int32 array, fetched once and sliced apart."""
+    packed = fetch(_packed(state, ga.PopState._fields))
+    E = (packed.shape[1] - 3) // 2
     return ga.PopState(packed[:, :E], packed[:, E:2 * E], packed[:, 2 * E],
                        packed[:, 2 * E + 1], packed[:, 2 * E + 2])
 
 
-def fetch_final(state: ga.PopState, n_islands: int, pop: int):
+def fetch_final(state, n_islands: int, pop: int):
     """The try's last read in one control fence (JAX dispatch_core.py:
     475): (slots (N, P, E), rooms (N, P, E), each island's best row's hcv
-    (N,) and scv (N,))."""
-    packed = fetch(torch.cat([state.slots, state.rooms, state.hcv[:, None],
-                              state.scv[:, None]], 1))
-    E = state.slots.shape[1]
+    (N,) and scv (N,)), N every island of the mesh."""
+    packed = fetch(_packed(state, ("slots", "rooms", "hcv", "scv")))
+    E = (packed.shape[1] - 2) // 2
     slots = packed[:, :E].reshape(n_islands, pop, E)
     rooms = packed[:, E:2 * E].reshape(n_islands, pop, E)
     hcv = packed[:, 2 * E].reshape(n_islands, pop)[:, 0]

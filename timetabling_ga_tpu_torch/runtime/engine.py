@@ -1,5 +1,6 @@
-"""The single-GPU run loop (the main path of
-timetabling_ga_tpu/runtime/engine.py:885-1066 and `_run_tries` :1272-).
+"""The run loop (the main path of timetabling_ga_tpu/runtime/engine.py:
+551-587, 885-1066 and `_run_tries` :1272-), on an island mesh of one or
+more cards and one or more processes.
 
     load -> per try: init (random slots + K1 + K2) -> chunked init polish
     -> dispatches of epochs x migration_period generations (ring
@@ -122,9 +123,31 @@ under --obs); `--profile-for N` triggers it at launch and /profile on
 the pull front on demand. None of it changes a record of the stream
 under strip_timing.
 
-Not in the port yet: multi-process agreement (runtime/config.py refuses
-its flags). `--no-donate` changes nothing: no dispatch writes into its
-input state.
+Islands across cards and processes (JAX engine.py:551-587, 640-660,
+911-929, 2190-2257): the run's islands are split over an island mesh
+(parallel/islands.py Mesh), whose shards are this process's visible
+cards (cut to --islands) and, across processes, each rank's shards in
+rank order; --islands defaults to the total shard count. Every program
+runs on each local shard on its card; only the generation runner
+crosses shards, by the migration's halo and one all_reduce(MIN) of the
+global best. `--coordinator h:p --num-processes N --process-id i` (or
+`--distributed` with torch's env:// variables) starts the process group
+on a TCPStore process 0 hosts (maybe_init_distributed); every control
+read gathers every rank's shards (dispatch_core.fetch), so each rank
+sees the whole result and takes the same decisions; the decisions read
+from a process's own clock (dispatch sizes, polish and LAHC chunks, the
+kick's budget check, resume yes/no) are agreed through the accord
+channel (runtime/control_channel.py), or under --no-accord broadcast
+from process 0 (`_sync_vals`). Only process 0 writes the record stream
+and the checkpoint, whose state and generators are the whole mesh's, so
+a run resumes on any layout. The pipeline is off across processes. A
+peer whose heartbeat stops past --peer-timeout is a PeerLost: the abort
+faultEntry (`lostProc`), a final checkpoint from the snapshot on process
+0, and the error propagates (cli.py exits 70 without teardown); any
+other recoverable fault is agreed on first (Supervisor.agree_on_fault),
+its records carrying `proc`, `agreed` and `decider`.
+
+`--no-donate` changes nothing: no dispatch writes into its input state.
 """
 
 from __future__ import annotations
@@ -144,14 +167,14 @@ from timetabling_ga_tpu_torch.obs import metrics as obs_metrics
 from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.obs import quality as obs_quality
 from timetabling_ga_tpu_torch.obs.spans import NULL_TRACER, SpanTracer
-from timetabling_ga_tpu_torch.ops import ga, lahc
-from timetabling_ga_tpu_torch.parallel import islands
+from timetabling_ga_tpu_torch.ops import ga
+from timetabling_ga_tpu_torch.parallel import comm, islands
 from timetabling_ga_tpu_torch.problem import load_tim_file
 from timetabling_ga_tpu_torch.runtime import checkpoint as ckpt
+from timetabling_ga_tpu_torch.runtime import control_channel
 from timetabling_ga_tpu_torch.runtime import dispatch_core as dcore
 from timetabling_ga_tpu_torch.runtime import faults, jsonl, retry
 from timetabling_ga_tpu_torch.runtime.config import RunConfig
-from timetabling_ga_tpu_torch.runtime.dispatch_core import place_state
 
 INT_MAX = 2 ** 31 - 1
 FEASIBLE_LIMIT = 1_000_000
@@ -172,6 +195,75 @@ def resolve_device(backend: str) -> torch.device:
         raise RuntimeError("--backend gpu: no CUDA device is visible "
                            "(pass --backend cpu to run on the host)")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def run_shards(cfg: RunConfig) -> list:
+    """This process's shards: its visible cards (the host for `cpu`),
+    cut to its share of --islands when given (JAX engine.py:640-660
+    takes jax.devices() the same way)."""
+    resolve_device(cfg.backend)
+    devices = islands.visible_devices(cfg.backend)
+    if cfg.islands is not None:
+        world = (cfg.num_processes if cfg.coordinator is not None
+                 else int(os.environ.get("WORLD_SIZE", "1"))
+                 if cfg.distributed else 1)
+        devices = devices[:max(1, cfg.islands // max(1, world))]
+    return devices
+
+
+def maybe_init_distributed(cfg: RunConfig, devices) -> None:
+    """The multi-process entry point (JAX engine.py:551; the role
+    MPI_Init plays for the reference, ga.cpp:373-380), before any other
+    device use. `--coordinator h:p --num-processes N --process-id i`
+    starts a TCPStore at h:p that process 0 hosts, as it hosts JAX's
+    coordinator; `--distributed` alone reads torch's env:// variables
+    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK; a torchrun agent's
+    store is joined, not hosted). The process group is built on that
+    store (parallel/comm.py start: the backend decided once from the
+    ranks' card ids, printed on stderr), its timeout --peer-timeout.
+    Idempotent: a process joins one group for its life."""
+    if comm.active().world > 1 or not (cfg.distributed or cfg.coordinator):
+        return
+    import datetime
+
+    import torch.distributed as dist
+    if cfg.coordinator is not None:
+        host, _, port = cfg.coordinator.rpartition(":")
+        rank, world, agent = cfg.process_id, cfg.num_processes, False
+    else:
+        host = os.environ["MASTER_ADDR"]
+        port = os.environ["MASTER_PORT"]
+        rank = int(os.environ["RANK"])
+        world = int(os.environ["WORLD_SIZE"])
+        agent = os.environ.get("TORCHELASTIC_USE_AGENT_STORE") == "True"
+    # the store's own waits are the start-up rendezvous: processes
+    # started by hand may be minutes apart, whatever --peer-timeout says
+    # of a peer that was already running
+    timeout = datetime.timedelta(seconds=max(300.0, cfg.peer_timeout))
+    store = dist.TCPStore(host, int(port), world,
+                          is_master=rank == 0 and not agent,
+                          timeout=timeout)
+    comm.start(store, rank, world, devices, cfg.backend == "cpu",
+               cfg.peer_timeout)
+
+
+def _sync_vals(*vals):
+    """Schedule agreement across processes (JAX engine.py:337): every
+    process must take the same dispatch decisions (chunk sizes, epoch
+    counts, break or continue) or their collective sequences diverge
+    near the -t boundary and the run deadlocks. Decisions computed from
+    each process's own clock are replaced by process 0's, through the
+    accord channel (process-0-wins on the store, off the device path),
+    or under --no-accord by a broadcast from process 0. The identity in
+    one process."""
+    group = comm.active()
+    if group.world > 1:
+        ch = control_channel.active()
+        if ch is not None:
+            return tuple(int(v)
+                         for v in ch.agree("s", [int(v) for v in vals]))
+        return tuple(group.broadcast(vals))
+    return tuple(int(v) for v in vals)
 
 
 def build_ga_config(cfg: RunConfig) -> ga.GAConfig:
@@ -216,11 +308,13 @@ def build_post_config(cfg: RunConfig, gacfg: ga.GAConfig):
 
 
 def island_generators(device, seed: int, trial: int, n: int,
-                      generation: int = None):
-    """One torch.Generator per island, seeded from (seed, trial, island),
-    or from (seed, trial, island, generation) when a resume reseeds."""
+                      generation: int = None, first: int = 0):
+    """One torch.Generator per island of islands [first, first + n),
+    seeded from (seed, trial, island), or from (seed, trial, island,
+    generation) when a resume reseeds: an island's stream depends on its
+    global index alone, whichever shard or process holds it."""
     gens = []
-    for island in range(n):
+    for island in range(first, first + n):
         words = [seed, trial, island] + (
             [] if generation is None else [generation])
         s = int(np.random.SeedSequence(words)
@@ -231,8 +325,22 @@ def island_generators(device, seed: int, trial: int, n: int,
     return gens
 
 
+def mesh_generators(mesh, seed: int, trial: int, L: int,
+                    generation: int = None) -> list:
+    """Each local shard's island generators, on its card, for the
+    islands the shard holds (island_generators)."""
+    return [island_generators(dev, seed, trial, L, generation,
+                              first=(mesh.first_shard + s) * L)
+            for s, dev in enumerate(mesh.devices)]
+
+
 def generator_states(gens) -> np.ndarray:
-    """(L, n) uint8: each island generator's state."""
+    """(n, k) uint8: each island generator's state; for a mesh's
+    generators (a list a shard) every island's, gathered from every
+    process in island order."""
+    if gens and isinstance(gens[0], list):
+        local = np.stack([g.get_state().numpy() for sh in gens for g in sh])
+        return comm.active().all_gather(local, 0)
     return np.stack([g.get_state().numpy() for g in gens])
 
 
@@ -244,21 +352,32 @@ def restore_generators(device, states) -> list:
     return gens
 
 
-def resume_generators(device, loaded: ckpt.Loaded, seed: int, trial: int,
+def restore_mesh_generators(mesh, states) -> list:
+    """A mesh's generators from every island's (N, k) `states`: each
+    local shard takes its islands' rows onto its card."""
+    return [restore_generators(dev, states[a:b])
+            for (a, b), dev in zip(mesh.local_rows(len(states)),
+                                   mesh.devices)]
+
+
+def resume_generators(mesh, loaded: ckpt.Loaded, seed: int, trial: int,
                       n: int):
     """The island generators of a resumed try: restored from the
-    checkpoint when it holds their states from this device type, else
-    reseeded from (seed, trial, island, generation) with a note."""
+    checkpoint when it holds the states of all `n` islands from this
+    device type (written on any layout), else reseeded from (seed,
+    trial, island, generation) with a note."""
+    dtype = mesh.devices[0].type
     if (loaded.generators is not None
-            and loaded.generator_device == device.type
+            and loaded.generator_device == dtype
             and len(loaded.generators) == n):
-        return restore_generators(device, loaded.generators)
+        return restore_mesh_generators(mesh, loaded.generators)
     where = ("the JAX package" if loaded.generators is None
              else f"a {loaded.generator_device} device")
     print(f"note: checkpoint written by {where}; reseeding the "
-          f"{device.type} island generators from (seed, trial, island, "
+          f"{dtype} island generators from (seed, trial, island, "
           f"generation {loaded.generation})", file=sys.stderr)
-    return island_generators(device, seed, trial, n, loaded.generation)
+    return mesh_generators(mesh, seed, trial,
+                           islands.local_islands(mesh, n), loaded.generation)
 
 
 def record_quality(qrows) -> dict:
@@ -300,11 +419,14 @@ class _Try:
     so replayed improvements are not written twice (JAX best_seen and
     emitted)."""
 
-    def __init__(self, out, cfg: RunConfig, trial: int, n_islands: int):
+    def __init__(self, out, cfg: RunConfig, trial: int, n_islands: int,
+                 mesh):
         self.out = out
         self.cfg = cfg
         self.trial = trial
         self.n = n_islands
+        self.mesh = mesh
+        self.L = islands.local_islands(mesh, n_islands)
         self.t0 = time.monotonic()
         self.best = [INT_MAX] * n_islands
         self.emitted = [INT_MAX] * n_islands
@@ -333,7 +455,10 @@ def _polish_chunks(tr: _Try, pa, gens, state, gacfg, name: str,
     4 converge passes while the pass budget lasts, the next chunk is
     predicted to fit the budget (x1.25), and the population's penalty
     sum keeps falling (two flat chunks end it under sideways
-    acceptance, one without). Returns (state, sec_per_sweep)."""
+    acceptance, one without). Chunk sizes go through _sync_vals; the
+    stats are every island's (the fetch gathers the mesh), so every
+    process stops at the same chunk. `pa`, `gens` and `state` hold one
+    item a local shard. Returns (state, sec_per_sweep)."""
     done = 0
     prev_sum = None
     stalls = 0
@@ -346,13 +471,15 @@ def _polish_chunks(tr: _Try, pa, gens, state, gacfg, name: str,
             chunk = 0
         else:
             chunk = min(chunk, 1)   # first chunk: one pass, measured
+        chunk, = _sync_vals(chunk)
         if chunk < 1:
             break
         tp0 = time.monotonic()
         faults.maybe_fail("dispatch")
-        state, stats = dcore.program("polish", islands.polish)(
-            pa, gens, state, gacfg, chunk, tr.cfg.trace_mode == "stats")
-        stats = dcore.fetch(stats)
+        state, stats = dcore.program("polish", islands.mesh_polish)(
+            tr.mesh, pa, gens, state, gacfg, chunk,
+            tr.cfg.trace_mode == "stats")
+        stats = dcore.fetch(stats, axis=1)
         tp1 = time.monotonic()
         tr.phase(name, tp1 - tp0, sweeps=chunk)
         tracer.record(name, tp0, tp1 - tp0, cat="device", sweeps=chunk)
@@ -386,11 +513,13 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg, tracer=NULL_TRACER):
     """The LAHC endgame (JAX engine.py:1185 _lahc_loop): the try's
     remaining budget in chunks of steps sized from the measured sec/step
     (a 256-step probe until there is one; the first chunk's timing, which
-    carries the first launch's set-up, is not kept), one (3, L) stats
-    read a chunk feeding the logEntry stream and a `lahc` phase record.
-    Returns each island's best snapshots, sorted, as the population."""
-    lstate = dcore.program("lahc_init", lahc.init_lahc)(
-        pa, state.slots, state.rooms, cfg.post_lahc)
+    carries the first launch's set-up, is not kept; chunk sizes agreed
+    by _sync_vals), one (3, L) stats read a chunk feeding the logEntry
+    stream and a `lahc` phase record. Returns each island's best
+    snapshots, sorted, as the population."""
+    mesh = tr.mesh
+    lstate = dcore.program("lahc_init", islands.mesh_lahc_init)(
+        mesh, pa, state, cfg.post_lahc)
     sec_per_step = None
     warm = False
     while True:
@@ -399,14 +528,15 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg, tracer=NULL_TRACER):
             n = int(min(remaining / 1.1, DISPATCH_CAP_S) / sec_per_step)
         else:
             n = 256 if remaining > 0 else 0
+        n, = _sync_vals(n)
         if n < 1:
             break
         t0 = time.monotonic()
         faults.maybe_fail("dispatch")
-        lstate, stats = dcore.program("lahc_run", islands.lahc_run)(
-            pa, gens, lstate, post, n, cfg.post_lahc_k,
+        lstate, stats = dcore.program("lahc_run", islands.mesh_lahc_run)(
+            mesh, pa, gens, lstate, post, n, cfg.post_lahc_k,
             cfg.trace_mode == "stats")
-        stats = dcore.fetch(stats)
+        stats = dcore.fetch(stats, axis=1)
         t1 = time.monotonic()
         if stats.shape[0] > 3:
             # stats mode: rows 3.. the walkers' moments per island (JAX
@@ -422,28 +552,36 @@ def _lahc_loop(tr: _Try, pa, gens, state, post, cfg, tracer=NULL_TRACER):
         warm = True
         for i in range(tr.n):
             tr.observe(i, stats[1][i], stats[2][i], t1 - tr.t0)
-    state = dcore.program("lahc_fin", islands.lahc_finalize)(lstate, tr.n)
-    dcore.fetch(state.penalty)
+    state = dcore.program("lahc_fin", islands.mesh_lahc_finalize)(
+        mesh, lstate, tr.L)
+    dcore.fetch([st.penalty for st in state])
     return state
 
 
-def probe_sec_per_gen(pa, state: ga.PopState, cfg: ga.GAConfig,
-                      n_islands: int, trace_mode: str = "full",
+def probe_sec_per_gen(mesh, pa, state, cfg: ga.GAConfig, L: int,
+                      trace_mode: str = "full",
                       quality: bool = False) -> float:
     """Seconds of one generation of `cfg` (its ring migration included)
-    on a clone of `state`, drawn from throwaway generators: the first
-    sec/gen estimate, taken as the JAX engine takes it in precompile
-    (timetabling_ga_tpu/runtime/engine.py:817-836), so that the run's
-    state and generators do not advance and its first dispatch is a
-    full one. It runs as the `dyn_runner` program, as JAX's first probe
-    is its dynamic runner's one generation."""
-    gens = [torch.Generator(device=pa.device).manual_seed(i)
-            for i in range(n_islands)]
-    clone = ga.PopState(*(x.clone() for x in state))
+    on a clone of the mesh's `state` (one PopState a local shard), drawn
+    from throwaway generators: the first sec/gen estimate, taken as the
+    JAX engine takes it in precompile (timetabling_ga_tpu/runtime/
+    engine.py:817-836), so that the run's state and generators do not
+    advance and its first dispatch is a full one. It runs as the
+    `dyn_runner` program, as JAX's first probe is its dynamic runner's
+    one generation. It measures this process's own shards: their ring
+    closes among them and no collective runs, so a peer still starting
+    (its first launches) does not enter the estimate — an estimate of
+    seconds a generation would cut the first epoch short, and a
+    shortened epoch migrates early."""
+    gens = [[torch.Generator(device=p.device).manual_seed(i)
+             for i in range(L)] for p in pa]
+    clone = [ga.PopState(*(x.clone() for x in st)) for st in state]
+    local = islands.Mesh(mesh.devices, comm.SOLO)
     t0 = time.monotonic()
-    _, trace = dcore.program("dyn_runner", islands.run_epochs)(
-        pa, gens, clone, cfg, 1, 1, trace_mode, quality)
-    trace.cpu()
+    _, trace, _ = dcore.program("dyn_runner", islands.mesh_run_epochs)(
+        local, pa, gens, clone, cfg, 1, 1, trace_mode, quality)
+    for t in trace:
+        t.cpu()
     return time.monotonic() - t0
 
 
@@ -524,25 +662,47 @@ def _ladder_mode(level: int) -> str:
             else f"chunk-1/{2 ** (level - 1)}")
 
 
-def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
-             gacfg, post, fingerprint: str, tracer=NULL_TRACER,
-             profiler=None) -> int:
+def _mesh_arrays(problem, mesh) -> list:
+    """The problem's arrays on each local shard's card (one copy a
+    distinct device)."""
+    by_dev = {}
+    for d in mesh.devices:
+        if d not in by_dev:
+            by_dev[d] = problem.device_arrays(d)
+    return [by_dev[d] for d in mesh.devices]
+
+
+def _run_try(cfg, out, problem, mesh, trial: int, seed: int,
+             n_islands: int, gacfg, post, fingerprint: str,
+             tracer=NULL_TRACER, profiler=None) -> int:
     """One try: init (or the resumed checkpoint), polish, the generation
     loop with its checkpoints, tail polish and the final records, the
-    loop supervised (module docstring). Returns the try's best reported
-    evaluation."""
-    tr = _Try(out, cfg, trial, n_islands)
-    device = pa.device
+    loop supervised (module docstring), on every shard of `mesh`.
+    Returns the try's best reported evaluation."""
+    tr = _Try(out, cfg, trial, n_islands, mesh)
+    L = tr.L
+    group = comm.active()
+    pa = _mesh_arrays(problem, mesh)
+    gen_device = mesh.devices[0].type
     loaded = None
     if cfg.resume and cfg.checkpoint:
         loaded, seed = _resume(cfg, seed, fingerprint)
+        # every process must take the same resume path: a checkpoint
+        # visible to some processes only fails fast (JAX engine.py:1344)
+        found = int(loaded is not None)
+        agreed, = _sync_vals(found)
+        if agreed != found:
+            raise RuntimeError(
+                "--resume: the checkpoint file is visible on some "
+                "processes but not others — a multi-process resume needs "
+                "the checkpoint on a filesystem all hosts share")
     sps = {}
     gens_done = 0
     host_loaded = None      # the resumed host state, the first snapshot
     if loaded is not None:
-        gens = resume_generators(device, loaded, seed, trial, n_islands)
+        gens = resume_generators(mesh, loaded, seed, trial, n_islands)
         host_loaded = loaded.state
-        state = place_state(loaded.state, device)
+        state = dcore.reshard_state(loaded.state, mesh)
         gens_done = loaded.generation
         if loaded.best_seen is not None:
             tr.best = [int(b) for b in loaded.best_seen]
@@ -552,16 +712,16 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
         # error: the same generators replay the same trajectory, and the
         # emitted floor keeps replayed polish bests off the stream (JAX
         # engine.py:1364-1438); no retry at --max-recoveries 0
-        init_tries = 1 + (2 if cfg.max_recoveries > 0 else 0)
+        init_tries = 1 + (2 if cfg.max_recoveries > 0
+                          and group.world == 1 else 0)
         for attempt in range(init_tries):
             try:
                 t = time.monotonic()
                 faults.maybe_fail("init")
-                gens = island_generators(device, seed, trial, n_islands)
-                state = dcore.program(
-                    "init", islands.init_island_population)(
-                        pa, gens, cfg.pop_size)
-                dcore.fetch(state.penalty)
+                gens = mesh_generators(mesh, seed, trial, L)
+                state = dcore.program("init", islands.mesh_init)(
+                    mesh, pa, gens, cfg.pop_size)
+                dcore.fetch([st.penalty for st in state])
                 tr.phase("init", time.monotonic() - t)
                 tracer.record("init", t, time.monotonic() - t,
                               cat="device")
@@ -577,7 +737,7 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                                   "recover", e, trial, attempt + 1, 0,
                                   tr.elapsed(), init=True)
                 state = None
-                pa = problem.device_arrays(device)
+                pa = _mesh_arrays(problem, mesh)
     cur = gacfg
     sec_per_gen = None
     spg_of = {}             # the last sec/gen estimate of each config
@@ -589,8 +749,8 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                 FEASIBLE_LIMIT:
             cur = post
             if post.pop_size != gacfg.pop_size:
-                state = dcore.program("shrink", islands.shrink)(
-                    state, n_islands, post.pop_size)
+                state = dcore.program("shrink", islands.mesh_shrink)(
+                    mesh, state, L, post.pop_size)
             if sec_per_gen is not None:
                 # post generations cost about their LS-depth ratio more
                 # (JAX engine.py:316 _spg_for)
@@ -614,7 +774,7 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
         # the try's clock; --no-precompile skips it
         t = time.monotonic()
         sec_per_gen = spg_of[cur] = probe_sec_per_gen(
-            pa, state, cur, n_islands, cfg.trace_mode, cfg.quality)
+            mesh, pa, state, cur, L, cfg.trace_mode, cfg.quality)
         tr.t0 += time.monotonic() - t
     kick_stall, kick_best, kick_streak = 0, min(tr.best), 0
     # the stall detector, fed once a dispatch (JAX engine.py:1469-1478)
@@ -650,9 +810,9 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
         n_moves = min(3 << kick_streak, islands.KICK_MAX_MOVES)
         t = time.monotonic()
         faults.maybe_fail("dispatch")
-        state = dcore.program("kick", islands.kick)(pa, gens, state, cur,
-                                                    n_moves)
-        dcore.fetch(state.penalty)
+        state = dcore.program("kick", islands.mesh_kick)(
+            mesh, pa, gens, state, cur, n_moves)
+        dcore.fetch([st.penalty for st in state])
         tr.phase("kick", time.monotonic() - t, at_gen=gens_done,
                  moves=n_moves)
         tracer.record("kick", t, time.monotonic() - t, cat="device",
@@ -662,14 +822,21 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
         return n_moves
 
     def save_checkpoint(host_state, gen_states, gens_at, best) -> None:
+        # process 0 writes (JAX engine.py:1892): the state and the
+        # generators are the whole mesh's on every process
+        if group.rank != 0:
+            return
         ckpt.save(cfg.checkpoint, host_state,
                   ckpt.key_words(seed, trial, gens_at), gens_at,
-                  fingerprint, list(best), seed, gen_states, device.type)
+                  fingerprint, list(best), seed, gen_states, gen_device)
 
     # the pipeline runs only where no control read falls between
-    # dispatches, and not under --trace-profile, whose capture must
-    # enclose exactly one dispatch (JAX engine.py:1534-1539)
+    # dispatches, not across processes (a gather must not interleave
+    # with the next dispatch's collectives, and two processes' clocks
+    # could size it apart near -t), and not under --trace-profile, whose
+    # capture must enclose exactly one dispatch (JAX engine.py:1534-1539)
     pipelined_cfg = bool(cfg.pipeline and post is None
+                         and group.world == 1
                          and cfg.trace_profile is None
                          and not (cfg.quality and cfg.auto_kick_on_stall))
     profiled = False       # this try's --trace-profile capture taken
@@ -775,7 +942,11 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
             else:
                 kick_stall += 1
             kick_best = nb
-            if kick_stall >= cfg.kick_stall and tr.remaining() > 0:
+            # the budget check reads this process's clock: the launch
+            # is agreed (JAX engine.py:1797-1806)
+            do_kick, = _sync_vals(kick_stall >= cfg.kick_stall
+                                  and tr.remaining() > 0)
+            if do_kick:
                 dispatch_kick()
                 kick_stall = 0
         if stall_det is not None and q_agg is not None:
@@ -794,7 +965,7 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                     trial, sup.recoveries, sup.level, tr.elapsed(),
                     streak=stall_det.streak, hamming=round(hmin, 6))
             if (stalled and cfg.auto_kick_on_stall and cur.pop_size >= 2
-                    and tr.remaining() > 0):
+                    and _sync_vals(tr.remaining() > 0)[0]):
                 n_moves = dispatch_kick()
                 jsonl.fault_entry(out, "quality", "kick", "stall auto-kick",
                                   trial, sup.recoveries, sup.level,
@@ -872,17 +1043,21 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                 size = _dispatch_size(cfg, cfg.generations - gens_done,
                                       sec_per_gen, remaining_t,
                                       sup.dispatch_scale())
-                if size is None:
+                # the schedule read from this process's clock is agreed
+                # (JAX engine.py:2075-2081)
+                stop, n_ep, g = _sync_vals(size is None,
+                                           *(size or (0, 0)))
+                if stop:
                     time_stopped = True
                     break
-                n_ep, g = size
                 faults.maybe_fail("dispatch")
                 # --trace-profile: one warm dispatch a try (a measured
                 # sec/gen says this shape has run), on this thread
                 tprof = None
                 if (cfg.trace_profile is not None and not profiled
                         and sec_per_gen is not None):
-                    tprof = open_prof[0] = obs_prof.TorchProfiler(device)
+                    tprof = open_prof[0] = obs_prof.TorchProfiler(
+                        mesh.devices[0])
                     tprof.start(cfg.trace_profile)
                 # one flow a chunk: its dispatch, fetch-read (the
                 # watchdog thread) and process spans form one chain
@@ -891,13 +1066,14 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                 # `dyn_runner` (JAX's static and dynamic runners)
                 runner = dcore.program(
                     "runner" if g >= cfg.migration_period
-                    else "dyn_runner", islands.run_epochs)
+                    else "dyn_runner", islands.mesh_run_epochs)
                 td0 = time.monotonic()
-                state, trace = runner(pa, gens, state, cur, n_ep, g,
-                                      cfg.trace_mode, cfg.quality)
+                # the global best (JAX's pmin output) is not read here
+                state, trace, _ = runner(mesh, pa, gens, state, cur, n_ep,
+                                         g, cfg.trace_mode, cfg.quality)
                 # the trace starts for the host now; its reader waits
-                # on this copy alone
-                tcopy = dcore.HostCopy(trace)
+                # on these copies alone
+                tcopy = dcore.host_copies(trace)
                 gens_done += n_ep * g
                 epochs_done += n_ep
                 n_dispatch += 1
@@ -925,20 +1101,57 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
             tracer.record("fetch", t, time.monotonic() - t, cat="engine",
                           endTry=True)
             break
+        except control_channel.PeerLost as e:
+            # a peer process is gone (its heartbeat silent past
+            # --peer-timeout): nothing brings it back and the next
+            # collective would wait for it forever. The abort record, a
+            # final durable checkpoint from the snapshot (process 0: its
+            # state is the whole mesh's, so the rerun resumes on any
+            # layout), and the error propagates (JAX engine.py:2190)
+            jsonl.fault_entry(out, "accord", "abort", e, trial,
+                              sup.recoveries, sup.level, tr.elapsed(),
+                              proc=group.rank, agreed=False,
+                              lostProc=e.proc)
+            if cfg.checkpoint and sup.snap is not None:
+                snap = sup.snap
+                try:
+                    save_checkpoint(snap.state, snap.generators,
+                                    snap.gens_done, snap.best_seen)
+                except Exception as e3:
+                    print(f"warning: final abort checkpoint failed: "
+                          f"{e3}", file=sys.stderr)
+            raise
         except Exception as e:
             site = sup.classify(e)
             if site is None:
                 raise
             now = time.monotonic()
+            # before any process leaves the collective program order, all
+            # adopt one verdict over the control channel: the process
+            # that saw the real error gives its site, one that only saw
+            # the fault flag defers, an exhausted budget anywhere forces
+            # the abort (JAX engine.py:2219-2239). One process: skipped,
+            # the stream unchanged
+            agreed = None
+            ch = control_channel.active()
+            if group.world > 1 and ch is not None:
+                agreed = sup.agree_on_fault(ch, site, e)
+                site = agreed.get("site") or site
+            acc = ({} if agreed is None else
+                   {"proc": group.rank, "agreed": True,
+                    "decider": agreed["decider"]})
             sup.recoveries += 1
             obs_metrics.REGISTRY.gauge("engine.recovery_budget_remaining").set(
                 max(0, cfg.max_recoveries - sup.recoveries))
-            if sup.recoveries > cfg.max_recoveries:
-                # the budget is spent: the abort record, a final durable
-                # checkpoint from the snapshot, and the error propagates
+            if (sup.recoveries > cfg.max_recoveries
+                    or (agreed is not None
+                        and agreed.get("action") == "abort")):
+                # the budget is spent (here, or on any process): the
+                # abort record, a final durable checkpoint from the
+                # snapshot, and the error propagates
                 jsonl.fault_entry(out, site, "abort", e, trial,
                                   sup.recoveries - 1, sup.level,
-                                  now - tr.t0)
+                                  now - tr.t0, **acc)
                 if cfg.checkpoint:
                     snap = sup.snap
                     try:
@@ -956,9 +1169,20 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                 open_prof[0].abandon()
                 open_prof[0] = None
             snap = sup.snap
+            if (agreed is not None and int(agreed.get("gens", -1)) >= 0
+                    and int(agreed["gens"]) != snap.gens_done):
+                # snapshots are taken at shared fences: an agreed resume
+                # point other than this process's means the fences
+                # diverged, and resuming would corrupt the collectives
+                raise RuntimeError(
+                    f"accord: agreed resume generation {agreed['gens']} "
+                    f"!= this process's snapshot generation "
+                    f"{snap.gens_done} — diverged snapshots; refusing to "
+                    f"resume") from e
             jsonl.fault_entry(out, site, "recover", e, trial,
                               sup.recoveries, sup.level, now - tr.t0,
-                              lostGens=max(0, gens_done - snap.gens_done))
+                              lostGens=max(0, gens_done - snap.gens_done),
+                              **acc)
             if sup.escalate(now):
                 obs_metrics.REGISTRY.gauge("engine.degrade_level").set(
                     sup.level)
@@ -972,10 +1196,10 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
             # the same device (no program purge: see dispatch_core)
             pipe.abandon()
             state = None
-            pa = problem.device_arrays(device)
+            pa = _mesh_arrays(problem, mesh)
             try:
-                state = place_state(snap.state, device)
-                dcore.fetch(state.penalty)
+                state = dcore.reshard_state(snap.state, mesh)
+                dcore.fetch([st.penalty for st in state])
             except Exception as e2:
                 if not cfg.checkpoint:
                     raise
@@ -989,18 +1213,18 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
                 snap = sup.snap = dcore.Snapshot(
                     state=ld.state,
                     generators=generator_states(resume_generators(
-                        device, ld, seed, trial, n_islands)),
+                        mesh, ld, seed, trial, n_islands)),
                     gens_done=ld.generation,
                     epochs_done=ld.generation // mp,
                     epochs_at_ckpt=ld.generation // mp,
                     best_seen=list(b2),
                     post=post is not None and min(b2) < FEASIBLE_LIMIT,
                     kick=(0, min(b2), 0))
-                state = place_state(snap.state, device)
-                dcore.fetch(state.penalty)
+                state = dcore.reshard_state(snap.state, mesh)
+                dcore.fetch([st.penalty for st in state])
             # the control state as of the snapshot: replayed decisions
             # land at the generations an uninjected run's do
-            gens = restore_generators(device, snap.generators)
+            gens = restore_mesh_generators(mesh, snap.generators)
             gens_done = snap.gens_done
             epochs_done = snap.epochs_done
             epochs_at_ckpt = snap.epochs_at_ckpt
@@ -1042,11 +1266,20 @@ def _run_try(cfg, out, problem, pa, trial: int, seed: int, n_islands: int,
     return trial_best
 
 
-def run(cfg: RunConfig, out=None) -> int:
+def run(cfg: RunConfig, out=None, devices=None) -> int:
     """Execute the configured run; emit the JSONL protocol on `out` (or
     -o, or stdout) through an AsyncWriter, drained before this returns
-    or raises. Returns the best reported evaluation."""
-    device = resolve_device(cfg.backend)
+    or raises. Returns the best reported evaluation. `devices` (the
+    programmatic mesh: a list of torch devices, which may repeat one)
+    replaces the visible cards as this process's shards. In a run split
+    over processes only process 0 writes the stream: the others write
+    into a buffer and never open -o (JAX engine.py:927)."""
+    if devices is None:
+        devices = run_shards(cfg)
+    maybe_init_distributed(cfg, devices)
+    group = comm.active()
+    mesh = islands.Mesh(devices, group)
+    device = mesh.devices[0]
     dcore.set_fetch_timeout(cfg.fetch_timeout)
     if cfg.ls_time_limit != 99999.0:
         # -l is retired, as on the JAX path (engine.py:894-901): the
@@ -1059,13 +1292,22 @@ def run(cfg: RunConfig, out=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         kernels.build()
-    # the fault plan, its counters reset for this run
+    # the fault plan, its counters reset for this run; the process's
+    # coordinates first, since `site@proc` scoping filters at parse
+    faults.set_process(group.rank, group.world)
     faults.install(faults.active_spec(cfg.faults))
+    # the accord control channel of this run (a no-op object in one
+    # process), installed for the guards of the collectives
+    channel = control_channel.install(
+        control_channel.open_channel(cfg.accord, cfg.peer_timeout))
     close_out = False
     writer = None
     obs_srv = mem_poller = hist_ring = flight = prof_cap = None
     try:
-        if out is None:
+        if group.rank != 0:
+            import io
+            out = io.StringIO()
+        elif out is None:
             if cfg.output:
                 out = open(cfg.output, "w")
                 close_out = True
@@ -1117,7 +1359,7 @@ def run(cfg: RunConfig, out=None) -> int:
                 probes={"process": lambda: True, "writer": writer.alive},
                 profile=prof_cap, history=hist_ring).start()
         try:
-            best = _run_tries(cfg, writer, device, tracer, prof_cap)
+            best = _run_tries(cfg, writer, mesh, tracer, prof_cap)
         except BaseException:
             writer.close(raise_error=False)
             raise
@@ -1144,19 +1386,31 @@ def run(cfg: RunConfig, out=None) -> int:
             obs_metrics.REGISTRY.freeze("writer.records",
                                         writer.records_written)
             obs_metrics.REGISTRY.freeze("writer.queue_depth", 0.0)
+        # the heartbeat stops and the channel is cleared: later work in
+        # this process must not guard through a closed channel
+        if channel is not None:
+            channel.close()
+        control_channel.install(None)
         faults.install(None)
         if close_out:
             out.close()
 
 
-def _run_tries(cfg: RunConfig, out, device, tracer=NULL_TRACER,
+def _run_tries(cfg: RunConfig, out, mesh, tracer=NULL_TRACER,
                profiler=None) -> int:
     t0 = time.monotonic()
     problem = load_tim_file(cfg.input)
     if cfg.auto_tune:
         cfg.apply_tuned_defaults(problem.n_events)
-    pa = problem.device_arrays(device)
-    n_islands = cfg.islands if cfg.islands is not None else 1
+    # --islands defaults to every shard of the mesh (JAX: every device),
+    # and is rounded down to a multiple of the shard count
+    n_shards = mesh.n_shards
+    n_islands = cfg.islands if cfg.islands is not None else n_shards
+    if n_islands % n_shards:
+        down = max(n_shards, (n_islands // n_shards) * n_shards)
+        print(f"warning: {n_islands} islands is not a multiple of "
+              f"{n_shards} devices; using {down}", file=sys.stderr)
+        n_islands = down
     gacfg = build_ga_config(cfg)
     post = build_post_config(cfg, gacfg)
     if (cfg.checkpoint and post is not None
@@ -1173,7 +1427,7 @@ def _run_tries(cfg: RunConfig, out, device, tracer=NULL_TRACER,
     _phase(out, cfg.trace, "load", 0, time.monotonic() - t0)
     best = INT_MAX
     for trial in range(cfg.tries):
-        best = min(best, _run_try(cfg, out, problem, pa, trial, seed,
+        best = min(best, _run_try(cfg, out, problem, mesh, trial, seed,
                                   n_islands, gacfg, post, fingerprint,
                                   tracer, profiler))
     return best

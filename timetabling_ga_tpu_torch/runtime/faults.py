@@ -1,5 +1,5 @@
 """Deterministic fault injection (copy of timetabling_ga_tpu/runtime/
-faults.py:1-359 for one process).
+faults.py:1-359).
 
 Named sites call `maybe_fail(site)` once per logical operation; a plan
 makes the nth invocation of a site fail in a chosen way, so every
@@ -9,9 +9,9 @@ Grammar (`--faults` or `$TT_FAULTS`), JAX's:
 
     dispatch:3:unavailable,fetch:5:hang,writer:1:die,ckpt:2:truncate
 
-Each entry is `site:nth:action`. A `site@proc` scope parses as JAX's
-does for process 0 of 1: `@0` is the unscoped entry, another process's
-entry is dropped (multi-process runs are not ported).
+Each entry is `site:nth:action`. A `site@proc` scope parses as JAX's:
+under a multi-process run (`set_process`) an entry scoped to another
+process is dropped, and an unscoped entry fires on process 0 only.
 
     unavailable  raise RuntimeError from an inner error whose message
                  carries 'UNAVAILABLE' (retry.is_transient walks the
@@ -60,8 +60,18 @@ SITES = ("dispatch", "fetch", "writer", "ckpt", "init", "obs_listen",
          "gw_writer", "gw_scrape", "quantum", "snapshot_ship",
          "resume", "history", "flight_dump", "usage", "scaler")
 
-# this process in a multi-process run: the port runs one process
+# this process's (index, count) in a multi-process run (set_process)
 _PROC = 0
+_NPROC = 1
+
+
+def set_process(proc: int, nproc: int) -> None:
+    """Declare this process's (index, count) for plan scoping (JAX
+    faults.py:192). Parse happens per install, so call this before
+    `install` (engine.run orders it right after maybe_init_distributed)."""
+    global _PROC, _NPROC
+    _PROC = int(proc)
+    _NPROC = max(1, int(nproc))
 
 
 class FaultInjected(Exception):
@@ -126,7 +136,11 @@ class FaultPlan:
                 raise FaultPlanError(
                     f"unknown TT_FAULTS action {action!r} in {item!r} "
                     f"(one of {', '.join(ACTIONS)})")
-            if proc is not None and proc != _PROC:
+            if proc is None:
+                # unscoped under a multi-process launch: process 0 only
+                if _NPROC > 1 and _PROC != 0:
+                    continue
+            elif proc != _PROC:
                 continue                 # another process's entry
             entries.setdefault(site, {})[nth] = action
         return cls(entries)

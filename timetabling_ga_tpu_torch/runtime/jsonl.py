@@ -411,7 +411,12 @@ def fault_entry(stream: IO, site: str, action: str, error, trial: int,
     "resume", action "replay"), a demoted edit (site "edit", action
     "demote"), a quantum fault (site "quantum", action "requeue" or
     "abort", with `gens`) and a failed flush (site "flush", action
-    "rollback"). A TIMING_RECORDS member, so strip_timing drops it."""
+    "rollback"). A run split over processes adds the accord fields as
+    JAX writes them, and only under a real multi-process agreement: an
+    agreed recover, degrade or abort carries `proc`, `agreed` (true)
+    and `decider`; a lost peer's abort (site "accord") `proc`, `agreed`
+    (false) and `lostProc`. A TIMING_RECORDS member, so strip_timing
+    drops it."""
     rec = {"site": str(site), "action": str(action),
            "error": str(error)[:200], "trial": int(trial),
            "recovery": int(recovery), "level": int(level),

@@ -1,5 +1,5 @@
-"""The multi-tenant batched solver service on one card (port of
-timetabling_ga_tpu/serve).
+"""The multi-tenant batched solver service, its lanes on one card or
+spread over several (port of timetabling_ga_tpu/serve).
 
   bucket.py     shape bucketing: pad an instance to geometric bucket
                 boundaries with neutral, masked padding, so every job of a

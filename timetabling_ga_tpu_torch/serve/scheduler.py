@@ -1,5 +1,5 @@
 """The serve scheduler: pack, time-slice, park, resume (port of
-timetabling_ga_tpu/serve/scheduler.py:104-1130 on one card).
+timetabling_ga_tpu/serve/scheduler.py:104-1130), on the lane mesh.
 
   PACKING   runnable jobs are grouped by bucket key (serve/bucket.py):
             same-bucket jobs share every shape, so up to `lanes` of them
@@ -121,12 +121,18 @@ islands.lane_generator(seed, c), and its init from the job's init
 generator: a job's records are the same alone or packed with any
 co-tenants, resident or not, across repacks.
 
-One card: the dispatch is as wide as pad_lanes(cfg.lanes) (the
-`serve.lanes` gauge), a stacked state of that many lanes is placed and
+The lane mesh (JAX scheduler.py:176-178): the lanes are spread over
+`make_mesh(cfg.mesh_devices or None)`'s cards (on the host, the host
+repeated `--mesh-devices` times, as JAX's virtual CPU devices; a caller
+may pass the shards itself, one card repeated), the dispatch as wide as
+pad_lanes(cfg.lanes, cards) (the `serve.lanes` gauge), lane l on card
+l // (width / cards). A stacked state of that many lanes is placed and
 parked as JAX's is (so `serve.resume_bytes` and `serve.park_bytes` count
-what JAX's do on the same schedule), but only occupied lanes run: the
-port has no compile cache keyed on the width, so JAX's zero-generation
-filler lanes would be idle work.
+what JAX's do on the same schedule), each card's rows on its card, and
+each card's occupied lanes run as one `lane_run` there; lanes never
+migrate, so no collective runs. Filler lanes stay unrun: the port has no
+compile cache keyed on the width, so JAX's zero-generation filler lanes
+would be idle work. A job's records are the same on any mesh.
 """
 
 from __future__ import annotations
@@ -143,7 +149,7 @@ from timetabling_ga_tpu_torch.obs import quality as obs_quality
 from timetabling_ga_tpu_torch.obs import usage as usage_mod
 from timetabling_ga_tpu_torch.obs.spans import NULL_TRACER
 from timetabling_ga_tpu_torch.ops import ga
-from timetabling_ga_tpu_torch.parallel import islands
+from timetabling_ga_tpu_torch.parallel import comm, islands
 from timetabling_ga_tpu_torch.problem import LaneProblems
 from timetabling_ga_tpu_torch.runtime import dispatch_core as dcore
 from timetabling_ga_tpu_torch.runtime import faults, jsonl, retry
@@ -186,16 +192,29 @@ def serve_ga_config(cfg: ServeConfig) -> ga.GAConfig:
                        ls_candidates=cfg.ls_candidates)
 
 
+def serve_devices(device, mesh_devices: int) -> list:
+    """The lane mesh's shards (JAX `make_mesh(cfg.mesh_devices or
+    None)`): the visible cards, the first `mesh_devices` of them when it
+    is above 0; on the host, the host `max(1, mesh_devices)` times."""
+    if device.type == "cpu":
+        return [device] * max(1, mesh_devices)
+    return islands.make_mesh(mesh_devices or None).devices
+
+
 class Scheduler:
-    """Drives a JobQueue through the lane runner on `device`."""
+    """Drives a JobQueue through the lane runner on the lane mesh over
+    `devices` (serve_devices by default), `device` its first card."""
 
     def __init__(self, cfg: ServeConfig, queue: JobQueue, out, device,
                  now=None, registry=None, tracer=NULL_TRACER, usage=None,
-                 profiler=None):
+                 profiler=None, devices=None):
         self.cfg = cfg
         self.queue = queue
         self.out = out
         self.device = device
+        self.mesh = islands.Mesh(
+            serve_devices(device, cfg.mesh_devices) if devices is None
+            else devices, comm.SOLO)
         self.tracer = tracer
         self._now = now or time.monotonic
         self._dispatches = 0
@@ -215,8 +234,10 @@ class Scheduler:
             event_floor=cfg.bucket_events, room_floor=cfg.bucket_rooms,
             feature_floor=cfg.bucket_features,
             student_floor=cfg.bucket_students, ratio=cfg.bucket_ratio)
-        self.lanes = islands.pad_lanes(cfg.lanes)
-        self._metrics.gauge("serve.mesh_devices").set(1)
+        n_dev = self.mesh.n_shards
+        self.lanes = islands.pad_lanes(cfg.lanes, n_dev)
+        self._per_shard = self.lanes // n_dev     # lanes a card
+        self._metrics.gauge("serve.mesh_devices").set(n_dev)
         self._metrics.gauge("serve.lanes").set(self.lanes)
         # bucket key -> {"jids": lane-ordered job ids, "state": the
         # group's PopState on the card}
@@ -228,7 +249,8 @@ class Scheduler:
         # a ship request from a handler thread (request_flush), consumed
         # at the next control fence
         self._flush_req = False
-        # bucket key -> (lane-ordered job ids, their LaneProblems)
+        # bucket key -> (lane-ordered job ids, the LaneProblems of each
+        # card's lanes, None for a card without a job)
         self._packs: dict = {}
         self.gacfg = serve_ga_config(cfg)
         self._rr = 0               # round-robin cursor over buckets
@@ -543,16 +565,26 @@ class Scheduler:
             job.ship_records.clear()
             self._metrics.counter("serve.jobs_failed").inc()
 
-    def _lane_problems(self, bkey, jobs) -> LaneProblems:
-        """The pack's LaneProblems: its jobs' problems, then the first
-        job's as filler up to the dispatch width (filler lanes never
-        run); built again only when the pack changes."""
+    def _lane_problems(self, bkey, jobs) -> list:
+        """The pack's LaneProblems on each card of the mesh: the problems
+        of the jobs in its lanes (placed on that card), then its first
+        job's as filler up to its width (filler lanes never run); None
+        for a card none of whose lanes holds a job. Built again only when
+        the pack changes."""
         jids = tuple(j.id for j in jobs)
         cached = self._packs.get(bkey)
         if cached is None or cached[0] != jids:
-            pas = [j.pa_dev for j in jobs]
-            cached = (jids, LaneProblems(
-                pas + [pas[0]] * (self.lanes - len(pas))))
+            per = self._per_shard
+            lps = []
+            for s, dev in enumerate(self.mesh.devices):
+                mine = jobs[s * per:(s + 1) * per]
+                if not mine:
+                    lps.append(None)
+                    continue
+                pas = [j.pa_dev if j.pa_dev.device == dev
+                       else j.padded.device_arrays(dev) for j in mine]
+                lps.append(LaneProblems(pas + [pas[0]] * (per - len(pas))))
+            cached = (jids, lps)
             self._packs[bkey] = cached
         return cached[1]
 
@@ -583,7 +615,7 @@ class Scheduler:
             else:
                 host0 = _stack_states([j.snapshot for j in jobs], pop,
                                       self.lanes, jobs[0].padded.n_events)
-                state = dcore.place_state(host0, self.device)
+                state = dcore.reshard_state(host0, self.mesh)
                 self._metrics.counter("serve.resume_bytes").inc(
                     dcore.state_nbytes(host0))
                 # the host fence this state matches: a failed quantum of
@@ -594,15 +626,17 @@ class Scheduler:
         with self.tracer.span("quantum", cat="device", job=jids,
                               flow=flows, gens=int(sum(gens))):
             faults.maybe_fail("quantum")
-            lp = self._lane_problems(bkey, jobs)
+            lps = self._lane_problems(bkey, jobs)
             idle = self.lanes - len(jobs)
-            rngs = [islands.lane_generator(self.device, j.seed, j.chunks)
-                    for j in jobs] + [None] * idle
+            per = self._per_shard
+            rngs = [islands.lane_generator(
+                self.mesh.devices[lane // per], j.seed, j.chunks)
+                for lane, j in enumerate(jobs)] + [None] * idle
             b0 = kernels.BUILD_INFO["total_seconds"]
-            runner = dcore.program("lane_runner", islands.lane_run)
+            runner = dcore.program("lane_runner", islands.mesh_lane_run)
             tq0 = self._now()
             state, trace = runner(
-                lp, rngs, state, gens + [0] * idle, self.gacfg,
+                self.mesh, lps, rngs, state, gens + [0] * idle, self.gacfg,
                 self.cfg.quantum, trace_mode=self.cfg.trace_mode,
                 quality=self.cfg.quality)
             trace = dcore.fetch_leaf(trace)

@@ -94,7 +94,7 @@ class SolveService:
     Runs on the card unless cfg.backend is "cpu"."""
 
     def __init__(self, cfg: ServeConfig, out=None, now=None,
-                 registry=None):
+                 registry=None, devices=None):
         import torch
         from timetabling_ga_tpu_torch import kernels
         from timetabling_ga_tpu_torch.runtime.engine import resolve_device
@@ -170,7 +170,8 @@ class SolveService:
                                    self.device, now=now,
                                    registry=self._registry,
                                    tracer=self.tracer, usage=self.usage,
-                                   profiler=self.profile_capture)
+                                   profiler=self.profile_capture,
+                                   devices=devices)
         self._auto_id = 0
         self.obs_server = None
         if cfg.obs_listen:
@@ -347,11 +348,14 @@ def _load_submit_problem(req: dict):
 
 
 def serve_stream(cfg: ServeConfig, in_stream, out_stream=None, now=None,
-                 registry=None) -> SolveService:
+                 registry=None, devices=None) -> SolveService:
     """Run the line-JSON protocol over `in_stream` to completion. Returns
     the (closed) service so callers can inspect results. A bad request
-    is reported on the record stream and skipped."""
-    svc = SolveService(cfg, out=out_stream, now=now, registry=registry)
+    is reported on the record stream and skipped. `devices` (a list of
+    torch devices, which may repeat one) replaces the lane mesh's
+    cards."""
+    svc = SolveService(cfg, out=out_stream, now=now, registry=registry,
+                       devices=devices)
     try:
         for line in in_stream:
             line = line.strip()

@@ -339,10 +339,12 @@ def survivors(groups: int, na: int, nb: int, keep: int, E: int) -> Work:
                 groups * (2 * n * 4 + 2 * keep * _row_bytes(E)))
 
 
-def migrate(L: int, pop: int, E: int) -> Work:
-    """K7's migrate entry: each island's ranks and its rows' copy."""
+def migrate(L: int, pop: int, E: int, halo: bool = False) -> Work:
+    """K7's migrate entry: each island's ranks and its rows' copy; its
+    halo form also reads the two halo rows."""
     return Work(L * (pop * pop * OPS_LEX + pop * (2 * E + 3) * OPS_COPY),
-                L * (2 * pop * 4 + 2 * pop * _row_bytes(E)))
+                L * (2 * pop * 4 + 2 * pop * _row_bytes(E))
+                + (2 * 4 * (2 * E + 3) if halo else 0))
 
 
 def random_ls_events(draws) -> Work:
@@ -482,6 +484,7 @@ TABLE = {
     "move1_sweep": move1_sweep, "delta_one": delta_one,
     "sweep_pass": sweep_pass, "breed": breed, "breed_lanes": breed,
     "relocate": relocate, "survivors": survivors, "migrate": migrate,
+    "migrate_halo": migrate,
     "random_ls_events": random_ls_events, "random_ls": random_ls,
     "random_ls_lanes": random_ls, "full_eval_ls": full_eval_ls,
     "parallel_rooms": parallel_rooms, "lahc": lahc,
