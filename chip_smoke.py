@@ -34,8 +34,11 @@
    K12 (the full-evaluation search, -p 1: 25 rounds of 8, fed by K8's
    pre-pass) at P = 10 and 256 and at K = 12 > its 8 CTAs, from random
    and feasible starts, its terms also against batch_penalty_plain of
-   its rows, and on one individual (its chain's floor); K10 (LAHC) at
-   4 and 64 walkers, K = 1 and 16 candidates, history 5 and 5000; K11
+   its rows, and on one individual (its chain's floor); K10 (LAHC, fed
+   by K8's pre-pass) at 4 and 64 walkers, K = 1 and 16 candidates,
+   history 5 and 5000, also on tied uniforms and with a history of
+   30,000 (its ring in global memory), timed as the pre-pass and K10,
+   K10 alone and on one walker; K11
    (NSGA-II ranks and survivors) at island sizes 8, 20, 32, 33, 70, 512,
    700 and 1,400 with duplicate objectives (several dominator words, and
    islands too large for them); on fixtures/comp05s.tim
@@ -68,7 +71,8 @@
    both tournament modes and the parallel matcher) and K7 (migrate's
    gain at L = 1, 2, 4, 16 x pop 2, 3, 16), exactly, each kernel's other
    outputs unchanged with the new output off; then K2's, K7's, K8's
-   pre-pass's, K12's, K11's and the parallel matcher's phase counters
+   pre-pass's, K12's, K10's, K11's and the parallel matcher's phase
+   counters
    (k5_phases, each instrumented kernel checked equal to the regular
    one);
 3. drives five paths through `timetabling_ga_tpu_torch.cli`, seed 42,
@@ -410,9 +414,11 @@ PATH_KERNELS = {
                   ("move1_sweep", "delta_one", "sweep_pass", "random_ls")
                   + SEARCH_MODES + K13 + K14 + LANES + LANE_TRACE + HALO),
     # comp01s is feasible inside the initial polish, so the LAHC walkers
-    # take the whole budget after it
-    "lahc": ((), ("assign_rooms", "sweep_pass", "batch_penalty", "lahc"),
-             ("move1_sweep", "delta_one") + LS
+    # take the whole budget after it; K10 takes its candidates' events
+    # from K8's pre-pass
+    "lahc": ((), ("assign_rooms", "sweep_pass", "batch_penalty", "lahc",
+                  "random_ls_events"),
+             ("move1_sweep", "delta_one", "random_ls", "full_eval_ls")
              + ("nsga_rank", "nsga_survivors", "parallel_rooms") + K13
              + K14 + LANES + LANE_TRACE + HALO),
     "nsga": (("breed", "nsga_rank", "nsga_survivors", "batch_penalty"),
@@ -1069,14 +1075,15 @@ def compare_matcher_one_slot(pa05, par, gacfg, mo, g, phase):
 
 
 def lahc_work(pa, l0, draws):
-    """(bytes, integer operations) of one K10 call: the walkers' state
-    read and written once (of each history ring the entries the steps
-    touch), the draws and problem arrays read once; per step and
+    """(bytes, integer operations) of one LAHC call, the function's work
+    whatever computes it (K8's pre-pass and K10 together): the walkers'
+    state read and written once (of each history ring the entries the
+    steps touch), the draws and problem arrays read once; per step and
     candidate the top-3 scan of E uniforms and the K4 body on the
     bitsets (k4_body_ops) on the candidate (its events and new
     slots taken on the slots the call starts from); the bitsets' build,
     the choice, the acceptance and the apply are left out, so the count
-    stays below what the kernel does."""
+    stays below what the kernels do."""
     from timetabling_ga_tpu_torch.ops import moves
     n, W, K = draws.mtype.shape
     E = pa.n_events
@@ -1105,62 +1112,87 @@ def lahc_copy(state):
 
 
 def compare_lahc(pa, dev):
-    """K10 against lahc_steps_plain over 200 steps at 4 and 64 walkers,
-    K = 1 and 16 candidates, histories of 5 and 5000 (the lahc path's
-    shape is 4 walkers, K 16, Lh 5000), from random starts and from
-    feasible ones (the witness, a few events moved), every state field
-    exactly; then both timed from the feasible start at the path's shape,
-    and K10 on one walker (the chain's floor)."""
+    """K8's pre-pass and K10 against lahc_steps_plain over 200 steps at 4
+    and 64 walkers, K = 1 and 16 candidates, histories of 5 and 5000 (the
+    lahc path's shape is 4 walkers, K 16, Lh 5000), from random starts
+    and from feasible ones (the witness, a few events moved), every state
+    field exactly, one launch of each a call; at the path's shape also
+    on tied uniforms, and with a history of 30,000 (the ring does not fit
+    in shared memory: K10's global layout); then timed from the feasible
+    start at the path's shape: the pre-pass and K10 together (the
+    function, beside its bound), K10 alone on the pre-pass's events, and
+    both on one walker (the chain's floor)."""
     import torch
+    from timetabling_ga_tpu_torch import kernels
     from timetabling_ga_tpu_torch.ops import lahc, rooms
     from timetabling_ga_tpu_torch.runtime import config, engine
     cfg = config.parse_args(["-i", TIM] + PATHS["lahc"])
     cfg.apply_tuned_defaults(pa.n_events)
     post = engine.build_post_config(cfg, engine.build_ga_config(cfg))
     E, T, n = pa.n_events, pa.n_slots, 200
+    path_shape = (post.pop_size, cfg.post_lahc_k, cfg.post_lahc)
     out = {}
-    for W, K, Lh in ((post.pop_size, cfg.post_lahc_k, cfg.post_lahc),
-                     (4, 1, 5), (64, 16, 5), (64, 1, 5000)):
+    for W, K, Lh, tied in ((*path_shape, False), (4, 1, 5, False),
+                           (64, 16, 5, False), (64, 1, 5000, False),
+                           (*path_shape[:2], 30_000, False),
+                           (*path_shape, True)):
         g = torch.Generator(device=dev).manual_seed(9000 + W * K + Lh)
         slots = torch.randint(0, T, (W, E), generator=g, device=dev,
                               dtype=torch.int32)
         w = witness_state(pa, W, g)
         draws = lahc.make_lahc_draws([g], W, n, K, E, T, post.p1, post.p2,
                                      post.p3, dev)
+        if tied:
+            # every candidate's top three tied at 2.0, row 0's largest
+            # tied twice at 3.0
+            draws.u[..., [E - 1, 33, 2]] = 2.0
+            draws.u.view(-1, E)[0, [40, 5]] = 3.0
         starts = (("random", slots, rooms.assign_rooms_plain(pa, slots)),
                   ("feasible", w.slots, w.rooms))
+        tag = f"lahc W={W} K={K} Lh={Lh}{' tied' if tied else ''}"
         for start, s0, r0 in starts:
             l0 = lahc.init_lahc(pa, s0, r0, Lh)
+            kernels.reset_launches()
             got = lahc.lahc_steps_kernel(pa, draws, lahc_copy(l0))
             want = lahc.lahc_steps_plain(pa, draws, l0)
             torch.cuda.synchronize()
+            check(kernels.LAUNCHES["random_ls_events"] == 1
+                  and kernels.LAUNCHES["lahc"] == 1,
+                  f"{tag} {start}: not one pre-pass and one K10 launch")
             check(all(torch.equal(a, b) for a, b in zip(want.ls, got.ls))
                   and all(torch.equal(a, b)
                           for a, b in zip(want[1:], got[1:])),
-                  f"lahc W={W} K={K} Lh={Lh} {start}: kernel differs from "
-                  f"its plain version")
+                  f"{tag} {start}: kernel differs from its plain version")
             # from the witness a single candidate a step is mostly uphill
             # and refused; from a random start walkers must move
             check(start == "feasible"
                   or not torch.equal(got.ls.slots, l0.ls.slots),
-                  f"lahc W={W} K={K} Lh={Lh} {start}: no walker moved")
-        if (W, K, Lh) != (post.pop_size, cfg.post_lahc_k, cfg.post_lahc):
+                  f"{tag} {start}: no walker moved")
+        if (W, K, Lh) != path_shape or tied:
             continue
         lk = lahc_copy(l0)
         ms = time_ms(lambda: lahc.lahc_steps_kernel(pa, draws, lk), 5)
+        ev = lahc.lahc_events(draws)
+        k10_ms = time_ms(lambda: lahc.lahc_steps_kernel(pa, draws, lk, ev),
+                         5)
         plain_ms = time_ms(lambda: lahc.lahc_steps_plain(pa, draws, l0), 1)
         one = lahc.LahcState(lahc.LSState(*(x[:1] for x in lk.ls)),
                              *(x[:1] for x in lk[1:]))
-        d1 = lahc.LahcDraws(*(x[:, :1] for x in draws))
+        d1 = lahc.LahcDraws(*(x[:, :1].contiguous() for x in draws))
         ms1 = time_ms(lambda: lahc.lahc_steps_kernel(pa, d1, one), 5)
+        ev1 = lahc.lahc_events(d1)
+        k10_ms1 = time_ms(lambda: lahc.lahc_steps_kernel(pa, d1, one, ev1),
+                          5)
         nb, ops = lahc_work(pa, l0, draws)
         bytes_ms = nb / PEAK_BYTES_S * 1e3
         ops_ms = ops / PEAK_INT_OPS_S * 1e3
         out[("lahc", W, K, Lh)] = dict(
             ms=ms, plain_ms=plain_ms, max_abs_err=0, steps=n,
-            us_per_step=ms * 1e3 / n, chain_floor_ms=ms1,
+            us_per_step=ms * 1e3 / n, k10_ms=k10_ms,
+            k10_us_per_step=k10_ms * 1e3 / n, chain_floor_ms=ms1,
             us_per_step_one_walker=ms1 * 1e3 / n,
-            smem_bytes=lahc.lahc_smem_bytes(pa, K),
+            k10_us_per_step_one_walker=k10_ms1 * 1e3 / n,
+            smem_bytes=lahc.lahc_smem_bytes(pa, K, Lh),
             feasible_rows=int((w.hcv == 0).sum()), int_ops=ops,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -1560,13 +1592,14 @@ def k2_device_times(pa, dev, timings):
 
 
 def phase_lines(pa, dev):
-    """K2's, K7's, K8's pre-pass's, K12's, K11's and the parallel
+    """K2's, K7's, K8's pre-pass's, K12's, K10's, K11's and the parallel
     matcher's (K9's own launch and K6) phase counters (k5_phases): each
     instrumented kernel checked equal to the regular one, then its cycles
-    a launch (a round for K12) by phase."""
+    a launch (a round for K12, a step for K10) by phase."""
     from timetabling_ga_tpu_torch import k5_phases
     return [json.loads(x) for f in (k5_phases.k2_lines, k5_phases.k7_lines,
                                     k5_phases.k8e_lines, k5_phases.k12_lines,
+                                    k5_phases.k10_lines,
                                     k5_phases.k11_lines, k5_phases.k9_lines)
             for x in f(pa, dev)]
 
@@ -1885,27 +1918,34 @@ def profile_phases(pa, pa05, dev):
     for name, pop, window, work in windows:
         work()                                              # warm-up
         torch.cuda.synchronize()
-        passes0 = kernels.LAUNCHES["sweep_pass"]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            work()
-            torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3
-        passes = kernels.LAUNCHES["sweep_pass"] - passes0
-        averages = prof.key_averages()
-        rows = []
-        per_launch = {}
-        for ev in averages:
-            if getattr(ev, "device_type", None) != DeviceType.CUDA:
-                continue
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = ev.self_cuda_time_total
-            rows.append((dev_us, ev.count, ev.key[:60]))
-            for k in KERNELS:
-                if ev.key.startswith(f"{k}_kernel") and ev.count:
-                    per_launch[k] = dev_us / ev.count
+        # a session whose trace lacks a hand kernel the window launched
+        # (the profiler drops events now and then) is taken again, up to
+        # three times
+        for _ in range(3):
+            before = dict(kernels.LAUNCHES)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                work()
+                torch.cuda.synchronize()
+                wall_ms = (time.monotonic() - t0) * 1e3
+            passes = kernels.LAUNCHES["sweep_pass"] - before["sweep_pass"]
+            averages = prof.key_averages()
+            rows = []
+            per_launch = {}
+            for ev in averages:
+                if getattr(ev, "device_type", None) != DeviceType.CUDA:
+                    continue
+                dev_us = getattr(ev, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = ev.self_cuda_time_total
+                rows.append((dev_us, ev.count, ev.key[:60]))
+                for k in KERNELS:
+                    if ev.key.startswith(f"{k}_kernel") and ev.count:
+                        per_launch[k] = dev_us / ev.count
+            if all(k in per_launch for k in KERNELS
+                   if kernels.LAUNCHES[k] > before[k]):
+                break
         rows.sort(reverse=True)
         device_ms = sum(r[0] for r in rows) / 1e3
         launches = sum(r[1] for r in rows)
@@ -3370,8 +3410,16 @@ def fleet_replica_path(serve_summary):
             time.sleep(0.01)
         t2 = time.monotonic()
         proc.send_signal(signal.SIGTERM)
-        while sub.get_job("t1", with_records=False,
-                          snapshot=True)["state"] != "preempted":
+        while True:
+            try:
+                if sub.get_job("t1", with_records=False,
+                               snapshot=True)["state"] == "preempted":
+                    break
+            except OSError:
+                # the drain ended and the process closed its server
+                # between two polls: its exit code, its time to exit and
+                # its log's last record (below) say whether it preempted
+                break
             check(time.monotonic() - t2 < cfg.preempt_grace,
                   "fleet-replica: SIGTERM did not preempt")
             time.sleep(0.01)
@@ -4084,8 +4132,10 @@ def _check_resumed(name, records, gen0, floor, gen1):
 
 # the profile phase's worker-started capture: the main path's tuned
 # defaults with the pull front, --profile-for 2 at launch, -t long
-# enough for the client's second capture to land
-PROF_MAIN = ["-s", "42", "-t", "15", "--generations", "100000", "--trace",
+# enough for the client's second capture to land: the launch
+# capture's stop and attribution take seconds, and the dispatches
+# beside them slow down
+PROF_MAIN = ["-s", "42", "-t", "30", "--generations", "100000", "--trace",
              "--obs"]
 # the scopes' cost: reference-path legs of this many generations
 PROF_SCOPE_GENS = 600
@@ -5874,6 +5924,12 @@ def main() -> int:
                "library_ms": t.get("library_ms")}
         if "chain_floor_ms" in t:
             row["chain_floor_ms"] = t["chain_floor_ms"]
+        if name == "lahc":
+            # the row's ms is the pre-pass and K10 together, the work its
+            # bound counts; K10 alone and the one-walker floor beside it
+            row.update({k: t[k] for k in (
+                "us_per_step", "k10_ms", "k10_us_per_step",
+                "us_per_step_one_walker", "k10_us_per_step_one_walker")})
         if "library" in t:
             row["library"] = t["library"]
             row["library_ms_topk"] = t["library_ms_topk"]

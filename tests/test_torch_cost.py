@@ -7,7 +7,8 @@ package's (timetabling_ga_tpu/obs/cost.py; tests/test_cost.py's cases).
            under a bound emitter (JAX's field set) and none unbound; its
            cost is the work the call counted; the roofline helpers on
            the H100's peaks and compile_hit_rate; the ProfileCapture
-           lifecycle and its hang/die faults never stalling; /profile
+           lifecycle, its count of only the dispatches enqueued after
+           its start, and its hang/die faults never stalling; /profile
            and the `profile` client against a stub capture
   work     every entry point and form has a count; a CPU wrapper tallies
            what its kernel branch would launch, LAUNCHES untouched
@@ -255,6 +256,36 @@ def test_profile_capture_lifecycle():
     finally:
         cap.close()
     assert cap.trigger(1) == {"ok": False, "reason": "capture closed"}
+
+
+def test_profile_capture_counts_only_dispatches_enqueued_after_start():
+    calls = []
+    cap = tcost.ProfileCapture(lambda d: calls.append("start"),
+                               lambda: calls.append("stop"),
+                               registry=MetricsRegistry())
+    try:
+        early = cap.on_enqueue()        # on the card before the start
+        assert cap.trigger(1)["ok"]
+        assert _wait(lambda: cap._remaining > 0)
+        late = cap.on_enqueue()
+        assert late == early + 1
+        cap.on_dispatch(early)          # only partly in the capture
+        time.sleep(0.05)
+        assert "stop" not in calls
+        cap.on_dispatch(late)
+        assert _wait(lambda: "stop" in calls)
+        assert _wait(lambda: cap.last()["completed"] == 1)
+        # a loop with no more dispatches ends a capture still waiting
+        assert cap.trigger(2)["ok"]
+        assert _wait(lambda: cap._remaining > 0)
+        cap.on_dispatch(early)
+        cap.flush()
+        assert _wait(lambda: calls.count("stop") == 2)
+        assert _wait(lambda: cap.last()["completed"] == 2)
+        cap.flush()                     # nothing live: a no-op
+        assert calls.count("stop") == 2
+    finally:
+        cap.close()
 
 
 @pytest.mark.parametrize("action", ["hang", "die"])

@@ -412,8 +412,11 @@ EMULATED = ("assign_rooms", "batch_penalty", "move1_sweep", "delta_one",
 # (two rounds of 4 candidates), so that its rounds cross chunks; K2 with
 # 128-thread CTAs, as K5's cluster tests take them; K7 with two warps;
 # K12 with two-warp CTAs and room for 112 bytes of draws (one to four
-# rounds at K = 5 to 2), so that its rounds cross chunks
-SMALL = {"assign_rooms": ["-DK1_THREADS=64"], "breed": ["-DK6_THREADS=64"],
+# rounds at K = 5 to 2), so that its rounds cross chunks; K10 with two
+# warps and room for 200 bytes of draws (one to three steps at K = 5 to
+# 1), so that its steps cross chunks
+SMALL = {"lahc": ["-DK10_MAX_WARPS=2", "-DK10_CHUNK_BYTES=200"],
+         "assign_rooms": ["-DK1_THREADS=64"], "breed": ["-DK6_THREADS=64"],
          "nsga": ["-DK11_THREADS=64"], "parallel_rooms": ["-DK9_THREADS=64"],
          "random_ls": ["-DK8_MAX_WARPS=2", "-DK8_EVENT_BYTES=48"],
          "batch_penalty": ["-DK2_THREADS=128"],
@@ -868,23 +871,63 @@ def test_k9_and_k6_new_modes_equal_plain(emulated, inst):
     assert all(torch.equal(w, x) for w, x in zip(want, got))
 
 
-@pytest.mark.parametrize("inst,k_cands", [(0, 4), (1, 1), (2, 3), (3, 4)])
-def test_k10_source_equals_plain(emulated, inst, k_cands):
-    pa = _instances("cpu")[inst]
-    st = _state(pa, 3, 120 + inst)
-    ls0 = lahc.init_lahc(pa, st.slots, st.rooms, 3)
-    g = torch.Generator().manual_seed(130 + inst)
-    draws = lahc.make_lahc_draws([g], 3, 5, k_cands, pa.n_events,
-                                 pa.n_slots, 1.0, 1.0, 0.5, "cpu")
+# a history longer than shared memory holds (2 x 30,000 ints): K10 keeps
+# the ring in global memory
+K10_GLOBAL_LH = 30_000
+
+
+def lahc_start(pa, W, Lh, seed):
+    """Walkers from random rows, their history rings spread around each
+    walker's cost (so the entry a step reads decides some acceptances)
+    and their steps apart (so their ring positions differ)."""
+    st = _state(pa, W, seed)
+    ls0 = lahc.init_lahc(pa, st.slots, st.rooms, Lh)
+    g = torch.Generator().manual_seed(seed)
+    jitter = torch.randint(-2, 3, (2, W, Lh), generator=g,
+                           dtype=torch.int32)
+    return ls0._replace(hist_pen=ls0.hist_pen + jitter[0],
+                        hist_scv=ls0.hist_scv + jitter[1],
+                        step=torch.arange(W, dtype=torch.int32) * 7)
+
+
+def k10_equals_plain(pa, draws, ls0):
+    """The pre-pass and K10 on a copy of `ls0`, one launch each, against
+    lahc_steps_plain: every field of the state, exactly."""
     kernels.reset_launches()
     ls1 = lahc.LahcState(lahc.LSState(*(x.clone() for x in ls0.ls)),
                          *(x.clone() for x in ls0[1:]))
     got = lahc.lahc_steps_kernel(pa, draws, ls1)
     want = lahc.lahc_steps_plain(pa, draws, ls0)
+    assert kernels.LAUNCHES["random_ls_events"] == 1
     assert kernels.LAUNCHES["lahc"] == 1
     assert all(torch.equal(w, x) for w, x in zip(want.ls, got.ls))
     assert all(torch.equal(w, x) for w, x in zip(want[1:], got[1:]))
-    assert not torch.equal(got.ls.slots, ls0.ls.slots)
+    return got
+
+
+@pytest.mark.parametrize("inst,k_cands", [(0, 4), (1, 1), (2, 3), (3, 4),
+                                          (1, 5), (3, 5)])
+def test_k10_source_equals_plain(emulated, inst, k_cands):
+    """K8's pre-pass and K10 (two-warp blocks, so that K > 2 gives a
+    warp several candidates, and chunks of one to three steps, so that 7
+    steps cross chunks) equal lahc_steps_plain in every field: with
+    histories of 3 (a ring that wraps), 1 (the entry read is the one the
+    step before wrote) and 30,000 (the ring in global memory), on tied
+    uniforms, on the ITC-like, medium, padded and anchored instances."""
+    pa = _instances("cpu")[inst]
+    for Lh, tied in ((3, False), (1, False), (K10_GLOBAL_LH, False),
+                     (3, True)):
+        ls0 = lahc_start(pa, 3, Lh, 120 + inst)
+        g = torch.Generator().manual_seed(130 + inst)
+        draws = lahc.make_lahc_draws([g], 3, 7, k_cands, pa.n_events,
+                                     pa.n_slots, 1.0, 1.0, 0.5, "cpu")
+        if tied:
+            draws = _tied_top3(draws)
+        got = k10_equals_plain(pa, draws, ls0)
+        assert not torch.equal(got.ls.slots, ls0.ls.slots)
+    # the global layout: the ring does not fit beside the rest
+    assert lahc.lahc_smem_bytes(pa, k_cands, K10_GLOBAL_LH) + \
+        8 * K10_GLOBAL_LH > kernels.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("L,pop,spread", [(1, 8, 3), (2, 5, 2), (3, 11, 40)])

@@ -1316,18 +1316,51 @@ def _lahc_copy(state):
                           *(x.clone() for x in state[1:]))
 
 
+def _tied_lahc_draws(draws):
+    """Every candidate's top three uniforms tied at 2.0, and row 0's
+    largest tied at 3.0 twice and its third with a later index."""
+    u = draws.u.clone()
+    E = u.shape[-1]
+    for i in (E - 1, 33 % E, 2):
+        u[..., i] = 2.0
+    u.view(-1, E)[0, [40 % E, 5 % E]] = 3.0
+    u.view(-1, E)[0, E - 2] = 2.0
+    return draws._replace(u=u)
+
+
 @pytest.mark.cuda
 def test_k10_lahc_equals_plain(cuda):
+    """K8's pre-pass and K10, one launch each, against lahc_steps_plain
+    in every field: K 1, 16, 5 and 40 (more candidates than warps),
+    histories of 3, 5, 1,000, 1 (the entry read is the one the step
+    before wrote) and 30,000 (the ring in global memory), tied
+    uniforms, walkers at different ring positions with rings spread
+    around their costs, on the ITC-like, medium, padded and anchored
+    instances."""
     for i, pa in enumerate(_instances(cuda)):
         st = _state(pa, 4, 160 + i)
-        for K, Lh in ((1, 3), (16, 5), (5, 1000)):
+        for K, Lh, tied in ((1, 3, False), (16, 5, False),
+                            (5, 1000, False), (16, 1, False),
+                            (40, 3, False), (16, 30_000, False),
+                            (16, 5, True)):
             l0 = lahc.init_lahc(pa, st.slots, st.rooms, Lh)
             g = torch.Generator(device=cuda).manual_seed(170 + i)
+            jitter = torch.randint(-2, 3, (2, 4, Lh), generator=g,
+                                   device=cuda, dtype=torch.int32)
+            l0 = l0._replace(
+                hist_pen=l0.hist_pen + jitter[0],
+                hist_scv=l0.hist_scv + jitter[1],
+                step=torch.arange(4, dtype=torch.int32, device=cuda) * 7)
             draws = lahc.make_lahc_draws([g], 4, 12, K, pa.n_events,
                                          pa.n_slots, 1.0, 1.0, 0.5, cuda)
+            if tied:
+                draws = _tied_lahc_draws(draws)
             l1 = _lahc_copy(l0)
+            kernels.reset_launches()
             got = lahc.lahc_steps(pa, draws, l1)
             want = lahc.lahc_steps_plain(pa, draws, l0)
+            assert kernels.LAUNCHES["random_ls_events"] == 1
+            assert kernels.LAUNCHES["lahc"] == 1
             assert all(torch.equal(w, x) for w, x in zip(want.ls, got.ls))
             assert all(torch.equal(w, x) for w, x in zip(want[1:], got[1:]))
             # the kernel writes the walkers' state in place
@@ -1339,14 +1372,15 @@ def test_k10_lahc_equals_plain(cuda):
 def test_k10_shared_memory_count_matches_the_kernel(cuda):
     kernels.build()
     fn = kernels._LIBS["lahc"][0].tt_lahc_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 6
+    fn.argtypes = [ctypes.c_int] * 7
     fn.restype = ctypes.c_int
     for pa in _instances(cuda) + [load_tim_file(COMP01S)
                                   .device_arrays(cuda)]:
         for K in (1, 16, 40):
-            assert fn(pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots, K,
-                      pa.conflict_bits.shape[1]) == \
-                lahc.lahc_smem_bytes(pa, K)
+            for Lh in (1, 5, 5000, 30_000):
+                assert fn(pa.n_events, pa.n_rooms, pa.n_students,
+                          pa.n_slots, K, pa.conflict_bits.shape[1],
+                          Lh) == lahc.lahc_smem_bytes(pa, K, Lh)
 
 
 @pytest.mark.cuda
@@ -1567,12 +1601,15 @@ def test_full_eval_ls_refuses_before_it_launches(monkeypatch):
 
 
 def test_lahc_smem_bytes_at_comp01s():
-    """K10's shared memory per walker on comp01s at K = 16: slots, rooms
-    and the best snapshot's 6,400, candidates 768, scalars 128, the
-    bitsets amask 1,600 and slot_ev 2,352, occ 912, att 18,000 and the
-    conflict bits 20,800."""
+    """K10's shared memory per walker on comp01s at K = 16 and the lahc
+    path's history of 5,000: slots, rooms and the best snapshot's 6,400,
+    two buffers of candidate records 2,304, the bitsets amask 1,600 and
+    slot_ev 2,352, occ 912, att 18,000, two chunks of 51 steps' draws
+    (240 bytes a step) 24,480, the conflict bits 20,800 and the two
+    history rings 40,000; at 30,000 the rings stay in global memory."""
     pa = load_tim_file(COMP01S).device_arrays()
-    assert lahc.lahc_smem_bytes(pa, 16) == 50_960
+    assert lahc.lahc_smem_bytes(pa, 16, 5000) == 116_848
+    assert lahc.lahc_smem_bytes(pa, 16, 30_000) == 76_848
 
 
 def test_sweep_pass_kernel_raises_above_the_shared_memory_limit():

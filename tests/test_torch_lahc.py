@@ -106,6 +106,27 @@ def test_draw_budget_and_shapes():
     assert tlahc.draw_bytes_per_step(4, 16, 400) == 102_912
 
 
+@pytest.mark.parametrize("tied", [False, True])
+def test_lahc_events_are_the_pre_pass_on_one_individual(tied):
+    """K10's events come from K8's pre-pass run on the LAHC uniforms as
+    one individual's n rounds of W x K candidates: that view of the
+    pre-pass's plain form is sample_move's top 3 of every candidate's
+    uniforms, in (n, W, K) order, ties included."""
+    from timetabling_ga_tpu_torch.ops import delta, moves
+    g = torch.Generator().manual_seed(5)
+    n, W, K, E = 3, 2, 5, 37
+    d = tlahc.make_lahc_draws([g], W, n, K, E, 45, 1.0, 1.0, 0.5, "cpu")
+    u = d.u
+    if tied:
+        u = (u * 4).floor() / 4
+        u[..., [E - 1, 9, 2]] = 2.0
+    ev = delta.random_ls_events_plain(
+        delta.LSDraws(None, u.view(n, W * K, 1, E), None))
+    assert ev.shape == (1, n, W * K, 3) and ev.dtype == torch.int16
+    want = moves.top3(u.reshape(-1, E)).view(n, W, K, 3)
+    assert torch.equal(ev.view(n, W, K, 3).to(torch.int32), want)
+
+
 def test_post_lahc_cli_on_cpu(small_problem, tmp_path, capsys):
     """`--post-lahc` on the CPU: after the phase switch the LAHC loop
     takes the rest of the budget in chunks (a `lahc` phase record each,

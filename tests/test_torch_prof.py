@@ -257,6 +257,25 @@ def test_attribute_by_the_kernel_map_alone(tmp_path):
     assert attr["unattributed_s"] == pytest.approx(120e-6)
 
 
+def test_attribute_lahc_pre_pass_to_its_range(tmp_path):
+    """K10 launches K8's pre-pass inside lahc_steps' tt.lahc range: both
+    kernels go to the range's phase, though the map puts the pre-pass
+    under tt.delta."""
+    assert tprof.KERNEL_PHASES["random_ls_events"] == "tt.delta"
+    doc = {"traceEvents": [
+        {"ph": "X", "cat": "gpu_user_annotation", "pid": 0, "tid": 7,
+         "ts": 0, "dur": 100, "name": "tt.lahc"},
+        {"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "ts": 0,
+         "dur": 10, "name": "random_ls_events_kernel(float const*)"},
+        {"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "ts": 12,
+         "dur": 80, "name": "lahc_kernel(K10Args)"},
+        {"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "ts": 200,
+         "dur": 5, "name": "random_ls_events_kernel(float const*)"}]}
+    attr = tprof.attribute(_write_capture(str(tmp_path), doc))
+    assert attr["phases"]["lahc"]["seconds"] == pytest.approx(90e-6)
+    assert attr["phases"]["delta"]["seconds"] == pytest.approx(5e-6)
+
+
 def test_attribute_cpu_capture_and_honest_bucket(tmp_path):
     attr = tprof.attribute(_write_capture(str(tmp_path), _cpu_doc()))
     assert attr["n_events"] == 3

@@ -6,16 +6,48 @@ Run from the root of the tree to measure (the file may belong to another
 tree: it imports `chip_smoke` and the port from the current directory).
 It builds that tree's kernels, drives each named path of chip_smoke.py's
 PATHS (default: all five) through its `run_path`, checks each stream
-with its `check_stream`, and prints one JSON line: the label and each
-path's generations per second (lahc: steps per second). To compare two
-commits on one card, unpack the parent with `git archive` into a
-directory that .gitignore lists and run, in one call, parent, change,
-change, parent (then the mirrored order in another).
+with its `check_stream`, and prints one JSON line: the label, each
+path's generations per second (lahc: steps per second) and, under
+"best", each path's reported best at its budget. The name `k10` times
+the LAHC call instead, through the tree's `lahc.lahc_steps_kernel` (every
+kernel it launches) at the lahc path's shape on comp01s (4 walkers, K
+16, a history of 5,000, from chip_smoke's feasible start): us a step
+over 200-step and 2,000-step calls, and over 200-step calls of one
+walker (the chain's floor). To compare two commits on one card, unpack
+the parent with `git archive` into a directory that .gitignore lists
+and run, in one call, parent, change, change, parent (then the mirrored
+order in another).
 """
 
 import json
 import os
 import sys
+
+
+def k10_us_per_step(cs) -> dict:
+    import torch
+    from timetabling_ga_tpu_torch.ops import lahc
+    from timetabling_ga_tpu_torch.problem import load_tim_file
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    dev = torch.device("cuda", 0)
+    pa = load_tim_file(cs.TIM).device_arrays(dev)
+    cfg = config.parse_args(["-i", cs.TIM] + cs.PATHS["lahc"]
+                            ).apply_tuned_defaults(pa.n_events)
+    post = engine.build_post_config(cfg, engine.build_ga_config(cfg))
+    K, Lh = cfg.post_lahc_k, cfg.post_lahc
+    out = {}
+    for walkers, n in ((post.pop_size, 200), (post.pop_size, 2000),
+                       (1, 200)):
+        g = torch.Generator(device=dev).manual_seed(9000 + walkers + n)
+        w = cs.witness_state(pa, walkers, g)
+        draws = lahc.make_lahc_draws([g], walkers, n, K, pa.n_events,
+                                     pa.n_slots, post.p1, post.p2, post.p3,
+                                     dev)
+        state = lahc.init_lahc(pa, w.slots, w.rooms, Lh)
+        ms = cs.time_ms(lambda: lahc.lahc_steps_kernel(pa, draws, state),
+                        20)
+        out[f"us_per_step_{walkers}x{n}"] = ms * 1e3 / n
+    return out
 
 
 def main(argv) -> int:
@@ -27,13 +59,17 @@ def main(argv) -> int:
     kernels.build()
     pa_cpu = {tim: load_tim_file(tim).device_arrays("cpu")
               for tim in (cs.TIM, cs.TIM05)}
-    out = {}
+    out, best = {}, {}
     for name in names:
+        if name == "k10":
+            out[name] = k10_us_per_step(cs)
+            continue
         recs, _, _ = cs.run_path(name)
         s = cs.check_stream(recs, pa_cpu[cs.PATH_TIM.get(name, cs.TIM)])
         out[name] = (s["lahc_steps"] / s["lahc_seconds"] if s["lahc_steps"]
                      else s["gens_per_s"])
-    print(json.dumps({"leg": label, **out}))
+        best[name] = s["final_best"]
+    print(json.dumps({"leg": label, **out, "best": best}))
     return 0
 
 

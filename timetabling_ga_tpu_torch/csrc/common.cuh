@@ -10,8 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Phase counters of K2, K5, K7 and K8, compiled in only with
-// -DTT_K5_PROF (see timetabling_ga_tpu_torch/k5_phases.py): block 0's
+// Phase counters of the kernels k5_phases reads (K2, K5, K7-K12),
+// compiled in only with -DTT_K5_PROF (see timetabling_ga_tpu_torch/k5_phases.py): block 0's
 // thread 0 (rank 0 of cluster 0) adds the clock64() cycles since its
 // previous mark to counter k, so the counters partition that thread's
 // time in the launch. TT_PROF_BARRIER() is a block barrier in that build
@@ -134,6 +134,54 @@ template <typename T>
 __device__ __forceinline__ const T* tt_lane_ptr(const long long* row,
                                                 int f) {
     return (const T*)(uintptr_t)row[f];
+}
+
+// Start copying n ints from global `src` to shared `dst`, each thread
+// its own, with cp.async: every copy of the block in flight at once, no
+// register round trip. tt_async_wait, then a block barrier, makes them
+// visible. (Elsewhere than on the card, a plain copy.)
+__device__ __forceinline__ void tt_async_ints(int* dst, const int* src,
+                                              int n) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+#ifdef __CUDA_ARCH__
+        const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                     :: "r"(d), "l"(src + i) : "memory");
+#else
+        dst[i] = src[i];
+#endif
+    }
+}
+
+// One cp.async copy of this thread, of 16 bytes (both addresses 16-byte
+// aligned; it bypasses L1) or of 4; tt_async_wait and a barrier make it
+// visible, as above.
+__device__ __forceinline__ void tt_async_16(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src) : "memory");
+#else
+    for (int i = 0; i < 16; ++i)
+        ((unsigned char*)dst)[i] = ((const unsigned char*)src)[i];
+#endif
+}
+
+__device__ __forceinline__ void tt_async_4(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src) : "memory");
+#else
+    *(int*)dst = *(const int*)src;
+#endif
+}
+
+// Wait for every cp.async copy this thread started.
+__device__ __forceinline__ void tt_async_wait() {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.

@@ -68,29 +68,6 @@ __device__ __forceinline__ void tt_pen_slot_bits(const TTPenaltyProblem& pp,
             atomicOr(&slot_ev[sl[e] * pp.W + (e >> 5)], 1u << (e & 31));
 }
 
-// Start copying n ints from global `src` to shared `dst`, each thread
-// its own, with cp.async: every copy of the block in flight at once, no
-// register round trip. tt_async_wait, then a block barrier, makes them
-// visible. (Elsewhere than on the card, a plain copy.)
-__device__ __forceinline__ void tt_async_ints(int* dst, const int* src,
-                                              int n) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-#ifdef __CUDA_ARCH__
-        const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                     :: "r"(d), "l"(src + i) : "memory");
-#else
-        dst[i] = src[i];
-#endif
-    }
-}
-
-__device__ __forceinline__ void tt_async_wait() {
-#ifdef __CUDA_ARCH__
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
-}
-
 // Room pairs over occupancy cells [c0, c1): n(n-1) each.
 template <class Occ>
 __device__ __forceinline__ void tt_pen_cells(const Occ* occ, int c0, int c1,

@@ -17,7 +17,7 @@
 //
 // Design, in two entry points:
 //   - random_ls_events (the pre-pass; it also feeds K12,
-//     full_eval_ls.cu): sample_move's events are the top 3 of each
+//     full_eval_ls.cu, and K10, lahc.cu): sample_move's events are the top 3 of each
 //     candidate's uniforms (moves.py:128, lax.top_k of iid draws), a
 //     pure function of the draws, so they are known before round 0. It
 //     is bound by bytes: it reads every uniform once (16 MB at P = 10,

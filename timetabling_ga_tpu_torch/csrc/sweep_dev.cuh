@@ -458,35 +458,3 @@ __device__ __forceinline__ void tt_store_candidate(
         o[9 + m] = nr[m];
     }
 }
-
-// One random candidate of K10 (ops/lahc.py:255-281), run by the 32 lanes
-// of one warp: K4's body, then lane 0's store (tt_store_candidate).
-__device__ __forceinline__ void tt_score_candidate_bits_warp(
-    const TTSweepProblem& pb, const int* slots, const int* rooms,
-    const int16_t* att, const int16_t* occ, const uint64_t* amask,
-    const uint32_t* slot_ev, const int ev[3], const int ns[3],
-    const int on[3], const int* st, const int* anchor_slots,
-    const int* anchor_w, int anchored, int lane, int* o) {
-    int nr[3], dh, ds;
-    tt_delta_one_bits_warp(pb, slots, rooms, att, occ, amask, slot_ev, ev,
-                           ns, on, lane, &dh, &ds, nr);
-    if (lane == 0)
-        tt_store_candidate(slots, ev, ns, nr, dh, ds, st, anchor_slots,
-                           anchor_w, anchored, o);
-}
-
-// The chosen candidate `o` (12 ints, as tt_store_candidate stores them)
-// as the 15-int move tt_apply_move_bits_block takes.
-__device__ __forceinline__ void tt_move_of_candidate(const int* o,
-                                                     const int* slots,
-                                                     const int* rooms,
-                                                     int* mv) {
-#pragma unroll
-    for (int m = 0; m < 3; ++m) {
-        mv[m] = o[3 + m];
-        mv[3 + m] = slots[o[3 + m]];
-        mv[6 + m] = rooms[o[3 + m]];
-        mv[9 + m] = o[6 + m];
-        mv[12 + m] = o[9 + m];
-    }
-}

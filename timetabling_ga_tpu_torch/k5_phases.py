@@ -1,14 +1,15 @@
 """Where one K5 sweep pass, one K8 local search or its pre-pass, one K12
-full-evaluation search, one K2 evaluation, one K7 truncation or
-migration, one K11 ranking or replacement and one parallel room
-matching spend their time, on the card.
+full-evaluation search, one K10 LAHC launch, one K2 evaluation, one K7
+truncation or migration, one K11 ranking or replacement and one parallel
+room matching spend their time, on the card.
 
     python -m timetabling_ga_tpu_torch.k5_phases [k5] [k8] [k8e] [k12] \
-        [k2] [k7] [k11] [k9] [k11big]
+        [k10] [k2] [k7] [k11] [k9] [k11big]
 
 (no argument: all but k11big). Builds csrc/sweep_pass.cu, csrc/random_ls.cu,
-csrc/full_eval_ls.cu, csrc/batch_penalty.cu, csrc/survivors.cu,
-csrc/nsga.cu, csrc/parallel_rooms.cu and csrc/breed.cu once more with
+csrc/full_eval_ls.cu, csrc/lahc.cu, csrc/batch_penalty.cu,
+csrc/survivors.cu, csrc/nsga.cu, csrc/parallel_rooms.cu and csrc/breed.cu
+once more with
 their phase counters compiled in (-DTT_K5_PROF: block 0's
 thread 0 reads clock64() at each phase boundary, csrc/common.cuh), under
 build/torch_kernels/k5_phases/, and checks that each instrumented kernel
@@ -32,6 +33,13 @@ per round (K8, K12) or per launch (K8's pre-pass, K2, K7):
   --ls-full-eval`: P = 10 individuals, 25 rounds of 8 candidates, a
   cluster of 8 CTAs each) from random starts; the thread is rank 0 of
   cluster 0, which evaluates candidate 0 of every round;
+- K10 at the lahc path's shape (`--post-lahc 5000`: 4 walkers, K 16
+  candidates, a history of 5,000) and on one walker, 1,000 steps from
+  feasible starts (the planted witness with its slots relabelled by a
+  random permutation a walker: no hard violation, a few hundred soft
+  ones, so the walk accepts sideways and uphill moves as the path's
+  does); the thread is block 0's warp 0 lane 0, which scores candidate
+  0 of every step; beside the counters, the device time of one launch;
 - K2 on random comp01s rows at P = 4, 16 and 256, the mean of 20
   launches, at the cluster size its wrapper takes; the thread is rank
   0 of cluster 0;
@@ -123,6 +131,17 @@ K9_PHASES = ("before the matcher (K9: row load + best-fit rooms; K6: "
              "the events bucketed by slot)",
              "owners + augment rounds", "park + result",
              "after (K9: store; K6: occupancy)")
+# counter k of csrc/lahc.cu (1-3 are the K4 body's, as in K5)
+K10_PHASES = ("events (the top 3 of the uniforms, or the staged chunk's)",
+              "k4 occupancy + room argmins",
+              "k4 unsuitable + conflict dots", "k4 day re-score",
+              "candidate store", "wait for the other warps",
+              "draws chunk (wait, barrier, the next chunk's copies)",
+              "choice and acceptance", "apply",
+              "prologue (load + bitsets)", "epilogue", "history entry",
+              "move type and target (+ sample_move)", "best copy",
+              "second barrier (the thread-0 choice's)")
+K10_STEPS = 1000
 REPS = 20
 SINGULAR = {"steps": "step", "rounds": "round", "launches": "launch"}
 
@@ -264,6 +283,58 @@ def k12_lines(pa, dev):
     yield _line(["K12", "full-eval", gc.pop_size], gc.ls_steps, "rounds",
                 K12_PHASES, cyc, candidates=gc.ls_candidates,
                 cluster=local_search.full_eval_cluster(gc.ls_candidates))
+
+
+def _feasible_rows(pa, n, g):
+    """n feasible comp01s rows: the planted witness with its slots
+    relabelled by a random permutation a row (a slot's events and rooms
+    move together, so no hard constraint breaks)."""
+    with open(COMP01S.with_name("comp01s.witness.json")) as f:
+        w = json.load(f)
+    dev = pa.conflict.device
+    slots = torch.tensor(w["slots"], dtype=torch.int64, device=dev)
+    perm = torch.stack([torch.randperm(pa.n_slots, generator=g, device=dev)
+                        for _ in range(n)])
+    rms = torch.tensor(w["rooms"], dtype=torch.int32, device=dev)
+    return (perm[:, slots].to(torch.int32).contiguous(),
+            rms.repeat(n, 1))
+
+
+def k10_lines(pa, dev):
+    from timetabling_ga_tpu_torch.ops import lahc
+    cfg = config.parse_args(["-i", str(COMP01S), "--post-lahc", "5000"]
+                            ).apply_tuned_defaults(pa.n_events)
+    post = engine.build_post_config(cfg, engine.build_ga_config(cfg))
+    K, Lh = cfg.post_lahc_k, cfg.post_lahc
+    prof = build_prof("lahc")
+    for walkers in (post.pop_size, 1):
+        g = torch.Generator(device=dev).manual_seed(10000 + walkers)
+        l0 = lahc.init_lahc(pa, *_feasible_rows(pa, walkers, g), Lh)
+        if int(l0.ls.hcv.max()) != 0:
+            raise RuntimeError("k5_phases: a relabelled witness is not "
+                               "feasible")
+        draws = lahc.make_lahc_draws([g], walkers, K10_STEPS, K,
+                                     pa.n_events, pa.n_slots, post.p1,
+                                     post.p2, post.p3, dev)
+
+        def run():
+            return lahc.lahc_steps_kernel(pa, draws, _lahc_copy(l0))
+        want, got, cyc = _instrumented("lahc", prof, run)
+        if not (_equal(want.ls, got.ls) and _equal(want[1:], got[1:])):
+            raise RuntimeError("k5_phases: the instrumented K10 differs "
+                               "from K10")
+        yield _line(["K10", "lahc", walkers], K10_STEPS, "steps",
+                    K10_PHASES, cyc, candidates=K, history=Lh,
+                    start_scv=[int(x) for x in l0.ls.scv],
+                    end_scv=[int(x) for x in want.ls.scv],
+                    device_us=device_us_per_launch(run, "lahc", reps=5))
+
+
+def _lahc_copy(state):
+    """A copy of a LahcState, for K10 to update in place."""
+    from timetabling_ga_tpu_torch.ops import lahc
+    return lahc.LahcState(lahc.LSState(*(x.clone() for x in state.ls)),
+                          *(x.clone() for x in state[1:]))
 
 
 def device_us_per_launch(fn, kernel, reps=REPS, sessions=3):
@@ -445,7 +516,7 @@ def k9_lines(pa, dev):
 
 
 LINES = {"k5": k5_lines, "k8": k8_lines, "k8e": k8e_lines,
-         "k12": k12_lines, "k2": k2_lines, "k7": k7_lines,
+         "k12": k12_lines, "k10": k10_lines, "k2": k2_lines, "k7": k7_lines,
          "k11": k11_lines, "k9": k9_lines}
 # run only when named
 NAMED_ONLY = {"k11big": k11big_lines}

@@ -11,8 +11,8 @@ needs no CUDA toolchain.
 
 A source may hold several entry points (K6 `breed.cu`: breed and
 relocate; K7 `survivors.cu`: survivors and migrate; K8 `random_ls.cu`:
-its pre-pass random_ls_events, which also feeds K12 `full_eval_ls.cu`,
-and the chain random_ls; K11 `nsga.cu`:
+its pre-pass random_ls_events, which also feeds K12 `full_eval_ls.cu`
+and K10 `lahc.cu`, and the chain random_ls; K11 `nsga.cu`:
 nsga_rank and nsga_survivors; K13 `trace_compress.cu`: compress_trace
 and moment_rows; K14 `quality.cu`: quality_ops and div_stats); each has
 its own name here; K6 and K8's chain launched with a lane table, K13's

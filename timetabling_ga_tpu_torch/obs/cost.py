@@ -61,7 +61,9 @@ polling and on-demand profiler capture.
           --obs-listen front, or --profile-for N at launch) captures
           the next N dispatches. The dispatch loop only ticks a counter
           (`on_dispatch`), so a hung or dying capture (fault site
-          `profile`) never stalls dispatch, serve or writer drain.
+          `profile`) never stalls dispatch, serve or writer drain. A
+          loop that takes a ticket at each enqueue (`on_enqueue`) has
+          only dispatches enqueued after the capture went live counted.
 
 The standing invariant: the record stream is the same with the
 observatory on or off. `costEntry` and `profEntry` are timing records,
@@ -493,6 +495,10 @@ class MemPoller:
 # -------------------------------------------------------- profile capture
 
 
+# how long close() waits for a capture's stop that is under way
+STOP_WAIT_S = 60.0
+
+
 class ProfileCapture:
     """On-demand profiler capture spanning N dispatches, driven
     entirely OFF the dispatch path (JAX's state machine, unchanged).
@@ -517,6 +523,16 @@ class ProfileCapture:
     `die` ends it — either way nothing on the solve path blocks (tests
     pin it). One capture at a time: `trigger` while one is active
     answers busy instead of queueing.
+
+    The card's profiler records the kernels launched while it is live,
+    so a dispatch already enqueued when the capture starts lies in it
+    only in part, down to none of its work. A loop that takes a ticket
+    from `on_enqueue()` before it launches a dispatch and hands it to
+    `on_dispatch(ticket)` when that dispatch retires has such a
+    dispatch left uncounted: the N counted are whole. A tick without a
+    ticket counts, as JAX's does. Such a loop calls `flush()` when it
+    has no more dispatches to run, so that a live capture still waiting
+    for its whole ones stops then, with what it holds.
 
     The phase profiler rides the worker too: set `on_complete` to a
     callable of the finished capture's directory (obs/prof.capture_hook
@@ -544,6 +560,9 @@ class ProfileCapture:
         self._active_dir = None   # dir of the live capture
         self._last_attr = None    # last on_complete return (tt-prof)
         self._completed = 0       # captures fully stopped
+        self._tickets = 0         # on_enqueue tickets handed out
+        self._first_ticket = 0    # the first one the live capture counts
+        self._stopping = False    # the worker is in a stop and its hook
         self._thread = threading.Thread(
             target=self._worker, name="tt-profile", daemon=True)
         self._thread.start()
@@ -568,15 +587,35 @@ class ProfileCapture:
         return {"ok": True, "dispatches": n,
                 "dir": out_dir or self.default_dir}
 
-    def on_dispatch(self) -> None:
+    def on_enqueue(self) -> int:
+        """A ticket for the dispatch about to be launched, for its
+        `on_dispatch` (never blocks beyond the counter lock)."""
+        with self._lock:
+            self._tickets += 1
+            return self._tickets - 1
+
+    def on_dispatch(self, ticket: int | None = None) -> None:
         """One dispatch retired (called by the engine/serve loops;
-        never blocks beyond the counter lock)."""
+        never blocks beyond the counter lock). A `ticket` from before
+        the live capture started does not count."""
         with self._lock:
             if self._remaining <= 0:
+                return
+            if ticket is not None and ticket < self._first_ticket:
                 return
             self._remaining -= 1
             if self._remaining > 0:
                 return
+            self._cmd = ("stop",)
+        self._wake.set()
+
+    def flush(self) -> None:
+        """No more dispatches come: a live capture stops now, on the
+        worker, as on its last counted dispatch."""
+        with self._lock:
+            if self._remaining <= 0:
+                return
+            self._remaining = 0
             self._cmd = ("stop",)
         self._wake.set()
 
@@ -631,10 +670,12 @@ class ProfileCapture:
                 with self._lock:
                     self._remaining = cmd[1]
                     self._active_dir = cmd[2]
+                    self._first_ticket = self._tickets
             elif cmd[0] == "stop":
                 stopped = True
                 try:
                     _faults().maybe_fail("profile")
+                    self._stopping = True
                     self._stop_fn()
                 except SystemExit:
                     return
@@ -661,6 +702,7 @@ class ProfileCapture:
                 with self._lock:
                     self._last_attr = res
                     self._completed += 1
+                    self._stopping = False
             # a close() that arrived WITH the command just processed
             # (its wake was consumed above) must end the worker now —
             # looping back to wait() would park the thread forever and
@@ -693,6 +735,10 @@ class ProfileCapture:
                 self._cmd = ("stop",)
         self._wake.set()
         self._thread.join(timeout=2.0)   # hung worker: abandoned daemon
+        if self._stopping:
+            # a stop past its fault site is writing the capture: a
+            # reader after close finds it whole
+            self._thread.join(timeout=STOP_WAIT_S)
         atexit.unregister(self.close)
 
 

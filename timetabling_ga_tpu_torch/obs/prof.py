@@ -110,7 +110,9 @@ KERNEL_PHASES = {
     # K7's migrate, JAX islands.py:212 _migrate (tt.migrate)
     "migrate": "tt.migrate",
     "migrate_halo": "tt.migrate",
-    # K8's pre-pass, the top 3 of JAX delta.py:211's candidates (tt.delta)
+    # K8's pre-pass, the top 3 of JAX delta.py:211's candidates (tt.delta);
+    # K10's launch of it runs inside lahc_steps' tt.lahc range, which
+    # wins over this map (ATTRIBUTION), so the lahc path's goes to tt.lahc
     "random_ls_events": "tt.delta",
     # K8's chain, JAX delta.py:211 batch_local_search_delta (tt.delta)
     "random_ls": "tt.delta",
@@ -120,7 +122,7 @@ KERNEL_PHASES = {
     "full_eval_ls": "tt.fitness",
     # K9, JAX rooms.py:303 parallel_assign_rooms (tt.rooms)
     "parallel_rooms": "tt.rooms",
-    # K10, JAX lahc.py:105 lahc_steps (tt.lahc)
+    # K10, JAX lahc.py:105 lahc_steps (tt.lahc), after K8's pre-pass
     "lahc": "tt.lahc",
     # K11, JAX nsga.py (unscoped) inside ga.py:220 generation (tt.ga)
     "nsga_rank": "tt.ga",

@@ -11,11 +11,12 @@ on strict improvements only. Costs are (penalty, scv) pairs compared
 lexicographically; the penalty keeps the anchor residual of the walker's
 start.
 
-`lahc_steps` is the wrapper of kernel K10 (csrc/lahc.cu), all steps of
-a call in one launch, one block per walker, scoring on the bitsets K5
-keeps (ops/delta.py `slot_bitsets`); `lahc_steps_plain` is its
-plain version, a Python loop over the steps. Draws come in as
-`LahcDraws`.
+`lahc_steps` is the wrapper of kernel K10 (csrc/lahc.cu): K8's
+pre-pass (`random_ls_events`) takes every candidate's events from the
+uniforms, then K10 runs all steps of a call in one launch, one block per
+walker, scoring on the bitsets K5 keeps (ops/delta.py `slot_bitsets`);
+`lahc_steps_plain` is its plain version, a Python loop over the steps.
+Draws come in as `LahcDraws`.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from timetabling_ga_tpu_torch import kernels, work
 from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.delta import (
-    LSState, apply_moves, delta_one_plain, init_state)
+    LSDraws, LSState, apply_moves, delta_one_plain, init_state)
 from timetabling_ga_tpu_torch.ops.moves import MoveDraws, move_probs, sample_move
 
 
@@ -153,37 +154,83 @@ def lahc_steps_plain(pa, draws: LahcDraws, state: LahcState) -> LahcState:
     return LahcState(ls, hp, hs, step, bs, br, bp, bh, bv)
 
 
-def lahc_smem_bytes(pa, k_cands: int) -> int:
+# csrc/lahc.cu K10_CHUNK_BYTES: shared memory for one of the two chunks
+# of steps' draws
+K10_CHUNK_BYTES = 12288
+# int16 entries the events buffer has beyond its (n, W, K, 3): K10 copies
+# each step's events in 16-byte pieces from the boundary at or below them
+EVENT_PAD = 16
+
+
+def _a16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def lahc_smem_bytes(pa, k_cands: int, hist_len: int) -> int:
     """Dynamic shared memory K10 takes per walker, the layout of
     csrc/lahc.cu `k10_smem_layout`: slots, rooms and the best snapshot's
-    slots and rooms, 12 ints per candidate, 32 block scalars, the bitsets
+    slots and rooms, two buffers of 18 ints per candidate, the bitsets
     amask (S u64) and slot_ev (T x W u32; ops/delta.py slot_bitsets),
-    occ and att, each rounded up to 16 bytes, plus the conflict bitset
-    when the total still fits in SMEM_LIMIT (else K10 reads it from
-    global memory)."""
+    occ and att, each rounded up to 16 bytes, and two chunks of steps'
+    draws (a step: its events from a 16-byte boundary, 16 bytes more than
+    6K rounded up, then its move types and its targets, 4K each rounded
+    up; as many steps as fit in K10_CHUNK_BYTES, at least one); then the
+    conflict bitset when it still fits in SMEM_LIMIT, then the two
+    history rings (2 x Lh ints) when they still fit (else K10 reads
+    each from global memory)."""
     E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
     W = pa.conflict_bits.shape[1]
-    parts = (4 * E,) * 4 + (4 * 12 * k_cands, 4 * 32, 8 * S, 4 * T * W,
-                            2 * T * R, 2 * S * T)
-    total = sum(-(-x // 16) * 16 for x in parts)
-    with_bits = total + -(-4 * E * W // 16) * 16
-    return with_bits if with_bits <= kernels.SMEM_LIMIT else total
+    K = k_cands
+    step = _a16(6 * K) + 16 + 2 * _a16(4 * K)
+    chunk = max(1, K10_CHUNK_BYTES // step)
+    total = sum(_a16(x) for x in (4 * E,) * 4 + (
+        2 * 4 * 18 * K, 8 * S, 4 * T * W, 2 * T * R, 2 * S * T))
+    total += 2 * chunk * step
+    for extra in (_a16(4 * E * W), 2 * _a16(4 * hist_len)):
+        if total + extra <= kernels.SMEM_LIMIT:
+            total += extra
+    return total
 
 
-def lahc_steps_kernel(pa, draws: LahcDraws, state: LahcState) -> LahcState:
-    """Kernel K10: every step for every walker in one launch, one block
-    per walker, updating the state's tensors in place (a contiguous copy
-    of any that is not contiguous). Raises ValueError when one walker's
-    state does not fit in shared memory; no fallback."""
+def _as_one_individual(u: torch.Tensor) -> LSDraws:
+    """The LAHC uniforms (n, W, K, E) as K8's pre-pass takes them: one
+    individual's n rounds of W x K candidates."""
+    n, W, K, E = u.shape
+    return LSDraws(None, u.reshape(n, W * K, 1, E), None)
+
+
+def lahc_events(draws: LahcDraws) -> torch.Tensor:
+    """Kernel K8's pre-pass (random_ls_events) on the LAHC draws: every
+    candidate's events, (n, W, K, 3) int16 flat, EVENT_PAD entries
+    longer."""
+    if draws.u.dtype != torch.float32:
+        raise TypeError("lahc takes float32 uniforms")
+    d = _as_one_individual(draws.u.contiguous())
+    n, WK, _, E = d.u.shape
+    out = torch.empty(n * WK * 3 + EVENT_PAD, dtype=torch.int16,
+                      device=d.u.device)
+    kernels.launch("random_ls_events", kernels.ptr(d.u), kernels.ptr(out),
+                   1, E, WK, n, work=work.random_ls_events(d))
+    return out
+
+
+def lahc_steps_kernel(pa, draws: LahcDraws, state: LahcState,
+                      events: torch.Tensor | None = None) -> LahcState:
+    """K8's pre-pass (lahc_events; skipped when `events` holds its
+    output already), then kernel K10 on its events: every step for every
+    walker in one launch, one block per walker, updating the state's
+    tensors in place (a contiguous copy of any that is not contiguous).
+    Raises ValueError, before any launch, when one walker's state does
+    not fit in shared memory; no fallback."""
     n, W, K = draws.mtype.shape
     E = state.ls.slots.shape[1]
-    smem = lahc_smem_bytes(pa, K)
+    smem = lahc_smem_bytes(pa, K, state.hist_pen.shape[1])
     if smem > kernels.SMEM_LIMIT:
         raise ValueError(
             f"lahc: one walker's state needs {smem} bytes of shared "
             f"memory, more than the {kernels.SMEM_LIMIT} a block can have")
-    if draws.u.dtype != torch.float32 or tuple(draws.u.shape) != (
-            n, W, K, E) or state.ls.slots.shape[0] != W:
+    if tuple(draws.u.shape) != (n, W, K, E) or \
+            state.ls.slots.shape[0] != W:
         raise ValueError("lahc: the draws do not fit the walkers")
     ls = state.ls
     if ls.att.dtype != torch.int16 or ls.occ.dtype != torch.int16:
@@ -197,8 +244,13 @@ def lahc_steps_kernel(pa, draws: LahcDraws, state: LahcState) -> LahcState:
     out = LahcState(LSState(*fields[:7]), *fields[7:])
     if n == 0:
         return out
+    if events is None:
+        events = lahc_events(draws)
+    elif events.dtype != torch.int16 or events.numel() != (
+            n * W * K * 3 + EVENT_PAD) or events.data_ptr() % 16:
+        raise ValueError("lahc: the events are not the pre-pass's")
     i32 = torch.int32
-    dr = [draws.mtype.to(i32).contiguous(), draws.u.contiguous(),
+    dr = [draws.mtype.to(i32).contiguous(), events,
           draws.t.to(i32).contiguous()]
     p = kernels.ptr
     kernels.launch(
@@ -214,9 +266,11 @@ def lahc_steps_kernel(pa, draws: LahcDraws, state: LahcState) -> LahcState:
 
 @obs_prof.scope("tt.lahc")
 def lahc_steps(pa, draws: LahcDraws, state: LahcState) -> LahcState:
-    """Advance every walker by the draws' n steps. Kernel K10 on CUDA
-    tensors (in place), the plain version on CPU ones."""
+    """Advance every walker by the draws' n steps. K8's pre-pass and
+    kernel K10 on CUDA tensors (in place), the plain version on CPU
+    ones."""
     if not state.ls.slots.is_cuda:
+        kernels.tally(work.random_ls_events(_as_one_individual(draws.u)))
         kernels.tally(work.lahc(pa, draws, state))
         return lahc_steps_plain(pa, draws, state)
     return lahc_steps_kernel(pa, draws, state)

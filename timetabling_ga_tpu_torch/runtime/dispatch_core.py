@@ -66,10 +66,12 @@ from timetabling_ga_tpu_torch.runtime import retry
 # new_flow: its dispatch, fetch-read and process spans form one chain),
 # the --trace-profile capture to stop at its fetch (or None) and its
 # program call's counted work for the live roofline (obs/cost.py; None
-# on a call that counted as a compile)
+# on a call that counted as a compile), and its on-demand capture
+# ticket (obs/cost.py ProfileCapture.on_enqueue; None without one)
 Chunk = collections.namedtuple("Chunk",
-                               "td0 n_ep gens_run trace flow prof cost",
-                               defaults=(None, None))
+                               "td0 n_ep gens_run trace flow prof cost "
+                               "ticket",
+                               defaults=(None, None, None))
 
 # the programs under the cost observatory (obs/cost.py instrument), one
 # proxy a name for the process, as JAX's program caches are

@@ -117,7 +117,9 @@ captures one warm dispatch a try with torch.profiler on the dispatch
 thread (started at its enqueue, stopped at its fetch, a `profile` phase
 record; it forces the serial loop). `--profile-for N` or
 `--obs-listen` wires a ProfileCapture (its own worker thread; the loop
-only ticks `on_dispatch` once a chunk retires), whose finished captures
+takes a ticket as it enqueues a chunk and ticks `on_dispatch` with it
+once the chunk retires, so a capture counts only chunks launched after
+it started), whose finished captures
 attribute themselves (obs/prof.capture_hook: gauges, and a profEntry
 under --obs); `--profile-for N` triggers it at launch and /profile on
 the pull front on demand. None of it changes a record of the stream
@@ -859,7 +861,8 @@ def _run_try(cfg, out, problem, mesh, trial: int, seed: int,
         nonlocal state, cur, sec_per_gen, lahc_done, kick_stall
         nonlocal kick_best, kick_streak, epochs_at_ckpt, last_fence
         nonlocal host_gap_s, overflow_warned, profiled
-        td0, n_ep, gens_run, tcopy, flow, tprof, chunk_cost = chunk
+        td0, n_ep, gens_run, tcopy, flow, tprof, chunk_cost, ticket = \
+            chunk
         tf0 = time.monotonic()
         trace = dcore.fetch(tcopy, tracer=tracer, flow=flow or None)
         td1 = time.monotonic()
@@ -928,7 +931,7 @@ def _run_try(cfg, out, problem, mesh, trial: int, seed: int,
         if profiler is not None:
             # tick the on-demand capture (a lock-guarded counter: the
             # profiler's start and stop happen on its worker)
-            profiler.on_dispatch()
+            profiler.on_dispatch(ticket)
         if (cfg.obs and cfg.metrics_every > 0
                 and n_dispatch % cfg.metrics_every == 0):
             jsonl.metrics_entry(out, mreg.snapshot(), ts=tracer.now())
@@ -1067,6 +1070,8 @@ def _run_try(cfg, out, problem, mesh, trial: int, seed: int,
                 runner = dcore.program(
                     "runner" if g >= cfg.migration_period
                     else "dyn_runner", islands.mesh_run_epochs)
+                ticket = (profiler.on_enqueue() if profiler is not None
+                          else None)
                 td0 = time.monotonic()
                 # the global best (JAX's pmin output) is not read here
                 state, trace, _ = runner(mesh, pa, gens, state, cur, n_ep,
@@ -1082,8 +1087,12 @@ def _run_try(cfg, out, problem, mesh, trial: int, seed: int,
                 pipe.submit(dcore.Chunk(
                     td0, n_ep, n_ep * g, tcopy, flow_id, tprof,
                     None if getattr(runner, "last_compiled", False)
-                    else getattr(runner, "last_cost", None)))
+                    else getattr(runner, "last_cost", None), ticket))
             pipe.drain()
+            if profiler is not None:
+                # a capture waiting for chunks launched after its start
+                # ends with the loop
+                profiler.flush()
             tr.phase("gen-loop", time.monotonic() - t_loop,
                      dispatches=n_dispatch, pipelined=pipe.enabled)
 

@@ -403,17 +403,17 @@ def parallel_rooms(pa, slots, rooms_in=None,
 
 
 def lahc(pa, draws, state) -> Work:
-    """K10: per step, walker and candidate the top 3 of E uniforms and
-    the K4 body; the walkers' state read and written once (of each
-    history ring the entries the steps touch), the draws and problem
-    arrays read once."""
+    """K10: per step, walker and candidate the K4 body on the events of
+    K8's pre-pass (whose top 3 of the uniforms random_ls_events counts);
+    the walkers' state read and written once (of each history ring the
+    entries the steps touch), the int16 events, the move types and
+    targets and the problem arrays read once."""
     n, W, K = draws.mtype.shape
     touched = min(n, state.hist_pen.shape[1])
     st = nbytes(*state.ls, state.step, state.best_slots, state.best_rooms,
                 state.best_pen, state.best_hcv, state.best_scv)
-    return Work(W * n * K * (k4_candidate_ops(pa)
-                             + pa.n_events * OPS_TOP3),
-                2 * st + 2 * 2 * W * touched * 4 + nbytes(draws.u)
+    return Work(W * n * K * k4_candidate_ops(pa),
+                2 * st + 2 * 2 * W * touched * 4 + n * W * K * 3 * 2
                 + 2 * n * W * K * 4 + _k4_problem_bytes(pa))
 
 
