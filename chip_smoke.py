@@ -77,10 +77,10 @@
    one);
 3. drives five paths through `timetabling_ga_tpu_torch.cli`, seed 42,
    each with the launch counters zeroed just before and read just after:
-   on comp01s the main path (size-tuned defaults, -t 60), the
+   on comp01s the main path (size-tuned defaults, -t 45), the
    reference-faithful path (`--no-auto-tune -p 2`, the random-candidate
    delta LS, -t 30), its full-evaluation twin (`--ls-full-eval -p 1`,
-   -t 10) and the LAHC endgame (`--post-lahc 5000`, -t 30); on
+   -t 10) and the LAHC endgame (`--post-lahc 5000`, -t 20); on
    fixtures/comp05s.tim NSGA-II with the parallel matcher (`--nsga2
    --rooms-mode parallel`, -t 20). Each stream is checked (per-island
    best non-increasing, solution and runEntry records, a feasible
@@ -248,6 +248,24 @@
    --obs`: every dispatch usageEntry's flops the work its quantum's
    launches counted (work.py), its lanes summing to it, and
    cost.flop_utilization_pct in (0, 100];
+   then the scale phase (`python3 chip_smoke.py scale` runs it alone,
+   after the build): BASELINE's fourth configuration, the port's
+   random_instance(7, n_events=2000, n_rooms=80, n_features=10,
+   n_students=1000, attend_prob=0.01) written to build/chip_smoke/ as a
+   .tim: every kernel that chooses a room at its 80 rooms against its
+   plain version at 2-4 rows, exactly (K1, K2, K4, K5 at the repair and
+   post shapes at every cluster size, K6 greedy, crowded and parallel
+   and its relocation entry, K7, K8's pre-pass and chain, K9, K10 at K
+   16 and Lh 5,000, K12), K5, K8 and K10 reading the conflict bitset and
+   K12 also its suitable-rooms table from global memory, each line with
+   ms a call, its bound, the bytes of a block and that branch; the lane
+   forms on two jobs of 40 and 36 rooms in serve's 64-room bucket; K2 at
+   pop 32,768 (ms a batch, evaluations a second, peak memory; every row
+   against the plain version in chunks); one size-tuned repair
+   generation at pop 32,768 (2,048 islands of 16: wall, device ms by
+   kernel, peak memory, every row's terms against the plain K2); and the
+   main path on the scale .tim (-t 30), its stream and launches checked
+   as the main path's;
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
    generation, one full-eval generation, one kick, one LAHC launch and
@@ -287,14 +305,15 @@ OUT_DIR = os.path.join(HERE, "build", "chip_smoke")
 # the paths' budgets: short enough that the whole script stays well
 # inside its time limit, the main path long enough to reach the
 # post-feasibility phase; the time limit, not the generation cap, ends
-# each run
+# each run. The scale phase's cost was paid by cutting main 60 -> 45 and
+# lahc 30 -> 20 (PERF.md section 4).
 PATHS = {
-    "main": ["-s", "42", "-t", "60", "--generations", "100000", "--trace"],
+    "main": ["-s", "42", "-t", "45", "--generations", "100000", "--trace"],
     "reference": ["--no-auto-tune", "-p", "2", "-s", "42", "-t", "30",
                   "--generations", "100000", "--trace"],
     "full-eval": ["--no-auto-tune", "-p", "1", "--ls-full-eval", "-s", "42",
                   "-t", "10", "--generations", "100000", "--trace"],
-    "lahc": ["-s", "42", "-t", "30", "--post-lahc", "5000", "--generations",
+    "lahc": ["-s", "42", "-t", "20", "--post-lahc", "5000", "--generations",
              "100000", "--trace"],
     "nsga": ["-s", "42", "-t", "20", "--nsga2", "--rooms-mode", "parallel",
              "--generations", "100000", "--trace"],
@@ -435,6 +454,8 @@ PATH_KERNELS = {
              ("move1_sweep", "delta_one", "migrate") + LS + SEARCH_MODES
              + K13 + K14 + LANES + LANE_TRACE),
 }
+# the scale phase's main path on the 2000-event / 80-room .tim
+PATH_KERNELS["scale"] = PATH_KERNELS["main"]
 # the serve path: its lanes' kernels every dispatch, K1 and K2 once a
 # started job (each job's init), and none of the engine paths' others
 SERVE_NEVER = (("breed", "random_ls", "relocate", "move1_sweep",
@@ -1855,6 +1876,7 @@ def profile_phases(pa, pa05, dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.obs.prof import kernel_entry
     from timetabling_ga_tpu_torch.ops import delta, ga, lahc, sweep
     from timetabling_ga_tpu_torch.parallel import islands
     from timetabling_ga_tpu_torch.runtime import config, engine
@@ -1940,9 +1962,9 @@ def profile_phases(pa, pa05, dev):
                 if dev_us is None:
                     dev_us = ev.self_cuda_time_total
                 rows.append((dev_us, ev.count, ev.key[:60]))
-                for k in KERNELS:
-                    if ev.key.startswith(f"{k}_kernel") and ev.count:
-                        per_launch[k] = dev_us / ev.count
+                k = kernel_entry(ev.key)
+                if k in KERNELS and ev.count:
+                    per_launch[k] = dev_us / ev.count
             if all(k in per_launch for k in KERNELS
                    if kernels.LAUNCHES[k] > before[k]):
                 break
@@ -5650,6 +5672,465 @@ def mesh_path(pa_cpu, serve_summary):
         phase_s=round(time.monotonic() - t_phase, 3)), launches
 
 
+# ---- the scale configuration: BASELINE.json's fourth, a synthetic
+# 2000-event / 80-room / 1,000-student instance at pop 32,768 (the JAX
+# bench builds it at bench.py:540-577 `measure_scale` with the JAX
+# package's generator; here the port's own random_instance makes it from
+# the same seed and arguments and it is written as a .tim, so nothing is
+# downloaded). Every kernel that chooses a room takes its 80 rooms (three
+# of them a lane, three suitability words an event); one individual's
+# conflict bitset (504,000 bytes) does not fit in shared memory, so K5,
+# K8 and K10 read it from global memory, and K12 its suitable-rooms
+# table (160,000 bytes) too.
+SCALE_SEED = 7
+SCALE_SHAPE = dict(n_events=2000, n_rooms=80, n_features=10,
+                   n_students=1000, attend_prob=0.01)
+SCALE_TIM = os.path.join(OUT_DIR, "scale_e2000_r80.tim")
+SCALE_POP = 32_768
+# rows of the plain K2 a chunk: its (P, T, E) float32 one-hots of a
+# chunk take ~1.5 GB
+SCALE_PLAIN_CHUNK = 4096
+# the main path on the scale .tim: the size-tuned defaults (E > 200:
+# islands of 16, hot-K 48 repair, the post polish on 4 rows)
+SCALE_MAIN = ["-s", "42", "-t", "30", "--generations", "100000", "--trace"]
+# the lane forms past 32 rooms: two jobs of 40 and 36 rooms in serve's
+# 64-room bucket (dead rooms 40-63 and 36-63)
+SCALE_LANES = ((41, 200, 40), (42, 180, 36))
+
+
+def scale_problem():
+    """The scale instance, written to SCALE_TIM and read back from it
+    (the file the CLI leg reads)."""
+    from timetabling_ga_tpu_torch.problem import (
+        dump_tim, load_tim_file, random_instance)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(SCALE_TIM, "w") as f:
+        f.write(dump_tim(random_instance(SCALE_SEED, **SCALE_SHAPE)))
+    return load_tim_file(SCALE_TIM)
+
+
+def _outputs(x):
+    """A call's tensors, flattened out of tuples and named tuples."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _outputs(y)]
+
+
+def scale_compare(name, shape, kern, plain, smem=None, branch=None,
+                  reps=3, extra=None):
+    """`kern` (the kernel's wrapper) and `plain` on the same inputs: every
+    output exactly equal; the kernel's ms a call (CUDA events, `reps`
+    calls after one), the plain version's (one call, host clock after a
+    synchronize), and the bound of the work the kernel's launches counted
+    (kernels.WORK: work.py's table, the most those launches can do).
+    Prints one `scale_kernel` line and returns it."""
+    import torch
+    from timetabling_ga_tpu_torch import kernels
+    before = dict(kernels.WORK)
+    got = _outputs(kern())
+    torch.cuda.synchronize()
+    nb = kernels.WORK["bytes"] - before["bytes"]
+    ops = kernels.WORK["ops"] - before["ops"]
+    t0 = time.monotonic()
+    want = _outputs(plain())
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    check(len(got) == len(want), f"scale {name} {shape}: output count")
+    err = 0
+    for gt, wt in zip(got, want):
+        check(gt.shape == wt.shape, f"scale {name} {shape}: kernel shape "
+              f"{tuple(gt.shape)} vs plain {tuple(wt.shape)}")
+        err = max(err, int((gt.long() - wt.long()).abs().max())
+                  if gt.numel() else 0)
+    check(err == 0, f"scale {name} {shape}: kernel differs from its plain "
+                    f"version (max abs err {err})")
+    b, by = bound(nb, ops)
+    line = {"scale_kernel": name, "shape": shape,
+            "ms": time_ms(kern, reps), "plain_ms": plain_ms,
+            "max_abs_err": err, "bound_ms": b, "bound_by": by,
+            "smem_bytes": smem, "branch": branch, **(extra or {}),
+            "card": CARD}
+    print(json.dumps(line))
+    return line
+
+
+def compare_scale_kernels(problem, dev):
+    """Every kernel against its plain version on the scale instance, at a
+    few rows (P = 2-4) so that the plain versions stay short, exactly;
+    each line with the kernel's ms a call, its bound, the shared memory
+    a block takes and what it stages or reads from global memory."""
+    import torch
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.ops import (
+        delta, fitness, ga, lahc, local_search, moves, nsga, rooms, sweep)
+    from timetabling_ga_tpu_torch.parallel import islands
+    pa = problem.device_arrays(dev)
+    E, R, T = pa.n_events, pa.n_rooms, pa.n_slots
+    check((E, R) == (SCALE_SHAPE["n_events"], SCALE_SHAPE["n_rooms"]),
+          f"scale instance is {E} x {R}")
+    g = torch.Generator(device=dev).manual_seed(12_000)
+
+    def rand(n, P):
+        return torch.randint(0, n, (P, E), generator=g, device=dev,
+                             dtype=torch.int32)
+    lines = []
+    slots = rand(T, 4)
+    rms = rooms.assign_rooms(pa, slots)
+    lines.append(scale_compare(
+        "assign_rooms", [4], lambda: rooms.assign_rooms(pa, slots),
+        lambda: rooms.assign_rooms_plain(pa, slots),
+        smem=rooms.assign_rooms_smem_bytes(pa)))
+    lines.append(scale_compare(
+        "batch_penalty", [4], lambda: fitness.batch_penalty(pa, slots, rms),
+        lambda: fitness.batch_penalty_plain(pa, slots, rms)))
+    st = delta.init_state(pa, slots, rms)
+    md = moves.make_move_draws([g], 4 * 8, E, T, 1.0, 1.0, 1.0, dev)
+    evs, ns, act = (x.reshape(4, 8, 3) for x in moves.sample_move(
+        pa, md, slots.repeat_interleave(8, 0)))
+    lines.append(scale_compare(
+        "delta_one", [4, 8],
+        lambda: delta.delta_one(pa, st.slots, st.rooms, st.att, st.occ,
+                                evs, ns, act),
+        lambda: delta.delta_one_plain(pa, st.slots, st.rooms, st.att,
+                                      st.occ, evs, ns, act)))
+    # K5 at the main path's repair pass (hot-K 48) and post pass (swap
+    # block 64, the permutation: 2,000 steps), every cluster size
+    st2 = delta.LSState(*(x[:2] for x in st))
+    for phase, case in (("repair", (8, 1, 0.25, 48, 0.0)),
+                        ("post", (64, 1, 0.25, 0, 0.0))):
+        sh = sweep.sweep_shape(E, T, case[0], case[1], case[3], case[4])
+        draws = sweep.make_sweep_draws([g], 2, sh, E, case[2], dev)
+        smem, bits = sweep.sweep_pass_smem(pa, sh)
+        t0 = time.monotonic()
+        want, want_rows = sweep.sweep_pass_plain(pa, draws, st2, *case)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        per_cluster = {}
+        for cs in K5_CLUSTERS:
+            before = dict(kernels.WORK)
+            got, got_rows, _ = sweep.sweep_pass_kernel(pa, draws, st2,
+                                                       *case, cluster=cs)
+            torch.cuda.synchronize()
+            nb = kernels.WORK["bytes"] - before["bytes"]
+            ops = kernels.WORK["ops"] - before["ops"]
+            check(all(torch.equal(w, x) for w, x in zip(want, got))
+                  and torch.equal(want_rows, got_rows),
+                  f"scale sweep_pass {phase} cluster {cs}: kernel differs "
+                  f"from its plain version")
+            per_cluster[str(cs or "auto")] = time_ms(
+                lambda cs=cs: sweep.sweep_pass_kernel(pa, draws, st2, *case,
+                                                      cluster=cs), 2)
+        b, by = bound(nb, ops)
+        line = {"scale_kernel": "sweep_pass", "shape": [phase, 2],
+                "steps": sh.n_steps, "ms": per_cluster["auto"],
+                "ms_by_cluster": per_cluster, "plain_ms": plain_ms,
+                "max_abs_err": 0, "bound_ms": b, "bound_by": by,
+                "smem_bytes": smem,
+                "branch": "conflict bits " + ("staged" if bits
+                                              else "global"),
+                "card": CARD}
+        check(not bits, "scale sweep_pass: the conflict bits were staged; "
+                        "this phase holds the global branch")
+        print(json.dumps(line))
+        lines.append(line)
+    # K6: the greedy, crowded and parallel modes, two islands of 2; its
+    # relocation entry on chains of 3 moves
+    L, pop = 2, 2
+    par = ga.evaluate(pa, rand(T, L * pop), rand(R, L * pop), L)
+    for mode in ("greedy", "crowded", "parallel"):
+        cfg = ga.GAConfig(pop_size=pop, p3=0.2,
+                          rooms_mode="parallel" if mode == "parallel"
+                          else "scan", multi_objective=mode == "crowded")
+        bd = ga.make_breed_draws([g] * L, pop, E, T, cfg, dev)
+        mo = (nsga.rank_crowd_plain(par.hcv, par.scv, L)
+              if mode == "crowded" else None)
+        lines.append(scale_compare(
+            "breed", [mode, L * pop],
+            lambda bd=bd, mo=mo, cfg=cfg: ga.make_children_kernel(
+                pa, bd, par, L, mo, cfg.rooms_mode),
+            lambda bd=bd, mo=mo, cfg=cfg: ga.make_children_plain(
+                pa, bd, par, cfg, L, mo),
+            smem=ga.breed_smem_bytes(pa, mode == "parallel")))
+    d3 = moves.make_move_draws([g] * 3, 4, E, T, 1.0, 1.0, 1.0, dev)
+    chain = moves.MoveDraws(*(x.reshape((3, 4) + x.shape[1:]) for x in d3))
+    lines.append(scale_compare(
+        "relocate", [4, 3],
+        lambda: moves.relocation_chain_kernel(pa, chain, slots, rms, 3),
+        lambda: moves.relocation_chain_plain(pa, chain, slots, rms, 3),
+        smem=moves.relocate_smem_bytes(pa)))
+    # K7: truncation and the ring migration, two islands of 4
+    p8 = ga.evaluate(pa, rand(T, 8), rand(R, 8), 2)
+    c8 = ga.evaluate(pa, rand(T, 8), rand(R, 8), 2)
+    surv = ga.survivors(p8, c8, 2, 4)
+    lines.append(scale_compare(
+        "survivors", [2, 4], lambda: ga.survivors(p8, c8, 2, 4),
+        lambda: ga.survivors_plain(p8, c8, 2, 4)))
+    lines.append(scale_compare(
+        "migrate", [2, 4], lambda: islands.migrate(surv, 2),
+        lambda: islands.migrate_plain(surv, 2)))
+    # K8: the pre-pass and the chain (-p 2's K 8), three rows, 5 rounds
+    rows = delta.init_rows(pa, slots[:3], rms[:3])
+    ls = delta.make_ls_draws([g], 3, 5, 8, E, T, 1.0, 1.0, 0.5, dev)
+    events = delta.random_ls_events_kernel(ls)
+    lines.append(scale_compare(
+        "random_ls_events", [3, 5, 8],
+        lambda: delta.random_ls_events_kernel(ls),
+        lambda: delta.random_ls_events_plain(ls)))
+    k8_smem, k8_bits = delta.random_ls_smem(pa, 8)
+    check(not k8_bits, "scale random_ls: the conflict bits were staged")
+    lines.append(scale_compare(
+        "random_ls", [3, 5, 8],
+        lambda: delta.random_ls_chain(pa, ls, rows, events),
+        lambda: delta.random_local_search_plain(pa, ls, rows),
+        smem=k8_smem, branch="conflict bits global"))
+    # K9 from random rooms (4 rounds) on crowded slots, and from best fit
+    crowd = slots.clone()
+    crowd[:, ::2] %= 3
+    incoming = rand(R, 4)
+    lines.append(scale_compare(
+        "parallel_rooms", [4, "augment"],
+        lambda: rooms.augment_rooms(pa, crowd, incoming, 4),
+        lambda: rooms.augment_rooms_plain(pa, crowd, incoming, 4),
+        smem=rooms.parallel_rooms_smem_bytes(pa)))
+    lines.append(scale_compare(
+        "parallel_rooms", [4, "best-fit"],
+        lambda: rooms.parallel_assign_rooms(pa, crowd),
+        lambda: rooms.augment_rooms_plain(pa, crowd,
+                                          rooms.best_fit_rooms(pa, 4)),
+        smem=rooms.parallel_rooms_smem_bytes(pa)))
+    # K10 at the lahc path's K 16 and Lh 5,000, two walkers, 20 steps
+    l0 = lahc.init_lahc(pa, slots[:2], rms[:2], 5000)
+    ld = lahc.make_lahc_draws([g], 2, 20, 16, E, T, 1.0, 1.0, 0.0, dev)
+    k10_smem, k10_bits, k10_ring = lahc.lahc_smem(pa, 16, 5000)
+    check(not k10_bits, "scale lahc: the conflict bits were staged")
+    lines.append(scale_compare(
+        "lahc", [2, 16, 5000, 20],
+        lambda: lahc.lahc_steps_kernel(pa, ld, lahc_copy(l0)),
+        lambda: lahc.lahc_steps_plain(pa, ld, l0), smem=k10_smem,
+        branch="conflict bits global, history ring "
+               + ("staged" if k10_ring else "global")))
+    # K12 (-p 1's K 8), from the pre-pass, two rows, 5 rounds
+    k12_smem, k12_table, k12_staged = local_search.full_eval_ls_smem(pa, 8)
+    check(not k12_table, "scale full_eval_ls: the suitable rooms were "
+                         "staged; this phase holds the global table")
+    lines.append(scale_compare(
+        "full_eval_ls", [2, 5, 8],
+        lambda: local_search.batch_local_search_kernel(
+            pa, delta.LSDraws(*(x[:, :, :2] for x in ls)),
+            delta.init_rows(pa, slots[:2], rms[:2])),
+        lambda: local_search.batch_local_search_plain(
+            pa, delta.LSDraws(*(x[:, :, :2] for x in ls)),
+            delta.init_rows(pa, slots[:2], rms[:2])),
+        smem=k12_smem,
+        branch="suitable rooms global, conflict bits and CSR "
+               + ("staged" if k12_staged else "global")))
+    lines += compare_scale_lanes(dev)
+    return lines
+
+
+def compare_scale_lanes(dev):
+    """K6 (both tournament modes) and K8's chain with a lane table on two
+    jobs of 40 and 36 rooms padded into serve's 64-room bucket (their
+    dead rooms key 2^20 higher), against the lane-looped plain versions,
+    exactly."""
+    import torch
+    from timetabling_ga_tpu_torch.ops import delta, ga, nsga
+    from timetabling_ga_tpu_torch.problem import LaneProblems, random_instance
+    from timetabling_ga_tpu_torch.runtime import config
+    from timetabling_ga_tpu_torch.serve import bucket
+    from timetabling_ga_tpu_torch.serve.scheduler import serve_ga_config
+    jobs = [random_instance(s, n_events=E, n_rooms=R, n_features=10,
+                            n_students=200, attend_prob=0.02)
+            for s, E, R in SCALE_LANES]
+    keys = {bucket.bucket_key(p) for p in jobs}
+    check(len(keys) == 1 and next(iter(keys))[1] == 64,
+          f"scale lanes: not one 64-room bucket: {keys}")
+    lp = LaneProblems([bucket.pad_problem(p).device_arrays(dev)
+                       for p in jobs])
+    L, pop = len(lp), LANE_POP
+    cfg = serve_ga_config(config.ServeConfig())
+    g = torch.Generator(device=dev).manual_seed(12_500)
+    par = ga.PopState(*(torch.cat(x) for x in zip(*(
+        ga.evaluate(pa, torch.randint(0, pa.n_slots, (pop, pa.n_events),
+                                      generator=g, device=dev,
+                                      dtype=torch.int32),
+                    torch.randint(0, pa.n_rooms, (pop, pa.n_events),
+                                  generator=g, device=dev,
+                                  dtype=torch.int32))
+        for pa in lp.pas))))
+    draws = ga.make_breed_draws([g] * L, pop, lp.n_events, lp.n_slots, cfg,
+                                dev)
+    mo = nsga.rank_crowd_plain(par.hcv, par.scv, L)
+    lines = []
+    for tag, m in (("penalty", None), ("crowded", mo)):
+        lines.append(scale_compare(
+            "breed_lanes", [tag, L, pop, lp.n_rooms],
+            lambda m=m: ga.make_children_kernel(lp, draws, par, L, m),
+            lambda m=m: ga.make_children_lanes_plain(lp, draws, par, cfg,
+                                                     m)))
+    rows = ga.make_children_kernel(lp, draws, par, L)
+    ls = delta.make_ls_draws([g], L * pop, cfg.ls_steps, cfg.ls_candidates,
+                             lp.n_events, lp.n_slots, cfg.p1, cfg.p2,
+                             cfg.p3, dev)
+    events = delta.random_ls_events_kernel(ls)
+    lines.append(scale_compare(
+        "random_ls_lanes", [L, pop, lp.n_rooms],
+        lambda: delta.random_ls_chain(lp, ls, rows, events),
+        lambda: delta.random_ls_lanes_plain(lp, ls, rows)))
+    return lines
+
+
+def scale_k2(problem, dev):
+    """K2 at pop 32,768 on the scale instance (measure_scale's batch:
+    random slots and rooms from numpy seed 0): ms a batch over 10
+    batches, evaluations a second and the peak allocated memory, every
+    row equal to the plain version's, taken in chunks of
+    SCALE_PLAIN_CHUNK rows."""
+    import numpy as np
+    import torch
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.ops import fitness
+    pa = problem.device_arrays(dev)
+    rng = np.random.default_rng(0)
+    P, E = SCALE_POP, pa.n_events
+    slots = torch.tensor(rng.integers(0, pa.n_slots, (P, E),
+                                      dtype=np.int32), device=dev)
+    rms = torch.tensor(rng.integers(0, pa.n_rooms, (P, E), dtype=np.int32),
+                       device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(kernels.WORK)
+    got = fitness.batch_penalty(pa, slots, rms)
+    torch.cuda.synchronize()
+    nb = kernels.WORK["bytes"] - before["bytes"]
+    ops = kernels.WORK["ops"] - before["ops"]
+    ms = time_ms(lambda: fitness.batch_penalty(pa, slots, rms), 10)
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.monotonic()
+    for i in range(0, P, SCALE_PLAIN_CHUNK):
+        want = fitness.batch_penalty_plain(pa, slots[i:i + SCALE_PLAIN_CHUNK],
+                                           rms[i:i + SCALE_PLAIN_CHUNK])
+        check(all(torch.equal(w, x[i:i + SCALE_PLAIN_CHUNK])
+                  for w, x in zip(want, got)),
+              f"scale K2 pop {P}: rows {i}+ differ from the plain version")
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    b, by = bound(nb, ops)
+    line = {"scale_k2": P, "ms_per_batch": ms,
+            "evals_per_s": P / ms * 1e3, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by,
+            "max_memory_allocated": peak, "card": CARD}
+    print(json.dumps(line))
+    return line
+
+
+def scale_generation(problem, dev):
+    """One size-tuned repair generation at pop 32,768 (2,048 islands of
+    the tuned 16 rows, ops/ga.generation as the engine calls it: K6, K5
+    twice, K2, K7) from a matched random population, under
+    torch.profiler: its wall, device ms by kernel and the peak allocated
+    memory; every row's reported (penalty, hcv, scv) equal to the plain
+    K2's of its slots and rooms, in chunks."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.obs.prof import kernel_entry
+    from timetabling_ga_tpu_torch.ops import fitness, ga, rooms
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    pa = problem.device_arrays(dev)
+    cfg = config.parse_args(["-i", SCALE_TIM] + SCALE_MAIN
+                            ).apply_tuned_defaults(pa.n_events)
+    gacfg = engine.build_ga_config(cfg)
+    L = SCALE_POP // gacfg.pop_size
+    gens = engine.island_generators(dev, 42, 0, L)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    g = torch.Generator(device=dev).manual_seed(13_000)
+    slots = torch.randint(0, pa.n_slots, (SCALE_POP, pa.n_events),
+                          generator=g, device=dev, dtype=torch.int32)
+    state = ga.evaluate(pa, slots, rooms.assign_rooms(pa, slots), L)
+    del slots
+    draws = ga.make_breed_draws(gens, gacfg.pop_size, pa.n_events,
+                                pa.n_slots, gacfg, dev)
+    ls_fn = ga.ls_draws_fn(gens, gacfg.pop_size, pa, gacfg)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = ga.generation(pa, draws, ls_fn, state, gacfg, L)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for k in ("breed", "sweep_pass", "batch_penalty", "survivors"):
+        check(launches.get(k, 0) > 0,
+              f"scale generation: {k} never launched ({launches})")
+    by_kernel, others = {}, []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        key = kernel_entry(ev.key)
+        key = key if key in KERNELS else "other"
+        by_kernel[key] = by_kernel.get(key, 0.0) + us / 1e3
+        if key == "other":
+            others.append([ev.key[:60], ev.count, us / 1e3])
+    others.sort(key=lambda x: -x[2])
+    for i in range(0, SCALE_POP, SCALE_PLAIN_CHUNK):
+        c = slice(i, i + SCALE_PLAIN_CHUNK)
+        want = fitness.batch_penalty_plain(pa, out.slots[c], out.rooms[c])
+        check(all(torch.equal(w, x[c]) for w, x in
+                  zip(want, (out.penalty, out.hcv, out.scv))),
+              f"scale generation: rows {i}+ report other terms than the "
+              f"plain K2 of their slots and rooms")
+    line = {"scale_generation": SCALE_POP, "islands": L,
+            "pop_size": gacfg.pop_size, "wall_ms": wall_ms,
+            "device_ms": sum(by_kernel.values()),
+            "device_ms_by_kernel": by_kernel, "top_other": others[:6],
+            "launches": launches,
+            "max_memory_allocated": peak,
+            "best_penalty": int(out.penalty.min()), "card": CARD}
+    print(json.dumps(line))
+    return line
+
+
+def scale_path(problem):
+    """The main path through the CLI on the scale .tim (size-tuned
+    defaults, seed 42, -t 30, --trace), its stream and its launches held
+    to the main path's checks; gens/s, the best at the budget, the time
+    to the first feasible row where it gets there, and the launches by
+    kernel."""
+    records, seconds, launches = run_cli("scale", SCALE_MAIN, SCALE_TIM)
+    summary = check_stream(records, problem.device_arrays("cpu"))
+    summary["wall_s"] = round(seconds, 3)
+    check_path_kernels("scale", launches, summary["generations"],
+                       summary["kicks"])
+    line = {"path": "scale", **summary, "card": CARD,
+            "launches": {k: v for k, v in launches.items() if v}}
+    print(json.dumps(line))
+    return line, launches
+
+
+def scale_phase(dev):
+    """The scale configuration: its kernels against their plain versions,
+    K2 at pop 32,768, one repair generation at pop 32,768 and the main
+    path on its .tim; the phase's wall printed with the card."""
+    t0 = time.monotonic()
+    problem = scale_problem()
+    compare_scale_kernels(problem, dev)
+    scale_k2(problem, dev)
+    scale_generation(problem, dev)
+    _, launches = scale_path(problem)
+    print(json.dumps({"scale_phase_s": time.monotonic() - t0,
+                      "card": CARD}))
+    return launches
+
+
 def run_path(name):
     """Run the CLI on the path's instance with its flags, the launch
     counters zeroed just before and read just after; returns (records,
@@ -5762,6 +6243,13 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         for name, text in kernels.BUILD_INFO["ptxas"].items():
             f.write(f"== {name}\n{text}\n")
+    if sys.argv[1:] == ["scale"]:
+        # the scale phase alone (`python3 chip_smoke.py scale`)
+        scale_phase(dev)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     problem = load_tim_file(TIM)
     pa = problem.device_arrays(dev)
@@ -5836,6 +6324,7 @@ def main() -> int:
                 rate * lcfg.post_pop_size * lcfg.post_lahc_k)
         print(json.dumps({"path": name, **summary,
                           "launches": launches[name]}))
+    launches["scale"] = scale_phase(dev)
     print(json.dumps({"path": "trace-modes",
                       "gens_per_s": trace_modes_path(pa_cpu[TIM])}))
     q_rates, launches["quality"] = quality_path(pa_cpu[TIM])

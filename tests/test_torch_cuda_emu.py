@@ -21,9 +21,11 @@ other workers) spinning waiters would starve the threads still to
 arrive.
 
 This file holds the stand-in and `emulated_fixture`, which builds only
-the libraries a test file launches; K5's tests, the longest, are in
-tests/test_torch_cuda_emu_k5*.py, so that under `--dist loadfile` they
-spread over the workers.
+the libraries a test file launches, the shared helpers, and the tests
+of K2, K3 and K4; the other kernels' tests are in files of their own
+(tests/test_torch_cuda_emu_<kernels>.py: k1_k6, k9, k7, k11, ls,
+lanes and K5's k5*), so that under `--dist loadfile` they spread over
+the workers.
 """
 
 import ctypes
@@ -35,19 +37,10 @@ import pytest
 import torch
 
 from tests.test_torch_kernels import (
-    K6_MODES, K11_CASES, _breed_case, _trace, k13_equals_plain,
-    k14_div_equal_plain, k14_ops_equal_plain,
-    k6_parents_equal_plain, k7_gain_equal_plain,
-    moment_rows_equal_plain, _chained_augments, _degenerate_slots,
-    _instances, _island_state, _k11_equal_plain, _lane_case,
-    _lane_problems, k6_lanes_equal_plain, k8_lanes_equal_plain,
-    k13_lanes_equal_plain, k14_div_lanes_equal_plain, lane_counts,
-    lane_masks, _k11_island, _ls_draws, _matcher_equals_plain, _matching_instances,
-    _state, _wide_rooms)
+    WIDE_R, _instances, _ls_draws, _past_one_warp, _state,
+    k4_wide_equal_plain)
 from timetabling_ga_tpu_torch import kernels
-from timetabling_ga_tpu_torch.ops import (
-    delta, fitness, ga, lahc, local_search, moves, nsga, rooms, sweep)
-from timetabling_ga_tpu_torch.parallel import islands
+from timetabling_ga_tpu_torch.ops import delta, fitness, lahc, moves, sweep
 from timetabling_ga_tpu_torch.problem import (
     make_problem_arrays, random_instance)
 
@@ -397,10 +390,12 @@ inline cluster_group this_cluster() { return cluster_group{}; }
 # K5 built with 128-thread CTAs (4 warps), which keeps a cluster's
 # std::threads few; K2 built to stage nothing, which runs its
 # global-memory path (a CSR slice and rows too large for shared memory),
-# and K12 so too (the conflict bitset and the CSR from global memory)
+# and K12 so too (the conflict bitset and the CSR from global memory),
+# and K12 reading its suitable-rooms table from global memory as well
 K5_SMALL = "sweep_pass_small"
 K2_GLOBAL = "batch_penalty_global"
 K12_GLOBAL = "full_eval_ls_global"
+K12_TABLE = "full_eval_ls_table"
 K11_NO_WORDS = "nsga_no_words"
 EMULATED = ("assign_rooms", "batch_penalty", "move1_sweep", "delta_one",
             "sweep_pass", "breed", "survivors", "random_ls",
@@ -438,13 +433,17 @@ def _for_the_cpu(src: str) -> str:
 
 # each library as the card builds its source but for SMALL's thread
 # counts (name: (source, flags)), and the variants: K5 with 128-thread
-# CTAs, K2 and K12 staging nothing, K11 without its dominator words
+# CTAs, K2 and K12 staging nothing (K12 also without its table), K11
+# without its dominator words
 BUILDS = {n: (n, SMALL.get(n, [])) for n in EMULATED}
 BUILDS[K5_SMALL] = ("sweep_pass", ["-DK5_THREADS=128"])
 BUILDS[K2_GLOBAL] = ("batch_penalty",
                      SMALL["batch_penalty"] + ["-DK2_STAGE_LIMIT=0"])
 BUILDS[K12_GLOBAL] = ("full_eval_ls",
                       SMALL["full_eval_ls"] + ["-DK12_STAGE_LIMIT=0"])
+BUILDS[K12_TABLE] = ("full_eval_ls",
+                     SMALL["full_eval_ls"] + ["-DK12_STAGE_LIMIT=0",
+                                              "-DK12_TABLE_LIMIT=0"])
 BUILDS[K11_NO_WORDS] = ("nsga", SMALL["nsga"] + ["-DK11_WORDS_LIMIT=0"])
 
 
@@ -509,9 +508,9 @@ def emulated_fixture(*names):
     return emulated
 
 
-# K5 has files of its own (tests/test_torch_cuda_emu_k5*.py)
-emulated = emulated_fixture(*(n for n in BUILDS
-                              if BUILDS[n][0] != "sweep_pass"))
+# the tests of K2, K3 and K4 (and K8's epilogue against K2)
+emulated = emulated_fixture("move1_sweep", "delta_one", "batch_penalty",
+                            K2_GLOBAL, "random_ls")
 
 
 def _k3(pa, st, piv):
@@ -549,72 +548,10 @@ def _k4(pa, st, evs, ns, act):
     return d[0], d[1], nr
 
 
-@pytest.mark.parametrize("inst", range(4))
-def test_k3_k4_sources_equal_plain(emulated, inst):
-    pa = _instances("cpu")[inst]
-    st = _state(pa, 4, 3)
-    piv = torch.randint(0, pa.n_events, (4, 2), dtype=torch.int32,
-                        generator=torch.Generator().manual_seed(1))
-    got = _k3(pa, st, piv)
-    want = sweep.move1_sweep_plain(pa, st.slots, st.rooms, st.att, st.occ,
-                                   piv)
-    assert all(torch.equal(w, g) for w, g in zip(want, got))
-    P, C = 3, 5
-    d = moves.make_move_draws([torch.Generator().manual_seed(5)], P * C,
-                              pa.n_events, pa.n_slots, 1.0, 1.0, 1.0, "cpu")
-    st3 = delta.LSState(*(x[:P] for x in st))
-    evs, ns, act = moves.sample_move(pa, d,
-                                     st3.slots.repeat_interleave(C, 0))
-    evs, ns, act = (x.reshape(P, C, 3) for x in (evs, ns, act))
-    evs[0, 0, 1] = evs[0, 0, 0]          # a duplicate-event candidate
-    got = _k4(pa, st3, evs, ns, act)
-    want = delta.delta_one_plain(pa, st3.slots, st3.rooms, st3.att,
-                                 st3.occ, evs, ns, act)
-    assert all(torch.equal(w, g) for w, g in zip(want, got))
-
-
 def _tiny():
     """A 24-event instance, small enough for a full-permutation pass."""
     return random_instance(7, n_events=24, n_rooms=4, n_features=3,
                            n_students=30, attend_prob=0.15).device_arrays()
-
-
-@pytest.mark.parametrize("inst", range(4))
-def test_k1_k6_sources_equal_plain(emulated, inst):
-    """K1 and K6 (both entries) on the four instances: random, padded
-    (dead events and rooms) and anchored; crossover and mutation each on
-    for some children and off for others, with tournament ties."""
-    pa = _instances("cpu")[inst]
-    st = _state(pa, 6, 20 + inst)
-    assert torch.equal(rooms.assign_rooms_kernel(pa, st.slots),
-                       rooms.assign_rooms_plain(pa, st.slots))
-    pop, cfg, par, draws = _breed_case(pa, "cpu", 2, 3, 30 + inst)
-    got = ga.make_children_kernel(pa, draws, par, groups=2)
-    want = ga.make_children_plain(pa, draws, par, cfg, groups=2)
-    assert all(torch.equal(w, g) for w, g in zip(want, got))
-    d = moves.make_move_draws([torch.Generator().manual_seed(inst)] * 3, 6,
-                              pa.n_events, pa.n_slots, 1.0, 1.0, 1.0,
-                              "cpu")
-    chain = moves.MoveDraws(*(x.reshape((3, 6) + x.shape[1:]) for x in d))
-    got = moves.relocation_chain_kernel(pa, chain, st.slots, st.rooms, 2)
-    want = moves.relocation_chain_plain(pa, chain, st.slots, st.rooms, 2)
-    assert all(torch.equal(w, g) for w, g in zip(want, got))
-
-
-@pytest.mark.parametrize("inst", range(3))
-def test_k1_k6_sources_match_degenerate_buckets(emulated, inst):
-    """K1 and K6's crossover matching, slot by slot, on degenerate
-    buckets: every event in one slot, two slots and the rest empty, half
-    the events in one slot; R = 1; padded events and rooms."""
-    pa = _matching_instances("cpu")[inst]
-    slots = _degenerate_slots(pa, 3, 220 + inst)
-    assert torch.equal(rooms.assign_rooms_kernel(pa, slots),
-                       rooms.assign_rooms_plain(pa, slots))
-    _, cfg, par, draws = _breed_case(pa, "cpu", 1, 3, 230 + inst, slots)
-    draws = draws._replace(do_x=torch.ones_like(draws.do_x))
-    got = ga.make_children_kernel(pa, draws, par, groups=1)
-    want = ga.make_children_plain(pa, draws, par, cfg, groups=1)
-    assert all(torch.equal(w, g) for w, g in zip(want, got))
 
 
 def _event_draws(P, n_rounds, K, E, offset, seed):
@@ -641,54 +578,6 @@ def _tied_top3(draws):
     return draws._replace(u=u)
 
 
-@pytest.mark.parametrize("P,n_rounds,K", [(3, 2, 4), (1, 1, 1), (2, 3, 5)])
-def test_k8_events_source_equals_plain(emulated, P, n_rounds, K):
-    """K8's pre-pass (one streaming pass, a top 3 a lane, a warp merge)
-    on every draw row, odd row counts included: with ties among the
-    uniforms (a few distinct values; rows whose top three tie), at E = 80
-    and E = 83 (not a multiple of 4) and on rows that start off a 16-byte
-    boundary, so the scalar head and tail and the float4 body all run."""
-    pa = _instances("cpu")[1]
-    draws = _ls_draws(pa, "cpu", P, n_rounds, K, 60 + K)
-    cases = [draws, draws._replace(u=(draws.u * 4).floor() / 4),
-             _tied_top3(draws)]
-    for E, offset in ((83, 0), (80, 1), (83, 3), (5, 2)):
-        d = _event_draws(P, n_rounds, K, E, offset, 70 + E + offset)
-        cases += [d, _tied_top3(d)]
-    for d in cases:
-        kernels.reset_launches()
-        assert torch.equal(delta.random_ls_events_kernel(d),
-                           delta.random_ls_events_plain(d))
-        assert kernels.LAUNCHES["random_ls_events"] == 1
-
-
-@pytest.mark.parametrize("L,pop", [(1, 3), (2, 2), (4, 3), (2, 16), (1, 2),
-                                   (1, 16), (2, 3), (4, 2), (4, 16),
-                                   (16, 2), (16, 3), (16, 16)])
-def test_k7_sources_equal_plain(emulated, L, pop):
-    """K7's survivors (parents + children, and the sort alone) and
-    migrate at L = 1, 2, 4, 16 islands of 2, 3 and 16 rows: a grid of
-    ceil(keep / 2) blocks an island, each copying two rows, with rows of
-    E = 8 (16-byte copies), E = 6 (8-byte ones) and E = 7 int32 (4-byte
-    ones)."""
-    for E in (8, 6, 7):
-        par = _island_state(L, pop, 1, E=E)
-        ch = _island_state(L, pop, 2, E=E)
-        kernels.reset_launches()
-        got = ga.survivors_kernel(par, ch, groups=L, keep=pop)
-        want = ga.survivors_plain(par, ch, groups=L, keep=pop)
-        assert all(torch.equal(w, g) for w, g in zip(want, got))
-        got = ga.survivors_kernel(par, groups=L)
-        want = ga.survivors_plain(par, groups=L)
-        assert all(torch.equal(w, g) for w, g in zip(want, got))
-        got = islands.migrate(want, L) if pop < 3 else \
-            islands.migrate_kernel(want, L)
-        assert all(torch.equal(w, g)
-                   for w, g in zip(islands.migrate_plain(want, L), got))
-        assert kernels.LAUNCHES["survivors"] == 2
-        assert kernels.LAUNCHES["migrate"] == (1 if pop >= 3 else 0)
-
-
 def _k2_rows(pa, P, seed):
     """P random rows and rooms, with a few clashes and unsuitable rooms
     (rooms drawn at random, not matched)."""
@@ -698,6 +587,69 @@ def _k2_rows(pa, P, seed):
     rms = torch.randint(0, pa.n_rooms, (P, pa.n_events), generator=g,
                         dtype=torch.int32)
     return slots, rms
+
+
+# a history longer than shared memory holds (2 x 30,000 ints): K10 keeps
+# the ring in global memory
+K10_GLOBAL_LH = 30_000
+
+
+def lahc_start(pa, W, Lh, seed):
+    """Walkers from random rows, their history rings spread around each
+    walker's cost (so the entry a step reads decides some acceptances)
+    and their steps apart (so their ring positions differ)."""
+    st = _state(pa, W, seed)
+    ls0 = lahc.init_lahc(pa, st.slots, st.rooms, Lh)
+    g = torch.Generator().manual_seed(seed)
+    jitter = torch.randint(-2, 3, (2, W, Lh), generator=g,
+                           dtype=torch.int32)
+    return ls0._replace(hist_pen=ls0.hist_pen + jitter[0],
+                        hist_scv=ls0.hist_scv + jitter[1],
+                        step=torch.arange(W, dtype=torch.int32) * 7)
+
+
+def k10_equals_plain(pa, draws, ls0):
+    """The pre-pass and K10 on a copy of `ls0`, one launch each, against
+    lahc_steps_plain: every field of the state, exactly."""
+    kernels.reset_launches()
+    ls1 = lahc.LahcState(lahc.LSState(*(x.clone() for x in ls0.ls)),
+                         *(x.clone() for x in ls0[1:]))
+    got = lahc.lahc_steps_kernel(pa, draws, ls1)
+    want = lahc.lahc_steps_plain(pa, draws, ls0)
+    assert kernels.LAUNCHES["random_ls_events"] == 1
+    assert kernels.LAUNCHES["lahc"] == 1
+    assert all(torch.equal(w, x) for w, x in zip(want.ls, got.ls))
+    assert all(torch.equal(w, x) for w, x in zip(want[1:], got[1:]))
+    return got
+
+
+# (instance, K, cluster): the ITC-like, medium, padded and anchored
+# instances; K <= CS (a candidate a CTA) and K > CS (a CTA takes several)
+K12_CASES = [(1, 2, None), (2, 4, 4), (3, 5, 2), (0, 3, 1), (2, 3, 2)]
+
+
+@pytest.mark.parametrize("inst", range(4))
+def test_k3_k4_sources_equal_plain(emulated, inst):
+    pa = _instances("cpu")[inst]
+    st = _state(pa, 4, 3)
+    piv = torch.randint(0, pa.n_events, (4, 2), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(1))
+    got = _k3(pa, st, piv)
+    want = sweep.move1_sweep_plain(pa, st.slots, st.rooms, st.att, st.occ,
+                                   piv)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    P, C = 3, 5
+    d = moves.make_move_draws([torch.Generator().manual_seed(5)], P * C,
+                              pa.n_events, pa.n_slots, 1.0, 1.0, 1.0, "cpu")
+    st3 = delta.LSState(*(x[:P] for x in st))
+    evs, ns, act = moves.sample_move(pa, d,
+                                     st3.slots.repeat_interleave(C, 0))
+    evs, ns, act = (x.reshape(P, C, 3) for x in (evs, ns, act))
+    evs[0, 0, 1] = evs[0, 0, 0]          # a duplicate-event candidate
+    got = _k4(pa, st3, evs, ns, act)
+    want = delta.delta_one_plain(pa, st3.slots, st3.rooms, st3.att,
+                                 st3.occ, evs, ns, act)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
 
 
 @pytest.mark.parametrize("cluster", [1, 2, 4])
@@ -753,63 +705,6 @@ def test_k2_refused_cluster_is_not_shrunk(emulated, monkeypatch):
     assert rcs == [2]                      # cudaErrorLaunchOutOfResources
 
 
-@pytest.mark.parametrize("mode", ["greedy", "parallel", "crowded"])
-@pytest.mark.parametrize("inst", [1, 2, 3])
-def test_k6_fused_scores_equal_plain(emulated, inst, mode):
-    """The (penalty, hcv, scv) K6 writes for each child from its epilogue
-    equal batch_penalty_plain of the child it wrote, in the greedy and
-    parallel matching modes and under the crowded tournament."""
-    pa = _instances("cpu")[inst]
-    _, cfg, par, draws = _breed_case(pa, "cpu", 2, 3, 400 + inst)
-    mo = None
-    if mode == "crowded":
-        mo = nsga.rank_crowd_plain(par.hcv, par.scv, 2)
-    got = ga.make_children_kernel(pa, draws, par, 2, mo,
-                                  "parallel" if mode == "parallel"
-                                  else "scan")
-    want = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
-    assert all(torch.equal(w, g) for w, g in zip(want, got[2:]))
-
-
-@pytest.mark.parametrize("inst", range(4))
-def test_k8_source_equals_plain(emulated, inst):
-    pa = _instances("cpu")[inst]
-    st = delta.init_rows(pa, *_state(pa, 3, 40 + inst)[:2])
-    draws = _ls_draws(pa, "cpu", 3, 3, 4, 50 + inst)
-    kernels.reset_launches()
-    got = delta.random_local_search_kernel(pa, draws, st)
-    want = delta.random_local_search_plain(pa, draws, st)
-    assert all(torch.equal(w, g) for w, g in zip(want, got))
-    assert kernels.LAUNCHES["random_ls_events"] == 1
-    assert kernels.LAUNCHES["random_ls"] == 1
-    assert not torch.equal(got.slots, st.slots)
-    # the epilogue's terms are a full evaluation of the rows it wrote
-    full = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
-    assert all(torch.equal(w, g) for w, g in zip(full, got[2:]))
-
-
-@pytest.mark.parametrize("n_lanes", [2, 3])
-def test_k6_k8_lane_tables_sources_equal_plain(emulated, n_lanes):
-    """K6 (greedy and parallel matchers, both tournament modes) and K8's
-    chain with a lane table against their lane-looped plain versions,
-    each lane a different instance of one bucket (a full lane with the
-    group's largest event, a lane padded in events and rooms with the
-    shortest CSR, an anchored padded lane), built with 64-thread K6
-    blocks and 2-warp K8 blocks whose rounds cross event chunks."""
-    lp = _lane_problems(n_lanes)
-    cfg, par, draws, rows, ls = _lane_case(lp, "cpu", 3, 70 + n_lanes)
-    kernels.reset_launches()
-    k6_lanes_equal_plain(lp, cfg, par, draws)
-    k6_lanes_equal_plain(lp, cfg, par, draws, rooms_mode="parallel")
-    k6_lanes_equal_plain(lp, cfg, par, draws,
-                         nsga.rank_crowd_plain(par.hcv, par.scv, n_lanes))
-    got = k8_lanes_equal_plain(lp, ls, rows)
-    assert not torch.equal(got.slots, rows.slots)
-    assert kernels.LAUNCHES["breed_lanes"] == 3
-    assert kernels.LAUNCHES["random_ls_lanes"] == 1
-    assert kernels.LAUNCHES["breed"] == kernels.LAUNCHES["random_ls"] == 0
-
-
 def test_evaluations_count_live_events_only(emulated):
     """compute_hcv counts conflicts between live events only. K8's slot
     bitsets hold padded events too, so its epilogue's full evaluation
@@ -842,281 +737,8 @@ def test_evaluations_count_live_events_only(emulated):
             fitness.batch_penalty_kernel(pa, slots, rms, cs)))
 
 
-@pytest.mark.parametrize("inst", range(4))
-def test_k9_and_k6_new_modes_equal_plain(emulated, inst):
-    """K9 (augment_rooms from random rooms at 1 and 4 rounds, and
-    parallel_assign_rooms) and K6's parallel matcher and crowded
-    tournament on the four instances, slots crowded into few slots so
-    the augments and the park rounds run."""
-    pa = _instances("cpu")[inst]
-    st = _state(pa, 5, 100 + inst)
-    slots = st.slots.clone()
-    slots[:, ::2] %= 3
-    g = torch.Generator().manual_seed(inst)
-    rms = torch.randint(0, pa.n_rooms, slots.shape, generator=g,
-                        dtype=torch.int32)
-    kernels.reset_launches()
-    for n in (1, 4):
-        assert torch.equal(rooms.augment_rooms_kernel(pa, slots, rms, n),
-                           rooms.augment_rooms_plain(pa, slots, rms, n))
-    assert torch.equal(rooms.augment_rooms_kernel(pa, slots, None),
-                       rooms.parallel_assign_rooms(pa, slots))
-    assert kernels.LAUNCHES["parallel_rooms"] == 3
-    _, cfg, par, draws = _breed_case(pa, "cpu", 2, 3, 110 + inst)
-    cfg = ga.GAConfig(pop_size=3, p3=0.4, rooms_mode="parallel",
-                      multi_objective=True)
-    mo = nsga.rank_crowd_plain(par.hcv, par.scv, 2)
-    got = ga.make_children_kernel(pa, draws, par, 2, mo, "parallel")
-    want = ga.make_children_plain(pa, draws, par, cfg, 2, mo)
-    assert all(torch.equal(w, x) for w, x in zip(want, got))
-
-
-# a history longer than shared memory holds (2 x 30,000 ints): K10 keeps
-# the ring in global memory
-K10_GLOBAL_LH = 30_000
-
-
-def lahc_start(pa, W, Lh, seed):
-    """Walkers from random rows, their history rings spread around each
-    walker's cost (so the entry a step reads decides some acceptances)
-    and their steps apart (so their ring positions differ)."""
-    st = _state(pa, W, seed)
-    ls0 = lahc.init_lahc(pa, st.slots, st.rooms, Lh)
-    g = torch.Generator().manual_seed(seed)
-    jitter = torch.randint(-2, 3, (2, W, Lh), generator=g,
-                           dtype=torch.int32)
-    return ls0._replace(hist_pen=ls0.hist_pen + jitter[0],
-                        hist_scv=ls0.hist_scv + jitter[1],
-                        step=torch.arange(W, dtype=torch.int32) * 7)
-
-
-def k10_equals_plain(pa, draws, ls0):
-    """The pre-pass and K10 on a copy of `ls0`, one launch each, against
-    lahc_steps_plain: every field of the state, exactly."""
-    kernels.reset_launches()
-    ls1 = lahc.LahcState(lahc.LSState(*(x.clone() for x in ls0.ls)),
-                         *(x.clone() for x in ls0[1:]))
-    got = lahc.lahc_steps_kernel(pa, draws, ls1)
-    want = lahc.lahc_steps_plain(pa, draws, ls0)
-    assert kernels.LAUNCHES["random_ls_events"] == 1
-    assert kernels.LAUNCHES["lahc"] == 1
-    assert all(torch.equal(w, x) for w, x in zip(want.ls, got.ls))
-    assert all(torch.equal(w, x) for w, x in zip(want[1:], got[1:]))
-    return got
-
-
-@pytest.mark.parametrize("inst,k_cands", [(0, 4), (1, 1), (2, 3), (3, 4),
-                                          (1, 5), (3, 5)])
-def test_k10_source_equals_plain(emulated, inst, k_cands):
-    """K8's pre-pass and K10 (two-warp blocks, so that K > 2 gives a
-    warp several candidates, and chunks of one to three steps, so that 7
-    steps cross chunks) equal lahc_steps_plain in every field: with
-    histories of 3 (a ring that wraps), 1 (the entry read is the one the
-    step before wrote) and 30,000 (the ring in global memory), on tied
-    uniforms, on the ITC-like, medium, padded and anchored instances."""
-    pa = _instances("cpu")[inst]
-    for Lh, tied in ((3, False), (1, False), (K10_GLOBAL_LH, False),
-                     (3, True)):
-        ls0 = lahc_start(pa, 3, Lh, 120 + inst)
-        g = torch.Generator().manual_seed(130 + inst)
-        draws = lahc.make_lahc_draws([g], 3, 7, k_cands, pa.n_events,
-                                     pa.n_slots, 1.0, 1.0, 0.5, "cpu")
-        if tied:
-            draws = _tied_top3(draws)
-        got = k10_equals_plain(pa, draws, ls0)
-        assert not torch.equal(got.ls.slots, ls0.ls.slots)
-    # the global layout: the ring does not fit beside the rest
-    assert lahc.lahc_smem_bytes(pa, k_cands, K10_GLOBAL_LH) + \
-        8 * K10_GLOBAL_LH > kernels.SMEM_LIMIT
-
-
-@pytest.mark.parametrize("L,pop,spread", [(1, 8, 3), (2, 5, 2), (3, 11, 40)])
-def test_k11_sources_equal_plain(emulated, L, pop, spread):
-    g = torch.Generator().manual_seed(pop)
-    par, ch = (_island_state(L, pop, s) for s in (1, 2))
-    par, ch = (x._replace(
-        hcv=torch.randint(0, spread, (L * pop,), generator=g,
-                          dtype=torch.int32),
-        scv=torch.randint(0, 2 * spread, (L * pop,), generator=g,
-                          dtype=torch.int32)) for x in (par, ch))
-    got = nsga.rank_crowd_kernel(par.hcv, par.scv, L)
-    want = nsga.rank_crowd_plain(par.hcv, par.scv, L)
-    assert torch.equal(got[0], want[0])
-    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
-    for keep in (pop, 2 * pop):
-        got = nsga.survivors_kernel(par, ch, L, keep)
-        want = nsga.survivors_plain(par, ch, L, keep)
-        assert all(torch.equal(w, x) for w, x in zip(want, got))
-
-
-@pytest.mark.parametrize("case", K11_CASES)
-def test_k11_sources_equal_plain_on_edge_cases(emulated, case):
-    """K11 with two-warp blocks: islands of 33-140 rows (two to five
-    dominator words, rows strided over the block's threads), a strict
-    chain (every row its own front), one front with every range 0,
-    keep = 1 and keep = n, E = 7 and rows off 16 bytes (4-byte copies)
-    and E = 8 aligned (16-byte ones)."""
-    kernels.reset_launches()
-    _k11_equal_plain(case, "cpu")
-    assert kernels.LAUNCHES["nsga_rank"] == 1
-    assert kernels.LAUNCHES["nsga_survivors"] == 3
-
-
-@pytest.mark.parametrize("case", [K11_CASES[1], K11_CASES[3],
-                                  K11_CASES[5]])
-def test_k11_peel_without_dominator_words_equals_plain(emulated,
-                                                       monkeypatch, case):
-    """K11 built to keep no dominator words (as an island too large for
-    them in shared memory runs) counts each row's words anew each round
-    and equals the plain versions."""
-    for n in kernels.SOURCES["nsga"]:
-        monkeypatch.setitem(kernels._LIBS, n,
-                            kernels._LIBS[K11_NO_WORDS + n])
-    _k11_equal_plain(case, "cpu", seed=10)
-
-
-def test_k11_refuses_an_island_above_the_shared_memory_limit(emulated,
-                                                             monkeypatch):
-    """An island whose state does not fit in shared memory even without
-    the dominator words (n = 10,000: 6 n ints) is refused before any
-    launch (the wrapper's kernels.launch raises on it)."""
-    par = _k11_island(1, 5000, "random", 1, E=1)
-    rcs = []
-    monkeypatch.setattr(kernels, "launch", lambda name, *args, work=None: rcs.append(
-        kernels._LIBS[name][1](*args, None)))
-    nsga.survivors_kernel(par, par, 1, 5000)
-    assert rcs == [2]                      # cudaErrorLaunchOutOfResources
-
-
-@pytest.mark.parametrize("inst", range(4))
-def test_k9_k6_parallel_matcher_on_edge_cases(emulated, inst):
-    """The parallel matcher (K9 and K6, two-warp blocks, a warp a slot)
-    on a slot holding every event (more than 32: several chunks and the
-    claimed mask between them), R = 1, padded events and rooms and R =
-    32, at 0, 1 and 4 rounds, K6 with crossover on, off and mixed."""
-    pa = (_matching_instances("cpu") + [_wide_rooms("cpu")])[inst]
-    kernels.reset_launches()
-    _matcher_equals_plain(pa, "cpu", 270 + inst)
-    assert kernels.LAUNCHES["parallel_rooms"] == 4
-    assert kernels.LAUNCHES["breed"] == 3
-
-
-def test_k9_augments_after_a_round_without_grabs(emulated):
-    """A round of length-3 augments that follows a round in which no
-    event grabbed a free room still runs (`_chained_augments`: the second
-    round's augment matches event 3), from the given rooms and from
-    best-fit ones, at 2 and 4 rounds."""
-    pa, slots, rms, want = _chained_augments("cpu")
-    for n in (2, 4):
-        assert torch.equal(rooms.augment_rooms_plain(pa, slots, rms, n), want)
-        assert torch.equal(rooms.augment_rooms_kernel(pa, slots, rms, n),
-                           want)
-    assert torch.equal(rooms.augment_rooms_kernel(pa, slots, None), want)
-
-
-# (instance, K, cluster): the ITC-like, medium, padded and anchored
-# instances; K <= CS (a candidate a CTA) and K > CS (a CTA takes several)
-K12_CASES = [(1, 2, None), (2, 4, 4), (3, 5, 2), (0, 3, 1), (2, 3, 2)]
-
-
-@pytest.mark.parametrize("inst,K,cluster", K12_CASES)
-def test_k12_source_equals_plain(emulated, inst, K, cluster):
-    """K12 (fed by K8's pre-pass) as clusters of 1, 2 and 4 two-warp
-    CTAs, each CTA its candidates' relocations and full evaluations and
-    the choice exchanged through the others' shared memory, equals
-    batch_local_search_plain in rows and penalty terms; the terms are a
-    full evaluation of the rows it wrote."""
-    pa = _instances("cpu")[inst]
-    rows = delta.init_rows(pa, *_state(pa, 3, 500 + inst)[:2])
-    draws = _ls_draws(pa, "cpu", 3, 4, K, 510 + inst)
-    kernels.reset_launches()
-    got = local_search.batch_local_search_kernel(pa, draws, rows, cluster)
-    want = local_search.batch_local_search_plain(pa, draws, rows)
-    assert all(torch.equal(w, g) for w, g in zip(want, got))
-    assert kernels.LAUNCHES["random_ls_events"] == 1
-    assert kernels.LAUNCHES["full_eval_ls"] == 1
-    assert not torch.equal(got.slots, rows.slots)
-    full = fitness.batch_penalty_plain(pa, got.slots, got.rooms)
-    assert all(torch.equal(w, g) for w, g in zip(full, got[2:]))
-
-
-def test_k12_global_memory_path_equals_plain(emulated, monkeypatch):
-    """K12 built to stage nothing reads the conflict bitset and the CSR
-    from global memory, as it does where they do not fit in shared
-    memory, and equals batch_local_search_plain."""
-    monkeypatch.setitem(kernels._LIBS, "full_eval_ls",
-                        kernels._LIBS[K12_GLOBAL])
-    pa = _instances("cpu")[3]
-    rows = delta.init_rows(pa, *_state(pa, 2, 520)[:2])
-    draws = _ls_draws(pa, "cpu", 2, 3, 3, 521)
-    got = local_search.batch_local_search_kernel(pa, draws, rows, 3)
-    want = local_search.batch_local_search_plain(pa, draws, rows)
-    assert all(torch.equal(w, g) for w, g in zip(want, got))
-
-
-@pytest.mark.parametrize("L,T", [(1, 1), (2, 8), (1, 33), (3, 64), (2, 200)])
-@pytest.mark.parametrize("cap", [2, 64])
-def test_k13_source_equals_plain(emulated, monkeypatch, L, T, cap):
-    """K13's compress_trace in both modes (ties, long runs, sentinels,
-    T not a multiple of 32, K below and above the counts) and its
-    moment_rows entry."""
-    monkeypatch.setattr(islands, "TRACE_DELTAS_CAP", cap)
-    tr = _trace(L, T, 7 * T + cap, "cpu")
-    for mode in ("deltas", "stats"):
-        k13_equals_plain(tr, mode)
-    moment_rows_equal_plain(tr[..., 0].contiguous(), tr[..., 1].contiguous())
-
-
-@pytest.mark.parametrize("L,pop", [(1, 1), (1, 2), (2, 3), (4, 10),
-                                   (2, 33), (3, 16)])
-def test_k14_sources_equal_plain(emulated, L, pop):
-    """K14's quality_ops (with and without the sweep's counts) and
-    div_stats (pop 1 without Hamming pairs, 33 rows past the 32 pairs;
-    on a padded instance, whose dead events never count) against their
-    plain versions, with 64-thread blocks, so rows and pairs wrap."""
-    pa = _instances("cpu")[2]
-    kernels.reset_launches()
-    k14_ops_equal_plain(L, pop, L + pop, "cpu", with_sweep=pop % 2 == 1)
-    k14_div_equal_plain(pa, L, pop, L * pop)
-    assert kernels.LAUNCHES["quality_ops"] == 1
-    assert kernels.LAUNCHES["div_stats"] == 1
-
-
-@pytest.mark.parametrize("L,T", [(1, 1), (3, 8), (4, 33), (3, 64),
-                                 (2, 200)])
-def test_k13_lanes_source_equals_plain(emulated, monkeypatch, L, T):
-    """K13's lane form in both modes: a lane with count 0 (+inf and -inf
-    exactly), a lane with count T, the rest between; cap 2 (overflow),
-    64 and T."""
-    tr = _trace(L, T, 11 * T + L, "cpu")
-    nv = lane_counts(L, T, 3 * T + L)
-    for mode in ("deltas", "stats"):
-        for cap in (2, 64):
-            monkeypatch.setattr(islands, "TRACE_DELTAS_CAP", cap)
-            k13_lanes_equal_plain(tr, mode, nv)
-        k13_lanes_equal_plain(tr, mode, nv, cap=T)
-
-
-@pytest.mark.parametrize("L,pop", [(1, 2), (2, 3), (3, 10), (4, 33)])
-def test_k14_div_lanes_source_equals_plain(emulated, L, pop):
-    """K14's div_stats lane form, a mask row a lane: a lane with every
-    event live, a lane padded to one live event, the rest between; pop
-    33 past the 32 pairs, with 64-thread blocks."""
-    k14_div_lanes_equal_plain(lane_masks(L, 40, L + pop), L, pop,
-                              L * pop + 1)
-
-
-@pytest.mark.parametrize("mode", K6_MODES)
-def test_k6_base_parents_source_equals_plain(emulated, mode):
-    """K6's base parents in the greedy, crowded and parallel modes."""
-    k6_parents_equal_plain(_instances("cpu")[2], "cpu", 500, mode,
-                           shapes=((2, 3),))
-
-
-@pytest.mark.parametrize("L,pop", [(1, 3), (2, 2), (4, 3), (2, 16),
-                                   (16, 3)])
-def test_k7_migrate_gain_source_equals_plain(emulated, L, pop):
-    """K7's migrate with its gain, rows of E = 8 and E = 7 int32."""
-    for E in (8, 7):
-        gain = k7_gain_equal_plain(L, pop, E, "cpu")
-        assert (int(gain.sum()) > 0) == (L > 1 and pop >= 3)
+@pytest.mark.parametrize("R", WIDE_R)
+def test_k4_source_past_one_warp_equals_plain(emulated, R):
+    """K4's own launch at 33 and 80 rooms: the body's room choice over
+    rooms l, l + 32, ... of each lane, then the warp's."""
+    k4_wide_equal_plain(_past_one_warp(R, "cpu"), "cpu", 710 + R, _k4)

@@ -11,9 +11,10 @@ import torch
 
 from tests.test_torch_cuda_emu import _tiny, emulated_fixture
 from tests.test_torch_kernels import (
-    K5_CASES, _half_feasible, _instances, _k5_equals_plain, _state)
+    K5_CASES, _half_feasible, _instances, _k5_equals_plain, _past_one_warp,
+    _state)
 from timetabling_ga_tpu_torch import kernels
-from timetabling_ga_tpu_torch.ops import sweep
+from timetabling_ga_tpu_torch.ops import delta, sweep
 
 torch.set_num_threads(1)
 
@@ -40,12 +41,20 @@ def k5_passes(*idx):
 
 
 def check_k5_pass(case, inst):
-    """One-CTA K5 on `inst` from a random and a half-feasible start
-    equals the plain pass, in one launch each."""
-    pa = _tiny() if inst == "tiny" else _instances("cpu")[inst]
-    inst = 4 if inst == "tiny" else inst
+    """One-CTA K5 on `inst` (an index of _instances, "tiny", or "wide":
+    300 rooms, every event starting in a room past the 256 a candidate's
+    low word holds) from a random and a half-feasible start equals the
+    plain pass, in one launch each."""
+    pa = {"tiny": _tiny, "wide": lambda: _past_one_warp(300, "cpu")}.get(
+        inst, lambda: _instances("cpu")[inst])()
+    inst = {"tiny": 4, "wide": 5}.get(inst, inst)
     P = 2
     st = _state(pa, P, 8 + inst)
+    if pa.n_rooms > 256:
+        high = torch.randint(256, pa.n_rooms, st.rooms.shape,
+                             generator=torch.Generator().manual_seed(7),
+                             dtype=torch.int32)
+        st = delta.init_state(pa, st.slots, high)
     sb, be, side, hot, p3 = case
     sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
     draws = sweep.make_sweep_draws([torch.Generator().manual_seed(9)], P,

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from tests.test_torch_moves import (  # noqa: F401  (fixtures)
-    _population, arrays, jax_move_draws, padded_problem, t32)
+    _population, arrays, jax_move_draws, padded_problem, t32, wide_problem)
 from timetabling_ga_tpu.ops import delta as jdelta
 from timetabling_ga_tpu.ops import moves as jmoves
 from timetabling_ga_tpu.ops.rooms import capacity_rank
@@ -35,10 +35,13 @@ def _candidates(problem, slots, seed, p3=1.0):
             act.reshape(P, C, 3))
 
 
-@pytest.mark.parametrize("which", ["medium", "padded"])
+# past one warp: 33 and 80 rooms (the padded 64-room bucket and 64 rooms
+# are held by the room-matching and generation tests)
+@pytest.mark.parametrize("which", ["medium", "padded", "r33", "r80"])
 def test_delta_one_matches_jax_and_full_reevaluation(which, medium_problem,
                                                      padded_problem):
-    problem = medium_problem if which == "medium" else padded_problem
+    problem = {"medium": medium_problem,
+               "padded": padded_problem}.get(which) or wide_problem(which)
     jpa, tpa = arrays(problem)
     slots, rooms = _population(problem, P, 4)
     jst = jdelta.init_state(jpa, jnp.asarray(slots), jnp.asarray(rooms))

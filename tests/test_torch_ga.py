@@ -58,15 +58,15 @@ def test_init_population_matches_jax(small_problem):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
 
 
-@pytest.mark.parametrize("which", ["small", "padded"])
-def test_generation_matches_jax_bit_for_bit(which, small_problem,
-                                            padded_problem):
-    problem = small_problem if which == "small" else padded_problem
+def check_generation(problem, seed=7, key_seed=21, **kw):
+    """One generation of the port (`kw`: GAConfig fields over _cfgs's)
+    from a population of `seed` against JAX's under key `key_seed`, bit
+    for bit, on mirrored draws."""
     jpa, tpa = arrays(problem)
-    jcfg, tcfg = _cfgs()
-    slots, rooms = _population(problem, POP, 7)
+    jcfg, tcfg = _cfgs(**kw)
+    slots, rooms = _population(problem, POP, seed)
     jstate = jga.evaluate(jpa, jnp.asarray(slots), jnp.asarray(rooms))
-    key = jax.random.key(21)
+    key = jax.random.key(key_seed)
     want = jax.jit(jga.generation, static_argnums=(3,))(jpa, key, jstate,
                                                         jcfg)
     draws = jax_breed_draws(key, POP, problem.n_events, problem.n_slots,
@@ -77,6 +77,15 @@ def test_generation_matches_jax_bit_for_bit(which, small_problem,
                          tcfg)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+# the cases past one warp of rooms (WIDE_ROOMS) are in
+# test_torch_ga_wide.py, so that under `--dist loadfile` another worker
+# takes them
+@pytest.mark.parametrize("which", ["small", "padded"])
+def test_generation_matches_jax_bit_for_bit(which, small_problem,
+                                            padded_problem):
+    check_generation(small_problem if which == "small" else padded_problem)
 
 
 @pytest.mark.parametrize("which", ["small", "padded", "anchored"])
@@ -271,30 +280,23 @@ def test_run_epochs_traces_each_generation(small_problem):
     assert (np.diff(rep, axis=1) <= 0).all()
 
 
+def check_generation_mode(mode, problem):
+    """One generation under multi_objective ("nsga2") or
+    rooms_mode="parallel" against JAX's (check_generation)."""
+    check_generation(problem, 9, 25, ls_sweeps=1,
+                     multi_objective=mode == "nsga2",
+                     rooms_mode="parallel" if mode == "parallel" else "scan")
+
+
 @pytest.mark.parametrize("mode", ["nsga2", "parallel"])
 def test_generation_nsga2_and_parallel_rooms_match_jax(mode, small_problem,
                                                        padded_problem):
     """One generation under multi_objective (crowded tournaments on the
     parents' ranks and crowding, NSGA-II replacement) and under
-    rooms_mode="parallel" (the crossover rematch), against JAX's."""
-    problem = padded_problem if mode == "parallel" else small_problem
-    jpa, tpa = arrays(problem)
-    kw = dict(multi_objective=mode == "nsga2",
-              rooms_mode="parallel" if mode == "parallel" else "scan")
-    jcfg, tcfg = _cfgs(ls_sweeps=1, **kw)
-    slots, rooms = _population(problem, POP, 9)
-    jstate = jga.evaluate(jpa, jnp.asarray(slots), jnp.asarray(rooms))
-    key = jax.random.key(25)
-    want = jax.jit(jga.generation, static_argnums=(3,))(jpa, key, jstate,
-                                                        jcfg)
-    draws = jax_breed_draws(key, POP, problem.n_events, problem.n_slots,
-                            jcfg)
-    sweep_fn = jax_sweep_draws_fn(jax.random.fold_in(key, 0x15), POP,
-                                  problem.n_events, problem.n_slots, jcfg)
-    got = tga.generation(tpa, draws, sweep_fn, pop_state_from_numpy(jstate),
-                         tcfg)
-    for w, g in zip(want, got):
-        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    rooms_mode="parallel" (the crossover rematch), against JAX's (past
+    one warp of rooms: test_torch_ga_wide_parallel.py)."""
+    check_generation_mode(mode, padded_problem if mode == "parallel"
+                          else small_problem)
 
 
 @pytest.mark.parametrize("which", ["small", "padded"])

@@ -302,28 +302,32 @@ def _wide_rooms(device):
                                device)
 
 
-def _chained_augments(device):
+def _chained_augments(device, shift=0):
     """(pa, slots, rooms, want) of a slot where a second round of
     length-3 augments follows a round that grabbed no free room: rooms
     0-4 of capacity ranks 0-4; event 0 suits {0, 3}, event 1 {1, 4},
     event 2 {0}, event 3 {0, 1}, all in slot 0, from rooms (0, 1, 0, 0).
     Round 1: events 2 and 3 find no free room; both bid for room 0 (its
     owner 0 can move to 3), event 2 wins. Round 2: event 3 evicts event
-    1 (to 4) from room 1."""
-    possible = np.array([[1, 0, 0, 1, 0], [0, 1, 0, 0, 1],
-                         [1, 0, 0, 0, 0], [1, 1, 0, 0, 0]], dtype=bool)
+    1 (to 4) from room 1. With `shift`, `shift` smaller rooms that suit
+    no event come first, and every room and rank above is `shift` more
+    (at 32, the whole matching lies in the second word of ranks)."""
+    possible = np.zeros((4, shift + 5), dtype=bool)
+    possible[:, shift:] = [[1, 0, 0, 1, 0], [0, 1, 0, 0, 1],
+                           [1, 0, 0, 0, 0], [1, 1, 0, 0, 0]]
     pa = make_problem_arrays(
         attends=np.zeros((1, 4), np.float32),
         conflict=np.zeros((4, 4), np.float32), possible=possible,
         student_count=np.zeros(4, np.int32),
-        room_size=np.arange(1, 6, dtype=np.int32),
-        event_mask=np.ones(4, np.float32), room_mask=np.ones(5, bool),
+        room_size=np.r_[np.ones(shift), np.arange(2, 7)].astype(np.int32),
+        event_mask=np.ones(4, np.float32),
+        room_mask=np.ones(shift + 5, bool),
         anchor_slots=np.zeros(4, np.int32), anchor_w=np.zeros(4, np.int32),
         n_days=5, slots_per_day=9, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return (pa, torch.zeros((1, 4), **i32),
-            torch.tensor([[0, 1, 0, 0]], **i32),
-            torch.tensor([[3, 4, 0, 1]], **i32))
+            torch.tensor([[0, 1, 0, 0]], **i32) + shift,
+            torch.tensor([[3, 4, 0, 1]], **i32) + shift)
 
 
 def _matcher_equals_plain(pa, device, seed):
@@ -350,6 +354,91 @@ def _matcher_equals_plain(pa, device, seed):
         got = ga.make_children_kernel(pa, d, par, 1, None, "parallel")
         want = ga.make_children_plain(pa, d, par, cfg, 1)
         assert all(torch.equal(w, x) for w, x in zip(want, got))
+
+
+# rooms past one warp: each lane of a room choice takes rooms l, l + 32,
+# ..., and the parallel matcher's ranks are two or three words an event
+WIDE_R = (33, 80)
+
+
+def _past_one_warp(R, device):
+    """A 40-event instance of R rooms, room sizes drawn so that events of
+    many students fit only the larger rooms: a matching reaches ranks 32
+    and beyond, and ties fall across a lane's rooms."""
+    return random_instance(40 + R, n_events=40, n_rooms=R, n_features=3,
+                           n_students=30, attend_prob=0.1).device_arrays(
+                               device)
+
+
+def k1_k6_wide_equal_plain(pa, device, seed):
+    """K1 on degenerate slot buckets (a slot of every event: two chunks
+    of 32), K6 in its greedy and crowded modes and its relocation entry,
+    against their plain versions."""
+    slots = _degenerate_slots(pa, 4, seed)
+    assert torch.equal(rooms.assign_rooms_kernel(pa, slots),
+                       rooms.assign_rooms_plain(pa, slots))
+    _, cfg, par, draws = _breed_case(pa, device, 2, 3, seed + 1)
+    mo = nsga.rank_crowd_plain(par.hcv, par.scv, 2)
+    for stats in (None, mo):
+        got = ga.make_children_kernel(pa, draws, par, 2, stats)
+        want = ga.make_children_plain(pa, draws, par, cfg, 2, stats)
+        assert all(torch.equal(w, g) for w, g in zip(want, got))
+    st = _state(pa, 6, seed + 2)
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+    d = moves.make_move_draws([g] * 3, 6, pa.n_events, pa.n_slots, 1.0,
+                              1.0, 1.0, device)
+    chain = moves.MoveDraws(*(x.reshape((3, 6) + x.shape[1:]) for x in d))
+    got = moves.relocation_chain_kernel(pa, chain, st.slots, st.rooms, 3)
+    want = moves.relocation_chain_plain(pa, chain, st.slots, st.rooms, 3)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+def k4_wide_equal_plain(pa, device, seed, k4=None):
+    """K4's own launch on sampled candidates against delta_one_plain;
+    `k4(pa, state, evs, new_slots, active)` launches it (None: the
+    delta_one wrapper, which launches it on a CUDA tensor)."""
+    P, C = 3, 9
+    st = _state(pa, P, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    d = moves.make_move_draws([g], P * C, pa.n_events, pa.n_slots, 1.0,
+                              1.0, 1.0, device)
+    evs, ns, act = moves.sample_move(pa, d,
+                                     st.slots.repeat_interleave(C, 0))
+    evs, ns, act = (x.reshape(P, C, 3) for x in (evs, ns, act))
+    got = (k4 or (lambda pa, st, *m: delta.delta_one(
+        pa, st.slots, st.rooms, st.att, st.occ, *m)))(pa, st, evs, ns, act)
+    want = delta.delta_one_plain(pa, st.slots, st.rooms, st.att, st.occ,
+                                 evs, ns, act)
+    assert all(torch.equal(w, x) for w, x in zip(want, got))
+
+
+def k8_k12_wide_equal_plain(pa, device, seed, K=4, cluster=None):
+    """K8 (pre-pass and chain) and K12 (from the pre-pass) against their
+    plain versions, rows and penalty terms."""
+    rows = delta.init_rows(pa, *_state(pa, 3, seed)[:2])
+    draws = _ls_draws(pa, device, 3, 3, K, seed + 1)
+    got = delta.random_local_search_kernel(pa, draws, rows)
+    want = delta.random_local_search_plain(pa, draws, rows)
+    assert all(torch.equal(w, x) for w, x in zip(want, got))
+    got = local_search.batch_local_search_kernel(pa, draws, rows, cluster)
+    want = local_search.batch_local_search_plain(pa, draws, rows)
+    assert all(torch.equal(w, x) for w, x in zip(want, got))
+
+
+def k10_wide_equal_plain(pa, device, seed, k_cands=4, Lh=3):
+    """K8's pre-pass and K10 on a copy of a start state against
+    lahc_steps_plain, every field."""
+    st = _state(pa, 3, seed)
+    ls0 = lahc.init_lahc(pa, st.slots, st.rooms, Lh)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    draws = lahc.make_lahc_draws([g], 3, 5, k_cands, pa.n_events,
+                                 pa.n_slots, 1.0, 1.0, 0.5, device)
+    ls1 = lahc.LahcState(lahc.LSState(*(x.clone() for x in ls0.ls)),
+                         *(x.clone() for x in ls0[1:]))
+    got = lahc.lahc_steps_kernel(pa, draws, ls1)
+    want = lahc.lahc_steps_plain(pa, draws, ls0)
+    assert all(torch.equal(w, x) for w, x in zip(want.ls, got.ls))
+    assert all(torch.equal(w, x) for w, x in zip(want[1:], got[1:]))
 
 
 # K13's shapes: islands, trace lengths (T not a multiple of 32 too) and
@@ -1204,6 +1293,51 @@ def test_k8_shared_memory_count_matches_the_kernel(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R", WIDE_R)
+def test_k1_k6_k9_past_one_warp_equal_plain(cuda, R):
+    """K1, K6 (greedy, crowded, parallel, relocation) and K9 at 33 and
+    80 rooms equal their plain versions."""
+    pa = _past_one_warp(R, cuda)
+    k1_k6_wide_equal_plain(pa, cuda, 800 + R)
+    _matcher_equals_plain(pa, cuda, 804 + R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", WIDE_R)
+def test_k4_k8_k10_k12_past_one_warp_equal_plain(cuda, R):
+    """K4's own launch, K8, K10 and K12 (the K4 body's room choice and
+    K12's relocation) at 33 and 80 rooms equal their plain versions."""
+    pa = _past_one_warp(R, cuda)
+    k4_wide_equal_plain(pa, cuda, 810 + R)
+    k8_k12_wide_equal_plain(pa, cuda, 820 + R, K=8)
+    k10_wide_equal_plain(pa, cuda, 830 + R, k_cands=16, Lh=5000)
+
+
+@pytest.mark.cuda
+def test_k5_past_one_warp_equals_plain(cuda):
+    """K5's hot-pivot and permutation passes at 80 and 300 rooms, every
+    cluster size: the K4 body's choice over several rooms a lane and the
+    candidates' rooms in their 12-bit packing beside hcv (past 255 in
+    the high word)."""
+    for R in (80, 300):
+        pa = _past_one_warp(R, cuda)
+        st = _state(pa, 4, 840)
+        if R > 256:
+            # every event starts in a room past the candidate's low word
+            st = delta.init_state(pa, st.slots, torch.randint(
+                256, R, st.rooms.shape, device=cuda, dtype=torch.int32,
+                generator=torch.Generator(device=cuda).manual_seed(842)))
+        for case in (K5_CASES[0], (8, 1, 0.25, 12, 0.0),
+                     (16, 1, 0.25, 0, 0.2)):
+            sh = sweep.sweep_shape(pa.n_events, pa.n_slots, *case[:2],
+                                   *case[3:])
+            draws = sweep.make_sweep_draws(
+                [torch.Generator(device=cuda).manual_seed(841)], 4, sh,
+                pa.n_events, case[2], cuda)
+            _k5_equals_plain(pa, st, draws, case, clusters=CLUSTERS)
+
+
+@pytest.mark.cuda
 def test_k9_parallel_rooms_equals_plain(cuda):
     for i, pa in enumerate(_instances(cuda)):
         st = _state(pa, 9, 140 + i)
@@ -1295,17 +1429,22 @@ def test_k9_k6_parallel_matcher_edge_cases(cuda):
 
 
 def test_suitability_words_encode_the_problem():
-    """suit_rank bit k is possible[e, the room of capacity rank k], and
-    room_of_rank inverts cap_rank, on a padded instance and on R = 32."""
+    """suit_rank bit k of word j is possible[e, the room of capacity rank
+    32j + k], every bit past R clear, and room_of_rank inverts cap_rank,
+    on a padded instance, on R = 32 (one word) and on R = 80 (three)."""
     for pa in (padded_arrays(random_instance(4, n_events=50, n_rooms=4,
                                              n_features=3, n_students=40,
                                              attend_prob=0.1)),
-               _wide_rooms("cpu")):
+               _wide_rooms("cpu"), _past_one_warp(80, "cpu")):
         R = pa.n_rooms
         assert torch.equal(pa.cap_rank[pa.room_of_rank.long()],
                            torch.arange(R, dtype=torch.int32))
-        bits = pa.suit_rank.numpy().view(np.uint32)
-        dec = (bits[:, None] >> np.arange(R, dtype=np.uint32)) & 1
+        words = pa.suit_rank.numpy().view(np.uint32)
+        assert words.shape == (pa.n_events, -(-R // 32))
+        k = np.arange(32 * words.shape[1])
+        dec = (words[:, k // 32] >> (k % 32).astype(np.uint32)) & 1
+        assert not dec[:, R:].any()
+        dec = dec[:, :R]
         np.testing.assert_array_equal(
             dec.astype(bool), pa.possible.numpy()[:, pa.room_of_rank.numpy()])
 
@@ -1556,6 +1695,43 @@ def test_sweep_pass_smem_bytes_at_comp01s():
     post = sweep.sweep_shape(400, 45, 64, 1, 0, 0.0)
     assert sweep.sweep_pass_smem_bytes(pa, repair) == 50_336
     assert sweep.sweep_pass_smem_bytes(pa, post) == 51_040
+
+
+def test_room_kernels_refuse_only_by_shared_memory():
+    """K1, K6 (both matchers, its relocation entry) and K9 take any
+    R < 4096; what they refuse they refuse by the bytes one block needs,
+    before anything launches, naming them: at 1,300 rooms the (45, R)
+    int32 occupancy is 234,000 bytes, past the 232,448 a block can have;
+    at 400 rooms only the relocation entry's four rows (288,096 bytes)
+    do not fit."""
+    for R, refused in ((1300, ("assign_rooms", "breed", "parallel_rooms",
+                               "relocate")), (400, ("relocate",))):
+        pa = random_instance(3, n_events=12, n_rooms=R, n_features=2,
+                             n_students=10,
+                             attend_prob=0.2).device_arrays()
+        sizes = {"assign_rooms": rooms.assign_rooms_smem_bytes(pa),
+                 "breed": ga.breed_smem_bytes(pa, False),
+                 "parallel_rooms": rooms.parallel_rooms_smem_bytes(pa),
+                 "relocate": moves.relocate_smem_bytes(pa)}
+        assert {k for k, v in sizes.items()
+                if v > kernels.SMEM_LIMIT} == set(refused)
+        st = _state(pa, 2, 1)
+        _, _, par, draws = _breed_case(pa, "cpu", 1, 2, 2)
+        chain = moves.MoveDraws(*(x[None] for x in draws.move))
+        calls = {
+            "assign_rooms": lambda: rooms.assign_rooms_kernel(pa,
+                                                              st.slots),
+            "breed": lambda: ga.make_children_kernel(pa, draws, par),
+            "parallel_rooms": lambda: rooms.augment_rooms_kernel(
+                pa, st.slots, None),
+            "relocate": lambda: moves.relocation_chain_kernel(
+                pa, chain, st.slots, st.rooms, 1)}
+        kernels.reset_launches()
+        for name in refused:
+            with pytest.raises(ValueError,
+                               match=f"{sizes[name]} bytes of shared"):
+                calls[name]()
+        assert sum(kernels.LAUNCHES.values()) == 0
 
 
 def test_random_ls_smem_bytes_at_comp01s():

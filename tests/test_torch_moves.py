@@ -9,6 +9,7 @@ random-candidate local search and the generation). The other tests/test_torch_*.
 against the JAX op it mirrors.
 """
 
+import functools
 import math
 
 import jax
@@ -141,6 +142,27 @@ def arrays(problem):
 def padded_problem(small_problem):
     from timetabling_ga_tpu.serve.bucket import pad_problem
     return pad_problem(small_problem)
+
+
+# instances past one warp of rooms (wide_problem): 33, 64 and 80 rooms,
+# and 40 rooms padded to serve's 64-room bucket (dead rooms and events)
+WIDE_ROOMS = ("r33", "r64", "r80", "r40pad64")
+
+
+@functools.lru_cache(maxsize=None)
+def wide_problem(which):
+    """A JAX Problem of WIDE_ROOMS at 48 events (40 padded), with room
+    sizes drawn so that events of many students fit only the larger
+    rooms: the rooms a matching takes reach ranks 32 and beyond."""
+    from timetabling_ga_tpu.problem import random_instance
+    from timetabling_ga_tpu.serve.bucket import pad_problem
+    if which == "r40pad64":
+        return pad_problem(random_instance(13, n_events=40, n_rooms=40,
+                                           n_features=3, n_students=30,
+                                           attend_prob=0.1))
+    R = int(which[1:])
+    return random_instance(10 + R, n_events=48, n_rooms=R, n_features=3,
+                           n_students=30, attend_prob=0.1)
 
 
 def _population(problem, n, seed):

@@ -3,10 +3,12 @@ convert.py) against the JAX package's: the same loaded and derived
 arrays, the same device-array fields and masks, `dump_tim` round trips
 and the same seeded instance generators."""
 
+import dataclasses
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_torch_moves import padded_problem  # noqa: F401  (fixture)
 from timetabling_ga_tpu import problem as jprob
@@ -60,6 +62,25 @@ def test_device_arrays_match_jax(which, small_problem, medium_problem,
         for f in _DEVICE_FIELDS:
             assert np.array_equal(getattr(own, f).numpy(),
                                   getattr(tpa, f).numpy()), f
+
+
+def test_convert_gives_the_ports_own_arrays_past_one_warp():
+    """convert.problem_arrays_from_numpy of a JAX 80-room problem equals
+    the port's own ProblemArrays of the same instance in every field, the
+    derived ones too: the three suitability words an event, the conflict
+    words, the capacity ranks and the CSR."""
+    kw = dict(n_events=60, n_rooms=80, n_features=4, n_students=40,
+              attend_prob=0.08)
+    jpa = jprob.random_instance(5, **kw).device_arrays()
+    got = problem_arrays_from_numpy(jpa)
+    own = tprob.random_instance(5, **kw).device_arrays()
+    assert got.suit_rank.shape == (60, 3)
+    for f in dataclasses.fields(own):
+        a, b = getattr(got, f.name), getattr(own, f.name)
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
 
 
 def test_dump_tim_round_trips(medium_problem):

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from tests.test_torch_moves import (  # noqa: F401  (fixtures)
-    arrays, padded_problem, t32)
+    WIDE_ROOMS, arrays, padded_problem, t32, wide_problem)
 from timetabling_ga_tpu.ops import rooms as jrooms
 from timetabling_ga_tpu_torch.ops import rooms as trooms
 
@@ -21,11 +21,14 @@ def _slots(problem, n, seed):
                         (n, problem.n_events)).astype(np.int32)
 
 
-@pytest.mark.parametrize("which", ["small", "medium", "padded"])
+@pytest.mark.parametrize("which", ["small", "medium", "padded",
+                                   *WIDE_ROOMS])
 def test_assign_rooms_matches_jax(which, small_problem, medium_problem,
                                   padded_problem):
+    """K1's plain version against JAX's batch_assign_rooms, up to 80
+    rooms (ties across a lane's rooms l, l + 32, ... go to the lowest)."""
     problem = {"small": small_problem, "medium": medium_problem,
-               "padded": padded_problem}[which]
+               "padded": padded_problem}.get(which) or wide_problem(which)
     jpa, tpa = arrays(problem)
     slots = _slots(problem, 6, 3)
     want = jrooms.batch_assign_rooms(jpa, jnp.asarray(slots))
@@ -71,20 +74,29 @@ def tight_problem():
                                n_students=50, attend_prob=0.08)
 
 
-@pytest.mark.parametrize("which", ["small", "tight", "padded"])
-@pytest.mark.parametrize("n_rounds", [1, 2, 3, 4])
+# past one warp of rooms at 4 rounds (each case is a JAX compile of its
+# own, several seconds on the CPU)
+@pytest.mark.parametrize("n_rounds,which", [
+    *(pytest.param(n, w, id=f"{n}-{w}") for n in (1, 2, 3, 4)
+      for w in ("small", "tight", "padded")),
+    *(pytest.param(4, w, id=f"4-{w}") for w in WIDE_ROOMS)])
 def test_parallel_matcher_matches_jax(which, n_rounds, small_problem,
                                       tight_problem, padded_problem):
     """augment_rooms from random incoming rooms and parallel_assign_rooms
     (best-fit start), both against the JAX matcher vmapped over rows, on
     random, room-tight and padded instances (padded rows carry random
-    slots on their dead events, which keep their incoming room)."""
+    slots on their dead events, which keep their incoming room), and
+    past one warp of rooms (several suitability words an event)."""
     problem = {"small": small_problem, "tight": tight_problem,
-               "padded": padded_problem}[which]
+               "padded": padded_problem}.get(which) or wide_problem(which)
     jpa, tpa = arrays(problem)
     slots = _slots(problem, 5, 20 + n_rounds)
-    # crowded slots make the augments and the park rounds do work
+    # crowded slots make the augments and the park rounds do work; past
+    # 32 rooms, every event of row 0 in one slot and the rest in two
     slots[:, ::2] = slots[:, ::2] % 3
+    if which in WIDE_ROOMS:
+        slots[0] = 0
+        slots[1:] %= 2
     rng = np.random.default_rng(n_rounds)
     rooms = rng.integers(0, problem.n_rooms, slots.shape).astype(np.int32)
     want = jax.jit(jax.vmap(lambda s, r: jrooms.augment_rooms(

@@ -12,7 +12,7 @@ import torch
 
 from tests.test_torch_moves import (  # noqa: F401  (fixtures)
     _population, arrays, jax_sweep_draws, jax_sweep_draws_fn,
-    padded_problem, t32)
+    padded_problem, t32, wide_problem)
 from timetabling_ga_tpu.ops import delta as jdelta
 from timetabling_ga_tpu.ops import sweep as jsweep
 from timetabling_ga_tpu.ops.ga import GAConfig as JGAConfig
@@ -90,7 +90,8 @@ def test_hot_pivots_match_jax_top_k(which, medium_problem, padded_problem):
 # and 3-cycles; full-permutation blocked descent with a padded instance;
 # an anchored objective
 PASS_CASES = [(4, 1, 0.5, 12, 0.3, "medium"), (3, 2, 0.0, 0, 0.0, "padded"),
-              (3, 1, 0.25, 10, 0.0, "anchored")]
+              (3, 1, 0.25, 10, 0.0, "anchored"),
+              (4, 1, 0.25, 12, 0.3, "r80")]
 
 
 def _anchored(problem):
@@ -106,7 +107,8 @@ def _anchored(problem):
 def test_sweep_pass_matches_jax(case, medium_problem, padded_problem):
     sb, be, side, hot, p3, which = case
     problem = {"medium": medium_problem, "padded": padded_problem,
-               "anchored": _anchored(medium_problem)}[which]
+               "anchored": _anchored(medium_problem)}.get(which) \
+        or wide_problem(which)
     jpa, tpa, jst, st = _state(problem, 5)
     key = jax.random.key(11)
     want, improved = jax.jit(jsweep.sweep_pass, static_argnums=range(3, 8))(

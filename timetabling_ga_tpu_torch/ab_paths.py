@@ -13,7 +13,12 @@ the LAHC call instead, through the tree's `lahc.lahc_steps_kernel` (every
 kernel it launches) at the lahc path's shape on comp01s (4 walkers, K
 16, a history of 5,000, from chip_smoke's feasible start): us a step
 over 200-step and 2,000-step calls, and over 200-step calls of one
-walker (the chain's floor). To compare two commits on one card, unpack
+walker (the chain's floor). The name `k5` times one K5 sweep pass the
+same way, through the tree's `sweep.sweep_pass_kernel`, at the main
+path's repair (16 rows) and post (4 rows) shapes from chip_smoke's
+feasible start: ms a pass. The name `ptxas` prints the compiler's
+register and spill report of K5, K8 and K10 from the tree's build. To
+compare two commits on one card, unpack
 the parent with `git archive` into a directory that .gitignore lists
 and run, in one call, parent, change, change, parent (then the mirrored
 order in another).
@@ -50,6 +55,39 @@ def k10_us_per_step(cs) -> dict:
     return out
 
 
+def k5_ms(cs) -> dict:
+    import torch
+    from timetabling_ga_tpu_torch.ops import ga, sweep
+    from timetabling_ga_tpu_torch.problem import load_tim_file
+    from timetabling_ga_tpu_torch.runtime import config, engine
+    dev = torch.device("cuda", 0)
+    pa = load_tim_file(cs.TIM).device_arrays(dev)
+    cfg = config.parse_args(["-i", cs.TIM] + cs.PATHS["main"]
+                            ).apply_tuned_defaults(pa.n_events)
+    repair = engine.build_ga_config(cfg)
+    post = engine.build_post_config(cfg, repair)
+    out = {}
+    for phase, gacfg, P in (("repair", repair, 16), ("post", post, 4)):
+        g = torch.Generator(device=dev).manual_seed(9100 + P)
+        st = cs.witness_state(pa, P, g)
+        draws = ga.sweep_draws_fn([g], P, pa, gacfg)(0)
+        case = (gacfg.ls_swap_block, gacfg.ls_block_events,
+                gacfg.ls_sideways, gacfg.ls_hot_k, gacfg.p3)
+        out[f"ms_{phase}_{P}"] = cs.time_ms(
+            lambda: sweep.sweep_pass_kernel(pa, draws, st, *case), 20)
+    return out
+
+
+def ptxas_lines() -> dict:
+    from timetabling_ga_tpu_torch import kernels
+    out = {}
+    for name, text in kernels.BUILD_INFO["ptxas"].items():
+        if name in ("sweep_pass", "random_ls", "lahc"):
+            out[name] = [x.strip() for x in text.splitlines()
+                         if "registers" in x or "spill" in x]
+    return out
+
+
 def main(argv) -> int:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
@@ -61,8 +99,10 @@ def main(argv) -> int:
               for tim in (cs.TIM, cs.TIM05)}
     out, best = {}, {}
     for name in names:
-        if name == "k10":
-            out[name] = k10_us_per_step(cs)
+        if name in ("k10", "k5", "ptxas"):
+            out[name] = {"k10": lambda: k10_us_per_step(cs),
+                         "k5": lambda: k5_ms(cs),
+                         "ptxas": ptxas_lines}[name]()
             continue
         recs, _, _ = cs.run_path(name)
         s = cs.check_stream(recs, pa_cpu[cs.PATH_TIM.get(name, cs.TIM)])

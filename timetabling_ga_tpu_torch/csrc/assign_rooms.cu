@@ -18,10 +18,11 @@
 // one. The block takes each event's slot in matching order into shared
 // memory, then its warps walk their slots' chains in parallel
 // (rooms_dev.cuh `tt_match_rooms_block`: a ballot over the order picks a
-// slot's events, one lane per room takes each argmin, ties toward the
-// lower room as jnp.argmin). The event order (a stable sort of
-// suitable-room counts) and the capacity rank are computed once per
-// problem on the host, as the JAX version computes them once per trace.
+// slot's events, each lane over rooms l, l + 32, ... takes its part of
+// each argmin, ties toward the lower room as jnp.argmin). The event
+// order (a stable sort of suitable-room counts) and the capacity rank
+// are computed once per problem on the host, as the JAX version
+// computes them once per trace.
 // K6 runs the same body on every crossover child.
 #include "rooms_dev.cuh"
 
@@ -52,7 +53,7 @@ extern "C" int tt_assign_rooms(const int* slots, int* rooms,
                                const int* dead, const int* live,
                                const int* order, int P, int E, int R, int T,
                                void* stream) {
-    if (R > 32 || P <= 0) return (int)cudaErrorInvalidValue;
+    if (!tt_rooms_fit(E, R) || P <= 0) return (int)cudaErrorInvalidValue;
     size_t smem = sizeof(int) * ((size_t)E + (size_t)T * R);
     if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     cudaError_t err = tt_set_smem(assign_rooms_kernel, smem);

@@ -25,8 +25,9 @@
 //     island; every thread takes them itself;
 //   - do_x: the masked crossover of the parents' slots and K1's matching
 //     body (rooms_dev.cuh tt_match_rooms_block: the slots' chains in
-//     parallel, a warp per slot, one lane per room; the greedy scan was
-//     one warp's chain of E dependent argmins, ~0.1 ms) — or, with
+//     parallel, a warp per slot, each lane over its rooms; the greedy
+//     scan was one warp's chain of E dependent argmins, ~0.1 ms) — or,
+//     with
 //     `parallel`, the parallel matcher's body from best-fit rooms
 //     (rooms_dev.cuh tt_parallel_rooms_block: a warp per slot, rooms as
 //     bits in capacity-rank order, each warp also writing its slots'
@@ -164,7 +165,7 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
         for (int e = tid; e < E; e += blockDim.x)
             sl[e] = mk[e] ? sa[e] : sb[e];
         if (n_rounds >= 0) {
-            const TTRankRooms rr = {suit, room_of};
+            const TTRankRooms rr = {suit, room_of, (R + 31) / 32};
             for (int e = tid; e < E; e += blockDim.x)
                 rm[e] = tt_best_fit_room(rr, e);
             __syncthreads();
@@ -255,11 +256,12 @@ extern "C" int tt_breed(
     int* out_rooms, int* out_eval, int* out_parent, int P, int pop, int k,
     int E, int R, int T, int n_rounds, int S, int spd, int W, int diag,
     void* stream) {
-    if (R > 32 || E < 3 || P <= 0 || pop <= 0 || P % pop != 0 || k <= 0
-        || T > 64 || spd > 32 || (ranks != nullptr) != (crowd != nullptr))
+    if (!tt_rooms_fit(E, R) || E < 3 || P <= 0 || pop <= 0 || P % pop != 0
+        || k <= 0 || T > 64 || spd > 32
+        || (ranks != nullptr) != (crowd != nullptr))
         return (int)cudaErrorInvalidValue;
     const size_t so_ints =
-        n_rounds >= 0 ? tt_parallel_rooms_ints(E, T, K6_THREADS / 32)
+        n_rounds >= 0 ? tt_parallel_rooms_ints(E, R, T, K6_THREADS / 32)
                       : (size_t)E;
     size_t smem = sizeof(int)
                   * (2 * (size_t)E + (size_t)T * R + so_ints
@@ -284,9 +286,10 @@ extern "C" int tt_relocate(
     const int* tgt, const uint8_t* possible, const int* cap_rank,
     const int* dead, const int* live, int* out_slots, int* out_rooms, int N,
     int n_moves, int E, int R, int T, void* stream) {
-    if (R > 32 || E < 3 || N <= 0 || n_moves < 0)
+    if (!tt_rooms_fit(E, R) || E < 3 || N <= 0 || n_moves < 0)
         return (int)cudaErrorInvalidValue;
     size_t smem = sizeof(int) * K6_WARPS * (2 * (size_t)E + (size_t)T * R);
+    if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     cudaError_t err = tt_set_smem(relocate_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     int grid = (N + K6_WARPS - 1) / K6_WARPS;

@@ -59,6 +59,23 @@ extern "C" int tt_prof_take(unsigned long long* out) {
 // (kernels.SMEM_LIMIT in Python)
 #define TT_SMEM_LIMIT 232448
 
+// The room key's packing bound (ops/rooms.py check_packing, JAX
+// rooms.py:122): cap_rank < R stays under the unsuitable flag's 2^12 and
+// the key inside int32 for E < 4096 and R < 4096. Every kernel that
+// chooses a room takes any such E and R; what is refused past them is
+// refused by the bytes of shared memory a block needs.
+static inline bool tt_rooms_fit(int E, int R) {
+    return E > 0 && E < 4096 && R > 0 && R < 4096;
+}
+
+// Whether a room choice needs more than one room a lane: lane l takes
+// rooms l, l + 32, ..., and where there are no more rooms than a warp's
+// lanes the kernels run their one-room-a-lane instance.
+#define TT_WARP_LANES 32
+__host__ __device__ __forceinline__ bool tt_wide_rooms(int R) {
+    return R > TT_WARP_LANES;
+}
+
 extern "C" const char* tt_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }

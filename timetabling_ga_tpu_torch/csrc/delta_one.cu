@@ -15,9 +15,10 @@
 // Design: one warp per candidate, running the body K5, K8 and K10 run
 // (sweep_dev.cuh tt_delta_one_bits_warp): the occupancy replay with the
 // <= 6 touched cells kept as a delta list in registers and the room
-// argmin one lane per room (ties to the lower room); the conflict dots
-// as popcounts of each moving event's row against the slot_ev rows of
-// its new and old slot, the lanes over words; the day re-score one lane
+// argmin over each lane's rooms, then the warp's (ties to the lower
+// room); the conflict dots as popcounts of each moving event's row
+// against the slot_ev rows of its new and old slot, the lanes over
+// words; the day re-score one lane
 // per student of the moving events (each student once), from its amask
 // word with the touched slots recomputed. The wrapper builds amask and
 // slot_ev with their plain version (ops/delta.py slot_bitsets); this
@@ -26,6 +27,7 @@
 
 #define K4_WARPS 4
 
+template <bool WIDE>
 __global__ void delta_one_kernel(
     TTSweepProblem pb, const int* __restrict__ slots,
     const int* __restrict__ rooms, const int16_t* __restrict__ att,
@@ -47,11 +49,11 @@ __global__ void delta_one_kernel(
         on[m] = active[(size_t)cand * 3 + m] ? 1 : 0;
     }
     int dh, ds;
-    tt_delta_one_bits_warp(pb, slots + (size_t)p * E, rooms + (size_t)p * E,
-                           att + (size_t)p * S * T, occ + (size_t)p * T * R,
-                           amask + (size_t)p * S,
-                           slot_ev + (size_t)p * T * W, ev, ns, on, lane,
-                           &dh, &ds, nr);
+    tt_delta_one_bits_warp<WIDE>(
+        pb, slots + (size_t)p * E, rooms + (size_t)p * E,
+        att + (size_t)p * S * T, occ + (size_t)p * T * R,
+        amask + (size_t)p * S, slot_ev + (size_t)p * T * W, ev, ns, on,
+        lane, &dh, &ds, nr);
     if (lane == 0) {
         d_hcv[cand] = dh;
         d_scv[cand] = ds;
@@ -69,14 +71,16 @@ extern "C" int tt_delta_one(
     const uint8_t* attends, const int* ev_ptr, const int* ev_stu,
     int* d_hcv, int* d_scv, int* new_rooms, int P, int C, int E, int R,
     int S, int T, int spd, int W, void* stream) {
-    if (R > 32 || spd > 32 || T > 64 || P * C <= 0)
+    if (!tt_rooms_fit(E, R) || spd > 32 || T > 64 || P * C <= 0)
         return (int)cudaErrorInvalidValue;
     int PC = P * C;
     int grid = (PC + K4_WARPS - 1) / K4_WARPS;
     TTSweepProblem pb = {possible, live, student_count, conflict_bits,
                          cap_rank, dead, attends, ev_ptr, ev_stu,
                          E, R, S, T, spd, W};
-    delta_one_kernel<<<grid, 32 * K4_WARPS, 0, (cudaStream_t)stream>>>(
+    const auto kernel = tt_wide_rooms(R) ? delta_one_kernel<true>
+                               : delta_one_kernel<false>;
+    kernel<<<grid, 32 * K4_WARPS, 0, (cudaStream_t)stream>>>(
         pb, slots, rooms, att, occ, amask, slot_ev, evs, new_slots, active,
         d_hcv, d_scv, new_rooms, PC, C);
     return (int)cudaGetLastError();

@@ -23,14 +23,16 @@
 // ... of every round. Every CTA holds the individual's current row in
 // shared memory for the whole call: slots, rooms, the (T, R) live
 // occupancy and the live events' slot bitsets; beside it a candidate copy
-// of the four; the per-event problem arrays (live flags, suitable rooms,
-// student counts, anchors); and, where they fit, the conflict bitset and
-// the students' CSR, all staged once by cp.async. The candidates' events
-// come from K8's pre-pass (random_ls_events, (P, n_rounds, K, 3) int16),
-// staged with the move types and targets in chunks of rounds, so no top-3
-// runs on the chain. A candidate: the block copies the current row into the copy;
-// warp 0 applies the relocation there (rooms_dev.cuh tt_sample_move,
-// tt_relocate_warp) and moves the events' bits; then the block scores the
+// of the four; the per-event problem arrays (live flags, student counts,
+// anchors); and, where they fit, the suitable-rooms table (E x R bytes),
+// then the conflict bitset and the students' CSR, all staged once by
+// cp.async (what does not fit is read from global memory). The
+// candidates' events come from K8's pre-pass (random_ls_events,
+// (P, n_rounds, K, 3) int16), staged with the move types and targets in
+// chunks of rounds, so no top-3 runs on the chain. A candidate: the
+// block copies the current row into the copy; warp 0 applies the
+// relocation there (rooms_dev.cuh tt_sample_move, tt_relocate_warp) and
+// moves the events' bits; then the block scores the
 // copy with penalty_dev.cuh's body, from shared memory (cells, events,
 // correlation against the slot bitsets, students from the CSR), one block
 // reduction. Warp 0 keeps the CTA's first least record (penalty terms,
@@ -71,13 +73,18 @@ namespace cg = cooperative_groups;
 #ifndef K12_STAGE_LIMIT
 #define K12_STAGE_LIMIT TT_SMEM_LIMIT
 #endif
+// the most shared memory a CTA stages the suitable-rooms table in (the
+// CPU stand-in builds it 0, to read the table from global memory)
+#ifndef K12_TABLE_LIMIT
+#define K12_TABLE_LIMIT TT_SMEM_LIMIT
+#endif
 
 struct K12Smem {
     // byte offsets
     unsigned sl, rm, occ, bits_cur, csl, crm, cocc, bits_cand, red, inbox,
         ev, mt, tg, live, count, anc_s, anc_w, possible, conflict, ptr, csr,
         total;
-    int chunk_rounds, staged;
+    int chunk_rounds, table_staged, staged;
 };
 
 __host__ __device__ inline unsigned k12_align(size_t x) {
@@ -111,7 +118,13 @@ __host__ __device__ inline K12Smem k12_smem_layout(int E, int R, int S,
     m.count = o; o += k12_align(4 * (size_t)E);
     m.anc_s = o; o += k12_align(4 * (size_t)E);
     m.anc_w = o; o += k12_align(4 * (size_t)E);
-    m.possible = o; o += k12_align((size_t)E * R);
+    // the suitable rooms where they fit (E x R bytes: 160,000 at E = 2000
+    // and R = 80, where they do not)
+    m.possible = o;
+    const unsigned with_table = o + k12_align((size_t)E * R);
+    m.table_staged =
+        with_table <= K12_TABLE_LIMIT && with_table <= TT_SMEM_LIMIT ? 1 : 0;
+    if (m.table_staged) o = with_table;
     m.conflict = o;
     unsigned staged = o + k12_align(4 * (size_t)E * W);
     m.ptr = staged; staged += k12_align(4 * ((size_t)S + 1));
@@ -174,17 +187,19 @@ __global__ void __launch_bounds__(K12_THREADS) full_eval_ls_kernel(
         int* count = (int*)(k12_smem + A.lay.count);
         int* anc_s = (int*)(k12_smem + A.lay.anc_s);
         int* anc_w = (int*)(k12_smem + A.lay.anc_w);
-        uint8_t* possible = k12_smem + A.lay.possible;
         tt_async_ints(live, gp.live, E);
         tt_async_ints(count, gp.student_count, E);
         tt_async_ints(anc_s, gp.anchor_slots, E);
         tt_async_ints(anc_w, gp.anchor_w, E);
-        for (int i = tid; i < E * R; i += blockDim.x)
-            possible[i] = gp.possible[i];
         pp.live = live;
         pp.student_count = count;
         pp.anchor_slots = anc_s;
         pp.anchor_w = anc_w;
+    }
+    if (A.lay.table_staged) {
+        uint8_t* possible = k12_smem + A.lay.possible;
+        for (int i = tid; i < E * R; i += blockDim.x)
+            possible[i] = gp.possible[i];
         pp.possible = possible;
     }
     if (A.lay.staged) {
@@ -400,7 +415,8 @@ extern "C" int tt_full_eval_ls(
     int* rooms_out, int* pen_out, int* hcv_out, int* scv_out, int P, int E,
     int R, int S, int T, int spd, int W, int K, int n_rounds, int nnz,
     int diag, int cluster, void* stream) {
-    if (P <= 0 || E < 3 || R > 32 || T > 64 || spd > 32 || K <= 0
+    if (P <= 0 || E < 3 || !tt_rooms_fit(E, R) || T > 64 || spd > 32
+        || K <= 0
         || n_rounds < 0 || cluster < 1 || cluster > K12_MAX_CLUSTER
         || cluster > K)
         return (int)cudaErrorInvalidValue;

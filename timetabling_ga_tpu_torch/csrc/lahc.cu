@@ -176,6 +176,7 @@ __device__ __forceinline__ void k10_stage(const K10Args& A,
     }
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(32 * K10_MAX_WARPS) lahc_kernel(K10Args A) {
     extern __shared__ __align__(16) unsigned char k10_smem[];
     const int E = A.pb.E, R = A.pb.R, S = A.pb.S, T = A.pb.T, W = A.pb.W;
@@ -270,8 +271,9 @@ __global__ void __launch_bounds__(32 * K10_MAX_WARPS) lahc_kernel(K10Args A) {
             int ns[3], on[3], nr[3], dh, ds;
             tt_sample_move(slots, mts[c], tgs[c], ev, ns, on);
             TT_PROF(12);
-            tt_delta_one_bits_warp(pb, slots, rooms, att, occ, amask,
-                                   slot_ev, ev, ns, on, lane, &dh, &ds, nr);
+            tt_delta_one_bits_warp<WIDE>(pb, slots, rooms, att, occ,
+                                         amask, slot_ev, ev, ns, on, lane,
+                                         &dh, &ds, nr);
             if (lane == 0) {
                 int* o = rec + c * K10_CAND_INTS;
                 tt_store_candidate(slots, ev, ns, nr, dh, ds, st,
@@ -409,13 +411,17 @@ extern "C" int tt_lahc(
     const int* anchor_slots, const int* anchor_w, int W, int E, int R,
     int S, int T, int spd, int n_words, int K, int Lh, int n_steps,
     int anchored, void* stream) {
-    if (W <= 0 || E < 3 || T > 64 || R > 32 || spd > 32 || K <= 0
+    if (W <= 0 || E < 3 || !tt_rooms_fit(E, R) || T > 64 || spd > 32
+        || K <= 0
         || Lh <= 0 || n_steps < 0 || ((uintptr_t)events & 15u))
         return (int)cudaErrorInvalidValue;
     K10Smem lay = k10_smem_layout(E, R, S, T, K, n_words, Lh);
     if (lay.total > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
+    // the instance that chooses among rooms past the first 32, where
+    // there are some
+    const auto kernel = tt_wide_rooms(R) ? lahc_kernel<true> : lahc_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        lahc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)lay.total);
     if (err != cudaSuccess) return (int)err;
     K10Args A;
@@ -431,6 +437,6 @@ extern "C" int tt_lahc(
     A.W = W; A.K = K; A.Lh = Lh; A.n_steps = n_steps; A.anchored = anchored;
     A.lay = lay;
     int threads = 32 * (K < K10_MAX_WARPS ? K : K10_MAX_WARPS);
-    lahc_kernel<<<W, threads, lay.total, (cudaStream_t)stream>>>(A);
+    kernel<<<W, threads, lay.total, (cudaStream_t)stream>>>(A);
     return (int)cudaGetLastError();
 }

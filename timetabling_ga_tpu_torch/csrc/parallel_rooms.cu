@@ -17,12 +17,14 @@
 //
 // Design: one block per individual, its warps a slot each, with the body
 // in rooms_dev.cuh (`tt_parallel_rooms_block`: rooms as bits in
-// capacity-rank order, the slot's owner row in lane = rank, bids
-// resolved by ballots), which K6 runs on each crossover child;
+// capacity-rank order in ceil(R / 32) words, the slot's rank rows in
+// shared memory, bids resolved by __match_any_sync peers and bid-for
+// words), which K6 runs on each crossover child;
 // this entry runs it on whole rows, for the unit checks and for batch
 // calls. The block keeps the slots, the rooms, the matched ranks, the
-// events bucketed by slot and each warp's owner row in shared memory
-// (~21 KB at comp05s). Without
+// events' suitability words (ceil(R / 32) an event), the events bucketed
+// by slot and each warp's rank rows in shared memory (~21 KB at comp05s,
+// ~74 KB at E = 2000, R = 80). Without
 // incoming rooms the start is parallel_assign_rooms's best-fit room per
 // event.
 #include "rooms_dev.cuh"
@@ -45,7 +47,7 @@ __global__ void __launch_bounds__(K9_THREADS) parallel_rooms_kernel(
     int* rm = sl + E;
     // the matcher reads the rooms' suitability as suit words only
     const TTRoomProblem rp = {nullptr, cap_rank, dead, live, E, R, T};
-    const TTRankRooms rr = {suit, room_of};
+    const TTRankRooms rr = {suit, room_of, (R + 31) / 32};
     for (int e = threadIdx.x; e < E; e += blockDim.x) {
         sl[e] = slots[(size_t)c * E + e];
         rm[e] = rooms_in ? rooms_in[(size_t)c * E + e]
@@ -66,11 +68,11 @@ extern "C" int tt_parallel_rooms(const int* slots, const int* rooms_in,
                                  const int* room_of, int* rooms_out, int P,
                                  int E, int R, int T, int n_rounds,
                                  void* stream) {
-    if (R > 32 || T > 64 || P <= 0 || E <= 0 || n_rounds < 0)
+    if (!tt_rooms_fit(E, R) || T > 64 || P <= 0 || n_rounds < 0)
         return (int)cudaErrorInvalidValue;
     size_t smem = sizeof(int) * (2 * (size_t)E
-                                 + tt_parallel_rooms_ints(E, T, K9_THREADS
-                                                                 / 32));
+                                 + tt_parallel_rooms_ints(E, R, T,
+                                                          K9_THREADS / 32));
     if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     cudaError_t err = tt_set_smem(parallel_rooms_kernel, smem);
     if (err != cudaSuccess) return (int)err;

@@ -274,6 +274,7 @@ random_ls_events_kernel(const float* __restrict__ u,
     }
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(32 * K8_MAX_WARPS)
 random_ls_kernel(K8Args A) {
     extern __shared__ __align__(16) unsigned char k8_smem[];
@@ -373,8 +374,9 @@ random_ls_kernel(K8Args A) {
             int ns[3], on[3], nr[3], dh, ds;
             tt_sample_move(slots, A.mtype[row], A.tgt[row], ev, ns, on);
             TT_PROF(0);
-            tt_delta_one_bits_warp(pb, slots, rooms, att, occ, amask,
-                                   slot_ev, ev, ns, on, lane, &dh, &ds, nr);
+            tt_delta_one_bits_warp<WIDE>(pb, slots, rooms, att, occ,
+                                         amask, slot_ev, ev, ns, on, lane,
+                                         &dh, &ds, nr);
             if (lane == 0) {
                 int* o = rec + c * K8_CAND_INTS;
                 tt_store_candidate(slots, ev, ns, nr, dh, ds, st,
@@ -503,13 +505,18 @@ extern "C" int tt_random_ls(
     int* rooms_out, int* pen_out, int* hcv_out, int* scv_out, int P, int E,
     int R, int S, int T, int spd, int W, int K, int n_rounds, int anchored,
     int diag, int lane_rows, void* stream) {
-    if (P <= 0 || E < 3 || T > 64 || R > 32 || spd > 32 || K <= 0
+    if (P <= 0 || E < 3 || !tt_rooms_fit(E, R) || T > 64 || spd > 32
+        || K <= 0
         || n_rounds < 0 || (lanes && (lane_rows <= 0 || P % lane_rows)))
         return (int)cudaErrorInvalidValue;
     K8Smem lay = k8_smem_layout(E, R, S, T, K, W);
     if (lay.total > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
+    // the instance that chooses among rooms past the first 32, where
+    // there are some
+    const auto kernel = tt_wide_rooms(R) ? random_ls_kernel<true>
+                               : random_ls_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        random_ls_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)lay.total);
     if (err != cudaSuccess) return (int)err;
     K8Args A;
@@ -525,6 +532,6 @@ extern "C" int tt_random_ls(
     A.lanes = lanes; A.lane_rows = lane_rows;
     A.lay = lay;
     int threads = 32 * (K < K8_MAX_WARPS ? K : K8_MAX_WARPS);
-    random_ls_kernel<<<P, threads, lay.total, (cudaStream_t)stream>>>(A);
+    kernel<<<P, threads, lay.total, (cudaStream_t)stream>>>(A);
     return (int)cudaGetLastError();
 }

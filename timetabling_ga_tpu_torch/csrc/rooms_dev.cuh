@@ -2,12 +2,14 @@
 // shared by K1 (assign_rooms.cu), K6 (breed.cu), K8 (random_ls.cu), K10
 // (lahc.cu) and K12 (full_eval_ls.cu).
 //
-// A room choice runs on the 32 lanes of one warp, one lane per room
-// (R <= 32), with the individual's slots, rooms and (T, R) occupancy in
-// shared memory; lane 0 writes, and a __syncwarp() after each write
-// makes it visible to the warp's next step. The greedy matching runs on
-// a whole block, a warp per slot (tt_match_rooms_block). The room key
-// stays in lockstep with ops/rooms.py `_room_key` (timetabling_ga_tpu/
+// A room choice runs on the 32 lanes of one warp, lane l holding rooms
+// l, l + 32, ... (any R < 4096), with the individual's slots, rooms and
+// (T, R) occupancy in shared memory; each lane takes the least (key,
+// room) of its rooms, then a shuffle reduction the warp's, ties to the
+// lower room. Lane 0 writes, and a __syncwarp() after each write makes it
+// visible to the warp's next step. The greedy matching runs on a whole
+// block, a warp per slot (tt_match_rooms_block). The room key stays in
+// lockstep with ops/rooms.py `_room_key` (timetabling_ga_tpu/
 // ops/rooms.py:68): (occ + unsuit) * 2^13 + unsuit * 2^12 + cap_rank +
 // dead, the argmin taking the first room on ties.
 #pragma once
@@ -22,25 +24,55 @@ struct TTRoomProblem {
     int E, R, T;
 };
 
-// The part of a lane's room key that depends on its room alone.
+// The part of room r's key that depends on the room alone.
+__device__ __forceinline__ int tt_room_part(const TTRoomProblem& rp, int r) {
+    return rp.cap_rank[r] + rp.dead[r];
+}
+
+// tt_room_part of the lane's first room, kept in a register (0 past R);
+// the rooms from 32 on are read as they come.
 __device__ __forceinline__ int tt_room_rank(const TTRoomProblem& rp,
                                             int lane) {
-    return lane < rp.R ? rp.cap_rank[lane] + rp.dead[lane] : 0;
+    return lane < rp.R ? tt_room_part(rp, lane) : 0;
+}
+
+// The key of room r for event e on occupancy row `occ_row`.
+__device__ __forceinline__ int tt_room_key(const TTRoomProblem& rp,
+                                           const int* occ_row, int e, int r,
+                                           int part) {
+    const int unsuit = rp.possible[e * rp.R + r] ? 0 : 1;
+    return (occ_row[r] + unsuit) * TT_W_COST + unsuit * TT_W_UNSUIT + part;
 }
 
 // choose_room: the room of event `e` on occupancy row `occ_row` (R
 // counts); every lane returns it. `rank` is tt_room_rank of the lane.
+// WIDE takes the lane's rooms past the first 32 too.
+template <bool WIDE>
+__device__ __forceinline__ int tt_choose_room_r(const TTRoomProblem& rp,
+                                                const int* occ_row, int e,
+                                                int lane, int rank) {
+    int key = 0x7fffffff, best = lane;
+    if (lane < rp.R) key = tt_room_key(rp, occ_row, e, lane, rank);
+    // the lane's rooms in increasing order: strict keeps the lowest
+    for (int r = lane + 32; WIDE && r < rp.R; r += 32) {
+        const int k = tt_room_key(rp, occ_row, e, r, tt_room_part(rp, r));
+        if (k < key) {
+            key = k;
+            best = r;
+        }
+    }
+    return tt_warp_argmin(key, best);
+}
+
+// tt_choose_room_r on any R < 4096: at R <= 32 one room a lane, the code
+// of before.
 __device__ __forceinline__ int tt_choose_room_warp(const TTRoomProblem& rp,
                                                    const int* occ_row,
                                                    int e, int lane,
                                                    int rank) {
-    int key = 0x7fffffff;
-    if (lane < rp.R) {
-        int unsuit = rp.possible[e * rp.R + lane] ? 0 : 1;
-        key = (occ_row[lane] + unsuit) * TT_W_COST + unsuit * TT_W_UNSUIT
-              + rank;
-    }
-    return tt_warp_argmin(key, lane);
+    return tt_wide_rooms(rp.R)
+               ? tt_choose_room_r<true>(rp, occ_row, e, lane, rank)
+               : tt_choose_room_r<false>(rp, occ_row, e, lane, rank);
 }
 
 // K1's body (rooms.py:108 assign_rooms), run by the whole block, slot by
@@ -51,9 +83,10 @@ __device__ __forceinline__ int tt_choose_room_warp(const TTRoomProblem& rp,
 // counts, stable). Warp w owns slots w, w + n_warps, ...; for each, it
 // walks `ord` in chunks of 32 with a ballot of the events in that slot
 // (`so[i]` = the slot of event ord[i]) and takes their rooms in order,
-// one lane per room. `occ` (T x R) comes in zeroed and leaves as the
-// occupancy of (slots, rooms_out); padded events choose a room but
-// occupy nothing. The caller syncs before (so and occ ready) and after.
+// each lane over its rooms (tt_choose_room_warp). `occ` (T x R) comes
+// in zeroed and leaves as the occupancy of (slots, rooms_out); padded
+// events choose a room but occupy nothing. The caller syncs before (so
+// and occ ready) and after.
 __device__ __forceinline__ void tt_match_rooms_block(const TTRoomProblem& rp,
                                                      const int* ord,
                                                      const int* so,
@@ -191,39 +224,70 @@ __device__ __forceinline__ void tt_relocate_warp(const TTRoomProblem& rp,
 // slots, one warp a slot (as tt_match_rooms_block). The block first
 // buckets the events by slot, each slot's in increasing event index (a
 // stable counting sort, tt_bucket_by_slot); a warp then works on its
-// slot's events 32 at a time, lane = event, with the slot's owner row in
-// lane = capacity rank. Rooms are bits in capacity-rank order: each
-// event's suitability word (bit k: the room of capacity rank k suits it,
-// ProblemArrays.suit_rank), so "the free suitable room of least capacity
-// rank" is the lowest set bit of suit & free (__ffs). Every bid goes to
-// the least event index among the events that chose the same cell:
-// within a chunk the lowest lane of the cell's ballot, across chunks the
-// first chunk, through the mask of cells an earlier chunk bid for. Bids
-// within a stage are simultaneous: every choice of a stage is made on
-// the state the stage started from.
+// slot's events 32 at a time, lane = event, with the slot's rank rows
+// (owner, evictor, park keys, room) in shared memory and lane l
+// answering for ranks l, l + 32, .... Rooms are bits in capacity-rank
+// order, NW = ceil(R / 32) words: each event's suitability words (bit k
+// of word j: the room of capacity rank 32j + k suits it,
+// ProblemArrays.suit_rank), and the warp's words of vacant ranks, of
+// movable ones and of the ranks a stage has bid for. So "the free
+// suitable room of least capacity rank" is the first word of suit & free
+// with a bit set, and its lowest bit (__ffs). Every bid goes to the least
+// event index among the events that chose the same rank: within a chunk
+// the lowest lane of the rank's __match_any_sync peers, across chunks
+// the first chunk, through the bid-for words, which take each chunk's
+// ranks. Bids within a stage are simultaneous: every choice of a stage
+// is made on the state the stage started from.
 
 // the rank-ordered rooms of a problem
 struct TTRankRooms {
-    const uint32_t* suit;  // (E,) bit k: the room of capacity rank k suits
+    const uint32_t* suit;  // (E, nw) bit k of word j: rank 32j + k suits
     const int* room_of;    // (R,) the room of capacity rank k
+    int nw;                // words an event, ceil(R / 32)
 };
+
+// The least rank whose bit is set in both of the nw-word masks s and m,
+// -1 when none is.
+__device__ __forceinline__ int tt_first_rank(const uint32_t* s,
+                                             const uint32_t* m, int nw) {
+    for (int w = 0; w < nw; ++w) {
+        const uint32_t x = s[w] & m[w];
+        if (x) return 32 * w + __ffs(x) - 1;
+    }
+    return -1;
+}
+
+// bit k of the nw-word mask m
+__device__ __forceinline__ bool tt_rank_bit(const uint32_t* m, int k) {
+    return (m[k >> 5] >> (k & 31)) & 1u;
+}
 
 // parallel_assign_rooms's start (rooms.py:320-322): the suitable room of
 // least capacity rank, ignoring occupancy; room 0 when none is suitable.
 __device__ __forceinline__ int tt_best_fit_room(const TTRankRooms& rr,
                                                 int e) {
-    const uint32_t s = rr.suit[e];
-    return s ? rr.room_of[__ffs(s) - 1] : 0;
+    const uint32_t* s = rr.suit + (size_t)e * rr.nw;
+    for (int w = 0; w < rr.nw; ++w)
+        if (s[w]) return rr.room_of[32 * w + __ffs(s[w]) - 1];
+    return 0;
+}
+
+// ints of one warp's rank rows: owners, evictors, the two park keys and
+// the rooms (32 NW each), then the vacant, movable and bid-for words
+__host__ __device__ __forceinline__ int tt_rank_row_ints(int R) {
+    const int nw = (R + 31) / 32;
+    return 5 * 32 * nw + 3 * nw;
 }
 
 // ints of scratch tt_parallel_rooms_block takes in a block of n_warps
-// warps: each event's matched rank, suitability word and live flag, the
-// events bucketed by slot with each slot's start (T + 1) and each chunk
-// of 32 events' per-slot counts, and a warp's rank rows (owners,
-// evictors, park keys, rooms)
-__host__ __device__ __forceinline__ int tt_parallel_rooms_ints(int E, int T,
+// warps: each event's matched rank, suitability words (NW) and live flag,
+// the events bucketed by slot with each slot's start (T + 1) and each
+// chunk of 32 events' per-slot counts, and a warp's rank rows
+__host__ __device__ __forceinline__ int tt_parallel_rooms_ints(int E, int R,
+                                                              int T,
                                                               int n_warps) {
-    return 4 * E + T + 1 + (E + 31) / 32 * T + 160 * n_warps;
+    return (3 + (R + 31) / 32) * E + T + 1 + (E + 31) / 32 * T
+           + tt_rank_row_ints(R) * n_warps;
 }
 
 // The events of (E,) slots `sl` bucketed by slot into `lst`, each
@@ -283,36 +347,40 @@ __device__ __forceinline__ void tt_bucket_by_slot(const int* sl, int E,
     }
 }
 
-// One bid of each lane of a chunk (`bid`: it bids for cell k < 32):
-// whether it wins, being the least event of the chunk's bidders for k
-// (lanes hold the slot's events in increasing order: the lowest lane of
-// the cell's ballot) with no bid for k from an earlier chunk
-// (`claimed`, which takes this chunk's cells): one ballot per cell that
-// this chunk is the first to bid for.
+// Clear the nw-word mask m (the warp; it syncs after).
+__device__ __forceinline__ void tt_clear_words(uint32_t* m, int nw,
+                                               int lane) {
+    for (int w = lane; w < nw; w += 32) m[w] = 0u;
+    __syncwarp();
+}
+
+// One bid of each lane of a chunk (`bid`: it bids for rank k): whether it
+// wins, being the least event of the chunk's bidders for k (lanes hold
+// the slot's events in increasing order: the lowest lane of the rank's
+// peers) with no bid for k from an earlier chunk (`claimed`, the
+// bid-for words, which take this chunk's ranks).
 __device__ __forceinline__ bool tt_bid_wins(bool bid, int k,
-                                            unsigned& claimed, int lane) {
-    const unsigned cells =
-        __reduce_or_sync(TT_FULL_MASK, bid ? 1u << k : 0u);
-    bool win = false;
-    for (unsigned fresh = cells & ~claimed; fresh; fresh &= fresh - 1u) {
-        const int b = __ffs(fresh) - 1;
-        win |= __ffs(__ballot_sync(TT_FULL_MASK, bid && k == b)) - 1 == lane;
-    }
-    claimed |= cells;
+                                            uint32_t* claimed, int lane) {
+    const unsigned peers = __match_any_sync(TT_FULL_MASK, bid ? k : -1);
+    const bool first = bid && __ffs(peers) - 1 == lane;
+    const bool win = first && !tt_rank_bit(claimed, k);
+    __syncwarp();
+    if (first) atomicOr(&claimed[k >> 5], 1u << (k & 31));
+    __syncwarp();
     return win;
 }
 
-// The park choice (rooms.py:282-286) of an event with suitability word
+// The park choice (rooms.py:282-286) of an event with suitability words
 // `suit`: the rank of least K1 room key, `ks[k]` where rank k suits it
 // and `ku[k]` where it does not (the keys on the slot's current
 // occupancy), ties to the lower room index `rk[k]` as jnp.argmin over
 // rooms takes them.
-__device__ __forceinline__ int tt_park_rank(uint32_t suit, const int* ks,
-                                            const int* ku, const int* rk,
-                                            int R) {
+__device__ __forceinline__ int tt_park_rank(const uint32_t* suit,
+                                            const int* ks, const int* ku,
+                                            const int* rk, int R) {
     int best = 0x7fffffff, best_room = 0x7fffffff, best_k = 0;
     for (int k = 0; k < R; ++k) {
-        const int key = ((suit >> k) & 1u) ? ks[k] : ku[k];
+        const int key = tt_rank_bit(suit, k) ? ks[k] : ku[k];
         if (key < best || (key == best && rk[k] < best_room)) {
             best = key;
             best_room = rk[k];
@@ -322,53 +390,77 @@ __device__ __forceinline__ int tt_park_rank(uint32_t suit, const int* ks,
     return best_k;
 }
 
+// The ranks k < R with no owner, as the nw words `vac` (the warp; it
+// syncs after).
+__device__ __forceinline__ void tt_vacant_words(const int* own, int R,
+                                                int nw, uint32_t* vac,
+                                                int lane) {
+    for (int w = 0; w < nw; ++w) {
+        const int k = 32 * w + lane;
+        const unsigned b = __ballot_sync(TT_FULL_MASK, k < R && own[k] < 0);
+        if (lane == 0) vac[w] = b;
+    }
+    __syncwarp();
+}
+
 // augment_rooms (rooms.py:154) of slot t of one individual, on one warp:
 // `rm` holds the incoming rooms (all < R) and leaves with the result for
 // the slot's events; `mr` (E) takes their matched ranks (-1 unmatched,
 // -2 a padded event parked unmatched), `lst` (n) lists them in
-// increasing order; `su` and `lv` (E) are the events' suitability words
-// and live flags. The warp's `own` (5 x 32) holds the owner of each rank
-// (-1 none), stage 2's evictors, the park keys of each rank when it suits
-// and when not, and rank k's room `rk[k]`; lane k holds rank k's key part
-// `base` (k + dead) and room k's rank `cap`. With `occ_out` (T x R), the
-// slot's row of the result's occupancy is written there.
-// n_rounds rounds of length-1 then length-3 augments, two park bid
-// rounds, then the stragglers' fallback; padded events bid in the
-// augment rounds as every event does, enter the park phase parked, and
-// keep their incoming room.
+// increasing order; `su` (E x NW) and `lv` (E) are the events'
+// suitability words and live flags. The warp's rank rows `own`
+// (tt_rank_row_ints) hold the owner of each rank (-1 none), stage 2's
+// evictors, the park keys of each rank when it suits and when not, and
+// rank k's room `rk[k]`, then the vacant, movable and bid-for words;
+// stage 2 keeps each owner's best free rank in the second park row and
+// the least owner bidding for each free rank in the first. With
+// `occ_out` (T x R), the slot's row of the result's occupancy is
+// written there. n_rounds rounds of length-1 then length-3 augments, two
+// park bid rounds, then the stragglers' fallback; padded events bid in
+// the augment rounds as every event does, enter the park phase parked,
+// and keep their incoming room.
 __device__ __forceinline__ void tt_parallel_rooms_slot(
     const TTRoomProblem& rp, const int* sl, int* rm, int* mr,
     const uint32_t* su, const int* lv, const int* lst, int n, int* own,
-    int t, int n_rounds, int lane, int base, int cap, int* occ_out) {
-    const int R = rp.R;
-    int *evict = own + 32, *ks = evict + 32, *ku = ks + 32, *rk = ku + 32;
-    own[lane] = -1;
-    __syncwarp();
+    int t, int n_rounds, int lane, int* occ_out) {
+    const int R = rp.R, nw = (R + 31) / 32, Rp = 32 * nw;
+    int *evict = own + Rp, *ks = evict + Rp, *ku = ks + Rp, *rk = ku + Rp;
+    uint32_t* vac = (uint32_t*)(rk + Rp);
+    uint32_t* mov = vac + nw;
+    uint32_t* claimed = mov + nw;
+    if (n == 0) {
+        // an empty slot: nothing to match, its occupancy row zero
+        if (occ_out)
+            for (int r = lane; r < R; r += 32) occ_out[t * R + r] = 0;
+        __syncwarp();
+        return;
+    }
+    for (int k = lane; k < Rp; k += 32) own[k] = -1;
+    tt_clear_words(claimed, nw, lane);
     // owner0: the least event of each incoming (slot, room) cell; it is
     // matched when the room suits it
-    unsigned claimed = 0;
     for (int c = 0; c < n; c += 32) {
         const bool act = c + lane < n;
         const int e = act ? lst[c + lane] : 0;
-        const int k = __shfl_sync(TT_FULL_MASK, cap, act ? rm[e] : 0);
-        const bool m =
-            tt_bid_wins(act, k, claimed, lane) && ((su[e] >> k) & 1u);
+        const int k = act ? rp.cap_rank[rm[e]] : 0;
+        const bool m = tt_bid_wins(act, k, claimed, lane)
+                       && tt_rank_bit(su + (size_t)e * nw, k);
         if (act) mr[e] = m ? k : -1;
         if (m) own[k] = e;
     }
     __syncwarp();
     for (int round = 0; round < n_rounds; ++round) {
         // ---- stage 1: an unmatched event grabs its best free room
-        int o = lane < R ? own[lane] : -1;
-        unsigned vacant = __ballot_sync(TT_FULL_MASK, lane < R && o < 0);
-        __syncwarp();
-        claimed = 0;
-        unsigned any = 0;
+        tt_vacant_words(own, R, nw, vac, lane);
+        tt_clear_words(claimed, nw, lane);
+        unsigned any = 0, grabbed = 0;
         for (int c = 0; c < n; c += 32) {
             const bool act = c + lane < n && mr[lst[c + lane]] == -1;
             any |= __ballot_sync(TT_FULL_MASK, act);
             const int e = act ? lst[c + lane] : 0;
-            const int k = act ? __ffs(su[e] & vacant) - 1 : -1;
+            const int k = act ? tt_first_rank(su + (size_t)e * nw, vac, nw)
+                              : -1;
+            grabbed |= __ballot_sync(TT_FULL_MASK, k >= 0);
             if (tt_bid_wins(k >= 0, k, claimed, lane)) {
                 mr[e] = k;
                 own[k] = e;
@@ -376,44 +468,46 @@ __device__ __forceinline__ void tt_parallel_rooms_slot(
         }
         // nothing unmatched: every later stage is a no-op
         if (!any) break;
-        const bool grabbed = claimed != 0u;
         __syncwarp();
         // ---- stage 2: e takes an owned room k whose owner f moves on to
         // its own best free room fr of the slot; both claims bid
-        o = lane < R ? own[lane] : -1;
-        vacant = __ballot_sync(TT_FULL_MASK, lane < R && o < 0);
-        const uint32_t fs = o >= 0 ? su[o] & vacant : 0u;
-        const int fr = __ffs(fs) - 1;
-        const unsigned movable = __ballot_sync(TT_FULL_MASK, fs != 0u);
-        claimed = 0;
+        tt_vacant_words(own, R, nw, vac, lane);
+        for (int w = 0; w < nw; ++w) {
+            const int k = 32 * w + lane;
+            const int o = k < R ? own[k] : -1;
+            const int fr =
+                o >= 0 ? tt_first_rank(su + (size_t)o * nw, vac, nw) : -1;
+            ku[k] = fr;
+            ks[k] = 0x7fffffff;
+            const unsigned b = __ballot_sync(TT_FULL_MASK, fr >= 0);
+            if (lane == 0) mov[w] = b;
+        }
+        tt_clear_words(claimed, nw, lane);
         for (int c = 0; c < n; c += 32) {
             const bool act = c + lane < n && mr[lst[c + lane]] == -1;
             const int e = act ? lst[c + lane] : 0;
-            const int k = act ? __ffs(su[e] & movable) - 1 : -1;
+            const int k = act ? tt_first_rank(su + (size_t)e * nw, mov, nw)
+                              : -1;
             if (tt_bid_wins(k >= 0, k, claimed, lane)) evict[k] = e;
         }
         __syncwarp();
         // every rank bid for has its winner; its owner bids for fr, the
         // least owner of each fr winning it
-        const bool ev = (claimed >> lane) & 1u;
-        const int by = ev ? evict[lane] : 0;
-        unsigned targets = __reduce_or_sync(TT_FULL_MASK, ev ? 1u << fr : 0u);
-        bool moves = false;
-        while (targets) {
-            const int b = __ffs(targets) - 1;
-            targets &= targets - 1u;
-            const bool mine = ev && fr == b;
-            const unsigned least = __reduce_min_sync(
-                TT_FULL_MASK, mine ? (unsigned)o : 0xffffffffu);
-            moves |= mine && (unsigned)o == least;
-        }
+        for (int k = lane; k < R; k += 32)
+            if (tt_rank_bit(claimed, k)) atomicMin(&ks[ku[k]], own[k]);
+        __syncwarp();
         // the non-colliding augments: f -> fr, e -> k (e unmatched, f
-        // matched; fr free, k owned)
-        if (moves) {
+        // matched; fr free, k owned, so no rank is both written and read)
+        bool moves = false;
+        for (int k = lane; k < R; k += 32) {
+            if (!tt_rank_bit(claimed, k)) continue;
+            const int o = own[k], fr = ku[k], by = evict[k];
+            if (ks[fr] != o) continue;
+            moves = true;
             mr[o] = fr;
-            mr[by] = lane;
+            mr[by] = k;
             own[fr] = o;
-            own[lane] = by;
+            own[k] = by;
         }
         __syncwarp();
         // a round that changed nothing repeats itself: the rest are no-ops
@@ -425,32 +519,42 @@ __device__ __forceinline__ void tt_parallel_rooms_slot(
         const int e = lst[c];
         if (mr[e] == -1 && !lv[e]) mr[e] = -2;
     }
+    // rank k's park keys on the slot's occupancy (1 where owned)
+    for (int k = lane; k < R; k += 32) {
+        const int occ = own[k] >= 0 ? 1 : 0;
+        const int base = k + rp.dead[rk[k]];
+        ks[k] = occ * TT_W_COST + base;
+        ku[k] = (occ + 1) * TT_W_COST + TT_W_UNSUIT + base;
+    }
     __syncwarp();
-    // lane k: rank k's occupancy and its park keys
-    int occ = lane < R && own[lane] >= 0 ? 1 : 0;
-    for (int pr = 0; pr < 3; ++pr) {
-        ks[lane] = occ * TT_W_COST + base;
-        ku[lane] = (occ + 1) * TT_W_COST + TT_W_UNSUIT + base;
-        __syncwarp();
-        if (pr == 2) break;
-        claimed = 0;
+    for (int pr = 0; pr < 2; ++pr) {
+        tt_clear_words(claimed, nw, lane);
         for (int c = 0; c < n; c += 32) {
             const bool act = c + lane < n && mr[lst[c + lane]] == -1;
             const int e = act ? lst[c + lane] : 0;
-            const int k = act ? tt_park_rank(su[e], ks, ku, rk, R) : 0;
+            const int k =
+                act ? tt_park_rank(su + (size_t)e * nw, ks, ku, rk, R) : 0;
             if (tt_bid_wins(act, k, claimed, lane)) mr[e] = k;
         }
-        // each cell bid for took one winner
-        occ += (claimed >> lane) & 1u;
+        __syncwarp();
+        // each rank bid for took one winner
+        for (int k = lane; k < R; k += 32)
+            if (tt_rank_bit(claimed, k)) {
+                ks[k] += TT_W_COST;
+                ku[k] += TT_W_COST;
+            }
         __syncwarp();
     }
     // stragglers take the current argmin; padded events keep their room
-    if (occ_out && lane < R) occ_out[t * R + lane] = 0;
+    if (occ_out)
+        for (int r = lane; r < R; r += 32) occ_out[t * R + r] = 0;
     __syncwarp();
     for (int c = lane; c < n; c += 32) {
         const int e = lst[c];
         if (!lv[e]) continue;
-        const int k = mr[e] >= 0 ? mr[e] : tt_park_rank(su[e], ks, ku, rk, R);
+        const int k = mr[e] >= 0
+                          ? mr[e]
+                          : tt_park_rank(su + (size_t)e * nw, ks, ku, rk, R);
         rm[e] = rk[k];
         if (occ_out) atomicAdd(&occ_out[t * R + rk[k]], 1);
     }
@@ -460,29 +564,26 @@ __device__ __forceinline__ void tt_parallel_rooms_slot(
 
 // augment_rooms of one individual on the whole block, a warp a slot:
 // `sl` and `rm` (E each, `rm` the incoming rooms, all < R, and the
-// result) in shared memory, `scratch` tt_parallel_rooms_ints(E, T,
+// result) in shared memory, `scratch` tt_parallel_rooms_ints(E, R, T,
 // warps) ints; with `occ` (T x R), the result's occupancy is written
 // there. The caller syncs before and after.
 __device__ __forceinline__ void tt_parallel_rooms_block(
     const TTRoomProblem& rp, const TTRankRooms& rr, const int* sl, int* rm,
     int* scratch, int n_rounds, int* occ) {
-    const int E = rp.E, T = rp.T, lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+    const int E = rp.E, R = rp.R, T = rp.T, nw = rr.nw;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5;
     int* mr = scratch;
     uint32_t* su = (uint32_t*)(mr + E);
-    int* lv = (int*)(su + E);
+    int* lv = (int*)(su + (size_t)E * nw);
     int* lst = lv + E;
     int* start = lst + E;
     int* cnt = start + T + 1;
-    int* own = cnt + (E + 31) / 32 * T + 160 * warp;
-    for (int e = threadIdx.x; e < E; e += blockDim.x) {
-        su[e] = rr.suit[e];
-        lv[e] = rp.live[e];
-    }
-    const int room = lane < rp.R ? rr.room_of[lane] : 0;
-    const int base = lane < rp.R ? lane + rp.dead[room] : 0;
-    const int cap = lane < rp.R ? rp.cap_rank[lane] : 0;
-    own[128 + lane] = room;
+    int* own = cnt + (E + 31) / 32 * T + tt_rank_row_ints(R) * warp;
+    for (int i = threadIdx.x; i < E * nw; i += blockDim.x) su[i] = rr.suit[i];
+    for (int e = threadIdx.x; e < E; e += blockDim.x) lv[e] = rp.live[e];
+    // the warp's rank-to-room row
+    for (int k = lane; k < R; k += 32) own[4 * 32 * nw + k] = rr.room_of[k];
     // `mr` is the bucketing's scratch until the slots' matchings start
     tt_bucket_by_slot(sl, E, T, lst, start, cnt, mr);
     __syncthreads();
@@ -490,5 +591,5 @@ __device__ __forceinline__ void tt_parallel_rooms_block(
     for (int t = warp; t < T; t += n_warps)
         tt_parallel_rooms_slot(rp, sl, rm, mr, su, lv, lst + start[t],
                                start[t + 1] - start[t], own, t, n_rounds,
-                               lane, base, cap, occ);
+                               lane, occ);
 }

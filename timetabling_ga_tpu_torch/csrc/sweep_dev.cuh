@@ -167,11 +167,13 @@ __device__ __forceinline__ void tt_move1_target(
 // one warp on the padded 3-relocation candidate (ev, ns, on): the
 // occupancy replay — all removes, then the adds for m = 0, 1, 2, each
 // re-rooming on the row as updated so far — with the <= 6 touched cells
-// kept as a delta list in registers, the room argmin one lane per room
-// with a shuffle reduction (ties to the lower room); then the
+// kept as a delta list in registers, the room argmin over each lane's
+// rooms l, l + 32, ... then a shuffle reduction (ties to the lower room,
+// any R < 4096); then the
 // unsuitable, last-slot and within-move correlation terms. Returns the
 // old slots `os`, the new rooms `nr`, which events change slot
 // (`shift`), and the hcv (*dh) and scv (*ds) terms so far.
+template <bool WIDE>
 __device__ __forceinline__ void tt_delta_rooms_warp(
     const TTSweepProblem& pb, const int* slots, const int* rooms,
     const int16_t* occ, const int ev[3], const int ns[3], const int on[3],
@@ -202,17 +204,30 @@ __device__ __forceinline__ void tt_delta_rooms_warp(
         pair_d -= act[m] * (cell(os[m], orr[m]) - 1);
         dt[m] = os[m]; dr[m] = orr[m]; dv[m] = -act[m];
     }
+    // the key's room part of the lane's first room, in registers; its
+    // rooms from 32 on (tt_wide_rooms) are read as they come
     int cr = lane < R ? pb.cap_rank[lane] : 0;
     int dd = lane < R ? pb.dead[lane] : 0;
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
-        int key = 0x7fffffff;
+        int key = 0x7fffffff, best = lane;
         if (lane < R) {
             int unsuit = pb.possible[ev[m] * R + lane] ? 0 : 1;
             key = (cell(ns[m], lane) + unsuit) * TT_W_COST
                   + unsuit * TT_W_UNSUIT + cr + dd;
         }
-        int rc = tt_warp_argmin(key, lane);
+        // the lane's rooms in increasing order: strict keeps the lowest
+        for (int r = lane + 32; WIDE && r < R; r += 32) {
+            const int unsuit = pb.possible[ev[m] * R + r] ? 0 : 1;
+            const int k = (cell(ns[m], r) + unsuit) * TT_W_COST
+                          + unsuit * TT_W_UNSUIT + pb.cap_rank[r]
+                          + pb.dead[r];
+            if (k < key) {
+                key = k;
+                best = r;
+            }
+        }
+        int rc = tt_warp_argmin(key, best);
         nr[m] = on[m] ? rc : orr[m];
         pair_d += act[m] * cell(ns[m], nr[m]);
         dt[3 + m] = ns[m]; dr[3 + m] = nr[m]; dv[3 + m] = act[m];
@@ -280,7 +295,11 @@ __device__ __forceinline__ uint32_t tt_moved_word(const int ev[3], int w) {
 
 // K4's body (K4, K5, K8, K10): the delta of one padded 3-relocation
 // candidate (events ev, new slots ns, active flags on), run by all 32
-// lanes of one warp; every lane returns the result. After the
+// lanes of one warp; every lane returns the result. Each kernel that
+// runs it has two instances, and its wrapper launches the WIDE one only
+// where tt_wide_rooms(R): the room choice then takes each lane's rooms
+// past the first 32, and at R <= 32 the kernel is the one-room-a-lane
+// code of before, its registers and schedule its own. After the
 // attendance-free terms (tt_delta_rooms_warp), the conflict dots count,
 // for each event m that changes slot, the row's events (moved ones
 // masked out) in its new slot minus those in its old one — popcounts of
@@ -291,6 +310,7 @@ __device__ __forceinline__ uint32_t tt_moved_word(const int ev[3], int w) {
 // attended slots from its amask word (`before`) and recomputes only the
 // bits of the <= 6 slots the move touches from att plus the patch
 // (`after`); every affected day is then re-scored from the two words.
+template <bool WIDE>
 __device__ __forceinline__ void tt_delta_one_bits_warp(
     const TTSweepProblem& pb, const int* slots, const int* rooms,
     const int16_t* att, const int16_t* occ, const uint64_t* amask,
@@ -299,8 +319,8 @@ __device__ __forceinline__ void tt_delta_one_bits_warp(
     const int E = pb.E, T = pb.T, spd = pb.spd, W = pb.W;
     int os[3], dh, ds;
     bool shift[3];
-    tt_delta_rooms_warp(pb, slots, rooms, occ, ev, ns, on, lane, os, shift,
-                        &dh, &ds, nr);
+    tt_delta_rooms_warp<WIDE>(pb, slots, rooms, occ, ev, ns, on, lane, os,
+                              shift, &dh, &ds, nr);
 
     // ---- moved x unmoved correlation: popcounts against slot_ev
     int corr_l = 0;

@@ -64,8 +64,8 @@ namespace cg = cooperative_groups;
 #define K5_BIG (1 << 20)
 #define K5_INT_MAX 0x7fffffff
 // per-step cluster records, two of each for the parity double buffer:
-// (pen, scv, idx, hcv, packed rooms) of the lexicographic min and
-// (noise, idx, pen, scv, hcv, packed rooms) of the tie argmax
+// (pen, scv, idx, hcv | rooms hi, rooms lo) of the lexicographic min and
+// (noise, idx, pen, scv, hcv | rooms hi, rooms lo) of the tie argmax
 #define K5_LEX_REC 5
 #define K5_ARG_REC 6
 // block-wide scalars: the Move1 accumulator and the row's (pen, hcv, scv,
@@ -203,13 +203,35 @@ __device__ __forceinline__ int k5_owner(int c, int n1, int T, int CS) {
     return c < n1 ? (c / T) % CS : ((c - n1) / K5_WARPS) % CS;
 }
 
-// New (pen, scv, hcv) and packed rooms of candidate `c`; `st` holds the
-// individual's (pen, hcv, scv). The anchor residual and the candidate's
-// anchor delta enter only on anchored instances, as in the plain version.
+// A candidate's hcv and three new rooms in 64 bits, any R < 4096 (12
+// bits a room): lo = nr0 | nr1 << 12 | (nr2 & 255) << 24, hi = hcv << 4
+// | nr2 >> 8. hcv stays below 2^25 for E < 4096 (at most E(E-1)/2 clash
+// pairs and as many correlated pairs, the events, and K5_BIG on a
+// masked candidate), so hi never overflows.
+__device__ __forceinline__ int k5_pack_hi(int hcv, int nr2) {
+    return (hcv << 4) | (nr2 >> 8);
+}
+
+__device__ __forceinline__ int k5_pack_lo(int nr0, int nr1, int nr2) {
+    return (int)((unsigned)nr0 | (unsigned)nr1 << 12
+                 | ((unsigned)nr2 & 255u) << 24);
+}
+
+__device__ __forceinline__ int k5_unpack_room(int hi, int lo, int m) {
+    const unsigned u = (unsigned)lo;
+    return m == 0 ? (int)(u & 4095u)
+         : m == 1 ? (int)((u >> 12) & 4095u)
+                  : (int)((u >> 24) | ((unsigned)hi & 15u) << 8);
+}
+
+// New (pen, scv) and the packed hcv and rooms of candidate `c`; `st`
+// holds the individual's (pen, hcv, scv). The anchor residual and the
+// candidate's anchor delta enter only on anchored instances, as in the
+// plain version.
 __device__ __forceinline__ void k5_store(
     const K5Args& A, const int* st, const int* slots, int c, int dh, int ds,
     const int ev[3], const int ns[3], int nr0, int nr1, int nr2,
-    int* c_pen, int* c_scv, int* c_hcv, int* c_nr) {
+    int* c_pen, int* c_scv, int* c_hi, int* c_lo) {
     int hcv = st[1] + dh, scv = st[2] + ds;
     int pen = k5_base_penalty(hcv, scv);
     if (A.anchored) {
@@ -224,8 +246,8 @@ __device__ __forceinline__ void k5_store(
     }
     c_pen[c] = pen;
     c_scv[c] = scv;
-    c_hcv[c] = hcv;
-    c_nr[c] = nr0 | (nr1 << 10) | (nr2 << 20);
+    c_hi[c] = k5_pack_hi(hcv, nr2);
+    c_lo[c] = k5_pack_lo(nr0, nr1, nr2);
 }
 
 // Event heat (sweep.py:173): while infeasible the clash count of e's
@@ -367,6 +389,7 @@ __device__ __forceinline__ void k5_cluster_reduce(cg::cluster_group& cl,
 
 // Two CTAs an SM (at most 64 registers a thread): a repair pass of 256
 // individuals then runs in one wave on 132 SMs instead of two.
+template <bool WIDE>
 __global__ void __launch_bounds__(K5_THREADS, 2)
     sweep_pass_kernel(K5Args A) {
     extern __shared__ __align__(16) unsigned char k5_smem[];
@@ -381,8 +404,8 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
     float* heat = (float*)(k5_smem + A.lay.heat);
     int* c_pen = (int*)(k5_smem + A.lay.cand);
     int* c_scv = c_pen + A.n_cand;
-    int* c_hcv = c_scv + A.n_cand;
-    int* c_nr = c_hcv + A.n_cand;
+    int* c_hi = c_scv + A.n_cand;
+    int* c_lo = c_hi + A.n_cand;
     int* per_slot = (int*)(k5_smem + A.lay.per_slot);
     int* misc = (int*)(k5_smem + A.lay.misc);
     uint64_t* masks = (uint64_t*)(k5_smem + A.lay.masks);
@@ -477,8 +500,8 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
                 int ev[3] = {e, (e + 1) % E, (e + 2) % E};
                 int ns[3] = {tid, slots[ev[1]], slots[ev[2]]};
                 k5_store(A, st, slots, b * T + tid, dh, ds, ev, ns, nr,
-                         rooms[ev[1]], rooms[ev[2]], c_pen, c_scv, c_hcv,
-                         c_nr);
+                         rooms[ev[1]], rooms[ev[2]], c_pen, c_scv, c_hi,
+                         c_lo);
             }
         }
         TT_PROF(0);
@@ -489,11 +512,12 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
             int ev[3], ns[3], on[3], nr[3], invalid, dh, ds;
             k5_candidate(A, perm_a, perm_b, piv, slots, pos, c, ev, ns, on,
                          &invalid);
-            tt_delta_one_bits_warp(pb, slots, rooms, att, occ, amask,
-                                   slot_ev, ev, ns, on, lane, &dh, &ds, nr);
+            tt_delta_one_bits_warp<WIDE>(pb, slots, rooms, att, occ,
+                                         amask, slot_ev, ev, ns, on, lane,
+                                         &dh, &ds, nr);
             if (lane == 0)
                 k5_store(A, st, slots, c, invalid ? K5_BIG : dh, ds, ev, ns,
-                         nr[0], nr[1], nr[2], c_pen, c_scv, c_hcv, c_nr);
+                         nr[0], nr[1], nr[2], c_pen, c_scv, c_hi, c_lo);
             TT_PROF(4);
         }
         TT_PROF(4);
@@ -514,8 +538,8 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
             int* r = lexrec + K5_LEX_REC * buf;
             const bool any = best != K5_INT_MAX;
             r[0] = row_min; r[1] = scv_min; r[2] = best;
-            r[3] = any ? c_hcv[best] : 0;
-            r[4] = any ? c_nr[best] : 0;
+            r[3] = any ? c_hi[best] : 0;
+            r[4] = any ? c_lo[best] : 0;
         }
         TT_PROF(6);
         k5_cluster_sync(cl, CS);
@@ -527,7 +551,7 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
             });
         TT_PROF(11);
         row_min = win[0]; scv_min = win[1]; best = win[2];
-        int bp = row_min, bs = scv_min, bh = win[3], bnr = win[4];
+        int bp = row_min, bs = scv_min, bhi = win[3], blo = win[4];
         int allow = 0;
         if (A.sideways) {
             // drift: any penalty tie; descent: the lexicographic ties;
@@ -553,8 +577,8 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
                 r[0] = __float_as_int(bv); r[1] = bi;
                 r[2] = any ? c_pen[bi] : 0;
                 r[3] = any ? c_scv[bi] : 0;
-                r[4] = any ? c_hcv[bi] : 0;
-                r[5] = any ? c_nr[bi] : 0;
+                r[4] = any ? c_hi[bi] : 0;
+                r[5] = any ? c_lo[bi] : 0;
             }
             TT_PROF(7);
             k5_cluster_sync(cl, CS);
@@ -566,7 +590,7 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
                                          __int_as_float(y[0]), y[1]);
                 });
             TT_PROF(11);
-            best = aw[1]; bp = aw[2]; bs = aw[3]; bh = aw[4]; bnr = aw[5];
+            best = aw[1]; bp = aw[2]; bs = aw[3]; bhi = aw[4]; blo = aw[5];
         }
         if (tid == 0) {
             bool strict = bp < st[0] || (bp == st[0] && bs < st[2]);
@@ -585,9 +609,9 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
                     mv[4 + m] = slots[ev[m]];
                     mv[7 + m] = rooms[ev[m]];
                     mv[10 + m] = ns[m];
-                    mv[13 + m] = (bnr >> (10 * m)) & 1023;
+                    mv[13 + m] = k5_unpack_room(bhi, blo, m);
                 }
-                st[0] = bp; st[1] = bh; st[2] = bs;
+                st[0] = bp; st[1] = bhi >> 4; st[2] = bs;
             }
         }
         __syncthreads();
@@ -651,16 +675,21 @@ extern "C" int tt_sweep_pass(
     int spd, int W, int max_students, int K, int B, int SB, int n_steps,
     int n_cand, int use_hot, int sideways, int anchored, int cluster,
     void* stream) {
-    if (P <= 0 || E < 3 || T > 64 || T > K5_THREADS || R > 32 || spd > 32
-        || K <= 0 || B <= 0 || SB < 0 || n_steps <= 0 || n_cand < B * T
+    if (P <= 0 || E < 3 || !tt_rooms_fit(E, R) || T > 64 || T > K5_THREADS
+        || spd > 32 || K <= 0 || B <= 0 || SB < 0 || n_steps <= 0
+        || n_cand < B * T
         || cluster < 1 || cluster > K5_MAX_CLUSTER
         || (use_hot && !hot_noise) || (sideways && (!tie_noise || !allow)))
         return (int)cudaErrorInvalidValue;
     K5Smem lay = k5_smem_layout(E, R, S, T, K, n_cand, use_hot,
                                 max_students, W);
     if (lay.total > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
+    // the instance that chooses among rooms past the first 32, where
+    // there are some
+    const auto kernel = tt_wide_rooms(R) ? sweep_pass_kernel<true>
+                               : sweep_pass_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        sweep_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)lay.total);
     if (err != cudaSuccess) return (int)err;
     K5Args A;
@@ -695,10 +724,10 @@ extern "C" int tt_sweep_pass(
     cfg.numAttrs = 1;
     // a cluster the card cannot place is refused, never shrunk
     int n_clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&n_clusters, sweep_pass_kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n_clusters, kernel, &cfg);
     if (err != cudaSuccess) return (int)err;
     if (n_clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-    err = cudaLaunchKernelEx(&cfg, sweep_pass_kernel, A);
+    err = cudaLaunchKernelEx(&cfg, kernel, A);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

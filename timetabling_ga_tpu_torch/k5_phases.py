@@ -338,12 +338,14 @@ def _lahc_copy(state):
 
 
 def device_us_per_launch(fn, kernel, reps=REPS, sessions=3):
-    """Device time of one launch of `kernel` (its CUDA kernel's name
-    prefix) over `reps` calls of `fn`, from torch.profiler; a session
+    """Device time of one launch of `kernel` (the entry point its CUDA
+    kernel's name gives, obs/prof.py kernel_entry: a templated instance
+    too) over `reps` calls of `fn`, from torch.profiler; a session
     whose trace lacks the kernel (the profiler drops one now and then) is
     taken again, up to `sessions` times, then None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from timetabling_ga_tpu_torch.obs.prof import kernel_entry
     fn()
     torch.cuda.synchronize()
     for _ in range(sessions):
@@ -354,7 +356,7 @@ def device_us_per_launch(fn, kernel, reps=REPS, sessions=3):
             torch.cuda.synchronize()
         for ev in prof.key_averages():
             if getattr(ev, "device_type", None) == DeviceType.CUDA and \
-                    ev.key.startswith(f"{kernel}_kernel") and ev.count:
+                    kernel_entry(ev.key) == kernel and ev.count:
                 us = getattr(ev, "self_device_time_total", None)
                 if us is None:
                     us = ev.self_cuda_time_total

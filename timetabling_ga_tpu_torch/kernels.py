@@ -122,6 +122,16 @@ _LOCK = threading.Lock()
 BUILD_INFO: dict = {"seconds": None, "total_seconds": 0.0, "ptxas": {}}
 
 
+def check_smem(name: str, smem: int) -> None:
+    """Raise ValueError, before any launch, where one block of kernel
+    `name` would need `smem` bytes of shared memory, more than
+    SMEM_LIMIT."""
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: one individual's state needs {smem} bytes of shared "
+            f"memory, more than the {SMEM_LIMIT} a block can have")
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0

@@ -420,7 +420,7 @@ K8_EVENT_BYTES = 12288
 K8_MAX_WARPS = 16
 
 
-def random_ls_smem_bytes(pa, n_candidates: int) -> int:
+def random_ls_smem(pa, n_candidates: int) -> tuple[int, bool]:
     """Dynamic shared memory K8 takes per individual, the layout of
     csrc/random_ls.cu `k8_smem_layout`: slots, rooms, two buffers of 18
     ints per candidate, amask (8 B a student), slot_ev (T x W words),
@@ -428,7 +428,7 @@ def random_ls_smem_bytes(pa, n_candidates: int) -> int:
     epilogue's live-event words and reduction scratch (W + 4 x
     K8_MAX_WARPS ints), each rounded up to 16 bytes, plus the conflict
     bitset when the total still fits in SMEM_LIMIT (else K8 reads it
-    from global memory)."""
+    from global memory). Returns (bytes, bits staged)."""
     E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
     W = pa.conflict_bits.shape[1]
     K = n_candidates
@@ -437,7 +437,14 @@ def random_ls_smem_bytes(pa, n_candidates: int) -> int:
              2 * S * T, 6 * K * chunk, 4 * (W + 4 * K8_MAX_WARPS))
     total = sum(-(-x // 16) * 16 for x in parts)
     with_bits = total + -(-4 * E * W // 16) * 16
-    return with_bits if with_bits <= kernels.SMEM_LIMIT else total
+    if with_bits <= kernels.SMEM_LIMIT:
+        return with_bits, True
+    return total, False
+
+
+def random_ls_smem_bytes(pa, n_candidates: int) -> int:
+    """Dynamic shared memory K8 takes per individual (random_ls_smem)."""
+    return random_ls_smem(pa, n_candidates)[0]
 
 
 def random_ls_events_plain(draws: LSDraws) -> torch.Tensor:
@@ -498,12 +505,7 @@ def random_ls_chain(pa, draws: LSDraws, rows: LSRows,
         lane_pa, pa = pa, pa.first
     n_rounds, K, P = draws.mtype.shape
     E = rows.slots.shape[1]
-    smem = random_ls_smem_bytes(pa, K)
-    if smem > kernels.SMEM_LIMIT:
-        raise ValueError(
-            f"random_ls: one individual's state needs {smem} bytes of "
-            f"shared memory, more than the {kernels.SMEM_LIMIT} a block "
-            f"can have")
+    kernels.check_smem("random_ls", random_ls_smem_bytes(pa, K))
     if any(x.dtype != torch.int32 for x in rows):
         raise TypeError("random_ls takes int32 slots, rooms, pen, hcv and "
                         "scv")

@@ -54,8 +54,8 @@ from timetabling_ga_tpu_torch.ops.local_search import batch_local_search
 from timetabling_ga_tpu_torch.ops.moves import (
     MoveDraws, make_move_draws, random_move_plain)
 from timetabling_ga_tpu_torch.ops.rooms import (
-    assign_rooms, assign_rooms_plain, augment_rooms_plain, best_fit_rooms,
-    check_packing)
+    BLOCK_WARPS, assign_rooms, assign_rooms_plain, augment_rooms_plain,
+    best_fit_rooms, check_packing, parallel_rooms_ints)
 from timetabling_ga_tpu_torch.ops.sweep import (
     make_sweep_draws, sweep_local_search, sweep_shape)
 from timetabling_ga_tpu_torch.problem import LaneProblems
@@ -342,6 +342,18 @@ def make_children_lanes_plain(lp: LaneProblems, draws: BreedDraws,
     return (rows, out[5]) if with_parent else rows
 
 
+def breed_smem_bytes(pa, parallel: bool) -> int:
+    """Shared memory of one K6 breeding block (csrc/breed.cu tt_breed):
+    the child's slots, rooms and (T, R) int32 occupancy, the greedy
+    matcher's slots in matching order or the parallel matcher's scratch,
+    the child's slot bitsets (T x W words) and the reduction's 4 ints a
+    warp."""
+    E, R, T = pa.n_events, pa.n_rooms, pa.n_slots
+    so = parallel_rooms_ints(E, R, T) if parallel else E
+    return 4 * (2 * E + T * R + so + T * pa.conflict_bits.shape[1]
+                + 4 * BLOCK_WARPS)
+
+
 def make_children_kernel(pa, draws: BreedDraws, state: PopState,
                          groups: int = 1, mo_stats=None,
                          rooms_mode: str = "scan",
@@ -351,7 +363,8 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
     with_parent, writes its base parent. With `pa` a LaneProblems the
     islands are its lanes (groups is len(pa)) and each block reads its
     lane's problem from the lane table (launches count as
-    breed_lanes)."""
+    breed_lanes). Raises ValueError, before any launch, where one
+    child's state does not fit in shared memory."""
     lanes = None
     n_rounds = PARALLEL_ROUNDS if rooms_mode == "parallel" else -1
     w = work.breed(pa, state, draws, n_rounds)
@@ -361,6 +374,7 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
                              f"{len(pa)} lanes")
         lanes, pa = pa.table, pa.first
     check_packing(pa)
+    kernels.check_smem("breed", breed_smem_bytes(pa, n_rounds >= 0))
     P, E = state.slots.shape
     ins = [x.contiguous() for x in (state.slots, state.rooms,
                                     state.penalty, state.scv)]

@@ -166,7 +166,7 @@ def _a16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def lahc_smem_bytes(pa, k_cands: int, hist_len: int) -> int:
+def lahc_smem(pa, k_cands: int, hist_len: int) -> tuple[int, bool, bool]:
     """Dynamic shared memory K10 takes per walker, the layout of
     csrc/lahc.cu `k10_smem_layout`: slots, rooms and the best snapshot's
     slots and rooms, two buffers of 18 ints per candidate, the bitsets
@@ -177,7 +177,8 @@ def lahc_smem_bytes(pa, k_cands: int, hist_len: int) -> int:
     up; as many steps as fit in K10_CHUNK_BYTES, at least one); then the
     conflict bitset when it still fits in SMEM_LIMIT, then the two
     history rings (2 x Lh ints) when they still fit (else K10 reads
-    each from global memory)."""
+    each from global memory). Returns (bytes, bits staged, rings
+    staged)."""
     E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
     W = pa.conflict_bits.shape[1]
     K = k_cands
@@ -186,10 +187,16 @@ def lahc_smem_bytes(pa, k_cands: int, hist_len: int) -> int:
     total = sum(_a16(x) for x in (4 * E,) * 4 + (
         2 * 4 * 18 * K, 8 * S, 4 * T * W, 2 * T * R, 2 * S * T))
     total += 2 * chunk * step
+    staged = []
     for extra in (_a16(4 * E * W), 2 * _a16(4 * hist_len)):
-        if total + extra <= kernels.SMEM_LIMIT:
-            total += extra
-    return total
+        staged.append(total + extra <= kernels.SMEM_LIMIT)
+        total += extra if staged[-1] else 0
+    return (total, *staged)
+
+
+def lahc_smem_bytes(pa, k_cands: int, hist_len: int) -> int:
+    """Dynamic shared memory K10 takes per walker (lahc_smem)."""
+    return lahc_smem(pa, k_cands, hist_len)[0]
 
 
 def _as_one_individual(u: torch.Tensor) -> LSDraws:
@@ -224,11 +231,8 @@ def lahc_steps_kernel(pa, draws: LahcDraws, state: LahcState,
     not fit in shared memory; no fallback."""
     n, W, K = draws.mtype.shape
     E = state.ls.slots.shape[1]
-    smem = lahc_smem_bytes(pa, K, state.hist_pen.shape[1])
-    if smem > kernels.SMEM_LIMIT:
-        raise ValueError(
-            f"lahc: one walker's state needs {smem} bytes of shared "
-            f"memory, more than the {kernels.SMEM_LIMIT} a block can have")
+    kernels.check_smem("lahc", lahc_smem_bytes(pa, K,
+                                               state.hist_pen.shape[1]))
     if tuple(draws.u.shape) != (n, W, K, E) or \
             state.ls.slots.shape[0] != W:
         raise ValueError("lahc: the draws do not fit the walkers")

@@ -42,27 +42,40 @@ def full_eval_cluster(n_candidates: int) -> int:
     return min(n_candidates, K12_MAX_CLUSTER)
 
 
-def full_eval_ls_smem_bytes(pa, n_candidates: int) -> int:
+def full_eval_ls_smem(pa, n_candidates: int) -> tuple[int, bool, bool]:
     """Dynamic shared memory of one K12 CTA, the layout of
-    csrc/full_eval_ls.cu `k12_smem_layout`: the current row and its
-    candidate copy (slots, rooms, int32 occupancy, live slot bitsets),
-    the reduction scratch, two inboxes of 8 records of 16 ints, one
-    chunk of rounds' draws (14 B a candidate) and the per-event problem
-    arrays (live flags, student counts, anchor slots and weights, the
-    suitable rooms), each rounded up to 16 bytes, plus the conflict
-    bitset and the students' CSR when the total still fits in SMEM_LIMIT
-    (else K12 reads them from global memory)."""
+    csrc/full_eval_ls.cu `k12_smem_layout`, and what it stages: the
+    current row and its candidate copy (slots, rooms, int32 occupancy,
+    live slot bitsets), the reduction scratch, two inboxes of 8 records
+    of 16 ints, one chunk of rounds' draws (14 B a candidate) and the
+    per-event problem arrays (live flags, student counts, anchor slots
+    and weights), each rounded up to 16 bytes; then the suitable-rooms
+    table (E x R bytes) when it still fits in SMEM_LIMIT, then the
+    conflict bitset and the students' CSR when they still fit (else K12
+    reads each from global memory). Returns (bytes, table staged,
+    conflict bits and CSR staged)."""
     E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
     W = pa.conflict_bits.shape[1]
     K = n_candidates
     n = max(1, K12_CHUNK_BYTES // (14 * K)) * K
-    parts = (4 * E, 4 * E, 4 * T * R, 4 * T * W) * 2 + (
-        16 * (K12_THREADS // 32), 4 * 2 * K12_MAX_CLUSTER * 16, 6 * n,
-        4 * n, 4 * n, 4 * E, 4 * E, 4 * E, 4 * E, E * R)
-    total = sum(-(-x // 16) * 16 for x in parts)
-    staged = total + sum(-(-x // 16) * 16 for x in (
-        4 * E * W, 4 * (S + 1), 4 * pa.stu_ev.numel()))
-    return staged if staged <= kernels.SMEM_LIMIT else total
+
+    def a16(*xs):
+        return sum(-(-x // 16) * 16 for x in xs)
+
+    total = a16(*(4 * E, 4 * E, 4 * T * R, 4 * T * W) * 2,
+                16 * (K12_THREADS // 32), 4 * 2 * K12_MAX_CLUSTER * 16,
+                6 * n, 4 * n, 4 * n, 4 * E, 4 * E, 4 * E, 4 * E)
+    table = total + a16(E * R) <= kernels.SMEM_LIMIT
+    total += a16(E * R) if table else 0
+    staged = total + a16(4 * E * W, 4 * (S + 1), 4 * pa.stu_ev.numel())
+    if staged <= kernels.SMEM_LIMIT:
+        return staged, table, True
+    return total, table, False
+
+
+def full_eval_ls_smem_bytes(pa, n_candidates: int) -> int:
+    """Dynamic shared memory of one K12 CTA (full_eval_ls_smem)."""
+    return full_eval_ls_smem(pa, n_candidates)[0]
 
 
 def batch_local_search_plain(pa, draws: LSDraws, rows: LSRows) -> LSRows:
@@ -105,12 +118,7 @@ def full_eval_ls_chain(pa, draws: LSDraws, rows: LSRows,
     if not 1 <= cs <= full_eval_cluster(K):
         raise ValueError(f"full_eval_ls: a cluster of {cs} CTAs; it takes "
                          f"1 to {full_eval_cluster(K)} at K = {K}")
-    smem = full_eval_ls_smem_bytes(pa, K)
-    if smem > kernels.SMEM_LIMIT:
-        raise ValueError(
-            f"full_eval_ls: one individual's state needs {smem} bytes of "
-            f"shared memory, more than the {kernels.SMEM_LIMIT} a block "
-            f"can have")
+    kernels.check_smem("full_eval_ls", full_eval_ls_smem_bytes(pa, K))
     if any(x.dtype != torch.int32 for x in rows):
         raise TypeError("full_eval_ls takes int32 slots, rooms, pen, hcv "
                         "and scv")

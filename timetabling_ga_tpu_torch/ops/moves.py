@@ -205,10 +205,24 @@ def relocation_chain_plain(pa, draws: MoveDraws, slots, rooms,
     return slots, rooms
 
 
+# rows of a K6 relocation block (csrc/breed.cu K6_WARPS), a warp each
+RELOCATE_WARPS = 4
+
+
+def relocate_smem_bytes(pa) -> int:
+    """Shared memory of one K6 relocation block: each of its rows' slots,
+    rooms and (T, R) int32 occupancy."""
+    return 4 * RELOCATE_WARPS * (2 * pa.n_events
+                                 + pa.n_slots * pa.n_rooms)
+
+
 def relocation_chain_kernel(pa, draws: MoveDraws, slots, rooms,
                             n_moves: int):
-    """Kernel K6's relocation entry: every row's chain in one launch."""
+    """Kernel K6's relocation entry: every row's chain in one launch.
+    Raises ValueError, before any launch, where a block's rows do not
+    fit in shared memory."""
     check_packing(pa)
+    kernels.check_smem("relocate", relocate_smem_bytes(pa))
     if slots.dtype != torch.int32 or rooms.dtype != torch.int32:
         raise TypeError("relocation_chain takes int32 slots and rooms")
     if draws.u.dtype != torch.float32 or draws.u.shape[0] < n_moves:

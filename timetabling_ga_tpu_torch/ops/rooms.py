@@ -68,6 +68,36 @@ def check_packing(pa) -> None:
                          f"got E={E} R={R}")
 
 
+# warps of a K1, K6 breeding and K9 block on the card (csrc K1_THREADS,
+# K6_THREADS and K9_THREADS over 32)
+BLOCK_WARPS = 16
+
+
+def assign_rooms_smem_bytes(pa) -> int:
+    """Shared memory of one K1 block: each event's slot in matching order
+    and the (T, R) int32 occupancy (csrc/assign_rooms.cu)."""
+    return 4 * (pa.n_events + pa.n_slots * pa.n_rooms)
+
+
+def parallel_rooms_ints(E: int, R: int, T: int,
+                        n_warps: int = BLOCK_WARPS) -> int:
+    """The parallel matcher's scratch ints in a block of n_warps warps
+    (csrc/rooms_dev.cuh tt_parallel_rooms_ints): each event's matched
+    rank, ceil(R / 32) suitability words and live flag, the slot buckets,
+    and each warp's five rank rows of 32 ceil(R / 32) ints and its three
+    words of ranks."""
+    nw = -(-R // 32)
+    return ((3 + nw) * E + T + 1 + -(-E // 32) * T
+            + (5 * 32 * nw + 3 * nw) * n_warps)
+
+
+def parallel_rooms_smem_bytes(pa) -> int:
+    """Shared memory of one K9 block: slots, rooms and the matcher's
+    scratch (csrc/parallel_rooms.cu)."""
+    E = pa.n_events
+    return 4 * (2 * E + parallel_rooms_ints(E, pa.n_rooms, pa.n_slots))
+
+
 def assign_rooms_plain(pa, slots) -> torch.Tensor:
     """Plain version of K1: (P, E) slots -> (P, E) rooms."""
     check_packing(pa)
@@ -89,8 +119,11 @@ def assign_rooms_plain(pa, slots) -> torch.Tensor:
 
 
 def assign_rooms_kernel(pa, slots) -> torch.Tensor:
-    """Kernel K1: the whole population in one launch, a warp each."""
+    """Kernel K1: the whole population in one launch, a block each.
+    Raises ValueError, before any launch, where one block's state does
+    not fit in shared memory."""
     check_packing(pa)
+    kernels.check_smem("assign_rooms", assign_rooms_smem_bytes(pa))
     if slots.dtype != torch.int32:
         raise TypeError("assign_rooms takes int32 slots")
     slots = slots.contiguous()
@@ -245,8 +278,10 @@ def augment_rooms_plain(pa, slots, rooms, n_rounds: int = 4):
 def augment_rooms_kernel(pa, slots, rooms, n_rounds: int = 4):
     """Kernel K9: every individual in one launch, a block each (a warp
     a slot); `rooms` None starts from best_fit_rooms
-    (parallel_assign_rooms)."""
+    (parallel_assign_rooms). Raises ValueError, before any launch, where
+    one block's state does not fit in shared memory."""
     check_packing(pa)
+    kernels.check_smem("parallel_rooms", parallel_rooms_smem_bytes(pa))
     ins = [slots.contiguous()] + ([] if rooms is None
                                   else [rooms.contiguous()])
     if any(x.dtype != torch.int32 for x in ins):

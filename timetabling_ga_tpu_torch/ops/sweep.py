@@ -470,14 +470,15 @@ def sweep_pass_plain(pa, draws: SweepDraws, state: LSState,
     return st, strict_rows
 
 
-def sweep_pass_smem_bytes(pa, shape: SweepShape) -> int:
+def sweep_pass_smem(pa, shape: SweepShape) -> tuple[int, bool]:
     """Dynamic shared memory K5 takes per individual, the layout of
     csrc/sweep_pass.cu `k5_smem_layout`, the same in every CTA of a
     cluster: slots, rooms, pivots, the heat (hot mode), four ints per
-    candidate, the Move1 scratch, the bitsets amask (S u64) and slot_ev
+    candidate (penalty, scv, and hcv and the new rooms packed in two),
+    the Move1 scratch, the bitsets amask (S u64) and slot_ev
     (T x W u32), occ and att, each region rounded up to 16 bytes, plus
     the conflict bitset when the total still fits in SMEM_LIMIT (else K5
-    reads it from global memory)."""
+    reads it from global memory). Returns (bytes, bits staged)."""
     E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
     W = pa.conflict_bits.shape[1]
     parts = (4 * E, 4 * E, 4 * shape.K, 4 * E if shape.use_hot else 0,
@@ -486,7 +487,14 @@ def sweep_pass_smem_bytes(pa, shape: SweepShape) -> int:
              2 * S * T)
     total = sum(-(-x // 16) * 16 for x in parts)
     with_bits = total + -(-4 * E * W // 16) * 16
-    return with_bits if with_bits <= SMEM_LIMIT else total
+    if with_bits <= SMEM_LIMIT:
+        return with_bits, True
+    return total, False
+
+
+def sweep_pass_smem_bytes(pa, shape: SweepShape) -> int:
+    """Dynamic shared memory K5 takes per individual (sweep_pass_smem)."""
+    return sweep_pass_smem(pa, shape)[0]
 
 
 def cluster_size(n_moves: int, P: int, sm_count: int) -> int:
@@ -525,11 +533,7 @@ def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
     P, E = state.slots.shape
     T = pa.n_slots
     sh = sweep_shape(E, T, swap_block, block_events, hot_k, p3)
-    smem = sweep_pass_smem_bytes(pa, sh)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"sweep_pass: one individual's state needs {smem} bytes of "
-            f"shared memory, more than the {SMEM_LIMIT} a block can have")
+    kernels.check_smem("sweep_pass", sweep_pass_smem_bytes(pa, sh))
     if (state.att.dtype != torch.int16 or state.occ.dtype != torch.int16
             or any(x.dtype != torch.int32 for x in (
                 state.slots, state.rooms, state.pen, state.hcv, state.scv))):

@@ -127,8 +127,8 @@ class ProblemArrays:
     dead: torch.Tensor           # (R,)   i32 dead-room key penalty
     cap_rank: torch.Tensor       # (R,)   i32
     room_of_rank: torch.Tensor   # (R,)   i32 the room of capacity rank k
-    suit_rank: torch.Tensor      # (E,)   i32 (uint32 bit patterns; R <= 32)
-                                 # bit k: the room of capacity rank k suits
+    suit_rank: torch.Tensor      # (E, ceil(R/32)) i32 (uint32 bit patterns)
+                                 # bit k of word j: rank 32j + k suits
     room_order: torch.Tensor     # (E,)   i32
     conflict_bits: torch.Tensor  # (E, W) i32 (uint32 bit patterns)
     conflict_diag: int           # sum of conflict's diagonal
@@ -291,6 +291,15 @@ def stu_split_of(stu_ptr: np.ndarray) -> list:
     return out
 
 
+def _words(bits: np.ndarray) -> np.ndarray:
+    """(N, 32 n) bools -> (N, n) int32 words (uint32 bit patterns), bit k
+    of word j the column 32j + k."""
+    N, n = bits.shape[0], bits.shape[1] // 32
+    words = (bits.reshape(N, n, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(axis=2)
+    return words.astype(np.uint32).view(np.int32)
+
+
 def make_problem_arrays(attends, conflict, possible, student_count,
                         room_size, event_mask, room_mask, anchor_slots,
                         anchor_w, n_days: int, slots_per_day: int,
@@ -314,18 +323,15 @@ def make_problem_arrays(attends, conflict, possible, student_count,
                           kind="stable").astype(np.int32)
     room_order = np.argsort(suit_count, kind="stable").astype(np.int32)
     room_of_rank = np.argsort(cap_rank, kind="stable").astype(np.int32)
-    # the parallel matcher's suitability words (K9, K6); zero past 32 rooms,
-    # where the kernels refuse to run
-    by_rank = possible[:, room_of_rank][:, :32].astype(np.uint64)
-    suit_rank = (by_rank << np.arange(by_rank.shape[1], dtype=np.uint64)
-                 ).sum(axis=1).astype(np.uint32).view(np.int32)
+    # the parallel matcher's suitability words (K9, K6): bit k of word j is
+    # whether the room of capacity rank 32j + k suits the event
+    by_rank = np.zeros((E, -(-R // 32) * 32), dtype=bool)
+    by_rank[:, :R] = possible[:, room_of_rank]
+    suit_rank = _words(by_rank)
     W = (E + 31) // 32
-    conf = conflict > 0.5
     padded = np.zeros((E, W * 32), dtype=bool)
-    padded[:, :E] = conf
-    words = (padded.reshape(E, W, 32).astype(np.uint64)
-             << np.arange(32, dtype=np.uint64)).sum(axis=2)
-    conflict_bits = words.astype(np.uint32).view(np.int32)
+    padded[:, :E] = conflict > 0.5
+    conflict_bits = _words(padded)
     att01 = attends > 0.5
     stu_ptr, stu_ev = _csr(att01)
     ev_ptr, ev_stu = _csr(att01.T)
