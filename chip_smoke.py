@@ -77,10 +77,10 @@
    one);
 3. drives five paths through `timetabling_ga_tpu_torch.cli`, seed 42,
    each with the launch counters zeroed just before and read just after:
-   on comp01s the main path (size-tuned defaults, -t 45), the
+   on comp01s the main path (size-tuned defaults, -t 30), the
    reference-faithful path (`--no-auto-tune -p 2`, the random-candidate
-   delta LS, -t 30), its full-evaluation twin (`--ls-full-eval -p 1`,
-   -t 10) and the LAHC endgame (`--post-lahc 5000`, -t 20); on
+   delta LS, -t 20), its full-evaluation twin (`--ls-full-eval -p 1`,
+   -t 10) and the LAHC endgame (`--post-lahc 5000`, -t 15); on
    fixtures/comp05s.tim NSGA-II with the parallel matcher (`--nsga2
    --rooms-mode parallel`, -t 20). Each stream is checked (per-island
    best non-increasing, solution and runEntry records, a feasible
@@ -264,8 +264,20 @@
    against the plain version in chunks); one size-tuned repair
    generation at pop 32,768 (2,048 islands of 16: wall, device ms by
    kernel, peak memory, every row's terms against the plain K2); and the
-   main path on the scale .tim (-t 30), its stream and launches checked
-   as the main path's;
+   main path on the scale .tim (-t 20), its stream and launches checked
+   as the main path's; then the university phase (`python3 chip_smoke.py
+   university` runs it alone, after the build): the port's
+   random_instance(11, n_events=2400, n_rooms=400, n_features=10,
+   n_students=10_000, attend_prob=0.003) written as a .tim: every kernel
+   with a global-memory branch (K1, K2, K5 at the repair shape and the
+   post shape cut to 100 steps, at every cluster size, K6 greedy,
+   crowded, parallel and relocation, K8's pre-pass and chain, K9, K10,
+   K12) against its plain version at 2-4 rows, exactly, in the branch
+   the sizes choose and again with every such region in global memory
+   (STAGE_LIMIT 0), each line naming its branch; the lane forms on two
+   jobs of one bucket past shared memory; then the five paths on the
+   .tim (-t 8-12), streams and launches checked (the lahc path's K10
+   only where it reached feasibility), each with its peak memory;
 4. profiles one population init (K1, K2, K7 at pop 16), one repair
    generation, one post-phase sweep pass, one reference-path
    generation, one full-eval generation, one kick, one LAHC launch and
@@ -306,14 +318,16 @@ OUT_DIR = os.path.join(HERE, "build", "chip_smoke")
 # inside its time limit, the main path long enough to reach the
 # post-feasibility phase; the time limit, not the generation cap, ends
 # each run. The scale phase's cost was paid by cutting main 60 -> 45 and
-# lahc 30 -> 20 (PERF.md section 4).
+# lahc 30 -> 20, the university phase's by cutting main 45 -> 30,
+# reference 30 -> 20, lahc 20 -> 15 and the scale CLI leg 30 -> 20
+# (PERF.md section 4).
 PATHS = {
-    "main": ["-s", "42", "-t", "45", "--generations", "100000", "--trace"],
-    "reference": ["--no-auto-tune", "-p", "2", "-s", "42", "-t", "30",
+    "main": ["-s", "42", "-t", "30", "--generations", "100000", "--trace"],
+    "reference": ["--no-auto-tune", "-p", "2", "-s", "42", "-t", "20",
                   "--generations", "100000", "--trace"],
     "full-eval": ["--no-auto-tune", "-p", "1", "--ls-full-eval", "-s", "42",
                   "-t", "10", "--generations", "100000", "--trace"],
-    "lahc": ["-s", "42", "-t", "20", "--post-lahc", "5000", "--generations",
+    "lahc": ["-s", "42", "-t", "15", "--post-lahc", "5000", "--generations",
              "100000", "--trace"],
     "nsga": ["-s", "42", "-t", "20", "--nsga2", "--rooms-mode", "parallel",
              "--generations", "100000", "--trace"],
@@ -5692,7 +5706,7 @@ SCALE_POP = 32_768
 SCALE_PLAIN_CHUNK = 4096
 # the main path on the scale .tim: the size-tuned defaults (E > 200:
 # islands of 16, hot-K 48 repair, the post polish on 4 rows)
-SCALE_MAIN = ["-s", "42", "-t", "30", "--generations", "100000", "--trace"]
+SCALE_MAIN = ["-s", "42", "-t", "20", "--generations", "100000", "--trace"]
 # the lane forms past 32 rooms: two jobs of 40 and 36 rooms in serve's
 # 64-room bucket (dead rooms 40-63 and 36-63)
 SCALE_LANES = ((41, 200, 40), (42, 180, 36))
@@ -5718,13 +5732,15 @@ def _outputs(x):
 
 
 def scale_compare(name, shape, kern, plain, smem=None, branch=None,
-                  reps=3, extra=None):
+                  reps=3, extra=None, tag="scale", want=None):
     """`kern` (the kernel's wrapper) and `plain` on the same inputs: every
     output exactly equal; the kernel's ms a call (CUDA events, `reps`
     calls after one), the plain version's (one call, host clock after a
     synchronize), and the bound of the work the kernel's launches counted
     (kernels.WORK: work.py's table, the most those launches can do).
-    Prints one `scale_kernel` line and returns it."""
+    `want` (the plain version's outputs and ms) skips the plain call.
+    Prints one `<tag>_kernel` line and returns it, the plain outputs
+    under "_want"."""
     import torch
     from timetabling_ga_tpu_torch import kernels
     before = dict(kernels.WORK)
@@ -5732,26 +5748,29 @@ def scale_compare(name, shape, kern, plain, smem=None, branch=None,
     torch.cuda.synchronize()
     nb = kernels.WORK["bytes"] - before["bytes"]
     ops = kernels.WORK["ops"] - before["ops"]
-    t0 = time.monotonic()
-    want = _outputs(plain())
-    torch.cuda.synchronize()
-    plain_ms = (time.monotonic() - t0) * 1e3
-    check(len(got) == len(want), f"scale {name} {shape}: output count")
+    if want is None:
+        t0 = time.monotonic()
+        want = _outputs(plain())
+        torch.cuda.synchronize()
+        want = (want, (time.monotonic() - t0) * 1e3)
+    want, plain_ms = want
+    check(len(got) == len(want), f"{tag} {name} {shape}: output count")
     err = 0
     for gt, wt in zip(got, want):
-        check(gt.shape == wt.shape, f"scale {name} {shape}: kernel shape "
+        check(gt.shape == wt.shape, f"{tag} {name} {shape}: kernel shape "
               f"{tuple(gt.shape)} vs plain {tuple(wt.shape)}")
         err = max(err, int((gt.long() - wt.long()).abs().max())
                   if gt.numel() else 0)
-    check(err == 0, f"scale {name} {shape}: kernel differs from its plain "
+    check(err == 0, f"{tag} {name} {shape}: kernel differs from its plain "
                     f"version (max abs err {err})")
     b, by = bound(nb, ops)
-    line = {"scale_kernel": name, "shape": shape,
+    line = {f"{tag}_kernel": name, "shape": shape,
             "ms": time_ms(kern, reps), "plain_ms": plain_ms,
             "max_abs_err": err, "bound_ms": b, "bound_by": by,
             "smem_bytes": smem, "branch": branch, **(extra or {}),
             "card": CARD}
     print(json.dumps(line))
+    line["_want"] = (want, plain_ms)
     return line
 
 
@@ -5801,7 +5820,7 @@ def compare_scale_kernels(problem, dev):
                         ("post", (64, 1, 0.25, 0, 0.0))):
         sh = sweep.sweep_shape(E, T, case[0], case[1], case[3], case[4])
         draws = sweep.make_sweep_draws([g], 2, sh, E, case[2], dev)
-        smem, bits = sweep.sweep_pass_smem(pa, sh)
+        smem, bits, _ = sweep.sweep_pass_layout(pa, sh)
         t0 = time.monotonic()
         want, want_rows = sweep.sweep_pass_plain(pa, draws, st2, *case)
         torch.cuda.synchronize()
@@ -5877,7 +5896,7 @@ def compare_scale_kernels(problem, dev):
         "random_ls_events", [3, 5, 8],
         lambda: delta.random_ls_events_kernel(ls),
         lambda: delta.random_ls_events_plain(ls)))
-    k8_smem, k8_bits = delta.random_ls_smem(pa, 8)
+    k8_smem, k8_bits, _, _ = delta.random_ls_layout(pa, 8)
     check(not k8_bits, "scale random_ls: the conflict bits were staged")
     lines.append(scale_compare(
         "random_ls", [3, 5, 8],
@@ -5902,7 +5921,7 @@ def compare_scale_kernels(problem, dev):
     # K10 at the lahc path's K 16 and Lh 5,000, two walkers, 20 steps
     l0 = lahc.init_lahc(pa, slots[:2], rms[:2], 5000)
     ld = lahc.make_lahc_draws([g], 2, 20, 16, E, T, 1.0, 1.0, 0.0, dev)
-    k10_smem, k10_bits, k10_ring = lahc.lahc_smem(pa, 16, 5000)
+    k10_smem, k10_bits, k10_ring, _ = lahc.lahc_layout(pa, 16, 5000)
     check(not k10_bits, "scale lahc: the conflict bits were staged")
     lines.append(scale_compare(
         "lahc", [2, 16, 5000, 20],
@@ -5911,7 +5930,8 @@ def compare_scale_kernels(problem, dev):
         branch="conflict bits global, history ring "
                + ("staged" if k10_ring else "global")))
     # K12 (-p 1's K 8), from the pre-pass, two rows, 5 rounds
-    k12_smem, k12_table, k12_staged = local_search.full_eval_ls_smem(pa, 8)
+    k12_smem, _, k12_table, k12_staged = local_search.full_eval_ls_layout(
+        pa, 8)
     check(not k12_table, "scale full_eval_ls: the suitable rooms were "
                          "staged; this phase holds the global table")
     lines.append(scale_compare(
@@ -6101,7 +6121,7 @@ def scale_generation(problem, dev):
 
 def scale_path(problem):
     """The main path through the CLI on the scale .tim (size-tuned
-    defaults, seed 42, -t 30, --trace), its stream and its launches held
+    defaults, seed 42, -t 20, --trace), its stream and its launches held
     to the main path's checks; gens/s, the best at the budget, the time
     to the first feasible row where it gets there, and the launches by
     kernel."""
@@ -6129,6 +6149,374 @@ def scale_phase(dev):
     print(json.dumps({"scale_phase_s": time.monotonic() - t0,
                       "card": CARD}))
     return launches
+
+
+# ---- the university configuration: a registrar timetabling a whole
+# university, past ITC-2002 sizes (2,400 events, 400 rooms, 10,000
+# students, ~72,000 attendances, ~7 events a student, T 45), inside
+# JAX's bounds (E, R < 4096) and cut in no dimension. One individual's
+# attendance (900,000 bytes) does not fit in a block's shared memory, so
+# K5, K8 and K10 keep it in global memory, K12 its two occupancies, K9
+# and K6's parallel matcher their suitability words (and K6 the child's
+# occupancy), and K6's relocation entry takes two rows a block; each
+# kernel is held against its plain version in the branch the sizes
+# choose and again with every region in global memory
+# (kernels.STAGE_LIMIT 0), then the five paths run on its .tim.
+UNIV_SEED = 11
+UNIV_SHAPE = dict(n_events=2400, n_rooms=400, n_features=10,
+                  n_students=10_000, attend_prob=0.003)
+UNIV_TIM = os.path.join(OUT_DIR, "university_e2400_r400_s10000.tim")
+# the five paths with short budgets (the size-tuned main path runs it at
+# pop 16: E > 200)
+UNIV_PATHS = {
+    "main": ["-s", "42", "-t", "12", "--generations", "100000",
+             "--trace"],
+    "reference": ["--no-auto-tune", "-p", "2", "-s", "42", "-t", "8",
+                  "--generations", "100000", "--trace"],
+    "full-eval": ["--no-auto-tune", "-p", "1", "--ls-full-eval", "-s", "42",
+                  "-t", "8", "--generations", "100000", "--trace"],
+    "lahc": ["-s", "42", "-t", "8", "--post-lahc", "5000",
+             "--generations", "100000", "--trace"],
+    "nsga": ["-s", "42", "-t", "10", "--nsga2", "--rooms-mode", "parallel",
+             "--generations", "100000", "--trace"],
+}
+# two jobs of one serve bucket past shared memory (4,096 students: the
+# att of a lane row is 368,640 bytes; 512 rooms) for the lane forms
+UNIV_LANES = ((51, 200, 400, 3000), (52, 180, 380, 2600))
+
+
+def university_problem():
+    """The university instance, written to UNIV_TIM and read back."""
+    from timetabling_ga_tpu_torch.problem import (
+        dump_tim, load_tim_file, random_instance)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(UNIV_TIM, "w") as f:
+        f.write(dump_tim(random_instance(UNIV_SEED, **UNIV_SHAPE)))
+    return load_tim_file(UNIV_TIM)
+
+
+def _staged(mask, names):
+    """"name staged|global, ..." of a stage mask (bit i: names[i])."""
+    return ", ".join(f"{n} {'staged' if mask >> i & 1 else 'global'}"
+                     for i, n in enumerate(names))
+
+
+def univ_branches(pa, k8=8, k10=16, lh=5000, k12=8, shapes=()):
+    """Each kernel's branch at `pa`'s sizes under the current
+    STAGE_LIMIT, from the wrappers' own layout functions: {name: (bytes
+    a block, what it stages)}."""
+    from timetabling_ga_tpu_torch.ops import (
+        delta, fitness, ga, lahc, local_search, moves, rooms, sweep)
+    state = ("occ", "amask", "att")
+    out = {}
+    for tag, sh in shapes:
+        smem, bits, st = sweep.sweep_pass_layout(pa, sh)
+        out[f"sweep_pass {tag}"] = (smem, _staged(st, state)
+                                    + f", conflict bits "
+                                    f"{'staged' if bits else 'global'}")
+    smem, bits, st, _ = delta.random_ls_layout(pa, k8)
+    out["random_ls"] = (smem, _staged(st, state) + ", conflict bits "
+                        + ("staged" if bits else "global"))
+    smem, bits, ring, st = lahc.lahc_layout(pa, k10, lh)
+    out["lahc"] = (smem, _staged(st, state) + ", conflict bits "
+                   + ("staged" if bits else "global") + ", history ring "
+                   + ("staged" if ring else "global"))
+    smem, occ, table, csr = local_search.full_eval_ls_layout(pa, k12)
+    out["full_eval_ls"] = (smem, _staged(int(occ), ("occupancies",))
+                           + ", suitable rooms "
+                           + ("staged" if table else "global")
+                           + ", conflict bits and CSR "
+                           + ("staged" if csr else "global"))
+    smem, st, _ = rooms.assign_rooms_stage(pa)
+    out["assign_rooms"] = (smem, _staged(st, ("occupancy",)))
+    smem, st, _ = rooms.parallel_rooms_stage(pa)
+    out["parallel_rooms"] = (smem, _staged(st, ("rank rows", "words")))
+    for mode, par in (("greedy", False), ("parallel", True)):
+        smem, st, _ = ga.breed_stage(pa, par)
+        names = ("rank rows", "words", "occupancy")
+        out[f"breed {mode}"] = (smem, _staged(st, names) if par
+                                else _staged(st >> 2, names[2:]))
+    smem, rows, _ = moves.relocate_stage(pa)
+    out["relocate"] = (smem, f"{rows} rows a block staged" if rows
+                       else "4 rows a block, occupancy global")
+    smem, occ = fitness.batch_penalty_stage(pa)
+    out["batch_penalty"] = (smem, _staged(int(occ), ("occupancy",)))
+    return out
+
+
+def compare_university_kernels(problem, dev):
+    """Every kernel with a branch past shared memory against its plain
+    version on the university instance, exactly, at 2-4 rows: in the
+    branch the sizes choose, then with every region that grows with the
+    students or the rooms in global memory (STAGE_LIMIT 0); K5 at the
+    repair shape (hot-K 48: 48 steps) and the post shape cut to 100
+    steps (swap block 64, 100 hot pivots), every cluster size. Each line
+    names its branch, its bytes a block, its ms a call and the bound of
+    work.py's count."""
+    import torch
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.ops import (
+        delta, fitness, ga, lahc, local_search, moves, nsga, rooms, sweep)
+    pa = problem.device_arrays(dev)
+    E, R, T = pa.n_events, pa.n_rooms, pa.n_slots
+    check((E, R, pa.n_students) == (UNIV_SHAPE["n_events"],
+                                    UNIV_SHAPE["n_rooms"],
+                                    UNIV_SHAPE["n_students"]),
+          f"university instance is {E} x {R} x {pa.n_students}")
+    g = torch.Generator(device=dev).manual_seed(14_000)
+    shapes = (("repair", (8, 1, 0.25, 48, 0.0)),
+              ("post", (64, 1, 0.25, 100, 0.0)))
+    sh = {k: sweep.sweep_shape(E, T, c[0], c[1], c[3], c[4])
+          for k, c in shapes}
+
+    def rand(n, P):
+        return torch.randint(0, n, (P, E), generator=g, device=dev,
+                             dtype=torch.int32)
+    slots = rand(T, 4)
+    rms = rooms.assign_rooms_plain(pa, slots)
+    st = delta.init_state(pa, slots, rms)
+    st2 = delta.LSState(*(x[:2] for x in st))
+    L, pop = 2, 2
+    par = ga.evaluate(pa, rand(T, L * pop), rand(R, L * pop), L)
+    d3 = moves.make_move_draws([g] * 3, 4, E, T, 1.0, 1.0, 1.0, dev)
+    chain = moves.MoveDraws(*(x.reshape((3, 4) + x.shape[1:]) for x in d3))
+    rows = delta.init_rows(pa, slots[:3], rms[:3])
+    ls = delta.make_ls_draws([g], 3, 5, 8, E, T, 1.0, 1.0, 0.5, dev)
+    events = delta.random_ls_events_kernel(ls)
+    ls2 = delta.LSDraws(*(x[:, :, :2] for x in ls))
+    rows2 = delta.init_rows(pa, slots[:2], rms[:2])
+    crowd = slots.clone()
+    crowd[:, ::2] %= 3
+    incoming = rand(R, 4)
+    l0 = lahc.init_lahc(pa, slots[:2], rms[:2], 5000)
+    ld = lahc.make_lahc_draws([g], 2, 20, 16, E, T, 1.0, 1.0, 0.0, dev)
+    sweep_draws = {k: sweep.make_sweep_draws([g], 2, sh[k], E, c[2], dev)
+                   for k, c in shapes}
+    breed = {}
+    for mode in ("greedy", "crowded", "parallel"):
+        cfg = ga.GAConfig(pop_size=pop, p3=0.2,
+                          rooms_mode="parallel" if mode == "parallel"
+                          else "scan", multi_objective=mode == "crowded")
+        breed[mode] = (cfg, ga.make_breed_draws([g] * L, pop, E, T, cfg, dev),
+                       nsga.rank_crowd_plain(par.hcv, par.scv, L)
+                       if mode == "crowded" else None)
+    calls = [("assign_rooms", [4], lambda: rooms.assign_rooms(pa, slots),
+              lambda: rooms.assign_rooms_plain(pa, slots), "assign_rooms"),
+             ("batch_penalty", [4],
+              lambda: fitness.batch_penalty(pa, slots, rms),
+              lambda: fitness.batch_penalty_plain(pa, slots, rms),
+              "batch_penalty")]
+    for mode, (cfg, bd, mo) in breed.items():
+        calls.append((
+            "breed", [mode, L * pop],
+            lambda bd=bd, mo=mo, cfg=cfg: ga.make_children_kernel(
+                pa, bd, par, L, mo, cfg.rooms_mode),
+            lambda bd=bd, mo=mo, cfg=cfg: ga.make_children_plain(
+                pa, bd, par, cfg, L, mo),
+            "breed parallel" if mode == "parallel" else "breed greedy"))
+    calls += [
+        ("relocate", [4, 3],
+         lambda: moves.relocation_chain_kernel(pa, chain, slots, rms, 3),
+         lambda: moves.relocation_chain_plain(pa, chain, slots, rms, 3),
+         "relocate"),
+        ("random_ls_events", [3, 5, 8],
+         lambda: delta.random_ls_events_kernel(ls),
+         lambda: delta.random_ls_events_plain(ls), None),
+        ("random_ls", [3, 5, 8],
+         lambda: delta.random_ls_chain(pa, ls, rows, events),
+         lambda: delta.random_local_search_plain(pa, ls, rows), "random_ls"),
+        ("parallel_rooms", [4, "augment"],
+         lambda: rooms.augment_rooms(pa, crowd, incoming, 4),
+         lambda: rooms.augment_rooms_plain(pa, crowd, incoming, 4),
+         "parallel_rooms"),
+        ("parallel_rooms", [4, "best-fit"],
+         lambda: rooms.parallel_assign_rooms(pa, crowd),
+         lambda: rooms.augment_rooms_plain(pa, crowd,
+                                           rooms.best_fit_rooms(pa, 4)),
+         "parallel_rooms"),
+        ("lahc", [2, 16, 5000, 20],
+         lambda: lahc.lahc_steps_kernel(pa, ld, lahc_copy(l0)),
+         lambda: lahc.lahc_steps_plain(pa, ld, l0), "lahc"),
+        ("full_eval_ls", [2, 5, 8],
+         lambda: local_search.batch_local_search_kernel(pa, ls2, rows2),
+         lambda: local_search.batch_local_search_plain(pa, ls2, rows2),
+         "full_eval_ls")]
+    lines, plain = [], {}
+    for force in (False, True):
+        saved = kernels.STAGE_LIMIT
+        if force:
+            kernels.STAGE_LIMIT = 0
+        try:
+            branch = univ_branches(pa, shapes=tuple(sh.items()))
+            for name, shape, kern, pl, key in calls:
+                smem, desc = branch.get(key, (None, None))
+                line = scale_compare(
+                    name, shape, kern, pl, smem=smem, branch=desc, reps=2,
+                    tag="university", want=plain.get((name, str(shape))),
+                    extra={"forced_global": force})
+                plain[(name, str(shape))] = line.pop("_want")
+                lines.append(line)
+            for phase, case in shapes:
+                lines.append(univ_sweep(pa, st2, sweep_draws[phase], phase,
+                                        case, sh[phase],
+                                        branch[f"sweep_pass {phase}"],
+                                        force, plain))
+        finally:
+            kernels.STAGE_LIMIT = saved
+    lines += compare_university_lanes(dev)
+    return lines
+
+
+def univ_sweep(pa, st2, draws, phase, case, sh, branch, force, plain):
+    """K5 at one shape of the university phase, every cluster size, against
+    its plain pass (taken once), exactly; one line."""
+    import torch
+    from timetabling_ga_tpu_torch import kernels
+    from timetabling_ga_tpu_torch.ops import sweep
+    key = ("sweep_pass", phase)
+    if key not in plain:
+        t0 = time.monotonic()
+        want = sweep.sweep_pass_plain(pa, draws, st2, *case)
+        torch.cuda.synchronize()
+        plain[key] = (want, (time.monotonic() - t0) * 1e3)
+    (want, want_rows), plain_ms = plain[key]
+    per_cluster = {}
+    for cs in K5_CLUSTERS:
+        before = dict(kernels.WORK)
+        got, got_rows, _ = sweep.sweep_pass_kernel(pa, draws, st2, *case,
+                                                   cluster=cs)
+        torch.cuda.synchronize()
+        nb = kernels.WORK["bytes"] - before["bytes"]
+        ops = kernels.WORK["ops"] - before["ops"]
+        check(all(torch.equal(w, x) for w, x in zip(want, got))
+              and torch.equal(want_rows, got_rows),
+              f"university sweep_pass {phase} cluster {cs} (forced global "
+              f"{force}): kernel differs from its plain version")
+        per_cluster[str(cs or "auto")] = time_ms(
+            lambda cs=cs: sweep.sweep_pass_kernel(pa, draws, st2, *case,
+                                                  cluster=cs), 2)
+    b, by = bound(nb, ops)
+    line = {"university_kernel": "sweep_pass", "shape": [phase, 2],
+            "steps": sh.n_steps, "ms": per_cluster["auto"],
+            "ms_by_cluster": per_cluster, "plain_ms": plain_ms,
+            "max_abs_err": 0, "bound_ms": b, "bound_by": by,
+            "smem_bytes": branch[0], "branch": branch[1],
+            "forced_global": force, "card": CARD}
+    print(json.dumps(line))
+    return line
+
+
+def compare_university_lanes(dev):
+    """K6 (greedy and crowded; parallel) and K8's chain with a lane table
+    on two jobs of one serve bucket past shared memory (UNIV_LANES: 4,096
+    students and 512 rooms padded), against the lane-looped plain
+    versions, exactly, in the branch the sizes choose."""
+    import dataclasses
+
+    import torch
+    from timetabling_ga_tpu_torch.ops import delta, ga, nsga
+    from timetabling_ga_tpu_torch.problem import LaneProblems, random_instance
+    from timetabling_ga_tpu_torch.runtime import config
+    from timetabling_ga_tpu_torch.serve import bucket
+    from timetabling_ga_tpu_torch.serve.scheduler import serve_ga_config
+    jobs = [random_instance(s, n_events=E, n_rooms=R, n_features=10,
+                            n_students=S, attend_prob=0.01)
+            for s, E, R, S in UNIV_LANES]
+    keys = {bucket.bucket_key(p) for p in jobs}
+    check(len(keys) == 1, f"university lanes: not one bucket: {keys}")
+    lp = LaneProblems([bucket.pad_problem(p).device_arrays(dev)
+                       for p in jobs])
+    L, pop = len(lp), 4
+    cfg = serve_ga_config(config.ServeConfig())
+    g = torch.Generator(device=dev).manual_seed(14_500)
+    par = ga.PopState(*(torch.cat(x) for x in zip(*(
+        ga.evaluate(pa, torch.randint(0, pa.n_slots, (pop, pa.n_events),
+                                      generator=g, device=dev,
+                                      dtype=torch.int32),
+                    torch.randint(0, pa.n_rooms, (pop, pa.n_events),
+                                  generator=g, device=dev,
+                                  dtype=torch.int32))
+        for pa in lp.pas))))
+    draws = ga.make_breed_draws([g] * L, pop, lp.n_events, lp.n_slots, cfg,
+                                dev)
+    mo = nsga.rank_crowd_plain(par.hcv, par.scv, L)
+    branch = univ_branches(lp.first, k8=cfg.ls_candidates)
+    bucket_shape = [lp.n_events, lp.n_rooms, lp.first.n_students]
+    lines = []
+    for tag, m, mode in (("penalty", None, "scan"), ("crowded", mo, "scan"),
+                         ("parallel", None, "parallel")):
+        c = dataclasses.replace(cfg, rooms_mode=mode)
+        key = "breed parallel" if mode == "parallel" else "breed greedy"
+        lines.append(scale_compare(
+            "breed_lanes", [tag, L, pop, *bucket_shape],
+            lambda m=m, mode=mode: ga.make_children_kernel(
+                lp, draws, par, L, m, mode),
+            lambda m=m, c=c: ga.make_children_lanes_plain(lp, draws, par, c,
+                                                          m),
+            smem=branch[key][0], branch=branch[key][1], reps=2,
+            tag="university"))
+    rows = ga.make_children_kernel(lp, draws, par, L)
+    ls = delta.make_ls_draws([g], L * pop, cfg.ls_steps, cfg.ls_candidates,
+                             lp.n_events, lp.n_slots, cfg.p1, cfg.p2,
+                             cfg.p3, dev)
+    events = delta.random_ls_events_kernel(ls)
+    lines.append(scale_compare(
+        "random_ls_lanes", [L, pop, *bucket_shape],
+        lambda: delta.random_ls_chain(lp, ls, rows, events),
+        lambda: delta.random_ls_lanes_plain(lp, ls, rows),
+        smem=branch["random_ls"][0], branch=branch["random_ls"][1], reps=2,
+        tag="university"))
+    return lines
+
+
+def university_paths(problem):
+    """The five paths through the CLI on the university .tim, each with a
+    short -t, the stream and the launches held to the comp01s paths'
+    checks (the lahc path's K10 only where its polish reached
+    feasibility: the walkers start there); gens/s (steps/s), the best at
+    the budget and the peak memory allocated by each."""
+    import torch
+    pa_cpu = problem.device_arrays("cpu")
+    launches, out = {}, []
+    for name, argv in UNIV_PATHS.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        records, seconds, launches[name] = run_cli(f"university-{name}",
+                                                   argv, UNIV_TIM)
+        peak = torch.cuda.max_memory_allocated()
+        summary = check_stream(records, pa_cpu)
+        summary["wall_s"] = round(seconds, 3)
+        lahc_ran = name != "lahc" or summary["time_to_feasible_s"] is not None
+        if lahc_ran:
+            check_path_kernels(name, launches[name], summary["generations"],
+                               summary["kicks"])
+        else:
+            check(launches[name]["lahc"] == 0,
+                  "university lahc path: K10 launched before feasibility")
+            check_path_kernels("main", launches[name],
+                               summary["generations"], summary["kicks"])
+        if summary["lahc_steps"]:
+            summary["lahc_steps_per_s"] = (summary["lahc_steps"]
+                                           / summary["lahc_seconds"])
+        line = {"path": f"university-{name}", **summary,
+                "lahc_reached": lahc_ran if name == "lahc" else None,
+                "max_memory_allocated": peak, "card": CARD,
+                "launches": {k: v for k, v in launches[name].items() if v}}
+        print(json.dumps(line))
+        out.append(line)
+    return out, launches
+
+
+def university_phase(dev):
+    """The university configuration: its kernels against their plain
+    versions in both branches, and the five paths on its .tim; the
+    phase's wall printed with the card."""
+    t0 = time.monotonic()
+    problem = university_problem()
+    compare_university_kernels(problem, dev)
+    university_paths(problem)
+    print(json.dumps({"university_phase_s": time.monotonic() - t0,
+                      "card": CARD}))
 
 
 def run_path(name):
@@ -6243,9 +6631,10 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         for name, text in kernels.BUILD_INFO["ptxas"].items():
             f.write(f"== {name}\n{text}\n")
-    if sys.argv[1:] == ["scale"]:
-        # the scale phase alone (`python3 chip_smoke.py scale`)
-        scale_phase(dev)
+    if sys.argv[1:] in (["scale"], ["university"]):
+        # the scale or the university phase alone (`python3 chip_smoke.py
+        # scale`, `python3 chip_smoke.py university`)
+        (scale_phase if sys.argv[1] == "scale" else university_phase)(dev)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -6325,6 +6714,7 @@ def main() -> int:
         print(json.dumps({"path": name, **summary,
                           "launches": launches[name]}))
     launches["scale"] = scale_phase(dev)
+    university_phase(dev)
     print(json.dumps({"path": "trace-modes",
                       "gens_per_s": trace_modes_path(pa_cpu[TIM])}))
     q_rates, launches["quality"] = quality_path(pa_cpu[TIM])

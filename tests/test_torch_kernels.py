@@ -1697,24 +1697,31 @@ def test_sweep_pass_smem_bytes_at_comp01s():
     assert sweep.sweep_pass_smem_bytes(pa, post) == 51_040
 
 
-def test_room_kernels_refuse_only_by_shared_memory():
+def test_room_kernels_refuse_only_by_shared_memory(monkeypatch):
     """K1, K6 (both matchers, its relocation entry) and K9 take any
-    R < 4096; what they refuse they refuse by the bytes one block needs,
-    before anything launches, naming them: at 1,300 rooms the (45, R)
-    int32 occupancy is 234,000 bytes, past the 232,448 a block can have;
-    at 400 rooms only the relocation entry's four rows (288,096 bytes)
-    do not fit."""
-    for R, refused in ((1300, ("assign_rooms", "breed", "parallel_rooms",
-                               "relocate")), (400, ("relocate",))):
+    R < 4096: where the occupancy or the matcher's scratch does not fit
+    one block (the (45, R) int32 occupancy is 234,000 bytes at 1,300
+    rooms, past the 232,448 a block can have; at 400 rooms the
+    relocation entry's four rows are 288,096), the same sizes choose the
+    global-memory branch and get as far as the CPU tensor the kernel
+    cannot take, launching nothing. What is still refused is refused by
+    the bytes one block needs, named, before anything launches (a
+    layout pushed past the limit)."""
+    for R, glob in ((1300, ("assign_rooms", "breed", "parallel_rooms",
+                            "relocate")), (400, ("relocate",))):
         pa = random_instance(3, n_events=12, n_rooms=R, n_features=2,
                              n_students=10,
                              attend_prob=0.2).device_arrays()
-        sizes = {"assign_rooms": rooms.assign_rooms_smem_bytes(pa),
-                 "breed": ga.breed_smem_bytes(pa, False),
-                 "parallel_rooms": rooms.parallel_rooms_smem_bytes(pa),
-                 "relocate": moves.relocate_smem_bytes(pa)}
-        assert {k for k, v in sizes.items()
-                if v > kernels.SMEM_LIMIT} == set(refused)
+        stages = {"assign_rooms": rooms.assign_rooms_stage(pa),
+                  "breed": ga.breed_stage(pa, False),
+                  "parallel_rooms": rooms.parallel_rooms_stage(pa),
+                  "relocate": moves.relocate_stage(pa)}
+        assert all(v[0] <= kernels.SMEM_LIMIT for v in stages.values())
+        full = {"assign_rooms": 1, "breed": 7, "parallel_rooms": 3,
+                "relocate": 4}
+        assert {k for k, v in stages.items()
+                if v[1] != full[k]} == set(glob)
+        assert moves.relocate_stage(pa)[1] == (0 if R == 1300 else 2)
         st = _state(pa, 2, 1)
         _, _, par, draws = _breed_case(pa, "cpu", 1, 2, 2)
         chain = moves.MoveDraws(*(x[None] for x in draws.move))
@@ -1727,11 +1734,142 @@ def test_room_kernels_refuse_only_by_shared_memory():
             "relocate": lambda: moves.relocation_chain_kernel(
                 pa, chain, st.slots, st.rooms, 1)}
         kernels.reset_launches()
-        for name in refused:
-            with pytest.raises(ValueError,
-                               match=f"{sizes[name]} bytes of shared"):
+        for name in glob:
+            with pytest.raises(ValueError, match="CUDA device"):
                 calls[name]()
         assert sum(kernels.LAUNCHES.values()) == 0
+    monkeypatch.setattr(rooms, "assign_rooms_stage",
+                        lambda pa: (kernels.SMEM_LIMIT + 16, 1, 0))
+    with pytest.raises(ValueError, match=f"{kernels.SMEM_LIMIT + 16} "
+                                         f"bytes of shared"):
+        rooms.assign_rooms_kernel(pa, st.slots)
+    assert sum(kernels.LAUNCHES.values()) == 0
+
+
+def _sized(E, R, S, T=45):
+    """A stand-in of ProblemArrays with just the sizes the kernels'
+    layout functions read (no data: `meta` tensors): an event of every
+    student (the most the Move1 masks can take) and 7 events a student's
+    CSR."""
+    import types
+    return types.SimpleNamespace(
+        n_events=E, n_rooms=R, n_students=S, n_slots=T,
+        conflict_bits=torch.empty((E, -(-E // 32)), dtype=torch.int32,
+                                  device="meta"),
+        max_ev_students=S,
+        stu_ev=torch.empty(7 * S, dtype=torch.int32, device="meta"))
+
+
+def _layouts(pa):
+    """(name, bytes a block, what it stages) of every kernel that stages
+    per-individual state, at the paths' shapes: K5's repair (hot-K 48)
+    and post (swap block 64) passes, K8 at K 8, K10 at K 16 and Lh
+    5,000, K12 at K 8, K1, K9, K6's breeding in both matchers and its
+    relocation entry, and K2."""
+    E, T = pa.n_events, pa.n_slots
+    out = []
+    for tag, c in (("repair", (8, 1, 48)), ("post", (64, 1, 0))):
+        sh = sweep.sweep_shape(E, T, c[0], c[1], c[2], 0.0)
+        smem, bits, stage = sweep.sweep_pass_layout(pa, sh)
+        out.append((f"sweep_pass {tag}", smem, (stage, bits)))
+    smem, bits, stage, _ = delta.random_ls_layout(pa, 8)
+    out.append(("random_ls", smem, (stage, bits)))
+    smem, bits, ring, stage = lahc.lahc_layout(pa, 16, 5000)
+    out.append(("lahc", smem, (stage, bits, ring)))
+    smem, occ, table, csr = local_search.full_eval_ls_layout(pa, 8)
+    out.append(("full_eval_ls", smem, (occ, table, csr)))
+    smem, stage, _ = rooms.assign_rooms_stage(pa)
+    out.append(("assign_rooms", smem, stage))
+    smem, stage, _ = rooms.parallel_rooms_stage(pa)
+    out.append(("parallel_rooms", smem, stage))
+    for par in (False, True):
+        smem, stage, _ = ga.breed_stage(pa, par)
+        out.append((f"breed {par}", smem, stage))
+    smem, rows, _ = moves.relocate_stage(pa)
+    out.append(("relocate", smem, rows))
+    smem, occ = fitness.batch_penalty_stage(pa)
+    out.append(("batch_penalty", smem, occ))
+    return out
+
+
+@pytest.mark.parametrize("E", [400, 2400, 4095])
+def test_no_layout_exceeds_shared_memory_at_any_size(E):
+    """At every corner of E < 4096 (400, 2,400, 4,095), R < 4096 (10, 80,
+    400, 1,300, 4,095) and S <= 50,000 (200, 2,300, 10,000, 50,000), no
+    kernel's block needs more shared memory than SMEM_LIMIT: what does
+    not fit is read and written in global memory, so check_smem raises
+    for none of them. On comp01s every kernel stages what it staged
+    before the global branches (every region; the bytes are pinned by
+    the *_smem_bytes_at_comp01s tests)."""
+    for R in (10, 80, 400, 1300, 4095):
+        for S in (200, 2300, 10_000, 50_000):
+            for name, smem, _ in _layouts(_sized(E, R, S)):
+                assert smem <= kernels.SMEM_LIMIT, (name, E, R, S, smem)
+    comp = dict((n, st) for n, _, st in
+                _layouts(load_tim_file(COMP01S).device_arrays()))
+    assert comp == {
+        "sweep_pass repair": (15, True), "sweep_pass post": (15, True),
+        "random_ls": (7, True), "lahc": (7, True, True),
+        "full_eval_ls": (True, True, True), "assign_rooms": 1,
+        "parallel_rooms": 3, "breed False": 7, "breed True": 7,
+        "relocate": 4, "batch_penalty": True}
+
+
+def _past_smem(which, device):
+    """Small instances past shared memory: 40 events and 2,700 students
+    (an individual's attendance is 243,000 bytes: K5, K8 and K10 keep it
+    in global memory), or 40 events and 1,300 rooms (a (45, R) int32
+    occupancy is 234,000 bytes: K1, K2, K6, K9 and K12 keep theirs, and
+    the matcher its words and rows, in global memory)."""
+    if which == "students":
+        return random_instance(61, n_events=40, n_rooms=10, n_features=3,
+                               n_students=2700,
+                               attend_prob=0.02).device_arrays(device)
+    return random_instance(62, n_events=40, n_rooms=1300, n_features=3,
+                           n_students=30,
+                           attend_prob=0.1).device_arrays(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["students", "rooms", "forced"])
+def test_kernels_past_shared_memory_equal_plain(cuda, monkeypatch, which):
+    """Every kernel with a global-memory branch against its plain version
+    on the card, exactly, where the sizes choose that branch (2,700
+    students; 1,300 rooms) and with every such region forced into global
+    memory (STAGE_LIMIT 0) on the anchored instance: K1, K6 (greedy,
+    crowded, parallel, relocation), K9, K8, K12, K10, K2 at every
+    cluster size and K5 at the repair and post shapes, every cluster
+    size."""
+    if which == "forced":
+        monkeypatch.setattr(kernels, "STAGE_LIMIT", 0)
+        pa = _instances(cuda)[3]
+    else:
+        pa = _past_smem(which, cuda)
+    seed = {"students": 960, "rooms": 970, "forced": 980}[which]
+    if which == "students":
+        assert not delta.random_ls_layout(pa, 4)[2] & 4
+    if which == "rooms":
+        assert rooms.assign_rooms_stage(pa)[1] == 0
+        assert not local_search.full_eval_ls_layout(pa, 4)[1]
+    k1_k6_wide_equal_plain(pa, cuda, seed)
+    _matcher_equals_plain(pa, cuda, seed + 1)
+    k8_k12_wide_equal_plain(pa, cuda, seed + 2)
+    k10_wide_equal_plain(pa, cuda, seed + 3)
+    g = torch.Generator(device=cuda).manual_seed(seed + 4)
+    slots = torch.randint(0, pa.n_slots, (5, pa.n_events), generator=g,
+                          device=cuda, dtype=torch.int32)
+    rms = torch.randint(0, pa.n_rooms, (5, pa.n_events), generator=g,
+                        device=cuda, dtype=torch.int32)
+    want = fitness.batch_penalty_plain(pa, slots, rms)
+    for cs in fitness.K2_CLUSTERS:
+        got = fitness.batch_penalty_kernel(pa, slots, rms, cs)
+        assert all(torch.equal(w, x) for w, x in zip(want, got)), cs
+    st = _state(pa, 2, seed + 5)
+    for case in (K5_CASES[6], K5_CASES[7]):
+        sb, be, side, hot, p3 = case
+        sh = sweep.sweep_shape(pa.n_events, pa.n_slots, sb, be, hot, p3)
+        draws = sweep.make_sweep_draws([g], 2, sh, pa.n_events, side, cuda)
+        _k5_equals_plain(pa, st, draws, case, (None, 1, 2, 4, 8))
 
 
 def test_random_ls_smem_bytes_at_comp01s():
@@ -1788,25 +1926,35 @@ def test_lahc_smem_bytes_at_comp01s():
     assert lahc.lahc_smem_bytes(pa, 16, 30_000) == 76_848
 
 
-def test_sweep_pass_kernel_raises_above_the_shared_memory_limit():
-    # 2,700 students x 45 slots of int16 attendance is 243,000 bytes
+def test_sweep_pass_kernel_raises_above_the_shared_memory_limit(
+        monkeypatch):
+    """2,700 students x 45 slots of int16 attendance is 243,000 bytes:
+    K5 keeps it in global memory (its one copy an individual, in the
+    out rows) and gets as far as the CPU tensor the kernel cannot take,
+    as a small instance does; a layout past the limit is refused by the
+    bytes, before anything launches."""
     big = random_instance(5, n_events=12, n_rooms=3, n_features=2,
                           n_students=2700, attend_prob=0.05).device_arrays()
     small = random_instance(5, n_events=12, n_rooms=3, n_features=2,
                             n_students=20, attend_prob=0.2).device_arrays()
-    for pa, match in ((big, "shared memory"), (small, "CUDA device")):
+    for pa in (big, small):
         st = _state(pa, 2, 1)
         sh = sweep.sweep_shape(pa.n_events, pa.n_slots, 2, 1, 0, 0.0)
         draws = sweep.make_sweep_draws([torch.Generator().manual_seed(0)],
                                        2, sh, pa.n_events, 0.0, "cpu")
-        assert (sweep.sweep_pass_smem_bytes(pa, sh) > sweep.SMEM_LIMIT) == \
-            (pa is big)
+        smem, _, stage = sweep.sweep_pass_layout(pa, sh)
+        assert smem <= sweep.SMEM_LIMIT
+        # att in global memory at 2,700 students, every region staged at 20
+        assert stage == (sweep.K5_STAGE_MASKS | 3 if pa is big else 15)
         kernels.reset_launches()
-        # past the limit it refuses before anything else; within it, it
-        # gets as far as the CPU tensor the kernel cannot take
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(ValueError, match="CUDA device"):
             sweep.sweep_pass_kernel(pa, draws, st, 2)
         assert sum(kernels.LAUNCHES.values()) == 0
+    monkeypatch.setattr(sweep, "sweep_pass_layout",
+                        lambda pa, sh: (sweep.SMEM_LIMIT + 16, False, 15))
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep.sweep_pass_kernel(pa, draws, st, 2)
+    assert sum(kernels.LAUNCHES.values()) == 0
 
 
 def test_k2_cluster_size_choice():

@@ -36,6 +36,7 @@ from timetabling_ga_tpu_torch.obs import http as thttp
 from timetabling_ga_tpu_torch.obs import metrics as tmetrics
 from timetabling_ga_tpu_torch.problem import load_tim
 from timetabling_ga_tpu_torch.runtime import faults as tfaults
+from timetabling_ga_tpu_torch.runtime import jsonl as tjsonl
 from timetabling_ga_tpu_torch.runtime.config import RunConfig as TRunConfig
 from timetabling_ga_tpu_torch.runtime.config import ServeConfig
 from timetabling_ga_tpu_torch.runtime.jsonl import strip_timing
@@ -108,7 +109,12 @@ class _Scraper:
     The run is held at the front's start until the scraper has an
     answer from every route and one non-empty history series (or
     GATE_S passes): a 20-generation run on the 15-event instance can
-    end before a loaded worker lands one round of scrapes."""
+    end before a loaded worker lands one round of scrapes. And the
+    run's writer stops only after the scraper has stopped (its last
+    scrape answered): /healthz probes the writer, and the run closes
+    its front after the writer (JAX's order, engine.py), so a scrape
+    landing between the two would read the run's teardown, not the
+    run."""
 
     ROUTES = ("/metrics", "/healthz", "/readyz",
               "/metrics/history?window=10")
@@ -132,6 +138,13 @@ class _Scraper:
                 return started
 
         monkeypatch.setattr(thttp, "ObsServer", Recorded)
+        real_close = tjsonl.AsyncWriter.close
+
+        def close(writer, *a, **k):
+            scraper.close()
+            return real_close(writer, *a, **k)
+
+        monkeypatch.setattr(tjsonl.AsyncWriter, "close", close)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 

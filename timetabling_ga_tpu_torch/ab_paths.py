@@ -17,7 +17,8 @@ walker (the chain's floor). The name `k5` times one K5 sweep pass the
 same way, through the tree's `sweep.sweep_pass_kernel`, at the main
 path's repair (16 rows) and post (4 rows) shapes from chip_smoke's
 feasible start: ms a pass. The name `ptxas` prints the compiler's
-register and spill report of K5, K8 and K10 from the tree's build. To
+register and spill report (with each entry function's name) of K1, K2,
+K5, K6, K8, K9, K10 and K12 from the tree's build. To
 compare two commits on one card, unpack
 the parent with `git archive` into a directory that .gitignore lists
 and run, in one call, parent, change, change, parent (then the mirrored
@@ -82,9 +83,12 @@ def ptxas_lines() -> dict:
     from timetabling_ga_tpu_torch import kernels
     out = {}
     for name, text in kernels.BUILD_INFO["ptxas"].items():
-        if name in ("sweep_pass", "random_ls", "lahc"):
+        if name in ("sweep_pass", "random_ls", "lahc", "full_eval_ls",
+                    "breed", "assign_rooms", "parallel_rooms",
+                    "batch_penalty"):
             out[name] = [x.strip() for x in text.splitlines()
-                         if "registers" in x or "spill" in x]
+                         if "registers" in x or "spill" in x
+                         or "entry function" in x]
     return out
 
 

@@ -23,42 +23,74 @@
 // order (a stable sort of suitable-room counts) and the capacity rank
 // are computed once per problem on the host, as the JAX version
 // computes them once per trace.
-// K6 runs the same body on every crossover child.
+// K6 runs the same body on every crossover child. Where the occupancy
+// does not fit in shared memory (past ~1,283 rooms at E = 400; the
+// wrapper's stage flag, decided from the sizes), the GLOB instance keeps
+// it in a global scratch row a block and its `grid` blocks stride over
+// the individuals, so the scratch is sized by the card, not by P.
 #include "rooms_dev.cuh"
 
 // threads of a block (the CPU stand-in builds it small)
 #ifndef K1_THREADS
 #define K1_THREADS 512
 #endif
+// bit of the stage mask (kernels.stage_regions): the occupancy staged
+#define K1_OCC 1
 
+// individual p's rooms, with `so` and `occ` the block's (the caller
+// syncs after)
+__device__ __forceinline__ void k1_row(const TTRoomProblem& rp,
+                                       const int* slots, int* rooms,
+                                       const int* order, int* so, int* occ,
+                                       int p) {
+    const int E = rp.E;
+    const int* sl = slots + (size_t)p * E;
+    for (int i = threadIdx.x; i < E; i += blockDim.x) so[i] = sl[order[i]];
+    for (int i = threadIdx.x; i < rp.T * rp.R; i += blockDim.x) occ[i] = 0;
+    __syncthreads();
+    tt_match_rooms_block(rp, order, so, occ, rooms + (size_t)p * E);
+}
+
+template <bool GLOB>
 __global__ void __launch_bounds__(K1_THREADS) assign_rooms_kernel(
     const int* __restrict__ slots, int* __restrict__ rooms,
     const uint8_t* __restrict__ possible, const int* __restrict__ cap_rank,
     const int* __restrict__ dead, const int* __restrict__ live,
-    const int* __restrict__ order, int E, int R, int T) {
+    const int* __restrict__ order, int* __restrict__ scratch, int P, int E,
+    int R, int T) {
     extern __shared__ int smem[];
     int* so = smem;                                    // (E,)
-    int* occ = smem + E;                               // (T, R)
-    const int p = blockIdx.x;
-    const int* sl = slots + (size_t)p * E;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) so[i] = sl[order[i]];
-    for (int i = threadIdx.x; i < T * R; i += blockDim.x) occ[i] = 0;
-    __syncthreads();
     const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
-    tt_match_rooms_block(rp, order, so, occ, rooms + (size_t)p * E);
+    if (!GLOB) {
+        // (T, R) after so; a block an individual
+        k1_row(rp, slots, rooms, order, so, smem + E, blockIdx.x);
+        return;
+    }
+    // the block's scratch row, its individuals grid-stride
+    int* occ = scratch + (size_t)blockIdx.x * T * R;
+    for (int p = blockIdx.x; p < P; p += gridDim.x) {
+        k1_row(rp, slots, rooms, order, so, occ, p);
+        __syncthreads();
+    }
 }
 
 extern "C" int tt_assign_rooms(const int* slots, int* rooms,
                                const uint8_t* possible, const int* cap_rank,
                                const int* dead, const int* live,
-                               const int* order, int P, int E, int R, int T,
+                               const int* order, int* scratch, int P, int E,
+                               int R, int T, int stage, int grid,
                                void* stream) {
-    if (!tt_rooms_fit(E, R) || P <= 0) return (int)cudaErrorInvalidValue;
-    size_t smem = sizeof(int) * ((size_t)E + (size_t)T * R);
+    const bool glob = !(stage & K1_OCC);
+    if (!tt_rooms_fit(E, R) || P <= 0 || (glob && (!scratch || grid <= 0)))
+        return (int)cudaErrorInvalidValue;
+    size_t smem = sizeof(int) * ((size_t)E + (glob ? 0 : (size_t)T * R));
     if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
-    cudaError_t err = tt_set_smem(assign_rooms_kernel, smem);
+    const auto kernel = glob ? assign_rooms_kernel<true>
+                             : assign_rooms_kernel<false>;
+    cudaError_t err = tt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    assign_rooms_kernel<<<P, K1_THREADS, smem, (cudaStream_t)stream>>>(
-        slots, rooms, possible, cap_rank, dead, live, order, E, R, T);
+    kernel<<<glob ? grid : P, K1_THREADS, smem, (cudaStream_t)stream>>>(
+        slots, rooms, possible, cap_rank, dead, live, order, scratch, P, E,
+        R, T);
     return (int)cudaGetLastError();
 }

@@ -34,7 +34,11 @@
 // three terms. A
 // CSR slice and rows too large for shared memory are read from global
 // memory instead. Integer-exact: equal to the plain version
-// (ops/fitness.py) bit for bit.
+// (ops/fitness.py) bit for bit. Where the (T, R) occupancy does not fit
+// (past ~1,250 rooms at E = 400; the wrapper's stage flag, decided from
+// the sizes), the GLOB instance keeps each CTA's in a global scratch row
+// and the grid's clusters stride over the individuals, so the scratch is
+// sized by the card, not by P.
 #include <cooperative_groups.h>
 
 #include "penalty_dev.cuh"
@@ -85,6 +89,9 @@ struct K2Args {
     const int* slots; const int* rooms;
     int* pen; int* hcv; int* scv;
     int CS, staged;
+    // individuals, and the GLOB instance's occupancy rows (T R ints a CTA)
+    int P;
+    int* occ_g;
     // rank c's students [s_lo[c], s_lo[c + 1]) and their CSR entries
     // [k_lo[c], k_lo[c + 1])
     int s_lo[K2_MAX_CLUSTER + 1], k_lo[K2_MAX_CLUSTER + 1];
@@ -93,22 +100,31 @@ struct K2Args {
     int o_rm, o_live, o_occ, o_bits, o_red, o_ptr, o_ev, o_rows;
 };
 
+template <bool GLOB>
 __global__ void __launch_bounds__(K2_THREADS) batch_penalty_kernel(K2Args A) {
     extern __shared__ __align__(16) int k2_smem[];
     cg::cluster_group cl = cg::this_cluster();
     const TTPenaltyProblem& pp = A.pp;
     const int E = pp.E, R = pp.R, T = pp.T;
     const int CS = A.CS, rank = CS > 1 ? (int)cl.block_rank() : 0;
-    const int p = blockIdx.x / CS, tid = threadIdx.x;
+    const int tid = threadIdx.x;
     int* sl = k2_smem;                                  // (E,)
     int* rm = k2_smem + A.o_rm;                         // (E,)
     int* live = k2_smem + A.o_live;                     // (E,)
-    int* occ = k2_smem + A.o_occ;                       // (T, R)
+    int* occ = GLOB ? A.occ_g + (size_t)blockIdx.x * T * R
+                    : k2_smem + A.o_occ;                // (T, R)
     uint32_t* slot_ev = (uint32_t*)(k2_smem + A.o_bits);  // (T, W)
     int* red = k2_smem + A.o_red;             // warps x 4, then 4 a rank
     TT_PROF_START();
+    // individual p, the whole cluster; `first`: the cluster's first
+    auto indiv = [&](const int p, const bool first) {
     // the first half of the barrier before rank 0's inbox is written
-    if (CS > 1) k2_cluster_arrive<true>(cl);
+    // (after an individual before, a release: rank 0's reads of its
+    // inbox come before any CTA's next store there)
+    if (CS > 1) {
+        if (first) k2_cluster_arrive<true>(cl);
+        else k2_cluster_arrive<false>(cl);
+    }
 
     // ---- one round trip: the row, the live flags, the rank's CSR slice
     // and its events' conflict rows
@@ -196,6 +212,18 @@ __global__ void __launch_bounds__(K2_THREADS) batch_penalty_kernel(K2Args A) {
         if (tid == 0) tt_pen_finish(pp, c, A.pen + p, A.hcv + p, A.scv + p);
     }
     TT_PROF(9);
+    };
+    if (!GLOB) {
+        // a cluster an individual
+        indiv(blockIdx.x / CS, true);
+        return;
+    }
+    // the clusters stride over the individuals (a block barrier keeps an
+    // individual's staged rows and occupancy until every thread is done)
+    for (int p = blockIdx.x / CS; p < A.P; p += gridDim.x / CS) {
+        indiv(p, p == (int)blockIdx.x / CS);
+        __syncthreads();
+    }
 }
 
 extern "C" int tt_batch_penalty(
@@ -203,10 +231,14 @@ extern "C" int tt_batch_penalty(
     const int* live, const int* student_count, const uint32_t* conflict_bits,
     const int* stu_ptr, const int* stu_ev, const int* anchor_slots,
     const int* anchor_w, const int* stu_split, int* pen, int* hcv, int* scv,
-    int P, int E, int R, int S, int T, int spd, int W, int diag, int cluster,
-    void* stream) {
+    int* occ_g, int P, int E, int R, int S, int T, int spd, int W,
+    int diag, int cluster, int stage, int grid, void* stream) {
+    // stage bit 0: the occupancy staged; else occ_g holds a T R row for
+    // each CTA of the `grid` clusters
+    const bool glob = !(stage & 1);
     if (T > 64 || spd > 32 || P <= 0 || E <= 0 || cluster < 1
-        || cluster > K2_MAX_CLUSTER || (cluster & (cluster - 1)) != 0)
+        || cluster > K2_MAX_CLUSTER || (cluster & (cluster - 1)) != 0
+        || (glob && (!occ_g || grid <= 0)))
         return (int)cudaErrorInvalidValue;
     K2Args A;
     A.pp = {possible, live, student_count, conflict_bits, stu_ptr, stu_ev,
@@ -214,6 +246,8 @@ extern "C" int tt_batch_penalty(
     A.slots = slots; A.rooms = rooms;
     A.pen = pen; A.hcv = hcv; A.scv = scv;
     A.CS = cluster;
+    A.P = P;
+    A.occ_g = glob ? occ_g : nullptr;
     // stu_split (host memory) holds, for cluster sizes 1, 2, 4, 8 in turn,
     // the CS + 1 student boundaries and then the CS + 1 entry boundaries
     int off = 0;
@@ -236,7 +270,7 @@ extern "C" int tt_batch_penalty(
     A.o_rm = up(E);
     A.o_live = A.o_rm + up(E);
     A.o_occ = A.o_live + up(E);
-    A.o_bits = A.o_occ + up(T * R);
+    A.o_bits = A.o_occ + (glob ? 0 : up(T * R));
     A.o_red = A.o_bits + up(T * W);
     A.o_ptr = A.o_red + up(n_red);
     A.o_ev = A.o_ptr + up(max_students + 1);
@@ -245,13 +279,14 @@ extern "C" int tt_batch_penalty(
     A.staged = staged <= K2_STAGE_LIMIT ? 1 : 0;
     size_t smem = A.staged ? staged : sizeof(int) * (size_t)A.o_ptr;
     if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
+    const auto kernel = glob ? batch_penalty_kernel<true>
+                             : batch_penalty_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        batch_penalty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
 
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(P * cluster, 1, 1);
+    cfg.gridDim = dim3((glob ? grid : P) * cluster, 1, 1);
     cfg.blockDim = dim3(K2_THREADS, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = (cudaStream_t)stream;
@@ -265,12 +300,11 @@ extern "C" int tt_batch_penalty(
     if (cluster > 1) {
         // a cluster the card cannot place is refused, never shrunk
         int n_clusters = 0;
-        err = cudaOccupancyMaxActiveClusters(&n_clusters,
-                                             batch_penalty_kernel, &cfg);
+        err = cudaOccupancyMaxActiveClusters(&n_clusters, kernel, &cfg);
         if (err != cudaSuccess) return (int)err;
         if (n_clusters < 1) return (int)cudaErrorLaunchOutOfResources;
     }
-    err = cudaLaunchKernelEx(&cfg, batch_penalty_kernel, A);
+    err = cudaLaunchKernelEx(&cfg, kernel, A);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -53,6 +53,15 @@
 // The relocation entry (kicks, the full-evaluation local search) keeps
 // one warp per row and runs only the last step, n_moves times in order
 // per row, on an occupancy counted once at the start.
+// Past shared memory (the wrappers' stage masks, decided on the host from
+// the sizes alone, kernels.stage_regions): a breeding block stages the
+// parallel matcher's rank rows first, then its suitability words, then
+// the child's occupancy, and the GLOB instance reads the words from the
+// problem's and keeps the rows and the occupancy in a global scratch row
+// a block, its `grid` blocks striding over the children (so the scratch
+// is sized by the card, not by the population); a relocation block takes
+// 4, 2 or 1 rows, as many as fit, and past one its GLOB instance keeps
+// each row's occupancy in a scratch row a warp, striding so too.
 #include "penalty_dev.cuh"
 #include "rooms_dev.cuh"
 
@@ -62,6 +71,11 @@
 #define K6_THREADS 512
 #endif
 #define K6_WARPS 4
+// bits of the breeding stage mask: the matcher's rank rows, its
+// suitability words, the child's occupancy staged
+#define K6_ROWS 1
+#define K6_SUIT 2
+#define K6_OCC 4
 
 // the winner of one tournament: `draws` (k) index the island's rows
 // from `base`; strict improvement only, so the earliest draw wins ties.
@@ -98,6 +112,7 @@ __device__ __forceinline__ void k6_random_move(const TTRoomProblem& rp,
     tt_relocate_warp(rp, sl, rm, occ, ev, ns, on, lane, rank);
 }
 
+template <bool GLOB>
 __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     const int* __restrict__ slots, const int* __restrict__ rooms,
     const int* __restrict__ pen, const int* __restrict__ scv,
@@ -112,12 +127,28 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     const float* __restrict__ crowd, TTPenaltyProblem pp,
     const long long* __restrict__ lanes, int* __restrict__ out_slots,
     int* __restrict__ out_rooms, int* __restrict__ out_eval,
-    int* __restrict__ out_parent, int P, int pop, int k, int E, int R,
-    int T, int n_rounds, int so_ints) {
+    int* __restrict__ out_parent, int* __restrict__ scratch, int P,
+    int pop, int k, int E, int R, int T, int n_rounds, int so_ints,
+    int stage) {
     extern __shared__ int k6_smem[];
     TT_PROF_START();
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int c = blockIdx.x;
+    // the GLOB instance's regions past shared memory: the occupancy
+    // (T x R) and then the warps' rank rows, in the block's scratch row
+    const bool occ_staged = !GLOB || (stage & K6_OCC);
+    int* g_row = GLOB ? scratch + (size_t)blockIdx.x
+                                      * ((occ_staged ? 0 : (size_t)T * R)
+                                         + ((stage & K6_ROWS)
+                                                ? 0
+                                                : (size_t)tt_rank_row_ints(R)
+                                                      * (K6_THREADS / 32)))
+                      : nullptr;
+    int* rows_g = GLOB && !(stage & K6_ROWS)
+                      ? g_row + (occ_staged ? 0 : (size_t)T * R)
+                      : nullptr;
+    const bool su_glob = GLOB && !(stage & K6_SUIT);
+    // child c, the whole block
+    auto child = [&](const int c) {
     if (lanes) {
         // this island's lane: its problem's arrays and scalars
         const long long* row = lanes + (size_t)(c / pop) * TT_LANE_FIELDS;
@@ -141,10 +172,11 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     }
     int* sl = k6_smem;                                   // (E,)
     int* rm = sl + E;                                    // (E,)
-    int* occ = rm + E;                                   // (T, R)
+    // (T, R), staged after rm, or the block's scratch row
+    int* occ = occ_staged ? rm + E : g_row;
     // the greedy matcher's event slots in matching order, or the
     // parallel matcher's scratch (tt_parallel_rooms_ints)
-    int* so = occ + T * R;
+    int* so = occ_staged ? occ + T * R : rm + E;
     // the child's live slot bitsets and the reduction's scratch, for the
     // epilogue's evaluation
     uint32_t* slot_ev = (uint32_t*)(so + so_ints);
@@ -170,7 +202,11 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
                 rm[e] = tt_best_fit_room(rr, e);
             __syncthreads();
             TT_PROF(0);
-            tt_parallel_rooms_block(rp, rr, sl, rm, so, n_rounds, occ);
+            if (GLOB)
+                tt_parallel_rooms_block(rp, rr, sl, rm, so, n_rounds, occ,
+                                        su_glob, rows_g);
+            else
+                tt_parallel_rooms_block(rp, rr, sl, rm, so, n_rounds, occ);
             TT_PROF(4);
         } else {
             for (int i = tid; i < T * R; i += blockDim.x) occ[i] = 0;
@@ -207,24 +243,27 @@ __global__ void __launch_bounds__(K6_THREADS) breed_kernel(
     if (tid == 0)
         tt_pen_finish(pp, acc, out_eval + c, out_eval + P + c,
                       out_eval + 2 * P + c);
+    };
+    if (!GLOB) {
+        // a block a child
+        child(blockIdx.x);
+        return;
+    }
+    for (int c = blockIdx.x; c < P; c += gridDim.x) {
+        child(c);
+        __syncthreads();
+    }
 }
 
-__global__ void relocate_kernel(
-    const int* __restrict__ slots, const int* __restrict__ rooms,
-    const int* __restrict__ mtype, const float* __restrict__ u,
-    const int* __restrict__ tgt, const uint8_t* __restrict__ possible,
-    const int* __restrict__ cap_rank, const int* __restrict__ dead,
-    const int* __restrict__ live, int* __restrict__ out_slots,
-    int* __restrict__ out_rooms, int N, int n_moves, int E, int R, int T) {
-    extern __shared__ int k6_smem[];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int c = blockIdx.x * K6_WARPS + warp;
-    if (c >= N) return;
-    int* sl = k6_smem + warp * (2 * E + T * R);
-    int* rm = sl + E;
-    int* occ = rm + E;
-    const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
-    const int rank = tt_room_rank(rp, lane);
+// row c's chain on warp `warp`'s slots, rooms and occupancy (the warp
+// syncs after)
+__device__ __forceinline__ void k6_relocate_row(
+    const TTRoomProblem& rp, const int* __restrict__ slots,
+    const int* __restrict__ rooms, const int* __restrict__ mtype,
+    const float* __restrict__ u, const int* __restrict__ tgt,
+    int* __restrict__ out_slots, int* __restrict__ out_rooms, int* sl,
+    int* rm, int* occ, int c, int N, int n_moves, int lane, int rank) {
+    const int E = rp.E;
     for (int e = lane; e < E; e += 32) {
         sl[e] = slots[(size_t)c * E + e];
         rm[e] = rooms[(size_t)c * E + e];
@@ -243,6 +282,42 @@ __global__ void relocate_kernel(
     }
 }
 
+// RPB rows a block, a warp a row; the GLOB instance keeps each warp's
+// occupancy in its scratch row and strides over the rows
+template <int RPB, bool GLOB>
+__global__ void relocate_kernel(
+    const int* __restrict__ slots, const int* __restrict__ rooms,
+    const int* __restrict__ mtype, const float* __restrict__ u,
+    const int* __restrict__ tgt, const uint8_t* __restrict__ possible,
+    const int* __restrict__ cap_rank, const int* __restrict__ dead,
+    const int* __restrict__ live, int* __restrict__ out_slots,
+    int* __restrict__ out_rooms, int* __restrict__ scratch, int N,
+    int n_moves, int E, int R, int T) {
+    extern __shared__ int k6_smem[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const TTRoomProblem rp = {possible, cap_rank, dead, live, E, R, T};
+    if (!GLOB) {
+        const int c = blockIdx.x * RPB + warp;
+        if (c >= N) return;
+        int* sl = k6_smem + warp * (2 * E + T * R);
+        int* rm = sl + E;
+        int* occ = rm + E;
+        const int rank = tt_room_rank(rp, lane);
+        k6_relocate_row(rp, slots, rooms, mtype, u, tgt, out_slots,
+                        out_rooms, sl, rm, occ, c, N, n_moves, lane, rank);
+        return;
+    }
+    int* sl = k6_smem + warp * 2 * E;
+    int* rm = sl + E;
+    int* occ = scratch + ((size_t)blockIdx.x * RPB + warp) * T * R;
+    const int rank = tt_room_rank(rp, lane);
+    for (int c = blockIdx.x * RPB + warp; c < N; c += gridDim.x * RPB) {
+        k6_relocate_row(rp, slots, rooms, mtype, u, tgt, out_slots,
+                        out_rooms, sl, rm, occ, c, N, n_moves, lane, rank);
+        __syncwarp();
+    }
+}
+
 extern "C" int tt_breed(
     const int* slots, const int* rooms, const int* pen, const int* scv,
     const int* ta, const int* tb, const uint8_t* mask, const uint8_t* do_x,
@@ -253,48 +328,70 @@ extern "C" int tt_breed(
     const int* student_count, const uint32_t* conflict_bits,
     const int* stu_ptr, const int* stu_ev, const int* anchor_slots,
     const int* anchor_w, const long long* lanes, int* out_slots,
-    int* out_rooms, int* out_eval, int* out_parent, int P, int pop, int k,
-    int E, int R, int T, int n_rounds, int S, int spd, int W, int diag,
-    void* stream) {
+    int* out_rooms, int* out_eval, int* out_parent, int* scratch, int P,
+    int pop, int k, int E, int R, int T, int n_rounds, int S, int spd,
+    int W, int diag, int stage, int grid, void* stream) {
+    const bool par = n_rounds >= 0;
+    // the greedy matcher has no rows and no words: only the occupancy
+    if (!par) stage |= K6_ROWS | K6_SUIT;
+    const bool glob = (stage & (K6_ROWS | K6_SUIT | K6_OCC))
+                      != (K6_ROWS | K6_SUIT | K6_OCC);
     if (!tt_rooms_fit(E, R) || E < 3 || P <= 0 || pop <= 0 || P % pop != 0
         || k <= 0 || T > 64 || spd > 32
-        || (ranks != nullptr) != (crowd != nullptr))
+        || (ranks != nullptr) != (crowd != nullptr)
+        || (glob && grid <= 0)
+        || (((stage & (K6_ROWS | K6_OCC)) != (K6_ROWS | K6_OCC))
+            && !scratch))
         return (int)cudaErrorInvalidValue;
     const size_t so_ints =
-        n_rounds >= 0 ? tt_parallel_rooms_ints(E, R, T, K6_THREADS / 32)
-                      : (size_t)E;
+        par ? tt_parallel_rooms_ints(E, R, T, K6_THREADS / 32,
+                                     stage & K6_SUIT, stage & K6_ROWS)
+            : (size_t)E;
     size_t smem = sizeof(int)
-                  * (2 * (size_t)E + (size_t)T * R + so_ints
-                     + (size_t)T * W + 4 * (K6_THREADS / 32));
+                  * (2 * (size_t)E + ((stage & K6_OCC) ? (size_t)T * R : 0)
+                     + so_ints + (size_t)T * W + 4 * (K6_THREADS / 32));
     if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
-    cudaError_t err = tt_set_smem(breed_kernel, smem);
+    const auto kernel = glob ? breed_kernel<true> : breed_kernel<false>;
+    cudaError_t err = tt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const TTPenaltyProblem pp = {possible, live, student_count,
                                  conflict_bits, stu_ptr, stu_ev,
                                  anchor_slots, anchor_w, E, R, S, T, spd, W,
                                  diag};
-    breed_kernel<<<P, K6_THREADS, smem, (cudaStream_t)stream>>>(
+    kernel<<<glob ? grid : P, K6_THREADS, smem, (cudaStream_t)stream>>>(
         slots, rooms, pen, scv, ta, tb, mask, do_x, do_m, mtype, u, tgt,
         possible, cap_rank, dead, live, order, suit, room_of, ranks, crowd,
-        pp, lanes, out_slots, out_rooms, out_eval, out_parent, P, pop, k, E,
-        R, T, n_rounds, (int)so_ints);
+        pp, lanes, out_slots, out_rooms, out_eval, out_parent, scratch, P,
+        pop, k, E, R, T, n_rounds, (int)so_ints, stage);
     return (int)cudaGetLastError();
 }
 
+// `rows` a block (4, 2 or 1: as many as fit in shared memory, the
+// wrapper's choice), or 0: past one, four a block with each row's
+// occupancy in `scratch`, `grid` blocks
 extern "C" int tt_relocate(
     const int* slots, const int* rooms, const int* mtype, const float* u,
     const int* tgt, const uint8_t* possible, const int* cap_rank,
-    const int* dead, const int* live, int* out_slots, int* out_rooms, int N,
-    int n_moves, int E, int R, int T, void* stream) {
-    if (!tt_rooms_fit(E, R) || E < 3 || N <= 0 || n_moves < 0)
+    const int* dead, const int* live, int* out_slots, int* out_rooms,
+    int* scratch, int N, int n_moves, int E, int R, int T, int rows,
+    int grid, void* stream) {
+    if (!tt_rooms_fit(E, R) || E < 3 || N <= 0 || n_moves < 0
+        || (rows != 0 && rows != 1 && rows != 2 && rows != K6_WARPS)
+        || (rows == 0 && (!scratch || grid <= 0)))
         return (int)cudaErrorInvalidValue;
-    size_t smem = sizeof(int) * K6_WARPS * (2 * (size_t)E + (size_t)T * R);
+    const int rpb = rows ? rows : K6_WARPS;
+    size_t smem = sizeof(int) * rpb
+                  * (2 * (size_t)E + (rows ? (size_t)T * R : 0));
     if (smem > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
-    cudaError_t err = tt_set_smem(relocate_kernel, smem);
+    const auto kernel = rows == K6_WARPS ? relocate_kernel<K6_WARPS, false>
+                      : rows == 2 ? relocate_kernel<2, false>
+                      : rows == 1 ? relocate_kernel<1, false>
+                                  : relocate_kernel<K6_WARPS, true>;
+    cudaError_t err = tt_set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    int grid = (N + K6_WARPS - 1) / K6_WARPS;
-    relocate_kernel<<<grid, 32 * K6_WARPS, smem, (cudaStream_t)stream>>>(
+    const int blocks = rows ? (N + rpb - 1) / rpb : grid;
+    kernel<<<blocks, 32 * rpb, smem, (cudaStream_t)stream>>>(
         slots, rooms, mtype, u, tgt, possible, cap_rank, dead, live,
-        out_slots, out_rooms, N, n_moves, E, R, T);
+        out_slots, out_rooms, scratch, N, n_moves, E, R, T);
     return (int)cudaGetLastError();
 }

@@ -47,6 +47,11 @@
 // terms come from the caller), so the generation needs no K2 after the
 // search. Integer-exact: equal to the plain version
 // (ops/local_search.py batch_local_search_plain) bit for bit.
+// Where the two (T, R) int32 occupancies do not fit (past ~560 rooms at
+// E = 400; the wrapper's stage flag, decided from the sizes), the GLOB
+// instance keeps them in a global scratch row a CTA, and the grid's
+// clusters stride over the individuals, so the scratch is sized by the
+// card, not by P.
 #include <cooperative_groups.h>
 
 #include "penalty_dev.cuh"
@@ -91,21 +96,25 @@ __host__ __device__ inline unsigned k12_align(size_t x) {
     return (unsigned)((x + 15) & ~(size_t)15);
 }
 
+// `occ_staged`: the two occupancies in shared memory (else 0 bytes here,
+// a global scratch row of 2 T R ints a CTA)
 __host__ __device__ inline K12Smem k12_smem_layout(int E, int R, int S,
                                                    int T, int K, int W,
-                                                   int nnz) {
+                                                   int nnz,
+                                                   int occ_staged = 1) {
     K12Smem m;
     unsigned o = 0;
     m.chunk_rounds = K12_CHUNK_BYTES / (14 * K);
     if (m.chunk_rounds < 1) m.chunk_rounds = 1;
     const size_t n = (size_t)m.chunk_rounds * K;
+    const size_t occ = occ_staged ? 4 * (size_t)T * R : 0;
     m.sl = o; o += k12_align(4 * (size_t)E);
     m.rm = o; o += k12_align(4 * (size_t)E);
-    m.occ = o; o += k12_align(4 * (size_t)T * R);
+    m.occ = o; o += k12_align(occ);
     m.bits_cur = o; o += k12_align(4 * (size_t)T * W);
     m.csl = o; o += k12_align(4 * (size_t)E);
     m.crm = o; o += k12_align(4 * (size_t)E);
-    m.cocc = o; o += k12_align(4 * (size_t)T * R);
+    m.cocc = o; o += k12_align(occ);
     m.bits_cand = o; o += k12_align(4 * (size_t)T * W);
     m.red = o; o += k12_align(4 * 4 * (size_t)(K12_THREADS / 32));
     m.inbox = o; o += k12_align(4 * 2 * (size_t)K12_MAX_CLUSTER * K12_REC);
@@ -148,9 +157,12 @@ struct K12Args {
     int* slots_out; int* rooms_out; int* pen_out; int* hcv_out;
     int* scv_out;
     int P, K, n_rounds, CS, nnz;
+    // the GLOB instance's occupancies: 2 T R ints a CTA
+    int* scratch;
     K12Smem lay;
 };
 
+template <bool GLOB>
 __global__ void __launch_bounds__(K12_THREADS) full_eval_ls_kernel(
     K12Args A) {
     extern __shared__ __align__(16) unsigned char k12_smem[];
@@ -159,15 +171,16 @@ __global__ void __launch_bounds__(K12_THREADS) full_eval_ls_kernel(
     const int E = gp.E, R = gp.R, S = gp.S, T = gp.T, W = gp.W;
     const int K = A.K, CS = A.CS, chunk = A.lay.chunk_rounds;
     const int rank = CS > 1 ? (int)cl.block_rank() : 0;
-    const int p = blockIdx.x / CS, tid = threadIdx.x;
+    const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     int* sl = (int*)(k12_smem + A.lay.sl);
     int* rm = (int*)(k12_smem + A.lay.rm);
-    int* occ = (int*)(k12_smem + A.lay.occ);
+    int* occ = GLOB ? A.scratch + (size_t)blockIdx.x * 2 * T * R
+                    : (int*)(k12_smem + A.lay.occ);
     uint32_t* bits = (uint32_t*)(k12_smem + A.lay.bits_cur);
     int* csl = (int*)(k12_smem + A.lay.csl);
     int* crm = (int*)(k12_smem + A.lay.crm);
-    int* cocc = (int*)(k12_smem + A.lay.cocc);
+    int* cocc = GLOB ? occ + T * R : (int*)(k12_smem + A.lay.cocc);
     uint32_t* cbits = (uint32_t*)(k12_smem + A.lay.bits_cand);
     int* red = (int*)(k12_smem + A.lay.red);
     int* inboxes = (int*)(k12_smem + A.lay.inbox);
@@ -176,6 +189,8 @@ __global__ void __launch_bounds__(K12_THREADS) full_eval_ls_kernel(
     int* c_tg = (int*)(k12_smem + A.lay.tg);
 
     TT_PROF_START();
+    // individual p, the whole cluster
+    auto indiv = [&](const int p) {
     // ---- prologue: the row, the per-event problem arrays, and the
     // conflict bitset and CSR where they fit, in one round trip of
     // cp.async copies
@@ -398,6 +413,20 @@ __global__ void __launch_bounds__(K12_THREADS) full_eval_ls_kernel(
         }
     }
     TT_PROF(12);
+    };
+    if (!GLOB) {
+        // a cluster an individual
+        indiv(blockIdx.x / CS);
+        return;
+    }
+    // the clusters stride over the individuals; a cluster barrier ends
+    // each, so no CTA stores into an inbox another still reads, nor
+    // restages what another still reads
+    for (int p = blockIdx.x / CS; p < A.P; p += gridDim.x / CS) {
+        indiv(p);
+        if (CS > 1) cl.sync();
+        else __syncthreads();
+    }
 }
 
 extern "C" int tt_full_eval_ls_smem_bytes(int E, int R, int S, int T, int K,
@@ -412,18 +441,24 @@ extern "C" int tt_full_eval_ls(
     const int* live, const int* student_count,
     const uint32_t* conflict_bits, const int* stu_ptr, const int* stu_ev,
     const int* anchor_slots, const int* anchor_w, int* slots_out,
-    int* rooms_out, int* pen_out, int* hcv_out, int* scv_out, int P, int E,
+    int* rooms_out, int* pen_out, int* hcv_out, int* scv_out, int* scratch,
+    int P, int E,
     int R, int S, int T, int spd, int W, int K, int n_rounds, int nnz,
-    int diag, int cluster, void* stream) {
+    int diag, int cluster, int stage, int grid, void* stream) {
+    // stage bit 0: the occupancies staged; else `scratch` holds them, 2 T
+    // R ints for each of the `grid` clusters' CTAs
+    const bool glob = !(stage & 1);
     if (P <= 0 || E < 3 || !tt_rooms_fit(E, R) || T > 64 || spd > 32
         || K <= 0
         || n_rounds < 0 || cluster < 1 || cluster > K12_MAX_CLUSTER
-        || cluster > K)
+        || cluster > K || (glob && (!scratch || grid <= 0)))
         return (int)cudaErrorInvalidValue;
-    const K12Smem lay = k12_smem_layout(E, R, S, T, K, W, nnz);
+    const K12Smem lay = k12_smem_layout(E, R, S, T, K, W, nnz, !glob);
     if (lay.total > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
+    const auto kernel = glob ? full_eval_ls_kernel<true>
+                             : full_eval_ls_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        full_eval_ls_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)lay.total);
     if (err != cudaSuccess) return (int)err;
     K12Args A;
@@ -435,10 +470,11 @@ extern "C" int tt_full_eval_ls(
     A.slots_out = slots_out; A.rooms_out = rooms_out; A.pen_out = pen_out;
     A.hcv_out = hcv_out; A.scv_out = scv_out;
     A.P = P; A.K = K; A.n_rounds = n_rounds; A.CS = cluster; A.nnz = nnz;
+    A.scratch = scratch;
     A.lay = lay;
 
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(P * cluster, 1, 1);
+    cfg.gridDim = dim3((glob ? grid : P) * cluster, 1, 1);
     cfg.blockDim = dim3(K12_THREADS, 1, 1);
     cfg.dynamicSmemBytes = lay.total;
     cfg.stream = (cudaStream_t)stream;
@@ -452,12 +488,11 @@ extern "C" int tt_full_eval_ls(
     if (cluster > 1) {
         // a cluster the card cannot place is refused, never shrunk
         int n_clusters = 0;
-        err = cudaOccupancyMaxActiveClusters(&n_clusters, full_eval_ls_kernel,
-                                             &cfg);
+        err = cudaOccupancyMaxActiveClusters(&n_clusters, kernel, &cfg);
         if (err != cudaSuccess) return (int)err;
         if (n_clusters < 1) return (int)cudaErrorLaunchOutOfResources;
     }
-    err = cudaLaunchKernelEx(&cfg, full_eval_ls_kernel, A);
+    err = cudaLaunchKernelEx(&cfg, kernel, A);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -48,6 +48,11 @@
 // state but the ring entry, so it needs no second barrier. The state goes
 // back to global memory in the epilogue (the bitsets die with the block).
 // Integer-exact: equal to the plain version (ops/lahc.py) bit for bit.
+// Where att, amask or occ do not fit (the wrapper's stage mask, decided
+// from the sizes: att goes to global memory first, then amask, then
+// occ), the GLOB instance works on the walker's own att and occ rows in
+// place and keeps amask in the walker's global scratch row; the best
+// snapshot holds slots and rooms only, so it needs none of them.
 #include "sweep_dev.cuh"
 #include "rooms_dev.cuh"
 
@@ -70,7 +75,7 @@ struct K10Smem {
     // a step's bytes in a chunk: its events (from a 16-byte boundary),
     // then its move types and its targets, each 16-byte aligned
     unsigned ev_bytes, mt_bytes, step_bytes;
-    int chunk_steps, bits_in_smem, hist_in_smem;
+    int chunk_steps, bits_in_smem, hist_in_smem, stage;
 };
 
 __host__ __device__ inline unsigned k10_align(size_t x) {
@@ -79,9 +84,11 @@ __host__ __device__ inline unsigned k10_align(size_t x) {
 
 __host__ __device__ inline K10Smem k10_smem_layout(int E, int R, int S,
                                                    int T, int K, int W,
-                                                   int Lh) {
+                                                   int Lh,
+                                                   int stage = TT_STAGE_ALL) {
     K10Smem m;
     unsigned o = 0;
+    m.stage = stage;
     m.ev_bytes = k10_align(6 * (size_t)K) + 16;
     m.mt_bytes = k10_align(4 * (size_t)K);
     m.step_bytes = m.ev_bytes + 2 * m.mt_bytes;
@@ -92,10 +99,13 @@ __host__ __device__ inline K10Smem k10_smem_layout(int E, int R, int S,
     m.best_slots = o; o += k10_align(4 * (size_t)E);
     m.best_rooms = o; o += k10_align(4 * (size_t)E);
     m.cand = o; o += k10_align(2 * 4 * (size_t)K10_CAND_INTS * K);
-    m.amask = o; o += k10_align(8 * (size_t)S);
+    m.amask = o;
+    o += (stage & TT_STAGE_AMASK) ? k10_align(8 * (size_t)S) : 0;
     m.slot_ev = o; o += k10_align(4 * (size_t)T * W);
-    m.occ = o; o += k10_align(2 * (size_t)T * R);
-    m.att = o; o += k10_align(2 * (size_t)S * T);
+    m.occ = o;
+    o += (stage & TT_STAGE_OCC) ? k10_align(2 * (size_t)T * R) : 0;
+    m.att = o;
+    o += (stage & TT_STAGE_ATT) ? k10_align(2 * (size_t)S * T) : 0;
     m.draws = o; o += 2 * m.chunk_steps * m.step_bytes;
     // the conflict bitset, then the history ring, where they still fit
     m.bits = o;
@@ -124,6 +134,8 @@ struct K10Args {
     // draws: row (step * W + walker) * K + candidate
     const int* mtype; const int16_t* events; const int* tgt;
     int W, K, Lh, n_steps, anchored;
+    // the walkers' amask rows where it is not staged (S u64 each), or null
+    uint64_t* amask_g;
     K10Smem lay;
 };
 
@@ -176,7 +188,7 @@ __device__ __forceinline__ void k10_stage(const K10Args& A,
     }
 }
 
-template <bool WIDE>
+template <bool WIDE, bool GLOB>
 __global__ void __launch_bounds__(32 * K10_MAX_WARPS) lahc_kernel(K10Args A) {
     extern __shared__ __align__(16) unsigned char k10_smem[];
     const int E = A.pb.E, R = A.pb.R, S = A.pb.S, T = A.pb.T, W = A.pb.W;
@@ -188,10 +200,18 @@ __global__ void __launch_bounds__(32 * K10_MAX_WARPS) lahc_kernel(K10Args A) {
     int* bslots = (int*)(k10_smem + A.lay.best_slots);
     int* brooms = (int*)(k10_smem + A.lay.best_rooms);
     int* cand = (int*)(k10_smem + A.lay.cand);    // 2 x K records
-    uint64_t* amask = (uint64_t*)(k10_smem + A.lay.amask);
+    // each region staged, or the walker's own row in global memory
+    const int stage = GLOB ? A.lay.stage : TT_STAGE_ALL;
+    uint64_t* amask = (stage & TT_STAGE_AMASK)
+                          ? (uint64_t*)(k10_smem + A.lay.amask)
+                          : A.amask_g + (size_t)w * S;
     uint32_t* slot_ev = (uint32_t*)(k10_smem + A.lay.slot_ev);
-    int16_t* occ = (int16_t*)(k10_smem + A.lay.occ);
-    int16_t* att = (int16_t*)(k10_smem + A.lay.att);
+    int16_t* occ = (stage & TT_STAGE_OCC)
+                       ? (int16_t*)(k10_smem + A.lay.occ)
+                       : A.occ + (size_t)w * T * R;
+    int16_t* att = (stage & TT_STAGE_ATT)
+                       ? (int16_t*)(k10_smem + A.lay.att)
+                       : A.att + (size_t)w * S * T;
     unsigned char* draws = k10_smem + A.lay.draws;
     uint32_t* bits = (uint32_t*)(k10_smem + A.lay.bits);
     // the move types' and targets' copy size, in ints
@@ -223,10 +243,12 @@ __global__ void __launch_bounds__(32 * K10_MAX_WARPS) lahc_kernel(K10Args A) {
         tt_async_ints((int*)bits, (const int*)A.pb.conflict_bits, E * W);
         pb.conflict_bits = bits;
     }
-    for (int i = tid; i < S * T; i += blockDim.x)
-        att[i] = A.att[(size_t)w * S * T + i];
-    for (int i = tid; i < T * R; i += blockDim.x)
-        occ[i] = A.occ[(size_t)w * T * R + i];
+    if (stage & TT_STAGE_ATT)
+        for (int i = tid; i < S * T; i += blockDim.x)
+            att[i] = A.att[(size_t)w * S * T + i];
+    if (stage & TT_STAGE_OCC)
+        for (int i = tid; i < T * R; i += blockDim.x)
+            occ[i] = A.occ[(size_t)w * T * R + i];
     // every thread keeps the walker's (pen, hcv, scv), its best triple
     // and the step's history entry
     int st[3] = {A.pen[w], A.hcv[w], A.scv[w]};
@@ -377,10 +399,12 @@ __global__ void __launch_bounds__(32 * K10_MAX_WARPS) lahc_kernel(K10Args A) {
         A.best_slots[re + i] = bslots[i];
         A.best_rooms[re + i] = brooms[i];
     }
-    for (int i = tid; i < S * T; i += blockDim.x)
-        A.att[(size_t)w * S * T + i] = att[i];
-    for (int i = tid; i < T * R; i += blockDim.x)
-        A.occ[(size_t)w * T * R + i] = occ[i];
+    if (stage & TT_STAGE_ATT)
+        for (int i = tid; i < S * T; i += blockDim.x)
+            A.att[(size_t)w * S * T + i] = att[i];
+    if (stage & TT_STAGE_OCC)
+        for (int i = tid; i < T * R; i += blockDim.x)
+            A.occ[(size_t)w * T * R + i] = occ[i];
     if (A.lay.hist_in_smem)
         for (int i = tid; i < Lh; i += blockDim.x) {
             A.hist_pen[(size_t)w * Lh + i] = hp[i];
@@ -408,18 +432,24 @@ extern "C" int tt_lahc(
     const uint8_t* possible, const int* live, const int* student_count,
     const uint32_t* conflict_bits, const int* cap_rank, const int* dead,
     const uint8_t* attends, const int* ev_ptr, const int* ev_stu,
-    const int* anchor_slots, const int* anchor_w, int W, int E, int R,
-    int S, int T, int spd, int n_words, int K, int Lh, int n_steps,
-    int anchored, void* stream) {
+    const int* anchor_slots, const int* anchor_w, uint64_t* amask_g,
+    int W, int E, int R, int S, int T, int spd, int n_words, int K, int Lh,
+    int n_steps, int anchored, int stage, void* stream) {
+    stage &= TT_STAGE_ALL;
+    const bool glob = stage != TT_STAGE_ALL;
     if (W <= 0 || E < 3 || !tt_rooms_fit(E, R) || T > 64 || spd > 32
         || K <= 0
-        || Lh <= 0 || n_steps < 0 || ((uintptr_t)events & 15u))
+        || Lh <= 0 || n_steps < 0 || ((uintptr_t)events & 15u)
+        || (!(stage & TT_STAGE_AMASK) && !amask_g))
         return (int)cudaErrorInvalidValue;
-    K10Smem lay = k10_smem_layout(E, R, S, T, K, n_words, Lh);
+    K10Smem lay = k10_smem_layout(E, R, S, T, K, n_words, Lh, stage);
     if (lay.total > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     // the instance that chooses among rooms past the first 32, where
-    // there are some
-    const auto kernel = tt_wide_rooms(R) ? lahc_kernel<true> : lahc_kernel<false>;
+    // there are some; the one with regions in global memory chooses
+    // among any R
+    const auto kernel = glob ? lahc_kernel<true, true>
+                        : tt_wide_rooms(R) ? lahc_kernel<true, false>
+                                           : lahc_kernel<false, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)lay.total);
@@ -435,6 +465,7 @@ extern "C" int tt_lahc(
     A.best_pen = best_pen; A.best_hcv = best_hcv; A.best_scv = best_scv;
     A.mtype = mtype; A.events = events; A.tgt = tgt;
     A.W = W; A.K = K; A.Lh = Lh; A.n_steps = n_steps; A.anchored = anchored;
+    A.amask_g = amask_g;
     A.lay = lay;
     int threads = 32 * (K < K10_MAX_WARPS ? K : K10_MAX_WARPS);
     kernel<<<W, threads, lay.total, (cudaStream_t)stream>>>(A);

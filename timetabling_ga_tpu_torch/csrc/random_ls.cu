@@ -66,6 +66,11 @@
 // and amask words, in place of the delta-tracked terms — the value K2
 // would give, so the generation needs no launch of K2 after the search.
 // Integer-exact: equal to the plain version (ops/delta.py) bit for bit.
+// Where att, amask or occ do not fit (the wrapper's stage mask, decided
+// from the sizes: att goes to global memory first, then amask, then
+// occ), the GLOB instance keeps them in the individual's global scratch
+// row (g_att, g_amask, g_occ), the block's alone; the best of the rest
+// stays staged.
 #include "penalty_dev.cuh"
 #include "sweep_dev.cuh"
 #include "rooms_dev.cuh"
@@ -92,7 +97,10 @@
 struct K8Smem {
     unsigned slots, rooms, cand, amask, slot_ev, occ, att, events, eval,
         bits, total;
-    int chunk_rounds, bits_in_smem;
+    int chunk_rounds, bits_in_smem, stage;
+    // byte offsets of the regions not staged in an individual's global
+    // scratch row, and its bytes
+    unsigned g_amask, g_att, g_occ, g_bytes;
 };
 
 __host__ __device__ inline unsigned k8_align(size_t x) {
@@ -100,18 +108,27 @@ __host__ __device__ inline unsigned k8_align(size_t x) {
 }
 
 __host__ __device__ inline K8Smem k8_smem_layout(int E, int R, int S, int T,
-                                                 int K, int W) {
+                                                 int K, int W,
+                                                 int stage = TT_STAGE_ALL) {
     K8Smem m;
     unsigned o = 0;
+    const size_t amask = k8_align(8 * (size_t)S);
+    const size_t occ = k8_align(2 * (size_t)T * R);
+    const size_t att = k8_align(2 * (size_t)S * T);
+    m.stage = stage;
+    m.g_amask = 0;
+    m.g_att = m.g_amask + ((stage & TT_STAGE_AMASK) ? 0 : amask);
+    m.g_occ = m.g_att + ((stage & TT_STAGE_ATT) ? 0 : att);
+    m.g_bytes = m.g_occ + ((stage & TT_STAGE_OCC) ? 0 : occ);
     m.chunk_rounds = K8_EVENT_BYTES / (6 * K);
     if (m.chunk_rounds < 1) m.chunk_rounds = 1;
     m.slots = o; o += k8_align(4 * (size_t)E);
     m.rooms = o; o += k8_align(4 * (size_t)E);
     m.cand = o; o += k8_align(2 * 4 * (size_t)K8_CAND_INTS * K);
-    m.amask = o; o += k8_align(8 * (size_t)S);
+    m.amask = o; o += (stage & TT_STAGE_AMASK) ? amask : 0;
     m.slot_ev = o; o += k8_align(4 * (size_t)T * W);
-    m.occ = o; o += k8_align(2 * (size_t)T * R);
-    m.att = o; o += k8_align(2 * (size_t)S * T);
+    m.occ = o; o += (stage & TT_STAGE_OCC) ? occ : 0;
+    m.att = o; o += (stage & TT_STAGE_ATT) ? att : 0;
     m.events = o; o += k8_align(6 * (size_t)K * m.chunk_rounds);
     // the epilogue's live-event words and reduction scratch
     m.eval = o; o += k8_align(4 * ((size_t)W + 4 * K8_MAX_WARPS));
@@ -142,6 +159,8 @@ struct K8Args {
     // the serve path's lane table and rows a lane (null: one problem)
     const long long* lanes;
     int lane_rows;
+    // the individuals' global scratch rows (lay.g_bytes each), or null
+    unsigned char* scratch;
     K8Smem lay;
 };
 
@@ -274,7 +293,7 @@ random_ls_events_kernel(const float* __restrict__ u,
     }
 }
 
-template <bool WIDE>
+template <bool WIDE, bool GLOB>
 __global__ void __launch_bounds__(32 * K8_MAX_WARPS)
 random_ls_kernel(K8Args A) {
     extern __shared__ __align__(16) unsigned char k8_smem[];
@@ -285,10 +304,18 @@ random_ls_kernel(K8Args A) {
     int* slots = (int*)(k8_smem + A.lay.slots);
     int* rooms = (int*)(k8_smem + A.lay.rooms);
     int* cand = (int*)(k8_smem + A.lay.cand);    // 2 x K records
-    uint64_t* amask = (uint64_t*)(k8_smem + A.lay.amask);
+    // each region staged, or in the individual's scratch row
+    unsigned char* g_row =
+        GLOB ? A.scratch + (size_t)p * A.lay.g_bytes : nullptr;
+    const int stage = GLOB ? A.lay.stage : TT_STAGE_ALL;
+    uint64_t* amask = (uint64_t*)((stage & TT_STAGE_AMASK)
+                                      ? k8_smem + A.lay.amask
+                                      : g_row + A.lay.g_amask);
     uint32_t* slot_ev = (uint32_t*)(k8_smem + A.lay.slot_ev);
-    int16_t* occ = (int16_t*)(k8_smem + A.lay.occ);
-    int16_t* att = (int16_t*)(k8_smem + A.lay.att);
+    int16_t* occ = (int16_t*)((stage & TT_STAGE_OCC) ? k8_smem + A.lay.occ
+                                                     : g_row + A.lay.g_occ);
+    int16_t* att = (int16_t*)((stage & TT_STAGE_ATT) ? k8_smem + A.lay.att
+                                                     : g_row + A.lay.g_att);
     int16_t* evs = (int16_t*)(k8_smem + A.lay.events);
     uint32_t* bits = (uint32_t*)(k8_smem + A.lay.bits);
 
@@ -502,19 +529,25 @@ extern "C" int tt_random_ls(
     const uint8_t* attends, const int* ev_ptr, const int* ev_stu,
     const int* stu_ptr, const int* stu_ev, const int* anchor_slots,
     const int* anchor_w, const long long* lanes, int* slots_out,
-    int* rooms_out, int* pen_out, int* hcv_out, int* scv_out, int P, int E,
-    int R, int S, int T, int spd, int W, int K, int n_rounds, int anchored,
-    int diag, int lane_rows, void* stream) {
+    int* rooms_out, int* pen_out, int* hcv_out, int* scv_out,
+    unsigned char* scratch, int P, int E, int R, int S, int T, int spd,
+    int W, int K, int n_rounds, int anchored, int diag, int lane_rows,
+    int stage, void* stream) {
+    stage &= TT_STAGE_ALL;
+    const bool glob = stage != TT_STAGE_ALL;
     if (P <= 0 || E < 3 || !tt_rooms_fit(E, R) || T > 64 || spd > 32
         || K <= 0
-        || n_rounds < 0 || (lanes && (lane_rows <= 0 || P % lane_rows)))
+        || n_rounds < 0 || (lanes && (lane_rows <= 0 || P % lane_rows))
+        || (glob && !scratch))
         return (int)cudaErrorInvalidValue;
-    K8Smem lay = k8_smem_layout(E, R, S, T, K, W);
+    K8Smem lay = k8_smem_layout(E, R, S, T, K, W, stage);
     if (lay.total > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     // the instance that chooses among rooms past the first 32, where
-    // there are some
-    const auto kernel = tt_wide_rooms(R) ? random_ls_kernel<true>
-                               : random_ls_kernel<false>;
+    // there are some; the one with regions in global memory chooses
+    // among any R
+    const auto kernel = glob ? random_ls_kernel<true, true>
+                        : tt_wide_rooms(R) ? random_ls_kernel<true, false>
+                                           : random_ls_kernel<false, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)lay.total);
@@ -530,6 +563,7 @@ extern "C" int tt_random_ls(
     A.hcv_out = hcv_out; A.scv_out = scv_out;
     A.P = P; A.K = K; A.n_rounds = n_rounds; A.anchored = anchored;
     A.lanes = lanes; A.lane_rows = lane_rows;
+    A.scratch = glob ? scratch : nullptr;
     A.lay = lay;
     int threads = 32 * (K < K8_MAX_WARPS ? K : K8_MAX_WARPS);
     kernel<<<P, threads, lay.total, (cudaStream_t)stream>>>(A);

@@ -280,14 +280,15 @@ __host__ __device__ __forceinline__ int tt_rank_row_ints(int R) {
 }
 
 // ints of scratch tt_parallel_rooms_block takes in a block of n_warps
-// warps: each event's matched rank, suitability words (NW) and live flag,
-// the events bucketed by slot with each slot's start (T + 1) and each
-// chunk of 32 events' per-slot counts, and a warp's rank rows
-__host__ __device__ __forceinline__ int tt_parallel_rooms_ints(int E, int R,
-                                                              int T,
-                                                              int n_warps) {
-    return (3 + (R + 31) / 32) * E + T + 1 + (E + 31) / 32 * T
-           + tt_rank_row_ints(R) * n_warps;
+// warps: each event's matched rank, suitability words (NW; unless `su`
+// is false: they are read from the problem's) and live flag, the events
+// bucketed by slot with each slot's start (T + 1) and each chunk of 32
+// events' per-slot counts, and a warp's rank rows (unless `rows` is
+// false: they are in a global scratch row)
+__host__ __device__ __forceinline__ int tt_parallel_rooms_ints(
+    int E, int R, int T, int n_warps, bool su = true, bool rows = true) {
+    return (3 + (su ? (R + 31) / 32 : 0)) * E + T + 1 + (E + 31) / 32 * T
+           + (rows ? tt_rank_row_ints(R) * n_warps : 0);
 }
 
 // The events of (E,) slots `sl` bucketed by slot into `lst`, each
@@ -565,22 +566,33 @@ __device__ __forceinline__ void tt_parallel_rooms_slot(
 // augment_rooms of one individual on the whole block, a warp a slot:
 // `sl` and `rm` (E each, `rm` the incoming rooms, all < R, and the
 // result) in shared memory, `scratch` tt_parallel_rooms_ints(E, R, T,
-// warps) ints; with `occ` (T x R), the result's occupancy is written
-// there. The caller syncs before and after.
+// warps, !su_glob, !rows_g) ints; with `occ` (T x R), the result's
+// occupancy is written there. Where they do not fit in shared memory
+// (ops/rooms.py parallel_rooms_stage), `su_glob` reads the events'
+// suitability words from the problem's (rr.suit) in place of a staged
+// copy, and `rows_g` holds the warps' rank rows (a block's global
+// scratch row, tt_rank_row_ints(R) ints a warp); the callers' staged
+// instances pass the defaults, which compile to the code without them.
+// The caller syncs before and after.
 __device__ __forceinline__ void tt_parallel_rooms_block(
     const TTRoomProblem& rp, const TTRankRooms& rr, const int* sl, int* rm,
-    int* scratch, int n_rounds, int* occ) {
+    int* scratch, int n_rounds, int* occ, bool su_glob = false,
+    int* rows_g = nullptr) {
     const int E = rp.E, R = rp.R, T = rp.T, nw = rr.nw;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int n_warps = blockDim.x >> 5;
     int* mr = scratch;
-    uint32_t* su = (uint32_t*)(mr + E);
-    int* lv = (int*)(su + (size_t)E * nw);
+    uint32_t* su_s = (uint32_t*)(mr + E);
+    const uint32_t* su = su_glob ? rr.suit : su_s;
+    int* lv = (int*)(su_s + (su_glob ? 0 : (size_t)E * nw));
     int* lst = lv + E;
     int* start = lst + E;
     int* cnt = start + T + 1;
-    int* own = cnt + (E + 31) / 32 * T + tt_rank_row_ints(R) * warp;
-    for (int i = threadIdx.x; i < E * nw; i += blockDim.x) su[i] = rr.suit[i];
+    int* own = (rows_g ? rows_g : cnt + (E + 31) / 32 * T)
+               + tt_rank_row_ints(R) * warp;
+    if (!su_glob)
+        for (int i = threadIdx.x; i < E * nw; i += blockDim.x)
+            su_s[i] = rr.suit[i];
     for (int e = threadIdx.x; e < E; e += blockDim.x) lv[e] = rp.live[e];
     // the warp's rank-to-room row
     for (int k = lane; k < R; k += 32) own[4 * 32 * nw + k] = rr.room_of[k];

@@ -24,6 +24,15 @@
 
 #include "common.cuh"
 
+// Bits of the stage mask of an individual's state regions that grow
+// with the students or the rooms (K5, K8, K10; kernels.stage_regions on
+// the host, in the order the hot loops read them most: occ, then amask,
+// then att). A region not staged is read and written in global memory.
+#define TT_STAGE_OCC 1
+#define TT_STAGE_AMASK 2
+#define TT_STAGE_ATT 4
+#define TT_STAGE_ALL 7
+
 struct TTSweepProblem {
     const uint8_t* possible;       // (E, R)
     const int* live;               // (E,)
@@ -37,13 +46,12 @@ struct TTSweepProblem {
     int E, R, S, T, spd, W;
 };
 
-// amask and slot_ev of the state in slots/att, built by the whole block
-// (a thread per student, a thread per (slot, word)); the caller syncs
-// before and after.
-__device__ __forceinline__ void tt_build_bitsets_block(
-    const TTSweepProblem& pb, const int* slots, const int16_t* att,
-    uint64_t* amask, uint32_t* slot_ev) {
-    const int E = pb.E, T = pb.T, W = pb.W;
+// amask of the attendance att, built by the whole block (a thread per
+// student); the caller syncs before and after.
+__device__ __forceinline__ void tt_build_amask_block(const TTSweepProblem& pb,
+                                                     const int16_t* att,
+                                                     uint64_t* amask) {
+    const int T = pb.T;
     for (int s = threadIdx.x; s < pb.S; s += blockDim.x) {
         const int16_t* a = att + (size_t)s * T;
         uint64_t m = 0ull;
@@ -51,6 +59,13 @@ __device__ __forceinline__ void tt_build_bitsets_block(
             if (a[t] > 0) m |= 1ull << t;
         amask[s] = m;
     }
+}
+
+// slot_ev of the slots, built by the whole block (a thread per (slot,
+// word)); the caller syncs before and after.
+__device__ __forceinline__ void tt_build_slot_ev_block(
+    const TTSweepProblem& pb, const int* slots, uint32_t* slot_ev) {
+    const int E = pb.E, T = pb.T, W = pb.W;
     for (int i = threadIdx.x; i < T * W; i += blockDim.x) {
         const int t = i / W, f0 = (i % W) * 32;
         const int f1 = min(E, f0 + 32);
@@ -59,6 +74,15 @@ __device__ __forceinline__ void tt_build_bitsets_block(
             if (slots[f] == t) bits |= 1u << (f - f0);
         slot_ev[i] = bits;
     }
+}
+
+// amask and slot_ev of the state in slots/att, built by the whole block;
+// the caller syncs before and after.
+__device__ __forceinline__ void tt_build_bitsets_block(
+    const TTSweepProblem& pb, const int* slots, const int16_t* att,
+    uint64_t* amask, uint32_t* slot_ev) {
+    tt_build_amask_block(pb, att, amask);
+    tt_build_slot_ev_block(pb, slots, slot_ev);
 }
 
 // K3's body, phase 1, run by every thread of the block (it syncs twice):
@@ -399,16 +423,23 @@ __device__ __forceinline__ void tt_delta_one_bits_warp(
 // moves occupancy, slots, rooms and the events' slot_ev bits from the
 // old slot's row to the new one's (delta.py:188 _apply_move, and
 // ops/delta.py apply_bitsets for the bitsets).
+// K5's CTAs of a cluster share the regions in global memory: there only
+// the writer (rank 0) moves them, `w_occ`, `w_att` and `w_amask` false
+// elsewhere (every caller but K5's GLOB instance takes the defaults,
+// which compile to the code without them).
 __device__ __forceinline__ void tt_apply_move_bits_block(
     const TTSweepProblem& pb, const int* mv, int* slots, int* rooms,
-    int16_t* att, int16_t* occ, uint64_t* amask, uint32_t* slot_ev) {
+    int16_t* att, int16_t* occ, uint64_t* amask, uint32_t* slot_ev,
+    bool w_occ = true, bool w_att = true, bool w_amask = true) {
     const int R = pb.R, T = pb.T, W = pb.W;
     if (threadIdx.x == 0) {
+        if (w_occ) {
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
-            int lv = pb.live[mv[m]];
-            occ[mv[3 + m] * R + mv[6 + m]] -= lv;
-            occ[mv[9 + m] * R + mv[12 + m]] += lv;
+            for (int m = 0; m < 3; ++m) {
+                int lv = pb.live[mv[m]];
+                occ[mv[3 + m] * R + mv[6 + m]] -= lv;
+                occ[mv[9 + m] * R + mv[12 + m]] += lv;
+            }
         }
 #pragma unroll
         for (int m = 0; m < 3; ++m) {
@@ -424,17 +455,46 @@ __device__ __forceinline__ void tt_apply_move_bits_block(
     }
     for (int m = 0; m < 3; ++m) {
         const int e = mv[m], so = mv[3 + m], sn = mv[9 + m];
-        if (so != sn)
+        if (so != sn && (w_att || w_amask))
             for (int k = pb.ev_ptr[e] + threadIdx.x; k < pb.ev_ptr[e + 1];
                  k += blockDim.x) {
                 const int s = pb.ev_stu[k];
                 int16_t* row = att + (size_t)s * T;
                 const int vo = row[so] - 1, vn = row[sn] + 1;
-                row[so] = (int16_t)vo;
-                row[sn] = (int16_t)vn;
+                if (w_att) {
+                    row[so] = (int16_t)vo;
+                    row[sn] = (int16_t)vn;
+                }
+                if (w_amask) {
+                    uint64_t a = amask[s];
+                    a = vo > 0 ? a | (1ull << so) : a & ~(1ull << so);
+                    a = vn > 0 ? a | (1ull << sn) : a & ~(1ull << sn);
+                    amask[s] = a;
+                }
+            }
+        __syncthreads();
+    }
+}
+
+// The amask bits of the accepted move `mv`'s moved students at its old
+// and new slots, recomputed from att as the apply left it (K5: a CTA
+// whose amask is its own but whose att is rank 0's, after the cluster
+// barrier that follows rank 0's apply). One event after another with a
+// barrier between, as the apply, since a student may attend two.
+__device__ __forceinline__ void tt_refresh_amask_block(
+    const TTSweepProblem& pb, const int* mv, const int16_t* att,
+    uint64_t* amask) {
+    const int T = pb.T;
+    for (int m = 0; m < 3; ++m) {
+        const int e = mv[m], so = mv[3 + m], sn = mv[9 + m];
+        if (so != sn)
+            for (int k = pb.ev_ptr[e] + threadIdx.x; k < pb.ev_ptr[e + 1];
+                 k += blockDim.x) {
+                const int s = pb.ev_stu[k];
+                const int16_t* row = att + (size_t)s * T;
                 uint64_t a = amask[s];
-                a = vo > 0 ? a | (1ull << so) : a & ~(1ull << so);
-                a = vn > 0 ? a | (1ull << sn) : a & ~(1ull << sn);
+                a = row[so] > 0 ? a | (1ull << so) : a & ~(1ull << so);
+                a = row[sn] > 0 ? a | (1ull << sn) : a & ~(1ull << sn);
                 amask[s] = a;
             }
         __syncthreads();

@@ -47,6 +47,19 @@
 // (sideways accepts too) by the block its candidate index falls in,
 // Move1 | Move2 | Move3, in registers, and rank 0 writes ops_out = ops_in
 // + those counts a row; without it nothing more is done.
+// Past shared memory (the wrapper's stage mask, decided from the sizes:
+// att goes to global memory first, then amask, then occ; the bitset body
+// reads att only for the <= 6 slots a move touches), the GLOB instance
+// keeps a region in one copy an individual: att and occ in its own
+// att_out and occ_out rows (rank 0 copies the input there first), amask
+// in its scratch row. Only rank 0 writes such a region, in the apply;
+// every CTA still moves its own slots, rooms, slot_ev and staged
+// regions, and a CTA whose amask is its own but whose att is rank 0's
+// recomputes the moved students' bits from att after the apply. A
+// cluster barrier follows the apply (a release and an acquire at
+// cluster scope), so no CTA reads step pos+1's state before rank 0 has
+// written step pos's; rank 0 writes step pos+1's only after the barrier
+// of its choice, which every CTA reaches after its reads of step pos+1.
 #include <cooperative_groups.h>
 
 #include "sweep_dev.cuh"
@@ -73,6 +86,9 @@ namespace cg = cooperative_groups;
 // cluster records; the Python side mirrors the 128 in ops/sweep.py
 // _K5_MISC_INTS
 #define K5_MISC_INTS 128
+// the stage mask's bit of the Move1 masks (beside sweep_dev.cuh's
+// TT_STAGE_*: occ, amask, att)
+#define K5_STAGE_MASKS 8
 #define K5_MISC_MV (8 + 5 * K5_WARPS)
 #define K5_MISC_LEX (K5_MISC_MV + 16)
 #define K5_MISC_ARG (K5_MISC_LEX + 2 * K5_LEX_REC)
@@ -84,7 +100,7 @@ static_assert(K5_MISC_ARG + 2 * K5_ARG_REC <= K5_MISC_INTS,
 struct K5Smem {
     unsigned slots, rooms, piv, heat, cand, per_slot, misc, masks, amask,
         slot_ev, occ, att, bits, total;
-    int bits_in_smem;
+    int bits_in_smem, stage;
 };
 
 __host__ __device__ inline unsigned k5_align(size_t x) {
@@ -93,9 +109,11 @@ __host__ __device__ inline unsigned k5_align(size_t x) {
 
 __host__ __device__ inline K5Smem k5_smem_layout(
     int E, int R, int S, int T, int K, int n_cand, int use_hot,
-    int max_students, int W) {
+    int max_students, int W,
+    int stage = TT_STAGE_ALL | K5_STAGE_MASKS) {
     K5Smem m;
     unsigned o = 0;
+    m.stage = stage;
     m.slots = o; o += k5_align(4 * (size_t)E);
     m.rooms = o; o += k5_align(4 * (size_t)E);
     m.piv = o; o += k5_align(4 * (size_t)K);
@@ -103,11 +121,19 @@ __host__ __device__ inline K5Smem k5_smem_layout(
     m.cand = o; o += k5_align(16 * (size_t)n_cand);
     m.per_slot = o; o += k5_align(4 * (size_t)T);
     m.misc = o; o += k5_align(4 * (size_t)K5_MISC_INTS);
-    m.masks = o; o += k5_align(8 * (size_t)(max_students > 0 ? max_students : 1));
-    m.amask = o; o += k5_align(8 * (size_t)S);
+    // the Move1 scratch: a pivot's students' masks (where they do not
+    // fit, a global row a CTA)
+    m.masks = o;
+    o += (stage & K5_STAGE_MASKS)
+             ? k5_align(8 * (size_t)(max_students > 0 ? max_students : 1))
+             : 0;
+    m.amask = o;
+    o += (stage & TT_STAGE_AMASK) ? k5_align(8 * (size_t)S) : 0;
     m.slot_ev = o; o += k5_align(4 * (size_t)T * W);
-    m.occ = o; o += k5_align(2 * (size_t)T * R);
-    m.att = o; o += k5_align(2 * (size_t)S * T);
+    m.occ = o;
+    o += (stage & TT_STAGE_OCC) ? k5_align(2 * (size_t)T * R) : 0;
+    m.att = o;
+    o += (stage & TT_STAGE_ATT) ? k5_align(2 * (size_t)S * T) : 0;
     m.bits = o;
     unsigned with_bits = o + k5_align(4 * (size_t)E * W);
     m.bits_in_smem = with_bits <= TT_SMEM_LIMIT ? 1 : 0;
@@ -135,6 +161,12 @@ struct K5Args {
     // accepted moves by kind (P, 3): ops_out = ops_in + this pass's, or
     // null (no counting)
     const int* ops_in; int* ops_out;
+    // the individuals' amask rows where it is not staged (S u64 each),
+    // and the CTAs' Move1 masks rows where they are not (max_students
+    // u64 each)
+    uint64_t* amask_g;
+    uint64_t* masks_g;
+    int max_students;
     int P, K, B, SB, n_steps, n_cand, use_hot, sideways, anchored, CS;
     K5Smem lay;
 };
@@ -389,7 +421,7 @@ __device__ __forceinline__ void k5_cluster_reduce(cg::cluster_group& cl,
 
 // Two CTAs an SM (at most 64 registers a thread): a repair pass of 256
 // individuals then runs in one wave on 132 SMs instead of two.
-template <bool WIDE>
+template <bool WIDE, bool GLOB>
 __global__ void __launch_bounds__(K5_THREADS, 2)
     sweep_pass_kernel(K5Args A) {
     extern __shared__ __align__(16) unsigned char k5_smem[];
@@ -408,11 +440,22 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
     int* c_lo = c_hi + A.n_cand;
     int* per_slot = (int*)(k5_smem + A.lay.per_slot);
     int* misc = (int*)(k5_smem + A.lay.misc);
-    uint64_t* masks = (uint64_t*)(k5_smem + A.lay.masks);
-    uint64_t* amask = (uint64_t*)(k5_smem + A.lay.amask);
+    uint64_t* masks =
+        GLOB && !(A.lay.stage & K5_STAGE_MASKS)
+            ? A.masks_g + (size_t)blockIdx.x * A.max_students
+            : (uint64_t*)(k5_smem + A.lay.masks);
+    // each region staged, or the individual's one copy in global memory
+    const int stage = GLOB ? A.lay.stage : TT_STAGE_ALL;
+    const bool att_g = !(stage & TT_STAGE_ATT);
+    const bool amask_g = !(stage & TT_STAGE_AMASK);
+    const bool occ_g = !(stage & TT_STAGE_OCC);
+    uint64_t* amask = amask_g ? A.amask_g + (size_t)p * S
+                              : (uint64_t*)(k5_smem + A.lay.amask);
     uint32_t* slot_ev = (uint32_t*)(k5_smem + A.lay.slot_ev);
-    int16_t* occ = (int16_t*)(k5_smem + A.lay.occ);
-    int16_t* att = (int16_t*)(k5_smem + A.lay.att);
+    int16_t* occ = occ_g ? A.occ_out + (size_t)p * T * R
+                         : (int16_t*)(k5_smem + A.lay.occ);
+    int16_t* att = att_g ? A.att_out + (size_t)p * S * T
+                         : (int16_t*)(k5_smem + A.lay.att);
     uint32_t* bits = (uint32_t*)(k5_smem + A.lay.bits);
     int* rm_acc = misc;              // (1,)
     int* st = misc + 4;              // pen, hcv, scv, strict
@@ -431,10 +474,13 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
         slots[i] = g_slots[i];
         rooms[i] = g_rooms[i];
     }
+    // a region in global memory is copied once, by rank 0
     const int16_t* g_att = A.att + (size_t)p * S * T;
-    for (int i = tid; i < S * T; i += K5_THREADS) att[i] = g_att[i];
+    if (!att_g || rank == 0)
+        for (int i = tid; i < S * T; i += K5_THREADS) att[i] = g_att[i];
     const int16_t* g_occ = A.occ + (size_t)p * T * R;
-    for (int i = tid; i < T * R; i += K5_THREADS) occ[i] = g_occ[i];
+    if (!occ_g || rank == 0)
+        for (int i = tid; i < T * R; i += K5_THREADS) occ[i] = g_occ[i];
     TTSweepProblem pb = A.pb;
     if (A.lay.bits_in_smem) {
         for (int i = tid; i < E * W; i += K5_THREADS)
@@ -446,8 +492,16 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
     }
     const int perm_a = A.a[p], perm_b = A.b[p];
     __syncthreads();
-    tt_build_bitsets_block(pb, slots, att, amask, slot_ev);
-    __syncthreads();
+    if (!GLOB) {
+        tt_build_bitsets_block(pb, slots, att, amask, slot_ev);
+        __syncthreads();
+    } else {
+        // amask from the input rows (rank 0 alone where it is global),
+        // then every CTA waits for rank 0's copies
+        if (!amask_g || rank == 0) tt_build_amask_block(pb, g_att, amask);
+        tt_build_slot_ev_block(pb, slots, slot_ev);
+        k5_cluster_sync(cl, CS);
+    }
 
     // ---- pivots: the permutation, or the top-K events by heat
     if (A.use_hot) {
@@ -619,9 +673,23 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
         TT_PROF(7);
         // ---- the apply (delta.py:188 _apply_move), in shared memory, the
         // same move in every CTA of the cluster
-        if (mv[0])
-            tt_apply_move_bits_block(pb, mv + 1, slots, rooms, att, occ,
-                                     amask, slot_ev);
+        if (!GLOB) {
+            if (mv[0])
+                tt_apply_move_bits_block(pb, mv + 1, slots, rooms, att, occ,
+                                         amask, slot_ev);
+        } else if (mv[0]) {
+            // a region in global memory is rank 0's to move; a staged
+            // amask beside rank 0's att is refreshed after the barrier
+            tt_apply_move_bits_block(
+                pb, mv + 1, slots, rooms, att, occ, amask, slot_ev,
+                !occ_g || rank == 0, !att_g || rank == 0,
+                amask_g ? rank == 0 : !att_g || rank == 0);
+            if (CS > 1) {
+                cl.sync();
+                if (att_g && !amask_g && rank != 0)
+                    tt_refresh_amask_block(pb, mv + 1, att, amask);
+            }
+        }
         TT_PROF(8);
     }
     __syncthreads();
@@ -632,10 +700,13 @@ __global__ void __launch_bounds__(K5_THREADS, 2)
             A.slots_out[(size_t)p * E + i] = slots[i];
             A.rooms_out[(size_t)p * E + i] = rooms[i];
         }
-        for (int i = tid; i < S * T; i += K5_THREADS)
-            A.att_out[(size_t)p * S * T + i] = att[i];
-        for (int i = tid; i < T * R; i += K5_THREADS)
-            A.occ_out[(size_t)p * T * R + i] = occ[i];
+        // (a region in global memory is in its out row already)
+        if (!att_g)
+            for (int i = tid; i < S * T; i += K5_THREADS)
+                A.att_out[(size_t)p * S * T + i] = att[i];
+        if (!occ_g)
+            for (int i = tid; i < T * R; i += K5_THREADS)
+                A.occ_out[(size_t)p * T * R + i] = occ[i];
         if (tid == 0) {
             A.pen_out[p] = st[0];
             A.hcv_out[p] = st[1];
@@ -671,23 +742,30 @@ extern "C" int tt_sweep_pass(
     const int* anchor_slots, const int* anchor_w, int* slots_out,
     int* rooms_out, int16_t* att_out, int16_t* occ_out, int* pen_out,
     int* hcv_out, int* scv_out, uint8_t* strict_out, int* pivots_out,
-    const int* ops_in, int* ops_out, int P, int E, int R, int S, int T,
-    int spd, int W, int max_students, int K, int B, int SB, int n_steps,
-    int n_cand, int use_hot, int sideways, int anchored, int cluster,
-    void* stream) {
+    const int* ops_in, int* ops_out, uint64_t* amask_g, uint64_t* masks_g,
+    int P, int E,
+    int R, int S, int T, int spd, int W, int max_students, int K, int B,
+    int SB, int n_steps, int n_cand, int use_hot, int sideways,
+    int anchored, int cluster, int stage, void* stream) {
+    stage &= TT_STAGE_ALL | K5_STAGE_MASKS;
+    const bool glob = stage != (TT_STAGE_ALL | K5_STAGE_MASKS);
     if (P <= 0 || E < 3 || !tt_rooms_fit(E, R) || T > 64 || T > K5_THREADS
         || spd > 32 || K <= 0 || B <= 0 || SB < 0 || n_steps <= 0
         || n_cand < B * T
         || cluster < 1 || cluster > K5_MAX_CLUSTER
-        || (use_hot && !hot_noise) || (sideways && (!tie_noise || !allow)))
+        || (use_hot && !hot_noise) || (sideways && (!tie_noise || !allow))
+        || (!(stage & TT_STAGE_AMASK) && !amask_g)
+        || (!(stage & K5_STAGE_MASKS) && !masks_g))
         return (int)cudaErrorInvalidValue;
     K5Smem lay = k5_smem_layout(E, R, S, T, K, n_cand, use_hot,
-                                max_students, W);
+                                max_students, W, stage);
     if (lay.total > TT_SMEM_LIMIT) return (int)cudaErrorLaunchOutOfResources;
     // the instance that chooses among rooms past the first 32, where
-    // there are some
-    const auto kernel = tt_wide_rooms(R) ? sweep_pass_kernel<true>
-                               : sweep_pass_kernel<false>;
+    // there are some; the one with regions in global memory chooses
+    // among any R
+    const auto kernel = glob ? sweep_pass_kernel<true, true>
+                        : tt_wide_rooms(R) ? sweep_pass_kernel<true, false>
+                                           : sweep_pass_kernel<false, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)lay.total);
@@ -706,6 +784,9 @@ extern "C" int tt_sweep_pass(
     A.scv_out = scv_out; A.strict_out = strict_out;
     A.pivots_out = pivots_out;
     A.ops_in = ops_in; A.ops_out = ops_out;
+    A.amask_g = amask_g;
+    A.masks_g = masks_g;
+    A.max_students = max_students > 0 ? max_students : 1;
     A.P = P; A.K = K; A.B = B; A.SB = SB; A.n_steps = n_steps;
     A.n_cand = n_cand; A.use_hot = use_hot; A.sideways = sideways;
     A.anchored = anchored; A.CS = cluster; A.lay = lay;

@@ -51,6 +51,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # the most dynamic shared memory one block may opt into on sm_90
 SMEM_LIMIT = 232_448
+# the most shared memory a block stages the regions of stage_regions in;
+# the emulated tests set 0 to run every global-memory branch
+STAGE_LIMIT = SMEM_LIMIT
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,30 +61,30 @@ _I = ctypes.c_int
 # C signature of each entry point: pointers, then ints, then the stream;
 # and the csrc/<source>.cu that holds it
 SIGNATURES = {
-    "assign_rooms": ("tt_assign_rooms", [_P] * 7 + [_I] * 4 + [_P],
+    "assign_rooms": ("tt_assign_rooms", [_P] * 8 + [_I] * 6 + [_P],
                      "assign_rooms"),
-    "batch_penalty": ("tt_batch_penalty", [_P] * 14 + [_I] * 9 + [_P],
+    "batch_penalty": ("tt_batch_penalty", [_P] * 15 + [_I] * 11 + [_P],
                       "batch_penalty"),
     "move1_sweep": ("tt_move1_sweep", [_P] * 18 + [_I] * 9 + [_P],
                     "move1_sweep"),
     "delta_one": ("tt_delta_one", [_P] * 21 + [_I] * 8 + [_P],
                   "delta_one"),
-    "sweep_pass": ("tt_sweep_pass", [_P] * 35 + [_I] * 17 + [_P],
+    "sweep_pass": ("tt_sweep_pass", [_P] * 37 + [_I] * 18 + [_P],
                    "sweep_pass"),
-    "breed": ("tt_breed", [_P] * 32 + [_I] * 11 + [_P], "breed"),
-    "relocate": ("tt_relocate", [_P] * 11 + [_I] * 5 + [_P], "breed"),
+    "breed": ("tt_breed", [_P] * 33 + [_I] * 13 + [_P], "breed"),
+    "relocate": ("tt_relocate", [_P] * 12 + [_I] * 7 + [_P], "breed"),
     "survivors": ("tt_survivors", [_P] * 15 + [_I] * 5 + [_P],
                   "survivors"),
     "migrate": ("tt_migrate", [_P] * 13 + [_I] * 3 + [_P], "survivors"),
     "random_ls_events": ("tt_random_ls_events", [_P] * 2 + [_I] * 4 + [_P],
                          "random_ls"),
-    "random_ls": ("tt_random_ls", [_P] * 27 + [_I] * 12 + [_P],
+    "random_ls": ("tt_random_ls", [_P] * 28 + [_I] * 13 + [_P],
                   "random_ls"),
-    "full_eval_ls": ("tt_full_eval_ls", [_P] * 23 + [_I] * 12 + [_P],
+    "full_eval_ls": ("tt_full_eval_ls", [_P] * 24 + [_I] * 14 + [_P],
                      "full_eval_ls"),
-    "parallel_rooms": ("tt_parallel_rooms", [_P] * 8 + [_I] * 5 + [_P],
+    "parallel_rooms": ("tt_parallel_rooms", [_P] * 9 + [_I] * 7 + [_P],
                        "parallel_rooms"),
-    "lahc": ("tt_lahc", [_P] * 29 + [_I] * 11 + [_P], "lahc"),
+    "lahc": ("tt_lahc", [_P] * 30 + [_I] * 12 + [_P], "lahc"),
     "nsga_rank": ("tt_nsga_rank", [_P] * 4 + [_I] * 2 + [_P], "nsga"),
     "nsga_survivors": ("tt_nsga_survivors", [_P] * 15 + [_I] * 5 + [_P],
                        "nsga"),
@@ -120,6 +123,44 @@ _LOCK = threading.Lock()
 # a library (the serve meter's compile_seconds reads its growth across a
 # quantum) and the compiler's resource report
 BUILD_INFO: dict = {"seconds": None, "total_seconds": 0.0, "ptxas": {}}
+
+
+def stage_regions(base: int, regions) -> tuple:
+    """Which of a kernel's `regions` that grow with the students or the
+    rooms one block stages in shared memory, beside the `base` bytes it
+    always stages: `regions` are their sizes in bytes, most read by the
+    kernel's hot loop first, and each in turn is staged where it still
+    fits under STAGE_LIMIT (the rest are read and written in global
+    memory). Each region is rounded up to 16 bytes. Decided from the
+    sizes alone, on the host, before any build or launch. Returns (the
+    staged bytes, base included, and a flag a region)."""
+    total, flags = base, []
+    for size in regions:
+        size = -(-size // 16) * 16
+        fits = total + size <= min(STAGE_LIMIT, SMEM_LIMIT)
+        flags.append(fits)
+        total += size if fits else 0
+    return total, tuple(flags)
+
+
+def stage_bits(flags) -> int:
+    """The flags of stage_regions as the bit mask a C entry point takes
+    (bit i: region i staged)."""
+    return sum(1 << i for i, f in enumerate(flags) if f)
+
+
+def resident_grid(n: int, device, cluster: int = 1) -> int:
+    """Blocks (or clusters of `cluster` CTAs) of a launch whose CTAs
+    each own a scratch row in global memory and loop over its `n` items
+    (grid-stride): as many CTAs as the card holds at once at two a
+    streaming multiprocessor, at most n blocks or clusters and at least
+    one, so the scratch is sized by the card and not by n. On the CPU
+    (where the C sources run only in the emulated tests) two CTAs, so
+    that a block takes several items."""
+    ctas = 2
+    if getattr(device, "type", device) == "cuda":
+        ctas *= torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(n, ctas // cluster))
 
 
 def check_smem(name: str, smem: int) -> None:

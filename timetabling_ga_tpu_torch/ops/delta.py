@@ -420,31 +420,57 @@ K8_EVENT_BYTES = 12288
 K8_MAX_WARPS = 16
 
 
-def random_ls_smem(pa, n_candidates: int) -> tuple[int, bool]:
+def a16(*xs) -> int:
+    """The sum of sizes each rounded up to 16 bytes."""
+    return sum(-(-x // 16) * 16 for x in xs)
+
+
+def state_regions(pa) -> list:
+    """Bytes of an individual's state regions that grow with the
+    students or the rooms, in the order the K4-body kernels' hot loops
+    read them most (csrc/sweep_dev.cuh TT_STAGE_*: occ, amask, att; the
+    bitset body reads att only for the <= 6 slots a move touches)."""
+    S, T, R = pa.n_students, pa.n_slots, pa.n_rooms
+    return [2 * T * R, 8 * S, 2 * S * T]
+
+
+def global_row_bytes(pa, stage: int) -> int:
+    """Bytes of an individual's global scratch row: the state regions
+    not staged (amask, att, occ in that order, each rounded up to 16
+    bytes: csrc/random_ls.cu and lahc.cu g_bytes)."""
+    occ, amask, att = state_regions(pa)
+    return a16(*(x for x, bit in ((amask, 2), (att, 4), (occ, 1))
+                 if not stage & bit))
+
+
+def random_ls_layout(pa, n_candidates: int) -> tuple:
     """Dynamic shared memory K8 takes per individual, the layout of
     csrc/random_ls.cu `k8_smem_layout`: slots, rooms, two buffers of 18
-    ints per candidate, amask (8 B a student), slot_ev (T x W words),
-    occ, att, one chunk of rounds' events (6 B a candidate) and the
-    epilogue's live-event words and reduction scratch (W + 4 x
-    K8_MAX_WARPS ints), each rounded up to 16 bytes, plus the conflict
-    bitset when the total still fits in SMEM_LIMIT (else K8 reads it
-    from global memory). Returns (bytes, bits staged)."""
-    E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
+    ints per candidate, slot_ev (T x W words), one chunk of rounds'
+    events (6 B a candidate) and the epilogue's live-event words and
+    reduction scratch (W + 4 x K8_MAX_WARPS ints), each rounded up to 16
+    bytes; occ, amask (8 B a student) and att where they fit
+    (kernels.stage_regions; else the individual's global scratch row);
+    plus the conflict bitset when the total still fits in SMEM_LIMIT
+    (else K8 reads it from global memory). Returns (bytes, bits staged,
+    the stage mask, scratch bytes an individual)."""
+    E, T = pa.n_events, pa.n_slots
     W = pa.conflict_bits.shape[1]
     K = n_candidates
     chunk = max(1, K8_EVENT_BYTES // (6 * K))
-    parts = (4 * E, 4 * E, 2 * 4 * 18 * K, 8 * S, 4 * T * W, 2 * T * R,
-             2 * S * T, 6 * K * chunk, 4 * (W + 4 * K8_MAX_WARPS))
-    total = sum(-(-x // 16) * 16 for x in parts)
-    with_bits = total + -(-4 * E * W // 16) * 16
+    base = a16(4 * E, 4 * E, 2 * 4 * 18 * K, 4 * T * W, 6 * K * chunk,
+               4 * (W + 4 * K8_MAX_WARPS))
+    total, flags = kernels.stage_regions(base, state_regions(pa))
+    stage = kernels.stage_bits(flags)
+    with_bits = total + a16(4 * E * W)
     if with_bits <= kernels.SMEM_LIMIT:
-        return with_bits, True
-    return total, False
+        return with_bits, True, stage, global_row_bytes(pa, stage)
+    return total, False, stage, global_row_bytes(pa, stage)
 
 
 def random_ls_smem_bytes(pa, n_candidates: int) -> int:
-    """Dynamic shared memory K8 takes per individual (random_ls_smem)."""
-    return random_ls_smem(pa, n_candidates)[0]
+    """Dynamic shared memory K8 takes per individual (random_ls_layout)."""
+    return random_ls_layout(pa, n_candidates)[0]
 
 
 def random_ls_events_plain(draws: LSDraws) -> torch.Tensor:
@@ -505,7 +531,8 @@ def random_ls_chain(pa, draws: LSDraws, rows: LSRows,
         lane_pa, pa = pa, pa.first
     n_rounds, K, P = draws.mtype.shape
     E = rows.slots.shape[1]
-    kernels.check_smem("random_ls", random_ls_smem_bytes(pa, K))
+    smem, _, stage, scratch = random_ls_layout(pa, K)
+    kernels.check_smem("random_ls", smem)
     if any(x.dtype != torch.int32 for x in rows):
         raise TypeError("random_ls takes int32 slots, rooms, pen, hcv and "
                         "scv")
@@ -519,6 +546,9 @@ def random_ls_chain(pa, draws: LSDraws, rows: LSRows,
     out = LSRows(*(torch.empty_like(x) for x in ins))
     if P == 0:
         return out
+    # a row an individual (one block each, alive for the whole call)
+    buf = (torch.empty(P * scratch, dtype=torch.uint8,
+                       device=ins[0].device) if scratch else None)
     p = kernels.ptr
     kernels.launch(
         "random_ls" if lanes is None else "random_ls_lanes",
@@ -527,9 +557,10 @@ def random_ls_chain(pa, draws: LSDraws, rows: LSRows,
         p(pa.cap_rank), p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr),
         p(pa.ev_stu), p(pa.stu_ptr), p(pa.stu_ev), p(pa.anchor_slots),
         p(pa.anchor_w), None if lanes is None else p(lanes),
-        *(p(x) for x in out), P, E, pa.n_rooms, pa.n_students, pa.n_slots,
-        pa.slots_per_day, pa.conflict_bits.shape[1], K, n_rounds,
-        int(pa.anchored), pa.conflict_diag, lane_rows,
+        *(p(x) for x in out), None if buf is None else p(buf), P, E,
+        pa.n_rooms, pa.n_students, pa.n_slots, pa.slots_per_day,
+        pa.conflict_bits.shape[1], K, n_rounds, int(pa.anchored),
+        pa.conflict_diag, lane_rows, stage,
         work=work.random_ls(pa if lanes is None else lane_pa, draws, rows))
     return out
 

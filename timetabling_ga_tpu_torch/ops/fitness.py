@@ -153,12 +153,37 @@ def penalty_cluster(pa, P: int, device) -> int:
     return penalty_cluster_size(P, sms)
 
 
+# threads of a K2 CTA (csrc/batch_penalty.cu K2_THREADS)
+K2_THREADS = 256
+
+
+def batch_penalty_stage(pa) -> tuple:
+    """(shared memory of one K2 CTA without its staged CSR slice and
+    conflict rows, whether it stages the (T, R) int32 occupancy): a CTA
+    always stages the row, the live flags, the slot bitsets and the
+    reductions' scratch (csrc/batch_penalty.cu, ints rounded up to 4),
+    and the occupancy where it fits (kernels.stage_regions; else a
+    global scratch row a CTA)."""
+    def up(x):
+        return -(-x // 4) * 4
+    n_red = 4 * (K2_THREADS // 32) + 4 * K2_MAX_CLUSTER
+    base = 4 * (3 * up(pa.n_events)
+                + up(pa.n_slots * pa.conflict_bits.shape[1]) + up(n_red))
+    total, (occ,) = kernels.stage_regions(
+        base, [4 * up(pa.n_slots * pa.n_rooms)])
+    return total, occ
+
+
 def batch_penalty_kernel(pa, slots, rooms, cluster: int = None):
     """Kernel K2 on CUDA tensors: every row in one launch, a cluster of
     `cluster` CTAs a row (None: `penalty_cluster`; an explicit size, 1,
     2, 4 or 8, is for tests and the chip smoke). Returns the (3, P) int32
-    tensor of (penalty, hcv, scv) rows. A cluster the card refuses
-    raises; there is no fallback."""
+    tensor of (penalty, hcv, scv) rows. Where the occupancy does not fit
+    in shared memory each CTA keeps it in a global scratch row and the
+    clusters stride over the rows, as many clusters as
+    kernels.resident_grid gives CTAs: a row a CTA of every individual
+    would be P x CS x 4 T R bytes (24 GB at pop 32,768 and R = 4,095).
+    A cluster the card refuses raises; there is no fallback."""
     P, E = slots.shape
     if slots.dtype != torch.int32 or rooms.dtype != torch.int32:
         raise TypeError("batch_penalty takes int32 slots and rooms")
@@ -170,17 +195,24 @@ def batch_penalty_kernel(pa, slots, rooms, cluster: int = None):
                          f"takes {K2_CLUSTERS}")
     if P == 0:
         return out
+    p = kernels.ptr
+    args = [p(slots), p(rooms), p(pa.possible_u8), p(pa.live),
+            p(pa.student_count), p(pa.conflict_bits), p(pa.stu_ptr),
+            p(pa.stu_ev), p(pa.anchor_slots), p(pa.anchor_w),
+            pa.stu_split.data_ptr(), p(out[0]), p(out[1]), p(out[2])]
     if cluster is None:
         cluster = penalty_cluster(pa, P, slots.device)
-    p = kernels.ptr
+    occ_staged = batch_penalty_stage(pa)[1]
+    grid = (P if occ_staged else
+            kernels.resident_grid(P, slots.device, cluster))
+    occ = (None if occ_staged else
+           torch.empty((grid * cluster, pa.n_slots, pa.n_rooms),
+                       dtype=torch.int32, device=slots.device))
     kernels.launch(
-        "batch_penalty", p(slots), p(rooms), p(pa.possible_u8), p(pa.live),
-        p(pa.student_count), p(pa.conflict_bits), p(pa.stu_ptr),
-        p(pa.stu_ev), p(pa.anchor_slots), p(pa.anchor_w),
-        pa.stu_split.data_ptr(), p(out[0]), p(out[1]), p(out[2]), P, E,
+        "batch_penalty", *args, None if occ is None else p(occ), P, E,
         pa.n_rooms, pa.n_students, pa.n_slots, pa.slots_per_day,
         pa.conflict_bits.shape[1], pa.conflict_diag, cluster,
-        work=work.batch_penalty(pa, slots))
+        int(occ_staged), grid, work=work.batch_penalty(pa, slots))
     return out
 
 

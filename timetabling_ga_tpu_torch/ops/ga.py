@@ -55,7 +55,8 @@ from timetabling_ga_tpu_torch.ops.moves import (
     MoveDraws, make_move_draws, random_move_plain)
 from timetabling_ga_tpu_torch.ops.rooms import (
     BLOCK_WARPS, assign_rooms, assign_rooms_plain, augment_rooms_plain,
-    best_fit_rooms, check_packing, parallel_rooms_ints)
+    _scratch, best_fit_rooms, check_packing, matcher_regions,
+    parallel_rooms_ints)
 from timetabling_ga_tpu_torch.ops.sweep import (
     make_sweep_draws, sweep_local_search, sweep_shape)
 from timetabling_ga_tpu_torch.problem import LaneProblems
@@ -342,16 +343,39 @@ def make_children_lanes_plain(lp: LaneProblems, draws: BreedDraws,
     return (rows, out[5]) if with_parent else rows
 
 
-def breed_smem_bytes(pa, parallel: bool) -> int:
-    """Shared memory of one K6 breeding block (csrc/breed.cu tt_breed):
-    the child's slots, rooms and (T, R) int32 occupancy, the greedy
-    matcher's slots in matching order or the parallel matcher's scratch,
-    the child's slot bitsets (T x W words) and the reduction's 4 ints a
-    warp."""
+def breed_stage(pa, parallel: bool) -> tuple:
+    """K6's breeding layout (csrc/breed.cu tt_breed): (shared memory of
+    one block, the stage mask, global scratch bytes a block). A block
+    stages the child's slots and rooms, the greedy matcher's slots in
+    matching order or the parallel matcher's scratch, the child's slot
+    bitsets (T x W words) and the reduction's 4 ints a warp; and, where
+    they fit (kernels.stage_regions), the matcher's rank rows, then its
+    suitability words, then the child's (T, R) int32 occupancy. The
+    words not staged are read from the problem's; the occupancy and the
+    rows not staged are the block's scratch row."""
     E, R, T = pa.n_events, pa.n_rooms, pa.n_slots
-    so = parallel_rooms_ints(E, R, T) if parallel else E
-    return 4 * (2 * E + T * R + so + T * pa.conflict_bits.shape[1]
-                + 4 * BLOCK_WARPS)
+    W = pa.conflict_bits.shape[1]
+    occ = 4 * T * R
+    fixed = 4 * (2 * E + T * W + 4 * BLOCK_WARPS)
+    if parallel:
+        mrows, msu = matcher_regions(E, R)
+        base = fixed + 4 * parallel_rooms_ints(E, R, T, su=False,
+                                               rows=False)
+        _, (rows, su, staged) = kernels.stage_regions(base,
+                                                      [mrows, msu, occ])
+        so = parallel_rooms_ints(E, R, T, su=su, rows=rows)
+    else:
+        mrows, rows, su = 0, True, True
+        _, (staged,) = kernels.stage_regions(fixed + 4 * E, [occ])
+        so = E
+    return (fixed + 4 * so + (occ if staged else 0),
+            kernels.stage_bits((rows, su, staged)),
+            (0 if staged else occ) + (0 if rows else mrows))
+
+
+def breed_smem_bytes(pa, parallel: bool) -> int:
+    """Shared memory of one K6 breeding block (breed_stage)."""
+    return breed_stage(pa, parallel)[0]
 
 
 def make_children_kernel(pa, draws: BreedDraws, state: PopState,
@@ -374,7 +398,8 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
                              f"{len(pa)} lanes")
         lanes, pa = pa.table, pa.first
     check_packing(pa)
-    kernels.check_smem("breed", breed_smem_bytes(pa, n_rounds >= 0))
+    smem, stage, scratch = breed_stage(pa, n_rounds >= 0)
+    kernels.check_smem("breed", smem)
     P, E = state.slots.shape
     ins = [x.contiguous() for x in (state.slots, state.rooms,
                                     state.penalty, state.scv)]
@@ -402,6 +427,12 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
     rows = LSRows(*out, ev[0], ev[1], ev[2])
     if P == 0:
         return (rows, parent) if with_parent else rows
+    # a block loops over children when anything is read from global
+    # memory; its scratch row (the occupancy and the rank rows not
+    # staged) is sized by the blocks the card holds at once, as K1's: a
+    # row a child would be P x T x R x 4 bytes for the occupancy alone
+    grid = kernels.resident_grid(P, ins[0].device) if stage != 7 else P
+    buf = _scratch(grid, scratch, ins[0].device)
     p = kernels.ptr
     kernels.launch("breed" if lanes is None else "breed_lanes",
                    *(p(x) for x in ins + dr), p(pa.possible_u8),
@@ -412,10 +443,11 @@ def make_children_kernel(pa, draws: BreedDraws, state: PopState,
                    p(pa.stu_ev), p(pa.anchor_slots), p(pa.anchor_w),
                    None if lanes is None else p(lanes),
                    p(out[0]), p(out[1]), p(ev),
-                   None if parent is None else p(parent), P, P // groups,
+                   None if parent is None else p(parent),
+                   None if buf is None else p(buf), P, P // groups,
                    draws.ta.shape[1], E, pa.n_rooms, pa.n_slots, n_rounds,
                    pa.n_students, pa.slots_per_day, pa.conflict_bits.shape[1],
-                   pa.conflict_diag, work=w)
+                   pa.conflict_diag, stage, grid, work=w)
     return (rows, parent) if with_parent else rows
 
 

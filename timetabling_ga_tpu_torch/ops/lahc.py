@@ -29,7 +29,8 @@ from timetabling_ga_tpu_torch import kernels, work
 from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.delta import (
-    LSDraws, LSState, apply_moves, delta_one_plain, init_state)
+    LSDraws, LSState, a16, apply_moves, delta_one_plain, init_state,
+    state_regions)
 from timetabling_ga_tpu_torch.ops.moves import MoveDraws, move_probs, sample_move
 
 
@@ -162,41 +163,38 @@ K10_CHUNK_BYTES = 12288
 EVENT_PAD = 16
 
 
-def _a16(x: int) -> int:
-    return -(-x // 16) * 16
-
-
-def lahc_smem(pa, k_cands: int, hist_len: int) -> tuple[int, bool, bool]:
+def lahc_layout(pa, k_cands: int, hist_len: int) -> tuple:
     """Dynamic shared memory K10 takes per walker, the layout of
     csrc/lahc.cu `k10_smem_layout`: slots, rooms and the best snapshot's
-    slots and rooms, two buffers of 18 ints per candidate, the bitsets
-    amask (S u64) and slot_ev (T x W u32; ops/delta.py slot_bitsets),
-    occ and att, each rounded up to 16 bytes, and two chunks of steps'
-    draws (a step: its events from a 16-byte boundary, 16 bytes more than
-    6K rounded up, then its move types and its targets, 4K each rounded
-    up; as many steps as fit in K10_CHUNK_BYTES, at least one); then the
-    conflict bitset when it still fits in SMEM_LIMIT, then the two
+    slots and rooms, two buffers of 18 ints per candidate, the bitset
+    slot_ev (T x W u32; ops/delta.py slot_bitsets), each rounded up to 16
+    bytes, and two chunks of steps' draws (a step: its events from a
+    16-byte boundary, 16 bytes more than 6K rounded up, then its move
+    types and its targets, 4K each rounded up; as many steps as fit in
+    K10_CHUNK_BYTES, at least one); occ, amask (S u64) and att where
+    they fit (kernels.stage_regions; else K10 works on the walker's att
+    and occ rows in place and keeps amask in a global scratch row); then
+    the conflict bitset when it still fits in SMEM_LIMIT, then the two
     history rings (2 x Lh ints) when they still fit (else K10 reads
     each from global memory). Returns (bytes, bits staged, rings
-    staged)."""
-    E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
+    staged, the stage mask)."""
+    E, T = pa.n_events, pa.n_slots
     W = pa.conflict_bits.shape[1]
     K = k_cands
-    step = _a16(6 * K) + 16 + 2 * _a16(4 * K)
+    step = a16(6 * K) + 16 + 2 * a16(4 * K)
     chunk = max(1, K10_CHUNK_BYTES // step)
-    total = sum(_a16(x) for x in (4 * E,) * 4 + (
-        2 * 4 * 18 * K, 8 * S, 4 * T * W, 2 * T * R, 2 * S * T))
-    total += 2 * chunk * step
+    base = a16(*(4 * E,) * 4, 2 * 4 * 18 * K, 4 * T * W) + 2 * chunk * step
+    total, flags = kernels.stage_regions(base, state_regions(pa))
     staged = []
-    for extra in (_a16(4 * E * W), 2 * _a16(4 * hist_len)):
+    for extra in (a16(4 * E * W), 2 * a16(4 * hist_len)):
         staged.append(total + extra <= kernels.SMEM_LIMIT)
         total += extra if staged[-1] else 0
-    return (total, *staged)
+    return (total, *staged, kernels.stage_bits(flags))
 
 
 def lahc_smem_bytes(pa, k_cands: int, hist_len: int) -> int:
-    """Dynamic shared memory K10 takes per walker (lahc_smem)."""
-    return lahc_smem(pa, k_cands, hist_len)[0]
+    """Dynamic shared memory K10 takes per walker (lahc_layout)."""
+    return lahc_layout(pa, k_cands, hist_len)[0]
 
 
 def _as_one_individual(u: torch.Tensor) -> LSDraws:
@@ -231,8 +229,8 @@ def lahc_steps_kernel(pa, draws: LahcDraws, state: LahcState,
     not fit in shared memory; no fallback."""
     n, W, K = draws.mtype.shape
     E = state.ls.slots.shape[1]
-    kernels.check_smem("lahc", lahc_smem_bytes(pa, K,
-                                               state.hist_pen.shape[1]))
+    smem, _, _, stage = lahc_layout(pa, K, state.hist_pen.shape[1])
+    kernels.check_smem("lahc", smem)
     if tuple(draws.u.shape) != (n, W, K, E) or \
             state.ls.slots.shape[0] != W:
         raise ValueError("lahc: the draws do not fit the walkers")
@@ -256,15 +254,21 @@ def lahc_steps_kernel(pa, draws: LahcDraws, state: LahcState,
     i32 = torch.int32
     dr = [draws.mtype.to(i32).contiguous(), events,
           draws.t.to(i32).contiguous()]
+    # a walker's amask row where it is not staged (att and occ are its
+    # own rows, worked on in place)
+    amask = (None if stage & 2 else
+             torch.empty((W, pa.n_students), dtype=torch.int64,
+                         device=ls.slots.device))
     p = kernels.ptr
     kernels.launch(
         "lahc", *(p(x) for x in fields + dr), p(pa.possible_u8), p(pa.live),
         p(pa.student_count), p(pa.conflict_bits), p(pa.cap_rank),
         p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr), p(pa.ev_stu),
-        p(pa.anchor_slots), p(pa.anchor_w), W, E, pa.n_rooms,
+        p(pa.anchor_slots), p(pa.anchor_w),
+        None if amask is None else p(amask), W, E, pa.n_rooms,
         pa.n_students, pa.n_slots, pa.slots_per_day,
         pa.conflict_bits.shape[1], K, state.hist_pen.shape[1], n,
-        int(pa.anchored), work=work.lahc(pa, draws, state))
+        int(pa.anchored), stage, work=work.lahc(pa, draws, state))
     return out
 
 

@@ -25,7 +25,7 @@ import torch
 from timetabling_ga_tpu_torch import kernels, work
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.delta import (
-    LSDraws, LSRows, init_rows, random_ls_events_kernel)
+    LSDraws, LSRows, a16, init_rows, random_ls_events_kernel)
 from timetabling_ga_tpu_torch.ops.moves import MoveDraws, random_move_plain
 
 # the largest cluster of CTAs K12 gives an individual
@@ -42,40 +42,40 @@ def full_eval_cluster(n_candidates: int) -> int:
     return min(n_candidates, K12_MAX_CLUSTER)
 
 
-def full_eval_ls_smem(pa, n_candidates: int) -> tuple[int, bool, bool]:
+def full_eval_ls_layout(pa, n_candidates: int) -> tuple:
     """Dynamic shared memory of one K12 CTA, the layout of
     csrc/full_eval_ls.cu `k12_smem_layout`, and what it stages: the
-    current row and its candidate copy (slots, rooms, int32 occupancy,
-    live slot bitsets), the reduction scratch, two inboxes of 8 records
-    of 16 ints, one chunk of rounds' draws (14 B a candidate) and the
+    current row and its candidate copy (slots, rooms, live slot
+    bitsets), the reduction scratch, two inboxes of 8 records of 16
+    ints, one chunk of rounds' draws (14 B a candidate) and the
     per-event problem arrays (live flags, student counts, anchor slots
-    and weights), each rounded up to 16 bytes; then the suitable-rooms
+    and weights), each rounded up to 16 bytes; the two rows' (T, R)
+    int32 occupancies where they fit (kernels.stage_regions; else a
+    global scratch row of 8 T R bytes a CTA); then the suitable-rooms
     table (E x R bytes) when it still fits in SMEM_LIMIT, then the
     conflict bitset and the students' CSR when they still fit (else K12
-    reads each from global memory). Returns (bytes, table staged,
-    conflict bits and CSR staged)."""
+    reads each from global memory). Returns (bytes, occupancies staged,
+    table staged, conflict bits and CSR staged)."""
     E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
     W = pa.conflict_bits.shape[1]
     K = n_candidates
     n = max(1, K12_CHUNK_BYTES // (14 * K)) * K
 
-    def a16(*xs):
-        return sum(-(-x // 16) * 16 for x in xs)
-
-    total = a16(*(4 * E, 4 * E, 4 * T * R, 4 * T * W) * 2,
-                16 * (K12_THREADS // 32), 4 * 2 * K12_MAX_CLUSTER * 16,
-                6 * n, 4 * n, 4 * n, 4 * E, 4 * E, 4 * E, 4 * E)
+    base = a16(*(4 * E, 4 * E, 4 * T * W) * 2,
+               16 * (K12_THREADS // 32), 4 * 2 * K12_MAX_CLUSTER * 16,
+               6 * n, 4 * n, 4 * n, 4 * E, 4 * E, 4 * E, 4 * E)
+    total, (occ,) = kernels.stage_regions(base, [2 * a16(4 * T * R)])
     table = total + a16(E * R) <= kernels.SMEM_LIMIT
     total += a16(E * R) if table else 0
     staged = total + a16(4 * E * W, 4 * (S + 1), 4 * pa.stu_ev.numel())
     if staged <= kernels.SMEM_LIMIT:
-        return staged, table, True
-    return total, table, False
+        return staged, occ, table, True
+    return total, occ, table, False
 
 
 def full_eval_ls_smem_bytes(pa, n_candidates: int) -> int:
-    """Dynamic shared memory of one K12 CTA (full_eval_ls_smem)."""
-    return full_eval_ls_smem(pa, n_candidates)[0]
+    """Dynamic shared memory of one K12 CTA (full_eval_ls_layout)."""
+    return full_eval_ls_layout(pa, n_candidates)[0]
 
 
 def batch_local_search_plain(pa, draws: LSDraws, rows: LSRows) -> LSRows:
@@ -110,8 +110,13 @@ def full_eval_ls_chain(pa, draws: LSDraws, rows: LSRows,
     """K12 on CUDA tensors, given every candidate's events from K8's
     pre-pass: every round for every individual in one launch, a cluster
     of `cluster` CTAs an individual (default full_eval_cluster(K); 1 to
-    min(K, 8)). Raises ValueError when a CTA's state does not fit in
-    shared memory; no fallback."""
+    min(K, 8)). Where the two occupancies do not fit in shared memory,
+    each CTA keeps them in a global scratch row and the clusters stride
+    over the individuals, as many clusters as kernels.resident_grid
+    gives CTAs: a row a CTA of every individual would be P x CS x 8 T R
+    bytes (3 GB at P = 256, CS = 8 and R = 4,095), sized by the card it
+    is at most ~0.4 GB. Raises ValueError when a CTA's state does not
+    fit in shared memory; no fallback."""
     n_rounds, K, P = draws.mtype.shape
     E = rows.slots.shape[1]
     cs = full_eval_cluster(K) if cluster is None else cluster
@@ -119,6 +124,7 @@ def full_eval_ls_chain(pa, draws: LSDraws, rows: LSRows,
         raise ValueError(f"full_eval_ls: a cluster of {cs} CTAs; it takes "
                          f"1 to {full_eval_cluster(K)} at K = {K}")
     kernels.check_smem("full_eval_ls", full_eval_ls_smem_bytes(pa, K))
+    occ_staged = full_eval_ls_layout(pa, K)[1]
     if any(x.dtype != torch.int32 for x in rows):
         raise TypeError("full_eval_ls takes int32 slots, rooms, pen, hcv "
                         "and scv")
@@ -133,15 +139,22 @@ def full_eval_ls_chain(pa, draws: LSDraws, rows: LSRows,
     out = LSRows(*(torch.empty_like(x) for x in ins))
     if P == 0:
         return out
+    dev = rows.slots.device
+    grid = P if occ_staged else kernels.resident_grid(P, dev, cs)
+    buf = (None if occ_staged else
+           torch.empty((grid * cs, 2, pa.n_slots, pa.n_rooms),
+                       dtype=torch.int32, device=dev))
     p = kernels.ptr
     kernels.launch(
         "full_eval_ls", *(p(x) for x in ins + dr), p(pa.possible_u8),
         p(pa.cap_rank), p(pa.dead), p(pa.live), p(pa.student_count),
         p(pa.conflict_bits), p(pa.stu_ptr), p(pa.stu_ev),
-        p(pa.anchor_slots), p(pa.anchor_w), *(p(x) for x in out), P, E,
+        p(pa.anchor_slots), p(pa.anchor_w), *(p(x) for x in out),
+        None if buf is None else p(buf), P, E,
         pa.n_rooms, pa.n_students, pa.n_slots, pa.slots_per_day,
         pa.conflict_bits.shape[1], K, n_rounds, pa.stu_ev.numel(),
-        pa.conflict_diag, cs, work=work.full_eval_ls(pa, draws, rows))
+        pa.conflict_diag, cs, int(occ_staged), grid,
+        work=work.full_eval_ls(pa, draws, rows))
     return out
 
 

@@ -23,7 +23,7 @@ from timetabling_ga_tpu_torch import kernels, work
 from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.ops.fitness import gather_rows
 from timetabling_ga_tpu_torch.ops.rooms import (
-    check_packing, choose_room, occupancy)
+    _scratch, check_packing, choose_room, occupancy)
 
 
 class MoveDraws(NamedTuple):
@@ -209,11 +209,25 @@ def relocation_chain_plain(pa, draws: MoveDraws, slots, rooms,
 RELOCATE_WARPS = 4
 
 
+def relocate_stage(pa) -> tuple:
+    """K6's relocation layout (csrc/breed.cu tt_relocate): (shared memory
+    of one block, rows a block, global scratch bytes a row). A block
+    takes RELOCATE_WARPS rows, a warp each, with each row's slots, rooms
+    and (T, R) int32 occupancy; where four rows do not fit, two, then
+    one; past one row, 0: four rows a block with their slots and rooms
+    staged and their occupancy in global memory, a scratch row a warp."""
+    row = 4 * (2 * pa.n_events + pa.n_slots * pa.n_rooms)
+    limit = min(kernels.STAGE_LIMIT, kernels.SMEM_LIMIT)
+    for rows in (RELOCATE_WARPS, 2, 1):
+        if rows * row <= limit:
+            return rows * row, rows, 0
+    return (4 * RELOCATE_WARPS * 2 * pa.n_events, 0,
+            4 * pa.n_slots * pa.n_rooms)
+
+
 def relocate_smem_bytes(pa) -> int:
-    """Shared memory of one K6 relocation block: each of its rows' slots,
-    rooms and (T, R) int32 occupancy."""
-    return 4 * RELOCATE_WARPS * (2 * pa.n_events
-                                 + pa.n_slots * pa.n_rooms)
+    """Shared memory of one K6 relocation block (relocate_stage)."""
+    return relocate_stage(pa)[0]
 
 
 def relocation_chain_kernel(pa, draws: MoveDraws, slots, rooms,
@@ -222,7 +236,8 @@ def relocation_chain_kernel(pa, draws: MoveDraws, slots, rooms,
     Raises ValueError, before any launch, where a block's rows do not
     fit in shared memory."""
     check_packing(pa)
-    kernels.check_smem("relocate", relocate_smem_bytes(pa))
+    smem, rows, scratch = relocate_stage(pa)
+    kernels.check_smem("relocate", smem)
     if slots.dtype != torch.int32 or rooms.dtype != torch.int32:
         raise TypeError("relocation_chain takes int32 slots and rooms")
     if draws.u.dtype != torch.float32 or draws.u.shape[0] < n_moves:
@@ -236,11 +251,18 @@ def relocation_chain_kernel(pa, draws: MoveDraws, slots, rooms,
           draws.u[:n_moves].contiguous(),
           draws.t[:n_moves].to(torch.int32).contiguous()]
     out = [torch.empty_like(x) for x in ins]
+    # past one row a block, the blocks stride over the rows and each
+    # warp's occupancy is a scratch row, sized by the blocks the card
+    # holds at once (as K1's), not by N
+    grid = (0 if rows else
+            kernels.resident_grid(-(-N // RELOCATE_WARPS), slots.device))
+    buf = _scratch(grid * RELOCATE_WARPS, scratch, slots.device)
     p = kernels.ptr
     kernels.launch("relocate", *(p(x) for x in ins + dr),
                    p(pa.possible_u8), p(pa.cap_rank), p(pa.dead),
-                   p(pa.live), *(p(x) for x in out), N, n_moves, E,
-                   pa.n_rooms, pa.n_slots,
+                   p(pa.live), *(p(x) for x in out),
+                   None if buf is None else p(buf), N, n_moves, E,
+                   pa.n_rooms, pa.n_slots, rows, grid,
                    work=work.relocate(pa, slots, n_moves))
     return out[0], out[1]
 

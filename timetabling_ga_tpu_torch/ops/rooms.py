@@ -73,29 +73,66 @@ def check_packing(pa) -> None:
 BLOCK_WARPS = 16
 
 
+def assign_rooms_stage(pa) -> tuple:
+    """K1's layout (csrc/assign_rooms.cu): (shared memory of one block,
+    the stage mask, global scratch bytes a block). It stages each
+    event's slot in matching order, and the (T, R) int32 occupancy
+    where it fits (kernels.stage_regions); else the occupancy is a
+    scratch row in global memory."""
+    occ = 4 * pa.n_slots * pa.n_rooms
+    _, (staged,) = kernels.stage_regions(4 * pa.n_events, [occ])
+    return (4 * pa.n_events + (occ if staged else 0), int(staged),
+            0 if staged else occ)
+
+
 def assign_rooms_smem_bytes(pa) -> int:
-    """Shared memory of one K1 block: each event's slot in matching order
-    and the (T, R) int32 occupancy (csrc/assign_rooms.cu)."""
-    return 4 * (pa.n_events + pa.n_slots * pa.n_rooms)
+    """Shared memory of one K1 block (assign_rooms_stage)."""
+    return assign_rooms_stage(pa)[0]
+
+
+def rank_row_ints(R: int) -> int:
+    """One warp's rank rows of the parallel matcher (csrc/rooms_dev.cuh
+    tt_rank_row_ints): five rows of 32 ceil(R / 32) ints and three words
+    of ranks."""
+    nw = -(-R // 32)
+    return 5 * 32 * nw + 3 * nw
 
 
 def parallel_rooms_ints(E: int, R: int, T: int,
-                        n_warps: int = BLOCK_WARPS) -> int:
+                        n_warps: int = BLOCK_WARPS, su: bool = True,
+                        rows: bool = True) -> int:
     """The parallel matcher's scratch ints in a block of n_warps warps
     (csrc/rooms_dev.cuh tt_parallel_rooms_ints): each event's matched
-    rank, ceil(R / 32) suitability words and live flag, the slot buckets,
-    and each warp's five rank rows of 32 ceil(R / 32) ints and its three
-    words of ranks."""
-    nw = -(-R // 32)
-    return ((3 + nw) * E + T + 1 + -(-E // 32) * T
-            + (5 * 32 * nw + 3 * nw) * n_warps)
+    rank, ceil(R / 32) suitability words (`su`) and live flag, the slot
+    buckets, and each warp's rank rows (`rows`)."""
+    return ((3 + (-(-R // 32) if su else 0)) * E + T + 1 + -(-E // 32) * T
+            + (rank_row_ints(R) * n_warps if rows else 0))
+
+
+def matcher_regions(E: int, R: int) -> list:
+    """Bytes of the parallel matcher's regions that grow with the rooms,
+    in the order its bids read them most: the block's rank rows, then
+    the events' suitability words (kernels.stage_regions)."""
+    return [4 * rank_row_ints(R) * BLOCK_WARPS, 4 * E * -(-R // 32)]
+
+
+def parallel_rooms_stage(pa) -> tuple:
+    """K9's layout (csrc/parallel_rooms.cu): (shared memory of one block,
+    the stage mask, global scratch bytes a block). A block stages the
+    slots, the rooms and the matcher's scratch, and of it the rank rows
+    and the suitability words where they fit; the words not staged are
+    read from the problem's, the rows not staged are a scratch row."""
+    E, R, T = pa.n_events, pa.n_rooms, pa.n_slots
+    base = 4 * (2 * E + parallel_rooms_ints(E, R, T, su=False, rows=False))
+    _, (rows, su) = kernels.stage_regions(base, matcher_regions(E, R))
+    smem = 4 * (2 * E + parallel_rooms_ints(E, R, T, su=su, rows=rows))
+    return (smem, kernels.stage_bits((rows, su)),
+            0 if rows else matcher_regions(E, R)[0])
 
 
 def parallel_rooms_smem_bytes(pa) -> int:
-    """Shared memory of one K9 block: slots, rooms and the matcher's
-    scratch (csrc/parallel_rooms.cu)."""
-    E = pa.n_events
-    return 4 * (2 * E + parallel_rooms_ints(E, pa.n_rooms, pa.n_slots))
+    """Shared memory of one K9 block (parallel_rooms_stage)."""
+    return parallel_rooms_stage(pa)[0]
 
 
 def assign_rooms_plain(pa, slots) -> torch.Tensor:
@@ -118,12 +155,26 @@ def assign_rooms_plain(pa, slots) -> torch.Tensor:
     return rooms
 
 
+def _scratch(n_rows: int, row_bytes: int, device):
+    """Global scratch of n_rows rows of row_bytes (16-byte aligned), or
+    None when a kernel stages everything."""
+    if not row_bytes:
+        return None
+    return torch.empty(n_rows * (-(-row_bytes // 16) * 16),
+                       dtype=torch.uint8, device=device)
+
+
 def assign_rooms_kernel(pa, slots) -> torch.Tensor:
     """Kernel K1: the whole population in one launch, a block each.
-    Raises ValueError, before any launch, where one block's state does
-    not fit in shared memory."""
+    Where the (T, R) occupancy does not fit in shared memory, it is a
+    scratch row in global memory a block, and kernels.resident_grid
+    blocks stride over the rows: a row an individual would take P x T x
+    R x 4 bytes (24 GB at pop 32,768 and R = 4,095), a row a resident
+    block a few hundred MB at most. Raises ValueError, before any
+    launch, where one block's state does not fit in shared memory."""
     check_packing(pa)
-    kernels.check_smem("assign_rooms", assign_rooms_smem_bytes(pa))
+    smem, stage, scratch = assign_rooms_stage(pa)
+    kernels.check_smem("assign_rooms", smem)
     if slots.dtype != torch.int32:
         raise TypeError("assign_rooms takes int32 slots")
     slots = slots.contiguous()
@@ -131,10 +182,13 @@ def assign_rooms_kernel(pa, slots) -> torch.Tensor:
     rooms = torch.empty_like(slots)
     if P == 0:
         return rooms
+    grid = kernels.resident_grid(P, slots.device) if scratch else P
+    buf = _scratch(grid, scratch, slots.device)
     p = kernels.ptr
     kernels.launch("assign_rooms", p(slots), p(rooms), p(pa.possible_u8),
                    p(pa.cap_rank), p(pa.dead), p(pa.live),
-                   p(pa.room_order), P, E, pa.n_rooms, pa.n_slots,
+                   p(pa.room_order), None if buf is None else p(buf), P, E,
+                   pa.n_rooms, pa.n_slots, stage, grid,
                    work=work.assign_rooms(pa, slots))
     return rooms
 
@@ -281,7 +335,8 @@ def augment_rooms_kernel(pa, slots, rooms, n_rounds: int = 4):
     (parallel_assign_rooms). Raises ValueError, before any launch, where
     one block's state does not fit in shared memory."""
     check_packing(pa)
-    kernels.check_smem("parallel_rooms", parallel_rooms_smem_bytes(pa))
+    smem, stage, scratch = parallel_rooms_stage(pa)
+    kernels.check_smem("parallel_rooms", smem)
     ins = [slots.contiguous()] + ([] if rooms is None
                                   else [rooms.contiguous()])
     if any(x.dtype != torch.int32 for x in ins):
@@ -290,12 +345,19 @@ def augment_rooms_kernel(pa, slots, rooms, n_rounds: int = 4):
     out = torch.empty_like(ins[0])
     if P == 0:
         return out
+    # a block loops over rows when anything is read from global memory
+    # (its scratch row, where the rank rows are not staged, is sized by
+    # the blocks the card holds at once, as K1's)
+    glob = stage != 3
+    grid = kernels.resident_grid(P, slots.device) if glob else P
+    buf = _scratch(grid, scratch, slots.device)
     p = kernels.ptr
     kernels.launch("parallel_rooms", p(ins[0]),
                    None if rooms is None else p(ins[1]), p(pa.cap_rank),
                    p(pa.dead), p(pa.live), p(pa.suit_rank),
-                   p(pa.room_of_rank), p(out), P, E, pa.n_rooms,
-                   pa.n_slots, n_rounds,
+                   p(pa.room_of_rank), p(out),
+                   None if buf is None else p(buf), P, E, pa.n_rooms,
+                   pa.n_slots, n_rounds, stage, grid,
                    work=work.parallel_rooms(pa, slots, rooms, n_rounds))
     return out
 

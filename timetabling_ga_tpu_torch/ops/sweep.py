@@ -32,7 +32,7 @@ from timetabling_ga_tpu_torch.obs import prof as obs_prof
 from timetabling_ga_tpu_torch.ops import fitness
 from timetabling_ga_tpu_torch.ops.delta import (
     LSState, _day_scv, apply_moves, delta_one_plain, init_state,
-    slot_bitsets)
+    slot_bitsets, a16, state_regions)
 from timetabling_ga_tpu_torch.ops.fitness import day_view, gather_rows
 from timetabling_ga_tpu_torch.ops.rooms import W_COST, W_UNSUIT
 
@@ -470,31 +470,42 @@ def sweep_pass_plain(pa, draws: SweepDraws, state: LSState,
     return st, strict_rows
 
 
-def sweep_pass_smem(pa, shape: SweepShape) -> tuple[int, bool]:
+# the stage mask's bit of K5's Move1 masks (csrc/sweep_pass.cu
+# K5_STAGE_MASKS), beside the state regions' (delta.state_regions)
+K5_STAGE_MASKS = 8
+
+
+def sweep_pass_layout(pa, shape: SweepShape) -> tuple[int, bool, int]:
     """Dynamic shared memory K5 takes per individual, the layout of
     csrc/sweep_pass.cu `k5_smem_layout`, the same in every CTA of a
     cluster: slots, rooms, pivots, the heat (hot mode), four ints per
     candidate (penalty, scv, and hcv and the new rooms packed in two),
-    the Move1 scratch, the bitsets amask (S u64) and slot_ev
-    (T x W u32), occ and att, each region rounded up to 16 bytes, plus
-    the conflict bitset when the total still fits in SMEM_LIMIT (else K5
-    reads it from global memory). Returns (bytes, bits staged)."""
-    E, R, S, T = pa.n_events, pa.n_rooms, pa.n_students, pa.n_slots
+    the reductions' scratch and the bitset slot_ev (T x W u32), each
+    region rounded up to 16 bytes; the Move1 masks (8 B a student of an
+    event; else a global row a CTA), occ, amask (S u64) and att where
+    they fit (kernels.stage_regions: att goes to global memory first,
+    then amask, then occ; att and occ then live in the individual's out
+    rows, amask in a scratch row); plus the conflict bitset when the total
+    still fits in SMEM_LIMIT (else K5 reads it from global memory).
+    Returns (bytes, bits staged, the stage mask)."""
+    E, T = pa.n_events, pa.n_slots
     W = pa.conflict_bits.shape[1]
-    parts = (4 * E, 4 * E, 4 * shape.K, 4 * E if shape.use_hot else 0,
-             16 * shape.n_cand, 4 * T, 4 * _K5_MISC_INTS,
-             8 * max(pa.max_ev_students, 1), 8 * S, 4 * T * W, 2 * T * R,
-             2 * S * T)
-    total = sum(-(-x // 16) * 16 for x in parts)
-    with_bits = total + -(-4 * E * W // 16) * 16
+    base = a16(4 * E, 4 * E, 4 * shape.K, 4 * E if shape.use_hot else 0,
+               16 * shape.n_cand, 4 * T, 4 * _K5_MISC_INTS, 4 * T * W)
+    # the Move1 scratch (a pivot's students' masks, 8 B each: read for
+    # every target slot) first, then the state regions
+    total, (masks, *flags) = kernels.stage_regions(
+        base, [8 * max(pa.max_ev_students, 1), *state_regions(pa)])
+    stage = kernels.stage_bits(flags) | (K5_STAGE_MASKS if masks else 0)
+    with_bits = total + a16(4 * E * W)
     if with_bits <= SMEM_LIMIT:
-        return with_bits, True
-    return total, False
+        return with_bits, True, stage
+    return total, False, stage
 
 
 def sweep_pass_smem_bytes(pa, shape: SweepShape) -> int:
-    """Dynamic shared memory K5 takes per individual (sweep_pass_smem)."""
-    return sweep_pass_smem(pa, shape)[0]
+    """Dynamic shared memory K5 takes per individual (sweep_pass_layout)."""
+    return sweep_pass_layout(pa, shape)[0]
 
 
 def cluster_size(n_moves: int, P: int, sm_count: int) -> int:
@@ -533,7 +544,8 @@ def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
     P, E = state.slots.shape
     T = pa.n_slots
     sh = sweep_shape(E, T, swap_block, block_events, hot_k, p3)
-    kernels.check_smem("sweep_pass", sweep_pass_smem_bytes(pa, sh))
+    smem, _, stage = sweep_pass_layout(pa, sh)
+    kernels.check_smem("sweep_pass", smem)
     if (state.att.dtype != torch.int16 or state.occ.dtype != torch.int16
             or any(x.dtype != torch.int32 for x in (
                 state.slots, state.rooms, state.pen, state.hcv, state.scv))):
@@ -565,6 +577,11 @@ def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
     tail = () if ops is None else (ops_out,)
     if P == 0:
         return (out, strict.view(torch.bool), pivots) + tail
+    # amask's rows where it is not staged (att and occ live in the out
+    # rows then, one copy an individual, rank 0's)
+    amask = (None if stage & 2 else
+             torch.empty((P, pa.n_students), dtype=torch.int64,
+                         device=state.slots.device))
     p = kernels.ptr
     args = [*(p(x) for x in ins),
             *(None if x is None else p(x) for x in dr), p(pa.possible_u8),
@@ -572,14 +589,20 @@ def sweep_pass_kernel(pa, draws: SweepDraws, state: LSState,
             p(pa.cap_rank), p(pa.dead), p(pa.attends_u8), p(pa.ev_ptr),
             p(pa.ev_stu), p(pa.event_mask), p(pa.anchor_slots),
             p(pa.anchor_w), *(p(x) for x in out), p(strict), p(pivots),
-            *((None, None) if ops is None else (p(ops), p(ops_out)))]
+            *((None, None) if ops is None else (p(ops), p(ops_out))),
+            None if amask is None else p(amask)]
     if cluster is None:
         cluster = auto_cluster(pa, sh, P, state.slots.device)
+    # the CTAs' Move1 masks rows where they are not staged
+    masks = (None if stage & K5_STAGE_MASKS else
+             torch.empty((P * cluster, max(pa.max_ev_students, 1)),
+                         dtype=torch.int64, device=state.slots.device))
+    args.append(None if masks is None else p(masks))
     kernels.launch(
         "sweep_pass", *args, P, E, pa.n_rooms, pa.n_students, T,
         pa.slots_per_day, pa.conflict_bits.shape[1], pa.max_ev_students,
         sh.K, sh.B, sh.SB, sh.n_steps, sh.n_cand, int(sh.use_hot),
-        int(side), int(pa.anchored), cluster,
+        int(side), int(pa.anchored), cluster, stage,
         work=work.sweep_pass(pa, sh, state, draws))
     return (out, strict.view(torch.bool), pivots) + tail
 
