@@ -5,6 +5,11 @@
 
 1. prints the card's name and power limit (nvidia-smi) and builds the
    CUDA kernels from timetabling_ga_tpu_torch/csrc (build time printed);
+   then the port's tt-analyze (the `analyze` line): every
+   TORCH_COMPAT_TABLE entry (timetabling_ga_tpu_torch/compat.py)
+   resolved on this machine's PyTorch with CUDA, whose versions it
+   prints, and a strict run over the package, which must report no
+   finding;
 2. holds every kernel against its plain PyTorch version on the card, at
    the paths' shapes on fixtures/comp01s.tim — exact equality of every
    output — then times both with CUDA events after a warm-up:
@@ -6519,6 +6524,54 @@ def university_phase(dev):
                       "card": CARD}))
 
 
+def _resolve(path: str):
+    """The module or attribute a dotted TORCH_COMPAT_TABLE key names."""
+    import importlib
+    parts = path.split(".")
+    for i in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module(".".join(parts[:i]))
+            break
+        except ImportError:
+            continue
+    for part in parts[i:]:
+        obj = getattr(obj, part)
+    return obj
+
+
+def analyze_phase() -> dict:
+    """The port's tt-analyze on this machine: every TORCH_COMPAT_TABLE
+    entry resolves on its PyTorch with CUDA, and `--strict
+    --warn-unused-ignores` over the package reports no finding."""
+    import torch
+    from timetabling_ga_tpu_torch.analysis import run_analysis
+    from timetabling_ga_tpu_torch.analysis.config import load_config
+    from timetabling_ga_tpu_torch.compat import TORCH_COMPAT_TABLE
+    missing, names = [], 0
+    for key, allowed in TORCH_COMPAT_TABLE.items():
+        try:
+            obj = _resolve(key)
+        except (ImportError, AttributeError):
+            missing.append(key)
+            continue
+        for name in allowed:
+            if name != "*":
+                names += 1
+                if not hasattr(obj, name):
+                    missing.append(f"{key}.{name}")
+    check(not missing, f"analyze: TORCH_COMPAT_TABLE entries missing on "
+                       f"torch {torch.__version__}: {missing}")
+    cfg = load_config(HERE)
+    cfg.root = HERE
+    cfg.warn_unused_ignores = True
+    findings = run_analysis(["timetabling_ga_tpu_torch"], cfg)
+    check(not findings, "analyze: tt-analyze --strict reports:\n"
+          + "\n".join(f.render() for f in findings))
+    return {"torch": torch.__version__, "cuda": torch.version.cuda,
+            "compat_keys": len(TORCH_COMPAT_TABLE), "compat_names": names,
+            "findings": len(findings)}
+
+
 def run_path(name):
     """Run the CLI on the path's instance with its flags, the launch
     counters zeroed just before and read just after; returns (records,
@@ -6627,6 +6680,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     build_s = kernels.build()
     print(json.dumps({"build_seconds": round(build_s, 3)}))
+    print(json.dumps({"analyze": analyze_phase()}))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         for name, text in kernels.BUILD_INFO["ptxas"].items():

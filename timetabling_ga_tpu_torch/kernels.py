@@ -252,6 +252,11 @@ def build() -> float:
                                    + "\n".join(failed))
         for src, path in todo.items():
             for name in SOURCES[src]:
+                # keyed by entry name alone: `path` hashes the source and
+                # NVCC_FLAGS (_lib_path). The one other writer,
+                # k5_phases._instrumented, swaps in -DTT_K5_PROF builds
+                # under the same names and puts these back in its `finally`
+                # tt-analyze: ignore[TT202]
                 _LIBS[name] = load(name, path)
         BUILD_INFO["seconds"] = time.monotonic() - t0
         if todo:

@@ -149,6 +149,9 @@ def penalty_cluster_size(P: int, sm_count: int) -> int:
 
 def penalty_cluster(pa, P: int, device) -> int:
     """The cluster size K2's wrapper takes on `device` for P rows."""
+    # a read of the struct PyTorch keeps for each card from its first
+    # query (at::cuda::getDeviceProperties), not a driver call
+    # tt-analyze: ignore[TT603]
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return penalty_cluster_size(P, sms)
 

@@ -523,6 +523,9 @@ def cluster_size(n_moves: int, P: int, sm_count: int) -> int:
 def auto_cluster(pa, shape: SweepShape, P: int, device) -> int:
     """The cluster size K5's wrapper takes on `device` for P individuals
     of this pass shape."""
+    # a read of the struct PyTorch keeps for each card from its first
+    # query (at::cuda::getDeviceProperties), not a driver call
+    # tt-analyze: ignore[TT603]
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return cluster_size(shape.n_cand - shape.B * pa.n_slots, P, sms)
 

@@ -85,6 +85,9 @@ def program(name: str, fn):
     A proxy is made again when `fn` is not the one it wraps."""
     p = PROGRAMS.get(name)
     if p is None or getattr(p, "_fn", p) is not fn:
+        # keyed by name alone: the check above rebuilds the proxy when
+        # `fn` is not the one it wraps
+        # tt-analyze: ignore[TT202]
         p = PROGRAMS[name] = obs_cost.instrument(fn, name)
     return p
 
